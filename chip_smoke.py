@@ -10,30 +10,53 @@ Phases (each one fails the run when it fails; nothing is caught):
             (one process per source, all at once) and print the ptxas
             register/spill lines, plus the card's name and power limit
   kernels   each kernel against its plain PyTorch version on the card, at
-            the shapes the Llama-2-7B serving path gives it (bf16, tolerance
-            2e-2) and again in float32 (tolerance 1e-4); times of the
-            kernel, the plain version and, where one PyTorch call computes
-            the same function, that call (``library_ms``), with CUDA events;
-            the bound max(bytes / 3.35 TB/s, flops / 989 TFLOP/s) from this
-            run's shapes and data
+            the shapes the Llama-2-7B serving path and the train step give
+            it (bf16, tolerance 2e-2) and again in float32 (tolerance 1e-4):
+            K1 also with a bf16 x under an fp32 weight, K2's log-sum-exp
+            against torch.logsumexp of the plain scores, K5 (dq, dk/dv) at
+            the training shapes and on a small GQA + kv_lens + window case;
+            times of the kernel, the plain version and, where one PyTorch
+            call computes the same function, that call (``library_ms``),
+            with CUDA events; the bound max(bytes / 3.35 TB/s, flops / 989
+            TFLOP/s) from this run's shapes and data
   serve     ``LlamaConfig.llama2_7b()`` at full width (random weights from
             a seed, made on the card) served by ``LLMEngine``: 12 requests
             covering whole-prompt prefill, chunked prefill, radix prefix
             hits and temperature/top-p sampling; every request must finish,
             ``assert_quiescent()`` must pass and every kernel's launch count
-            must have risen during the run
+            must have risen during the run (``check`` and ``anatomy`` run
+            it too, as they read its model and requests)
   check     prefill (flash), chunked prefill (paged chunk) and one decode
             step (paged decode) of served prompts, in bf16 through the
             kernels and through the plain versions, and in float32 through
             the plain versions; the kernel path must be no further from the
             float32 logits than twice the plain bf16 path, and each
-            bf16 path within 0.15 of the float32 logits' RMS
-  anatomy   (only when asked for: --phases build,anatomy) 16 steady decode
-            ticks under torch.profiler: wall vs device kernel time per
-            tick and the kernels that take the device time
+            bf16 path within 0.15 of the float32 logits' RMS; then (with
+            ``train``) the train model's loss and three gradients on one
+            2048-token row, held to the same rule
+  train     the ``bench.py`` headline train step on the port (Llama 0.74B:
+            hidden 2048, 12 layers, 16 heads, vocab 32000, bf16, no remat;
+            AdamW with fp32 master weights, global-norm clip 1.0) at batch
+            4 x 2048 with random weights from a seed: 2 warm-up and 8 timed
+            steps on one fixed batch; every loss finite, the last below the
+            first, and the rms_norm, flash forward and both flash backward
+            kernels launched; step ms, tokens/s, MFU and peak memory
+  anatomy   (only when asked for: --phases build,anatomy or
+            build,train,anatomy) 16 steady decode ticks and, with
+            ``train``, 2 train steps: wall time of three plain runs, then
+            device kernel time per tick or step under torch.profiler with
+            the kernels that take it, and the Python functions that take
+            the host time under cProfile
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. The script exits non-zero,
+``--root DIR`` imports the package from another checkout (an earlier
+commit unpacked with ``git archive``), so that two trees can be compared
+under the same measurement in one call: parent, change, change, parent.
+
+The line before the last is a JSON object with one entry per kernel and
+path (``"path": "serve"`` or ``"train"``): its launches are counted in that
+path's own run, with every count set to 0 just before it, and its times are
+taken at the shapes that path gives the kernel. The last line is
+``{"ok": true, "device": {...}}``. The script exits non-zero,
 printing no result, when there is no card or the port is not beside it.
 """
 from __future__ import annotations
@@ -61,7 +84,21 @@ SOURCES = {
                     "paddle_tpu/ops/pallas/paged_attention.py:373"),
     "paged_decode": ("paddle_tpu_torch/csrc/paged_decode.cu",
                      "paddle_tpu/ops/pallas/paged_attention.py:90"),
+    "flash_bwd_dq": ("paddle_tpu_torch/csrc/flash_bwd.cu",
+                     "paddle_tpu/ops/pallas/flash_attention.py:271"),
+    "flash_bwd_dkv": ("paddle_tpu_torch/csrc/flash_bwd.cu",
+                      "paddle_tpu/ops/pallas/flash_attention.py:321"),
 }
+# the kernels each path launches (every one must rise in that path's run):
+# ops.cuda's SERVE_KERNELS / TRAIN_KERNELS, spelled out here so that
+# --root can load an earlier tree that lacks them
+PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode"),
+         "train": ("rms_norm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+# the train check: share of the fp32 gradients' RMS that each bf16 path
+# may be from them, and of the fp32 loss
+GRAD_REL = 0.1
+LOSS_REL = 1e-2
+TRAIN_SHAPE = (4, 2048, 16, 128)   # the headline step's q/k/v [B, S, H, D]
 
 
 def log(*a):
@@ -192,17 +229,9 @@ def phase_kernels(torch, dev):
         err = _agree("rms_norm", dtype, (max(e[0] for e in errs),
                                          max(e[1] for e in errs)))
         if main:
-            x, w = cast(cases["rms_norm"][0]["x"]), cast(cases["rms_norm"][0]["w"])
-            rows, h = x.shape
-            es = x.element_size()
-            b_ms, b_by = bound(2 * rows * h * es + h * es, 4 * rows * h)
-            out["rms_norm"] = dict(
-                max_abs_err=err,
-                ms=time_ms(lambda: norms.rms_norm(x, w, 1e-5)),
-                plain_ms=time_ms(lambda: norms.rms_norm_plain(x, w, 1e-5)),
-                library_ms=time_ms(lambda: F.rms_norm(x, (h,), w, 1e-5)),
-                bound_ms=b_ms, bound_by=b_by,
-                shape=f"x [{rows}, {h}] bf16")
+            out["rms_norm"] = _k1_entry(
+                torch, cast(cases["rms_norm"][0]["x"]),
+                cast(cases["rms_norm"][0]["w"]), err)
         # K2
         c = cases["flash_fwd"]
         q, k, v, kl = cast(c["q"]), cast(c["k"]), cast(c["v"]), c["kv_lens"]
@@ -284,13 +313,201 @@ def phase_kernels(torch, dev):
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
                 shape=f"q [{bq}, {nh}, {d}] bf16, pool {list(kp.shape)}, "
                       f"lens sum {int(lens.sum())}")
+    k1_fp32_weight(torch, dev)
+    train = {"rms_norm": k1_train(torch, dev),
+             "flash_fwd": k2_train(torch, dev), **k5(torch, dev)}
     torch.cuda.synchronize()
-    for name, r in out.items():
-        log(f"[kernels] {name} ({r['shape']}): {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library "
-            f"{'n/a' if r['library_ms'] is None else f'{r['library_ms']:.4f} ms'}"
-            f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+    results = {"serve": out, "train": train}
+    for path, rs in results.items():
+        for name, r in rs.items():
+            lib = r["library_ms"]
+            log(f"[kernels] {path} {name} ({r['shape']}): {r['ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms, library "
+                f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+    return results
+
+
+def _k1_entry(torch, x, w, err):
+    """Times and bound of K1 on x [rows, H] under the weight w."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import norms
+    rows, h = x.shape
+    es = x.element_size()
+    b_ms, b_by = bound(2 * rows * h * es + h * w.element_size(), 4 * rows * h)
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: norms.rms_norm(x, w, 1e-5)),
+        plain_ms=time_ms(lambda: norms.rms_norm_plain(x, w, 1e-5)),
+        library_ms=time_ms(lambda: F.rms_norm(x, (h,), w, 1e-5)),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"x [{rows}, {h}] {_short(x.dtype)}, weight "
+              f"{_short(w.dtype)}")
+
+
+def _short(dt):
+    return str(dt).replace("torch.", "").replace("bfloat16", "bf16")
+
+
+def k1_train(torch, dev):
+    """K1 at the train step's shapes: x [4 * 2048, 2048] under a weight of
+    the model's type (bf16), against the plain version."""
+    from paddle_tpu_torch.ops.cuda import norms
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(8192, 2048, generator=g, device=dev).bfloat16()
+    w = (1.0 + 0.1 * torch.randn(2048, generator=g, device=dev)).bfloat16()
+    err = _agree("rms_norm (train shapes)", "bf16", _max_err(
+        norms.rms_norm(x, w, 1e-5), norms.rms_norm_plain(x, w, 1e-5)))
+    return _k1_entry(torch, x, w, err)
+
+
+def k1_fp32_weight(torch, dev):
+    """K1 with a bf16 x under an fp32 weight whose values bf16 cannot hold:
+    the kernel must match the Pallas kernel and the plain version on such
+    a mixed-type call (no path of the port makes one today: the train
+    model's norm weights are bf16, its fp32 masters live in the optimizer
+    state). It must read the weight in fp32, as the plain version does: then
+    the two differ only by fp32 summation order, which changes under 1%
+    of the bf16 results; a weight rounded to bf16 changes ~15% of them."""
+    from paddle_tpu_torch.ops.cuda import norms
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(8192, 2048, generator=g, device=dev).bfloat16()
+    w = 1.0 + 1e-3 * torch.randn(2048, generator=g, device=dev)
+    got = norms.rms_norm(x, w, 1e-5)
+    ref = norms.rms_norm_plain(x, w, 1e-5)
+    _agree("rms_norm (fp32 weight)", "bf16", _max_err(got, ref))
+    same = float((got == ref).float().mean())
+    log(f"[kernels] rms_norm bf16 x, fp32 weight: {same:.5f} of the "
+        f"results bit-equal to the plain version (limit 0.99)")
+    if not same >= 0.99:
+        raise AssertionError(f"rms_norm rounds the fp32 weight: only "
+                             f"{same} of the results equal the plain ones")
+
+
+def _train_qkv(torch, dev, dt):
+    g = torch.Generator(device=dev).manual_seed(99)
+    return [torch.randn(*TRAIN_SHAPE, generator=g, device=dev).to(dt)
+            for _ in range(4)]
+
+
+def _attn_bound(b, s, h, d, es, n_in, n_out, products):
+    """Bound of a causal attention pass at [b, s, h, d]: n_in inputs and
+    n_out outputs of that shape read / written once (plus the fp32
+    lse/delta rows), ``products`` matrix products over the causal half
+    (2 * d flops per live (query, key) pair each)."""
+    pairs = b * h * s * (s + 1) // 2
+    rows = b * s * h
+    return bound(rows * d * es * (n_in + n_out) + 2 * rows * 4,
+                 products * 2 * d * pairs)
+
+
+def k2_train(torch, dev):
+    """K2 at the train step's shapes (bf16, causal, no kv_lens): its
+    output against the plain version and its log-sum-exp, which the
+    backward reads, against torch.logsumexp of the plain fp32 scores."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+    q, k, v, _ = _train_qkv(torch, dev, torch.bfloat16)
+    b, s, h, d = q.shape
+    o, lse = FA.flash_fwd_cuda(q, k, v, True, d ** -0.5, None, None)
+    err = _agree("flash_fwd (train shapes)", "bf16", _max_err(
+        o, FA.flash_attention_plain(q, k, v, causal=True)))
+    scores = torch.matmul(q.transpose(1, 2).float(),
+                          k.transpose(1, 2).float().transpose(-1, -2))
+    scores = scores * d ** -0.5
+    scores = scores.masked_fill(
+        ~torch.ones(s, s, dtype=torch.bool, device=dev).tril(), float("-inf"))
+    _agree("flash_fwd log-sum-exp", "f32",
+           _max_err(lse, torch.logsumexp(scores, -1)))
+    del scores
+    # the serving case: rows with kv_lens, valid rows only
+    c = kernel_cases(torch, dev)["flash_fwd"]
+    q2, k2, v2, kl = c["q"], c["k"], c["v"], c["kv_lens"]
+    _, lse2 = FA.flash_fwd_cuda(q2, k2, v2, True, d ** -0.5, None, kl)
+    _, ref2 = FA.flash_attention_fwd_plain(q2, k2, v2, causal=True,
+                                           kv_lens=kl)
+    valid = (torch.arange(q2.shape[1], device=dev)[None, :]
+             < kl[:, None])[:, None, :].expand_as(lse2)
+    _agree("flash_fwd log-sum-exp (kv_lens)", "f32",
+           _max_err(lse2, ref2, valid))
+    b_ms, b_by = _attn_bound(b, s, h, d, q.element_size(), 3, 1, 2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: FA.flash_fwd_cuda(q, k, v, True, d ** -0.5, None,
+                                             None), iters=20),
+        plain_ms=time_ms(lambda: FA.flash_attention_fwd_plain(
+            q, k, v, causal=True), iters=5, warmup=1),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters=20),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"q/k/v {list(TRAIN_SHAPE)} bf16, causal")
+
+
+def _k5_case(torch, FA, q, k, v, do, causal, window=None, kv_lens=None):
+    """Kernel and plain gradients of one case from the same saved O/LSE."""
+    args = (causal, q.shape[-1] ** -0.5, window, kv_lens)
+    o, lse = FA.flash_fwd_cuda(q, k, v, *args)
+    got = FA.flash_bwd_cuda(q, k, v, o, lse, do, *args)
+    ref = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, *args)
+    return got, ref
+
+
+def k5(torch, dev):
+    """K5a (dq) and K5b (dk, dv) against flash_attention_bwd_plain: at the
+    train step's shapes and on a small GQA + kv_lens + sliding-window case
+    (padded query rows get a zero cotangent, as callers give them), in
+    bf16 and fp32. Times of each kernel at the train shapes; the plain
+    version and the library yardstick (the backward of
+    F.scaled_dot_product_attention, is_causal) compute dq, dk and dv in
+    one call, so both entries carry that call's time."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import _build
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+    g = torch.Generator(device=dev).manual_seed(5)
+    small = [torch.randn(2, 200, h, 128, generator=g, device=dev)
+             for h in (8, 2, 2, 8)]
+    kl = torch.tensor([200, 137], dtype=torch.int32, device=dev)
+    rows = (torch.arange(200, device=dev)[None, :] < kl[:, None])
+    small[3] = small[3] * rows[:, :, None, None]
+    errs = {}
+    for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        cases = [_k5_case(torch, FA, *(t.to(dt) for t in small), True, 64,
+                          kl)]
+        cases.append(_k5_case(torch, FA, *_train_qkv(torch, dev, dt), True))
+        for got, ref in cases:
+            for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+                key = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"
+                e = _agree(f"flash_bwd {name}", dtype, _max_err(a, r))
+                if dtype == "bf16":
+                    errs[key] = max(errs.get(key, 0.0), e)
+        del cases
+    q, k, v, do = _train_qkv(torch, dev, torch.bfloat16)
+    b, s, h, d = q.shape
+    o, lse = FA.flash_fwd_cuda(q, k, v, True, d ** -0.5, None, None)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (_build.dtype_code(q, "k5"), q, k, v, do, lse, delta, True,
+            d ** -0.5, None, None)
+    plain_ms = time_ms(lambda: FA.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal=True), iters=5, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True), iters=20)
+    out = {}
+    es = q.element_size()
+    for key, fn, n_in, n_out, products in (
+            ("flash_bwd_dq", FA.flash_bwd_dq, 4, 1, 3),
+            ("flash_bwd_dkv", FA.flash_bwd_dkv, 4, 2, 4)):
+        b_ms, b_by = _attn_bound(b, s, h, d, es, n_in, n_out, products)
+        out[key] = dict(
+            max_abs_err=errs[key], ms=time_ms(lambda: fn(*args), iters=10),
+            plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+            bound_by=b_by,
+            shape=f"q/k/v/dO {list(TRAIN_SHAPE)} bf16, causal")
     return out
 
 
@@ -350,7 +567,7 @@ def phase_serve(torch, dev, model, np):
             raise AssertionError(f"request {r.req_id} did not finish: "
                                  f"{r.finish_reason}")
     eng.assert_quiescent()
-    missing = [k for k, n in counts.items() if n <= 0]
+    missing = [k for k in PATHS["serve"] if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the serving path: "
                              f"{missing} ({counts})")
@@ -505,32 +722,173 @@ def phase_check(torch, model, reqs):
                                  f"{e_k} > 2 * {e_p}")
 
 
-def phase_anatomy(torch, dev, model, np):
-    """Decode-tick anatomy (diagnostics, not in the default phases): 8
-    active slots in steady decode, 16 ticks under torch.profiler; wall
-    time per tick against device kernel time per tick, and the kernels
-    that take the device time."""
-    from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch.serving import LLMEngine, Request
-    eng = LLMEngine(model, num_slots=8, block_size=16, max_prompt_len=128,
-                    max_seq_len=512, num_blocks=256, seed=0, device=dev)
-    rs = np.random.RandomState(2)
-    for _ in range(8):
-        eng.add_request(Request(rs.randint(3, 32000, size=100),
-                                max_new_tokens=64))
-    for _ in range(4):                     # admission + first decode ticks
-        eng.step()
-    ticks = 16
+# ------------------------------------------------------------------ train
+def train_config():
+    """``bench.py`` ``main()``'s on-chip configuration, taken as it is."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig(vocab_size=32000, hidden_size=2048,
+                       intermediate_size=5504, num_hidden_layers=12,
+                       num_attention_heads=16, num_key_value_heads=16,
+                       max_position_embeddings=2048, dtype=torch.bfloat16,
+                       remat=False)
+
+
+def train_batch(torch, dev, np, cfg, batch=4, seq=2048):
+    """Ids from np.random.RandomState(0); labels shifted by one, -100 last."""
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (batch, seq))
+    labels = np.concatenate([ids[:, 1:], np.full((batch, 1), -100)], axis=1)
+    return (torch.as_tensor(ids, device=dev),
+            torch.as_tensor(labels, device=dev))
+
+
+GRAD_NAMES = ("model.layers.0.self_attn.qkv_proj",
+              "model.layers.11.mlp.down_proj", "lm_head")
+
+
+def _loss_and_grads(model, ids, labels):
+    params = dict(model.named_parameters())
+    model.zero_grad(set_to_none=True)
+    loss = model.loss(ids, labels)
+    loss.backward()
+    grads = {n: params[n].grad.float().clone() for n in GRAD_NAMES}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def phase_train_check(torch, model, ids, labels):
+    """The loss and the gradients of three weights (first layer's qkv,
+    last layer's down projection, lm_head) on batch row 0 (1 x 2048): in
+    bf16 through the kernels, in bf16 through the plain versions (autograd
+    through plain PyTorch, the kernels' backward not involved) and in
+    float32 through the plain versions. As in the serving check, the
+    kernel path must be no further from float32 than twice the plain bf16
+    path, RMS(kernel - fp32) <= 2 * RMS(plain - fp32), and each bf16 path
+    within GRAD_REL of the float32 gradient's RMS (LOSS_REL of the loss)."""
+    ids, labels = ids[:1], labels[:1]
+    got = _loss_and_grads(model, ids, labels)
+    with plain_kernels():
+        ref = _loss_and_grads(model, ids, labels)
+        m32 = fp32_copy(torch, model)
+        ref32 = _loss_and_grads(m32, ids, labels)
+        del m32
+    torch.cuda.empty_cache()
+    card = card_line()
+    (lk, gk), (lp, gp), (lf, gf) = got, ref, ref32
+    log(f"[check] train loss on 1 x {ids.shape[1]}: kernel {lk:.6f}, plain "
+        f"bf16 {lp:.6f}, fp32 {lf:.6f} (limit {LOSS_REL} of the fp32 loss; "
+        f"{card})")
+    for path, lx in (("kernel", lk), ("plain", lp)):
+        if not (abs(lx - lf) <= LOSS_REL * abs(lf)):
+            raise AssertionError(f"train loss: {path} bf16 path {lx} vs "
+                                 f"fp32 {lf}")
+    for n in GRAD_NAMES:
+        a, r, f = gk[n], gp[n], gf[n]
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"grad {n}: not finite")
+        e_k, e_p, rms_f = _rms(a - f), _rms(r - f), _rms(f)
+        log(f"[check] grad {n} {list(a.shape)} (RMS {rms_f:.4e}): RMS "
+            f"kernel-fp32 {e_k:.4e} ({e_k / rms_f:.4f} of RMS), plain-fp32 "
+            f"{e_p:.4e} ({e_p / rms_f:.4f} of RMS) (limit {GRAD_REL})")
+        for path, e in (("kernel", e_k), ("plain", e_p)):
+            if not e <= GRAD_REL * rms_f:
+                raise AssertionError(f"grad {n}: {path} bf16 path is {e} "
+                                     f"from fp32, over {GRAD_REL} * {rms_f}")
+        if not e_k <= 2 * e_p:
+            raise AssertionError(f"grad {n}: kernel path {e_k} > 2 x the "
+                                 f"plain bf16 path {e_p}")
+
+
+def phase_train(torch, dev, np, check, anatomy=False):
+    """The headline train step: 2 warm-up and 8 timed steps on one fixed
+    batch through make_train_step + AdamW; returns the launch counts.
+    ``anatomy``: then 2 more steps timed and 2 under torch.profiler."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               num_flops_per_token)
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.train import init_state, make_train_step
+    cfg = train_config()
+    tm = time.monotonic()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    nparams = sum(p.numel() for p in model.parameters())
+    ids, labels = train_batch(torch, dev, np, cfg)
     torch.cuda.synchronize()
+    log(f"[train] {nparams / 1e9:.3f} B params, random weights in "
+        f"{time.monotonic() - tm:.1f} s")
+    if check:
+        phase_train_check(torch, model, ids, labels)
+    opt = O.AdamW(learning_rate=3e-4, weight_decay=0.1,
+                  grad_clip=O.ClipGradByGlobalNorm(1.0), multi_precision=True)
+    state = init_state(model, opt)
+    step = make_train_step(lambda m, i, lab: m.loss(i, lab), opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    losses = []
+    for _ in range(2):
+        state, loss = step(state, ids, labels)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    n_steps = 8
     t0 = time.monotonic()
-    for _ in range(ticks):
-        eng.step()
+    for _ in range(n_steps):
+        state, loss = step(state, ids, labels)
+        losses.append(loss)
     torch.cuda.synchronize()
-    wall = (time.monotonic() - t0) / ticks
+    step_s = (time.monotonic() - t0) / n_steps
+    counts = K.launches()
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train loss did not fall: {losses}")
+    missing = [k for k in PATHS["train"] if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the train path: "
+                             f"{missing} ({counts})")
+    b, s = ids.shape
+    tok_s = b * s / step_s
+    mfu = num_flops_per_token(cfg, s) * tok_s / PEAK_BF16_FLOPS
+    card = card_line()
+    log(f"[train] losses {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"[train] batch {b} x {s}: {1e3 * step_s:.1f} ms/step, "
+        f"{tok_s:.0f} tokens/s, MFU {100 * mfu:.2f}% of 989 TFLOP/s, peak "
+        f"allocated {peak / 2**30:.2f} GiB ({card})")
+    log(f"[train] launches over {len(losses)} steps: {counts}")
+    if anatomy:
+        def steps():
+            nonlocal state
+            for _ in range(2):
+                state, _ = step(state, ids, labels)
+        _anatomy(torch, f"train step, batch {b} x {s}", "step", steps, 2)
+    del state, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _anatomy(torch, label, unit, run, n):
+    """Wall time per ``unit`` of ``run`` (which does n of them, timed three
+    times plain, then once under torch.profiler and once under cProfile)
+    against the device kernel time; the kernels that take the device time
+    and the Python functions that take the host time."""
+    import cProfile
+    import pstats
+    from torch.profiler import ProfilerActivity, profile
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.monotonic() - t0) / n)
+    wall = sorted(walls)[1]
+    log(f"[anatomy] {label}: wall " + " / ".join(
+        f"{1e3 * w:.2f}" for w in walls) + f" ms/{unit} over three runs")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(ticks):
-            eng.step()
+        run()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -542,25 +900,63 @@ def phase_anatomy(torch, dev, model, np):
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0:
-            rows.append((us / 1e3 / ticks, e.count // ticks, e.key))
+            rows.append((us / 1e3 / n, e.count // n, e.key))
     rows.sort(reverse=True)
     card = card_line()
     dev_ms = sum(r[0] for r in rows)
     if dev_ms <= 0:
         log(f"[anatomy] the profiler recorded no device time ({card}): "
-            f"device share not measured; wall {1e3 * wall:.2f} ms/tick")
-        return
-    log(f"[anatomy] decode tick, 8 active slots: wall {1e3 * wall:.2f} "
-        f"ms/tick, device kernels {dev_ms:.2f} ms/tick, device idle "
-        f"{100 * max(0.0, 1 - dev_ms / (1e3 * wall)):.1f}% ({card})")
-    for ms, n, key in rows[:12]:
-        log(f"[anatomy] {ms:8.3f} ms/tick {100 * ms / dev_ms:5.1f}% "
-            f"{n:5d}x/tick  {key[:90]}")
+            f"device share not measured; wall {1e3 * wall:.2f} ms/{unit}")
+    else:
+        log(f"[anatomy] {label}: wall {1e3 * wall:.2f} ms/{unit} (median), "
+            f"device kernels {dev_ms:.2f} ms/{unit}, device idle "
+            f"{100 * max(0.0, 1 - dev_ms / (1e3 * wall)):.1f}% ({card})")
+    for ms, cnt, key in rows[:14]:
+        log(f"[anatomy] {ms:8.3f} ms/{unit} {100 * ms / dev_ms:5.1f}% "
+            f"{cnt:5d}x/{unit}  {key[:90]}")
+    # host: each Python function's own time (cProfile slows the run, so
+    # the shares count, not the sum)
+    prof_py = cProfile.Profile()
+    prof_py.enable()
+    run()
+    torch.cuda.synchronize()
+    prof_py.disable()
+    fns = sorted(((tt, nc, f) for f, (_, nc, tt, _, _) in
+                  pstats.Stats(prof_py).stats.items()), reverse=True)
+    host_ms = 1e3 * sum(f[0] for f in fns) / n
+    log(f"[anatomy] {label}: host {host_ms:.2f} ms/{unit} under cProfile")
+    for tt, nc, (path, line, fn) in fns[:10]:
+        ms = 1e3 * tt / n
+        log(f"[anatomy] host {ms:8.3f} ms/{unit} {100 * ms / host_ms:5.1f}% "
+            f"{nc // n:5d}x/{unit}  {os.path.basename(path)}:{line}({fn})")
+
+
+def phase_anatomy(torch, dev, model, np):
+    """Decode-tick anatomy (diagnostics, not in the default phases): 8
+    active slots in steady decode, 16 ticks per run (five runs: every
+    slot stays active through them)."""
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    eng = LLMEngine(model, num_slots=8, block_size=16, max_prompt_len=128,
+                    max_seq_len=512, num_blocks=256, seed=0, device=dev)
+    rs = np.random.RandomState(2)
+    for _ in range(8):
+        eng.add_request(Request(rs.randint(3, 32000, size=100),
+                                max_new_tokens=128))
+    for _ in range(4):                     # admission + first decode ticks
+        eng.step()
+
+    def ticks():
+        for _ in range(16):
+            eng.step()
+    _anatomy(torch, "decode tick, 8 active slots", "tick", ticks, 16)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,serve,check")
+    ap.add_argument("--phases", default="build,kernels,serve,check,train")
+    ap.add_argument("--root", help="import paddle_tpu_torch from the "
+                    "checkout at ROOT instead of this one: an earlier "
+                    "tree's package under this script's measurement")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -569,6 +965,8 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
     import paddle_tpu_torch  # noqa: F401  (fails without the checkout)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -580,28 +978,36 @@ def main(argv=None):
     if "build" in phases:
         phase_build()
     results = phase_kernels(torch, dev) if "kernels" in phases else {}
-    counts = {}
+    counts = {}                # path -> {kernel: launches in its own run}
     if {"serve", "check", "anatomy"} & set(phases):
         tm = time.monotonic()
         model = build_model(dev)
         torch.cuda.synchronize()
         log(f"[serve] llama2_7b width, {model.cfg.num_hidden_layers} layers, "
             f"random weights in {time.monotonic() - tm:.1f} s")
-        counts, reqs = phase_serve(torch, dev, model, np)
+        counts["serve"], reqs = phase_serve(torch, dev, model, np)
         if "check" in phases:
             phase_check(torch, model, reqs)
         if "anatomy" in phases:
             phase_anatomy(torch, dev, model, np)
+        del model
+        torch.cuda.empty_cache()
+    if "train" in phases:
+        counts["train"] = phase_train(torch, dev, np, "check" in phases,
+                                      "anatomy" in phases)
     kern = []
-    for name, (src, rep) in SOURCES.items():
-        r = results.get(name, {})
-        kern.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": counts.get(name, 0),
-                     "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
-                     "plain_ms": r.get("plain_ms"),
-                     "bound_ms": r.get("bound_ms"),
-                     "bound_by": r.get("bound_by"),
-                     "library_ms": r.get("library_ms")})
+    for path, names in PATHS.items():
+        for name in names:
+            src, rep = SOURCES[name]
+            r = results.get(path, {}).get(name, {})
+            kern.append({"name": name, "path": path, "route": "cuda",
+                         "source": src, "replaces": rep,
+                         "launches": counts.get(path, {}).get(name, 0),
+                         "max_abs_err": r.get("max_abs_err"),
+                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+                         "bound_ms": r.get("bound_ms"),
+                         "bound_by": r.get("bound_by"),
+                         "library_ms": r.get("library_ms")})
     log(f"[done] {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": kern}))
     print(card_line())

@@ -1,0 +1,355 @@
+// K5 — flash-attention backward for Hopper (sm_90a): dq (K5a) and dk/dv
+// (K5b), the flash-2 recomputation from the forward's saved O and LSE.
+//
+// Replaces: paddle_tpu/ops/pallas/flash_attention.py _dq_kernel (K5a) and
+// _dkv_kernel (K5b), both driven by _flash_bwd. Layouts are the JAX ones:
+// q/dout/dq [B, S, H, D], k/v/dk/dv [B, Sk, Hkv, D], lse and delta
+// [B, H, S] fp32. The LSE is K2's: natural log of the scaled scores, 0 for
+// a row with no live key. delta = sum(dO * O, -1) comes from the wrapper.
+//
+// Per (query i, key j) entry that the forward's mask keeps:
+//   P = exp(scale * q.k - lse_i),  dP = dO_i . v_j,
+//   dS = P * (dP - delta_i) * scale,
+//   dq_i += dS k_j,  dk_j += dS q_i,  dv_j += P dO_i.
+// Masked entries give P = 0 exactly (the same causal / kv_lens / window
+// rule as K2, with queries end-aligned to the key axis).
+//
+// What bounds it on this card: at the training shapes (S = 2048, D = 128)
+// the work is ~S flops per byte, far above the H100's ridge, so the bound
+// is the tensor-core rate. This first version computes every product with
+// fp32 FMAs on the CUDA cores, so it runs at the CUDA-core rate instead;
+// the mma/wgmma version is later work.
+//
+// Design (blocks run in parallel, so each output is owned by one block and
+// written once; no atomics, so the result is deterministic, as on the TPU):
+//   dq  — one block per (64-row q tile, head, batch row), a loop over the
+//         live key tiles [kbeg, kend) of K2; lane = key in a 32-key tile,
+//         a warp owns 8 query rows, dq accumulates in registers.
+//   dkv — one block per (64-row k tile, KV head, batch row), a loop over
+//         the G query heads of the group and, for each, over the 32-row q
+//         tiles that reach the k tile (causal: from the tile's diagonal on;
+//         window: up to the last key + window); lane = query, a warp owns 8
+//         key rows, dk and dv accumulate in registers. The GQA sum over the
+//         group happens inside the block: no per-q-head partial buffer.
+#include "attn_tile.cuh"
+
+using namespace ptt;
+
+namespace {
+
+// fp32 words of dynamic shared memory, the same for both kernels: two
+// 64-row tiles kept for the whole block and two 32-row tiles that stream
+// (row stride D + 1, so the lanes of a warp reading rows hit distinct
+// banks), plus the streamed rows' lse and delta
+template <int D>
+constexpr int bwd_smem_floats() {
+  return 2 * kBQ * D + 2 * kBK * (D + 1) + 2 * kBK;
+}
+
+// The valid key length of batch row b and the position offset of its
+// queries: the forward's rule (flash_fwd.cu, the reference's _q_offset)
+__device__ __forceinline__ int row_geometry(const int* kv_lens, int b, int S,
+                                            int Sk, int* klen) {
+  int len = Sk;
+  if (kv_lens != nullptr) len = min(max(kv_lens[b], 0), Sk);
+  int q_off = Sk - S;
+  if (kv_lens != nullptr && q_off > 0) q_off += len - Sk;
+  *klen = len;
+  return q_off;
+}
+
+__device__ __forceinline__ bool keep(int qp, int kp, int klen, int causal,
+                                     int window) {
+  return kp < klen && (!causal || qp >= kp) &&
+         (window <= 0 || qp - kp < window);
+}
+
+template <int D, typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const int* __restrict__ kv_lens, T* __restrict__ dq,
+                        int S, int Sk, int H, int Hkv, float scale,
+                        int causal, int window) {
+  extern __shared__ float smem[];
+  float* q_s = smem;                 // [kBQ][D]
+  float* do_s = q_s + kBQ * D;       // [kBQ][D]
+  float* k_s = do_s + kBQ * D;       // [kBK][D + 1]
+  float* v_s = k_s + kBK * (D + 1);  // [kBK][D + 1]
+  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / Hkv);
+  int klen;
+  const int q_off = row_geometry(kv_lens, b, S, Sk, &klen);
+
+  for (int i = threadIdx.x; i < kBQ * D; i += blockDim.x) {
+    const int r = i / D, d = i - r * D, qi = q0 + r;
+    const size_t off = ((size_t)(b * S + qi) * H + h) * D + d;
+    q_s[i] = qi < S ? to_f(q[off]) : 0.f;
+    do_s[i] = qi < S ? to_f(dout[off]) : 0.f;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float lse_r[kRows], dl_r[kRows], acc[kRows][D / 32];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qi = q0 + warp * kRows + r;
+    const size_t row = ((size_t)b * H + h) * S + qi;
+    lse_r[r] = qi < S ? lse[row] : 0.f;
+    dl_r[r] = qi < S ? delta[row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c) acc[r][c] = 0.f;
+  }
+  const int last = min(q0 + kBQ, S) - 1;
+  int kend = klen;
+  if (causal) kend = min(kend, q_off + last + 1);
+  const int kbeg = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
+
+  for (int k0 = kbeg; k0 < kend; k0 += kBK) {
+    const int nk = min(kBK, kend - k0);
+    __syncthreads();  // q/dO tiles stored / previous K,V tile consumed
+    for (int i = threadIdx.x; i < nk * D; i += blockDim.x) {
+      const int j = i / D, d = i - j * D;
+      const size_t src = ((size_t)(b * Sk + k0 + j) * Hkv + kvh) * D + d;
+      k_s[j * (D + 1) + d] = to_f(k[src]);
+      v_s[j * (D + 1) + d] = to_f(v[src]);
+    }
+    __syncthreads();
+    float s[kRows], dp[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.f;
+    if (lane < nk) {
+      const float* kr = k_s + lane * (D + 1);
+      const float* vr = v_s + lane * (D + 1);
+      const float* qw = q_s + warp * kRows * D;
+      const float* dw = do_s + warp * kRows * D;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        const float kd = kr[d], vd = vr[d];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          s[r] = fmaf(qw[r * D + d], kd, s[r]);
+          dp[r] = fmaf(dw[r * D + d], vd, dp[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int qi = q0 + warp * kRows + r;
+      const bool ok = lane < nk && qi < S &&
+                      keep(q_off + qi, k0 + lane, klen, causal, window);
+      const float p = ok ? expf(s[r] * scale - lse_r[r]) : 0.f;
+      const float ds = p * (dp[r] - dl_r[r]) * scale;
+      for (int j = 0; j < nk; ++j) {
+        const float dsj = __shfl_sync(0xffffffffu, ds, j);
+        const float* kr = k_s + j * (D + 1) + lane;
+#pragma unroll
+        for (int c = 0; c < D / 32; ++c)
+          acc[r][c] = fmaf(dsj, kr[32 * c], acc[r][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qi = q0 + warp * kRows + r;
+    if (qi >= S) continue;
+    T* row = dq + ((size_t)(b * S + qi) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c) row[lane + 32 * c] = from_f<T>(acc[r][c]);
+  }
+}
+
+template <int D, typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const int* __restrict__ kv_lens, T* __restrict__ dk,
+                         T* __restrict__ dv, int S, int Sk, int H, int Hkv,
+                         float scale, int causal, int window) {
+  extern __shared__ float smem[];
+  float* k_s = smem;                   // [kBQ][D]: this block's 64 keys
+  float* v_s = k_s + kBQ * D;          // [kBQ][D]
+  float* q_s = v_s + kBQ * D;          // [kBK][D + 1]: 32 streamed queries
+  float* do_s = q_s + kBK * (D + 1);   // [kBK][D + 1]
+  float* lse_s = do_s + kBK * (D + 1); // [kBK]
+  float* dl_s = lse_s + kBK;           // [kBK]
+  const int k0 = blockIdx.x * kBQ, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / Hkv;
+  int klen;
+  const int q_off = row_geometry(kv_lens, b, S, Sk, &klen);
+
+  for (int i = threadIdx.x; i < kBQ * D; i += blockDim.x) {
+    const int r = i / D, d = i - r * D, kj = k0 + r;
+    const size_t off = ((size_t)(b * Sk + kj) * Hkv + kvh) * D + d;
+    k_s[i] = kj < Sk ? to_f(k[off]) : 0.f;
+    v_s[i] = kj < Sk ? to_f(v[off]) : 0.f;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float dk_acc[kRows][D / 32], dv_acc[kRows][D / 32];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
+
+  // the query rows that reach this tile's live keys [k0, klast]
+  const int klast = min(k0 + kBQ, klen) - 1;
+  int qbeg = 0, qend = S;
+  if (causal) qbeg = max(0, k0 - q_off);
+  if (window > 0) qend = min(qend, klast + window - q_off);
+  if (klast < k0) qend = qbeg;  // the whole tile lies past kv_lens
+
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    for (int qt = qbeg; qt < qend; qt += kBK) {
+      const int nq = min(kBK, qend - qt);
+      __syncthreads();  // K/V tile stored / previous q tile consumed
+      for (int i = threadIdx.x; i < nq * D; i += blockDim.x) {
+        const int j = i / D, d = i - j * D;
+        const size_t src = ((size_t)(b * S + qt + j) * H + h) * D + d;
+        q_s[j * (D + 1) + d] = to_f(q[src]);
+        do_s[j * (D + 1) + d] = to_f(dout[src]);
+      }
+      if (threadIdx.x < nq) {
+        const size_t row = ((size_t)b * H + h) * S + qt + threadIdx.x;
+        lse_s[threadIdx.x] = lse[row];
+        dl_s[threadIdx.x] = delta[row];
+      }
+      __syncthreads();
+      float s[kRows], dp[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.f;
+      if (lane < nq) {
+        const float* qr = q_s + lane * (D + 1);
+        const float* dr = do_s + lane * (D + 1);
+        const float* kw = k_s + warp * kRows * D;
+        const float* vw = v_s + warp * kRows * D;
+#pragma unroll 4
+        for (int d = 0; d < D; ++d) {
+          const float qd = qr[d], dd = dr[d];
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            s[r] = fmaf(kw[r * D + d], qd, s[r]);
+            dp[r] = fmaf(vw[r * D + d], dd, dp[r]);
+          }
+        }
+      }
+      const float lse_l = lane < nq ? lse_s[lane] : 0.f;
+      const float dl_l = lane < nq ? dl_s[lane] : 0.f;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int kp = k0 + warp * kRows + r;
+        const bool ok = lane < nq &&
+                        keep(q_off + qt + lane, kp, klen, causal, window);
+        const float p = ok ? expf(s[r] * scale - lse_l) : 0.f;
+        const float ds = p * (dp[r] - dl_l) * scale;
+        for (int j = 0; j < nq; ++j) {
+          const float pj = __shfl_sync(0xffffffffu, p, j);
+          const float dsj = __shfl_sync(0xffffffffu, ds, j);
+          const float* qr = q_s + j * (D + 1) + lane;
+          const float* dr = do_s + j * (D + 1) + lane;
+#pragma unroll
+          for (int c = 0; c < D / 32; ++c) {
+            dv_acc[r][c] = fmaf(pj, dr[32 * c], dv_acc[r][c]);
+            dk_acc[r][c] = fmaf(dsj, qr[32 * c], dk_acc[r][c]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int kj = k0 + warp * kRows + r;
+    if (kj >= Sk) continue;
+    const size_t off = ((size_t)(b * Sk + kj) * Hkv + kvh) * D;
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c) {
+      dk[off + lane + 32 * c] = from_f<T>(dk_acc[r][c]);
+      dv[off + lane + 32 * c] = from_f<T>(dv_acc[r][c]);
+    }
+  }
+}
+
+template <int D, typename T>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, const void* kv_lens,
+              void* dq, int B, int S, int Sk, int H, int Hkv, float scale,
+              int causal, int window, void* stream) {
+  const int smem = bwd_smem_floats<D>() * static_cast<int>(sizeof(float));
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  flash_bwd_dq_kernel<D, T><<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(kv_lens), static_cast<T*>(dq), S, Sk, H, Hkv,
+      scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, typename T>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, const void* kv_lens,
+               void* dk, void* dv, int B, int S, int Sk, int H, int Hkv,
+               float scale, int causal, int window, void* stream) {
+  const int smem = bwd_smem_floats<D>() * static_cast<int>(sizeof(float));
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((Sk + kBQ - 1) / kBQ, Hkv, B);
+  flash_bwd_dkv_kernel<D, T>
+      <<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<const int*>(kv_lens), static_cast<T*>(dk),
+          static_cast<T*>(dv), S, Sk, H, Hkv, scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16; head_dim: 64 or 128. kv_lens may be
+// null (no padding); window <= 0 means no sliding window. H % Hkv == 0.
+extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q,
+                            const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta,
+                            const void* kv_lens, void* dq, int B, int S,
+                            int Sk, int H, int Hkv, float scale, int causal,
+                            int window, void* stream) {
+  if (B <= 0 || S <= 0) return 0;
+#define PTT_DQ(DIM, T)                                                      \
+  return launch_dq<DIM, T>(q, k, v, dout, lse, delta, kv_lens, dq, B, S, Sk, \
+                           H, Hkv, scale, causal, window, stream)
+  if (dtype == kF32 && head_dim == 64) PTT_DQ(64, float);
+  if (dtype == kF32 && head_dim == 128) PTT_DQ(128, float);
+  if (dtype == kBF16 && head_dim == 64) PTT_DQ(64, __nv_bfloat16);
+  if (dtype == kBF16 && head_dim == 128) PTT_DQ(128, __nv_bfloat16);
+#undef PTT_DQ
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int flash_bwd_dkv(int dtype, int head_dim, const void* q,
+                             const void* k, const void* v, const void* dout,
+                             const void* lse, const void* delta,
+                             const void* kv_lens, void* dk, void* dv, int B,
+                             int S, int Sk, int H, int Hkv, float scale,
+                             int causal, int window, void* stream) {
+  if (B <= 0 || Sk <= 0) return 0;
+#define PTT_DKV(DIM, T)                                                     \
+  return launch_dkv<DIM, T>(q, k, v, dout, lse, delta, kv_lens, dk, dv, B, \
+                            S, Sk, H, Hkv, scale, causal, window, stream)
+  if (dtype == kF32 && head_dim == 64) PTT_DKV(64, float);
+  if (dtype == kF32 && head_dim == 128) PTT_DKV(128, float);
+  if (dtype == kBF16 && head_dim == 64) PTT_DKV(64, __nv_bfloat16);
+  if (dtype == kBF16 && head_dim == 128) PTT_DKV(128, __nv_bfloat16);
+#undef PTT_DKV
+  return static_cast<int>(cudaErrorInvalidValue);
+}

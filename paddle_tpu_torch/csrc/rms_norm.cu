@@ -2,7 +2,9 @@
 //
 // Replaces: paddle_tpu/ops/pallas/norms.py _rms_fwd_kernel (via _rms_fwd).
 // Computes y = x * rsqrt(mean(x^2) + eps) * w per row with fp32 math and
-// ONE cast at the end (the Pallas rounding: the weight multiplies in fp32).
+// ONE cast at the end (the Pallas rounding: the weight is read in its own
+// type, fp32 or bf16, and multiplies in fp32, so an fp32 weight under a
+// bf16 activation, a mixed-type call, is never rounded to bf16).
 //
 // Bound on this card: bytes. A row is read, reduced and written with a
 // handful of flops per element, far below the ~295 flop/byte ridge of an
@@ -21,9 +23,16 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 
-template <typename T, int VEC>
+// VEC consecutive elements, aligned to their size, so that one load
+// compiles to 16-byte vector loads
+template <typename TW, int VEC>
+struct alignas(sizeof(TW) * VEC) Pack {
+  TW v[VEC];
+};
+
+template <typename T, typename TW, int VEC>
 __global__ void __launch_bounds__(kMaxThreads)
-    rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ w,
+    rms_norm_kernel(const T* __restrict__ x, const TW* __restrict__ w,
                     T* __restrict__ y, int h, float eps) {
   __shared__ float red[kMaxThreads / 32];
   __shared__ float inv_s;
@@ -63,9 +72,10 @@ __global__ void __launch_bounds__(kMaxThreads)
       yr[i] = from_f<T>(to_f(xr[i]) * inv * to_f(w[i]));
     } else {
       const uint4 u = reinterpret_cast<const uint4*>(xr)[i];
-      const uint4 uw = reinterpret_cast<const uint4*>(w)[i];
       const T* e = reinterpret_cast<const T*>(&u);
-      const T* ew = reinterpret_cast<const T*>(&uw);
+      // VEC weights in one or two 16-byte loads (the weight is L2-resident)
+      const Pack<TW, VEC> pw = reinterpret_cast<const Pack<TW, VEC>*>(w)[i];
+      const TW* ew = pw.v;
       uint4 out;
       T* eo = reinterpret_cast<T*>(&out);
 #pragma unroll
@@ -76,32 +86,47 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-template <typename T, int VEC>
+template <typename T, typename TW, int VEC>
 int launch(const void* x, const void* w, void* y, int rows, int h, float eps,
            void* stream) {
   const int nv = h / VEC;
   int threads = ((nv + 31) / 32) * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
   if (threads < 32) threads = 32;
-  rms_norm_kernel<T, VEC><<<rows, threads, 0, (cudaStream_t)stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
+  rms_norm_kernel<T, TW, VEC><<<rows, threads, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(x), static_cast<const TW*>(w), static_cast<T*>(y),
       h, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int dispatch_w(int wdtype, int vec, const void* x, const void* w, void* y,
+               int rows, int h, float eps, void* stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (wdtype == kF32)
+    return vec > 1 ? launch<T, float, kVec>(x, w, y, rows, h, eps, stream)
+                   : launch<T, float, 1>(x, w, y, rows, h, eps, stream);
+  if (wdtype == kBF16)
+    return vec > 1
+               ? launch<T, __nv_bfloat16, kVec>(x, w, y, rows, h, eps, stream)
+               : launch<T, __nv_bfloat16, 1>(x, w, y, rows, h, eps, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. vec: 1 (scalar) or 16-byte vectors
-// (the wrapper passes 1 unless h and every pointer allow 16-byte access).
-extern "C" int rms_norm_fwd(int dtype, int vec, const void* x, const void* w,
-                            void* y, int rows, int h, float eps,
-                            void* stream) {
+// dtype / wdtype (of x and of the weight): 0 = float32, 1 = bfloat16.
+// vec: 1 (scalar) or 16-byte vectors of x and y (the wrapper passes 1
+// unless h and the pointers allow it: x and y 16-byte aligned, the weight
+// aligned to 16 / sizeof(x element) of its own elements).
+extern "C" int rms_norm_fwd(int dtype, int wdtype, int vec, const void* x,
+                            const void* w, void* y, int rows, int h,
+                            float eps, void* stream) {
   if (rows <= 0) return 0;
   if (dtype == kF32)
-    return vec > 1 ? launch<float, 4>(x, w, y, rows, h, eps, stream)
-                   : launch<float, 1>(x, w, y, rows, h, eps, stream);
+    return dispatch_w<float>(wdtype, vec, x, w, y, rows, h, eps, stream);
   if (dtype == kBF16)
-    return vec > 1 ? launch<__nv_bfloat16, 8>(x, w, y, rows, h, eps, stream)
-                   : launch<__nv_bfloat16, 1>(x, w, y, rows, h, eps, stream);
+    return dispatch_w<__nv_bfloat16>(wdtype, vec, x, w, y, rows, h, eps,
+                                     stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,10 +6,16 @@ the fused ``self_attn.qkv_proj`` is ``[h, (nh + 2*nkv)*d]`` and the fused
 :func:`paddle_tpu_torch.models.convert.load_jax_state_dict` loads a
 reference model's ``state_dict()`` with no per-model table. Norms go
 through ``ops.fused_rms_norm`` (K1 on the card) and attention through
-``ops.attention.scaled_dot_product_attention`` (K2 on the card).
+``ops.attention.scaled_dot_product_attention`` (K2 forward and K5
+backward on the card).
 
-The model is built for inference (the serving slice); the loss, remat
-policies, fp8, scanned layers and sequence parallelism are later slices.
+The parameters are trainable: :meth:`LlamaForCausalLM.loss` is what the
+train step differentiates (``train.step.make_train_step``). ``remat``
+recomputes each decoder layer in the backward pass
+(``torch.utils.checkpoint``, the counterpart of the per-layer
+``jax.checkpoint``); of the reference's selective ``remat_policy`` modes
+only ``None``/``"full"`` are ported. fp8, scanned layers and sequence
+parallelism are later slices.
 """
 from __future__ import annotations
 
@@ -17,12 +23,18 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.core.random import generator
 from paddle_tpu_torch.ops import attention as A
+from paddle_tpu_torch.nn.functional import parallel_cross_entropy
 from paddle_tpu_torch.ops import fused_rms_norm
 from paddle_tpu_torch.quantization import wo_matmul
+
+# remat_policy modes of the reference that save named activations; the
+# port recomputes the whole layer ("full") or nothing
+_SELECTIVE_REMAT = ("hidden", "no_ffn", "dots")
 
 
 @dataclass
@@ -39,9 +51,24 @@ class LlamaConfig:
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    # None/"full": recompute the whole layer in backward; the selective
+    # modes "hidden", "no_ffn", "dots" raise (ROADMAP.md queue 1 item 4)
+    remat_policy: str | None = None
     sliding_window: int | None = None  # Mistral-style causal window
     attention_bias: bool = False       # Qwen2: bias on fused qkv only
     rope_scaling: dict | None = None   # linear | ntk | dynamic
+
+    def __post_init__(self):
+        if self.remat_policy in _SELECTIVE_REMAT:
+            raise NotImplementedError(
+                f"remat_policy {self.remat_policy!r} (selective remat) is "
+                f"not ported yet (ROADMAP.md queue 1 item 4, remat "
+                f"policies); use None or 'full'")
+        if self.remat_policy not in (None, "full"):
+            raise ValueError(
+                f"unknown remat_policy {self.remat_policy!r}; expected one "
+                f"of {sorted(_SELECTIVE_REMAT + ('full',))} or None")
 
     @staticmethod
     def llama2_7b(**kw):
@@ -57,7 +84,8 @@ class LlamaConfig:
                                      num_attention_heads=4,
                                      num_key_value_heads=2,
                                      max_position_embeddings=128,
-                                     dtype=torch.float32), **kw})
+                                     dtype=torch.float32, remat=False),
+                              **kw})
 
 
 class _Init:
@@ -72,12 +100,11 @@ class _Init:
     def normal(self, *shape):
         w = torch.empty(shape, dtype=self.cfg.dtype, device=self.device)
         w.normal_(0.0, self.cfg.initializer_range, generator=self.gen)
-        return nn.Parameter(w, requires_grad=False)
+        return nn.Parameter(w)
 
     def fill(self, value, *shape):
         return nn.Parameter(torch.full(shape, value, dtype=self.cfg.dtype,
-                                       device=self.device),
-                            requires_grad=False)
+                                       device=self.device))
 
 
 class LlamaRMSNorm(nn.Module):
@@ -165,8 +192,13 @@ class LlamaModel(nn.Module):
             scaling=cfg.rope_scaling,
             max_position_embeddings=cfg.max_position_embeddings,
             device=x.device)
+        remat = cfg.remat and torch.is_grad_enabled()
         for lyr in self.layers:
-            x = lyr(x, cos, sin, attn_mask)
+            if remat:
+                x = checkpoint(lyr, x, cos, sin, attn_mask,
+                               use_reentrant=False)
+            else:
+                x = lyr(x, cos, sin, attn_mask)
         return self.norm(x)
 
 
@@ -192,6 +224,25 @@ class LlamaForCausalLM(nn.Module):
              else self.lm_head)
         return wo_matmul(hidden, w)
 
-    @torch.no_grad()
     def forward(self, input_ids, attn_mask=None, position_ids=None):
         return self.logits(self.model(input_ids, attn_mask, position_ids))
+
+    def loss(self, input_ids, labels, attn_mask=None):
+        """Causal LM loss; labels = input shifted, ignore_index=-100."""
+        logits = self(input_ids, attn_mask)
+        per_tok = parallel_cross_entropy(logits, torch.clamp(labels, min=0))
+        mask = (labels >= 0).float()
+        return (per_tok * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def num_flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
+    """Training FLOPs/token ~ 6*N_params + attention term (for MFU)."""
+    h, m = cfg.hidden_size, cfg.intermediate_size
+    L, v = cfg.num_hidden_layers, cfg.vocab_size
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    d = h // nh
+    per_layer = (2 * h * (nh + 2 * nkv) * d + 2 * nh * d * h + 2 * h * 2 * m
+                 + 2 * m * h)
+    n_matmul = L * per_layer + 2 * h * v  # fwd matmul FLOPs per token
+    attn = L * 2 * 2 * seq_len * nh * d   # qk^T and pv per token
+    return 3.0 * (n_matmul + attn)        # fwd + 2x bwd

@@ -1,5 +1,6 @@
 """The Llama slice of ``paddle_tpu/nn/functional.py``: ``silu``,
-``swiglu``, ``embedding`` and ``rms_norm``, on tensors.
+``swiglu``, ``embedding`` and ``rms_norm``, on tensors, and the loss the
+Llama train step needs, ``parallel_cross_entropy``.
 
 Weights keep the reference's ``[in, out]`` layout where a layout exists.
 """
@@ -37,3 +38,21 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     if weight is not None:
         out = out * weight
     return out
+
+
+def parallel_cross_entropy(logits, labels, *, label_smoothing=0.0):
+    """Per-token cross entropy [...] of ``logits`` [..., V] against integer
+    ``labels`` [...] in fp32: the tp = 1 math of the reference's
+    ``paddle_tpu/distributed/tensor_parallel.py`` ``parallel_cross_entropy``
+    (log-sum-exp with the max detached, the true logit by gather, optional
+    label smoothing toward the mean logit). The tp-sharded form comes with
+    ``distributed/`` (ROADMAP.md queue 1 item 7)."""
+    logits32 = logits.float()
+    m = logits32.max(-1, keepdim=True).values.detach()
+    lse = torch.log(torch.exp(logits32 - m).sum(-1)) + m.squeeze(-1)
+    true_logit = torch.gather(logits32, -1, labels.long()[..., None])[..., 0]
+    loss = lse - true_logit
+    if label_smoothing > 0.0:
+        loss = ((1 - label_smoothing) * loss
+                + label_smoothing * (lse - logits32.mean(-1)))
+    return loss

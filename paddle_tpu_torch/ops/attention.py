@@ -2,10 +2,11 @@
 
 Layout is the JAX package's ``[B, S, H, D]`` throughout. Dispatch:
 :func:`scaled_dot_product_attention` hands every call the flash kernel
-can take (no dense ``attn_mask``, no dropout) to
-``ops.cuda.flash_attention.flash_attention`` — K2 on a CUDA tensor, its
-plain version on a CPU tensor — and the rest to :func:`eager_attention`,
-the port of the reference's ``xla_attention``.
+can take (no dense ``attn_mask``, no dropout) to the differentiable
+``ops.cuda.flash_attention.flash_attention`` — K2 forward and K5
+backward on a CUDA tensor, their plain versions on a CPU tensor — and
+the rest to :func:`eager_attention`, the port of the reference's
+``xla_attention``, which autograd differentiates as it stands.
 """
 from __future__ import annotations
 

@@ -10,13 +10,20 @@ from paddle_tpu_torch.ops.cuda import (flash_attention, norms,  # noqa: F401
                                        paged_attention)
 
 
+SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode")
+TRAIN_KERNELS = ("rms_norm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
 def kernels() -> dict:
-    """{name: wrapper} of every kernel of the port, in main-path order."""
+    """{name: the function that counts its launches} of every kernel of
+    the port: the serving path's, then the train step's backward."""
     return {
         "rms_norm": norms.rms_norm,
         "flash_fwd": flash_attention.flash_attention,
         "paged_chunk": paged_attention.paged_chunk_attention,
         "paged_decode": paged_attention.paged_decode_attention,
+        "flash_bwd_dq": flash_attention.flash_bwd_dq,
+        "flash_bwd_dkv": flash_attention.flash_bwd_dkv,
     }
 
 

@@ -1,14 +1,22 @@
-"""K2: flash-attention forward — counterpart of
-``paddle_tpu/ops/pallas/flash_attention.py`` (``flash_attention``, the
-forward ``_fwd_kernel``).
+"""K2 and K5: flash attention, forward and backward — counterpart of
+``paddle_tpu/ops/pallas/flash_attention.py`` (``flash_attention``: the
+forward ``_fwd_kernel`` and the backward ``_dq_kernel`` / ``_dkv_kernel``
+of ``_flash_bwd``).
 
-``flash_attention`` launches ``csrc/flash_fwd.cu`` on CUDA tensors (or
-raises) and runs :func:`flash_attention_plain` on CPU tensors.
-``flash_attention.launches`` counts kernel launches. The backward (K5) is
-the next slice; ALiBi is queued (ROADMAP.md queue 2, K2).
+``flash_attention`` is a :class:`torch.autograd.Function` (the counterpart
+of the reference's ``custom_vjp``). On CUDA tensors its forward launches
+``csrc/flash_fwd.cu`` (K2), which also writes the log-sum-exp, and its
+backward launches the two kernels of ``csrc/flash_bwd.cu`` (K5a dq, K5b
+dk/dv) from the saved O and LSE; a CUDA tensor the kernels cannot take
+raises. On CPU tensors the same ``Function`` runs
+:func:`flash_attention_fwd_plain` and :func:`flash_attention_bwd_plain`.
+``kv_lens`` gets no gradient. Launch counters:
+``flash_attention.launches`` (K2), ``flash_bwd_dq.launches`` (K5a),
+``flash_bwd_dkv.launches`` (K5b). ALiBi is queued (ROADMAP.md queue 2, K2).
 
 As in the reference, query rows in the padding of a ``kv_lens`` batch
-are unspecified under ``causal``: callers mask them out.
+are unspecified under ``causal``: callers mask them out, and give them a
+zero cotangent, which also makes their gradients zero.
 """
 from __future__ import annotations
 
@@ -20,37 +28,213 @@ from paddle_tpu_torch.ops.cuda import _build
 
 HEAD_DIMS = (64, 128)
 
+# most-negative bf16-representable, as in ops/attention.py
+_NEG_INF = -2.3819763e38
+
+
+def _masked_scores(q, k, causal, scale, window, kv_lens):
+    """fp32 scores [B, H, S, Sk] of q [B, S, H, D] against k [B, Sk, Hkv,
+    D] (GQA by repeat) and the keep mask [B|1, 1, S, Sk] of the forward:
+    causal, sliding window and ``kv_lens``, queries end-aligned to the key
+    axis (to each row's valid length with ``kv_lens`` and S < Sk), the
+    reference's ``_band_mask`` rule."""
+    b, s, h, d = q.shape
+    sk, h_kv = k.shape[1], k.shape[2]
+    dev = q.device
+    if kv_lens is not None:
+        kv_lens = torch.as_tensor(kv_lens, device=dev)
+    kt = k.repeat_interleave(h // h_kv, dim=2) if h_kv != h else k
+    scores = torch.matmul(q.transpose(1, 2).float(),
+                          kt.transpose(1, 2).float().transpose(-1, -2)) * scale
+    k_pos = torch.arange(sk, device=dev)
+    if kv_lens is not None and s < sk:
+        q_pos = (kv_lens.to(torch.int64)[:, None] - s
+                 + torch.arange(s, device=dev)[None, :])
+    else:
+        q_pos = (torch.arange(s, device=dev) + (sk - s))[None, :]
+    diff = q_pos[:, :, None] - k_pos[None, None, :]            # [B|1, S, Sk]
+    keep = diff >= 0 if causal else torch.ones_like(diff, dtype=torch.bool)
+    if window is not None:
+        keep = keep & (diff < window)
+    if kv_lens is not None:
+        keep = keep & (k_pos[None, None, :] < kv_lens[:, None, None])
+    return scores, keep[:, None]
+
+
+def flash_attention_fwd_plain(q, k, v, causal=False, scale=None, window=None,
+                              kv_lens=None):
+    """(o, lse) in plain PyTorch: the reference's XLA attention (softmax in
+    fp32, probabilities cast to the value dtype before P@V) and the
+    log-sum-exp [B, H, S] fp32 of the masked scaled scores, 0 for a row
+    with no live key (as K2 writes it)."""
+    h, h_kv = q.shape[2], k.shape[2]
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    scores, keep = _masked_scores(q, k, causal, scale, window, kv_lens)
+    scores = scores.masked_fill(~keep, _NEG_INF)
+    lse = torch.where(keep.any(-1), torch.logsumexp(scores, -1), 0.0)
+    vt = v.repeat_interleave(h // h_kv, dim=2) if h_kv != h else v
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    o = torch.matmul(probs, vt.transpose(1, 2)).transpose(1, 2)
+    return o.to(q.dtype).contiguous(), lse
+
 
 def flash_attention_plain(q, k, v, causal=False, scale=None, window=None,
                           kv_lens=None):
-    """The same function in plain PyTorch (the reference's XLA path)."""
-    from paddle_tpu_torch.ops.attention import eager_attention
-    return eager_attention(q, k, v, is_causal=causal, scale=scale,
-                           window=window, kv_lens=kv_lens)
+    """The forward's output alone, in plain PyTorch."""
+    return flash_attention_fwd_plain(q, k, v, causal, scale, window,
+                                     kv_lens)[0]
 
 
-_sig_set = False
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False, scale=None,
+                              window=None, kv_lens=None):
+    """(dq, dk, dv) in plain PyTorch: the flash-2 recomputation from the
+    saved O and LSE, in fp32 — P = exp(S * scale - lse) under the forward's
+    masks, dP = dO V^T, dS = P (dP - delta) scale with delta = sum(dO O),
+    dq = dS K, dk = dS^T Q, dv = P^T dO, then the GQA group sum."""
+    b, s, h, d = q.shape
+    sk, h_kv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    scores, keep = _masked_scores(q, k, causal, scale, window, kv_lens)
+    p = torch.where(keep, torch.exp(scores - lse[..., None]), 0.0)
+    do32 = do.transpose(1, 2).float()                         # [B, H, S, D]
+    delta = (do32 * o.transpose(1, 2).float()).sum(-1, keepdim=True)
+    rep = h // h_kv
+    vt = v.repeat_interleave(rep, dim=2) if rep > 1 else v
+    kt = k.repeat_interleave(rep, dim=2) if rep > 1 else k
+    dp = torch.matmul(do32, vt.transpose(1, 2).float().transpose(-1, -2))
+    ds = p * (dp - delta) * scale
+    dq = torch.matmul(ds, kt.transpose(1, 2).float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.transpose(1, 2).float())
+    dv = torch.matmul(p.transpose(-1, -2), do32)
+    if rep > 1:      # per-q-head partials -> sum over each kv group
+        dk = dk.reshape(b, h_kv, rep, sk, d).sum(2)
+        dv = dv.reshape(b, h_kv, rep, sk, d).sum(2)
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
 
 
-def _lib():
-    global _sig_set
-    lib = _build.library("flash_fwd")
-    if not _sig_set:
-        v, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_fwd.argtypes = [i, i, v, v, v, v, v, v, i, i, i, i, i,
-                                  ctypes.c_float, i, i, v]
-        lib.flash_fwd.restype = ctypes.c_int
-        _sig_set = True
+_typed: set = set()
+
+
+def _lib(name):
+    """The loaded library of ``csrc/<name>.cu`` with its argtypes set."""
+    lib = _build.library(name)
+    if name not in _typed:
+        v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == "flash_fwd":
+            fns = [(lib.flash_fwd, [i, i, v, v, v, v, v, v, i, i, i, i, i, f,
+                                    i, i, v])]
+        else:
+            fns = [(lib.flash_bwd_dq, [i, i, v, v, v, v, v, v, v, v, i, i, i,
+                                       i, i, f, i, i, v]),
+                   (lib.flash_bwd_dkv, [i, i, v, v, v, v, v, v, v, v, v, i, i,
+                                        i, i, i, f, i, i, v])]
+        for fn, argtypes in fns:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _typed.add(name)
     return lib
 
 
-def flash_attention(q, k, v, causal=False, scale=None, window=None,
-                    kv_lens=None, alibi_slopes=None):
-    """q [B, S, H, D], k/v [B, Sk, Hkv, D] (H % Hkv == 0: GQA by index).
-    ``window``: causal sliding window. ``kv_lens``: [B] valid key lengths.
-    The kernel also writes the log-sum-exp [B, H, S] fp32, which the
-    backward (K5) will read; the forward returns O only."""
+def _check_cuda(q, k, v, what):
+    """What the CUDA kernels take: head dims 64/128, matching K/V of q's
+    batch and width, one dtype."""
+    b, d = q.shape[0], q.shape[3]
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash kernel head_dim {d}: built for {HEAD_DIMS}")
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"{what}: k {tuple(k.shape)} / v "
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"{what}: dtypes {q.dtype}, {k.dtype}, "
+                        f"{v.dtype} differ")
+    return _build.dtype_code(q, what)
+
+
+def _lens(kv_lens, q):
+    if kv_lens is None:
+        return None
+    lens = torch.as_tensor(kv_lens, device=q.device).to(torch.int32)
+    if lens.shape != (q.shape[0],):
+        raise ValueError(f"kv_lens shape {tuple(lens.shape)} != "
+                         f"({q.shape[0]},)")
+    return lens.contiguous()
+
+
+def flash_fwd_cuda(q, k, v, causal, scale, window, lens):
+    """One launch of K2 on CUDA tensors: (o, lse [B, H, S] fp32). ``scale``
+    is a float and ``lens`` None or int32 [B], as :func:`flash_attention`
+    prepares them."""
     b, s, h, d = q.shape
+    sk, h_kv = k.shape[1], k.shape[2]
+    code = _check_cuda(q, k, v, "flash_attention")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    lib = _lib("flash_fwd")
+    rc = lib.flash_fwd(code, d, _build.ptr(q), _build.ptr(k), _build.ptr(v),
+                       _build.ptr(lens), _build.ptr(o), _build.ptr(lse),
+                       b, s, sk, h, h_kv, scale, int(bool(causal)),
+                       int(window or 0), _build.stream(q))
+    _build.check(lib, rc, "flash_attention")
+    flash_attention.launches += 1
+    return o, lse
+
+
+def flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, window, lens):
+    """(dq, dk, dv) on CUDA tensors from the forward's saved O and LSE:
+    delta = sum(dO O) in fp32 (as ``_flash_bwd`` computes it outside its
+    kernels), then one launch each of K5a and K5b. Arguments as for
+    :func:`flash_fwd_cuda`."""
+    code = _check_cuda(q, k, v, "flash_attention backward")
+    if do.dtype != q.dtype:
+        raise TypeError(f"flash_attention backward: dO {do.dtype} != "
+                        f"q {q.dtype}")
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (code, q, k, v, do, lse.contiguous(), delta, causal, scale,
+            window, lens)
+    dq = flash_bwd_dq(*args)
+    dk, dv = flash_bwd_dkv(*args)
+    return dq, dk, dv
+
+
+def flash_bwd_dq(code, q, k, v, do, lse, delta, causal, scale, window, lens):
+    """One launch of K5a (contiguous CUDA tensors, checked by
+    :func:`flash_bwd_cuda`; ``code`` the dtype code): dq."""
+    b, s, h, d = q.shape
+    dq = torch.empty_like(q)
+    lib = _lib("flash_bwd")
+    rc = lib.flash_bwd_dq(
+        code, d, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
+        _build.ptr(lse), _build.ptr(delta), _build.ptr(lens), _build.ptr(dq),
+        b, s, k.shape[1], h, k.shape[2], scale, int(bool(causal)),
+        int(window or 0), _build.stream(q))
+    _build.check(lib, rc, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(code, q, k, v, do, lse, delta, causal, scale, window,
+                  lens):
+    """One launch of K5b, arguments as for :func:`flash_bwd_dq`: (dk, dv),
+    the GQA group sum taken inside the kernel."""
+    b, s, h, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _lib("flash_bwd")
+    rc = lib.flash_bwd_dkv(
+        code, d, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
+        _build.ptr(lse), _build.ptr(delta), _build.ptr(lens), _build.ptr(dk),
+        _build.ptr(dv), b, s, k.shape[1], h, k.shape[2], scale,
+        int(bool(causal)), int(window or 0), _build.stream(q))
+    _build.check(lib, rc, "flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def _check_args(q, k, causal, window, kv_lens, alibi_slopes):
+    s, h = q.shape[1], q.shape[2]
     sk, h_kv = k.shape[1], k.shape[2]
     if h % h_kv != 0:
         raise ValueError(f"q heads {h} not a multiple of kv heads {h_kv}")
@@ -64,37 +248,46 @@ def flash_attention(q, k, v, causal=False, scale=None, window=None,
         raise NotImplementedError(
             "ALiBi in the flash kernel is not ported yet (ROADMAP.md "
             "queue 2, K2); eager_attention takes alibi_slopes")
-    if not q.is_cuda:
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                     window=window, kv_lens=kv_lens)
-    if d not in HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash kernel head_dim {d}: built for {HEAD_DIMS}")
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(f"flash_attention: k {tuple(k.shape)} / v "
-                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
-                        f"{v.dtype} differ")
-    code = _build.dtype_code(q, "flash_attention")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    lens = None
-    if kv_lens is not None:
-        lens = torch.as_tensor(kv_lens, device=q.device).to(
-            torch.int32).contiguous()
-        if lens.shape != (b,):
-            raise ValueError(f"kv_lens shape {tuple(lens.shape)} != ({b},)")
-    scale = float(scale) if scale is not None else d ** -0.5
-    o = torch.empty_like(q)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib = _lib()
-    rc = lib.flash_fwd(code, d, _build.ptr(q), _build.ptr(k), _build.ptr(v),
-                       _build.ptr(lens), _build.ptr(o), _build.ptr(lse),
-                       b, s, sk, h, h_kv, scale, int(bool(causal)),
-                       int(window or 0), _build.stream(q))
-    _build.check(lib, rc, "flash_attention")
-    flash_attention.launches += 1
-    return o
+
+
+def _fwd(q, k, v, causal, scale, window, lens):
+    if q.is_cuda:
+        return flash_fwd_cuda(q, k, v, causal, scale, window, lens)
+    return flash_attention_fwd_plain(q, k, v, causal, scale, window, lens)
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, lens, causal, scale, window):
+        o, lse = _fwd(q, k, v, causal, scale, window, lens)
+        ctx.save_for_backward(q, k, v, o, lse, lens)
+        ctx.args = (causal, scale, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, lens = ctx.saved_tensors
+        bwd = flash_bwd_cuda if q.is_cuda else flash_attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, o, lse, do, *ctx.args, lens)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, causal=False, scale=None, window=None,
+                    kv_lens=None, alibi_slopes=None):
+    """q [B, S, H, D], k/v [B, Sk, Hkv, D] (H % Hkv == 0: GQA by index).
+    ``window``: causal sliding window. ``kv_lens``: [B] valid key lengths.
+    Differentiable in q, k and v; when no graph is recorded (grad mode off,
+    as on the serving path, or no input requiring grad) the forward runs
+    without the autograd ``Function``."""
+    _check_args(q, k, causal, window, kv_lens, alibi_slopes)
+    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    lens = _lens(kv_lens, q)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Flash.apply(q, k, v, lens, causal, scale, window)
+    return _fwd(q, k, v, causal, scale, window, lens)[0]
 
 
 flash_attention.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0

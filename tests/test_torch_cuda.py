@@ -89,4 +89,103 @@ def test_engine_on_card_matches_cpu_and_launches_every_kernel():
         eng.assert_quiescent()
         streams.append([eng.requests[i].tokens for i in ids])
     assert streams[0] == streams[1]
-    assert all(n > 0 for n in K.launches().values()), K.launches()
+    counts = K.launches()
+    assert all(counts[k] > 0 for k in K.SERVE_KERNELS), counts
+
+
+@pytest.mark.cuda
+def test_rms_norm_reads_an_fp32_weight_in_fp32():
+    """bf16 x under an fp32 weight that bf16 cannot hold: the kernel
+    multiplies by the fp32 weight, as the plain version does, so the two
+    differ only by summation order (a weight rounded to bf16 changes ~15%
+    of the results); its backward gives dw in fp32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(512, 2048, generator=g, device="cuda").bfloat16()
+    w = 1.0 + 1e-3 * torch.randn(2048, generator=g, device="cuda")
+    got = TN.rms_norm(x, w, 1e-5)
+    assert float((got == TN.rms_norm_plain(x, w, 1e-5)).float().mean()) \
+        >= 0.99
+    w.requires_grad_()
+    TN.rms_norm(x, w, 1e-5).float().sum().backward()
+    assert w.grad.dtype == torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", ["causal", "full", "gqa_window_lens"])
+def test_flash_backward_kernels_match_plain(dtype, tol, case):
+    """K5a/K5b against flash_attention_bwd_plain from the same saved O and
+    LSE, and K2's LSE against the plain one, at ragged small shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    h, hkv, d = (8, 2, 128) if case == "gqa_window_lens" else (4, 4, 64)
+    q = torch.randn(2, 150, h, d, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(2, 150, hkv, d, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    do = torch.randn(2, 150, h, d, generator=g, device=dev).to(dtype)
+    kw = dict(causal=case != "full")
+    lens = None
+    if case == "gqa_window_lens":
+        lens = torch.tensor([150, 71], dtype=torch.int32, device=dev)
+        kw.update(window=33, kv_lens=lens)
+        do = do * (torch.arange(150, device=dev)[None, :]
+                   < lens[:, None])[:, :, None, None]
+    args = (kw["causal"], d ** -0.5, kw.get("window"), lens)
+    o, lse = TF.flash_fwd_cuda(q, k, v, *args)
+    _, lse_ref = TF.flash_attention_fwd_plain(q, k, v, **kw)
+    assert float((lse - lse_ref).abs().max()) <= 1e-4 * (
+        1 + float(lse_ref.abs().max()))
+    n0 = (TF.flash_bwd_dq.launches, TF.flash_bwd_dkv.launches)
+    got = TF.flash_bwd_cuda(q, k, v, o, lse, do, *args)
+    ref = TF.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    assert (TF.flash_bwd_dq.launches, TF.flash_bwd_dkv.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype == dtype
+        err = (a.float() - b.float()).abs() / (1 + b.float().abs())
+        assert float(err.max()) <= tol
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu_and_launches_its_kernels():
+    """Three AdamW steps of a 2-layer model at head_dim 128 in float32:
+    the card (K1, K2, K5) and the CPU (plain versions) give the same
+    losses to fp32 rounding, and the card launches every train kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import numpy as np
+
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.train import init_state, make_train_step
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                           num_attention_heads=2, num_key_value_heads=1,
+                           vocab_size=512)
+    ids = np.random.RandomState(0).randint(0, 512, (2, 96))
+    labels = np.concatenate([ids[:, 1:], np.full((2, 1), -100)], axis=1)
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    card = LlamaForCausalLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    losses = []
+    for model in (cpu, card):
+        K.reset_launches()
+        opt = O.AdamW(learning_rate=1e-3, weight_decay=0.1,
+                      grad_clip=O.ClipGradByGlobalNorm(1.0))
+        state = init_state(model, opt)
+        step = make_train_step(lambda m, i, lab: m.loss(i, lab), opt)
+        dev = next(model.parameters()).device
+        run = []
+        for _ in range(3):
+            state, loss = step(state, torch.as_tensor(ids, device=dev),
+                               torch.as_tensor(labels, device=dev))
+            run.append(float(loss))
+        losses.append(run)
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+    counts = K.launches()
+    assert all(counts[k] > 0 for k in K.TRAIN_KERNELS), counts

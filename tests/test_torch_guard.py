@@ -19,7 +19,8 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "before = set(sys.modules)\n"
         "import paddle_tpu_torch, paddle_tpu_torch.serving, "
         "paddle_tpu_torch.models.paged, paddle_tpu_torch.models.convert, "
-        "paddle_tpu_torch.ops.cuda, paddle_tpu_torch.observability.memledger\n"
+        "paddle_tpu_torch.ops.cuda, paddle_tpu_torch.observability.memledger, "
+        "paddle_tpu_torch.train, paddle_tpu_torch.optimizer\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
@@ -59,3 +60,24 @@ def test_entry_points_default_to_the_card():
         resolve_device("cuda")
     m = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     assert m.device.type == "cpu"
+
+
+def test_unported_training_modes_refuse():
+    """A sharded train step and the selective remat policies raise,
+    naming their ROADMAP item, instead of running something else."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.train import init_state, make_train_step
+    opt = O.AdamW()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
+        make_train_step(lambda m, i, lab: m.loss(i, lab), opt,
+                        mesh=object())
+    m = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
+        init_state(m, opt, mesh=object())
+    for policy in ("dots", "hidden", "no_ffn"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            LlamaConfig(remat_policy=policy)
+    with pytest.raises(ValueError):
+        LlamaConfig(remat_policy="everything")
+    assert LlamaConfig(remat_policy="full").remat_policy == "full"

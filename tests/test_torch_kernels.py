@@ -6,6 +6,7 @@ interpret mode — the same math, so the two agree to fp32 rounding. The
 CUDA kernels themselves are held against these plain versions on the
 card: ``test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -82,6 +83,110 @@ def test_flash_forward_window_matches_pallas():
                               interpret=True)
     got = TF.flash_attention(_t(q), _t(k), _t(v), causal=True, window=8)
     np.testing.assert_allclose(to_np(got), to_np(want), **TOL)
+
+
+# ------------------------------------------------------- K1 backward
+@pytest.mark.parametrize("shape", [(3, 5, 64), (7, 256)])
+def test_rms_norm_grads_match_pallas(shape):
+    """The rms_norm Function's dx and dw (the reference's ``_rms_bwd`` in
+    plain PyTorch) against jax.grad through the Pallas kernel's
+    custom_vjp, for the same cotangent."""
+    rs = np.random.RandomState(7)
+    x = rs.randn(*shape).astype(np.float32)
+    w = (1 + 0.1 * rs.randn(shape[-1])).astype(np.float32)
+    g = rs.randn(*shape).astype(np.float32)
+    want = jax.grad(lambda x, w: jnp.sum(
+        JN.rms_norm(x, w, 1e-5, True) * jnp.asarray(g)), argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(w))
+    xt, wt = _t(x).requires_grad_(), _t(w).requires_grad_()
+    (TN.rms_norm(xt, wt, 1e-5) * _t(g)).sum().backward()
+    for got, ref in zip((xt.grad, wt.grad), want):
+        np.testing.assert_allclose(to_np(got), to_np(ref), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_rms_norm_bf16_grads_keep_types():
+    """dx comes back in x's type, dw in the weight's (an fp32 weight
+    under a bf16 activation gets an fp32 gradient)."""
+    rs = np.random.RandomState(8)
+    x = _t(rs.randn(4, 64).astype(np.float32)).bfloat16().requires_grad_()
+    w = _t((1 + 0.1 * rs.randn(64)).astype(np.float32)).requires_grad_()
+    TN.rms_norm(x, w, 1e-5).float().square().sum().backward()
+    assert x.grad.dtype == torch.bfloat16 and w.grad.dtype == torch.float32
+
+
+def test_forwards_without_a_graph_skip_the_autograd_function():
+    """With grad mode off (the serving path) rms_norm and flash_attention
+    run their forward alone: no grad_fn, the same values as through the
+    autograd Function."""
+    rs = np.random.RandomState(11)
+    x = _t(rs.randn(6, 64).astype(np.float32)).requires_grad_()
+    w = _t((1 + 0.1 * rs.randn(64)).astype(np.float32))
+    q, k, v = (_t(rs.randn(2, 12, 2, 16).astype(np.float32)).requires_grad_()
+               for _ in range(3))
+    lens = _t(np.array([12, 5], np.int32))
+    with_graph = (TN.rms_norm(x, w, 1e-5),
+                  TF.flash_attention(q, k, v, causal=True, kv_lens=lens))
+    with torch.no_grad():
+        without = (TN.rms_norm(x, w, 1e-5),
+                   TF.flash_attention(q, k, v, causal=True, kv_lens=lens))
+    for a, b in zip(with_graph, without):
+        assert a.grad_fn is not None and b.grad_fn is None
+        torch.testing.assert_close(a.detach(), b, rtol=0, atol=0)
+
+
+# ------------------------------------------------------- K2 LSE, K5
+def test_flash_forward_lse_matches_logsumexp():
+    """The log-sum-exp the forward saves (natural log of the scaled,
+    masked scores) against jax.nn.logsumexp, rows with kv_lens included."""
+    rs = np.random.RandomState(9)
+    b, s, h, hkv, d = 2, 24, 4, 2, 16
+    q = rs.randn(b, s, h, d).astype(np.float32)
+    k = rs.randn(b, s, hkv, d).astype(np.float32)
+    v = rs.randn(b, s, hkv, d).astype(np.float32)
+    lens = np.array([24, 11], np.int32)
+    _, lse = TF.flash_attention_fwd_plain(_t(q), _t(k), _t(v), causal=True,
+                                          kv_lens=_t(lens))
+    kr = np.repeat(k, h // hkv, axis=2)
+    scores = np.einsum("bqhd,bkhd->bhqk", q, kr) * d ** -0.5
+    keep = (np.tril(np.ones((s, s), bool))[None]
+            & (np.arange(s)[None, None, :] < lens[:, None, None]))[:, None]
+    want = jax.nn.logsumexp(jnp.where(keep, scores, -jnp.inf), axis=-1)
+    np.testing.assert_allclose(to_np(lse), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("causal,window,lens", [
+    (True, None, None), (False, None, None), (True, 6, None),
+    (True, None, (40, 23)), (False, None, (40, 17))],
+    ids=["causal", "full", "window", "causal_kv_lens", "full_kv_lens"])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2)], ids=["mha", "gqa"])
+def test_flash_backward_matches_pallas(h, hkv, causal, window, lens):
+    """flash_attention's backward on CPU tensors (flash_attention_bwd_plain
+    from the saved O and LSE) against jax.grad through the Pallas kernels
+    in interpret mode. With kv_lens the padded query rows get a zero
+    cotangent, as the reference's callers give them (its
+    test_flash_varlen_kv_lens_matches_masked_xla)."""
+    rs = np.random.RandomState(10)
+    b, s, d = 2, 40, 16
+    q = rs.randn(b, s, h, d).astype(np.float32)
+    k = rs.randn(b, s, hkv, d).astype(np.float32)
+    v = rs.randn(b, s, hkv, d).astype(np.float32)
+    g = rs.randn(b, s, h, d).astype(np.float32)
+    kw = dict(causal=causal, window=window)
+    if lens is not None:
+        lens = np.asarray(lens, np.int32)
+        g = g * (np.arange(s)[None, :] < lens[:, None])[:, :, None, None]
+    want = jax.grad(lambda q, k, v: jnp.sum(JF.flash_attention(
+        q, k, v, kv_lens=None if lens is None else jnp.asarray(lens),
+        block_q=8, block_k=8, interpret=True, **kw) * jnp.asarray(g)),
+        argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    qt, kt, vt = (_t(a).requires_grad_() for a in (q, k, v))
+    out = TF.flash_attention(qt, kt, vt, kv_lens=None if lens is None
+                             else _t(lens), **kw)
+    (out * _t(g)).sum().backward()
+    for got, ref in zip((qt.grad, kt.grad, vt.grad), want):
+        np.testing.assert_allclose(to_np(got), to_np(ref), rtol=1e-4,
+                                   atol=1e-5)
 
 
 # ------------------------------------------------------------ paged pools
