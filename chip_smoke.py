@@ -11,10 +11,14 @@ Phases (each one fails the run when it fails; nothing is caught):
             register/spill lines, plus the card's name and power limit
   kernels   each kernel against its plain PyTorch version on the card, at
             the shapes the Llama-2-7B serving path and the train step give
-            it (bf16, tolerance 2e-2) and again in float32 (tolerance 1e-4):
+            it (bf16, tolerance 2e-2) and again in float32 (tolerance 1e-4),
+            and at the shapes the MoE paths give them (bf16):
             K1 also with a bf16 x under an fp32 weight, K2's log-sum-exp
             against torch.logsumexp of the plain scores, K5 (dq, dk/dv) at
-            the training shapes and on a small GQA + kv_lens + window case;
+            the training shapes and on a small GQA + kv_lens + window case,
+            K6a/K6b (grouped GEMM forward, dlhs, drhs) at the Qwen decode,
+            prefill and train shapes, at Mixtral-8x7B width and on a small
+            ragged case (an empty group's drhs exactly 0);
             times of the kernel, the plain version and, where one PyTorch
             call computes the same function, that call (``library_ms``),
             with CUDA events; the bound max(bytes / 3.35 TB/s, flops / 989
@@ -41,19 +45,44 @@ Phases (each one fails the run when it fails; nothing is caught):
             steps on one fixed batch; every loss finite, the last below the
             first, and the rms_norm, flash forward and both flash backward
             kernels launched; step ms, tokens/s, MFU and peak memory
+  moe_serve ``Qwen/Qwen1.5-MoE-A2.7B`` whole and at full width (its
+            published config written out in ``qwen_moe_config``: 24 layers,
+            60 experts of 1408 top-4 plus a shared expert, vocab 151 936;
+            14.3 B parameters in bf16, random weights from a seed made on
+            the card) served by ``LLMEngine`` with the serve phase's engine
+            geometry and request mix; every request must finish,
+            ``assert_quiescent()`` must pass, and K1-K4 and the grouped GEMM
+            (``grouped_fwd``, 2 launches per layer and forward) must have
+            been launched
+  moe_check the serve check's three logit blocks on the same widths cut to
+            6 layers (a float32 copy of all 24 does not fit the card):
+            kernels vs plain vs float32 under the check's rule with the
+            limit MOE_CHECK_REL (bf16 and float32 may route a near-tie
+            token to different experts), and the kernel path run twice
+            must give identical bits; then (with ``moe_train``) the MoE
+            train model's loss and three gradients on one 2048-token row
+  moe_train the same widths at 4 layers (2.9 B parameters) trained through
+            ``make_train_step`` with the train phase's AdamW settings at
+            batch 2 x 2048: 2 warm-up and 8 timed steps on one fixed batch;
+            every loss finite, the last below the first, K1, K2, K5 and the
+            grouped GEMM forward and drhs kernels launched (16 and 8 per
+            step); step ms, tokens/s and peak memory
   anatomy   (only when asked for: --phases build,anatomy or
             build,train,anatomy) 16 steady decode ticks and, with
             ``train``, 2 train steps: wall time of three plain runs, then
             device kernel time per tick or step under torch.profiler with
             the kernels that take it, and the Python functions that take
             the host time under cProfile
+  moe_anatomy  (only when asked for) the same for the MoE model's decode
+            tick (with ``moe_serve``) and train step (with ``moe_train``)
 
 ``--root DIR`` imports the package from another checkout (an earlier
 commit unpacked with ``git archive``), so that two trees can be compared
 under the same measurement in one call: parent, change, change, parent.
 
 The line before the last is a JSON object with one entry per kernel and
-path (``"path": "serve"`` or ``"train"``): its launches are counted in that
+path (``"path": "serve"``, ``"train"``, ``"moe_serve"`` or
+``"moe_train"``): its launches are counted in that
 path's own run, with every count set to 0 just before it, and its times are
 taken at the shapes that path gives the kernel. The last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero,
@@ -88,17 +117,38 @@ SOURCES = {
                      "paddle_tpu/ops/pallas/flash_attention.py:271"),
     "flash_bwd_dkv": ("paddle_tpu_torch/csrc/flash_bwd.cu",
                       "paddle_tpu/ops/pallas/flash_attention.py:321"),
+    "grouped_fwd": ("paddle_tpu_torch/csrc/grouped_matmul.cu",
+                    "paddle_tpu/ops/pallas/grouped_matmul.py:133"),
+    "grouped_dw": ("paddle_tpu_torch/csrc/grouped_matmul.cu",
+                   "paddle_tpu/ops/pallas/grouped_matmul.py:178"),
 }
 # the kernels each path launches (every one must rise in that path's run):
-# ops.cuda's SERVE_KERNELS / TRAIN_KERNELS, spelled out here so that
-# --root can load an earlier tree that lacks them
+# ops.cuda's SERVE_KERNELS / TRAIN_KERNELS / MOE_SERVE_KERNELS /
+# MOE_TRAIN_KERNELS, spelled out here so that --root can load an earlier
+# tree that lacks them
 PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode"),
-         "train": ("rms_norm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+         "train": ("rms_norm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+         "moe_serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
+                       "grouped_fwd"),
+         "moe_train": ("rms_norm", "flash_fwd", "flash_bwd_dq",
+                       "flash_bwd_dkv", "grouped_fwd", "grouped_dw")}
 # the train check: share of the fp32 gradients' RMS that each bf16 path
 # may be from them, and of the fp32 loss
 GRAD_REL = 0.1
 LOSS_REL = 1e-2
 TRAIN_SHAPE = (4, 2048, 16, 128)   # the headline step's q/k/v [B, S, H, D]
+# the MoE slice: Qwen1.5-MoE-A2.7B's widths (hidden 2048, 16 heads of 128,
+# 60 experts of 1408, top-4) and its train batch 2 x 2048
+MOE_HIDDEN, MOE_HEADS, MOE_EXPERTS, MOE_TOPK, MOE_INTER = 2048, 16, 60, 4, 1408
+MOE_TRAIN_SHAPE = (2, 2048, 16, 128)
+MOE_TRAIN_LAYERS = 4
+MOE_CHECK_LAYERS = 6
+# the MoE checks' limits: three times the largest first reading on the
+# card (logits 0.012-0.017 of the fp32 RMS at 6 layers, gradients
+# 0.049-0.097); bf16 and fp32 may route a near-tie token to different
+# experts, which these readings include
+MOE_CHECK_REL = 0.05
+MOE_GRAD_REL = 0.3
 
 
 def log(*a):
@@ -172,16 +222,17 @@ def _agree(name, dtype, errs):
     return err
 
 
-def kernel_cases(torch, dev):
-    """Inputs at the Llama-2-7B serving shapes (B = 8 slots, S = C = 128,
-    H = Hkv = 32, D = 128, pool [256, 16, 32, 128], MB = 32), made from a
-    seed on the card."""
+def kernel_cases(torch, dev, h=4096, nh=32):
+    """Inputs at the serving shapes of a model of hidden size ``h`` with
+    ``nh`` heads (default: Llama-2-7B; B = 8 slots, S = C = 128, H = Hkv =
+    nh, D = 128, pool [256, 16, nh, 128], MB = 32), made from a seed on the
+    card."""
     g = torch.Generator(device=dev).manual_seed(1234)
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev)
 
-    h, nh, d = 4096, 32, 128
+    d = 128
     n, bs, mb = 256, 16, 32
     cases = {}
     cases["rms_norm"] = [dict(x=randn(8 * 128, h), w=1.0 + 0.1 * randn(h)),
@@ -207,14 +258,19 @@ def kernel_cases(torch, dev):
     return cases
 
 
-def phase_kernels(torch, dev):
+def serve_kernel_entries(torch, dev, h=4096, nh=32, fp32=True):
+    """K1-K4 against their plain versions at the serving shapes of a model
+    of hidden size ``h`` with ``nh`` heads, in bf16 and (``fp32``) float32;
+    the bf16 entries with their times and bounds."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as FA
     from paddle_tpu_torch.ops.cuda import norms
     from paddle_tpu_torch.ops.cuda import paged_attention as PA
-    cases = kernel_cases(torch, dev)
+    cases = kernel_cases(torch, dev, h, nh)
     out = {}
-    for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+    dtypes = ((("f32", torch.float32),) if fp32 else ()) + (
+        ("bf16", torch.bfloat16),)
+    for dtype, dt in dtypes:
         main = dtype == "bf16"     # the serving path runs bf16
 
         def cast(t):
@@ -313,11 +369,28 @@ def phase_kernels(torch, dev):
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
                 shape=f"q [{bq}, {nh}, {d}] bf16, pool {list(kp.shape)}, "
                       f"lens sum {int(lens.sum())}")
+    return out
+
+
+def phase_kernels(torch, dev):
+    out = serve_kernel_entries(torch, dev)
     k1_fp32_weight(torch, dev)
     train = {"rms_norm": k1_train(torch, dev),
              "flash_fwd": k2_train(torch, dev), **k5(torch, dev)}
+    # the MoE slice: K6 at its shapes, K1-K5 at the shapes it gives them
+    k6_entries = k6(torch, dev)
+    b, s, _, _ = MOE_TRAIN_SHAPE
+    moe_serve = {**serve_kernel_entries(torch, dev, MOE_HIDDEN, MOE_HEADS,
+                                        fp32=False),
+                 "grouped_fwd": k6_entries["serve_fwd"]}
+    moe_train = {"rms_norm": k1_train(torch, dev, b * s, MOE_HIDDEN),
+                 "flash_fwd": k2_train(torch, dev, MOE_TRAIN_SHAPE),
+                 **k5(torch, dev, MOE_TRAIN_SHAPE),
+                 "grouped_fwd": k6_entries["train_fwd"],
+                 "grouped_dw": k6_entries["train_dw"]}
     torch.cuda.synchronize()
-    results = {"serve": out, "train": train}
+    results = {"serve": out, "train": train, "moe_serve": moe_serve,
+               "moe_train": moe_train}
     for path, rs in results.items():
         for name, r in rs.items():
             lib = r["library_ms"]
@@ -350,13 +423,14 @@ def _short(dt):
     return str(dt).replace("torch.", "").replace("bfloat16", "bf16")
 
 
-def k1_train(torch, dev):
-    """K1 at the train step's shapes: x [4 * 2048, 2048] under a weight of
-    the model's type (bf16), against the plain version."""
+def k1_train(torch, dev, rows=8192, h=2048):
+    """K1 at a train step's shapes (default: the headline's x [4 * 2048,
+    2048]) under a weight of the model's type (bf16), against the plain
+    version."""
     from paddle_tpu_torch.ops.cuda import norms
     g = torch.Generator(device=dev).manual_seed(8)
-    x = torch.randn(8192, 2048, generator=g, device=dev).bfloat16()
-    w = (1.0 + 0.1 * torch.randn(2048, generator=g, device=dev)).bfloat16()
+    x = torch.randn(rows, h, generator=g, device=dev).bfloat16()
+    w = (1.0 + 0.1 * torch.randn(h, generator=g, device=dev)).bfloat16()
     err = _agree("rms_norm (train shapes)", "bf16", _max_err(
         norms.rms_norm(x, w, 1e-5), norms.rms_norm_plain(x, w, 1e-5)))
     return _k1_entry(torch, x, w, err)
@@ -385,9 +459,9 @@ def k1_fp32_weight(torch, dev):
                              f"{same} of the results equal the plain ones")
 
 
-def _train_qkv(torch, dev, dt):
+def _train_qkv(torch, dev, dt, shape=TRAIN_SHAPE):
     g = torch.Generator(device=dev).manual_seed(99)
-    return [torch.randn(*TRAIN_SHAPE, generator=g, device=dev).to(dt)
+    return [torch.randn(*shape, generator=g, device=dev).to(dt)
             for _ in range(4)]
 
 
@@ -402,13 +476,13 @@ def _attn_bound(b, s, h, d, es, n_in, n_out, products):
                  products * 2 * d * pairs)
 
 
-def k2_train(torch, dev):
-    """K2 at the train step's shapes (bf16, causal, no kv_lens): its
+def k2_train(torch, dev, shape=TRAIN_SHAPE):
+    """K2 at a train step's shapes (bf16, causal, no kv_lens): its
     output against the plain version and its log-sum-exp, which the
     backward reads, against torch.logsumexp of the plain fp32 scores."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as FA
-    q, k, v, _ = _train_qkv(torch, dev, torch.bfloat16)
+    q, k, v, _ = _train_qkv(torch, dev, torch.bfloat16, shape)
     b, s, h, d = q.shape
     o, lse = FA.flash_fwd_cuda(q, k, v, True, d ** -0.5, None, None)
     err = _agree("flash_fwd (train shapes)", "bf16", _max_err(
@@ -442,7 +516,7 @@ def k2_train(torch, dev):
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), iters=20),
         bound_ms=b_ms, bound_by=b_by,
-        shape=f"q/k/v {list(TRAIN_SHAPE)} bf16, causal")
+        shape=f"q/k/v {list(shape)} bf16, causal")
 
 
 def _k5_case(torch, FA, q, k, v, do, causal, window=None, kv_lens=None):
@@ -454,8 +528,8 @@ def _k5_case(torch, FA, q, k, v, do, causal, window=None, kv_lens=None):
     return got, ref
 
 
-def k5(torch, dev):
-    """K5a (dq) and K5b (dk, dv) against flash_attention_bwd_plain: at the
+def k5(torch, dev, shape=TRAIN_SHAPE):
+    """K5a (dq) and K5b (dk, dv) against flash_attention_bwd_plain: at a
     train step's shapes and on a small GQA + kv_lens + sliding-window case
     (padded query rows get a zero cotangent, as callers give them), in
     bf16 and fp32. Times of each kernel at the train shapes; the plain
@@ -475,7 +549,8 @@ def k5(torch, dev):
     for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         cases = [_k5_case(torch, FA, *(t.to(dt) for t in small), True, 64,
                           kl)]
-        cases.append(_k5_case(torch, FA, *_train_qkv(torch, dev, dt), True))
+        cases.append(_k5_case(torch, FA, *_train_qkv(torch, dev, dt, shape),
+                              True))
         for got, ref in cases:
             for name, a, r in zip(("dq", "dk", "dv"), got, ref):
                 key = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"
@@ -483,7 +558,7 @@ def k5(torch, dev):
                 if dtype == "bf16":
                     errs[key] = max(errs.get(key, 0.0), e)
         del cases
-    q, k, v, do = _train_qkv(torch, dev, torch.bfloat16)
+    q, k, v, do = _train_qkv(torch, dev, torch.bfloat16, shape)
     b, s, h, d = q.shape
     o, lse = FA.flash_fwd_cuda(q, k, v, True, d ** -0.5, None, None)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
@@ -507,18 +582,194 @@ def k5(torch, dev):
             max_abs_err=errs[key], ms=time_ms(lambda: fn(*args), iters=10),
             plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
             bound_by=b_by,
-            shape=f"q/k/v/dO {list(TRAIN_SHAPE)} bf16, causal")
+            shape=f"q/k/v/dO {list(shape)} bf16, causal")
+    return out
+
+
+# -------------------------------------------------------------------- K6
+def _k6_inputs(torch, dev, tokens, e, topk, k, n, dt, seed):
+    """A routed batch: every token picks ``topk`` distinct experts at
+    random; rows sorted by expert. Returns (lhs [m, k], rhs [e, k, n],
+    cotangent [m, n], sizes [e] int32), m = tokens * topk."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    choice = torch.rand(tokens, e, generator=g, device=dev).topk(
+        topk).indices
+    sizes = torch.bincount(choice.reshape(-1), minlength=e).to(torch.int32)
+    m = tokens * topk
+    lhs = torch.randn(m, k, generator=g, device=dev).to(dt)
+    rhs = (torch.randn(e, k, n, generator=g, device=dev) * k ** -0.5).to(dt)
+    cot = torch.randn(m, n, generator=g, device=dev).to(dt)
+    return lhs, rhs, cot, sizes
+
+
+def _library_grouped_mm(torch, a, b, sizes):
+    """The time of PyTorch's own grouped product (``F.grouped_mm`` /
+    ``torch._grouped_mm``) on the same inputs, as a yardstick only: None
+    where the installed torch has none or refuses these operands."""
+    fn = (getattr(torch.nn.functional, "grouped_mm", None)
+          or getattr(torch, "_grouped_mm", None))
+    if fn is None or a.dtype != torch.bfloat16:
+        return None
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    try:
+        fn(a, b, offs=offs)
+    except (RuntimeError, TypeError, NotImplementedError) as exc:
+        log(f"[kernels] library grouped_mm refused {list(a.shape)} x "
+            f"{list(b.shape)}: {str(exc).splitlines()[0][:120]}")
+        return None
+    return time_ms(lambda: fn(a, b, offs=offs), iters=20)
+
+
+def _k6_fwd_entry(torch, lhs, rhs, sizes, err, trans=False, iters=20):
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as GM
+    m, k = lhs.shape
+    e = rhs.shape[0]
+    n = rhs.shape[1] if trans else rhs.shape[2]
+    es = lhs.element_size()
+    live = int((sizes > 0).sum())
+    b_ms, b_by = bound((m * k + m * n + live * k * n) * es + 4 * e,
+                       2 * m * k * n)
+    lib_rhs = rhs.transpose(1, 2) if trans else rhs
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: GM.grouped_fwd_cuda(lhs, rhs, sizes, trans),
+                   iters=iters),
+        plain_ms=time_ms(lambda: GM.grouped_matmul_plain(lhs, rhs, sizes,
+                                                         trans),
+                         iters=3, warmup=1),
+        library_ms=_library_grouped_mm(torch, lhs, lib_rhs, sizes),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"lhs [{m}, {k}] x rhs [{e}, "
+              f"{rhs.shape[1]}, {rhs.shape[2]}]"
+              f"{' read transposed' if trans else ''} "
+              f"{_short(lhs.dtype)}, {live} of {e} groups live")
+
+
+def k6(torch, dev):
+    """K6a (forward, and read-transposed as the backward's dlhs) and K6b
+    (drhs) against the plain versions, bf16 and fp32, at the MoE slice's
+    shapes: Qwen decode (32 rows over 60 experts, both expert products),
+    Qwen prefill (4096 rows), Qwen train (16 384 rows: forward, dlhs,
+    drhs), Mixtral-8x7B width (8 experts, 4096 -> 28 672, 2048 rows) and a
+    small ragged case with empty and one-row groups whose m, k and n are no
+    multiples of the tiles (both forward kernels). An empty group's drhs
+    must be exactly 0. Returns the entries of the decode forward (path
+    moe_serve) and of the train forward and drhs (path moe_train); every
+    other shape's times are logged."""
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as GM
+    h, inter, e, topk = MOE_HIDDEN, MOE_INTER, MOE_EXPERTS, MOE_TOPK
+    out = {}
+    # small ragged cases: the tiled kernel, the few-rows kernel (one group
+    # of several row tiles) and the few-rows shape at an n that its 16-byte
+    # loads cannot take (back to the tiled kernel)
+    for sizes, n in (([5, 0, 1, 130, 0, 70, 1, 0], 200),
+                     ([1, 0, 2, 0, 0, 17, 1, 0, 3, 0], 200),
+                     ([1, 0, 2, 0, 0, 17, 1, 0, 3, 0], 50)):
+        for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            g = torch.Generator(device=dev).manual_seed(11)
+            m, ne, k = sum(sizes), len(sizes), 72
+            lhs = torch.randn(m, k, generator=g, device=dev).to(dt)
+            rhs = torch.randn(ne, k, n, generator=g, device=dev).to(dt)
+            cot = torch.randn(m, n, generator=g, device=dev).to(dt)
+            gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+            rows = GM.uses_rows_kernel(m, ne, n, rhs)
+            tag = f"ragged m={m} n={n}, {'few-rows' if rows else 'tiled'}"
+            _agree(f"grouped_fwd ({tag})", dtype, _max_err(
+                GM.grouped_fwd_cuda(lhs, rhs, gs),
+                GM.grouped_matmul_plain(lhs, rhs, gs)))
+            dlhs, drhs = GM.grouped_matmul_bwd_plain(lhs, rhs, gs, cot)
+            _agree(f"grouped_fwd transposed ({tag})", dtype, _max_err(
+                GM.grouped_fwd_cuda(cot, rhs, gs, True), dlhs))
+            got = GM.grouped_dw(lhs, cot, gs)
+            _agree(f"grouped_dw ({tag})", dtype, _max_err(got, drhs))
+            # K6b and the plain version both add a group's rows in order
+            # with fp32 FMAs and so often agree to the bit: hold K6b to a
+            # float64 product as well, where its own rounding shows
+            ref64 = torch.zeros(ne, k, n, dtype=torch.float64, device=dev)
+            start = 0
+            for i, size in enumerate(sizes):
+                rows64 = slice(start, start + size)
+                ref64[i] = lhs[rows64].double().T @ cot[rows64].double()
+                start += size
+            _agree(f"grouped_dw vs float64 ({tag})", dtype,
+                   _max_err(got, ref64))
+            empty = gs == 0
+            if float(got[empty].abs().sum()) != 0.0:
+                raise AssertionError("grouped_dw: an empty group's drhs is "
+                                     "not exactly 0")
+    cases = (
+        # label, tokens, experts, topk, k, n, backward too
+        ("qwen decode gate_up", 8, e, topk, h, 2 * inter, False),
+        ("qwen decode down", 8, e, topk, inter, h, False),
+        ("qwen prefill gate_up", 1024, e, topk, h, 2 * inter, False),
+        ("qwen train gate_up", 4096, e, topk, h, 2 * inter, True),
+        ("mixtral-8x7b gate_up", 1024, 8, 2, 4096, 28672, False),
+    )
+    for label, tokens, ne, tk, k, n, bwd in cases:
+        for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            lhs, rhs, cot, gs = _k6_inputs(torch, dev, tokens, ne, tk, k, n,
+                                           dt, 21)
+            err = _agree(f"grouped_fwd ({label})", dtype, _max_err(
+                GM.grouped_fwd_cuda(lhs, rhs, gs),
+                GM.grouped_matmul_plain(lhs, rhs, gs)))
+            entries = {}
+            if dtype == "bf16":
+                entries["fwd"] = _k6_fwd_entry(
+                    torch, lhs, rhs, gs, err,
+                    iters=50 if tokens <= 8 else 10)
+            if bwd:
+                dlhs, drhs = GM.grouped_matmul_bwd_plain(lhs, rhs, gs, cot)
+                err_t = _agree(f"grouped_fwd transposed ({label})", dtype,
+                               _max_err(GM.grouped_fwd_cuda(cot, rhs, gs,
+                                                            True), dlhs))
+                err_w = _agree(f"grouped_dw ({label})", dtype, _max_err(
+                    GM.grouped_dw(lhs, cot, gs), drhs))
+                del dlhs, drhs
+                if dtype == "bf16":
+                    entries["dlhs"] = _k6_fwd_entry(torch, cot, rhs, gs,
+                                                    err_t, trans=True,
+                                                    iters=10)
+                    m = lhs.shape[0]
+                    es = lhs.element_size()
+                    b_ms, b_by = bound((m * k + m * n + ne * k * n) * es,
+                                       2 * m * k * n)
+                    entries["dw"] = dict(
+                        max_abs_err=err_w,
+                        ms=time_ms(lambda: GM.grouped_dw(lhs, cot, gs),
+                                   iters=10),
+                        plain_ms=time_ms(
+                            lambda: GM.grouped_matmul_bwd_plain(
+                                lhs, rhs, gs, cot), iters=3, warmup=1),
+                        library_ms=_library_grouped_mm(torch, lhs.t(), cot,
+                                                       gs),
+                        bound_ms=b_ms, bound_by=b_by,
+                        shape=f"lhs [{m}, {k}], g [{m}, {n}] -> "
+                              f"[{ne}, {k}, {n}] bf16 (plain: dlhs and "
+                              f"drhs in one call)")
+            for kind, r in entries.items():
+                lib = r["library_ms"]
+                log(f"[kernels] K6 {label} {kind} ({r['shape']}): "
+                    f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                    f"library {'n/a' if lib is None else f'{lib:.4f} ms'}, "
+                    f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                    f"{100 * r['bound_ms'] / r['ms']:.2f}% of bound")
+            if label == "qwen decode gate_up" and entries:
+                out["serve_fwd"] = entries["fwd"]
+            if label == "qwen train gate_up" and entries:
+                out["train_fwd"] = entries["fwd"]
+                out["train_dw"] = entries["dw"]
+            del lhs, rhs, cot, gs, entries
+            torch.cuda.empty_cache()
     return out
 
 
 # ------------------------------------------------------------------ serve
-def serve_requests(rs):
+def serve_requests(rs, vocab=32000):
     """The 12-request mix: 6 short prompts (whole-prompt prefill), 2 long
     ones (chunked prefill), 2 sharing a 64-token prefix with an earlier
     prompt (radix prefix hit, resumed through the chunk kernel) and 2 at
     temperature 0.8 / top-p 0.9; 32 new tokens each."""
     from paddle_tpu_torch.serving import Request
-    vocab = 32000
     prompts = [rs.randint(3, vocab, size=n) for n in (17, 33, 50, 72, 96, 120)]
     prompts += [rs.randint(3, vocab, size=n) for n in (300, 384)]
     shared = prompts[5][:64]
@@ -535,9 +786,13 @@ def build_model(dev):
     return LlamaForCausalLM(LlamaConfig.llama2_7b(), device=dev, seed=0)
 
 
-def phase_serve(torch, dev, model, np):
+def phase_serve(torch, dev, model, np, path="serve"):
+    """Serve the 12-request mix with ``model`` through ``LLMEngine``; every
+    kernel of ``PATHS[path]`` must be launched. Returns (launch counts,
+    the requests)."""
     from paddle_tpu_torch.ops import cuda as K
     from paddle_tpu_torch.serving import LLMEngine, Request
+    vocab = model.cfg.vocab_size
     kw = dict(num_slots=8, block_size=16, max_prompt_len=128,
               max_seq_len=512, num_blocks=256, seed=0, device=dev)
     # warm-up (library handles, allocator, kernel loads) on a throwaway
@@ -545,12 +800,12 @@ def phase_serve(torch, dev, model, np):
     warm = LLMEngine(model, **kw)
     rs = np.random.RandomState(1)
     for n in (40, 200):
-        warm.add_request(Request(rs.randint(3, 32000, size=n),
+        warm.add_request(Request(rs.randint(3, vocab, size=n),
                                  max_new_tokens=4))
     warm.run()
     del warm
     eng = LLMEngine(model, **kw)
-    reqs = serve_requests(np.random.RandomState(0))
+    reqs = serve_requests(np.random.RandomState(0), vocab)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
@@ -567,9 +822,9 @@ def phase_serve(torch, dev, model, np):
             raise AssertionError(f"request {r.req_id} did not finish: "
                                  f"{r.finish_reason}")
     eng.assert_quiescent()
-    missing = [k for k in PATHS["serve"] if counts[k] <= 0]
+    missing = [k for k in PATHS[path] if counts[k] <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the serving path: "
+        raise AssertionError(f"kernels not launched on the {path} path: "
                              f"{missing} ({counts})")
     if hits <= 0:
         raise AssertionError("no radix prefix hit in the serving mix")
@@ -577,11 +832,12 @@ def phase_serve(torch, dev, model, np):
     ttft = [r._first_tok_t - r._submit_t for r in reqs]
     peak = torch.cuda.max_memory_allocated()
     card = card_line()
-    log(f"[serve] {len(reqs)} requests, {ntok} tokens in {wall:.3f} s: "
-        f"{ntok / wall:.1f} tokens/s ({card})")
-    log(f"[serve] mean TTFT {1e3 * sum(ttft) / len(ttft):.1f} ms, "
+    log(f"[{path}] {len(reqs)} requests, {ntok} tokens in {wall:.3f} s: "
+        f"{ntok / wall:.1f} tokens/s, {eng.stats['ticks']} decode ticks "
+        f"({card})")
+    log(f"[{path}] mean TTFT {1e3 * sum(ttft) / len(ttft):.1f} ms, "
         f"max {1e3 * max(ttft):.1f} ms ({card})")
-    log(f"[serve] peak allocated {peak / 2**30:.2f} GiB ({card}); "
+    log(f"[{path}] peak allocated {peak / 2**30:.2f} GiB ({card}); "
         f"prefix token hits {hits}; launches {counts}")
     return counts, reqs
 
@@ -593,13 +849,16 @@ class plain_kernels:
 
     def __enter__(self):
         from paddle_tpu_torch.ops.cuda import flash_attention as FA
+        from paddle_tpu_torch.ops.cuda import grouped_matmul as GM
         from paddle_tpu_torch.ops.cuda import norms
         from paddle_tpu_torch.ops.cuda import paged_attention as PA
         self.saved = [(norms, "rms_norm", norms.rms_norm),
+                      (GM, "grouped_matmul", GM.grouped_matmul),
                       (FA, "flash_attention", FA.flash_attention),
                       (PA, "paged_chunk_attention", PA.paged_chunk_attention),
                       (PA, "paged_decode_attention", PA.paged_decode_attention)]
         norms.rms_norm = norms.rms_norm_plain
+        GM.grouped_matmul = GM.grouped_matmul_plain
 
         def fa(q, k, v, causal=False, scale=None, window=None, kv_lens=None,
                alibi_slopes=None):
@@ -662,9 +921,8 @@ def _path_logits(torch, model, prompts, long_prompt, toks):
 
 def fp32_copy(torch, model):
     """The same weights in float32 (the check's reference model)."""
-    from paddle_tpu_torch.models.llama import LlamaForCausalLM
     cfg = dataclasses.replace(model.cfg, dtype=torch.float32)
-    m32 = LlamaForCausalLM(cfg, device=model.device)
+    m32 = type(model)(cfg, device=model.device)
     with torch.no_grad():
         for p32, p in zip(m32.parameters(), model.parameters()):
             p32.copy_(p)
@@ -675,7 +933,8 @@ def _rms(x):
     return float(x.float().square().mean().sqrt())
 
 
-def phase_check(torch, model, reqs):
+def phase_check(torch, model, reqs, label="check", rel=CHECK_REL,
+                twice=False):
     """Prefill, chunk and decode logits of served prompts: bf16 through the
     kernels, bf16 through the plain versions, and float32 through the
     plain versions as the reference. Tolerance: with random weights,
@@ -685,12 +944,24 @@ def phase_check(torch, model, reqs):
     float32 result: RMS(kernel - fp32) <= 2 * RMS(plain - fp32). A fault
     shared by both bf16 paths would pass that test, so each is also held
     to an absolute limit: RMS(path - fp32) <= CHECK_REL * RMS(fp32)
-    (sound runs read about 6% of the logits' RMS)."""
+    (sound runs read about 6% of the logits' RMS; ``rel`` is the limit).
+    ``twice``: the kernel path is run a second time from fresh caches and
+    must give the same bits (no atomics anywhere on the path)."""
     prompts = [list(r.prompt) for r in reqs[:6]]
     long_prompt = list(reqs[6].prompt)
     toks = [r.tokens[0] for r in reqs[:7]]
     with torch.no_grad():
         got = _path_logits(torch, model, prompts, long_prompt, toks)
+        if twice:
+            again = _path_logits(torch, model, prompts, long_prompt, toks)
+            for name, a, b in zip(("prefill", "chunk", "decode"), got, again):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"{name}: two runs of the kernel path differ in "
+                        f"{int((a != b).sum())} of {a.numel()} logits")
+            log(f"[{label}] prefill, chunk and decode logits of two runs "
+                f"are bit-identical")
+            del again
         with plain_kernels():
             ref = _path_logits(torch, model, prompts, long_prompt, toks)
             m32 = fp32_copy(torch, model)
@@ -706,16 +977,16 @@ def phase_check(torch, model, reqs):
         rms_f = _rms(f)
         agree = float((a.argmax(-1) == f.argmax(-1)).float().mean())
         agree_p = float((r.argmax(-1) == f.argmax(-1)).float().mean())
-        log(f"[check] {name} logits {list(a.shape)} (RMS {rms_f:.4f}): "
+        log(f"[{label}] {name} logits {list(a.shape)} (RMS {rms_f:.4f}): "
             f"RMS kernel-fp32 {e_k:.5f} ({e_k / rms_f:.4f} of RMS), "
             f"plain-fp32 {e_p:.5f} ({e_p / rms_f:.4f} of RMS), "
             f"kernel-plain {e_kp:.5f}; argmax vs fp32: kernel {agree:.3f}, "
-            f"plain {agree_p:.3f} (limit {CHECK_REL} of RMS)")
+            f"plain {agree_p:.3f} (limit {rel} of RMS)")
         for path, e in (("kernel", e_k), ("plain", e_p)):
-            if not e <= CHECK_REL * rms_f:
+            if not e <= rel * rms_f:
                 raise AssertionError(
                     f"{name}: {path} bf16 path is {e} from the fp32 "
-                    f"result, over {CHECK_REL} * RMS {rms_f}")
+                    f"result, over {rel} * RMS {rms_f}")
         if not e_k <= 2 * e_p:
             raise AssertionError(f"{name}: kernel path is further from the "
                                  f"fp32 result than 2x the plain bf16 path: "
@@ -746,78 +1017,154 @@ GRAD_NAMES = ("model.layers.0.self_attn.qkv_proj",
               "model.layers.11.mlp.down_proj", "lm_head")
 
 
-def _loss_and_grads(model, ids, labels):
+def _loss_and_grads(model, ids, labels, names):
     params = dict(model.named_parameters())
     model.zero_grad(set_to_none=True)
     loss = model.loss(ids, labels)
     loss.backward()
-    grads = {n: params[n].grad.float().clone() for n in GRAD_NAMES}
+    grads = {n: params[n].grad.float().clone() for n in names}
     model.zero_grad(set_to_none=True)
     return float(loss.detach()), grads
 
 
-def phase_train_check(torch, model, ids, labels):
-    """The loss and the gradients of three weights (first layer's qkv,
-    last layer's down projection, lm_head) on batch row 0 (1 x 2048): in
+def phase_train_check(torch, model, ids, labels, names=GRAD_NAMES,
+                      rel=GRAD_REL, label="check"):
+    """The loss and the gradients of three weights (``names``; the Llama
+    step's: first layer's qkv, last layer's down projection, lm_head; the
+    MoE step's: an expert up-projection stack, an expert down-projection
+    stack and a router) on batch row 0 (1 x 2048): in
     bf16 through the kernels, in bf16 through the plain versions (autograd
     through plain PyTorch, the kernels' backward not involved) and in
     float32 through the plain versions. As in the serving check, the
     kernel path must be no further from float32 than twice the plain bf16
     path, RMS(kernel - fp32) <= 2 * RMS(plain - fp32), and each bf16 path
-    within GRAD_REL of the float32 gradient's RMS (LOSS_REL of the loss)."""
+    within ``rel`` of the float32 gradient's RMS (LOSS_REL of the loss)."""
     ids, labels = ids[:1], labels[:1]
-    got = _loss_and_grads(model, ids, labels)
+    got = _loss_and_grads(model, ids, labels, names)
     with plain_kernels():
-        ref = _loss_and_grads(model, ids, labels)
+        ref = _loss_and_grads(model, ids, labels, names)
         m32 = fp32_copy(torch, model)
-        ref32 = _loss_and_grads(m32, ids, labels)
+        ref32 = _loss_and_grads(m32, ids, labels, names)
         del m32
     torch.cuda.empty_cache()
     card = card_line()
     (lk, gk), (lp, gp), (lf, gf) = got, ref, ref32
-    log(f"[check] train loss on 1 x {ids.shape[1]}: kernel {lk:.6f}, plain "
+    log(f"[{label}] train loss on 1 x {ids.shape[1]}: kernel {lk:.6f}, plain "
         f"bf16 {lp:.6f}, fp32 {lf:.6f} (limit {LOSS_REL} of the fp32 loss; "
         f"{card})")
     for path, lx in (("kernel", lk), ("plain", lp)):
         if not (abs(lx - lf) <= LOSS_REL * abs(lf)):
             raise AssertionError(f"train loss: {path} bf16 path {lx} vs "
                                  f"fp32 {lf}")
-    for n in GRAD_NAMES:
+    for n in names:
         a, r, f = gk[n], gp[n], gf[n]
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"grad {n}: not finite")
         e_k, e_p, rms_f = _rms(a - f), _rms(r - f), _rms(f)
-        log(f"[check] grad {n} {list(a.shape)} (RMS {rms_f:.4e}): RMS "
+        log(f"[{label}] grad {n} {list(a.shape)} (RMS {rms_f:.4e}): RMS "
             f"kernel-fp32 {e_k:.4e} ({e_k / rms_f:.4f} of RMS), plain-fp32 "
-            f"{e_p:.4e} ({e_p / rms_f:.4f} of RMS) (limit {GRAD_REL})")
+            f"{e_p:.4e} ({e_p / rms_f:.4f} of RMS) (limit {rel})")
         for path, e in (("kernel", e_k), ("plain", e_p)):
-            if not e <= GRAD_REL * rms_f:
+            if not e <= rel * rms_f:
                 raise AssertionError(f"grad {n}: {path} bf16 path is {e} "
-                                     f"from fp32, over {GRAD_REL} * {rms_f}")
+                                     f"from fp32, over {rel} * {rms_f}")
         if not e_k <= 2 * e_p:
             raise AssertionError(f"grad {n}: kernel path {e_k} > 2 x the "
                                  f"plain bf16 path {e_p}")
 
 
 def phase_train(torch, dev, np, check, anatomy=False):
-    """The headline train step: 2 warm-up and 8 timed steps on one fixed
-    batch through make_train_step + AdamW; returns the launch counts.
-    ``anatomy``: then 2 more steps timed and 2 under torch.profiler."""
-    from paddle_tpu_torch import optimizer as O
+    """The headline train step (``bench.py``'s Llama 0.74B at 4 x 2048):
+    returns the launch counts."""
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                num_flops_per_token)
-    from paddle_tpu_torch.ops import cuda as K
-    from paddle_tpu_torch.train import init_state, make_train_step
     cfg = train_config()
     tm = time.monotonic()
     model = LlamaForCausalLM(cfg, device=dev, seed=0)
-    nparams = sum(p.numel() for p in model.parameters())
     ids, labels = train_batch(torch, dev, np, cfg)
     torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in model.parameters())
     log(f"[train] {nparams / 1e9:.3f} B params, random weights in "
         f"{time.monotonic() - tm:.1f} s")
+    return run_train(torch, np, "train", model, ids, labels, check, anatomy,
+                     GRAD_NAMES, GRAD_REL,
+                     num_flops_per_token(cfg, ids.shape[1]))
+
+
+def qwen_moe_config(layers=24):
+    """``Qwen/Qwen1.5-MoE-A2.7B``'s published ``config.json``, field by
+    field: vocab 151 936, hidden 2048, 24 layers, 16 heads and 16 KV heads
+    of 128, biased QKV, rope theta 1e6, eps 1e-6, 60 routed experts of 1408
+    top-4 without renormalisation, a shared expert of 5632, every layer
+    sparse (14.3 B parameters, 2.7 B activated). ``layers`` cuts depth only."""
+    import torch
+    from paddle_tpu_torch.models.qwen2_moe import Qwen2MoeConfig
+    return Qwen2MoeConfig(
+        vocab_size=151936, hidden_size=MOE_HIDDEN, intermediate_size=5632,
+        num_hidden_layers=layers, num_attention_heads=MOE_HEADS,
+        num_key_value_heads=MOE_HEADS, max_position_embeddings=8192,
+        rms_norm_eps=1e-6, rope_theta=1e6, attention_bias=True,
+        num_experts=MOE_EXPERTS, num_experts_per_tok=MOE_TOPK,
+        moe_intermediate_size=MOE_INTER,
+        shared_expert_intermediate_size=5632, norm_topk_prob=False,
+        decoder_sparse_step=1, mlp_only_layers=(),
+        router_aux_loss_coef=0.001, dtype=torch.bfloat16, remat=False)
+
+
+def build_moe_model(torch, dev, layers, label):
+    """Qwen1.5-MoE-A2.7B's widths at ``layers`` layers, random weights from
+    seed 0 made on the card."""
+    from paddle_tpu_torch.models.qwen2_moe import Qwen2MoeForCausalLM
+    tm = time.monotonic()
+    model = Qwen2MoeForCausalLM(qwen_moe_config(layers), device=dev, seed=0)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in model.parameters())
+    log(f"[{label}] Qwen1.5-MoE-A2.7B width, {layers} layers, "
+        f"{nparams / 1e9:.3f} B params, random weights in "
+        f"{time.monotonic() - tm:.1f} s")
+    return model
+
+
+def phase_moe_train(torch, dev, np, check, anatomy=False):
+    """The MoE train step: Qwen1.5-MoE-A2.7B's widths at MOE_TRAIN_LAYERS
+    layers, batch 2 x 2048, the headline step's AdamW settings; with
+    ``check`` the loss and three gradients (first layer's expert gate_up
+    stack, last layer's expert down stack, the first router) on one row
+    against the plain versions and float32. Returns the launch counts."""
+    model = build_moe_model(torch, dev, MOE_TRAIN_LAYERS, "moe_train")
+    cfg = model.cfg
+    ids, labels = train_batch(torch, dev, np, cfg, batch=MOE_TRAIN_SHAPE[0],
+                              seq=MOE_TRAIN_SHAPE[1])
+    last = cfg.num_hidden_layers - 1
+    names = ("layers.0.mlp.moe.experts.gate_up",
+             f"layers.{last}.mlp.moe.experts.down", "layers.0.mlp.moe.gate_w")
+    counts = run_train(torch, np, "moe_train", model, ids, labels, check,
+                       anatomy, names, MOE_GRAD_REL)
+    # per step: 2 products per layer forward, 2 dlhs and 2 drhs backward
+    steps, layers = 10, cfg.num_hidden_layers
+    want = {"grouped_fwd": 4 * layers * steps,
+            "grouped_dw": 2 * layers * steps}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"moe_train launches {got}, expected {want}")
+    return counts
+
+
+def run_train(torch, np, path, model, ids, labels, check, anatomy,
+              grad_names, grad_rel, flops_per_token=None):
+    """2 warm-up and 8 timed steps of ``model`` on one fixed batch through
+    make_train_step + AdamW(3e-4, weight decay 0.1, global-norm clip 1.0,
+    fp32 master weights); every loss finite, the last below the first, and
+    every kernel of ``PATHS[path]`` launched. With ``check`` the train
+    check first; ``anatomy``: then 2 more steps timed and 2 under
+    torch.profiler. MFU only where ``flops_per_token`` is given (the
+    model's own count). Returns the launch counts."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.train import init_state, make_train_step
     if check:
-        phase_train_check(torch, model, ids, labels)
+        phase_train_check(torch, model, ids, labels, grad_names, grad_rel,
+                          "check" if path == "train" else "moe_check")
     opt = O.AdamW(learning_rate=3e-4, weight_decay=0.1,
                   grad_clip=O.ClipGradByGlobalNorm(1.0), multi_precision=True)
     state = init_state(model, opt)
@@ -841,28 +1188,30 @@ def phase_train(torch, dev, np, check, anatomy=False):
     losses = [float(x) for x in losses]
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"train losses not finite: {losses}")
+        raise AssertionError(f"{path} losses not finite: {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"train loss did not fall: {losses}")
-    missing = [k for k in PATHS["train"] if counts[k] <= 0]
+        raise AssertionError(f"{path} loss did not fall: {losses}")
+    missing = [k for k in PATHS[path] if counts[k] <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the train path: "
+        raise AssertionError(f"kernels not launched on the {path} path: "
                              f"{missing} ({counts})")
     b, s = ids.shape
     tok_s = b * s / step_s
-    mfu = num_flops_per_token(cfg, s) * tok_s / PEAK_BF16_FLOPS
+    mfu = ("" if flops_per_token is None else
+           f"MFU {100 * flops_per_token * tok_s / PEAK_BF16_FLOPS:.2f}% of "
+           f"989 TFLOP/s, ")
     card = card_line()
-    log(f"[train] losses {' '.join(f'{x:.4f}' for x in losses)}")
-    log(f"[train] batch {b} x {s}: {1e3 * step_s:.1f} ms/step, "
-        f"{tok_s:.0f} tokens/s, MFU {100 * mfu:.2f}% of 989 TFLOP/s, peak "
+    log(f"[{path}] losses {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"[{path}] batch {b} x {s}: {1e3 * step_s:.1f} ms/step, "
+        f"{tok_s:.0f} tokens/s, {mfu}peak "
         f"allocated {peak / 2**30:.2f} GiB ({card})")
-    log(f"[train] launches over {len(losses)} steps: {counts}")
+    log(f"[{path}] launches over {len(losses)} steps: {counts}")
     if anatomy:
         def steps():
             nonlocal state
             for _ in range(2):
                 state, _ = step(state, ids, labels)
-        _anatomy(torch, f"train step, batch {b} x {s}", "step", steps, 2)
+        _anatomy(torch, f"{path} step, batch {b} x {s}", "step", steps, 2)
     del state, model
     torch.cuda.empty_cache()
     return counts
@@ -931,7 +1280,7 @@ def _anatomy(torch, label, unit, run, n):
             f"{nc // n:5d}x/{unit}  {os.path.basename(path)}:{line}({fn})")
 
 
-def phase_anatomy(torch, dev, model, np):
+def phase_anatomy(torch, dev, model, np, label="decode tick"):
     """Decode-tick anatomy (diagnostics, not in the default phases): 8
     active slots in steady decode, 16 ticks per run (five runs: every
     slot stays active through them)."""
@@ -940,7 +1289,7 @@ def phase_anatomy(torch, dev, model, np):
                     max_seq_len=512, num_blocks=256, seed=0, device=dev)
     rs = np.random.RandomState(2)
     for _ in range(8):
-        eng.add_request(Request(rs.randint(3, 32000, size=100),
+        eng.add_request(Request(rs.randint(3, model.cfg.vocab_size, size=100),
                                 max_new_tokens=128))
     for _ in range(4):                     # admission + first decode ticks
         eng.step()
@@ -948,12 +1297,13 @@ def phase_anatomy(torch, dev, model, np):
     def ticks():
         for _ in range(16):
             eng.step()
-    _anatomy(torch, "decode tick, 8 active slots", "tick", ticks, 16)
+    _anatomy(torch, f"{label}, 8 active slots", "tick", ticks, 16)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,serve,check,train")
+    ap.add_argument("--phases", default="build,kernels,serve,check,train,"
+                    "moe_serve,moe_check,moe_train")
     ap.add_argument("--root", help="import paddle_tpu_torch from the "
                     "checkout at ROOT instead of this one: an earlier "
                     "tree's package under this script's measurement")
@@ -995,6 +1345,28 @@ def main(argv=None):
     if "train" in phases:
         counts["train"] = phase_train(torch, dev, np, "check" in phases,
                                       "anatomy" in phases)
+    if {"moe_serve", "moe_check", "moe_anatomy"} & set(phases):
+        model = build_moe_model(torch, dev, 24, "moe_serve")
+        counts["moe_serve"], moe_reqs = phase_serve(torch, dev, model, np,
+                                                    "moe_serve")
+        per_forward = 2 * model.cfg.num_hidden_layers
+        if counts["moe_serve"]["grouped_fwd"] % per_forward:
+            raise AssertionError(
+                f"grouped_fwd launches {counts['moe_serve']['grouped_fwd']} "
+                f"are no multiple of {per_forward} (2 per layer and forward)")
+        if "moe_anatomy" in phases:
+            phase_anatomy(torch, dev, model, np, "moe decode tick")
+        del model
+        torch.cuda.empty_cache()
+        if "moe_check" in phases:
+            model = build_moe_model(torch, dev, MOE_CHECK_LAYERS, "moe_check")
+            phase_check(torch, model, moe_reqs, "moe_check", MOE_CHECK_REL,
+                        twice=True)
+            del model
+            torch.cuda.empty_cache()
+    if "moe_train" in phases:
+        counts["moe_train"] = phase_moe_train(
+            torch, dev, np, "moe_check" in phases, "moe_anatomy" in phases)
     kern = []
     for path, names in PATHS.items():
         for name in names:

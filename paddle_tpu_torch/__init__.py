@@ -8,13 +8,14 @@ CUDA kernel for Hopper (``sm_90a``) under ``csrc/``, built at first use
 by :mod:`paddle_tpu_torch.ops.cuda._build`; plain PyTorch code covers
 what XLA fused for free.
 
-Entry points (``models.llama.LlamaForCausalLM``, ``serving.LLMEngine``,
+Entry points (the model classes, ``serving.LLMEngine``,
 ``train.make_train_step``) run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no device given and no card present they raise.
 
-Ported so far: the single-device paged Llama serving path and the Llama
-train step (``train``, ``optimizer``) — see ``ROADMAP.md`` for the queues
-that remain.
+Ported so far: the single-device paged serving path and the train step
+(``train``, ``optimizer``) for the Llama family and the MoE families
+(``models.mixtral``, ``models.qwen2_moe``, ``models.moe_llm`` on
+``distributed.moe``) — see ``ROADMAP.md`` for the queues that remain.
 """
 from paddle_tpu_torch.core.device import resolve_device  # noqa: F401
 from paddle_tpu_torch.core.random import generator  # noqa: F401

@@ -1,0 +1,471 @@
+// K6a / K6b — grouped (ragged) matrix products for Hopper (sm_90a).
+//
+// Replaces: paddle_tpu/ops/pallas/grouped_matmul.py
+//   K6a  _fwd_kernel (via _pallas_fwd): out[r] = lhs[r] @ rhs[g(r)] over rows
+//        sorted so that each group's rows are contiguous; g(r) follows from
+//        group_sizes. The backward's dlhs is the same product against rhs
+//        read transposed.
+//   K6b  _dw_kernel (via _pallas_dw): drhs[e] = lhs[seg(e)]^T @ g[seg(e)],
+//        exactly 0 for an empty group.
+// Both accumulate in fp32 and cast once to the operands' type.
+//
+// The TPU plan pads every group to a multiple of its row tile and scatters
+// lhs into a padded buffer, because one BlockSpec tile must belong to one
+// expert. Here a block bounds its rows by its group's [start, end) and
+// masks the tail, so lhs, g and the result are used in place: no padded
+// copy, no gather of the result. group_sizes stays on the device: the
+// launch covers the static bound of row tiles, ceil(m / BM) + E, each
+// block finds its group from the prefix sums of group_sizes (E is small)
+// and returns when it is past the live tiles, so an empty group costs no
+// weight read and the host never waits for the sizes.
+//
+// Bound on this card. Prefill and training (hundreds of rows per group):
+// operations, 2*m*k*n against the tensor cores' bf16 rate. Decode (a few
+// rows over many groups): bytes, every non-empty group's weights are read
+// once for one or two rows. This first version computes with fp32 FMAs on
+// the CUDA cores from shared-memory tiles (operands converted to fp32 on
+// the way in, register prefetch of the next slab), so the large shapes sit
+// far below the tensor-core bound; wgmma + TMA is later work. The decode
+// shape has its own kernel (grouped_rows_kernel): with one to four rows per
+// group there is nothing to reuse a shared-memory tile for, so a block
+// streams a 256-column strip of its group's weights once with 16-byte
+// loads, eight warps splitting k between them and eight loads in flight
+// per thread, multiplies it into the tile's live rows held in registers
+// and sums the warps' partial results in a fixed order.
+//
+// K6b: one block per (group, k tile, n tile) loops over its group's rows,
+// so the sum over rows is taken in registers in a fixed order: no atomics,
+// the result is deterministic, and a block of an empty group writes zeros.
+#include "common.cuh"
+
+using namespace ptt;
+
+namespace {
+
+// A block computes a BM x BN tile from slabs of depth BK; a thread owns the
+// TM x TN outputs at rows i * RY + ty and columns j * RX + tx, so that the
+// shared-memory reads of a warp are a broadcast (rows) and consecutive
+// banks (columns), and its global stores are coalesced along columns.
+template <int BM_, int BN_, int BK_, int TM_, int TN_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, TM = TM_, TN = TN_;
+  static constexpr int RY = BM / TM, RX = BN / TN, THREADS = RY * RX;
+  static constexpr int AE = BM * BK / THREADS, BE = BK * BN / THREADS;
+  static_assert(BM % TM == 0 && BN % TN == 0, "tile / thread shape");
+  static_assert((BM * BK) % THREADS == 0 && (BK * BN) % THREADS == 0,
+                "slab elements per thread");
+};
+
+using Large = Tile<128, 128, 16, 8, 8>;  // 256 threads, 8 x 8 per thread
+
+// acc += A^T B over one slab: As [BK][BM] and Bs [BK][BN] in fp32. FULL:
+// every row of the tile is live; otherwise the thread owns my_rows rows.
+template <typename C, bool FULL>
+__device__ __forceinline__ void fma_slab(const float (&As)[C::BK][C::BM + 1],
+                                         const float (&Bs)[C::BK][C::BN + 1],
+                                         float (&acc)[C::TM][C::TN], int tx,
+                                         int ty, int my_rows) {
+#pragma unroll
+  for (int kk = 0; kk < C::BK; ++kk) {
+    float b[C::TN];
+#pragma unroll
+    for (int j = 0; j < C::TN; ++j) b[j] = Bs[kk][j * C::RX + tx];
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i) {
+      if (!FULL && i >= my_rows) break;
+      const float a = As[kk][i * C::RY + ty];
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- K6a
+// One slab of the forward into registers: x [nrows, k] (the tile's rows),
+// w the group's weights, [k, n] or, TRANS, [n, k].
+template <typename T, typename C, bool TRANS>
+__device__ __forceinline__ void fwd_load(const T* __restrict__ x,
+                                         const T* __restrict__ w, int nrows,
+                                         int k0, int n0, int k, int n,
+                                         int tid, float (&ra)[C::AE],
+                                         float (&rb)[C::BE]) {
+#pragma unroll
+  for (int t = 0; t < C::AE; ++t) {
+    const int idx = tid + t * C::THREADS;
+    const int r = idx / C::BK, c = k0 + idx % C::BK;
+    ra[t] = (r < nrows && c < k) ? to_f(x[(size_t)r * k + c]) : 0.f;
+  }
+#pragma unroll
+  for (int t = 0; t < C::BE; ++t) {
+    const int idx = tid + t * C::THREADS;
+    if (TRANS) {
+      const int c = n0 + idx / C::BK, r = k0 + idx % C::BK;
+      rb[t] = (r < k && c < n) ? to_f(w[(size_t)c * k + r]) : 0.f;
+    } else {
+      const int r = k0 + idx / C::BN, c = n0 + idx % C::BN;
+      rb[t] = (r < k && c < n) ? to_f(w[(size_t)r * n + c]) : 0.f;
+    }
+  }
+}
+
+template <typename T, typename C, bool TRANS>
+__global__ void __launch_bounds__(C::THREADS, 2)
+    grouped_fwd_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs,
+                       const int* __restrict__ sizes, T* __restrict__ out,
+                       int m, int k, int n, int e, int n_tiles) {
+  __shared__ float As[C::BK][C::BM + 1];
+  __shared__ float Bs[C::BK][C::BN + 1];
+  // this block's row tile: slot counts the tiles of the groups in order
+  int slot = blockIdx.x / n_tiles;
+  const int n0 = (blockIdx.x % n_tiles) * C::BN;
+  int g = 0, start = 0, row0 = -1, row_end = 0;
+  for (; g < e; ++g) {
+    const int sz = max(sizes[g], 0);
+    const int tiles = (sz + C::BM - 1) / C::BM;
+    if (slot < tiles) {
+      row0 = start + slot * C::BM;
+      row_end = min(start + sz, m);
+      break;
+    }
+    slot -= tiles;
+    start += sz;
+  }
+  if (row0 < 0 || row0 >= row_end) return;  // past the live tiles
+  const int nrows = min(C::BM, row_end - row0);
+  const T* x = lhs + (size_t)row0 * k;
+  const T* w = rhs + (size_t)g * k * n;
+  const int tid = threadIdx.x, tx = tid % C::RX, ty = tid / C::RX;
+  const int my_rows = min(C::TM, max(0, (nrows - ty + C::RY - 1) / C::RY));
+
+  float acc[C::TM][C::TN];
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < C::TN; ++j) acc[i][j] = 0.f;
+  float ra[C::AE], rb[C::BE];
+  fwd_load<T, C, TRANS>(x, w, nrows, 0, n0, k, n, tid, ra, rb);
+  for (int k0 = 0; k0 < k; k0 += C::BK) {
+#pragma unroll
+    for (int t = 0; t < C::AE; ++t) {
+      const int idx = tid + t * C::THREADS;
+      As[idx % C::BK][idx / C::BK] = ra[t];
+    }
+#pragma unroll
+    for (int t = 0; t < C::BE; ++t) {
+      const int idx = tid + t * C::THREADS;
+      if (TRANS)
+        Bs[idx % C::BK][idx / C::BK] = rb[t];
+      else
+        Bs[idx / C::BN][idx % C::BN] = rb[t];
+    }
+    __syncthreads();
+    if (k0 + C::BK < k)  // the next slab's loads fly during the FMAs
+      fwd_load<T, C, TRANS>(x, w, nrows, k0 + C::BK, n0, k, n, tid, ra, rb);
+    if (nrows == C::BM)
+      fma_slab<C, true>(As, Bs, acc, tx, ty, my_rows);
+    else if (my_rows > 0)
+      fma_slab<C, false>(As, Bs, acc, tx, ty, my_rows);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i) {
+    const int r = i * C::RY + ty;
+    if (r >= nrows) break;
+    T* orow = out + (size_t)(row0 + r) * n;
+#pragma unroll
+    for (int j = 0; j < C::TN; ++j) {
+      const int c = n0 + j * C::RX + tx;
+      if (c < n) orow[c] = from_f<T>(acc[i][j]);
+    }
+  }
+}
+
+template <typename T, typename C>
+int launch_fwd(int trans, const void* lhs, const void* rhs, const void* sizes,
+               void* out, int m, int k, int n, int e, void* stream) {
+  const long long n_tiles = (n + C::BN - 1) / C::BN;
+  const long long slots = (m + C::BM - 1) / C::BM + e;  // static bound
+  if (n_tiles * slots > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(n_tiles * slots));
+  const T* a = static_cast<const T*>(lhs);
+  const T* b = static_cast<const T*>(rhs);
+  const int* s = static_cast<const int*>(sizes);
+  T* o = static_cast<T*>(out);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (trans)
+    grouped_fwd_kernel<T, C, true><<<grid, C::THREADS, 0, st>>>(
+        a, b, s, o, m, k, n, e, static_cast<int>(n_tiles));
+  else
+    grouped_fwd_kernel<T, C, false><<<grid, C::THREADS, 0, st>>>(
+        a, b, s, o, m, k, n, e, static_cast<int>(n_tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------- K6a, few rows per group
+constexpr int kRowsTile = 4;    // rows of a group per block
+constexpr int kRowsWarps = 8;   // warps of a block, splitting k
+constexpr int kRowsLoads = 8;   // 16-byte weight loads in flight per thread
+
+// 16 bytes of T as floats
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void unpack(const uint4& u,
+                                                float (&f)[N]) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  // a bf16 is the high half of the fp32 of the same value
+  static __device__ __forceinline__ void unpack(const uint4& u,
+                                                float (&f)[N]) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+// rhs [e, k, n] with n a multiple of 16 bytes' worth of T and a 16-byte
+// aligned base (the wrapper checks). A block owns up to kRowsTile rows of
+// one group and 32 * N columns; lane l of every warp owns columns
+// n0 + l * N .. + N, warp w the k range [kbeg, kend).
+template <typename T>
+__global__ void __launch_bounds__(kRowsWarps * 32)
+    grouped_rows_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs,
+                        const int* __restrict__ sizes, T* __restrict__ out,
+                        int m, int k, int n, int e, int n_tiles) {
+  constexpr int V = Vec16<T>::N, BN = 32 * V, RB = kRowsTile;
+  __shared__ float red[kRowsWarps][RB][BN];
+  int slot = blockIdx.x / n_tiles;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
+  int g = 0, start = 0, row0 = -1, row_end = 0;
+  for (; g < e; ++g) {
+    const int sz = max(sizes[g], 0);
+    const int tiles = (sz + RB - 1) / RB;
+    if (slot < tiles) {
+      row0 = start + slot * RB;
+      row_end = min(start + sz, m);
+      break;
+    }
+    slot -= tiles;
+    start += sz;
+  }
+  if (row0 < 0 || row0 >= row_end) return;  // past the live tiles
+  const int nrows = min(RB, row_end - row0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col = n0 + lane * V;
+  const bool col_ok = col < n;  // then col + V <= n, as n % V == 0
+  const int per = ((k + 31) / 32 + kRowsWarps - 1) / kRowsWarps * 32;
+  const int kbeg = warp * per, kend = min(k, kbeg + per);
+  const T* x = lhs + (size_t)row0 * k;
+  const T* w = rhs + (size_t)g * k * n + col;
+
+  float acc[RB][V];
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[r][v] = 0.f;
+  for (int kk0 = kbeg; kk0 < kend; kk0 += 32) {
+    // lane l holds lhs[r][kk0 + l]; shuffles hand it round below
+    float a[RB];
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+      a[r] = (r < nrows && kk0 + lane < kend)
+                 ? to_f(x[(size_t)r * k + kk0 + lane])
+                 : 0.f;
+#pragma unroll
+    for (int j0 = 0; j0 < 32; j0 += kRowsLoads) {
+      uint4 wv[kRowsLoads];
+#pragma unroll
+      for (int u = 0; u < kRowsLoads; ++u) {
+        const int kk = kk0 + j0 + u;
+        wv[u] = (col_ok && kk < kend)
+                    ? *reinterpret_cast<const uint4*>(w + (size_t)kk * n)
+                    : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < kRowsLoads; ++u) {
+        float wf[V];
+        Vec16<T>::unpack(wv[u], wf);
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          if (r >= nrows) break;  // block-uniform: the shuffle stays whole
+          const float av = __shfl_sync(0xffffffffu, a[r], j0 + u);
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[r][v] = fmaf(av, wf[v], acc[r][v]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int v = 0; v < V; ++v) red[warp][r][lane * V + v] = acc[r][v];
+  __syncthreads();
+  // the warps' partial sums in a fixed order: deterministic
+  for (int idx = threadIdx.x; idx < RB * BN; idx += kRowsWarps * 32) {
+    const int r = idx / BN, c = idx % BN;
+    if (r >= nrows || n0 + c >= n) continue;
+    float sum = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kRowsWarps; ++wi) sum += red[wi][r][c];
+    out[(size_t)(row0 + r) * n + n0 + c] = from_f<T>(sum);
+  }
+}
+
+template <typename T>
+int launch_rows(const void* lhs, const void* rhs, const void* sizes,
+                void* out, int m, int k, int n, int e, void* stream) {
+  constexpr int V = Vec16<T>::N;
+  if (n % V != 0 || reinterpret_cast<uintptr_t>(rhs) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_tiles = (n + 32 * V - 1) / (32 * V);
+  const long long slots = (m + kRowsTile - 1) / kRowsTile + e;
+  if (n_tiles * slots > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  grouped_rows_kernel<T><<<static_cast<unsigned>(n_tiles * slots),
+                           kRowsWarps * 32, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(lhs), static_cast<const T*>(rhs),
+      static_cast<const int*>(sizes), static_cast<T*>(out), m, k, n, e,
+      static_cast<int>(n_tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------- K6b
+// One slab of BK rows of the group into registers: lhs columns k0.. and g
+// columns n0..; rows at or past row_end read as 0.
+template <typename T, typename C>
+__device__ __forceinline__ void dw_load(const T* __restrict__ lhs,
+                                        const T* __restrict__ gr, int r0,
+                                        int row_end, int k0, int n0, int k,
+                                        int n, int tid, float (&ra)[C::AE],
+                                        float (&rb)[C::BE]) {
+#pragma unroll
+  for (int t = 0; t < C::AE; ++t) {
+    const int idx = tid + t * C::THREADS;
+    const int r = r0 + idx / C::BM, c = k0 + idx % C::BM;
+    ra[t] = (r < row_end && c < k) ? to_f(lhs[(size_t)r * k + c]) : 0.f;
+  }
+#pragma unroll
+  for (int t = 0; t < C::BE; ++t) {
+    const int idx = tid + t * C::THREADS;
+    const int r = r0 + idx / C::BN, c = n0 + idx % C::BN;
+    rb[t] = (r < row_end && c < n) ? to_f(gr[(size_t)r * n + c]) : 0.f;
+  }
+}
+
+template <typename T, typename C>
+__global__ void __launch_bounds__(C::THREADS, 2)
+    grouped_dw_kernel(const T* __restrict__ lhs, const T* __restrict__ gr,
+                      const int* __restrict__ sizes, T* __restrict__ drhs,
+                      int m, int k, int n) {
+  __shared__ float Ls[C::BK][C::BM + 1];
+  __shared__ float Gs[C::BK][C::BN + 1];
+  const int grp = blockIdx.z;
+  int start = 0;
+  for (int i = 0; i < grp; ++i) start += max(sizes[i], 0);
+  start = min(start, m);
+  const int row_end = min(start + max(sizes[grp], 0), m);
+  const int k0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
+  const int tid = threadIdx.x, tx = tid % C::RX, ty = tid / C::RX;
+
+  float acc[C::TM][C::TN];
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < C::TN; ++j) acc[i][j] = 0.f;
+  float ra[C::AE], rb[C::BE];
+  if (start < row_end)
+    dw_load<T, C>(lhs, gr, start, row_end, k0, n0, k, n, tid, ra, rb);
+  for (int r0 = start; r0 < row_end; r0 += C::BK) {
+#pragma unroll
+    for (int t = 0; t < C::AE; ++t) {
+      const int idx = tid + t * C::THREADS;
+      Ls[idx / C::BM][idx % C::BM] = ra[t];
+    }
+#pragma unroll
+    for (int t = 0; t < C::BE; ++t) {
+      const int idx = tid + t * C::THREADS;
+      Gs[idx / C::BN][idx % C::BN] = rb[t];
+    }
+    __syncthreads();
+    if (r0 + C::BK < row_end)
+      dw_load<T, C>(lhs, gr, r0 + C::BK, row_end, k0, n0, k, n, tid, ra, rb);
+    fma_slab<C, true>(Ls, Gs, acc, tx, ty, C::TM);
+    __syncthreads();
+  }
+  // an empty group's blocks reach here with acc == 0: exact zeros
+  T* o = drhs + (size_t)grp * k * n;
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i) {
+    const int r = k0 + i * C::RY + ty;
+    if (r >= k) break;
+#pragma unroll
+    for (int j = 0; j < C::TN; ++j) {
+      const int c = n0 + j * C::RX + tx;
+      if (c < n) o[(size_t)r * n + c] = from_f<T>(acc[i][j]);
+    }
+  }
+}
+
+template <typename T>
+int launch_dw(const void* lhs, const void* gr, const void* sizes, void* drhs,
+              int m, int k, int n, int e, void* stream) {
+  using C = Large;
+  const int k_tiles = (k + C::BM - 1) / C::BM;
+  const int n_tiles = (n + C::BN - 1) / C::BN;
+  if (k_tiles > 65535 || e > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(n_tiles, k_tiles, e);
+  grouped_dw_kernel<T, C><<<grid, C::THREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(lhs), static_cast<const T*>(gr),
+      static_cast<const int*>(sizes), static_cast<T*>(drhs), m, k, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (lhs, rhs and out alike). lhs [m, k],
+// sizes [e] int32 on the device, out [m, n]. trans == 0: rhs [e, k, n];
+// trans != 0: rhs [e, n, k], read transposed (the backward's dlhs).
+// rows != 0 picks the few-rows-per-group kernel (the decode shape); the
+// wrapper decides from m, e, n and the alignment of rhs; it takes no
+// transposed rhs. Rows past sum(sizes) are not written.
+extern "C" int grouped_fwd(int dtype, int trans, int rows, const void* lhs,
+                           const void* rhs, const void* sizes, void* out,
+                           int m, int k, int n, int e, void* stream) {
+  if (m <= 0 || n <= 0 || e <= 0) return 0;
+  if (rows && trans) return static_cast<int>(cudaErrorInvalidValue);
+#define PTT_GFWD(T)                                                       \
+  return rows ? launch_rows<T>(lhs, rhs, sizes, out, m, k, n, e, stream)  \
+              : launch_fwd<T, Large>(trans, lhs, rhs, sizes, out, m, k, n, \
+                                     e, stream)
+  if (dtype == kF32) PTT_GFWD(float);
+  if (dtype == kBF16) PTT_GFWD(__nv_bfloat16);
+#undef PTT_GFWD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// lhs [m, k], g [m, n], sizes [e] int32 -> drhs [e, k, n], every element
+// written (zeros for an empty group).
+extern "C" int grouped_dw(int dtype, const void* lhs, const void* g,
+                          const void* sizes, void* drhs, int m, int k, int n,
+                          int e, void* stream) {
+  if (k <= 0 || n <= 0 || e <= 0) return 0;
+  if (dtype == kF32)
+    return launch_dw<float>(lhs, g, sizes, drhs, m, k, n, e, stream);
+  if (dtype == kBF16)
+    return launch_dw<__nv_bfloat16>(lhs, g, sizes, drhs, m, k, n, e, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

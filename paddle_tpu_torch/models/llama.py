@@ -97,8 +97,9 @@ class _Init:
         self.cfg, self.device = cfg, device
         self.gen = generator(seed, device)
 
-    def normal(self, *shape):
-        w = torch.empty(shape, dtype=self.cfg.dtype, device=self.device)
+    def normal(self, *shape, dtype=None):
+        w = torch.empty(shape, dtype=dtype or self.cfg.dtype,
+                        device=self.device)
         w.normal_(0.0, self.cfg.initializer_range, generator=self.gen)
         return nn.Parameter(w)
 

@@ -926,11 +926,50 @@ def _qkv(att, h, shape_q, shape_kv):
             v.reshape(*shape_kv, nkv, hd))
 
 
+def _backbone(model):
+    """Decoder backbone holding embed_tokens/layers/norm. Llama-family
+    models wrap it in ``.model``; the MoE families (Mixtral, Qwen2-MoE,
+    MoEForCausalLM) hang the parts directly off the LM."""
+    return getattr(model, "model", model)
+
+
+def model_config(model):
+    """The config that carries the Llama fields (widths, heads, rope):
+    ``model.cfg``, or its ``base`` for ``MoEForCausalLM``."""
+    return getattr(model.cfg, "base", model.cfg)
+
+
+def _model_logits(model, x):
+    """LM head: ``model.logits`` where it exists, the plain ``lm_head``
+    matmul otherwise (MoE families)."""
+    fn = getattr(model, "logits", None)
+    if callable(fn):
+        return fn(x)
+    return _wo(x, model.lm_head)
+
+
+def _mlp_out(lyr, h):
+    """Per-layer MLP adapter: Mixtral-style layers carry an ``.moe``
+    MoELayer, Qwen2-MoE puts a sparse block (or a dense LlamaMLP) at
+    ``.mlp``. MoE blocks return ``(y, aux_loss)`` — the aux loss is a
+    training regulariser, dropped at inference."""
+    blk = lyr.moe if hasattr(lyr, "moe") else lyr.mlp
+    out = blk(h)
+    return out[0] if isinstance(out, (tuple, list)) else out
+
+
+def is_moe_model(model) -> bool:
+    """True when any decoder layer routes through an MoE block (drives
+    the ``serving.moe_dispatch`` chaos site in LLMEngine)."""
+    return any(hasattr(lyr, "moe") or getattr(lyr, "sparse", False)
+               for lyr in getattr(_backbone(model), "layers", ()))
+
+
 def _layer_tail(lyr, x, out, shape):
     att = lyr.self_attn
     x = x + _wo(out.reshape(*shape, att.num_heads * att.head_dim),
                 att.o_proj)
-    return x + lyr.mlp(lyr.post_attention_layernorm(x))
+    return x + _mlp_out(lyr, lyr.post_attention_layernorm(x))
 
 
 # ------------------------------------------------------------- forwards
@@ -951,7 +990,7 @@ def llama_prefill_paged(model, input_ids, prompt_lens, cache: PagedKVCache,
     untouched. Padding rows use slot_id >= num_slots and prompt_len 0 and
     write nothing. The cache is updated in place."""
     _refuse_lora_cp(lora, cp_axis)
-    cfg = model.cfg
+    cfg = model_config(model)
     dev = cache.device
     input_ids = torch.as_tensor(input_ids, device=dev).long()
     b, s = input_ids.shape
@@ -964,7 +1003,7 @@ def llama_prefill_paged(model, input_ids, prompt_lens, cache: PagedKVCache,
     else:
         tables = _dev_i32(table_rows, dev)
         _install_rows(cache, slot_ids, tables, lens)
-    x = model.model.embed_tokens[input_ids]
+    x = _backbone(model).embed_tokens[input_ids]
     d = cfg.hidden_size // cfg.num_attention_heads
     scaling = cfg.rope_scaling
     cos, sin = A.rope_cos_sin(
@@ -973,7 +1012,7 @@ def llama_prefill_paged(model, input_ids, prompt_lens, cache: PagedKVCache,
         cur_len=(lens_np if (scaling or {}).get("type") == "dynamic"
                  else None),
         allow_dynamic=False, device=dev)
-    for li, lyr in enumerate(model.model.layers):
+    for li, lyr in enumerate(_backbone(model).layers):
         h = lyr.input_layernorm(x)
         q, k, v = _qkv(lyr.self_attn, h, (b, s), (b, s))
         q = A.apply_rope(q, cos, sin)
@@ -984,8 +1023,8 @@ def llama_prefill_paged(model, input_ids, prompt_lens, cache: PagedKVCache,
         _scatter_prefill(cache.k_store[li], k, tables, lens, nb, bs)
         _scatter_prefill(cache.v_store[li], v, tables, lens, nb, bs)
         x = _layer_tail(lyr, x, out, (b, s))
-    x = model.model.norm(x)
-    logits = model.logits(x)
+    x = _backbone(model).norm(x)
+    logits = _model_logits(model, x)
     last = logits[torch.arange(b, device=dev),
                   torch.clamp(lens.long() - 1, min=0)]
     return last, cache
@@ -998,20 +1037,20 @@ def llama_decode_step_paged(model, tokens, cache: PagedKVCache, active,
     (inactive rows neither write KV nor advance). Returns (logits [B, V],
     cache), the cache updated in place."""
     _refuse_lora_cp(lora, cp_axis)
-    cfg = model.cfg
+    cfg = model_config(model)
     dev = cache.device
     tokens = torch.as_tensor(tokens, device=dev).long()
     active = torch.as_tensor(active, device=dev).bool()
     b = tokens.shape[0]
     nb, bs = cache.num_blocks, cache.block_size
-    x = model.model.embed_tokens[tokens][:, None]               # [B,1,E]
+    x = _backbone(model).embed_tokens[tokens][:, None]               # [B,1,E]
     d = cfg.hidden_size // cfg.num_attention_heads
     old_lens = cache.lens.clone()
     cos, sin = _rope_rows(old_lens, d, cfg.rope_theta, cfg.rope_scaling,
                           cfg.max_position_embeddings)
     new_lens = torch.where(active, old_lens + 1, old_lens)
     tables = cache.block_tables
-    for li, lyr in enumerate(model.model.layers):
+    for li, lyr in enumerate(_backbone(model).layers):
         h = lyr.input_layernorm(x)
         q, k, v = _qkv(lyr.self_attn, h, (b, 1), (b, 1))
         q = _apply_rope_rows(q, cos, sin)
@@ -1022,8 +1061,8 @@ def llama_decode_step_paged(model, tokens, cache: PagedKVCache, active,
             q[:, 0], cache.k_store[li][:nb], cache.v_store[li][:nb], tables,
             new_lens, window=cfg.sliding_window)
         x = _layer_tail(lyr, x, out, (b, 1))
-    x = model.model.norm(x)
-    logits = model.logits(x)[:, 0]
+    x = _backbone(model).norm(x)
+    logits = _model_logits(model, x)[:, 0]
     cache.lens.copy_(new_lens)
     return logits, cache
 
@@ -1078,7 +1117,7 @@ def llama_prefill_chunk_paged(model, input_ids, chunk_lens, offsets,
     offset+chunk. Dynamic-NTK rope is refused (chunk-end bases would
     desync across chunks). The cache is updated in place."""
     _refuse_lora_cp(lora, cp_axis)
-    cfg = model.cfg
+    cfg = model_config(model)
     if (cfg.rope_scaling or {}).get("type") == "dynamic":
         raise NotImplementedError(
             "chunked prefill with dynamic-NTK rope is not supported "
@@ -1095,7 +1134,7 @@ def llama_prefill_chunk_paged(model, input_ids, chunk_lens, offsets,
     _install_rows(cache, slot_ids, tables, off_np + cl_np)
     window = cfg.sliding_window
 
-    x = model.model.embed_tokens[input_ids]
+    x = _backbone(model).embed_tokens[input_ids]
     d = cfg.hidden_size // cfg.num_attention_heads
     positions = offsets.long()[:, None] + torch.arange(c, device=dev)
     base, pos_div = A.resolve_rope_scaling(
@@ -1106,7 +1145,7 @@ def llama_prefill_chunk_paged(model, input_ids, chunk_lens, offsets,
                                   device=dev) / d))
     f = (positions.float() / pos_div)[:, :, None] * inv
     cos, sin = torch.cos(f)[:, :, None, :], torch.sin(f)[:, :, None, :]
-    for li, lyr in enumerate(model.model.layers):
+    for li, lyr in enumerate(_backbone(model).layers):
         h = lyr.input_layernorm(x)
         q, k, v = _qkv(lyr.self_attn, h, (a, c), (a, c))
         q = _apply_rope_rows(q, cos, sin)
@@ -1120,8 +1159,8 @@ def llama_prefill_chunk_paged(model, input_ids, chunk_lens, offsets,
             q, cache.k_store[li][:nb], cache.v_store[li][:nb], tables,
             offsets, chunk_lens, window=window)
         x = _layer_tail(lyr, x, out, (a, c))
-    x = model.model.norm(x)
-    logits = model.logits(x)
+    x = _backbone(model).norm(x)
+    logits = _model_logits(model, x)
     if full_logits:
         return logits, cache
     last = logits[torch.arange(a, device=dev),
@@ -1143,3 +1182,12 @@ def prefix_cow_update(cache: PagedKVCache, pairs):
     for store in (*cache.k_store, *cache.v_store):
         store[dst] = store[src]
     return cache
+
+
+# The forwards above are structure-agnostic via _backbone/_model_logits/
+# _mlp_out, so they are ALSO the paged entry points for the MoE families
+# (Mixtral, Qwen2-MoE, MoEForCausalLM): expert routing runs inside the
+# same prefill/decode forwards.
+moe_prefill_paged = llama_prefill_paged
+moe_decode_step_paged = llama_decode_step_paged
+moe_decode_tick = llama_decode_tick

@@ -1,6 +1,7 @@
-"""The Llama slice of ``paddle_tpu/nn/functional.py``: ``silu``,
-``swiglu``, ``embedding`` and ``rms_norm``, on tensors, and the loss the
-Llama train step needs, ``parallel_cross_entropy``.
+"""The Llama and MoE slice of ``paddle_tpu/nn/functional.py``: ``silu``,
+``swiglu``, ``embedding`` and ``rms_norm``, on tensors, and the losses the
+train steps need: ``parallel_cross_entropy`` (Llama, moe_llm) and
+``cross_entropy`` (Mixtral, Qwen2-MoE).
 
 Weights keep the reference's ``[in, out]`` layout where a layout exists.
 """
@@ -55,4 +56,37 @@ def parallel_cross_entropy(logits, labels, *, label_smoothing=0.0):
     if label_smoothing > 0.0:
         loss = ((1 - label_smoothing) * loss
                 + label_smoothing * (lse - logits32.mean(-1)))
+    return loss
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  label_smoothing=0.0):
+    """Reference: paddle.nn.functional.cross_entropy — ``input`` is logits.
+    The reference's fp32 log-softmax math; a hard label's term is taken by
+    gather, not through a one-hot target (at a vocabulary of 151 936 the
+    one-hot of a 4096-token batch is 2.5 GB)."""
+    logp = torch.log_softmax(input.float(), dim=axis)
+    num_classes = input.shape[axis]
+    if soft_label:
+        loss = -(label.float() * logp).sum(axis)
+    else:
+        idx = torch.clamp(label.long(), 0, num_classes - 1)
+        loss = -torch.gather(logp, axis, idx.unsqueeze(axis)).squeeze(axis)
+        # a label outside [0, C) has an all-zero one-hot row
+        loss = loss * ((label >= 0) & (label < num_classes)).to(loss.dtype)
+        if label_smoothing > 0.0:
+            loss = ((1 - label_smoothing) * loss
+                    - label_smoothing * logp.mean(axis))
+    if weight is not None and not soft_label:
+        loss = loss * weight[torch.clamp(label.long(), 0, num_classes - 1)]
+    if not soft_label and ignore_index is not None:
+        mask = (label != ignore_index).to(loss.dtype)
+        loss = loss * mask
+        if reduction == "mean":
+            return loss.sum() / torch.clamp(mask.sum(), min=1.0)
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
     return loss

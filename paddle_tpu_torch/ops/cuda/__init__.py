@@ -6,17 +6,21 @@ counts its launches in ``<wrapper>.launches``.
 Importing this package builds nothing: sources compile at first launch
 (:mod:`paddle_tpu_torch.ops.cuda._build`).
 """
-from paddle_tpu_torch.ops.cuda import (flash_attention, norms,  # noqa: F401
-                                       paged_attention)
+from paddle_tpu_torch.ops.cuda import (flash_attention,  # noqa: F401
+                                       grouped_matmul, norms, paged_attention)
 
 
 SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode")
 TRAIN_KERNELS = ("rms_norm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the MoE families: the dense paths' kernels plus the grouped GEMM
+MOE_SERVE_KERNELS = SERVE_KERNELS + ("grouped_fwd",)
+MOE_TRAIN_KERNELS = TRAIN_KERNELS + ("grouped_fwd", "grouped_dw")
 
 
 def kernels() -> dict:
     """{name: the function that counts its launches} of every kernel of
-    the port: the serving path's, then the train step's backward."""
+    the port: the serving path's, the train step's backward, then the
+    grouped GEMM of the MoE families (forward/dlhs, drhs)."""
     return {
         "rms_norm": norms.rms_norm,
         "flash_fwd": flash_attention.flash_attention,
@@ -24,6 +28,8 @@ def kernels() -> dict:
         "paged_decode": paged_attention.paged_decode_attention,
         "flash_bwd_dq": flash_attention.flash_bwd_dq,
         "flash_bwd_dkv": flash_attention.flash_bwd_dkv,
+        "grouped_fwd": grouped_matmul.grouped_matmul,
+        "grouped_dw": grouped_matmul.grouped_dw,
     }
 
 

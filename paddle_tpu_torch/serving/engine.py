@@ -1,6 +1,10 @@
 """Continuous-batching LLM serving engine — counterpart of
 ``paddle_tpu/serving/engine.py``, the single-device path.
 
+  * MODELS — the Llama family and, through the structure adapters of
+    ``models/paged.py``, the MoE families (Mixtral, Qwen2-MoE,
+    ``MoEForCausalLM``); an MoE model arms the ``serving.moe_dispatch``
+    fault site before each decode tick.
   * DEVICE — :class:`~paddle_tpu_torch.serving.executor.ModelExecutor`:
     slot-aware prefill (flash kernel), chunked prefill (paged chunk
     kernel) and the fused decode tick (paged decode kernel + on-device
@@ -37,6 +41,7 @@ import time
 import numpy as np
 
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.models.paged import is_moe_model, model_config
 from paddle_tpu_torch.observability import span as _span
 from paddle_tpu_torch.serving.executor import ModelExecutor
 from paddle_tpu_torch.serving.kv import KVManager, cache_block_bytes
@@ -48,6 +53,7 @@ from paddle_tpu_torch.serving.telemetry import (_ACTIVE_SLOTS, _CANCELLED,
                                                 _TICK, _TIMEOUTS, _TOK_LAT,
                                                 _TOKENS, _TTFT)
 from paddle_tpu_torch.serving.types import Request
+from paddle_tpu_torch.utils.faults import fault_point
 
 _Q1 = "ROADMAP.md queue 1, item 5 (serving features)"
 
@@ -87,12 +93,15 @@ class LLMEngine:
             raise _not_ported("cp > 1 (context-parallel serving)")
         if int(async_depth) != 0:
             raise _not_ported("async_depth > 0 (async pipelined decode)")
-        cfg = model.cfg
+        cfg = model_config(model)
         if cfg.sliding_window is not None:
             raise _not_ported("sliding-window block recycling")
         if (cfg.rope_scaling or {}).get("type") == "dynamic":
             raise _not_ported("serving with dynamic-NTK rope")
         self.model = model
+        # MoE models route tokens to experts inside the tick — give chaos a
+        # hook at that boundary (a dead expert shard)
+        self._is_moe = is_moe_model(model)
         self.device = (model.device if device is None
                        else resolve_device(device))
         self.num_slots = num_slots
@@ -532,6 +541,13 @@ class LLMEngine:
         emitted += self._prefill_chunks()
         if not self.active.any():
             return emitted
+        if self._is_moe:
+            # chaos: fires BEFORE table growth and the tick's in-place
+            # cache writes, so an injected exception aborts the tick with
+            # the cache, tables and table_len untouched — cancel/free
+            # reclaims every block and assert_quiescent stays clean
+            fault_point("serving.moe_dispatch", engine=self,
+                        slots=np.nonzero(self.active)[0])
         rows, cols, vals = self._grow_tables(self.active.copy())
         # growth may have preempted slots — recompute the mask after it
         run_mask = self.active.copy()

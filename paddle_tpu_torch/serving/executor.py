@@ -16,7 +16,7 @@ from paddle_tpu_torch.core.random import generator
 from paddle_tpu_torch.models.decoding import _sample_rows
 from paddle_tpu_torch.models.paged import (PagedKVCache, llama_decode_tick,
                                            llama_prefill_chunk_paged,
-                                           llama_prefill_paged,
+                                           llama_prefill_paged, model_config,
                                            prefix_cow_update)
 
 
@@ -25,7 +25,7 @@ class ModelExecutor:
 
     def __init__(self, model, *, num_slots, num_blocks, block_size,
                  max_blocks_per_seq, top_k=None, seed=0, device):
-        cfg = model.cfg
+        cfg = model_config(model)
         self.model = model
         self.top_k = top_k
         self.device = torch.device(device)

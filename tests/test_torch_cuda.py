@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.cuda import flash_attention as TF
+from paddle_tpu_torch.ops.cuda import grouped_matmul as TG
 from paddle_tpu_torch.ops.cuda import norms as TN
 from paddle_tpu_torch.ops.cuda import paged_attention as TPA
 
@@ -189,3 +190,153 @@ def test_train_step_on_card_matches_cpu_and_launches_its_kernels():
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
     counts = K.launches()
     assert all(counts[k] > 0 for k in K.TRAIN_KERNELS), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("sizes,n,rows_kernel", [
+    ([5, 0, 1, 130, 0, 70, 1, 0], 200, False),       # the tiled kernel
+    ([1, 0, 2, 0, 0, 17, 1, 0, 3, 0], 200, True),    # few rows per group
+    ([1, 0, 2, 0, 0, 17, 1, 0, 3, 0], 50, False),    # n its loads cannot take
+], ids=["tiled", "few_rows", "few_rows_odd_n"])
+def test_grouped_matmul_kernels_match_plain(dtype, tol, sizes, n, rows_kernel):
+    """K6a (forward, by either kernel, and, transposed, dlhs) and K6b
+    (drhs) against the plain versions on a ragged partition with empty and
+    one-row groups, m, k and n not multiples of the tiles; an empty
+    group's drhs is exactly 0; the autograd wrapper launches K6a twice and
+    K6b once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    e, k = len(sizes), 72
+    m = sum(sizes)
+    lhs = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    rhs = torch.randn(e, k, n, generator=g, device=dev).to(dtype)
+    cot = torch.randn(m, n, generator=g, device=dev).to(dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    assert TG.uses_rows_kernel(m, e, n, rhs) == rows_kernel
+
+    def close(a, b):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape
+        d = (a.float() - b.float()).abs() / (1 + b.float().abs())
+        assert float(d.max()) <= tol
+
+    n0 = (TG.grouped_matmul.launches, TG.grouped_dw.launches)
+    lhs.requires_grad_()
+    rhs.requires_grad_()
+    out = TG.grouped_matmul(lhs, rhs, gs)
+    out.backward(cot)
+    assert (TG.grouped_matmul.launches, TG.grouped_dw.launches) == (
+        n0[0] + 2, n0[1] + 1)
+    with torch.no_grad():
+        close(out, TG.grouped_matmul_plain(lhs, rhs, gs))
+        dlhs, drhs = TG.grouped_matmul_bwd_plain(lhs, rhs, gs, cot)
+    close(lhs.grad, dlhs)
+    close(rhs.grad, drhs)
+    empty = torch.tensor([s == 0 for s in sizes], device=dev)
+    assert float(rhs.grad[empty].abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["mixtral", "qwen2_moe"])
+def test_moe_engine_on_card_matches_cpu_and_is_deterministic(family):
+    """An MoE family served on the card in float32 (every kernel, the
+    grouped GEMM included) gives the CPU's greedy streams (plain
+    versions); the same decode tick run twice gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import numpy as np
+
+    from paddle_tpu_torch.models import paged as P
+    from paddle_tpu_torch.models.mixtral import (MixtralConfig,
+                                                 MixtralForCausalLM)
+    from paddle_tpu_torch.models.qwen2_moe import (Qwen2MoeConfig,
+                                                   Qwen2MoeForCausalLM)
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    kw = dict(hidden_size=256, num_attention_heads=2, num_key_value_heads=1,
+              vocab_size=512, num_hidden_layers=2)
+    if family == "mixtral":
+        cls, cfg = MixtralForCausalLM, MixtralConfig.tiny(
+            intermediate_size=96, num_local_experts=6, **kw)
+    else:
+        cls, cfg = Qwen2MoeForCausalLM, Qwen2MoeConfig.tiny(
+            moe_intermediate_size=80, shared_expert_intermediate_size=160,
+            num_experts=10, num_experts_per_tok=4, **kw)
+    cpu = cls(cfg, device="cpu")
+    card = cls(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 512, n) for n in (5, 30, 70, 9)]
+    streams = []
+    for model in (cpu, card):
+        K.reset_launches()
+        eng = LLMEngine(model, num_slots=3, block_size=16, max_prompt_len=32,
+                        max_seq_len=128)
+        ids = [eng.add_request(Request(p, max_new_tokens=8)) for p in prompts]
+        eng.run()
+        eng.assert_quiescent()
+        streams.append([eng.requests[i].tokens for i in ids])
+    assert streams[0] == streams[1]
+    counts = K.launches()
+    assert all(counts[k] > 0 for k in K.MOE_SERVE_KERNELS), counts
+    # one decode step from the same cache state, twice: identical bits
+    outs = []
+    for _ in range(2):
+        cache = P.PagedKVCache.init(2, 16, 16, 1, 128, 2, 4, cfg.dtype,
+                                    device="cuda")
+        ids = torch.as_tensor(np.stack([np.resize(prompts[1], 32),
+                                        np.resize(prompts[2], 32)]),
+                              device="cuda")
+        P.moe_prefill_paged(card, ids, np.array([30, 32], np.int32), cache,
+                            slot_ids=np.arange(2, dtype=np.int32),
+                            table_rows=np.arange(8, dtype=np.int32).reshape(
+                                2, 4))
+        logits, _ = P.moe_decode_step_paged(
+            card, torch.tensor([7, 11], device="cuda"), cache,
+            torch.ones(2, dtype=torch.bool, device="cuda"))
+        outs.append(logits)
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_moe_train_step_on_card_matches_cpu_and_launches_its_kernels():
+    """Three AdamW steps of a 2-layer Mixtral at head_dim 128 in float32:
+    the card (K1, K2, K5, K6a, K6b) and the CPU (plain versions) give the
+    same losses to fp32 rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import numpy as np
+
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.mixtral import (MixtralConfig,
+                                                 MixtralForCausalLM)
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.train import init_state, make_train_step
+    cfg = MixtralConfig.tiny(hidden_size=256, intermediate_size=96,
+                             num_attention_heads=2, num_key_value_heads=1,
+                             vocab_size=512, num_local_experts=6)
+    ids = np.random.RandomState(0).randint(0, 512, (2, 96))
+    labels = np.concatenate([ids[:, 1:], np.full((2, 1), -100)], axis=1)
+    cpu = MixtralForCausalLM(cfg, device="cpu")
+    card = MixtralForCausalLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    losses = []
+    for model in (cpu, card):
+        K.reset_launches()
+        opt = O.AdamW(learning_rate=1e-3, weight_decay=0.1,
+                      grad_clip=O.ClipGradByGlobalNorm(1.0))
+        state = init_state(model, opt)
+        step = make_train_step(lambda m, i, lab: m.loss(i, lab), opt)
+        dev = next(model.parameters()).device
+        run = []
+        for _ in range(3):
+            state, loss = step(state, torch.as_tensor(ids, device=dev),
+                               torch.as_tensor(labels, device=dev))
+            run.append(float(loss))
+        losses.append(run)
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+    counts = K.launches()
+    assert all(counts[k] > 0 for k in K.MOE_TRAIN_KERNELS), counts

@@ -1,0 +1,158 @@
+"""K6's plain PyTorch versions against the Pallas grouped-GEMM kernels.
+
+On the CPU ``grouped_matmul`` runs ``grouped_matmul_plain`` (forward) and
+``grouped_matmul_bwd_plain`` (backward); the CUDA kernels are held to these
+on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``). Here the
+plain versions are held to ``paddle_tpu``'s Pallas kernels in interpret
+mode and to its dense one-hot reference, over the ragged cases of
+``tests/test_grouped_matmul.py`` (empty groups, one-row groups, leading
+empty groups) plus all rows in one group of several. Inputs come from a
+numpy seed. Tolerances: fp32 1e-5 forward (one fp32 product, summed in
+another order), 1e-4 for the gradients (two chained products); bf16 2e-2
+scaled by 1 + |value| (both accumulate in fp32 and round once to bf16).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops.pallas.grouped_matmul import (
+    grouped_matmul as j_grouped_matmul, grouped_matmul_reference)
+from paddle_tpu_torch.models.convert import to_tensor
+from paddle_tpu_torch.ops.cuda import grouped_matmul as GM
+from tests.test_torch_common import to_np
+
+RAGGED_CASES = [
+    # (experts, k_dim, n_dim, group_sizes)
+    (4, 32, 64, [5, 0, 1, 10]),
+    (8, 16, 32, [0, 0, 3, 1, 0, 7, 1, 0]),
+    (1, 8, 128, [9]),
+    (6, 64, 48, [128, 0, 1, 300, 1, 2]),     # n not a multiple of 128
+    (3, 16, 16, [0, 0, 4]),                  # leading empty experts
+    (5, 24, 40, [0, 0, 37, 0, 0]),           # all rows in one group
+]
+IDS = [f"e{c[0]}_k{c[1]}_n{c[2]}" for c in RAGGED_CASES]
+
+
+def _case(e, k, n, sizes, seed=0):
+    rs = np.random.RandomState(seed)
+    m = sum(sizes)
+    return (rs.randn(m, k).astype(np.float32),
+            rs.randn(e, k, n).astype(np.float32),
+            np.asarray(sizes, np.int32))
+
+
+@pytest.mark.parametrize("case", RAGGED_CASES, ids=IDS)
+def test_plain_forward_matches_pallas_and_dense_reference(case):
+    lhs, rhs, gs = _case(*case)
+    got = GM.grouped_matmul(torch.as_tensor(lhs), torch.as_tensor(rhs),
+                            torch.as_tensor(gs))
+    pallas = j_grouped_matmul(jnp.asarray(lhs), jnp.asarray(rhs),
+                              jnp.asarray(gs), impl="pallas", interpret=True)
+    dense = grouped_matmul_reference(jnp.asarray(lhs), jnp.asarray(rhs),
+                                     jnp.asarray(gs))
+    assert got.dtype == torch.float32 and tuple(got.shape) == pallas.shape
+    np.testing.assert_allclose(to_np(got), np.asarray(pallas), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(to_np(got), np.asarray(dense), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("case", RAGGED_CASES[:4], ids=IDS[:4])
+def test_plain_forward_bf16_matches_pallas(case):
+    lhs, rhs, gs = _case(*case, seed=1)
+    jl, jr = (jnp.asarray(a, jnp.bfloat16) for a in (lhs, rhs))
+    pallas = j_grouped_matmul(jl, jr, jnp.asarray(gs), impl="pallas",
+                              interpret=True)
+    got = GM.grouped_matmul(to_tensor(np.asarray(jl)),
+                            to_tensor(np.asarray(jr)), torch.as_tensor(gs))
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(pallas.astype(jnp.float32))
+    assert np.all(np.abs(to_np(got) - want) <= 2e-2 * (1 + np.abs(want)))
+
+
+@pytest.mark.parametrize("case", RAGGED_CASES, ids=IDS)
+def test_autograd_matches_grad_of_the_pallas_kernels(case):
+    """dlhs and drhs of the autograd wrapper against ``jax.grad`` through
+    the interpreted Pallas kernels (``_fwd_kernel`` on the transposed
+    weights and ``_dw_kernel``); an empty group's drhs is exactly 0."""
+    lhs, rhs, gs = _case(*case, seed=2)
+    cot = np.random.RandomState(3).randn(lhs.shape[0], rhs.shape[2]).astype(
+        np.float32)
+
+    def f(a, b):
+        out = j_grouped_matmul(a, b, jnp.asarray(gs), impl="pallas",
+                               interpret=True)
+        return jnp.sum(out * jnp.asarray(cot))
+
+    ja, jb = jax.grad(f, argnums=(0, 1))(jnp.asarray(lhs), jnp.asarray(rhs))
+    tl = torch.as_tensor(lhs).requires_grad_()
+    tr = torch.as_tensor(rhs).requires_grad_()
+    tg = torch.as_tensor(gs)
+    (GM.grouped_matmul(tl, tr, tg) * torch.as_tensor(cot)).sum().backward()
+    np.testing.assert_allclose(to_np(tl.grad), np.asarray(ja), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(to_np(tr.grad), np.asarray(jb), rtol=1e-4,
+                               atol=1e-4)
+    empty = np.asarray(gs) == 0
+    assert float(tr.grad[torch.as_tensor(empty)].abs().sum()) == 0.0
+    assert tg.grad is None and not tg.requires_grad
+
+
+def test_bwd_plain_is_what_the_wrapper_runs_and_handles_transposed_rhs():
+    lhs, rhs, gs = (torch.as_tensor(a) for a in _case(*RAGGED_CASES[0]))
+    g = torch.as_tensor(np.random.RandomState(4).randn(
+        lhs.shape[0], rhs.shape[2]).astype(np.float32))
+    dlhs, drhs = GM.grouped_matmul_bwd_plain(lhs, rhs, gs, g)
+    # dlhs is the forward against rhs read as [E, n, k]
+    want = GM.grouped_matmul_plain(g, rhs.transpose(1, 2).contiguous(), gs)
+    np.testing.assert_allclose(to_np(dlhs), to_np(want), rtol=1e-6,
+                               atol=1e-6)
+    assert dlhs.shape == lhs.shape and drhs.shape == rhs.shape
+    assert float(drhs[1].abs().sum()) == 0.0          # the empty group
+
+
+def test_no_graph_means_no_autograd_function():
+    lhs, rhs, gs = (torch.as_tensor(a) for a in _case(*RAGGED_CASES[1]))
+    assert GM.grouped_matmul(lhs, rhs, gs).grad_fn is None
+    with torch.no_grad():
+        out = GM.grouped_matmul(lhs.requires_grad_(), rhs, gs)
+    assert out.grad_fn is None and not out.requires_grad
+
+
+def test_bad_shapes_and_types_raise():
+    lhs, rhs, gs = (torch.as_tensor(a) for a in _case(*RAGGED_CASES[0]))
+    with pytest.raises(ValueError, match="bad grouped_matmul shapes"):
+        GM.grouped_matmul(lhs[:, :-1], rhs, gs)
+    with pytest.raises(ValueError, match="bad grouped_matmul shapes"):
+        GM.grouped_matmul(lhs[None], rhs, gs)
+    with pytest.raises(ValueError, match="bad grouped_matmul shapes"):
+        GM.grouped_matmul(lhs, rhs[0], gs)
+    with pytest.raises(ValueError, match="group_sizes"):
+        GM.grouped_matmul(lhs, rhs, gs[:-1])
+    with pytest.raises(TypeError, match="differ"):
+        GM.grouped_matmul(lhs.bfloat16(), rhs, gs)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        GM.grouped_matmul(lhs.half(), rhs.half(), gs)
+    with pytest.raises(TypeError, match="int32"):
+        GM.grouped_matmul(lhs, rhs, gs.long())
+
+
+def test_kill_switch_reads_the_environment(monkeypatch):
+    assert GM.grouped_gemm_enabled()
+    monkeypatch.setenv("PT_GROUPED_GEMM", "0")
+    assert not GM.grouped_gemm_enabled()
+
+
+def test_kernel_choice_reads_static_shapes_only():
+    """The few-rows kernel is chosen from m, E, n and the weights'
+    alignment: the decode shape takes it, the prefill/train shapes, a
+    transposed rhs and an n its 16-byte loads cannot take do not."""
+    w = torch.zeros(60, 16, 64, dtype=torch.bfloat16)
+    assert GM.uses_rows_kernel(32, 60, 64, w)
+    assert GM.uses_rows_kernel(8 * 60, 60, 64, w)
+    assert not GM.uses_rows_kernel(8 * 60 + 1, 60, 64, w)
+    assert not GM.uses_rows_kernel(32, 60, 64, w, trans_rhs=True)
+    assert not GM.uses_rows_kernel(32, 60, 60, w)          # 60 % 8 != 0
+    assert GM.uses_rows_kernel(32, 60, 60, w.float())      # 60 % 4 == 0

@@ -20,7 +20,10 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "import paddle_tpu_torch, paddle_tpu_torch.serving, "
         "paddle_tpu_torch.models.paged, paddle_tpu_torch.models.convert, "
         "paddle_tpu_torch.ops.cuda, paddle_tpu_torch.observability.memledger, "
-        "paddle_tpu_torch.train, paddle_tpu_torch.optimizer\n"
+        "paddle_tpu_torch.train, paddle_tpu_torch.optimizer, "
+        "paddle_tpu_torch.distributed.moe, paddle_tpu_torch.utils.faults, "
+        "paddle_tpu_torch.models.mixtral, paddle_tpu_torch.models.qwen2_moe, "
+        "paddle_tpu_torch.models.moe_llm\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
@@ -81,3 +84,30 @@ def test_unported_training_modes_refuse():
     with pytest.raises(ValueError):
         LlamaConfig(remat_policy="everything")
     assert LlamaConfig(remat_policy="full").remat_policy == "full"
+
+
+def test_chip_smoke_stays_in_step_with_the_kernel_registry():
+    """``chip_smoke.py`` spells the kernels of each path out (so that it can
+    load an earlier tree): the lists equal ``ops.cuda``'s, every kernel has
+    its source in the checkout, every source is built, and the script
+    imports neither JAX nor the JAX package."""
+    import chip_smoke
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.ops.cuda import _build
+    assert chip_smoke.PATHS == {
+        "serve": K.SERVE_KERNELS, "train": K.TRAIN_KERNELS,
+        "moe_serve": K.MOE_SERVE_KERNELS, "moe_train": K.MOE_TRAIN_KERNELS}
+    assert set(chip_smoke.SOURCES) == set(K.kernels())
+    built = set()
+    for src, replaces in chip_smoke.SOURCES.values():
+        assert (PKG.parent / src).is_file(), src
+        assert (PKG.parent / replaces.split(":")[0]).is_file(), replaces
+        built.add(pathlib.Path(src).stem)
+    assert built == set(_build.KERNEL_SOURCES)
+    tree = ast.parse((PKG.parent / "chip_smoke.py").read_text())
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                 else [])
+        assert not any(n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")
+                       for n in names), names
