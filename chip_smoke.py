@@ -18,7 +18,12 @@ Phases (each one fails the run when it fails; nothing is caught):
             the training shapes and on a small GQA + kv_lens + window case,
             K6a/K6b (grouped GEMM forward, dlhs, drhs) at the Qwen decode,
             prefill and train shapes, at Mixtral-8x7B width and on a small
-            ragged case (an empty group's drhs exactly 0);
+            ragged case (an empty group's drhs exactly 0); K7 (rope) on the
+            strided q/k views of every path's shapes, its forward equal to
+            the plain version bit for bit and its backward within the
+            tolerance (timed eager and replayed from a CUDA graph); K2 at
+            the banded timing script's shape (4 heads, S 4096, window 1024
+            and full causal); K1, K2 and K4 at Mistral-7B's window shapes;
             times of the kernel, the plain version and, where one PyTorch
             call computes the same function, that call (``library_ms``),
             with CUDA events; the bound max(bytes / 3.35 TB/s, flops / 989
@@ -67,6 +72,17 @@ Phases (each one fails the run when it fails; nothing is caught):
             every loss finite, the last below the first, K1, K2, K5 and the
             grouped GEMM forward and drhs kernels launched (16 and 8 per
             step); step ms, tokens/s and peak memory
+  window_serve  ``MistralConfig.mistral_7b()`` whole (7.24 B parameters,
+            sliding window 4096, random weights from a seed made on the
+            card) served by ``LLMEngine`` in 4 slots: four prompts of 4200
+            to 4600 tokens and two short ones, 48 new tokens each; every
+            request must finish, ``assert_quiescent()`` pass, each long row
+            recycle (prompt - 4096) // 16 blocks right after its prefill and
+            never hold more than 258 live blocks, and K1, K2, K4 and K7
+            must have been launched
+  window_check  the 4600-token row's prefill (K2 windowed) and one decode
+            step (K4 windowed) under the check's rule: kernels vs plain vs
+            float32, limit CHECK_REL
   anatomy   (only when asked for: --phases build,anatomy or
             build,train,anatomy) 16 steady decode ticks and, with
             ``train``, 2 train steps: wall time of three plain runs, then
@@ -81,8 +97,8 @@ commit unpacked with ``git archive``), so that two trees can be compared
 under the same measurement in one call: parent, change, change, parent.
 
 The line before the last is a JSON object with one entry per kernel and
-path (``"path": "serve"``, ``"train"``, ``"moe_serve"`` or
-``"moe_train"``): its launches are counted in that
+path (``"path": "serve"``, ``"train"``, ``"moe_serve"``, ``"moe_train"``
+or ``"window_serve"``): its launches are counted in that
 path's own run, with every count set to 0 just before it, and its times are
 taken at the shapes that path gives the kernel. The last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero,
@@ -102,6 +118,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 PEAK_BYTES_S = 3.35e12      # H100 SXM device memory, bytes/s
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate
+PEAK_FP32_FLOPS = 67e12     # H100 SXM fp32 rate outside the tensor cores
 TOL = {"bf16": 2e-2, "f32": 1e-4}
 CHECK_REL = 0.15            # whole-path check: RMS(bf16 - fp32) / RMS(fp32)
 SOURCES = {
@@ -121,17 +138,25 @@ SOURCES = {
                     "paddle_tpu/ops/pallas/grouped_matmul.py:133"),
     "grouped_dw": ("paddle_tpu_torch/csrc/grouped_matmul.cu",
                    "paddle_tpu/ops/pallas/grouped_matmul.py:178"),
+    "rope": ("paddle_tpu_torch/csrc/rope.cu",
+             "paddle_tpu/ops/pallas/rope.py:14"),
 }
 # the kernels each path launches (every one must rise in that path's run):
 # ops.cuda's SERVE_KERNELS / TRAIN_KERNELS / MOE_SERVE_KERNELS /
-# MOE_TRAIN_KERNELS, spelled out here so that --root can load an earlier
-# tree that lacks them
-PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode"),
-         "train": ("rms_norm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+# MOE_TRAIN_KERNELS / WINDOW_SERVE_KERNELS, spelled out here so that --root
+# can load an earlier tree that lacks them (a kernel that such a tree does
+# not have is then left out of its checks)
+PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
+                   "rope"),
+         "train": ("rms_norm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                   "rope"),
          "moe_serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
-                       "grouped_fwd"),
+                       "rope", "grouped_fwd"),
          "moe_train": ("rms_norm", "flash_fwd", "flash_bwd_dq",
-                       "flash_bwd_dkv", "grouped_fwd", "grouped_dw")}
+                       "flash_bwd_dkv", "rope", "grouped_fwd", "grouped_dw"),
+         "window_serve": ("rms_norm", "flash_fwd", "paged_decode", "rope")}
+# kernels of PATHS that the imported tree does not have (only with --root)
+ABSENT: set = set()
 # the train check: share of the fp32 gradients' RMS that each bf16 path
 # may be from them, and of the fp32 loss
 GRAD_REL = 0.1
@@ -177,9 +202,42 @@ def time_ms(fn, iters=50, warmup=5):
     return e0.elapsed_time(e1) / iters
 
 
-def bound(nbytes, flops):
-    tb, tf = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS
+def graph_ms(fn, iters=50):
+    """Device time per call of ``fn``: ``iters`` calls captured into one
+    CUDA graph and replayed, so no host work stands between the launches
+    (``time_ms`` times back-to-back eager calls, which the host bounds
+    when a kernel takes less time than its wrapper)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(5):
+        g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    del g
+    return e0.elapsed_time(e1) / (5 * iters)
+
+
+def bound(nbytes, flops, peak_flops=PEAK_BF16_FLOPS):
+    """(ms, "bytes" or "operations"): the larger of bytes over the memory
+    rate and flops over ``peak_flops`` (the tensor-core bf16 rate, or the
+    fp32 rate for work that no tensor core can do)."""
+    tb, tf = nbytes / PEAK_BYTES_S, flops / peak_flops
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def _missing(path, counts):
+    """The kernels of ``path`` that its run did not launch."""
+    return [k for k in PATHS[path] if k not in ABSENT and counts[k] <= 0]
 
 
 # ------------------------------------------------------------------ build
@@ -388,9 +446,16 @@ def phase_kernels(torch, dev):
                  **k5(torch, dev, MOE_TRAIN_SHAPE),
                  "grouped_fwd": k6_entries["train_fwd"],
                  "grouped_dw": k6_entries["train_dw"]}
-    torch.cuda.synchronize()
+    # the rope and sliding-window slice: K7 at every path's shapes, K2 at
+    # the banded script's shape, K1/K2/K4 at Mistral-7B's serving shapes
+    k7_entries = k7(torch, dev)
+    k2_banded(torch, dev)
+    window = window_kernel_entries(torch, dev)
     results = {"serve": out, "train": train, "moe_serve": moe_serve,
-               "moe_train": moe_train}
+               "moe_train": moe_train, "window_serve": window}
+    for path, r in k7_entries.items():
+        results[path]["rope"] = r
+    torch.cuda.synchronize()
     for path, rs in results.items():
         for name, r in rs.items():
             lib = r["library_ms"]
@@ -763,6 +828,274 @@ def k6(torch, dev):
     return out
 
 
+# -------------------------------------------------------------------- K7
+# (label, path whose JSON entry it is or None, leading dims of x, heads of
+# x, heads of the fused QKV product (q + 2 kv), x is q or k, head_dim,
+# tables "shared" [S, D/2] or "per_row" [N, D/2], rope base)
+ROPE_CASES = (
+    ("llama serve prefill q", None, (8, 128), 32, 96, "q", 128, "shared",
+     1e4),
+    ("llama serve prefill k", None, (8, 128), 32, 96, "k", 128, "shared",
+     1e4),
+    ("llama serve decode q", "serve", (8, 1), 32, 96, "q", 128, "per_row",
+     1e4),
+    ("llama train q", "train", (4, 2048), 16, 48, "q", 128, "shared", 1e4),
+    ("qwen-moe serve prefill q", None, (8, 128), 16, 48, "q", 128, "shared",
+     1e6),
+    ("qwen-moe serve decode q", "moe_serve", (8, 1), 16, 48, "q", 128,
+     "per_row", 1e6),
+    ("qwen-moe train q", "moe_train", (2, 2048), 16, 48, "q", 128, "shared",
+     1e6),
+    ("mistral prefill q", "window_serve", (4, 4608), 32, 48, "q", 128,
+     "shared", 1e6),
+    ("mistral prefill k", None, (4, 4608), 8, 48, "k", 128, "shared", 1e6),
+    ("mistral decode q", None, (4, 1), 32, 48, "q", 128, "per_row", 1e6),
+    ("mistral prefill q, per-row tables (dynamic NTK)", None, (4, 4608), 32,
+     48, "q", 128, "per_row", 1e6),
+    ("small, head_dim 64", None, (2, 77), 2, 12, "k", 64, "per_row", 1e4),
+)
+
+
+def _rope_case(torch, dev, dt, lead, h, width, part, d, tables, base, seed):
+    """x as the model hands it to K7: a q or k view of a fused QKV product
+    [*lead, width * d]; tables of real rope angles (positions up to 4608
+    for per-row tables)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(*lead, width * d, generator=g, device=dev).to(dt)
+    nq = width - 2 * h if part == "k" else h
+    start = nq * d if part == "k" else 0
+    x = qkv[..., start:start + h * d].reshape(*lead, h, d)
+    n = x.numel() // (h * d)
+    pos = (torch.arange(lead[-1], device=dev).float() if tables == "shared"
+           else torch.randint(0, 4608, (n,), generator=g, device=dev).float())
+    inv = 1.0 / base ** (torch.arange(0, d, 2, device=dev).float() / d)
+    f = pos[:, None] * inv[None, :]
+    return x, torch.cos(f), torch.sin(f)
+
+
+def k7(torch, dev):
+    """K7 against fused_rope_plain at every path's shapes, on the strided
+    q/k views the models give it: the forward must equal the plain version
+    bit for bit (bf16 and fp32), the backward (the kernel with -sin) agree
+    with autograd through the plain version within TOL. Times of the
+    kernel and the plain version, eager (the entry's) and replayed from a
+    CUDA graph (device time alone: the small shapes are bound by the
+    wrapper's host work); no single PyTorch call computes rope (library
+    n/a). The bound counts x read once, the output written once
+    and the two tables; its 6 fp32 flops per pair of elements go at the
+    fp32 rate. Returns {path: entry}."""
+    from paddle_tpu_torch.ops.cuda import rope as R
+    out = {}
+    for i, (label, path, lead, h, width, part, d, tables, base) in enumerate(
+            ROPE_CASES):
+        for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            x, c, s = _rope_case(torch, dev, dt, lead, h, width, part, d,
+                                 tables, base, 30 + i)
+            got = R.fused_rope(x, c, s)
+            ref = R.fused_rope_plain(x, c, s)
+            differ = int((got != ref).sum())
+            log(f"[kernels] rope {label} {dtype}: {differ} of {got.numel()} "
+                f"results differ from the plain version (must be 0)")
+            if differ:
+                raise AssertionError(f"rope {label} {dtype}: forward not "
+                                     f"bit-identical to the plain version")
+            xr = x.detach().clone().requires_grad_()
+            cot = torch.randn_like(got)
+            (dx,) = torch.autograd.grad(R.fused_rope(xr, c, s), xr, cot)
+            (dref,) = torch.autograd.grad(R.fused_rope_plain(xr, c, s), xr,
+                                          cot)
+            _agree(f"rope backward ({label})", dtype, _max_err(dx, dref))
+            del xr, cot, dx, dref
+            if dtype != "bf16":
+                continue
+            n = x.numel() // (h * d)
+            es = x.element_size()
+            b_ms, b_by = bound(2 * n * h * d * es + 2 * c.numel() * 4,
+                               3 * n * h * d, PEAK_FP32_FLOPS)
+            small = n * h * d < 1 << 20
+            r = dict(max_abs_err=0.0,
+                     ms=time_ms(lambda: R.fused_rope(x, c, s),
+                                iters=200 if small else 50),
+                     plain_ms=time_ms(lambda: R.fused_rope_plain(x, c, s),
+                                      iters=50 if small else 10),
+                     library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                     shape=f"{label}: x [{n}, {h}, {d}] bf16 (row stride "
+                           f"{x.stride(-3)}), {tables} tables "
+                           f"[{c.shape[0]}, {d // 2}]")
+            dev_ms = graph_ms(lambda: R.fused_rope(x, c, s),
+                              iters=100 if small else 20)
+            plain_dev = graph_ms(lambda: R.fused_rope_plain(x, c, s),
+                                 iters=20 if small else 5)
+            log(f"[kernels] rope {r['shape']}: {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+                f"{100 * b_ms / r['ms']:.1f}% of bound; in a CUDA graph "
+                f"(device only) {dev_ms:.4f} ms ({100 * b_ms / dev_ms:.1f}% "
+                f"of bound), plain {plain_dev:.4f} ms")
+            if path is not None:
+                out[path] = r
+        del x, c, s, got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _window_pairs(torch, lens, window):
+    """(query, key) pairs a causal sliding window of ``window`` keys leaves
+    live over rows of the given valid lengths: sum_i min(i + 1, window)."""
+    total = 0
+    for n in lens:
+        n = int(n)
+        w = min(n, window)
+        total += w * (w + 1) // 2 + (n - w) * window
+    return total
+
+
+def _sdpa_gqa(torch, F, q, k, v, mask=None, is_causal=False):
+    """F.scaled_dot_product_attention over [B, H, S, D] with fewer KV
+    heads: ``enable_gqa`` where the installed torch has it."""
+    try:
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              is_causal=is_causal,
+                                              enable_gqa=True)
+    except TypeError:
+        rep = q.shape[1] // k.shape[1]
+        return F.scaled_dot_product_attention(
+            q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1),
+            attn_mask=mask, is_causal=is_causal)
+
+
+def k2_banded(torch, dev):
+    """K2 at the shape of the repo's banded-flash timing script
+    (benchmarks/_perf_banded.py: B*H = 4, S = 4096, D = 128, bf16, causal)
+    with window 1024 and without, against the plain version; the library
+    yardstick is F.scaled_dot_product_attention with a boolean band mask
+    (is_causal for the full case). Logged, not a path's entry."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+    g = torch.Generator(device=dev).manual_seed(41)
+    q, k, v = (torch.randn(1, 4096, 4, 128, generator=g, device=dev)
+               .bfloat16() for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    i = torch.arange(4096, device=dev)
+    for window in (1024, None):
+        err = _agree(f"flash_fwd (banded shape, window {window})", "bf16",
+                     _max_err(FA.flash_attention(q, k, v, causal=True,
+                                                 window=window),
+                              FA.flash_attention_plain(q, k, v, causal=True,
+                                                       window=window)))
+        pairs = 4 * _window_pairs(torch, [4096], window or 4096)
+        b_ms, b_by = bound(4 * 4 * 4096 * 128 * 2 + 4 * 4096 * 4,
+                           4 * 128 * pairs)
+        if window:
+            band = ((i[:, None] >= i[None, :])
+                    & (i[:, None] - i[None, :] < window))
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band), iters=20)
+        else:
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), iters=20)
+        ms = time_ms(lambda: FA.flash_attention(q, k, v, causal=True,
+                                                window=window), iters=20)
+        plain = time_ms(lambda: FA.flash_attention_plain(
+            q, k, v, causal=True, window=window), iters=5, warmup=1)
+        log(f"[kernels] flash_fwd at the banded shape (q/k/v [1, 4096, 4, "
+            f"128] bf16, causal, window {window}): {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, library {lib:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), {100 * b_ms / ms:.2f}% of bound; max_abs_err "
+            f"{err:.3e}")
+
+
+# Mistral-7B serving (the window_serve path): 4 slots, prompts up to 4608
+# tokens, window 4096, 8 KV heads of 128
+WIN_SLOTS, WIN_BS, WIN_PROMPT, WIN_SEQ = 4, 16, 4608, 4672
+WIN_BLOCKS = 1200           # four 4608-token prompts (1152) + growth
+WIN_LONG = (4200, 4350, 4480, 4600)
+WIN_SHORT = (96, 128)
+WIN_NEW = 48
+
+
+def window_kernel_entries(torch, dev):
+    """K1, K2 and K4 against their plain versions at the shapes the
+    Mistral-7B window_serve path gives them (bf16): K1 on the prefill's x
+    [4 * 4608, 4096]; K2 on the windowed prefill (q [4, 4608, 32, 128], k/v
+    8 heads, window 4096, kv_lens = the long prompts); K4 on a windowed
+    decode step of those rows (lens = prompt + 48, pool [1200, 16, 8,
+    128]). Returns {kernel: entry}."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+    from paddle_tpu_torch.ops.cuda import norms
+    from paddle_tpu_torch.ops.cuda import paged_attention as PA
+    g = torch.Generator(device=dev).manual_seed(43)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+
+    out = {}
+    x, w = randn(WIN_SLOTS * WIN_PROMPT, 4096), 1.0 + 0.1 * randn(4096)
+    err = _agree("rms_norm (mistral prefill)", "bf16", _max_err(
+        norms.rms_norm(x, w, 1e-5), norms.rms_norm_plain(x, w, 1e-5)))
+    out["rms_norm"] = _k1_entry(torch, x, w, err)
+    del x
+    # K2: the windowed prefill, valid rows only
+    window, s, d = 4096, WIN_PROMPT, 128
+    q, k, v = randn(4, s, 32, d), randn(4, s, 8, d), randn(4, s, 8, d)
+    kl = torch.tensor(WIN_LONG, dtype=torch.int32, device=dev)
+    valid = torch.arange(s, device=dev)[None, :] < kl[:, None]
+    err = _agree("flash_fwd (mistral windowed prefill)", "bf16", _max_err(
+        FA.flash_attention(q, k, v, causal=True, window=window, kv_lens=kl),
+        FA.flash_attention_plain(q, k, v, causal=True, window=window,
+                                 kv_lens=kl), valid))
+    rows = int(kl.sum())
+    pairs = _window_pairs(torch, WIN_LONG, window)
+    b_ms, b_by = bound(2 * rows * (32 + 8) * d * 2 + rows * 32 * 4,
+                       4 * d * 32 * pairs)
+    i = torch.arange(s, device=dev)
+    keep = ((i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+            )[None] & valid[:, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    out["flash_fwd"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: FA.flash_attention(q, k, v, causal=True,
+                                              window=window, kv_lens=kl),
+                   iters=5, warmup=1),
+        plain_ms=time_ms(lambda: FA.flash_attention_plain(
+            q, k, v, causal=True, window=window, kv_lens=kl), iters=1,
+            warmup=1),
+        library_ms=time_ms(lambda: _sdpa_gqa(torch, F, qt, kt, vt,
+                                             keep[:, None]), iters=5,
+                           warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"q [4, {s}, 32, {d}], k/v [4, {s}, 8, {d}] bf16, causal, "
+              f"window {window}, kv_lens {list(WIN_LONG)}")
+    del q, k, v, qt, kt, vt, keep
+    torch.cuda.empty_cache()
+    # K4: one windowed decode step of the long rows
+    mb = -(-WIN_SEQ // WIN_BS)
+    kp, vp = randn(WIN_BLOCKS, WIN_BS, 8, d), randn(WIN_BLOCKS, WIN_BS, 8, d)
+    tables = torch.randperm(WIN_BLOCKS, generator=g, device=dev)[
+        :4 * mb].reshape(4, mb).to(torch.int32)
+    lens = kl + WIN_NEW
+    qd = randn(4, 32, d)
+    err = _agree("paged_decode (mistral windowed decode)", "bf16", _max_err(
+        PA.paged_decode_attention(qd, kp, vp, tables, lens, window=window),
+        PA.paged_decode_attention_plain(qd, kp, vp, tables, lens,
+                                        window=window)))
+    live = int(torch.clamp(lens, max=window).sum())
+    b_ms, b_by = bound(2 * 4 * 32 * d * 2 + 2 * live * 8 * d * 2
+                       + tables.numel() * 4, 4 * d * 32 * live)
+    out["paged_decode"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: PA.paged_decode_attention(qd, kp, vp, tables, lens,
+                                                     window=window)),
+        plain_ms=time_ms(lambda: PA.paged_decode_attention_plain(
+            qd, kp, vp, tables, lens, window=window), iters=10),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        shape=f"q [4, 32, {d}] bf16, pool [{WIN_BLOCKS}, {WIN_BS}, 8, {d}], "
+              f"lens {lens.tolist()}, window {window}")
+    del kp, vp
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------ serve
 def serve_requests(rs, vocab=32000):
     """The 12-request mix: 6 short prompts (whole-prompt prefill), 2 long
@@ -822,7 +1155,7 @@ def phase_serve(torch, dev, model, np, path="serve"):
             raise AssertionError(f"request {r.req_id} did not finish: "
                                  f"{r.finish_reason}")
     eng.assert_quiescent()
-    missing = [k for k in PATHS[path] if counts[k] <= 0]
+    missing = _missing(path, counts)
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: "
                              f"{missing} ({counts})")
@@ -869,6 +1202,10 @@ class plain_kernels:
             partials=False, **kw: PA.paged_chunk_attention_plain(*a, **kw)
         PA.paged_decode_attention = lambda *a, k_scale=None, v_scale=None, \
             partials=False, **kw: PA.paged_decode_attention_plain(*a, **kw)
+        if "rope" not in ABSENT:
+            from paddle_tpu_torch.ops.cuda import rope
+            self.saved.append((rope, "fused_rope", rope.fused_rope))
+            rope.fused_rope = rope.fused_rope_plain
         return self
 
     def __exit__(self, *exc):
@@ -968,7 +1305,15 @@ def phase_check(torch, model, reqs, label="check", rel=CHECK_REL,
             ref32 = _path_logits(torch, m32, prompts, long_prompt, toks)
             del m32
     torch.cuda.empty_cache()
-    for name, a, r, f in zip(("prefill", "chunk", "decode"), got, ref, ref32):
+    _hold_logits(label, ("prefill", "chunk", "decode"), got, ref, ref32, rel)
+
+
+def _hold_logits(label, names, got, ref, ref32, rel):
+    """The check's rule on each logit block: finite and of the float32
+    block's shape, each bf16 path within ``rel`` of the float32 RMS, and
+    the kernel path no further from float32 than twice the plain path."""
+    import torch
+    for name, a, r, f in zip(names, got, ref, ref32):
         if tuple(a.shape) != tuple(f.shape) or not bool(
                 torch.isfinite(a).all()):
             raise AssertionError(f"{name} logits: shape {list(a.shape)} "
@@ -991,6 +1336,144 @@ def phase_check(torch, model, reqs, label="check", rel=CHECK_REL,
             raise AssertionError(f"{name}: kernel path is further from the "
                                  f"fp32 result than 2x the plain bf16 path: "
                                  f"{e_k} > 2 * {e_p}")
+
+
+# ------------------------------------------------------- sliding window
+def build_mistral(torch, dev):
+    """``MistralConfig.mistral_7b()`` exactly as the repo defines it (32
+    layers, hidden 4096, intermediate 14336, 32 heads, 8 KV heads, vocab
+    32000, rope theta 1e6, window 4096, bf16), random weights from seed 0
+    made on the card."""
+    from paddle_tpu_torch.models.mistral import (MistralConfig,
+                                                 MistralForCausalLM)
+    tm = time.monotonic()
+    model = MistralForCausalLM(MistralConfig.mistral_7b(), device=dev, seed=0)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in model.parameters())
+    log(f"[window_serve] mistral_7b, {model.cfg.num_hidden_layers} layers, "
+        f"window {model.cfg.sliding_window}, {nparams / 1e9:.3f} B params, "
+        f"random weights in {time.monotonic() - tm:.1f} s")
+    return model
+
+
+def phase_window_serve(torch, dev, model, np):
+    """Six greedy requests at once into 4 slots: four prompts past the
+    4096-token window (WIN_LONG) and two short ones, 48 new tokens each.
+    The window bites in the prefill (K2 windowed at S = 4608) and in every
+    decode step of the long rows (K4 windowed); right after its prefill a
+    long row has recycled (prompt - 4096) // 16 blocks and no row ever
+    holds more than blocks_needed(4096 + 2 * 16) = 258. Every request must
+    finish, ``assert_quiescent()`` pass and every kernel of the path
+    launch. Returns (launch counts, the requests)."""
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    vocab = model.cfg.vocab_size
+    kw = dict(num_slots=WIN_SLOTS, block_size=WIN_BS,
+              max_prompt_len=WIN_PROMPT, max_seq_len=WIN_SEQ,
+              num_blocks=WIN_BLOCKS, seed=0, device=dev)
+    # warm-up on a throwaway engine (the prefill forward has one shape)
+    warm = LLMEngine(model, **kw)
+    warm.add_request(Request(np.random.RandomState(1).randint(3, vocab, 64),
+                             max_new_tokens=4))
+    warm.run()
+    del warm
+    eng = LLMEngine(model, **kw)
+    rs = np.random.RandomState(0)
+    reqs = [Request(rs.randint(3, vocab, size=n), max_new_tokens=WIN_NEW)
+            for n in WIN_LONG + WIN_SHORT]
+    bound_live = eng.mgr.blocks_needed(model.cfg.sliding_window + 2 * WIN_BS)
+    peak_live, holes = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.monotonic()
+    for r in reqs:
+        eng.add_request(r)
+    while eng.has_work():
+        eng.step()
+        for slot in np.nonzero(eng.active)[0]:
+            rid = int(eng.slot_req[slot])
+            peak_live[rid] = max(peak_live.get(rid, 0),
+                                 eng.kv.live_blocks(rid))
+            # the first tick a row is seen active is right after its prefill
+            holes.setdefault(rid, sum(b is None for b in eng.mgr.tables[rid]))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = K.launches()
+    for r in reqs:
+        if not r.done or r.finish_reason not in ("length", "eos"):
+            raise AssertionError(f"request {r.req_id} did not finish: "
+                                 f"{r.finish_reason}")
+    eng.assert_quiescent()
+    missing = _missing("window_serve", counts)
+    if missing:
+        raise AssertionError(f"kernels not launched on the window_serve "
+                             f"path: {missing} ({counts})")
+    for r in reqs:
+        p = len(r.prompt)
+        want = max(0, p - model.cfg.sliding_window) // WIN_BS
+        log(f"[window_serve] prompt {p}: {holes[r.req_id]} blocks recycled "
+            f"right after prefill (expected {want}), peak live "
+            f"{peak_live[r.req_id]} (limit {bound_live})")
+        if holes[r.req_id] != want or peak_live[r.req_id] > bound_live:
+            raise AssertionError(f"window recycling: prompt {p} recycled "
+                                 f"{holes[r.req_id]} blocks after prefill, "
+                                 f"held up to {peak_live[r.req_id]}")
+    ntok = sum(len(r.tokens) for r in reqs)
+    ttft = [r._first_tok_t - r._submit_t for r in reqs]
+    peak = torch.cuda.max_memory_allocated()
+    card = card_line()
+    log(f"[window_serve] {len(reqs)} requests ({sum(len(r.prompt) for r in reqs)}"
+        f" prompt tokens), {ntok} tokens in {wall:.3f} s: "
+        f"{ntok / wall:.1f} tokens/s, {eng.stats['ticks']} decode ticks "
+        f"({card})")
+    log(f"[window_serve] mean TTFT {1e3 * sum(ttft) / len(ttft):.1f} ms, "
+        f"max {1e3 * max(ttft):.1f} ms ({card})")
+    log(f"[window_serve] peak allocated {peak / 2**30:.2f} GiB ({card}); "
+        f"launches {counts}")
+    return counts, reqs
+
+
+def _window_logits(torch, model, prompt, tok):
+    """The whole-prompt prefill (K2 windowed) of one long prompt and one
+    decode step (K4 windowed) feeding it ``tok``: both logit blocks."""
+    import numpy as np
+    from paddle_tpu_torch.models import paged as P
+    cfg, dev = model.cfg, model.device
+    n = len(prompt)
+    nb = -(-(n + 1) // WIN_BS)
+    cache = P.PagedKVCache.init(cfg.num_hidden_layers, nb, WIN_BS,
+                                cfg.num_key_value_heads,
+                                cfg.hidden_size // cfg.num_attention_heads,
+                                1, nb, cfg.dtype, device=dev)
+    pre, _ = P.llama_prefill_paged(
+        model, torch.as_tensor([list(prompt)], device=dev),
+        np.array([n], np.int32), cache, slot_ids=np.array([0], np.int32),
+        table_rows=np.arange(nb, dtype=np.int32)[None])
+    dec, _ = P.llama_decode_step_paged(
+        model, torch.as_tensor([tok], device=dev), cache,
+        torch.ones(1, dtype=torch.bool, device=dev))
+    return pre.float(), dec.float()
+
+
+def phase_window_check(torch, model, reqs):
+    """The 4600-token served row through prefill and one decode step (its
+    served first token): bf16 through the kernels, bf16 through the plain
+    versions, float32 through the plain versions, under the check's rule
+    with the limit CHECK_REL."""
+    r = max(reqs, key=lambda q: len(q.prompt))
+    with torch.no_grad():
+        got = _window_logits(torch, model, r.prompt, r.tokens[0])
+        with plain_kernels():
+            ref = _window_logits(torch, model, r.prompt, r.tokens[0])
+            m32 = fp32_copy(torch, model)
+            ref32 = _window_logits(torch, m32, r.prompt, r.tokens[0])
+            del m32
+    torch.cuda.empty_cache()
+    log(f"[window_check] one {len(r.prompt)}-token row, window "
+        f"{model.cfg.sliding_window} ({card_line()})")
+    _hold_logits("window_check", ("prefill", "decode"), got, ref, ref32,
+                 CHECK_REL)
 
 
 # ------------------------------------------------------------------ train
@@ -1191,7 +1674,7 @@ def run_train(torch, np, path, model, ids, labels, check, anatomy,
         raise AssertionError(f"{path} losses not finite: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{path} loss did not fall: {losses}")
-    missing = [k for k in PATHS[path] if counts[k] <= 0]
+    missing = _missing(path, counts)
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: "
                              f"{missing} ({counts})")
@@ -1303,7 +1786,7 @@ def phase_anatomy(torch, dev, model, np, label="decode tick"):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve,check,train,"
-                    "moe_serve,moe_check,moe_train")
+                    "moe_serve,moe_check,moe_train,window_serve,window_check")
     ap.add_argument("--root", help="import paddle_tpu_torch from the "
                     "checkout at ROOT instead of this one: an earlier "
                     "tree's package under this script's measurement")
@@ -1318,6 +1801,12 @@ def main(argv=None):
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
     import paddle_tpu_torch  # noqa: F401  (fails without the checkout)
+    from paddle_tpu_torch.ops import cuda as K
+    ABSENT.update(k for names in PATHS.values() for k in names
+                  if k not in K.kernels())
+    if ABSENT and not args.root:
+        raise AssertionError(f"kernels of PATHS missing from ops.cuda: "
+                             f"{sorted(ABSENT)}")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1367,6 +1856,14 @@ def main(argv=None):
     if "moe_train" in phases:
         counts["moe_train"] = phase_moe_train(
             torch, dev, np, "moe_check" in phases, "moe_anatomy" in phases)
+    if {"window_serve", "window_check"} & set(phases):
+        model = build_mistral(torch, dev)
+        counts["window_serve"], win_reqs = phase_window_serve(torch, dev,
+                                                              model, np)
+        if "window_check" in phases:
+            phase_window_check(torch, model, win_reqs)
+        del model
+        torch.cuda.empty_cache()
     kern = []
     for path, names in PATHS.items():
         for name in names:

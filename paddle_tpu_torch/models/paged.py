@@ -6,7 +6,8 @@
     ``llama_prefill_chunk_paged`` (chunked prefill / prefix-hit resume
     through the paged chunk kernel, K3) and ``llama_decode_step_paged`` /
     ``llama_decode_tick`` (one token per sequence through the paged decode
-    kernel, K4, sampled on the device).
+    kernel, K4, sampled on the device). Every rope of the three goes
+    through K7 (``ops.cuda.rope``).
   * HOST: the block managers — free lists, refcounts, the prefix caches
     and the radix trie — copied from the reference (pure host logic).
 
@@ -29,6 +30,7 @@ import torch
 from paddle_tpu_torch.observability.memledger import MemLedger
 from paddle_tpu_torch.ops import attention as A
 from paddle_tpu_torch.ops.cuda import paged_attention as _paged
+from paddle_tpu_torch.ops.cuda import rope as _rope
 from paddle_tpu_torch.quantization import wo_matmul as _wo
 
 
@@ -831,9 +833,9 @@ def _install_rows(cache: PagedKVCache, slot_ids, table_rows, new_lens):
 
 
 def _rope_rows(positions, head_dim, base, scaling=None, max_pos=None):
-    """cos/sin for PER-ROW positions: [B] -> [B, 1, 1, D/2] (ragged decode:
-    every sequence sits at a different position). Dynamic-NTK scales each
-    row by its own current length (positions + 1)."""
+    """cos/sin tables for PER-ROW positions: [B] -> [B, D/2] (ragged
+    decode: every sequence sits at a different position). Dynamic-NTK
+    scales each row by its own current length (positions + 1)."""
     base, pos_div = A.resolve_rope_scaling(
         base, head_dim, scaling, allow_dynamic=False,
         max_position_embeddings=max_pos,
@@ -845,16 +847,14 @@ def _rope_rows(positions, head_dim, base, scaling=None, max_pos=None):
     inv = 1.0 / (base ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                        device=dev)[None, :] / head_dim))
     f = (positions.float() / pos_div)[:, None] * inv
-    return torch.cos(f)[:, None, None, :], torch.sin(f)[:, None, None, :]
+    return torch.cos(f), torch.sin(f)
 
 
 def _apply_rope_rows(x, cos, sin):
-    """x: [B, 1, H, D] (or [A, C, H, D]); cos/sin broadcast over heads
-    (rotate-half, NeoX)."""
-    d2 = x.shape[-1] // 2
-    x1, x2 = x[..., :d2], x[..., d2:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
-                     dim=-1).to(x.dtype)
+    """x: [B, 1, H, D] (or [A, C, H, D]); cos/sin one table row per token,
+    [B, D/2] (or [A, C, D/2]). Rotate-half (NeoX) through K7
+    (``ops.cuda.rope``), which reads the strided q/k view in place."""
+    return _rope.fused_rope(x, cos, sin)
 
 
 def _scatter(store, vals, dest):
@@ -1144,7 +1144,7 @@ def llama_prefill_chunk_paged(model, input_ids, chunk_lens, offsets,
                  ** (torch.arange(0, d, 2, dtype=torch.float32,
                                   device=dev) / d))
     f = (positions.float() / pos_div)[:, :, None] * inv
-    cos, sin = torch.cos(f)[:, :, None, :], torch.sin(f)[:, :, None, :]
+    cos, sin = torch.cos(f), torch.sin(f)                      # [A, C, D/2]
     for li, lyr in enumerate(_backbone(model).layers):
         h = lyr.input_layernorm(x)
         q, k, v = _qkv(lyr.self_attn, h, (a, c), (a, c))

@@ -6,11 +6,15 @@ can take (no dense ``attn_mask``, no dropout) to the differentiable
 ``ops.cuda.flash_attention.flash_attention`` — K2 forward and K5
 backward on a CUDA tensor, their plain versions on a CPU tensor — and
 the rest to :func:`eager_attention`, the port of the reference's
-``xla_attention``, which autograd differentiates as it stands.
+``xla_attention``, which autograd differentiates as it stands. Rotary
+embedding (:func:`apply_rope`, :func:`fused_rotary_position_embedding`)
+goes through K7, ``ops.cuda.rope.fused_rope``.
 """
 from __future__ import annotations
 
 import torch
+
+from paddle_tpu_torch.ops.cuda import rope as _rope
 
 # most-negative bf16-representable; avoids nan from -inf - -inf
 _NEG_INF = -2.3819763e38
@@ -182,14 +186,24 @@ def rope_cos_sin(seq_len, head_dim, base=10000.0, dtype=torch.float32,
 
 def apply_rope(x, cos, sin):
     """x: [B,S,H,D]; cos/sin: [S, D/2] (shared) or [B, S, D/2] (per row).
-    NeoX-style rotate-half (LLaMA)."""
-    d2 = x.shape[-1] // 2
-    x1, x2 = x[..., :d2], x[..., d2:]
-    if cos.ndim == 3:
-        cos = cos[:, :, None, :]
-        sin = sin[:, :, None, :]
-    else:
-        cos = cos[None, :, None, :]
-        sin = sin[None, :, None, :]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
-                     dim=-1).to(x.dtype)
+    NeoX-style rotate-half (LLaMA), through K7 (``ops.cuda.rope``): the
+    kernel on a CUDA tensor, its plain version on a CPU tensor. The result
+    is contiguous."""
+    b, s = x.shape[:2]
+    want = (s,) if cos.ndim == 2 else (b, s)
+    if tuple(cos.shape[:-1]) != want:
+        raise ValueError(f"apply_rope: tables {tuple(cos.shape)} for x "
+                         f"{tuple(x.shape)}")
+    return _rope.fused_rope(x, cos, sin)
+
+
+def fused_rotary_position_embedding(q, k, seq_len=None, base=10000.0,
+                                    position_ids=None):
+    """Rotate-half rope of q and k [B, S, H, D] with fp32 tables built for
+    ``seq_len`` (default S) positions, or for ``position_ids`` [S] — the
+    counterpart of ``paddle.incubate.nn.functional.
+    fused_rotary_position_embedding``, through K7 on the card."""
+    s = seq_len or q.shape[1]
+    cos, sin = rope_cos_sin(s, q.shape[-1], base=base, dtype=torch.float32,
+                            position_ids=position_ids, device=q.device)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin)

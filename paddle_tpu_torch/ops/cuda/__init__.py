@@ -7,20 +7,27 @@ Importing this package builds nothing: sources compile at first launch
 (:mod:`paddle_tpu_torch.ops.cuda._build`).
 """
 from paddle_tpu_torch.ops.cuda import (flash_attention,  # noqa: F401
-                                       grouped_matmul, norms, paged_attention)
+                                       grouped_matmul, norms, paged_attention,
+                                       rope)
 
 
-SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode")
-TRAIN_KERNELS = ("rms_norm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
+                 "rope")
+TRAIN_KERNELS = ("rms_norm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "rope")
 # the MoE families: the dense paths' kernels plus the grouped GEMM
 MOE_SERVE_KERNELS = SERVE_KERNELS + ("grouped_fwd",)
 MOE_TRAIN_KERNELS = TRAIN_KERNELS + ("grouped_fwd", "grouped_dw")
+# sliding-window serving (Mistral): whole-prompt prefill and decode only —
+# chunked prefill under a window is refused, as in the reference engine
+WINDOW_SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_decode", "rope")
 
 
 def kernels() -> dict:
     """{name: the function that counts its launches} of every kernel of
-    the port: the serving path's, the train step's backward, then the
-    grouped GEMM of the MoE families (forward/dlhs, drhs)."""
+    the port: the serving path's, the train step's backward, the grouped
+    GEMM of the MoE families (forward/dlhs, drhs), then the rotary
+    embedding of every path."""
     return {
         "rms_norm": norms.rms_norm,
         "flash_fwd": flash_attention.flash_attention,
@@ -30,6 +37,7 @@ def kernels() -> dict:
         "flash_bwd_dkv": flash_attention.flash_bwd_dkv,
         "grouped_fwd": grouped_matmul.grouped_matmul,
         "grouped_dw": grouped_matmul.grouped_dw,
+        "rope": rope.fused_rope,
     }
 
 

@@ -28,11 +28,17 @@ of other reservations; with ``preemption=True`` admission is optimistic
 and out-of-blocks evicts the youngest request, which later resumes from
 prompt + tokens so far (prefix-cache hits make the recompute cheap).
 
+Sliding-window models (Mistral) recycle the blocks that fall wholly
+below ``cur - window``: the paged decode kernel never reads below
+``lens - window``, so a sequence holds O(window) live blocks however
+long it grows. Dynamic-NTK rope bases follow each row's length (the
+prefill's whole prompt, the decode tick's position + 1). Both turn
+prefix caching off and refuse chunked prefill, as the reference does.
+
 Not in this slice (each raises ``NotImplementedError`` naming its
 ROADMAP.md queue): beams, speculative decoding, async decode, int8 KV,
-multi-LoRA, grammar, degradation/SLO, tenants, context parallelism,
-prefill-only replicas (router), sliding-window recycling and
-dynamic-NTK rope.
+multi-LoRA, grammar, degradation/SLO, tenants, context parallelism and
+prefill-only replicas (router).
 """
 from __future__ import annotations
 
@@ -94,10 +100,6 @@ class LLMEngine:
         if int(async_depth) != 0:
             raise _not_ported("async_depth > 0 (async pipelined decode)")
         cfg = model_config(model)
-        if cfg.sliding_window is not None:
-            raise _not_ported("sliding-window block recycling")
-        if (cfg.rope_scaling or {}).get("type") == "dynamic":
-            raise _not_ported("serving with dynamic-NTK rope")
         self.model = model
         # MoE models route tokens to experts inside the tick — give chaos a
         # hook at that boundary (a dead expert shard)
@@ -119,7 +121,17 @@ class LLMEngine:
         self.top_k = top_k
         self.temps = np.zeros(num_slots, np.float32)
         self.top_ps = np.ones(num_slots, np.float32)
-        self.prefix_caching = bool(prefix_caching)
+        # sliding-window models: blocks entirely below cur - window are
+        # never attended again (the paged decode kernel reads only
+        # positions >= lens - window) — recycle them, bounding live blocks
+        # per sequence by O(window), not O(length)
+        self.window = cfg.sliding_window
+        self._dyn_rope = (cfg.rope_scaling or {}).get("type") == "dynamic"
+        # prefix caching is sound only when a block's KV is a function of
+        # its token prefix alone: windowed recycling punches holes in the
+        # table, and dynamic-NTK makes KV depend on the FULL prompt length
+        self.prefix_caching = (bool(prefix_caching) and self.window is None
+                               and not self._dyn_rope)
         self.preemption = bool(preemption)
 
         self.kv = KVManager(num_blocks, block_size)
@@ -187,6 +199,14 @@ class LLMEngine:
         if len(req.prompt) < 1:
             raise ValueError("prompt must contain at least one token "
                              "(an empty row has no logit to sample from)")
+        if len(req.prompt) > self.max_prompt_len and self.window is not None:
+            raise NotImplementedError(
+                "chunked prefill + sliding-window recycling not combined")
+        if len(req.prompt) > self.max_prompt_len and self._dyn_rope:
+            # refuse HERE: a raise inside step() would leave the slot
+            # claimed and the request wedged in self.prefilling
+            raise NotImplementedError(
+                "chunked prefill with dynamic-NTK rope is not supported")
         if len(req.prompt) + req.max_new_tokens > self.max_seq_len:
             raise ValueError("prompt + max_new_tokens exceeds max_seq_len")
         if self._worst_case_blocks(req) > self.mgr.num_blocks:
@@ -286,9 +306,30 @@ class LLMEngine:
         return req.max_new_tokens - len(req.tokens)
 
     def _worst_case_blocks(self, req) -> int:
-        """Blocks a request can ever hold at once."""
-        return self.mgr.blocks_needed(len(self._pr(req))
-                                      + self._remaining(req))
+        """Blocks a request can ever hold at once. Windowed models recycle
+        below-window blocks, so the live span is bounded by the window
+        (plus the write-frontier block) — but prefill scatters the WHOLE
+        prompt before any recycling, so that is a floor."""
+        p = len(self._pr(req))
+        total = p + self._remaining(req)
+        if self.window is None:
+            return self.mgr.blocks_needed(total)
+        live = self.mgr.blocks_needed(
+            min(total, self.window + 2 * self.block_size))
+        return max(self.mgr.blocks_needed(p), live)
+
+    def _recycle_window(self, slots):
+        """Free blocks entirely below cur - window for the given slots —
+        live blocks per sequence stay O(window). Host-only: the paged
+        decode kernel reads no position below lens - window, so the stale
+        device-table entries that point at recycled (even reused) blocks
+        are never read, and no scatter writes below the frontier."""
+        for slot in slots:
+            rid = int(self.slot_req[slot])
+            dead = int(max(0, self.cur[slot] - self.window)
+                       ) // self.block_size
+            if dead > 0 and self.mgr.free_prefix(rid, dead):
+                self.kv.update(rid)
 
     # ---------------------------------------------------------- admission
     def _activate(self, slot, req, temp, top_p):
@@ -334,6 +375,19 @@ class LLMEngine:
             self._activate(slot, req, row_t[i], row_p[i])
         logits = self.exe.prefill(ids, lens, slots, rows)
         first = self.exe.sample(logits, row_t, row_p)
+        if self.window is not None:
+            # a long prompt's below-window blocks die the moment prefill
+            # has scattered them — and from here on the sequence can never
+            # hold more than the window live bound, so relax its
+            # reservation too (the prompt-size floor only mattered DURING
+            # prefill)
+            self._recycle_window([slot for slot, _ in admits])
+            live_bound = self.mgr.blocks_needed(
+                self.window + 2 * self.block_size)
+            for slot, req in admits:
+                rid = req.req_id
+                self.kv.need[rid] = min(self.kv.need[rid], live_bound)
+                self.kv.update(rid)
         emitted = []
         for i, (slot, req) in enumerate(admits):
             emitted += self._emit(slot, int(first[i]))
@@ -455,8 +509,10 @@ class LLMEngine:
                 # nothing else to evict: preempt THIS slot (it re-queues
                 # with its progress and resumes when blocks free up)
                 if not self.sched.preempt_from(self, [int(slot)]):
-                    raise MemoryError("paged cache out of blocks and the "
-                                      "growing slot is not preemptible")
+                    raise MemoryError(
+                        "paged cache out of blocks and the growing slot "
+                        "is not preemptible (windowed/dynamic-rope resume "
+                        "exceeds max_prompt_len)")
                 continue
             self.kv.update(rid)
             idx = min(int(self.table_len[slot]), len(t) - 1)
@@ -464,6 +520,8 @@ class LLMEngine:
             cols[slot] = idx
             vals[slot] = t[idx]
             self.table_len[slot] = idx + 1
+        if self.window is not None:
+            self._recycle_window(np.nonzero(self.active)[0])
         return rows, cols, vals
 
     def _emit(self, slot: int, token: int):

@@ -217,6 +217,14 @@ class Scheduler:
         return True
 
     def preempt_from(self, eng, cand) -> bool:
+        if eng.window is not None or eng._dyn_rope:
+            # the resume prefill rides the chunk path, which refuses
+            # window-recycling and dynamic-NTK for long prompts — only
+            # slots whose resume form fits one plain prefill qualify
+            cand = [s for s in cand
+                    if len(self.requests[int(eng.slot_req[s])].prompt)
+                    + len(self.requests[int(eng.slot_req[s])].tokens)
+                    <= eng.max_prompt_len]
         if not cand:
             return False
         slot = max(cand, key=lambda s: eng.adm_order[s])

@@ -14,6 +14,7 @@ from paddle_tpu_torch.ops.cuda import flash_attention as TF
 from paddle_tpu_torch.ops.cuda import grouped_matmul as TG
 from paddle_tpu_torch.ops.cuda import norms as TN
 from paddle_tpu_torch.ops.cuda import paged_attention as TPA
+from paddle_tpu_torch.ops.cuda import rope as TR
 
 
 @pytest.mark.cuda
@@ -92,6 +93,83 @@ def test_engine_on_card_matches_cpu_and_launches_every_kernel():
     assert streams[0] == streams[1]
     counts = K.launches()
     assert all(counts[k] > 0 for k in K.SERVE_KERNELS), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_rope_kernel_forward_bit_identical_backward_close(dtype, tol, d):
+    """K7 on strided q/k views of a fused QKV product (GQA), with a shared
+    [S, D/2] table and with per-row [B, S, D/2] tables: the forward equals
+    the plain version bit for bit; the backward (the kernel with -sin)
+    agrees with autograd through the plain version within ``tol``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, s, nh, nkv = 2, 37, 8, 2
+    qkv = torch.randn(b, s, (nh + 2 * nkv) * d, generator=g,
+                      device=dev).to(dtype)
+    q, k, _ = torch.split(qkv, [nh * d, nkv * d, nkv * d], dim=-1)
+    ang = torch.rand(b, s, d // 2, generator=g, device=dev) * 40.0
+    tables = {"shared": (ang[0].cos(), ang[0].sin()),
+              "per_row": (ang.cos(), ang.sin())}
+    for x, h in ((q, nh), (k, nkv)):
+        x = x.reshape(b, s, h, d)
+        for cos, sin in tables.values():
+            n0 = TR.fused_rope.launches
+            got = TR.fused_rope(x, cos, sin)
+            assert TR.fused_rope.launches == n0 + 1
+            assert torch.equal(got, TR.fused_rope_plain(x, cos, sin))
+            xr = x.detach().clone().requires_grad_()
+            cot = torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+            (dx,) = torch.autograd.grad(TR.fused_rope(xr, cos, sin), xr, cot)
+            (ref,) = torch.autograd.grad(TR.fused_rope_plain(xr, cos, sin),
+                                         xr, cot)
+            assert dx.dtype == dtype
+            err = (dx.float() - ref.float()).abs() / (1 + ref.float().abs())
+            assert float(err.max()) <= tol
+
+
+@pytest.mark.cuda
+def test_windowed_engine_on_card_matches_cpu():
+    """A sliding-window model (window 24, head_dim 128, float32) served on
+    the card gives the CPU's greedy streams, recycles blocks, and launches
+    the window path's kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import numpy as np
+
+    from paddle_tpu_torch.models.mistral import (MistralConfig,
+                                                 MistralForCausalLM)
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    cfg = MistralConfig.tiny(hidden_size=256, intermediate_size=512,
+                             num_attention_heads=2, num_key_value_heads=1,
+                             vocab_size=512, sliding_window=24)
+    cpu = MistralForCausalLM(cfg, device="cpu")
+    card = MistralForCausalLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(4)
+    prompts = [rs.randint(0, 512, n) for n in (5, 30, 60, 9)]
+    streams = []
+    for model in (cpu, card):
+        K.reset_launches()
+        eng = LLMEngine(model, num_slots=3, block_size=8, max_prompt_len=64,
+                        max_seq_len=128)
+        ids = [eng.add_request(Request(p, max_new_tokens=40)) for p in prompts]
+        peak = 0
+        while eng.has_work():
+            eng.step()
+            peak = max([peak] + [eng.kv.live_blocks(int(r))
+                                 for r in eng.slot_req if r >= 0])
+        eng.assert_quiescent()
+        streams.append([eng.requests[i].tokens for i in ids])
+        assert peak <= eng.mgr.blocks_needed(24 + 2 * 8)
+    assert streams[0] == streams[1]
+    counts = K.launches()
+    assert all(counts[k] > 0 for k in K.WINDOW_SERVE_KERNELS), counts
 
 
 @pytest.mark.cuda
