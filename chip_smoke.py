@@ -254,6 +254,15 @@ def phase_build():
 
 
 # ---------------------------------------------------------------- kernels
+def _route(FA, name, t):
+    """The kernel a K2 / K5 row ran for inputs like ``t``: K5a (dq) runs
+    fp32 FMAs for every dtype, K2 and K5b the route ``kernel_route`` names
+    ("wgmma" for bf16: the tensor cores); a tree without it ran FMAs."""
+    if name == "flash_bwd_dq" or not hasattr(FA, "kernel_route"):
+        return "fma"
+    return FA.kernel_route(t.dtype, t.shape[-1])
+
+
 def _max_err(a, b, mask=None):
     """(max |a - b|, max |a - b| / (1 + |b|)) over the masked elements."""
     a, b = a.float(), b.float()
@@ -376,7 +385,8 @@ def serve_kernel_entries(torch, dev, h=4096, nh=32, fp32=True):
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=mask)),
                 bound_ms=b_ms, bound_by=b_by,
-                shape=f"q/k/v [{b}, {s}, {nh}, {d}] bf16, causal, kv_lens")
+                shape=f"q/k/v [{b}, {s}, {nh}, {d}] bf16, causal, kv_lens; "
+                      f"{_route(FA, 'flash_fwd', q)} route")
         # K3
         c = cases["paged_chunk"]
         q, kp, vp = cast(c["q"]), cast(c["kp"]), cast(c["vp"])
@@ -581,7 +591,8 @@ def k2_train(torch, dev, shape=TRAIN_SHAPE):
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), iters=20),
         bound_ms=b_ms, bound_by=b_by,
-        shape=f"q/k/v {list(shape)} bf16, causal")
+        shape=f"q/k/v {list(shape)} bf16, causal; "
+              f"{_route(FA, 'flash_fwd', q)} route")
 
 
 def _k5_case(torch, FA, q, k, v, do, causal, window=None, kv_lens=None):
@@ -647,7 +658,8 @@ def k5(torch, dev, shape=TRAIN_SHAPE):
             max_abs_err=errs[key], ms=time_ms(lambda: fn(*args), iters=10),
             plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
             bound_by=b_by,
-            shape=f"q/k/v/dO {list(shape)} bf16, causal")
+            shape=f"q/k/v/dO {list(shape)} bf16, causal; "
+                  f"{_route(FA, key, q)} route")
     return out
 
 
@@ -998,7 +1010,8 @@ def k2_banded(torch, dev):
         plain = time_ms(lambda: FA.flash_attention_plain(
             q, k, v, causal=True, window=window), iters=5, warmup=1)
         log(f"[kernels] flash_fwd at the banded shape (q/k/v [1, 4096, 4, "
-            f"128] bf16, causal, window {window}): {ms:.4f} ms, plain "
+            f"128] bf16, {_route(FA, 'flash_fwd', q)} route, causal, window "
+            f"{window}): {ms:.4f} ms, plain "
             f"{plain:.4f} ms, library {lib:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}), {100 * b_ms / ms:.2f}% of bound; max_abs_err "
             f"{err:.3e}")
@@ -1064,7 +1077,8 @@ def window_kernel_entries(torch, dev):
                                              keep[:, None]), iters=5,
                            warmup=1),
         bound_ms=b_ms, bound_by=b_by,
-        shape=f"q [4, {s}, 32, {d}], k/v [4, {s}, 8, {d}] bf16, causal, "
+        shape=f"q [4, {s}, 32, {d}], k/v [4, {s}, 8, {d}] bf16 "
+              f"({_route(FA, 'flash_fwd', q)} route), causal, "
               f"window {window}, kv_lens {list(WIN_LONG)}")
     del q, k, v, qt, kt, vt, keep
     torch.cuda.empty_cache()
@@ -1746,6 +1760,15 @@ def _anatomy(torch, label, unit, run, n):
     for ms, cnt, key in rows[:14]:
         log(f"[anatomy] {ms:8.3f} ms/{unit} {100 * ms / dev_ms:5.1f}% "
             f"{cnt:5d}x/{unit}  {key[:90]}")
+    # the attention kernels one by one, wherever they rank
+    for tag, fn in (("K2", "flash_fwd"), ("K5a", "flash_bwd_dq"),
+                    ("K5b", "flash_bwd_dkv")):
+        mine = [r for r in rows if fn in r[2]]
+        if mine and dev_ms > 0:
+            ms = sum(r[0] for r in mine)
+            log(f"[anatomy] {tag} ({fn}): {ms:8.3f} ms/{unit} "
+                f"{100 * ms / dev_ms:5.1f}% {sum(r[1] for r in mine):5d}x/"
+                f"{unit}  {mine[0][2][:60]}")
     # host: each Python function's own time (cProfile slows the run, so
     # the shares count, not the sum)
     prof_py = cProfile.Profile()

@@ -16,22 +16,36 @@
 //
 // What bounds it on this card: at the training shapes (S = 2048, D = 128)
 // the work is ~S flops per byte, far above the H100's ridge, so the bound
-// is the tensor-core rate. This first version computes every product with
-// fp32 FMAs on the CUDA cores, so it runs at the CUDA-core rate instead;
-// the mma/wgmma version is later work.
+// is the tensor-core rate.
 //
 // Design (blocks run in parallel, so each output is owned by one block and
 // written once; no atomics, so the result is deterministic, as on the TPU):
 //   dq  — one block per (64-row q tile, head, batch row), a loop over the
 //         live key tiles [kbeg, kend) of K2; lane = key in a 32-key tile,
-//         a warp owns 8 query rows, dq accumulates in registers.
+//         a warp owns 8 query rows, dq accumulates in registers. fp32 FMAs
+//         on the CUDA cores, bf16 and fp32 alike.
 //   dkv — one block per (64-row k tile, KV head, batch row), a loop over
-//         the G query heads of the group and, for each, over the 32-row q
-//         tiles that reach the k tile (causal: from the tile's diagonal on;
-//         window: up to the last key + window); lane = query, a warp owns 8
-//         key rows, dk and dv accumulate in registers. The GQA sum over the
-//         group happens inside the block: no per-q-head partial buffer.
+//         the G query heads of the group and, for each, over the q tiles
+//         that reach the k tile (causal: from the tile's diagonal on;
+//         window: up to the last key + window). The GQA sum over the group
+//         happens inside the block: no per-q-head partial buffer. Two
+//         routes, by dtype (ops/cuda/flash_attention.py kernel_route):
+//     bf16 — flash_bwd_dkv_wgmma_kernel, one warpgroup on the tensor
+//         cores. Per streamed 64-row q tile: S^T = K Q^T and dP^T = V dO^T
+//         (wgmma m64n64k16, all four operands K-major in shared memory),
+//         P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) scale on
+//         the fp32 fragments, then dV += P^T dO and dK += dS^T Q (m64nDk16,
+//         P^T and dS^T rounded to bf16 as register A operands, dO and Q
+//         read transposed from the same shared tiles). dK and dV stay in
+//         fp32 registers for the whole block. The next Q/dO tile (with its
+//         rows' lse and delta) streams in with cp.async (two stages,
+//         128-byte-swizzled) while the current one computes. k tile 0,
+//         the one with the most live queries under causal, is the grid's
+//         slowest axis, so the heaviest blocks of every head start first.
+//     fp32 — flash_bwd_dkv_kernel: lane = query in a 32-row q tile, a warp
+//         owns 8 key rows, fp32 FMAs (exact to the card tests' 1e-4).
 #include "attn_tile.cuh"
+#include "hopper_mma.cuh"
 
 using namespace ptt;
 
@@ -314,9 +328,198 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------- K5b, tensor-core route
+constexpr int kTile = 64;  // keys per block and queries per step (m64)
+
+// Dynamic shared memory of K5b's tensor-core route: this block's K and V
+// tiles, two stages of the streamed Q and dO tiles (each [64][D] bf16,
+// swizzled), then the two stages' lse and delta rows (64 fp32 each), plus
+// the slack that aligns the tiles to 1024 bytes.
+template <int D>
+constexpr int dkv_wgmma_smem_bytes() {
+  return 6 * kTile * D * 2 + 2 * 2 * kTile * 4 + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(hopper::kWarpgroup, 2)
+    flash_bwd_dkv_wgmma_kernel(
+        const __nv_bfloat16* __restrict__ q,
+        const __nv_bfloat16* __restrict__ k,
+        const __nv_bfloat16* __restrict__ v,
+        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+        const float* __restrict__ delta, const int* __restrict__ kv_lens,
+        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+        int S, int Sk, int H, int Hkv, float scale, int causal, int window) {
+  using namespace hopper;
+  constexpr int kTileBytes = kTile * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t k_s = smem_addr(base), v_s = k_s + kTileBytes;
+  // stage st: Q at k_s + (2 + 2 st) tiles, dO right after it; its lse and
+  // delta rows at rows_s + 2 * 64 * st
+  float* rows_s = reinterpret_cast<float*>(base + 6 * kTileBytes);
+  const int kvh = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * kTile;
+  const int G = H / Hkv;
+  int klen;
+  const int q_off = row_geometry(kv_lens, b, S, Sk, &klen);
+  // the query rows that reach this tile's live keys [k0, klast]
+  const int klast = min(k0 + kTile, klen) - 1;
+  int qbeg = 0, qend = S;
+  if (causal) qbeg = max(0, k0 - q_off);
+  if (window > 0) qend = min(qend, klast + window - q_off);
+  if (klast < k0) qend = qbeg;  // the whole tile lies past kv_lens
+  const int nqt = qend > qbeg ? (qend - qbeg + kTile - 1) / kTile : 0;
+  const int iters = G * nqt;
+
+  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)Hkv * D;
+  const size_t kv_off = ((size_t)b * Sk + k0) * kv_stride + kvh * D;
+  // step it: q tile it % nqt of query head kvh * G + it / nqt
+  auto load_q = [&](int it) {
+    const int h = kvh * G + it / nqt, qt = qbeg + (it % nqt) * kTile;
+    const uint32_t q_st = k_s + (2 + 2 * (it & 1)) * kTileBytes;
+    const size_t off = ((size_t)b * S + qt) * q_stride + h * D;
+    load_tile<kTile, D>(q_st, q + off, q_stride, qend - qt);
+    load_tile<kTile, D>(q_st + kTileBytes, dout + off, q_stride, qend - qt);
+    // threads 0..63 copy the lse rows, 64..127 the delta rows
+    const int r = threadIdx.x & (kTile - 1);
+    const bool ok = qt + r < qend;
+    const float* src = (threadIdx.x < kTile ? lse : delta) +
+                       ((size_t)b * H + h) * S + qt + (ok ? r : 0);
+    cp_async4(smem_addr(rows_s + 2 * kTile * (it & 1) + threadIdx.x), src,
+              ok);
+  };
+  if (iters > 0) {
+    load_tile<kTile, D>(k_s, k + kv_off, kv_stride, klen - k0);
+    load_tile<kTile, D>(v_s, v + kv_off, kv_stride, klen - k0);
+    load_q(0);
+    cp_async_commit();
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16 + (lane >> 2);  // key rows r0 and r0 + 8
+  const int c0 = 2 * (lane & 3);           // query columns 8j + c0 + {0, 1}
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float sl2 = scale * kLog2e;
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int it = 0; it < iters; ++it) {
+    const int qt = qbeg + (it % nqt) * kTile;
+    const uint32_t q_st = k_s + (2 + 2 * (it & 1)) * kTileBytes;
+    const uint32_t do_st = q_st + kTileBytes;
+    const float* lse_s = rows_s + 2 * kTile * (it & 1);
+    const float* dl_s = lse_s + kTile;
+    cp_async_wait<0>();  // step it's tiles (and K, V) landed
+    fence_async_smem();
+    __syncthreads();     // ... for every thread; step it - 1 is consumed
+    if (it + 1 < iters) {
+      load_q(it + 1);    // streams in while step it computes
+      cp_async_commit();
+    }
+    // S^T = K Q^T and dP^T = V dO^T on the tensor cores
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    reg_fence(s);
+    reg_fence(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss_n64(s, desc_kmajor<kTile>(k_s, kk),
+                 desc_kmajor<kTile>(q_st, kk));
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss_n64(dp, desc_kmajor<kTile>(v_s, kk),
+                 desc_kmajor<kTile>(do_st, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    // element masks only on a step that crosses qend, kv_lens, the causal
+    // diagonal or the window's edge
+    const bool edge = qt + kTile > qend || k0 + kTile > klen ||
+                      (causal && q_off + qt < k0 + kTile - 1) ||
+                      (window > 0 && q_off + qt + kTile - 1 - k0 >= window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 8 * j + c0 + (i & 1);
+        const bool ok =
+            !edge || (qt + c < qend && keep(q_off + qt + c,
+                                            k0 + r0 + 8 * (i >> 1), klen,
+                                            causal, window));
+        const float p =
+            ok ? exp2f(fmaf(s[4 * j + i], sl2, -lse_s[c] * kLog2e)) : 0.f;
+        s[4 * j + i] = p;
+        dp[4 * j + i] = p * (dp[4 * j + i] - dl_s[c]) * scale;
+      }
+    // dV += P^T dO and dK += dS^T Q: P^T and dS^T (bf16) from registers,
+    // dO and Q transposed from shared memory
+    uint32_t pa[4][4], da[4][4];
+    to_operand_a<4>(s, pa);
+    to_operand_a<4>(dp, da);
+    reg_fence(dv_acc);
+    reg_fence(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs<D>(dv_acc, pa[kk], desc_mnmajor<kTile>(do_st, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs<D>(dk_acc, da[kk], desc_mnmajor<kTile>(q_st, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dv_acc);
+    reg_fence(dk_acc);
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int kj = k0 + r0 + 8 * hr;
+    if (kj >= Sk) continue;
+    const size_t off = ((size_t)b * Sk + kj) * kv_stride + kvh * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * hr;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j + c0) =
+          __floats2bfloat162_rn(dk_acc[i], dk_acc[i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j + c0) =
+          __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     const void* kv_lens, void* dk, void* dv, int B, int S,
+                     int Sk, int H, int Hkv, float scale, int causal,
+                     int window, void* stream) {
+  const int smem = dkv_wgmma_smem_bytes<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(Hkv, B, (Sk + kTile - 1) / kTile);
+  flash_bwd_dkv_wgmma_kernel<D>
+      <<<grid, hopper::kWarpgroup, smem, (cudaStream_t)stream>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v),
+          static_cast<const __nv_bfloat16*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(dk),
+          static_cast<__nv_bfloat16*>(dv), S, Sk, H, Hkv, scale, causal,
+          window);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim: 64 or 128. kv_lens may be
+// dtype: 0 = float32, 1 = bfloat16 (flash_bwd_dkv: the tensor-core
+// route, 16-byte-aligned pointers); head_dim: 64 or 128. kv_lens may be
 // null (no padding); window <= 0 means no sliding window. H % Hkv == 0.
 extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q,
                             const void* k, const void* v, const void* dout,
@@ -348,8 +551,13 @@ extern "C" int flash_bwd_dkv(int dtype, int head_dim, const void* q,
                             S, Sk, H, Hkv, scale, causal, window, stream)
   if (dtype == kF32 && head_dim == 64) PTT_DKV(64, float);
   if (dtype == kF32 && head_dim == 128) PTT_DKV(128, float);
-  if (dtype == kBF16 && head_dim == 64) PTT_DKV(64, __nv_bfloat16);
-  if (dtype == kBF16 && head_dim == 128) PTT_DKV(128, __nv_bfloat16);
 #undef PTT_DKV
+#define PTT_DKV_WGMMA(DIM)                                                 \
+  return launch_dkv_wgmma<DIM>(q, k, v, dout, lse, delta, kv_lens, dk, dv, \
+                               B, S, Sk, H, Hkv, scale, causal, window,    \
+                               stream)
+  if (dtype == kBF16 && head_dim == 64) PTT_DKV_WGMMA(64);
+  if (dtype == kBF16 && head_dim == 128) PTT_DKV_WGMMA(128);
+#undef PTT_DKV_WGMMA
   return static_cast<int>(cudaErrorInvalidValue);
 }

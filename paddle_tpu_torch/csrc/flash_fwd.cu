@@ -3,29 +3,46 @@
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py _fwd_kernel (via
 // _flash_fwd, public flash_attention), the forward only.
 // q [B, S, H, D], k/v [B, Sk, Hkv, D] (the JAX layout), o like q, and the
-// log-sum-exp [B, H, S] fp32 that the backward (K5) will read.
+// log-sum-exp [B, H, S] fp32 (natural log of the scaled scores, 0 for a
+// row with no live key) that the backward (K5) reads.
 //
-// What bounds it on this card: at the serving shapes (S = 128, D = 128)
-// the work is ~S*D flops per byte of q/k/v, well under the H100's ridge in
-// principle, but this first version computes scores and P@V with fp32
-// FMAs on the CUDA cores, so it is bounded by CUDA-core issue rate, not by
-// memory; the tensor-core (wgmma) version is later work.
+// Two routes, by dtype (ops/cuda/flash_attention.py kernel_route):
+//   bf16 — flash_fwd_wgmma_kernel, on the tensor cores. At the training
+//     shapes (S = 2048, D = 128) the work is ~S flops per byte, far above
+//     the H100's ridge, so the bound is the tensor-core rate: both
+//     products run as wgmma (m64n64k16 for S = Q K^T from shared memory,
+//     m64nDk16 for O += P V with P from registers and V read transposed),
+//     bf16 operands and fp32 accumulators. One warpgroup owns a 64-row q
+//     tile and walks 64-key tiles; the next K/V tile streams in with
+//     cp.async (two stages, 128-byte-swizzled) while the current one
+//     computes. The online softmax runs on the accumulator fragment in
+//     registers, in base 2 (log2(e) folded into the scale; the LSE is
+//     converted back to the natural log), and P, rounded to bf16 as the
+//     plain version rounds it, is P V's A operand without a trip through
+//     shared memory (hopper_mma.cuh).
+//   fp32 — flash_fwd_kernel, fp32 FMAs on the CUDA cores (attn_tile.cuh):
+//     exact to the card tests' 1e-4, which TF32 tensor cores are not.
 //
-// Design (re-thought for 132 SMs running blocks in parallel, not the
-// TPU's sequential grid): one block per (q tile of 64 rows, head, batch
-// row), so an 8 x 128-token admission at 32 heads launches 512 blocks.
-// The k loop lives inside the block (it was the sequential grid axis on
-// the TPU) and only walks the tiles the mask leaves alive: the causal
-// frontier of the tile's last row, the row's kv_lens and the lower edge of
-// a sliding window bound [kbeg, kend). GQA reads kv head h / (H / Hkv)
-// straight from k/v, never a repeated copy. Ragged S is masked in the
-// kernel (rows >= S are neither loaded nor written), so nothing is padded.
+// Both: one block per (q tile of 64 rows, head, batch row); the k loop
+// lives inside the block (it was the sequential grid axis on the TPU) and
+// only walks the tiles the mask leaves alive: the causal frontier of the
+// tile's last row, the row's kv_lens and the lower edge of a sliding
+// window bound [kbeg, kend). Element masks apply only on tiles that cross
+// one of those edges. GQA reads kv head h / (H / Hkv) straight from k/v,
+// never a repeated copy. Ragged S is masked in the kernel (rows >= S are
+// zero-filled and never written), so nothing is padded. The tensor-core
+// route issues its q tiles heaviest first: under causal the last q tile
+// has the most live keys, and the grid's slowest axis walks the tiles
+// from the last, so the long blocks of every head start in the first
+// wave on the 132 SMs instead of finishing last.
 #include "attn_tile.cuh"
+#include "hopper_mma.cuh"
 
 using namespace ptt;
 
 namespace {
 
+// ------------------------------------------------------------ FMA route
 template <int D, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -108,23 +125,215 @@ int launch(const void* q, const void* k, const void* v, const void* kv_lens,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------- tensor-core route
+constexpr int kTile = 64;  // q rows per block and keys per step (wgmma m64)
+
+// Dynamic shared memory of the tensor-core route: the q tile and two
+// stages of K and V tiles, each [64][D] bf16 swizzled, plus the slack
+// that aligns them to 1024 bytes.
+template <int D>
+constexpr int wgmma_smem_bytes() {
+  return 5 * kTile * D * 2 + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(hopper::kWarpgroup, 2)
+    flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const int* __restrict__ kv_lens,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int S, int Sk, int H,
+                           int Hkv, float scale, int causal, int window) {
+  using namespace hopper;
+  constexpr int kTileBytes = kTile * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
+  // stage st: K at q_s + (1 + 2 st) tiles, V right after it
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTile;  // heaviest first
+  const int kvh = h / (H / Hkv);
+  int klen = Sk;
+  if (kv_lens != nullptr) klen = min(max(kv_lens[b], 0), Sk);
+  // query positions align to the END of the key axis; with kv_lens and a
+  // short query block (decode against a padded cache) to the row's valid
+  // length instead — the reference's _q_offset rule
+  int q_off = Sk - S;
+  if (kv_lens != nullptr && q_off > 0) q_off += klen - Sk;
+  const int last = min(q0 + kTile, S) - 1;
+  int kend = klen;
+  if (causal) kend = min(kend, q_off + last + 1);
+  const int kbeg = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
+  const int ntiles = kend > kbeg ? (kend - kbeg + kTile - 1) / kTile : 0;
+
+  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)Hkv * D;
+  const __nv_bfloat16* q_src = q + ((size_t)b * S + q0) * q_stride + h * D;
+  const __nv_bfloat16* k_src = k + (size_t)b * Sk * kv_stride + kvh * D;
+  const __nv_bfloat16* v_src = v + (size_t)b * Sk * kv_stride + kvh * D;
+  auto load_kv = [&](int t) {
+    const int k0 = kbeg + t * kTile;
+    const uint32_t k_s = q_s + (1 + 2 * (t & 1)) * kTileBytes;
+    load_tile<kTile, D>(k_s, k_src + k0 * kv_stride, kv_stride, kend - k0);
+    load_tile<kTile, D>(k_s + kTileBytes, v_src + k0 * kv_stride, kv_stride,
+                        kend - k0);
+  };
+  if (ntiles > 0) {
+    load_tile<kTile, D>(q_s, q_src, q_stride, S - q0);
+    load_kv(0);
+    cp_async_commit();
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16 + (lane >> 2);  // rows r0 and r0 + 8
+  const int c0 = 2 * (lane & 3);           // columns 8j + c0 + {0, 1}
+  const float sl2 = scale * 1.4426950408889634f;  // scores -> log2 units
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = kbeg + t * kTile;
+    const uint32_t k_s = q_s + (1 + 2 * (t & 1)) * kTileBytes;
+    const uint32_t v_s = k_s + kTileBytes;
+    cp_async_wait<0>();  // tile t (and the q tile) landed
+    fence_async_smem();
+    __syncthreads();     // ... for every thread; tile t - 1 is consumed
+    if (t + 1 < ntiles) {
+      load_kv(t + 1);    // streams in while tile t computes
+      cp_async_commit();
+    }
+    // S = Q K^T on the tensor cores
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    reg_fence(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss_n64(s, desc_kmajor<kTile>(q_s, kk), desc_kmajor<kTile>(k_s, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    // element masks only on a tile that crosses kv_lens, the causal
+    // diagonal or the window's lower edge
+    const bool edge = k0 + kTile > klen ||
+                      (causal && k0 + kTile - 1 > q_off + q0) ||
+                      (window > 0 && q_off + q0 + kTile - 1 - k0 >= window);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qp = q_off + q0 + r0 + 8 * (i >> 1);
+          const int kp = k0 + 8 * j + c0 + (i & 1);
+          const bool ok = kp < klen && (!causal || qp >= kp) &&
+                          (window <= 0 || qp - kp < window);
+          if (!ok) s[4 * j + i] = -INFINITY;
+        }
+    }
+    // online softmax on the fragment: this thread holds 16 of each of its
+    // two rows' 64 scores, the quad (lanes 4i..4i+3) the whole row
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hr], s[4 * j + 2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hr], mx * sl2);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = exp2f(m[hr] - m_use);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * hr + e];
+          x = exp2f(fmaf(x, sl2, -m_use));
+          sum += x;
+        }
+      l[hr] = l[hr] * corr + sum;  // this thread's share of the row
+      m[hr] = m_new;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j + 2 * hr] *= corr;
+        acc[4 * j + 2 * hr + 1] *= corr;
+      }
+    }
+    // O += P V: P (bf16) from registers, V transposed from shared memory
+    uint32_t pa[4][4];
+    to_operand_a<4>(s, pa);
+    reg_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs<D>(acc, pa[kk], desc_mnmajor<kTile>(v_s, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float sum = l[hr];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int qi = q0 + r0 + 8 * hr;
+    if (qi >= S) continue;
+    const float inv = sum > 0.f ? 1.f / sum : 0.f;
+    __nv_bfloat16* orow = o + ((size_t)b * S + qi) * q_stride + h * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c0) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * hr] * inv,
+                                acc[4 * j + 2 * hr + 1] * inv);
+    if ((lane & 3) == 0)
+      lse[((size_t)b * H + h) * S + qi] =
+          sum > 0.f ? m[hr] * 0.6931471805599453f + logf(sum) : 0.f;
+  }
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* kv_lens, void* o, void* lse, int B, int S,
+                 int Sk, int H, int Hkv, float scale, int causal, int window,
+                 void* stream) {
+  const int smem = wgmma_smem_bytes<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(H, B, (S + kTile - 1) / kTile);
+  flash_fwd_wgmma_kernel<D>
+      <<<grid, hopper::kWarpgroup, smem, (cudaStream_t)stream>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v),
+          static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(o),
+          static_cast<float*>(lse), S, Sk, H, Hkv, scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim: 64 or 128. kv_lens may be
-// null (no padding); window <= 0 means no sliding window.
+// dtype: 0 = float32 (FMA route), 1 = bfloat16 (tensor-core route);
+// head_dim: 64 or 128. kv_lens may be null (no padding); window <= 0
+// means no sliding window. bf16 pointers must be 16-byte aligned.
 extern "C" int flash_fwd(int dtype, int head_dim, const void* q,
                          const void* k, const void* v, const void* kv_lens,
                          void* o, void* lse, int B, int S, int Sk, int H,
                          int Hkv, float scale, int causal, int window,
                          void* stream) {
   if (B <= 0 || S <= 0) return 0;
-#define PTT_FLASH(DIM, T)                                                   \
-  return launch<DIM, T>(q, k, v, kv_lens, o, lse, B, S, Sk, H, Hkv, scale, \
-                        causal, window, stream)
-  if (dtype == kF32 && head_dim == 64) PTT_FLASH(64, float);
-  if (dtype == kF32 && head_dim == 128) PTT_FLASH(128, float);
-  if (dtype == kBF16 && head_dim == 64) PTT_FLASH(64, __nv_bfloat16);
-  if (dtype == kBF16 && head_dim == 128) PTT_FLASH(128, __nv_bfloat16);
+#define PTT_FLASH(LAUNCH)                                                  \
+  return LAUNCH(q, k, v, kv_lens, o, lse, B, S, Sk, H, Hkv, scale, causal, \
+                window, stream)
+  if (dtype == kF32 && head_dim == 64) PTT_FLASH((launch<64, float>));
+  if (dtype == kF32 && head_dim == 128) PTT_FLASH((launch<128, float>));
+  if (dtype == kBF16 && head_dim == 64) PTT_FLASH(launch_wgmma<64>);
+  if (dtype == kBF16 && head_dim == 128) PTT_FLASH(launch_wgmma<128>);
 #undef PTT_FLASH
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,0 +1,253 @@
+// Hopper (sm_90a) building blocks for the tensor-core attention kernels
+// (flash_fwd.cu's K2 and flash_bwd.cu's K5b, bf16): 16-byte cp.async
+// copies into 128-byte-swizzled shared tiles, the shared-memory matrix
+// descriptors of wgmma, and the three wgmma.mma_async shapes they use.
+//
+// Tile layout. A [rows][D] bf16 tile (D = 64 or 128) is stored as D / 64
+// panels of [rows][64]: one 128-byte line per row, the 16-byte chunk c of
+// row r at chunk position c ^ (r % 8) of its line, panels rows * 128
+// bytes apart, every panel 1024-byte aligned. That is the canonical
+// 128-byte-swizzle layout of wgmma for both operand majors:
+//   K-major (the reduction runs along a row, e.g. Q and K in S = Q K^T):
+//     8-row groups 1024 bytes apart (SBO), a 16-wide k step 32 bytes
+//     further in the line, the next 64 columns one panel further;
+//   MN-major (the reduction runs down the rows, e.g. V in O += P V, the
+//     transpose bit set): 8-row groups 1024 bytes apart (SBO), a 16-row k
+//     step 2048 bytes further, the next 64 output columns one panel
+//     further (LBO).
+// So one tile in shared memory feeds a product as either operand.
+//
+// Register fragments. The fp32 accumulator of an m64nN product gives
+// thread t of the warpgroup (warp w = t / 32, lane l) rows 16w + l / 4 and
+// that + 8, columns 8j + 2(l % 4) + {0, 1} for j < N / 8: d[4j + 0..1] on
+// the first row, d[4j + 2..3] on the second. Packed to bf16 pairs, the
+// accumulator of columns 16kk..16kk+15 (d[8kk .. 8kk + 7]) is exactly the
+// register A operand of the k step kk, so a product's result feeds the
+// next product without passing through shared memory.
+#pragma once
+
+#include "common.cuh"
+
+namespace ptt {
+namespace hopper {
+
+constexpr int kWarpgroup = 128;  // threads of one warpgroup
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; valid = false writes zeros
+// and reads nothing (src must still be a mapped address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously; valid = false writes zero
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// make this thread's finished shared-memory writes visible to wgmma's
+// (asynchronous-proxy) reads; a barrier then publishes them to the block
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// byte offset of 16-byte chunk c (c < D / 8) of row r in a swizzled
+// [ROWS][D] tile (see the layout above)
+template <int ROWS>
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return (c >> 3) * (ROWS * 128) + r * 128 + ((((c & 7) ^ (r & 7))) << 4);
+}
+
+// Asynchronous load of a [ROWS][D] bf16 tile whose row r starts at
+// src + r * row_stride (elements); rows >= nvalid are zero-filled. Every
+// thread of the warpgroup takes part; consecutive threads read
+// consecutive 16-byte chunks of a row.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          size_t row_stride, int nvalid) {
+  constexpr int kChunks = D / 8;
+  static_assert(ROWS * kChunks % kWarpgroup == 0, "tile not whole");
+#pragma unroll
+  for (int it = 0; it < ROWS * kChunks / kWarpgroup; ++it) {
+    const int i = it * kWarpgroup + threadIdx.x;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = r < nvalid;
+    cp_async16(dst + sw128<ROWS>(r, c),
+               src + (ok ? r : 0) * row_stride + c * 8, ok);
+  }
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand starting
+// at shared address addr (byte offsets: lbo, sbo)
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
+         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+// K-major operand: k step kk (16 columns) of a swizzled [ROWS][D] tile
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  return desc_sw128(tile + (kk >> 2) * (ROWS * 128) + (kk & 3) * 32, 16,
+                    1024);
+}
+
+// MN-major operand: k step kk (16 rows) of a swizzled [ROWS][D] tile
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
+  return desc_sw128(tile + kk * 2048, ROWS * 128, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous products that own it
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The accumulator d of an m64nN product (N = 16 * KS) as KS register A
+// operands of k steps of 16, rounded to bf16
+template <int KS>
+__device__ __forceinline__ void to_operand_a(const float (&d)[8 * KS],
+                                             uint32_t (&a)[KS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64]: A and B in shared memory, both
+// K-major
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64]: A in registers, B in shared
+// memory MN-major
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] B[16 x 128]: A in registers, B in shared
+// memory MN-major
+__device__ __forceinline__ void mma_rs_n128(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B over the D / 64 panels' width: d[64 x D], A in registers, B a
+// swizzled MN-major tile
+template <int D>
+__device__ __forceinline__ void mma_rs(float (&d)[D / 2],
+                                       const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void mma_rs<64>(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  mma_rs_n64(d, a, db);
+}
+template <>
+__device__ __forceinline__ void mma_rs<128>(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  mma_rs_n128(d, a, db);
+}
+
+}  // namespace hopper
+}  // namespace ptt

@@ -8,7 +8,10 @@ of the reference's ``custom_vjp``). On CUDA tensors its forward launches
 ``csrc/flash_fwd.cu`` (K2), which also writes the log-sum-exp, and its
 backward launches the two kernels of ``csrc/flash_bwd.cu`` (K5a dq, K5b
 dk/dv) from the saved O and LSE; a CUDA tensor the kernels cannot take
-raises. On CPU tensors the same ``Function`` runs
+raises. :func:`kernel_route` names the kernel K2 and K5b run for a dtype
+and head dim: bf16 runs on the tensor cores (``wgmma``, see
+``csrc/hopper_mma.cuh``), float32 on fp32 FMAs (exact to 1e-4). K5a runs
+fp32 FMAs for both. On CPU tensors the same ``Function`` runs
 :func:`flash_attention_fwd_plain` and :func:`flash_attention_bwd_plain`.
 ``kv_lens`` gets no gradient. Launch counters:
 ``flash_attention.launches`` (K2), ``flash_bwd_dq.launches`` (K5a),
@@ -27,6 +30,8 @@ import torch
 from paddle_tpu_torch.ops.cuda import _build
 
 HEAD_DIMS = (64, 128)
+# the kernel K2 and K5b launch for each input dtype
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fma"}
 
 # most-negative bf16-representable, as in ops/attention.py
 _NEG_INF = -2.3819763e38
@@ -136,13 +141,26 @@ def _lib(name):
     return lib
 
 
-def _check_cuda(q, k, v, what):
-    """What the CUDA kernels take: head dims 64/128, matching K/V of q's
-    batch and width, one dtype."""
-    b, d = q.shape[0], q.shape[3]
-    if d not in HEAD_DIMS:
+def kernel_route(dtype, head_dim):
+    """The kernel K2 and K5b launch for inputs of ``dtype`` at
+    ``head_dim``: "wgmma" (bf16: products on the Hopper tensor cores, bf16
+    operands, fp32 accumulators) or "fma" (float32: fp32 FMAs on the CUDA
+    cores). Raises NotImplementedError for another head dim and TypeError
+    for another dtype."""
+    if head_dim not in HEAD_DIMS:
         raise NotImplementedError(
-            f"flash kernel head_dim {d}: built for {HEAD_DIMS}")
+            f"flash kernel head_dim {head_dim}: built for {HEAD_DIMS}")
+    if dtype not in ROUTES:
+        raise TypeError(f"flash kernel dtype {dtype}: built for "
+                        f"{tuple(ROUTES)}")
+    return ROUTES[dtype]
+
+
+def _check_cuda(q, k, v, what):
+    """What the CUDA kernels take: a route for q's dtype and head dim,
+    matching K/V of q's batch and width, one dtype."""
+    b, d = q.shape[0], q.shape[3]
+    kernel_route(q.dtype, d)
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"{what}: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
@@ -150,6 +168,13 @@ def _check_cuda(q, k, v, what):
         raise TypeError(f"{what}: dtypes {q.dtype}, {k.dtype}, "
                         f"{v.dtype} differ")
     return _build.dtype_code(q, what)
+
+
+def _dense(t):
+    """``t`` contiguous and 16-byte aligned, as the tensor-core kernels'
+    16-byte copies read it (a contiguous view may start mid-allocation)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _lens(kv_lens, q):
@@ -169,7 +194,7 @@ def flash_fwd_cuda(q, k, v, causal, scale, window, lens):
     b, s, h, d = q.shape
     sk, h_kv = k.shape[1], k.shape[2]
     code = _check_cuda(q, k, v, "flash_attention")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _dense(q), _dense(k), _dense(v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     lib = _lib("flash_fwd")
@@ -191,7 +216,7 @@ def flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, window, lens):
     if do.dtype != q.dtype:
         raise TypeError(f"flash_attention backward: dO {do.dtype} != "
                         f"q {q.dtype}")
-    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    q, k, v, do = (_dense(t) for t in (q, k, v, do))
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     args = (code, q, k, v, do, lse.contiguous(), delta, causal, scale,
             window, lens)

@@ -230,6 +230,76 @@ def test_flash_backward_kernels_match_plain(dtype, tol, case):
         assert float(err.max()) <= tol
 
 
+# the tensor-core kernels' tile edges (64-row q and k tiles, 64-key
+# steps): b, S, Sk, H, Hkv, causal, window, kv_lens
+EDGE_CASES = {
+    "ragged_gqa32_8": (2, 77, 77, 32, 8, True, None, None),
+    "ragged_kv_lens": (2, 150, 150, 8, 2, True, None, (150, 71)),
+    "full_ragged": (2, 130, 130, 8, 8, False, None, (130, 65)),
+    "s1_dead_row": (2, 1, 70, 4, 4, True, None, (70, 0)),
+    "s5_kv_lens": (3, 5, 70, 8, 1, True, None, (70, 33, 3)),
+    "window5_gqa8_1": (2, 200, 200, 8, 1, True, 5, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", EDGE_CASES.keys())
+def test_flash_kernels_match_plain_at_tile_edges(dtype, tol, d, case):
+    """K2 (O and LSE) and K5a/K5b (dq, dk, dv) against their plain
+    versions on their route (bf16: tensor cores, fp32: FMAs) at S and Sk
+    off the 64-row tiles, one and five query rows end-aligned to 70 keys
+    with kv_lens, a row with no live key (O and LSE exactly 0), a window
+    smaller than one key tile, GQA 32/8 and 8/1. Rows without a live key,
+    and padded rows, get a zero cotangent, as callers give them. Neither
+    kernel uses atomics: two runs give identical bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    dev = torch.device("cuda")
+    b, s, sk, h, hkv, causal, window, lens = EDGE_CASES[case]
+    assert TF.kernel_route(dtype, d) == (
+        "wgmma" if dtype == torch.bfloat16 else "fma")
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def close(a, b):
+        assert a.dtype == b.dtype
+        err = (a.float() - b.float()).abs() / (1 + b.float().abs())
+        assert float(err.max()) <= tol
+
+    q, do = rnd(b, s, h, d), rnd(b, s, h, d)
+    k, v = rnd(b, sk, hkv, d), rnd(b, sk, hkv, d)
+    kl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=dev)
+    args = (causal, d ** -0.5, window, kl)
+    runs = [TF.flash_fwd_cuda(q, k, v, *args) for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    o, lse = runs[0]
+    ref_o, ref_lse = TF.flash_attention_fwd_plain(q, k, v, *args)
+    _, keep = TF._masked_scores(q, k, causal, 1.0, window, kl)
+    live = keep.any(-1)[:, 0].expand(b, s)                  # [B, S]
+    close(o[live], ref_o[live])
+    close(lse.transpose(1, 2)[live], ref_lse.transpose(1, 2)[live])
+    assert not o[~live].any() and not lse.transpose(1, 2)[~live].any()
+    if kl is not None and s == sk:
+        live = live & (torch.arange(s, device=dev)[None, :] < kl[:, None])
+    do = do * live[:, :, None, None]
+    n0 = (TF.flash_bwd_dq.launches, TF.flash_bwd_dkv.launches)
+    runs = [TF.flash_bwd_cuda(q, k, v, o, lse, do, *args) for _ in range(2)]
+    assert (TF.flash_bwd_dq.launches, TF.flash_bwd_dkv.launches) == (
+        n0[0] + 2, n0[1] + 2)
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    for got, ref in zip(runs[0],
+                        TF.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                     *args)):
+        close(got, ref)
+
+
 @pytest.mark.cuda
 def test_train_step_on_card_matches_cpu_and_launches_its_kernels():
     """Three AdamW steps of a 2-layer model at head_dim 128 in float32:

@@ -56,23 +56,55 @@ def test_rms_norm_bf16_rounds_like_pallas():
 
 
 # ------------------------------------------------------------------ K2
-@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2)], ids=["mha", "gqa"])
-def test_flash_forward_matches_pallas(h, hkv):
+def _live_rows(s, sk, lens):
+    """[B|1, S] bool: the query rows the comparison holds under causal.
+    With kv_lens and s == sk the valid rows (padded rows are unspecified in
+    the reference); with s < sk the rows with a live key, positions
+    end-aligned to each row's valid length (the reference's _q_offset
+    rule; the others are 0 in the kernels)."""
+    if lens is None:
+        return np.ones((1, s), bool)
+    lens = np.asarray(lens)[:, None]
+    if s == sk:
+        return np.arange(s)[None, :] < lens
+    return (lens - s + np.arange(s)[None, :] >= 0) & (lens > 0)
+
+
+# the edge shapes of the tensor-core kernels' tiles: ragged S, one and
+# five query rows end-aligned to 70 keys with kv_lens (some rows of the
+# second batch row have no live key), a window smaller than a key tile
+FWD_CASES = {"mha": (4, 4, 40, 40, (40, 23), None),
+             "gqa": (4, 2, 40, 40, (40, 23), None),
+             "ragged": (4, 2, 37, 37, None, None),
+             "s1_kv_lens": (4, 2, 1, 70, (70, 9), None),
+             "s5_kv_lens": (4, 4, 5, 70, (70, 3), None),
+             "window3_gqa4": (4, 1, 37, 37, None, 3)}
+
+
+@pytest.mark.parametrize("h,hkv,s,sk,kv_lens,window", FWD_CASES.values(),
+                         ids=FWD_CASES.keys())
+def test_flash_forward_matches_pallas(h, hkv, s, sk, kv_lens, window):
     rs = np.random.RandomState(2)
-    b, s, d = 2, 40, 16
+    b, d = 2, 16
     q = rs.randn(b, s, h, d).astype(np.float32)
-    k = rs.randn(b, s, hkv, d).astype(np.float32)
-    v = rs.randn(b, s, hkv, d).astype(np.float32)
-    kv_lens = np.array([40, 23], np.int32)
+    k = rs.randn(b, sk, hkv, d).astype(np.float32)
+    v = rs.randn(b, sk, hkv, d).astype(np.float32)
+    if kv_lens is not None:
+        kv_lens = np.array(kv_lens, np.int32)
+    jl = None if kv_lens is None else jnp.asarray(kv_lens)
+    tl = None if kv_lens is None else _t(kv_lens)
     want = JF.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                              causal=True, kv_lens=jnp.asarray(kv_lens),
+                              causal=True, window=window, kv_lens=jl,
                               interpret=True)
-    got = TF.flash_attention(_t(q), _t(k), _t(v), causal=True,
-                             kv_lens=_t(kv_lens))
-    # padded query rows are unspecified in the reference: valid rows only
-    for i, n in enumerate(kv_lens):
-        np.testing.assert_allclose(to_np(got)[i, :n], to_np(want)[i, :n],
-                                   **TOL)
+    got = TF.flash_attention(_t(q), _t(k), _t(v), causal=True, window=window,
+                             kv_lens=tl)
+    # padded query rows are unspecified in the reference: live rows only
+    live = np.broadcast_to(_live_rows(s, sk, kv_lens), (b, s))
+    np.testing.assert_allclose(to_np(got)[live], to_np(want)[live], **TOL)
+    if s < sk:     # the LSE the backward reads: 0 on rows with no live key
+        _, lse = TF.flash_attention_fwd_plain(_t(q), _t(k), _t(v),
+                                              causal=True, kv_lens=tl)
+        assert not to_np(lse).transpose(0, 2, 1)[~live].any()
 
 
 def test_flash_forward_window_matches_pallas():
@@ -155,27 +187,34 @@ def test_flash_forward_lse_matches_logsumexp():
     np.testing.assert_allclose(to_np(lse), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("causal,window,lens", [
-    (True, None, None), (False, None, None), (True, 6, None),
-    (True, None, (40, 23)), (False, None, (40, 17))],
-    ids=["causal", "full", "window", "causal_kv_lens", "full_kv_lens"])
-@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2)], ids=["mha", "gqa"])
-def test_flash_backward_matches_pallas(h, hkv, causal, window, lens):
+@pytest.mark.parametrize("causal,window,lens,s,sk", [
+    (True, None, None, 40, 40), (False, None, None, 40, 40),
+    (True, 6, None, 40, 40), (True, None, (40, 23), 40, 40),
+    (False, None, (40, 17), 40, 40), (True, None, None, 37, 37),
+    (True, None, (70, 9), 1, 70), (True, None, (70, 3), 5, 70),
+    (True, 3, None, 37, 37)],
+    ids=["causal", "full", "window", "causal_kv_lens", "full_kv_lens",
+         "ragged", "s1_kv_lens", "s5_kv_lens", "window3"])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2), (4, 1)],
+                         ids=["mha", "gqa", "gqa4"])
+def test_flash_backward_matches_pallas(h, hkv, causal, window, lens, s, sk):
     """flash_attention's backward on CPU tensors (flash_attention_bwd_plain
     from the saved O and LSE) against jax.grad through the Pallas kernels
-    in interpret mode. With kv_lens the padded query rows get a zero
+    in interpret mode. With kv_lens the padded query rows, and the rows
+    with no live key (S < Sk end-aligned past a short kv_lens), get a zero
     cotangent, as the reference's callers give them (its
-    test_flash_varlen_kv_lens_matches_masked_xla)."""
+    test_flash_varlen_kv_lens_matches_masked_xla): the reference leaves
+    their outputs unspecified."""
     rs = np.random.RandomState(10)
-    b, s, d = 2, 40, 16
+    b, d = 2, 16
     q = rs.randn(b, s, h, d).astype(np.float32)
-    k = rs.randn(b, s, hkv, d).astype(np.float32)
-    v = rs.randn(b, s, hkv, d).astype(np.float32)
+    k = rs.randn(b, sk, hkv, d).astype(np.float32)
+    v = rs.randn(b, sk, hkv, d).astype(np.float32)
     g = rs.randn(b, s, h, d).astype(np.float32)
     kw = dict(causal=causal, window=window)
     if lens is not None:
         lens = np.asarray(lens, np.int32)
-        g = g * (np.arange(s)[None, :] < lens[:, None])[:, :, None, None]
+        g = g * _live_rows(s, sk, lens)[:, :, None, None]
     want = jax.grad(lambda q, k, v: jnp.sum(JF.flash_attention(
         q, k, v, kv_lens=None if lens is None else jnp.asarray(lens),
         block_q=8, block_k=8, interpret=True, **kw) * jnp.asarray(g)),
@@ -238,6 +277,18 @@ def test_paged_decode_matches_pallas(h, hkv, window):
     got = TPA.paged_decode_attention(*(_t(a) for a in (q, kp, vp, tables,
                                                        lens)), window=window)
     np.testing.assert_allclose(to_np(got), to_np(want), **TOL)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_kernel_route_by_dtype_and_head_dim(d):
+    """K2 and K5b run bf16 on the tensor cores and float32 on fp32 FMAs;
+    another head dim or dtype has no kernel and raises."""
+    assert TF.kernel_route(torch.bfloat16, d) == "wgmma"
+    assert TF.kernel_route(torch.float32, d) == "fma"
+    with pytest.raises(NotImplementedError, match="head_dim 96"):
+        TF.kernel_route(torch.bfloat16, 96)
+    with pytest.raises(TypeError):
+        TF.kernel_route(torch.float16, d)
 
 
 def test_paged_kernels_refuse_unported_modes():
