@@ -24,6 +24,9 @@ Phases (each one fails the run when it fails; nothing is caught):
             tolerance (timed eager and replayed from a CUDA graph); K2 at
             the banded timing script's shape (4 heads, S 4096, window 1024
             and full causal); K1, K2 and K4 at Mistral-7B's window shapes;
+            the int8-pool modes of K4 (serve and Mistral window shapes) and
+            K3 (serve chunk shape) on int8 pools with fp32 scales, bf16 and
+            float32 q, the same codes on both sides;
             times of the kernel, the plain version and, where one PyTorch
             call computes the same function, that call (``library_ms``),
             with CUDA events; the bound max(bytes / 3.35 TB/s, flops / 989
@@ -83,6 +86,25 @@ Phases (each one fails the run when it fails; nothing is caught):
   window_check  the 4600-token row's prefill (K2 windowed) and one decode
             step (K4 windowed) under the check's rule: kernels vs plain vs
             float32, limit CHECK_REL
+  quant_serve  the serve phase's Llama-2-7B quantized in place by
+            ``quantize_for_serving(model, "weight_only_int8")`` and served
+            by ``LLMEngine(kv_dtype="int8")`` with the serve phase's
+            geometry and request mix: every request must finish,
+            ``assert_quiescent()`` must pass, K1, K2, K7 and the int8 modes
+            of K3 and K4 (``paged_chunk_i8``, ``paged_decode_i8``) must have
+            been launched and the bf16 K3/K4 not at all; tokens/s, TTFT,
+            KV bytes per token, weight bytes and peak memory beside the
+            serve phase's
+  quant_check  the check's three logit blocks over an int8 KV pool, with
+            the bf16 weights (before the quantization) and with the int8
+            weights (after it), each through the kernels and through the
+            plain versions, under the check's rule (limit CHECK_REL)
+            against a float32 run of the weights served: the unquantized
+            model's, then the dequantized int8 weights'. With the int8
+            weights the kernel path is also held to the unquantized
+            float32 logits, limit QUANT_WEIGHT_REL (a quantizer fault that
+            the dequantized reference shares shows there); the logit MSE
+            and the greedy match against the bf16 model are reported
   anatomy   (only when asked for: --phases build,anatomy or
             build,train,anatomy) 16 steady decode ticks and, with
             ``train``, 2 train steps: wall time of three plain runs, then
@@ -91,14 +113,17 @@ Phases (each one fails the run when it fails; nothing is caught):
             the host time under cProfile
   moe_anatomy  (only when asked for) the same for the MoE model's decode
             tick (with ``moe_serve``) and train step (with ``moe_train``)
+  quant_anatomy  (only when asked for) the same for the quantized model's
+            decode tick over an int8 pool (after ``quant_serve``'s
+            quantization)
 
 ``--root DIR`` imports the package from another checkout (an earlier
 commit unpacked with ``git archive``), so that two trees can be compared
 under the same measurement in one call: parent, change, change, parent.
 
 The line before the last is a JSON object with one entry per kernel and
-path (``"path": "serve"``, ``"train"``, ``"moe_serve"``, ``"moe_train"``
-or ``"window_serve"``): its launches are counted in that
+path (``"path": "serve"``, ``"train"``, ``"moe_serve"``, ``"moe_train"``,
+``"window_serve"`` or ``"quant_serve"``): its launches are counted in that
 path's own run, with every count set to 0 just before it, and its times are
 taken at the shapes that path gives the kernel. The last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero,
@@ -121,6 +146,10 @@ PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12     # H100 SXM fp32 rate outside the tensor cores
 TOL = {"bf16": 2e-2, "f32": 1e-4}
 CHECK_REL = 0.15            # whole-path check: RMS(bf16 - fp32) / RMS(fp32)
+# int8 weights against the unquantized fp32 model: sound runs read
+# 0.18-0.20 of the RMS, a planted quantizer fault 0.27 or more (truncating
+# codes), which the dequantized reference shares (PERF.md §6)
+QUANT_WEIGHT_REL = 0.23
 SOURCES = {
     "rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
                  "paddle_tpu/ops/pallas/norms.py:16"),
@@ -130,6 +159,10 @@ SOURCES = {
                     "paddle_tpu/ops/pallas/paged_attention.py:373"),
     "paged_decode": ("paddle_tpu_torch/csrc/paged_decode.cu",
                      "paddle_tpu/ops/pallas/paged_attention.py:90"),
+    "paged_chunk_i8": ("paddle_tpu_torch/csrc/paged_chunk.cu",
+                       "paddle_tpu/ops/pallas/paged_attention.py:373"),
+    "paged_decode_i8": ("paddle_tpu_torch/csrc/paged_decode.cu",
+                        "paddle_tpu/ops/pallas/paged_attention.py:90"),
     "flash_bwd_dq": ("paddle_tpu_torch/csrc/flash_bwd.cu",
                      "paddle_tpu/ops/pallas/flash_attention.py:271"),
     "flash_bwd_dkv": ("paddle_tpu_torch/csrc/flash_bwd.cu",
@@ -143,7 +176,8 @@ SOURCES = {
 }
 # the kernels each path launches (every one must rise in that path's run):
 # ops.cuda's SERVE_KERNELS / TRAIN_KERNELS / MOE_SERVE_KERNELS /
-# MOE_TRAIN_KERNELS / WINDOW_SERVE_KERNELS, spelled out here so that --root
+# MOE_TRAIN_KERNELS / WINDOW_SERVE_KERNELS / QUANT_SERVE_KERNELS, spelled
+# out here so that --root
 # can load an earlier tree that lacks them (a kernel that such a tree does
 # not have is then left out of its checks)
 PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
@@ -154,7 +188,9 @@ PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
                        "rope", "grouped_fwd"),
          "moe_train": ("rms_norm", "flash_fwd", "flash_bwd_dq",
                        "flash_bwd_dkv", "rope", "grouped_fwd", "grouped_dw"),
-         "window_serve": ("rms_norm", "flash_fwd", "paged_decode", "rope")}
+         "window_serve": ("rms_norm", "flash_fwd", "paged_decode", "rope"),
+         "quant_serve": ("rms_norm", "flash_fwd", "paged_chunk_i8",
+                         "paged_decode_i8", "rope")}
 # kernels of PATHS that the imported tree does not have (only with --root)
 ABSENT: set = set()
 # the train check: share of the fp32 gradients' RMS that each bf16 path
@@ -465,6 +501,13 @@ def phase_kernels(torch, dev):
                "moe_train": moe_train, "window_serve": window}
     for path, r in k7_entries.items():
         results[path]["rope"] = r
+    # quantized serving: the int8 modes of K3/K4; K1, K2 and K7 run there
+    # at the serve path's shapes
+    if "paged_decode_i8" not in ABSENT:
+        results["quant_serve"] = {
+            **{k: results["serve"][k] for k in ("rms_norm", "flash_fwd",
+                                                "rope")},
+            **int8_kernel_entries(torch, dev)}
     torch.cuda.synchronize()
     for path, rs in results.items():
         for name, r in rs.items():
@@ -1110,6 +1153,103 @@ def window_kernel_entries(torch, dev):
     return out
 
 
+def _quantize_pool(torch, f):
+    """int8 codes and fp32 per-(position, head) absmax / 127 scales of a
+    pool [N, bs, Hkv, D]: what the serving path's quantize-on-write
+    stores."""
+    f = f.float()
+    scale = torch.clamp(f.abs().amax(-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(f / scale[..., None]), -127, 127)
+    return q.to(torch.int8).contiguous(), scale.contiguous()
+
+
+def _int8_case(torch, label, kernel, plain, q, args, kw, live, nbytes, flops,
+               shape, plain_iters=50):
+    """One int8-pool kernel against its plain version on the same codes
+    and scales, with q in float32 (tolerance 1e-4) and in bf16 (2e-2);
+    the entry's times at bf16 q, the serving path's."""
+    for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        qq = q.to(dt)
+        err = _agree(f"{label} int8", dtype, _max_err(
+            kernel(qq, *args, **kw), plain(qq, *args, **kw), live))
+    b_ms, b_by = bound(nbytes, flops)
+    r = dict(max_abs_err=err, ms=time_ms(lambda: kernel(qq, *args, **kw)),
+             plain_ms=time_ms(lambda: plain(qq, *args, **kw),
+                              iters=plain_iters),
+             library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=shape)
+    log(f"[kernels] {label} int8 ({shape}): {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+        f"{100 * b_ms / r['ms']:.1f}% of bound")
+    return r
+
+
+def int8_kernel_entries(torch, dev):
+    """The int8-pool modes of K4 and K3 against their plain int8 versions:
+    K4 at the serve shape (8 rows, pool [256, 16, 32, 128], GQA 32/32)
+    and at Mistral-7B's windowed decode (4 rows over 4096 keys, GQA 32/8,
+    window 4096), K3 at the serve chunk shape. The pools are the serve
+    cases' K/V quantized as the serving path stores them; the bound
+    counts 1-byte codes plus a 4-byte scale per (position, KV head).
+    Returns the quant_serve path's {kernel: entry}."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as PA
+    c = kernel_cases(torch, dev)
+    kq, ks = _quantize_pool(torch, c["paged_chunk"]["kp"])
+    vq, vs = _quantize_pool(torch, c["paged_chunk"]["vp"])
+    sc = dict(k_scale=ks, v_scale=vs)
+    out = {}
+    # K4, serve shape
+    q, tb, lens = (c["paged_decode"][k] for k in ("q", "tables", "lens"))
+    b, nh, d = q.shape
+    keys = int(lens.sum())
+    out["paged_decode_i8"] = _int8_case(
+        torch, "paged_decode", PA.paged_decode_attention,
+        PA.paged_decode_attention_plain, q, (kq, vq, tb, lens), sc, None,
+        2 * b * nh * d * 2 + 2 * keys * nh * (d + 4) + tb.numel() * 4,
+        4 * d * nh * keys,
+        f"q [{b}, {nh}, {d}] bf16, int8 pool {list(kq.shape)} + fp32 "
+        f"scales, lens sum {keys}")
+    # K3, serve chunk shape
+    q = c["paged_chunk"]["q"]
+    offs, cls = c["paged_chunk"]["offsets"], c["paged_chunk"]["chunk_lens"]
+    a, cc, nh, d = q.shape
+    live = torch.arange(cc, device=dev)[None, :] < cls[:, None]
+    keys = sum(int(offs[i]) * int(cls[i]) + int(cls[i]) * (int(cls[i]) + 1)
+               // 2 for i in range(a))
+    out["paged_chunk_i8"] = _int8_case(
+        torch, "paged_chunk", PA.paged_chunk_attention,
+        PA.paged_chunk_attention_plain, q, (kq, vq, tb, offs, cls), sc, live,
+        2 * int(cls.sum()) * nh * d * 2
+        + 2 * int((offs + cls).sum()) * nh * (d + 4) + tb.numel() * 4,
+        4 * d * nh * keys,
+        f"q [{a}, {cc}, {nh}, {d}] bf16, int8 pool {list(kq.shape)} + fp32 "
+        f"scales, MB {tb.shape[1]}")
+    del kq, vq, ks, vs, c
+    # K4, Mistral-7B's windowed decode (not a path: window_serve is bf16)
+    g = torch.Generator(device=dev).manual_seed(44)
+    window, d, mb = 4096, 128, -(-WIN_SEQ // WIN_BS)
+    kq, ks = _quantize_pool(torch, torch.randn(
+        WIN_BLOCKS, WIN_BS, 8, d, generator=g, device=dev))
+    vq, vs = _quantize_pool(torch, torch.randn(
+        WIN_BLOCKS, WIN_BS, 8, d, generator=g, device=dev))
+    tables = torch.randperm(WIN_BLOCKS, generator=g, device=dev)[
+        :4 * mb].reshape(4, mb).to(torch.int32)
+    lens = torch.tensor(WIN_LONG, dtype=torch.int32, device=dev) + WIN_NEW
+    keys = int(torch.clamp(lens, max=window).sum())
+    _int8_case(
+        torch, "paged_decode (mistral windowed decode)",
+        PA.paged_decode_attention, PA.paged_decode_attention_plain,
+        torch.randn(4, 32, d, generator=g, device=dev),
+        (kq, vq, tables, lens), dict(k_scale=ks, v_scale=vs, window=window),
+        None, 2 * 4 * 32 * d * 2 + 2 * keys * 8 * (d + 4)
+        + tables.numel() * 4, 4 * d * 32 * keys,
+        f"q [4, 32, {d}] bf16, int8 pool [{WIN_BLOCKS}, {WIN_BS}, 8, {d}] "
+        f"+ fp32 scales, lens {lens.tolist()}, window {window}",
+        plain_iters=10)
+    del kq, vq, ks, vs
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------ serve
 def serve_requests(rs, vocab=32000):
     """The 12-request mix: 6 short prompts (whole-prompt prefill), 2 long
@@ -1133,15 +1273,19 @@ def build_model(dev):
     return LlamaForCausalLM(LlamaConfig.llama2_7b(), device=dev, seed=0)
 
 
-def phase_serve(torch, dev, model, np, path="serve"):
-    """Serve the 12-request mix with ``model`` through ``LLMEngine``; every
-    kernel of ``PATHS[path]`` must be launched. Returns (launch counts,
-    the requests)."""
+def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None):
+    """Serve the 12-request mix with ``model`` through ``LLMEngine`` (an
+    int8 KV pool with ``kv_dtype="int8"``); every kernel of
+    ``PATHS[path]`` must be launched. Returns (launch counts, the
+    requests, {metric: value})."""
     from paddle_tpu_torch.ops import cuda as K
     from paddle_tpu_torch.serving import LLMEngine, Request
+    from paddle_tpu_torch.serving.kv import cache_block_bytes
     vocab = model.cfg.vocab_size
     kw = dict(num_slots=8, block_size=16, max_prompt_len=128,
               max_seq_len=512, num_blocks=256, seed=0, device=dev)
+    if kv_dtype is not None:
+        kw["kv_dtype"] = kv_dtype
     # warm-up (library handles, allocator, kernel loads) on a throwaway
     # engine: one whole-prompt and one chunked request
     warm = LLMEngine(model, **kw)
@@ -1177,16 +1321,42 @@ def phase_serve(torch, dev, model, np, path="serve"):
         raise AssertionError("no radix prefix hit in the serving mix")
     ntok = sum(len(r.tokens) for r in reqs)
     ttft = [r._first_tok_t - r._submit_t for r in reqs]
-    peak = torch.cuda.max_memory_allocated()
+    stats = dict(
+        tokens_s=ntok / wall, ttft_mean_ms=1e3 * sum(ttft) / len(ttft),
+        ttft_max_ms=1e3 * max(ttft),
+        kv_bytes_token=cache_block_bytes(eng.cache) / eng.block_size,
+        weight_bytes=sum(t.numel() * t.element_size()
+                         for t in (*model.parameters(), *model.buffers())),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     card = card_line()
     log(f"[{path}] {len(reqs)} requests, {ntok} tokens in {wall:.3f} s: "
-        f"{ntok / wall:.1f} tokens/s, {eng.stats['ticks']} decode ticks "
-        f"({card})")
-    log(f"[{path}] mean TTFT {1e3 * sum(ttft) / len(ttft):.1f} ms, "
-        f"max {1e3 * max(ttft):.1f} ms ({card})")
-    log(f"[{path}] peak allocated {peak / 2**30:.2f} GiB ({card}); "
-        f"prefix token hits {hits}; launches {counts}")
-    return counts, reqs
+        f"{stats['tokens_s']:.1f} tokens/s, {eng.stats['ticks']} decode "
+        f"ticks ({card})")
+    log(f"[{path}] mean TTFT {stats['ttft_mean_ms']:.1f} ms, "
+        f"max {stats['ttft_max_ms']:.1f} ms ({card})")
+    log(f"[{path}] peak allocated {stats['peak_gib']:.2f} GiB ({card}); "
+        f"KV {stats['kv_bytes_token']:.0f} bytes/token, weights "
+        f"{stats['weight_bytes'] / 2**30:.2f} GiB; prefix token hits "
+        f"{hits}; launches {counts}")
+    return counts, reqs, stats
+
+
+def phase_quant_serve(torch, dev, model, np, serve_stats):
+    """The serve mix over an int8 KV pool with ``model`` (already
+    weight-only quantized): the int8 modes of K3/K4 must run and the bf16
+    ones not at all. Prints its metrics beside the serve phase's."""
+    counts, _, stats = phase_serve(torch, dev, model, np, "quant_serve",
+                                   kv_dtype="int8")
+    bf16 = {k: counts[k] for k in ("paged_chunk", "paged_decode")}
+    if any(bf16.values()):
+        raise AssertionError(f"quant_serve launched the bf16 paged kernels: "
+                             f"{bf16}")
+    for key, unit in (("tokens_s", "tokens/s"), ("ttft_mean_ms", "ms"),
+                      ("ttft_max_ms", "ms"), ("kv_bytes_token", "bytes"),
+                      ("weight_bytes", "bytes"), ("peak_gib", "GiB")):
+        log(f"[quant_serve] {key}: {stats[key]:.4f} {unit} (int8 weights, "
+            f"int8 KV) vs {serve_stats[key]:.4f} {unit} (serve: bf16)")
+    return counts
 
 
 # ------------------------------------------------------------------ check
@@ -1212,10 +1382,10 @@ class plain_kernels:
             return FA.flash_attention_plain(q, k, v, causal, scale, window,
                                             kv_lens)
         FA.flash_attention = fa
-        PA.paged_chunk_attention = lambda *a, k_scale=None, v_scale=None, \
-            partials=False, **kw: PA.paged_chunk_attention_plain(*a, **kw)
-        PA.paged_decode_attention = lambda *a, k_scale=None, v_scale=None, \
-            partials=False, **kw: PA.paged_decode_attention_plain(*a, **kw)
+        PA.paged_chunk_attention = lambda *a, partials=False, **kw: \
+            PA.paged_chunk_attention_plain(*a, **kw)
+        PA.paged_decode_attention = lambda *a, partials=False, **kw: \
+            PA.paged_decode_attention_plain(*a, **kw)
         if "rope" not in ABSENT:
             from paddle_tpu_torch.ops.cuda import rope
             self.saved.append((rope, "fused_rope", rope.fused_rope))
@@ -1227,11 +1397,12 @@ class plain_kernels:
             setattr(mod, name, fn)
 
 
-def _path_logits(torch, model, prompts, long_prompt, toks):
+def _path_logits(torch, model, prompts, long_prompt, toks, kv_dtype=None):
     """Prefill (flash) of ``prompts``, the chunked prefill (paged chunk)
     of ``long_prompt`` in 128-token chunks, then one decode step (paged
     decode) feeding every row its served first token ``toks``: the three
-    logit blocks of the serving path."""
+    logit blocks of the serving path (over an int8 KV pool with
+    ``kv_dtype="int8"``)."""
     import numpy as np
     from paddle_tpu_torch.models import paged as P
     cfg, dev = model.cfg, model.device
@@ -1239,7 +1410,8 @@ def _path_logits(torch, model, prompts, long_prompt, toks):
     cache = P.PagedKVCache.init(cfg.num_hidden_layers, nb, bs,
                                 cfg.num_key_value_heads,
                                 cfg.hidden_size // cfg.num_attention_heads,
-                                len(prompts) + 1, mb, cfg.dtype, device=dev)
+                                len(prompts) + 1, mb, cfg.dtype,
+                                kv_dtype=kv_dtype, device=dev)
     b = len(prompts)
     ids = np.zeros((b, 128), np.int64)
     lens = np.array([len(p) for p in prompts], np.int32)
@@ -1271,12 +1443,18 @@ def _path_logits(torch, model, prompts, long_prompt, toks):
 
 
 def fp32_copy(torch, model):
-    """The same weights in float32 (the check's reference model)."""
+    """The same weights in float32 (the check's reference model); a
+    weight-only quantized projection gives its dequantized weight, the
+    function the quantized model serves."""
     cfg = dataclasses.replace(model.cfg, dtype=torch.float32)
     m32 = type(model)(cfg, device=model.device)
     with torch.no_grad():
-        for p32, p in zip(m32.parameters(), model.parameters()):
-            p32.copy_(p)
+        for name, p32 in m32.named_parameters():
+            src = model
+            for part in name.split("."):
+                src = getattr(src, part)
+            p32.copy_(src if isinstance(src, torch.Tensor)
+                      else src.dequantize(torch.float32))
     return m32
 
 
@@ -1297,10 +1475,9 @@ def phase_check(torch, model, reqs, label="check", rel=CHECK_REL,
     to an absolute limit: RMS(path - fp32) <= CHECK_REL * RMS(fp32)
     (sound runs read about 6% of the logits' RMS; ``rel`` is the limit).
     ``twice``: the kernel path is run a second time from fresh caches and
-    must give the same bits (no atomics anywhere on the path)."""
-    prompts = [list(r.prompt) for r in reqs[:6]]
-    long_prompt = list(reqs[6].prompt)
-    toks = [r.tokens[0] for r in reqs[:7]]
+    must give the same bits (no atomics anywhere on the path). Returns
+    (the kernel path's logit blocks, the float32 ones)."""
+    prompts, long_prompt, toks = _check_inputs(reqs)
     with torch.no_grad():
         got = _path_logits(torch, model, prompts, long_prompt, toks)
         if twice:
@@ -1320,6 +1497,59 @@ def phase_check(torch, model, reqs, label="check", rel=CHECK_REL,
             del m32
     torch.cuda.empty_cache()
     _hold_logits(label, ("prefill", "chunk", "decode"), got, ref, ref32, rel)
+    return got, ref32
+
+
+def _check_inputs(reqs):
+    """The check's prompts (the six short ones), its chunked prompt and
+    every row's served first token."""
+    return ([list(r.prompt) for r in reqs[:6]], list(reqs[6].prompt),
+            [r.tokens[0] for r in reqs[:7]])
+
+
+def phase_quant_check(torch, model, reqs, got_bf16, ref32, weights):
+    """The check's three logit blocks over an int8 KV pool, through the
+    kernels (K3/K4's int8 modes) and through the plain versions, held by
+    the check's rule (limit CHECK_REL) against a float32 run of the
+    weights the model serves: with ``weights="bf16"`` the unquantized
+    model's ``ref32``; with "int8" the dequantized int8 weights in
+    float32 (the weights' rounding is the quantization's, not the path's:
+    with random weights it moves the prefill logits ~0.18 of their RMS
+    from ``ref32``, the path's bf16 rounding ~0.06). That reference
+    shares any fault of the quantizer, so with "int8" the kernel path is
+    also held to ``ref32`` at QUANT_WEIGHT_REL of its RMS. Reported: the
+    logit MSE and greedy match against the bf16 model's kernel-path
+    logits ``got_bf16``."""
+    from paddle_tpu_torch.serving.quant import quant_quality
+    prompts, long_prompt, toks = _check_inputs(reqs)
+    with torch.no_grad():
+        got = _path_logits(torch, model, prompts, long_prompt, toks, "int8")
+        with plain_kernels():
+            ref = _path_logits(torch, model, prompts, long_prompt, toks,
+                               "int8")
+            hold = ref32
+            if weights != "bf16":
+                m32 = fp32_copy(torch, model)
+                hold = _path_logits(torch, m32, prompts, long_prompt, toks)
+                del m32
+    torch.cuda.empty_cache()
+    names = ("prefill", "chunk", "decode")
+    label = f"quant_check {weights} weights, int8 KV"
+    far = []
+    for name, q, b, f in zip(names, got, got_bf16, ref32):
+        r = quant_quality(b, q)
+        d = _rms(q - f) / _rms(f)
+        log(f"[{label}] {name}: RMS kernel-unquantized fp32 {d:.4f} of "
+            f"RMS (limit {QUANT_WEIGHT_REL if weights != 'bf16' else '-'})"
+            f"; logit MSE {r['logit_mse']:.6f}, greedy match "
+            f"{r['greedy_match_rate']:.3f} against the bf16 model (report)")
+        if weights != "bf16" and not d <= QUANT_WEIGHT_REL:
+            far.append(f"{name} {d:.4f}")
+    _hold_logits(label, names, got, ref, hold, CHECK_REL)
+    if far:
+        raise AssertionError(
+            f"{label}: kernel path over {QUANT_WEIGHT_REL} of the RMS from "
+            f"the unquantized fp32 logits: {', '.join(far)}")
 
 
 def _hold_logits(label, names, got, ref, ref32, rel):
@@ -1786,13 +2016,16 @@ def _anatomy(torch, label, unit, run, n):
             f"{nc // n:5d}x/{unit}  {os.path.basename(path)}:{line}({fn})")
 
 
-def phase_anatomy(torch, dev, model, np, label="decode tick"):
+def phase_anatomy(torch, dev, model, np, label="decode tick",
+                  kv_dtype=None):
     """Decode-tick anatomy (diagnostics, not in the default phases): 8
     active slots in steady decode, 16 ticks per run (five runs: every
-    slot stays active through them)."""
+    slot stays active through them); ``kv_dtype="int8"`` over an int8
+    pool."""
     from paddle_tpu_torch.serving import LLMEngine, Request
     eng = LLMEngine(model, num_slots=8, block_size=16, max_prompt_len=128,
-                    max_seq_len=512, num_blocks=256, seed=0, device=dev)
+                    max_seq_len=512, num_blocks=256, seed=0, device=dev,
+                    **({} if kv_dtype is None else {"kv_dtype": kv_dtype}))
     rs = np.random.RandomState(2)
     for _ in range(8):
         eng.add_request(Request(rs.randint(3, model.cfg.vocab_size, size=100),
@@ -1809,7 +2042,8 @@ def phase_anatomy(torch, dev, model, np, label="decode tick"):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve,check,train,"
-                    "moe_serve,moe_check,moe_train,window_serve,window_check")
+                    "moe_serve,moe_check,moe_train,window_serve,window_check,"
+                    "quant_serve,quant_check")
     ap.add_argument("--root", help="import paddle_tpu_torch from the "
                     "checkout at ROOT instead of this one: an earlier "
                     "tree's package under this script's measurement")
@@ -1841,17 +2075,38 @@ def main(argv=None):
         phase_build()
     results = phase_kernels(torch, dev) if "kernels" in phases else {}
     counts = {}                # path -> {kernel: launches in its own run}
-    if {"serve", "check", "anatomy"} & set(phases):
+    quant = {"quant_serve", "quant_check", "quant_anatomy"} & set(phases)
+    if {"serve", "check", "anatomy"} & set(phases) or quant:
         tm = time.monotonic()
         model = build_model(dev)
         torch.cuda.synchronize()
         log(f"[serve] llama2_7b width, {model.cfg.num_hidden_layers} layers, "
             f"random weights in {time.monotonic() - tm:.1f} s")
-        counts["serve"], reqs = phase_serve(torch, dev, model, np)
-        if "check" in phases:
-            phase_check(torch, model, reqs)
+        counts["serve"], reqs, serve_stats = phase_serve(torch, dev, model,
+                                                         np)
+        if {"check", "quant_check"} & set(phases):
+            got, ref32 = phase_check(torch, model, reqs)
         if "anatomy" in phases:
             phase_anatomy(torch, dev, model, np)
+        if "quant_check" in phases:
+            phase_quant_check(torch, model, reqs, got, ref32, "bf16")
+        if quant:
+            # the same model, quantized in place (saves building another)
+            from paddle_tpu_torch.serving.quant import quantize_for_serving
+            tm = time.monotonic()
+            quantize_for_serving(model, "weight_only_int8")
+            torch.cuda.synchronize()
+            log(f"[quant_serve] weight_only_int8 in place in "
+                f"{time.monotonic() - tm:.1f} s")
+        if "quant_serve" in phases:
+            counts["quant_serve"] = phase_quant_serve(torch, dev, model, np,
+                                                      serve_stats)
+        if "quant_check" in phases:
+            phase_quant_check(torch, model, reqs, got, ref32, "int8")
+        if "quant_anatomy" in phases:
+            phase_anatomy(torch, dev, model, np,
+                          "quant decode tick (int8 weights, int8 KV)",
+                          kv_dtype="int8")
         del model
         torch.cuda.empty_cache()
     if "train" in phases:
@@ -1859,8 +2114,8 @@ def main(argv=None):
                                       "anatomy" in phases)
     if {"moe_serve", "moe_check", "moe_anatomy"} & set(phases):
         model = build_moe_model(torch, dev, 24, "moe_serve")
-        counts["moe_serve"], moe_reqs = phase_serve(torch, dev, model, np,
-                                                    "moe_serve")
+        counts["moe_serve"], moe_reqs, _ = phase_serve(torch, dev, model, np,
+                                                       "moe_serve")
         per_forward = 2 * model.cfg.num_hidden_layers
         if counts["moe_serve"]["grouped_fwd"] % per_forward:
             raise AssertionError(

@@ -22,16 +22,39 @@
 // the window's lower edge of its first, loading each key's pool row by
 // (table[pos / bs], pos % bs) with neighbouring threads on neighbouring
 // head dims.
+//
+// int8 pools (the reference's `quantized` mode): with k_scale/v_scale
+// [N, bs, Hkv] fp32 the pools hold int8 codes, and the K/V tile fill
+// dequantizes each element on load (code times its row's (position, KV
+// head) scale, the plain version's k.float() * scale) into the same fp32
+// tiles, so the shared tile code (attn_tile.cuh) is untouched.
+#include <type_traits>
+
 #include "attn_tile.cuh"
 
 using namespace ptt;
 
 namespace {
 
-template <int D, typename T>
+// One pool element as fp32: as it is for a pool of q's type, an int8
+// code times the scale of its pool row.
+template <typename KV>
+__device__ __forceinline__ float pool_at(const KV* __restrict__ p,
+                                         const float* __restrict__ scale,
+                                         size_t i, size_t row) {
+  if constexpr (std::is_same<KV, int8_t>::value)
+    return static_cast<float>(p[i]) * scale[row];
+  else
+    return to_f(p[i]);
+}
+
+// KV: the pool's element type, T (no scales) or int8_t (ks/vs per row)
+template <int D, typename T, typename KV>
 __global__ void __launch_bounds__(kWarps * 32)
-    paged_chunk_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                       const T* __restrict__ vp,
+    paged_chunk_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                       const KV* __restrict__ vp,
+                       const float* __restrict__ ks,
+                       const float* __restrict__ vs,
                        const int* __restrict__ tables,
                        const int* __restrict__ offsets,
                        const int* __restrict__ chunk_lens, T* __restrict__ o,
@@ -68,10 +91,10 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int i = threadIdx.x; i < nk * D; i += blockDim.x) {
       const int j = i / D, d = i - j * D, pos = k0 + j;
       const int blk = min(max(trow[min(pos / bs, MB - 1)], 0), N - 1);
-      const size_t src =
-          ((size_t)(blk * bs + pos % bs) * Hkv + kvh) * D + d;
-      k_s[j * (D + 1) + d] = to_f(kp[src]);
-      v_s[j * D + d] = to_f(vp[src]);
+      const size_t row = (size_t)(blk * bs + pos % bs) * Hkv + kvh;
+      const size_t src = row * D + d;
+      k_s[j * (D + 1) + d] = pool_at(kp, ks, src, row);
+      v_s[j * D + d] = pool_at(vp, vs, src, row);
     }
     __syncthreads();
     tile_update<D>(q_s, k_s, v_s, nk, scale, st, [&](int row, int j) {
@@ -96,21 +119,23 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <int D, typename T>
-int launch(const void* q, const void* kp, const void* vp, const void* tables,
-           const void* offsets, const void* chunk_lens, void* o, int A,
-           int C, int H, int Hkv, int N, int bs, int MB, float scale,
-           int window, void* stream) {
+template <int D, typename T, typename KV>
+int launch(const void* q, const void* kp, const void* vp, const void* ks,
+           const void* vs, const void* tables, const void* offsets,
+           const void* chunk_lens, void* o, int A, int C, int H, int Hkv,
+           int N, int bs, int MB, float scale, int window, void* stream) {
   const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t e = cudaFuncSetAttribute(
-      paged_chunk_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      paged_chunk_kernel<D, T, KV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int G = H / Hkv;
   dim3 grid((C * G + kBQ - 1) / kBQ, Hkv, A);
-  paged_chunk_kernel<D, T><<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const int*>(tables),
+  paged_chunk_kernel<D, T, KV><<<grid, kWarps * 32, smem,
+                                 (cudaStream_t)stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(kp),
+      static_cast<const KV*>(vp), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(tables),
       static_cast<const int*>(offsets), static_cast<const int*>(chunk_lens),
       static_cast<T*>(o), C, H, Hkv, N, bs, MB, scale, window);
   return static_cast<int>(cudaGetLastError());
@@ -118,18 +143,26 @@ int launch(const void* q, const void* kp, const void* vp, const void* tables,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim: 64 or 128; window <= 0
-// means no sliding window.
+// dtype (of q and o): 0 = float32, 1 = bfloat16; head_dim: 64 or 128;
+// window <= 0 means no sliding window. k_scale / v_scale null: the pools
+// hold q's type; non-null: the pools hold int8 codes and these are their
+// fp32 [N, bs, Hkv] scales.
 extern "C" int paged_chunk_fwd(int dtype, int head_dim, const void* q,
                                const void* k_pool, const void* v_pool,
+                               const void* k_scale, const void* v_scale,
                                const void* tables, const void* offsets,
                                const void* chunk_lens, void* o, int A, int C,
                                int H, int Hkv, int N, int bs, int MB,
                                float scale, int window, void* stream) {
   if (A <= 0 || C <= 0) return 0;
-#define PTT_CHUNK(DIM, T)                                                   \
-  return launch<DIM, T>(q, k_pool, v_pool, tables, offsets, chunk_lens, o, \
-                        A, C, H, Hkv, N, bs, MB, scale, window, stream)
+#define PTT_CHUNK(DIM, T)                                                  \
+  return k_scale                                                           \
+      ? launch<DIM, T, int8_t>(q, k_pool, v_pool, k_scale, v_scale,       \
+                               tables, offsets, chunk_lens, o, A, C, H,    \
+                               Hkv, N, bs, MB, scale, window, stream)      \
+      : launch<DIM, T, T>(q, k_pool, v_pool, k_scale, v_scale, tables,    \
+                          offsets, chunk_lens, o, A, C, H, Hkv, N, bs, MB, \
+                          scale, window, stream)
   if (dtype == kF32 && head_dim == 64) PTT_CHUNK(64, float);
   if (dtype == kF32 && head_dim == 128) PTT_CHUNK(128, float);
   if (dtype == kBF16 && head_dim == 64) PTT_CHUNK(64, __nv_bfloat16);

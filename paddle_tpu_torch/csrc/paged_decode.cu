@@ -22,6 +22,16 @@
 // row (all D dims of one token of one kv head) as one contiguous segment,
 // and all G query heads of the group are served from that single read:
 // GQA never re-reads or repeats K/V.
+//
+// int8 pools (the reference's `quantized` mode): with k_scale/v_scale
+// [N, bs, Hkv] fp32 the pools hold int8 codes and a lane loads its D/32
+// codes of a row as one word (4 codes at D = 128, 2 at D = 64), converts
+// them and multiplies by the row's (position, KV head) scale — the same
+// fp32 products as the plain version's k.float() * scale. The bytes a
+// visible position costs fall from 2*D*2 (bf16) to 2*(D + 4); the mask,
+// window and four-warp merge are unchanged.
+#include <type_traits>
+
 #include "common.cuh"
 
 using namespace ptt;
@@ -30,10 +40,41 @@ namespace {
 
 constexpr int kDecWarps = 4;
 
-template <int D, int G, typename T>
+// This lane's C head dims of one pool row as fp32: elements of a pool of
+// q's type as they are; int8 codes (one C-byte load) times the row scale.
+template <int C, typename KV>
+__device__ __forceinline__ void load_row(const KV* __restrict__ p,
+                                         const float* __restrict__ scale,
+                                         float (&out)[C]) {
+  if constexpr (std::is_same<KV, int8_t>::value) {
+    const float sc = *scale;
+    if constexpr (C == 4) {
+      const char4 w = *reinterpret_cast<const char4*>(p);
+      out[0] = static_cast<float>(w.x) * sc;
+      out[1] = static_cast<float>(w.y) * sc;
+      out[2] = static_cast<float>(w.z) * sc;
+      out[3] = static_cast<float>(w.w) * sc;
+    } else if constexpr (C == 2) {
+      const char2 w = *reinterpret_cast<const char2*>(p);
+      out[0] = static_cast<float>(w.x) * sc;
+      out[1] = static_cast<float>(w.y) * sc;
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c) out[c] = static_cast<float>(p[c]) * sc;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) out[c] = to_f(p[c]);
+  }
+}
+
+// KV: the pool's element type, T (no scales) or int8_t (ks/vs per row)
+template <int D, int G, typename T, typename KV>
 __global__ void __launch_bounds__(kDecWarps * 32)
-    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                        const T* __restrict__ vp,
+    paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                        const KV* __restrict__ vp,
+                        const float* __restrict__ ks,
+                        const float* __restrict__ vs,
                         const int* __restrict__ tables,
                         const int* __restrict__ lens, T* __restrict__ o,
                         int H, int Hkv, int N, int bs, int MB, float scale,
@@ -66,14 +107,11 @@ __global__ void __launch_bounds__(kDecWarps * 32)
     const int blk = min(max(trow[bi], 0), N - 1);
     const int p0 = bi * bs, p1 = min(p0 + bs, L);
     for (int p = max(p0, lo); p < p1; ++p) {
-      const size_t base =
-          ((size_t)(blk * bs + p - p0) * Hkv + kvh) * D + lane * C;
+      const size_t row = (size_t)(blk * bs + p - p0) * Hkv + kvh;
+      const size_t base = row * D + lane * C;
       float kv[C], vv[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        kv[c] = to_f(kp[base + c]);
-        vv[c] = to_f(vp[base + c]);
-      }
+      load_row<C>(kp + base, ks + row, kv);
+      load_row<C>(vp + base, vs + row, vv);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float s = 0.f;
@@ -121,49 +159,64 @@ __global__ void __launch_bounds__(kDecWarps * 32)
   }
 }
 
-template <int D, int G, typename T>
-int launch(const void* q, const void* kp, const void* vp, const void* tables,
-           const void* lens, void* o, int B, int H, int Hkv, int N, int bs,
-           int MB, float scale, int window, void* stream) {
+template <int D, int G, typename T, typename KV>
+int launch(const void* q, const void* kp, const void* vp, const void* ks,
+           const void* vs, const void* tables, const void* lens, void* o,
+           int B, int H, int Hkv, int N, int bs, int MB, float scale,
+           int window, void* stream) {
   dim3 grid(Hkv, B);
-  paged_decode_kernel<D, G, T><<<grid, kDecWarps * 32, 0,
-                                 (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const int*>(tables),
+  paged_decode_kernel<D, G, T, KV><<<grid, kDecWarps * 32, 0,
+                                     (cudaStream_t)stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(kp),
+      static_cast<const KV*>(vp), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(tables),
       static_cast<const int*>(lens), static_cast<T*>(o), H, Hkv, N, bs, MB,
       scale, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, typename T>
+template <int D, typename T, typename KV>
 int launch_g(int G, const void* q, const void* kp, const void* vp,
-             const void* tables, const void* lens, void* o, int B, int H,
-             int Hkv, int N, int bs, int MB, float scale, int window,
-             void* stream) {
+             const void* ks, const void* vs, const void* tables,
+             const void* lens, void* o, int B, int H, int Hkv, int N, int bs,
+             int MB, float scale, int window, void* stream) {
+#define PTT_G(GG)                                                          \
+  return launch<D, GG, T, KV>(q, kp, vp, ks, vs, tables, lens, o, B, H,   \
+                              Hkv, N, bs, MB, scale, window, stream)
   switch (G) {
-    case 1: return launch<D, 1, T>(q, kp, vp, tables, lens, o, B, H, Hkv, N, bs, MB, scale, window, stream);
-    case 2: return launch<D, 2, T>(q, kp, vp, tables, lens, o, B, H, Hkv, N, bs, MB, scale, window, stream);
-    case 4: return launch<D, 4, T>(q, kp, vp, tables, lens, o, B, H, Hkv, N, bs, MB, scale, window, stream);
-    case 8: return launch<D, 8, T>(q, kp, vp, tables, lens, o, B, H, Hkv, N, bs, MB, scale, window, stream);
+    case 1: PTT_G(1);
+    case 2: PTT_G(2);
+    case 4: PTT_G(4);
+    case 8: PTT_G(8);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef PTT_G
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim: 64 or 128; H / Hkv in
-// {1, 2, 4, 8}; window <= 0 means no sliding window.
+// dtype (of q and o): 0 = float32, 1 = bfloat16; head_dim: 64 or 128;
+// H / Hkv in {1, 2, 4, 8}; window <= 0 means no sliding window. k_scale /
+// v_scale null: the pools hold q's type; non-null: the pools hold int8
+// codes and these are their fp32 [N, bs, Hkv] scales.
 extern "C" int paged_decode_fwd(int dtype, int head_dim, const void* q,
                                 const void* k_pool, const void* v_pool,
+                                const void* k_scale, const void* v_scale,
                                 const void* tables, const void* lens,
                                 void* o, int B, int H, int Hkv, int N,
                                 int bs, int MB, float scale, int window,
                                 void* stream) {
   if (B <= 0) return 0;
   const int G = H / Hkv;
-#define PTT_DEC(DIM, T)                                                  \
-  return launch_g<DIM, T>(G, q, k_pool, v_pool, tables, lens, o, B, H,  \
-                          Hkv, N, bs, MB, scale, window, stream)
+#define PTT_DEC(DIM, T)                                                    \
+  return k_scale ? launch_g<DIM, T, int8_t>(G, q, k_pool, v_pool, k_scale, \
+                                            v_scale, tables, lens, o, B,   \
+                                            H, Hkv, N, bs, MB, scale,      \
+                                            window, stream)                \
+                 : launch_g<DIM, T, T>(G, q, k_pool, v_pool, k_scale,      \
+                                       v_scale, tables, lens, o, B, H,     \
+                                       Hkv, N, bs, MB, scale, window,      \
+                                       stream)
   if (dtype == kF32 && head_dim == 64) PTT_DEC(64, float);
   if (dtype == kF32 && head_dim == 128) PTT_DEC(128, float);
   if (dtype == kBF16 && head_dim == 64) PTT_DEC(64, __nv_bfloat16);

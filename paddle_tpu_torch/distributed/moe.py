@@ -174,16 +174,13 @@ class ExpertMLP(nn.Module):
 
 
 def _expert_arrays(experts, dtype):
-    """The expert stacks as plain tensors. A weight-only-quantized stack
-    (the reference's ``QuantizedExpertStack``: anything that is not a
-    tensor) is not ported yet."""
-    gu, dn = experts.gate_up, experts.down
-    if not (isinstance(gu, torch.Tensor) and isinstance(dn, torch.Tensor)):
-        raise NotImplementedError(
-            "weight-only quantized expert stacks are not ported yet "
-            "(ROADMAP.md queue 1 item 5, int8 KV and weight-only "
-            "int8/int4)")
-    return gu, dn
+    """The expert stacks as tensors of the compute type: a weight-only
+    quantized stack (``serving.quant.QuantizedExpertStack``, anything that
+    is not a tensor) dequantizes on the fly, so the grouped GEMM runs on
+    it unchanged; plain tensors pass through. Duck-typed, so this module
+    never imports the serving layer."""
+    return tuple(w if isinstance(w, torch.Tensor) else w.dequantize(dtype)
+                 for w in (experts.gate_up, experts.down))
 
 
 def expert_mlp_apply(x_e, gate_up, down):

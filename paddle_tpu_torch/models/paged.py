@@ -19,10 +19,18 @@ sink for rows the reference drops (``mode="drop"`` scatters with the
 sentinel ``num_blocks``), so no scatter needs a device-to-host sync to
 filter its rows. The sink is never read: attention gets the ``[:N]``
 views (``cache.k_pools``), where table sentinels are clamped and masked.
+
+An int8 pool (``kv_dtype="int8"``) quantizes on write (``_quantize_kv``:
+per-(position, KV head) absmax scales in parallel fp32 scale pools, with
+the same sink block) and the paged kernels dequantize on read; the
+whole-prompt prefill attends over its own pre-quantization K/V. The
+pool positions a forward writes are computed once and serve every
+layer's K, V and scale writes.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -40,11 +48,18 @@ class PagedKVCache:
 
     ``k_store``/``v_store``: [L] of [N + 1, block_size, H_kv, D] (block N
     is the write sink); ``block_tables`` [B, max_blocks] int32 (unused
-    slots hold the sentinel N); ``lens`` [B] int32 (tokens in cache)."""
+    slots hold the sentinel N); ``lens`` [B] int32 (tokens in cache).
+    An int8 pool (``init(..., kv_dtype="int8")``) adds
+    ``k_scale_store``/``v_scale_store``: [L] of [N + 1, block_size, H_kv]
+    fp32, element (n, o, h) the absmax/127 scale of pool row (n, o, h, :),
+    with the same sink block; they are empty for a pool of the model's
+    type."""
     k_store: list
     v_store: list
     block_tables: torch.Tensor
     lens: torch.Tensor
+    k_scale_store: list = field(default_factory=list)
+    v_scale_store: list = field(default_factory=list)
 
     @property
     def block_size(self):
@@ -64,25 +79,85 @@ class PagedKVCache:
         return [p[:-1] for p in self.v_store]
 
     @property
+    def k_scales(self):
+        """[L] of [N, block_size, H_kv] views of the scale pools (empty
+        for a pool of the model's type)."""
+        return [p[:-1] for p in self.k_scale_store]
+
+    @property
+    def v_scales(self):
+        return [p[:-1] for p in self.v_scale_store]
+
+    @property
     def device(self):
         return self.k_store[0].device
 
     @staticmethod
     def init(num_layers, num_blocks, block_size, num_kv_heads, head_dim,
              batch, max_blocks_per_seq, dtype, kv_dtype=None, device="cpu"):
+        pool_dtype, scales = dtype, 0
         if kv_dtype is not None:
-            raise NotImplementedError(
-                "int8 KV pools are not ported yet (ROADMAP.md queue 1, int8 "
-                "KV and weight-only int8/int4)")
+            if kv_dtype not in ("int8", torch.int8):
+                raise ValueError(
+                    f"unsupported kv_dtype {kv_dtype!r}: only 'int8' "
+                    "(per-position absmax scales) or None (model dtype)")
+            pool_dtype, scales = torch.int8, num_layers
 
-        def z():
+        def z(*tail, dt=pool_dtype):
             return torch.zeros((num_blocks + 1, block_size, num_kv_heads,
-                                head_dim), dtype=dtype, device=device)
+                                *tail), dtype=dt, device=device)
         return PagedKVCache(
-            [z() for _ in range(num_layers)], [z() for _ in range(num_layers)],
+            [z(head_dim) for _ in range(num_layers)],
+            [z(head_dim) for _ in range(num_layers)],
             torch.full((batch, max_blocks_per_seq), num_blocks,
                        dtype=torch.int32, device=device),
-            torch.zeros((batch,), dtype=torch.int32, device=device))
+            torch.zeros((batch,), dtype=torch.int32, device=device),
+            [z(dt=torch.float32) for _ in range(scales)],
+            [z(dt=torch.float32) for _ in range(scales)])
+
+
+# ------------------------------------------------ int8 KV quantization
+def kv_quant_enabled() -> bool:
+    """The ``PT_QUANT_KV`` kill switch: ``LLMEngine(kv_dtype="int8")``
+    reads it at construction and keeps a pool of the model's type when it
+    is 0/off."""
+    return os.environ.get("PT_QUANT_KV", "1").strip().lower() \
+        not in ("0", "off")
+
+
+def _quantize_kv(vals):
+    """Per-(position, head) symmetric int8: vals [..., H, D] -> (int8
+    [..., H, D], fp32 scales [..., H]). absmax over D / 127, floored at
+    1e-8 so all-zero rows (padding) have no 0/0; a division, not a
+    product by the reciprocal, so the codes are the reference's bits."""
+    f = vals.float()
+    scale = torch.clamp(f.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(f / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _scatter_kv(cache, li, k, v, dest):
+    """Write layer ``li``'s new K/V at the flat pool positions ``dest``.
+    An int8 pool quantizes on write: the codes land in the pools and the
+    scales in the scale pools through the SAME destinations, so codes and
+    scales never desync."""
+    if cache.k_scale_store:
+        (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+        _scatter(cache.k_scale_store[li], ks, dest)
+        _scatter(cache.v_scale_store[li], vs, dest)
+    _scatter(cache.k_store[li], k, dest)
+    _scatter(cache.v_store[li], v, dest)
+
+
+def _pools(cache, li):
+    """Layer ``li``'s readable K/V pools and scale pools (the scales None
+    for a pool of the model's type), as the paged kernels take them."""
+    nb = cache.num_blocks
+    ks = vs = None
+    if cache.k_scale_store:
+        ks = cache.k_scale_store[li][:nb]
+        vs = cache.v_scale_store[li][:nb]
+    return cache.k_store[li][:nb], cache.v_store[li][:nb], ks, vs
 
 
 class BlockManager:
@@ -858,52 +933,47 @@ def _apply_rope_rows(x, cos, sin):
 
 
 def _scatter(store, vals, dest):
-    """Write rows ``vals`` [M, H, D] at flat pool positions ``dest`` [M]
-    of ``store`` [N + 1, bs, H, D] (sink positions for dropped rows)."""
+    """Write rows ``vals`` [..., H(, D)] at flat pool positions ``dest``
+    of ``store`` [N + 1, bs, H(, D)] (sink positions for dropped rows)."""
     flat = store.view(-1, *store.shape[2:])
     flat.index_put_((dest.reshape(-1),),
-                    vals.reshape(-1, *vals.shape[2:]).to(store.dtype))
+                    vals.reshape(-1, *store.shape[2:]).to(store.dtype))
 
 
-def _scatter_prefill(store, vals, tables, lens, num_blocks, block_size):
-    """Write [B, S, H, D] tokens into the pool at table positions; token
-    (b, i) -> (tables[b, i // bs], i % bs), dropped where i >= lens[b]
-    (or the table slot holds the sentinel)."""
-    s = vals.shape[1]
-    i = torch.arange(s, device=vals.device)
+def _dest_prefill(tables, lens, s, num_blocks, block_size):
+    """Flat pool positions of [B, S] prompt tokens: token (b, i) ->
+    (tables[b, i // bs], i % bs), the sink where i >= lens[b] (or the
+    table slot holds the sentinel)."""
+    i = torch.arange(s, device=tables.device)
     col = torch.clamp(i // block_size, max=tables.shape[1] - 1)
     blk = tables[:, col].long()                                # [B, S]
     ok = (i[None, :] < lens[:, None]) & (blk < num_blocks)
-    dest = torch.where(ok, blk * block_size + (i % block_size)[None, :],
+    return torch.where(ok, blk * block_size + (i % block_size)[None, :],
                        num_blocks * block_size)
-    _scatter(store, vals, dest)
 
 
-def _scatter_decode(store, vals, tables, lens, active, num_blocks,
-                    block_size):
-    """Write ONE token per sequence at position lens[b]; inactive rows
-    write nowhere (their blocks may already be recycled)."""
+def _dest_decode(tables, lens, active, num_blocks, block_size):
+    """Flat pool position of ONE token per sequence at position lens[b];
+    inactive rows go to the sink (their blocks may already be
+    recycled)."""
     col = torch.clamp(lens.long() // block_size, max=tables.shape[1] - 1)
     blk = torch.gather(tables.long(), 1, col[:, None])[:, 0]
     ok = active & (blk < num_blocks)
-    dest = torch.where(ok, blk * block_size + lens.long() % block_size,
+    return torch.where(ok, blk * block_size + lens.long() % block_size,
                        num_blocks * block_size)
-    _scatter(store, vals, dest)
 
 
-def _scatter_decode_chunk(store, vals, tables, offsets, chunk_lens,
-                          num_blocks, block_size):
-    """Scatter [A, C] chunk K/V at positions offset..offset+len-1 into the
-    pool via each row's table; padding (i >= chunk_lens) is dropped."""
-    c = vals.shape[1]
-    ar = torch.arange(c, device=vals.device)
+def _dest_chunk(tables, offsets, chunk_lens, c, num_blocks, block_size):
+    """Flat pool positions of [A, C] chunk tokens at offset..offset+len-1
+    through each row's table; padding (i >= chunk_lens) goes to the
+    sink."""
+    ar = torch.arange(c, device=tables.device)
     pos = offsets.long()[:, None] + ar[None, :]                # [A, C]
     col = torch.clamp(pos // block_size, max=tables.shape[1] - 1)
     blk = torch.gather(tables.long(), 1, col)
     ok = (ar[None, :] < chunk_lens[:, None]) & (blk < num_blocks)
-    dest = torch.where(ok, blk * block_size + pos % block_size,
+    return torch.where(ok, blk * block_size + pos % block_size,
                        num_blocks * block_size)
-    _scatter(store, vals, dest)
 
 
 def _refuse_lora_cp(lora, cp_axis):
@@ -1012,16 +1082,18 @@ def llama_prefill_paged(model, input_ids, prompt_lens, cache: PagedKVCache,
         cur_len=(lens_np if (scaling or {}).get("type") == "dynamic"
                  else None),
         allow_dynamic=False, device=dev)
+    dest = _dest_prefill(tables, lens, s, nb, bs)
     for li, lyr in enumerate(_backbone(model).layers):
         h = lyr.input_layernorm(x)
         q, k, v = _qkv(lyr.self_attn, h, (b, s), (b, s))
         q = A.apply_rope(q, cos, sin)
         k = A.apply_rope(k, cos, sin)
+        # the prompt attends over its own pre-quantization K/V; only the
+        # pool writes quantize (an int8 pool costs prefill nothing)
         out = A.scaled_dot_product_attention(q, k, v, is_causal=True,
                                              kv_lens=lens,
                                              window=cfg.sliding_window)
-        _scatter_prefill(cache.k_store[li], k, tables, lens, nb, bs)
-        _scatter_prefill(cache.v_store[li], v, tables, lens, nb, bs)
+        _scatter_kv(cache, li, k, v, dest)
         x = _layer_tail(lyr, x, out, (b, s))
     x = _backbone(model).norm(x)
     logits = _model_logits(model, x)
@@ -1050,16 +1122,17 @@ def llama_decode_step_paged(model, tokens, cache: PagedKVCache, active,
                           cfg.max_position_embeddings)
     new_lens = torch.where(active, old_lens + 1, old_lens)
     tables = cache.block_tables
+    dest = _dest_decode(tables, old_lens, active, nb, bs)
     for li, lyr in enumerate(_backbone(model).layers):
         h = lyr.input_layernorm(x)
         q, k, v = _qkv(lyr.self_attn, h, (b, 1), (b, 1))
         q = _apply_rope_rows(q, cos, sin)
         k = _apply_rope_rows(k, cos, sin)
-        _scatter_decode(cache.k_store[li], k, tables, old_lens, active, nb, bs)
-        _scatter_decode(cache.v_store[li], v, tables, old_lens, active, nb, bs)
+        _scatter_kv(cache, li, k, v, dest)
+        kp, vp, ks, vs = _pools(cache, li)
         out = _paged.paged_decode_attention(
-            q[:, 0], cache.k_store[li][:nb], cache.v_store[li][:nb], tables,
-            new_lens, window=cfg.sliding_window)
+            q[:, 0], kp, vp, tables, new_lens, window=cfg.sliding_window,
+            k_scale=ks, v_scale=vs)
         x = _layer_tail(lyr, x, out, (b, 1))
     x = _backbone(model).norm(x)
     logits = _model_logits(model, x)[:, 0]
@@ -1145,19 +1218,18 @@ def llama_prefill_chunk_paged(model, input_ids, chunk_lens, offsets,
                                   device=dev) / d))
     f = (positions.float() / pos_div)[:, :, None] * inv
     cos, sin = torch.cos(f), torch.sin(f)                      # [A, C, D/2]
+    dest = _dest_chunk(tables, offsets, chunk_lens, c, nb, bs)
     for li, lyr in enumerate(_backbone(model).layers):
         h = lyr.input_layernorm(x)
         q, k, v = _qkv(lyr.self_attn, h, (a, c), (a, c))
         q = _apply_rope_rows(q, cos, sin)
         k = _apply_rope_rows(k, cos, sin)
         # write the chunk FIRST so the pool holds prefix + chunk
-        _scatter_decode_chunk(cache.k_store[li], k, tables, offsets,
-                              chunk_lens, nb, bs)
-        _scatter_decode_chunk(cache.v_store[li], v, tables, offsets,
-                              chunk_lens, nb, bs)
+        _scatter_kv(cache, li, k, v, dest)
+        kp, vp, ks, vs = _pools(cache, li)
         out = _paged.paged_chunk_attention(
-            q, cache.k_store[li][:nb], cache.v_store[li][:nb], tables,
-            offsets, chunk_lens, window=window)
+            q, kp, vp, tables, offsets, chunk_lens, window=window,
+            k_scale=ks, v_scale=vs)
         x = _layer_tail(lyr, x, out, (a, c))
     x = _backbone(model).norm(x)
     logits = _model_logits(model, x)
@@ -1172,14 +1244,16 @@ def llama_prefill_chunk_paged(model, input_ids, chunk_lens, offsets,
 def prefix_cow_update(cache: PagedKVCache, pairs):
     """Radix prefix cache: copy each adopted partial boundary block ``src``
     into the adopter's private block ``dst`` (copy-on-write at first
-    divergence), in every layer's K and V pool. Tables and lengths are
-    untouched."""
+    divergence), in every layer's K and V pool and, for an int8 pool, its
+    scale pools (the codes mean nothing without their scales). Tables and
+    lengths are untouched."""
     if not pairs:
         return cache
     dev = cache.device
     src = torch.as_tensor([p[0] for p in pairs], device=dev)
     dst = torch.as_tensor([p[1] for p in pairs], device=dev)
-    for store in (*cache.k_store, *cache.v_store):
+    for store in (*cache.k_store, *cache.v_store, *cache.k_scale_store,
+                  *cache.v_scale_store):
         store[dst] = store[src]
     return cache
 

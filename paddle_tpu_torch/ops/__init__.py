@@ -13,6 +13,7 @@ from paddle_tpu_torch.ops.attention import (  # noqa: F401
 from paddle_tpu_torch.ops.cuda import norms as _norms
 
 
-def fused_rms_norm(x, weight, epsilon=1e-6):
-    """K1 on a CUDA tensor, its plain version on a CPU tensor."""
+def fused_rms_norm(x, weight=None, epsilon=1e-6):
+    """K1 on a CUDA tensor, its plain version on a CPU tensor. ``weight``
+    None normalises with a unit weight, as the reference's does."""
     return _norms.rms_norm(x, weight, epsilon)

@@ -2,11 +2,14 @@
 
 Layout is the JAX package's ``[B, S, H, D]`` throughout. Dispatch:
 :func:`scaled_dot_product_attention` hands every call the flash kernel
-can take (no dense ``attn_mask``, no dropout) to the differentiable
+can take to the differentiable
 ``ops.cuda.flash_attention.flash_attention`` — K2 forward and K5
 backward on a CUDA tensor, their plain versions on a CPU tensor — and
-the rest to :func:`eager_attention`, the port of the reference's
-``xla_attention``, which autograd differentiates as it stands. Rotary
+the calls the reference's kernel refuses (a dense ``attn_mask``,
+dropout, windowed decode against a padded cache) to
+:func:`eager_attention`, the port of the reference's ``xla_attention``,
+which autograd differentiates as it stands. ALiBi takes the eager path
+on a CPU tensor and raises on a CUDA one until K2 computes it. Rotary
 embedding (:func:`apply_rope`, :func:`fused_rotary_position_embedding`)
 goes through K7, ``ops.cuda.rope.fused_rope``.
 """
@@ -64,8 +67,10 @@ def eager_attention(query, key, value, attn_mask=None, is_causal=False,
         q_pos = (torch.arange(sq, device=dev) + (sk - sq))[None, :]
     k_pos = torch.arange(sk, device=dev)
     if alibi_slopes is not None:
+        # fixed head geometry, not learned: no gradient reaches the
+        # slopes, as the reference's stop_gradient (and K2's contract)
         m_sl = torch.as_tensor(alibi_slopes, device=dev,
-                               dtype=torch.float32).reshape(-1, h)
+                               dtype=torch.float32).detach().reshape(-1, h)
         dist = (q_pos[:, :, None] - k_pos[None, None, :]).float()
         if not is_causal:
             dist = dist.abs()
@@ -91,6 +96,36 @@ def eager_attention(query, key, value, attn_mask=None, is_causal=False,
     return out.transpose(1, 2)  # back to [B,S,H,D]
 
 
+def _flash_takes(query, key, attn_mask, dropout_p, is_causal, training,
+                 window, kv_lens, alibi_slopes):
+    """Whether the flash kernel takes this call, decided from the
+    arguments alone (a launch that fails still raises). The calls the
+    reference's own Pallas kernel refuses go to :func:`eager_attention`,
+    its ``xla_attention``, on any device: a dense mask or dropout, GQA
+    by partial groups, a window without ``is_causal``, and a window with
+    ``kv_lens`` when Sq != Sk (windowed decode against a padded cache).
+    ALiBi goes to :func:`eager_attention` on a CPU tensor only: on a CUDA
+    tensor it raises until K2 computes it in the tile, as the reference's
+    kernel does (ROADMAP.md queue 2, for queue 1 item 8); so does a head
+    dim or dtype that ``kernel_route`` does not build."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as _flash
+    if (attn_mask is not None or (dropout_p != 0.0 and training)
+            or query.shape[2] % key.shape[2]
+            or (window is not None and not is_causal)
+            or (window is not None and kv_lens is not None
+                and query.shape[1] != key.shape[1])):
+        return False
+    if not query.is_cuda:
+        return alibi_slopes is None
+    if alibi_slopes is not None:
+        raise NotImplementedError(
+            "ALiBi in the flash kernel (K2) is not ported yet (ROADMAP.md "
+            "queue 2; Bloom/Falcon, queue 1 item 8); eager_attention "
+            "takes alibi_slopes")
+    _flash.kernel_route(query.dtype, query.shape[-1])
+    return True
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                   dropout_p=0.0, is_causal=False,
                                   training=True, generator=None, scale=None,
@@ -98,17 +133,18 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                   alibi_slopes=None):
     """Dispatch: the flash kernel (K2) for every call it takes — padding as
     ``kv_lens``, GQA by index, causal sliding window — and
-    :func:`eager_attention` for a dense ``attn_mask`` or dropout, which
-    the kernel does not take (a materialised [.., Sq, Sk] mask has already
-    spent the memory flash saves)."""
-    from paddle_tpu_torch.ops.cuda import flash_attention as _flash
-    h, kv = query.shape[2], key.shape[2]
-    if (attn_mask is None and (dropout_p == 0.0 or not training)
-            and h % kv == 0 and (window is None or is_causal)):
+    :func:`eager_attention` for the calls the reference gives
+    ``xla_attention`` because its kernel refuses them (:func:`_flash_takes`):
+    a dense ``attn_mask`` or dropout (a materialised [.., Sq, Sk] mask has
+    already spent the memory flash saves) and windowed decode with
+    ``kv_lens`` against a longer cache; on a CPU tensor ALiBi too. On a
+    CUDA tensor, ALiBi and a head dim or dtype with no kernel raise."""
+    if _flash_takes(query, key, attn_mask, dropout_p, is_causal, training,
+                    window, kv_lens, alibi_slopes):
+        from paddle_tpu_torch.ops.cuda import flash_attention as _flash
         return _flash.flash_attention(query, key, value, causal=is_causal,
                                       scale=scale, window=window,
-                                      kv_lens=kv_lens,
-                                      alibi_slopes=alibi_slopes)
+                                      kv_lens=kv_lens)
     return eager_attention(query, key, value, attn_mask=attn_mask,
                            is_causal=is_causal, scale=scale,
                            dropout_p=dropout_p, training=training,

@@ -21,18 +21,24 @@ MOE_TRAIN_KERNELS = TRAIN_KERNELS + ("grouped_fwd", "grouped_dw")
 # sliding-window serving (Mistral): whole-prompt prefill and decode only —
 # chunked prefill under a window is refused, as in the reference engine
 WINDOW_SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_decode", "rope")
+# quantized serving (int8 KV pool): K3 and K4 in their int8 mode
+QUANT_SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_chunk_i8",
+                       "paged_decode_i8", "rope")
 
 
 def kernels() -> dict:
-    """{name: the function that counts its launches} of every kernel of
-    the port: the serving path's, the train step's backward, the grouped
-    GEMM of the MoE families (forward/dlhs, drhs), then the rotary
-    embedding of every path."""
+    """{name: the object that counts its launches in ``.launches``} of
+    every kernel of the port: the serving path's (K3 and K4 counted apart
+    over int8 pools), the train step's backward, the grouped GEMM of the
+    MoE families (forward/dlhs, drhs), then the rotary embedding of every
+    path."""
     return {
         "rms_norm": norms.rms_norm,
         "flash_fwd": flash_attention.flash_attention,
         "paged_chunk": paged_attention.paged_chunk_attention,
         "paged_decode": paged_attention.paged_decode_attention,
+        "paged_chunk_i8": paged_attention.paged_chunk_i8,
+        "paged_decode_i8": paged_attention.paged_decode_i8,
         "flash_bwd_dq": flash_attention.flash_bwd_dq,
         "flash_bwd_dkv": flash_attention.flash_bwd_dkv,
         "grouped_fwd": grouped_matmul.grouped_matmul,

@@ -98,11 +98,15 @@ class _RmsNorm(torch.autograd.Function):
         return dx, dw, None
 
 
-def rms_norm(x, weight, epsilon=1e-6):
+def rms_norm(x, weight=None, epsilon=1e-6):
     """x [..., H], weight [H] -> like x. Kernel on CUDA, plain on CPU;
-    differentiable in x and weight. When no graph is recorded (grad mode
-    off, as on the serving path, or no input requiring grad) the forward
-    runs without the autograd ``Function``."""
+    differentiable in x and weight. ``weight`` None is a unit weight: the
+    kernel reads a ones vector in x's type (a product by 1 is exact, so
+    the result is the unweighted norm). When no graph is recorded (grad
+    mode off, as on the serving path, or no input requiring grad) the
+    forward runs without the autograd ``Function``."""
+    if weight is None:
+        weight = torch.ones(x.shape[-1], dtype=x.dtype, device=x.device)
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
         return _RmsNorm.apply(x, weight, epsilon)
     return _rms_norm_fwd(x, weight, epsilon)

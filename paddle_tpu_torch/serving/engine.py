@@ -35,8 +35,15 @@ long it grows. Dynamic-NTK rope bases follow each row's length (the
 prefill's whole prompt, the decode tick's position + 1). Both turn
 prefix caching off and refuse chunked prefill, as the reference does.
 
+Quantized serving: ``kv_dtype="int8"`` keeps the KV pool in int8 with
+per-(position, KV head) fp32 scales (quantize on write, dequantize on
+read in the paged kernels' int8 mode); ``PT_QUANT_KV=0`` at construction
+falls back to a pool of the model's type. Weight-only int8/int4 models
+come from ``serving.quant.quantize_for_serving``. An int8 pool arms the
+``serving.kv_quant`` fault site before each decode tick.
+
 Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP.md queue): beams, speculative decoding, async decode, int8 KV,
+ROADMAP.md queue): beams, speculative decoding, async decode,
 multi-LoRA, grammar, degradation/SLO, tenants, context parallelism and
 prefill-only replicas (router).
 """
@@ -47,7 +54,8 @@ import time
 import numpy as np
 
 from paddle_tpu_torch.core.device import resolve_device
-from paddle_tpu_torch.models.paged import is_moe_model, model_config
+from paddle_tpu_torch.models.paged import (is_moe_model, kv_quant_enabled,
+                                           model_config)
 from paddle_tpu_torch.observability import span as _span
 from paddle_tpu_torch.serving.executor import ModelExecutor
 from paddle_tpu_torch.serving.kv import KVManager, cache_block_bytes
@@ -90,7 +98,6 @@ class LLMEngine:
                 ("adapter_store", adapter_store, "multi-LoRA serving"),
                 ("degrade", degrade, "the degradation ladder"),
                 ("slo", slo, "the SLO tracker"),
-                ("kv_dtype", kv_dtype, "int8 KV"),
                 ("prefill_only", prefill_only or None,
                  "disaggregated prefill (router)")):
             if val is not None:
@@ -101,6 +108,11 @@ class LLMEngine:
             raise _not_ported("async_depth > 0 (async pipelined decode)")
         cfg = model_config(model)
         self.model = model
+        # int8 KV: PT_QUANT_KV=0 is the kill switch, read here — the pool
+        # then keeps the model's type
+        if kv_dtype is not None and not kv_quant_enabled():
+            kv_dtype = None
+        self.kv_dtype = kv_dtype
         # MoE models route tokens to experts inside the tick — give chaos a
         # hook at that boundary (a dead expert shard)
         self._is_moe = is_moe_model(model)
@@ -139,7 +151,7 @@ class LLMEngine:
         self.exe = ModelExecutor(
             model, num_slots=num_slots, num_blocks=num_blocks,
             block_size=block_size, max_blocks_per_seq=self.max_blocks_per_seq,
-            top_k=top_k, seed=seed, device=self.device)
+            top_k=top_k, seed=seed, kv_dtype=kv_dtype, device=self.device)
 
         # host mirrors (vectorised bookkeeping)
         self.slot_req = np.full(num_slots, -1, np.int64)   # req_id or -1
@@ -605,6 +617,13 @@ class LLMEngine:
             # the cache, tables and table_len untouched — cancel/free
             # reclaims every block and assert_quiescent stays clean
             fault_point("serving.moe_dispatch", engine=self,
+                        slots=np.nonzero(self.active)[0])
+        if self.cache.k_scale_store:
+            # chaos: the tick's quantize-on-write is about to run (int8
+            # pools only). Fires before table growth and the in-place
+            # writes, so an injected exception leaves pools, scale pools,
+            # tables and the ledger untouched (exception-atomic)
+            fault_point("serving.kv_quant", engine=self,
                         slots=np.nonzero(self.active)[0])
         rows, cols, vals = self._grow_tables(self.active.copy())
         # growth may have preempted slots — recompute the mask after it

@@ -21,10 +21,12 @@ from paddle_tpu_torch.models.paged import (PagedKVCache, llama_decode_tick,
 
 
 class ModelExecutor:
-    """Prefill/decode programs over one paged KV pool on ``device``."""
+    """Prefill/decode programs over one paged KV pool on ``device``
+    (``kv_dtype="int8"``: an int8 pool with fp32 scale pools)."""
 
     def __init__(self, model, *, num_slots, num_blocks, block_size,
-                 max_blocks_per_seq, top_k=None, seed=0, device):
+                 max_blocks_per_seq, top_k=None, seed=0, kv_dtype=None,
+                 device):
         cfg = model_config(model)
         self.model = model
         self.top_k = top_k
@@ -34,7 +36,8 @@ class ModelExecutor:
             cfg.num_hidden_layers, num_blocks, block_size,
             cfg.num_key_value_heads,
             cfg.hidden_size // cfg.num_attention_heads,
-            num_slots, max_blocks_per_seq, cfg.dtype, device=self.device)
+            num_slots, max_blocks_per_seq, cfg.dtype, kv_dtype=kv_dtype,
+            device=self.device)
 
     def prefill(self, ids, lens, slots, rows):
         """Slot-aware padded prefill: admitted prompts written into their

@@ -25,9 +25,12 @@ from paddle_tpu_torch.serving.telemetry import (_PREFIX_EVICTIONS,
 
 
 def cache_block_bytes(cache) -> int:
-    """Device bytes ONE pool block holds across all layers (K and V)."""
+    """Device bytes ONE pool block holds across all layers: K and V at
+    their stored type, plus the fp32 scale pools of an int8 pool (1-byte
+    codes and a 4-byte scale per (position, KV head))."""
     return sum(p[0].numel() * p.element_size()
-               for p in (*cache.k_store, *cache.v_store))
+               for p in (*cache.k_store, *cache.v_store,
+                         *cache.k_scale_store, *cache.v_scale_store))
 
 
 class KVManager:

@@ -2,8 +2,8 @@
 ``paddle_tpu/utils/faults.py`` (it never imported JAX), feeding this
 package's metrics registry and tracer. The flight recorder is not ported
 yet, so firings are not recorded there. Of the sites below the port's
-engine wires ``serving.moe_dispatch`` today; the others are listed in
-ROADMAP.md (queue 1 item 5) as still to wire.
+engine wires ``serving.moe_dispatch`` and ``serving.kv_quant`` today; the
+others are listed in ROADMAP.md (queue 1 item 5) as still to wire.
 
 The only way to *prove* the recovery paths
 (preemption, NaN skip, elastic restart, crash-safe checkpoints) stay
@@ -23,6 +23,10 @@ rule is installed). Tests install rules against site names:
                      expert all_to_all — a dead expert shard); an
                      exception aborts the tick exception-atomically:
                      no blocks leak and ``assert_quiescent`` stays clean
+    serving.kv_quant  before the decode tick of an engine with an int8 KV
+                     pool (its quantize-on-write); an exception aborts the
+                     tick exception-atomically: pools, scale pools, tables
+                     and the ledger stay untouched
     router.dispatch  before a request is handed to a replica engine —
                      fires pre-add, so the request stays with the router
                      (requeued, re-dispatched next step)

@@ -488,3 +488,143 @@ def test_moe_train_step_on_card_matches_cpu_and_launches_its_kernels():
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
     counts = K.launches()
     assert all(counts[k] > 0 for k in K.MOE_TRAIN_KERNELS), counts
+
+
+def _int8_pool(g, dev, n, bs, h_kv, d):
+    """int8 codes and fp32 per-(position, head) scales, as the serving
+    path's quantize-on-write stores them."""
+    f = torch.randn(n, bs, h_kv, d, generator=g, device=dev)
+    scale = torch.clamp(f.abs().amax(-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(f / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_paged_kernels_int8_pools_match_plain(dtype, tol, d, group):
+    """K4 and K3 over int8 pools with fp32 scales against their plain
+    versions on the same codes: ragged lengths, a sentinel table slot, a
+    window, a dead row (0 on the card by design); only the int8 counters
+    rise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch.ops import cuda as K
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(d + group)
+    h_kv = 2
+    h = h_kv * group
+    kq, ks = _int8_pool(g, dev, 20, 16, h_kv, d)
+    vq, vs = _int8_pool(g, dev, 20, 16, h_kv, d)
+    sc = dict(k_scale=ks, v_scale=vs)
+    tables = torch.randperm(20, generator=g, device=dev)[:12].reshape(3, 4)
+    tables = torch.cat([tables, torch.full((3, 1), 20, device=dev)], 1).int()
+
+    def close(a, b):
+        dd = (a.float() - b.float()).abs() / (1 + b.float().abs())
+        assert float(dd.max()) <= tol
+
+    K.reset_launches()
+    qd = torch.randn(3, h, d, generator=g, device=dev).to(dtype)
+    for window in (None, 9):
+        dl = torch.tensor([64, 1, 33], device=dev)
+        close(TPA.paged_decode_attention(qd, kq, vq, tables, dl,
+                                         window=window, **sc),
+              TPA.paged_decode_attention_plain(qd, kq, vq, tables, dl,
+                                               window=window, **sc))
+        dead = TPA.paged_decode_attention(qd, kq, vq, tables,
+                                          torch.tensor([5, 0, 2], device=dev),
+                                          window=window, **sc)
+        assert float(dead[1].abs().max()) == 0.0    # dead row writes 0
+        qc = torch.randn(3, 20, h, d, generator=g, device=dev).to(dtype)
+        offs = torch.tensor([0, 40, 10], device=dev)
+        cls = torch.tensor([20, 7, 0], device=dev)
+        got = TPA.paged_chunk_attention(qc, kq, vq, tables, offs, cls,
+                                        window=window, **sc)
+        ref = TPA.paged_chunk_attention_plain(qc, kq, vq, tables, offs, cls,
+                                              window=window, **sc)
+        close(got[0], ref[0])
+        close(got[1, :7], ref[1, :7])
+        assert float(got[2].abs().max()) == 0.0      # dead row writes 0
+    counts = K.launches()
+    assert counts["paged_decode_i8"] == 4 and counts["paged_chunk_i8"] == 2
+    assert counts["paged_decode"] == counts["paged_chunk"] == 0
+
+
+@pytest.mark.cuda
+def test_int8_engine_on_card_launches_the_int8_kernels():
+    """The serving path over an int8 KV pool on the card (weight-only int8
+    weights, float32 activations): every request finishes, the engine
+    ends quiescent, the streams track the CPU's plain path, and K3/K4 run
+    in their int8 mode only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import numpy as np
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    from paddle_tpu_torch.serving.quant import quantize_for_serving
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                           num_attention_heads=2, num_key_value_heads=1,
+                           vocab_size=512)
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    card = LlamaForCausalLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 512, n) for n in (5, 30, 70, 9)]
+    prompts.append(np.concatenate([prompts[2][:40], rs.randint(0, 512, 7)]))
+    streams = []
+    for model in (cpu, card):
+        quantize_for_serving(model, "weight_only_int8")
+        K.reset_launches()
+        eng = LLMEngine(model, num_slots=3, block_size=16, max_prompt_len=32,
+                        max_seq_len=128, kv_dtype="int8")
+        ids = [eng.add_request(Request(p, max_new_tokens=8)) for p in prompts]
+        eng.run()
+        eng.assert_quiescent()
+        streams.append([eng.requests[i].tokens for i in ids])
+    counts = K.launches()
+    assert all(counts[k] > 0 for k in K.QUANT_SERVE_KERNELS), counts
+    assert counts["paged_decode"] == counts["paged_chunk"] == 0, counts
+    # an fp32 rounding difference can move one int8 code, so the streams
+    # are held to agree on most tokens, not all
+    pairs = [(a, b) for s0, s1 in zip(*streams) for a, b in zip(s0, s1)]
+    assert np.mean([a == b for a, b in pairs]) >= 0.9
+
+
+@pytest.mark.cuda
+def test_sdpa_on_card_refuses_what_no_kernel_computes():
+    """On the card, ALiBi and a head dim with no flash kernel (96) raise:
+    no plain version stands in for a kernel mode that is still to port.
+    A windowed decode with kv_lens, which the reference's kernel refuses
+    too, takes the eager path (the flash counter stays put) and agrees
+    with the CPU; head dim 128 launches K2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.ops.attention import scaled_dot_product_attention
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 8, 4, 128, generator=g).cuda()
+               for _ in range(3))
+    sl = torch.rand(4, generator=g).cuda()
+    K.reset_launches()
+    with pytest.raises(NotImplementedError, match="ALiBi"):
+        scaled_dot_product_attention(q, k, v, alibi_slopes=sl)
+    with pytest.raises(NotImplementedError, match="head_dim 96"):
+        scaled_dot_product_attention(
+            *(t[..., :96].contiguous() for t in (q, k, v)), is_causal=True)
+    qd = torch.randn(2, 1, 4, 128, generator=g)
+    kd, vd = (torch.randn(2, 12, 2, 128, generator=g) for _ in range(2))
+    lens = torch.tensor([12, 7])
+    want = scaled_dot_product_attention(qd, kd, vd, is_causal=True,
+                                        window=4, kv_lens=lens)
+    got = scaled_dot_product_attention(qd.cuda(), kd.cuda(), vd.cuda(),
+                                       is_causal=True, window=4,
+                                       kv_lens=lens.cuda())
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    assert K.launches()["flash_fwd"] == 0
+    scaled_dot_product_attention(q, k, v, is_causal=True)
+    assert K.launches()["flash_fwd"] == 1

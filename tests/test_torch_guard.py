@@ -24,7 +24,8 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "paddle_tpu_torch.distributed.moe, paddle_tpu_torch.utils.faults, "
         "paddle_tpu_torch.models.mixtral, paddle_tpu_torch.models.qwen2_moe, "
         "paddle_tpu_torch.models.moe_llm, paddle_tpu_torch.models.mistral, "
-        "paddle_tpu_torch.models.qwen, paddle_tpu_torch.ops.cuda.rope\n"
+        "paddle_tpu_torch.models.qwen, paddle_tpu_torch.ops.cuda.rope, "
+        "paddle_tpu_torch.serving.quant\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
@@ -98,7 +99,8 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
     assert chip_smoke.PATHS == {
         "serve": K.SERVE_KERNELS, "train": K.TRAIN_KERNELS,
         "moe_serve": K.MOE_SERVE_KERNELS, "moe_train": K.MOE_TRAIN_KERNELS,
-        "window_serve": K.WINDOW_SERVE_KERNELS}
+        "window_serve": K.WINDOW_SERVE_KERNELS,
+        "quant_serve": K.QUANT_SERVE_KERNELS}
     # K7 rotates every rope of every path
     assert all("rope" in names for names in chip_smoke.PATHS.values())
     assert "rope" in chip_smoke.SOURCES

@@ -155,11 +155,29 @@ def test_unported_paths_raise_naming_their_queue_item():
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
         tl._forward_ep(x, mesh=None, ep=2)
 
-    class Quantized:                       # stands in for a quantized stack
-        def dequantize(self, dtype):
-            raise AssertionError("must not be called")
 
+@pytest.mark.parametrize("grouped", ["1", "0"], ids=["grouped", "dense"])
+def test_quantized_stack_dequantizes_on_the_fly(grouped, monkeypatch):
+    """A stack that is not a tensor (a weight-only quantized one) is
+    dequantized to the compute type inside the forward, on both expert
+    paths; the tensors it gives back make the layer's output."""
+    monkeypatch.setenv("PT_GROUPED_GEMM", grouped)
+    _, tl = _layer_pair(None, True)
+    x = torch.as_tensor(np.random.RandomState(3).randn(2, 6, 32).astype(
+        np.float32))
+    want = tl(x)[0]
+    seen = []
+
+    class Quantized:                       # stands in for a quantized stack
+        def __init__(self, w):
+            self.w = w.detach().clone()
+
+        def dequantize(self, dtype):
+            seen.append(dtype)
+            return self.w.to(dtype)
+
+    gu = tl.experts.gate_up
     del tl.experts.gate_up                 # drop the parameter, then shadow
-    tl.experts.gate_up = Quantized()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
-        tl(x)
+    tl.experts.gate_up = Quantized(gu)
+    np.testing.assert_array_equal(to_np(tl(x)[0]), to_np(want))
+    assert seen == [torch.float32]
