@@ -18,7 +18,8 @@ Phases (each one fails the run when it fails; nothing is caught):
             the training shapes and on a small GQA + kv_lens + window case,
             K6a/K6b (grouped GEMM forward, dlhs, drhs) at the Qwen decode,
             prefill and train shapes, at Mixtral-8x7B width and on a small
-            ragged case (an empty group's drhs exactly 0); K7 (rope) on the
+            ragged case (an empty group's drhs exactly 0), each K6a line
+            naming its route (few-rows, tensor-core or FMA); K7 (rope) on the
             strided q/k views of every path's shapes, its forward equal to
             the plain version bit for bit and its backward within the
             tolerance (timed eager and replayed from a CUDA graph); K2 at
@@ -116,6 +117,11 @@ Phases (each one fails the run when it fails; nothing is caught):
   quant_anatomy  (only when asked for) the same for the quantized model's
             decode tick over an int8 pool (after ``quant_serve``'s
             quantization)
+  k6_tiles  (only when asked for) K6a's tensor-core route at each tile
+            shape of K6_TILES (64 or 128 rows by 128 or 256 columns), each
+            against the plain version and timed at the MoE train and
+            prefill shapes: the measurement behind the tile the kernel
+            source builds
 
 ``--root DIR`` imports the package from another checkout (an earlier
 commit unpacked with ``git archive``), so that two trees can be compared
@@ -125,7 +131,10 @@ The line before the last is a JSON object with one entry per kernel and
 path (``"path": "serve"``, ``"train"``, ``"moe_serve"``, ``"moe_train"``,
 ``"window_serve"`` or ``"quant_serve"``): its launches are counted in that
 path's own run, with every count set to 0 just before it, and its times are
-taken at the shapes that path gives the kernel. The last line is
+taken at the shapes that path gives the kernel; ``"variant"`` names the
+kernel that ran within the CUDA route where a wrapper picks one by dtype
+and shape (K2/K5: ``"wgmma"`` or ``"fma"``; K6a: ``"rows"``, ``"wgmma"``
+or ``"fma"``). The last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero,
 printing no result, when there is no card or the port is not beside it.
 """
@@ -285,18 +294,32 @@ def phase_build():
         f"{time.monotonic() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if any(k in line for k in ("registers", "spill", "Compiling entry")):
+            if any(k in line for k in ("registers", "spill", "Compiling entry",
+                                       "(C75")):
                 log(f"[build] {name}: {line.strip()}")
 
 
 # ---------------------------------------------------------------- kernels
 def _route(FA, name, t):
-    """The kernel a K2 / K5 row ran for inputs like ``t``: K5a (dq) runs
-    fp32 FMAs for every dtype, K2 and K5b the route ``kernel_route`` names
-    ("wgmma" for bf16: the tensor cores); a tree without it ran FMAs."""
-    if name == "flash_bwd_dq" or not hasattr(FA, "kernel_route"):
+    """The kernel a K2 / K5 row ran for inputs like ``t``: the route
+    ``kernel_route`` names ("wgmma" for bf16: the tensor cores) for each
+    kernel of ``ROUTED``. An earlier tree without ``ROUTED`` ran K5a on
+    FMAs, one without ``kernel_route`` every kernel."""
+    routed = getattr(FA, "ROUTED", ("flash_fwd", "flash_bwd_dkv"))
+    if name not in routed or not hasattr(FA, "kernel_route"):
         return "fma"
     return FA.kernel_route(t.dtype, t.shape[-1])
+
+
+def _k6_route(GM, m, e, k, n, dtype, trans=False):
+    """The kernel a K6a launch ran: the route ``fwd_route`` names (an
+    earlier tree without it: the few-rows kernel at the decode shape, the
+    FMA tile elsewhere)."""
+    if hasattr(GM, "fwd_route"):
+        return GM.fwd_route(m, e, k, n, dtype, trans)
+    rows = (not trans and m <= GM.ROWS_KERNEL_MAX_ROWS_PER_GROUP * e
+            and n % (16 // dtype.itemsize) == 0)
+    return "rows" if rows else "fma"
 
 
 def _max_err(a, b, mask=None):
@@ -413,7 +436,7 @@ def serve_kernel_entries(torch, dev, h=4096, nh=32, fp32=True):
                     & valid[:, None, :])[:, None]
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             out["flash_fwd"] = dict(
-                max_abs_err=err,
+                max_abs_err=err, variant=_route(FA, "flash_fwd", q),
                 ms=time_ms(lambda: FA.flash_attention(q, k, v, causal=True,
                                                       kv_lens=kl)),
                 plain_ms=time_ms(lambda: FA.flash_attention_plain(
@@ -626,7 +649,7 @@ def k2_train(torch, dev, shape=TRAIN_SHAPE):
     b_ms, b_by = _attn_bound(b, s, h, d, q.element_size(), 3, 1, 2)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     return dict(
-        max_abs_err=err,
+        max_abs_err=err, variant=_route(FA, "flash_fwd", q),
         ms=time_ms(lambda: FA.flash_fwd_cuda(q, k, v, True, d ** -0.5, None,
                                              None), iters=20),
         plain_ms=time_ms(lambda: FA.flash_attention_fwd_plain(
@@ -698,7 +721,8 @@ def k5(torch, dev, shape=TRAIN_SHAPE):
             ("flash_bwd_dkv", FA.flash_bwd_dkv, 4, 2, 4)):
         b_ms, b_by = _attn_bound(b, s, h, d, es, n_in, n_out, products)
         out[key] = dict(
-            max_abs_err=errs[key], ms=time_ms(lambda: fn(*args), iters=10),
+            max_abs_err=errs[key], variant=_route(FA, key, q),
+            ms=time_ms(lambda: fn(*args), iters=10),
             plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
             bound_by=b_by,
             shape=f"q/k/v/dO {list(shape)} bf16, causal; "
@@ -750,8 +774,9 @@ def _k6_fwd_entry(torch, lhs, rhs, sizes, err, trans=False, iters=20):
     b_ms, b_by = bound((m * k + m * n + live * k * n) * es + 4 * e,
                        2 * m * k * n)
     lib_rhs = rhs.transpose(1, 2) if trans else rhs
+    route = _k6_route(GM, m, e, k, n, lhs.dtype, trans)
     return dict(
-        max_abs_err=err,
+        max_abs_err=err, variant=route,
         ms=time_ms(lambda: GM.grouped_fwd_cuda(lhs, rhs, sizes, trans),
                    iters=iters),
         plain_ms=time_ms(lambda: GM.grouped_matmul_plain(lhs, rhs, sizes,
@@ -762,7 +787,8 @@ def _k6_fwd_entry(torch, lhs, rhs, sizes, err, trans=False, iters=20):
         shape=f"lhs [{m}, {k}] x rhs [{e}, "
               f"{rhs.shape[1]}, {rhs.shape[2]}]"
               f"{' read transposed' if trans else ''} "
-              f"{_short(lhs.dtype)}, {live} of {e} groups live")
+              f"{_short(lhs.dtype)}, {live} of {e} groups live; {route} "
+              f"route")
 
 
 def k6(torch, dev):
@@ -792,8 +818,7 @@ def k6(torch, dev):
             rhs = torch.randn(ne, k, n, generator=g, device=dev).to(dt)
             cot = torch.randn(m, n, generator=g, device=dev).to(dt)
             gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
-            rows = GM.uses_rows_kernel(m, ne, n, rhs)
-            tag = f"ragged m={m} n={n}, {'few-rows' if rows else 'tiled'}"
+            tag = f"ragged m={m} n={n}, K6a {_k6_route(GM, m, ne, k, n, dt)}"
             _agree(f"grouped_fwd ({tag})", dtype, _max_err(
                 GM.grouped_fwd_cuda(lhs, rhs, gs),
                 GM.grouped_matmul_plain(lhs, rhs, gs)))
@@ -854,7 +879,7 @@ def k6(torch, dev):
                     b_ms, b_by = bound((m * k + m * n + ne * k * n) * es,
                                        2 * m * k * n)
                     entries["dw"] = dict(
-                        max_abs_err=err_w,
+                        max_abs_err=err_w, variant="fma",
                         ms=time_ms(lambda: GM.grouped_dw(lhs, cot, gs),
                                    iters=10),
                         plain_ms=time_ms(
@@ -881,6 +906,77 @@ def k6(torch, dev):
             del lhs, rhs, cot, gs, entries
             torch.cuda.empty_cache()
     return out
+
+
+# K6a's tensor-core tile shapes: (warpgroups, columns); the first is the
+# one csrc/grouped_matmul.cu builds (kGemmWG, kGemmBN)
+K6_TILES = ((2, 256), (2, 128), (1, 256), (1, 128))
+
+
+def phase_k6_tiles(torch, dev):
+    """K6a's tensor-core route at each tile shape of K6_TILES, at the
+    MoE train shapes (gate_up and down, forward and dlhs) and the moe_serve
+    prefill shape: each held to the plain version, then timed. The shapes
+    are compiled into one extra library that includes the kernel source,
+    so what is timed is the kernel the port runs, tile aside."""
+    import ctypes
+    from paddle_tpu_torch.ops.cuda import _build
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as GM
+    src = _build.BUILD_DIR / "k6_tiles.cu"
+    lib_path = _build.BUILD_DIR / "k6_tiles.so"
+    cases = "\n".join(
+        f"    case {i}: return launch_fwd_wgmma<{wg}, {bn}>(trans, lhs, rhs, "
+        f"sizes, out, m, k, n, e, stream);"
+        for i, (wg, bn) in enumerate(K6_TILES))
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(
+        '#include "grouped_matmul.cu"\n'
+        'extern "C" int grouped_fwd_tile(int tile, int trans, const void* lhs,'
+        ' const void* rhs, const void* sizes, void* out, int m, int k, int n,'
+        ' int e, void* stream) {\n  switch (tile) {\n' + cases +
+        "\n  }\n  return 1;\n}\n")
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                    str(_build.CSRC), "-o", str(lib_path), str(src)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    v, i = ctypes.c_void_p, ctypes.c_int
+    lib.grouped_fwd_tile.argtypes = [i, i, v, v, v, v, i, i, i, i, v]
+    h, inter, e = MOE_HIDDEN, MOE_INTER, MOE_EXPERTS
+    shapes = (("train gate_up", 4096, h, 2 * inter, False),
+              ("train gate_up dlhs", 4096, 2 * inter, h, True),
+              ("train down", 4096, inter, h, False),
+              ("train down dlhs", 4096, h, inter, True),
+              ("prefill gate_up", 1024, h, 2 * inter, False))
+    for label, tokens, k, n, trans in shapes:
+        lhs, rhs, _, gs = _k6_inputs(torch, dev, tokens, e, MOE_TOPK, k, n,
+                                     torch.bfloat16, 21)
+        if trans:
+            rhs = rhs.transpose(1, 2).contiguous()
+        m = lhs.shape[0]
+        out = torch.empty(m, n, dtype=lhs.dtype, device=dev)
+        ref = GM.grouped_matmul_plain(lhs, rhs, gs, trans)
+        live = int((gs > 0).sum())
+        b_ms, b_by = bound((m * k + m * n + live * k * n) * 2 + 4 * e,
+                           2 * m * k * n)
+
+        def run(tile):
+            rc = lib.grouped_fwd_tile(
+                tile, int(trans), lhs.data_ptr(), rhs.data_ptr(),
+                gs.data_ptr(), out.data_ptr(), m, k, n, e,
+                torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"k6_tiles: launch failed ({rc})")
+        for tile, (wg, bn) in enumerate(K6_TILES):
+            run(tile)
+            _agree(f"grouped_fwd {64 * wg} x {bn} ({label})", "bf16",
+                   _max_err(out, ref))
+            ms = time_ms(lambda: run(tile), iters=20)
+            log(f"[k6_tiles] {label} (lhs [{m}, {k}], n {n}"
+                f"{', rhs read transposed' if trans else ''}): tile "
+                f"{64 * wg} x {bn}: {ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}), {100 * b_ms / ms:.1f}% of bound")
+        del lhs, rhs, gs, out, ref
+        torch.cuda.empty_cache()
 
 
 # -------------------------------------------------------------------- K7
@@ -1109,7 +1205,7 @@ def window_kernel_entries(torch, dev):
             )[None] & valid[:, None, :]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     out["flash_fwd"] = dict(
-        max_abs_err=err,
+        max_abs_err=err, variant=_route(FA, "flash_fwd", q),
         ms=time_ms(lambda: FA.flash_attention(q, k, v, causal=True,
                                               window=window, kv_lens=kl),
                    iters=5, warmup=1),
@@ -1992,7 +2088,8 @@ def _anatomy(torch, label, unit, run, n):
             f"{cnt:5d}x/{unit}  {key[:90]}")
     # the attention kernels one by one, wherever they rank
     for tag, fn in (("K2", "flash_fwd"), ("K5a", "flash_bwd_dq"),
-                    ("K5b", "flash_bwd_dkv")):
+                    ("K5b", "flash_bwd_dkv"), ("K6a", "grouped_fwd"),
+                    ("K6a rows", "grouped_rows"), ("K6b", "grouped_dw")):
         mine = [r for r in rows if fn in r[2]]
         if mine and dev_ms > 0:
             ms = sum(r[0] for r in mine)
@@ -2074,6 +2171,8 @@ def main(argv=None):
     if "build" in phases:
         phase_build()
     results = phase_kernels(torch, dev) if "kernels" in phases else {}
+    if "k6_tiles" in phases:
+        phase_k6_tiles(torch, dev)
     counts = {}                # path -> {kernel: launches in its own run}
     quant = {"quant_serve", "quant_check", "quant_anatomy"} & set(phases)
     if {"serve", "check", "anatomy"} & set(phases) or quant:
@@ -2148,6 +2247,7 @@ def main(argv=None):
             src, rep = SOURCES[name]
             r = results.get(path, {}).get(name, {})
             kern.append({"name": name, "path": path, "route": "cuda",
+                         "variant": r.get("variant"),
                          "source": src, "replaces": rep,
                          "launches": counts.get(path, {}).get(name, 0),
                          "max_abs_err": r.get("max_abs_err"),

@@ -21,9 +21,28 @@
 // Design (blocks run in parallel, so each output is owned by one block and
 // written once; no atomics, so the result is deterministic, as on the TPU):
 //   dq  — one block per (64-row q tile, head, batch row), a loop over the
-//         live key tiles [kbeg, kend) of K2; lane = key in a 32-key tile,
-//         a warp owns 8 query rows, dq accumulates in registers. fp32 FMAs
-//         on the CUDA cores, bf16 and fp32 alike.
+//         live key tiles [kbeg, kend) of K2. Two routes, by dtype
+//         (ops/cuda/flash_attention.py kernel_route):
+//     bf16 — flash_bwd_dq_wgmma_kernel, K5b's design transposed: one
+//         warpgroup, Q and dO loaded once into swizzled shared tiles, the
+//         rows' lse and delta in registers. Per streamed 64-key tile:
+//         S = Q K^T and dP = dO V^T (wgmma m64n64k16, all four operands
+//         K-major in shared memory), P = exp(S scale - lse) and
+//         dS = P (dP - delta) scale on the fp32 fragments (K2's masks, only
+//         on a tile that crosses an edge), then dq += dS K (m64nDk16, dS
+//         rounded to bf16 as the reference rounds it to q's type, a
+//         register A operand; K read transposed from the same shared
+//         tile). dq stays in fp32 registers (D / 2 a thread) and is
+//         written once. The next K/V tile streams in with cp.async (two
+//         stages, zero-filled past kend) while the current one computes.
+//         Under causal the last q tile, the one with the most keys, is the
+//         grid's first. Three products of 2 * 64 * 64 * D flops a tile:
+//         the bound is the tensor-core rate; what holds it below is the
+//         serial wait on each product (one warpgroup, no second one to
+//         overlap the softmax part with).
+//     fp32 — flash_bwd_dq_kernel: lane = key in a 32-key tile, a warp owns
+//         8 query rows, dq accumulates in registers; fp32 FMAs (exact to
+//         the card tests' 1e-4).
 //   dkv — one block per (64-row k tile, KV head, batch row), a loop over
 //         the G query heads of the group and, for each, over the q tiles
 //         that reach the k tile (causal: from the tile's diagonal on;
@@ -516,10 +535,181 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------- K5a, tensor-core route
+// Dynamic shared memory of K5a's tensor-core route: this block's Q and dO
+// tiles, then two stages of the streamed K and V tiles (each [64][D] bf16,
+// swizzled), plus the slack that aligns the tiles to 1024 bytes.
+template <int D>
+constexpr int dq_wgmma_smem_bytes() {
+  return 6 * kTile * D * 2 + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(hopper::kWarpgroup, 2)
+    flash_bwd_dq_wgmma_kernel(
+        const __nv_bfloat16* __restrict__ q,
+        const __nv_bfloat16* __restrict__ k,
+        const __nv_bfloat16* __restrict__ v,
+        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+        const float* __restrict__ delta, const int* __restrict__ kv_lens,
+        __nv_bfloat16* __restrict__ dq, int S, int Sk, int H, int Hkv,
+        float scale, int causal, int window) {
+  using namespace hopper;
+  constexpr int kTileBytes = kTile * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  // Q, dO, then stage st's K at q_s + (2 + 2 st) tiles and V right after
+  const uint32_t q_s = smem_addr(base), do_s = q_s + kTileBytes;
+  const int h = blockIdx.x, b = blockIdx.y;
+  // the last q tile, the one with the most live keys under causal, first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTile;
+  const int kvh = h / (H / Hkv);
+  int klen;
+  const int q_off = row_geometry(kv_lens, b, S, Sk, &klen);
+  // the live key range of this tile's rows: K2's [kbeg, kend)
+  const int last = min(q0 + kTile, S) - 1;
+  int kend = klen;
+  if (causal) kend = min(kend, q_off + last + 1);
+  const int kbeg = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
+  const int iters = kend > kbeg ? (kend - kbeg + kTile - 1) / kTile : 0;
+
+  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)Hkv * D;
+  const size_t q_off_el = ((size_t)b * S + q0) * q_stride + h * D;
+  auto load_kv = [&](int it) {
+    const int k0 = kbeg + it * kTile;
+    const uint32_t k_st = q_s + (2 + 2 * (it & 1)) * kTileBytes;
+    const size_t off = ((size_t)b * Sk + k0) * kv_stride + kvh * D;
+    load_tile<kTile, D>(k_st, k + off, kv_stride, kend - k0);
+    load_tile<kTile, D>(k_st + kTileBytes, v + off, kv_stride, kend - k0);
+  };
+  if (iters > 0) {
+    load_tile<kTile, D>(q_s, q + q_off_el, q_stride, S - q0);
+    load_tile<kTile, D>(do_s, dout + q_off_el, q_stride, S - q0);
+    load_kv(0);
+    cp_async_commit();
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16 + (lane >> 2);  // query rows r0 and r0 + 8
+  const int c0 = 2 * (lane & 3);           // key columns 8j + c0 + {0, 1}
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float sl2 = scale * kLog2e;
+  // this thread's two rows' lse (in base 2) and delta; 0 past S
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qi = q0 + r0 + 8 * hr;
+    const size_t row = ((size_t)b * H + h) * S + qi;
+    lse2[hr] = qi < S ? lse[row] * kLog2e : 0.f;
+    dl[hr] = qi < S ? delta[row] : 0.f;
+  }
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+
+  for (int it = 0; it < iters; ++it) {
+    const int k0 = kbeg + it * kTile;
+    const uint32_t k_st = q_s + (2 + 2 * (it & 1)) * kTileBytes;
+    const uint32_t v_st = k_st + kTileBytes;
+    cp_async_wait<0>();  // step it's tiles (and Q, dO) landed
+    fence_async_smem();
+    __syncthreads();     // ... for every thread; step it - 1 is consumed
+    if (it + 1 < iters) {
+      load_kv(it + 1);   // streams in while step it computes
+      cp_async_commit();
+    }
+    // S = Q K^T and dP = dO V^T on the tensor cores
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    reg_fence(s);
+    reg_fence(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss_n64(s, desc_kmajor<kTile>(q_s, kk),
+                 desc_kmajor<kTile>(k_st, kk));
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss_n64(dp, desc_kmajor<kTile>(do_s, kk),
+                 desc_kmajor<kTile>(v_st, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    // element masks only on a step that crosses kend (kv_lens or the
+    // causal frontier), the causal diagonal or the window's edge
+    const bool edge = k0 + kTile > kend ||
+                      (causal && q_off + q0 < k0 + kTile - 1) ||
+                      (window > 0 && q_off + q0 + kTile - 1 - k0 >= window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int hr = i >> 1;
+        const bool ok =
+            !edge || keep(q_off + q0 + r0 + 8 * hr, k0 + 8 * j + c0 + (i & 1),
+                          klen, causal, window);
+        const float p =
+            ok ? exp2f(fmaf(s[4 * j + i], sl2, -lse2[hr])) : 0.f;
+        dp[4 * j + i] = p * (dp[4 * j + i] - dl[hr]) * scale;
+      }
+    // dq += dS K: dS rounded to bf16 (as the reference rounds it to q's
+    // type) from registers, K transposed from the same shared tile
+    uint32_t da[4][4];
+    to_operand_a<4>(dp, da);
+    reg_fence(dq_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs<D>(dq_acc, da[kk], desc_mnmajor<kTile>(k_st, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dq_acc);
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qi = q0 + r0 + 8 * hr;
+    if (qi >= S) continue;
+    __nv_bfloat16* row = dq + ((size_t)b * S + qi) * q_stride + h * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * hr;
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + c0) =
+          __floats2bfloat162_rn(dq_acc[i], dq_acc[i + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    const void* kv_lens, void* dq, int B, int S, int Sk,
+                    int H, int Hkv, float scale, int causal, int window,
+                    void* stream) {
+  const int smem = dq_wgmma_smem_bytes<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(H, B, (S + kTile - 1) / kTile);
+  flash_bwd_dq_wgmma_kernel<D>
+      <<<grid, hopper::kWarpgroup, smem, (cudaStream_t)stream>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v),
+          static_cast<const __nv_bfloat16*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(dq),
+          S, Sk, H, Hkv, scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (flash_bwd_dkv: the tensor-core
-// route, 16-byte-aligned pointers); head_dim: 64 or 128. kv_lens may be
+// dtype: 0 = float32, 1 = bfloat16 (the tensor-core routes of both entry
+// points: 16-byte-aligned pointers); head_dim: 64 or 128. kv_lens may be
 // null (no padding); window <= 0 means no sliding window. H % Hkv == 0.
 extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q,
                             const void* k, const void* v, const void* dout,
@@ -533,9 +723,13 @@ extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q,
                            H, Hkv, scale, causal, window, stream)
   if (dtype == kF32 && head_dim == 64) PTT_DQ(64, float);
   if (dtype == kF32 && head_dim == 128) PTT_DQ(128, float);
-  if (dtype == kBF16 && head_dim == 64) PTT_DQ(64, __nv_bfloat16);
-  if (dtype == kBF16 && head_dim == 128) PTT_DQ(128, __nv_bfloat16);
 #undef PTT_DQ
+#define PTT_DQ_WGMMA(DIM)                                                  \
+  return launch_dq_wgmma<DIM>(q, k, v, dout, lse, delta, kv_lens, dq, B, S, \
+                              Sk, H, Hkv, scale, causal, window, stream)
+  if (dtype == kBF16 && head_dim == 64) PTT_DQ_WGMMA(64);
+  if (dtype == kBF16 && head_dim == 128) PTT_DQ_WGMMA(128);
+#undef PTT_DQ_WGMMA
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

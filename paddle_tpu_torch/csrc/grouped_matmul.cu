@@ -20,23 +20,45 @@
 // weight read and the host never waits for the sizes.
 //
 // Bound on this card. Prefill and training (hundreds of rows per group):
-// operations, 2*m*k*n against the tensor cores' bf16 rate. Decode (a few
-// rows over many groups): bytes, every non-empty group's weights are read
-// once for one or two rows. This first version computes with fp32 FMAs on
-// the CUDA cores from shared-memory tiles (operands converted to fp32 on
-// the way in, register prefetch of the next slab), so the large shapes sit
-// far below the tensor-core bound; wgmma + TMA is later work. The decode
-// shape has its own kernel (grouped_rows_kernel): with one to four rows per
-// group there is nothing to reuse a shared-memory tile for, so a block
-// streams a 256-column strip of its group's weights once with 16-byte
-// loads, eight warps splitting k between them and eight loads in flight
-// per thread, multiplies it into the tile's live rows held in registers
-// and sums the warps' partial results in a fixed order.
+// about balanced; at the MoE train shape (60 groups of ~273 rows, k 2048,
+// n 2816) each weight byte meets ~273 flops, under the H100's ~295, so
+// reading every expert's weights once bounds it, with the products close
+// behind. Decode (a few rows over many groups): bytes, every non-empty
+// group's weights are read once for one or two rows. Three kernels, chosen
+// by the wrapper from the static shapes, dtype and alignment alone
+// (ops/cuda/grouped_matmul.py fwd_route):
+//   wgmma (bf16, k and n multiples of 8, 16-byte-aligned pointers) —
+//     grouped_fwd_wgmma_kernel: a 128 x 256 output tile, two warpgroups of
+//     64 rows each, products on the tensor cores (wgmma m64n256k16, bf16
+//     operands, fp32 accumulators cast once). lhs slabs [128][64] K-major
+//     and rhs slabs 64 x 256 (MN-major from [k, n] for the forward, K-major
+//     from [n, k] for dlhs, the descriptor's transpose bit choosing) stream
+//     through a four-stage cp.async ring in 128-byte-swizzled tiles,
+//     zero-filled past the group's rows, past k and past n; two slabs load
+//     and one product runs while the next product is issued. The grid is
+//     rastered by group (all row tiles of one column strip of one expert
+//     next to each other), so an expert's weights come from device memory
+//     about once and from L2 for its other row tiles; a warpgroup whose
+//     rows all lie past its group's end (a tail tile) multiplies nothing,
+//     so a tail wastes at most 63 rows of products. What holds it below
+//     the bound: one block an SM (193 KB of shared memory), cp.async
+//     issued by the compute warps themselves (no TMA producer), and the
+//     tail rows.
+//   fma (float32, and whatever the tensor-core route refuses) —
+//     grouped_fwd_kernel: fp32 FMAs on the CUDA cores from shared-memory
+//     tiles (operands converted to fp32 on the way in, register prefetch
+//     of the next slab); exact to the card tests' 1e-4 in float32.
+//   rows (the decode shape) — grouped_rows_kernel: with one to four rows
+//     per group there is nothing to reuse a shared-memory tile for, so a
+//     block streams a 256-column strip of its group's weights once with
+//     16-byte loads, eight warps splitting k between them and eight loads
+//     in flight per thread, multiplies it into the tile's live rows held in
+//     registers and sums the warps' partial results in a fixed order.
 //
 // K6b: one block per (group, k tile, n tile) loops over its group's rows,
 // so the sum over rows is taken in registers in a fixed order: no atomics,
 // the result is deterministic, and a block of an empty group writes zeros.
-#include "common.cuh"
+#include "hopper_mma.cuh"
 
 using namespace ptt;
 
@@ -201,6 +223,165 @@ int launch_fwd(int trans, const void* lhs, const void* rhs, const void* sizes,
         a, b, s, o, m, k, n, e, static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
+
+// ------------------------------------------ K6a, tensor-core route (bf16)
+constexpr int kGemmBK = 64;     // k per stage: one 128-byte line of bf16
+constexpr int kGemmStages = 4;  // cp.async ring: two loads and one
+                                // product in flight beside the current one
+
+// Dynamic shared memory of the tensor-core route: kGemmStages stages of an
+// lhs tile [64 WG][64] and an rhs tile (64 x BN), plus the slack that
+// aligns the tiles to 1024 bytes.
+template <int WG, int BN>
+constexpr int gemm_wgmma_smem_bytes() {
+  return kGemmStages * (64 * WG + BN) * kGemmBK * 2 + 1024;
+}
+
+// WG warpgroups, each owning 64 rows of a (64 WG) x BN output tile; lhs
+// K-major, rhs [k, n] MN-major or, TRANS, [n, k] K-major. Blocks are
+// rastered by group: the linear block index walks group g's tiles (all its
+// row tiles of one column strip next to each other, then the next strip)
+// before group g + 1's, so the strips of one expert's weights are read
+// from device memory about once and from L2 by its other row tiles.
+template <int WG, int BN, bool TRANS>
+__global__ void __launch_bounds__(WG * hopper::kWarpgroup, 1)
+    grouped_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ lhs,
+                             const __nv_bfloat16* __restrict__ rhs,
+                             const int* __restrict__ sizes,
+                             __nv_bfloat16* __restrict__ out, int m, int k,
+                             int n, int e, int n_tiles) {
+  using namespace hopper;
+  constexpr int BM = 64 * WG, THREADS = WG * kWarpgroup;
+  constexpr int kABytes = BM * kGemmBK * 2, kStage = kABytes + BN * kGemmBK * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t s0 = smem_addr(base);
+  // this block's group, row tile and column strip
+  int rest = blockIdx.x, g = 0, start = 0, row0 = -1, row_end = 0, n0 = 0;
+  for (; g < e; ++g) {
+    const int sz = max(sizes[g], 0);
+    const int tiles = (sz + BM - 1) / BM;
+    if (rest < tiles * n_tiles) {
+      row0 = start + (rest % tiles) * BM;
+      n0 = (rest / tiles) * BN;
+      row_end = min(start + sz, m);
+      break;
+    }
+    rest -= tiles * n_tiles;
+    start += sz;
+  }
+  if (row0 < 0 || row0 >= row_end) return;  // past the live tiles
+  const int nrows = min(BM, row_end - row0);
+  const __nv_bfloat16* x = lhs + (size_t)row0 * k;
+  const __nv_bfloat16* w = rhs + (size_t)g * k * n;
+  const int nk = (k + kGemmBK - 1) / kGemmBK;
+  // stage `step % kGemmStages` <- k slab `step`, zero-filled past the
+  // group's rows, past k and past n; every thread commits one group
+  auto load = [&](int step) {
+    if (step < nk) {
+      const uint32_t st = s0 + (step % kGemmStages) * kStage;
+      const int k0 = step * kGemmBK;
+      load_tile_masked<BM, kGemmBK, THREADS>(st, x + k0, k, nrows, k - k0);
+      if (TRANS)
+        load_tile_masked<BN, kGemmBK, THREADS>(
+            st + kABytes, w + (size_t)n0 * k + k0, k, n - n0, k - k0);
+      else
+        load_tile_masked<kGemmBK, BN, THREADS>(
+            st + kABytes, w + (size_t)k0 * n + n0, n, k - k0, n - n0);
+    }
+    cp_async_commit();
+  };
+
+  // a warpgroup whose 64 rows all lie past the group's end (the tail
+  // tile of a group) loads with the others but multiplies nothing. The
+  // warpgroup index is broadcast from lane 0 so that the compiler sees
+  // the branch as uniform over each warp: a branch it must treat as
+  // divergent makes it serialize every wgmma inside it
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWarpgroup, 0);
+  const bool live = 64 * wg < nrows;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  reg_fence(acc);
+  for (int st = 0; st < kGemmStages - 2; ++st) load(st);
+  for (int it = 0; it < nk; ++it) {
+    cp_async_wait<kGemmStages - 3>();  // slab it landed
+    fence_async_smem();
+    // every thread's copies of slab it are visible, and every warpgroup
+    // has retired its product of slab it - 2, whose stage the next load
+    // takes
+    __syncthreads();
+    load(it + kGemmStages - 2);
+    if (live) {
+      const uint32_t a = s0 + (it % kGemmStages) * kStage + wg * 64 * 128;
+      const uint32_t b = s0 + (it % kGemmStages) * kStage + kABytes;
+      // (acc is not fenced here: the product of slab it - 1 may still
+      // own it)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kGemmBK / 16; ++kk)
+        mma_ss<BN, (TRANS ? 0 : 1)>(acc, desc_kmajor<64>(a, kk),
+                                  TRANS ? desc_kmajor<BN>(b, kk)
+                                        : desc_mnmajor<kGemmBK>(b, kk));
+      wgmma_commit();
+      wgmma_wait<1>();  // slab it - 1's product retired
+    }
+  }
+  if (!live) return;
+  wgmma_wait<0>();
+  reg_fence(acc);
+  // fp32 accumulator -> bf16, once; rows past the group's end and
+  // columns past n are not written
+  const int warp = (threadIdx.x % kWarpgroup) >> 5, lane = threadIdx.x & 31;
+  const int r0 = row0 + 64 * wg + 16 * warp + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = r0 + 8 * hr;
+    if (r >= row_end) continue;
+    __nv_bfloat16* orow = out + (size_t)r * n + n0;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = 8 * j + c0;
+      if (n0 + c < n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
+    }
+  }
+}
+
+template <int WG, int BN>
+int launch_fwd_wgmma(int trans, const void* lhs, const void* rhs,
+                     const void* sizes, void* out, int m, int k, int n, int e,
+                     void* stream) {
+  constexpr int BM = 64 * WG;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(lhs) |
+                          reinterpret_cast<uintptr_t>(rhs) |
+                          reinterpret_cast<uintptr_t>(out);
+  if (k % 8 != 0 || n % 8 != 0 || align % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_tiles = (n + BN - 1) / BN;
+  const long long slots = (m + BM - 1) / BM + e;  // static bound
+  if (n_tiles * slots > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = gemm_wgmma_smem_bytes<WG, BN>();
+  auto kernel = trans ? grouped_fwd_wgmma_kernel<WG, BN, true>
+                      : grouped_fwd_wgmma_kernel<WG, BN, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(n_tiles * slots), WG * hopper::kWarpgroup,
+           smem, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(lhs),
+      static_cast<const __nv_bfloat16*>(rhs), static_cast<const int*>(sizes),
+      static_cast<__nv_bfloat16*>(out), m, k, n, e,
+      static_cast<int>(n_tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the tensor-core route's tile: two warpgroups (128 rows) by 256 columns,
+// the fastest of the shapes chip_smoke.py's k6_tiles phase times
+constexpr int kGemmWG = 2, kGemmBN = 256;
 
 // ------------------------------------------------- K6a, few rows per group
 constexpr int kRowsTile = 4;    // rows of a group per block
@@ -438,19 +619,27 @@ int launch_dw(const void* lhs, const void* gr, const void* sizes, void* drhs,
 
 // dtype: 0 = float32, 1 = bfloat16 (lhs, rhs and out alike). lhs [m, k],
 // sizes [e] int32 on the device, out [m, n]. trans == 0: rhs [e, k, n];
-// trans != 0: rhs [e, n, k], read transposed (the backward's dlhs).
-// rows != 0 picks the few-rows-per-group kernel (the decode shape); the
-// wrapper decides from m, e, n and the alignment of rhs; it takes no
-// transposed rhs. Rows past sum(sizes) are not written.
-extern "C" int grouped_fwd(int dtype, int trans, int rows, const void* lhs,
+// trans != 0: rhs [e, n, k], read transposed (the backward's dlhs). kind
+// picks the kernel (the wrapper's fwd_route decides from the static
+// shapes, the dtype and the alignment): 0 the FMA tile, 1 the
+// few-rows-per-group kernel (the decode shape; no transposed rhs), 2 the
+// tensor-core tile (bf16, k and n multiples of 8, 16-byte-aligned
+// pointers). Rows past sum(sizes) are not written.
+extern "C" int grouped_fwd(int dtype, int trans, int kind, const void* lhs,
                            const void* rhs, const void* sizes, void* out,
                            int m, int k, int n, int e, void* stream) {
   if (m <= 0 || n <= 0 || e <= 0) return 0;
-  if (rows && trans) return static_cast<int>(cudaErrorInvalidValue);
-#define PTT_GFWD(T)                                                       \
-  return rows ? launch_rows<T>(lhs, rhs, sizes, out, m, k, n, e, stream)  \
-              : launch_fwd<T, Large>(trans, lhs, rhs, sizes, out, m, k, n, \
-                                     e, stream)
+  if (kind == 1 && trans) return static_cast<int>(cudaErrorInvalidValue);
+  if (kind == 2)
+    return dtype == kBF16 ? launch_fwd_wgmma<kGemmWG, kGemmBN>(
+                                trans, lhs, rhs, sizes, out, m, k, n, e,
+                                stream)
+                          : static_cast<int>(cudaErrorInvalidValue);
+#define PTT_GFWD(T)                                                        \
+  return kind == 1                                                         \
+             ? launch_rows<T>(lhs, rhs, sizes, out, m, k, n, e, stream)    \
+             : launch_fwd<T, Large>(trans, lhs, rhs, sizes, out, m, k, n, \
+                                    e, stream)
   if (dtype == kF32) PTT_GFWD(float);
   if (dtype == kBF16) PTT_GFWD(__nv_bfloat16);
 #undef PTT_GFWD

@@ -8,10 +8,10 @@ of the reference's ``custom_vjp``). On CUDA tensors its forward launches
 ``csrc/flash_fwd.cu`` (K2), which also writes the log-sum-exp, and its
 backward launches the two kernels of ``csrc/flash_bwd.cu`` (K5a dq, K5b
 dk/dv) from the saved O and LSE; a CUDA tensor the kernels cannot take
-raises. :func:`kernel_route` names the kernel K2 and K5b run for a dtype
-and head dim: bf16 runs on the tensor cores (``wgmma``, see
-``csrc/hopper_mma.cuh``), float32 on fp32 FMAs (exact to 1e-4). K5a runs
-fp32 FMAs for both. On CPU tensors the same ``Function`` runs
+raises. :func:`kernel_route` names the kernel K2, K5a and K5b run for a
+dtype and head dim: bf16 runs on the tensor cores (``wgmma``, see
+``csrc/hopper_mma.cuh``), float32 on fp32 FMAs (exact to 1e-4). On CPU
+tensors the same ``Function`` runs
 :func:`flash_attention_fwd_plain` and :func:`flash_attention_bwd_plain`.
 ``kv_lens`` gets no gradient. Launch counters:
 ``flash_attention.launches`` (K2), ``flash_bwd_dq.launches`` (K5a),
@@ -30,8 +30,10 @@ import torch
 from paddle_tpu_torch.ops.cuda import _build
 
 HEAD_DIMS = (64, 128)
-# the kernel K2 and K5b launch for each input dtype
+# the kernel each of ROUTED launches for each input dtype
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fma"}
+# the kernels whose route kernel_route names: K2, K5a (dq), K5b (dk/dv)
+ROUTED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 # most-negative bf16-representable, as in ops/attention.py
 _NEG_INF = -2.3819763e38
@@ -142,11 +144,12 @@ def _lib(name):
 
 
 def kernel_route(dtype, head_dim):
-    """The kernel K2 and K5b launch for inputs of ``dtype`` at
-    ``head_dim``: "wgmma" (bf16: products on the Hopper tensor cores, bf16
-    operands, fp32 accumulators) or "fma" (float32: fp32 FMAs on the CUDA
-    cores). Raises NotImplementedError for another head dim and TypeError
-    for another dtype."""
+    """The kernel K2, K5a and K5b (:data:`ROUTED`) launch for inputs of
+    ``dtype`` at ``head_dim``: "wgmma" (bf16: products on the Hopper tensor
+    cores, bf16 operands, fp32 accumulators; K5a rounds dS to bf16 before
+    dS K, as the reference rounds it to q's type) or "fma" (float32: fp32
+    FMAs on the CUDA cores). Raises NotImplementedError for another head
+    dim and TypeError for another dtype."""
     if head_dim not in HEAD_DIMS:
         raise NotImplementedError(
             f"flash kernel head_dim {head_dim}: built for {HEAD_DIMS}")

@@ -15,7 +15,10 @@ transposed in the kernel (no transposed copy) and ``drhs`` with K6b, or
 :func:`grouped_matmul_bwd_plain` on the CPU. ``group_sizes`` gets no
 gradient and is never read back to the host on the kernel path: the launch
 covers the static bound of row tiles and each block finds its group on the
-device. ``grouped_matmul.launches`` counts K6a launches (forward and dlhs),
+device. :func:`fwd_route` names the kernel a K6a launch runs: the few-rows
+kernel at the decode shape, the tensor cores (``wgmma``) for bf16 at the
+prefill and train shapes, forward and dlhs alike, fp32 FMAs for float32.
+``grouped_matmul.launches`` counts K6a launches (forward and dlhs),
 ``grouped_dw.launches`` K6b launches.
 
 ``PT_GROUPED_GEMM=0`` (:func:`grouped_gemm_enabled`) keeps its meaning: the
@@ -34,14 +37,30 @@ from paddle_tpu_torch.ops.cuda import _build
 # decode shape: a few rows spread over many groups, each group's weights
 # streamed once)
 ROWS_KERNEL_MAX_ROWS_PER_GROUP = 8
+# the kernel code grouped_fwd in csrc/grouped_matmul.cu takes for a route
+_KIND = {"fma": 0, "rows": 1, "wgmma": 2}
 
 
-def uses_rows_kernel(m, e, n, rhs, trans_rhs=False) -> bool:
-    """Whether a launch takes the few-rows kernel: decided from the static
-    shapes and the weights' alignment alone (16-byte loads along n)."""
-    vec = 16 // rhs.element_size()
-    return (not trans_rhs and m <= ROWS_KERNEL_MAX_ROWS_PER_GROUP * e
-            and n % vec == 0 and rhs.data_ptr() % 16 == 0)
+def fwd_route(m, e, k, n, dtype, trans=False, aligned=True) -> str:
+    """The kernel one K6a launch of ``lhs [m, k]`` against ``E = e``
+    groups' weights (``[e, k, n]``, or ``[e, n, k]`` read transposed when
+    ``trans``: the backward's dlhs) runs, from the static shapes, the dtype
+    and whether the weights are 16-byte aligned (``aligned``) alone:
+
+    * ``"rows"``: the few-rows kernel, for the decode shape (at most
+      ``ROWS_KERNEL_MAX_ROWS_PER_GROUP`` rows a group on average, n a
+      whole number of 16-byte loads, no transposed weights);
+    * ``"wgmma"``: bf16 on the tensor cores (k and n multiples of 8);
+    * ``"fma"``: fp32 FMAs, for float32 and whatever the other two refuse.
+
+    Every route is a kernel: a CUDA tensor never reaches
+    :func:`grouped_matmul_plain`."""
+    if (not trans and m <= ROWS_KERNEL_MAX_ROWS_PER_GROUP * e
+            and n % (16 // dtype.itemsize) == 0 and aligned):
+        return "rows"
+    if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and aligned:
+        return "wgmma"
+    return "fma"
 
 
 def grouped_gemm_enabled() -> bool:
@@ -135,20 +154,25 @@ def _same_device(what, *tensors):
 
 def grouped_fwd_cuda(lhs, rhs, group_sizes, trans_rhs=False):
     """One launch of K6a on CUDA tensors. ``trans_rhs``: ``rhs`` is
-    ``[E, n, k]`` and is read transposed. The kernel variant is chosen from
-    the static shapes alone; ``group_sizes`` is not read on the host."""
+    ``[E, n, k]`` and is read transposed. The kernel is the one
+    :func:`fwd_route` names; ``group_sizes`` is not read on the host."""
     _check(lhs, rhs, group_sizes, trans_rhs)
     _same_device("grouped_matmul", lhs, rhs, group_sizes)
+    # lhs 16-byte aligned for the tensor-core route's copies (a contiguous
+    # view may start mid-allocation); the weights are never copied
     lhs, rhs, sizes = lhs.contiguous(), rhs.contiguous(), \
         group_sizes.contiguous()
+    if lhs.data_ptr() % 16:
+        lhs = lhs.clone()
     m, k = lhs.shape
     e = rhs.shape[0]
     n = rhs.shape[1] if trans_rhs else rhs.shape[2]
     out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
-    rows = uses_rows_kernel(m, e, n, rhs, trans_rhs)
+    route = fwd_route(m, e, k, n, lhs.dtype, trans_rhs,
+                      rhs.data_ptr() % 16 == 0)
     lib = _lib()
     rc = lib.grouped_fwd(_build.dtype_code(lhs, "grouped_matmul"),
-                         int(trans_rhs), int(rows), _build.ptr(lhs),
+                         int(trans_rhs), _KIND[route], _build.ptr(lhs),
                          _build.ptr(rhs), _build.ptr(sizes), _build.ptr(out),
                          m, k, n, e, _build.stream(lhs))
     _build.check(lib, rc, "grouped_matmul")

@@ -300,6 +300,110 @@ def test_flash_kernels_match_plain_at_tile_edges(dtype, tol, d, case):
         close(got, ref)
 
 
+# K5a's tensor-core route at its edges: b, S, Sk, causal, window, kv_lens
+DQ_CASES = {
+    "ragged_s": (2, 77, 77, True, None, None),
+    "short_kv_row": (2, 150, 150, True, None, (150, 40)),
+    "window": (2, 200, 200, True, 48, None),
+    "dead_rows": (3, 5, 70, True, None, (70, 3, 0)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", DQ_CASES.keys())
+def test_flash_dq_tensor_core_route_matches_plain(d, group, case):
+    """K5a's bf16 route (kernel_route "wgmma": dS rounded to bf16, as the
+    Pallas kernel rounds it to q's type) against flash_attention_bwd_plain's
+    dq within 2e-2 * (1 + |x|): S off the 64-row tiles, GQA groups 1-8, a
+    kv_lens row shorter than one key tile, a sliding window, and rows with
+    no live key (five queries end-aligned past kv_lens 3, and a row of
+    kv_lens 0), whose dq is exactly 0. No atomics: two runs give identical
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    dev = torch.device("cuda")
+    b, s, sk, causal, window, lens = DQ_CASES[case]
+    hkv = 2
+    h = hkv * group
+    assert TF.kernel_route(torch.bfloat16, d) == "wgmma"
+    assert "flash_bwd_dq" in TF.ROUTED
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+
+    q, do = rnd(b, s, h, d), rnd(b, s, h, d)
+    k, v = rnd(b, sk, hkv, d), rnd(b, sk, hkv, d)
+    kl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=dev)
+    args = (causal, d ** -0.5, window, kl)
+    o, lse = TF.flash_fwd_cuda(q, k, v, *args)
+    _, keep = TF._masked_scores(q, k, causal, 1.0, window, kl)
+    live = keep.any(-1)[:, 0].expand(b, s)                  # [B, S]
+    padded = live
+    if kl is not None and s == sk:
+        padded = live & (torch.arange(s, device=dev)[None, :] < kl[:, None])
+    do = do * padded[:, :, None, None]
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    n0 = TF.flash_bwd_dq.launches
+    runs = [TF.flash_bwd_dq(1, q, k, v, do, lse, delta, *args)
+            for _ in range(2)]
+    assert TF.flash_bwd_dq.launches == n0 + 2
+    assert torch.equal(runs[0], runs[1])
+    ref = TF.flash_attention_bwd_plain(q, k, v, o, lse, do, *args)[0]
+    assert runs[0].dtype == ref.dtype == torch.bfloat16
+    err = (runs[0].float() - ref.float()).abs() / (1 + ref.float().abs())
+    assert float(err.max()) <= 2e-2
+    if case == "dead_rows":
+        assert int((~live).sum()) == 2 + 5
+        assert not runs[0][~live].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans", [False, True], ids=["forward", "dlhs"])
+@pytest.mark.parametrize("k,n", [(72, 200), (2048, 256)],
+                         ids=["k72", "k2048"])
+def test_grouped_fwd_tensor_core_route_matches_plain(trans, k, n):
+    """K6a's bf16 route (fwd_route "wgmma"), forward and read transposed
+    (dlhs), against grouped_matmul_plain within 2e-2 * (1 + |x|) over
+    empty groups and groups of 1, 63, 64, 65, 129 and 300 rows (tails of
+    the 64-row warpgroups and 128-row tiles), at a k off the 64-wide slabs
+    and at full slabs (k 2048). Rows past the ragged total are not written
+    (the launch fills a NaN buffer); two runs give identical bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    dev = torch.device("cuda")
+    sizes = [0, 63, 1, 64, 65, 0, 129, 300, 0]
+    e, total = len(sizes), sum(sizes)
+    m = total + 5
+    g = torch.Generator(device=dev).manual_seed(8)
+    lhs = torch.randn(m, k, generator=g, device=dev).bfloat16()
+    shape = (e, n, k) if trans else (e, k, n)
+    rhs = (torch.randn(*shape, generator=g, device=dev) * k ** -0.5
+           ).bfloat16()
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    assert TG.fwd_route(m, e, k, n, torch.bfloat16, trans) == "wgmma"
+    n0 = TG.grouped_matmul.launches
+    runs = [TG.grouped_fwd_cuda(lhs, rhs, gs, trans) for _ in range(2)]
+    assert TG.grouped_matmul.launches == n0 + 2
+    assert torch.equal(runs[0][:total], runs[1][:total])
+    ref = TG.grouped_matmul_plain(lhs, rhs, gs, trans)
+    err = ((runs[0][:total].float() - ref[:total].float()).abs()
+           / (1 + ref[:total].float().abs()))
+    assert float(err.max()) <= 2e-2
+    out = torch.full((m, n), float("nan"), dtype=torch.bfloat16, device=dev)
+    lib = TG._lib()
+    rc = lib.grouped_fwd(1, int(trans), TG._KIND["wgmma"], lhs.data_ptr(),
+                         rhs.data_ptr(), gs.data_ptr(), out.data_ptr(), m, k,
+                         n, e, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out[:total], runs[0][:total])
+    assert bool(out[total:].isnan().all())
+
+
 @pytest.mark.cuda
 def test_train_step_on_card_matches_cpu_and_launches_its_kernels():
     """Three AdamW steps of a 2-layer model at head_dim 128 in float32:
@@ -364,7 +468,8 @@ def test_grouped_matmul_kernels_match_plain(dtype, tol, sizes, n, rows_kernel):
     rhs = torch.randn(e, k, n, generator=g, device=dev).to(dtype)
     cot = torch.randn(m, n, generator=g, device=dev).to(dtype)
     gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
-    assert TG.uses_rows_kernel(m, e, n, rhs) == rows_kernel
+    assert (TG.fwd_route(m, e, k, n, dtype) == "rows") == rows_kernel
+    assert TG.fwd_route(m, e, n, k, dtype, trans=True) != "rows"
 
     def close(a, b):
         assert a.dtype == b.dtype == dtype and a.shape == b.shape

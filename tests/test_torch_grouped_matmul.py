@@ -146,13 +146,75 @@ def test_kill_switch_reads_the_environment(monkeypatch):
 
 
 def test_kernel_choice_reads_static_shapes_only():
-    """The few-rows kernel is chosen from m, E, n and the weights'
-    alignment: the decode shape takes it, the prefill/train shapes, a
-    transposed rhs and an n its 16-byte loads cannot take do not."""
-    w = torch.zeros(60, 16, 64, dtype=torch.bfloat16)
-    assert GM.uses_rows_kernel(32, 60, 64, w)
-    assert GM.uses_rows_kernel(8 * 60, 60, 64, w)
-    assert not GM.uses_rows_kernel(8 * 60 + 1, 60, 64, w)
-    assert not GM.uses_rows_kernel(32, 60, 64, w, trans_rhs=True)
-    assert not GM.uses_rows_kernel(32, 60, 60, w)          # 60 % 8 != 0
-    assert GM.uses_rows_kernel(32, 60, 60, w.float())      # 60 % 4 == 0
+    """The few-rows kernel is chosen from m, E, n, the dtype and the
+    weights' alignment: the decode shape takes it, the prefill/train
+    shapes, a transposed rhs, an n its 16-byte loads cannot take and
+    unaligned weights do not."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert GM.fwd_route(32, 60, 16, 64, bf16) == "rows"
+    assert GM.fwd_route(8 * 60, 60, 16, 64, bf16) == "rows"
+    assert GM.fwd_route(8 * 60 + 1, 60, 16, 64, bf16) != "rows"
+    assert GM.fwd_route(32, 60, 16, 64, bf16, trans=True) != "rows"
+    assert GM.fwd_route(32, 60, 16, 60, bf16) != "rows"     # 60 % 8 != 0
+    assert GM.fwd_route(32, 60, 16, 60, f32) == "rows"      # 60 % 4 == 0
+    assert GM.fwd_route(32, 60, 16, 64, bf16, aligned=False) != "rows"
+
+
+# (label, m, E, k, n, trans, aligned, route for bf16, route for float32):
+# Qwen1.5-MoE-A2.7B's shapes (hidden 2048, experts 60 of 1408, top-4)
+ROUTE_CASES = [
+    ("decode_gate_up", 32, 60, 2048, 2816, False, True, "rows", "rows"),
+    ("decode_down", 32, 60, 1408, 2048, False, True, "rows", "rows"),
+    ("decode_dlhs", 32, 60, 2816, 2048, True, True, "wgmma", "fma"),
+    ("prefill_gate_up", 4096, 60, 2048, 2816, False, True, "wgmma", "fma"),
+    ("train_gate_up", 16384, 60, 2048, 2816, False, True, "wgmma", "fma"),
+    ("train_dlhs", 16384, 60, 2816, 2048, True, True, "wgmma", "fma"),
+    ("ragged_k72", 207, 8, 72, 200, False, True, "wgmma", "fma"),
+    ("k_off_8", 4096, 60, 2044, 2816, False, True, "fma", "fma"),
+    ("n_off_8", 4096, 60, 2048, 2812, True, True, "fma", "fma"),
+    ("unaligned", 4096, 60, 2048, 2816, False, False, "fma", "fma"),
+    ("unaligned_decode", 32, 60, 2048, 2816, False, False, "fma", "fma"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
+def test_fwd_route_names_a_kernel_for_every_shape_and_dtype(case, dtype):
+    """fwd_route is a pure function of the static shapes, the dtype and
+    the weights' alignment: bf16 takes the tensor cores at the prefill and
+    train shapes, forward and dlhs; float32 keeps fp32 FMAs; the decode
+    shape keeps the few-rows kernel; whatever the tensor-core route
+    refuses names the FMA kernel, never the plain version."""
+    _, m, e, k, n, trans, aligned, bf16_route, f32_route = case
+    route = GM.fwd_route(m, e, k, n, dtype, trans, aligned)
+    assert route == (bf16_route if dtype == torch.bfloat16 else f32_route)
+    assert route in GM._KIND
+
+
+# groups that straddle the 64-row warpgroups and 128-row tiles of the
+# tensor-core route, with empty and one-row groups
+TILE_EDGE_SIZES = [63, 0, 64, 65, 1, 129, 0, 130]
+
+
+def test_plain_forward_and_dlhs_bf16_match_pallas_at_tile_edges():
+    """In bf16, the plain forward and the plain dlhs (the forward against
+    rhs read transposed) against the interpreted Pallas kernels and
+    jax.vjp through them, over a partition whose groups straddle 64- and
+    128-row tiles; both accumulate in fp32 and round once to bf16, so they
+    agree within 2e-2 * (1 + |value|)."""
+    e, k, n = len(TILE_EDGE_SIZES), 24, 40
+    lhs, rhs, gs = _case(e, k, n, TILE_EDGE_SIZES, seed=5)
+    cot = np.random.RandomState(6).randn(lhs.shape[0], n).astype(np.float32)
+    jl, jr, jc = (jnp.asarray(a, jnp.bfloat16) for a in (lhs, rhs, cot))
+    out, vjp = jax.vjp(lambda a: j_grouped_matmul(
+        a, jr, jnp.asarray(gs), impl="pallas", interpret=True), jl)
+    (jdlhs,) = vjp(jc)
+    tl, tr, tc = (to_tensor(np.asarray(a)) for a in (jl, jr, jc))
+    tg = torch.as_tensor(gs)
+    got = GM.grouped_matmul(tl, tr, tg)
+    dlhs, _ = GM.grouped_matmul_bwd_plain(tl, tr, tg, tc)
+    for mine, ref in ((got, out), (dlhs, jdlhs)):
+        assert mine.dtype == torch.bfloat16
+        want = np.asarray(ref.astype(jnp.float32))
+        assert np.all(np.abs(to_np(mine) - want) <= 2e-2 * (1 + np.abs(want)))

@@ -228,6 +228,44 @@ def test_flash_backward_matches_pallas(h, hkv, causal, window, lens, s, sk):
                                    atol=1e-5)
 
 
+@pytest.mark.parametrize("hkv,causal,window,lens,s,sk", [
+    (2, True, 6, None, 37, 37), (1, True, None, (40, 23), 40, 40),
+    (4, True, None, (70, 3), 5, 70), (2, False, None, None, 33, 33)],
+    ids=["gqa_window", "gqa4_kv_lens", "s5_dead_rows", "full"])
+def test_flash_dq_bf16_matches_pallas(hkv, causal, window, lens, s, sk):
+    """In bf16, dq of flash_attention's backward on CPU tensors (the plain
+    version, which keeps dS in fp32) against jax.grad through the Pallas
+    kernels in interpret mode (whose _dq_kernel rounds dS to bf16 before
+    dS K, as the card's tensor-core K5a does): within 2e-2 * (1 + |dq|)
+    at head dim 64, S off the tiles, GQA, a window, kv_lens and rows with
+    no live key (dq 0 on both sides)."""
+    rs = np.random.RandomState(12)
+    b, h, d = 2, 4, 64
+    q, g = (rs.randn(b, s, h, d).astype(np.float32) for _ in range(2))
+    k, v = (rs.randn(b, sk, hkv, d).astype(np.float32) for _ in range(2))
+    if lens is not None:
+        lens = np.asarray(lens, np.int32)
+        g = g * _live_rows(s, sk, lens)[:, :, None, None]
+    jq, jk, jv, jg = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g))
+    want = jax.grad(lambda q: jnp.sum(JF.flash_attention(
+        q, jk, jv, causal=causal, window=window,
+        kv_lens=None if lens is None else jnp.asarray(lens), block_q=8,
+        block_k=8, interpret=True).astype(jnp.float32)
+        * jg.astype(jnp.float32)))(jq)
+    qt, kt, vt, gt = (torch.tensor(np.asarray(a.astype(jnp.float32)))
+                      .bfloat16() for a in (jq, jk, jv, jg))
+    qt.requires_grad_()
+    out = TF.flash_attention(qt, kt, vt, causal=causal, window=window,
+                             kv_lens=None if lens is None else _t(lens))
+    (out.float() * gt.float()).sum().backward()
+    assert qt.grad.dtype == torch.bfloat16
+    ref = to_np(want)
+    assert np.all(np.abs(to_np(qt.grad) - ref) <= 2e-2 * (1 + np.abs(ref)))
+    if lens is not None and s < sk:
+        dead = ~np.broadcast_to(_live_rows(s, sk, lens), (b, s))
+        assert dead.any() and not to_np(qt.grad)[dead].any()
+
+
 # ------------------------------------------------------------ paged pools
 N, BS, MB = 12, 4, 6
 
@@ -281,8 +319,9 @@ def test_paged_decode_matches_pallas(h, hkv, window):
 
 @pytest.mark.parametrize("d", [64, 128])
 def test_kernel_route_by_dtype_and_head_dim(d):
-    """K2 and K5b run bf16 on the tensor cores and float32 on fp32 FMAs;
-    another head dim or dtype has no kernel and raises."""
+    """K2, K5a and K5b run bf16 on the tensor cores and float32 on fp32
+    FMAs; another head dim or dtype has no kernel and raises."""
+    assert TF.ROUTED == ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     assert TF.kernel_route(torch.bfloat16, d) == "wgmma"
     assert TF.kernel_route(torch.float32, d) == "fma"
     with pytest.raises(NotImplementedError, match="head_dim 96"):
