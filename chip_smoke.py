@@ -27,7 +27,13 @@ Phases (each one fails the run when it fails; nothing is caught):
             and full causal); K1, K2 and K4 at Mistral-7B's window shapes;
             the int8-pool modes of K4 (serve and Mistral window shapes) and
             K3 (serve chunk shape) on int8 pools with fp32 scales, bf16 and
-            float32 q, the same codes on both sides;
+            float32 q, the same codes on both sides; K2, K5a and K5b in
+            their ALiBi mode (bf16 and float32) at the BLOOM-560m and
+            Falcon-RW-1B generate ([8, 160, H, 64]) and train ([4, 2048, H,
+            64]) shapes, each also timed without ALiBi at the same shape,
+            the library call being F.scaled_dot_product_attention with
+            the float ALiBi mask (and its backward); K2 and K7 at
+            Falcon-7B's generate shapes (GQA 71:1);
             times of the kernel, the plain version and, where one PyTorch
             call computes the same function, that call (``library_ms``),
             with CUDA events; the bound max(bytes / 3.35 TB/s, flops / 989
@@ -106,9 +112,39 @@ Phases (each one fails the run when it fails; nothing is caught):
             float32 logits, limit QUANT_WEIGHT_REL (a quantizer fault that
             the dequantized reference shares shows there); the logit MSE
             and the greedy match against the bf16 model are reported
+  bloom_serve  ``BloomConfig()`` as it stands (``bigscience/bloom-560m``:
+            24 layers, hidden 1024, 16 heads of 64, vocab 250 880, tied
+            head; 0.56 B parameters, bf16, random weights from a seed made
+            on the card) through ``generic_generate``: 8 prompts of 128
+            tokens, 32 new tokens each, greedy, every step a forward of the
+            fixed [8, 160] buffer; K2 must run in its ALiBi mode, once a
+            layer and step, and never without it; tokens/s, ms a step and
+            peak memory; then the prompt logits (one forward of [8, 128])
+            through the kernels, through the plain versions and in float32
+            under the check's rule (limit CHECK_REL)
+  bloom_train  the same model (no remat) through ``make_train_step`` with
+            the train phase's AdamW at batch 4 x 2048: first the loss and
+            three gradients (first block's qkv, last block's 4h->h, the
+            tied embeddings) on one row against the plain versions and
+            float32 (GRAD_REL, LOSS_REL), then 2 warm-up and 8 timed steps;
+            K2, K5a and K5b in their ALiBi mode once a layer and step each,
+            never without it; ms/step, tokens/s, MFU (the headline's
+            formula at these widths) and peak memory
+  falcon_rw_serve, falcon_rw_train  the same two at ``tiiuae/falcon-rw-1b``
+            (``falcon_rw_1b_config``: 24 layers, hidden 2048, 32 heads of
+            64, vocab 50 304, sequential block, biases, ALiBi at 2/sqrt(64)
+            times BLOOM's slopes; 1.31 B parameters)
+  falcon7b_serve  ``FalconConfig()`` as it stands (``tiiuae/falcon-7b``: 32
+            layers, hidden 4544, 71 heads of 64 over one shared K/V head,
+            parallel block, rope; 6.92 B parameters) through
+            ``generic_generate`` with the same mix: K2 without ALiBi at GQA
+            71:1 and K7; then the prompt logits at 8 of its 32 layers
+            (a float32 copy of all 32 would not fit beside it) under the
+            check's rule
   anatomy   (only when asked for: --phases build,anatomy or
             build,train,anatomy) 16 steady decode ticks and, with
-            ``train``, 2 train steps: wall time of three plain runs, then
+            ``train``, ``bloom_train`` or ``falcon_rw_train``, 2 steps of
+            each of those train steps: wall time of three plain runs, then
             device kernel time per tick or step under torch.profiler with
             the kernels that take it, and the Python functions that take
             the host time under cProfile
@@ -129,7 +165,9 @@ under the same measurement in one call: parent, change, change, parent.
 
 The line before the last is a JSON object with one entry per kernel and
 path (``"path": "serve"``, ``"train"``, ``"moe_serve"``, ``"moe_train"``,
-``"window_serve"`` or ``"quant_serve"``): its launches are counted in that
+``"window_serve"``, ``"quant_serve"``, ``"bloom_serve"``, ``"bloom_train"``,
+``"falcon_rw_serve"``, ``"falcon_rw_train"`` or ``"falcon7b_serve"``): its
+launches are counted in that
 path's own run, with every count set to 0 just before it, and its times are
 taken at the shapes that path gives the kernel; ``"variant"`` names the
 kernel that ran within the CUDA route where a wrapper picks one by dtype
@@ -182,11 +220,19 @@ SOURCES = {
                    "paddle_tpu/ops/pallas/grouped_matmul.py:178"),
     "rope": ("paddle_tpu_torch/csrc/rope.cu",
              "paddle_tpu/ops/pallas/rope.py:14"),
+    # the ALiBi mode of K2, K5a and K5b (``_alibi_add`` in each kernel)
+    "flash_fwd_alibi": ("paddle_tpu_torch/csrc/flash_fwd.cu",
+                        "paddle_tpu/ops/pallas/flash_attention.py:165"),
+    "flash_bwd_dq_alibi": ("paddle_tpu_torch/csrc/flash_bwd.cu",
+                           "paddle_tpu/ops/pallas/flash_attention.py:295"),
+    "flash_bwd_dkv_alibi": ("paddle_tpu_torch/csrc/flash_bwd.cu",
+                            "paddle_tpu/ops/pallas/flash_attention.py:346"),
 }
 # the kernels each path launches (every one must rise in that path's run):
 # ops.cuda's SERVE_KERNELS / TRAIN_KERNELS / MOE_SERVE_KERNELS /
-# MOE_TRAIN_KERNELS / WINDOW_SERVE_KERNELS / QUANT_SERVE_KERNELS, spelled
-# out here so that --root
+# MOE_TRAIN_KERNELS / WINDOW_SERVE_KERNELS / QUANT_SERVE_KERNELS /
+# ALIBI_SERVE_KERNELS / ALIBI_TRAIN_KERNELS / ROPE_GENERATE_KERNELS,
+# spelled out here so that --root
 # can load an earlier tree that lacks them (a kernel that such a tree does
 # not have is then left out of its checks)
 PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
@@ -199,7 +245,14 @@ PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
                        "flash_bwd_dkv", "rope", "grouped_fwd", "grouped_dw"),
          "window_serve": ("rms_norm", "flash_fwd", "paged_decode", "rope"),
          "quant_serve": ("rms_norm", "flash_fwd", "paged_chunk_i8",
-                         "paged_decode_i8", "rope")}
+                         "paged_decode_i8", "rope"),
+         "bloom_serve": ("flash_fwd_alibi",),
+         "bloom_train": ("flash_fwd_alibi", "flash_bwd_dq_alibi",
+                         "flash_bwd_dkv_alibi"),
+         "falcon_rw_serve": ("flash_fwd_alibi",),
+         "falcon_rw_train": ("flash_fwd_alibi", "flash_bwd_dq_alibi",
+                             "flash_bwd_dkv_alibi"),
+         "falcon7b_serve": ("flash_fwd", "rope")}
 # kernels of PATHS that the imported tree does not have (only with --root)
 ABSENT: set = set()
 # the train check: share of the fp32 gradients' RMS that each bf16 path
@@ -219,6 +272,14 @@ MOE_CHECK_LAYERS = 6
 # experts, which these readings include
 MOE_CHECK_REL = 0.05
 MOE_GRAD_REL = 0.3
+# the ALiBi families and Falcon-7B through generic_generate: 8 prompts of
+# 128 tokens, 32 new tokens each (greedy), so every step re-forwards the
+# fixed [8, 160] buffer; trained at batch 4 x 2048 (BLOOM's training
+# length). Falcon-7B's logits are checked at 8 of its 32 layers (a float32
+# copy of all 32 beside the bf16 model would take 41 GB)
+GEN_ROWS, GEN_PROMPT, GEN_NEW = 8, 128, 32
+ALIBI_TRAIN_BATCH, ALIBI_TRAIN_SEQ = 4, 2048
+FALCON7B_CHECK_LAYERS = 8
 
 
 def log(*a):
@@ -521,9 +582,13 @@ def phase_kernels(torch, dev):
     k2_banded(torch, dev)
     window = window_kernel_entries(torch, dev)
     results = {"serve": out, "train": train, "moe_serve": moe_serve,
-               "moe_train": moe_train, "window_serve": window}
+               "moe_train": moe_train, "window_serve": window,
+               "falcon7b_serve": falcon7b_kernel_entries(torch, dev)}
     for path, r in k7_entries.items():
         results[path]["rope"] = r
+    # the ALiBi families: K2, K5a and K5b in their ALiBi mode
+    if "flash_fwd_alibi" not in ABSENT:
+        results.update(alibi_kernel_entries(torch, dev))
     # quantized serving: the int8 modes of K3/K4; K1, K2 and K7 run there
     # at the serve path's shapes
     if "paged_decode_i8" not in ABSENT:
@@ -606,15 +671,17 @@ def _train_qkv(torch, dev, dt, shape=TRAIN_SHAPE):
             for _ in range(4)]
 
 
-def _attn_bound(b, s, h, d, es, n_in, n_out, products):
+def _attn_bound(b, s, h, d, es, n_in, n_out, n_rows, products,
+                extra_bytes=0):
     """Bound of a causal attention pass at [b, s, h, d]: n_in inputs and
-    n_out outputs of that shape read / written once (plus the fp32
-    lse/delta rows), ``products`` matrix products over the causal half
-    (2 * d flops per live (query, key) pair each)."""
+    n_out outputs of that shape read / written once, ``n_rows`` fp32 row
+    vectors [b, h, s] (1 for K2: its LSE; 2 for K5a/K5b: LSE and delta)
+    plus ``extra_bytes`` (e.g. ALiBi slopes), ``products`` matrix products
+    over the causal half (2 * d flops per live (query, key) pair each)."""
     pairs = b * h * s * (s + 1) // 2
     rows = b * s * h
-    return bound(rows * d * es * (n_in + n_out) + 2 * rows * 4,
-                 products * 2 * d * pairs)
+    return bound(rows * d * es * (n_in + n_out) + n_rows * rows * 4
+                 + extra_bytes, products * 2 * d * pairs)
 
 
 def k2_train(torch, dev, shape=TRAIN_SHAPE):
@@ -646,7 +713,7 @@ def k2_train(torch, dev, shape=TRAIN_SHAPE):
              < kl[:, None])[:, None, :].expand_as(lse2)
     _agree("flash_fwd log-sum-exp (kv_lens)", "f32",
            _max_err(lse2, ref2, valid))
-    b_ms, b_by = _attn_bound(b, s, h, d, q.element_size(), 3, 1, 2)
+    b_ms, b_by = _attn_bound(b, s, h, d, q.element_size(), 3, 1, 1, 2)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     return dict(
         max_abs_err=err, variant=_route(FA, "flash_fwd", q),
@@ -719,7 +786,7 @@ def k5(torch, dev, shape=TRAIN_SHAPE):
     for key, fn, n_in, n_out, products in (
             ("flash_bwd_dq", FA.flash_bwd_dq, 4, 1, 3),
             ("flash_bwd_dkv", FA.flash_bwd_dkv, 4, 2, 4)):
-        b_ms, b_by = _attn_bound(b, s, h, d, es, n_in, n_out, products)
+        b_ms, b_by = _attn_bound(b, s, h, d, es, n_in, n_out, 2, products)
         out[key] = dict(
             max_abs_err=errs[key], variant=_route(FA, key, q),
             ms=time_ms(lambda: fn(*args), iters=10),
@@ -728,6 +795,186 @@ def k5(torch, dev, shape=TRAIN_SHAPE):
             shape=f"q/k/v/dO {list(shape)} bf16, causal; "
                   f"{_route(FA, key, q)} route")
     return out
+
+
+# --------------------------------------------------- ALiBi (K2, K5a, K5b)
+def alibi_families():
+    """{family: (heads, head dim, the slopes the model hands the kernels)},
+    read from the configs the bloom/falcon_rw paths build: BLOOM-560m (its
+    ALiBi schedule) and Falcon-RW-1B (the schedule as its forward folds
+    it)."""
+    import torch
+    from paddle_tpu_torch.models.bloom import BloomConfig, alibi_slopes
+    from paddle_tpu_torch.models.falcon import falcon_alibi_slopes
+    bc, fc = BloomConfig(), falcon_rw_1b_config(torch)
+    return {"bloom": (bc.n_head, bc.hidden_size // bc.n_head,
+                      lambda dev: alibi_slopes(bc.n_head, dev)),
+            "falcon_rw": (fc.num_attention_heads,
+                          fc.hidden_size // fc.num_attention_heads,
+                          lambda dev: falcon_alibi_slopes(fc, dev))}
+
+
+def _alibi_mask(torch, slopes, s, dt):
+    """The float bias mask of F.scaled_dot_product_attention that computes
+    causal ALiBi: -m (i - j) on and below the diagonal, -inf above; [1, H,
+    S, S] in ``dt`` (the yardstick; the port never builds it)."""
+    i = torch.arange(s, device=slopes.device)
+    dist = (i[:, None] - i[None, :]).float()
+    bias = -slopes[:, None, None] * dist[None]
+    return bias.masked_fill(dist[None] < 0, float("-inf"))[None].to(dt)
+
+
+def alibi_kernel_entries(torch, dev):
+    """K2, K5a and K5b in their ALiBi mode against the plain versions with
+    the same slopes, on both routes (bf16 tensor cores, fp32 FMAs), at the
+    shapes the BLOOM-560m and Falcon-RW-1B paths give them: generate
+    [8, 160, H, 64] (K2; every step re-forwards the buffer) and train
+    [4, 2048, H, 64] (K2, K5a, K5b), causal. The bf16 entries carry times
+    of the kernel, the plain version, F.scaled_dot_product_attention with
+    the float ALiBi mask (its backward for K5) and the same kernel without
+    ALiBi at the same shape (``no_alibi_ms``: the bias's cost). Returns
+    {path: {kernel: entry}}."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import _build
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+    out = {}
+    shapes = {"serve": (GEN_ROWS, GEN_PROMPT + GEN_NEW),
+              "train": (ALIBI_TRAIN_BATCH, ALIBI_TRAIN_SEQ)}
+    for fam, (h, d, slopes_of) in alibi_families().items():
+        m = slopes_of(dev)
+        for kind, (b, s) in shapes.items():
+            path = f"{fam}_{kind}"
+            g = torch.Generator(device=dev).manual_seed(61)
+            base = [torch.randn(b, s, h, d, generator=g, device=dev)
+                    for _ in range(4)]
+            slopes = FA._slopes(m, base[0])
+            scale = d ** -0.5
+            entries = {}
+            for dtype, dt in (("f32", torch.float32),
+                              ("bf16", torch.bfloat16)):
+                q, k, v, do = (t.to(dt) for t in base)
+                args = (True, scale, None, None, slopes)
+                o, lse = FA.flash_fwd_cuda(q, k, v, *args)
+                ref_o, ref_lse = FA.flash_attention_fwd_plain(q, k, v, *args)
+                err = _agree(f"flash_fwd_alibi ({path} shape)", dtype,
+                             _max_err(o, ref_o))
+                _agree(f"flash_fwd_alibi log-sum-exp ({path} shape, "
+                       f"{dtype} inputs)", "f32", _max_err(lse, ref_lse))
+                del ref_o, ref_lse
+                errs = {"flash_fwd_alibi": err}
+                if kind == "train":
+                    got = FA.flash_bwd_cuda(q, k, v, o, lse, do, *args)
+                    ref = FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                       *args)
+                    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+                        key = ("flash_bwd_dq_alibi" if name == "dq"
+                               else "flash_bwd_dkv_alibi")
+                        e = _agree(f"flash_bwd_alibi {name} ({path} shape)",
+                                   dtype, _max_err(a, r))
+                        errs[key] = max(errs.get(key, 0.0), e)
+                    del got, ref
+                if dtype != "bf16":
+                    continue
+                entries.update(_alibi_times(torch, F, FA, _build, q, k, v, do,
+                                            o, lse, m, slopes, kind, errs))
+            out[path] = entries
+            del base
+            torch.cuda.empty_cache()
+    for path, rs in out.items():
+        for name, r in rs.items():
+            log(f"[kernels] {path} {name} ({r['shape']}): {r['ms']:.4f} ms "
+                f"with ALiBi, {r['no_alibi_ms']:.4f} ms without (x"
+                f"{r['ms'] / r['no_alibi_ms']:.3f}); plain {r['plain_ms']:.4f}"
+                f" ms, SDPA with the ALiBi mask {r['library_ms']:.4f} ms")
+    return out
+
+
+def _alibi_times(torch, F, FA, _build, q, k, v, do, o, lse, m, slopes, kind,
+                 errs):
+    """The bf16 entries of one ALiBi shape: K2 (and at the train shape K5a,
+    K5b), each with and without ALiBi, the plain version, the library
+    yardstick and the bound (the slopes add B * H * 4 bytes)."""
+    b, s, h, d = q.shape
+    es, scale = q.element_size(), d ** -0.5
+    args = (True, scale, None, None, slopes)
+    mask = _alibi_mask(torch, m, s, q.dtype)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    shape = (f"q/k/v [{b}, {s}, {h}, {d}] bf16, causal, ALiBi; "
+             f"{_route(FA, 'flash_fwd', q)} route")
+    heavy = kind == "train"
+    b_ms, b_by = _attn_bound(b, s, h, d, es, 3, 1, 1, 2, slopes.numel() * 4)
+    out = {"flash_fwd_alibi": dict(
+        max_abs_err=errs["flash_fwd_alibi"],
+        variant=_route(FA, "flash_fwd", q),
+        ms=time_ms(lambda: FA.flash_fwd_cuda(q, k, v, *args),
+                   iters=20 if heavy else 50),
+        no_alibi_ms=time_ms(lambda: FA.flash_fwd_cuda(q, k, v, True, scale,
+                                                      None, None),
+                            iters=20 if heavy else 50),
+        plain_ms=time_ms(lambda: FA.flash_attention_fwd_plain(q, k, v, *args),
+                         iters=5 if heavy else 20, warmup=1),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), iters=20),
+        bound_ms=b_ms, bound_by=b_by, shape=shape)}
+    if not heavy:
+        return out
+    code = _build.dtype_code(q, "alibi")
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    kargs = (code, q, k, v, do, lse, delta, True, scale, None, None)
+    plain_ms = time_ms(lambda: FA.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, *args), iters=5, warmup=1)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+    dot = do.transpose(1, 2)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qg, kg, vg), dot, retain_graph=True), iters=10)
+    for key, fn, n_in, n_out, products in (
+            ("flash_bwd_dq_alibi", FA.flash_bwd_dq, 4, 1, 3),
+            ("flash_bwd_dkv_alibi", FA.flash_bwd_dkv, 4, 2, 4)):
+        b_ms, b_by = _attn_bound(b, s, h, d, es, n_in, n_out, 2, products,
+                                 slopes.numel() * 4)
+        out[key] = dict(
+            max_abs_err=errs[key], variant=_route(FA, key[:-6], q),
+            ms=time_ms(lambda: fn(*kargs, slopes), iters=10),
+            no_alibi_ms=time_ms(lambda: fn(*kargs), iters=10),
+            plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+            bound_by=b_by, shape=shape.replace("q/k/v", "q/k/v/dO"))
+    return out
+
+
+def falcon7b_kernel_entries(torch, dev):
+    """K2 at the shape Falcon-7B's generate path gives it: q [8, 160, 71,
+    64], one shared K/V head (GQA 71:1), causal, without ALiBi; against
+    the plain version in fp32 and bf16, timed in bf16 beside the plain
+    version and F.scaled_dot_product_attention (is_causal, GQA)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+    g = torch.Generator(device=dev).manual_seed(71)
+    b, s, h, d = GEN_ROWS, GEN_PROMPT + GEN_NEW, 71, 64
+    base = (torch.randn(b, s, h, d, generator=g, device=dev),
+            torch.randn(b, s, 1, d, generator=g, device=dev),
+            torch.randn(b, s, 1, d, generator=g, device=dev))
+    for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v = (t.to(dt) for t in base)
+        err = _agree("flash_fwd (falcon7b_serve shape, GQA 71:1)", dtype,
+                     _max_err(FA.flash_attention(q, k, v, causal=True),
+                              FA.flash_attention_plain(q, k, v, causal=True)))
+    es = q.element_size()
+    pairs = b * h * s * (s + 1) // 2
+    b_ms, b_by = bound((2 * b * s * h + 2 * b * s) * d * es + b * h * s * 4,
+                       4 * d * pairs)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return {"flash_fwd": dict(
+        max_abs_err=err, variant=_route(FA, "flash_fwd", q),
+        ms=time_ms(lambda: FA.flash_attention(q, k, v, causal=True)),
+        plain_ms=time_ms(lambda: FA.flash_attention_plain(q, k, v,
+                                                          causal=True),
+                         iters=20),
+        library_ms=time_ms(lambda: _sdpa_gqa(torch, F, qt, kt, vt,
+                                             is_causal=True)),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"q [{b}, {s}, {h}, {d}], k/v [{b}, {s}, 1, {d}] bf16, "
+              f"causal; {_route(FA, 'flash_fwd', q)} route")}
 
 
 # -------------------------------------------------------------------- K6
@@ -1004,6 +1251,9 @@ ROPE_CASES = (
     ("mistral prefill q, per-row tables (dynamic NTK)", None, (4, 4608), 32,
      48, "q", 128, "per_row", 1e6),
     ("small, head_dim 64", None, (2, 77), 2, 12, "k", 64, "per_row", 1e4),
+    ("falcon-7b generate q", "falcon7b_serve", (8, 160), 71, 71, "q", 64,
+     "shared", 1e4),
+    ("falcon-7b generate k", None, (8, 160), 1, 1, "q", 64, "shared", 1e4),
 )
 
 
@@ -1475,8 +1725,10 @@ class plain_kernels:
 
         def fa(q, k, v, causal=False, scale=None, window=None, kv_lens=None,
                alibi_slopes=None):
+            # (without slopes, as an earlier tree's plain version takes it)
+            extra = () if alibi_slopes is None else (alibi_slopes,)
             return FA.flash_attention_plain(q, k, v, causal, scale, window,
-                                            kv_lens)
+                                            kv_lens, *extra)
         FA.flash_attention = fa
         PA.paged_chunk_attention = lambda *a, partials=False, **kw: \
             PA.paged_chunk_attention_plain(*a, **kw)
@@ -1986,8 +2238,11 @@ def run_train(torch, np, path, model, ids, labels, check, anatomy,
     from paddle_tpu_torch.ops import cuda as K
     from paddle_tpu_torch.train import init_state, make_train_step
     if check:
+        # "check" / "moe_check" as before, "<path>_check" for later paths
+        label = {"train": "check", "moe_train": "moe_check"}.get(
+            path, f"{path}_check")
         phase_train_check(torch, model, ids, labels, grad_names, grad_rel,
-                          "check" if path == "train" else "moe_check")
+                          label)
     opt = O.AdamW(learning_rate=3e-4, weight_decay=0.1,
                   grad_clip=O.ClipGradByGlobalNorm(1.0), multi_precision=True)
     state = init_state(model, opt)
@@ -2040,6 +2295,152 @@ def run_train(torch, np, path, model, ids, labels, check, anatomy,
     return counts
 
 
+# ------------------------------------------- BLOOM / Falcon (ALiBi, MQA)
+def falcon_rw_1b_config(torch):
+    """``tiiuae/falcon-rw-1b``'s ``config.json``, field by field: vocab
+    50 304, hidden 2048, 24 layers, 32 heads of 64, one K/V head per
+    head (``multi_query`` false), sequential block, biases, ALiBi, LayerNorm
+    eps 1e-5 (1.31 B parameters)."""
+    from paddle_tpu_torch.models.falcon import FalconConfig
+    return FalconConfig(vocab_size=50304, hidden_size=2048,
+                        num_hidden_layers=24, num_attention_heads=32,
+                        multi_query=False, parallel_attn=False, bias=True,
+                        alibi=True, new_decoder_architecture=False,
+                        layer_norm_epsilon=1e-5, dtype=torch.bfloat16)
+
+
+def build_generate_model(torch, dev, family, layers=None):
+    """BLOOM-560m (``BloomConfig()`` as it stands: ``bigscience/bloom-560m``),
+    Falcon-RW-1B or Falcon-7B (``FalconConfig()`` as it stands:
+    ``tiiuae/falcon-7b``) whole in bf16 (``layers`` cuts depth only),
+    random weights from seed 0 made on the card."""
+    from paddle_tpu_torch.models.bloom import BloomConfig, BloomForCausalLM
+    from paddle_tpu_torch.models.falcon import FalconConfig, FalconForCausalLM
+    tm = time.monotonic()
+    if family == "bloom":
+        cfg, cls = BloomConfig(), BloomForCausalLM
+    elif family == "falcon_rw":
+        cfg, cls = falcon_rw_1b_config(torch), FalconForCausalLM
+    else:
+        cfg, cls = FalconConfig(), FalconForCausalLM
+    if layers is not None:
+        field = "n_layer" if family == "bloom" else "num_hidden_layers"
+        cfg = dataclasses.replace(cfg, **{field: layers})
+    model = cls(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in model.parameters())
+    log(f"[{family}] {cls.__name__}, hidden {cfg.hidden_size}, "
+        f"{getattr(cfg, 'n_layer', getattr(cfg, 'num_hidden_layers', 0))} "
+        f"layers, {nparams / 1e9:.3f} B params, random weights in "
+        f"{time.monotonic() - tm:.1f} s")
+    return model
+
+
+def generate_prompts(np, vocab):
+    """GEN_ROWS prompts of GEN_PROMPT tokens from np.random.RandomState(0)."""
+    return np.random.RandomState(0).randint(3, vocab, (GEN_ROWS, GEN_PROMPT))
+
+
+def phase_generate(torch, dev, model, np, path):
+    """``generic_generate`` of the GEN_ROWS prompts, GEN_NEW new tokens each,
+    greedy: every step re-forwards the fixed [8, 160] buffer, so K2 runs
+    once a layer and step, in its ALiBi mode for BLOOM and falcon-rw (the
+    mode without ALiBi must not run there, and the ALiBi mode not on
+    Falcon-7B). The prompt must come back unchanged and every new token be
+    in the vocabulary. Tokens/s of wall time (one warm-up call first).
+    Returns (launch counts, the prompts)."""
+    from paddle_tpu_torch.models.decoding import generic_generate
+    from paddle_tpu_torch.ops import cuda as K
+    vocab = model.cfg.vocab_size
+    prompts = generate_prompts(np, vocab)
+    generic_generate(model, prompts, max_new_tokens=2)      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.monotonic()
+    out = generic_generate(model, prompts, max_new_tokens=GEN_NEW)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = K.launches()
+    out = out.cpu().numpy()
+    if out.shape != (GEN_ROWS, GEN_PROMPT + GEN_NEW) or not (
+            (out[:, :GEN_PROMPT] == prompts).all()
+            and ((out[:, GEN_PROMPT:] >= 0) & (out[:, GEN_PROMPT:] < vocab))
+            .all()):
+        raise AssertionError(f"{path}: generic_generate returned a wrong "
+                             f"buffer {out.shape}")
+    missing = _missing(path, counts)
+    if missing:
+        raise AssertionError(f"kernels not launched on the {path} path: "
+                             f"{missing} ({counts})")
+    mine, other = (("flash_fwd", "flash_fwd_alibi") if path == "falcon7b_serve"
+                   else ("flash_fwd_alibi", "flash_fwd"))
+    layers = len(model.h)
+    want = GEN_NEW * layers
+    if counts.get(other, 0) or counts[mine] != want:
+        raise AssertionError(f"{path}: {mine} launched {counts[mine]} times "
+                             f"(expected {want}: {GEN_NEW} forwards of "
+                             f"{layers} layers), {other} {counts.get(other)}")
+    ntok = GEN_ROWS * GEN_NEW
+    card = card_line()
+    log(f"[{path}] {GEN_ROWS} prompts of {GEN_PROMPT}, {GEN_NEW} new tokens "
+        f"each (greedy, {GEN_NEW} forwards of [{GEN_ROWS}, "
+        f"{GEN_PROMPT + GEN_NEW}]): {ntok} tokens in {wall:.3f} s, "
+        f"{ntok / wall:.1f} tokens/s, {1e3 * wall / GEN_NEW:.1f} ms/step "
+        f"({card})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{path}] peak allocated {peak:.2f} GiB ({card}); launches "
+        f"{counts}")
+    return counts, prompts
+
+
+def phase_prompt_check(torch, model, prompts, label):
+    """The prompt logits of the served prompts (one forward of [8, 128]):
+    bf16 through the kernels, bf16 through the plain versions, float32
+    through the plain versions, under the check's rule (limit CHECK_REL)."""
+    ids = torch.as_tensor(prompts, device=model.device)
+    with torch.no_grad():
+        got = model(ids).float()
+        with plain_kernels():
+            ref = model(ids).float()
+            m32 = fp32_copy(torch, model)
+            ref32 = m32(ids).float()
+            del m32
+    torch.cuda.empty_cache()
+    _hold_logits(label, ("prompt",), (got,), (ref,), (ref32,), CHECK_REL)
+
+
+def phase_alibi_train(torch, dev, np, path, model, anatomy=False):
+    """The train step of an ALiBi family whole (BLOOM-560m or Falcon-RW-1B,
+    no remat, as the headline step) at batch 4 x 2048 through
+    make_train_step with the headline's AdamW, after the train check (loss
+    and three gradients on one row against the plain versions and
+    float32): K2, K5a and K5b in their ALiBi mode, once a layer and step
+    each, and the modes without ALiBi never. Returns the launch counts."""
+    from paddle_tpu_torch.models import bloom, falcon
+    model.cfg.remat = False
+    cfg = model.cfg
+    ids, labels = train_batch(torch, dev, np, cfg, batch=ALIBI_TRAIN_BATCH,
+                              seq=ALIBI_TRAIN_SEQ)
+    last = len(model.h) - 1
+    if path == "bloom_train":
+        names = ("h.0.qkv", f"h.{last}.four_h_to_h", "word_embeddings")
+        flops = bloom.num_flops_per_token(cfg, ALIBI_TRAIN_SEQ)
+    else:
+        names = ("h.0.wq", f"h.{last}.four_h_to_h", "word_embeddings")
+        flops = falcon.num_flops_per_token(cfg, ALIBI_TRAIN_SEQ)
+    counts = run_train(torch, np, path, model, ids, labels, True, anatomy,
+                       names, GRAD_REL, flops)
+    want = 10 * len(model.h)
+    got = {k: counts[k] for k in PATHS[path]}
+    plain = {k: counts[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv")}
+    if any(v != want for v in got.values()) or any(plain.values()):
+        raise AssertionError(f"{path} launches {got} (expected {want} each), "
+                             f"modes without ALiBi {plain}")
+    return counts
+
+
 def _anatomy(torch, label, unit, run, n):
     """Wall time per ``unit`` of ``run`` (which does n of them, timed three
     times plain, then once under torch.profiler and once under cProfile)
@@ -2083,7 +2484,7 @@ def _anatomy(torch, label, unit, run, n):
         log(f"[anatomy] {label}: wall {1e3 * wall:.2f} ms/{unit} (median), "
             f"device kernels {dev_ms:.2f} ms/{unit}, device idle "
             f"{100 * max(0.0, 1 - dev_ms / (1e3 * wall)):.1f}% ({card})")
-    for ms, cnt, key in rows[:14]:
+    for ms, cnt, key in rows[:24]:
         log(f"[anatomy] {ms:8.3f} ms/{unit} {100 * ms / dev_ms:5.1f}% "
             f"{cnt:5d}x/{unit}  {key[:90]}")
     # the attention kernels one by one, wherever they rank
@@ -2140,7 +2541,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve,check,train,"
                     "moe_serve,moe_check,moe_train,window_serve,window_check,"
-                    "quant_serve,quant_check")
+                    "quant_serve,quant_check,bloom_serve,bloom_train,"
+                    "falcon_rw_serve,falcon_rw_train,falcon7b_serve")
     ap.add_argument("--root", help="import paddle_tpu_torch from the "
                     "checkout at ROOT instead of this one: an earlier "
                     "tree's package under this script's measurement")
@@ -2239,6 +2641,32 @@ def main(argv=None):
                                                               model, np)
         if "window_check" in phases:
             phase_window_check(torch, model, win_reqs)
+        del model
+        torch.cuda.empty_cache()
+    # BLOOM-560m and Falcon-RW-1B: generate (+ prompt-logit check), then
+    # the train step on the same model
+    for fam in ("bloom", "falcon_rw"):
+        if not {f"{fam}_serve", f"{fam}_train"} & set(phases):
+            continue
+        model = build_generate_model(torch, dev, fam)
+        if f"{fam}_serve" in phases:
+            counts[f"{fam}_serve"], prompts = phase_generate(
+                torch, dev, model, np, f"{fam}_serve")
+            phase_prompt_check(torch, model, prompts, f"{fam}_check")
+        if f"{fam}_train" in phases:
+            counts[f"{fam}_train"] = phase_alibi_train(
+                torch, dev, np, f"{fam}_train", model, "anatomy" in phases)
+        del model
+        torch.cuda.empty_cache()
+    if "falcon7b_serve" in phases:
+        model = build_generate_model(torch, dev, "falcon7b")
+        counts["falcon7b_serve"], prompts = phase_generate(
+            torch, dev, model, np, "falcon7b_serve")
+        del model
+        torch.cuda.empty_cache()
+        model = build_generate_model(torch, dev, "falcon7b",
+                                     FALCON7B_CHECK_LAYERS)
+        phase_prompt_check(torch, model, prompts, "falcon7b_check")
         del model
         torch.cuda.empty_cache()
     kern = []

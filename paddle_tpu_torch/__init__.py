@@ -15,7 +15,9 @@ Entry points (the model classes, ``serving.LLMEngine``,
 Ported so far: the single-device paged serving path and the train step
 (``train``, ``optimizer``) for the Llama family and the MoE families
 (``models.mixtral``, ``models.qwen2_moe``, ``models.moe_llm`` on
-``distributed.moe``) — see ``ROADMAP.md`` for the queues that remain.
+``distributed.moe``), and BLOOM and Falcon (``models.bloom``,
+``models.falcon``) through ``models.generic_generate`` and the same train
+step — see ``ROADMAP.md`` for the queues that remain.
 """
 from paddle_tpu_torch.core.device import resolve_device  # noqa: F401
 from paddle_tpu_torch.core.random import generator  # noqa: F401

@@ -12,6 +12,8 @@
 // work.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace ptt {
@@ -26,6 +28,23 @@ constexpr int kRows = kBQ / kWarps;  // query rows per warp
 template <int D>
 constexpr int smem_floats() {
   return kBQ * D + kBK * (D + 1) + kBK * D;
+}
+
+// ALiBi (the reference's _alibi_add): the bias of the score of query
+// position qp against key position kp under slope m, in the scores' units
+// (after the scale): m * (kp - qp) under causal, -m * |kp - qp| without.
+__device__ __forceinline__ float alibi_bias(float m, int qp, int kp,
+                                            int causal) {
+  const float d = static_cast<float>(kp - qp);
+  return m * (causal ? d : -fabsf(d));
+}
+
+// The entry points' choice of instantiation (flash_fwd.cu, flash_bwd.cu):
+// f(std::true_type) runs the ALiBi kernels when the caller passed slopes,
+// f(std::false_type) the kernels without ALiBi when slopes is null.
+template <class F>
+inline int with_alibi(const void* slopes, F&& f) {
+  return slopes != nullptr ? f(std::true_type{}) : f(std::false_type{});
 }
 
 template <int D>
@@ -45,16 +64,25 @@ struct RowState {
   }
 };
 
+// The score bias of a call without one (tile_update's default): adds
+// nothing, and no instruction either.
+struct NoBias {
+  __device__ __forceinline__ float operator()(int, int) const { return 0.f; }
+};
+
 // Fold one key tile of nk (<= kBK) keys into this warp's rows.
 // keep(row, j): is tile key j visible to block row `row` (mask rule of the
-// caller: causal, window, ragged lengths). Fully-masked rows keep m = -inf
-// and l = 0, so the caller writes 0 for them instead of NaN.
-template <int D, class Keep>
+// caller: causal, window, ragged lengths). bias(row, j): added to the
+// scaled score of a kept entry (ALiBi; NoBias compiles to nothing).
+// Fully-masked rows keep m = -inf and l = 0, so the caller writes 0 for
+// them instead of NaN.
+template <int D, class Keep, class Bias = NoBias>
 __device__ __forceinline__ void tile_update(const float* __restrict__ q_s,
                                             const float* __restrict__ k_s,
                                             const float* __restrict__ v_s,
                                             int nk, float scale,
-                                            RowState<D>& st, Keep keep) {
+                                            RowState<D>& st, Keep keep,
+                                            Bias bias = Bias()) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float s[kRows];
 #pragma unroll
@@ -72,7 +100,10 @@ __device__ __forceinline__ void tile_update(const float* __restrict__ q_s,
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const bool ok = lane < nk && keep(warp * kRows + r, lane);
-    const float sv = ok ? s[r] * scale : -INFINITY;
+    float sv = ok ? s[r] * scale : -INFINITY;
+    if constexpr (!std::is_same<Bias, NoBias>::value) {
+      if (ok) sv += bias(warp * kRows + r, lane);
+    }
     const float m_new = fmaxf(st.m[r], warp_max(sv));
     float corr = 1.f, p = 0.f;
     if (m_new != -INFINITY) {

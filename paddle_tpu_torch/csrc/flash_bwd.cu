@@ -14,6 +14,15 @@
 // Masked entries give P = 0 exactly (the same causal / kv_lens / window
 // rule as K2, with queries end-aligned to the key axis).
 //
+// ALiBi (the reference's _alibi_add, called from _dq_kernel and
+// _dkv_kernel): with a slopes pointer ([B * H] fp32, by query head) every
+// kernel runs a second instantiation (template flag kAlibi) that
+// recomputes P with K2's bias, P = exp(scale * q.k + bias - lse), since
+// K2's LSE includes it; without it the gradients would be silently wrong.
+// K5b's slope changes with the query head inside the GQA group sum. The
+// bias costs no memory traffic (it comes from the indices); without
+// slopes the first instantiation runs, the code of the mode without ALiBi.
+//
 // What bounds it on this card: at the training shapes (S = 2048, D = 128)
 // the work is ~S flops per byte, far above the H100's ridge, so the bound
 // is the tensor-core rate.
@@ -97,13 +106,14 @@ __device__ __forceinline__ bool keep(int qp, int kp, int klen, int causal,
          (window <= 0 || qp - kp < window);
 }
 
-template <int D, typename T>
+template <int D, typename T, bool kAlibi>
 __global__ void __launch_bounds__(kWarps * 32)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        const int* __restrict__ kv_lens, T* __restrict__ dq,
+                        const int* __restrict__ kv_lens,
+                        const float* __restrict__ slopes, T* __restrict__ dq,
                         int S, int Sk, int H, int Hkv, float scale,
                         int causal, int window) {
   extern __shared__ float smem[];
@@ -115,6 +125,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int kvh = h / (H / Hkv);
   int klen;
   const int q_off = row_geometry(kv_lens, b, S, Sk, &klen);
+  const float slope = kAlibi ? slopes[(size_t)b * H + h] : 0.f;
 
   for (int i = threadIdx.x; i < kBQ * D; i += blockDim.x) {
     const int r = i / D, d = i - r * D, qi = q0 + r;
@@ -171,7 +182,10 @@ __global__ void __launch_bounds__(kWarps * 32)
       const int qi = q0 + warp * kRows + r;
       const bool ok = lane < nk && qi < S &&
                       keep(q_off + qi, k0 + lane, klen, causal, window);
-      const float p = ok ? expf(s[r] * scale - lse_r[r]) : 0.f;
+      float sv = s[r] * scale;
+      if constexpr (kAlibi)
+        sv += alibi_bias(slope, q_off + qi, k0 + lane, causal);
+      const float p = ok ? expf(sv - lse_r[r]) : 0.f;
       const float ds = p * (dp[r] - dl_r[r]) * scale;
       for (int j = 0; j < nk; ++j) {
         const float dsj = __shfl_sync(0xffffffffu, ds, j);
@@ -193,13 +207,14 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <int D, typename T>
+template <int D, typename T, bool kAlibi>
 __global__ void __launch_bounds__(kWarps * 32)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         const int* __restrict__ kv_lens, T* __restrict__ dk,
+                         const int* __restrict__ kv_lens,
+                         const float* __restrict__ slopes, T* __restrict__ dk,
                          T* __restrict__ dv, int S, int Sk, int H, int Hkv,
                          float scale, int causal, int window) {
   extern __shared__ float smem[];
@@ -236,6 +251,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
+    // ALiBi: the slope of this query head of the group
+    const float slope = kAlibi ? slopes[(size_t)b * H + h] : 0.f;
     for (int qt = qbeg; qt < qend; qt += kBK) {
       const int nq = min(kBK, qend - qt);
       __syncthreads();  // K/V tile stored / previous q tile consumed
@@ -276,7 +293,10 @@ __global__ void __launch_bounds__(kWarps * 32)
         const int kp = k0 + warp * kRows + r;
         const bool ok = lane < nq &&
                         keep(q_off + qt + lane, kp, klen, causal, window);
-        const float p = ok ? expf(s[r] * scale - lse_l) : 0.f;
+        float sv = s[r] * scale;
+        if constexpr (kAlibi)
+          sv += alibi_bias(slope, q_off + qt + lane, kp, causal);
+        const float p = ok ? expf(sv - lse_l) : 0.f;
         const float ds = p * (dp[r] - dl_l) * scale;
         for (int j = 0; j < nq; ++j) {
           const float pj = __shfl_sync(0xffffffffu, p, j);
@@ -306,44 +326,47 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <int D, typename T>
+template <int D, typename T, bool kAlibi>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* kv_lens,
-              void* dq, int B, int S, int Sk, int H, int Hkv, float scale,
-              int causal, int window, void* stream) {
+              const void* slopes, void* dq, int B, int S, int Sk, int H,
+              int Hkv, float scale, int causal, int window, void* stream) {
   const int smem = bwd_smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bwd_dq_kernel<D, T, kAlibi>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_bwd_dq_kernel<D, T><<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(kv_lens), static_cast<T*>(dq), S, Sk, H, Hkv,
-      scale, causal, window);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D, typename T>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, const void* kv_lens,
-               void* dk, void* dv, int B, int S, int Sk, int H, int Hkv,
-               float scale, int causal, int window, void* stream) {
-  const int smem = bwd_smem_floats<D>() * static_cast<int>(sizeof(float));
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((Sk + kBQ - 1) / kBQ, Hkv, B);
-  flash_bwd_dkv_kernel<D, T>
+  flash_bwd_dq_kernel<D, T, kAlibi>
       <<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const T*>(dout),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<const int*>(kv_lens), static_cast<T*>(dk),
-          static_cast<T*>(dv), S, Sk, H, Hkv, scale, causal, window);
+          static_cast<const int*>(kv_lens), static_cast<const float*>(slopes),
+          static_cast<T*>(dq), S, Sk, H, Hkv, scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, typename T, bool kAlibi>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, const void* kv_lens,
+               const void* slopes, void* dk, void* dv, int B, int S, int Sk,
+               int H, int Hkv, float scale, int causal, int window,
+               void* stream) {
+  const int smem = bwd_smem_floats<D>() * static_cast<int>(sizeof(float));
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<D, T, kAlibi>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((Sk + kBQ - 1) / kBQ, Hkv, B);
+  flash_bwd_dkv_kernel<D, T, kAlibi>
+      <<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<const int*>(kv_lens), static_cast<const float*>(slopes),
+          static_cast<T*>(dk), static_cast<T*>(dv), S, Sk, H, Hkv, scale,
+          causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -359,7 +382,7 @@ constexpr int dkv_wgmma_smem_bytes() {
   return 6 * kTile * D * 2 + 2 * 2 * kTile * 4 + 1024;
 }
 
-template <int D>
+template <int D, bool kAlibi>
 __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
     flash_bwd_dkv_wgmma_kernel(
         const __nv_bfloat16* __restrict__ q,
@@ -367,8 +390,9 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
         const __nv_bfloat16* __restrict__ v,
         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
         const float* __restrict__ delta, const int* __restrict__ kv_lens,
-        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-        int S, int Sk, int H, int Hkv, float scale, int causal, int window) {
+        const float* __restrict__ slopes, __nv_bfloat16* __restrict__ dk,
+        __nv_bfloat16* __restrict__ dv, int S, int Sk, int H, int Hkv,
+        float scale, int causal, int window) {
   using namespace hopper;
   constexpr int kTileBytes = kTile * D * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -425,6 +449,9 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
 
   for (int it = 0; it < iters; ++it) {
     const int qt = qbeg + (it % nqt) * kTile;
+    // ALiBi: the slope of step it's query head, in log2 units
+    const float a2 =
+        kAlibi ? slopes[(size_t)b * H + kvh * G + it / nqt] * kLog2e : 0.f;
     const uint32_t q_st = k_s + (2 + 2 * (it & 1)) * kTileBytes;
     const uint32_t do_st = q_st + kTileBytes;
     const float* lse_s = rows_s + 2 * kTile * (it & 1);
@@ -469,8 +496,11 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
             !edge || (qt + c < qend && keep(q_off + qt + c,
                                             k0 + r0 + 8 * (i >> 1), klen,
                                             causal, window));
-        const float p =
-            ok ? exp2f(fmaf(s[4 * j + i], sl2, -lse_s[c] * kLog2e)) : 0.f;
+        float arg = -lse_s[c] * kLog2e;
+        if constexpr (kAlibi)
+          arg += alibi_bias(a2, q_off + qt + c, k0 + r0 + 8 * (i >> 1),
+                            causal);
+        const float p = ok ? exp2f(fmaf(s[4 * j + i], sl2, arg)) : 0.f;
         s[4 * j + i] = p;
         dp[4 * j + i] = p * (dp[4 * j + i] - dl_s[c]) * scale;
       }
@@ -510,28 +540,28 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
   }
 }
 
-template <int D>
+template <int D, bool kAlibi>
 int launch_dkv_wgmma(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
-                     const void* kv_lens, void* dk, void* dv, int B, int S,
-                     int Sk, int H, int Hkv, float scale, int causal,
-                     int window, void* stream) {
+                     const void* kv_lens, const void* slopes, void* dk,
+                     void* dv, int B, int S, int Sk, int H, int Hkv,
+                     float scale, int causal, int window, void* stream) {
   const int smem = dkv_wgmma_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_wgmma_kernel<D>,
+      flash_bwd_dkv_wgmma_kernel<D, kAlibi>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(Hkv, B, (Sk + kTile - 1) / kTile);
-  flash_bwd_dkv_wgmma_kernel<D>
+  flash_bwd_dkv_wgmma_kernel<D, kAlibi>
       <<<grid, hopper::kWarpgroup, smem, (cudaStream_t)stream>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v),
           static_cast<const __nv_bfloat16*>(dout),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(dk),
-          static_cast<__nv_bfloat16*>(dv), S, Sk, H, Hkv, scale, causal,
-          window);
+          static_cast<const int*>(kv_lens), static_cast<const float*>(slopes),
+          static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S,
+          Sk, H, Hkv, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -544,7 +574,7 @@ constexpr int dq_wgmma_smem_bytes() {
   return 6 * kTile * D * 2 + 1024;
 }
 
-template <int D>
+template <int D, bool kAlibi>
 __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
     flash_bwd_dq_wgmma_kernel(
         const __nv_bfloat16* __restrict__ q,
@@ -552,8 +582,8 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
         const __nv_bfloat16* __restrict__ v,
         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
         const float* __restrict__ delta, const int* __restrict__ kv_lens,
-        __nv_bfloat16* __restrict__ dq, int S, int Sk, int H, int Hkv,
-        float scale, int causal, int window) {
+        const float* __restrict__ slopes, __nv_bfloat16* __restrict__ dq,
+        int S, int Sk, int H, int Hkv, float scale, int causal, int window) {
   using namespace hopper;
   constexpr int kTileBytes = kTile * D * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -594,6 +624,8 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
   const int c0 = 2 * (lane & 3);           // key columns 8j + c0 + {0, 1}
   constexpr float kLog2e = 1.4426950408889634f;
   const float sl2 = scale * kLog2e;
+  // ALiBi: this head's slope in log2 units (0 and unused without ALiBi)
+  const float a2 = kAlibi ? slopes[(size_t)b * H + h] * kLog2e : 0.f;
   // this thread's two rows' lse (in base 2) and delta; 0 past S
   float lse2[2], dl[2];
 #pragma unroll
@@ -650,8 +682,11 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
         const bool ok =
             !edge || keep(q_off + q0 + r0 + 8 * hr, k0 + 8 * j + c0 + (i & 1),
                           klen, causal, window);
-        const float p =
-            ok ? exp2f(fmaf(s[4 * j + i], sl2, -lse2[hr])) : 0.f;
+        float arg = -lse2[hr];
+        if constexpr (kAlibi)
+          arg += alibi_bias(a2, q_off + q0 + r0 + 8 * hr,
+                            k0 + 8 * j + c0 + (i & 1), causal);
+        const float p = ok ? exp2f(fmaf(s[4 * j + i], sl2, arg)) : 0.f;
         dp[4 * j + i] = p * (dp[4 * j + i] - dl[hr]) * scale;
       }
     // dq += dS K: dS rounded to bf16 (as the reference rounds it to q's
@@ -682,27 +717,28 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
   }
 }
 
-template <int D>
+template <int D, bool kAlibi>
 int launch_dq_wgmma(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
-                    const void* kv_lens, void* dq, int B, int S, int Sk,
-                    int H, int Hkv, float scale, int causal, int window,
-                    void* stream) {
+                    const void* kv_lens, const void* slopes, void* dq, int B,
+                    int S, int Sk, int H, int Hkv, float scale, int causal,
+                    int window, void* stream) {
   const int smem = dq_wgmma_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_wgmma_kernel<D>,
+      flash_bwd_dq_wgmma_kernel<D, kAlibi>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(H, B, (S + kTile - 1) / kTile);
-  flash_bwd_dq_wgmma_kernel<D>
+  flash_bwd_dq_wgmma_kernel<D, kAlibi>
       <<<grid, hopper::kWarpgroup, smem, (cudaStream_t)stream>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v),
           static_cast<const __nv_bfloat16*>(dout),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(dq),
-          S, Sk, H, Hkv, scale, causal, window);
+          static_cast<const int*>(kv_lens), static_cast<const float*>(slopes),
+          static_cast<__nv_bfloat16*>(dq), S, Sk, H, Hkv, scale, causal,
+          window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -710,48 +746,55 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16 (the tensor-core routes of both entry
 // points: 16-byte-aligned pointers); head_dim: 64 or 128. kv_lens may be
-// null (no padding); window <= 0 means no sliding window. H % Hkv == 0.
+// null (no padding); slopes null (no ALiBi) or fp32 [B * H], as K2 got
+// them; window <= 0 means no sliding window. H % Hkv == 0.
 extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q,
                             const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta,
-                            const void* kv_lens, void* dq, int B, int S,
-                            int Sk, int H, int Hkv, float scale, int causal,
-                            int window, void* stream) {
+                            const void* kv_lens, const void* slopes, void* dq,
+                            int B, int S, int Sk, int H, int Hkv, float scale,
+                            int causal, int window, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-#define PTT_DQ(DIM, T)                                                      \
-  return launch_dq<DIM, T>(q, k, v, dout, lse, delta, kv_lens, dq, B, S, Sk, \
-                           H, Hkv, scale, causal, window, stream)
-  if (dtype == kF32 && head_dim == 64) PTT_DQ(64, float);
-  if (dtype == kF32 && head_dim == 128) PTT_DQ(128, float);
-#undef PTT_DQ
-#define PTT_DQ_WGMMA(DIM)                                                  \
-  return launch_dq_wgmma<DIM>(q, k, v, dout, lse, delta, kv_lens, dq, B, S, \
-                              Sk, H, Hkv, scale, causal, window, stream)
-  if (dtype == kBF16 && head_dim == 64) PTT_DQ_WGMMA(64);
-  if (dtype == kBF16 && head_dim == 128) PTT_DQ_WGMMA(128);
-#undef PTT_DQ_WGMMA
-  return static_cast<int>(cudaErrorInvalidValue);
+#define PTT_ARGS                                                        \
+  (q, k, v, dout, lse, delta, kv_lens, slopes, dq, B, S, Sk, H, Hkv, scale, \
+   causal, window, stream)
+  return with_alibi(slopes, [&](auto alibi) {
+    constexpr bool kA = decltype(alibi)::value;
+    if (dtype == kF32 && head_dim == 64)
+      return launch_dq<64, float, kA> PTT_ARGS;
+    if (dtype == kF32 && head_dim == 128)
+      return launch_dq<128, float, kA> PTT_ARGS;
+    if (dtype == kBF16 && head_dim == 64)
+      return launch_dq_wgmma<64, kA> PTT_ARGS;
+    if (dtype == kBF16 && head_dim == 128)
+      return launch_dq_wgmma<128, kA> PTT_ARGS;
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
+#undef PTT_ARGS
 }
 
 extern "C" int flash_bwd_dkv(int dtype, int head_dim, const void* q,
                              const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta,
-                             const void* kv_lens, void* dk, void* dv, int B,
-                             int S, int Sk, int H, int Hkv, float scale,
-                             int causal, int window, void* stream) {
+                             const void* kv_lens, const void* slopes,
+                             void* dk, void* dv, int B, int S, int Sk, int H,
+                             int Hkv, float scale, int causal, int window,
+                             void* stream) {
   if (B <= 0 || Sk <= 0) return 0;
-#define PTT_DKV(DIM, T)                                                     \
-  return launch_dkv<DIM, T>(q, k, v, dout, lse, delta, kv_lens, dk, dv, B, \
-                            S, Sk, H, Hkv, scale, causal, window, stream)
-  if (dtype == kF32 && head_dim == 64) PTT_DKV(64, float);
-  if (dtype == kF32 && head_dim == 128) PTT_DKV(128, float);
-#undef PTT_DKV
-#define PTT_DKV_WGMMA(DIM)                                                 \
-  return launch_dkv_wgmma<DIM>(q, k, v, dout, lse, delta, kv_lens, dk, dv, \
-                               B, S, Sk, H, Hkv, scale, causal, window,    \
-                               stream)
-  if (dtype == kBF16 && head_dim == 64) PTT_DKV_WGMMA(64);
-  if (dtype == kBF16 && head_dim == 128) PTT_DKV_WGMMA(128);
-#undef PTT_DKV_WGMMA
-  return static_cast<int>(cudaErrorInvalidValue);
+#define PTT_ARGS                                                        \
+  (q, k, v, dout, lse, delta, kv_lens, slopes, dk, dv, B, S, Sk, H, Hkv,    \
+   scale, causal, window, stream)
+  return with_alibi(slopes, [&](auto alibi) {
+    constexpr bool kA = decltype(alibi)::value;
+    if (dtype == kF32 && head_dim == 64)
+      return launch_dkv<64, float, kA> PTT_ARGS;
+    if (dtype == kF32 && head_dim == 128)
+      return launch_dkv<128, float, kA> PTT_ARGS;
+    if (dtype == kBF16 && head_dim == 64)
+      return launch_dkv_wgmma<64, kA> PTT_ARGS;
+    if (dtype == kBF16 && head_dim == 128)
+      return launch_dkv_wgmma<128, kA> PTT_ARGS;
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
+#undef PTT_ARGS
 }

@@ -23,6 +23,18 @@
 //   fp32 — flash_fwd_kernel, fp32 FMAs on the CUDA cores (attn_tile.cuh):
 //     exact to the card tests' 1e-4, which TF32 tensor cores are not.
 //
+// ALiBi (the reference's _alibi_add, called from _fwd_kernel): with a
+// slopes pointer ([B * H] fp32, by query head) both routes run a second
+// instantiation (template flag kAlibi) that adds slope * (k_pos - q_pos)
+// (causal; -slope * |k_pos - q_pos| without) to each scaled score, from
+// the masks' query positions. It adds no memory traffic: the bias comes
+// from the indices, as it did from iota on the TPU. Without slopes the
+// first instantiation runs, the code of the mode without ALiBi. On the
+// tensor-core route the bias goes in, in base-2 units, before the running
+// max (max-then-scale holds for a common scale, not a per-element bias),
+// so every live tile takes the element pass that only edge tiles take
+// without ALiBi; the dead-tile bounds are the same.
+//
 // Both: one block per (q tile of 64 rows, head, batch row); the k loop
 // lives inside the block (it was the sequential grid axis on the TPU) and
 // only walks the tiles the mask leaves alive: the causal frontier of the
@@ -43,13 +55,13 @@ using namespace ptt;
 namespace {
 
 // ------------------------------------------------------------ FMA route
-template <int D, typename T>
+template <int D, typename T, bool kAlibi>
 __global__ void __launch_bounds__(kWarps * 32)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ kv_lens,
-                     T* __restrict__ o, float* __restrict__ lse, int S,
-                     int Sk, int H, int Hkv, float scale, int causal,
-                     int window) {
+                     const float* __restrict__ slopes, T* __restrict__ o,
+                     float* __restrict__ lse, int S, int Sk, int H, int Hkv,
+                     float scale, int causal, int window) {
   extern __shared__ float smem[];
   float* q_s = smem;
   float* k_s = q_s + kBQ * D;
@@ -73,6 +85,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (causal) kend = min(kend, q_off + last + 1);
   const int kbeg = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
 
+  const float slope = kAlibi ? slopes[(size_t)b * H + h] : 0.f;  // ALiBi
   RowState<D> st;
   st.init();
   for (int k0 = kbeg; k0 < kend; k0 += kBK) {
@@ -85,10 +98,17 @@ __global__ void __launch_bounds__(kWarps * 32)
       v_s[j * D + d] = to_f(v[src]);
     }
     __syncthreads();
-    tile_update<D>(q_s, k_s, v_s, nk, scale, st, [&](int row, int j) {
+    auto keep = [&](int row, int j) {
       const int qp = q_off + q0 + row, kp = k0 + j;
       return (!causal || qp >= kp) && (window <= 0 || qp - kp < window);
-    });
+    };
+    if constexpr (kAlibi) {
+      tile_update<D>(q_s, k_s, v_s, nk, scale, st, keep, [&](int row, int j) {
+        return alibi_bias(slope, q_off + q0 + row, k0 + j, causal);
+      });
+    } else {
+      tile_update<D>(q_s, k_s, v_s, nk, scale, st, keep);
+    }
   }
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -107,21 +127,23 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <int D, typename T>
+template <int D, typename T, bool kAlibi>
 int launch(const void* q, const void* k, const void* v, const void* kv_lens,
-           void* o, void* lse, int B, int S, int Sk, int H, int Hkv,
-           float scale, int causal, int window, void* stream) {
+           const void* slopes, void* o, void* lse, int B, int S, int Sk,
+           int H, int Hkv, float scale, int causal, int window,
+           void* stream) {
   const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_kernel<D, T, kAlibi>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<D, T><<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(kv_lens),
-      static_cast<T*>(o), static_cast<float*>(lse), S, Sk, H, Hkv, scale,
-      causal, window);
+  flash_fwd_kernel<D, T, kAlibi>
+      <<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const int*>(kv_lens),
+          static_cast<const float*>(slopes), static_cast<T*>(o),
+          static_cast<float*>(lse), S, Sk, H, Hkv, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -136,12 +158,13 @@ constexpr int wgmma_smem_bytes() {
   return 5 * kTile * D * 2 + 1024;
 }
 
-template <int D>
+template <int D, bool kAlibi>
 __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
     flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
                            const int* __restrict__ kv_lens,
+                           const float* __restrict__ slopes,
                            __nv_bfloat16* __restrict__ o,
                            float* __restrict__ lse, int S, int Sk, int H,
                            int Hkv, float scale, int causal, int window) {
@@ -186,7 +209,10 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = warp * 16 + (lane >> 2);  // rows r0 and r0 + 8
   const int c0 = 2 * (lane & 3);           // columns 8j + c0 + {0, 1}
-  const float sl2 = scale * 1.4426950408889634f;  // scores -> log2 units
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float sl2 = scale * kLog2e;  // scores -> log2 units
+  // ALiBi: the slope in log2 units (0 and unused without ALiBi)
+  const float a2 = kAlibi ? slopes[(size_t)b * H + h] * kLog2e : 0.f;
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
@@ -220,7 +246,21 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
     const bool edge = k0 + kTile > klen ||
                       (causal && k0 + kTile - 1 > q_off + q0) ||
                       (window > 0 && q_off + q0 + kTile - 1 - k0 >= window);
-    if (edge) {
+    if constexpr (kAlibi) {
+      // every live tile: s -> s * scale + bias in log2 units, masked -inf
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qp = q_off + q0 + r0 + 8 * (i >> 1);
+          const int kp = k0 + 8 * j + c0 + (i & 1);
+          const bool ok = !edge || (kp < klen && (!causal || qp >= kp) &&
+                                    (window <= 0 || qp - kp < window));
+          s[4 * j + i] = ok ? fmaf(s[4 * j + i], sl2,
+                                   alibi_bias(a2, qp, kp, causal))
+                            : -INFINITY;
+        }
+    } else if (edge) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -242,7 +282,8 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
         mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hr], s[4 * j + 2 * hr + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[hr], mx * sl2);
+      // (with ALiBi the scores are in log2 units already)
+      const float m_new = fmaxf(m[hr], kAlibi ? mx : mx * sl2);
       const float m_use = m_new == -INFINITY ? 0.f : m_new;
       const float corr = exp2f(m[hr] - m_use);
       float sum = 0.f;
@@ -251,7 +292,7 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float& x = s[4 * j + 2 * hr + e];
-          x = exp2f(fmaf(x, sl2, -m_use));
+          x = kAlibi ? exp2f(x - m_use) : exp2f(fmaf(x, sl2, -m_use));
           sum += x;
         }
       l[hr] = l[hr] * corr + sum;  // this thread's share of the row
@@ -295,45 +336,52 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
   }
 }
 
-template <int D>
+template <int D, bool kAlibi>
 int launch_wgmma(const void* q, const void* k, const void* v,
-                 const void* kv_lens, void* o, void* lse, int B, int S,
-                 int Sk, int H, int Hkv, float scale, int causal, int window,
-                 void* stream) {
+                 const void* kv_lens, const void* slopes, void* o, void* lse,
+                 int B, int S, int Sk, int H, int Hkv, float scale,
+                 int causal, int window, void* stream) {
   const int smem = wgmma_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_wgmma_kernel<D, kAlibi>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(H, B, (S + kTile - 1) / kTile);
-  flash_fwd_wgmma_kernel<D>
+  flash_fwd_wgmma_kernel<D, kAlibi>
       <<<grid, hopper::kWarpgroup, smem, (cudaStream_t)stream>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v),
-          static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(o),
-          static_cast<float*>(lse), S, Sk, H, Hkv, scale, causal, window);
+          static_cast<const int*>(kv_lens), static_cast<const float*>(slopes),
+          static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), S, Sk, H,
+          Hkv, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (FMA route), 1 = bfloat16 (tensor-core route);
-// head_dim: 64 or 128. kv_lens may be null (no padding); window <= 0
-// means no sliding window. bf16 pointers must be 16-byte aligned.
+// head_dim: 64 or 128. kv_lens may be null (no padding); slopes null (no
+// ALiBi) or fp32 [B * H]; window <= 0 means no sliding window. bf16
+// pointers must be 16-byte aligned.
 extern "C" int flash_fwd(int dtype, int head_dim, const void* q,
                          const void* k, const void* v, const void* kv_lens,
-                         void* o, void* lse, int B, int S, int Sk, int H,
-                         int Hkv, float scale, int causal, int window,
-                         void* stream) {
+                         const void* slopes, void* o, void* lse, int B, int S,
+                         int Sk, int H, int Hkv, float scale, int causal,
+                         int window, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-#define PTT_FLASH(LAUNCH)                                                  \
-  return LAUNCH(q, k, v, kv_lens, o, lse, B, S, Sk, H, Hkv, scale, causal, \
-                window, stream)
-  if (dtype == kF32 && head_dim == 64) PTT_FLASH((launch<64, float>));
-  if (dtype == kF32 && head_dim == 128) PTT_FLASH((launch<128, float>));
-  if (dtype == kBF16 && head_dim == 64) PTT_FLASH(launch_wgmma<64>);
-  if (dtype == kBF16 && head_dim == 128) PTT_FLASH(launch_wgmma<128>);
-#undef PTT_FLASH
-  return static_cast<int>(cudaErrorInvalidValue);
+#define PTT_ARGS                                                          \
+  (q, k, v, kv_lens, slopes, o, lse, B, S, Sk, H, Hkv, scale, causal, window, \
+   stream)
+  return with_alibi(slopes, [&](auto alibi) {
+    constexpr bool kA = decltype(alibi)::value;
+    if (dtype == kF32 && head_dim == 64) return launch<64, float, kA> PTT_ARGS;
+    if (dtype == kF32 && head_dim == 128)
+      return launch<128, float, kA> PTT_ARGS;
+    if (dtype == kBF16 && head_dim == 64) return launch_wgmma<64, kA> PTT_ARGS;
+    if (dtype == kBF16 && head_dim == 128)
+      return launch_wgmma<128, kA> PTT_ARGS;
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
+#undef PTT_ARGS
 }

@@ -1,1 +1,2 @@
 from paddle_tpu_torch.nn import functional  # noqa: F401
+from paddle_tpu_torch.nn.layers import LayerNorm  # noqa: F401

@@ -1,7 +1,9 @@
-"""The Llama and MoE slice of ``paddle_tpu/nn/functional.py``: ``silu``,
-``swiglu``, ``embedding`` and ``rms_norm``, on tensors, and the losses the
-train steps need: ``parallel_cross_entropy`` (Llama, moe_llm) and
-``cross_entropy`` (Mixtral, Qwen2-MoE).
+"""The Llama, MoE and BLOOM/Falcon slice of ``paddle_tpu/nn/functional.py``:
+``silu``, ``swiglu``, ``gelu``, ``embedding``, ``rms_norm`` and
+``layer_norm``, on tensors, and the losses the train steps need:
+``parallel_cross_entropy`` (Llama, moe_llm) and ``cross_entropy``
+(Mixtral, Qwen2-MoE). ``gelu`` and ``layer_norm`` are plain PyTorch: XLA
+fuses them in the reference, which has no Pallas kernel for them.
 
 Weights keep the reference's ``[in, out]`` layout where a layout exists.
 """
@@ -12,6 +14,13 @@ import torch
 
 def silu(x):
     return torch.nn.functional.silu(x)
+
+
+def gelu(x, approximate=False):
+    """``jax.nn.gelu``: the tanh approximation with ``approximate=True``
+    (BLOOM), the exact erf form without (Falcon)."""
+    return torch.nn.functional.gelu(
+        x, approximate="tanh" if approximate else "none")
 
 
 def swiglu(x, y=None):
@@ -39,6 +48,25 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     if weight is not None:
         out = out * weight
     return out
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    """The reference's rounding: mean and variance in fp32 (bf16 statistics
+    lose ~3 digits, visible in deep pre-LN stacks), the weight and bias
+    applied in fp32, one cast back to x's type. ``weight``/``bias`` None
+    skip that term."""
+    n = ((normalized_shape,) if isinstance(normalized_shape, int)
+         else tuple(normalized_shape))
+    dims = tuple(range(x.ndim - len(n), x.ndim))
+    x32 = x.float()
+    mean = x32.mean(dims, keepdim=True)
+    var = (x32 - mean).square().mean(dims, keepdim=True)
+    out = (x32 - mean) * torch.rsqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
 
 
 def parallel_cross_entropy(logits, labels, *, label_smoothing=0.0):

@@ -8,8 +8,8 @@ backward on a CUDA tensor, their plain versions on a CPU tensor — and
 the calls the reference's kernel refuses (a dense ``attn_mask``,
 dropout, windowed decode against a padded cache) to
 :func:`eager_attention`, the port of the reference's ``xla_attention``,
-which autograd differentiates as it stands. ALiBi takes the eager path
-on a CPU tensor and raises on a CUDA one until K2 computes it. Rotary
+which autograd differentiates as it stands. ALiBi goes to the flash
+kernel too (K2 and K5 add the bias in the tile). Rotary
 embedding (:func:`apply_rope`, :func:`fused_rotary_position_embedding`)
 goes through K7, ``ops.cuda.rope.fused_rope``.
 """
@@ -97,17 +97,17 @@ def eager_attention(query, key, value, attn_mask=None, is_causal=False,
 
 
 def _flash_takes(query, key, attn_mask, dropout_p, is_causal, training,
-                 window, kv_lens, alibi_slopes):
+                 window, kv_lens):
     """Whether the flash kernel takes this call, decided from the
     arguments alone (a launch that fails still raises). The calls the
     reference's own Pallas kernel refuses go to :func:`eager_attention`,
     its ``xla_attention``, on any device: a dense mask or dropout, GQA
     by partial groups, a window without ``is_causal``, and a window with
     ``kv_lens`` when Sq != Sk (windowed decode against a padded cache).
-    ALiBi goes to :func:`eager_attention` on a CPU tensor only: on a CUDA
-    tensor it raises until K2 computes it in the tile, as the reference's
-    kernel does (ROADMAP.md queue 2, for queue 1 item 8); so does a head
-    dim or dtype that ``kernel_route`` does not build."""
+    ALiBi stays with the flash kernel, as in the reference: on a CPU
+    tensor its plain version computes the bias the card's kernel does. On
+    a CUDA tensor a head dim or dtype that ``kernel_route`` does not
+    build raises."""
     from paddle_tpu_torch.ops.cuda import flash_attention as _flash
     if (attn_mask is not None or (dropout_p != 0.0 and training)
             or query.shape[2] % key.shape[2]
@@ -115,14 +115,8 @@ def _flash_takes(query, key, attn_mask, dropout_p, is_causal, training,
             or (window is not None and kv_lens is not None
                 and query.shape[1] != key.shape[1])):
         return False
-    if not query.is_cuda:
-        return alibi_slopes is None
-    if alibi_slopes is not None:
-        raise NotImplementedError(
-            "ALiBi in the flash kernel (K2) is not ported yet (ROADMAP.md "
-            "queue 2; Bloom/Falcon, queue 1 item 8); eager_attention "
-            "takes alibi_slopes")
-    _flash.kernel_route(query.dtype, query.shape[-1])
+    if query.is_cuda:
+        _flash.kernel_route(query.dtype, query.shape[-1])
     return True
 
 
@@ -132,19 +126,20 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                   window=None, kv_lens=None,
                                   alibi_slopes=None):
     """Dispatch: the flash kernel (K2) for every call it takes — padding as
-    ``kv_lens``, GQA by index, causal sliding window — and
+    ``kv_lens``, GQA by index, causal sliding window, ALiBi — and
     :func:`eager_attention` for the calls the reference gives
     ``xla_attention`` because its kernel refuses them (:func:`_flash_takes`):
     a dense ``attn_mask`` or dropout (a materialised [.., Sq, Sk] mask has
     already spent the memory flash saves) and windowed decode with
-    ``kv_lens`` against a longer cache; on a CPU tensor ALiBi too. On a
-    CUDA tensor, ALiBi and a head dim or dtype with no kernel raise."""
+    ``kv_lens`` against a longer cache. On a CUDA tensor a head dim or
+    dtype with no kernel raises."""
     if _flash_takes(query, key, attn_mask, dropout_p, is_causal, training,
-                    window, kv_lens, alibi_slopes):
+                    window, kv_lens):
         from paddle_tpu_torch.ops.cuda import flash_attention as _flash
         return _flash.flash_attention(query, key, value, causal=is_causal,
                                       scale=scale, window=window,
-                                      kv_lens=kv_lens)
+                                      kv_lens=kv_lens,
+                                      alibi_slopes=alibi_slopes)
     return eager_attention(query, key, value, attn_mask=attn_mask,
                            is_causal=is_causal, scale=scale,
                            dropout_p=dropout_p, training=training,

@@ -24,14 +24,21 @@ WINDOW_SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_decode", "rope")
 # quantized serving (int8 KV pool): K3 and K4 in their int8 mode
 QUANT_SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_chunk_i8",
                        "paged_decode_i8", "rope")
+# the ALiBi families (BLOOM, falcon-rw) through generic_generate (every
+# step re-forwards the whole buffer: K2 only) and make_train_step
+ALIBI_SERVE_KERNELS = ("flash_fwd_alibi",)
+ALIBI_TRAIN_KERNELS = ("flash_fwd_alibi", "flash_bwd_dq_alibi",
+                       "flash_bwd_dkv_alibi")
+# Falcon-7B (rope, multi-query) through generic_generate
+ROPE_GENERATE_KERNELS = ("flash_fwd", "rope")
 
 
 def kernels() -> dict:
     """{name: the object that counts its launches in ``.launches``} of
     every kernel of the port: the serving path's (K3 and K4 counted apart
     over int8 pools), the train step's backward, the grouped GEMM of the
-    MoE families (forward/dlhs, drhs), then the rotary embedding of every
-    path."""
+    MoE families (forward/dlhs, drhs), the rotary embedding of every
+    path, then the ALiBi mode of K2, K5a and K5b (counted apart)."""
     return {
         "rms_norm": norms.rms_norm,
         "flash_fwd": flash_attention.flash_attention,
@@ -44,6 +51,9 @@ def kernels() -> dict:
         "grouped_fwd": grouped_matmul.grouped_matmul,
         "grouped_dw": grouped_matmul.grouped_dw,
         "rope": rope.fused_rope,
+        "flash_fwd_alibi": flash_attention.flash_fwd_alibi,
+        "flash_bwd_dq_alibi": flash_attention.flash_bwd_dq_alibi,
+        "flash_bwd_dkv_alibi": flash_attention.flash_bwd_dkv_alibi,
     }
 
 

@@ -300,6 +300,70 @@ def test_flash_kernels_match_plain_at_tile_edges(dtype, tol, d, case):
         close(got, ref)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("per_row", [False, True], ids=["h", "bh"])
+@pytest.mark.parametrize("case", EDGE_CASES.keys())
+def test_flash_alibi_kernels_match_plain_at_tile_edges(dtype, tol, d,
+                                                       per_row, case):
+    """The ALiBi mode of K2 (O and LSE), K5a and K5b (dq, dk, dv) against
+    the plain versions with the same slopes ([H] or [B, H], BLOOM-sized:
+    up to 2^-0.5), on each route, at the tile edges of the mode without
+    ALiBi: every live tile takes the bias, K5b's slope changes inside the
+    GQA group sum, the short query blocks use the end-aligned positions.
+    Only the ALiBi counters rise; two runs give identical bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch.ops import cuda as K
+    dev = torch.device("cuda")
+    b, s, sk, h, hkv, causal, window, lens = EDGE_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(14)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def close(a, b):
+        assert a.dtype == b.dtype
+        err = (a.float() - b.float()).abs() / (1 + b.float().abs())
+        assert float(err.max()) <= tol
+
+    q, do = rnd(b, s, h, d), rnd(b, s, h, d)
+    k, v = rnd(b, sk, hkv, d), rnd(b, sk, hkv, d)
+    kl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=dev)
+    m = 0.05 + 0.66 * torch.rand((b, h) if per_row else (h,), generator=g,
+                                 device=dev)
+    slopes = TF._slopes(m, q)
+    args = (causal, d ** -0.5, window, kl, slopes)
+    K.reset_launches()
+    runs = [TF.flash_fwd_cuda(q, k, v, *args) for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    o, lse = runs[0]
+    ref_o, ref_lse = TF.flash_attention_fwd_plain(q, k, v, *args)
+    _, keep = TF._masked_scores(q, k, causal, 1.0, window, kl)
+    live = keep.any(-1)[:, 0].expand(b, s)                  # [B, S]
+    close(o[live], ref_o[live])
+    close(lse.transpose(1, 2)[live], ref_lse.transpose(1, 2)[live])
+    assert not o[~live].any() and not lse.transpose(1, 2)[~live].any()
+    if kl is not None and s == sk:
+        live = live & (torch.arange(s, device=dev)[None, :] < kl[:, None])
+    do = do * live[:, :, None, None]
+    runs = [TF.flash_bwd_cuda(q, k, v, o, lse, do, *args) for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    for got, ref in zip(runs[0],
+                        TF.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                     *args)):
+        close(got, ref)
+    counts = K.launches()
+    assert {n: counts[n] for n in K.ALIBI_TRAIN_KERNELS} == dict.fromkeys(
+        K.ALIBI_TRAIN_KERNELS, 2), counts
+    assert counts["flash_fwd"] == counts["flash_bwd_dq"] == \
+        counts["flash_bwd_dkv"] == 0, counts
+
+
 # K5a's tensor-core route at its edges: b, S, Sk, causal, window, kv_lens
 DQ_CASES = {
     "ragged_s": (2, 77, 77, True, None, None),
@@ -702,11 +766,13 @@ def test_int8_engine_on_card_launches_the_int8_kernels():
 
 @pytest.mark.cuda
 def test_sdpa_on_card_refuses_what_no_kernel_computes():
-    """On the card, ALiBi and a head dim with no flash kernel (96) raise:
-    no plain version stands in for a kernel mode that is still to port.
-    A windowed decode with kv_lens, which the reference's kernel refuses
-    too, takes the eager path (the flash counter stays put) and agrees
-    with the CPU; head dim 128 launches K2."""
+    """On the card, a head dim with no flash kernel (96) raises: no plain
+    version stands in for a kernel mode that is still to port. ALiBi,
+    refused here until K2 computed it, launches K2's ALiBi mode (its
+    counter, not K2's) and agrees with the CPU. A windowed decode with
+    kv_lens, which the reference's kernel refuses too, takes the eager
+    path (the flash counter stays put) and agrees with the CPU; head dim
+    128 launches K2."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the chip)")
     from paddle_tpu_torch.ops import cuda as K
@@ -716,8 +782,12 @@ def test_sdpa_on_card_refuses_what_no_kernel_computes():
                for _ in range(3))
     sl = torch.rand(4, generator=g).cuda()
     K.reset_launches()
-    with pytest.raises(NotImplementedError, match="ALiBi"):
-        scaled_dot_product_attention(q, k, v, alibi_slopes=sl)
+    got = scaled_dot_product_attention(q, k, v, alibi_slopes=sl)
+    want = scaled_dot_product_attention(q.cpu(), k.cpu(), v.cpu(),
+                                        alibi_slopes=sl.cpu())
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    assert K.launches()["flash_fwd_alibi"] == 1
+    assert K.launches()["flash_fwd"] == 0
     with pytest.raises(NotImplementedError, match="head_dim 96"):
         scaled_dot_product_attention(
             *(t[..., :96].contiguous() for t in (q, k, v)), is_causal=True)
@@ -733,3 +803,75 @@ def test_sdpa_on_card_refuses_what_no_kernel_computes():
     assert K.launches()["flash_fwd"] == 0
     scaled_dot_product_attention(q, k, v, is_causal=True)
     assert K.launches()["flash_fwd"] == 1
+
+
+# name -> (model module, config kw at head dim 64, 2 layers, fp32)
+ALIBI_FAMILIES = {
+    "bloom": ("bloom", "BloomConfig", "BloomForCausalLM",
+              dict(hidden_size=256, n_head=4, vocab_size=512)),
+    "falcon_rw": ("falcon", "FalconConfig", "FalconForCausalLM",
+                  dict(hidden_size=256, num_attention_heads=4, vocab_size=512,
+                       alibi=True, bias=True, multi_query=False,
+                       parallel_attn=False)),
+    "falcon_7b_shape": ("falcon", "FalconConfig", "FalconForCausalLM",
+                        dict(hidden_size=512, num_attention_heads=8,
+                             vocab_size=512)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ALIBI_FAMILIES)
+def test_bloom_falcon_on_card_match_cpu_and_launch_their_kernels(family):
+    """generic_generate (greedy) and two make_train_step steps of a 2-layer
+    model at head dim 64 in float32: the card (K2/K5 in their ALiBi mode
+    for BLOOM and falcon-rw; K2 at GQA 8:1 and K7 for the falcon-7b block)
+    and the CPU (plain versions) give the same tokens and the same losses
+    to fp32 rounding, and the card launches the path's kernels and not the
+    other mode's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import importlib
+
+    import numpy as np
+
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.decoding import generic_generate
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.train import init_state, make_train_step
+    mod, cfg_name, cls_name, kw = ALIBI_FAMILIES[family]
+    m = importlib.import_module(f"paddle_tpu_torch.models.{mod}")
+    cfg = getattr(m, cfg_name).tiny(initializer_range=0.2, **kw)
+    cpu = getattr(m, cls_name)(cfg, device="cpu")
+    card = getattr(m, cls_name)(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    prompts = np.random.RandomState(0).randint(0, 512, (3, 40))
+    K.reset_launches()
+    streams = [generic_generate(model, prompts, max_new_tokens=6).cpu()
+               for model in (cpu, card)]
+    assert torch.equal(*streams)
+    counts = K.launches()
+    want = (K.ALIBI_SERVE_KERNELS if getattr(cfg, "alibi", True)
+            else K.ROPE_GENERATE_KERNELS)
+    other = ("flash_fwd" if want is K.ALIBI_SERVE_KERNELS
+             else "flash_fwd_alibi")
+    assert all(counts[k] > 0 for k in want) and counts[other] == 0, counts
+    ids = prompts[:2]
+    labels = np.concatenate([ids[:, 1:], np.full((2, 1), -100)], axis=1)
+    losses = []
+    for model in (cpu, card):
+        K.reset_launches()
+        opt = O.AdamW(learning_rate=1e-3, weight_decay=0.1,
+                      grad_clip=O.ClipGradByGlobalNorm(1.0))
+        state = init_state(model, opt)
+        step = make_train_step(lambda mm, i, lab: mm.loss(i, lab), opt)
+        dev = next(model.parameters()).device
+        run = []
+        for _ in range(2):
+            state, loss = step(state, torch.as_tensor(ids, device=dev),
+                               torch.as_tensor(labels, device=dev))
+            run.append(float(loss))
+        losses.append(run)
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+    if want is K.ALIBI_SERVE_KERNELS:
+        counts = K.launches()
+        assert all(counts[k] > 0 for k in K.ALIBI_TRAIN_KERNELS), counts

@@ -25,7 +25,8 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "paddle_tpu_torch.models.mixtral, paddle_tpu_torch.models.qwen2_moe, "
         "paddle_tpu_torch.models.moe_llm, paddle_tpu_torch.models.mistral, "
         "paddle_tpu_torch.models.qwen, paddle_tpu_torch.ops.cuda.rope, "
-        "paddle_tpu_torch.serving.quant\n"
+        "paddle_tpu_torch.serving.quant, paddle_tpu_torch.models.bloom, "
+        "paddle_tpu_torch.models.falcon, paddle_tpu_torch.nn.layers\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
@@ -100,9 +101,20 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
         "serve": K.SERVE_KERNELS, "train": K.TRAIN_KERNELS,
         "moe_serve": K.MOE_SERVE_KERNELS, "moe_train": K.MOE_TRAIN_KERNELS,
         "window_serve": K.WINDOW_SERVE_KERNELS,
-        "quant_serve": K.QUANT_SERVE_KERNELS}
-    # K7 rotates every rope of every path
-    assert all("rope" in names for names in chip_smoke.PATHS.values())
+        "quant_serve": K.QUANT_SERVE_KERNELS,
+        "bloom_serve": K.ALIBI_SERVE_KERNELS,
+        "bloom_train": K.ALIBI_TRAIN_KERNELS,
+        "falcon_rw_serve": K.ALIBI_SERVE_KERNELS,
+        "falcon_rw_train": K.ALIBI_TRAIN_KERNELS,
+        "falcon7b_serve": K.ROPE_GENERATE_KERNELS}
+    # K7 rotates every rope of every path; the ALiBi paths (BLOOM,
+    # falcon-rw) have no rope and run K2's (and K5's) ALiBi mode instead
+    alibi = {p for p in chip_smoke.PATHS if p.startswith(("bloom",
+                                                          "falcon_rw"))}
+    assert all("rope" in names for p, names in chip_smoke.PATHS.items()
+               if p not in alibi)
+    assert all("flash_fwd_alibi" in chip_smoke.PATHS[p]
+               and "rope" not in chip_smoke.PATHS[p] for p in alibi)
     assert "rope" in chip_smoke.SOURCES
     assert set(chip_smoke.SOURCES) == set(K.kernels())
     built = set()

@@ -15,7 +15,7 @@ import torch
 from paddle_tpu.ops.pallas import flash_attention as JF
 from paddle_tpu.ops.pallas import norms as JN
 from paddle_tpu.ops.pallas import paged_attention as JPA
-from paddle_tpu_torch.ops import fused_rms_norm
+from paddle_tpu_torch.ops import eager_attention, fused_rms_norm
 from paddle_tpu_torch.ops.cuda import flash_attention as TF
 from paddle_tpu_torch.ops.cuda import norms as TN
 from paddle_tpu_torch.ops.cuda import paged_attention as TPA
@@ -331,12 +331,19 @@ def test_kernel_route_by_dtype_and_head_dim(d):
 
 
 def test_paged_kernels_refuse_unported_modes():
+    """``partials`` is still to port and raises; ALiBi, once refused here
+    too, runs: the flash wrapper equals its plain version and the eager
+    attention (an independent implementation of the same bias)."""
     rs = np.random.RandomState(6)
     kp, vp, tables = _pools(rs, 2)
     q = _t(rs.randn(3, 4, 16).astype(np.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TPA.paged_decode_attention(q, _t(kp), _t(vp), _t(tables),
                                    _t(np.ones(3, np.int32)), partials=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TF.flash_attention(q[None], q[None], q[None],
-                           alibi_slopes=torch.ones(4))
+    slopes = torch.ones(4)
+    got = TF.flash_attention(q[None], q[None], q[None], alibi_slopes=slopes)
+    want = TF.flash_attention_plain(q[None], q[None], q[None],
+                                    alibi_slopes=slopes)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got, eager_attention(
+        q[None], q[None], q[None], alibi_slopes=slopes), **TOL)

@@ -367,9 +367,9 @@ def test_cache_block_bytes_match_reference_bytes_model(kv_dtype):
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
 @pytest.mark.parametrize("per_row", [False, True], ids=["h", "bh"])
 def test_sdpa_with_alibi_matches_reference(causal, per_row):
-    """ALiBi has no flash kernel yet: the dispatch takes the eager path,
-    as the reference takes xla_attention, and no gradient reaches the
-    slopes."""
+    """ALiBi goes to the flash kernel (its plain version on the CPU, the
+    bias K2 adds on the card) and agrees with the reference's attention;
+    no gradient reaches the slopes."""
     rs = np.random.RandomState(20)
     q, k, v = (rs.randn(2, 8, 4, 16).astype(np.float32) for _ in range(3))
     slopes = (rs.rand(2, 4) if per_row else rs.rand(4)).astype(np.float32)
