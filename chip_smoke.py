@@ -13,13 +13,18 @@ Phases (each one fails the run when it fails; nothing is caught):
             the shapes the Llama-2-7B serving path and the train step give
             it (bf16, tolerance 2e-2) and again in float32 (tolerance 1e-4),
             and at the shapes the MoE paths give them (bf16):
-            K1 also with a bf16 x under an fp32 weight, K2's log-sum-exp
-            against torch.logsumexp of the plain scores, K5 (dq, dk/dv) at
-            the training shapes and on a small GQA + kv_lens + window case,
+            K1 (timed eager and replayed from a CUDA graph over inputs
+            larger than the L2, as are F.rms_norm and a copy of the same
+            bytes) also with a bf16 x
+            under an fp32 weight, K2's log-sum-exp against
+            torch.logsumexp of the plain scores, K5 (dq, dk/dv) at the
+            training shapes and on a small GQA + kv_lens + window case,
             K6a/K6b (grouped GEMM forward, dlhs, drhs) at the Qwen decode,
-            prefill and train shapes, at Mixtral-8x7B width and on a small
-            ragged case (an empty group's drhs exactly 0), each K6a line
-            naming its route (few-rows, tensor-core or FMA); K7 (rope) on the
+            prefill and train shapes (drhs of both train products), at
+            Mixtral-8x7B width and on a small ragged case (an empty
+            group's drhs exactly 0), each K6a and K6b line naming its route
+            (few-rows, tensor-core or FMA; K6b's read from the wrapper's
+            count of each kernel's launches); K7 (rope) on the
             strided q/k views of every path's shapes, its forward equal to
             the plain version bit for bit and its backward within the
             tolerance (timed eager and replayed from a CUDA graph); K2 at
@@ -81,7 +86,8 @@ Phases (each one fails the run when it fails; nothing is caught):
             batch 2 x 2048: 2 warm-up and 8 timed steps on one fixed batch;
             every loss finite, the last below the first, K1, K2, K5 and the
             grouped GEMM forward and drhs kernels launched (16 and 8 per
-            step); step ms, tokens/s and peak memory
+            step, every drhs on K6b's tensor-core kernel by that kernel's
+            own count); step ms, tokens/s and peak memory
   window_serve  ``MistralConfig.mistral_7b()`` whole (7.24 B parameters,
             sliding window 4096, random weights from a seed made on the
             card) served by ``LLMEngine`` in 4 slots: four prompts of 4200
@@ -157,7 +163,10 @@ Phases (each one fails the run when it fails; nothing is caught):
             shape of K6_TILES (64 or 128 rows by 128 or 256 columns), each
             against the plain version and timed at the MoE train and
             prefill shapes: the measurement behind the tile the kernel
-            source builds
+            source builds; then, for K6b's tensor-core route at both train
+            shapes, the bytes its 128 x 256 tiles read from L2 and how
+            evenly its static tile stride spreads the routed rows over
+            the persistent blocks
 
 ``--root DIR`` imports the package from another checkout (an earlier
 commit unpacked with ``git archive``), so that two trees can be compared
@@ -172,7 +181,8 @@ path's own run, with every count set to 0 just before it, and its times are
 taken at the shapes that path gives the kernel; ``"variant"`` names the
 kernel that ran within the CUDA route where a wrapper picks one by dtype
 and shape (K2/K5: ``"wgmma"`` or ``"fma"``; K6a: ``"rows"``, ``"wgmma"``
-or ``"fma"``). The last line is
+or ``"fma"``; K6b: ``"wgmma"`` or ``"fma"``, from its launch counts). The
+last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero,
 printing no result, when there is no card or the port is not beside it.
 """
@@ -333,6 +343,40 @@ def graph_ms(fn, iters=50):
     return e0.elapsed_time(e1) / (5 * iters)
 
 
+def cold_graph_ms(fn, x, iters_min=50):
+    """Device time per call of ``fn(x')``, replayed from a CUDA graph as
+    in ``graph_ms``, over copies x' of ``x``: so many that the copies and
+    the outputs, all kept alive, fill four times the card's L2. Every call
+    then reads its input from device memory and writes bytes no other call
+    wrote, as the bytes bound assumes (``graph_ms`` on one tensor that
+    fits the L2 would time the L2)."""
+    import torch
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 << 20)
+    n = max(2, -(-4 * l2 // (2 * x.numel() * x.element_size())))
+    xs = [x.clone() for _ in range(n)]
+    reps = -(-iters_min // n)
+    fn(xs[0])
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    outs = []
+    with torch.cuda.graph(g):
+        for xi in xs:
+            outs.append(fn(xi))
+    g.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    del g, outs, xs
+    torch.cuda.empty_cache()
+    return e0.elapsed_time(e1) / (reps * n)
+
+
 def bound(nbytes, flops, peak_flops=PEAK_BF16_FLOPS):
     """(ms, "bytes" or "operations"): the larger of bytes over the memory
     rate and flops over ``peak_flops`` (the tensor-core bf16 rate, or the
@@ -381,6 +425,22 @@ def _k6_route(GM, m, e, k, n, dtype, trans=False):
     rows = (not trans and m <= GM.ROWS_KERNEL_MAX_ROWS_PER_GROUP * e
             and n % (16 // dtype.itemsize) == 0)
     return "rows" if rows else "fma"
+
+
+def _k6b_ran(GM, call):
+    """(``call()``, the kernel its one K6b launch ran), read from the
+    wrapper's count of each kernel's launches (an earlier tree without
+    those counts had the FMA tile only)."""
+    per = getattr(GM.grouped_dw, "route_launches", None)
+    if per is None:
+        return call(), "fma"
+    before = dict(per)
+    out = call()
+    ran = [r for r, n in per.items() if n != before[r]]
+    if len(ran) != 1 or per[ran[0]] != before[ran[0]] + 1:
+        raise AssertionError(f"grouped_dw: one launch counted as {per} "
+                             f"after {before}")
+    return out, ran[0]
 
 
 def _max_err(a, b, mask=None):
@@ -600,11 +660,15 @@ def phase_kernels(torch, dev):
     for path, rs in results.items():
         for name, r in rs.items():
             lib = r["library_ms"]
+            graph = ("" if "graph_ms" not in r else
+                     f" (graph {r['graph_ms']:.4f} ms, library graph "
+                     f"{r['library_graph_ms']:.4f} ms, copy of x graph "
+                     f"{r['copy_graph_ms']:.4f} ms)")
             log(f"[kernels] {path} {name} ({r['shape']}): {r['ms']:.4f} ms, "
                 f"plain {r['plain_ms']:.4f} ms, library "
                 f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
-                f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+                f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound{graph}")
     return results
 
 
@@ -615,11 +679,19 @@ def _k1_entry(torch, x, w, err):
     rows, h = x.shape
     es = x.element_size()
     b_ms, b_by = bound(2 * rows * h * es + h * w.element_size(), 4 * rows * h)
+    # the small shapes are bound by the host in eager calls: the device
+    # times of the kernel and the library call come from CUDA graphs over
+    # inputs that do not fit the L2, as does a copy of x (the same bytes
+    # read and written: the rate a stream reaches on this card)
     return dict(
         max_abs_err=err,
         ms=time_ms(lambda: norms.rms_norm(x, w, 1e-5)),
+        graph_ms=cold_graph_ms(lambda t: norms.rms_norm(t, w, 1e-5), x),
         plain_ms=time_ms(lambda: norms.rms_norm_plain(x, w, 1e-5)),
         library_ms=time_ms(lambda: F.rms_norm(x, (h,), w, 1e-5)),
+        library_graph_ms=cold_graph_ms(
+            lambda t: F.rms_norm(t, (h,), w, 1e-5), x),
+        copy_graph_ms=cold_graph_ms(lambda t: t.clone(), x),
         bound_ms=b_ms, bound_by=b_by,
         shape=f"x [{rows}, {h}] {_short(x.dtype)}, weight "
               f"{_short(w.dtype)}")
@@ -1042,13 +1114,14 @@ def k6(torch, dev):
     """K6a (forward, and read-transposed as the backward's dlhs) and K6b
     (drhs) against the plain versions, bf16 and fp32, at the MoE slice's
     shapes: Qwen decode (32 rows over 60 experts, both expert products),
-    Qwen prefill (4096 rows), Qwen train (16 384 rows: forward, dlhs,
-    drhs), Mixtral-8x7B width (8 experts, 4096 -> 28 672, 2048 rows) and a
-    small ragged case with empty and one-row groups whose m, k and n are no
-    multiples of the tiles (both forward kernels). An empty group's drhs
-    must be exactly 0. Returns the entries of the decode forward (path
-    moe_serve) and of the train forward and drhs (path moe_train); every
-    other shape's times are logged."""
+    Qwen prefill (4096 rows), Qwen train (16 384 rows: forward, dlhs and
+    drhs of the gate_up and of the down product), Mixtral-8x7B width (8
+    experts, 4096 -> 28 672, 2048 rows) and a small ragged case with empty
+    and one-row groups whose m, k and n are no multiples of the tiles (both
+    forward kernels). An empty group's drhs must be exactly 0. Returns the
+    entries of the decode forward (path moe_serve) and of the train forward
+    and drhs (gate_up: path moe_train); every other shape's times, the
+    down product's drhs among them, are logged."""
     from paddle_tpu_torch.ops.cuda import grouped_matmul as GM
     h, inter, e, topk = MOE_HIDDEN, MOE_INTER, MOE_EXPERTS, MOE_TOPK
     out = {}
@@ -1095,6 +1168,7 @@ def k6(torch, dev):
         ("qwen decode down", 8, e, topk, inter, h, False),
         ("qwen prefill gate_up", 1024, e, topk, h, 2 * inter, False),
         ("qwen train gate_up", 4096, e, topk, h, 2 * inter, True),
+        ("qwen train down", 4096, e, topk, inter, h, True),
         ("mixtral-8x7b gate_up", 1024, 8, 2, 4096, 28672, False),
     )
     for label, tokens, ne, tk, k, n, bwd in cases:
@@ -1114,8 +1188,11 @@ def k6(torch, dev):
                 err_t = _agree(f"grouped_fwd transposed ({label})", dtype,
                                _max_err(GM.grouped_fwd_cuda(cot, rhs, gs,
                                                             True), dlhs))
-                err_w = _agree(f"grouped_dw ({label})", dtype, _max_err(
-                    GM.grouped_dw(lhs, cot, gs), drhs))
+                got_w, route = _k6b_ran(
+                    GM, lambda: GM.grouped_dw(lhs, cot, gs))
+                err_w = _agree(f"grouped_dw ({label}, {route})", dtype,
+                               _max_err(got_w, drhs))
+                del got_w
                 del dlhs, drhs
                 if dtype == "bf16":
                     entries["dlhs"] = _k6_fwd_entry(torch, cot, rhs, gs,
@@ -1126,7 +1203,7 @@ def k6(torch, dev):
                     b_ms, b_by = bound((m * k + m * n + ne * k * n) * es,
                                        2 * m * k * n)
                     entries["dw"] = dict(
-                        max_abs_err=err_w, variant="fma",
+                        max_abs_err=err_w, variant=route,
                         ms=time_ms(lambda: GM.grouped_dw(lhs, cot, gs),
                                    iters=10),
                         plain_ms=time_ms(
@@ -1136,8 +1213,8 @@ def k6(torch, dev):
                                                        gs),
                         bound_ms=b_ms, bound_by=b_by,
                         shape=f"lhs [{m}, {k}], g [{m}, {n}] -> "
-                              f"[{ne}, {k}, {n}] bf16 (plain: dlhs and "
-                              f"drhs in one call)")
+                              f"[{ne}, {k}, {n}] bf16; {route} route "
+                              f"(plain: dlhs and drhs in one call)")
             for kind, r in entries.items():
                 lib = r["library_ms"]
                 log(f"[kernels] K6 {label} {kind} ({r['shape']}): "
@@ -1153,6 +1230,27 @@ def k6(torch, dev):
             del lhs, rhs, cot, gs, entries
             torch.cuda.empty_cache()
     return out
+
+
+def _k6b_static_balance(torch, sizes, k, n):
+    """How evenly K6b's static tile stride spreads this routing's work:
+    one persistent block an SM takes tiles b, b + SMs, ... of the
+    group-major list of 128 x 256 tiles; a tile's products are its
+    group's 16-row steps. Returns the busiest block's steps and tiles
+    over the mean (a schedule that balances by a counter could gain at
+    most the excess)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_group = -(-k // 128) * -(-n // 256)
+    sizes = [int(x) for x in sizes.tolist()]
+    steps, tiles = [0] * sms, [0] * sms
+    for t in range(len(sizes) * per_group):
+        b = t % sms
+        steps[b] += -(-sizes[t // per_group] // 16)
+        tiles[b] += 1
+    mean_steps, mean_tiles = sum(steps) / sms, sum(tiles) / sms
+    return (f"{sms} blocks, busiest block {max(steps) / mean_steps:.4f}x "
+            f"the mean 16-row steps, {max(tiles) / mean_tiles:.4f}x the "
+            f"mean tiles")
 
 
 # K6a's tensor-core tile shapes: (warpgroups, columns); the first is the
@@ -1224,6 +1322,19 @@ def phase_k6_tiles(torch, dev):
                 f"({b_by}), {100 * b_ms / ms:.1f}% of bound")
         del lhs, rhs, gs, out, ref
         torch.cuda.empty_cache()
+    # K6b's tensor-core route at both train shapes (the routing depends on
+    # the seed alone): the bytes its 128 x 256 tiles read from L2, each
+    # group's rows once a tile (k wide for every n tile, n wide for every
+    # k tile), and how evenly its static stride spreads them
+    *_, gs = _k6_inputs(torch, dev, 4096, e, MOE_TOPK, 8, 8, torch.bfloat16,
+                        21)
+    m = int(gs.sum())
+    for label, k, n in (("train gate_up", h, 2 * inter),
+                        ("train down", inter, h)):
+        slab_gb = m * (-(-n // 256) * k + -(-k // 128) * n) * 2 / 1e9
+        log(f"[k6_tiles] K6b {label} (lhs [{m}, {k}], g [{m}, {n}]): "
+            f"{slab_gb:.3f} GB of slab reads by 128 x 256 tiles; "
+            f"{_k6b_static_balance(torch, gs, k, n)}")
 
 
 # -------------------------------------------------------------------- K7
@@ -2215,11 +2326,15 @@ def phase_moe_train(torch, dev, np, check, anatomy=False):
              f"layers.{last}.mlp.moe.experts.down", "layers.0.mlp.moe.gate_w")
     counts = run_train(torch, np, "moe_train", model, ids, labels, check,
                        anatomy, names, MOE_GRAD_REL)
-    # per step: 2 products per layer forward, 2 dlhs and 2 drhs backward
+    # per step: 2 products per layer forward, 2 dlhs and 2 drhs backward,
+    # every drhs (bf16, aligned) on K6b's tensor-core kernel where the
+    # tree counts its kernels apart
     steps, layers = 10, cfg.num_hidden_layers
     want = {"grouped_fwd": 4 * layers * steps,
             "grouped_dw": 2 * layers * steps}
-    got = {k: counts[k] for k in want}
+    if "grouped_dw.wgmma" in counts:
+        want["grouped_dw.wgmma"] = want["grouped_dw"]
+    got = {k: counts.get(k) for k in want}
     if got != want:
         raise AssertionError(f"moe_train launches {got}, expected {want}")
     return counts
@@ -2263,6 +2378,11 @@ def run_train(torch, np, path, model, ids, labels, check, anatomy,
     torch.cuda.synchronize()
     step_s = (time.monotonic() - t0) / n_steps
     counts = K.launches()
+    # "<name>.<kernel>": launches of each kernel of a wrapper that counts
+    # them apart (a tree without such counts has none)
+    counts.update({f"{name}.{kernel}": n for name, per in
+                   getattr(K, "route_launches", dict)().items()
+                   for kernel, n in per.items()})
     losses = [float(x) for x in losses]
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)):

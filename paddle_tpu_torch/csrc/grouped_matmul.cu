@@ -55,9 +55,33 @@
 //     in flight per thread, multiplies it into the tile's live rows held in
 //     registers and sums the warps' partial results in a fixed order.
 //
-// K6b: one block per (group, k tile, n tile) loops over its group's rows,
-// so the sum over rows is taken in registers in a fixed order: no atomics,
-// the result is deterministic, and a block of an empty group writes zeros.
+// K6b (drhs [E, k, n]) is bound by bytes, and mostly by its output: at
+// the MoE train shape (60 groups of ~273 rows, k 2048, n 2816) it writes
+// 692 MB of bf16 against 159 MB of lhs and g read, and each of its 189
+// GFLOP meets only ~273 rows of reduction, so a tile's prologue and
+// epilogue weigh as much as its products. Each output tile is summed down
+// its group's rows in registers in a fixed order by one block: no
+// atomics, the result is deterministic, and an empty group's tiles write
+// exact zeros. Two kernels, chosen by the wrapper's dw_route from the
+// static shapes, dtype and alignment alone:
+//   wgmma (bf16, k and n multiples of 8, 16-byte-aligned pointers) —
+//     grouped_dw_wgmma_kernel: 128 (k) x 256 (n) output tiles of two
+//     warpgroups (wgmma m64n256k16, both operands MN-major: the lhs and g
+//     slabs are used as they lie in memory), 64-row slabs through a
+//     three-stage cp.async ring, rows past the group's end zero-filled.
+//     Persistent blocks (one an SM) walk the static, group-major tile list
+//     with a fixed stride, so the tile order needs no group size on the
+//     host, a group's inputs stay in L2 for its tiles, and a tile's
+//     epilogue overlaps the next tile's first loads. The epilogue casts
+//     once to bf16 into a shared staging tile and writes it with coalesced
+//     16-byte stores (whole 512-byte rows, no per-element stores). What
+//     holds it above the bound: every tile reads its group's rows from L2
+//     again (2.2 GB a call at the gate_up shape, 14 times the inputs'
+//     bytes), the output's writes share the L2 with those reads, and a
+//     tile's epilogue stalls the tensor cores.
+//   fma (float32, and whatever the tensor-core route refuses) —
+//     grouped_dw_kernel: one block per (group, k tile, n tile), fp32 FMAs
+//     from shared-memory tiles; exact to the card tests' 1e-4 in float32.
 #include "hopper_mma.cuh"
 
 using namespace ptt;
@@ -615,6 +639,237 @@ int launch_dw(const void* lhs, const void* gr, const void* sizes, void* drhs,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------ K6b, tensor-core route (bf16)
+constexpr int kDwBK = 128;     // k rows of an output tile: two warpgroups
+constexpr int kDwBN = 256;     // n columns of an output tile
+constexpr int kDwRows = 64;    // group rows per slab: the reduction step
+constexpr int kDwStages = 3;   // cp.async ring: one slab loads while one
+                               // product runs (deeper rings and 32-row
+                               // slabs measured no faster)
+constexpr int kDwMaxGroups = 1024;  // row offsets kept in shared memory
+// staging row: 512 bytes of bf16 and 16 of padding, so that the eight
+// rows a warp's fragment store touches fall in different banks
+constexpr int kDwPitch = kDwBN * 2 + 16;
+constexpr int kDwStaging = kDwBK * kDwPitch;
+
+// a ring stage: an lhs slab [64 rows][128] and a g slab [64 rows][256]
+constexpr int kDwABytes = kDwRows * kDwBK * 2;
+constexpr int kDwStage = kDwABytes + kDwRows * kDwBN * 2;
+
+// Dynamic shared memory of the K6b tensor-core route for e groups: the
+// ring, the output staging tile and the groups' row offsets, plus the
+// slack that aligns the tiles to 1024 bytes.
+constexpr int dw_wgmma_smem_bytes(int e) {
+  return kDwStages * kDwStage + kDwStaging + 4 * (e + 1) + 1024;
+}
+
+// Persistent blocks of two warpgroups. Output tile t of the static list
+// (group-major: t = (group * k_tiles + k tile) * n_tiles + n tile, so an
+// expert's lhs and g rows come from device memory about once and from L2
+// for its other tiles) is drhs[group][k0 .. k0+128][n0 .. n0+256]; block b
+// takes tiles b, b + gridDim.x, ... Warpgroup wg owns the 64 k rows
+// k0 + 64 wg .. and sums lhs[r][k]^T g[r][n] down the group's rows in
+// slabs of 64: both slabs are stored as they lie in memory (lhs [64 r][128
+// k], g [64 r][256 n]), so both operands are MN-major (the descriptors'
+// transpose bits). Rows past the group's end are zero-filled in both
+// operands (no 0 x inf from the next group), and the 16-row steps wholly
+// past it are skipped. The slabs of a block's successive tiles form one
+// stream through the ring, so the next tile's first slab loads during a
+// tile's epilogue. Epilogue: fp32 -> bf16 once, into a staging tile in
+// shared memory (stmatrix), which the warpgroup writes to device memory
+// with 16-byte stores, a 512-byte row a warp. An empty group's tiles load
+// nothing and write exact zeros.
+__global__ void __launch_bounds__(2 * hopper::kWarpgroup, 1)
+    grouped_dw_wgmma_kernel(const __nv_bfloat16* __restrict__ lhs,
+                            const __nv_bfloat16* __restrict__ gr,
+                            const int* __restrict__ sizes,
+                            __nv_bfloat16* __restrict__ drhs, int m, int k,
+                            int n, int e, int k_tiles, int n_tiles) {
+  using namespace hopper;
+  constexpr int THREADS = 2 * kWarpgroup;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t s0 = smem_addr(base);
+  const uint32_t staging = s0 + kDwStages * kDwStage;
+  int* seg = reinterpret_cast<int*>(base + kDwStages * kDwStage + kDwStaging);
+  // row offsets of the groups, clipped to m (rows past sum(sizes) belong
+  // to no group): group g owns rows [seg[g], seg[g + 1])
+  if (threadIdx.x == 0) {
+    int start = 0;
+    for (int i = 0; i < e; ++i) {
+      seg[i] = start;
+      start = min(start + max(sizes[i], 0), m);
+    }
+    seg[e] = start;
+  }
+  __syncthreads();
+  const int per_group = k_tiles * n_tiles, tiles = e * per_group;
+  struct TileRows {
+    int grp, r0, r1, k0, n0;
+  };
+  auto tile_rows = [&](int t) {
+    TileRows v;
+    v.grp = t / per_group;
+    const int rest = t - v.grp * per_group;
+    v.r0 = seg[v.grp];
+    v.r1 = seg[v.grp + 1];
+    v.k0 = (rest / n_tiles) * kDwBK;
+    v.n0 = (rest % n_tiles) * kDwBN;
+    return v;
+  };
+  auto n_slabs = [&](const TileRows& v) {
+    return (v.r1 - v.r0 + kDwRows - 1) / kDwRows;
+  };
+
+  // the producer's cursor: slab ps of tile pt is the next to load, into
+  // stage `loaded % kDwStages`; tiles without rows are passed over
+  int pt = blockIdx.x, ps = 0, loaded = 0;
+  auto skip_empty = [&]() {
+    while (pt < tiles && n_slabs(tile_rows(pt)) == 0) pt += gridDim.x;
+  };
+  skip_empty();
+  // every thread commits one group a call, empty past the last slab
+  auto load = [&]() {
+    if (pt < tiles) {
+      const TileRows v = tile_rows(pt);
+      const int row = v.r0 + ps * kDwRows;
+      const int nrows = min(kDwRows, v.r1 - row);
+      const uint32_t st = s0 + (loaded % kDwStages) * kDwStage;
+      load_tile_masked<kDwRows, kDwBK, THREADS>(
+          st, lhs + (size_t)row * k + v.k0, k, nrows, k - v.k0);
+      load_tile_masked<kDwRows, kDwBN, THREADS>(
+          st + kDwABytes, gr + (size_t)row * n + v.n0, n, nrows, n - v.n0);
+      ++loaded;
+      if (++ps == n_slabs(v)) {
+        ps = 0;
+        pt += gridDim.x;
+        skip_empty();
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the warpgroup index and each tile's row count are broadcast from lane
+  // 0, so that the compiler sees the branches around wgmma as uniform
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWarpgroup, 0);
+  const int tid = threadIdx.x % kWarpgroup;
+  const int warp = tid >> 5, lane = tid & 31;
+  const uint32_t my_staging = staging + wg * 64 * kDwPitch;
+  float acc[kDwBN / 2];
+  for (int st = 0; st < kDwStages - 2; ++st) load();
+  int used = 0;  // slabs consumed: slab `used` lies in stage used % kDwStages
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const TileRows v = tile_rows(t);
+    const int rows = __shfl_sync(0xffffffffu, v.r1 - v.r0, 0);
+#pragma unroll
+    for (int i = 0; i < kDwBN / 2; ++i) acc[i] = 0.f;
+    reg_fence(acc);
+    for (int r = 0; r < rows; r += kDwRows, ++used) {
+      cp_async_wait<kDwStages - 3>();  // slab `used` landed
+      fence_async_smem();
+      // every thread's copies of this slab are visible, and both
+      // warpgroups have retired the product two slabs back, whose stage
+      // the next load takes
+      __syncthreads();
+      load();
+      const uint32_t a =
+          s0 + (used % kDwStages) * kDwStage + wg * kDwRows * 128;  // panel wg
+      const uint32_t b = s0 + (used % kDwStages) * kDwStage + kDwABytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDwRows / 16; ++kk)
+        if (r + 16 * kk < rows)  // 16-row steps past the group's end: 0
+          mma_ss<kDwBN, 1, 1>(acc, desc_mnmajor<kDwRows>(a, kk),
+                              desc_mnmajor<kDwRows>(b, kk));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous slab's product retired
+    }
+    wgmma_wait<0>();
+    reg_fence(acc);
+    // every thread of the warpgroup has read the staging rows it rewrites
+    named_barrier(1 + wg, kWarpgroup);
+    // fp32 -> bf16 once: thread (warp, lane) holds rows 16 warp + lane / 4
+    // (+ 8 hr), columns 8 j + 2 (lane % 4) + {0, 1}, so the 8 x 8 block
+    // (j, hr) is one stmatrix operand; each stmatrix writes the blocks
+    // (j, 0), (j, 1), (j + 1, 0) and (j + 1, 1), lane l addressing row
+    // l % 8 of block l / 8
+    {
+      const int q = lane >> 3;
+      const uint32_t row_addr =
+          my_staging + (16 * warp + 8 * (q & 1) + (lane & 7)) * kDwPitch +
+          (q >> 1) * 16;
+#pragma unroll
+      for (int j = 0; j < kDwBN / 8; j += 2) {
+        const uint32_t r[4] = {pack_bf16(acc[4 * j], acc[4 * j + 1]),
+                               pack_bf16(acc[4 * j + 2], acc[4 * j + 3]),
+                               pack_bf16(acc[4 * j + 4], acc[4 * j + 5]),
+                               pack_bf16(acc[4 * j + 6], acc[4 * j + 7])};
+        stmatrix_x4(row_addr + j * 16, r);
+      }
+    }
+    named_barrier(1 + wg, kWarpgroup);  // the tile is staged
+    // to device memory: a warp writes a 512-byte row with one 16-byte
+    // store a lane (columns past n and rows past k are not written)
+#pragma unroll 4
+    for (int i = tid; i < 64 * (kDwBN / 8); i += kWarpgroup) {
+      const int rr = i / (kDwBN / 8), cc = i % (kDwBN / 8);
+      const int kr = v.k0 + 64 * wg + rr, col = v.n0 + 8 * cc;
+      const uint4 val = ld_shared16(my_staging + rr * kDwPitch + cc * 16);
+      if (kr < k && col < n)
+        *reinterpret_cast<uint4*>(drhs + ((size_t)v.grp * k + kr) * n +
+                                  col) = val;
+    }
+  }
+}
+
+// streaming multiprocessors of the current device, asked of the runtime
+// once a device (the query is not free, and a launcher runs it each call)
+cudaError_t sm_count(int* out) {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64)
+    return cudaDeviceGetAttribute(out, cudaDevAttrMultiProcessorCount, dev);
+  if (cached[dev] == 0) {
+    err = cudaDeviceGetAttribute(&cached[dev],
+                                 cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *out = cached[dev];
+  return cudaSuccess;
+}
+
+int launch_dw_wgmma(const void* lhs, const void* gr, const void* sizes,
+                    void* drhs, int m, int k, int n, int e, void* stream) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(lhs) |
+                          reinterpret_cast<uintptr_t>(gr) |
+                          reinterpret_cast<uintptr_t>(drhs);
+  if (k % 8 != 0 || n % 8 != 0 || align % 16 != 0 || e > kDwMaxGroups)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long k_tiles = (k + kDwBK - 1) / kDwBK;
+  const long long n_tiles = (n + kDwBN - 1) / kDwBN;
+  const long long tiles = e * k_tiles * n_tiles;
+  if (tiles > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int smem = dw_wgmma_smem_bytes(e);
+  err = cudaFuncSetAttribute(grouped_dw_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one persistent block an SM (the shared memory allows no second)
+  const int blocks = static_cast<int>(tiles < sms ? tiles : sms);
+  grouped_dw_wgmma_kernel<<<blocks, 2 * hopper::kWarpgroup, smem,
+                            (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(lhs),
+      static_cast<const __nv_bfloat16*>(gr), static_cast<const int*>(sizes),
+      static_cast<__nv_bfloat16*>(drhs), m, k, n, e,
+      static_cast<int>(k_tiles), static_cast<int>(n_tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (lhs, rhs and out alike). lhs [m, k],
@@ -647,11 +902,19 @@ extern "C" int grouped_fwd(int dtype, int trans, int kind, const void* lhs,
 }
 
 // lhs [m, k], g [m, n], sizes [e] int32 -> drhs [e, k, n], every element
-// written (zeros for an empty group).
-extern "C" int grouped_dw(int dtype, const void* lhs, const void* g,
-                          const void* sizes, void* drhs, int m, int k, int n,
-                          int e, void* stream) {
+// written (zeros for an empty group). kind picks the kernel (the
+// wrapper's dw_route decides from the static shapes, the dtype and the
+// alignment): 0 the FMA tile, 2 the tensor-core tile (bf16, k and n
+// multiples of 8, 16-byte-aligned pointers, at most kDwMaxGroups groups).
+extern "C" int grouped_dw(int dtype, int kind, const void* lhs,
+                          const void* g, const void* sizes, void* drhs, int m,
+                          int k, int n, int e, void* stream) {
   if (k <= 0 || n <= 0 || e <= 0) return 0;
+  if (kind == 2)
+    return dtype == kBF16
+               ? launch_dw_wgmma(lhs, g, sizes, drhs, m, k, n, e, stream)
+               : static_cast<int>(cudaErrorInvalidValue);
+  if (kind != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kF32)
     return launch_dw<float>(lhs, g, sizes, drhs, m, k, n, e, stream);
   if (dtype == kBF16)

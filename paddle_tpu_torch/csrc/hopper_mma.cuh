@@ -1,10 +1,13 @@
 // Hopper (sm_90a) building blocks for the tensor-core kernels (bf16):
-// flash_fwd.cu's K2, flash_bwd.cu's K5a and K5b, grouped_matmul.cu's K6a.
-// 16-byte cp.async copies into 128-byte-swizzled shared tiles, the
-// shared-memory matrix descriptors of wgmma, and the wgmma.mma_async
-// shapes they use: SS m64n64k16 (both operands K-major), SS m64n128k16
-// and m64n256k16 (B K-major or MN-major), RS m64n64k16 and m64n128k16
-// (B MN-major).
+// flash_fwd.cu's K2, flash_bwd.cu's K5a and K5b, grouped_matmul.cu's K6a
+// and K6b. 16-byte cp.async copies into 128-byte-swizzled shared tiles,
+// the shared-memory matrix descriptors of wgmma, and the wgmma.mma_async
+// shapes they use: SS m64n64k16 (both operands K-major; K2, K5), SS
+// m64n128k16 and m64n256k16 (A K-major or, TA = 1, MN-major; B K-major
+// or, TB = 1, MN-major: K6a's forward A K-major B MN-major, its dlhs
+// both K-major, K6b both MN-major), RS m64n64k16 and m64n128k16 (B
+// MN-major; K2, K5); and for an epilogue staged in shared memory (K6b),
+// stmatrix, 16-byte shared loads and named barriers.
 //
 // Tile layout. A [rows][D] bf16 tile (D = 64 or 128) is stored as D / 64
 // panels of [rows][64]: one 128-byte line per row, the 16-byte chunk c of
@@ -18,7 +21,8 @@
 //     transpose bit set): 8-row groups 1024 bytes apart (SBO), a 16-row k
 //     step 2048 bytes further, the next 64 output columns one panel
 //     further (LBO).
-// So one tile in shared memory feeds a product as either operand.
+// So one tile in shared memory feeds a product as either operand, A or
+// B: an MN-major A of 64 rows is one panel of such a tile.
 //
 // Register fragments. The fp32 accumulator of an m64nN product gives
 // thread t of the warpgroup (warp w = t / 32, lane l) rows 16w + l / 4 and
@@ -121,6 +125,34 @@ __device__ __forceinline__ void load_tile_masked(uint32_t dst,
   }
 }
 
+// 16 bytes from shared memory
+__device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// four 8 x 8 bf16 matrices from registers to shared memory: r[q] is this
+// thread's pair of matrix q (row lane / 4, columns 2 (lane % 4) + {0, 1}:
+// the layout of an 8-row, 8-column block of a wgmma accumulator packed to
+// bf16), and lane l gives the address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr,
+                                            const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(addr),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
+// barrier `id` (1..15; 0 is __syncthreads') over `threads` threads
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand starting
 // at shared address addr (byte offsets: lbo, sbo)
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
@@ -204,8 +236,9 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
 }
 
 // d[64 x 128] += A[64 x 16] B[16 x 128]: A and B in shared memory, A
-// K-major, B K-major (TB = 0) or MN-major (TB = 1)
-template <int TB>
+// K-major (TA = 0) or MN-major (TA = 1), B K-major (TB = 0) or MN-major
+// (TB = 1)
+template <int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da,
                                             uint64_t db) {
   asm volatile(
@@ -217,7 +250,7 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da,
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
       "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -231,12 +264,13 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TB));
+      : "l"(da), "l"(db), "r"(1), "n"(TB), "n"(TA));
 }
 
 // d[64 x 256] += A[64 x 16] B[16 x 256]: A and B in shared memory, A
-// K-major, B K-major (TB = 0) or MN-major (TB = 1)
-template <int TB>
+// K-major (TA = 0) or MN-major (TA = 1), B K-major (TB = 0) or MN-major
+// (TB = 1)
+template <int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss_n256(float (&d)[128], uint64_t da,
                                             uint64_t db) {
   asm volatile(
@@ -253,7 +287,7 @@ __device__ __forceinline__ void mma_ss_n256(float (&d)[128], uint64_t da,
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
       "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -280,19 +314,20 @@ __device__ __forceinline__ void mma_ss_n256(float (&d)[128], uint64_t da,
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(TB));
+      : "l"(da), "l"(db), "r"(1), "n"(TB), "n"(TA));
 }
 
 // d[64 x N] += A[64 x 16] B[16 x N] (N = 128 or 256), both from shared
-// memory: A K-major, B K-major (TB = 0) or MN-major (TB = 1)
-template <int N, int TB>
+// memory: A K-major (TA = 0) or MN-major (TA = 1), B K-major (TB = 0) or
+// MN-major (TB = 1)
+template <int N, int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
                                        uint64_t db) {
   static_assert(N == 128 || N == 256, "SS shapes: n128, n256");
   if constexpr (N == 128)
-    mma_ss_n128<TB>(d, da, db);
+    mma_ss_n128<TB, TA>(d, da, db);
   else
-    mma_ss_n256<TB>(d, da, db);
+    mma_ss_n256<TB, TA>(d, da, db);
 }
 
 // d[64 x 64] += A[64 x 16] B[16 x 64]: A in registers, B in shared

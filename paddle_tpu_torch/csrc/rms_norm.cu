@@ -15,6 +15,9 @@
 // reduced by warp shuffles; the second pass re-reads the row, which is
 // then L1/L2-resident (8 KiB at H=4096 bf16), so device memory sees one
 // read of x, one read of w per block (L2-resident too) and one write of y.
+// On an H100 it reads within a few percent of a plain copy of the same
+// bytes at the train steps' shapes (PERF.md, K1 rows), so a warp per row,
+// measured there, gained nothing and is not built.
 #include "common.cuh"
 
 using namespace ptt;

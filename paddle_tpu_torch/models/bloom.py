@@ -31,10 +31,12 @@ from paddle_tpu_torch.nn.layers import LayerNorm
 from paddle_tpu_torch.ops import attention as A
 
 
-def alibi_slopes(n_heads: int, device="cpu"):
+def alibi_slopes(n_heads: int, device=None):
     """The ALiBi slope schedule (HF ``build_alibi_tensor``'s head
     geometry): powers of ``2^(-8/n)`` for the closest power-of-two head
-    count, interleaved extras when n is not a power of two. fp32 [n]."""
+    count, interleaved extras when n is not a power of two. fp32 [n] on
+    ``device`` (None: the card)."""
+    device = resolve_device(device)
     p = 2 ** math.floor(math.log2(n_heads))
     base = 2.0 ** (-(2.0 ** -(math.log2(p) - 3)))
     slopes = [base ** (i + 1) for i in range(p)]

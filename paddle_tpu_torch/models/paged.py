@@ -35,6 +35,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.observability.memledger import MemLedger
 from paddle_tpu_torch.ops import attention as A
 from paddle_tpu_torch.ops.cuda import paged_attention as _paged
@@ -94,7 +95,9 @@ class PagedKVCache:
 
     @staticmethod
     def init(num_layers, num_blocks, block_size, num_kv_heads, head_dim,
-             batch, max_blocks_per_seq, dtype, kv_dtype=None, device="cpu"):
+             batch, max_blocks_per_seq, dtype, kv_dtype=None, device=None):
+        """Zeroed pools on ``device`` (None: the card)."""
+        device = resolve_device(device)
         pool_dtype, scales = dtype, 0
         if kv_dtype is not None:
             if kv_dtype not in ("int8", torch.int8):

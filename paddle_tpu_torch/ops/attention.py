@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.ops.cuda import rope as _rope
 
 # most-negative bf16-representable; avoids nan from -inf - -inf
@@ -193,8 +194,10 @@ def resolve_rope_scaling(base, head_dim, scaling, seq_len=None,
 def rope_cos_sin(seq_len, head_dim, base=10000.0, dtype=torch.float32,
                  position_ids=None, scaling=None,
                  max_position_embeddings=None, allow_dynamic=True,
-                 cur_len=None, device="cpu"):
-    """cos/sin [S, D/2] (or [B, S, D/2] for a per-row dynamic base)."""
+                 cur_len=None, device=None):
+    """cos/sin [S, D/2] (or [B, S, D/2] for a per-row dynamic base) on
+    ``device`` (None: the card, as every entry point of the port)."""
+    device = resolve_device(device)
     base, pos_div = resolve_rope_scaling(
         base, head_dim, scaling, seq_len=seq_len,
         max_position_embeddings=max_position_embeddings,

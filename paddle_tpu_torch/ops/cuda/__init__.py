@@ -60,7 +60,17 @@ def kernels() -> dict:
 def reset_launches():
     for fn in kernels().values():
         fn.launches = 0
+        for route in getattr(fn, "route_launches", ()):
+            fn.route_launches[route] = 0
 
 
 def launches() -> dict:
     return {name: fn.launches for name, fn in kernels().items()}
+
+
+def route_launches() -> dict:
+    """{name: {kernel: launches}} of the wrappers that choose between
+    kernels and count each where it launches (K6b: ``"wgmma"``,
+    ``"fma"``)."""
+    return {name: dict(fn.route_launches) for name, fn in kernels().items()
+            if hasattr(fn, "route_launches")}

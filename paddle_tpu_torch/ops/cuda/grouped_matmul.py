@@ -17,9 +17,12 @@ gradient and is never read back to the host on the kernel path: the launch
 covers the static bound of row tiles and each block finds its group on the
 device. :func:`fwd_route` names the kernel a K6a launch runs: the few-rows
 kernel at the decode shape, the tensor cores (``wgmma``) for bf16 at the
-prefill and train shapes, forward and dlhs alike, fp32 FMAs for float32.
-``grouped_matmul.launches`` counts K6a launches (forward and dlhs),
-``grouped_dw.launches`` K6b launches.
+prefill and train shapes, forward and dlhs alike, fp32 FMAs for float32;
+:func:`dw_route` the kernel of a K6b launch: the tensor cores for bf16,
+fp32 FMAs for float32. ``grouped_matmul.launches`` counts K6a launches
+(forward and dlhs), ``grouped_dw.launches`` K6b launches and
+``grouped_dw.route_launches`` the K6b launches of each kernel (``"wgmma"``,
+``"fma"``).
 
 ``PT_GROUPED_GEMM=0`` (:func:`grouped_gemm_enabled`) keeps its meaning: the
 MoE layer then takes its dense capacity path and never comes here.
@@ -59,6 +62,27 @@ def fwd_route(m, e, k, n, dtype, trans=False, aligned=True) -> str:
             and n % (16 // dtype.itemsize) == 0 and aligned):
         return "rows"
     if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and aligned:
+        return "wgmma"
+    return "fma"
+
+
+# groups whose row offsets K6b's tensor-core kernel keeps in shared memory
+DW_WGMMA_MAX_GROUPS = 1024
+
+
+def dw_route(m, e, k, n, dtype, aligned=True) -> str:
+    """The kernel one K6b launch (``drhs [e, k, n]`` from ``lhs [m, k]``
+    and ``g [m, n]``) runs, from the static shapes, the dtype and whether
+    lhs, g and the result are 16-byte aligned (``aligned``) alone:
+
+    * ``"wgmma"``: bf16 on the tensor cores (k and n multiples of 8, at
+      most ``DW_WGMMA_MAX_GROUPS`` groups);
+    * ``"fma"``: fp32 FMAs, for float32 and whatever ``"wgmma"`` refuses.
+
+    ``m`` does not choose (the group sizes stay on the device); every
+    route is a kernel: a CUDA tensor never reaches the plain version."""
+    if (dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and aligned
+            and e <= DW_WGMMA_MAX_GROUPS):
         return "wgmma"
     return "fma"
 
@@ -119,7 +143,7 @@ def _lib():
         v, i = ctypes.c_void_p, ctypes.c_int
         lib.grouped_fwd.argtypes = [i, i, i, v, v, v, v, i, i, i, i, v]
         lib.grouped_fwd.restype = ctypes.c_int
-        lib.grouped_dw.argtypes = [i, v, v, v, v, i, i, i, i, v]
+        lib.grouped_dw.argtypes = [i, i, v, v, v, v, i, i, i, i, v]
         lib.grouped_dw.restype = ctypes.c_int
         _sig_set = True
     return lib
@@ -182,7 +206,9 @@ def grouped_fwd_cuda(lhs, rhs, group_sizes, trans_rhs=False):
 
 def grouped_dw(lhs, g, group_sizes):
     """One launch of K6b on CUDA tensors: ``drhs`` [E, k, n] in the
-    operands' type (the weights' too), zeros for empty groups."""
+    operands' type (the weights' too), zeros for empty groups. The kernel
+    is the one :func:`dw_route` names; ``group_sizes`` is not read on the
+    host."""
     if lhs.ndim != 2 or g.ndim != 2 or g.shape[0] != lhs.shape[0]:
         raise ValueError(f"bad grouped_dw shapes {tuple(lhs.shape)} "
                          f"{tuple(g.shape)}")
@@ -195,12 +221,15 @@ def grouped_dw(lhs, g, group_sizes):
     m, k = lhs.shape
     n, e = g.shape[1], sizes.shape[0]
     drhs = torch.empty((e, k, n), dtype=lhs.dtype, device=lhs.device)
+    route = dw_route(m, e, k, n, lhs.dtype,
+                     all(t.data_ptr() % 16 == 0 for t in (lhs, g, drhs)))
     lib = _lib()
-    rc = lib.grouped_dw(_build.dtype_code(lhs, "grouped_dw"), _build.ptr(lhs),
-                        _build.ptr(g), _build.ptr(sizes), _build.ptr(drhs),
-                        m, k, n, e, _build.stream(lhs))
+    rc = lib.grouped_dw(_build.dtype_code(lhs, "grouped_dw"), _KIND[route],
+                        _build.ptr(lhs), _build.ptr(g), _build.ptr(sizes),
+                        _build.ptr(drhs), m, k, n, e, _build.stream(lhs))
     _build.check(lib, rc, "grouped_dw")
     grouped_dw.launches += 1
+    grouped_dw.route_launches[route] += 1
     return drhs
 
 
@@ -247,3 +276,4 @@ def grouped_matmul(lhs, rhs, group_sizes):
 
 grouped_matmul.launches = 0
 grouped_dw.launches = 0
+grouped_dw.route_launches = {"wgmma": 0, "fma": 0}

@@ -282,5 +282,5 @@ def test_gelu_matches_reference(approximate):
 
 @pytest.mark.parametrize("n", [4, 6, 16, 32, 71])
 def test_alibi_slopes_match_reference(n):
-    np.testing.assert_allclose(tbloom.alibi_slopes(n).numpy(),
+    np.testing.assert_allclose(tbloom.alibi_slopes(n, "cpu").numpy(),
                                np.asarray(jbloom.alibi_slopes(n)), rtol=1e-7)

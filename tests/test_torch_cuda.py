@@ -191,6 +191,48 @@ def test_rms_norm_reads_an_fp32_weight_in_fp32():
     assert w.grad.dtype == torch.float32
 
 
+# (h, rows): K1 at the train steps' rows (2048 and 1024 wide), a short
+# row, the 7B and Mistral widths, a wide row of few rows, and a width of
+# no whole 16-byte vectors (scalar access)
+RMS_CARD_CASES = {
+    "h2048_rows4096": (2048, 4096),
+    "h1024_rows5000": (1024, 5000),
+    "h72_rows4099": (72, 4099),
+    "h2048_rows1024": (2048, 1024),
+    "h4096_rows4096": (4096, 4096),
+    "h5120_rows37": (5120, 37),
+    "h8192_rows8": (8192, 8),
+    "h2044_rows300": (2044, 300),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype,tol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["w_f32", "w_bf16"])
+@pytest.mark.parametrize("case", RMS_CARD_CASES.keys())
+def test_rms_norm_kernel_matches_plain_across_widths(xdtype, tol, wdtype,
+                                                     case):
+    """K1 against the plain version at the widths and row counts of
+    RMS_CARD_CASES, bf16 and fp32 x under bf16 and fp32 weights; every
+    launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    h, rows = RMS_CARD_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(h + rows)
+    w = (1.0 + 0.1 * torch.randn(h, generator=g, device="cuda")).to(wdtype)
+    x = (3 * torch.randn(rows, h, generator=g, device="cuda")).to(xdtype)
+    n0 = TN.rms_norm.launches
+    got = TN.rms_norm(x, w, 1e-5)
+    assert TN.rms_norm.launches == n0 + 1
+    ref = TN.rms_norm_plain(x, w, 1e-5)
+    assert got.dtype == xdtype and got.shape == x.shape
+    d = (got.float() - ref.float()).abs() / (1 + ref.float().abs())
+    assert float(d.max()) <= tol
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
@@ -468,6 +510,58 @@ def test_grouped_fwd_tensor_core_route_matches_plain(trans, k, n):
     assert bool(out[total:].isnan().all())
 
 
+def _plain_drhs(lhs, g, sizes, e):
+    """drhs of the plain backward (it needs a weight only for its shape)."""
+    rhs = torch.empty(e, lhs.shape[1], g.shape[1], dtype=lhs.dtype,
+                      device=lhs.device)
+    return TG.grouped_matmul_bwd_plain(lhs, rhs, sizes, g)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged_k200_n264", "train_gate_up",
+                                  "train_down"])
+def test_grouped_dw_tensor_core_route_matches_plain(case):
+    """K6b's bf16 route (dw_route "wgmma") against the plain drhs within
+    2e-2 * (1 + |x|): over groups of 0, 1, 63, 64, 65, 130, 0 and 700 rows
+    at k 200, n 264 (no multiples of the 128 x 256 tile), with rows past
+    the ragged total that hold inf (lhs) and NaN (g) and must not be
+    read, and at Qwen1.5-MoE-A2.7B's two train shapes (16 384 routed rows
+    over 60 experts; k 2048, n 2816 and k 1408, n 2048). Every empty
+    group's drhs is exactly 0; two launches give identical bits; each
+    launch is counted, on the tensor-core kernel's own count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    if case == "ragged_k200_n264":
+        sizes = [0, 1, 63, 64, 65, 130, 0, 700]
+        k, n, pad = 200, 264, 7
+    else:
+        k, n = (2048, 2816) if case == "train_gate_up" else (1408, 2048)
+        choice = torch.rand(4096, 60, generator=g, device=dev).topk(4).indices
+        sizes = torch.bincount(choice.reshape(-1), minlength=60).tolist()
+        pad = 0
+    e, total = len(sizes), sum(sizes)
+    lhs = torch.randn(total + pad, k, generator=g, device=dev).bfloat16()
+    cot = torch.randn(total + pad, n, generator=g, device=dev).bfloat16()
+    lhs[total:] = float("inf")
+    cot[total:] = float("nan")
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    assert TG.dw_route(total + pad, e, k, n, torch.bfloat16) == "wgmma"
+    n0 = TG.grouped_dw.launches
+    w0 = TG.grouped_dw.route_launches["wgmma"]
+    runs = [TG.grouped_dw(lhs, cot, gs) for _ in range(2)]
+    assert TG.grouped_dw.launches == n0 + 2
+    assert TG.grouped_dw.route_launches["wgmma"] == w0 + 2
+    assert torch.equal(runs[0], runs[1])
+    assert runs[0].shape == (e, k, n) and runs[0].dtype == torch.bfloat16
+    ref = _plain_drhs(lhs[:total], cot[:total], gs, e)
+    err = (runs[0].float() - ref.float()).abs() / (1 + ref.float().abs())
+    assert float(err.max()) <= 2e-2
+    empty = gs == 0
+    assert float(runs[0][empty].abs().sum()) == 0.0
+
+
 @pytest.mark.cuda
 def test_train_step_on_card_matches_cpu_and_launches_its_kernels():
     """Three AdamW steps of a 2-layer model at head_dim 128 in float32:
@@ -521,7 +615,7 @@ def test_grouped_matmul_kernels_match_plain(dtype, tol, sizes, n, rows_kernel):
     (drhs) against the plain versions on a ragged partition with empty and
     one-row groups, m, k and n not multiples of the tiles; an empty
     group's drhs is exactly 0; the autograd wrapper launches K6a twice and
-    K6b once."""
+    K6b once, on the kernel dw_route names."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the chip)")
     dev = torch.device("cuda")
@@ -541,12 +635,15 @@ def test_grouped_matmul_kernels_match_plain(dtype, tol, sizes, n, rows_kernel):
         assert float(d.max()) <= tol
 
     n0 = (TG.grouped_matmul.launches, TG.grouped_dw.launches)
+    dw_kernel = TG.dw_route(m, e, k, n, dtype)
+    w0 = TG.grouped_dw.route_launches[dw_kernel]
     lhs.requires_grad_()
     rhs.requires_grad_()
     out = TG.grouped_matmul(lhs, rhs, gs)
     out.backward(cot)
     assert (TG.grouped_matmul.launches, TG.grouped_dw.launches) == (
         n0[0] + 2, n0[1] + 1)
+    assert TG.grouped_dw.route_launches[dw_kernel] == w0 + 1
     with torch.no_grad():
         close(out, TG.grouped_matmul_plain(lhs, rhs, gs))
         dlhs, drhs = TG.grouped_matmul_bwd_plain(lhs, rhs, gs, cot)

@@ -192,6 +192,53 @@ def test_fwd_route_names_a_kernel_for_every_shape_and_dtype(case, dtype):
     assert route in GM._KIND
 
 
+# (label, m, E, k, n, aligned, route for bf16, route for float32): K6b at
+# Qwen1.5-MoE-A2.7B's train shapes and at the edges of its tensor-core
+# route
+DW_ROUTE_CASES = [
+    ("train_gate_up", 16384, 60, 2048, 2816, True, "wgmma", "fma"),
+    ("train_down", 16384, 60, 1408, 2048, True, "wgmma", "fma"),
+    ("ragged_k200_n264", 1023, 8, 200, 264, True, "wgmma", "fma"),
+    ("no_rows", 0, 8, 200, 264, True, "wgmma", "fma"),
+    ("k_off_8", 16384, 60, 2044, 2816, True, "fma", "fma"),
+    ("n_off_8", 16384, 60, 2048, 2812, True, "fma", "fma"),
+    ("unaligned", 16384, 60, 2048, 2816, False, "fma", "fma"),
+    ("max_groups", 4096, GM.DW_WGMMA_MAX_GROUPS, 64, 64, True, "wgmma",
+     "fma"),
+    ("too_many_groups", 4096, GM.DW_WGMMA_MAX_GROUPS + 1, 64, 64, True,
+     "fma", "fma"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", DW_ROUTE_CASES,
+                         ids=[c[0] for c in DW_ROUTE_CASES])
+def test_dw_route_names_a_kernel_for_every_shape_and_dtype(case, dtype):
+    """dw_route is a pure function of the static shapes, the dtype and
+    the alignment of lhs, g and the result: bf16 takes the tensor cores
+    wherever k and n are multiples of 8 and the groups' offsets fit its
+    shared memory, whatever the rows; float32 and whatever the tensor-core
+    route refuses name the FMA kernel, never the plain version."""
+    _, m, e, k, n, aligned, bf16_route, f32_route = case
+    route = GM.dw_route(m, e, k, n, dtype, aligned)
+    assert route == (bf16_route if dtype == torch.bfloat16 else f32_route)
+    assert route in GM._KIND and route != "rows"
+    assert route in GM.grouped_dw.route_launches
+
+
+def test_reset_launches_zeroes_the_per_kernel_counts():
+    """K6b counts each kernel's launches apart from its total, and
+    reset_launches zeroes both, as a path's run needs before it counts."""
+    from paddle_tpu_torch.ops import cuda as K
+    GM.grouped_dw.launches = 3
+    GM.grouped_dw.route_launches.update(wgmma=2, fma=1)
+    assert K.route_launches()["grouped_dw"] == {"wgmma": 2, "fma": 1}
+    K.reset_launches()
+    assert GM.grouped_dw.launches == 0
+    assert K.route_launches() == {"grouped_dw": {"wgmma": 0, "fma": 0}}
+
+
 # groups that straddle the 64-row warpgroups and 128-row tiles of the
 # tensor-core route, with empty and one-row groups
 TILE_EDGE_SIZES = [63, 0, 64, 65, 1, 129, 0, 130]

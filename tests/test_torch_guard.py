@@ -55,15 +55,33 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_entry_points_default_to_the_card():
+    """The model constructors and the makers of rope tables, KV pools and
+    ALiBi slopes put their tensors on the card when no device is named:
+    without one they raise, and with ``device="cpu"`` they run on the
+    CPU."""
     from paddle_tpu_torch.core.device import resolve_device
+    from paddle_tpu_torch.models.bloom import alibi_slopes
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.paged import PagedKVCache
+    from paddle_tpu_torch.ops.attention import rope_cos_sin
+    makers = {
+        "rope_cos_sin": lambda **kw: rope_cos_sin(8, 16, **kw)[0],
+        "PagedKVCache.init": lambda **kw: PagedKVCache.init(
+            1, 4, 4, 1, 16, 2, 2, torch.float32, **kw).k_store[0],
+        "alibi_slopes": lambda **kw: alibi_slopes(6, **kw)}
+    for name, make in makers.items():
+        assert make(device="cpu").device.type == "cpu", name
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
+        assert all(make().device.type == "cuda" for make in makers.values())
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LlamaForCausalLM(LlamaConfig.tiny())
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
+    for name, make in makers.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
     m = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     assert m.device.type == "cpu"
 

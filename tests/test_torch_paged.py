@@ -29,7 +29,7 @@ def _caches(jm, tm):
                               jnp.float32)
     tc = TP.PagedKVCache.init(cfg.num_hidden_layers, N, BS,
                               cfg.num_key_value_heads, d, SLOTS, MB,
-                              torch.float32)
+                              torch.float32, device="cpu")
     return jc, tc
 
 

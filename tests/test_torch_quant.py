@@ -159,29 +159,31 @@ def test_int8_mode_checks_its_arguments():
 
 def test_cache_init_int8_geometry():
     c = TP.PagedKVCache.init(2, 8, 4, 2, 16, 3, 4, torch.float32,
-                             kv_dtype="int8")
+                             kv_dtype="int8", device="cpu")
     assert all(p.dtype == torch.int8 for p in (*c.k_pools, *c.v_pools))
     assert len(c.k_scales) == 2 and len(c.v_scales) == 2
     # one fp32 scale per (block, position, kv-head), plus the sink block
     assert c.k_scales[0].shape == (8, 4, 2)
     assert c.k_scale_store[0].shape == (9, 4, 2)
     assert c.k_scales[0].dtype == torch.float32
-    bf = TP.PagedKVCache.init(2, 8, 4, 2, 16, 3, 4, torch.float32)
+    bf = TP.PagedKVCache.init(2, 8, 4, 2, 16, 3, 4, torch.float32,
+                              device="cpu")
     assert not bf.k_scales and not bf.k_scale_store
 
 
 def test_cache_init_rejects_unsupported_kv_dtype():
     with pytest.raises(ValueError):
         TP.PagedKVCache.init(2, 8, 4, 2, 16, 3, 4, torch.float32,
-                             kv_dtype="int4")
+                             kv_dtype="int4", device="cpu")
 
 
 def test_cache_block_bytes_counts_the_stored_types():
     """At head_dim 64 the int8 pool (1 B codes + 4 B per-head scale) is
     ~0.53x the bf16 pool, as the reference's bytes count says."""
-    bf16 = TP.PagedKVCache.init(2, 8, 16, 2, 64, 3, 4, torch.bfloat16)
+    bf16 = TP.PagedKVCache.init(2, 8, 16, 2, 64, 3, 4, torch.bfloat16,
+                                device="cpu")
     int8 = TP.PagedKVCache.init(2, 8, 16, 2, 64, 3, 4, torch.bfloat16,
-                                kv_dtype="int8")
+                                kv_dtype="int8", device="cpu")
     assert cache_block_bytes(bf16) == 2 * 2 * 16 * 2 * 64 * 2
     assert cache_block_bytes(int8) == 2 * 2 * 16 * 2 * (64 + 4)
     assert cache_block_bytes(int8) / cache_block_bytes(bf16) <= 0.55
@@ -354,7 +356,8 @@ def test_cache_block_bytes_match_reference_bytes_model(kv_dtype):
     block size."""
     layers, bs, h_kv, d = 2, 16, 2, 64
     cache = TP.PagedKVCache.init(layers, 8, bs, h_kv, d, 3, 4,
-                                 torch.bfloat16, kv_dtype=kv_dtype)
+                                 torch.bfloat16, kv_dtype=kv_dtype,
+                                 device="cpu")
     q = dict(kv_dtype_bytes=1, kv_scale_bytes=4) if kv_dtype else {}
     geom = JR.ModelGeometry(num_layers=layers, hidden=128, intermediate=256,
                             vocab=64, heads=2, kv_heads=h_kv, head_dim=d,

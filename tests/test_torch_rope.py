@@ -96,7 +96,7 @@ def test_per_row_tables(dtype):
                              allow_dynamic=False)
     c, sn = TA.rope_cos_sin(s, d, base=1e4, scaling=scaling,
                             max_position_embeddings=6, cur_len=lens,
-                            allow_dynamic=False)
+                            allow_dynamic=False, device="cpu")
     assert tuple(c.shape) == (b, s, d // 2)
     np.testing.assert_allclose(to_np(c), np.asarray(jc), rtol=1e-6, atol=1e-6)
     x, jx = _x((b, s, 4, d), dtype, seed=2)
