@@ -32,7 +32,14 @@ Phases (each one fails the run when it fails; nothing is caught):
             and full causal); K1, K2 and K4 at Mistral-7B's window shapes;
             the int8-pool modes of K4 (serve and Mistral window shapes) and
             K3 (serve chunk shape) on int8 pools with fp32 scales, bf16 and
-            float32 q, the same codes on both sides; K2, K5a and K5b in
+            float32 q, the same codes on both sides; K3 and K4 also in
+            their partials mode (the triple against the plain one over a
+            table with a quarter of its entries another shard's), each K3
+            row naming its route (``variant``) and each K4 row its split
+            count (``nsplit``), both also timed from a CUDA graph (their
+            eager calls time the wrapper's host work at the decode
+            shapes), and K4 at Qwen2-7B's decode shape (GQA 28/4, a
+            group of 7); K2, K5a and K5b in
             their ALiBi mode (bf16 and float32) at the BLOOM-560m and
             Falcon-RW-1B generate ([8, 160, H, 64]) and train ([4, 2048, H,
             64]) shapes, each also timed without ALiBi at the same shape,
@@ -159,6 +166,15 @@ Phases (each one fails the run when it fails; nothing is caught):
   quant_anatomy  (only when asked for) the same for the quantized model's
             decode tick over an int8 pool (after ``quant_serve``'s
             quantization)
+  k4_splits  (only when asked for) K4 at the window, serve (bf16 and
+            int8) and Qwen2-7B decode shapes with its live key range cut
+            into splits of 128, 256, 512 and 1024 keys, each checked and
+            timed from a CUDA graph, beside the split ``decode_schedule``
+            picks: the measurement behind that schedule
+  k3_tiles  (only when asked for) K3's tensor-core route at serving width
+            with every block walking 1, 4 or 8 key tiles (prefixes of 0,
+            192 and 448 keys before 64 queries): time and the K/V bytes a
+            second its blocks stream
   k6_tiles  (only when asked for) K6a's tensor-core route at each tile
             shape of K6_TILES (64 or 128 rows by 128 or 256 columns), each
             against the plain version and timed at the MoE train and
@@ -180,9 +196,10 @@ launches are counted in that
 path's own run, with every count set to 0 just before it, and its times are
 taken at the shapes that path gives the kernel; ``"variant"`` names the
 kernel that ran within the CUDA route where a wrapper picks one by dtype
-and shape (K2/K5: ``"wgmma"`` or ``"fma"``; K6a: ``"rows"``, ``"wgmma"``
-or ``"fma"``; K6b: ``"wgmma"`` or ``"fma"``, from its launch counts). The
-last line is
+and shape (K2/K5 and K3: ``"wgmma"`` or ``"fma"``; K6a: ``"rows"``,
+``"wgmma"`` or ``"fma"``; K6b: ``"wgmma"`` or ``"fma"``, from its launch
+counts), and each K4 entry carries ``"nsplit"``, the splits of its live
+key range at that path's shape. The last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero,
 printing no result, when there is no card or the port is not beside it.
 """
@@ -469,6 +486,44 @@ def _agree(name, dtype, errs):
     return err
 
 
+def _paged_new(PA):
+    """Whether the imported tree has K4 split over the key range, K3's
+    routes and the partials mode of both (an earlier tree: one K4 block
+    per (kv head, row), K3 on FMAs, no partials)."""
+    return hasattr(PA, "decode_schedule")
+
+
+def _k3_variant(PA, q):
+    """The kernel a K3 row ran: ``chunk_route`` ("wgmma" for bf16 q, "fma"
+    for float32; an earlier tree had the FMA kernel only)."""
+    return PA.chunk_route(q.dtype) if hasattr(PA, "chunk_route") else "fma"
+
+
+def _k4_nsplit(PA):
+    """The split count of the last K4 launch (1 in an earlier tree)."""
+    return getattr(PA.paged_decode_attention, "nsplit", None) or 1
+
+
+def _partials_agree(torch, label, dtype, kernel, plain, q, kp, vp, tables,
+                    rest, kw):
+    """A kernel's partials triple (acc, m, l) against its plain version's
+    over the same table with about a quarter of its entries another
+    shard's (the sentinel N, skipped): m, l and acc / l (0 where l == 0)
+    under ``_agree``'s rule. acc is held in units of its own l because the
+    tensor-core route rounds P to bf16 before P V (as K2 and the plain
+    attention do) while the plain partials keep P in fp32, so acc's error
+    grows with l; acc / l is what a merge's result is made of."""
+    g = torch.Generator(device=tables.device).manual_seed(7)
+    drop = torch.rand(tables.shape, generator=g, device=tables.device) < 0.25
+    part = torch.where(drop, torch.full_like(tables, kp.shape[0]), tables)
+    got = kernel(q, kp, vp, part, *rest, partials=True, **kw)
+    ref = plain(q, kp, vp, part, *rest, partials=True, **kw)
+    for name, a, b in (("acc / l", *(x[0] / torch.clamp(x[2], min=1e-30)[
+                           ..., None] for x in (got, ref))),
+                       ("m", got[1], ref[1]), ("l", got[2], ref[2])):
+        _agree(f"{label} partials {name}", dtype, _max_err(a, b))
+
+
 def kernel_cases(torch, dev, h=4096, nh=32):
     """Inputs at the serving shapes of a model of hidden size ``h`` with
     ``nh`` heads (default: Llama-2-7B; B = 8 slots, S = C = 128, H = Hkv =
@@ -503,6 +558,13 @@ def kernel_cases(torch, dev, h=4096, nh=32):
     cases["paged_decode"] = dict(q=randn(8, nh, d), kp=kp, vp=vp,
                                  tables=tables, lens=lens)
     return cases
+
+
+def _k3_graph(PA, fn):
+    """{"graph_ms": K3's device time from a CUDA graph}, in a tree whose K3
+    sets its kernel's attributes once (an earlier tree's K3 set them at
+    every launch, so it is timed eager only): {}."""
+    return {"graph_ms": graph_ms(fn)} if _paged_new(PA) else {}
 
 
 def serve_kernel_entries(torch, dev, h=4096, nh=32, fp32=True):
@@ -576,6 +638,11 @@ def serve_kernel_entries(torch, dev, h=4096, nh=32, fp32=True):
         err = _agree("paged_chunk", dtype, _max_err(
             PA.paged_chunk_attention(q, kp, vp, tb, offs, cls),
             PA.paged_chunk_attention_plain(q, kp, vp, tb, offs, cls), live))
+        if _paged_new(PA):
+            _partials_agree(torch, "paged_chunk", dtype,
+                            PA.paged_chunk_attention,
+                            PA.paged_chunk_attention_plain, q, kp, vp, tb,
+                            (offs, cls), {})
         if main:
             es = q.element_size()
             row_len = (offs + cls).long()
@@ -587,9 +654,11 @@ def serve_kernel_entries(torch, dev, h=4096, nh=32, fp32=True):
                       + 2 * int(row_len.sum()) * nh * d * es + tb.numel() * 4)
             b_ms, b_by = bound(nbytes, 4 * d * nh * keys)
             out["paged_chunk"] = dict(
-                max_abs_err=err,
+                max_abs_err=err, variant=_k3_variant(PA, q),
                 ms=time_ms(lambda: PA.paged_chunk_attention(q, kp, vp, tb,
                                                             offs, cls)),
+                **_k3_graph(PA, lambda: PA.paged_chunk_attention(
+                    q, kp, vp, tb, offs, cls)),
                 plain_ms=time_ms(lambda: PA.paged_chunk_attention_plain(
                     q, kp, vp, tb, offs, cls)),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
@@ -602,6 +671,12 @@ def serve_kernel_entries(torch, dev, h=4096, nh=32, fp32=True):
         err = _agree("paged_decode", dtype, _max_err(
             PA.paged_decode_attention(q, kp, vp, tb, lens),
             PA.paged_decode_attention_plain(q, kp, vp, tb, lens)))
+        nsplit = _k4_nsplit(PA)
+        if _paged_new(PA):
+            _partials_agree(torch, "paged_decode", dtype,
+                            PA.paged_decode_attention,
+                            PA.paged_decode_attention_plain, q, kp, vp, tb,
+                            (lens,), {})
         if main:
             bq, nh, d = q.shape
             es = q.element_size()
@@ -609,9 +684,11 @@ def serve_kernel_entries(torch, dev, h=4096, nh=32, fp32=True):
                       + tb.numel() * 4)
             b_ms, b_by = bound(nbytes, 4 * d * nh * int(lens.sum()))
             out["paged_decode"] = dict(
-                max_abs_err=err,
+                max_abs_err=err, nsplit=nsplit,
                 ms=time_ms(lambda: PA.paged_decode_attention(q, kp, vp, tb,
                                                              lens)),
+                graph_ms=graph_ms(lambda: PA.paged_decode_attention(
+                    q, kp, vp, tb, lens)),
                 plain_ms=time_ms(lambda: PA.paged_decode_attention_plain(
                     q, kp, vp, tb, lens)),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
@@ -649,6 +726,11 @@ def phase_kernels(torch, dev):
     # the ALiBi families: K2, K5a and K5b in their ALiBi mode
     if "flash_fwd_alibi" not in ABSENT:
         results.update(alibi_kernel_entries(torch, dev))
+    # K4 at Qwen2-7B's decode shape (GQA 28/4, a group of 7; not a path)
+    from paddle_tpu_torch.ops.cuda import paged_attention as PA
+    if _paged_new(PA):
+        _log_entry("not a path paged_decode (qwen2-7b decode)",
+                   qwen2_decode_entry(torch, dev))
     # quantized serving: the int8 modes of K3/K4; K1, K2 and K7 run there
     # at the serve path's shapes
     if "paged_decode_i8" not in ABSENT:
@@ -659,17 +741,30 @@ def phase_kernels(torch, dev):
     torch.cuda.synchronize()
     for path, rs in results.items():
         for name, r in rs.items():
-            lib = r["library_ms"]
-            graph = ("" if "graph_ms" not in r else
-                     f" (graph {r['graph_ms']:.4f} ms, library graph "
-                     f"{r['library_graph_ms']:.4f} ms, copy of x graph "
-                     f"{r['copy_graph_ms']:.4f} ms)")
-            log(f"[kernels] {path} {name} ({r['shape']}): {r['ms']:.4f} ms, "
-                f"plain {r['plain_ms']:.4f} ms, library "
-                f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
-                f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound{graph}")
+            _log_entry(f"{path} {name}", r)
     return results
+
+
+def _log_entry(label, r):
+    """One kernel row of the kernels phase: times, bound, and where they
+    were taken the CUDA-graph times (K1 also its library call's and a copy
+    of x's), K3's route (``variant``) and K4's split count."""
+    lib = r["library_ms"]
+    graph = ""
+    if "graph_ms" in r:
+        graph = (f" (graph {r['graph_ms']:.4f} ms, "
+                 f"{100 * r['bound_ms'] / r['graph_ms']:.1f}% of bound")
+        if "library_graph_ms" in r:
+            graph += (f", library graph {r['library_graph_ms']:.4f} ms, copy "
+                      f"of x graph {r['copy_graph_ms']:.4f} ms")
+        graph += ")"
+    how = "".join(f", {k} {r[k]}" for k in ("variant", "nsplit")
+                  if r.get(k) is not None)
+    log(f"[kernels] {label} ({r['shape']}{how}): {r['ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.4f} ms, library "
+        f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+        f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound{graph}")
 
 
 def _k1_entry(torch, x, w, err):
@@ -1526,6 +1621,44 @@ WIN_SHORT = (96, 128)
 WIN_NEW = 48
 
 
+def qwen2_decode_entry(torch, dev):
+    """K4 at ``Qwen2Config.qwen2_7b()``'s decode shape: q [8, 28, 128] over
+    4 KV heads (a GQA group of 7), the serve case's
+    pool geometry and lens, bf16 and float32 against the plain version,
+    the partials triple too; the bf16 entry with its times and bound."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as PA
+    c = kernel_cases(torch, dev)["paged_decode"]
+    g = torch.Generator(device=dev).manual_seed(45)
+    n, bs = 256, 16
+    kp = torch.randn(n, bs, 4, 128, generator=g, device=dev)
+    vp = torch.randn(n, bs, 4, 128, generator=g, device=dev)
+    q = torch.randn(8, 28, 128, generator=g, device=dev)
+    tb, lens = c["tables"], c["lens"]
+    for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        qq, kk, vv = q.to(dt), kp.to(dt), vp.to(dt)
+        err = _agree("paged_decode (qwen2-7b decode)", dtype, _max_err(
+            PA.paged_decode_attention(qq, kk, vv, tb, lens),
+            PA.paged_decode_attention_plain(qq, kk, vv, tb, lens)))
+        _partials_agree(torch, "paged_decode (qwen2-7b decode)", dtype,
+                        PA.paged_decode_attention,
+                        PA.paged_decode_attention_plain, qq, kk, vv, tb,
+                        (lens,), {})
+    keys = int(lens.sum())
+    b_ms, b_by = bound(2 * 8 * 28 * 128 * 2 + 2 * keys * 4 * 128 * 2
+                       + tb.numel() * 4, 4 * 128 * 28 * keys)
+    PA.paged_decode_attention(qq, kk, vv, tb, lens)
+    return dict(
+        max_abs_err=err, nsplit=_k4_nsplit(PA),
+        ms=time_ms(lambda: PA.paged_decode_attention(qq, kk, vv, tb, lens)),
+        graph_ms=graph_ms(lambda: PA.paged_decode_attention(qq, kk, vv, tb,
+                                                            lens)),
+        plain_ms=time_ms(lambda: PA.paged_decode_attention_plain(
+            qq, kk, vv, tb, lens)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        shape=f"q [8, 28, 128] bf16 over 4 kv heads, pool [{n}, {bs}, 4, "
+              f"128], lens sum {keys}")
+
+
 def window_kernel_entries(torch, dev):
     """K1, K2 and K4 against their plain versions at the shapes the
     Mistral-7B window_serve path gives them (bf16): K1 on the prefill's x
@@ -1593,13 +1726,21 @@ def window_kernel_entries(torch, dev):
         PA.paged_decode_attention(qd, kp, vp, tables, lens, window=window),
         PA.paged_decode_attention_plain(qd, kp, vp, tables, lens,
                                         window=window)))
+    nsplit = _k4_nsplit(PA)
+    if _paged_new(PA):
+        _partials_agree(torch, "paged_decode (mistral windowed decode)",
+                        "bf16", PA.paged_decode_attention,
+                        PA.paged_decode_attention_plain, qd, kp, vp, tables,
+                        (lens,), dict(window=window))
     live = int(torch.clamp(lens, max=window).sum())
     b_ms, b_by = bound(2 * 4 * 32 * d * 2 + 2 * live * 8 * d * 2
                        + tables.numel() * 4, 4 * d * 32 * live)
     out["paged_decode"] = dict(
-        max_abs_err=err,
+        max_abs_err=err, nsplit=nsplit,
         ms=time_ms(lambda: PA.paged_decode_attention(qd, kp, vp, tables, lens,
                                                      window=window)),
+        graph_ms=graph_ms(lambda: PA.paged_decode_attention(
+            qd, kp, vp, tables, lens, window=window)),
         plain_ms=time_ms(lambda: PA.paged_decode_attention_plain(
             qd, kp, vp, tables, lens, window=window), iters=10),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
@@ -1608,6 +1749,98 @@ def window_kernel_entries(torch, dev):
     del kp, vp
     torch.cuda.empty_cache()
     return out
+
+
+def phase_k3_tiles(torch, dev):
+    """K3's tensor-core route at Llama-2-7B serving width (8 rows, 32
+    heads, pool [256, 16, 32, 128]) with every row's 64 queries behind a
+    prefix of 0, 192 or 448 keys, so that every block walks 1, 4 or 8 key
+    tiles: each against the plain version and timed from a CUDA graph,
+    with the K/V bytes its blocks read over that time — the rate at which
+    the route streams the pool when its blocks are even."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as PA
+    g = torch.Generator(device=dev).manual_seed(47)
+    kp = torch.randn(256, 16, 32, 128, generator=g, device=dev).bfloat16()
+    vp = torch.randn(256, 16, 32, 128, generator=g, device=dev).bfloat16()
+    tb = torch.randperm(256, generator=g, device=dev).reshape(8, 32).int()
+    q = torch.randn(8, 64, 32, 128, generator=g, device=dev).bfloat16()
+    cls = torch.full((8,), 64, dtype=torch.int32, device=dev)
+    for prefix in (0, 192, 448):
+        offs = torch.full((8,), prefix, dtype=torch.int32, device=dev)
+        args = (q, kp, vp, tb, offs, cls)
+        _agree(f"k3_tiles prefix {prefix}", "bf16", _max_err(
+            PA.paged_chunk_attention(*args),
+            PA.paged_chunk_attention_plain(*args)))
+        ms = graph_ms(lambda: PA.paged_chunk_attention(*args))
+        nbytes = 8 * 32 * (prefix + 64) * 128 * 2 * 2
+        log(f"[k3_tiles] prefix {prefix} ({(prefix + 64) // 64} key tiles a "
+            f"block, 256 blocks, {_k3_variant(PA, q)}): {ms:.4f} ms, K/V "
+            f"{nbytes / 1e6:.1f} MB read at {nbytes / ms / 1e9:.2f} TB/s")
+
+
+K4_SPLITS = (128, 256, 512, 1024)   # split sizes k4_splits times
+
+
+def phase_k4_splits(torch, dev):
+    """K4 at Mistral-7B's window decode, Llama-2-7B's serve decode (bf16
+    and int8 pools) and Qwen2-7B's decode with the live range cut into
+    splits of each of K4_SPLITS keys (the wrapper's ``decode_schedule``
+    replaced for the call), each against the plain version and timed from
+    a CUDA graph, beside the split the schedule picks: the measurement
+    behind DEC_TARGET_BLOCKS and DEC_MIN_CHUNK."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as PA
+    g = torch.Generator(device=dev).manual_seed(46)
+    c = kernel_cases(torch, dev)
+    mb = -(-WIN_SEQ // WIN_BS)
+    cases = {
+        "window": (torch.randn(4, 32, 128, generator=g, device=dev),
+                   torch.randn(WIN_BLOCKS, WIN_BS, 8, 128, generator=g,
+                               device=dev),
+                   torch.randn(WIN_BLOCKS, WIN_BS, 8, 128, generator=g,
+                               device=dev),
+                   torch.randperm(WIN_BLOCKS, generator=g, device=dev)[
+                       :4 * mb].reshape(4, mb).int(),
+                   torch.tensor(WIN_LONG, dtype=torch.int32, device=dev)
+                   + WIN_NEW, 4096),
+        "serve": (c["paged_decode"]["q"], c["paged_decode"]["kp"],
+                  c["paged_decode"]["vp"], c["paged_decode"]["tables"],
+                  c["paged_decode"]["lens"], None),
+        "qwen2-7b": (torch.randn(8, 28, 128, generator=g, device=dev),
+                     torch.randn(256, 16, 4, 128, generator=g, device=dev),
+                     torch.randn(256, 16, 4, 128, generator=g, device=dev),
+                     c["paged_decode"]["tables"], c["paged_decode"]["lens"],
+                     None)}
+    scheduled = PA.decode_schedule
+    for name, (q, kp, vp, tb, lens, window) in cases.items():
+        pools = {"bf16": (kp.bfloat16(), vp.bfloat16(), {})}
+        if name == "serve":
+            kq, ks = _quantize_pool(torch, kp)
+            vq, vs = _quantize_pool(torch, vp)
+            pools["int8"] = (kq, vq, dict(k_scale=ks, v_scale=vs))
+        q = q.bfloat16()
+        rows = tb.shape[1] * kp.shape[1]
+        for pool, (kk, vv, kw) in pools.items():
+            args = (q, kk, vv, tb, lens)
+            ref = PA.paged_decode_attention_plain(*args, window=window, **kw)
+            pick = scheduled(q.shape[0], kk.shape[2], rows, window)
+            out = []
+            try:
+                for chunk in K4_SPLITS:
+                    live = min(rows, window or rows)
+                    split = (-(-live // chunk), chunk)
+                    PA.decode_schedule = lambda *a, split=split: split
+                    _agree(f"k4_splits {name} {pool} chunk {chunk}", "bf16",
+                           _max_err(PA.paged_decode_attention(
+                               *args, window=window, **kw), ref))
+                    ms = graph_ms(lambda: PA.paged_decode_attention(
+                        *args, window=window, **kw))
+                    out.append(f"{chunk} keys x {split[0]}: {ms:.4f} ms")
+            finally:
+                PA.decode_schedule = scheduled
+            log(f"[k4_splits] {name} {pool} (q {list(q.shape)}, "
+                f"{kk.shape[2]} kv heads, schedule: {pick[1]} keys x "
+                f"{pick[0]}): " + "; ".join(out))
+    torch.cuda.empty_cache()
 
 
 def _quantize_pool(torch, f):
@@ -1623,20 +1856,29 @@ def _quantize_pool(torch, f):
 def _int8_case(torch, label, kernel, plain, q, args, kw, live, nbytes, flops,
                shape, plain_iters=50):
     """One int8-pool kernel against its plain version on the same codes
-    and scales, with q in float32 (tolerance 1e-4) and in bf16 (2e-2);
-    the entry's times at bf16 q, the serving path's."""
+    and scales, with q in float32 (tolerance 1e-4) and in bf16 (2e-2),
+    the partials triple too; the entry's times at bf16 q, the serving
+    path's, with K3's route or K4's split count."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as PA
+    decode = kernel is PA.paged_decode_attention
     for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         qq = q.to(dt)
         err = _agree(f"{label} int8", dtype, _max_err(
             kernel(qq, *args, **kw), plain(qq, *args, **kw), live))
+        how = (dict(nsplit=_k4_nsplit(PA)) if decode
+               else dict(variant=_k3_variant(PA, qq)))
+        if _paged_new(PA):
+            _partials_agree(torch, f"{label} int8", dtype, kernel, plain, qq,
+                            *args[:3], args[3:], kw)
     b_ms, b_by = bound(nbytes, flops)
+    graph = (dict(graph_ms=graph_ms(lambda: kernel(qq, *args, **kw)))
+             if decode else _k3_graph(PA, lambda: kernel(qq, *args, **kw)))
     r = dict(max_abs_err=err, ms=time_ms(lambda: kernel(qq, *args, **kw)),
              plain_ms=time_ms(lambda: plain(qq, *args, **kw),
                               iters=plain_iters),
-             library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=shape)
-    log(f"[kernels] {label} int8 ({shape}): {r['ms']:.4f} ms, plain "
-        f"{r['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
-        f"{100 * b_ms / r['ms']:.1f}% of bound")
+             library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=shape,
+             **how, **graph)
+    _log_entry(f"{label} int8", r)
     return r
 
 
@@ -2695,6 +2937,10 @@ def main(argv=None):
     results = phase_kernels(torch, dev) if "kernels" in phases else {}
     if "k6_tiles" in phases:
         phase_k6_tiles(torch, dev)
+    if "k4_splits" in phases:
+        phase_k4_splits(torch, dev)
+    if "k3_tiles" in phases:
+        phase_k3_tiles(torch, dev)
     counts = {}                # path -> {kernel: launches in its own run}
     quant = {"quant_serve", "quant_check", "quant_anatomy"} & set(phases)
     if {"serve", "check", "anatomy"} & set(phases) or quant:
@@ -2796,6 +3042,8 @@ def main(argv=None):
             r = results.get(path, {}).get(name, {})
             kern.append({"name": name, "path": path, "route": "cuda",
                          "variant": r.get("variant"),
+                         **({"nsplit": r["nsplit"]} if "nsplit" in r
+                            else {}),
                          "source": src, "replaces": rep,
                          "launches": counts.get(path, {}).get(name, 0),
                          "max_abs_err": r.get("max_abs_err"),

@@ -1,15 +1,14 @@
 // Online-softmax machinery shared by the multi-query attention kernels
-// on fp32 FMAs (flash_fwd.cu's float32 route of K2, and paged_chunk.cu,
-// K3).
+// on fp32 FMAs (the float32 routes of K2, flash_fwd.cu, and K3,
+// paged_chunk.cu).
 //
 // A block owns kBQ query rows (kWarps warps x kRows rows each) and walks
 // key tiles of kBK keys, one key per lane. The query tile and the current
 // K/V tile sit in shared memory as fp32; every row keeps its running max
 // m, denominator l and output accumulator in registers, so nothing of the
 // softmax ever goes back to device memory. Scores are fp32 FMAs on the
-// CUDA cores (simple and exact against the plain versions). K2's bf16
-// route runs on the tensor cores instead (hopper_mma.cuh); K3's is later
-// work.
+// CUDA cores (simple and exact against the plain versions). The bf16
+// routes of K2 and K3 run on the tensor cores instead (hopper_mma.cuh).
 #pragma once
 
 #include <type_traits>

@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks for the tensor-core kernels (bf16):
-// flash_fwd.cu's K2, flash_bwd.cu's K5a and K5b, grouped_matmul.cu's K6a
-// and K6b. 16-byte cp.async copies into 128-byte-swizzled shared tiles,
-// the shared-memory matrix descriptors of wgmma, and the wgmma.mma_async
-// shapes they use: SS m64n64k16 (both operands K-major; K2, K5), SS
-// m64n128k16 and m64n256k16 (A K-major or, TA = 1, MN-major; B K-major
-// or, TB = 1, MN-major: K6a's forward A K-major B MN-major, its dlhs
-// both K-major, K6b both MN-major), RS m64n64k16 and m64n128k16 (B
-// MN-major; K2, K5); and for an epilogue staged in shared memory (K6b),
-// stmatrix, 16-byte shared loads and named barriers.
+// flash_fwd.cu's K2, flash_bwd.cu's K5a and K5b, paged_chunk.cu's K3,
+// grouped_matmul.cu's K6a and K6b. 16-byte cp.async copies into
+// 128-byte-swizzled shared tiles, the shared-memory matrix descriptors of
+// wgmma, and the wgmma.mma_async shapes they use: SS m64n64k16 (both
+// operands K-major; K2, K5), SS m64n128k16 and m64n256k16 (A K-major or,
+// TA = 1, MN-major; B K-major or, TB = 1, MN-major: K6a's forward A
+// K-major B MN-major, its dlhs both K-major, K6b both MN-major), RS
+// m64n64k16 and m64n128k16 (B MN-major; K2, K3, K5; m64n64k16 also B
+// K-major, K3's S = Q K^T); and for an epilogue staged in shared memory
+// (K6b), stmatrix, 16-byte shared loads and named barriers.
 //
 // Tile layout. A [rows][D] bf16 tile (D = 64 or 128) is stored as D / 64
 // panels of [rows][64]: one 128-byte line per row, the 16-byte chunk c of
@@ -331,7 +332,9 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
 }
 
 // d[64 x 64] += A[64 x 16] B[16 x 64]: A in registers, B in shared
-// memory MN-major
+// memory MN-major (TB = 1) or K-major (TB = 0: K3's S = Q K^T with its
+// Q fragments held in registers)
+template <int TB = 1>
 __device__ __forceinline__ void mma_rs_n64(float (&d)[32],
                                            const uint32_t (&a)[4],
                                            uint64_t db) {
@@ -341,7 +344,7 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32],
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -349,7 +352,8 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
 }
 
 // d[64 x 128] += A[64 x 16] B[16 x 128]: A in registers, B in shared

@@ -972,3 +972,235 @@ def test_bloom_falcon_on_card_match_cpu_and_launch_their_kernels(family):
     if want is K.ALIBI_SERVE_KERNELS:
         counts = K.launches()
         assert all(counts[k] > 0 for k in K.ALIBI_TRAIN_KERNELS), counts
+
+
+# ----------------------------------------- K3 and K4 at every group
+# pool modes: (q dtype, int8 pool?, tolerance)
+PAGED_MODES = {"f32": (torch.float32, False, 1e-4),
+               "bf16": (torch.bfloat16, False, 2e-2),
+               "int8": (torch.bfloat16, True, 2e-2)}
+STALE = 1e4     # planted in pool rows no table row may read
+
+
+def _paged_case(g, dev, mode, rows_live, n, bs, h_kv, d):
+    """K/V pools in ``mode`` whose positions outside ``rows_live`` (a
+    [N, bs] bool: a table row reads it) hold finite garbage of magnitude
+    STALE, returned with the kwargs of the mode (int8 scales)."""
+    dt, int8, _ = PAGED_MODES[mode]
+    out, kw = [], {}
+    for name in ("k", "v"):
+        f = torch.randn(n, bs, h_kv, d, generator=g, device=dev)
+        sign = torch.randint(0, 2, f.shape, generator=g, device=dev) * 2 - 1
+        f = torch.where(rows_live[:, :, None, None], f, STALE * sign)
+        if int8:
+            f, sc = _int8_pool_of(f)
+            kw[f"{name}_scale"] = sc
+        out.append(f.to(torch.int8) if int8 else f.to(dt))
+    return out[0], out[1], kw
+
+
+def _int8_pool_of(f):
+    scale = torch.clamp(f.abs().amax(-1), min=1e-8) / 127.0
+    return torch.clamp(torch.round(f / scale[..., None]), -127, 127), scale
+
+
+def _live_rows(tables, ends, n, bs):
+    """[N, bs] bool: the pool positions some table row reads below its
+    end (lens, or offsets + chunk_lens)."""
+    live = torch.zeros(n, bs, dtype=torch.bool, device=tables.device)
+    for row, end in zip(tables.tolist(), ends.tolist()):
+        for j, blk in enumerate(row):
+            if blk < n and j * bs < end:
+                live[blk, :min(bs, end - j * bs)] = True
+    return live
+
+
+def _unowned(g, tables, n):
+    """The table with about every third entry another shard's (N)."""
+    drop = torch.rand(tables.shape, generator=g, device=tables.device) < 0.34
+    return torch.where(drop, torch.full_like(tables, n), tables)
+
+
+def _close_scaled(a, b, tol, what=""):
+    if not b.numel():
+        return
+    a, b = a.float(), b.float()
+    err = (a - b).abs() / (1 + b.abs())
+    assert float(err.max()) <= tol, (what, float(err.max()))
+
+
+def _close_partials(got, ref, tol):
+    """A partials triple against the plain one: m and l under the scaled
+    rule, and acc in units of its own l (acc / l, 0 where l == 0). The
+    tensor-core route rounds P to bf16 before P V, as K2 and the plain
+    attention do, while the plain partials keep P in fp32, so acc's error
+    grows with l; acc / l is what a merge's result is made of."""
+    for x in got:
+        assert x.dtype == torch.float32
+    (acc, m, l), (acc_r, m_r, l_r) = got, ref
+    _close_scaled(m, m_r, tol, "m")
+    _close_scaled(l, l_r, tol, "l")
+    _close_scaled(acc / torch.clamp(l, min=1e-30)[..., None],
+                  acc_r / torch.clamp(l_r, min=1e-30)[..., None], tol,
+                  "acc / l")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(PAGED_MODES))
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", range(1, 9))
+def test_paged_decode_split_matches_plain(mode, d, group):
+    """K4, its key range split over blocks, against its plain version:
+    lens 0, 1, bs - 1, bs, each split boundary and +-1 around it, and
+    the whole table; windows of one, two and three splits (their lower
+    edges inside a pool block; the splits start there); garbage in every
+    pool row past a row's length and in blocks no table holds; repeated
+    launches bit-identical; partials (with another shard's entries inside
+    the live range) against the plain partials."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(100 * group + d)
+    dt, _, tol = PAGED_MODES[mode]
+    h_kv, bs, mb, rows, chunk = 2, 16, 32, 14, TPA.DEC_MIN_CHUNK
+    h = h_kv * group
+    assert TPA.decode_schedule(rows, h_kv, mb * bs) == (4, chunk)
+    lens = [0, 1, bs - 1, bs, chunk, 2 * chunk, mb * bs - 1, mb * bs] + [
+        k * chunk + e for k in (1, 2, 3) for e in (-1, 1)]   # boundaries
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    n = rows * mb + 8               # 8 blocks outside every table
+    tables = torch.randperm(n, generator=g, device=dev)[:rows * mb].reshape(
+        rows, mb).int()
+    kp, vp, kw = _paged_case(g, dev, mode, _live_rows(tables, lens, n, bs),
+                             n, bs, h_kv, d)
+    q = torch.randn(rows, h, d, generator=g, device=dev).to(dt)
+    for window in (None, 37, 200, 300):     # 200, 300: split windows
+        got = TPA.paged_decode_attention(q, kp, vp, tables, lens,
+                                         window=window, **kw)
+        assert TPA.paged_decode_attention.nsplit == TPA.decode_schedule(
+            rows, h_kv, mb * bs, window)[0]
+        ref = TPA.paged_decode_attention_plain(q, kp, vp, tables, lens,
+                                               window=window, **kw)
+        _close_scaled(got[1:], ref[1:], tol, "o")
+        assert float(got[0].abs().max()) == 0.0         # lens 0 writes 0
+        assert torch.equal(got, TPA.paged_decode_attention(
+            q, kp, vp, tables, lens, window=window, **kw))
+        part = _unowned(g, tables, n)
+        got = TPA.paged_decode_attention(q, kp, vp, part, lens,
+                                         window=window, partials=True, **kw)
+        _close_partials(got, TPA.paged_decode_attention_plain(
+            q, kp, vp, part, lens, window=window, partials=True, **kw), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(PAGED_MODES))
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", range(1, 9))
+def test_paged_chunk_matches_plain_at_tile_edges(mode, d, group):
+    """K3 on its route for the dtype (``chunk_route``) against its plain
+    version: chunk lengths whose folded rows end just before, at and past
+    a 64-row tile edge, offsets at and across a 64-key tile edge, a dead
+    row, a window; garbage in pool rows past each row's length and in
+    blocks no table holds; dead and padding rows exactly 0; two launches
+    bit-identical; partials against the plain partials on every row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1000 + 100 * group + d)
+    dt, _, tol = PAGED_MODES[mode]
+    h_kv, bs, c = 2, 16, 80
+    h = h_kv * group
+    edge = 64 // group              # queries a 64-folded-row tile holds
+    cls = [c, edge, edge + 1, max(edge - 1, 1), 0, min(130 // group, c)]
+    offs = [0, 63, 64, 65, 7, 127]
+    mb = -(-max(o + n for o, n in zip(offs, cls)) // bs)
+    n = len(cls) * mb + 8
+    tables = torch.randperm(n, generator=g, device=dev)[:len(cls) * mb]
+    tables = tables.reshape(len(cls), mb).int()
+    offs = torch.tensor(offs, dtype=torch.int32, device=dev)
+    cls = torch.tensor(cls, dtype=torch.int32, device=dev)
+    kp, vp, kw = _paged_case(g, dev, mode,
+                             _live_rows(tables, offs + cls, n, bs), n, bs,
+                             h_kv, d)
+    q = torch.randn(len(cls), c, h, d, generator=g, device=dev).to(dt)
+    assert TPA.chunk_route(dt) == ("fma" if dt == torch.float32 else "wgmma")
+    for window in (None, 50):
+        got = TPA.paged_chunk_attention(q, kp, vp, tables, offs, cls,
+                                        window=window, **kw)
+        ref = TPA.paged_chunk_attention_plain(q, kp, vp, tables, offs, cls,
+                                              window=window, **kw)
+        for a, m in enumerate(cls.tolist()):
+            _close_scaled(got[a, :m], ref[a, :m], tol, f"row {a}")
+            assert float(got[a, m:].float().abs().sum()) == 0.0
+        assert torch.equal(got, TPA.paged_chunk_attention(
+            q, kp, vp, tables, offs, cls, window=window, **kw))
+        part = _unowned(g, tables, n)
+        got = TPA.paged_chunk_attention(q, kp, vp, part, offs, cls,
+                                        window=window, partials=True, **kw)
+        _close_partials(got, TPA.paged_chunk_attention_plain(
+            q, kp, vp, part, offs, cls, window=window, partials=True, **kw),
+            tol)
+
+
+@pytest.mark.cuda
+def test_paged_decode_does_not_synchronise():
+    """One K4 launch at Mistral-7B's window shape (4 rows over 4096 of
+    4704 keys, GQA 32/8) under ``set_sync_debug_mode("error")``: the
+    wrapper never reads lens or anything else back from the card, and the
+    launch runs split (nsplit > 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    kp = torch.randn(1200, 16, 8, 128, generator=g, device=dev).bfloat16()
+    vp = torch.randn(1200, 16, 8, 128, generator=g, device=dev).bfloat16()
+    tables = torch.randperm(1200, generator=g, device=dev)[:4 * 294]
+    tables = tables.reshape(4, 294).int()
+    lens = torch.tensor([4248, 4398, 4528, 4648], dtype=torch.int32,
+                        device=dev)
+    q = torch.randn(4, 32, 128, generator=g, device=dev).bfloat16()
+    TPA.paged_decode_attention(q, kp, vp, tables, lens, window=4096)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = TPA.paged_decode_attention(q, kp, vp, tables, lens,
+                                         window=4096)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert TPA.paged_decode_attention.nsplit > 1
+    _close_scaled(out, TPA.paged_decode_attention_plain(
+        q, kp, vp, tables, lens, window=4096), 2e-2)
+
+
+@pytest.mark.cuda
+def test_qwen2_group7_engine_on_card_matches_cpu():
+    """A narrow Qwen2 with Qwen2's GQA group of 7 (14 heads of 64 over 2
+    KV heads, 2 layers, float32) served by ``LLMEngine`` on the card gives
+    the CPU run's greedy streams, through K3 (chunked prefill) and K4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import numpy as np
+
+    from paddle_tpu_torch.models.qwen import Qwen2Config, Qwen2ForCausalLM
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    cfg = Qwen2Config.tiny(hidden_size=896, intermediate_size=1024,
+                           num_attention_heads=14, num_key_value_heads=2,
+                           vocab_size=512)
+    cpu = Qwen2ForCausalLM(cfg, device="cpu")
+    card = Qwen2ForCausalLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(7)
+    prompts = [rs.randint(0, 512, n) for n in (5, 30, 70, 9)]
+    streams = []
+    for model in (cpu, card):
+        K.reset_launches()
+        eng = LLMEngine(model, num_slots=3, block_size=16, max_prompt_len=32,
+                        max_seq_len=128)
+        ids = [eng.add_request(Request(p, max_new_tokens=8)) for p in prompts]
+        eng.run()
+        eng.assert_quiescent()
+        streams.append([eng.requests[i].tokens for i in ids])
+    assert streams[0] == streams[1]
+    counts = K.launches()
+    assert all(counts[k] > 0 for k in K.SERVE_KERNELS), counts

@@ -331,15 +331,12 @@ def test_kernel_route_by_dtype_and_head_dim(d):
 
 
 def test_paged_kernels_refuse_unported_modes():
-    """``partials`` is still to port and raises; ALiBi, once refused here
-    too, runs: the flash wrapper equals its plain version and the eager
-    attention (an independent implementation of the same bias)."""
+    """No mode of the reference's paged or flash kernels is refused any
+    more: ``partials`` (tested in ``test_torch_paged_partials.py``) and
+    ALiBi, which runs: the flash wrapper equals its plain version and the
+    eager attention (an independent implementation of the same bias)."""
     rs = np.random.RandomState(6)
-    kp, vp, tables = _pools(rs, 2)
     q = _t(rs.randn(3, 4, 16).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TPA.paged_decode_attention(q, _t(kp), _t(vp), _t(tables),
-                                   _t(np.ones(3, np.int32)), partials=True)
     slopes = torch.ones(4)
     got = TF.flash_attention(q[None], q[None], q[None], alibi_slopes=slopes)
     want = TF.flash_attention_plain(q[None], q[None], q[None],

@@ -136,15 +136,20 @@ def test_plain_int8_chunk_matches_pallas_and_xla(case):
 
 def test_int8_mode_checks_its_arguments():
     """Scales need int8 pools and both scale pools, of [N, bs, Hkv] fp32;
-    partials stay refused."""
+    partials, once refused here, run over int8 pools too: with every
+    live entry owned the triple normalises to the output."""
     rs = np.random.RandomState(3)
     kq, ks, vq, vs, tables = _int8_pools(rs, 2, d=64)
     q = _t(rs.randn(3, 4, 64).astype(np.float32))
     lens = _t(np.array([5, 5, 5], np.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TPA.paged_decode_attention(q, _t(kq), _t(vq), _t(tables), lens,
-                                   k_scale=_t(ks), v_scale=_t(vs),
-                                   partials=True)
+    sc = dict(k_scale=_t(ks), v_scale=_t(vs))
+    acc, m, l = TPA.paged_decode_attention(q, _t(kq), _t(vq), _t(tables),
+                                           lens, partials=True, **sc)
+    assert acc.dtype == m.dtype == l.dtype == torch.float32
+    want = TPA.paged_decode_attention(q, _t(kq), _t(vq), _t(tables), lens,
+                                      **sc)
+    np.testing.assert_allclose(to_np(acc / l[..., None]), to_np(want),
+                               **F32_TOL)
     # the argument checks are the card route's; the plain route computes
     with pytest.raises(TypeError):
         TPA._check_pool(q, _t(kq).float(), _t(vq).float(), _t(ks), _t(vs),
