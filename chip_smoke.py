@@ -56,7 +56,10 @@ Phases (each one fails the run when it fails; nothing is caught):
             hits and temperature/top-p sampling; every request must finish,
             ``assert_quiescent()`` must pass and every kernel's launch count
             must have risen during the run (``check`` and ``anatomy`` run
-            it too, as they read its model and requests)
+            it too, as they read its model and requests). Its decode ticks
+            are replays of a CUDA graph: each engine phase prints their
+            replays, wall and device ms a tick (CUDA events around each
+            replay) and the bytes the graphs' private pools reserved
   check     prefill (flash), chunked prefill (paged chunk) and one decode
             step (paged decode) of served prompts, in bf16 through the
             kernels and through the plain versions, and in float32 through
@@ -65,6 +68,22 @@ Phases (each one fails the run when it fails; nothing is caught):
             bf16 path within 0.15 of the float32 logits' RMS; then (with
             ``train``) the train model's loss and three gradients on one
             2048-token row, held to the same rule
+  graph_check  the decode tick as the engine runs it on the card, a
+            replay of the executor's CUDA graph, against the eager
+            ``llama_decode_tick`` at the serve phase's geometry (8 slots
+            decoding), over a bf16 pool and over an int8 pool: from one
+            cache state (copied and put back) identical greedy tokens,
+            bit-identical log-probabilities and identical caches after the
+            tick; at temperature 0.8 two replays draw different tokens, a
+            replay from a restored generator state repeats the draw and the
+            eager tick from that state draws the same
+  async_serve  the serve phase's model, geometry and 12-request mix
+            through ``LLMEngine(async_depth=2)``: all 12 streams must equal
+            the serve phase's token for token, every request finish,
+            ``assert_quiescent()`` pass, the serve path's kernels launch (the
+            replays counted) and the pipeline cruise (async replays and
+            drained windows); tokens/s, TTFT and the windows drained by
+            reason
   train     the ``bench.py`` headline train step on the port (Llama 0.74B:
             hidden 2048, 12 layers, 16 heads, vocab 32000, bf16, no remat;
             AdamW with fp32 master weights, global-norm clip 1.0) at batch
@@ -160,7 +179,10 @@ Phases (each one fails the run when it fails; nothing is caught):
             each of those train steps: wall time of three plain runs, then
             device kernel time per tick or step under torch.profiler with
             the kernels that take it, and the Python functions that take
-            the host time under cProfile
+            the host time under cProfile; then the decode tick's graph
+            replays timed with CUDA events against the step's wall. With
+            ``async_serve`` too, the same for the decode tick of
+            ``LLMEngine(async_depth=2)``
   moe_anatomy  (only when asked for) the same for the MoE model's decode
             tick (with ``moe_serve``) and train step (with ``moe_train``)
   quant_anatomy  (only when asked for) the same for the quantized model's
@@ -189,7 +211,8 @@ commit unpacked with ``git archive``), so that two trees can be compared
 under the same measurement in one call: parent, change, change, parent.
 
 The line before the last is a JSON object with one entry per kernel and
-path (``"path": "serve"``, ``"train"``, ``"moe_serve"``, ``"moe_train"``,
+path (``"path": "serve"``, ``"async_serve"``, ``"train"``, ``"moe_serve"``,
+``"moe_train"``,
 ``"window_serve"``, ``"quant_serve"``, ``"bloom_serve"``, ``"bloom_train"``,
 ``"falcon_rw_serve"``, ``"falcon_rw_train"`` or ``"falcon7b_serve"``): its
 launches are counted in that
@@ -273,6 +296,8 @@ PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
          "window_serve": ("rms_norm", "flash_fwd", "paged_decode", "rope"),
          "quant_serve": ("rms_norm", "flash_fwd", "paged_chunk_i8",
                          "paged_decode_i8", "rope"),
+         "async_serve": ("rms_norm", "flash_fwd", "paged_chunk",
+                         "paged_decode", "rope"),
          "bloom_serve": ("flash_fwd_alibi",),
          "bloom_train": ("flash_fwd_alibi", "flash_bwd_dq_alibi",
                          "flash_bwd_dkv_alibi"),
@@ -360,18 +385,30 @@ def graph_ms(fn, iters=50):
     return e0.elapsed_time(e1) / (5 * iters)
 
 
+def _view_copy(x):
+    """A copy of the view ``x`` with its strides: a view of a clone of the
+    tensor it views (``x`` itself when it views nothing)."""
+    base = x._base
+    if base is None:
+        return x.clone()
+    return base.clone().as_strided(x.size(), x.stride(), x.storage_offset())
+
+
 def cold_graph_ms(fn, x, iters_min=50):
     """Device time per call of ``fn(x')``, replayed from a CUDA graph as
-    in ``graph_ms``, over copies x' of ``x``: so many that the copies and
-    the outputs, all kept alive, fill four times the card's L2. Every call
-    then reads its input from device memory and writes bytes no other call
-    wrote, as the bytes bound assumes (``graph_ms`` on one tensor that
-    fits the L2 would time the L2)."""
+    in ``graph_ms``, over copies x' of ``x`` (of a view: views, with its
+    strides, of copies of the tensor it views): so many that the copies
+    and the outputs, all kept alive, fill four times the card's L2. Every
+    call then reads its input from device memory and writes bytes no other
+    call wrote, as the bytes bound assumes (``graph_ms`` on one tensor
+    that fits the L2 would time the L2)."""
     import torch
     l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
                  50 << 20)
-    n = max(2, -(-4 * l2 // (2 * x.numel() * x.element_size())))
-    xs = [x.clone() for _ in range(n)]
+    held = (x if x._base is None else x._base)
+    n = max(2, -(-4 * l2 // (held.numel() * held.element_size()
+                             + x.numel() * x.element_size())))
+    xs = [_view_copy(x) for _ in range(n)]
     reps = -(-iters_min // n)
     fn(xs[0])
     torch.cuda.synchronize()
@@ -723,6 +760,8 @@ def phase_kernels(torch, dev):
                "falcon7b_serve": falcon7b_kernel_entries(torch, dev)}
     for path, r in k7_entries.items():
         results[path]["rope"] = r
+    # the async engine serves the serve mix: the same shapes
+    results["async_serve"] = results["serve"]
     # the ALiBi families: K2, K5a and K5b in their ALiBi mode
     if "flash_fwd_alibi" not in ABSENT:
         results.update(alibi_kernel_entries(torch, dev))
@@ -1487,8 +1526,10 @@ def k7(torch, dev):
     with autograd through the plain version within TOL. Times of the
     kernel and the plain version, eager (the entry's) and replayed from a
     CUDA graph (device time alone: the small shapes are bound by the
-    wrapper's host work); no single PyTorch call computes rope (library
-    n/a). The bound counts x read once, the output written once
+    wrapper's host work; over copies of x that do not fit the L2, so no
+    call reads what another left there, and % of bound comes from that
+    time); no single PyTorch call computes rope (library n/a). The bound
+    counts x read once, the output written once
     and the two tables; its 6 fp32 flops per pair of elements go at the
     fp32 rate. Returns {path: entry}."""
     from paddle_tpu_torch.ops.cuda import rope as R
@@ -1529,15 +1570,23 @@ def k7(torch, dev):
                      shape=f"{label}: x [{n}, {h}, {d}] bf16 (row stride "
                            f"{x.stride(-3)}), {tables} tables "
                            f"[{c.shape[0]}, {d // 2}]")
-            dev_ms = graph_ms(lambda: R.fused_rope(x, c, s),
-                              iters=100 if small else 20)
+            # device time from CUDA graphs over copies of x (and of the
+            # product it views) filling four times the L2, as K1's: one
+            # tensor replayed from the L2 would read faster than the bound
+            r["graph_ms"] = cold_graph_ms(
+                lambda t: R.fused_rope(t, c, s), x,
+                iters_min=100 if small else 20)
             plain_dev = graph_ms(lambda: R.fused_rope_plain(x, c, s),
                                  iters=20 if small else 5)
-            log(f"[kernels] rope {r['shape']}: {r['ms']:.4f} ms, plain "
-                f"{r['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
-                f"{100 * b_ms / r['ms']:.1f}% of bound; in a CUDA graph "
-                f"(device only) {dev_ms:.4f} ms ({100 * b_ms / dev_ms:.1f}% "
-                f"of bound), plain {plain_dev:.4f} ms")
+            log(f"[kernels] rope {r['shape']}: {r['ms']:.4f} ms eager, "
+                f"plain {r['plain_ms']:.4f} ms, bound {b_ms:.5f} ms "
+                f"({b_by}); in CUDA graphs over cold copies (device only) "
+                f"{r['graph_ms']:.4f} ms ({100 * b_ms / r['graph_ms']:.1f}% "
+                f"of bound), plain {plain_dev:.4f} ms (one tensor)")
+            if r["graph_ms"] < b_ms:
+                raise AssertionError(f"rope {label}: graph time "
+                                     f"{r['graph_ms']:.5f} ms under its "
+                                     f"bound {b_ms:.5f} ms")
             if path is not None:
                 out[path] = r
         del x, c, s, got, ref
@@ -1972,11 +2021,47 @@ def build_model(dev):
     return LlamaForCausalLM(LlamaConfig.llama2_7b(), device=dev, seed=0)
 
 
-def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None):
+def _tick_stats(torch, exe):
+    """{kind: (replays, mean wall ms of the executor's call, mean device
+    ms between the CUDA events around the replay)} of the decode ticks the
+    executor logged (``tick_log``: "sync" ticks and "async" dispatches);
+    {} for a tree whose executor logs none."""
+    log_ = getattr(exe, "tick_log", None)
+    if not log_:
+        return {}
+    torch.cuda.synchronize()
+    acc = {}
+    for kind, wall, e0, e1 in log_:
+        n, w, d = acc.get(kind, (0, 0.0, 0.0))
+        acc[kind] = (n + 1, w + wall, d + e0.elapsed_time(e1))
+    return {k: (n, 1e3 * w / n, d / n) for k, (n, w, d) in acc.items()}
+
+
+def _log_ticks(torch, path, exe, card):
+    """One line per kind of decode tick the executor replayed: replays
+    (each adds the launches its capture counted), wall and device ms, and
+    the bytes the graphs' private pools reserved."""
+    for kind, (n, wall, dev_ms) in _tick_stats(torch, exe).items():
+        what = "dispatch call" if kind == "async" else "call incl. fetch"
+        log(f"[{path}] {kind} decode ticks: {n} graph replays, wall "
+            f"{wall:.3f} ms/tick ({what}), device {dev_ms:.3f} ms/tick "
+            f"(CUDA events around the replay); graph pools "
+            f"{exe.graph_pool_bytes / 2**20:.1f} MiB ({card})")
+
+
+def _drains_now():
+    """{why: async windows drained so far} (the port's metrics)."""
+    from paddle_tpu_torch.observability import METRICS
+    c = METRICS.get("serving_async_drains_total")
+    return {} if c is None else {k[0]: v[0] for k, v in c._series.items()}
+
+
+def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None,
+                async_depth=0):
     """Serve the 12-request mix with ``model`` through ``LLMEngine`` (an
-    int8 KV pool with ``kv_dtype="int8"``); every kernel of
-    ``PATHS[path]`` must be launched. Returns (launch counts, the
-    requests, {metric: value})."""
+    int8 KV pool with ``kv_dtype="int8"``, async pipelined decode with
+    ``async_depth``); every kernel of ``PATHS[path]`` must be launched.
+    Returns (launch counts, the requests, {metric: value})."""
     from paddle_tpu_torch.ops import cuda as K
     from paddle_tpu_torch.serving import LLMEngine, Request
     from paddle_tpu_torch.serving.kv import cache_block_bytes
@@ -1985,6 +2070,8 @@ def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None):
               max_seq_len=512, num_blocks=256, seed=0, device=dev)
     if kv_dtype is not None:
         kw["kv_dtype"] = kv_dtype
+    if async_depth:
+        kw["async_depth"] = async_depth
     # warm-up (library handles, allocator, kernel loads) on a throwaway
     # engine: one whole-prompt and one chunked request
     warm = LLMEngine(model, **kw)
@@ -1995,7 +2082,10 @@ def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None):
     warm.run()
     del warm
     eng = LLMEngine(model, **kw)
+    if hasattr(eng.exe, "tick_log"):
+        eng.exe.tick_log = []
     reqs = serve_requests(np.random.RandomState(0), vocab)
+    drains0 = _drains_now()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
@@ -2037,7 +2127,108 @@ def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None):
         f"KV {stats['kv_bytes_token']:.0f} bytes/token, weights "
         f"{stats['weight_bytes'] / 2**30:.2f} GiB; prefix token hits "
         f"{hits}; launches {counts}")
+    _log_ticks(torch, path, eng.exe, card)
+    stats["ticks"] = _tick_stats(torch, eng.exe)
+    if async_depth:
+        drains = _drains_now()
+        stats["drains"] = {k: v - drains0.get(k, 0) for k, v in drains.items()
+                           if v != drains0.get(k, 0)}
+        log(f"[{path}] async_depth {async_depth}: windows drained by reason "
+            f"{stats['drains']}, rows run for torn-down slots "
+            f"{eng.stats['async_overrun']}")
     return counts, reqs, stats
+
+
+def _cache_tensors(cache):
+    return [*cache.k_store, *cache.v_store, *cache.k_scale_store,
+            *cache.v_scale_store, cache.block_tables, cache.lens]
+
+
+def graph_against_eager(torch, eng):
+    """On an engine whose slots are decoding (its tick graph captured),
+    from one cache state (copied, and put back in place between runs):
+    one replay of the graph and one eager ``llama_decode_tick``, greedy,
+    give identical tokens, bit-identical log-probabilities (log_softmax of
+    the replay's logits against the eager tick's ``want_logp``) and
+    identical caches after the tick; at temperature 0.8 two replays draw
+    different tokens, a replay from the generator's first state repeats
+    the first draw, and the eager tick from that state draws it too.
+    Raises on any difference; returns {check: reading}."""
+    import numpy as np
+    from paddle_tpu_torch.models import paged as P
+    exe = eng.exe
+    live = _cache_tensors(exe.cache)
+    snap = [t.clone() for t in live]
+
+    def restore():
+        for t, c in zip(live, snap):
+            t.copy_(c)
+    b = eng.num_slots
+    tok, mask = eng.last_tok.copy(), eng.active.copy()
+    none = (np.full(b, b, np.int32), np.zeros(b, np.int32),
+            np.zeros(b, np.int32))
+    greedy, hot, top1 = (np.zeros(b, np.float32), np.full(b, 0.8, np.float32),
+                         np.ones(b, np.float32))
+    s0 = exe.gen.get_state()
+
+    def eager(temps):
+        restore()
+        exe.gen.set_state(s0)
+        nxt, logp, _ = P.llama_decode_tick(
+            eng.model, tok, exe.cache, mask, *none, exe.gen, temps, top1,
+            exe.top_k, want_logp=True)
+        return nxt.cpu().numpy(), logp
+
+    g_tok = exe.decode_tick(tok, mask, *none, greedy, top1)
+    g_logp = torch.log_softmax(exe.tick_logits, dim=-1)
+    g_cache = [t.clone() for t in live]
+    e_tok, e_logp = eager(greedy)
+    out = dict(
+        tokens_equal=bool(np.array_equal(g_tok, e_tok)),
+        logp_bit_equal=bool(torch.equal(g_logp, e_logp)),
+        cache_bit_equal=all(torch.equal(a, c) for a, c in zip(live,
+                                                              g_cache)),
+        logp_max_abs_diff=float((g_logp - e_logp).abs().max()))
+    del g_cache
+    draws = []
+    for state in (s0, None, s0):
+        restore()
+        if state is not None:
+            exe.gen.set_state(state)
+        draws.append(exe.decode_tick(tok, mask, *none, hot, top1))
+    e_hot, _ = eager(hot)
+    restore()
+    exe.gen.set_state(s0)
+    out.update(hot_rows_differ=int((draws[0] != draws[1])[mask].sum()),
+               hot_replay_repeats=bool(np.array_equal(draws[0], draws[2])),
+               hot_eager_equal=bool(np.array_equal(draws[0], e_hot)))
+    bad = [k for k in ("tokens_equal", "logp_bit_equal", "cache_bit_equal",
+                       "hot_replay_repeats", "hot_eager_equal") if not out[k]]
+    if bad or out["hot_rows_differ"] == 0:
+        raise AssertionError(f"graph tick against the eager tick: {out}")
+    return out
+
+
+def phase_graph_check(torch, dev, model, np, kv_dtype=None):
+    """``graph_against_eager`` at the serve phase's geometry (8 slots, all
+    decoding, prompts of 20-120 tokens) on ``model`` (a pool of its type,
+    or int8 with ``kv_dtype="int8"``)."""
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    eng = LLMEngine(model, num_slots=8, block_size=16, max_prompt_len=128,
+                    max_seq_len=512, num_blocks=256, seed=0, device=dev,
+                    **({} if kv_dtype is None else {"kv_dtype": kv_dtype}))
+    rs = np.random.RandomState(3)
+    for n in rs.randint(20, 120, 8):
+        eng.add_request(Request(rs.randint(3, model.cfg.vocab_size,
+                                           size=int(n)), max_new_tokens=64))
+    while not (eng.active.all() and eng.stats["ticks"] >= 2):
+        eng.step()
+    res = graph_against_eager(torch, eng)
+    label = "int8 pool" if kv_dtype else "bf16 pool"
+    log(f"[graph_check] {label}: {res}; graph pools "
+        f"{eng.exe.graph_pool_bytes / 2**20:.1f} MiB ({card_line()})")
+    del eng
+    torch.cuda.empty_cache()
 
 
 def phase_quant_serve(torch, dev, model, np, serve_stats):
@@ -2323,6 +2514,8 @@ def phase_window_serve(torch, dev, model, np):
     warm.run()
     del warm
     eng = LLMEngine(model, **kw)
+    if hasattr(eng.exe, "tick_log"):
+        eng.exe.tick_log = []
     rs = np.random.RandomState(0)
     reqs = [Request(rs.randint(3, vocab, size=n), max_new_tokens=WIN_NEW)
             for n in WIN_LONG + WIN_SHORT]
@@ -2376,6 +2569,7 @@ def phase_window_serve(torch, dev, model, np):
         f"max {1e3 * max(ttft):.1f} ms ({card})")
     log(f"[window_serve] peak allocated {peak / 2**30:.2f} GiB ({card}); "
         f"launches {counts}")
+    _log_ticks(torch, "window_serve", eng.exe, card)
     return counts, reqs
 
 
@@ -2877,15 +3071,20 @@ def _anatomy(torch, label, unit, run, n):
 
 
 def phase_anatomy(torch, dev, model, np, label="decode tick",
-                  kv_dtype=None):
+                  kv_dtype=None, async_depth=0):
     """Decode-tick anatomy (diagnostics, not in the default phases): 8
-    active slots in steady decode, 16 ticks per run (five runs: every
+    active slots in steady decode, 16 ticks per run (six runs: every
     slot stays active through them); ``kv_dtype="int8"`` over an int8
-    pool."""
+    pool; ``async_depth``: the pipelined engine (every slot crosses a
+    block boundary on the same tick, one step in 16, which drains the
+    window)."""
     from paddle_tpu_torch.serving import LLMEngine, Request
+    extra = {} if kv_dtype is None else {"kv_dtype": kv_dtype}
+    if async_depth:
+        extra["async_depth"] = async_depth
     eng = LLMEngine(model, num_slots=8, block_size=16, max_prompt_len=128,
                     max_seq_len=512, num_blocks=256, seed=0, device=dev,
-                    **({} if kv_dtype is None else {"kv_dtype": kv_dtype}))
+                    **extra)
     rs = np.random.RandomState(2)
     for _ in range(8):
         eng.add_request(Request(rs.randint(3, model.cfg.vocab_size, size=100),
@@ -2897,11 +3096,26 @@ def phase_anatomy(torch, dev, model, np, label="decode tick",
         for _ in range(16):
             eng.step()
     _anatomy(torch, f"{label}, 8 active slots", "tick", ticks, 16)
+    if hasattr(eng.exe, "tick_log"):
+        eng.exe.tick_log = []
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ticks()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.monotonic() - t0) / 16
+        for kind, (n, call, dev_ms) in _tick_stats(torch, eng.exe).items():
+            log(f"[anatomy] {label}: {n} {kind} graph replays, step wall "
+                f"{wall:.3f} ms, executor call {call:.3f} ms, device "
+                f"{dev_ms:.3f} ms/tick (CUDA events around the replay), idle "
+                f"{100 * max(0.0, 1 - dev_ms / wall):.1f}% of the step wall; "
+                f"graph pools {eng.exe.graph_pool_bytes / 2**20:.1f} MiB "
+                f"({card_line()})")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,serve,check,train,"
+    ap.add_argument("--phases", default="build,kernels,serve,check,"
+                    "graph_check,async_serve,train,"
                     "moe_serve,moe_check,moe_train,window_serve,window_check,"
                     "quant_serve,quant_check,bloom_serve,bloom_train,"
                     "falcon_rw_serve,falcon_rw_train,falcon7b_serve")
@@ -2943,7 +3157,8 @@ def main(argv=None):
         phase_k3_tiles(torch, dev)
     counts = {}                # path -> {kernel: launches in its own run}
     quant = {"quant_serve", "quant_check", "quant_anatomy"} & set(phases)
-    if {"serve", "check", "anatomy"} & set(phases) or quant:
+    if {"serve", "check", "anatomy", "graph_check",
+            "async_serve"} & set(phases) or quant:
         tm = time.monotonic()
         model = build_model(dev)
         torch.cuda.synchronize()
@@ -2953,8 +3168,28 @@ def main(argv=None):
                                                          np)
         if {"check", "quant_check"} & set(phases):
             got, ref32 = phase_check(torch, model, reqs)
+        if "graph_check" in phases:
+            phase_graph_check(torch, dev, model, np)
+            phase_graph_check(torch, dev, model, np, kv_dtype="int8")
+        if "async_serve" in phases:
+            counts["async_serve"], areqs, astats = phase_serve(
+                torch, dev, model, np, "async_serve", async_depth=2)
+            same = [r.tokens for r in areqs] == [r.tokens for r in reqs]
+            log(f"[async_serve] 12 streams token for token the serve "
+                f"phase's: {same}; {astats['tokens_s']:.1f} tokens/s "
+                f"against {serve_stats['tokens_s']:.1f} synchronous "
+                f"({card_line()})")
+            if not same:
+                raise AssertionError("async_serve streams differ from the "
+                                     "synchronous serve phase's")
+            if not astats["drains"] or "async" not in astats["ticks"]:
+                raise AssertionError(f"the async pipeline never cruised: "
+                                     f"{astats}")
         if "anatomy" in phases:
             phase_anatomy(torch, dev, model, np)
+            if "async_serve" in phases:
+                phase_anatomy(torch, dev, model, np,
+                              "decode tick, async_depth 2", async_depth=2)
         if "quant_check" in phases:
             phase_quant_check(torch, model, reqs, got, ref32, "bf16")
         if quant:

@@ -41,6 +41,7 @@ from paddle_tpu_torch.ops import attention as A
 from paddle_tpu_torch.ops.cuda import paged_attention as _paged
 from paddle_tpu_torch.ops.cuda import rope as _rope
 from paddle_tpu_torch.quantization import wo_matmul as _wo
+from paddle_tpu_torch.utils.faults import fault_point
 
 
 @dataclass
@@ -603,6 +604,10 @@ class RadixPrefixBlockManager(RefBlockManager):
                     victim = node
         if victim is None:       # unreachable by the suffix invariant
             raise MemoryError("paged cache out of blocks")
+        # chaos site: fires BEFORE any mutation, so an injected exception
+        # leaves the trie, refcounts and free list exactly as they were
+        fault_point("serving.prefix_evict", manager=self,
+                    blk=victim.blocks[-1], touch=victim.touch)
         blk = victim.blocks.pop()
         self._parked.discard(blk)
         self.ledger.unpark(blk)
@@ -920,8 +925,12 @@ def _rope_rows(positions, head_dim, base, scaling=None, max_pos=None):
         cur_len=(positions + 1 if (scaling or {}).get("type") == "dynamic"
                  else None))
     dev = positions.device
-    base = torch.as_tensor(base, dtype=torch.float32,
-                           device=dev).reshape(-1, 1)           # [B|1, 1]
+    if isinstance(base, torch.Tensor):              # dynamic NTK: per row
+        base = base.to(device=dev, dtype=torch.float32).reshape(-1, 1)
+    else:
+        # a fill, not a host-to-device copy: a CUDA graph captures it
+        base = torch.full((1, 1), float(base), dtype=torch.float32,
+                          device=dev)                           # [B|1, 1]
     inv = 1.0 / (base ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                        device=dev)[None, :] / head_dim))
     f = (positions.float() / pos_div)[:, None] * inv
@@ -1144,6 +1153,22 @@ def llama_decode_step_paged(model, tokens, cache: PagedKVCache, active,
 
 
 @torch.no_grad()
+def decode_tick_rows(model, tokens, cache: PagedKVCache, active, gen, temps,
+                     top_ps, top_k=None, logit_bias=None):
+    """The device half of a decode tick, on device tensors only: the decode
+    step, then one token per row sampled with the generator ``gen``
+    (``temps``/``top_ps`` [B] fp32, temperature 0 = greedy for that row);
+    inactive rows keep their token. Returns (next tokens [B] int64, fp32
+    logits [B, V]). No host read and no host-to-device copy: the executor
+    captures it in a CUDA graph (``serving/executor.py``)."""
+    from paddle_tpu_torch.models.decoding import _sample_rows
+    logits, cache = llama_decode_step_paged(model, tokens, cache, active)
+    lf = logits.float()
+    nxt = _sample_rows(lf, gen, temps, top_ps, top_k, logit_bias)
+    return torch.where(active, nxt, tokens), lf
+
+
+@torch.no_grad()
 def llama_decode_tick(model, tokens, cache: PagedKVCache, active,
                       upd_rows, upd_cols, upd_vals, gen, temps, top_ps,
                       top_k=None, want_logp=False, lora=None,
@@ -1153,8 +1178,9 @@ def llama_decode_tick(model, tokens, cache: PagedKVCache, active,
     num_slots dropped), run the decode step, and sample the next token ON
     THE DEVICE with the generator ``gen``. ``temps``/``top_ps`` [B]
     per-slot sampling params (temperature 0 = greedy for that row).
-    Returns (next tokens [B], logp [B, V] or None, cache)."""
-    from paddle_tpu_torch.models.decoding import _sample_rows
+    Returns (next tokens [B], logp [B, V] or None, cache). The eager form
+    of the tick the executor replays from a CUDA graph on the card."""
+    _refuse_lora_cp(lora, cp_axis)
     dev = cache.device
     rows = _host(upd_rows).astype(np.int64)
     keep = (rows >= 0) & (rows < cache.block_tables.shape[0])
@@ -1165,15 +1191,43 @@ def llama_decode_tick(model, tokens, cache: PagedKVCache, active,
             torch.as_tensor(_host(upd_vals)[keep], device=dev).to(torch.int32)
     tokens = torch.as_tensor(tokens, device=dev).long()
     active = torch.as_tensor(active, device=dev).bool()
-    logits, cache = llama_decode_step_paged(model, tokens, cache, active,
-                                            lora, cp_axis=cp_axis)
-    lf = logits.float()
+    nxt, lf = decode_tick_rows(
+        model, tokens, cache, active, gen,
+        torch.as_tensor(temps, device=dev).float(),
+        torch.as_tensor(top_ps, device=dev).float(), top_k,
+        None if logit_bias is None
+        else torch.as_tensor(logit_bias, device=dev))
     logp = torch.log_softmax(lf, dim=-1) if want_logp else None
-    nxt = _sample_rows(lf, gen, torch.as_tensor(temps, device=dev).float(),
-                       torch.as_tensor(top_ps, device=dev).float(), top_k,
-                       None if logit_bias is None
-                       else torch.as_tensor(logit_bias, device=dev))
-    return torch.where(active, nxt, tokens), logp, cache
+    return nxt, logp, cache
+
+
+@torch.no_grad()
+def llama_decode_tick_async(model, tokens, cache: PagedKVCache, active,
+                            stop, gen, max_gen, rng, temps, top_ps, eos_id,
+                            top_k=None):
+    """The pipelined twin of :func:`llama_decode_tick`: the token array it
+    returns stays on the device and feeds the next call's ``tokens``, so
+    the engine dispatches up to ``async_depth`` of these back to back and
+    fetches each one tick late.
+
+    The host has not seen tick N's token when tick N+1 runs, so the stop
+    on EOS or ``max_gen`` is evaluated here: ``stop`` [B] bool is the
+    accumulated device-side stop mask, and a row that sampled EOS (or
+    reached ``max_gen``) at tick N is masked out of tick N+1 (``ran =
+    active & ~stop``). ``eos_id`` is -1 when the engine has no EOS (token
+    ids are non-negative, so the compare never fires); ``gen`` /
+    ``max_gen`` [B] int64 count the tokens each row generated / may
+    generate; ``rng`` is the sampling generator. No table updates, LoRA,
+    beam logp or bias: the engine takes the synchronous tick for any tick
+    that needs them. Returns (nxt, ran, stop', gen', cache): ``ran`` is
+    the mask of the rows that computed this tick, which are exactly the
+    rows the synchronous loop would have run."""
+    ran = active & ~stop
+    nxt, _ = decode_tick_rows(model, tokens, cache, ran, rng, temps, top_ps,
+                              top_k)
+    new_gen = gen + ran.to(gen.dtype)
+    stopped = ran & ((nxt == eos_id) | (new_gen >= max_gen))
+    return nxt, ran, stop | stopped, new_gen, cache
 
 
 @torch.no_grad()

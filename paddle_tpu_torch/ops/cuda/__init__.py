@@ -74,3 +74,18 @@ def route_launches() -> dict:
     ``"fma"``)."""
     return {name: dict(fn.route_launches) for name, fn in kernels().items()
             if hasattr(fn, "route_launches")}
+
+
+def add_launches(counts: dict, routes: dict | None = None, sign: int = 1):
+    """Add ``sign`` times ``counts`` ({name: launches}) and ``routes``
+    ({name: {kernel: launches}}) to the counters. A CUDA graph's capture
+    runs the wrappers' Python (which counts) but launches nothing, and each
+    replay launches every captured kernel without running that Python: the
+    executor takes the capture's counts back (``sign=-1``) and adds them
+    at every replay (``serving/executor.py``)."""
+    fns = kernels()
+    for name, n in counts.items():
+        fns[name].launches += sign * n
+    for name, per in (routes or {}).items():
+        for route, n in per.items():
+            fns[name].route_launches[route] += sign * n

@@ -35,6 +35,20 @@ long it grows. Dynamic-NTK rope bases follow each row's length (the
 prefill's whole prompt, the decode tick's position + 1). Both turn
 prefix caching off and refuse chunked prefill, as the reference does.
 
+On the card the decode tick replays a CUDA graph (the port's counterpart
+of the reference's jitted tick; ``serving/executor.py``), and the
+constructor refuses a model whose head dim or GQA group no card kernel
+takes (:func:`card_shape_error`), before any slot or block is claimed.
+
+Async pipelined decode: ``async_depth=K`` keeps up to K decode ticks
+dispatched but not yet fetched. While the engine only decodes (no
+admission, no chunked prefill, no table growth within the window), each
+step replays the next tick with the previous tick's tokens still on the
+device and fetches the oldest tick's tokens, so the host's emission work
+overlaps the card's. Every other step drains the window first and runs
+the synchronous path, so streams are the synchronous engine's, token for
+token. ``PT_ASYNC_DECODE=0`` at construction is the kill switch.
+
 Quantized serving: ``kv_dtype="int8"`` keeps the KV pool in int8 with
 per-(position, KV head) fp32 scales (quantize on write, dequantize on
 read in the paged kernels' int8 mode); ``PT_QUANT_KV=0`` at construction
@@ -43,12 +57,13 @@ come from ``serving.quant.quantize_for_serving``. An int8 pool arms the
 ``serving.kv_quant`` fault site before each decode tick.
 
 Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP.md queue): beams, speculative decoding, async decode,
-multi-LoRA, grammar, degradation/SLO, tenants, context parallelism and
+ROADMAP.md queue): beams, speculative decoding, multi-LoRA, grammar,
+degradation/SLO, tenants, context parallelism and
 prefill-only replicas (router).
 """
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -57,10 +72,13 @@ from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.models.paged import (is_moe_model, kv_quant_enabled,
                                            model_config)
 from paddle_tpu_torch.observability import span as _span
+from paddle_tpu_torch.ops.cuda import flash_attention as _flash
+from paddle_tpu_torch.ops.cuda import paged_attention as _paged
 from paddle_tpu_torch.serving.executor import ModelExecutor
 from paddle_tpu_torch.serving.kv import KVManager, cache_block_bytes
 from paddle_tpu_torch.serving.scheduler import Scheduler
-from paddle_tpu_torch.serving.telemetry import (_ACTIVE_SLOTS, _CANCELLED,
+from paddle_tpu_torch.serving.telemetry import (_ACTIVE_SLOTS, _ASYNC_DEPTH,
+                                                _ASYNC_DRAINS, _CANCELLED,
                                                 _DRAIN, _FINISHED,
                                                 _KV_IN_USE, _KV_UTIL,
                                                 _QUEUE_DEPTH, _REJECTED,
@@ -74,6 +92,23 @@ _Q1 = "ROADMAP.md queue 1, item 5 (serving features)"
 
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet ({_Q1})")
+
+
+def card_shape_error(cfg):
+    """Why the card's kernels cannot serve a model of config ``cfg``, or
+    None when they can: the flash and paged kernels (K2-K5) take head dims
+    64 and 128 only, and the paged decode kernel (K4) GQA groups up to
+    ``MAX_GROUP``. The CPU's plain paths serve every shape."""
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    d = cfg.hidden_size // nh
+    if d not in _flash.HEAD_DIMS or d not in _paged.HEAD_DIMS:
+        return (f"head dim {d} (hidden {cfg.hidden_size} over {nh} heads): "
+                f"the attention kernels take head dims {_flash.HEAD_DIMS}")
+    if nh // nkv > _paged.MAX_GROUP:
+        return (f"GQA group {nh // nkv} ({nh} query heads over {nkv} KV "
+                f"heads): the paged decode kernel takes groups "
+                f"1-{_paged.MAX_GROUP}")
+    return None
 
 
 class LLMEngine:
@@ -104,8 +139,18 @@ class LLMEngine:
                 raise _not_ported(f"{name}= ({what})")
         if int(cp) != 1:
             raise _not_ported("cp > 1 (context-parallel serving)")
-        if int(async_depth) != 0:
-            raise _not_ported("async_depth > 0 (async pipelined decode)")
+        # async pipelined decode: PT_ASYNC_DECODE=0 is the kill switch,
+        # read HERE, so depth collapses to 0 and the engine runs exactly
+        # the synchronous tick
+        async_depth = int(async_depth)
+        if async_depth and os.environ.get(
+                "PT_ASYNC_DECODE", "1").strip().lower() in (
+                    "0", "off", "false"):
+            async_depth = 0
+        if async_depth < 0:
+            raise ValueError(
+                f"async_depth must be >= 0, got {async_depth}")
+        self.async_depth = async_depth
         cfg = model_config(model)
         self.model = model
         # int8 KV: PT_QUANT_KV=0 is the kill switch, read here — the pool
@@ -118,6 +163,14 @@ class LLMEngine:
         self._is_moe = is_moe_model(model)
         self.device = (model.device if device is None
                        else resolve_device(device))
+        if self.device.type == "cuda":
+            # refuse HERE, before any slot or block is claimed: a kernel's
+            # refusal inside step() would wedge the request mid-tick
+            err = card_shape_error(cfg)
+            if err is not None:
+                raise NotImplementedError(
+                    f"LLMEngine on the card: {err} (ROADMAP.md queue 2, "
+                    f"Shapes the kernels refuse)")
         self.num_slots = num_slots
         self.block_size = block_size
         self.max_prompt_len = max_prompt_len
@@ -151,7 +204,8 @@ class LLMEngine:
         self.exe = ModelExecutor(
             model, num_slots=num_slots, num_blocks=num_blocks,
             block_size=block_size, max_blocks_per_seq=self.max_blocks_per_seq,
-            top_k=top_k, seed=seed, kv_dtype=kv_dtype, device=self.device)
+            top_k=top_k, seed=seed, kv_dtype=kv_dtype,
+            async_depth=async_depth, device=self.device)
 
         # host mirrors (vectorised bookkeeping)
         self.slot_req = np.full(num_slots, -1, np.int64)   # req_id or -1
@@ -169,6 +223,19 @@ class LLMEngine:
                       "cancelled": 0, "rejected": 0}
         self._adm_counter = 0                # admission recency, per slot
         self.adm_order = np.zeros(num_slots, np.int64)
+        # the async window: oldest-first dispatched-but-unfetched ticks,
+        # each {"tick": the executor's handle, "rng_before": the sampling
+        # generator's state before that tick}. _async_live: the executor
+        # holds this window's device loop state (seeded from the host
+        # mirrors at the window's start). _async_rewound guards the
+        # one-shot generator rewind when draining a fully masked tick.
+        # stats["async_overrun"]: rows that ran on the card for a slot the
+        # host tore down meanwhile (a stream-callback cancel mid-window)
+        self._async_win: list[dict] = []
+        self._async_live = False
+        self._async_rewound = False
+        self._async_draining = False
+        self.stats["async_overrun"] = 0
 
     # -------------------------------------------------- attribute surface
     @property
@@ -242,7 +309,7 @@ class LLMEngine:
 
     def has_work(self) -> bool:
         return (bool(self.queue) or bool(self.active.any())
-                or bool(self.prefilling))
+                or bool(self.prefilling) or bool(self._async_win))
 
     # --------------------------------------------- cancellation/deadlines
     def cancel(self, req_id: int, reason: str = "cancelled") -> bool:
@@ -251,6 +318,12 @@ class LLMEngine:
         slot. Returns False for unknown/finished requests."""
         req = self.requests.get(req_id)
         if req is None or req.done:
+            return False
+        # in-flight async ticks may already hold this request's next
+        # tokens: drain so the emitted stream is exact before its slot is
+        # torn down. The drain can finish the request — re-check after
+        self._drain_async("cancel")
+        if req.done:
             return False
         if not self._detach(req_id):
             return False
@@ -479,7 +552,15 @@ class LLMEngine:
 
     # --------------------------------------------------------- preemption
     def _preempt(self, protect_rid=None) -> bool:
+        # preemption rewrites a victim's resume prompt from req.tokens —
+        # tokens still in flight in the async window must land first or
+        # the replayed stream would silently drop them
+        self._drain_async("boundary")
         return self.sched.preempt(self, protect_rid)
+
+    def _preempt_from(self, cand) -> bool:
+        self._drain_async("boundary")
+        return self.sched.preempt_from(self, cand)
 
     def _allocate_or_preempt(self, rid: int, n_tokens: int, protect=None):
         """mgr.allocate with out-of-blocks recovery: preempt (never
@@ -493,6 +574,9 @@ class LLMEngine:
             need = (self.mgr.blocks_needed(n_tokens)
                     - len(self.mgr.tables.get(rid, [])))
             try:
+                # chaos hook: an injected MemoryError exercises the same
+                # preempt-and-retry recovery a genuinely dry pool would
+                fault_point("serving.alloc", rid=rid, engine=self)
                 if need > self.mgr.free_blocks - max(0, others):
                     raise MemoryError("allocation would dip into blocks "
                                       "reserved by other requests")
@@ -520,7 +604,7 @@ class LLMEngine:
             if t is None:
                 # nothing else to evict: preempt THIS slot (it re-queues
                 # with its progress and resumes when blocks free up)
-                if not self.sched.preempt_from(self, [int(slot)]):
+                if not self._preempt_from([int(slot)]):
                     raise MemoryError(
                         "paged cache out of blocks and the growing slot "
                         "is not preemptible (windowed/dynamic-rope resume "
@@ -577,6 +661,8 @@ class LLMEngine:
 
     # --------------------------------------------------------------- tick
     def _refresh_gauges(self):
+        if self.async_depth:
+            _ASYNC_DEPTH.set(self.async_depth)
         _QUEUE_DEPTH.set(len(self.queue))
         _ACTIVE_SLOTS.set(int(self.active.sum()))
         used = self.mgr.num_blocks - self.mgr.free_blocks
@@ -598,14 +684,162 @@ class LLMEngine:
         t0 = time.monotonic()
         try:
             with _span("serving.step"):
-                return self._step_inner()
+                return self._step_impl()
         finally:
             _TICK.observe(time.monotonic() - t0)
             self._refresh_gauges()
 
+    def _step_impl(self):
+        """Exception-atomicity shim around :meth:`_step_inner` for the
+        async pipeline: a fault raised mid-step while dispatched ticks are
+        in flight must not strand their tokens — drain the window (its
+        emissions are exactly the tokens the synchronous engine produced
+        in the preceding steps), then re-raise. With an empty window this
+        adds nothing to the synchronous path."""
+        try:
+            return self._step_inner()
+        except BaseException:
+            if self._async_win:
+                self._drain_async("exception")
+            raise
+
+    # -------------------------------------------- async pipelined decode
+    def _async_block_reason(self):
+        """Why the NEXT tick cannot cruise in the async pipeline — None
+        means pure decode (dispatch without fetching). Any other reason
+        drains the window first, then the step runs the synchronous path,
+        so table mutations, host sampling and the ledger stay tick-exact:
+
+        admit    requests waiting for admission (the scheduler runs)
+        prefill  chunked prefill in flight
+        finish   no active slot (the drain emits the tail; run() ends)
+        window   sliding-window recycling mutates tables every tick
+        growth   a slot would cross a block boundary within the window
+
+        The reference's other reasons — ``mode`` (prefill-only replica,
+        cp > 1), ``beam``, ``grammar``, ``adapter`` and ``spec`` — cannot
+        arise while the port refuses those features."""
+        if self.queue:
+            return "admit"
+        if self.prefilling:
+            return "prefill"
+        act = self.active
+        if not act.any():
+            return "finish"
+        if self.window is not None:
+            return "window"
+        # the host ``cur`` mirror lags by the window length: the tick
+        # about to be dispatched writes position cur + len(win), which
+        # must already have a table entry (cruise never mutates tables)
+        d = len(self._async_win)
+        if (((self.cur[act] + d) // self.block_size)
+                >= self.table_len[act]).any():
+            return "growth"
+        return None
+
+    def _async_step(self):
+        """One cruise tick of the depth-K pipeline: dispatch the next
+        decode tick with the PREVIOUS tick's tokens still on the device,
+        then — once the window exceeds ``async_depth`` — fetch and emit
+        the OLDEST tick's tokens while the newer ones run. The EOS /
+        max-gen stop is evaluated on the device, so a slot that finished
+        at tick N is masked out of tick N+1 before the host sees its
+        token."""
+        act = self.active.copy()
+        # chaos parity with the synchronous tick: these sites fire BEFORE
+        # the dispatch, so an injected exception aborts with the cache,
+        # tables and ledger untouched (the shim drains the window)
+        if self._is_moe:
+            fault_point("serving.moe_dispatch", engine=self,
+                        slots=np.nonzero(act)[0])
+        if self.cache.k_scale_store:
+            fault_point("serving.kv_quant", engine=self,
+                        slots=np.nonzero(act)[0])
+        if not self._async_live:
+            # window start: seed the device loop state from the host
+            # mirrors (exact — the window was just drained)
+            self.exe.async_begin(
+                self.last_tok, self.gen, self.max_gen,
+                -1 if self.eos_token_id is None else int(self.eos_token_id))
+        rng_before = self.exe.gen.get_state()
+        tick = self.exe.decode_tick_async(act, self.temps, self.top_ps)
+        self._async_live = True
+        self._async_rewound = False
+        self._async_win.append({"tick": tick, "rng_before": rng_before})
+        self.stats["ticks"] += 1
+        emitted = []
+        if len(self._async_win) > self.async_depth:
+            # steady state: drain exactly the oldest tick. The guard keeps
+            # a stream-callback cancel() from draining the window out from
+            # under us (it detaches at once; the dead slot's rows still in
+            # flight count as async_overrun)
+            self._async_draining = True
+            try:
+                emitted += self._drain_one()
+            finally:
+                self._async_draining = False
+        return emitted
+
+    def _drain_one(self):
+        """Fetch and emit the oldest dispatched tick. The host mirrors
+        (``cur``/``gen``/``last_tok``) advance HERE, so at every drain
+        boundary they hold exactly the synchronous engine's values. A
+        fully masked tick (every slot stopped on the card before the host
+        noticed) emits nothing and rewinds the generator to its state
+        before that tick: the synchronous engine never ran it, so never
+        drew its noise."""
+        e = self._async_win.pop(0)
+        nxt, ran = e["tick"].fetch()
+        if not ran.any():
+            if not self._async_rewound:
+                self.exe.gen.set_state(e["rng_before"])
+                self._async_rewound = True
+            return []
+        live = ran & (self.slot_req >= 0)
+        self.stats["async_overrun"] += int(ran.sum() - live.sum())
+        self.cur += live
+        emitted = []
+        for slot in np.nonzero(live)[0]:
+            emitted += self._emit(int(slot), int(nxt[slot]))
+        return emitted
+
+    def _drain_async(self, why: str):
+        """Drain the whole window (fetch and emit every dispatched tick),
+        leaving the host mirrors tick-exact and the device loop state
+        discarded (the next cruise re-seeds it). A no-op when the window
+        is empty or a drain is already on the stack (a stream callback's
+        re-entry)."""
+        if not self._async_win or self._async_draining:
+            return []
+        self._async_draining = True
+        try:
+            emitted = []
+            while self._async_win:
+                emitted += self._drain_one()
+            self._async_live = False
+            _ASYNC_DRAINS.inc(why=why)
+            return emitted
+        finally:
+            self._async_draining = False
+
     def _step_inner(self):
+        # chaos hooks: serving.tick may raise or stall; serving.preempt
+        # rules receive the engine and typically call engine._preempt() to
+        # induce a preemption the pool never asked for. Both fire before
+        # any mutation of the step
+        fault_point("serving.tick", engine=self)
+        fault_point("serving.preempt", engine=self)
         self.sched.expire(self.cancel)
         emitted = []
+        if self.async_depth:
+            why = self._async_block_reason()
+            if why is None:
+                return self._async_step()
+            if self._async_win:
+                # boundary: land every in-flight tick before the host
+                # mutates tables or slots — the drained emissions belong
+                # to this step's return
+                emitted += self._drain_async(why)
         admits = self.sched.select_admissions(self)
         emitted += self._prefill(admits)
         emitted += self._prefill_chunks()

@@ -3,30 +3,134 @@
 
 Owns the paged KV cache and the sampling generator, and runs the
 forwards the tick needs: slot-aware prefill, chunked prefill, the fused
-decode tick, the radix prefix cache's block copies, and row sampling.
-Callers hand in fixed-shape numpy staging arrays; the forwards update the
-cache in place (see ``models/paged.py``).
+decode tick (and its pipelined twin), the radix prefix cache's block
+copies, and row sampling. Callers hand in fixed-shape numpy staging
+arrays; the forwards update the cache in place (see ``models/paged.py``).
+
+On a CUDA device the decode tick is the port's counterpart of the
+reference's jitted tick: a :class:`TickGraph`, the tick's device work
+(``models/paged.py`` ``decode_tick_rows``) captured once per executor in
+a ``torch.cuda.CUDAGraph`` at its fixed shape and replayed every tick.
+Its inputs go through one pinned host buffer and one non-blocking copy
+into a static device buffer; the sampled tokens come back through one
+pinned buffer, and waiting for them is the tick's only synchronisation.
+The async tick is a second graph whose loop state (tokens, stop mask,
+tokens generated, their limit, EOS) stays on the device between
+replays. Both are captured when the executor is built, so their cost is
+the engine's start-up and a capture that fails raises from the
+constructor: there is no eager fallback. On the CPU the same functions
+run eagerly.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch.core.random import generator
 from paddle_tpu_torch.models.decoding import _sample_rows
-from paddle_tpu_torch.models.paged import (PagedKVCache, llama_decode_tick,
+from paddle_tpu_torch.models.paged import (PagedKVCache, decode_tick_rows,
+                                           llama_decode_tick,
+                                           llama_decode_tick_async,
                                            llama_prefill_chunk_paged,
                                            llama_prefill_paged, model_config,
                                            prefix_cow_update)
 
 
+def _cache_ptrs(cache) -> tuple:
+    """Where the cache's tensors stand: the pools, scale pools, tables and
+    lengths a captured tick reads and writes in place."""
+    return tuple(t.data_ptr() for t in (
+        *cache.k_store, *cache.v_store, *cache.k_scale_store,
+        *cache.v_scale_store, cache.block_tables, cache.lens))
+
+
+class TickGraph:
+    """``fn`` captured in a CUDA graph. ``fn`` reads only tensors that
+    exist before the capture (static inputs, the model, the cache) and
+    returns its outputs, which live in the graph's private pool
+    (``pool_bytes``: the device memory reserved during the capture).
+
+    Before the capture ``fn`` runs once eagerly on a side stream (library
+    handles, kernel loads); the caller arranges for that run to change
+    nothing (every row inactive), and the generator ``gen`` is put back
+    to its state before it. ``gen`` is registered with the graph, so each
+    replay draws new noise from its current state and advances it as an
+    eager call would. The kernel wrappers count their launches in Python,
+    which runs at capture only: the capture's counts are taken back and
+    added again at every replay, so the counters count device launches."""
+
+    def __init__(self, fn, cache, gen):
+        from paddle_tpu_torch.ops import cuda as K
+        self._ptrs = _cache_ptrs(cache)
+        state = gen.get_state()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        gen.set_state(state)
+        counts, routes = K.launches(), K.route_launches()
+        # the capture empties the allocator's cache first: do it before
+        # reading what is reserved, so the difference is the graph's pool
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(gen)
+        try:
+            with torch.cuda.graph(self.graph):
+                self.out = fn()
+        finally:
+            # the capture launched nothing: take back what it counted
+            self.launches = {k: v - counts[k] for k, v in
+                             K.launches().items() if v != counts[k]}
+            self.route_launches = {
+                k: {r: n - routes[k][r] for r, n in per.items()}
+                for k, per in K.route_launches().items()}
+            K.add_launches(self.launches, self.route_launches, -1)
+            gen.set_state(state)
+        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+
+    def replay(self, cache):
+        if _cache_ptrs(cache) != self._ptrs:
+            raise RuntimeError(
+                "the KV cache's tensors moved since the decode tick was "
+                "captured: the pools, tables and lengths must be written "
+                "in place")
+        from paddle_tpu_torch.ops import cuda as K
+        self.graph.replay()
+        K.add_launches(self.launches, self.route_launches)
+
+
+class AsyncTick:
+    """One dispatched async tick: ``fetch()`` gives its (sampled tokens
+    [B] int64, ran mask [B] bool) as numpy, waiting on the card only for
+    this tick."""
+
+    def __init__(self, values=None, host=None, event=None):
+        self._values, self._host, self._event = values, host, event
+
+    def fetch(self):
+        if self._values is None:
+            self._event.synchronize()
+            self._values = (self._host[0].copy(),
+                            self._host[1].astype(bool))
+        return self._values
+
+
 class ModelExecutor:
     """Prefill/decode programs over one paged KV pool on ``device``
-    (``kv_dtype="int8"``: an int8 pool with fp32 scale pools)."""
+    (``kv_dtype="int8"``: an int8 pool with fp32 scale pools).
+    ``async_depth``: the most async ticks the engine keeps in flight.
+    ``tick_log``: None, or a list that each decode tick on the card
+    appends (kind, wall seconds of the call, start event, end event) to,
+    the events around its replay."""
 
     def __init__(self, model, *, num_slots, num_blocks, block_size,
                  max_blocks_per_seq, top_k=None, seed=0, kv_dtype=None,
-                 device):
+                 async_depth=0, device):
         cfg = model_config(model)
         self.model = model
         self.top_k = top_k
@@ -38,7 +142,17 @@ class ModelExecutor:
             cfg.hidden_size // cfg.num_attention_heads,
             num_slots, max_blocks_per_seq, cfg.dtype, kv_dtype=kv_dtype,
             device=self.device)
+        self.num_slots = num_slots
+        self.async_depth = int(async_depth)
+        self.tick_log = None
+        self._tick = self._atick = None          # the captured graphs
+        self._async = None          # the CPU's async loop state
+        if self.device.type == "cuda":
+            self._capture_tick()
+            if self.async_depth:
+                self._capture_async()
 
+    # ------------------------------------------------------------ prefill
     def prefill(self, ids, lens, slots, rows):
         """Slot-aware padded prefill: admitted prompts written into their
         cache slots while other slots keep their decode state."""
@@ -55,16 +169,190 @@ class ModelExecutor:
             self.cache, slots, rows)
         return logits
 
+    # ------------------------------------------------------------- decode
+    @property
+    def graph_pool_bytes(self) -> int:
+        """Device memory the captured ticks' private pools reserved."""
+        return sum(g.pool_bytes for g in (self._tick, self._atick)
+                   if g is not None)
+
     def decode_tick(self, last_tok, run_mask, rows, cols, vals, temps,
                     top_ps):
         """The fused one-token tick: incremental table update + paged
         attention + on-device sampling. Returns the sampled [num_slots]
         tokens as numpy (the one per-tick device-to-host fetch)."""
-        nxt, _, self.cache = llama_decode_tick(
-            self.model, last_tok, self.cache, run_mask, rows, cols, vals,
-            self.gen, temps, top_ps, self.top_k)
-        return nxt.cpu().numpy()
+        if self.device.type != "cuda":
+            nxt, _, self.cache = llama_decode_tick(
+                self.model, last_tok, self.cache, run_mask, rows, cols, vals,
+                self.gen, temps, top_ps, self.top_k)
+            return nxt.cpu().numpy()
+        t0 = time.perf_counter()
+        self._update_tables(rows, cols, vals)
+        st = self._stage_np
+        st[0], st[1], st[2], st[3] = last_tok, run_mask, temps, top_ps
+        self._inp.copy_(self._stage, non_blocking=True)
+        ev = self._replay(self._tick)
+        self._out_host.copy_(self._tick.out[0], non_blocking=True)
+        self._done.record()
+        self._done.synchronize()
+        self._log("sync", t0, ev)
+        return self._out_host.numpy().copy()
 
+    @property
+    def tick_logits(self):
+        """The fp32 logits [num_slots, V] of the last replayed synchronous
+        tick on the card (the graph's output buffer)."""
+        return self._tick.out[1]
+
+    def _capture_tick(self):
+        """Static buffers and the synchronous tick's graph. ``_inp`` [4, B]
+        float64 holds the tokens, the active mask, temperatures and top-p
+        (all exact in float64); zeros while capturing, so the warm-up run
+        has no active row and writes only the pool's sink block (the
+        cache's lengths and tables stay as they are)."""
+        b, dev = self.num_slots, self.device
+        self._inp = torch.zeros(4, b, dtype=torch.float64, device=dev)
+        self._stage = torch.zeros(4, b, dtype=torch.float64,
+                                  pin_memory=True)
+        self._stage_np = self._stage.numpy()
+        self._upd = torch.zeros(3, b, dtype=torch.int64, pin_memory=True)
+        self._upd_np = self._upd.numpy()
+        self._upd_dev = torch.zeros(3, b, dtype=torch.int64, device=dev)
+        self._out_host = torch.zeros(b, dtype=torch.int64, pin_memory=True)
+        self._done = torch.cuda.Event()
+
+        def tick():
+            inp = self._inp
+            return decode_tick_rows(self.model, inp[0].long(), self.cache,
+                                    inp[1] > 0.5, self.gen, inp[2].float(),
+                                    inp[3].float(), self.top_k)
+        self._tick = TickGraph(tick, self.cache, self.gen)
+
+    def _update_tables(self, rows, cols, vals):
+        """``_grow_tables``' sparse update (sentinel rows dropped) applied
+        to ``block_tables`` in place before the replay, through a pinned
+        buffer: at most once per ``block_size`` ticks a slot."""
+        rows = np.asarray(rows)
+        keep = (rows >= 0) & (rows < self.num_slots)
+        n = int(keep.sum())
+        if not n:
+            return
+        u = self._upd_np
+        u[0, :n] = rows[keep]
+        u[1, :n] = np.asarray(cols)[keep]
+        u[2, :n] = np.asarray(vals)[keep]
+        d = self._upd_dev[:, :n]
+        d.copy_(self._upd[:, :n], non_blocking=True)
+        self.cache.block_tables[d[0], d[1]] = d[2].to(torch.int32)
+
+    def _replay(self, g):
+        """Replay ``g``; with a ``tick_log``, between two CUDA events."""
+        if self.tick_log is None:
+            g.replay(self.cache)
+            return None
+        e0, e1 = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        e0.record()
+        g.replay(self.cache)
+        e1.record()
+        return e0, e1
+
+    def _log(self, kind, t0, ev):
+        if ev is not None:
+            self.tick_log.append((kind, time.perf_counter() - t0, *ev))
+
+    # --------------------------------------------------------- async tick
+    def async_begin(self, tokens, gen, max_gen, eos_id):
+        """Seed the async loop state from the engine's host mirrors at the
+        start of a window: last tokens, tokens generated and their limit
+        per slot, the EOS id (-1: none); the stop mask starts clear."""
+        if self.device.type != "cuda":
+            dev = self.device
+            self._async = dict(
+                tokens=torch.as_tensor(np.asarray(tokens, np.int64),
+                                       device=dev),
+                stop=torch.zeros(self.num_slots, dtype=torch.bool,
+                                 device=dev),
+                gen=torch.as_tensor(np.asarray(gen, np.int64), device=dev),
+                max_gen=torch.as_tensor(np.asarray(max_gen, np.int64),
+                                        device=dev),
+                eos=int(eos_id))
+            return
+        s = self._seed_np
+        s[0], s[1], s[2], s[3], s[4] = tokens, gen, max_gen, 0, eos_id
+        self._state.copy_(self._seed, non_blocking=True)
+
+    def decode_tick_async(self, active, temps, top_ps):
+        """Dispatch one pipelined tick over the device loop state (see
+        :func:`~paddle_tpu_torch.models.paged.llama_decode_tick_async`):
+        the tokens it samples feed the next call on the device, and the
+        stop mask, counts and tokens advance there. Returns an
+        :class:`AsyncTick`; on the card the call returns once the replay
+        is queued."""
+        if self.device.type != "cuda":
+            a, dev = self._async, self.device
+            nxt, ran, a["stop"], a["gen"], self.cache = \
+                llama_decode_tick_async(
+                    self.model, a["tokens"], self.cache,
+                    torch.as_tensor(np.asarray(active, bool), device=dev),
+                    a["stop"], a["gen"], a["max_gen"], self.gen,
+                    torch.as_tensor(np.asarray(temps, np.float32),
+                                    device=dev),
+                    torch.as_tensor(np.asarray(top_ps, np.float32),
+                                    device=dev),
+                    a["eos"], self.top_k)
+            a["tokens"] = nxt
+            return AsyncTick((nxt.cpu().numpy(), ran.cpu().numpy()))
+        t0 = time.perf_counter()
+        i = self._ring_at % len(self._ring_ev)
+        self._ring_at += 1
+        ev = self._ring_ev[i]
+        ev.synchronize()         # the slot's last tick was drained long ago
+        st = self._a_stage_np[i]
+        st[0], st[1], st[2] = active, temps, top_ps
+        self._a_inp.copy_(self._a_stage[i], non_blocking=True)
+        tev = self._replay(self._atick)
+        self._a_host[i].copy_(self._atick.out, non_blocking=True)
+        ev.record()
+        self._log("async", t0, tev)
+        return AsyncTick(host=self._a_host_np[i], event=ev)
+
+    def _capture_async(self):
+        """The async tick's graph. ``_state`` [5, B] int64: tokens, tokens
+        generated, their limit, the stop mask and the EOS id (in every
+        column), updated in place by each replay; ``_a_inp`` [3, B]
+        float64: the active mask, temperatures and top-p. The sampled
+        tokens and the ran mask leave through a ring of pinned buffers,
+        one per tick in flight (``async_depth`` + 2), each with an
+        event."""
+        b, dev = self.num_slots, self.device
+        ring = self.async_depth + 2
+        self._state = torch.zeros(5, b, dtype=torch.int64, device=dev)
+        self._seed = torch.zeros(5, b, dtype=torch.int64, pin_memory=True)
+        self._seed_np = self._seed.numpy()
+        self._a_inp = torch.zeros(3, b, dtype=torch.float64, device=dev)
+        self._a_stage = torch.zeros(ring, 3, b, dtype=torch.float64,
+                                    pin_memory=True)
+        self._a_stage_np = self._a_stage.numpy()
+        self._a_host = torch.zeros(ring, 2, b, dtype=torch.int64,
+                                   pin_memory=True)
+        self._a_host_np = self._a_host.numpy()
+        self._ring_ev = [torch.cuda.Event() for _ in range(ring)]
+        self._ring_at = 0
+
+        def tick():
+            s, inp = self._state, self._a_inp
+            nxt, ran, stop, gen, _ = llama_decode_tick_async(
+                self.model, s[0], self.cache, inp[0] > 0.5, s[3].bool(),
+                s[1], s[2], self.gen, inp[1].float(), inp[2].float(), s[4],
+                self.top_k)
+            s[0].copy_(nxt)
+            s[1].copy_(gen)
+            s[3].copy_(stop)
+            return torch.stack([nxt, ran.long()])
+        self._atick = TickGraph(tick, self.cache, self.gen)
+
+    # ------------------------------------------------------------- misc
     def apply_block_copies(self, pairs):
         """Radix prefix cache COW plan: copy each (src, dst) pool block
         before this tick's forwards write the pool."""

@@ -66,3 +66,14 @@ _PREFIX_PARTIAL_HITS = METRICS.counter(
 _PREFIX_TOKEN_HIT_RATE = METRICS.gauge(
     "serving_prefix_token_hit_rate",
     "prefix-cache hit tokens / prompt tokens probed (lifetime)")
+# async pipelined decode
+_ASYNC_DEPTH = METRICS.gauge(
+    "serving_async_depth",
+    "configured decode pipeline depth (dispatched-but-unfetched ticks "
+    "kept in flight; 0 = fully synchronous)")
+_ASYNC_DRAINS = METRICS.counter(
+    "serving_async_drains_total",
+    "async decode windows drained before a tick the pipeline cannot "
+    "cover, by cause (admit, prefill, window, growth, finish, cancel, "
+    "exception, boundary)",
+    labelnames=("why",))

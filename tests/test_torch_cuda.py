@@ -1204,3 +1204,198 @@ def test_qwen2_group7_engine_on_card_matches_cpu():
     assert streams[0] == streams[1]
     counts = K.launches()
     assert all(counts[k] > 0 for k in K.SERVE_KERNELS), counts
+
+
+# ------------------------------------------------ the decode tick's graph
+def _graph_model(case):
+    """A narrow model of ``case`` on the card (head dims 64/128, 2 layers)
+    and the engine arguments that case serves with."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.mistral import (MistralConfig,
+                                                 MistralForCausalLM)
+    from paddle_tpu_torch.models.mixtral import (MixtralConfig,
+                                                 MixtralForCausalLM)
+    kw = dict(hidden_size=256, intermediate_size=512, num_attention_heads=4,
+              num_key_value_heads=2, vocab_size=512)
+    f32 = dict(dtype=torch.float32)
+    bf16 = dict(dtype=torch.bfloat16)
+    if case == "mistral_window":
+        return MistralForCausalLM(MistralConfig.tiny(
+            sliding_window=24, **kw, **f32), device="cuda"), {}
+    if case == "mixtral":
+        cfg = MixtralConfig.tiny(
+            hidden_size=256, num_attention_heads=2, num_key_value_heads=1,
+            vocab_size=512, intermediate_size=96, num_local_experts=6, **bf16)
+        return MixtralForCausalLM(cfg, device="cuda"), {}
+    extra = {}
+    if case == "dynamic_ntk":
+        extra = dict(rope_scaling={"type": "dynamic", "factor": 2.0},
+                     max_position_embeddings=32)
+    dt = f32 if case in ("llama_fp32", "dynamic_ntk") else bf16
+    model = LlamaForCausalLM(LlamaConfig.tiny(**kw, **extra, **dt),
+                             device="cuda")
+    return model, ({"kv_dtype": "int8"} if case == "int8_pool" else {})
+
+
+def _decoding_engine(model, slots=4, new=32, **kw):
+    """An engine on the card with every slot decoding (prompts of 9-60
+    tokens) and its tick graph captured."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    eng = LLMEngine(model, num_slots=slots, block_size=16, max_prompt_len=64,
+                    max_seq_len=128, seed=0, **kw)
+    rs = np.random.RandomState(1)
+    for n in (9, 30, 50, 60)[:slots]:
+        eng.add_request(Request(rs.randint(0, 512, n), max_new_tokens=new))
+    while not (eng.active.all() and eng.stats["ticks"] >= 2):
+        eng.step()
+    return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["llama_bf16", "llama_fp32", "int8_pool",
+                                  "mistral_window", "dynamic_ntk", "mixtral"])
+def test_graph_tick_matches_the_eager_tick(case):
+    """The engine's decode tick on the card is a replay of the executor's
+    CUDA graph: from one cache state it gives the eager
+    ``llama_decode_tick``'s tokens, bit-identical log-probabilities and an
+    identical cache, over every path the tick runs (bf16 and fp32 Llama,
+    an int8 pool, Mistral's window, dynamic-NTK rope, Mixtral's routing
+    and grouped GEMM); at temperature 0.8 two replays draw different
+    noise and a replay from a restored generator state repeats the draw
+    (``chip_smoke.graph_against_eager``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import chip_smoke
+    model, kw = _graph_model(case)
+    eng = _decoding_engine(model, **kw)
+    res = chip_smoke.graph_against_eager(torch, eng)
+    assert res["tokens_equal"] and res["logp_bit_equal"], res
+    assert eng.exe.graph_pool_bytes > 0
+
+
+@pytest.mark.cuda
+def test_graph_replays_count_their_launches():
+    """The wrappers count launches in Python, which runs at capture only:
+    each replay adds the capture's counts, so five pure decode steps add
+    five ticks' launches and the capture itself adds none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch.ops import cuda as K
+    model, _ = _graph_model("llama_bf16")
+    layers = model.cfg.num_hidden_layers
+    eng = _decoding_engine(model)
+    per_tick = eng.exe._tick.launches
+    assert per_tick == {"rms_norm": 2 * layers + 1,
+                        "paged_decode": layers, "rope": 2 * layers}
+    K.reset_launches()
+    for _ in range(5):
+        eng.step()
+    counts = K.launches()
+    assert {k: v for k, v in counts.items() if v} == {
+        k: 5 * v for k, v in per_tick.items()}, counts
+
+
+@pytest.mark.cuda
+def test_graph_capture_failure_raises(monkeypatch):
+    """A tick that cannot be captured (here: a host read inside the rope
+    tables) raises out of the engine's constructor, which captures the
+    tick; there is no eager fallback. The eager tick still runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch.models import paged as P
+    from paddle_tpu_torch.serving import LLMEngine
+    model, _ = _graph_model("llama_fp32")
+    orig = P._rope_rows
+    reads = []
+
+    def host_read(positions, *a, **kw):
+        reads.append(float(positions.float().sum()))
+        return orig(positions, *a, **kw)
+    monkeypatch.setattr(P, "_rope_rows", host_read)
+    with pytest.raises(RuntimeError):
+        LLMEngine(model, num_slots=2, block_size=16, max_prompt_len=32,
+                  max_seq_len=64)
+    assert reads                    # the warm-up ran the tick eagerly
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,what", [
+    (dict(hidden_size=64, num_attention_heads=4, num_key_value_heads=4),
+     "head dim 16"),
+    (dict(hidden_size=2048, num_attention_heads=16, num_key_value_heads=1),
+     "GQA group 16")], ids=["d16", "group16"])
+def test_engine_refuses_kernel_refused_shapes_before_any_step(kw, what):
+    """``LLMEngine`` on the card refuses a head dim outside 64/128 or a GQA
+    group above 8 in its constructor, naming the shape and the ROADMAP
+    queue, before any pool, slot or block exists; the CPU engine serves
+    the same model."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import numpy as np
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    cfg = LlamaConfig.tiny(num_hidden_layers=1, vocab_size=512, **kw)
+    card = LlamaForCausalLM(cfg, device="cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with pytest.raises(NotImplementedError,
+                       match=f"{what}.*ROADMAP.md queue 2, Shapes the "
+                             f"kernels refuse"):
+        LLMEngine(card, num_slots=2, block_size=16, max_prompt_len=32,
+                  max_seq_len=64)
+    assert torch.cuda.memory_allocated() == before
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    eng = LLMEngine(cpu, num_slots=2, block_size=16, max_prompt_len=32,
+                    max_seq_len=64)
+    eng.add_request(Request(np.arange(1, 9), max_new_tokens=3))
+    eng.run()
+    eng.assert_quiescent()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_async_engine_on_card_matches_the_synchronous_engine(temperature):
+    """``async_depth=2`` on the card (the async tick's graph, its loop
+    state on the device) gives the synchronous engine's streams token for
+    token, greedy and sampled, with EOS; the pipeline really cruised, and
+    the generator after a fully masked async tick is where the
+    synchronous engine leaves it (a sampled request served afterwards
+    draws the same tokens)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import numpy as np
+
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    model, _ = _graph_model("llama_bf16")
+    rs = np.random.RandomState(2)
+    prompts = [rs.randint(0, 512, n) for n in (9, 30, 50, 17, 44, 5)]
+    later = rs.randint(0, 512, 12)
+    probe = LLMEngine(model, num_slots=3, block_size=16, max_prompt_len=64,
+                      max_seq_len=128)
+    rid = probe.add_request(Request(prompts[0], max_new_tokens=20))
+    probe.run()
+    eos = probe.requests[rid].tokens[6]
+
+    def serve(depth):
+        eng = LLMEngine(model, num_slots=3, block_size=16, max_prompt_len=64,
+                        max_seq_len=128, seed=3, eos_token_id=eos,
+                        temperature=temperature, async_depth=depth)
+        eng.exe.tick_log = []
+        ids = [eng.add_request(Request(p, max_new_tokens=20))
+               for p in prompts]
+        eng.run()
+        ids.append(eng.add_request(Request(later, max_new_tokens=20,
+                                           temperature=1.0)))
+        eng.run()
+        eng.assert_quiescent()
+        kinds = {k for k, *_ in eng.exe.tick_log}
+        return [eng.requests[i].tokens for i in ids], kinds
+
+    sync, kinds0 = serve(0)
+    got, kinds2 = serve(2)
+    assert got == sync
+    assert kinds0 == {"sync"} and "async" in kinds2

@@ -116,7 +116,8 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
     from paddle_tpu_torch.ops import cuda as K
     from paddle_tpu_torch.ops.cuda import _build
     assert chip_smoke.PATHS == {
-        "serve": K.SERVE_KERNELS, "train": K.TRAIN_KERNELS,
+        "serve": K.SERVE_KERNELS, "async_serve": K.SERVE_KERNELS,
+        "train": K.TRAIN_KERNELS,
         "moe_serve": K.MOE_SERVE_KERNELS, "moe_train": K.MOE_TRAIN_KERNELS,
         "window_serve": K.WINDOW_SERVE_KERNELS,
         "quant_serve": K.QUANT_SERVE_KERNELS,
