@@ -30,6 +30,11 @@ Phases (each one fails the run when it fails; nothing is caught):
             tolerance (timed eager and replayed from a CUDA graph); K2 at
             the banded timing script's shape (4 heads, S 4096, window 1024
             and full causal); K1, K2 and K4 at Mistral-7B's window shapes;
+            K6a at the multi-LoRA shapes (fp32: x [8 | 1024, 4096] x A
+            [cap, 4096, r] and t x B [cap, r, 12288 | 4096], r 4/8/16,
+            cap 4 and 1, an empty group and a null tail; the few-rows route
+            at decode, the FMA route at prefill) and K3 at the speculative
+            verify width (q [8, 5, 32, 128], bf16 / float32 / int8 pools);
             the int8-pool modes of K4 (serve and Mistral window shapes) and
             K3 (serve chunk shape) on int8 pools with fp32 scales, bf16 and
             float32 q, the same codes on both sides; K3 and K4 also in
@@ -84,6 +89,39 @@ Phases (each one fails the run when it fails; nothing is caught):
             replays counted) and the pipeline cruise (async replays and
             drained windows); tokens/s, TTFT and the windows drained by
             reason
+  lora_serve  the serve phase's model, geometry and 12-request mix with
+            multi-LoRA: ``AdapterStore(capacity=4, max_rank=16)`` holding
+            three adapters of ranks 4, 8 and 16 on qkv_proj and o_proj
+            (numpy seeds; B ~ N(0, 0.05^2) as the reference's test), nine
+            requests on them (three each), three on the base, the warm-up
+            on a fourth adapter; after the fourth step a fifth adapter is
+            registered and a request on it must evict the warm-up one
+            (LRU). Every request finishes, K1-K4, K7 and K6a launch (K6a's
+            launches by route); tokens/s, TTFT, the LoRA graph's replays,
+            wall against device ms a tick, uploads, hits and evictions,
+            graph pools. Then the same mix with PT_MULTILORA_IMPL=gather
+            (the dense per-row baseline): the grouped-to-gather ratio of
+            the LoRA tick's device time
+  lora_check  (a) each adapter's prompt logits at 7B bf16 through the
+            kernels and the plain versions against a float32 copy with
+            that adapter merged (``peft.lora_merge``), CHECK_REL; (b) at
+            Llama-2-7B's widths cut to 4 layers, float32: every stream of
+            the mixed batch equals a dedicated single-adapter engine's and
+            the base rows a storeless engine's, token for token; (c) the
+            LoRA graph's replay against the eager LoRA tick at 7B bf16
+            (``graph_against_eager``: bit-identical)
+  spec_serve  the serve mix on the 7B bf16 target with ``spec_k=4``,
+            adaptive: with the target as its own draft, then with
+            TinyLlama-1.1B's published widths (random weights, nearly every
+            proposal rejected, so the rewind runs), then that draft over an
+            int8 KV pool; tokens/s, acceptance rate, tokens a slot and
+            round, the draft's and the verify's ms a round, K3 launches
+            and fallbacks
+  spec_check  (a) at 4 layers, float32: greedy speculative streams with
+            both drafts (TinyLlama's widths cut to 4 layers too) equal the
+            non-speculative engine's token for token; (b) at 7B bf16 one
+            verify chunk's logits (5 a row) through the kernels and the
+            plain versions against float32, CHECK_REL
   train     the ``bench.py`` headline train step on the port (Llama 0.74B:
             hidden 2048, 12 layers, 16 heads, vocab 32000, bf16, no remat;
             AdamW with fp32 master weights, global-norm clip 1.0) at batch
@@ -183,6 +221,9 @@ Phases (each one fails the run when it fails; nothing is caught):
             replays timed with CUDA events against the step's wall. With
             ``async_serve`` too, the same for the decode tick of
             ``LLMEngine(async_depth=2)``
+  lora_anatomy  (only when asked for, after lora_serve) the same for the
+            multi-LoRA decode tick: 8 slots on the three adapters and the
+            base (the LoRA graph's kernels, K6a among them)
   moe_anatomy  (only when asked for) the same for the MoE model's decode
             tick (with ``moe_serve``) and train step (with ``moe_train``)
   quant_anatomy  (only when asked for) the same for the quantized model's
@@ -211,7 +252,8 @@ commit unpacked with ``git archive``), so that two trees can be compared
 under the same measurement in one call: parent, change, change, parent.
 
 The line before the last is a JSON object with one entry per kernel and
-path (``"path": "serve"``, ``"async_serve"``, ``"train"``, ``"moe_serve"``,
+path (``"path": "serve"``, ``"async_serve"``, ``"lora_serve"``,
+``"spec_serve"``, ``"train"``, ``"moe_serve"``,
 ``"moe_train"``,
 ``"window_serve"``, ``"quant_serve"``, ``"bloom_serve"``, ``"bloom_train"``,
 ``"falcon_rw_serve"``, ``"falcon_rw_train"`` or ``"falcon7b_serve"``): its
@@ -281,8 +323,8 @@ SOURCES = {
 # the kernels each path launches (every one must rise in that path's run):
 # ops.cuda's SERVE_KERNELS / TRAIN_KERNELS / MOE_SERVE_KERNELS /
 # MOE_TRAIN_KERNELS / WINDOW_SERVE_KERNELS / QUANT_SERVE_KERNELS /
-# ALIBI_SERVE_KERNELS / ALIBI_TRAIN_KERNELS / ROPE_GENERATE_KERNELS,
-# spelled out here so that --root
+# ALIBI_SERVE_KERNELS / ALIBI_TRAIN_KERNELS / ROPE_GENERATE_KERNELS /
+# LORA_SERVE_KERNELS / SPEC_SERVE_KERNELS, spelled out here so that --root
 # can load an earlier tree that lacks them (a kernel that such a tree does
 # not have is then left out of its checks)
 PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
@@ -304,7 +346,11 @@ PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
          "falcon_rw_serve": ("flash_fwd_alibi",),
          "falcon_rw_train": ("flash_fwd_alibi", "flash_bwd_dq_alibi",
                              "flash_bwd_dkv_alibi"),
-         "falcon7b_serve": ("flash_fwd", "rope")}
+         "falcon7b_serve": ("flash_fwd", "rope"),
+         "lora_serve": ("rms_norm", "flash_fwd", "paged_chunk",
+                        "paged_decode", "rope", "grouped_fwd"),
+         "spec_serve": ("rms_norm", "flash_fwd", "paged_chunk",
+                        "paged_decode", "rope")}
 # kernels of PATHS that the imported tree does not have (only with --root)
 ABSENT: set = set()
 # the train check: share of the fp32 gradients' RMS that each bf16 path
@@ -437,6 +483,13 @@ def bound(nbytes, flops, peak_flops=PEAK_BF16_FLOPS):
     fp32 rate for work that no tensor core can do)."""
     tb, tf = nbytes / PEAK_BYTES_S, flops / peak_flops
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def _port_has(module):
+    """Whether the imported tree has ``paddle_tpu_torch.<module>`` (an
+    earlier tree loaded with --root may not)."""
+    import importlib.util
+    return importlib.util.find_spec(f"paddle_tpu_torch.{module}") is not None
 
 
 def _missing(path, counts):
@@ -762,6 +815,16 @@ def phase_kernels(torch, dev):
         results[path]["rope"] = r
     # the async engine serves the serve mix: the same shapes
     results["async_serve"] = results["serve"]
+    # multi-LoRA and speculative serving run the serve mix too: K6a at the
+    # LoRA shapes, K3 at the verify width (the other kernels at the serve
+    # rows' shapes)
+    if _port_has("serving.adapters"):
+        results["lora_serve"] = {**results["serve"],
+                                 "grouped_fwd": lora_kernel_entries(torch,
+                                                                    dev)}
+        results["spec_serve"] = {**results["serve"],
+                                 "paged_chunk": verify_kernel_entries(
+                                     torch, dev)[0]}
     # the ALiBi families: K2, K5a and K5b in their ALiBi mode
     if "flash_fwd_alibi" not in ABSENT:
         results.update(alibi_kernel_entries(torch, dev))
@@ -1998,6 +2061,153 @@ def int8_kernel_entries(torch, dev):
     return out
 
 
+def _lora_k6_case(torch, GM, g, m, cap, sizes, k, n, label):
+    """One K6a launch at a multi-LoRA shape (fp32, the store's type)
+    against grouped_matmul_plain: rows past sum(sizes) — the null-adapter
+    tail, which the caller masks — are left out of the comparison. The
+    route is the one ``fwd_route`` names from the static shapes; the
+    wrapper's own count must show that kernel launched once."""
+    dev = g.device
+    lhs = torch.randn(m, k, generator=g, device=dev)
+    rhs = torch.randn(cap, k, n, generator=g, device=dev) * k ** -0.5
+    sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    live = torch.arange(m, device=dev) < sum(sizes)
+    before = dict(GM.grouped_matmul.route_launches)
+    out = GM.grouped_matmul(lhs, rhs, sz)
+    route = GM.fwd_route(m, cap, k, n, torch.float32)
+    ran = {r: c - before[r] for r, c in GM.grouped_matmul.route_launches.items()
+           if c != before[r]}
+    if ran != {route: 1}:
+        raise AssertionError(f"grouped_fwd {label}: launches by route {ran}, "
+                             f"fwd_route names {route}")
+    err = _agree(f"grouped_fwd lora {label} (m {m}, cap {cap}, k {k}, "
+                 f"n {n}, sizes {sizes}; {route} route)", "f32",
+                 _max_err(out, GM.grouped_matmul_plain(lhs, rhs, sz), live))
+    return lhs, rhs, sz, route, err
+
+
+def lora_kernel_entries(torch, dev):
+    """K6a at the shapes multi-LoRA serving gives it on Llama-2-7B: the
+    rank-r correction runs in fp32 (the store's stacks), first ``x [m,
+    4096] x A [cap, 4096, r]`` (n = r), then ``t [m, r] x B [cap, r, 12288
+    or 4096]`` (k = r). At decode (m = 8 rows, one token a slot) that is
+    the few-rows route, at r 4, 8 and 16 and caps 4 and 1; at prefill (m =
+    8 x 128) the fp32 FMA route. The groups include an empty one and leave
+    a null-adapter tail past their total (masked by the caller, left out
+    here); n = 6 (no whole 16-byte load) is routed to the FMA kernel from
+    the static shapes. Each launch against the plain version in fp32; the
+    decode and prefill A and B-qkv launches at r 16 (the store's max_rank
+    in lora_serve) timed eager and from a CUDA graph. Returns the
+    lora_serve path's grouped_fwd entry (decode, A: the slower of the
+    two decode products)."""
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as GM
+    g = torch.Generator(device=dev).manual_seed(77)
+    h, nqkv = 4096, 3 * 4096
+    dec4, dec1 = [3, 0, 2, 1], [6]          # 8 rows: tails of 2 rows
+    pre4, pre1 = [256, 0, 384, 128], [896]  # 1024 rows: tails of 256, 128
+    timed = {}
+    for cap, sizes in ((4, dec4), (1, dec1)):
+        for r in (4, 8, 16):
+            for name, k, n in (("A", h, r), ("B qkv", r, nqkv),
+                               ("B o", r, h)):
+                case = _lora_k6_case(torch, GM, g, 8, cap, sizes, k, n,
+                                     f"decode {name} r{r}")
+                if case[3] != "rows":
+                    raise AssertionError(f"decode {name} r{r}: {case[3]}")
+                if cap == 4 and r == 16 and name != "B o":
+                    timed[f"decode {name}"] = case
+    for cap, sizes in ((4, pre4), (1, pre1)):
+        for name, k, n in (("A", h, 16), ("B qkv", 16, nqkv)):
+            case = _lora_k6_case(torch, GM, g, 1024, cap, sizes, k, n,
+                                 f"prefill {name} r16")
+            if case[3] != "fma":
+                raise AssertionError(f"prefill {name}: {case[3]}")
+            if cap == 4:
+                timed[f"prefill {name}"] = case
+    if _lora_k6_case(torch, GM, g, 8, 4, dec4, h, 6, "decode A n6")[3] != \
+            "fma":
+        raise AssertionError("n = 6 must be routed to the FMA kernel")
+    out = {}
+    for label, (lhs, rhs, sz, route, err) in timed.items():
+        m, k = lhs.shape
+        cap, _, n = rhs.shape
+        rows = int(sz.sum())
+        live = int((sz > 0).sum())
+        b_ms, b_by = bound((rows * k + rows * n + live * k * n) * 4 + 4 * cap,
+                           2 * rows * k * n, PEAK_FP32_FLOPS)
+        r = dict(max_abs_err=err, variant=route,
+                 ms=time_ms(lambda: GM.grouped_matmul(lhs, rhs, sz)),
+                 graph_ms=graph_ms(lambda: GM.grouped_matmul(lhs, rhs, sz)),
+                 plain_ms=time_ms(lambda: GM.grouped_matmul_plain(lhs, rhs,
+                                                                  sz),
+                                  iters=10),
+                 library_ms=_library_grouped_mm(torch, lhs, rhs, sz),
+                 bound_ms=b_ms, bound_by=b_by,
+                 shape=f"lora {label}: lhs [{m}, {k}] x rhs [{cap}, {k}, "
+                       f"{n}] f32, {rows} live rows in {live} of {cap} "
+                       f"groups")
+        _log_entry(f"lora_serve grouped_fwd ({label})", r)
+        out[label] = r
+    return out["decode A"]
+
+
+def verify_kernel_entries(torch, dev):
+    """K3 at the speculative verify width on Llama-2-7B: 8 rows of at most
+    spec_k + 1 = 5 queries, q [8, 5, 32, 128], at offsets whose chunk
+    crosses a 16-token block boundary, over the serve cases' bf16 pool
+    (q, pool in float32 too) and the same pool quantized to int8 with
+    fp32 scales, each against its plain version; times eager and from a
+    CUDA graph. Returns (the spec_serve path's paged_chunk entry, the int8
+    entry)."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as PA
+    c = kernel_cases(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(55)
+    kp, vp, tb = c["paged_chunk"]["kp"], c["paged_chunk"]["vp"], \
+        c["paged_chunk"]["tables"]
+    offs = torch.tensor([15, 31, 47, 100, 127, 200, 300, 406],
+                        dtype=torch.int32, device=dev)
+    cls = torch.tensor([5, 5, 5, 5, 3, 5, 2, 5], dtype=torch.int32,
+                       device=dev)
+    q32 = torch.randn(8, 5, 32, 128, generator=g, device=dev)
+    a, cc, nh, d = q32.shape
+    live = torch.arange(cc, device=dev)[None, :] < cls[:, None]
+    keys = sum(int(offs[i]) * int(cls[i]) + int(cls[i]) * (int(cls[i]) + 1)
+               // 2 for i in range(a))
+    for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, kc, vc = q32.to(dt), kp.to(dt), vp.to(dt)
+        err = _agree("paged_chunk verify", dtype, _max_err(
+            PA.paged_chunk_attention(q, kc, vc, tb, offs, cls),
+            PA.paged_chunk_attention_plain(q, kc, vc, tb, offs, cls), live))
+    nbytes = (2 * int(cls.sum()) * nh * d * 2
+              + 2 * int((offs + cls).sum()) * nh * d * 2 + tb.numel() * 4)
+    b_ms, b_by = bound(nbytes, 4 * d * nh * keys)
+    bf16 = dict(
+        max_abs_err=err, variant=_k3_variant(PA, q),
+        ms=time_ms(lambda: PA.paged_chunk_attention(q, kc, vc, tb, offs,
+                                                    cls)),
+        graph_ms=graph_ms(lambda: PA.paged_chunk_attention(q, kc, vc, tb,
+                                                           offs, cls)),
+        plain_ms=time_ms(lambda: PA.paged_chunk_attention_plain(
+            q, kc, vc, tb, offs, cls)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        shape=f"verify q [{a}, {cc}, {nh}, {d}] bf16, pool "
+              f"{list(kp.shape)}, offsets {offs.tolist()}, chunk lens "
+              f"{cls.tolist()}")
+    _log_entry("spec_serve paged_chunk (verify)", bf16)
+    kq, ks = _quantize_pool(torch, kp)
+    vq, vs = _quantize_pool(torch, vp)
+    i8 = _int8_case(
+        torch, "paged_chunk verify", PA.paged_chunk_attention,
+        PA.paged_chunk_attention_plain, q32, (kq, vq, tb, offs, cls),
+        dict(k_scale=ks, v_scale=vs), live,
+        2 * int(cls.sum()) * nh * d * 2
+        + 2 * int((offs + cls).sum()) * nh * (d + 4) + tb.numel() * 4,
+        4 * d * nh * keys,
+        f"verify q [{a}, {cc}, {nh}, {d}] bf16, int8 pool {list(kq.shape)} "
+        f"+ fp32 scales")
+    return bf16, i8
+
+
 # ------------------------------------------------------------------ serve
 def serve_requests(rs, vocab=32000):
     """The 12-request mix: 6 short prompts (whole-prompt prefill), 2 long
@@ -2057,17 +2267,26 @@ def _drains_now():
 
 
 def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None,
-                async_depth=0):
+                async_depth=0, label=None, engine_kw=None, adapter_ids=None,
+                warm_adapter=None, late=None):
     """Serve the 12-request mix with ``model`` through ``LLMEngine`` (an
     int8 KV pool with ``kv_dtype="int8"``, async pipelined decode with
-    ``async_depth``); every kernel of ``PATHS[path]`` must be launched.
-    Returns (launch counts, the requests, {metric: value})."""
+    ``async_depth``, further engine arguments in ``engine_kw``: an adapter
+    store, a draft model); every kernel of ``PATHS[path]`` must be
+    launched. ``adapter_ids``: one LoRA adapter id (or None) per request
+    of the mix; ``warm_adapter``: the warm-up requests' adapter; ``late``:
+    called with the engine after its fourth step, returns requests it
+    submitted (served and checked with the mix). ``label`` names the run
+    in the log (default ``path``). Returns (launch counts, the requests,
+    {metric: value})."""
     from paddle_tpu_torch.ops import cuda as K
     from paddle_tpu_torch.serving import LLMEngine, Request
     from paddle_tpu_torch.serving.kv import cache_block_bytes
+    label = label or path
     vocab = model.cfg.vocab_size
     kw = dict(num_slots=8, block_size=16, max_prompt_len=128,
-              max_seq_len=512, num_blocks=256, seed=0, device=dev)
+              max_seq_len=512, num_blocks=256, seed=0, device=dev,
+              **(engine_kw or {}))
     if kv_dtype is not None:
         kw["kv_dtype"] = kv_dtype
     if async_depth:
@@ -2078,13 +2297,15 @@ def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None,
     rs = np.random.RandomState(1)
     for n in (40, 200):
         warm.add_request(Request(rs.randint(3, vocab, size=n),
-                                 max_new_tokens=4))
+                                 max_new_tokens=4, adapter_id=warm_adapter))
     warm.run()
     del warm
     eng = LLMEngine(model, **kw)
     if hasattr(eng.exe, "tick_log"):
         eng.exe.tick_log = []
     reqs = serve_requests(np.random.RandomState(0), vocab)
+    for r, aid in zip(reqs, adapter_ids or ()):
+        r.adapter_id = aid
     drains0 = _drains_now()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2092,10 +2313,16 @@ def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None,
     t0 = time.monotonic()
     for r in reqs:
         eng.add_request(r)
-    eng.run()
+    steps = 0
+    while eng.has_work():
+        eng.step()
+        steps += 1
+        if late is not None and steps == 4:
+            reqs = reqs + list(late(eng))
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = K.launches()
+    routes = K.route_launches() if hasattr(K, "route_launches") else {}
     hits = eng.mgr.cache_stats.get("token_hits", 0)
     for r in reqs:
         if not r.done or r.finish_reason not in ("length", "eos"):
@@ -2116,26 +2343,30 @@ def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None,
         kv_bytes_token=cache_block_bytes(eng.cache) / eng.block_size,
         weight_bytes=sum(t.numel() * t.element_size()
                          for t in (*model.parameters(), *model.buffers())),
-        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        routes=routes, engine=dict(eng.stats),
+        pool_mib=getattr(eng.exe, "graph_pool_bytes", 0) / 2**20)
     card = card_line()
-    log(f"[{path}] {len(reqs)} requests, {ntok} tokens in {wall:.3f} s: "
+    log(f"[{label}] {len(reqs)} requests, {ntok} tokens in {wall:.3f} s: "
         f"{stats['tokens_s']:.1f} tokens/s, {eng.stats['ticks']} decode "
         f"ticks ({card})")
-    log(f"[{path}] mean TTFT {stats['ttft_mean_ms']:.1f} ms, "
+    log(f"[{label}] mean TTFT {stats['ttft_mean_ms']:.1f} ms, "
         f"max {stats['ttft_max_ms']:.1f} ms ({card})")
-    log(f"[{path}] peak allocated {stats['peak_gib']:.2f} GiB ({card}); "
+    log(f"[{label}] peak allocated {stats['peak_gib']:.2f} GiB ({card}); "
         f"KV {stats['kv_bytes_token']:.0f} bytes/token, weights "
         f"{stats['weight_bytes'] / 2**30:.2f} GiB; prefix token hits "
         f"{hits}; launches {counts}")
-    _log_ticks(torch, path, eng.exe, card)
+    _log_ticks(torch, label, eng.exe, card)
     stats["ticks"] = _tick_stats(torch, eng.exe)
     if async_depth:
         drains = _drains_now()
         stats["drains"] = {k: v - drains0.get(k, 0) for k, v in drains.items()
                            if v != drains0.get(k, 0)}
-        log(f"[{path}] async_depth {async_depth}: windows drained by reason "
+        log(f"[{label}] async_depth {async_depth}: windows drained by reason "
             f"{stats['drains']}, rows run for torn-down slots "
             f"{eng.stats['async_overrun']}")
+    del eng
+    torch.cuda.empty_cache()
     return counts, reqs, stats
 
 
@@ -2144,7 +2375,7 @@ def _cache_tensors(cache):
             *cache.v_scale_store, cache.block_tables, cache.lens]
 
 
-def graph_against_eager(torch, eng):
+def graph_against_eager(torch, eng, lora=None):
     """On an engine whose slots are decoding (its tick graph captured),
     from one cache state (copied, and put back in place between runs):
     one replay of the graph and one eager ``llama_decode_tick``, greedy,
@@ -2153,7 +2384,9 @@ def graph_against_eager(torch, eng):
     identical caches after the tick; at temperature 0.8 two replays draw
     different tokens, a replay from the generator's first state repeats
     the first draw, and the eager tick from that state draws it too.
-    Raises on any difference; returns {check: reading}."""
+    ``lora``: the engine's host description of a multi-LoRA batch (the
+    executor then replays its LoRA graph, the eager tick takes the same
+    batch). Raises on any difference; returns {check: reading}."""
     import numpy as np
     from paddle_tpu_torch.models import paged as P
     exe = eng.exe
@@ -2170,16 +2403,18 @@ def graph_against_eager(torch, eng):
     greedy, hot, top1 = (np.zeros(b, np.float32), np.full(b, 0.8, np.float32),
                          np.ones(b, np.float32))
     s0 = exe.gen.get_state()
+    lk = {} if lora is None else {"lora": lora}
 
     def eager(temps):
         restore()
         exe.gen.set_state(s0)
         nxt, logp, _ = P.llama_decode_tick(
             eng.model, tok, exe.cache, mask, *none, exe.gen, temps, top1,
-            exe.top_k, want_logp=True)
+            exe.top_k, want_logp=True,
+            **({} if lora is None else {"lora": exe._lora(lora)}))
         return nxt.cpu().numpy(), logp
 
-    g_tok = exe.decode_tick(tok, mask, *none, greedy, top1)
+    g_tok = exe.decode_tick(tok, mask, *none, greedy, top1, **lk)
     g_logp = torch.log_softmax(exe.tick_logits, dim=-1)
     g_cache = [t.clone() for t in live]
     e_tok, e_logp = eager(greedy)
@@ -2195,7 +2430,7 @@ def graph_against_eager(torch, eng):
         restore()
         if state is not None:
             exe.gen.set_state(state)
-        draws.append(exe.decode_tick(tok, mask, *none, hot, top1))
+        draws.append(exe.decode_tick(tok, mask, *none, hot, top1, **lk))
     e_hot, _ = eager(hot)
     restore()
     exe.gen.set_state(s0)
@@ -3071,24 +3306,27 @@ def _anatomy(torch, label, unit, run, n):
 
 
 def phase_anatomy(torch, dev, model, np, label="decode tick",
-                  kv_dtype=None, async_depth=0):
+                  kv_dtype=None, async_depth=0, engine_kw=None,
+                  adapter_ids=None):
     """Decode-tick anatomy (diagnostics, not in the default phases): 8
     active slots in steady decode, 16 ticks per run (six runs: every
     slot stays active through them); ``kv_dtype="int8"`` over an int8
     pool; ``async_depth``: the pipelined engine (every slot crosses a
     block boundary on the same tick, one step in 16, which drains the
-    window)."""
+    window); ``engine_kw``: further engine arguments (an adapter store),
+    ``adapter_ids``: each slot's adapter."""
     from paddle_tpu_torch.serving import LLMEngine, Request
     extra = {} if kv_dtype is None else {"kv_dtype": kv_dtype}
     if async_depth:
         extra["async_depth"] = async_depth
     eng = LLMEngine(model, num_slots=8, block_size=16, max_prompt_len=128,
                     max_seq_len=512, num_blocks=256, seed=0, device=dev,
-                    **extra)
+                    **extra, **(engine_kw or {}))
     rs = np.random.RandomState(2)
-    for _ in range(8):
+    for i in range(8):
         eng.add_request(Request(rs.randint(3, model.cfg.vocab_size, size=100),
-                                max_new_tokens=128))
+                                max_new_tokens=128,
+                                adapter_id=(adapter_ids or [None] * 8)[i]))
     for _ in range(4):                     # admission + first decode ticks
         eng.step()
 
@@ -3110,12 +3348,418 @@ def phase_anatomy(torch, dev, model, np, label="decode tick",
                 f"{100 * max(0.0, 1 - dev_ms / wall):.1f}% of the step wall; "
                 f"graph pools {eng.exe.graph_pool_bytes / 2**20:.1f} MiB "
                 f"({card_line()})")
+    for rid in list(eng.requests):
+        eng.cancel(rid)
+
+
+# ------------------------------------------- multi-LoRA and speculation
+# lora_serve: three adapters of ranks 4, 8 and 16 on qkv_proj and o_proj
+# (A ~ N(0, 1/in), B ~ N(0, 0.05^2) as the reference's test, alpha 2r), a
+# store of capacity 4 padded to rank 16; requests i of the mix carry
+# LORA_MIX[i % 4] (three each, three on the base)
+LORA_RANKS = (4, 8, 16)
+LORA_MIX = ("r4", "r8", "r16", None)
+# the fp32 checks at reduced depth: Llama-2-7B's widths cut to 4 layers
+CHECK_LAYERS = 4
+
+
+def lora_sd(model, np, seed, r):
+    """A visible adapter state dict (the reference's keys) for ``model``'s
+    qkv and o projections, made with numpy from ``seed``."""
+    from paddle_tpu_torch import peft
+    rs = np.random.RandomState(seed)
+    params = dict(model.named_parameters())
+    sd = {}
+    for name in peft.lora_targets(model, ("qkv_proj", "o_proj")):
+        k, n = params[name].shape
+        sd[name + ".lora_A"] = (rs.randn(k, r) / np.sqrt(k)).astype(
+            np.float32)
+        sd[name + ".lora_B"] = (rs.randn(r, n) * 0.05).astype(np.float32)
+    sd["_scale"] = np.asarray(2.0, np.float32)
+    return sd
+
+
+def build_store(model, np, seed=100):
+    """``AdapterStore(capacity=4, max_rank=16)`` over ``model`` holding
+    the three adapters of LORA_RANKS; returns (store, {id: state dict})."""
+    from paddle_tpu_torch.serving.adapters import AdapterStore
+    store = AdapterStore(model, capacity=4, max_rank=16)
+    sds = {f"r{r}": lora_sd(model, np, seed + i, r)
+           for i, r in enumerate(LORA_RANKS)}
+    for aid, sd in sds.items():
+        store.register(aid, sd)
+    return store, sds
+
+
+def _adapter_counts():
+    from paddle_tpu_torch.observability import METRICS
+    out = {}
+    for name in ("uploads", "evictions", "cache_hits", "cache_misses",
+                 "admit_deferrals"):
+        c = METRICS.get(f"serving_adapter_{name}_total")
+        out[name] = 0 if c is None else c.value()
+    return out
+
+
+def phase_lora_serve(torch, dev, model, np, serve_stats):
+    """The serve mix on Llama-2-7B with multi-LoRA: nine requests on three
+    adapters (ranks 4, 8, 16), three on the base, the warm-up on a fourth
+    adapter; after the fourth step a fifth adapter is registered and a
+    request on it submitted, which must evict the warm-up adapter (LRU).
+    Then the same mix with ``PT_MULTILORA_IMPL=gather`` (the dense per-row
+    baseline, in a new engine: its LoRA graph captures the gather). Every
+    request finishes, the serve kernels and (grouped) K6a launch; the
+    LoRA graph's device time a tick of the two is compared. Returns (the
+    grouped run's launch counts, the store, the adapters' state dicts,
+    the requests)."""
+    from paddle_tpu_torch.serving import Request
+    store, sds = build_store(model, np)
+    store.register("warm", lora_sd(model, np, 99, 8))
+    vocab = model.cfg.vocab_size
+    ids = [LORA_MIX[i % 4] for i in range(12)]
+
+    def late(eng):
+        store.register("late", lora_sd(model, np, 98, 8))
+        r = Request(np.random.RandomState(5).randint(3, vocab, size=60),
+                    max_new_tokens=32, adapter_id="late")
+        eng.add_request(r)
+        return [r]
+
+    runs = {}
+    for impl in ("grouped", "gather"):
+        os.environ["PT_MULTILORA_IMPL"] = impl
+        try:
+            a0 = _adapter_counts()
+            counts, reqs, st = phase_serve(
+                torch, dev, model, np, "lora_serve" if impl == "grouped"
+                else "serve", label=f"lora_serve {impl}",
+                engine_kw=dict(adapter_store=store), adapter_ids=ids,
+                warm_adapter="warm", late=late)
+            st["adapters"] = {k: v - a0[k] for k, v in
+                              _adapter_counts().items()}
+        finally:
+            os.environ.pop("PT_MULTILORA_IMPL")
+        runs[impl] = (counts, reqs, st)
+        card = card_line()
+        lt = st["ticks"].get("lora")
+        log(f"[lora_serve {impl}] decode step: "
+            + (f"{lt[0]} LoRA graph replays, wall {lt[1]:.3f} ms/tick "
+               f"against {lt[2]:.3f} ms of device time (idle "
+               f"{100 * (1 - lt[2] / lt[1]):.1f}%)" if lt else "none")
+            + f"; K6a launches by route {st['routes'].get('grouped_fwd')}; "
+            f"adapter uploads/hits/misses/evictions/deferrals "
+            f"{st['adapters']}; graph pools {st['pool_mib']:.1f} MiB; "
+            f"{st['tokens_s']:.1f} tokens/s against serve's "
+            f"{serve_stats['tokens_s']:.1f} ({card})")
+        if not st["adapters"]["evictions"] >= 1:
+            raise AssertionError(f"lora_serve {impl}: the late adapter "
+                                 f"evicted nothing: {st['adapters']}")
+        if impl == "gather" and counts.get("grouped_fwd", 0):
+            raise AssertionError("the gather baseline launched K6a")
+    store.assert_quiescent()
+    g, d = runs["grouped"][2]["ticks"]["lora"], \
+        runs["gather"][2]["ticks"]["lora"]
+    same = sum(a.tokens == b.tokens for a, b in zip(runs["grouped"][1],
+                                                    runs["gather"][1]))
+    log(f"[lora_serve] grouped / gather LoRA graph device time a tick: "
+        f"{g[2]:.3f} / {d[2]:.3f} ms = {g[2] / d[2]:.3f}; tokens/s "
+        f"{runs['grouped'][2]['tokens_s']:.1f} / "
+        f"{runs['gather'][2]['tokens_s']:.1f}; streams equal {same} of "
+        f"{len(runs['grouped'][1])} (report: fp32 sums in another order, "
+        f"cast to bf16) ({card_line()})")
+    return runs["grouped"][0], store, sds, runs["grouped"][1]
+
+
+def _lora_batch(store, aid, rows, width):
+    """The engine's host description of ``rows`` rows all on adapter
+    ``aid`` (pinned by the caller), ``width`` tokens a row."""
+    import numpy as np
+    idx = store.index_of(aid)
+    gs = np.zeros(store.capacity, np.int32)
+    gs[idx] = rows * width
+    ar = np.arange(rows, dtype=np.int32)
+    return {"perm": ar, "inv": ar, "gs": gs,
+            "aidx": np.full(rows, idx, np.int32)}
+
+
+def _prefill_logits(torch, model, prompts, lora=None, store=None):
+    """Last-position prefill logits [rows, V] of ``prompts`` (flash) into
+    a fresh pool, with the multi-LoRA batch ``lora`` over ``store``'s
+    stacks."""
+    import numpy as np
+    from paddle_tpu_torch.models import paged as P
+    cfg, dev = model.cfg, model.device
+    bs, mb = 16, 8
+    b = len(prompts)
+    cache = P.PagedKVCache.init(cfg.num_hidden_layers, b * mb, bs,
+                                cfg.num_key_value_heads,
+                                cfg.hidden_size // cfg.num_attention_heads,
+                                b, mb, cfg.dtype, device=dev)
+    ids = np.zeros((b, 128), np.int64)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = p
+    lk = None if lora is None else {
+        **store.stacks(), **{k: torch.as_tensor(v, device=dev)
+                             for k, v in lora.items()}}
+    last, _ = P.llama_prefill_paged(
+        model, torch.as_tensor(ids, device=dev),
+        np.array([len(p) for p in prompts], np.int32), cache,
+        np.arange(b, dtype=np.int32),
+        np.arange(b * mb, dtype=np.int32).reshape(b, mb), lora=lk)
+    return last.float()
+
+
+def phase_lora_check(torch, dev, model, np, store, sds, reqs, m32):
+    """Multi-LoRA correctness, in three parts.
+    (a) Llama-2-7B bf16: each adapter's prompt logits (the six short
+    prompts of the mix, every row on that adapter) through the kernels and
+    through the plain versions, against the float32 copy ``m32`` with
+    that adapter merged (``peft.lora_merge``), under the check's rule
+    (limit CHECK_REL).
+    (b) Llama-2-7B's widths cut to CHECK_LAYERS layers (the only cut), in
+    float32: the mixed batch's every greedy stream equals a dedicated
+    single-adapter engine's stream token for token, and the base rows
+    equal a storeless engine's.
+    (c) the LoRA graph's replay against the eager LoRA tick at 7B bf16 (8
+    slots decoding, rows on the three adapters and the base):
+    ``graph_against_eager``."""
+    from paddle_tpu_torch import peft
+    from paddle_tpu_torch.core.random import generator
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    prompts = [list(r.prompt) for r in reqs[:6]]
+    names, got, ref, ref32 = [], [], [], []
+    with torch.no_grad():
+        for aid, sd in sds.items():
+            r = int(aid[1:])
+            store.acquire(aid)
+            lora = _lora_batch(store, aid, len(prompts), 128)
+            got.append(_prefill_logits(torch, model, prompts, lora, store))
+            with plain_kernels():
+                ref.append(_prefill_logits(torch, model, prompts, lora,
+                                           store))
+                tree = peft.lora_load_state_dict(peft.lora_init(
+                    m32, generator(0, dev), r=r, alpha=2 * r,
+                    target_modules=("qkv_proj", "o_proj")), sd)
+                merged = peft.lora_merge(m32, tree)
+                ref32.append(_prefill_logits(torch, merged, prompts))
+                del merged, tree
+            store.release(aid)
+            names.append(f"{aid} prefill")
+    torch.cuda.empty_cache()
+    _hold_logits("lora_check 7B bf16", names, got, ref, ref32, CHECK_REL)
+    del got, ref, ref32
+    # (b) reduced depth, fp32: mixed batch against dedicated engines
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    m4 = LlamaForCausalLM(LlamaConfig.llama2_7b(
+        num_hidden_layers=CHECK_LAYERS, dtype=torch.float32), device=dev,
+        seed=0)
+    store4, _ = build_store(m4, np)
+    kw = dict(num_slots=8, block_size=16, max_prompt_len=128,
+              max_seq_len=512, num_blocks=256, device=dev)
+    mix = [(list(r.prompt), LORA_MIX[i % 4]) for i, r in
+           enumerate(reqs[:8])]
+
+    def serve(with_store, pick):
+        eng = LLMEngine(m4, adapter_store=store4 if with_store else None,
+                        **kw)
+        rids = {i: eng.add_request(Request(p, max_new_tokens=16,
+                                           adapter_id=a))
+                for i, (p, a) in enumerate(mix) if pick(a)}
+        eng.run()
+        eng.assert_quiescent()
+        return {i: eng.requests[rid].tokens for i, rid in rids.items()}
+
+    mixed = serve(True, lambda a: True)
+    want = serve(False, lambda a: a is None)
+    for aid in sds:
+        want.update(serve(True, lambda a, aid=aid: a == aid))
+    bad = [i for i in mixed if mixed[i] != want[i]]
+    log(f"[lora_check] {CHECK_LAYERS}-layer fp32: {len(mixed)} mixed "
+        f"streams ({sum(a is not None for _, a in mix)} on adapters) equal "
+        f"to dedicated engines' token for token: {not bad} ({card_line()})")
+    if bad:
+        raise AssertionError(f"lora_check: mixed streams {bad} differ from "
+                             f"their dedicated engines'")
+    store4.assert_quiescent()
+    del m4, store4
+    torch.cuda.empty_cache()
+    # (c) the LoRA graph against the eager LoRA tick, 7B bf16
+    eng = LLMEngine(model, adapter_store=store, seed=0, **kw)
+    rs = np.random.RandomState(3)
+    for i, n in enumerate(rs.randint(20, 120, 8)):
+        eng.add_request(Request(rs.randint(3, model.cfg.vocab_size,
+                                           size=int(n)), max_new_tokens=64,
+                                adapter_id=LORA_MIX[i % 4]))
+    while not (eng.active.all() and eng.stats["ticks"] >= 2):
+        eng.step()
+    res = graph_against_eager(
+        torch, eng, lora=eng._lora_arg(np.where(eng.active, eng.slot_aidx,
+                                                -1), 1))
+    log(f"[lora_check] LoRA graph vs eager LoRA tick, 7B bf16: {res}; "
+        f"graph pools {eng.exe.graph_pool_bytes / 2**20:.1f} MiB "
+        f"({card_line()})")
+    for rid in list(eng.requests):
+        eng.cancel(rid)
+    eng.assert_quiescent()
+    del eng
+    torch.cuda.empty_cache()
+
+
+def tinyllama_config(torch, layers=22, dtype=None):
+    """``TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T``'s published
+    ``config.json``: 22 layers, hidden 2048, intermediate 5632, 32 heads
+    over 4 KV heads, vocab 32000, rope theta 10000, RMS eps 1e-5 (random
+    weights here: a draft that nearly never agrees with the target)."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig(vocab_size=32000, hidden_size=2048,
+                       intermediate_size=5632, num_hidden_layers=layers,
+                       num_attention_heads=32, num_key_value_heads=4,
+                       max_position_embeddings=2048, rms_norm_eps=1e-5,
+                       rope_theta=10000.0, dtype=dtype or torch.bfloat16,
+                       remat=False)
+
+
+def _spec_tokens():
+    from paddle_tpu_torch.serving.telemetry import _SPEC_TOKENS
+    v = _SPEC_TOKENS.value()
+    return v["sum"], v["count"]
+
+
+def phase_spec_serve(torch, dev, model, np, serve_stats):
+    """The serve mix on the Llama-2-7B bf16 target with ``spec_k=4``,
+    adaptive, twice: the draft is the target itself (nearly every proposal
+    accepted), then TinyLlama-1.1B's widths with random weights (nearly
+    every proposal rejected: the rewind runs); then the TinyLlama run over
+    an int8 KV pool (K3 and K4 in their int8 mode). The mix's greedy and
+    temperature 0.8 rows all speculate. For each: tokens/s, the acceptance
+    rate, tokens committed a slot and round, the draft's and the verify's
+    wall ms a round, K3 launches and fallbacks. Returns the first run's
+    launch counts."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    tiny = LlamaForCausalLM(tinyllama_config(torch), device=dev, seed=7)
+    out = None
+    for label, draft, kv, path in (
+            ("spec_serve self-draft", model, None, "spec_serve"),
+            ("spec_serve tinyllama draft", tiny, None, "spec_serve"),
+            ("spec_serve tinyllama draft, int8 pool", tiny, "int8",
+             "quant_serve")):
+        t0 = _spec_tokens()
+        counts, reqs, st = phase_serve(
+            torch, dev, model, np, path, kv_dtype=kv, label=label,
+            engine_kw=dict(draft_model=draft, spec_k=4, spec_adaptive=True))
+        t1 = _spec_tokens()
+        e = st["engine"]
+        n = max(e["spec_ticks"], 1)
+        rate = e["spec_accepted"] / max(e["spec_proposed"], 1)
+        k3 = counts["paged_chunk_i8" if kv else "paged_chunk"]
+        log(f"[{label}] {st['tokens_s']:.1f} tokens/s (serve "
+            f"{serve_stats['tokens_s']:.1f}); acceptance "
+            f"{e['spec_accepted']} / {e['spec_proposed']} = {rate:.3f}; "
+            f"{(t1[0] - t0[0]) / max(t1[1] - t0[1], 1):.3f} tokens a slot "
+            f"and round over {e['spec_ticks']} rounds; draft "
+            f"{1e3 * e['spec_draft_s'] / n:.2f} ms, verify "
+            f"{1e3 * e['spec_verify_s'] / n:.2f} ms a round (wall); K3 "
+            f"launches {k3}, fallbacks {e['spec_fallbacks']} ({card_line()})")
+        if not e["spec_ticks"] or e["spec_fallbacks"]:
+            raise AssertionError(f"{label}: {e}")
+        if draft is model and rate < 0.5:
+            raise AssertionError(f"{label}: the target as its own draft "
+                                 f"accepted only {rate:.3f}")
+        if out is None:
+            out = counts
+    del tiny
+    torch.cuda.empty_cache()
+    return out
+
+
+def _verify_logits(torch, model, prompts, chunk):
+    """Prefill ``prompts``, then one verify chunk of ``chunk`` [rows, 5]
+    tokens at each prompt's end (crossing a block boundary where the
+    prompt ends near one): the verify's logits [rows, 5, V]."""
+    import numpy as np
+    from paddle_tpu_torch.models import paged as P
+    cfg, dev = model.cfg, model.device
+    b, mb = len(prompts), 10
+    cache = P.PagedKVCache.init(cfg.num_hidden_layers, b * mb, 16,
+                                cfg.num_key_value_heads,
+                                cfg.hidden_size // cfg.num_attention_heads,
+                                b, mb, cfg.dtype, device=dev)
+    ids = np.zeros((b, 128), np.int64)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = p
+    lens = np.array([len(p) for p in prompts], np.int32)
+    tables = np.arange(b * mb, dtype=np.int32).reshape(b, mb)
+    slots = np.arange(b, dtype=np.int32)
+    P.llama_prefill_paged(model, torch.as_tensor(ids, device=dev), lens,
+                          cache, slots, tables)
+    logits, _ = P.llama_verify_chunk_paged(
+        model, torch.as_tensor(chunk, device=dev),
+        np.full(b, chunk.shape[1], np.int32), lens, cache, slots, tables)
+    return logits.float()
+
+
+def phase_spec_check(torch, dev, model, np, reqs, m32):
+    """Speculative correctness, in two parts.
+    (a) Llama-2-7B's widths cut to CHECK_LAYERS layers (the only cut), in
+    float32: greedy speculative streams, with the target as its own draft
+    and with TinyLlama's widths cut to CHECK_LAYERS layers, equal the
+    non-speculative engine's streams token for token.
+    (b) Llama-2-7B bf16: one verify chunk of 5 tokens a row after the six
+    short prompts, through the kernels and through the plain versions,
+    against the float32 copy ``m32`` under the check's rule (limit
+    CHECK_REL)."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    prompts = [list(r.prompt) for r in reqs[:8]]
+    m4 = LlamaForCausalLM(LlamaConfig.llama2_7b(
+        num_hidden_layers=CHECK_LAYERS, dtype=torch.float32), device=dev,
+        seed=0)
+    t4 = LlamaForCausalLM(tinyllama_config(torch, CHECK_LAYERS,
+                                           torch.float32), device=dev,
+                          seed=7)
+    kw = dict(num_slots=8, block_size=16, max_prompt_len=128,
+              max_seq_len=512, num_blocks=256, device=dev)
+
+    def serve(**ekw):
+        eng = LLMEngine(m4, **kw, **ekw)
+        rids = [eng.add_request(Request(p, max_new_tokens=24))
+                for p in prompts]
+        eng.run()
+        eng.assert_quiescent()
+        return [eng.requests[r].tokens for r in rids], eng.stats
+
+    base, _ = serve()
+    for label, draft in (("self-draft", m4), ("tinyllama draft", t4)):
+        got, st = serve(draft_model=draft, spec_k=4)
+        same = got == base
+        log(f"[spec_check] {CHECK_LAYERS}-layer fp32, {label}: "
+            f"{len(got)} greedy streams equal to the non-speculative "
+            f"engine's token for token: {same}; acceptance "
+            f"{st['spec_accepted']} / {st['spec_proposed']} "
+            f"({card_line()})")
+        if not same or not st["spec_ticks"]:
+            raise AssertionError(f"spec_check {label}: streams differ "
+                                 f"({st})")
+    del m4, t4
+    torch.cuda.empty_cache()
+    p6 = prompts[:6]
+    chunk = np.stack([[r.tokens[0], *np.random.RandomState(i).randint(
+        3, model.cfg.vocab_size, 4)] for i, r in enumerate(reqs[:6])])
+    with torch.no_grad():
+        got = _verify_logits(torch, model, p6, chunk)
+        with plain_kernels():
+            ref = _verify_logits(torch, model, p6, chunk)
+            ref32 = _verify_logits(torch, m32, p6, chunk)
+    _hold_logits("spec_check 7B bf16", ("verify",), [got], [ref], [ref32],
+                 CHECK_REL)
+    torch.cuda.empty_cache()
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve,check,"
-                    "graph_check,async_serve,train,"
+                    "graph_check,async_serve,lora_serve,lora_check,"
+                    "spec_serve,spec_check,train,"
                     "moe_serve,moe_check,moe_train,window_serve,window_check,"
                     "quant_serve,quant_check,bloom_serve,bloom_train,"
                     "falcon_rw_serve,falcon_rw_train,falcon7b_serve")
@@ -3157,8 +3801,10 @@ def main(argv=None):
         phase_k3_tiles(torch, dev)
     counts = {}                # path -> {kernel: launches in its own run}
     quant = {"quant_serve", "quant_check", "quant_anatomy"} & set(phases)
+    lora_spec = {"lora_serve", "lora_check", "lora_anatomy", "spec_serve",
+                 "spec_check"} & set(phases)
     if {"serve", "check", "anatomy", "graph_check",
-            "async_serve"} & set(phases) or quant:
+            "async_serve"} & set(phases) or quant or lora_spec:
         tm = time.monotonic()
         model = build_model(dev)
         torch.cuda.synchronize()
@@ -3190,6 +3836,39 @@ def main(argv=None):
             if "async_serve" in phases:
                 phase_anatomy(torch, dev, model, np,
                               "decode tick, async_depth 2", async_depth=2)
+        # multi-LoRA and speculative decoding on the same model (before the
+        # quant phases quantize it in place); the checks share one float32
+        # copy of it
+        m32 = None
+        if {"lora_check", "spec_check"} & set(phases):
+            m32 = fp32_copy(torch, model)
+        if {"lora_serve", "lora_check", "lora_anatomy"} & set(phases):
+            tp = time.monotonic()
+            counts["lora_serve"], store, sds, _ = phase_lora_serve(
+                torch, dev, model, np, serve_stats)
+            log(f"[lora_serve] phase {time.monotonic() - tp:.1f} s")
+            if "lora_check" in phases:
+                tp = time.monotonic()
+                phase_lora_check(torch, dev, model, np, store, sds, reqs,
+                                 m32)
+                log(f"[lora_check] phase {time.monotonic() - tp:.1f} s")
+            if "lora_anatomy" in phases:
+                phase_anatomy(torch, dev, model, np, "multi-LoRA decode tick",
+                              engine_kw=dict(adapter_store=store),
+                              adapter_ids=[LORA_MIX[i % 4]
+                                           for i in range(8)])
+            del store
+        if "spec_serve" in phases:
+            tp = time.monotonic()
+            counts["spec_serve"] = phase_spec_serve(torch, dev, model, np,
+                                                    serve_stats)
+            log(f"[spec_serve] phase {time.monotonic() - tp:.1f} s")
+        if "spec_check" in phases:
+            tp = time.monotonic()
+            phase_spec_check(torch, dev, model, np, reqs, m32)
+            log(f"[spec_check] phase {time.monotonic() - tp:.1f} s")
+        del m32
+        torch.cuda.empty_cache()
         if "quant_check" in phases:
             phase_quant_check(torch, model, reqs, got, ref32, "bf16")
         if quant:

@@ -10,9 +10,12 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.core.device import resolve_device
 
-def generator(seed: int, device="cpu") -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded with ``seed``."""
-    g = torch.Generator(device=torch.device(device))
+
+def generator(seed: int, device=None) -> torch.Generator:
+    """A ``torch.Generator`` seeded with ``seed`` on ``device``: the card
+    when none is named (raises without one), ``"cpu"`` when asked."""
+    g = torch.Generator(device=resolve_device(device))
     g.manual_seed(int(seed))
     return g

@@ -1,7 +1,9 @@
 """Sampling and family-agnostic decoding — counterpart of
 ``paddle_tpu/models/decoding.py``: the engine's per-row sampling
 (``_sample_rows``), the scalar-parameter ``_sample`` with the CTRL
-repetition penalty, and :func:`generic_generate`.
+repetition penalty, :func:`generic_generate`, and the dense
+:class:`KVCache` the serving engine's draft model decodes into
+(``models/speculative.py`` ``_forward_rows``).
 
 ``jax.random.categorical`` bits cannot be reproduced with a
 ``torch.Generator``, so parity with the reference is checked on the
@@ -11,9 +13,46 @@ noise from an explicit generator on the logits' device.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
+from paddle_tpu_torch.core.device import resolve_device
+
 _NEG = -1e30
+
+
+@dataclass
+class KVCache:
+    """Per-layer dense [B, cap + 1, H_kv, D] k/v buffers, written in place.
+    Positions 0..cap-1 are the cache; position ``cap`` is a write sink
+    for masked rows (the reference's out-of-bounds ``mode="drop"``
+    scatter), never read (:attr:`view_k` / :attr:`view_v` stop before
+    it). The reference's sliding-window ring (``slot_pos``) is not
+    ported: the engine refuses speculation under a window."""
+    k: list
+    v: list
+
+    @staticmethod
+    def init(num_layers, batch, max_len, num_kv_heads, head_dim, dtype,
+             device=None):
+        dev = resolve_device(device)
+        shape = (batch, max_len + 1, num_kv_heads, head_dim)
+        return KVCache(
+            [torch.zeros(shape, dtype=dtype, device=dev)
+             for _ in range(num_layers)],
+            [torch.zeros(shape, dtype=dtype, device=dev)
+             for _ in range(num_layers)])
+
+    @property
+    def capacity(self) -> int:
+        return self.k[0].shape[1] - 1
+
+    def view_k(self, li):
+        return self.k[li][:, :self.capacity]
+
+    def view_v(self, li):
+        return self.v[li][:, :self.capacity]
 
 
 def filter_rows(logits, temps, top_ps, top_k=None, bias=None):

@@ -7,7 +7,12 @@
     through the paged chunk kernel, K3) and ``llama_decode_step_paged`` /
     ``llama_decode_tick`` (one token per sequence through the paged decode
     kernel, K4, sampled on the device). Every rope of the three goes
-    through K7 (``ops.cuda.rope``).
+    through K7 (``ops.cuda.rope``). A ``lora`` argument adds the batched
+    multi-LoRA correction of each row's adapter to the attention
+    projections (``_lora_delta``: two grouped products on K6a). The
+    speculative verify is the chunk forward with every position's
+    logits (``llama_verify_chunk_paged``), its rollback a length rewind
+    (``spec_rewind_lens``).
   * HOST: the block managers — free lists, refcounts, the prefix caches
     and the radix trie — copied from the reference (pure host logic).
 
@@ -38,6 +43,7 @@ import torch
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.observability.memledger import MemLedger
 from paddle_tpu_torch.ops import attention as A
+from paddle_tpu_torch.ops.cuda import grouped_matmul as _gm
 from paddle_tpu_torch.ops.cuda import paged_attention as _paged
 from paddle_tpu_torch.ops.cuda import rope as _rope
 from paddle_tpu_torch.quantization import wo_matmul as _wo
@@ -988,18 +994,60 @@ def _dest_chunk(tables, offsets, chunk_lens, c, num_blocks, block_size):
                        num_blocks * block_size)
 
 
-def _refuse_lora_cp(lora, cp_axis):
-    if lora is not None:
-        raise NotImplementedError(
-            "multi-LoRA is not ported yet (ROADMAP.md queue 1, needs K6)")
+def _refuse_cp(cp_axis):
     if cp_axis is not None:
         raise NotImplementedError(
             "context-parallel serving is not ported yet (ROADMAP.md "
             "queue 1, cp)")
 
 
-def _qkv(att, h, shape_q, shape_kv):
+def _lora_delta(x, lora, kind, li):
+    """Batched multi-LoRA correction for ONE projection of ONE layer:
+    ``delta[b] = (x[b] @ A_{aidx[b]}) @ B_{aidx[b]}`` in fp32 with the
+    alpha/r scale pre-folded into the B stack, zero for null-adapter rows,
+    cast back to ``x.dtype``. ``lora`` is the engine-built dict of device
+    tensors (``serving/engine.py`` ``_lora_arg``):
+
+      qkv_a/qkv_b/o_a/o_b  [L, cap, ...]  the store's stacked adapters
+      perm / inv           [B]  rows sorted by cache index (null last) /
+                                the inverse permutation
+      gs                   [cap] TOKEN count per cache index (row count
+                                times the per-row width, in sorted order)
+      aidx                 [B]  original-order cache index, -1 = null
+
+    The grouped path (the default) runs the sorted rows, flattened to
+    [B*S, k], through two grouped products (K6a on the card, its plain
+    version on the CPU), so a batch of mixed adapters is ragged
+    per-adapter segments through one kernel; rows past ``sum(gs)`` (the
+    null-adapter tail) are unspecified by K6a's contract and masked to
+    zero here. ``PT_MULTILORA_IMPL=gather`` selects the dense per-row
+    baseline the grouped path is timed against (read at each call; a
+    captured tick keeps what it read when it was captured). Every index
+    and the mask stay on the device: a CUDA graph captures this function
+    (``serving/executor.py``)."""
+    a_stack = lora[kind + "_a"][li]          # [cap, k, r]
+    b_stack = lora[kind + "_b"][li]          # [cap, r, n]
+    bsz, s, kdim = x.shape
+    xf = x.float()
+    if os.environ.get("PT_MULTILORA_IMPL", "grouped") == "gather":
+        sel = torch.clamp(lora["aidx"].long(), min=0)
+        t = torch.einsum("bsk,bkr->bsr", xf, a_stack[sel])
+        d = torch.einsum("bsr,brn->bsn", t, b_stack[sel])
+        return torch.where((lora["aidx"] >= 0)[:, None, None], d,
+                           0.0).to(x.dtype)
+    xp = xf[lora["perm"].long()].reshape(bsz * s, kdim)
+    t = _gm.grouped_matmul(xp, a_stack, lora["gs"])
+    d = _gm.grouped_matmul(t, b_stack, lora["gs"])
+    live = (torch.arange(bsz * s, device=x.device)[:, None]
+            < lora["gs"].sum())
+    d = torch.where(live, d, 0.0)
+    return d.reshape(bsz, s, -1)[lora["inv"].long()].to(x.dtype)
+
+
+def _qkv(att, h, shape_q, shape_kv, lora=None, li=0):
     qkv = _wo(h, att.qkv_proj)
+    if lora is not None:
+        qkv = qkv + _lora_delta(h, lora, "qkv", li)
     if att.qkv_bias is not None:
         qkv = qkv + att.qkv_bias
     nh, nkv, hd = att.num_heads, att.num_kv_heads, att.head_dim
@@ -1047,10 +1095,13 @@ def is_moe_model(model) -> bool:
                for lyr in getattr(_backbone(model), "layers", ()))
 
 
-def _layer_tail(lyr, x, out, shape):
+def _layer_tail(lyr, x, out, shape, lora=None, li=0):
     att = lyr.self_attn
-    x = x + _wo(out.reshape(*shape, att.num_heads * att.head_dim),
-                att.o_proj)
+    attn_out = out.reshape(*shape, att.num_heads * att.head_dim)
+    proj = _wo(attn_out, att.o_proj)
+    if lora is not None:
+        proj = proj + _lora_delta(attn_out, lora, "o", li)
+    x = x + proj
     return x + _mlp_out(lyr, lyr.post_attention_layernorm(x))
 
 
@@ -1070,8 +1121,9 @@ def llama_prefill_paged(model, input_ids, prompt_lens, cache: PagedKVCache,
     max_blocks], the prompt rows go into cache SLOTS ``slot_ids`` (their
     table rows and lengths installed) while every other slot stays
     untouched. Padding rows use slot_id >= num_slots and prompt_len 0 and
-    write nothing. The cache is updated in place."""
-    _refuse_lora_cp(lora, cp_axis)
+    write nothing. ``lora``: the per-row multi-LoRA dict
+    (:func:`_lora_delta`). The cache is updated in place."""
+    _refuse_cp(cp_axis)
     cfg = model_config(model)
     dev = cache.device
     input_ids = torch.as_tensor(input_ids, device=dev).long()
@@ -1097,7 +1149,7 @@ def llama_prefill_paged(model, input_ids, prompt_lens, cache: PagedKVCache,
     dest = _dest_prefill(tables, lens, s, nb, bs)
     for li, lyr in enumerate(_backbone(model).layers):
         h = lyr.input_layernorm(x)
-        q, k, v = _qkv(lyr.self_attn, h, (b, s), (b, s))
+        q, k, v = _qkv(lyr.self_attn, h, (b, s), (b, s), lora, li)
         q = A.apply_rope(q, cos, sin)
         k = A.apply_rope(k, cos, sin)
         # the prompt attends over its own pre-quantization K/V; only the
@@ -1106,7 +1158,7 @@ def llama_prefill_paged(model, input_ids, prompt_lens, cache: PagedKVCache,
                                              kv_lens=lens,
                                              window=cfg.sliding_window)
         _scatter_kv(cache, li, k, v, dest)
-        x = _layer_tail(lyr, x, out, (b, s))
+        x = _layer_tail(lyr, x, out, (b, s), lora, li)
     x = _backbone(model).norm(x)
     logits = _model_logits(model, x)
     last = logits[torch.arange(b, device=dev),
@@ -1119,8 +1171,9 @@ def llama_decode_step_paged(model, tokens, cache: PagedKVCache, active,
                             lora=None, cp_axis=None):
     """One decode token per sequence. tokens: [B]; active: [B] bool
     (inactive rows neither write KV nor advance). Returns (logits [B, V],
-    cache), the cache updated in place."""
-    _refuse_lora_cp(lora, cp_axis)
+    cache), the cache updated in place. ``lora``: see
+    :func:`_lora_delta`."""
+    _refuse_cp(cp_axis)
     cfg = model_config(model)
     dev = cache.device
     tokens = torch.as_tensor(tokens, device=dev).long()
@@ -1137,7 +1190,7 @@ def llama_decode_step_paged(model, tokens, cache: PagedKVCache, active,
     dest = _dest_decode(tables, old_lens, active, nb, bs)
     for li, lyr in enumerate(_backbone(model).layers):
         h = lyr.input_layernorm(x)
-        q, k, v = _qkv(lyr.self_attn, h, (b, 1), (b, 1))
+        q, k, v = _qkv(lyr.self_attn, h, (b, 1), (b, 1), lora, li)
         q = _apply_rope_rows(q, cos, sin)
         k = _apply_rope_rows(k, cos, sin)
         _scatter_kv(cache, li, k, v, dest)
@@ -1145,7 +1198,7 @@ def llama_decode_step_paged(model, tokens, cache: PagedKVCache, active,
         out = _paged.paged_decode_attention(
             q[:, 0], kp, vp, tables, new_lens, window=cfg.sliding_window,
             k_scale=ks, v_scale=vs)
-        x = _layer_tail(lyr, x, out, (b, 1))
+        x = _layer_tail(lyr, x, out, (b, 1), lora, li)
     x = _backbone(model).norm(x)
     logits = _model_logits(model, x)[:, 0]
     cache.lens.copy_(new_lens)
@@ -1154,15 +1207,17 @@ def llama_decode_step_paged(model, tokens, cache: PagedKVCache, active,
 
 @torch.no_grad()
 def decode_tick_rows(model, tokens, cache: PagedKVCache, active, gen, temps,
-                     top_ps, top_k=None, logit_bias=None):
+                     top_ps, top_k=None, logit_bias=None, lora=None):
     """The device half of a decode tick, on device tensors only: the decode
-    step, then one token per row sampled with the generator ``gen``
-    (``temps``/``top_ps`` [B] fp32, temperature 0 = greedy for that row);
-    inactive rows keep their token. Returns (next tokens [B] int64, fp32
-    logits [B, V]). No host read and no host-to-device copy: the executor
-    captures it in a CUDA graph (``serving/executor.py``)."""
+    step (with the multi-LoRA correction when ``lora`` is given), then one
+    token per row sampled with the generator ``gen`` (``temps``/``top_ps``
+    [B] fp32, temperature 0 = greedy for that row); inactive rows keep
+    their token. Returns (next tokens [B] int64, fp32 logits [B, V]). No
+    host read and no host-to-device copy: the executor captures it in a
+    CUDA graph (``serving/executor.py``)."""
     from paddle_tpu_torch.models.decoding import _sample_rows
-    logits, cache = llama_decode_step_paged(model, tokens, cache, active)
+    logits, cache = llama_decode_step_paged(model, tokens, cache, active,
+                                            lora=lora)
     lf = logits.float()
     nxt = _sample_rows(lf, gen, temps, top_ps, top_k, logit_bias)
     return torch.where(active, nxt, tokens), lf
@@ -1179,8 +1234,9 @@ def llama_decode_tick(model, tokens, cache: PagedKVCache, active,
     THE DEVICE with the generator ``gen``. ``temps``/``top_ps`` [B]
     per-slot sampling params (temperature 0 = greedy for that row).
     Returns (next tokens [B], logp [B, V] or None, cache). The eager form
-    of the tick the executor replays from a CUDA graph on the card."""
-    _refuse_lora_cp(lora, cp_axis)
+    of the tick the executor replays from a CUDA graph on the card.
+    ``lora``: see :func:`_lora_delta`."""
+    _refuse_cp(cp_axis)
     dev = cache.device
     rows = _host(upd_rows).astype(np.int64)
     keep = (rows >= 0) & (rows < cache.block_tables.shape[0])
@@ -1196,7 +1252,7 @@ def llama_decode_tick(model, tokens, cache: PagedKVCache, active,
         torch.as_tensor(temps, device=dev).float(),
         torch.as_tensor(top_ps, device=dev).float(), top_k,
         None if logit_bias is None
-        else torch.as_tensor(logit_bias, device=dev))
+        else torch.as_tensor(logit_bias, device=dev), lora)
     logp = torch.log_softmax(lf, dim=-1) if want_logp else None
     return nxt, logp, cache
 
@@ -1245,8 +1301,12 @@ def llama_prefill_chunk_paged(model, input_ids, chunk_lens, offsets,
     already in the pool), slot_ids [A] (sentinel >= num_slots drops the
     row), table_rows [A, max_blocks] CURRENT tables covering
     offset+chunk. Dynamic-NTK rope is refused (chunk-end bases would
-    desync across chunks). The cache is updated in place."""
-    _refuse_lora_cp(lora, cp_axis)
+    desync across chunks). The cache is updated in place.
+
+    ``full_logits=True`` returns every chunk position's logits — the
+    speculative VERIFY forward: logit i of a row judges the proposal at
+    position offset+i+1. ``lora``: see :func:`_lora_delta`."""
+    _refuse_cp(cp_axis)
     cfg = model_config(model)
     if (cfg.rope_scaling or {}).get("type") == "dynamic":
         raise NotImplementedError(
@@ -1278,7 +1338,7 @@ def llama_prefill_chunk_paged(model, input_ids, chunk_lens, offsets,
     dest = _dest_chunk(tables, offsets, chunk_lens, c, nb, bs)
     for li, lyr in enumerate(_backbone(model).layers):
         h = lyr.input_layernorm(x)
-        q, k, v = _qkv(lyr.self_attn, h, (a, c), (a, c))
+        q, k, v = _qkv(lyr.self_attn, h, (a, c), (a, c), lora, li)
         q = _apply_rope_rows(q, cos, sin)
         k = _apply_rope_rows(k, cos, sin)
         # write the chunk FIRST so the pool holds prefix + chunk
@@ -1287,7 +1347,7 @@ def llama_prefill_chunk_paged(model, input_ids, chunk_lens, offsets,
         out = _paged.paged_chunk_attention(
             q, kp, vp, tables, offsets, chunk_lens, window=window,
             k_scale=ks, v_scale=vs)
-        x = _layer_tail(lyr, x, out, (a, c))
+        x = _layer_tail(lyr, x, out, (a, c), lora, li)
     x = _backbone(model).norm(x)
     logits = _model_logits(model, x)
     if full_logits:
@@ -1313,6 +1373,92 @@ def prefix_cow_update(cache: PagedKVCache, pairs):
                   *cache.v_scale_store):
         store[dst] = store[src]
     return cache
+
+
+# ------------------------------------------------ speculative helpers
+# The multi-append/rewind primitives the engine's speculative decoding
+# needs: the target VERIFY forward is the chunk prefill with full logits
+# (a multi-token append through the block tables, K3 on the card), and
+# the rollback past rejected positions is a pure LENGTH rewind — block
+# tables untouched, because stale KV beyond a row's length is masked by
+# attention and positionally overwritten by the next append.
+
+def llama_verify_chunk_paged(model, input_ids, chunk_lens, offsets,
+                             cache: PagedKVCache, slot_ids, table_rows,
+                             lora=None, cp_axis=None):
+    """Speculative verify: one chunk forward returning [A, C, V] logits
+    (see :func:`llama_prefill_chunk_paged` — the same append semantics,
+    every chunk position's logits kept for accept/reject)."""
+    return llama_prefill_chunk_paged(model, input_ids, chunk_lens, offsets,
+                                     cache, slot_ids, table_rows,
+                                     full_logits=True, lora=lora,
+                                     cp_axis=cp_axis)
+
+
+@torch.no_grad()
+def spec_rewind_lens(cache: PagedKVCache, slot_ids, new_lens):
+    """Roll the given slots' lengths back past rejected speculative
+    positions, in place. Block tables are NOT touched: the blocks holding
+    rejected KV stay owned by their sequences, their stale contents
+    unreachable (attention masks ``pos >= lens``) until the next append
+    overwrites them. Sentinel slot ids (>= num_slots) are dropped."""
+    slots = _host(slot_ids).astype(np.int64)
+    keep = (slots >= 0) & (slots < cache.lens.shape[0])
+    if keep.any():
+        dev = cache.device
+        cache.lens[torch.as_tensor(slots[keep], device=dev)] = _dev_i32(
+            _host(new_lens)[keep], dev)
+    return cache
+
+
+def spec_advance_frontiers(pos, draft_pos, n_new):
+    """Commit one speculative round: the target frontier advances by the
+    ``n_new`` committed tokens (accepted prefix + correction/bonus) and
+    the draft frontier rolls back past everything it proposed beyond the
+    new frontier — its stale cache entries get positionally overwritten
+    by the next round's feed. Works on scalars or per-row arrays."""
+    new_pos = pos + n_new
+    return new_pos, np.minimum(draft_pos, new_pos)
+
+
+def greedy_accept_length(verify_tokens, proposals):
+    """Longest matching prefix between the target's argmax tokens and the
+    draft's proposals — the greedy accept rule. ``verify_tokens`` may be
+    longer than ``proposals`` (it usually carries the bonus position);
+    works on [gamma] rows or [B, gamma] batches, returning a scalar or
+    [B] counts."""
+    v = np.asarray(verify_tokens)
+    p = np.asarray(proposals)
+    match = np.cumprod(v[..., : p.shape[-1]] == p, axis=-1)
+    return match.sum(axis=-1)
+
+
+def stochastic_accept_row(props, qs, ps, rng):
+    """The Leviathan/Chen accept-reject rule over ONE row: accept
+    proposal x_i with probability min(1, p_i(x_i)/q_i(x_i)); the first
+    rejection resamples from the residual norm(max(0, p_i - q_i)); a
+    fully accepted row draws the bonus token from p_gamma. ``ps`` holds
+    len(props)+1 distributions (the extra one is the bonus position).
+    Returns (committed tokens, n_accepted); the emitted stream is
+    distributed exactly as sampling from ``ps`` alone, for ANY proposal
+    distribution ``qs``."""
+    new: list[int] = []
+    n_acc = 0
+    for i, x in enumerate(props):
+        x = int(x)
+        if rng.uniform() < min(1.0, float(ps[i][x])
+                               / max(float(qs[i][x]), 1e-20)):
+            new.append(x)
+            n_acc += 1
+        else:
+            resid = np.maximum(ps[i] - qs[i], 0.0)
+            z = resid.sum()
+            resid = resid / z if z > 0 else ps[i]
+            new.append(int(rng.choice(resid.size, p=resid)))
+            break
+    else:
+        new.append(int(rng.choice(ps[len(props)].size, p=ps[len(props)])))
+    return new, n_acc
 
 
 # The forwards above are structure-agnostic via _backbone/_model_logits/

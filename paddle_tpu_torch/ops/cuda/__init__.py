@@ -31,6 +31,12 @@ ALIBI_TRAIN_KERNELS = ("flash_fwd_alibi", "flash_bwd_dq_alibi",
                        "flash_bwd_dkv_alibi")
 # Falcon-7B (rope, multi-query) through generic_generate
 ROPE_GENERATE_KERNELS = ("flash_fwd", "rope")
+# multi-LoRA serving: the serving kernels plus K6a for both rank-r
+# products of every adapted projection
+LORA_SERVE_KERNELS = SERVE_KERNELS + ("grouped_fwd",)
+# speculative serving: the target's verify batch runs K3 (paged_chunk),
+# the draft's norms and ropes K1 and K7
+SPEC_SERVE_KERNELS = SERVE_KERNELS
 
 
 def kernels() -> dict:
@@ -70,8 +76,8 @@ def launches() -> dict:
 
 def route_launches() -> dict:
     """{name: {kernel: launches}} of the wrappers that choose between
-    kernels and count each where it launches (K6b: ``"wgmma"``,
-    ``"fma"``)."""
+    kernels and count each where it launches (K6a: ``"rows"``,
+    ``"wgmma"``, ``"fma"``; K6b: ``"wgmma"``, ``"fma"``)."""
     return {name: dict(fn.route_launches) for name, fn in kernels().items()
             if hasattr(fn, "route_launches")}
 

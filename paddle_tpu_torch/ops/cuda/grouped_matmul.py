@@ -20,7 +20,9 @@ kernel at the decode shape, the tensor cores (``wgmma``) for bf16 at the
 prefill and train shapes, forward and dlhs alike, fp32 FMAs for float32;
 :func:`dw_route` the kernel of a K6b launch: the tensor cores for bf16,
 fp32 FMAs for float32. ``grouped_matmul.launches`` counts K6a launches
-(forward and dlhs), ``grouped_dw.launches`` K6b launches and
+(forward and dlhs), ``grouped_matmul.route_launches`` the K6a launches of
+each kernel (``"rows"``, ``"wgmma"``, ``"fma"``), ``grouped_dw.launches``
+K6b launches and
 ``grouped_dw.route_launches`` the K6b launches of each kernel (``"wgmma"``,
 ``"fma"``).
 
@@ -201,6 +203,7 @@ def grouped_fwd_cuda(lhs, rhs, group_sizes, trans_rhs=False):
                          m, k, n, e, _build.stream(lhs))
     _build.check(lib, rc, "grouped_matmul")
     grouped_matmul.launches += 1
+    grouped_matmul.route_launches[route] += 1
     return out
 
 
@@ -275,5 +278,6 @@ def grouped_matmul(lhs, rhs, group_sizes):
 
 
 grouped_matmul.launches = 0
+grouped_matmul.route_launches = {"rows": 0, "wgmma": 0, "fma": 0}
 grouped_dw.launches = 0
 grouped_dw.route_launches = {"wgmma": 0, "fma": 0}

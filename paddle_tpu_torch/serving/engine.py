@@ -56,10 +56,28 @@ falls back to a pool of the model's type. Weight-only int8/int4 models
 come from ``serving.quant.quantize_for_serving``. An int8 pool arms the
 ``serving.kv_quant`` fault site before each decode tick.
 
+Multi-LoRA serving: with an ``adapter_store``
+(:class:`~paddle_tpu_torch.serving.adapters.AdapterStore`), a request
+carrying an ``adapter_id`` is admitted once its adapter is
+device-resident and pinned, and every forward of its slot adds the
+grouped rank-r correction of that adapter (``models/paged.py``
+``_lora_delta``: two grouped products on K6a); rows without an adapter
+take the base path, and a tick with no adapter row replays the base
+graph. ``PT_MULTILORA=0`` is the kill switch (read at each use).
+
+Speculative decoding: with a ``draft_model``, each eligible slot drafts
+up to ``spec_k`` tokens through the draft's dense per-slot cache
+(``models/speculative.py``), ONE batched target chunk forward verifies
+them through the paged pool (K3), greedy or stochastic accept commits
+up to k + 1 tokens, and the rejected positions are rolled back by
+lengths alone. ``spec_adaptive`` shrinks a slot's k with its acceptance
+rate. ``PT_SPEC_DECODE=0`` is the kill switch (read every tick); the
+``serving.spec_verify`` fault site falls the round back to the one-token
+tick.
+
 Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP.md queue): beams, speculative decoding, multi-LoRA, grammar,
-degradation/SLO, tenants, context parallelism and
-prefill-only replicas (router).
+ROADMAP.md queue): beams, grammar, degradation/SLO, tenants, context
+parallelism and prefill-only replicas (router).
 """
 from __future__ import annotations
 
@@ -67,10 +85,13 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from paddle_tpu_torch.core.device import resolve_device
-from paddle_tpu_torch.models.paged import (is_moe_model, kv_quant_enabled,
-                                           model_config)
+from paddle_tpu_torch.models.paged import (greedy_accept_length,
+                                           is_moe_model, kv_quant_enabled,
+                                           model_config,
+                                           stochastic_accept_row)
 from paddle_tpu_torch.observability import span as _span
 from paddle_tpu_torch.ops.cuda import flash_attention as _flash
 from paddle_tpu_torch.ops.cuda import paged_attention as _paged
@@ -82,7 +103,12 @@ from paddle_tpu_torch.serving.telemetry import (_ACTIVE_SLOTS, _ASYNC_DEPTH,
                                                 _DRAIN, _FINISHED,
                                                 _KV_IN_USE, _KV_UTIL,
                                                 _QUEUE_DEPTH, _REJECTED,
-                                                _TICK, _TIMEOUTS, _TOK_LAT,
+                                                _SPEC_ACCEPTED,
+                                                _SPEC_DRAFT_REUSE,
+                                                _SPEC_FALLBACKS,
+                                                _SPEC_PROPOSED, _SPEC_RATE,
+                                                _SPEC_TOKENS, _TICK,
+                                                _TIMEOUTS, _TOK_LAT,
                                                 _TOKENS, _TTFT)
 from paddle_tpu_torch.serving.types import Request
 from paddle_tpu_torch.utils.faults import fault_point
@@ -129,8 +155,6 @@ class LLMEngine:
                  adapter_store=None, degrade=None, slo=None, kv_dtype=None,
                  cp=1, async_depth=0, device=None):
         for name, val, what in (
-                ("draft_model", draft_model, "speculative decoding"),
-                ("adapter_store", adapter_store, "multi-LoRA serving"),
                 ("degrade", degrade, "the degradation ladder"),
                 ("slo", slo, "the SLO tracker"),
                 ("prefill_only", prefill_only or None,
@@ -199,13 +223,60 @@ class LLMEngine:
                                and not self._dyn_rope)
         self.preemption = bool(preemption)
 
+        # speculative decoding: ``draft_model`` enables it; each eligible
+        # slot drafts up to spec_k tokens through a per-slot dense draft
+        # cache, then ONE batched target chunk forward verifies them
+        # through the paged pool. PT_SPEC_DECODE=0 is the kill switch
+        # (read every tick, so it also disables a live engine)
+        self.draft_model = draft_model
+        self.spec_k = int(spec_k)
+        self.spec_adaptive = bool(spec_adaptive)
+        if draft_model is not None:
+            dcfg = model_config(draft_model)
+            if self.spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+            if self.window is not None or dcfg.sliding_window:
+                raise NotImplementedError(
+                    "speculative decoding needs full (un-windowed) caches "
+                    "on both models — rewind relies on masked stale KV")
+            if self._dyn_rope:
+                raise NotImplementedError(
+                    "speculative decoding with dynamic-NTK rope is not "
+                    "supported (the verify chunk shares the chunked-"
+                    "prefill forward, which refuses per-chunk bases)")
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {dcfg.vocab_size} != target "
+                    f"vocab {cfg.vocab_size}")
+            # host RNG for draft sampling + accept/reject (temperature >
+            # 0): the accept rule preserves the target distribution for
+            # any uniform source, so this stream need not match the
+            # engine's generator
+            self._spec_rs = np.random.RandomState(
+                (seed ^ 0x5eed) & 0x7fffffff)
+        # multi-LoRA: a request carrying an adapter_id is admitted only
+        # once its adapter is device-resident AND pinned (the scheduler
+        # acquires it); PT_MULTILORA=0 (read per use) hands every forward
+        # lora=None, the exact base path
+        if adapter_store is not None and (
+                adapter_store.device.type != self.device.type
+                or None not in (adapter_store.device.index,
+                                self.device.index)
+                and adapter_store.device.index != self.device.index):
+            raise ValueError(
+                f"adapter store on {adapter_store.device}, engine on "
+                f"{self.device}")
+        self.adapter_store = adapter_store
+
         self.kv = KVManager(num_blocks, block_size)
         self.sched = Scheduler(max_queue_len=max_queue_len, clock=clock)
         self.exe = ModelExecutor(
             model, num_slots=num_slots, num_blocks=num_blocks,
             block_size=block_size, max_blocks_per_seq=self.max_blocks_per_seq,
             top_k=top_k, seed=seed, kv_dtype=kv_dtype,
-            async_depth=async_depth, device=self.device)
+            async_depth=async_depth, adapter_store=adapter_store,
+            draft_model=draft_model, spec_k=self.spec_k,
+            max_seq_len=self.max_seq_len, device=self.device)
 
         # host mirrors (vectorised bookkeeping)
         self.slot_req = np.full(num_slots, -1, np.int64)   # req_id or -1
@@ -215,12 +286,31 @@ class LLMEngine:
         self.max_gen = np.zeros(num_slots, np.int64)
         self.table_len = np.zeros(num_slots, np.int64)
         self.last_tok = np.zeros(num_slots, np.int32)
+        self.slot_aidx = np.full(num_slots, -1, np.int64)  # cache idx / -1
+        self._adapter_pins: dict[int, object] = {}   # rid -> adapter_id
+        # speculative per-slot state (allocated even when spec is off, so
+        # reset sites need no guards). ``draft_cur``: committed-sequence
+        # positions 0..draft_cur-1 are in the draft cache — 0 means empty,
+        # which is how eviction "frees" a draft cache
+        self.draft_cur = np.zeros(num_slots, np.int64)
+        self.slot_k = np.full(num_slots, self.spec_k, np.int64)
+        self._acc_ema = np.ones(num_slots, np.float64)
+        # draft-cache reuse: the token ids whose K/V sit in a slot's draft
+        # cache rows 0..draft_cur-1, snapshotted at each commit; a new
+        # request whose radix-adopted prefix matches them seeds draft_cur
+        # past the match instead of re-feeding from 0
+        self._draft_resident: dict[int, np.ndarray] = {}
         # chunked prefill (prompts > max_prompt_len, prefix-cache hits):
         # rid -> (slot, tokens consumed); slots stay inactive until the
         # last chunk
         self.prefilling: dict[int, tuple] = {}
+        # spec_draft_s / spec_verify_s: wall seconds of the draft phase and
+        # of the verify call (its logits fetched) over all spec ticks
         self.stats = {"ticks": 0, "preemptions": 0, "timeouts": 0,
-                      "cancelled": 0, "rejected": 0}
+                      "cancelled": 0, "rejected": 0, "spec_ticks": 0,
+                      "spec_proposed": 0, "spec_accepted": 0,
+                      "spec_fallbacks": 0, "spec_draft_s": 0.0,
+                      "spec_verify_s": 0.0}
         self._adm_counter = 0                # admission recency, per slot
         self.adm_order = np.zeros(num_slots, np.int64)
         # the async window: oldest-first dispatched-but-unfetched ticks,
@@ -270,8 +360,6 @@ class LLMEngine:
             raise _not_ported("num_beams > 1 (beam search)")
         if req.grammar is not None:
             raise _not_ported("grammar-constrained decoding")
-        if req.adapter_id is not None:
-            raise _not_ported("adapter_id (multi-LoRA serving)")
         if req.tenant_id is not None:
             raise _not_ported("tenant_id (fair-share admission, with the "
                               "degradation ladder and SLO tracker)")
@@ -299,6 +387,14 @@ class LLMEngine:
             _REJECTED.inc(reason="too_long")
             _FINISHED.inc(reason="too_long")
             return rid
+        if req.adapter_id is not None:
+            if self.adapter_store is None:
+                raise ValueError(
+                    "request carries an adapter_id but the engine was "
+                    "built without an adapter_store")
+            if not self.adapter_store.known(req.adapter_id):
+                raise ValueError(f"adapter {req.adapter_id!r} is not "
+                                 "registered with the adapter store")
         rid = self.sched.enqueue(req)
         _QUEUE_DEPTH.set(len(self.queue))
         return rid
@@ -346,6 +442,7 @@ class LLMEngine:
             slot, _ = self.prefilling.pop(req_id)
             self.mgr.free(req_id)
             self.slot_req[slot] = -1
+            self._release_adapter(req_id)
             return True
         slots = np.nonzero(self.slot_req == req_id)[0]
         if not len(slots):
@@ -354,6 +451,9 @@ class LLMEngine:
         self.mgr.free(req_id)
         self.active[slot] = False
         self.slot_req[slot] = -1
+        self.draft_cur[slot] = 0
+        self.slot_aidx[slot] = -1
+        self._release_adapter(req_id)
         return True
 
     def drain(self, cancel_queued: bool = False) -> dict:
@@ -376,11 +476,14 @@ class LLMEngine:
         """Invariant check once idle: every block is back in the pool
         (prefix-cache parked blocks count — they are reclaimable), no
         standing reservations, no per-sequence tables, and the memory
-        ledger reconciles with the block manager."""
+        ledger reconciles with the block manager, and no adapter pin is
+        held."""
         assert not self.has_work(), "engine still has work"
         self.kv.assert_quiescent()
         rec = self.kv.reconcile()
         assert rec["ok"], f"memory ledger out of step: {rec['diffs']}"
+        assert not self._adapter_pins, \
+            f"adapter pin leak: {self._adapter_pins}"
 
     def _pr(self, req) -> np.ndarray:
         """Effective prompt: the resume form (prompt + tokens generated
@@ -416,6 +519,51 @@ class LLMEngine:
             if dead > 0 and self.mgr.free_prefix(rid, dead):
                 self.kv.update(rid)
 
+    # ------------------------------------------------------- multi-LoRA
+    def _multilora_on(self) -> bool:
+        """PT_MULTILORA=0 kill switch (read per use, so it also disables a
+        live engine): off — or no store — means every forward gets
+        lora=None, the exact base path."""
+        return (self.adapter_store is not None
+                and os.environ.get("PT_MULTILORA", "1") != "0")
+
+    def _release_adapter(self, rid: int):
+        """Drop the pin the scheduler took at admission (idempotent —
+        every detach/finish/preempt path calls it)."""
+        aid = self._adapter_pins.pop(rid, None)
+        if aid is not None and self.adapter_store is not None:
+            self.adapter_store.release(aid)
+
+    def _req_aidx(self, req) -> int:
+        """Cache index of the request's pinned adapter (-1 = base path).
+        Pinned entries are never evicted, so the index is stable for the
+        request's whole slot tenure."""
+        if req.req_id in self._adapter_pins and self._multilora_on():
+            return self.adapter_store.index_of(req.adapter_id)
+        return -1
+
+    def _lora_arg(self, aidx, width: int):
+        """The host description of a multi-LoRA batch (int32 numpy
+        ``perm``, ``inv``, ``aidx`` [rows] and ``gs`` [capacity]; the
+        executor adds the store's stacks and moves them to the device),
+        or None when no row carries an adapter (the base path, bit for
+        bit). ``aidx``: per-row cache index (-1 = base); ``width``: padded
+        tokens a row in the forward — rows are contiguous token spans
+        after the permutation, so group sizes are row counts times
+        width."""
+        if not self._multilora_on():
+            return None
+        aidx = np.asarray(aidx, np.int64)
+        if not (aidx >= 0).any():
+            return None
+        cap = self.adapter_store.capacity
+        order = np.argsort(np.where(aidx < 0, cap, aidx), kind="stable")
+        inv = np.empty_like(order)
+        inv[order] = np.arange(len(order))
+        gs = np.bincount(aidx[aidx >= 0], minlength=cap) * width
+        return {"perm": order.astype(np.int32), "inv": inv.astype(np.int32),
+                "gs": gs.astype(np.int32), "aidx": aidx.astype(np.int32)}
+
     # ---------------------------------------------------------- admission
     def _activate(self, slot, req, temp, top_p):
         """Slot bookkeeping for a request whose prompt is now in cache."""
@@ -430,6 +578,12 @@ class LLMEngine:
         self.table_len[slot] = len(self.mgr.tables[req.req_id])
         self.temps[slot] = temp
         self.top_ps[slot] = top_p
+        self.slot_aidx[slot] = self._req_aidx(req)
+        # fresh draft state unless the resident draft cache covers a
+        # radix-adopted prefix
+        self._seed_draft(slot, req)
+        self.slot_k[slot] = self.spec_k
+        self._acc_ema[slot] = 1.0
 
     def _req_sampling(self, req):
         return (self.default_temp if req.temperature is None
@@ -458,7 +612,12 @@ class LLMEngine:
             rows[i, :len(t)] = t
             row_t[i], row_p[i] = self._req_sampling(req)
             self._activate(slot, req, row_t[i], row_p[i])
-        logits = self.exe.prefill(ids, lens, slots, rows)
+        row_aidx = np.full(a_cap, -1, np.int64)
+        for i, (slot, _) in enumerate(admits):
+            row_aidx[i] = self.slot_aidx[slot]
+        logits = self.exe.prefill(
+            ids, lens, slots, rows,
+            lora=self._lora_arg(row_aidx, self.max_prompt_len))
         first = self.exe.sample(logits, row_t, row_p)
         if self.window is not None:
             # a long prompt's below-window blocks die the moment prefill
@@ -497,6 +656,7 @@ class LLMEngine:
         slots = np.full(a_cap, self.num_slots, np.int32)
         rows = np.full((a_cap, max_b), nb, np.int32)
         batch = list(self.prefilling.items())[:a_cap]
+        row_aidx = np.full(a_cap, -1, np.int64)
         progressed = False
         staged = set()       # rows already in the batch: never evicted
         for i, (rid, (slot, consumed)) in enumerate(batch):
@@ -516,6 +676,7 @@ class LLMEngine:
             offs[i] = consumed
             slots[i] = slot
             rows[i, :len(t)] = t
+            row_aidx[i] = self._req_aidx(req)
         if not progressed and not self.active.any():
             raise MemoryError(
                 "paged pool cannot fit one prefill chunk of the remaining "
@@ -523,7 +684,8 @@ class LLMEngine:
                 "reduce max_prompt_len (chunk size)")
         if not progressed:
             return []
-        logits = self.exe.prefill_chunk(ids, lens, offs, slots, rows)
+        logits = self.exe.prefill_chunk(ids, lens, offs, slots, rows,
+                                        lora=self._lora_arg(row_aidx, cap))
         emitted = []
         done_rows = []
         for i, (rid, (slot, consumed)) in enumerate(batch):
@@ -545,7 +707,8 @@ class LLMEngine:
                 req = self.requests[rid]
                 del self.prefilling[rid]
                 if self.prefix_caching:
-                    self.mgr.commit_prefix(rid, self._pr(req))
+                    self.mgr.commit_prefix(rid, self._pr(req),
+                                           adapter=req.adapter_id)
                 self._activate(slot, req, row_t[i], row_p[i])
                 emitted += self._emit(slot, int(first[i]))
         return emitted
@@ -588,10 +751,337 @@ class LLMEngine:
                         return None
                     raise
 
+    # ------------------------------------------------- speculative decode
+    def _spec_probs(self, logits_row, temp, top_p):
+        """Host mirror of ``decoding.filter_rows``' filtered target
+        distribution for one row (temperature > 0): temperature scale →
+        static top_k cut → nucleus (top_p) cut → renormalise. The accept
+        rule must compare proposals against EXACTLY the distribution the
+        non-spec tick samples from, or speculation would change the
+        output law."""
+        scaled = np.asarray(logits_row, np.float64) / temp
+        if self.top_k is not None and self.top_k > 0:
+            kth = np.sort(scaled)[-self.top_k]
+            scaled = np.where(scaled < kth, -1e30, scaled)
+        srt = np.sort(scaled)[::-1]
+        e = np.exp(srt - srt[0])
+        cum = np.cumsum(e / e.sum())
+        cutoff = srt[int((cum < top_p).sum())]
+        scaled = np.where(scaled < cutoff, -1e30, scaled)
+        e = np.exp(scaled - scaled.max())
+        return e / e.sum()
+
+    def _committed_seq(self, slot: int) -> np.ndarray:
+        """The slot's committed sequence: effective prompt + tokens
+        generated SINCE activation (earlier generations are already baked
+        into the resume prompt). Its last token is ``last_tok`` — sampled
+        but not yet written to the target cache — so len == cur + 1."""
+        req = self.requests[int(self.slot_req[slot])]
+        g = int(self.gen[slot])
+        toks = np.asarray(req.tokens[len(req.tokens) - g:], np.int32)
+        return np.concatenate([self._pr(req), toks])
+
+    def _seed_draft(self, slot: int, req):
+        """Seed a freshly activated slot's draft frontier from the
+        resident draft cache. The dense draft cache is per slot and
+        nothing writes it while the slot is parked, so rows
+        0..len(resident)-1 still hold the draft K/V of the previous
+        session's committed prefix. When the new request radix-adopted a
+        prefix that matches those ids, the adopted span's draft-side
+        re-prefill is pure replay — skip it by advancing ``draft_cur``
+        past the match (capped at the adopted span: the accept rule
+        preserves the target law for ANY draft state, so a conservative
+        cap costs nothing in correctness). ``PT_DRAFT_REUSE=0`` kills the
+        seeding (a fresh re-feed)."""
+        p = self._pr(req)
+        adopted = int(req._adopted)
+        reuse = 0
+        if (adopted > 0 and self.draft_model is not None
+                and os.environ.get("PT_DRAFT_REUSE", "1") != "0"):
+            res = self._draft_resident.get(slot)
+            if res is not None and len(res):
+                # cap below len(p): the steady feed needs >= 1 pending
+                # token so its last logit can seed the first proposal
+                m = min(len(res), adopted, len(p) - 1)
+                if m > 0:
+                    eq = np.asarray(res[:m]) == np.asarray(p[:m])
+                    reuse = int(m if eq.all() else np.argmin(eq))
+        self.draft_cur[slot] = reuse
+        if reuse:
+            _SPEC_DRAFT_REUSE.inc(reuse)
+            # the reference's GOODPUT.saved(reuse) billing waits for
+            # ROADMAP.md queue 1 item 5(h)
+
+    def _spec_draft(self, staged, seqs):
+        """Draft phase: catch each staged slot's draft cache up to its
+        committed frontier (chunked, for freshly admitted/replayed slots
+        whose draft cache is empty), then autoregressively propose up to
+        k_eff tokens a slot. Returns (props, qs) keyed by slot; qs[slot]
+        is None for greedy rows, else the per-proposal draft
+        distributions the accept rule needs. Every feed's catch-up and
+        proposal positions are the reference's; its GOODPUT
+        ``replay_prefill`` billing waits for ROADMAP.md queue 1 item
+        5(h)."""
+        ns = self.num_slots
+        kmax = max(k for _, _, k in staged)
+        Cs = self.spec_k + 1
+
+        # catch-up: wide chunks until every pending suffix fits the steady
+        # feed (pending >= 1 always — last_tok is never in the cache)
+        CH = max(self.max_prompt_len, Cs)
+        while True:
+            pend_len = {s: len(seqs[s]) - int(self.draft_cur[s])
+                        for s, _, _ in staged}
+            if max(pend_len.values()) <= Cs:
+                break
+            ids = np.zeros((ns, CH), np.int64)
+            cl = np.zeros(ns, np.int32)
+            rp = np.zeros(ns, np.int32)
+            for s, _, _ in staged:
+                if pend_len[s] <= Cs:
+                    continue               # already caught up: no writes
+                n = min(pend_len[s] - 1, CH)   # keep >= 1 for the feed
+                dc = int(self.draft_cur[s])
+                ids[s, :n] = seqs[s][dc: dc + n]
+                cl[s] = n
+                rp[s] = dc
+            self.exe.draft_rows(ids, rp, cl)
+            for s, _, _ in staged:
+                self.draft_cur[s] += int(cl[s])
+
+        # steady feed: the pending suffix (<= k+1 tokens) in one
+        # fixed-width chunk; its last logit seeds the first proposal
+        ids = np.zeros((ns, Cs), np.int64)
+        cl = np.zeros(ns, np.int32)
+        rp = np.zeros(ns, np.int32)
+        for s, _, _ in staged:
+            dc = int(self.draft_cur[s])
+            pend = seqs[s][dc:]
+            ids[s, :len(pend)] = pend
+            cl[s] = len(pend)
+            rp[s] = dc
+        dl = self.exe.draft_rows(ids, rp, cl)
+        for s, _, _ in staged:
+            self.draft_cur[s] += int(cl[s])      # == cur + 1 now
+        last = torch.as_tensor(np.maximum(cl - 1, 0), device=dl.device)
+        dlast = dl[torch.arange(ns, device=dl.device), last.long()]
+
+        props = {s: [] for s, _, _ in staged}
+        qs = {s: (None if float(self.temps[s]) == 0.0 else [])
+              for s, _, _ in staged}
+
+        def pick(slot, row):
+            temp = float(self.temps[slot])
+            z = np.asarray(row, np.float64) / temp
+            e = np.exp(z - z.max())
+            q = e / e.sum()
+            qs[slot].append(q)
+            return int(self._spec_rs.choice(q.size, p=q))
+
+        def pick_all(logits_2d, rows_feeding):
+            ng = [s for s in rows_feeding if float(self.temps[s]) != 0.0]
+            greedy = [s for s in rows_feeding
+                      if float(self.temps[s]) == 0.0]
+            if greedy:           # fetch [ns] ints, never the [ns, V] block
+                am = torch.argmax(logits_2d.float(), dim=-1).cpu().numpy()
+                for s in greedy:
+                    props[s].append(int(am[s]))
+            if ng:
+                # only the non-greedy rows cross to the host
+                sub = logits_2d[torch.as_tensor(ng, device=logits_2d.device)]
+                sub = sub.float().cpu().numpy()
+                for i, s in enumerate(ng):
+                    props[s].append(pick(s, sub[i]))
+
+        pick_all(dlast, [s for s, _, _ in staged])
+        # autoregressive proposal rounds (single-token feeds)
+        for r in range(1, kmax):
+            feeding = [s for s, _, k in staged if k > r]
+            if not feeding:
+                break
+            ids1 = np.zeros((ns, 1), np.int64)
+            cl1 = np.zeros(ns, np.int32)
+            rp1 = np.zeros(ns, np.int32)
+            for s in feeding:
+                ids1[s, 0] = props[s][-1]
+                cl1[s] = 1
+                rp1[s] = int(self.draft_cur[s])
+            dl1 = self.exe.draft_rows(ids1, rp1, cl1)
+            for s in feeding:
+                self.draft_cur[s] += 1           # == cur + r + 1
+            pick_all(dl1[:, 0], feeding)
+        return props, qs
+
+    def _spec_tick(self, elig):
+        """One draft-and-verify round for the eligible slots. Returns
+        (handled mask, emitted): handled slots advanced up to k_eff+1
+        tokens and skip this tick's one-token path.
+
+        Staging allocates verify coverage (cur + k_eff + 1 tokens) per
+        slot BEFORE any device work, protecting already-staged rows from
+        preemption — as ``_prefill_chunks`` does. The
+        ``serving.spec_verify`` fault site fires before the verify
+        forward, so an injected exception aborts with the cache, tables
+        and ledger exactly as the staging left them (staged blocks live in
+        request tables — the normal free path reclaims them) and the tick
+        falls back to one-token decode for every slot."""
+        handled = np.zeros(self.num_slots, bool)
+        emitted: list = []
+        ns = self.num_slots
+        # stage: clamp k, allocate coverage for the worst case
+        staged = []                        # (slot, rid, k_eff)
+        staged_rids: set = set()
+        for slot in np.nonzero(elig)[0]:
+            slot = int(slot)
+            if not self.active[slot]:
+                continue                   # evicted by an earlier staging
+            rid = int(self.slot_req[slot])
+            k_cap = (int(self.slot_k[slot]) if self.spec_adaptive
+                     else self.spec_k)
+            k_eff = min(k_cap, int(self.max_gen[slot] - self.gen[slot]) - 1)
+            if k_eff < 1:
+                continue
+            t = self._allocate_or_preempt(
+                rid, int(self.cur[slot]) + k_eff + 1, protect=staged_rids)
+            if t is None:
+                continue                   # dry pool: one-token path
+            self.kv.update(rid)
+            self.table_len[slot] = len(t)
+            staged.append((slot, rid, k_eff))
+            staged_rids.add(rid)
+        staged = [(s, r, k) for s, r, k in staged if self.active[s]]
+        if not staged:
+            return handled, emitted
+
+        seqs = {s: self._committed_seq(s) for s, _, _ in staged}
+        t0 = time.perf_counter()
+        with _span("serving.draft", slots=len(staged)):
+            props, qs = self._spec_draft(staged, seqs)
+        self.stats["spec_draft_s"] += time.perf_counter() - t0
+
+        # verify: ONE batched target chunk over (slots, k_eff + 1)
+        C = self.spec_k + 1
+        ids = np.zeros((ns, C), np.int64)
+        clens = np.zeros(ns, np.int32)
+        offs = np.zeros(ns, np.int32)
+        slot_ids = np.full(ns, ns, np.int32)
+        rows = np.full((ns, self.max_blocks_per_seq), self.mgr.num_blocks,
+                       np.int32)
+        v_aidx = np.full(ns, -1, np.int64)
+        for slot, rid, k_eff in staged:
+            ids[slot, 0] = self.last_tok[slot]
+            ids[slot, 1: 1 + k_eff] = props[slot][:k_eff]
+            clens[slot] = k_eff + 1
+            offs[slot] = self.cur[slot]
+            slot_ids[slot] = slot
+            t = self.mgr.tables[rid]
+            rows[slot, :len(t)] = t
+            v_aidx[slot] = self.slot_aidx[slot]
+        try:
+            # BEFORE the verify forward writes the pool: an exception
+            # here leaves the cache as the staging left it
+            fault_point("serving.spec_verify", engine=self,
+                        slots=[s for s, _, _ in staged])
+        except Exception:
+            self.stats["spec_fallbacks"] += 1
+            _SPEC_FALLBACKS.inc()
+            # the reference's GOODPUT.waste("chaos_abort") billing waits
+            # for ROADMAP.md queue 1 item 5(h)
+            for slot, _, _ in staged:
+                # draft frontiers ran ahead of the commit that never
+                # came; roll them back so the next round re-feeds
+                self.draft_cur[slot] = min(int(self.draft_cur[slot]),
+                                           int(self.cur[slot]) + 1)
+                self._draft_resident[slot] = np.asarray(
+                    seqs[slot][:int(self.draft_cur[slot])], np.int32)
+                # staging extended the HOST table, but only the verify
+                # would have installed those entries in the DEVICE row:
+                # roll table_len back to what the device covers, so
+                # _grow_tables re-emits the missing entries
+                self.table_len[slot] = -(-int(self.cur[slot])
+                                         // self.block_size)
+            return np.zeros(self.num_slots, bool), []
+        t0 = time.perf_counter()
+        with _span("serving.verify", slots=len(staged)):
+            logits = self.exe.verify_chunk(
+                ids, clens, offs, slot_ids, rows,
+                lora=self._lora_arg(v_aidx, C)).float().cpu().numpy()
+        self.stats["spec_verify_s"] += time.perf_counter() - t0
+
+        # accept/commit per slot; ONE batched length rewind after
+        rw_slots = np.full(ns, ns, np.int32)
+        rw_lens = np.zeros(ns, np.int32)
+        for slot, rid, k_eff in staged:
+            temp = float(self.temps[slot])
+            row = logits[slot]                        # [C, V]
+            if temp == 0.0:
+                vs = row[: k_eff + 1].argmax(axis=-1)
+                n_acc = int(greedy_accept_length(vs[:k_eff],
+                                                 props[slot][:k_eff]))
+                new = [int(x) for x in props[slot][:n_acc]] \
+                    + [int(vs[n_acc])]
+            else:
+                ps = [self._spec_probs(row[i], temp,
+                                       float(self.top_ps[slot]))
+                      for i in range(k_eff + 1)]
+                new, n_acc = stochastic_accept_row(
+                    props[slot][:k_eff], qs[slot], ps, self._spec_rs)
+            cur1 = int(self.cur[slot]) + n_acc + 1
+            self.cur[slot] = cur1
+            rw_slots[slot] = slot
+            rw_lens[slot] = cur1
+            # the draft frontier rolls back past rejected positions (stale
+            # entries are overwritten by the next round's feed)
+            self.draft_cur[slot] = min(int(self.draft_cur[slot]), cur1)
+            # the token ids the draft cache now holds at 0..draft_cur-1:
+            # the reuse seed for this slot's NEXT session
+            self._draft_resident[slot] = np.asarray(
+                np.concatenate([seqs[slot], np.asarray(new, np.int32)])
+                [:int(self.draft_cur[slot])], np.int32)
+            if self.spec_adaptive:
+                self._acc_ema[slot] = (0.5 * self._acc_ema[slot]
+                                       + 0.5 * (n_acc / k_eff))
+                self.slot_k[slot] = int(np.clip(
+                    round(self._acc_ema[slot] * self.spec_k), 1,
+                    self.spec_k))
+            self.stats["spec_proposed"] += k_eff
+            self.stats["spec_accepted"] += n_acc
+            _SPEC_PROPOSED.inc(k_eff)
+            _SPEC_ACCEPTED.inc(n_acc)
+            _SPEC_TOKENS.observe(len(new))
+            # the reference's GOODPUT.waste("spec_rejected") billing waits
+            # for ROADMAP.md queue 1 item 5(h)
+            handled[slot] = True
+            for tok in new:
+                emitted += self._emit(slot, int(tok))
+                if self.slot_req[slot] < 0:
+                    break      # EOS/length finished the request mid-list
+        if self.stats["spec_proposed"]:
+            _SPEC_RATE.set(self.stats["spec_accepted"]
+                           / self.stats["spec_proposed"])
+        # one rewind for all staged rows, lengths only: the verify wrote
+        # k_eff+1 positions, the commit kept n_acc+1 of them
+        self.exe.rewind_lens(rw_slots, rw_lens)
+        self.stats["spec_ticks"] += 1
+        return handled, emitted
+
+    def _spec_on(self) -> bool:
+        return (self.draft_model is not None
+                and os.environ.get("PT_SPEC_DECODE", "1") != "0")
+
+    def _spec_would_run(self) -> bool:
+        """Mirror of the synchronous tick's speculative gate: True when the
+        next tick would draft and verify (host sampling every tick — the
+        async window must drain for it)."""
+        return self._spec_on() and bool(
+            (self.active & (self.max_gen - self.gen >= 2)).any())
+
     # ------------------------------------------------------------- decode
     def _grow_tables(self, mask):
         """At most one new block per slot per tick; returns the
-        incremental (rows, cols, vals) update triple (sentinel-padded)."""
+        incremental (rows, cols, vals) update triple (sentinel-padded).
+        ``mask``: the slots of this tick (speculation-handled slots skip
+        the one-token tick; their tables grow in the verify staging)."""
         rows = np.full(self.num_slots, self.num_slots, np.int32)
         cols = np.zeros(self.num_slots, np.int32)
         vals = np.zeros(self.num_slots, np.int32)
@@ -611,6 +1101,9 @@ class LLMEngine:
                         "exceeds max_prompt_len)")
                 continue
             self.kv.update(rid)
+            # install the next entry the DEVICE row is missing — normally
+            # the block just allocated, but after a spec-verify fallback
+            # the host table can be ahead by more than one staged block
             idx = min(int(self.table_len[slot]), len(t) - 1)
             rows[slot] = slot
             cols[slot] = idx
@@ -652,11 +1145,14 @@ class LLMEngine:
                 seq = np.concatenate([req.prompt,
                                       np.asarray(req.tokens, np.int32)])
                 self.mgr.commit_prefix(
-                    rid, seq[:min(len(seq), int(self.cur[slot]))])
+                    rid, seq[:min(len(seq), int(self.cur[slot]))],
+                    adapter=req.adapter_id)
             self.mgr.free(rid)
             self.kv.release(rid)
             self.active[slot] = False
             self.slot_req[slot] = -1
+            self.slot_aidx[slot] = -1
+            self._release_adapter(rid)
         return [(rid, token)]
 
     # --------------------------------------------------------------- tick
@@ -713,12 +1209,14 @@ class LLMEngine:
         admit    requests waiting for admission (the scheduler runs)
         prefill  chunked prefill in flight
         finish   no active slot (the drain emits the tail; run() ends)
+        adapter  multi-LoRA rows compose per-slot corrections host-side
         window   sliding-window recycling mutates tables every tick
+        spec     draft-and-verify samples on the host this tick
         growth   a slot would cross a block boundary within the window
 
         The reference's other reasons — ``mode`` (prefill-only replica,
-        cp > 1), ``beam``, ``grammar``, ``adapter`` and ``spec`` — cannot
-        arise while the port refuses those features."""
+        cp > 1), ``beam`` and ``grammar`` — cannot arise while the port
+        refuses those features."""
         if self.queue:
             return "admit"
         if self.prefilling:
@@ -726,8 +1224,12 @@ class LLMEngine:
         act = self.active
         if not act.any():
             return "finish"
+        if self._adapter_pins:
+            return "adapter"
         if self.window is not None:
             return "window"
+        if self._spec_would_run():
+            return "spec"
         # the host ``cur`` mirror lags by the window length: the tick
         # about to be dispatched writes position cur + len(win), which
         # must already have a table entry (cruise never mutates tables)
@@ -845,25 +1347,39 @@ class LLMEngine:
         emitted += self._prefill_chunks()
         if not self.active.any():
             return emitted
+        # speculative draft-and-verify for eligible slots; the one-token
+        # tick then covers only what speculation did not handle (final-
+        # token slots, a fallback after an injected verify fault)
+        spec_handled = np.zeros(self.num_slots, bool)
+        if self._spec_on():
+            elig = self.active & (self.max_gen - self.gen >= 2)
+            if elig.any():
+                spec_handled, spec_emitted = self._spec_tick(elig)
+                emitted += spec_emitted
+        run_mask = self.active & ~spec_handled
+        if not run_mask.any():
+            return emitted
         if self._is_moe:
             # chaos: fires BEFORE table growth and the tick's in-place
             # cache writes, so an injected exception aborts the tick with
             # the cache, tables and table_len untouched — cancel/free
             # reclaims every block and assert_quiescent stays clean
             fault_point("serving.moe_dispatch", engine=self,
-                        slots=np.nonzero(self.active)[0])
+                        slots=np.nonzero(run_mask)[0])
         if self.cache.k_scale_store:
             # chaos: the tick's quantize-on-write is about to run (int8
             # pools only). Fires before table growth and the in-place
             # writes, so an injected exception leaves pools, scale pools,
             # tables and the ledger untouched (exception-atomic)
             fault_point("serving.kv_quant", engine=self,
-                        slots=np.nonzero(self.active)[0])
-        rows, cols, vals = self._grow_tables(self.active.copy())
+                        slots=np.nonzero(run_mask)[0])
+        rows, cols, vals = self._grow_tables(run_mask)
         # growth may have preempted slots — recompute the mask after it
-        run_mask = self.active.copy()
+        run_mask = self.active & ~spec_handled
+        d_aidx = np.where(run_mask, self.slot_aidx, -1)
         nxt = self.exe.decode_tick(self.last_tok, run_mask, rows, cols,
-                                   vals, self.temps, self.top_ps)
+                                   vals, self.temps, self.top_ps,
+                                   lora=self._lora_arg(d_aidx, 1))
         self.cur += run_mask
         for slot in np.nonzero(run_mask)[0]:
             emitted += self._emit(int(slot), int(nxt[slot]))

@@ -1,11 +1,17 @@
 """ModelExecutor: the device half of the engine — counterpart of
 ``paddle_tpu/serving/executor.py`` (single device).
 
-Owns the paged KV cache and the sampling generator, and runs the
-forwards the tick needs: slot-aware prefill, chunked prefill, the fused
-decode tick (and its pipelined twin), the radix prefix cache's block
-copies, and row sampling. Callers hand in fixed-shape numpy staging
-arrays; the forwards update the cache in place (see ``models/paged.py``).
+Owns the paged KV cache, the draft model's dense cache and the sampling
+generator, and runs the forwards the tick needs: slot-aware prefill,
+chunked prefill, the speculative verify chunk and length rewind, the
+draft model's row forward, the fused decode tick (and its pipelined
+twin), the radix prefix cache's block copies, and row sampling. Callers
+hand in fixed-shape numpy staging arrays; the forwards update the caches
+in place (see ``models/paged.py``). ``lora`` arguments are the engine's
+host description of a multi-LoRA batch (``{"perm", "inv", "gs",
+"aidx"}`` int32 numpy arrays, see ``models/paged.py`` ``_lora_delta``);
+the executor adds the adapter store's stacks and moves the indices to
+the device.
 
 On a CUDA device the decode tick is the port's counterpart of the
 reference's jitted tick: a :class:`TickGraph`, the tick's device work
@@ -16,10 +22,13 @@ into a static device buffer; the sampled tokens come back through one
 pinned buffer, and waiting for them is the tick's only synchronisation.
 The async tick is a second graph whose loop state (tokens, stop mask,
 tokens generated, their limit, EOS) stays on the device between
-replays. Both are captured when the executor is built, so their cost is
-the engine's start-up and a capture that fails raises from the
-constructor: there is no eager fallback. On the CPU the same functions
-run eagerly.
+replays. With an adapter store, a third graph is the tick with the
+multi-LoRA correction: it reads the store's stacks (uploads write into
+them in place) and static index buffers that each such tick fills
+before the replay; a tick with no adapter row replays the base graph.
+All are captured when the executor is built, so their cost is the
+engine's start-up and a capture that fails raises from the constructor:
+there is no eager fallback. On the CPU the same functions run eagerly.
 """
 from __future__ import annotations
 
@@ -29,13 +38,18 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.random import generator
-from paddle_tpu_torch.models.decoding import _sample_rows
+from paddle_tpu_torch.models.decoding import KVCache, _sample_rows
 from paddle_tpu_torch.models.paged import (PagedKVCache, decode_tick_rows,
                                            llama_decode_tick,
                                            llama_decode_tick_async,
                                            llama_prefill_chunk_paged,
-                                           llama_prefill_paged, model_config,
-                                           prefix_cow_update)
+                                           llama_prefill_paged,
+                                           llama_verify_chunk_paged,
+                                           model_config, prefix_cow_update,
+                                           spec_rewind_lens)
+from paddle_tpu_torch.models.speculative import _forward_rows
+
+_LORA_KEYS = ("perm", "inv", "aidx", "gs")
 
 
 def _cache_ptrs(cache) -> tuple:
@@ -126,11 +140,15 @@ class ModelExecutor:
     ``async_depth``: the most async ticks the engine keeps in flight.
     ``tick_log``: None, or a list that each decode tick on the card
     appends (kind, wall seconds of the call, start event, end event) to,
-    the events around its replay."""
+    the events around its replay. ``adapter_store``: the engine's
+    ``AdapterStore`` (multi-LoRA ticks); ``draft_model``: the
+    speculative draft, decoding into a dense cache of ``max_seq_len +
+    spec_k + 2`` positions a slot."""
 
     def __init__(self, model, *, num_slots, num_blocks, block_size,
                  max_blocks_per_seq, top_k=None, seed=0, kv_dtype=None,
-                 async_depth=0, device):
+                 async_depth=0, adapter_store=None, draft_model=None,
+                 spec_k=4, max_seq_len=None, device):
         cfg = model_config(model)
         self.model = model
         self.top_k = top_k
@@ -144,65 +162,116 @@ class ModelExecutor:
             device=self.device)
         self.num_slots = num_slots
         self.async_depth = int(async_depth)
+        self.adapter_store = adapter_store
+        self.draft_model = draft_model
+        self.draft_cache = None
+        if draft_model is not None:
+            dcfg = model_config(draft_model)
+            self.draft_cache = KVCache.init(
+                dcfg.num_hidden_layers, num_slots, max_seq_len + spec_k + 2,
+                dcfg.num_key_value_heads,
+                dcfg.hidden_size // dcfg.num_attention_heads, dcfg.dtype,
+                device=self.device)
         self.tick_log = None
-        self._tick = self._atick = None          # the captured graphs
+        # the captured graphs: the synchronous tick, the async tick, the
+        # multi-LoRA tick; _last: the graph of the last synchronous tick
+        self._tick = self._atick = self._ltick = self._last = None
         self._async = None          # the CPU's async loop state
         if self.device.type == "cuda":
             self._capture_tick()
             if self.async_depth:
                 self._capture_async()
+            if adapter_store is not None:
+                self._capture_lora()
 
     # ------------------------------------------------------------ prefill
-    def prefill(self, ids, lens, slots, rows):
+    def _lora(self, lora):
+        """The forwards' multi-LoRA dict from the engine's host index
+        arrays: the store's stacks plus the indices on the device."""
+        if lora is None:
+            return None
+        dev = {k: torch.as_tensor(np.asarray(lora[k], np.int32),
+                                  device=self.device) for k in _LORA_KEYS}
+        return {**self.adapter_store.stacks(), **dev}
+
+    def prefill(self, ids, lens, slots, rows, lora=None):
         """Slot-aware padded prefill: admitted prompts written into their
         cache slots while other slots keep their decode state."""
         logits, self.cache = llama_prefill_paged(
             self.model, torch.as_tensor(ids, device=self.device), lens,
-            self.cache, slots, rows)
+            self.cache, slots, rows, lora=self._lora(lora))
         return logits
 
-    def prefill_chunk(self, ids, lens, offs, slots, rows):
+    def prefill_chunk(self, ids, lens, offs, slots, rows, lora=None):
         """One chunk per row, written from an arbitrary offset over the
         slot's pool prefix (chunked prefill / prefix-cache resume)."""
         logits, self.cache = llama_prefill_chunk_paged(
             self.model, torch.as_tensor(ids, device=self.device), lens, offs,
-            self.cache, slots, rows)
+            self.cache, slots, rows, lora=self._lora(lora))
         return logits
+
+    def verify_chunk(self, ids, clens, offs, slot_ids, rows, lora=None):
+        """Target forward over each slot's proposal window (speculative
+        verify): the chunk program with every position's logits [A, C,
+        V]."""
+        logits, self.cache = llama_verify_chunk_paged(
+            self.model, torch.as_tensor(ids, device=self.device), clens,
+            offs, self.cache, slot_ids, rows, lora=self._lora(lora))
+        return logits
+
+    def rewind_lens(self, slots, lens):
+        """Length-only rewind after a partial speculative accept."""
+        self.cache = spec_rewind_lens(self.cache, slots, lens)
+
+    def draft_rows(self, ids, rp, cl):
+        """One draft-model forward over per-row chunks of the dense draft
+        cache (the speculative proposal feeds); logits [B, C, V]."""
+        return _forward_rows(self.draft_model, ids, self.draft_cache, rp,
+                             cl)
 
     # ------------------------------------------------------------- decode
     @property
     def graph_pool_bytes(self) -> int:
         """Device memory the captured ticks' private pools reserved."""
-        return sum(g.pool_bytes for g in (self._tick, self._atick)
-                   if g is not None)
+        return sum(g.pool_bytes for g in (self._tick, self._atick,
+                                          self._ltick) if g is not None)
 
     def decode_tick(self, last_tok, run_mask, rows, cols, vals, temps,
-                    top_ps):
+                    top_ps, lora=None):
         """The fused one-token tick: incremental table update + paged
-        attention + on-device sampling. Returns the sampled [num_slots]
-        tokens as numpy (the one per-tick device-to-host fetch)."""
+        attention (+ the multi-LoRA correction when ``lora`` is given) +
+        on-device sampling. Returns the sampled [num_slots] tokens as
+        numpy (the one per-tick device-to-host fetch)."""
         if self.device.type != "cuda":
             nxt, _, self.cache = llama_decode_tick(
                 self.model, last_tok, self.cache, run_mask, rows, cols, vals,
-                self.gen, temps, top_ps, self.top_k)
+                self.gen, temps, top_ps, self.top_k, lora=self._lora(lora))
             return nxt.cpu().numpy()
         t0 = time.perf_counter()
         self._update_tables(rows, cols, vals)
         st = self._stage_np
         st[0], st[1], st[2], st[3] = last_tok, run_mask, temps, top_ps
         self._inp.copy_(self._stage, non_blocking=True)
-        ev = self._replay(self._tick)
-        self._out_host.copy_(self._tick.out[0], non_blocking=True)
+        g = self._tick
+        if lora is not None:
+            g = self._ltick
+            li = self._l_stage_np
+            for i, k in enumerate(_LORA_KEYS):
+                li[self._l_at[i]:self._l_at[i + 1]] = lora[k]
+            self._l_idx.copy_(self._l_stage, non_blocking=True)
+        ev = self._replay(g)
+        self._last = g
+        self._out_host.copy_(g.out[0], non_blocking=True)
         self._done.record()
         self._done.synchronize()
-        self._log("sync", t0, ev)
+        self._log("lora" if lora is not None else "sync", t0, ev)
         return self._out_host.numpy().copy()
 
     @property
     def tick_logits(self):
         """The fp32 logits [num_slots, V] of the last replayed synchronous
-        tick on the card (the graph's output buffer)."""
-        return self._tick.out[1]
+        tick on the card (that graph's output buffer)."""
+        return self._last.out[1]
 
     def _capture_tick(self):
         """Static buffers and the synchronous tick's graph. ``_inp`` [4, B]
@@ -227,6 +296,34 @@ class ModelExecutor:
                                     inp[1] > 0.5, self.gen, inp[2].float(),
                                     inp[3].float(), self.top_k)
         self._tick = TickGraph(tick, self.cache, self.gen)
+        self._last = self._tick
+
+    def _capture_lora(self):
+        """The multi-LoRA tick's graph: the synchronous tick's inputs plus
+        ``_l_idx``, one int32 device buffer holding perm, inv, aidx [B]
+        and gs [cap] (filled through one pinned buffer before each
+        replay), over the store's stacks. Captured with no adapter row
+        (every group empty), so the warm-up runs no product."""
+        b, cap = self.num_slots, self.adapter_store.capacity
+        self._l_at = (0, b, 2 * b, 3 * b, 3 * b + cap)
+        self._l_stage = torch.zeros(3 * b + cap, dtype=torch.int32,
+                                    pin_memory=True)
+        self._l_stage_np = self._l_stage.numpy()
+        self._l_idx = torch.zeros(3 * b + cap, dtype=torch.int32,
+                                  device=self.device)
+        at = self._l_at
+        idx = {k: self._l_idx[at[i]:at[i + 1]]
+               for i, k in enumerate(_LORA_KEYS)}
+        idx["aidx"].fill_(-1)
+
+        def tick():
+            inp = self._inp
+            return decode_tick_rows(self.model, inp[0].long(), self.cache,
+                                    inp[1] > 0.5, self.gen, inp[2].float(),
+                                    inp[3].float(), self.top_k,
+                                    lora={**self.adapter_store.stacks(),
+                                          **idx})
+        self._ltick = TickGraph(tick, self.cache, self.gen)
 
     def _update_tables(self, rows, cols, vals):
         """``_grow_tables``' sparse update (sentinel rows dropped) applied

@@ -7,8 +7,11 @@ victim policy, and mutates slot/ledger state only through the
 orchestrating :class:`~paddle_tpu_torch.serving.engine.LLMEngine`
 (``eng``). Admission order, the capacity gates and the victim choices
 are the reference's, decision for decision, so both engines serve the
-same request mix through the same ticks. Tenant fair-share, rate limits
-and the degradation ladder's shedding are queued (ROADMAP.md queue 1).
+same request mix through the same ticks. A request carrying a LoRA
+``adapter_id`` is admitted only once the engine's ``AdapterStore`` has
+made its adapter device-resident and pinned it; the radix prefix cache
+keeps one trie per adapter. Tenant fair-share, rate limits and the
+degradation ladder's shedding are queued (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ from collections import deque
 
 import numpy as np
 
-from paddle_tpu_torch.serving.telemetry import (_ADMITTED, _PREEMPTED,
+from paddle_tpu_torch.serving.telemetry import (_ADAPTER_DEFERRALS,
+                                                _ADMITTED, _PREEMPTED,
                                                 _QUEUE_WAIT, _REJECTED)
 from paddle_tpu_torch.serving.types import (EngineDrainingError,
                                             QueueFullError, Request)
@@ -106,7 +110,7 @@ class Scheduler:
         if (memo is not None and epoch is not None
                 and memo[0] == epoch and memo[1] == len(p)):
             return memo[2]
-        m = kv.mgr.match_prefix(p)
+        m = kv.mgr.match_prefix(p, adapter=req.adapter_id)
         if epoch is not None:
             req._match_memo = (epoch, len(p), m)
         return m
@@ -141,6 +145,19 @@ class Scheduler:
             if need > kv.free_blocks - kv.reserved:
                 kv.record_stall(need)
                 break
+            if req.adapter_id is not None and eng._multilora_on():
+                # make the adapter device-resident and PIN it before the
+                # request can touch a slot. Failure (cache fully pinned,
+                # or an injected serving.adapter_swap fault) defers the
+                # admission — the request stays queued, retried next
+                # tick, and nothing was mutated (the fault site fires
+                # before the upload; acquire is exception-atomic)
+                try:
+                    eng.adapter_store.acquire(req.adapter_id)
+                except Exception:
+                    _ADAPTER_DEFERRALS.inc()
+                    break
+                eng._adapter_pins[req.req_id] = req.adapter_id
             self.queue.popleft()
             req._match_memo = None
             req._adopted = ct
@@ -165,7 +182,7 @@ class Scheduler:
                 continue
             kv.allocate(req.req_id, len(p))
             if eng.prefix_caching:
-                kv.mgr.commit_prefix(req.req_id, p)
+                kv.mgr.commit_prefix(req.req_id, p, adapter=req.adapter_id)
             kv.update(req.req_id)
             admits.append((slot, req))
         return admits
@@ -207,9 +224,11 @@ class Scheduler:
         slot, consumed = eng.prefilling.pop(rid)
         req = self.requests[rid]
         if eng.prefix_caching and consumed:
-            eng.kv.mgr.commit_prefix(rid, eng._pr(req)[:consumed])
+            eng.kv.mgr.commit_prefix(rid, eng._pr(req)[:consumed],
+                                     adapter=req.adapter_id)
         eng.kv.free(rid)
         eng.kv.release(rid)
+        eng._release_adapter(rid)
         eng.slot_req[slot] = -1
         self.queue.appendleft(req)
         eng.stats["preemptions"] += 1
@@ -238,11 +257,15 @@ class Scheduler:
             # frontier ``cur`` (the newest sampled token has no KV yet)
             eng.kv.mgr.commit_prefix(
                 rid, req._resume[:min(len(req._resume),
-                                      int(eng.cur[slot]))])
+                                      int(eng.cur[slot]))],
+                adapter=req.adapter_id)
         eng.kv.free(rid)
         eng.kv.release(rid)
+        eng._release_adapter(rid)
         eng.active[slot] = False
         eng.slot_req[slot] = -1
+        eng.slot_aidx[slot] = -1
+        eng.draft_cur[slot] = 0     # the draft cache is freed with the slot
         self.queue.appendleft(req)
         eng.stats["preemptions"] += 1
         _PREEMPTED.inc()

@@ -77,3 +77,44 @@ _ASYNC_DRAINS = METRICS.counter(
     "cover, by cause (admit, prefill, window, growth, finish, cancel, "
     "exception, boundary)",
     labelnames=("why",))
+# speculative decoding: proposal/acceptance accounting plus the per-tick
+# commit size — tokens_per_tick > 1 is the whole point
+_SPEC_PROPOSED = METRICS.counter(
+    "serving_spec_proposed_total", "draft tokens proposed for verification")
+_SPEC_ACCEPTED = METRICS.counter(
+    "serving_spec_accepted_total", "draft tokens accepted by the target")
+_SPEC_FALLBACKS = METRICS.counter(
+    "serving_spec_fallbacks_total",
+    "spec ticks abandoned before verify (fault injection) — the engine "
+    "fell back to the one-token tick")
+_SPEC_RATE = METRICS.gauge(
+    "serving_spec_acceptance_rate",
+    "cumulative accepted/proposed draft-token ratio")
+_SPEC_TOKENS = METRICS.histogram(
+    "serving_spec_tokens_per_tick",
+    "tokens committed per slot per speculative tick",
+    buckets=(1, 2, 3, 4, 5, 6, 8, 12, 16))
+_SPEC_DRAFT_REUSE = METRICS.counter(
+    "serving_spec_draft_reuse_tokens_total",
+    "draft-cache positions adopted from a slot's resident draft K/V at "
+    "activation (radix prefix hits whose draft-side re-prefill was "
+    "skipped entirely)")
+# adapter cache (batched multi-LoRA): device-resident stacked A/B slots
+_ADAPTER_UPLOADS = METRICS.counter(
+    "serving_adapter_uploads_total",
+    "host→device adapter uploads into the stacked LoRA cache")
+_ADAPTER_EVICTIONS = METRICS.counter(
+    "serving_adapter_evictions_total",
+    "resident adapters evicted (LRU) to make room for an upload")
+_ADAPTER_HITS = METRICS.counter(
+    "serving_adapter_cache_hits_total",
+    "adapter lookups served by the device-resident cache")
+_ADAPTER_MISSES = METRICS.counter(
+    "serving_adapter_cache_misses_total",
+    "adapter lookups that required a host→device upload")
+_ADAPTER_RESIDENT = METRICS.gauge(
+    "serving_adapter_resident", "adapters resident in the device cache")
+_ADAPTER_DEFERRALS = METRICS.counter(
+    "serving_adapter_admit_deferrals_total",
+    "admissions deferred because the adapter could not be made resident "
+    "(cache fully pinned, or an injected serving.adapter_swap fault)")

@@ -1399,3 +1399,271 @@ def test_async_engine_on_card_matches_the_synchronous_engine(temperature):
     got, kinds2 = serve(2)
     assert got == sync
     assert kinds0 == {"sync"} and "async" in kinds2
+
+
+# ------------------------------------- multi-LoRA and speculative decoding
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [4, 8, 16])
+@pytest.mark.parametrize("cap,sizes", [(4, (3, 0, 2, 1)), (1, (6,))])
+@pytest.mark.parametrize("rows", [8, 8 * 128])
+def test_grouped_matmul_at_lora_shapes_matches_plain(rank, cap, sizes,
+                                                     rows):
+    """K6a at the multi-LoRA shapes (fp32, the store's type): ``x [m,
+    4096] x A [cap, 4096, r]`` and ``t [m, r] x B [cap, r, 12288 | 4096]``
+    at decode (8 rows: the few-rows route) and at prefill (8 x 128 rows:
+    the FMA route), with an empty group and a null-adapter tail past the
+    groups' total (left out: the caller masks it), against the plain
+    version; the route is ``fwd_route``'s from the static shapes, counted
+    once by the wrapper, never the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(rank * 10 + cap)
+    scale = rows // 8
+    sz = torch.tensor([s * scale for s in sizes], dtype=torch.int32,
+                      device=dev)
+    live = torch.arange(rows, device=dev) < int(sz.sum())
+    want_route = "rows" if rows == 8 else "fma"
+    for k, n in ((4096, rank), (rank, 12288), (rank, 4096)):
+        lhs = torch.randn(rows, k, generator=g, device=dev)
+        rhs = torch.randn(cap, k, n, generator=g, device=dev) * k ** -0.5
+        before = dict(TG.grouped_matmul.route_launches)
+        got = TG.grouped_matmul(lhs, rhs, sz)
+        after = TG.grouped_matmul.route_launches
+        assert TG.fwd_route(rows, cap, k, n, torch.float32) == want_route
+        assert {r: c - before[r] for r, c in after.items()
+                if c != before[r]} == {want_route: 1}
+        ref = TG.grouped_matmul_plain(lhs, rhs, sz)
+        d = (got[live] - ref[live]).abs() / (1 + ref[live].abs())
+        assert float(d.max()) <= 1e-4, (k, n)
+    # a width no 16-byte load tiles is routed to the FMA kernel
+    assert TG.fwd_route(8, cap, 4096, 6, torch.float32) == "fma"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+def test_paged_chunk_at_verify_width_matches_plain(mode):
+    """K3 at the speculative verify width: 8 rows of at most spec_k + 1 =
+    5 queries (32 heads over 32 KV heads, D 128) at offsets whose chunk
+    crosses a 16-token block boundary, over a float32, bf16 and int8 pool
+    (fp32 scales), against the plain version; padding queries past each
+    row's chunk length are left out."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    nb, bs, h, d, mb = 64, 16, 32, 128, 32
+    kp = torch.randn(nb, bs, h, d, generator=g, device=dev)
+    vp = torch.randn(nb, bs, h, d, generator=g, device=dev)
+    tables = torch.randperm(nb, generator=g, device=dev)[:8 * 8].reshape(
+        8, 8)
+    tables = torch.cat([tables, torch.full((8, mb - 8), nb, device=dev)],
+                       1).int()
+    offs = torch.tensor([15, 31, 47, 60, 79, 100, 111, 123], device=dev)
+    cls = torch.tensor([5, 5, 4, 5, 3, 5, 2, 5], device=dev)
+    q = torch.randn(8, 5, h, d, generator=g, device=dev)
+    kw, tol = {}, 1e-4
+    if mode == "int8":
+        kq = torch.clamp(kp.abs().amax(-1), min=1e-8) / 127.0
+        vq = torch.clamp(vp.abs().amax(-1), min=1e-8) / 127.0
+        kw = dict(k_scale=kq, v_scale=vq)
+        kp = torch.round(kp / kq[..., None]).to(torch.int8)
+        vp = torch.round(vp / vq[..., None]).to(torch.int8)
+        q, tol = q.bfloat16(), 2e-2
+    elif mode == "bf16":
+        q, kp, vp, tol = q.bfloat16(), kp.bfloat16(), vp.bfloat16(), 2e-2
+    got = TPA.paged_chunk_attention(q, kp, vp, tables, offs, cls, **kw)
+    ref = TPA.paged_chunk_attention_plain(q, kp, vp, tables, offs, cls,
+                                          **kw)
+    live = torch.arange(5, device=dev)[None, :] < cls[:, None]
+    d_ = (got[live].float() - ref[live].float()).abs() / (
+        1 + ref[live].float().abs())
+    assert float(d_.max()) <= tol
+
+
+def _lora_model_and_store(dtype=torch.bfloat16, capacity=2):
+    """A narrow Llama on the card (head dim 128, 2 layers) and an adapter
+    store over it; adapters from ``_lora_sd`` (``chip_smoke.lora_sd``)."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving.adapters import AdapterStore
+    model = LlamaForCausalLM(LlamaConfig.tiny(
+        hidden_size=256, intermediate_size=512, num_attention_heads=2,
+        num_key_value_heads=1, vocab_size=512, dtype=dtype), device="cuda")
+    return model, AdapterStore(model, capacity=capacity, max_rank=8)
+
+
+def _lora_sd(model, seed, r):
+    import numpy as np
+
+    import chip_smoke
+    return chip_smoke.lora_sd(model, np, seed, r)
+
+
+def _lora_decoding_engine(model, store, aids):
+    import numpy as np
+
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    eng = LLMEngine(model, adapter_store=store, num_slots=len(aids),
+                    block_size=16, max_prompt_len=64, max_seq_len=128,
+                    seed=0)
+    rs = np.random.RandomState(1)
+    for n, aid in zip((9, 30, 50, 60), aids):
+        eng.add_request(Request(rs.randint(0, 512, n), max_new_tokens=32,
+                                adapter_id=aid))
+    while not (eng.active.all() and eng.stats["ticks"] >= 2):
+        eng.step()
+    return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["grouped", "gather"])
+def test_lora_graph_tick_matches_the_eager_lora_tick(impl, monkeypatch):
+    """With an adapter store the executor captures a third graph: the tick
+    with the multi-LoRA correction (K6a, or the dense gather baseline).
+    From one cache state its replay gives the eager LoRA tick's tokens,
+    bit-identical log-probabilities and cache (rows on two adapters and
+    the base); its capture counted four K6a launches a layer (grouped)
+    or none (gather)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import numpy as np
+
+    import chip_smoke
+    monkeypatch.setenv("PT_MULTILORA_IMPL", impl)
+    model, store = _lora_model_and_store()
+    store.register("a", _lora_sd(model, 1, 8))
+    store.register("b", _lora_sd(model, 2, 4))
+    eng = _lora_decoding_engine(model, store, ["a", None, "b", "a"])
+    lora = eng._lora_arg(np.where(eng.active, eng.slot_aidx, -1), 1)
+    res = chip_smoke.graph_against_eager(torch, eng, lora=lora)
+    assert res["tokens_equal"] and res["logp_bit_equal"], res
+    assert res["cache_bit_equal"], res
+    assert eng.exe._ltick.launches.get("grouped_fwd", 0) == (
+        4 * model.cfg.num_hidden_layers if impl == "grouped" else 0)
+
+
+@pytest.mark.cuda
+def test_adapter_uploaded_after_capture_is_read_by_the_next_replay():
+    """The LoRA graph is captured when the engine is built, before any
+    adapter exists; an adapter registered and uploaded afterwards (in
+    place into the store's stacks) is what the next replay reads: the
+    replay equals the eager LoRA tick bit for bit, and its stream equals
+    the same request served on the CPU (fp32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import numpy as np
+
+    import chip_smoke
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    from paddle_tpu_torch.serving.adapters import AdapterStore
+    model, store = _lora_model_and_store(torch.float32)
+    eng = LLMEngine(model, adapter_store=store, num_slots=2, block_size=16,
+                    max_prompt_len=64, max_seq_len=128, seed=0)
+    ptrs = {k: v.data_ptr() for k, v in store.stacks().items()}
+    store.register("late", _lora_sd(model, 3, 8))
+    rs = np.random.RandomState(4)
+    prompt = rs.randint(0, 512, 20)
+    eng.exe.tick_log = []
+    rid = eng.add_request(Request(prompt, max_new_tokens=12,
+                                  adapter_id="late"))
+    eng.run()
+    eng.assert_quiescent()
+    assert {k: v.data_ptr() for k, v in store.stacks().items()} == ptrs
+    assert {k for k, *_ in eng.exe.tick_log} == {"lora"}
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    cpu = LlamaForCausalLM(model.cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    cstore = AdapterStore(cpu, capacity=2, max_rank=8)
+    cstore.register("late", _lora_sd(model, 3, 8))
+    ceng = LLMEngine(cpu, adapter_store=cstore, num_slots=2, block_size=16,
+                     max_prompt_len=64, max_seq_len=128, device="cpu")
+    crid = ceng.add_request(Request(prompt, max_new_tokens=12,
+                                    adapter_id="late"))
+    ceng.run()
+    assert eng.requests[rid].tokens == ceng.requests[crid].tokens
+    store.register("late2", _lora_sd(model, 5, 8))
+    eng2 = _lora_decoding_engine(model, store, ["late2", None])
+    res = chip_smoke.graph_against_eager(
+        torch, eng2, lora=eng2._lora_arg(
+            np.where(eng2.active, eng2.slot_aidx, -1), 1))
+    assert res["tokens_equal"] and res["logp_bit_equal"], res
+
+
+@pytest.mark.cuda
+def test_empty_store_leaves_the_base_graph_untouched():
+    """An engine with an adapter store but no adapter row replays the
+    base graph only, and its greedy streams and per-tick launches equal a
+    storeless engine's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import numpy as np
+
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    model, store = _lora_model_and_store()
+    rs = np.random.RandomState(6)
+    prompts = [rs.randint(0, 512, n) for n in (9, 30, 50, 17)]
+    out = []
+    for s in (None, store):
+        eng = LLMEngine(model, adapter_store=s, num_slots=2, block_size=16,
+                        max_prompt_len=64, max_seq_len=128, seed=0)
+        eng.exe.tick_log = []
+        ids = [eng.add_request(Request(p, max_new_tokens=16))
+               for p in prompts]
+        eng.run()
+        eng.assert_quiescent()
+        kinds = {k for k, *_ in eng.exe.tick_log}
+        out.append(([eng.requests[i].tokens for i in ids], kinds,
+                    eng.exe._tick.launches))
+    assert out[0][0] == out[1][0]
+    assert out[0][1] == out[1][1] == {"sync"}
+    assert out[0][2] == out[1][2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draft", ["self", "unrelated", "int8_pool"])
+def test_spec_engine_on_card_matches_cpu(draft):
+    """Speculative decoding on the card (fp32: the verify on K3, the draft
+    through K1 and K7, the rewind) gives the CPU's greedy streams token
+    for token, which equal the non-speculative engine's; over an int8
+    pool the verify reads K3's int8 mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import numpy as np
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    kw = dict(hidden_size=256, intermediate_size=512, num_attention_heads=2,
+              num_key_value_heads=1, vocab_size=512, dtype=torch.float32)
+    models = {}
+    for dev in ("cpu", "cuda"):
+        t = LlamaForCausalLM(LlamaConfig.tiny(**kw), device=dev)
+        d = (t if draft != "unrelated" else LlamaForCausalLM(
+            LlamaConfig.tiny(**{**kw, "num_hidden_layers": 1}), device=dev,
+            seed=1))
+        models[dev] = (t, d)
+    for n in ("cuda",):
+        models[n][0].load_state_dict(models["cpu"][0].state_dict())
+        models[n][1].load_state_dict(models["cpu"][1].state_dict())
+    rs = np.random.RandomState(7)
+    prompts = [rs.randint(0, 512, n) for n in (9, 70, 33, 5)]
+    ekw = dict(num_slots=3, block_size=16, max_prompt_len=64,
+               max_seq_len=160, kv_dtype="int8" if draft == "int8_pool"
+               else None)
+    streams = {}
+    K.reset_launches()
+    for dev, (t, d) in models.items():
+        for spec in (False, True):
+            eng = LLMEngine(t, draft_model=d if spec else None, spec_k=4,
+                            device=dev, **ekw)
+            ids = [eng.add_request(Request(p, max_new_tokens=20))
+                   for p in prompts]
+            eng.run()
+            eng.assert_quiescent()
+            if spec:
+                assert eng.stats["spec_ticks"] > 0
+            streams[dev, spec] = [eng.requests[i].tokens for i in ids]
+    assert streams["cuda", True] == streams["cpu", True] == \
+        streams["cuda", False]
+    k3 = "paged_chunk_i8" if draft == "int8_pool" else "paged_chunk"
+    assert K.launches()[k3] > 0

@@ -92,7 +92,7 @@ def test_eos_cancel_drain_and_refusals():
     eng2.assert_quiescent()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         eng2.add_request(Request([1, 2], num_beams=2))
-    for kw in (dict(cp=2), dict(draft_model=tm)):
+    for kw in (dict(cp=2), dict(degrade=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             LLMEngine(tm, **kw)
 

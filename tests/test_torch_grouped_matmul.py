@@ -228,15 +228,22 @@ def test_dw_route_names_a_kernel_for_every_shape_and_dtype(case, dtype):
 
 
 def test_reset_launches_zeroes_the_per_kernel_counts():
-    """K6b counts each kernel's launches apart from its total, and
-    reset_launches zeroes both, as a path's run needs before it counts."""
+    """K6a and K6b count each kernel's launches apart from their totals,
+    and reset_launches zeroes both, as a path's run needs before it
+    counts."""
     from paddle_tpu_torch.ops import cuda as K
     GM.grouped_dw.launches = 3
     GM.grouped_dw.route_launches.update(wgmma=2, fma=1)
+    GM.grouped_matmul.launches = 4
+    GM.grouped_matmul.route_launches.update(rows=1, wgmma=2, fma=1)
     assert K.route_launches()["grouped_dw"] == {"wgmma": 2, "fma": 1}
+    assert K.route_launches()["grouped_fwd"] == {"rows": 1, "wgmma": 2,
+                                                 "fma": 1}
     K.reset_launches()
-    assert GM.grouped_dw.launches == 0
-    assert K.route_launches() == {"grouped_dw": {"wgmma": 0, "fma": 0}}
+    assert GM.grouped_dw.launches == GM.grouped_matmul.launches == 0
+    assert K.route_launches() == {
+        "grouped_fwd": {"rows": 0, "wgmma": 0, "fma": 0},
+        "grouped_dw": {"wgmma": 0, "fma": 0}}
 
 
 # groups that straddle the 64-row warpgroups and 128-row tiles of the

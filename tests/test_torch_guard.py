@@ -26,7 +26,9 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "paddle_tpu_torch.models.moe_llm, paddle_tpu_torch.models.mistral, "
         "paddle_tpu_torch.models.qwen, paddle_tpu_torch.ops.cuda.rope, "
         "paddle_tpu_torch.serving.quant, paddle_tpu_torch.models.bloom, "
-        "paddle_tpu_torch.models.falcon, paddle_tpu_torch.nn.layers\n"
+        "paddle_tpu_torch.models.falcon, paddle_tpu_torch.nn.layers, "
+        "paddle_tpu_torch.peft, paddle_tpu_torch.serving.adapters, "
+        "paddle_tpu_torch.models.speculative\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
@@ -55,10 +57,11 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_entry_points_default_to_the_card():
-    """The model constructors and the makers of rope tables, KV pools and
-    ALiBi slopes put their tensors on the card when no device is named:
-    without one they raise, and with ``device="cpu"`` they run on the
-    CPU."""
+    """The model constructors and the makers of rope tables, KV pools,
+    ALiBi slopes and seeded generators put their tensors on the card when
+    no device is named: without one they raise, and with ``device="cpu"``
+    they run on the CPU."""
+    from paddle_tpu_torch import generator
     from paddle_tpu_torch.core.device import resolve_device
     from paddle_tpu_torch.models.bloom import alibi_slopes
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
@@ -68,7 +71,8 @@ def test_entry_points_default_to_the_card():
         "rope_cos_sin": lambda **kw: rope_cos_sin(8, 16, **kw)[0],
         "PagedKVCache.init": lambda **kw: PagedKVCache.init(
             1, 4, 4, 1, 16, 2, 2, torch.float32, **kw).k_store[0],
-        "alibi_slopes": lambda **kw: alibi_slopes(6, **kw)}
+        "alibi_slopes": lambda **kw: alibi_slopes(6, **kw),
+        "generator": lambda **kw: generator(0, **kw)}
     for name, make in makers.items():
         assert make(device="cpu").device.type == "cpu", name
     if torch.cuda.is_available():
@@ -125,7 +129,9 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
         "bloom_train": K.ALIBI_TRAIN_KERNELS,
         "falcon_rw_serve": K.ALIBI_SERVE_KERNELS,
         "falcon_rw_train": K.ALIBI_TRAIN_KERNELS,
-        "falcon7b_serve": K.ROPE_GENERATE_KERNELS}
+        "falcon7b_serve": K.ROPE_GENERATE_KERNELS,
+        "lora_serve": K.LORA_SERVE_KERNELS,
+        "spec_serve": K.SPEC_SERVE_KERNELS}
     # K7 rotates every rope of every path; the ALiBi paths (BLOOM,
     # falcon-rw) have no rope and run K2's (and K5's) ALiBi mode instead
     alibi = {p for p in chip_smoke.PATHS if p.startswith(("bloom",

@@ -108,7 +108,7 @@ def test_decode_ticks_match(nkv):
     active = np.array([True, True, True])
     temps = np.zeros(SLOTS, np.float32)
     top_ps = np.ones(SLOTS, np.float32)
-    gen = generator(0)
+    gen = generator(0, device="cpu")
     # tick 1: slot 0 (12 tokens) crosses into table column 3; slot 1
     # (6 tokens) and slot 2 (12 tokens -> column 3 too) grow; one
     # sentinel update row

@@ -51,7 +51,8 @@ def test_filtered_logits_and_greedy_rows_match(monkeypatch, top_k):
         torch.softmax(torch.as_tensor(got), -1).numpy(),
         torch.softmax(torch.as_tensor(seen["scaled"]), -1).numpy(),
         atol=1e-6)
-    toks = _sample_rows(torch.as_tensor(logits), generator(0),
+    toks = _sample_rows(torch.as_tensor(logits),
+                        generator(0, device="cpu"),
                         torch.as_tensor(temps), torch.as_tensor(top_ps),
                         top_k).numpy()
     assert toks[0] == want[0] == logits[0].argmax()     # greedy row
@@ -64,7 +65,8 @@ def test_draws_stay_in_the_nucleus_and_follow_its_softmax():
     top_ps = torch.full((4000,), 0.8)
     scaled = filter_rows(logits, temps, top_ps)[0]
     probs = torch.softmax(scaled, -1).numpy()
-    toks = _sample_rows(logits, generator(3), temps, top_ps).numpy()
+    toks = _sample_rows(logits, generator(3, device="cpu"), temps,
+                        top_ps).numpy()
     assert set(toks) <= set(np.nonzero(probs > 0)[0])
     freq = np.bincount(toks, minlength=8) / len(toks)
     np.testing.assert_allclose(freq, probs, atol=0.03)
