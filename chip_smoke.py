@@ -30,10 +30,14 @@ Phases (each one fails the run when it fails; nothing is caught):
             tolerance (timed eager and replayed from a CUDA graph); K2 at
             the banded timing script's shape (4 heads, S 4096, window 1024
             and full causal); K1, K2 and K4 at Mistral-7B's window shapes;
-            K6a at the multi-LoRA shapes (fp32: x [8 | 1024, 4096] x A
-            [cap, 4096, r] and t x B [cap, r, 12288 | 4096], r 4/8/16,
-            cap 4 and 1, an empty group and a null tail; the few-rows route
-            at decode, the FMA route at prefill) and K3 at the speculative
+            K6a's two multi-LoRA kernels (the shrink t = x[perm] @ A and
+            the expand y += cast(t @ B) in place; x [8, 1 | 5 | 128, 4096]
+            in bf16 and fp32, A [cap, 4096, r], B [cap, r, 12288 | 4096], r
+            4/8/16, cap 4 and 1, an empty group and a null tail; fp32 t and
+            y within 1e-5, bf16 y within one bf16 step; timed eager and
+            from a CUDA graph beside the gather baseline's arithmetic and
+            the unfused composition on the general K6a routes, which are
+            still checked at these shapes) and K3 at the speculative
             verify width (q [8, 5, 32, 128], bf16 / float32 / int8 pools);
             the int8-pool modes of K4 (serve and Mistral window shapes) and
             K3 (serve chunk shape) on int8 pools with fp32 scales, bf16 and
@@ -96,8 +100,8 @@ Phases (each one fails the run when it fails; nothing is caught):
             requests on them (three each), three on the base, the warm-up
             on a fourth adapter; after the fourth step a fifth adapter is
             registered and a request on it must evict the warm-up one
-            (LRU). Every request finishes, K1-K4, K7 and K6a launch (K6a's
-            launches by route); tokens/s, TTFT, the LoRA graph's replays,
+            (LRU). Every request finishes, K1-K4, K7 and K6a's two LoRA
+            kernels launch; tokens/s, TTFT, the LoRA graph's replays,
             wall against device ms a tick, uploads, hits and evictions,
             graph pools. Then the same mix with PT_MULTILORA_IMPL=gather
             (the dense per-row baseline): the grouped-to-gather ratio of
@@ -223,7 +227,7 @@ Phases (each one fails the run when it fails; nothing is caught):
             ``LLMEngine(async_depth=2)``
   lora_anatomy  (only when asked for, after lora_serve) the same for the
             multi-LoRA decode tick: 8 slots on the three adapters and the
-            base (the LoRA graph's kernels, K6a among them)
+            base (the LoRA graph's kernels, K6a's LoRA kernels among them)
   moe_anatomy  (only when asked for) the same for the MoE model's decode
             tick (with ``moe_serve``) and train step (with ``moe_train``)
   quant_anatomy  (only when asked for) the same for the quantized model's
@@ -310,6 +314,11 @@ SOURCES = {
                     "paddle_tpu/ops/pallas/grouped_matmul.py:133"),
     "grouped_dw": ("paddle_tpu_torch/csrc/grouped_matmul.cu",
                    "paddle_tpu/ops/pallas/grouped_matmul.py:178"),
+    # K6a at the multi-LoRA call site: the rank-r shrink and the expand
+    "lora_shrink": ("paddle_tpu_torch/csrc/grouped_lora.cu",
+                    "paddle_tpu/ops/pallas/grouped_matmul.py:133"),
+    "lora_expand": ("paddle_tpu_torch/csrc/grouped_lora.cu",
+                    "paddle_tpu/ops/pallas/grouped_matmul.py:133"),
     "rope": ("paddle_tpu_torch/csrc/rope.cu",
              "paddle_tpu/ops/pallas/rope.py:14"),
     # the ALiBi mode of K2, K5a and K5b (``_alibi_add`` in each kernel)
@@ -348,7 +357,7 @@ PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
                              "flash_bwd_dkv_alibi"),
          "falcon7b_serve": ("flash_fwd", "rope"),
          "lora_serve": ("rms_norm", "flash_fwd", "paged_chunk",
-                        "paged_decode", "rope", "grouped_fwd"),
+                        "paged_decode", "rope", "lora_shrink", "lora_expand"),
          "spec_serve": ("rms_norm", "flash_fwd", "paged_chunk",
                         "paged_decode", "rope")}
 # kernels of PATHS that the imported tree does not have (only with --root)
@@ -815,13 +824,13 @@ def phase_kernels(torch, dev):
         results[path]["rope"] = r
     # the async engine serves the serve mix: the same shapes
     results["async_serve"] = results["serve"]
-    # multi-LoRA and speculative serving run the serve mix too: K6a at the
-    # LoRA shapes, K3 at the verify width (the other kernels at the serve
-    # rows' shapes)
+    # multi-LoRA and speculative serving run the serve mix too: K6a's LoRA
+    # kernels at their shapes, K3 at the verify width (the other kernels
+    # at the serve rows' shapes)
     if _port_has("serving.adapters"):
         results["lora_serve"] = {**results["serve"],
-                                 "grouped_fwd": lora_kernel_entries(torch,
-                                                                    dev)}
+                                 **(lora_kernel_entries(torch, dev)
+                                    if "lora_shrink" not in ABSENT else {})}
         results["spec_serve"] = {**results["serve"],
                                  "paged_chunk": verify_kernel_entries(
                                      torch, dev)[0]}
@@ -865,7 +874,7 @@ def _log_entry(label, r):
     log(f"[kernels] {label} ({r['shape']}{how}): {r['ms']:.4f} ms, "
         f"plain {r['plain_ms']:.4f} ms, library "
         f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
-        f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+        f"{r['bound_ms']:.5f} ms ({r['bound_by']}), "
         f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound{graph}")
 
 
@@ -2086,26 +2095,189 @@ def _lora_k6_case(torch, GM, g, m, cap, sizes, k, n, label):
     return lhs, rhs, sz, route, err
 
 
+# K6a's multi-LoRA kernels at Llama-2-7B's LoRA shapes: 8 slots of width
+# 1 (decode), 5 (the speculative verify) and 128 (prefill); each slot's
+# cache index (-1: the base), so that cap 4 has an empty group (1) and both
+# caps a null tail of two slots (at width 1 the sizes [3, 0, 2, 1] and
+# [6] of the general routes' checks below)
+LORA_WIDTHS = {"decode": 1, "verify": 5, "prefill": 128}
+LORA_AIDX = {4: (0, 2, -1, 0, 3, 2, 0, -1), 1: (0, 0, -1, 0, 0, 0, -1, 0)}
+# fp32 results (t, and y in float32) against the plain versions, scaled;
+# bf16 y: one bf16 step (the fp32 correction summed in another order may
+# round to the neighbouring bf16 value, before and after the add)
+LORA_TOL = {"f32": 1e-5, "bf16": 2.0 ** -7}
+
+
+def _lora_inputs(torch, g, cap, width, k, n, r, dt):
+    """x [8, width, k] and y [8, width, n] in ``dt``, A [cap, k, r] ~ N(0,
+    1/k) and B [cap, r, n] ~ N(0, 0.1^2) fp32 (lora_sd's B times the
+    folded scale 2), and the engine's perm / gs for LORA_AIDX[cap]."""
+    import numpy as np
+    dev = g.device
+    aidx = np.asarray(LORA_AIDX[cap])
+    order = np.argsort(np.where(aidx < 0, cap, aidx), kind="stable")
+    gs = np.bincount(aidx[aidx >= 0], minlength=cap) * width
+    x = torch.randn(8, width, k, generator=g, device=dev).to(dt)
+    y = torch.randn(8, width, n, generator=g, device=dev).to(dt)
+    a = torch.randn(cap, k, r, generator=g, device=dev) * k ** -0.5
+    b = torch.randn(cap, r, n, generator=g, device=dev) * 0.1
+    perm = torch.as_tensor(order.astype(np.int32), device=dev)
+    sz = torch.as_tensor(gs.astype(np.int32), device=dev)
+    lora = {"a": a, "b": b, "perm": perm, "gs": sz,
+            "inv": torch.argsort(perm).to(torch.int32),
+            "aidx": torch.as_tensor(aidx.astype(np.int32), device=dev)}
+    return x, y, lora
+
+
+def _lora_pair_case(torch, GM, g, cap, width, kind, r, dt):
+    """One shrink and one expand launch (each counted once by its wrapper)
+    against their plain versions on the same inputs; the expand also
+    leaves the null tail's y rows bit for bit as they were. Both kernels
+    then timed eager and from a CUDA graph. Returns (x, y, lora, shrink
+    error, expand error)."""
+    k, n = 4096, (3 * 4096 if kind == "qkv" else 4096)
+    x, y, lora = _lora_inputs(torch, g, cap, width, k, n, r, dt)
+    label = (f"cap {cap} width {width} {kind} r{r} x {_short(dt)}: x "
+             f"[8, {width}, {k}], A [{cap}, {k}, {r}], B [{cap}, {r}, {n}]")
+    before = (GM.lora_shrink.launches, GM.lora_expand_add.launches)
+    t = GM.lora_shrink(x, lora["perm"], lora["a"], lora["gs"])
+    t_ref = GM.lora_shrink_plain(x, lora["perm"], lora["a"], lora["gs"])
+    got = GM.lora_expand_add(y.clone(), t, lora["b"], lora["gs"],
+                             lora["perm"])
+    want = GM.lora_expand_add_plain(y.clone(), t, lora["b"], lora["gs"],
+                                    lora["perm"])
+    if (GM.lora_shrink.launches - before[0],
+            GM.lora_expand_add.launches - before[1]) != (1, 1):
+        raise AssertionError(f"lora kernels {label}: launches not counted "
+                             f"once each")
+    null = lora["aidx"] < 0
+    if not torch.equal(got[null], y[null]):
+        raise AssertionError(f"lora_expand {label}: a null-adapter row "
+                             f"changed")
+    errs = []
+    for name, a_, b_, tol in (("lora_shrink", t, t_ref, LORA_TOL["f32"]),
+                              ("lora_expand", got, want,
+                               LORA_TOL[_short(dt).replace("float32",
+                                                           "f32")])):
+        err, scaled = _max_err(a_, b_)
+        log(f"[kernels] {name} {label}: max_abs_err {err:.3e}, scaled "
+            f"{scaled:.3e} (tolerance {tol:.3g} * (1 + |plain|))")
+        if not scaled <= tol:
+            raise AssertionError(f"{name} {label}: kernel disagrees with "
+                                 f"its plain version: {scaled} > {tol}")
+        errs.append(err)
+    yk = y.clone()
+    times = [fn(call, iters=20) for call in (
+        lambda: GM.lora_shrink(x, lora["perm"], lora["a"], lora["gs"]),
+        lambda: GM.lora_expand_add(yk, t, lora["b"], lora["gs"],
+                                   lora["perm"])) for fn in (time_ms,
+                                                             graph_ms)]
+    log(f"[kernels] lora {label}: shrink {times[0]:.4f} ms (graph "
+        f"{times[1]:.4f}), expand {times[2]:.4f} ms (graph {times[3]:.4f})")
+    return x, y, lora, errs[0], errs[1]
+
+
+def _lora_timed(torch, GM, P, case, kind, dt, label):
+    """Times of the two kernels of one case: eager and from a CUDA graph,
+    the plain versions, the gather baseline's arithmetic for the same
+    projection (``y + _lora_delta`` under ``PT_MULTILORA_IMPL=gather``)
+    and the unfused composition on the general K6a routes (``y +
+    _lora_delta``, grouped), both from a CUDA graph; bounds from this
+    case's shapes and live rows."""
+    x, y, lora, err_s, err_e = case
+    b, s, k = x.shape
+    cap, r, n = lora["b"].shape
+    rows = int(lora["gs"].sum())
+    groups = int((lora["gs"] > 0).sum())
+    xe, ye = x.element_size(), y.element_size()
+    t = GM.lora_shrink(x, lora["perm"], lora["a"], lora["gs"])
+    yk = y.clone()
+    ld = {f"{kind}_a": lora["a"][None], f"{kind}_b": lora["b"][None],
+          **{key: lora[key] for key in ("perm", "inv", "gs", "aidx")}}
+
+    def delta(impl):
+        os.environ["PT_MULTILORA_IMPL"] = impl
+        try:
+            return graph_ms(lambda: y + P._lora_delta(x, ld, kind, 0),
+                            iters=20)
+        finally:
+            os.environ.pop("PT_MULTILORA_IMPL")
+    gather_ms, unfused_ms = delta("gather"), delta("grouped")
+    pair_ms = graph_ms(lambda: GM.lora_expand_add(
+        yk, GM.lora_shrink(x, lora["perm"], lora["a"], lora["gs"]),
+        lora["b"], lora["gs"], lora["perm"]))
+    out = {}
+    shape = (f"lora {label}: x [{b}, {s}, {k}] {_short(x.dtype)}, {rows} "
+             f"live rows in {groups} of {cap} groups, r {r}")
+    sb = bound(rows * k * xe + groups * k * r * 4 + b * s * r * 4 + 4 * (
+        cap + b), 2 * rows * k * r, PEAK_FP32_FLOPS)
+    out["lora_shrink"] = dict(
+        max_abs_err=err_s,
+        ms=time_ms(lambda: GM.lora_shrink(x, lora["perm"], lora["a"],
+                                          lora["gs"])),
+        graph_ms=graph_ms(lambda: GM.lora_shrink(x, lora["perm"], lora["a"],
+                                                 lora["gs"])),
+        plain_ms=time_ms(lambda: GM.lora_shrink_plain(
+            x, lora["perm"], lora["a"], lora["gs"]), iters=10),
+        library_ms=None, bound_ms=sb[0], bound_by=sb[1],
+        gather_graph_ms=gather_ms, unfused_graph_ms=unfused_ms,
+        pair_graph_ms=pair_ms, shape=f"{shape}, A [{cap}, {k}, {r}]")
+    eb = bound(2 * rows * n * ye + groups * r * n * 4 + rows * r * 4 + 4 * (
+        cap + b), 2 * rows * r * n + rows * n, PEAK_FP32_FLOPS)
+    out["lora_expand"] = dict(
+        max_abs_err=err_e,
+        ms=time_ms(lambda: GM.lora_expand_add(yk, t, lora["b"], lora["gs"],
+                                              lora["perm"])),
+        graph_ms=graph_ms(lambda: GM.lora_expand_add(
+            yk, t, lora["b"], lora["gs"], lora["perm"])),
+        plain_ms=time_ms(lambda: GM.lora_expand_add_plain(
+            yk, t, lora["b"], lora["gs"], lora["perm"]), iters=10),
+        library_ms=None, bound_ms=eb[0], bound_by=eb[1],
+        gather_graph_ms=gather_ms, unfused_graph_ms=unfused_ms,
+        pair_graph_ms=pair_ms, shape=f"{shape}, B [{cap}, {r}, {n}]")
+    for name, e in out.items():
+        _log_entry(f"lora_serve {name} ({label})", e)
+        log(f"[kernels] lora_serve {name} ({label}): shrink + expand graph "
+            f"{pair_ms:.4f} ms; the same projection's gather baseline "
+            f"(y + _lora_delta, gather) graph {gather_ms:.4f} ms, the "
+            f"unfused composition on the general K6a routes graph "
+            f"{unfused_ms:.4f} ms "
+            f"({card_line()})")
+    return out
+
+
 def lora_kernel_entries(torch, dev):
-    """K6a at the shapes multi-LoRA serving gives it on Llama-2-7B: the
-    rank-r correction runs in fp32 (the store's stacks), first ``x [m,
-    4096] x A [cap, 4096, r]`` (n = r), then ``t [m, r] x B [cap, r, 12288
-    or 4096]`` (k = r). At decode (m = 8 rows, one token a slot) that is
-    the few-rows route, at r 4, 8 and 16 and caps 4 and 1; at prefill (m =
-    8 x 128) the fp32 FMA route. The groups include an empty one and leave
-    a null-adapter tail past their total (masked by the caller, left out
-    here); n = 6 (no whole 16-byte load) is routed to the FMA kernel from
-    the static shapes. Each launch against the plain version in fp32; the
-    decode and prefill A and B-qkv launches at r 16 (the store's max_rank
-    in lora_serve) timed eager and from a CUDA graph. Returns the
-    lora_serve path's grouped_fwd entry (decode, A: the slower of the
-    two decode products)."""
+    """K6a's two multi-LoRA kernels at the shapes multi-LoRA serving gives
+    them on Llama-2-7B (k = 4096; n = 12288 for qkv, 4096 for o): 8 slots
+    of width 1, 5 and 128 (decode, verify, prefill), ranks 4, 8 and 16,
+    caps 4 (an empty group) and 1, a null tail, x and y in bf16 and fp32,
+    each against its plain version (``_lora_pair_case``); at rank 16 (the
+    store's max_rank in lora_serve), cap 4 and bf16 each width and
+    projection timed (``_lora_timed``). The general K6a routes stay
+    checked at these shapes (``_lora_k6_case``, fp32, untimed). Returns
+    the lora_serve path's entries: the decode qkv row of each kernel."""
+    from paddle_tpu_torch.models import paged as P
     from paddle_tpu_torch.ops.cuda import grouped_matmul as GM
     g = torch.Generator(device=dev).manual_seed(77)
     h, nqkv = 4096, 3 * 4096
+    out = {}
+    for label, width in LORA_WIDTHS.items():
+        for cap in (4, 1):
+            for r in (4, 8, 16):
+                for dt in (torch.bfloat16, torch.float32):
+                    for kind in ("qkv", "o"):
+                        case = _lora_pair_case(torch, GM, g, cap, width,
+                                               kind, r, dt)
+                        if (cap, r, dt) == (4, 16, torch.bfloat16):
+                            rows = _lora_timed(torch, GM, P, case, kind, dt,
+                                               f"{label} {kind}")
+                            if (label, kind) == ("decode", "qkv"):
+                                out = rows
+                        del case
+    torch.cuda.empty_cache()
+    # the general K6a routes at these shapes: checks only
     dec4, dec1 = [3, 0, 2, 1], [6]          # 8 rows: tails of 2 rows
     pre4, pre1 = [256, 0, 384, 128], [896]  # 1024 rows: tails of 256, 128
-    timed = {}
     for cap, sizes in ((4, dec4), (1, dec1)):
         for r in (4, 8, 16):
             for name, k, n in (("A", h, r), ("B qkv", r, nqkv),
@@ -2114,41 +2286,16 @@ def lora_kernel_entries(torch, dev):
                                      f"decode {name} r{r}")
                 if case[3] != "rows":
                     raise AssertionError(f"decode {name} r{r}: {case[3]}")
-                if cap == 4 and r == 16 and name != "B o":
-                    timed[f"decode {name}"] = case
     for cap, sizes in ((4, pre4), (1, pre1)):
         for name, k, n in (("A", h, 16), ("B qkv", 16, nqkv)):
             case = _lora_k6_case(torch, GM, g, 1024, cap, sizes, k, n,
                                  f"prefill {name} r16")
             if case[3] != "fma":
                 raise AssertionError(f"prefill {name}: {case[3]}")
-            if cap == 4:
-                timed[f"prefill {name}"] = case
     if _lora_k6_case(torch, GM, g, 8, 4, dec4, h, 6, "decode A n6")[3] != \
             "fma":
         raise AssertionError("n = 6 must be routed to the FMA kernel")
-    out = {}
-    for label, (lhs, rhs, sz, route, err) in timed.items():
-        m, k = lhs.shape
-        cap, _, n = rhs.shape
-        rows = int(sz.sum())
-        live = int((sz > 0).sum())
-        b_ms, b_by = bound((rows * k + rows * n + live * k * n) * 4 + 4 * cap,
-                           2 * rows * k * n, PEAK_FP32_FLOPS)
-        r = dict(max_abs_err=err, variant=route,
-                 ms=time_ms(lambda: GM.grouped_matmul(lhs, rhs, sz)),
-                 graph_ms=graph_ms(lambda: GM.grouped_matmul(lhs, rhs, sz)),
-                 plain_ms=time_ms(lambda: GM.grouped_matmul_plain(lhs, rhs,
-                                                                  sz),
-                                  iters=10),
-                 library_ms=_library_grouped_mm(torch, lhs, rhs, sz),
-                 bound_ms=b_ms, bound_by=b_by,
-                 shape=f"lora {label}: lhs [{m}, {k}] x rhs [{cap}, {k}, "
-                       f"{n}] f32, {rows} live rows in {live} of {cap} "
-                       f"groups")
-        _log_entry(f"lora_serve grouped_fwd ({label})", r)
-        out[label] = r
-    return out["decode A"]
+    return out
 
 
 def verify_kernel_entries(torch, dev):
@@ -2496,11 +2643,17 @@ class plain_kernels:
         from paddle_tpu_torch.ops.cuda import paged_attention as PA
         self.saved = [(norms, "rms_norm", norms.rms_norm),
                       (GM, "grouped_matmul", GM.grouped_matmul),
+                      *((GM, name, getattr(GM, name))
+                        for name in ("lora_shrink", "lora_expand_add")
+                        if hasattr(GM, name)),
                       (FA, "flash_attention", FA.flash_attention),
                       (PA, "paged_chunk_attention", PA.paged_chunk_attention),
                       (PA, "paged_decode_attention", PA.paged_decode_attention)]
         norms.rms_norm = norms.rms_norm_plain
         GM.grouped_matmul = GM.grouped_matmul_plain
+        if hasattr(GM, "lora_shrink"):
+            GM.lora_shrink = GM.lora_shrink_plain
+            GM.lora_expand_add = GM.lora_expand_add_plain
 
         def fa(q, k, v, causal=False, scale=None, window=None, kv_lens=None,
                alibi_slopes=None):
@@ -3281,7 +3434,9 @@ def _anatomy(torch, label, unit, run, n):
     # the attention kernels one by one, wherever they rank
     for tag, fn in (("K2", "flash_fwd"), ("K5a", "flash_bwd_dq"),
                     ("K5b", "flash_bwd_dkv"), ("K6a", "grouped_fwd"),
-                    ("K6a rows", "grouped_rows"), ("K6b", "grouped_dw")):
+                    ("K6a rows", "grouped_rows"), ("K6b", "grouped_dw"),
+                    ("K6a LoRA shrink", "lora_shrink"),
+                    ("K6a LoRA expand", "lora_expand")):
         mine = [r for r in rows if fn in r[2]]
         if mine and dev_ms > 0:
             ms = sum(r[0] for r in mine)
@@ -3408,7 +3563,8 @@ def phase_lora_serve(torch, dev, model, np, serve_stats):
     request on it submitted, which must evict the warm-up adapter (LRU).
     Then the same mix with ``PT_MULTILORA_IMPL=gather`` (the dense per-row
     baseline, in a new engine: its LoRA graph captures the gather). Every
-    request finishes, the serve kernels and (grouped) K6a launch; the
+    request finishes, the serve kernels and (grouped) K6a's two LoRA
+    kernels launch; the
     LoRA graph's device time a tick of the two is compared. Returns (the
     grouped run's launch counts, the store, the adapters' state dicts,
     the requests)."""
@@ -3446,7 +3602,9 @@ def phase_lora_serve(torch, dev, model, np, serve_stats):
             + (f"{lt[0]} LoRA graph replays, wall {lt[1]:.3f} ms/tick "
                f"against {lt[2]:.3f} ms of device time (idle "
                f"{100 * (1 - lt[2] / lt[1]):.1f}%)" if lt else "none")
-            + f"; K6a launches by route {st['routes'].get('grouped_fwd')}; "
+            + f"; LoRA kernel launches (shrink, expand) "
+            f"{(counts.get('lora_shrink'), counts.get('lora_expand'))}, K6a "
+            f"by route {st['routes'].get('grouped_fwd')}; "
             f"adapter uploads/hits/misses/evictions/deferrals "
             f"{st['adapters']}; graph pools {st['pool_mib']:.1f} MiB; "
             f"{st['tokens_s']:.1f} tokens/s against serve's "
@@ -3454,8 +3612,14 @@ def phase_lora_serve(torch, dev, model, np, serve_stats):
         if not st["adapters"]["evictions"] >= 1:
             raise AssertionError(f"lora_serve {impl}: the late adapter "
                                  f"evicted nothing: {st['adapters']}")
-        if impl == "gather" and counts.get("grouped_fwd", 0):
-            raise AssertionError("the gather baseline launched K6a")
+        if impl == "gather" and any(counts.get(name, 0) for name in (
+                "grouped_fwd", "lora_shrink", "lora_expand")):
+            raise AssertionError(f"the gather baseline launched K6a: "
+                                 f"{counts}")
+        if (impl == "grouped" and counts.get("grouped_fwd", 0)
+                and "lora_shrink" not in ABSENT):
+            raise AssertionError(f"the LoRA path launched the general K6a "
+                                 f"routes: {counts}")
     store.assert_quiescent()
     g, d = runs["grouped"][2]["ticks"]["lora"], \
         runs["gather"][2]["ticks"]["lora"]

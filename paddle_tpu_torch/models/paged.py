@@ -9,7 +9,8 @@
     kernel, K4, sampled on the device). Every rope of the three goes
     through K7 (``ops.cuda.rope``). A ``lora`` argument adds the batched
     multi-LoRA correction of each row's adapter to the attention
-    projections (``_lora_delta``: two grouped products on K6a). The
+    projections (``_lora_add``: K6a's two LoRA kernels, the rank-r shrink
+    and the expand that adds into the projection's output). The
     speculative verify is the chunk forward with every position's
     logits (``llama_verify_chunk_paged``), its rollback a length rewind
     (``spec_rewind_lens``).
@@ -1024,7 +1025,8 @@ def _lora_delta(x, lora, kind, li):
     baseline the grouped path is timed against (read at each call; a
     captured tick keeps what it read when it was captured). Every index
     and the mask stay on the device: a CUDA graph captures this function
-    (``serving/executor.py``)."""
+    (``serving/executor.py``). The paged forwards call :func:`_lora_add`,
+    which fuses this composition and its add on the card."""
     a_stack = lora[kind + "_a"][li]          # [cap, k, r]
     b_stack = lora[kind + "_b"][li]          # [cap, r, n]
     bsz, s, kdim = x.shape
@@ -1044,10 +1046,35 @@ def _lora_delta(x, lora, kind, li):
     return d.reshape(bsz, s, -1)[lora["inv"].long()].to(x.dtype)
 
 
+def _lora_add(y, x, lora, kind, li):
+    """``y + _lora_delta(x, lora, kind, li)`` for ONE projection of ONE
+    layer, ``y`` being that projection's fresh output (updated in place
+    and returned). The grouped path runs K6a's two LoRA kernels on CUDA
+    tensors (``ops/cuda/grouped_matmul.py`` :func:`lora_shrink`, ``t =
+    x_sorted @ A[g]`` read through ``perm`` in x's own type, and
+    :func:`lora_expand_add`, which adds ``cast(t @ B[g])`` into y's live
+    rows), and their plain versions on CPU tensors: the arithmetic of
+    ``_lora_delta`` plus the add, step by step. Rows of the null-adapter
+    tail are left untouched on the card, where the plain versions add a
+    masked 0 (a -0.0 there becomes +0.0; the values compare equal).
+    ``PT_MULTILORA_IMPL=gather`` keeps the dense baseline,
+    ``y + _lora_delta(...)``. Device-only, as ``_lora_delta``: a CUDA
+    graph captures it."""
+    if os.environ.get("PT_MULTILORA_IMPL", "grouped") == "gather":
+        return y + _lora_delta(x, lora, kind, li)
+    if y.dtype != x.dtype:
+        raise TypeError(f"_lora_add: the projection's output {y.dtype} and "
+                        f"its input {x.dtype} differ")
+    t = _gm.lora_shrink(x.contiguous(), lora["perm"], lora[kind + "_a"][li],
+                        lora["gs"])
+    return _gm.lora_expand_add(y, t, lora[kind + "_b"][li], lora["gs"],
+                               lora["perm"])
+
+
 def _qkv(att, h, shape_q, shape_kv, lora=None, li=0):
     qkv = _wo(h, att.qkv_proj)
     if lora is not None:
-        qkv = qkv + _lora_delta(h, lora, "qkv", li)
+        qkv = _lora_add(qkv, h, lora, "qkv", li)
     if att.qkv_bias is not None:
         qkv = qkv + att.qkv_bias
     nh, nkv, hd = att.num_heads, att.num_kv_heads, att.head_dim
@@ -1100,7 +1127,7 @@ def _layer_tail(lyr, x, out, shape, lora=None, li=0):
     attn_out = out.reshape(*shape, att.num_heads * att.head_dim)
     proj = _wo(attn_out, att.o_proj)
     if lora is not None:
-        proj = proj + _lora_delta(attn_out, lora, "o", li)
+        proj = _lora_add(proj, attn_out, lora, "o", li)
     x = x + proj
     return x + _mlp_out(lyr, lyr.post_attention_layernorm(x))
 

@@ -31,9 +31,9 @@ ALIBI_TRAIN_KERNELS = ("flash_fwd_alibi", "flash_bwd_dq_alibi",
                        "flash_bwd_dkv_alibi")
 # Falcon-7B (rope, multi-query) through generic_generate
 ROPE_GENERATE_KERNELS = ("flash_fwd", "rope")
-# multi-LoRA serving: the serving kernels plus K6a for both rank-r
-# products of every adapted projection
-LORA_SERVE_KERNELS = SERVE_KERNELS + ("grouped_fwd",)
+# multi-LoRA serving: the serving kernels plus K6a's two LoRA kernels (the
+# rank-r shrink and the expand that adds into the projection)
+LORA_SERVE_KERNELS = SERVE_KERNELS + ("lora_shrink", "lora_expand")
 # speculative serving: the target's verify batch runs K3 (paged_chunk),
 # the draft's norms and ropes K1 and K7
 SPEC_SERVE_KERNELS = SERVE_KERNELS
@@ -44,7 +44,8 @@ def kernels() -> dict:
     every kernel of the port: the serving path's (K3 and K4 counted apart
     over int8 pools), the train step's backward, the grouped GEMM of the
     MoE families (forward/dlhs, drhs), the rotary embedding of every
-    path, then the ALiBi mode of K2, K5a and K5b (counted apart)."""
+    path, then the ALiBi mode of K2, K5a and K5b (counted apart), and
+    K6a's two kernels at the multi-LoRA call site."""
     return {
         "rms_norm": norms.rms_norm,
         "flash_fwd": flash_attention.flash_attention,
@@ -60,6 +61,8 @@ def kernels() -> dict:
         "flash_fwd_alibi": flash_attention.flash_fwd_alibi,
         "flash_bwd_dq_alibi": flash_attention.flash_bwd_dq_alibi,
         "flash_bwd_dkv_alibi": flash_attention.flash_bwd_dkv_alibi,
+        "lora_shrink": grouped_matmul.lora_shrink,
+        "lora_expand": grouped_matmul.lora_expand_add,
     }
 
 

@@ -28,7 +28,7 @@ PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 KERNEL_SOURCES = ("rms_norm", "flash_fwd", "flash_bwd", "paged_chunk",
-                  "paged_decode", "grouped_matmul", "rope")
+                  "paged_decode", "grouped_matmul", "grouped_lora", "rope")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -28,6 +28,15 @@ K6b launches and
 
 ``PT_GROUPED_GEMM=0`` (:func:`grouped_gemm_enabled`) keeps its meaning: the
 MoE layer then takes its dense capacity path and never comes here.
+
+K6a at the multi-LoRA call site (``models/paged.py`` ``_lora_add``) is two
+kernels of ``csrc/grouped_lora.cu`` shaped for the rank-r products:
+:func:`lora_shrink` (``t = x_sorted @ A[g]``, n = r, k split over blocks,
+x read through the row permutation in its own type) and
+:func:`lora_expand_add` (``y[src] += cast(t @ B[g])`` in place on the live
+rows). Each has its plain version beside it (:func:`lora_shrink_plain`,
+:func:`lora_expand_add_plain`: the unfused arithmetic of ``_lora_delta``
+step by step) and counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -277,7 +286,187 @@ def grouped_matmul(lhs, rhs, group_sizes):
     return _fwd(lhs, rhs, group_sizes)
 
 
+# ------------------------------------------------ K6a at the LoRA call site
+# the rows of one group a shrink block of csrc/grouped_lora.cu owns, and
+# the largest rank the expand keeps in registers
+LORA_SHRINK_ROWS = 16
+LORA_MAX_RANK = 64
+# shrink blocks a launch aims at for each SM (the split of k fills them)
+_LORA_BLOCKS_PER_SM = 4
+
+
+def lora_shrink_schedule(m, e, k, r, sms=132):
+    """(splits, ks): the shrink of ``m`` sorted rows over ``e`` groups cuts
+    k into ``splits`` runs of ``ks`` rows, from the static shapes alone.
+    A pass of a block covers ``2048 / jq`` k rows (``jq`` = 1, 2 or 4
+    lanes across the columns for r <= 4, <= 8, above), ``ks`` is a whole
+    number of passes, and the splits are as many as make the grid about
+    ``_LORA_BLOCKS_PER_SM`` blocks an SM over the static bound of row
+    tiles, ``ceil(m / LORA_SHRINK_ROWS) + e`` (the decode shape: 8 splits
+    of 512 at k = 4096; prefill: 4 of 1024)."""
+    jq = 1 if r <= 4 else 2 if r <= 8 else 4
+    kp = 2048 // jq
+    blocks = (-(-m // LORA_SHRINK_ROWS) + e) * -(-r // (4 * jq))
+    passes = -(-k // kp)
+    splits = min(passes, max(1, _LORA_BLOCKS_PER_SM * sms // blocks))
+    ks = -(-passes // splits) * kp
+    return -(-k // ks), ks
+
+
+def lora_shrink_plain(x, perm, a_stack, gs):
+    """``t = float(x)[perm] @ A[g]`` in plain PyTorch, as the unfused
+    correction computes it: x [B, S, k] cast to fp32, its rows permuted
+    by ``perm`` [B] and flattened to [B*S, k], then
+    :func:`grouped_matmul_plain` against ``a_stack`` [cap, k, r] over the
+    token counts ``gs`` [cap]. Returns t fp32 [B*S, r], 0 past
+    ``sum(gs)``."""
+    b, s, k = x.shape
+    xp = x.float()[perm.long()].reshape(b * s, k)
+    return grouped_matmul_plain(xp, a_stack, gs)
+
+
+def lora_expand_add_plain(y, t, b_stack, gs, perm):
+    """``y += cast(t @ B[g])`` in plain PyTorch, as the unfused correction
+    computes it: :func:`grouped_matmul_plain` of t [B*S, r] against
+    ``b_stack`` [cap, r, n], rows past ``sum(gs)`` masked to 0, the rows
+    put back in source order (the inverse of ``perm``), cast to y's type
+    and added to y [B, S, n] in place (a masked row adds 0). Returns
+    y."""
+    b, s, n = y.shape
+    d = grouped_matmul_plain(t, b_stack, gs)
+    live = torch.arange(b * s, device=y.device)[:, None] < gs.sum()
+    d = torch.where(live, d, 0.0)
+    inv = torch.empty_like(perm)
+    inv[perm.long()] = torch.arange(b, dtype=perm.dtype, device=perm.device)
+    return y.add_(d.reshape(b, s, n)[inv.long()].to(y.dtype))
+
+
+_lora_sig_set = False
+
+
+def _lora_lib():
+    global _lora_sig_set
+    lib = _build.library("grouped_lora")
+    if not _lora_sig_set:
+        v, i = ctypes.c_void_p, ctypes.c_int
+        lib.lora_shrink.argtypes = [i, v, v, v, v, v, v, i, i, i, i, i, i, i,
+                                    v]
+        lib.lora_shrink.restype = ctypes.c_int
+        lib.lora_expand_add.argtypes = [i, v, v, v, v, v, i, i, i, i, i, v]
+        lib.lora_expand_add.restype = ctypes.c_int
+        _lora_sig_set = True
+    return lib
+
+
+def _lora_check(what, act, w, gs, perm, kdim):
+    """The shapes and types both versions take: ``act`` [B, S, width]
+    float32 or bfloat16, ``w`` [cap, ...] float32 whose dim ``kdim``
+    matches ``act``'s last, ``gs`` [cap] and ``perm`` [B] int32."""
+    if act.ndim != 3 or w.ndim != 3 or w.shape[kdim] != act.shape[2]:
+        raise ValueError(f"{what}: bad shapes {tuple(act.shape)} "
+                         f"{tuple(w.shape)}")
+    if tuple(gs.shape) != (w.shape[0],) or tuple(perm.shape) != (
+            act.shape[0],):
+        raise ValueError(f"{what}: gs {tuple(gs.shape)} must be "
+                         f"({w.shape[0]},), perm {tuple(perm.shape)} "
+                         f"({act.shape[0]},)")
+    if act.dtype not in _build.DTYPE_CODES or w.dtype != torch.float32:
+        raise TypeError(f"{what}: activations float32 or bfloat16 and "
+                        f"float32 adapter stacks, got {act.dtype}, "
+                        f"{w.dtype}")
+    if gs.dtype != torch.int32 or perm.dtype != torch.int32:
+        raise TypeError(f"{what}: gs and perm must be int32, got "
+                        f"{gs.dtype}, {perm.dtype}")
+
+
+def _lora_kernel_takes(what, tensors, aligned):
+    """What the kernels of csrc/grouped_lora.cu take beyond the shapes:
+    contiguous tensors, the ``aligned`` ones on 16 bytes."""
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: the CUDA kernel takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in aligned):
+        raise ValueError(f"{what}: the CUDA kernel takes 16-byte-aligned "
+                         f"activations and adapter stacks")
+
+
+def lora_shrink(x, perm, a_stack, gs):
+    """``t[i] = float(x[src(i)]) @ A[g(i)]`` for the sorted rows i of a
+    multi-LoRA batch: x [B, S, k] (float32 or bfloat16), ``perm`` [B]
+    int32, a permutation of ``range(B)`` (sorted row i is source row
+    ``(perm[i // S], i % S)``),
+    ``a_stack`` [cap, k, r] float32, ``gs`` [cap] int32 token counts in
+    sorted order. Returns t float32 [B*S, r], 0 for rows past ``sum(gs)``.
+    On CUDA tensors one launch of the shrink kernel (k a multiple of 8,
+    contiguous 16-byte-aligned x and A; ``gs`` is never read on the host),
+    else :func:`lora_shrink_plain`."""
+    _lora_check("lora_shrink", x, a_stack, gs, perm, 1)
+    _same_device("lora_shrink", x, perm, a_stack, gs)
+    if not x.is_cuda:
+        return lora_shrink_plain(x, perm, a_stack, gs)
+    b, s, k = x.shape
+    cap, _, r = a_stack.shape
+    if k % 8:
+        raise ValueError(f"lora_shrink: the CUDA kernel takes k a multiple "
+                         f"of 8, got {k}")
+    _lora_kernel_takes("lora_shrink", (x, perm, a_stack, gs), (x, a_stack))
+    lib = _lora_lib()
+    m = b * s
+    splits, ks = lora_shrink_schedule(
+        m, cap, k, r,
+        torch.cuda.get_device_properties(x.device).multi_processor_count)
+    part = torch.empty((splits, m, r), dtype=torch.float32, device=x.device)
+    t = torch.empty((m, r), dtype=torch.float32, device=x.device)
+    rc = lib.lora_shrink(_build.dtype_code(x, "lora_shrink"), _build.ptr(x),
+                         _build.ptr(perm), _build.ptr(a_stack),
+                         _build.ptr(gs), _build.ptr(part), _build.ptr(t),
+                         m, s, k, r, cap, splits, ks, _build.stream(x))
+    _build.check(lib, rc, "lora_shrink")
+    lora_shrink.launches += 1
+    return t
+
+
+def lora_expand_add(y, t, b_stack, gs, perm):
+    """``y[src(i)] = cast_y(float(y[src(i)]) + float(cast_y(t[i] @
+    B[g(i)])))`` for every live sorted row i (``i < sum(gs)``), in place:
+    y [B, S, n] (float32 or bfloat16: the projection's output, in the
+    type of the activations the correction came from), t float32 [B*S, r]
+    (:func:`lora_shrink`), ``b_stack`` [cap, r, n] float32, ``gs`` and
+    ``perm`` as there. The correction is an fp32 sum over r rounded once
+    to y's type, then added in fp32 and rounded once: the rounding of the
+    unfused ``y + d.to(y.dtype)``. Returns y. On CUDA tensors one launch
+    of the expand kernel, which leaves the rows past ``sum(gs)`` untouched
+    (r <= LORA_MAX_RANK, n a multiple of 4, contiguous 16-byte-aligned y
+    and B); else :func:`lora_expand_add_plain`, which adds a masked 0 to
+    them (a -0.0 there becomes +0.0: the values compare equal)."""
+    _lora_check("lora_expand_add", y, b_stack, gs, perm, 2)
+    b, s, n = y.shape
+    cap, r, _ = b_stack.shape
+    if tuple(t.shape) != (b * s, r) or t.dtype != torch.float32:
+        raise ValueError(f"lora_expand_add: t must be float32 "
+                         f"({b * s}, {r}), got {t.dtype} {tuple(t.shape)}")
+    _same_device("lora_expand_add", y, t, b_stack, gs, perm)
+    if not y.is_cuda:
+        return lora_expand_add_plain(y, t, b_stack, gs, perm)
+    if r > LORA_MAX_RANK or n % 4:
+        raise ValueError(f"lora_expand_add: the CUDA kernel takes rank <= "
+                         f"{LORA_MAX_RANK} and n a multiple of 4, got r "
+                         f"{r}, n {n}")
+    _lora_kernel_takes("lora_expand_add", (y, t, b_stack, gs, perm),
+                       (y, b_stack))
+    lib = _lora_lib()
+    rc = lib.lora_expand_add(_build.dtype_code(y, "lora_expand_add"),
+                             _build.ptr(y), _build.ptr(t),
+                             _build.ptr(b_stack), _build.ptr(gs),
+                             _build.ptr(perm), b * s, s, n, r, cap,
+                             _build.stream(y))
+    _build.check(lib, rc, "lora_expand_add")
+    lora_expand_add.launches += 1
+    return y
+
+
 grouped_matmul.launches = 0
 grouped_matmul.route_launches = {"rows": 0, "wgmma": 0, "fma": 0}
 grouped_dw.launches = 0
 grouped_dw.route_launches = {"wgmma": 0, "fma": 0}
+lora_shrink.launches = 0
+lora_expand_add.launches = 0

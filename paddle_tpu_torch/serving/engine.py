@@ -94,6 +94,7 @@ from paddle_tpu_torch.models.paged import (greedy_accept_length,
                                            stochastic_accept_row)
 from paddle_tpu_torch.observability import span as _span
 from paddle_tpu_torch.ops.cuda import flash_attention as _flash
+from paddle_tpu_torch.ops.cuda import grouped_matmul as _grouped
 from paddle_tpu_torch.ops.cuda import paged_attention as _paged
 from paddle_tpu_torch.serving.executor import ModelExecutor
 from paddle_tpu_torch.serving.kv import KVManager, cache_block_bytes
@@ -120,11 +121,13 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet ({_Q1})")
 
 
-def card_shape_error(cfg):
-    """Why the card's kernels cannot serve a model of config ``cfg``, or
-    None when they can: the flash and paged kernels (K2-K5) take head dims
-    64 and 128 only, and the paged decode kernel (K4) GQA groups up to
-    ``MAX_GROUP``. The CPU's plain paths serve every shape."""
+def card_shape_error(cfg, max_rank=None):
+    """Why the card's kernels cannot serve a model of config ``cfg`` (with
+    an adapter store of rank ``max_rank``), or None when they can: the
+    flash and paged kernels (K2-K5) take head dims 64 and 128 only, the
+    paged decode kernel (K4) GQA groups up to ``MAX_GROUP``, and the LoRA
+    expand kernel ranks up to ``LORA_MAX_RANK``. The CPU's plain paths
+    serve every shape."""
     nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
     d = cfg.hidden_size // nh
     if d not in _flash.HEAD_DIMS or d not in _paged.HEAD_DIMS:
@@ -134,6 +137,9 @@ def card_shape_error(cfg):
         return (f"GQA group {nh // nkv} ({nh} query heads over {nkv} KV "
                 f"heads): the paged decode kernel takes groups "
                 f"1-{_paged.MAX_GROUP}")
+    if max_rank is not None and max_rank > _grouped.LORA_MAX_RANK:
+        return (f"adapter max_rank {max_rank}: the LoRA expand kernel takes "
+                f"ranks up to {_grouped.LORA_MAX_RANK}")
     return None
 
 
@@ -190,7 +196,8 @@ class LLMEngine:
         if self.device.type == "cuda":
             # refuse HERE, before any slot or block is claimed: a kernel's
             # refusal inside step() would wedge the request mid-tick
-            err = card_shape_error(cfg)
+            err = card_shape_error(cfg, getattr(adapter_store, "max_rank",
+                                                None))
             if err is not None:
                 raise NotImplementedError(
                     f"LLMEngine on the card: {err} (ROADMAP.md queue 2, "

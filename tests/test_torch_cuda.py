@@ -1440,6 +1440,133 @@ def test_grouped_matmul_at_lora_shapes_matches_plain(rank, cap, sizes,
     assert TG.fwd_route(8, cap, 4096, 6, torch.float32) == "fma"
 
 
+def _lora_case(cap, width, k, n, r, dtype, seed):
+    """A multi-LoRA batch on the card as the engine builds it: 8 slots of
+    ``width`` tokens on cache indices with an empty group (cap 4) and a
+    null tail of two slots; x [8, width, k] and y [8, width, n] in
+    ``dtype``, A [cap, k, r] and B [cap, r, n] fp32."""
+    import numpy as np
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    aidx = np.array((0, 2, -1, 0, 3, 2, 0, -1) if cap == 4
+                    else (0, 0, -1, 0, 0, 0, -1, 0))
+    order = np.argsort(np.where(aidx < 0, cap, aidx), kind="stable")
+    gs = np.bincount(aidx[aidx >= 0], minlength=cap) * width
+    x = torch.randn(8, width, k, generator=g, device=dev).to(dtype)
+    y = torch.randn(8, width, n, generator=g, device=dev).to(dtype)
+    a = torch.randn(cap, k, r, generator=g, device=dev) * k ** -0.5
+    b = torch.randn(cap, r, n, generator=g, device=dev) * 0.1
+    perm = torch.as_tensor(order.astype(np.int32), device=dev)
+    sz = torch.as_tensor(gs.astype(np.int32), device=dev)
+    null = torch.as_tensor(aidx < 0, device=dev)
+    return x, y, a, b, perm, sz, null
+
+
+def _scaled(a, b):
+    return float(((a.float() - b.float()).abs()
+                  / (1 + b.float().abs())).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rank", [4, 8, 16])
+@pytest.mark.parametrize("cap", [4, 1])
+@pytest.mark.parametrize("width", [1, 5, 128])
+def test_lora_kernels_match_plain(width, cap, rank, dtype):
+    """K6a's multi-LoRA kernels at Llama-2-7B's LoRA shapes (k 4096, n
+    12288 for qkv and 4096 for o) at decode, the verify width and prefill
+    (8 slots of 1, 5 and 128 tokens), ranks 4, 8, 16, caps 4 (an empty
+    group) and 1, a null tail: the shrink's t within 1e-5 of its plain
+    version (fp32), the expand's y within 1e-5 (fp32) or one bf16 step,
+    the null-adapter rows of y untouched, one launch counted each, and two
+    launches bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    for n in (3 * 4096, 4096):
+        x, y, a, b, perm, sz, null = _lora_case(cap, width, 4096, n, rank,
+                                                dtype, width + rank + cap)
+        before = (TG.lora_shrink.launches, TG.lora_expand_add.launches)
+        t = TG.lora_shrink(x, perm, a, sz)
+        got = TG.lora_expand_add(y.clone(), t, b, sz, perm)
+        assert (TG.lora_shrink.launches - before[0],
+                TG.lora_expand_add.launches - before[1]) == (1, 1)
+        assert _scaled(t, TG.lora_shrink_plain(x, perm, a, sz)) <= 1e-5
+        want = TG.lora_expand_add_plain(y.clone(), t, b, sz, perm)
+        assert _scaled(got, want) <= tol, n
+        assert torch.equal(got[null], y[null])
+        assert torch.equal(TG.lora_shrink(x, perm, a, sz), t)
+        assert torch.equal(TG.lora_expand_add(y.clone(), t, b, sz, perm),
+                           got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [3, 12, 20, 40, 64])
+def test_lora_kernels_at_other_ranks_match_plain(rank):
+    """Ranks the LoRA serving shapes do not use: not a multiple of 4
+    (A read one value at a time), above 16 (more than one column chunk
+    of the shrink; the expand's 32- and 64-rank instantiations), fp32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    x, y, a, b, perm, sz, null = _lora_case(4, 3, 2048, 1024, rank,
+                                            torch.float32, rank)
+    t = TG.lora_shrink(x, perm, a, sz)
+    assert _scaled(t, TG.lora_shrink_plain(x, perm, a, sz)) <= 1e-5
+    got = TG.lora_expand_add(y.clone(), t, b, sz, perm)
+    want = TG.lora_expand_add_plain(y.clone(), t, b, sz, perm)
+    assert _scaled(got, want) <= 1e-5
+    assert torch.equal(got[null], y[null])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 128])
+def test_lora_shrink_never_reads_partials_past_live_rows(width):
+    """The shrink's per-split partials are scratch from the caching
+    allocator: the block it gets is first filled with NaN (freed just
+    before the call, so the allocator hands the same block back). Rows
+    past the groups' total are never written there and never read: t is
+    0 on them and finite, equal to the plain version, on the live rows;
+    with every row on the base, t is all 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    x, _, a, _, perm, sz, _ = _lora_case(4, width, 4096, 8, 16,
+                                         torch.bfloat16, 3)
+    m = 8 * width
+    live = int(sz.sum())
+    splits, _ = TG.lora_shrink_schedule(
+        m, 4, 4096, 16,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    for sizes in (sz, torch.zeros_like(sz)):
+        planted = torch.full((splits, m, 16), float("nan"), device="cuda")
+        del planted
+        t = TG.lora_shrink(x, perm, a, sizes)
+        n_live = int(sizes.sum())
+        assert not t[n_live:].any()
+        assert torch.isfinite(t).all()
+        assert _scaled(t, TG.lora_shrink_plain(x, perm, a, sizes)) <= 1e-5
+    assert live < m
+
+
+@pytest.mark.cuda
+def test_engine_refuses_an_adapter_rank_the_expand_refuses():
+    """An adapter store whose max_rank is above LORA_MAX_RANK is refused
+    by ``LLMEngine`` on the card in its constructor, naming the rank and
+    the ROADMAP queue; a store of that rank limit is served."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch.serving import LLMEngine
+    from paddle_tpu_torch.serving.adapters import AdapterStore
+    model, _ = _lora_model_and_store()
+    kw = dict(num_slots=2, block_size=16, max_prompt_len=32, max_seq_len=64)
+    big = AdapterStore(model, capacity=1, max_rank=TG.LORA_MAX_RANK + 1)
+    with pytest.raises(NotImplementedError,
+                       match=f"adapter max_rank {TG.LORA_MAX_RANK + 1}.*"
+                             f"ROADMAP.md queue 2"):
+        LLMEngine(model, adapter_store=big, **kw)
+    LLMEngine(model, adapter_store=AdapterStore(
+        model, capacity=1, max_rank=TG.LORA_MAX_RANK), **kw)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
 def test_paged_chunk_at_verify_width_matches_plain(mode):
@@ -1519,11 +1646,12 @@ def _lora_decoding_engine(model, store, aids):
 @pytest.mark.parametrize("impl", ["grouped", "gather"])
 def test_lora_graph_tick_matches_the_eager_lora_tick(impl, monkeypatch):
     """With an adapter store the executor captures a third graph: the tick
-    with the multi-LoRA correction (K6a, or the dense gather baseline).
-    From one cache state its replay gives the eager LoRA tick's tokens,
-    bit-identical log-probabilities and cache (rows on two adapters and
-    the base); its capture counted four K6a launches a layer (grouped)
-    or none (gather)."""
+    with the multi-LoRA correction (K6a's two LoRA kernels, or the dense
+    gather baseline). From one cache state its replay gives the eager
+    LoRA tick's tokens, bit-identical log-probabilities and cache (rows on
+    two adapters and the base); its capture counted a shrink and an
+    expand for each of a layer's two projections (grouped) or none
+    (gather), and no launch of the general K6a routes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the chip)")
     import numpy as np
@@ -1538,8 +1666,10 @@ def test_lora_graph_tick_matches_the_eager_lora_tick(impl, monkeypatch):
     res = chip_smoke.graph_against_eager(torch, eng, lora=lora)
     assert res["tokens_equal"] and res["logp_bit_equal"], res
     assert res["cache_bit_equal"], res
-    assert eng.exe._ltick.launches.get("grouped_fwd", 0) == (
-        4 * model.cfg.num_hidden_layers if impl == "grouped" else 0)
+    per = 2 * model.cfg.num_hidden_layers if impl == "grouped" else 0
+    assert eng.exe._ltick.launches.get("lora_shrink", 0) == per
+    assert eng.exe._ltick.launches.get("lora_expand", 0) == per
+    assert eng.exe._ltick.launches.get("grouped_fwd", 0) == 0
 
 
 @pytest.mark.cuda

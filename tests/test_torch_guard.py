@@ -155,3 +155,57 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
                  else [])
         assert not any(n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")
                        for n in names), names
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself as a CUDA tensor: a kernel wrapper
+    given one takes its kernel path."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _on_card(t):
+    return torch.Tensor._make_subclass(_OnCard, t)
+
+
+@pytest.mark.parametrize("case", ["no_library", "refused_shape",
+                                  "misaligned"])
+def test_lora_wrappers_on_the_card_launch_or_raise(case, monkeypatch):
+    """K6a's two multi-LoRA wrappers on a CUDA tensor launch their kernel
+    or raise: when the library cannot load, and for what the kernels
+    refuse (k not a multiple of 8, a rank above LORA_MAX_RANK, an
+    activation off 16-byte alignment). The plain versions are never
+    reached and no launch is counted."""
+    from paddle_tpu_torch.ops.cuda import _build
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as GM
+
+    def no_plain(*a, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    def no_library(name):
+        raise OSError(f"cannot load the library of csrc/{name}.cu")
+
+    monkeypatch.setattr(GM, "lora_shrink_plain", no_plain)
+    monkeypatch.setattr(GM, "lora_expand_add_plain", no_plain)
+    monkeypatch.setattr(_build, "library", no_library)
+    k, r, n = ((12, 4, 8) if case == "refused_shape" else (16, 4, 8))
+    rb = GM.LORA_MAX_RANK + 1 if case == "refused_shape" else r
+    x = torch.zeros(2, 1, k)
+    y = torch.zeros(2, 1, n)
+    if case == "misaligned":
+        x = torch.zeros(2 * k + 1)[1:].view(2, 1, k)
+        y = torch.zeros(2 * n + 1)[1:].view(2, 1, n)
+    perm = _on_card(torch.tensor([1, 0], dtype=torch.int32))
+    gs = _on_card(torch.tensor([1, 0, 1], dtype=torch.int32))
+    a, b = _on_card(torch.zeros(3, k, r)), _on_card(torch.zeros(3, rb, n))
+    t = _on_card(torch.zeros(2, rb))
+    x, y = _on_card(x), _on_card(y)
+    before = (GM.lora_shrink.launches, GM.lora_expand_add.launches)
+    err = OSError if case == "no_library" else ValueError
+    with pytest.raises(err):
+        GM.lora_shrink(x, perm, a, gs)
+    with pytest.raises(err):
+        GM.lora_expand_add(y, t, b, gs, perm)
+    assert (GM.lora_shrink.launches, GM.lora_expand_add.launches) == before
