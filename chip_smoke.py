@@ -23,7 +23,7 @@ Phases (each one fails the run when it fails; nothing is caught):
             prefill and train shapes (drhs of both train products), at
             Mixtral-8x7B width and on a small ragged case (an empty
             group's drhs exactly 0), each K6a and K6b line naming its route
-            (few-rows, tensor-core or FMA; K6b's read from the wrapper's
+            (decode, tensor-core or FMA; K6b's read from the wrapper's
             count of each kernel's launches); K7 (rope) on the
             strided q/k views of every path's shapes, its forward equal to
             the plain version bit for bit and its backward within the
@@ -242,6 +242,12 @@ Phases (each one fails the run when it fails; nothing is caught):
             with every block walking 1, 4 or 8 key tiles (prefixes of 0,
             192 and 448 keys before 64 queries): time and the K/V bytes a
             second its blocks stream
+  k6_decode_strips  (only when asked for) K6a's decode route at each
+            column-strip width of K6_DECODE_STRIPS (128 and 256 bytes,
+            built into a library of their own), both fused MoE products
+            at the Qwen-MoE and Mixtral decode shapes, checked and timed
+            from CUDA graphs: the measurement behind the width the source
+            builds
   k6_tiles  (only when asked for) K6a's tensor-core route at each tile
             shape of K6_TILES (64 or 128 rows by 128 or 256 columns), each
             against the plain version and timed at the MoE train and
@@ -265,8 +271,9 @@ launches are counted in that
 path's own run, with every count set to 0 just before it, and its times are
 taken at the shapes that path gives the kernel; ``"variant"`` names the
 kernel that ran within the CUDA route where a wrapper picks one by dtype
-and shape (K2/K5 and K3: ``"wgmma"`` or ``"fma"``; K6a: ``"rows"``,
-``"wgmma"`` or ``"fma"``; K6b: ``"wgmma"`` or ``"fma"``, from its launch
+and shape (K2/K5 and K3: ``"wgmma"`` or ``"fma"``; K6a: ``"decode"``,
+``"wgmma"`` or ``"fma"``, and at moe_serve one entry for each of the two
+fused decode products, ``"decode gate_up"`` and ``"decode down"``; K6b: ``"wgmma"`` or ``"fma"``, from its launch
 counts), and each K4 entry carries ``"nsplit"``, the splits of its live
 key range at that path's shape. The last line is
 ``{"ok": true, "device": {...}}``. The script exits non-zero,
@@ -321,6 +328,9 @@ SOURCES = {
                     "paddle_tpu/ops/pallas/grouped_matmul.py:133"),
     "rope": ("paddle_tpu_torch/csrc/rope.cu",
              "paddle_tpu/ops/pallas/rope.py:14"),
+    # K7 folded with the decode tick's KV pool write
+    "rope_kv": ("paddle_tpu_torch/csrc/rope.cu",
+                "paddle_tpu/ops/pallas/rope.py:14"),
     # the ALiBi mode of K2, K5a and K5b (``_alibi_add`` in each kernel)
     "flash_fwd_alibi": ("paddle_tpu_torch/csrc/flash_fwd.cu",
                         "paddle_tpu/ops/pallas/flash_attention.py:165"),
@@ -337,18 +347,19 @@ SOURCES = {
 # can load an earlier tree that lacks them (a kernel that such a tree does
 # not have is then left out of its checks)
 PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
-                   "rope"),
+                   "rope", "rope_kv"),
          "train": ("rms_norm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                    "rope"),
          "moe_serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
-                       "rope", "grouped_fwd"),
+                       "rope", "rope_kv", "grouped_fwd"),
          "moe_train": ("rms_norm", "flash_fwd", "flash_bwd_dq",
                        "flash_bwd_dkv", "rope", "grouped_fwd", "grouped_dw"),
-         "window_serve": ("rms_norm", "flash_fwd", "paged_decode", "rope"),
+         "window_serve": ("rms_norm", "flash_fwd", "paged_decode", "rope",
+                          "rope_kv"),
          "quant_serve": ("rms_norm", "flash_fwd", "paged_chunk_i8",
                          "paged_decode_i8", "rope"),
          "async_serve": ("rms_norm", "flash_fwd", "paged_chunk",
-                         "paged_decode", "rope"),
+                         "paged_decode", "rope", "rope_kv"),
          "bloom_serve": ("flash_fwd_alibi",),
          "bloom_train": ("flash_fwd_alibi", "flash_bwd_dq_alibi",
                          "flash_bwd_dkv_alibi"),
@@ -357,7 +368,8 @@ PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
                              "flash_bwd_dkv_alibi"),
          "falcon7b_serve": ("flash_fwd", "rope"),
          "lora_serve": ("rms_norm", "flash_fwd", "paged_chunk",
-                        "paged_decode", "rope", "lora_shrink", "lora_expand"),
+                        "paged_decode", "rope", "rope_kv", "lora_shrink",
+                        "lora_expand"),
          "spec_serve": ("rms_norm", "flash_fwd", "paged_chunk",
                         "paged_decode", "rope")}
 # kernels of PATHS that the imported tree does not have (only with --root)
@@ -803,10 +815,19 @@ def phase_kernels(torch, dev):
              "flash_fwd": k2_train(torch, dev), **k5(torch, dev)}
     # the MoE slice: K6 at its shapes, K1-K5 at the shapes it gives them
     k6_entries = k6(torch, dev)
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as GM
+    k6_dec = k6_decode(torch, dev) if hasattr(GM, "moe_gate_up") else {}
     b, s, _, _ = MOE_TRAIN_SHAPE
+    # K6a at moe_serve: the two fused decode products and the prefill's
+    # gate_up on the tensor cores, one entry each (a parent tree without
+    # the decode route: its rows kernel at the decode shape)
     moe_serve = {**serve_kernel_entries(torch, dev, MOE_HIDDEN, MOE_HEADS,
                                         fp32=False),
-                 "grouped_fwd": k6_entries["serve_fwd"]}
+                 "grouped_fwd": ([*k6_dec["moe_serve"],
+                                  {**k6_entries["prefill_fwd"],
+                                   "variant": "wgmma prefill gate_up"}]
+                                 if "moe_serve" in k6_dec
+                                 else k6_entries["serve_fwd"])}
     moe_train = {"rms_norm": k1_train(torch, dev, b * s, MOE_HIDDEN),
                  "flash_fwd": k2_train(torch, dev, MOE_TRAIN_SHAPE),
                  **k5(torch, dev, MOE_TRAIN_SHAPE),
@@ -820,8 +841,12 @@ def phase_kernels(torch, dev):
     results = {"serve": out, "train": train, "moe_serve": moe_serve,
                "moe_train": moe_train, "window_serve": window,
                "falcon7b_serve": falcon7b_kernel_entries(torch, dev)}
+    rope_decode = k7_entries.pop("serve decode")
     for path, r in k7_entries.items():
         results[path]["rope"] = r
+    if "rope_kv" not in ABSENT:
+        for path, r in k7_fold(torch, dev).items():
+            results[path]["rope_kv"] = r
     # the async engine serves the serve mix: the same shapes
     results["async_serve"] = results["serve"]
     # multi-LoRA and speculative serving run the serve mix too: K6a's LoRA
@@ -831,7 +856,7 @@ def phase_kernels(torch, dev):
         results["lora_serve"] = {**results["serve"],
                                  **(lora_kernel_entries(torch, dev)
                                     if "lora_shrink" not in ABSENT else {})}
-        results["spec_serve"] = {**results["serve"],
+        results["spec_serve"] = {**results["serve"], "rope": rope_decode,
                                  "paged_chunk": verify_kernel_entries(
                                      torch, dev)[0]}
     # the ALiBi families: K2, K5a and K5b in their ALiBi mode
@@ -842,17 +867,17 @@ def phase_kernels(torch, dev):
     if _paged_new(PA):
         _log_entry("not a path paged_decode (qwen2-7b decode)",
                    qwen2_decode_entry(torch, dev))
-    # quantized serving: the int8 modes of K3/K4; K1, K2 and K7 run there
-    # at the serve path's shapes
+    # quantized serving: the int8 modes of K3/K4; K1 and K2 run there at
+    # the serve path's shapes, K7 on its int8 decode tick
     if "paged_decode_i8" not in ABSENT:
         results["quant_serve"] = {
-            **{k: results["serve"][k] for k in ("rms_norm", "flash_fwd",
-                                                "rope")},
-            **int8_kernel_entries(torch, dev)}
+            **{k: results["serve"][k] for k in ("rms_norm", "flash_fwd")},
+            "rope": rope_decode, **int8_kernel_entries(torch, dev)}
     torch.cuda.synchronize()
     for path, rs in results.items():
         for name, r in rs.items():
-            _log_entry(f"{path} {name}", r)
+            for ri in (r if isinstance(r, list) else [r]):
+                _log_entry(f"{path} {name}", ri)
     return results
 
 
@@ -1289,7 +1314,10 @@ def _library_grouped_mm(torch, a, b, sizes):
     return time_ms(lambda: fn(a, b, offs=offs), iters=20)
 
 
-def _k6_fwd_entry(torch, lhs, rhs, sizes, err, trans=False, iters=20):
+def _k6_fwd_entry(torch, lhs, rhs, sizes, err, trans=False, iters=20,
+                  graph=False):
+    """Times and bound of one K6a launch (``graph``: also from a CUDA
+    graph, the decode shape's device time)."""
     from paddle_tpu_torch.ops.cuda import grouped_matmul as GM
     m, k = lhs.shape
     e = rhs.shape[0]
@@ -1300,8 +1328,11 @@ def _k6_fwd_entry(torch, lhs, rhs, sizes, err, trans=False, iters=20):
                        2 * m * k * n)
     lib_rhs = rhs.transpose(1, 2) if trans else rhs
     route = _k6_route(GM, m, e, k, n, lhs.dtype, trans)
+    extra = ({"graph_ms": graph_ms(
+        lambda: GM.grouped_fwd_cuda(lhs, rhs, sizes, trans), iters=20)}
+        if graph else {})
     return dict(
-        max_abs_err=err, variant=route,
+        **extra, max_abs_err=err, variant=route,
         ms=time_ms(lambda: GM.grouped_fwd_cuda(lhs, rhs, sizes, trans),
                    iters=iters),
         plain_ms=time_ms(lambda: GM.grouped_matmul_plain(lhs, rhs, sizes,
@@ -1331,9 +1362,9 @@ def k6(torch, dev):
     from paddle_tpu_torch.ops.cuda import grouped_matmul as GM
     h, inter, e, topk = MOE_HIDDEN, MOE_INTER, MOE_EXPERTS, MOE_TOPK
     out = {}
-    # small ragged cases: the tiled kernel, the few-rows kernel (one group
-    # of several row tiles) and the few-rows shape at an n that its 16-byte
-    # loads cannot take (back to the tiled kernel)
+    # small ragged cases: the tiled kernel, the decode route (one group
+    # of several row tiles) and the decode shape at an n that its 16-byte
+    # copies cannot take (back to the tiled kernel)
     for sizes, n in (([5, 0, 1, 130, 0, 70, 1, 0], 200),
                      ([1, 0, 2, 0, 0, 17, 1, 0, 3, 0], 200),
                      ([1, 0, 2, 0, 0, 17, 1, 0, 3, 0], 50)):
@@ -1388,7 +1419,7 @@ def k6(torch, dev):
             if dtype == "bf16":
                 entries["fwd"] = _k6_fwd_entry(
                     torch, lhs, rhs, gs, err,
-                    iters=50 if tokens <= 8 else 10)
+                    iters=50 if tokens <= 8 else 10, graph=tokens <= 8)
             if bwd:
                 dlhs, drhs = GM.grouped_matmul_bwd_plain(lhs, rhs, gs, cot)
                 err_t = _agree(f"grouped_fwd transposed ({label})", dtype,
@@ -1423,19 +1454,269 @@ def k6(torch, dev):
                               f"(plain: dlhs and drhs in one call)")
             for kind, r in entries.items():
                 lib = r["library_ms"]
+                gr = (f" (graph {r['graph_ms']:.4f} ms)" if "graph_ms" in r
+                      else "")
                 log(f"[kernels] K6 {label} {kind} ({r['shape']}): "
-                    f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                    f"{r['ms']:.4f} ms{gr}, plain {r['plain_ms']:.4f} ms, "
                     f"library {'n/a' if lib is None else f'{lib:.4f} ms'}, "
                     f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
                     f"{100 * r['bound_ms'] / r['ms']:.2f}% of bound")
             if label == "qwen decode gate_up" and entries:
                 out["serve_fwd"] = entries["fwd"]
+            if label == "qwen prefill gate_up" and entries:
+                out["prefill_fwd"] = entries["fwd"]
             if label == "qwen train gate_up" and entries:
                 out["train_fwd"] = entries["fwd"]
                 out["train_dw"] = entries["dw"]
             del lhs, rhs, cot, gs, entries
             torch.cuda.empty_cache()
     return out
+
+
+# ----------------------------------------------- K6a's decode route (MoE)
+# (label, tokens, experts, top-k, hidden, intermediate, path whose JSON
+# entries they are or None): the MoE layer's decode at the served models'
+# widths, 8 slots a token each
+MOE_DECODE_CASES = (
+    ("qwen1.5-moe decode", 8, MOE_EXPERTS, MOE_TOPK, MOE_HIDDEN, MOE_INTER,
+     "moe_serve"),
+    ("mixtral-8x7b decode", 8, 8, 2, 4096, 14336, None),
+)
+# groups of 0, 1, 4, 5, 8 and 32 rows: the route's row tiles at their edges
+MOE_DECODE_RAGGED = (0, 1, 4, 0, 5, 8, 32, 1, 0, 4)
+
+
+def _moe_decode_inputs(torch, dev, tokens, e, topk, h, inter, dt, seed,
+                       sizes=None):
+    """A decode batch routed as the MoE layer routes it: xt [tokens, h],
+    the route of random logits (dropless; ``sizes``: a forced ragged
+    routing instead, a third of it dropped), the expert stacks and gu,
+    a gate_up product."""
+    from paddle_tpu_torch.distributed import moe as M
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if sizes is None:
+        logits = torch.randn(tokens, e, generator=g, device=dev)
+        route, _, _ = M.top_k_route(logits, topk, max(tokens, 4))
+    else:
+        m = sum(sizes)
+        route = dict(
+            counts=torch.tensor(sizes, dtype=torch.int32, device=dev),
+            tok=torch.randint(0, tokens, (m,), generator=g, device=dev),
+            order=torch.randperm(m, generator=g, device=dev),
+            gate=torch.rand(m, generator=g, device=dev),
+            keep=torch.rand(m, generator=g, device=dev) > 0.33)
+    m = route["order"].shape[0]
+    xt = torch.randn(tokens, h, generator=g, device=dev).to(dt)
+    gate_up = (torch.randn(e, h, 2 * inter, generator=g, device=dev)
+               * h ** -0.5).to(dt)
+    down = (torch.randn(e, inter, h, generator=g, device=dev)
+            * inter ** -0.5).to(dt)
+    gu = torch.randn(m, 2 * inter, generator=g, device=dev).to(dt)
+    return xt, route, gate_up, down, gu
+
+
+def _grouped_mm_fn(torch):
+    return (getattr(torch.nn.functional, "grouped_mm", None)
+            or getattr(torch, "_grouped_mm", None))
+
+
+def k6_decode(torch, dev):
+    """K6a's decode route with the MoE glue folded in (``moe_gate_up``,
+    ``moe_down``) against the plain versions (the unfused composition),
+    bf16 and fp32: at Qwen1.5-MoE-A2.7B's and Mixtral-8x7B's decode
+    (8 tokens), and over groups of 0, 1, 4, 5, 8 and 32 rows with a k and
+    an n that are no multiples of a ring stage or a strip, a third of the
+    assignments dropped; a dropped row must be exactly 0 and a rerun give
+    the same bits. Times of each product (bf16): eager, from a CUDA graph,
+    the plain version, the library (``F.grouped_mm`` composed with the
+    same glue: the gather, SwiGLU, the weighting and the unsort), and the
+    unfused composition on this tree's kernels from a graph; the bound
+    counts every live group's weights, the lhs and the output once.
+    Returns {path: [gate_up entry, down entry]}."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as GM
+    out = {}
+    cases = [(f"ragged h=72 inter=104 ({list(MOE_DECODE_RAGGED)})", 11,
+              len(MOE_DECODE_RAGGED), 2, 72, 104, None, MOE_DECODE_RAGGED)]
+    cases += [(*c, None) for c in MOE_DECODE_CASES]
+    gmm = _grouped_mm_fn(torch)
+    for i, (label, tokens, e, topk, h, inter, path, sizes) in enumerate(
+            cases):
+        for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            if path is None and sizes is None and dtype == "f32":
+                continue        # Mixtral's fp32 stacks: 3.8 GB, bf16 only
+            xt, route, gate_up, down, gu = _moe_decode_inputs(
+                torch, dev, tokens, e, topk, h, inter, dt, 60 + i, sizes)
+            tok, cnt, order = route["tok"], route["counts"], route["order"]
+            gate, keep = route["gate"], route["keep"]
+            m = order.shape[0]
+            n0 = GM.grouped_matmul.route_launches["decode"]
+            got_gu = GM.moe_gate_up(xt, tok, gate_up, cnt)
+            got_y = GM.moe_down(gu, down, cnt, gate, keep, order)
+            ran = GM.grouped_matmul.route_launches["decode"] - n0
+            if ran != 2:
+                raise AssertionError(f"moe decode {label}: {ran} launches "
+                                     f"on the decode route, not 2")
+            err_gu = _agree(f"moe_gate_up ({label})", dtype, _max_err(
+                got_gu, GM.moe_gate_up_plain(xt, tok, gate_up, cnt)))
+            err_y = _agree(f"moe_down ({label})", dtype, _max_err(
+                got_y, GM.moe_down_plain(gu, down, cnt, gate, keep, order)))
+            dropped = order[~keep]
+            if dropped.numel() and float(got_y[dropped].abs().max()) != 0:
+                raise AssertionError(f"moe_down ({label}): a dropped "
+                                     f"assignment's row is not 0")
+            if not (torch.equal(got_gu, GM.moe_gate_up(xt, tok, gate_up, cnt))
+                    and torch.equal(got_y, GM.moe_down(gu, down, cnt, gate,
+                                                       keep, order))):
+                raise AssertionError(f"moe decode {label}: a rerun gave "
+                                     f"other bits")
+            if dtype != "bf16" or sizes is not None:
+                continue
+            es = xt.element_size()
+            live = int((cnt > 0).sum())
+            offs = torch.cumsum(cnt, 0).to(torch.int32)
+            g_, u_ = torch.chunk(gu, 2, dim=-1)
+
+            def lib_gate_up():
+                return gmm(xt.index_select(0, tok), gate_up, offs=offs)
+
+            def lib_down():
+                y = gmm(F.silu(g_) * u_, down, offs=offs)
+                wgt = (gate * keep).to(y.dtype)
+                return torch.empty_like(y).index_copy_(0, order,
+                                                       y * wgt[:, None])
+
+            def unfused_gate_up():
+                return GM.grouped_fwd_cuda(xt.index_select(0, tok), gate_up,
+                                           cnt)
+
+            def unfused_down():
+                y = GM.grouped_fwd_cuda(F.silu(g_) * u_, down, cnt)
+                wgt = (gate * keep).to(y.dtype)
+                return torch.empty_like(y).index_copy_(0, order,
+                                                       y * wgt[:, None])
+
+            entries = []
+            for kind, fn, plain, lib, unf, k, n, lhs_bytes, err in (
+                    ("gate_up",
+                     lambda: GM.moe_gate_up(xt, tok, gate_up, cnt),
+                     lambda: GM.moe_gate_up_plain(xt, tok, gate_up, cnt),
+                     lib_gate_up, unfused_gate_up, h, 2 * inter,
+                     tokens * h * es + 8 * m, err_gu),
+                    ("down",
+                     lambda: GM.moe_down(gu, down, cnt, gate, keep, order),
+                     lambda: GM.moe_down_plain(gu, down, cnt, gate, keep,
+                                               order),
+                     lib_down, unfused_down, inter, h,
+                     m * 2 * inter * es + 13 * m, err_y)):
+                b_ms, b_by = bound(live * k * n * es + lhs_bytes
+                                   + m * n * es + 4 * e, 2 * m * k * n)
+                r = dict(max_abs_err=err, variant=f"decode {kind}",
+                         ms=time_ms(fn, iters=50),
+                         graph_ms=graph_ms(fn, iters=20),
+                         plain_ms=time_ms(plain, iters=3, warmup=1),
+                         library_ms=(time_ms(lib, iters=20) if gmm
+                                     else None),
+                         library_glue_graph_ms=(graph_ms(lib, iters=20)
+                                                if gmm else None),
+                         unfused_graph_ms=graph_ms(unf, iters=20),
+                         bound_ms=b_ms, bound_by=b_by,
+                         shape=f"{label} {kind}: [{m}, {k}] x [{e}, {k}, "
+                               f"{n}] bf16, {live} of {e} groups live")
+                lib_g = r["library_glue_graph_ms"]
+                log(f"[kernels] K6a {r['shape']}: {r['ms']:.4f} ms eager, "
+                    f"graph {r['graph_ms']:.4f} ms "
+                    f"({100 * b_ms / r['graph_ms']:.1f}% of bound "
+                    f"{b_ms:.4f} ms, {b_by}); unfused on this tree's "
+                    f"kernels (graph) {r['unfused_graph_ms']:.4f} ms; "
+                    f"library (F.grouped_mm + the glue) "
+                    f"{'n/a' if lib_g is None else f'{lib_g:.4f} ms'} "
+                    f"(graph); plain {r['plain_ms']:.4f} ms "
+                    f"({card_line()})")
+                entries.append(r)
+            if path is not None:
+                out[path] = entries
+            del xt, route, gate_up, down, gu, got_gu, got_y
+            torch.cuda.empty_cache()
+    return out
+
+
+# K6a's decode route: the column-strip widths (bytes) the k6_decode_strips
+# phase builds and times; csrc/grouped_matmul.cu builds kDecStrip (256)
+K6_DECODE_STRIPS = (128, 256)
+
+
+def phase_k6_decode_strips(torch, dev):
+    """K6a's decode route at each column-strip width of K6_DECODE_STRIPS,
+    both fused products at Qwen1.5-MoE-A2.7B's and Mixtral-8x7B's decode:
+    each against its plain version and timed from a CUDA graph beside its
+    bytes bound: the measurement behind the width the source builds. The
+    widths are compiled into one extra library that includes the kernel
+    source, as k6_tiles does, so what is timed is the kernel the port
+    runs, strip aside."""
+    import ctypes
+    from paddle_tpu_torch.ops.cuda import _build
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as GM
+    src = _build.BUILD_DIR / "k6_decode_strips.cu"
+    lib_path = _build.BUILD_DIR / "k6_decode_strips.so"
+    args = "lhs, idx, rhs, sizes, gate, keep, out, m, k, n, e, stream"
+    cases = "\n".join(
+        f"    case {c}: return down ? launch_decode<__nv_bfloat16, true, "
+        f"{c}>({args}) : launch_decode<__nv_bfloat16, false, {c}>({args});"
+        for c in K6_DECODE_STRIPS)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(
+        '#include "grouped_matmul.cu"\n'
+        'extern "C" int grouped_decode_strip(int strip, int down, '
+        'const void* lhs, const void* idx, const void* rhs, '
+        'const void* sizes, const void* gate, const void* keep, void* out, '
+        'int m, int k, int n, int e, void* stream) {\n  switch (strip) {\n'
+        + cases + "\n  }\n  return 1;\n}\n")
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                    str(_build.CSRC), "-o", str(lib_path), str(src)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    v, i_ = ctypes.c_void_p, ctypes.c_int
+    lib.grouped_decode_strip.argtypes = [i_, i_, v, v, v, v, v, v, v, i_, i_,
+                                         i_, i_, v]
+    for i, (label, tokens, e, topk, h, inter, _) in enumerate(
+            MOE_DECODE_CASES):
+        xt, route, gate_up, down, gu = _moe_decode_inputs(
+            torch, dev, tokens, e, topk, h, inter, torch.bfloat16, 60 + i)
+        tok, cnt, order = route["tok"], route["counts"], route["order"]
+        gate, keep = route["gate"], route["keep"]
+        m, live = order.shape[0], int((cnt > 0).sum())
+        out_gu = torch.empty(m, 2 * inter, dtype=xt.dtype, device=dev)
+        out_y = torch.empty(m, h, dtype=xt.dtype, device=dev)
+        products = (
+            ("gate_up", 0, xt, tok, gate_up, None, None, out_gu, h,
+             2 * inter, GM.moe_gate_up_plain(xt, tok, gate_up, cnt)),
+            ("down", 1, gu, order, down, gate, keep, out_y, inter, h,
+             GM.moe_down_plain(gu, down, cnt, gate, keep, order)))
+        for strip in K6_DECODE_STRIPS:
+            for kind, dn, lhs, idx, rhs, gt, kp, out, k, n, ref in products:
+                def run():
+                    rc = lib.grouped_decode_strip(
+                        strip, dn, lhs.data_ptr(), idx.data_ptr(),
+                        rhs.data_ptr(), cnt.data_ptr(),
+                        None if gt is None else gt.data_ptr(),
+                        None if kp is None else kp.data_ptr(),
+                        out.data_ptr(), m, k, n, e,
+                        torch.cuda.current_stream().cuda_stream)
+                    if rc:
+                        raise RuntimeError(f"k6_decode_strips: launch "
+                                           f"failed ({rc})")
+                run()
+                _agree(f"moe {kind} ({label}, strip {strip})", "bf16",
+                       _max_err(out, ref))
+                b_ms, _ = bound(live * k * n * 2, 2 * m * k * n)
+                t = graph_ms(run, iters=20)
+                log(f"[k6_decode_strips] {label} {kind}, strip {strip} "
+                    f"bytes: {t:.4f} ms from a graph, "
+                    f"{100 * b_ms / t:.1f}% of the weights' bytes bound "
+                    f"{b_ms:.4f} ms ({card_line()})")
+        del xt, route, gate_up, down, gu, out_gu, out_y, products
+        torch.cuda.empty_cache()
 
 
 def _k6b_static_balance(torch, sizes, k, n):
@@ -1544,21 +1825,23 @@ def phase_k6_tiles(torch, dev):
 
 
 # -------------------------------------------------------------------- K7
-# (label, path whose JSON entry it is or None, leading dims of x, heads of
+# (label, path whose JSON entry it is or None ("serve decode": the entry of
+# the paths that run K7 at the Llama decode shape, quant_serve's int8 tick
+# and spec_serve's draft), leading dims of x, heads of
 # x, heads of the fused QKV product (q + 2 kv), x is q or k, head_dim,
 # tables "shared" [S, D/2] or "per_row" [N, D/2], rope base)
 ROPE_CASES = (
-    ("llama serve prefill q", None, (8, 128), 32, 96, "q", 128, "shared",
+    ("llama serve prefill q", "serve", (8, 128), 32, 96, "q", 128, "shared",
      1e4),
     ("llama serve prefill k", None, (8, 128), 32, 96, "k", 128, "shared",
      1e4),
-    ("llama serve decode q", "serve", (8, 1), 32, 96, "q", 128, "per_row",
-     1e4),
+    ("llama serve decode q", "serve decode", (8, 1), 32, 96, "q", 128,
+     "per_row", 1e4),
     ("llama train q", "train", (4, 2048), 16, 48, "q", 128, "shared", 1e4),
-    ("qwen-moe serve prefill q", None, (8, 128), 16, 48, "q", 128, "shared",
+    ("qwen-moe serve prefill q", "moe_serve", (8, 128), 16, 48, "q", 128,
+     "shared", 1e6),
+    ("qwen-moe serve decode q", None, (8, 1), 16, 48, "q", 128, "per_row",
      1e6),
-    ("qwen-moe serve decode q", "moe_serve", (8, 1), 16, 48, "q", 128,
-     "per_row", 1e6),
     ("qwen-moe train q", "moe_train", (2, 2048), 16, 48, "q", 128, "shared",
      1e6),
     ("mistral prefill q", "window_serve", (4, 4608), 32, 48, "q", 128,
@@ -1662,6 +1945,99 @@ def k7(torch, dev):
             if path is not None:
                 out[path] = r
         del x, c, s, got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+# (label, path whose JSON entry it is, decode rows, q heads, kv heads,
+# head dim, rope base, pool blocks): K7 folded with the decode tick's pool
+# write at the served models' decode shapes (the serve phases' slots and
+# pools)
+ROPE_KV_CASES = (
+    ("llama-2-7b decode", "serve", 8, 32, 32, 128, 1e4, 256),
+    ("qwen1.5-moe decode", "moe_serve", 8, 16, 16, 128, 1e6, 256),
+    ("mistral-7b decode", "window_serve", 4, 32, 8, 128, 1e6, 1200),
+)
+
+
+def k7_fold(torch, dev):
+    """``rope_kv_write`` against the unfused composition
+    (``rope_kv_write_plain``: K7's plain version on q and k, the pools'
+    ``index_put_``) bit for bit, bf16 and fp32: q rotated and every pool
+    row but the sink block's, over pools of garbage, per-row tables of
+    positions up to 4608 and one inactive row writing to the sink. Times
+    (bf16): eager, from a CUDA graph, the plain version, and from a graph
+    the four launches it replaces on this tree's kernels (K7 on q and k,
+    two ``index_put_``); no one PyTorch call computes it. Bound: q, k, v
+    and the two table rows read, q and the two pool rows written. Returns
+    {path: entry}."""
+    from paddle_tpu_torch.models import paged as P
+    from paddle_tpu_torch.ops.cuda import rope as R
+    out = {}
+    for i, (label, path, b, hq, hkv, d, base, nb) in enumerate(
+            ROPE_KV_CASES):
+        for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            g = torch.Generator(device=dev).manual_seed(80 + i)
+            qkv = torch.randn(b, 1, (hq + 2 * hkv) * d, generator=g,
+                              device=dev).to(dt)
+            q, k, v = torch.split(qkv, [hq * d, hkv * d, hkv * d], dim=-1)
+            q, k, v = (q.reshape(b, 1, hq, d), k.reshape(b, 1, hkv, d),
+                       v.reshape(b, 1, hkv, d))
+            pos = torch.randint(0, 4608, (b,), generator=g, device=dev)
+            inv = 1.0 / base ** (torch.arange(0, d, 2, device=dev).float()
+                                 / d)
+            f = pos.float()[:, None] * inv[None, :]
+            c, s = torch.cos(f), torch.sin(f)
+            pools = [torch.randn(nb + 1, 16, hkv, d, generator=g,
+                                 device=dev).to(dt) for _ in range(2)]
+            ref_pools = [p.clone() for p in pools]
+            dest = torch.randperm(nb * 16, generator=g, device=dev)[:b]
+            dest[b - 1] = nb * 16                 # an inactive row
+            got = R.rope_kv_write(q, k, v, c, s, *pools, dest)
+            ref = R.rope_kv_write_plain(q, k, v, c, s, *ref_pools, dest)
+            differ = int((got != ref).sum()) + sum(
+                int((p[:nb] != rp[:nb]).sum())
+                for p, rp in zip(pools, ref_pools))
+            log(f"[kernels] rope_kv {label} {dtype}: {differ} results "
+                f"differ from the unfused composition (must be 0)")
+            if differ:
+                raise AssertionError(f"rope_kv {label} {dtype}: not "
+                                     f"bit-identical to the unfused "
+                                     f"composition")
+            del ref_pools
+            if dtype != "bf16":
+                continue
+            es = q.element_size()
+            b_ms, b_by = bound(2 * b * (hq + 2 * hkv) * d * es
+                               + 2 * b * (d // 2) * 4 + 8 * b,
+                               3 * b * (hq + hkv) * d, PEAK_FP32_FLOPS)
+
+            def fold():
+                return R.rope_kv_write(q, k, v, c, s, *pools, dest)
+
+            def unfused():
+                qr = R.fused_rope(q, c, s)
+                P._scatter(pools[0], R.fused_rope(k, c, s), dest)
+                P._scatter(pools[1], v, dest)
+                return qr
+
+            r = dict(max_abs_err=0.0, ms=time_ms(fold, iters=200),
+                     graph_ms=graph_ms(fold, iters=100),
+                     plain_ms=time_ms(lambda: R.rope_kv_write_plain(
+                         q, k, v, c, s, *pools, dest), iters=50),
+                     unfused_graph_ms=graph_ms(unfused, iters=100),
+                     library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                     shape=f"{label}: q [{b}, {hq}, {d}], k/v [{b}, {hkv}, "
+                           f"{d}] bf16 views of the QKV product, pools "
+                           f"[{nb + 1}, 16, {hkv}, {d}]")
+            log(f"[kernels] rope_kv {r['shape']}: {r['ms']:.4f} ms eager, "
+                f"graph {r['graph_ms']:.4f} ms "
+                f"({100 * b_ms / r['graph_ms']:.1f}% of bound "
+                f"{b_ms:.5f} ms, {b_by}); the four launches it replaces "
+                f"(graph) {r['unfused_graph_ms']:.4f} ms; plain "
+                f"{r['plain_ms']:.4f} ms ({card_line()})")
+            out[path] = r
+            del qkv, q, k, v, pools, got, ref
     torch.cuda.empty_cache()
     return out
 
@@ -2284,7 +2660,7 @@ def lora_kernel_entries(torch, dev):
                                ("B o", r, h)):
                 case = _lora_k6_case(torch, GM, g, 8, cap, sizes, k, n,
                                      f"decode {name} r{r}")
-                if case[3] != "rows":
+                if case[3] not in ("rows", "decode"):
                     raise AssertionError(f"decode {name} r{r}: {case[3]}")
     for cap, sizes in ((4, pre4), (1, pre1)):
         for name, k, n in (("A", h, 16), ("B qkv", 16, nqkv)):
@@ -2504,6 +2880,7 @@ def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None,
         f"{stats['weight_bytes'] / 2**30:.2f} GiB; prefix token hits "
         f"{hits}; launches {counts}")
     _log_ticks(torch, label, eng.exe, card)
+    _check_tick_graphs(label, eng.exe, model)
     stats["ticks"] = _tick_stats(torch, eng.exe)
     if async_depth:
         drains = _drains_now()
@@ -2515,6 +2892,35 @@ def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None,
     del eng
     torch.cuda.empty_cache()
     return counts, reqs, stats
+
+
+def _check_tick_graphs(label, exe, model):
+    """Each decode-tick graph the executor captured, from the counts a
+    replay adds: over a pool of the model's type K7 folded with the pool
+    write (one ``rope_kv`` launch a layer) and no ``rope``; over an int8
+    pool K7 on q and k (two a layer) and no fold; every K6a launch of an
+    MoE model's tick on the decode route. (An earlier tree without the
+    fold is not checked.)"""
+    if "rope_kv" in ABSENT:
+        return
+    from paddle_tpu_torch.models.paged import model_config
+    layers = model_config(model).num_hidden_layers
+    int8 = bool(exe.cache.k_scale_store)
+    want = ({"rope": 2 * layers, "rope_kv": 0} if int8
+            else {"rope": 0, "rope_kv": layers})
+    for kind in ("_tick", "_atick", "_ltick"):
+        g = getattr(exe, kind, None)
+        if g is None:
+            continue
+        got = {k: g.launches.get(k, 0) for k in want}
+        gf = g.launches.get("grouped_fwd", 0)
+        dec = g.route_launches.get("grouped_fwd", {}).get("decode", 0)
+        log(f"[{label}] {kind[1:]} graph: a replay launches {g.launches}; "
+            f"K6a on the decode route {dec} of {gf}")
+        if got != want or dec != gf:
+            raise AssertionError(f"{label}: the {kind[1:]} graph launches "
+                                 f"{got} (want {want}) and K6a {dec} of "
+                                 f"{gf} on the decode route")
 
 
 def _cache_tensors(cache):
@@ -2644,7 +3050,8 @@ class plain_kernels:
         self.saved = [(norms, "rms_norm", norms.rms_norm),
                       (GM, "grouped_matmul", GM.grouped_matmul),
                       *((GM, name, getattr(GM, name))
-                        for name in ("lora_shrink", "lora_expand_add")
+                        for name in ("lora_shrink", "lora_expand_add",
+                                     "moe_gate_up", "moe_down")
                         if hasattr(GM, name)),
                       (FA, "flash_attention", FA.flash_attention),
                       (PA, "paged_chunk_attention", PA.paged_chunk_attention),
@@ -2654,6 +3061,9 @@ class plain_kernels:
         if hasattr(GM, "lora_shrink"):
             GM.lora_shrink = GM.lora_shrink_plain
             GM.lora_expand_add = GM.lora_expand_add_plain
+        if hasattr(GM, "moe_gate_up"):
+            GM.moe_gate_up = GM.moe_gate_up_plain
+            GM.moe_down = GM.moe_down_plain
 
         def fa(q, k, v, causal=False, scale=None, window=None, kv_lens=None,
                alibi_slopes=None):
@@ -2670,6 +3080,10 @@ class plain_kernels:
             from paddle_tpu_torch.ops.cuda import rope
             self.saved.append((rope, "fused_rope", rope.fused_rope))
             rope.fused_rope = rope.fused_rope_plain
+        if "rope_kv" not in ABSENT:
+            from paddle_tpu_torch.ops.cuda import rope
+            self.saved.append((rope, "rope_kv_write", rope.rope_kv_write))
+            rope.rope_kv_write = rope.rope_kv_write_plain
         return self
 
     def __exit__(self, *exc):
@@ -2958,6 +3372,7 @@ def phase_window_serve(torch, dev, model, np):
     log(f"[window_serve] peak allocated {peak / 2**30:.2f} GiB ({card}); "
         f"launches {counts}")
     _log_ticks(torch, "window_serve", eng.exe, card)
+    _check_tick_graphs("window_serve", eng.exe, model)
     return counts, reqs
 
 
@@ -3434,7 +3849,8 @@ def _anatomy(torch, label, unit, run, n):
     # the attention kernels one by one, wherever they rank
     for tag, fn in (("K2", "flash_fwd"), ("K5a", "flash_bwd_dq"),
                     ("K5b", "flash_bwd_dkv"), ("K6a", "grouped_fwd"),
-                    ("K6a rows", "grouped_rows"), ("K6b", "grouped_dw"),
+                    ("K6a rows", "grouped_rows"),
+                    ("K6a decode", "grouped_decode"), ("K6b", "grouped_dw"),
                     ("K6a LoRA shrink", "lora_shrink"),
                     ("K6a LoRA expand", "lora_expand")):
         mine = [r for r in rows if fn in r[2]]
@@ -3959,11 +4375,14 @@ def main(argv=None):
     results = phase_kernels(torch, dev) if "kernels" in phases else {}
     if "k6_tiles" in phases:
         phase_k6_tiles(torch, dev)
+    if "k6_decode_strips" in phases:
+        phase_k6_decode_strips(torch, dev)
     if "k4_splits" in phases:
         phase_k4_splits(torch, dev)
     if "k3_tiles" in phases:
         phase_k3_tiles(torch, dev)
     counts = {}                # path -> {kernel: launches in its own run}
+    routes = {}                # path -> {kernel: {route: launches}} alike
     quant = {"quant_serve", "quant_check", "quant_anatomy"} & set(phases)
     lora_spec = {"lora_serve", "lora_check", "lora_anatomy", "spec_serve",
                  "spec_check"} & set(phases)
@@ -4059,8 +4478,9 @@ def main(argv=None):
                                       "anatomy" in phases)
     if {"moe_serve", "moe_check", "moe_anatomy"} & set(phases):
         model = build_moe_model(torch, dev, 24, "moe_serve")
-        counts["moe_serve"], moe_reqs, _ = phase_serve(torch, dev, model, np,
-                                                       "moe_serve")
+        counts["moe_serve"], moe_reqs, moe_stats = phase_serve(
+            torch, dev, model, np, "moe_serve")
+        routes["moe_serve"] = moe_stats["routes"]
         per_forward = 2 * model.cfg.num_hidden_layers
         if counts["moe_serve"]["grouped_fwd"] % per_forward:
             raise AssertionError(
@@ -4117,18 +4537,29 @@ def main(argv=None):
     for path, names in PATHS.items():
         for name in names:
             src, rep = SOURCES[name]
-            r = results.get(path, {}).get(name, {})
-            kern.append({"name": name, "path": path, "route": "cuda",
-                         "variant": r.get("variant"),
-                         **({"nsplit": r["nsplit"]} if "nsplit" in r
-                            else {}),
-                         "source": src, "replaces": rep,
-                         "launches": counts.get(path, {}).get(name, 0),
-                         "max_abs_err": r.get("max_abs_err"),
-                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
-                         "bound_ms": r.get("bound_ms"),
-                         "bound_by": r.get("bound_by"),
-                         "library_ms": r.get("library_ms")})
+            rs = results.get(path, {}).get(name, {})
+            # K6a at moe_serve: one entry for each product on a route (the
+            # variant's first word), each taking its half of that route's
+            # launches in the path's run (a forward launches gate_up and
+            # down on the same route)
+            for r in (rs if isinstance(rs, list) else [rs]):
+                n = counts.get(path, {}).get(name, 0)
+                if isinstance(rs, list):
+                    n = routes.get(path, {}).get(name, {}).get(
+                        r["variant"].split()[0], 0) // 2
+                kern.append({"name": name, "path": path, "route": "cuda",
+                             "variant": r.get("variant"),
+                             **({"nsplit": r["nsplit"]} if "nsplit" in r
+                                else {}),
+                             **({"graph_ms": r["graph_ms"]}
+                                if "graph_ms" in r else {}),
+                             "source": src, "replaces": rep,
+                             "launches": n,
+                             "max_abs_err": r.get("max_abs_err"),
+                             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+                             "bound_ms": r.get("bound_ms"),
+                             "bound_by": r.get("bound_by"),
+                             "library_ms": r.get("library_ms")})
     log(f"[done] {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": kern}))
     print(card_line())

@@ -48,12 +48,23 @@
 //     grouped_fwd_kernel: fp32 FMAs on the CUDA cores from shared-memory
 //     tiles (operands converted to fp32 on the way in, register prefetch
 //     of the next slab); exact to the card tests' 1e-4 in float32.
-//   rows (the decode shape) — grouped_rows_kernel: with one to four rows
-//     per group there is nothing to reuse a shared-memory tile for, so a
-//     block streams a 256-column strip of its group's weights once with
-//     16-byte loads, eight warps splitting k between them and eight loads
-//     in flight per thread, multiplies it into the tile's live rows held in
-//     registers and sums the warps' partial results in a fixed order.
+//   decode (a few rows per group, not transposed) — grouped_decode_kernel:
+//     bound by bytes, every live group's weights read once (Qwen1.5-MoE's
+//     decode: 32 rows over ~26 of 60 experts, 300 MB of gate_up weights
+//     against 0.37 GFLOP). A static grid of persistent blocks, two an SM,
+//     so that a CUDA graph replays it: each block computes the groups'
+//     row tiles (up to kDecRows rows) from the sizes on the device and
+//     walks equal-byte units (a row tile x a 256-byte column strip of its
+//     group's weights over all of k) through a ring of 16 KB weight boxes
+//     that the tensor memory accelerator fills; every row of the tile
+//     multiplies the same staged bytes. Its second entry point
+//     (grouped_decode) folds the MoE layer's glue into the two expert
+//     products: the gate_up product gathers its rows from the layer's
+//     tokens, the down product forms SwiGLU on load and scales and
+//     scatters its rows in the epilogue, each with the unfused path's
+//     roundings. What holds it below the bound: the last round of units
+//     (616 units of the gate_up product over 264 blocks) and each block's
+//     own steps.
 //
 // K6b (drhs [E, k, n]) is bound by bytes, and mostly by its output: at
 // the MoE train shape (60 groups of ~273 rows, k 2048, n 2816) it writes
@@ -82,6 +93,8 @@
 //   fma (float32, and whatever the tensor-core route refuses) —
 //     grouped_dw_kernel: one block per (group, k tile, n tile), fp32 FMAs
 //     from shared-memory tiles; exact to the card tests' 1e-4 in float32.
+#include <cuda.h>
+
 #include "hopper_mma.cuh"
 
 using namespace ptt;
@@ -407,146 +420,6 @@ int launch_fwd_wgmma(int trans, const void* lhs, const void* rhs,
 // the fastest of the shapes chip_smoke.py's k6_tiles phase times
 constexpr int kGemmWG = 2, kGemmBN = 256;
 
-// ------------------------------------------------- K6a, few rows per group
-constexpr int kRowsTile = 4;    // rows of a group per block
-constexpr int kRowsWarps = 8;   // warps of a block, splitting k
-constexpr int kRowsLoads = 8;   // 16-byte weight loads in flight per thread
-
-// 16 bytes of T as floats
-template <typename T>
-struct Vec16;
-template <>
-struct Vec16<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void unpack(const uint4& u,
-                                                float (&f)[N]) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
-};
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  // a bf16 is the high half of the fp32 of the same value
-  static __device__ __forceinline__ void unpack(const uint4& u,
-                                                float (&f)[N]) {
-    const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-
-// rhs [e, k, n] with n a multiple of 16 bytes' worth of T and a 16-byte
-// aligned base (the wrapper checks). A block owns up to kRowsTile rows of
-// one group and 32 * N columns; lane l of every warp owns columns
-// n0 + l * N .. + N, warp w the k range [kbeg, kend).
-template <typename T>
-__global__ void __launch_bounds__(kRowsWarps * 32)
-    grouped_rows_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs,
-                        const int* __restrict__ sizes, T* __restrict__ out,
-                        int m, int k, int n, int e, int n_tiles) {
-  constexpr int V = Vec16<T>::N, BN = 32 * V, RB = kRowsTile;
-  __shared__ float red[kRowsWarps][RB][BN];
-  int slot = blockIdx.x / n_tiles;
-  const int n0 = (blockIdx.x % n_tiles) * BN;
-  int g = 0, start = 0, row0 = -1, row_end = 0;
-  for (; g < e; ++g) {
-    const int sz = max(sizes[g], 0);
-    const int tiles = (sz + RB - 1) / RB;
-    if (slot < tiles) {
-      row0 = start + slot * RB;
-      row_end = min(start + sz, m);
-      break;
-    }
-    slot -= tiles;
-    start += sz;
-  }
-  if (row0 < 0 || row0 >= row_end) return;  // past the live tiles
-  const int nrows = min(RB, row_end - row0);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col = n0 + lane * V;
-  const bool col_ok = col < n;  // then col + V <= n, as n % V == 0
-  const int per = ((k + 31) / 32 + kRowsWarps - 1) / kRowsWarps * 32;
-  const int kbeg = warp * per, kend = min(k, kbeg + per);
-  const T* x = lhs + (size_t)row0 * k;
-  const T* w = rhs + (size_t)g * k * n + col;
-
-  float acc[RB][V];
-#pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[r][v] = 0.f;
-  for (int kk0 = kbeg; kk0 < kend; kk0 += 32) {
-    // lane l holds lhs[r][kk0 + l]; shuffles hand it round below
-    float a[RB];
-#pragma unroll
-    for (int r = 0; r < RB; ++r)
-      a[r] = (r < nrows && kk0 + lane < kend)
-                 ? to_f(x[(size_t)r * k + kk0 + lane])
-                 : 0.f;
-#pragma unroll
-    for (int j0 = 0; j0 < 32; j0 += kRowsLoads) {
-      uint4 wv[kRowsLoads];
-#pragma unroll
-      for (int u = 0; u < kRowsLoads; ++u) {
-        const int kk = kk0 + j0 + u;
-        wv[u] = (col_ok && kk < kend)
-                    ? *reinterpret_cast<const uint4*>(w + (size_t)kk * n)
-                    : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-      for (int u = 0; u < kRowsLoads; ++u) {
-        float wf[V];
-        Vec16<T>::unpack(wv[u], wf);
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          if (r >= nrows) break;  // block-uniform: the shuffle stays whole
-          const float av = __shfl_sync(0xffffffffu, a[r], j0 + u);
-#pragma unroll
-          for (int v = 0; v < V; ++v) acc[r][v] = fmaf(av, wf[v], acc[r][v]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int v = 0; v < V; ++v) red[warp][r][lane * V + v] = acc[r][v];
-  __syncthreads();
-  // the warps' partial sums in a fixed order: deterministic
-  for (int idx = threadIdx.x; idx < RB * BN; idx += kRowsWarps * 32) {
-    const int r = idx / BN, c = idx % BN;
-    if (r >= nrows || n0 + c >= n) continue;
-    float sum = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < kRowsWarps; ++wi) sum += red[wi][r][c];
-    out[(size_t)(row0 + r) * n + n0 + c] = from_f<T>(sum);
-  }
-}
-
-template <typename T>
-int launch_rows(const void* lhs, const void* rhs, const void* sizes,
-                void* out, int m, int k, int n, int e, void* stream) {
-  constexpr int V = Vec16<T>::N;
-  if (n % V != 0 || reinterpret_cast<uintptr_t>(rhs) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_tiles = (n + 32 * V - 1) / (32 * V);
-  const long long slots = (m + kRowsTile - 1) / kRowsTile + e;
-  if (n_tiles * slots > 2147483647LL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  grouped_rows_kernel<T><<<static_cast<unsigned>(n_tiles * slots),
-                           kRowsWarps * 32, 0, (cudaStream_t)stream>>>(
-      static_cast<const T*>(lhs), static_cast<const T*>(rhs),
-      static_cast<const int*>(sizes), static_cast<T*>(out), m, k, n, e,
-      static_cast<int>(n_tiles));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ---------------------------------------------------------------- K6b
 // One slab of BK rows of the group into registers: lhs columns k0.. and g
 // columns n0..; rows at or past row_end read as 0.
@@ -870,16 +743,470 @@ int launch_dw_wgmma(const void* lhs, const void* gr, const void* sizes,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------ K6a, decode route
+// 16 bytes of T as floats
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void unpack(const uint4& u,
+                                                float (&f)[N]) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  // a bf16 is the high half of the fp32 of the same value
+  static __device__ __forceinline__ void unpack(const uint4& u,
+                                                float (&f)[N]) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+constexpr int kDecThreads = 256;     // eight warps
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kDecRows = 8;          // rows of a unit: a group's row tile
+constexpr int kDecStageW = 16384;    // weight bytes of a ring stage
+constexpr int kDecMaxRows = 1024;    // m the per-row tables hold
+constexpr int kDecMaxGroups = 256;   // e the group sizes' copy holds
+// blocks an SM: a block's stream is held back by its own steps (a wait,
+// a conversion, a block barrier per 16 KB), not by the bytes it has in
+// flight, so a second block on the SM overlaps them; two blocks' shared
+// memory fits an SM's 228 KB
+constexpr int kDecBlocksPerSM = 2;
+
+// Shared memory of the decode route for column strips of STRIP bytes:
+// the ring (each stage a [kKT] x STRIP weight tile and the unit's lhs
+// rows over the same k: one row chunk a row slot, two slots a row with
+// DOWN, gate and up), the lhs converted to fp32 ([kKT][kDecRows],
+// double-buffered), the warps' partial sums, the barriers, then the
+// tables sized by m and e: the row tiles (group, first row, rows), the
+// group sizes, each row's source or destination row and, with DOWN, its
+// combine weight.
+template <typename T, bool DOWN, int STRIP>
+struct DecodeSmem {
+  // what a block may take when kDecBlocksPerSM blocks share an SM (each
+  // block also holds 1 KB the system reserves)
+  static constexpr int kSmem = 228 * 1024 / kDecBlocksPerSM - 1024;
+  static constexpr int kCols = STRIP / sizeof(T);    // columns of a unit
+  static constexpr int kKT = kDecStageW / STRIP;     // k rows of a stage
+  static constexpr int kXPitch = kKT * sizeof(T);    // an lhs row chunk
+  static constexpr int kXSlots = kDecRows * (DOWN ? 2 : 1);
+  static constexpr int kW = kDecStageW;
+  static constexpr int kStage = kW + kXSlots * kXPitch;
+  static constexpr int kXf = 2 * kKT * kDecRows * 4;
+  static constexpr int kRed = kDecWarps * kDecRows * kCols * 4;
+  static constexpr int kTables = 16 * ((kDecMaxRows + kDecRows - 1) /
+                                           kDecRows + kDecMaxGroups) +
+                                 4 * kDecMaxGroups + 8 * kDecMaxRows;
+  // as many stages as the rest leaves room for: the bytes in flight
+  static constexpr int kStages =
+      (kSmem - 1024 - 16 - kXf - kRed - kTables) / (kStage + 8);
+  static constexpr int kOffXf = kStages * kStage;
+  static constexpr int kOffRed = kOffXf + kXf;
+  static constexpr int kOffBar = kOffRed + kRed;
+  static constexpr int kOffTiles = kOffBar + (kStages * 8 + 15) / 16 * 16;
+  static_assert(kStage % 128 == 0 && kOffTiles % 16 == 0, "alignment");
+  __host__ __device__ static constexpr int max_tiles(int m, int e) {
+    return (m + kDecRows - 1) / kDecRows + e;
+  }
+  __host__ __device__ static constexpr int bytes(int m, int e) {
+    return 128 + kOffTiles + 16 * max_tiles(m, e) + 4 * e +
+           4 * m * (DOWN ? 2 : 1);
+  }
+};
+
+// F.silu(gate) * up on tensors of type T: silu in fp32 as x / (1 +
+// exp(-x)), rounded to T, times up in fp32, rounded to T
+template <typename T>
+__device__ __forceinline__ float swiglu(float g, float u) {
+  const float s = to_f(from_f<T>(g / (1.f + expf(-g))));
+  return to_f(from_f<T>(__fmul_rn(s, u)));
+}
+
+// Persistent blocks (kDecBlocksPerSM an SM). Every block builds the list
+// of row tiles (group, first row, up to kDecRows rows; only the rows below
+// min(sum(sizes), m)) from the sizes on the device; a unit is a row tile
+// times a STRIP-byte column strip of its group's weights over all of k,
+// and block b takes units b, b + gridDim.x, ... in tile-major order, so
+// that the blocks that run at once read neighbouring strips of the same
+// weight rows. The units' k steps form one stream through the ring, kept
+// kStages - 1 steps ahead: a stage's 16 KB weight tile is one box of a
+// tensor map, fetched by the tensor memory accelerator, and its lhs row
+// chunks 16-byte cp.async pieces, all completing on the stage's barrier
+// (one box a stage: a bulk copy a row costs the copy engine a request per
+// 128 bytes). Each step, every thread first converts the next step's
+// lhs into fp32 (SwiGLU with DOWN), then multiplies this step's: thread t
+// owns the 16 bytes t % Q of the strip (V columns; Q = STRIP / 16) and 4
+// consecutive k rows of the stage, for all the tile's rows in registers,
+// so every staged weight byte is read from shared memory once and
+// multiplies every row of the tile. At a unit's last step the partial
+// sums of each output are added in a fixed order (lanes, then warps
+// through shared memory) and stored: out[row] (lhs rows gathered through
+// idx when it is given), or, with DOWN, out[idx[row]] = T(T(sum) *
+// T(gate[row] * keep[row])). No atomics: the bits do not depend on which
+// block ran a unit. A token picks distinct experts, so at a decode batch
+// of up to kDecRows tokens every group is one tile; a larger group is cut
+// into tiles of kDecRows rows, and each tile streams the group's strips
+// again.
+template <typename T, bool DOWN, int STRIP>
+__global__ void __launch_bounds__(kDecThreads, kDecBlocksPerSM)
+    grouped_decode_kernel(const T* __restrict__ lhs,
+                          const int64_t* __restrict__ idx,
+                          const T* __restrict__ rhs,
+                          const int* __restrict__ sizes,
+                          const float* __restrict__ gate,
+                          const uint8_t* __restrict__ keep,
+                          T* __restrict__ out, int m, int k, int n, int e,
+                          const __grid_constant__ CUtensorMap wmap) {
+  using namespace hopper;
+  using L = DecodeSmem<T, DOWN, STRIP>;
+  constexpr int V = Vec16<T>::N, C = L::kCols, S = L::kStages;
+  static_assert(S >= 3, "ring");
+  constexpr int Q = STRIP / 16;               // 16-byte pieces of a row
+  constexpr int KT = L::kKT;
+  constexpr int KK = KT / (kDecThreads / Q);  // k rows of a thread
+  constexpr int XP = L::kXPitch / 16;         // pieces of an lhs chunk
+  static_assert(Q <= 32 && KK >= 1, "strip");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
+  const uint32_t s0 = smem_addr(base);
+  float* xf = reinterpret_cast<float*>(base + L::kOffXf);
+  float* red = reinterpret_cast<float*>(base + L::kOffRed);
+  int4* tiles = reinterpret_cast<int4*>(base + L::kOffTiles);
+  int* gsz = reinterpret_cast<int*>(tiles + L::max_tiles(m, e));
+  int* row_to = gsz + e;  // the lhs row read (gather) or written (DOWN)
+  float* wgt = reinterpret_cast<float*>(row_to + m);
+  __shared__ int n_tiles_s;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint32_t bars = s0 + L::kOffBar;
+
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i)
+      mbar_init(bars + 8 * i, kDecThreads + 1);
+    mbar_init_fence();
+  }
+  for (int i = tid; i < e; i += kDecThreads) gsz[i] = max(sizes[i], 0);
+  if (idx != nullptr)
+    for (int i = tid; i < m; i += kDecThreads) {
+      row_to[i] = static_cast<int>(idx[i]);
+      if (DOWN)  // (gate * keep).to(T), as the unfused combine rounds it
+        wgt[i] = to_f(
+            from_f<T>(__fmul_rn(gate[i], keep[i] != 0 ? 1.f : 0.f)));
+    }
+  __syncthreads();
+  // the row tiles, group by group: a warp-wide scan of the sizes and of
+  // the tiles per group, 32 groups at a time
+  if (warp == 0) {
+    int rows_before = 0, tiles_before = 0;
+    for (int g0 = 0; g0 < e; g0 += 32) {
+      const int g = g0 + lane;
+      const int sz = g < e ? gsz[g] : 0;
+      int rows_incl = sz;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, rows_incl, o);
+        if (lane >= o) rows_incl += v;
+      }
+      const int start = rows_before + rows_incl - sz;
+      const int row0 = min(start, m), row_end = min(start + sz, m);
+      const int nt = (row_end - row0 + kDecRows - 1) / kDecRows;
+      int tiles_incl = nt;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, tiles_incl, o);
+        if (lane >= o) tiles_incl += v;
+      }
+      int t = tiles_before + tiles_incl - nt;
+      for (int i = 0; i < nt; ++i, ++t) {
+        const int r0 = row0 + i * kDecRows;
+        tiles[t] = make_int4(g, r0, min(kDecRows, row_end - r0), 0);
+      }
+      rows_before += __shfl_sync(0xffffffffu, rows_incl, 31);
+      tiles_before += __shfl_sync(0xffffffffu, tiles_incl, 31);
+    }
+    if (lane == 0) n_tiles_s = tiles_before;
+  }
+  __syncthreads();
+
+  const int strips = (n + C - 1) / C;
+  const int units = n_tiles_s * strips;
+  const int nk = (k + KT - 1) / KT;
+  const int bid = blockIdx.x, grid = gridDim.x;
+  const int total = units > bid ? ((units - 1 - bid) / grid + 1) * nk : 0;
+  // a walk over this block's steps in order: unit (tile, column strip)
+  // and k step, advanced one step at a time (one division a unit)
+  struct Cursor {
+    int p, s, u;
+    int4 tile;  // group, first row, rows
+    int col0;
+  };
+  auto cursor_at_unit = [&](Cursor& c, int u) {
+    c.s = 0;
+    c.u = u;
+    if (u < units) {
+      c.tile = tiles[u / strips];
+      c.col0 = (u % strips) * C;
+    }
+  };
+  auto advance = [&](Cursor& c) {
+    ++c.p;
+    if (++c.s == nk) cursor_at_unit(c, c.u + grid);
+  };
+  Cursor pc, cc, mc;  // the copies', the conversion's and the products'
+  pc.p = cc.p = mc.p = 0;
+  cursor_at_unit(pc, bid);
+  cursor_at_unit(cc, bid);
+  cursor_at_unit(mc, bid);
+
+  // step pc.p into stage pc.p % S: thread 0 announces the weight box's
+  // bytes and has the copy engine fetch it; every thread copies its
+  // 16-byte pieces of the lhs row chunks and arrives on the stage's
+  // barrier when they have landed
+  constexpr int E16 = 16 / sizeof(T);  // elements of a 16-byte piece
+  auto issue = [&]() {
+    if (pc.p >= total) return;
+    const int stage = pc.p % S, k0 = pc.s * KT;
+    const int kr = min(KT, k - k0), nrows = pc.tile.z;
+    const uint32_t wdst = s0 + stage * L::kStage, xdst = wdst + L::kW;
+    if (tid == 0) {  // the stage's weight box, by the copy engine
+      mbar_arrive_expect_tx(bars + 8 * stage, L::kW);
+      fence_async_smem();  // after the generic reads of the last round
+      tma_load_3d(wdst, &wmap, pc.col0, k0, pc.tile.x, bars + 8 * stage);
+    }
+#pragma unroll
+    for (int i = tid; i < L::kXSlots * XP; i += kDecThreads) {
+      const int slot = i / XP, pc16 = i % XP;
+      const int r = slot % kDecRows, half = slot / kDecRows;
+      if (r < nrows && pc16 * E16 < kr) {
+        const int row = pc.tile.y + r;
+        const T* x =
+            DOWN ? lhs + (size_t)row * (2 * k) + half * k + k0
+                 : lhs + (size_t)(idx != nullptr ? row_to[row] : row) * k +
+                       k0;
+        cp_async16(xdst + slot * L::kXPitch + pc16 * 16, x + pc16 * E16,
+                   true);
+      }
+    }
+    cp_async_mbar_arrive(bars + 8 * stage);
+    advance(pc);
+  };
+  // every thread: wait for step cc.p's stage, convert its lhs into
+  // xf[cc.p & 1] (zeros past the tile's rows and past k)
+  auto convert = [&]() {
+    const int stage = cc.p % S, kr = min(KT, k - cc.s * KT);
+    mbar_wait(bars + 8 * stage, (cc.p / S) & 1);
+    const uint8_t* xs = base + stage * L::kStage + L::kW;
+    float* dst = xf + (cc.p & 1) * KT * kDecRows;
+#pragma unroll
+    for (int i = tid; i < KT * kDecRows; i += kDecThreads) {
+      const int r = i / KT, kk = i % KT;
+      float v = 0.f;
+      if (r < cc.tile.z && kk < kr) {
+        const T* xr = reinterpret_cast<const T*>(xs + r * L::kXPitch);
+        if (DOWN) {
+          const T* ur =
+              reinterpret_cast<const T*>(xs + (kDecRows + r) * L::kXPitch);
+          v = swiglu<T>(to_f(xr[kk]), to_f(ur[kk]));
+        } else {
+          v = to_f(xr[kk]);
+        }
+      }
+      dst[kk * kDecRows + r] = v;
+    }
+    advance(cc);
+  };
+
+  const int cq = tid % Q, kq = tid / Q;
+  float acc[kDecRows][V];
+#pragma unroll
+  for (int r = 0; r < kDecRows; ++r)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[r][v] = 0.f;
+
+  for (int p = 0; p < S - 1; ++p) issue();
+  if (total > 0) convert();
+  __syncthreads();
+  for (int p = 0; p < total; ++p) {
+    // stage (p - 1) % S was last read before the barrier that ended step
+    // p - 1: refill it with step p + S - 1
+    issue();
+    if (p + 1 < total) convert();
+    const int nrows = mc.tile.z, kr = min(KT, k - mc.s * KT);
+    const uint8_t* ws = base + (p % S) * L::kStage;
+    const float* xs = xf + (p & 1) * KT * kDecRows;
+#pragma unroll
+    for (int j = 0; j < KK; ++j) {
+      const int kk = kq * KK + j;
+      if (kk >= kr) break;
+      float wf[V];
+      Vec16<T>::unpack(
+          *reinterpret_cast<const uint4*>(ws + kk * STRIP + cq * 16), wf);
+      const float4 xa = *reinterpret_cast<const float4*>(xs + kk * kDecRows);
+      const float4 xb =
+          *reinterpret_cast<const float4*>(xs + kk * kDecRows + 4);
+      const float xv[kDecRows] = {xa.x, xa.y, xa.z, xa.w,
+                                  xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+      for (int r = 0; r < kDecRows; ++r) {
+        if (r >= nrows) break;  // block-uniform
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[r][v] = fmaf(xv[r], wf[v], acc[r][v]);
+      }
+    }
+    if (mc.s == nk - 1) {
+      // the unit's last step: the lanes that share columns (l % Q), then
+      // the warps in order
+#pragma unroll
+      for (int r = 0; r < kDecRows; ++r) {
+        if (r >= nrows) break;
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+#pragma unroll
+          for (int o = Q; o < 32; o <<= 1)
+            acc[r][v] += __shfl_xor_sync(0xffffffffu, acc[r][v], o);
+      }
+      if (lane < Q)
+#pragma unroll
+        for (int r = 0; r < kDecRows; ++r) {
+          if (r >= nrows) break;
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            red[(warp * kDecRows + r) * C + cq * V + v] = acc[r][v];
+        }
+      __syncthreads();
+      for (int i = tid; i < nrows * C; i += kDecThreads) {
+        const int r = i / C, c = i % C, col = mc.col0 + c;
+        if (col >= n) continue;
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < kDecWarps; ++w)
+          sum += red[(w * kDecRows + r) * C + c];
+        const int row = mc.tile.y + r;
+        if (DOWN)
+          out[(size_t)row_to[row] * n + col] =
+              from_f<T>(__fmul_rn(to_f(from_f<T>(sum)), wgt[row]));
+        else
+          out[(size_t)row * n + col] = from_f<T>(sum);
+      }
+#pragma unroll
+      for (int r = 0; r < kDecRows; ++r)
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[r][v] = 0.f;
+    }
+    advance(mc);
+    __syncthreads();
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime (the library
+// links nothing beyond the CUDA runtime)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the strip width of the decode route's units: 256 bytes (chip_smoke.py's
+// k6_decode_strips phase builds the kernel at 128 too, in a library of its
+// own, and times both: the narrower strip balances Qwen-MoE's gate_up
+// better, the wider one streams the down product and Mixtral's both faster)
+constexpr int kDecStrip = 256;
+
+// lhs [*, k] (DOWN: gu [m, 2k]) and rhs 16-byte aligned, k and n whole
+// 16-byte pieces of T, m <= kDecMaxRows, e <= kDecMaxGroups (the wrapper's
+// fwd_route checks; here they are refused)
+template <typename T, bool DOWN, int STRIP>
+int launch_decode(const void* lhs, const void* idx, const void* rhs,
+                  const void* sizes, const void* gate, const void* keep,
+                  void* out, int m, int k, int n, int e, void* stream) {
+  using L = DecodeSmem<T, DOWN, STRIP>;
+  constexpr int V = Vec16<T>::N;
+  const uintptr_t align =
+      reinterpret_cast<uintptr_t>(lhs) | reinterpret_cast<uintptr_t>(rhs);
+  if (k % V != 0 || n % V != 0 || align % 16 != 0 || m > kDecMaxRows ||
+      e > kDecMaxGroups || k <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (DOWN && (idx == nullptr || gate == nullptr || keep == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = grouped_decode_kernel<T, DOWN, STRIP>;
+  static bool attr = false;  // the attribute outlives the launch
+  if (!attr) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::bytes(kDecMaxRows, kDecMaxGroups));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr = true;
+  }
+  const long long strips = (n + L::kCols - 1) / L::kCols;
+  const long long units = (long long)L::max_tiles(m, e) * strips;
+  if (units > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const long long slots = (long long)sms * kDecBlocksPerSM;
+  const int blocks = static_cast<int>(units < slots ? units : slots);
+  // rhs as a 3-d tensor (n, k, e), boxes of one unit's strip over a
+  // stage's k rows; rows past k and columns past n read as zeros
+  CUtensorMap wmap{};
+  {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)k, (cuuint64_t)e};
+    const cuuint64_t strides[2] = {(cuuint64_t)n * sizeof(T),
+                                   (cuuint64_t)k * n * sizeof(T)};
+    const cuuint32_t box[3] = {L::kCols, L::kKT, 1};
+    const cuuint32_t one[3] = {1, 1, 1};
+    if (encode(&wmap,
+               sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                              : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+               3, const_cast<void*>(rhs), dims, strides, box, one,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  kernel<<<blocks, kDecThreads, L::bytes(m, e), (cudaStream_t)stream>>>(
+      static_cast<const T*>(lhs), static_cast<const int64_t*>(idx),
+      static_cast<const T*>(rhs), static_cast<const int*>(sizes),
+      static_cast<const float*>(gate), static_cast<const uint8_t*>(keep),
+      static_cast<T*>(out), m, k, n, e, wmap);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (lhs, rhs and out alike). lhs [m, k],
 // sizes [e] int32 on the device, out [m, n]. trans == 0: rhs [e, k, n];
 // trans != 0: rhs [e, n, k], read transposed (the backward's dlhs). kind
 // picks the kernel (the wrapper's fwd_route decides from the static
-// shapes, the dtype and the alignment): 0 the FMA tile, 1 the
-// few-rows-per-group kernel (the decode shape; no transposed rhs), 2 the
-// tensor-core tile (bf16, k and n multiples of 8, 16-byte-aligned
-// pointers). Rows past sum(sizes) are not written.
+// shapes, the dtype and the alignment): 0 the FMA tile, 1 the decode
+// route (a few rows per group; no transposed rhs), 2 the tensor-core tile
+// (bf16, k and n multiples of 8, 16-byte-aligned pointers). Rows past
+// sum(sizes) are not written.
 extern "C" int grouped_fwd(int dtype, int trans, int kind, const void* lhs,
                            const void* rhs, const void* sizes, void* out,
                            int m, int k, int n, int e, void* stream) {
@@ -892,12 +1219,45 @@ extern "C" int grouped_fwd(int dtype, int trans, int kind, const void* lhs,
                           : static_cast<int>(cudaErrorInvalidValue);
 #define PTT_GFWD(T)                                                        \
   return kind == 1                                                         \
-             ? launch_rows<T>(lhs, rhs, sizes, out, m, k, n, e, stream)    \
+             ? launch_decode<T, false, kDecStrip>(lhs, nullptr, rhs, sizes, \
+                                                  nullptr, nullptr, out, m, \
+                                                  k, n, e, stream)          \
              : launch_fwd<T, Large>(trans, lhs, rhs, sizes, out, m, k, n, \
                                     e, stream)
   if (dtype == kF32) PTT_GFWD(float);
   if (dtype == kBF16) PTT_GFWD(__nv_bfloat16);
 #undef PTT_GFWD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The MoE layer's two expert products at the decode shape, on the decode
+// route, with the layer's glue folded in. sizes [e] int32 on the device;
+// dtype as above for lhs, rhs and out.
+//   down == 0 (gate_up): out[i] = lhs[idx[i]] @ rhs[g(i)], lhs [*, k] the
+//     layer's tokens, idx [m] int64 the token of sorted row i (null: row
+//     i itself), out [m, n].
+//   down == 1: out[idx[i]] = T(T(act[i] @ rhs[g(i)]) * T(gate[i] *
+//     keep[i])), act[i] = T(T(silu(gate half)) * up half) of lhs [m, 2k]
+//     (the gate_up product), idx [m] int64 the destination row (the
+//     sort's order), gate [m] float32, keep [m] bool; out [m, n]
+//     choice-major.
+// Rows past sum(sizes) are neither read nor written.
+extern "C" int grouped_decode(int dtype, int down, const void* lhs,
+                              const void* idx, const void* rhs,
+                              const void* sizes, const void* gate,
+                              const void* keep, void* out, int m, int k,
+                              int n, int e, void* stream) {
+  if (m <= 0 || n <= 0 || e <= 0) return 0;
+#define PTT_GDEC(T)                                                        \
+  return down ? launch_decode<T, true, kDecStrip>(lhs, idx, rhs, sizes,    \
+                                                  gate, keep, out, m, k, n, \
+                                                  e, stream)               \
+              : launch_decode<T, false, kDecStrip>(lhs, idx, rhs, sizes,   \
+                                                   nullptr, nullptr, out,  \
+                                                   m, k, n, e, stream)
+  if (dtype == kF32) PTT_GDEC(float);
+  if (dtype == kBF16) PTT_GDEC(__nv_bfloat16);
+#undef PTT_GDEC
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -8,7 +8,8 @@
 // K-major B MN-major, its dlhs both K-major, K6b both MN-major), RS
 // m64n64k16 and m64n128k16 (B MN-major; K2, K3, K5; m64n64k16 also B
 // K-major, K3's S = Q K^T); and for an epilogue staged in shared memory
-// (K6b), stmatrix, 16-byte shared loads and named barriers.
+// (K6b), stmatrix, 16-byte shared loads and named barriers; for K6a's
+// decode route, mbarriers and tensor-map copies.
 //
 // Tile layout. A [rows][D] bf16 tile (D = 64 or 128) is stored as D / 64
 // panels of [rows][64]: one 128-byte line per row, the 16-byte chunk c of
@@ -152,6 +153,67 @@ __device__ __forceinline__ void stmatrix_x4(uint32_t addr,
 // barrier `id` (1..15; 0 is __syncthreads') over `threads` threads
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Barriers in shared memory (mbarrier) that copies complete on (K6a's
+// decode route): a barrier initialised with count N completes a phase
+// when N arrivals have happened (a thread's arrival triggered by the
+// completion of every cp.async it issued before it, or one announcing
+// bytes that a tensor-map copy then delivers) and every announced byte
+// has landed; a waiter names the phase by its parity and then sees the
+// copied bytes.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// the initialised barriers visible to every thread and copy
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// this thread arrives on `bar` once its cp.async copies so far complete
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// A box of a 3-d tensor map (coordinates innermost first) from global to
+// shared memory by the tensor memory accelerator, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* tmap,
+                                           int c0, int c1, int c2,
+                                           uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand starting

@@ -206,7 +206,11 @@ def grouped_forward(xt, route, gate_up, down, num_tokens: int):
     path's results without the ``[E, C, H]`` dispatch buffer. The gather
     goes through the choice-major list (k copies of the tokens permuted by
     the sort), so its backward sums each token's k cotangents without
-    colliding writes."""
+    colliding writes. At the decode shape with no gradient recorded
+    (:func:`_decode_fused`) the same function runs as
+    :func:`decode_forward`."""
+    if _decode_fused(xt, route, gate_up, down):
+        return decode_forward(xt, route, gate_up, down, num_tokens)
     n = route["order"].shape[0]
     k = n // num_tokens
     x_sorted = xt.unsqueeze(0).expand(k, *xt.shape).reshape(
@@ -214,6 +218,38 @@ def grouped_forward(xt, route, gate_up, down, num_tokens: int):
     y_sorted = grouped_mlp_apply(x_sorted, gate_up, down, route["counts"])
     wgt = (route["gate"] * route["keep"]).to(y_sorted.dtype)
     return _combine_by_token(y_sorted * wgt[:, None], route, num_tokens)
+
+
+def _decode_fused(xt, route, gate_up, down) -> bool:
+    """Whether :func:`grouped_forward` takes :func:`decode_forward`: no
+    gradient is recorded, and ``moe_decode_route`` holds for the static
+    shapes (the sorted rows, the experts, the widths), the dtype and the
+    weights' alignment. A route, not a fallback: the CPU takes it at the
+    same shapes and runs the kernels' plain versions."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xt, gate_up, down)):
+        return False
+    e, h, two_inter = gate_up.shape
+    return (down.dtype == gate_up.dtype == xt.dtype
+            and _gmm.moe_decode_route(
+                route["order"].shape[0], e, h, two_inter // 2, xt.dtype,
+                gate_up.data_ptr() % 16 == 0 and down.data_ptr() % 16 == 0))
+
+
+def decode_forward(xt, route, gate_up, down, num_tokens: int):
+    """:func:`grouped_forward`'s function as two launches of K6a's decode
+    route and one sum: the gate_up product reads the tokens through
+    ``route["tok"]`` in place; the down product forms SwiGLU on load,
+    multiplies each row by its cast ``gate * keep`` weight and writes it
+    to its place in the choice-major list (``route["order"]``); the k
+    choices of each token are then summed. Every step rounds as the
+    unfused composition does; on CPU tensors the wrappers run that
+    composition (``moe_gate_up_plain``, ``moe_down_plain``)."""
+    n = route["order"].shape[0]
+    gu = _gmm.moe_gate_up(xt, route["tok"], gate_up, route["counts"])
+    flat = _gmm.moe_down(gu, down, route["counts"], route["gate"],
+                         route["keep"], route["order"])
+    return flat.view(n // num_tokens, num_tokens, -1).sum(0)
 
 
 class MoELayer(nn.Module):

@@ -7,7 +7,9 @@
     through the paged chunk kernel, K3) and ``llama_decode_step_paged`` /
     ``llama_decode_tick`` (one token per sequence through the paged decode
     kernel, K4, sampled on the device). Every rope of the three goes
-    through K7 (``ops.cuda.rope``). A ``lora`` argument adds the batched
+    through K7 (``ops.cuda.rope``); the decode step's, over a pool of the
+    model's type, through K7 folded with the pool write
+    (``rope_kv_write``). A ``lora`` argument adds the batched
     multi-LoRA correction of each row's adapter to the attention
     projections (``_lora_add``: K6a's two LoRA kernels, the rank-r shrink
     and the expand that adds into the projection's output). The
@@ -951,6 +953,20 @@ def _apply_rope_rows(x, cos, sin):
     return _rope.fused_rope(x, cos, sin)
 
 
+def _rope_write_decode(cache, li, q, k, v, cos, sin, dest):
+    """The decode step's rope and pool write of layer ``li``; returns q
+    rotated. A pool of the activations' type takes K7 folded with the
+    write (``ops.cuda.rope.rope_kv_write``: one launch); an int8 pool,
+    which quantizes on write, takes K7 on q and k and ``_scatter_kv``. The
+    route is the pool's dtype: both give the same bits."""
+    if cache.k_store[li].dtype != q.dtype:
+        q = _apply_rope_rows(q, cos, sin)
+        _scatter_kv(cache, li, _apply_rope_rows(k, cos, sin), v, dest)
+        return q
+    return _rope.rope_kv_write(q, k, v, cos, sin, cache.k_store[li],
+                               cache.v_store[li], dest)
+
+
 def _scatter(store, vals, dest):
     """Write rows ``vals`` [..., H(, D)] at flat pool positions ``dest``
     of ``store`` [N + 1, bs, H(, D)] (sink positions for dropped rows)."""
@@ -1218,9 +1234,7 @@ def llama_decode_step_paged(model, tokens, cache: PagedKVCache, active,
     for li, lyr in enumerate(_backbone(model).layers):
         h = lyr.input_layernorm(x)
         q, k, v = _qkv(lyr.self_attn, h, (b, 1), (b, 1), lora, li)
-        q = _apply_rope_rows(q, cos, sin)
-        k = _apply_rope_rows(k, cos, sin)
-        _scatter_kv(cache, li, k, v, dest)
+        q = _rope_write_decode(cache, li, q, k, v, cos, sin, dest)
         kp, vp, ks, vs = _pools(cache, li)
         out = _paged.paged_decode_attention(
             q[:, 0], kp, vp, tables, new_lens, window=cfg.sliding_window,

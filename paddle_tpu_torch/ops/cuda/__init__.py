@@ -11,8 +11,10 @@ from paddle_tpu_torch.ops.cuda import (flash_attention,  # noqa: F401
                                        rope)
 
 
+# the decode tick rotates q and k and writes k and v into a pool of the
+# model's type in one launch (rope_kv); prefill and the chunk run K7
 SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
-                 "rope")
+                 "rope", "rope_kv")
 TRAIN_KERNELS = ("rms_norm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                  "rope")
 # the MoE families: the dense paths' kernels plus the grouped GEMM
@@ -20,8 +22,10 @@ MOE_SERVE_KERNELS = SERVE_KERNELS + ("grouped_fwd",)
 MOE_TRAIN_KERNELS = TRAIN_KERNELS + ("grouped_fwd", "grouped_dw")
 # sliding-window serving (Mistral): whole-prompt prefill and decode only —
 # chunked prefill under a window is refused, as in the reference engine
-WINDOW_SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_decode", "rope")
-# quantized serving (int8 KV pool): K3 and K4 in their int8 mode
+WINDOW_SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_decode", "rope",
+                        "rope_kv")
+# quantized serving (int8 KV pool): K3 and K4 in their int8 mode; the
+# pool quantizes on write, so the decode tick keeps K7 and its own writes
 QUANT_SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_chunk_i8",
                        "paged_decode_i8", "rope")
 # the ALiBi families (BLOOM, falcon-rw) through generic_generate (every
@@ -36,7 +40,8 @@ ROPE_GENERATE_KERNELS = ("flash_fwd", "rope")
 LORA_SERVE_KERNELS = SERVE_KERNELS + ("lora_shrink", "lora_expand")
 # speculative serving: the target's verify batch runs K3 (paged_chunk),
 # the draft's norms and ropes K1 and K7
-SPEC_SERVE_KERNELS = SERVE_KERNELS
+SPEC_SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_chunk",
+                      "paged_decode", "rope")
 
 
 def kernels() -> dict:
@@ -44,8 +49,9 @@ def kernels() -> dict:
     every kernel of the port: the serving path's (K3 and K4 counted apart
     over int8 pools), the train step's backward, the grouped GEMM of the
     MoE families (forward/dlhs, drhs), the rotary embedding of every
-    path, then the ALiBi mode of K2, K5a and K5b (counted apart), and
-    K6a's two kernels at the multi-LoRA call site."""
+    path, then the ALiBi mode of K2, K5a and K5b (counted apart),
+    K6a's two kernels at the multi-LoRA call site, and K7 folded with the
+    decode tick's KV pool write."""
     return {
         "rms_norm": norms.rms_norm,
         "flash_fwd": flash_attention.flash_attention,
@@ -63,6 +69,7 @@ def kernels() -> dict:
         "flash_bwd_dkv_alibi": flash_attention.flash_bwd_dkv_alibi,
         "lora_shrink": grouped_matmul.lora_shrink,
         "lora_expand": grouped_matmul.lora_expand_add,
+        "rope_kv": rope.rope_kv_write,
     }
 
 
@@ -79,7 +86,7 @@ def launches() -> dict:
 
 def route_launches() -> dict:
     """{name: {kernel: launches}} of the wrappers that choose between
-    kernels and count each where it launches (K6a: ``"rows"``,
+    kernels and count each where it launches (K6a: ``"decode"``,
     ``"wgmma"``, ``"fma"``; K6b: ``"wgmma"``, ``"fma"``)."""
     return {name: dict(fn.route_launches) for name, fn in kernels().items()
             if hasattr(fn, "route_launches")}

@@ -15,16 +15,26 @@ transposed in the kernel (no transposed copy) and ``drhs`` with K6b, or
 :func:`grouped_matmul_bwd_plain` on the CPU. ``group_sizes`` gets no
 gradient and is never read back to the host on the kernel path: the launch
 covers the static bound of row tiles and each block finds its group on the
-device. :func:`fwd_route` names the kernel a K6a launch runs: the few-rows
-kernel at the decode shape, the tensor cores (``wgmma``) for bf16 at the
+device. :func:`fwd_route` names the kernel a K6a launch runs: the decode
+route at the decode shape, the tensor cores (``wgmma``) for bf16 at the
 prefill and train shapes, forward and dlhs alike, fp32 FMAs for float32;
 :func:`dw_route` the kernel of a K6b launch: the tensor cores for bf16,
 fp32 FMAs for float32. ``grouped_matmul.launches`` counts K6a launches
-(forward and dlhs), ``grouped_matmul.route_launches`` the K6a launches of
-each kernel (``"rows"``, ``"wgmma"``, ``"fma"``), ``grouped_dw.launches``
-K6b launches and
-``grouped_dw.route_launches`` the K6b launches of each kernel (``"wgmma"``,
-``"fma"``).
+(forward and dlhs, and the MoE layer's two fused decode products),
+``grouped_matmul.route_launches`` the K6a launches of each kernel
+(``"decode"``, ``"wgmma"``, ``"fma"``), ``grouped_dw.launches`` K6b
+launches and ``grouped_dw.route_launches`` the K6b launches of each
+kernel (``"wgmma"``, ``"fma"``).
+
+The MoE layer's decode (``distributed/moe.py`` ``grouped_forward`` where
+:func:`moe_decode_route` holds and no gradient is recorded) runs its two
+expert products on the decode route with the layer's glue folded in:
+:func:`moe_gate_up` reads the tokens through the route's ``tok`` in place
+(no expanded copy, no gather), :func:`moe_down` forms SwiGLU from the
+gate_up product on load and writes each row, weighted by its cast gate
+weight, to its place in the choice-major buffer. Their plain versions
+(:func:`moe_gate_up_plain`, :func:`moe_down_plain`) are the unfused
+composition step by step.
 
 ``PT_GROUPED_GEMM=0`` (:func:`grouped_gemm_enabled`) keeps its meaning: the
 MoE layer then takes its dense capacity path and never comes here.
@@ -44,15 +54,19 @@ import ctypes
 import os
 
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.ops.cuda import _build
 
-# mean rows per group at or below which K6a runs its few-rows kernel (the
-# decode shape: a few rows spread over many groups, each group's weights
-# streamed once)
-ROWS_KERNEL_MAX_ROWS_PER_GROUP = 8
+# mean rows per group at or below which K6a takes its decode route (a few
+# rows spread over many groups, each group's weights streamed once), and
+# the rows and groups whose tables the route's kernel keeps in shared
+# memory
+DECODE_MAX_ROWS_PER_GROUP = 8
+DECODE_MAX_ROWS = 1024
+DECODE_MAX_GROUPS = 256
 # the kernel code grouped_fwd in csrc/grouped_matmul.cu takes for a route
-_KIND = {"fma": 0, "rows": 1, "wgmma": 2}
+_KIND = {"fma": 0, "decode": 1, "wgmma": 2}
 
 
 def fwd_route(m, e, k, n, dtype, trans=False, aligned=True) -> str:
@@ -61,20 +75,36 @@ def fwd_route(m, e, k, n, dtype, trans=False, aligned=True) -> str:
     ``trans``: the backward's dlhs) runs, from the static shapes, the dtype
     and whether the weights are 16-byte aligned (``aligned``) alone:
 
-    * ``"rows"``: the few-rows kernel, for the decode shape (at most
-      ``ROWS_KERNEL_MAX_ROWS_PER_GROUP`` rows a group on average, n a
-      whole number of 16-byte loads, no transposed weights);
+    * ``"decode"``: the decode route, for at most
+      ``DECODE_MAX_ROWS_PER_GROUP`` rows a group on average (and at most
+      ``DECODE_MAX_ROWS`` rows and ``DECODE_MAX_GROUPS`` groups), k and n
+      whole numbers of 16-byte pieces, no transposed weights;
     * ``"wgmma"``: bf16 on the tensor cores (k and n multiples of 8);
     * ``"fma"``: fp32 FMAs, for float32 and whatever the other two refuse.
 
     Every route is a kernel: a CUDA tensor never reaches
     :func:`grouped_matmul_plain`."""
-    if (not trans and m <= ROWS_KERNEL_MAX_ROWS_PER_GROUP * e
-            and n % (16 // dtype.itemsize) == 0 and aligned):
-        return "rows"
+    vec = 16 // dtype.itemsize
+    if (not trans and m <= DECODE_MAX_ROWS_PER_GROUP * e
+            and m <= DECODE_MAX_ROWS and e <= DECODE_MAX_GROUPS
+            and k % vec == 0 and n % vec == 0 and aligned):
+        return "decode"
     if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and aligned:
         return "wgmma"
     return "fma"
+
+
+def moe_decode_route(m, e, h, inter, dtype, aligned=True) -> bool:
+    """Whether an MoE layer of hidden size ``h`` and ``e`` experts of
+    ``inter`` runs its ``m`` sorted rows (tokens x top-k) through
+    :func:`moe_gate_up` and :func:`moe_down`: both of its products
+    (``[m, h] @ [e, h, 2 inter]``, ``[m, inter] @ [e, inter, h]``) on the
+    decode route, from the static shapes, the dtype and the weights'
+    alignment alone."""
+    return (dtype in _build.DTYPE_CODES
+            and fwd_route(m, e, h, 2 * inter, dtype, False, aligned)
+            == "decode"
+            and fwd_route(m, e, inter, h, dtype, False, aligned) == "decode")
 
 
 # groups whose row offsets K6b's tensor-core kernel keeps in shared memory
@@ -156,6 +186,9 @@ def _lib():
         lib.grouped_fwd.restype = ctypes.c_int
         lib.grouped_dw.argtypes = [i, i, v, v, v, v, i, i, i, i, v]
         lib.grouped_dw.restype = ctypes.c_int
+        lib.grouped_decode.argtypes = [i, i, v, v, v, v, v, v, v, i, i, i,
+                                       i, v]
+        lib.grouped_decode.restype = ctypes.c_int
         _sig_set = True
     return lib
 
@@ -243,6 +276,130 @@ def grouped_dw(lhs, g, group_sizes):
     grouped_dw.launches += 1
     grouped_dw.route_launches[route] += 1
     return drhs
+
+
+# ------------------------------------- K6a at the MoE layer's decode shape
+def moe_gate_up_plain(xt, tok, gate_up, group_sizes):
+    """``gu[i] = xt[tok[i]] @ gate_up[g(i)]`` in plain PyTorch, as the
+    unfused layer computes it: the tokens gathered into sorted rows, then
+    :func:`grouped_matmul_plain`."""
+    return grouped_matmul_plain(xt.index_select(0, tok), gate_up,
+                                group_sizes)
+
+
+def moe_down_plain(gu, down, group_sizes, gate, keep, order):
+    """The down product and the combine's weighting and unsort in plain
+    PyTorch, as the unfused layer computes them: ``act = F.silu(gate half)
+    * up half`` of ``gu``, :func:`grouped_matmul_plain` against ``down``,
+    each row times ``(gate * keep).to(dtype)``, row i put at ``order[i]``
+    of the choice-major buffer. Returns that buffer ``[m, h]``."""
+    g, u = torch.chunk(gu, 2, dim=-1)
+    y = grouped_matmul_plain(F.silu(g) * u, down, group_sizes)
+    wgt = (gate * keep).to(y.dtype)
+    return torch.empty_like(y).index_copy_(0, order, y * wgt[:, None])
+
+
+def _decode_check(what, lhs, rhs, group_sizes, rows, kdim):
+    """What both versions of a fused decode product take: lhs [*, kdim]
+    and rhs [e, k, n] of one type, group_sizes [e] int32, the per-row
+    index tensors in ``rows`` ([m] each) on lhs's device."""
+    if lhs.ndim != 2 or rhs.ndim != 3 or lhs.shape[1] != kdim:
+        raise ValueError(f"{what}: bad shapes {tuple(lhs.shape)} "
+                         f"{tuple(rhs.shape)}")
+    if lhs.dtype != rhs.dtype or lhs.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{what}: lhs {lhs.dtype} and rhs {rhs.dtype} must "
+                        f"both be float32 or both bfloat16")
+    if group_sizes.dtype != torch.int32 or tuple(group_sizes.shape) != (
+            rhs.shape[0],):
+        raise TypeError(f"{what}: group_sizes must be int32 "
+                        f"({rhs.shape[0]},)")
+    m = rows[0].shape[0]
+    if any(t.ndim != 1 or t.shape[0] != m for t in rows):
+        raise ValueError(f"{what}: per-row tensors "
+                         f"{[tuple(t.shape) for t in rows]} differ")
+    _same_device(what, lhs, rhs, group_sizes, *rows)
+    return m
+
+
+def _decode_launch(what, down, lhs, idx, rhs, group_sizes, gate, keep, m, k,
+                   n, out=None):
+    """One launch of K6a's decode route through the ``grouped_decode``
+    entry point (the wrapper's counts: a ``grouped_fwd`` launch on the
+    ``"decode"`` route), into ``out`` [m, n] when given (its rows past
+    the groups' total are left as they are)."""
+    e = rhs.shape[0]
+    if fwd_route(m, e, k, n, lhs.dtype, False,
+                 rhs.data_ptr() % 16 == 0) != "decode":
+        raise ValueError(f"{what}: K6a's decode route does not take m {m}, "
+                         f"{e} groups, k {k}, n {n} ({lhs.dtype}; see "
+                         f"moe_decode_route)")
+    lhs, rhs = lhs.contiguous(), rhs.contiguous()
+    if lhs.data_ptr() % 16:
+        lhs = lhs.clone()
+    idx, sizes = idx.contiguous(), group_sizes.contiguous()
+    if out is None:
+        out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
+    elif (tuple(out.shape) != (m, n) or out.dtype != lhs.dtype
+          or not out.is_contiguous()):
+        raise ValueError(f"{what}: out must be contiguous {lhs.dtype} "
+                         f"({m}, {n})")
+    lib = _lib()
+    rc = lib.grouped_decode(_build.dtype_code(lhs, what), int(down),
+                            _build.ptr(lhs), _build.ptr(idx),
+                            _build.ptr(rhs), _build.ptr(sizes),
+                            _build.ptr(gate), _build.ptr(keep),
+                            _build.ptr(out), m, k, n, e, _build.stream(lhs))
+    _build.check(lib, rc, what)
+    grouped_matmul.launches += 1
+    grouped_matmul.route_launches["decode"] += 1
+    return out
+
+
+def moe_gate_up(xt, tok, gate_up, group_sizes):
+    """The MoE layer's gate_up product at the decode shape: ``gu[i] =
+    xt[tok[i]] @ gate_up[g(i)]`` for the m sorted rows, xt [T, h] the
+    layer's tokens (read in place through ``tok`` [m] int64: no gathered
+    copy), gate_up [e, h, 2 inter], group_sizes [e] int32. Returns gu [m,
+    2 inter] in xt's type. On CUDA tensors one launch of K6a's decode
+    route (or a ValueError where :func:`moe_decode_route` does not hold),
+    else :func:`moe_gate_up_plain`."""
+    m = _decode_check("moe_gate_up", xt, gate_up, group_sizes, (tok,),
+                      gate_up.shape[1])
+    if tok.dtype != torch.int64:
+        raise TypeError(f"moe_gate_up: tok must be int64, got {tok.dtype}")
+    if not xt.is_cuda:
+        return moe_gate_up_plain(xt, tok, gate_up, group_sizes)
+    return _decode_launch("moe_gate_up", 0, xt, tok, gate_up, group_sizes,
+                          None, None, m, xt.shape[1], gate_up.shape[2])
+
+
+def moe_down(gu, down, group_sizes, gate, keep, order):
+    """The MoE layer's down product at the decode shape with the combine's
+    weighting and unsort folded in: ``out[order[i]] = (F.silu(gu_gate[i])
+    * gu_up[i]) @ down[g(i)] * (gate[i] * keep[i])``, each step rounded to
+    gu's type as the unfused layer rounds it. gu [m, 2 inter] (from
+    :func:`moe_gate_up`), down [e, inter, h], group_sizes [e] int32, gate
+    [m] float32, keep [m] bool and order [m] int64 in sorted order (the
+    route's). Returns the choice-major buffer [m, h] (a dropped
+    assignment's row is its product times 0). Rows past
+    ``sum(group_sizes)`` are left unwritten on the card (zeros scattered
+    by the plain version); the MoE layer's counts cover every row. On CUDA
+    tensors one launch of K6a's decode route, else
+    :func:`moe_down_plain`."""
+    if gu.ndim != 2 or gu.shape[1] % 2:
+        raise ValueError(f"moe_down: gu {tuple(gu.shape)} is not [m, 2 "
+                         f"inter]")
+    m = _decode_check("moe_down", gu, down, group_sizes, (gate, keep, order),
+                      2 * down.shape[1])
+    if (gate.dtype != torch.float32 or keep.dtype != torch.bool
+            or order.dtype != torch.int64):
+        raise TypeError(f"moe_down: gate float32, keep bool and order int64, "
+                        f"got {gate.dtype}, {keep.dtype}, {order.dtype}")
+    if not gu.is_cuda:
+        return moe_down_plain(gu, down, group_sizes, gate, keep, order)
+    return _decode_launch("moe_down", 1, gu, order, down, group_sizes,
+                          gate.contiguous(), keep.contiguous(), m,
+                          down.shape[1], down.shape[2])
 
 
 def _fwd(lhs, rhs, group_sizes):
@@ -465,7 +622,7 @@ def lora_expand_add(y, t, b_stack, gs, perm):
 
 
 grouped_matmul.launches = 0
-grouped_matmul.route_launches = {"rows": 0, "wgmma": 0, "fma": 0}
+grouped_matmul.route_launches = {"decode": 0, "wgmma": 0, "fma": 0}
 grouped_dw.launches = 0
 grouped_dw.route_launches = {"wgmma": 0, "fma": 0}
 lora_shrink.launches = 0

@@ -16,6 +16,14 @@ result is contiguous. It is differentiable in ``x`` (a
 on the gradient with ``-sin``, the rotation's transpose. The tables get
 no gradient. ``fused_rope.launches`` counts kernel launches, backward
 ones included.
+
+:func:`rope_kv_write` is K7 folded with the decode tick's KV pool write
+(``models/paged.py`` ``llama_decode_step_paged`` over a pool of the
+model's type): q and k rotated and k and v written into the layer's pools
+at each row's pool position in one launch, bit for bit the unfused
+composition (:func:`rope_kv_write_plain`: ``fused_rope_plain`` on q and
+on k, then the pools' ``index_put_``). ``rope_kv_write.launches`` counts
+its launches.
 """
 from __future__ import annotations
 
@@ -73,6 +81,9 @@ def _lib():
         v, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.rope_fwd.argtypes = [i, i, v, v, v, v, ll, i, i, ll, ll, i, v]
         lib.rope_fwd.restype = ctypes.c_int
+        lib.rope_kv_write.argtypes = [i, i, v, v, v, ll, ll, ll, v, v, v, v,
+                                      v, v, i, i, i, i, ll, v]
+        lib.rope_kv_write.restype = ctypes.c_int
         _sig_set = True
     return lib
 
@@ -145,4 +156,88 @@ def fused_rope(x, cos, sin):
     return _rope_fwd(x, cos, sin)
 
 
+def _pool_write(pool, vals, dest):
+    """``vals`` [B, 1, H, D] into ``pool`` [N + 1, bs, H, D] at the flat
+    pool positions ``dest`` [B] (the paged forwards' ``_scatter``)."""
+    flat = pool.view(-1, *pool.shape[2:])
+    flat.index_put_((dest.reshape(-1),),
+                    vals.reshape(-1, *pool.shape[2:]).to(pool.dtype))
+
+
+def rope_kv_write_plain(q, k, v, cos, sin, k_pool, v_pool, dest):
+    """The unfused composition in plain PyTorch: ``fused_rope_plain`` on q
+    and on k, then k rotated and v written into the pools at ``dest``.
+    Returns q rotated (contiguous, shaped like q)."""
+    q_rot = fused_rope_plain(q, cos, sin)
+    _pool_write(k_pool, fused_rope_plain(k, cos, sin), dest)
+    _pool_write(v_pool, v, dest)
+    return q_rot
+
+
+def _kv_check(q, k, v, k_pool, v_pool, dest):
+    """The shapes and types both versions take."""
+    if (q.ndim != 4 or k.ndim != 4 or q.shape[1] != 1
+            or k.shape != v.shape or k.shape[:2] != q.shape[:2]
+            or k.shape[3] != q.shape[3]):
+        raise ValueError(f"rope_kv_write: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
+                         f"[B, 1, H, D] decode rows")
+    if (k_pool.ndim != 4 or k_pool.shape != v_pool.shape
+            or tuple(k_pool.shape[2:]) != tuple(k.shape[2:])):
+        raise ValueError(f"rope_kv_write: pools {tuple(k_pool.shape)} / "
+                         f"{tuple(v_pool.shape)} for k {tuple(k.shape)}")
+    if tuple(dest.shape) != (q.shape[0],) or dest.dtype != torch.int64:
+        raise ValueError(f"rope_kv_write: dest must be int64 "
+                         f"({q.shape[0]},), got {dest.dtype} "
+                         f"{tuple(dest.shape)}")
+    if not (q.dtype == k.dtype == v.dtype == k_pool.dtype == v_pool.dtype):
+        raise TypeError(f"rope_kv_write: q/k/v {q.dtype} and pools "
+                        f"{k_pool.dtype} differ (an int8 pool keeps the "
+                        f"unfused write)")
+
+
+def rope_kv_write(q, k, v, cos, sin, k_pool, v_pool, dest):
+    """One decode step's rope and pool write of one layer: q [B, 1, Hq,
+    D], k and v [B, 1, Hkv, D] (strided views of the fused QKV product are
+    read in place), cos/sin fp32 [R, D/2] with R dividing B, the layer's
+    pools ``k_pool``/``v_pool`` [N + 1, bs, Hkv, D] of q's type, ``dest``
+    [B] int64 flat pool positions. Writes k rotated and v at ``dest``;
+    returns q rotated (contiguous [B, 1, Hq, D]). On CUDA tensors one
+    launch of the fold (contiguous pools), else
+    :func:`rope_kv_write_plain`."""
+    _kv_check(q, k, v, k_pool, v_pool, dest)
+    if not q.is_cuda:
+        return rope_kv_write_plain(q, k, v, cos, sin, k_pool, v_pool, dest)
+    code = _build.dtype_code(q, "rope_kv_write")
+    b, _, hq, d = q.shape
+    hkv = k.shape[2]
+    _, r, c, s = _tables(q, cos, sin)
+    if any(t.get_device() != q.get_device()
+           for t in (k, v, c, s, k_pool, v_pool, dest)):
+        raise ValueError("rope_kv_write: tensors on different devices")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("rope_kv_write: the CUDA kernel writes contiguous "
+                         "pools")
+    c, s, dest = c.contiguous(), s.contiguous(), dest.contiguous()
+    (qr, sq), (kr, sk), (vr, sv) = _rows_view(q), _rows_view(k), \
+        _rows_view(v)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    es = q.element_size()
+    ptrs = [t.data_ptr() for t in (qr, kr, vr, c, s, out, k_pool, v_pool)]
+    vec = ((d // 2) % (16 // es) == 0
+           and all((st * es) % 16 == 0 for st in (sq, sk, sv))
+           and all(p % 16 == 0 for p in ptrs))
+    lib = _lib()
+    rc = lib.rope_kv_write(code, 16 if vec else 1, qr.data_ptr(),
+                           kr.data_ptr(), vr.data_ptr(), sq, sk, sv,
+                           c.data_ptr(), s.data_ptr(), out.data_ptr(),
+                           k_pool.data_ptr(), v_pool.data_ptr(),
+                           dest.data_ptr(), b, hq, hkv, d, r,
+                           _build.stream(q))
+    _build.check(lib, rc, "rope_kv_write")
+    rope_kv_write.launches += 1
+    return out
+
+
 fused_rope.launches = 0
+rope_kv_write.launches = 0

@@ -607,7 +607,7 @@ def test_train_step_on_card_matches_cpu_and_launches_its_kernels():
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("sizes,n,rows_kernel", [
     ([5, 0, 1, 130, 0, 70, 1, 0], 200, False),       # the tiled kernel
-    ([1, 0, 2, 0, 0, 17, 1, 0, 3, 0], 200, True),    # few rows per group
+    ([1, 0, 2, 0, 0, 17, 1, 0, 3, 0], 200, True),    # the decode route
     ([1, 0, 2, 0, 0, 17, 1, 0, 3, 0], 50, False),    # n its loads cannot take
 ], ids=["tiled", "few_rows", "few_rows_odd_n"])
 def test_grouped_matmul_kernels_match_plain(dtype, tol, sizes, n, rows_kernel):
@@ -626,8 +626,8 @@ def test_grouped_matmul_kernels_match_plain(dtype, tol, sizes, n, rows_kernel):
     rhs = torch.randn(e, k, n, generator=g, device=dev).to(dtype)
     cot = torch.randn(m, n, generator=g, device=dev).to(dtype)
     gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
-    assert (TG.fwd_route(m, e, k, n, dtype) == "rows") == rows_kernel
-    assert TG.fwd_route(m, e, n, k, dtype, trans=True) != "rows"
+    assert (TG.fwd_route(m, e, k, n, dtype) == "decode") == rows_kernel
+    assert TG.fwd_route(m, e, n, k, dtype, trans=True) != "decode"
 
     def close(a, b):
         assert a.dtype == b.dtype == dtype and a.shape == b.shape
@@ -1279,7 +1279,9 @@ def test_graph_tick_matches_the_eager_tick(case):
 def test_graph_replays_count_their_launches():
     """The wrappers count launches in Python, which runs at capture only:
     each replay adds the capture's counts, so five pure decode steps add
-    five ticks' launches and the capture itself adds none."""
+    five ticks' launches and the capture itself adds none. A pool of the
+    model's type takes K7 folded with the pool write: one ``rope_kv``
+    launch a layer, no ``rope``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the chip)")
     from paddle_tpu_torch.ops import cuda as K
@@ -1288,7 +1290,7 @@ def test_graph_replays_count_their_launches():
     eng = _decoding_engine(model)
     per_tick = eng.exe._tick.launches
     assert per_tick == {"rms_norm": 2 * layers + 1,
-                        "paged_decode": layers, "rope": 2 * layers}
+                        "paged_decode": layers, "rope_kv": layers}
     K.reset_launches()
     for _ in range(5):
         eng.step()
@@ -1410,7 +1412,7 @@ def test_grouped_matmul_at_lora_shapes_matches_plain(rank, cap, sizes,
                                                      rows):
     """K6a at the multi-LoRA shapes (fp32, the store's type): ``x [m,
     4096] x A [cap, 4096, r]`` and ``t [m, r] x B [cap, r, 12288 | 4096]``
-    at decode (8 rows: the few-rows route) and at prefill (8 x 128 rows:
+    at decode (8 rows: the decode route) and at prefill (8 x 128 rows:
     the FMA route), with an empty group and a null-adapter tail past the
     groups' total (left out: the caller masks it), against the plain
     version; the route is ``fwd_route``'s from the static shapes, counted
@@ -1423,7 +1425,7 @@ def test_grouped_matmul_at_lora_shapes_matches_plain(rank, cap, sizes,
     sz = torch.tensor([s * scale for s in sizes], dtype=torch.int32,
                       device=dev)
     live = torch.arange(rows, device=dev) < int(sz.sum())
-    want_route = "rows" if rows == 8 else "fma"
+    want_route = "decode" if rows == 8 else "fma"
     for k, n in ((4096, rank), (rank, 12288), (rank, 4096)):
         lhs = torch.randn(rows, k, generator=g, device=dev)
         rhs = torch.randn(cap, k, n, generator=g, device=dev) * k ** -0.5
@@ -1797,3 +1799,155 @@ def test_spec_engine_on_card_matches_cpu(draft):
         streams["cuda", False]
     k3 = "paged_chunk_i8" if draft == "int8_pool" else "paged_chunk"
     assert K.launches()[k3] > 0
+
+
+# ------------------------- K6a's decode route and K7 folded with the pool
+# ragged groups of the decode route: 0, 1, 4, 5, 8 and 32 rows (the group
+# of 32 is four row tiles of the kernel)
+DECODE_SIZES = (0, 1, 4, 0, 5, 8, 32, 1, 0, 4)
+
+
+def _decode_case(dtype, k, n, seed, extra=0):
+    """A routed decode batch on the card: xt [11, k] tokens, tok [m] the
+    token of each sorted row, gate_up [e, k, n], gu [m, 2 k] (a gate_up
+    product), down [e, k, n], gate [m] fp32, keep [m] bool (a third
+    dropped), order [m] a permutation; m = sum(DECODE_SIZES) + extra."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    e, m = len(DECODE_SIZES), sum(DECODE_SIZES) + extra
+    sizes = torch.tensor(DECODE_SIZES, dtype=torch.int32, device=dev)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(
+            dtype)
+
+    return dict(
+        xt=rnd(11, k), tok=torch.randint(0, 11, (m,), generator=g,
+                                         device=dev),
+        w=rnd(e, k, n, scale=k ** -0.5), gu=rnd(m, 2 * k),
+        sizes=sizes, gate=torch.rand(m, generator=g, device=dev),
+        keep=torch.rand(m, generator=g, device=dev) > 0.33,
+        order=torch.randperm(m, generator=g, device=dev), m=m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("k,n", [(72, 200), (1408, 2048), (2048, 2816)])
+def test_moe_decode_products_match_plain(dtype, tol, k, n):
+    """K6a's decode route with the MoE glue folded in, against the plain
+    versions (the unfused composition) over groups of 0, 1, 4, 5, 8 and
+    32 rows, a k that is no multiple of a ring stage and an n that is no
+    multiple of a strip: the gate_up product gathered through ``tok``,
+    the down product with SwiGLU on load, the cast gate weight (a dropped
+    assignment's row exactly 0) and the scatter to ``order``. Each wrapper
+    counts one ``grouped_fwd`` launch on the decode route, and a rerun
+    gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    c = _decode_case(dtype, k, n, seed=k + n)
+
+    def close(a, b):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape
+        d = (a.float() - b.float()).abs() / (1 + b.float().abs())
+        assert float(d.max()) <= tol
+
+    n0, r0 = TG.grouped_matmul.launches, TG.grouped_matmul.route_launches[
+        "decode"]
+    gu = TG.moe_gate_up(c["xt"], c["tok"], c["w"], c["sizes"])
+    flat = TG.moe_down(c["gu"], c["w"], c["sizes"], c["gate"], c["keep"],
+                       c["order"])
+    assert TG.grouped_matmul.launches == n0 + 2
+    assert TG.grouped_matmul.route_launches["decode"] == r0 + 2
+    close(gu, TG.moe_gate_up_plain(c["xt"], c["tok"], c["w"], c["sizes"]))
+    close(flat, TG.moe_down_plain(c["gu"], c["w"], c["sizes"], c["gate"],
+                                  c["keep"], c["order"]))
+    assert float(flat[c["order"][~c["keep"]]].abs().max()) == 0.0
+    assert torch.equal(gu, TG.moe_gate_up(c["xt"], c["tok"], c["w"],
+                                          c["sizes"]))
+    assert torch.equal(flat, TG.moe_down(c["gu"], c["w"], c["sizes"],
+                                         c["gate"], c["keep"], c["order"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_decode_leaves_rows_past_the_total_untouched(dtype):
+    """Rows past sum(group_sizes) are neither read nor written: the
+    identity and gather modes leave those rows of ``out`` as they were,
+    the down mode the rows they would scatter to; the rows below the
+    total hold the plain versions' values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    k, n = 72, 200
+    c = _decode_case(dtype, k, n, seed=5, extra=3)
+    m, total = c["m"], sum(DECODE_SIZES)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for down in (0, 1):
+        out = torch.full((m, n), 7.0, dtype=dtype, device="cuda")
+        lhs, idx = (c["gu"], c["order"]) if down else (c["xt"], c["tok"])
+        TG._decode_launch("test", down, lhs, idx, c["w"], c["sizes"],
+                          c["gate"] if down else None,
+                          c["keep"] if down else None, m, k, n, out=out)
+        dead = c["order"][total:] if down else torch.arange(
+            total, m, device="cuda")
+        assert bool((out[dead] == 7.0).all())
+        live = c["order"][:total] if down else torch.arange(
+            total, device="cuda")
+        ref = (TG.moe_down_plain(c["gu"], c["w"], c["sizes"], c["gate"],
+                                 c["keep"], c["order"]) if down
+               else TG.moe_gate_up_plain(c["xt"], c["tok"], c["w"],
+                                         c["sizes"]))
+        d = (out[live].float() - ref[live].float()).abs() / (
+            1 + ref[live].float().abs())
+        assert float(d.max()) <= tol
+    # the identity mode (grouped_matmul at the decode shape) as well
+    out = TG.grouped_fwd_cuda(c["gu"][:, :k].contiguous(), c["w"],
+                              c["sizes"])
+    ref = TG.grouped_matmul_plain(c["gu"][:, :k], c["w"], c["sizes"])
+    d = (out[:total].float() - ref[:total].float()).abs() / (
+        1 + ref[:total].float().abs())
+    assert float(d.max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d,odd", [
+    (32, 8, 128, False),       # Llama-2-7B's GQA widths (Mistral-7B's)
+    (16, 16, 128, False),      # Qwen1.5-MoE-A2.7B
+    (32, 32, 128, False),      # Llama-2-7B
+    (8, 1, 64, False),         # group 8, head dim 64
+    (7, 1, 128, False),        # group 7
+    (4, 2, 64, True),          # a row stride the vector loads cannot take
+], ids=["gqa4", "qwen_moe", "mha", "g8_d64", "g7", "scalar"])
+def test_rope_kv_write_matches_the_unfused_composition(dtype, hq, hkv, d,
+                                                      odd):
+    """K7 folded with the decode tick's pool write against the unfused
+    composition (``fused_rope_plain`` on q and k, ``index_put_`` of k and
+    v), bit for bit: q rotated, and every pool row but the sink block's,
+    over pools holding garbage, per-row tables and two inactive rows
+    writing to the sink. One ``rope_kv`` launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(hq * d + hkv)
+    b, nb, bs = 8, 12, 16
+    width = (hq + 2 * hkv) * d + (1 if odd else 0)
+    qkv = torch.randn(b, 1, width, generator=g, device=dev).to(dtype)
+    q, k, v = torch.split(qkv[..., :(hq + 2 * hkv) * d],
+                          [hq * d, hkv * d, hkv * d], dim=-1)
+    q, k, v = (q.reshape(b, 1, hq, d), k.reshape(b, 1, hkv, d),
+               v.reshape(b, 1, hkv, d))
+    ang = torch.rand(b, d // 2, generator=g, device=dev) * 300
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    pools = [torch.randn(nb + 1, bs, hkv, d, generator=g, device=dev).to(
+        dtype) for _ in range(2)]
+    ref_pools = [p.clone() for p in pools]
+    dest = torch.randperm(nb * bs, generator=g, device=dev)[:b]
+    dest[[2, 5]] = nb * bs                      # inactive rows: the sink
+    n0 = TR.rope_kv_write.launches
+    got = TR.rope_kv_write(q, k, v, cos, sin, *pools, dest)
+    assert TR.rope_kv_write.launches == n0 + 1
+    ref = TR.rope_kv_write_plain(q, k, v, cos, sin, *ref_pools, dest)
+    assert got.is_contiguous() and torch.equal(got, ref)
+    for p, rp in zip(pools, ref_pools):
+        assert torch.equal(p[:nb], rp[:nb])

@@ -146,25 +146,33 @@ def test_kill_switch_reads_the_environment(monkeypatch):
 
 
 def test_kernel_choice_reads_static_shapes_only():
-    """The few-rows kernel is chosen from m, E, n, the dtype and the
+    """The decode route is chosen from m, E, k, n, the dtype and the
     weights' alignment: the decode shape takes it, the prefill/train
-    shapes, a transposed rhs, an n its 16-byte loads cannot take and
-    unaligned weights do not."""
+    shapes, a transposed rhs, a k or an n its 16-byte copies cannot take,
+    unaligned weights and more rows or groups than its tables hold do
+    not."""
     bf16, f32 = torch.bfloat16, torch.float32
-    assert GM.fwd_route(32, 60, 16, 64, bf16) == "rows"
-    assert GM.fwd_route(8 * 60, 60, 16, 64, bf16) == "rows"
-    assert GM.fwd_route(8 * 60 + 1, 60, 16, 64, bf16) != "rows"
-    assert GM.fwd_route(32, 60, 16, 64, bf16, trans=True) != "rows"
-    assert GM.fwd_route(32, 60, 16, 60, bf16) != "rows"     # 60 % 8 != 0
-    assert GM.fwd_route(32, 60, 16, 60, f32) == "rows"      # 60 % 4 == 0
-    assert GM.fwd_route(32, 60, 16, 64, bf16, aligned=False) != "rows"
+    assert GM.fwd_route(32, 60, 16, 64, bf16) == "decode"
+    assert GM.fwd_route(8 * 60, 60, 16, 64, bf16) == "decode"
+    assert GM.fwd_route(8 * 60 + 1, 60, 16, 64, bf16) != "decode"
+    assert GM.fwd_route(32, 60, 16, 64, bf16, trans=True) != "decode"
+    assert GM.fwd_route(32, 60, 16, 60, bf16) != "decode"   # 60 % 8 != 0
+    assert GM.fwd_route(32, 60, 16, 60, f32) == "decode"    # 60 % 4 == 0
+    assert GM.fwd_route(32, 60, 20, 64, bf16) != "decode"   # 20 % 8 != 0
+    assert GM.fwd_route(32, 60, 20, 64, f32) == "decode"    # 20 % 4 == 0
+    assert GM.fwd_route(32, 60, 16, 64, bf16, aligned=False) != "decode"
+    assert GM.fwd_route(GM.DECODE_MAX_ROWS, 256, 16, 64, bf16) == "decode"
+    assert GM.fwd_route(GM.DECODE_MAX_ROWS + 8, 512, 16, 64,
+                        bf16) != "decode"
+    assert GM.fwd_route(8, GM.DECODE_MAX_GROUPS + 1, 16, 64,
+                        bf16) != "decode"
 
 
 # (label, m, E, k, n, trans, aligned, route for bf16, route for float32):
 # Qwen1.5-MoE-A2.7B's shapes (hidden 2048, experts 60 of 1408, top-4)
 ROUTE_CASES = [
-    ("decode_gate_up", 32, 60, 2048, 2816, False, True, "rows", "rows"),
-    ("decode_down", 32, 60, 1408, 2048, False, True, "rows", "rows"),
+    ("decode_gate_up", 32, 60, 2048, 2816, False, True, "decode", "decode"),
+    ("decode_down", 32, 60, 1408, 2048, False, True, "decode", "decode"),
     ("decode_dlhs", 32, 60, 2816, 2048, True, True, "wgmma", "fma"),
     ("prefill_gate_up", 4096, 60, 2048, 2816, False, True, "wgmma", "fma"),
     ("train_gate_up", 16384, 60, 2048, 2816, False, True, "wgmma", "fma"),
@@ -184,7 +192,7 @@ def test_fwd_route_names_a_kernel_for_every_shape_and_dtype(case, dtype):
     """fwd_route is a pure function of the static shapes, the dtype and
     the weights' alignment: bf16 takes the tensor cores at the prefill and
     train shapes, forward and dlhs; float32 keeps fp32 FMAs; the decode
-    shape keeps the few-rows kernel; whatever the tensor-core route
+    shape takes the decode route; whatever the tensor-core route
     refuses names the FMA kernel, never the plain version."""
     _, m, e, k, n, trans, aligned, bf16_route, f32_route = case
     route = GM.fwd_route(m, e, k, n, dtype, trans, aligned)
@@ -223,7 +231,7 @@ def test_dw_route_names_a_kernel_for_every_shape_and_dtype(case, dtype):
     _, m, e, k, n, aligned, bf16_route, f32_route = case
     route = GM.dw_route(m, e, k, n, dtype, aligned)
     assert route == (bf16_route if dtype == torch.bfloat16 else f32_route)
-    assert route in GM._KIND and route != "rows"
+    assert route in GM._KIND and route != "decode"
     assert route in GM.grouped_dw.route_launches
 
 
@@ -235,14 +243,14 @@ def test_reset_launches_zeroes_the_per_kernel_counts():
     GM.grouped_dw.launches = 3
     GM.grouped_dw.route_launches.update(wgmma=2, fma=1)
     GM.grouped_matmul.launches = 4
-    GM.grouped_matmul.route_launches.update(rows=1, wgmma=2, fma=1)
+    GM.grouped_matmul.route_launches.update(decode=1, wgmma=2, fma=1)
     assert K.route_launches()["grouped_dw"] == {"wgmma": 2, "fma": 1}
-    assert K.route_launches()["grouped_fwd"] == {"rows": 1, "wgmma": 2,
+    assert K.route_launches()["grouped_fwd"] == {"decode": 1, "wgmma": 2,
                                                  "fma": 1}
     K.reset_launches()
     assert GM.grouped_dw.launches == GM.grouped_matmul.launches == 0
     assert K.route_launches() == {
-        "grouped_fwd": {"rows": 0, "wgmma": 0, "fma": 0},
+        "grouped_fwd": {"decode": 0, "wgmma": 0, "fma": 0},
         "grouped_dw": {"wgmma": 0, "fma": 0}}
 
 
