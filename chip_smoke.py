@@ -68,7 +68,11 @@ Phases (each one fails the run when it fails; nothing is caught):
             it too, as they read its model and requests). Its decode ticks
             are replays of a CUDA graph: each engine phase prints their
             replays, wall and device ms a tick (CUDA events around each
-            replay) and the bytes the graphs' private pools reserved
+            replay) and the bytes the graphs' private pools reserved.
+            It prints the engine's ``serving_roofline_report()``: MFU,
+            MBU and arithmetic intensity per phase against the peaks
+            resolved from the card's name; a decode MBU of 0, or an MFU
+            or MBU above ROOF_MAX (1.05), fails it
   check     prefill (flash), chunked prefill (paged chunk) and one decode
             step (paged decode) of served prompts, in bf16 through the
             kernels and through the plain versions, and in float32 through
@@ -121,6 +125,38 @@ Phases (each one fails the run when it fails; nothing is caught):
             int8 KV pool; tokens/s, acceptance rate, tokens a slot and
             round, the draft's and the verify's ms a round, K3 launches
             and fallbacks
+            (each run also prints its roofline report, under the serve
+            phase's rule, and GOODPUT's good, saved and wasted tokens by
+            reason)
+  beam_serve  the serve mix on the 7B bf16 model with requests 1 and 4
+            turned into beam requests (4 beams, 48 new tokens): the
+            groups ride with the greedy rows and oversubscribe the 8
+            slots; every request finishes (the beams with reason "beam"),
+            the serve path's kernels launch; tokens/s, TTFT, the peak
+            blocks the groups hold beside the count if each beam held its
+            own prompt blocks (they must share), the beam select's and
+            the group update's ms a group and tick. Then a third beam
+            request over an int8 pool beside the two long prompts (path
+            ``beam_serve_i8``: int8 K3/K4)
+  beam_check  at 4 layers, float32: the engine's beams (two groups riding
+            with greedy rows) equal ``paged_beam_search`` of each prompt
+            on the card token for token, scores within 1e-5 relative; the
+            best score within 1e-4 of ``paged_beam_search`` through the
+            plain versions; the same engine with every tick eager gives
+            the same beams bit for bit; a replay mid-group equals the
+            eager tick (``graph_against_eager``), and the beam reorders
+            leave the captured tensors in place
+  grammar_serve  the 7B bf16 model over a synthetic vocabulary of 32000
+            token strings from the seed (``grammar_vocab``; EOS id 2): 12
+            requests, 4 under a two-field JSON schema, 2 under
+            ``[0-9]{3}-[0-9]{4}``, 6 free, greedy and at temperature 0.8;
+            tokens/s, the biased graph's device ms a tick against the
+            unbiased graph's, the host ms a tick building bias rows and
+            each automaton's build time over all its states
+  grammar_check  every grammar stream that ended on EOS matches its
+            pattern (``re.fullmatch``); every free greedy stream equals
+            its stream from a run with no grammar row; the biased graph's
+            replay equals the eager biased tick (``graph_against_eager``)
   spec_check  (a) at 4 layers, float32: greedy speculative streams with
             both drafts (TinyLlama's widths cut to 4 layers too) equal the
             non-speculative engine's token for token; (b) at 7B bf16 one
@@ -263,7 +299,8 @@ under the same measurement in one call: parent, change, change, parent.
 
 The line before the last is a JSON object with one entry per kernel and
 path (``"path": "serve"``, ``"async_serve"``, ``"lora_serve"``,
-``"spec_serve"``, ``"train"``, ``"moe_serve"``,
+``"spec_serve"``, ``"beam_serve"``, ``"beam_serve_i8"``,
+``"grammar_serve"``, ``"train"``, ``"moe_serve"``,
 ``"moe_train"``,
 ``"window_serve"``, ``"quant_serve"``, ``"bloom_serve"``, ``"bloom_train"``,
 ``"falcon_rw_serve"``, ``"falcon_rw_train"`` or ``"falcon7b_serve"``): its
@@ -343,9 +380,10 @@ SOURCES = {
 # ops.cuda's SERVE_KERNELS / TRAIN_KERNELS / MOE_SERVE_KERNELS /
 # MOE_TRAIN_KERNELS / WINDOW_SERVE_KERNELS / QUANT_SERVE_KERNELS /
 # ALIBI_SERVE_KERNELS / ALIBI_TRAIN_KERNELS / ROPE_GENERATE_KERNELS /
-# LORA_SERVE_KERNELS / SPEC_SERVE_KERNELS, spelled out here so that --root
-# can load an earlier tree that lacks them (a kernel that such a tree does
-# not have is then left out of its checks)
+# LORA_SERVE_KERNELS / SPEC_SERVE_KERNELS / BEAM_SERVE_KERNELS /
+# BEAM_SERVE_I8_KERNELS / GRAMMAR_SERVE_KERNELS, spelled out here so that
+# --root can load an earlier tree that lacks them (a kernel that such a
+# tree does not have is then left out of its checks)
 PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
                    "rope", "rope_kv"),
          "train": ("rms_norm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -371,7 +409,13 @@ PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
                         "paged_decode", "rope", "rope_kv", "lora_shrink",
                         "lora_expand"),
          "spec_serve": ("rms_norm", "flash_fwd", "paged_chunk",
-                        "paged_decode", "rope")}
+                        "paged_decode", "rope"),
+         "beam_serve": ("rms_norm", "flash_fwd", "paged_chunk",
+                        "paged_decode", "rope", "rope_kv"),
+         "beam_serve_i8": ("rms_norm", "flash_fwd", "paged_chunk_i8",
+                           "paged_decode_i8", "rope"),
+         "grammar_serve": ("rms_norm", "flash_fwd", "paged_decode", "rope",
+                           "rope_kv")}
 # kernels of PATHS that the imported tree does not have (only with --root)
 ABSENT: set = set()
 # the train check: share of the fp32 gradients' RMS that each bf16 path
@@ -847,8 +891,13 @@ def phase_kernels(torch, dev):
     if "rope_kv" not in ABSENT:
         for path, r in k7_fold(torch, dev).items():
             results[path]["rope_kv"] = r
-    # the async engine serves the serve mix: the same shapes
+    # the async engine serves the serve mix, the beam and grammar phases
+    # the serve geometry (8 slots, prompts of at most 128 tokens): the same
+    # shapes
     results["async_serve"] = results["serve"]
+    results["beam_serve"] = results["serve"]
+    results["grammar_serve"] = {k: v for k, v in results["serve"].items()
+                                if k != "paged_chunk"}
     # multi-LoRA and speculative serving run the serve mix too: K6a's LoRA
     # kernels at their shapes, K3 at the verify width (the other kernels
     # at the serve rows' shapes)
@@ -873,6 +922,7 @@ def phase_kernels(torch, dev):
         results["quant_serve"] = {
             **{k: results["serve"][k] for k in ("rms_norm", "flash_fwd")},
             "rope": rope_decode, **int8_kernel_entries(torch, dev)}
+        results["beam_serve_i8"] = results["quant_serve"]
     torch.cuda.synchronize()
     for path, rs in results.items():
         for name, r in rs.items():
@@ -2791,7 +2841,8 @@ def _drains_now():
 
 def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None,
                 async_depth=0, label=None, engine_kw=None, adapter_ids=None,
-                warm_adapter=None, late=None):
+                warm_adapter=None, late=None, mix=None, on_step=None,
+                need_hits=True, roofline=False):
     """Serve the 12-request mix with ``model`` through ``LLMEngine`` (an
     int8 KV pool with ``kv_dtype="int8"``, async pipelined decode with
     ``async_depth``, further engine arguments in ``engine_kw``: an adapter
@@ -2799,9 +2850,14 @@ def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None,
     launched. ``adapter_ids``: one LoRA adapter id (or None) per request
     of the mix; ``warm_adapter``: the warm-up requests' adapter; ``late``:
     called with the engine after its fourth step, returns requests it
-    submitted (served and checked with the mix). ``label`` names the run
-    in the log (default ``path``). Returns (launch counts, the requests,
-    {metric: value})."""
+    submitted (served and checked with the mix). ``mix``: the requests
+    instead of the 12-request mix (beam requests finish with reason
+    "beam"; TTFT is taken over the requests that emit tokens one by one);
+    ``on_step``: called with the engine after every step; ``need_hits``:
+    the mix must hit the radix prefix cache; ``roofline``: print the
+    engine's roofline report and fail on a decode MBU of 0 or any MBU or
+    MFU above 1.05. ``label`` names the run in the log (default
+    ``path``). Returns (launch counts, the requests, {metric: value})."""
     from paddle_tpu_torch.ops import cuda as K
     from paddle_tpu_torch.serving import LLMEngine, Request
     from paddle_tpu_torch.serving.kv import cache_block_bytes
@@ -2826,10 +2882,15 @@ def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None,
     eng = LLMEngine(model, **kw)
     if hasattr(eng.exe, "tick_log"):
         eng.exe.tick_log = []
-    reqs = serve_requests(np.random.RandomState(0), vocab)
+    reqs = (serve_requests(np.random.RandomState(0), vocab) if mix is None
+            else list(mix))
     for r, aid in zip(reqs, adapter_ids or ()):
         r.adapter_id = aid
     drains0 = _drains_now()
+    if roofline:
+        from paddle_tpu_torch.observability.roofline import \
+            reset_serving_roofline
+        reset_serving_roofline()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
@@ -2842,13 +2903,16 @@ def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None,
         steps += 1
         if late is not None and steps == 4:
             reqs = reqs + list(late(eng))
+        if on_step is not None:
+            on_step(eng)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = K.launches()
     routes = K.route_launches() if hasattr(K, "route_launches") else {}
     hits = eng.mgr.cache_stats.get("token_hits", 0)
     for r in reqs:
-        if not r.done or r.finish_reason not in ("length", "eos"):
+        ok = ("beam",) if r.num_beams > 1 else ("length", "eos")
+        if not r.done or r.finish_reason not in ok:
             raise AssertionError(f"request {r.req_id} did not finish: "
                                  f"{r.finish_reason}")
     eng.assert_quiescent()
@@ -2856,10 +2920,11 @@ def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None,
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: "
                              f"{missing} ({counts})")
-    if hits <= 0:
+    if need_hits and hits <= 0:
         raise AssertionError("no radix prefix hit in the serving mix")
     ntok = sum(len(r.tokens) for r in reqs)
-    ttft = [r._first_tok_t - r._submit_t for r in reqs]
+    ttft = [r._first_tok_t - r._submit_t for r in reqs
+            if r._first_tok_t is not None]
     stats = dict(
         tokens_s=ntok / wall, ttft_mean_ms=1e3 * sum(ttft) / len(ttft),
         ttft_max_ms=1e3 * max(ttft),
@@ -2882,6 +2947,8 @@ def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None,
     _log_ticks(torch, label, eng.exe, card)
     _check_tick_graphs(label, eng.exe, model)
     stats["ticks"] = _tick_stats(torch, eng.exe)
+    if roofline:
+        stats["roofline"] = _log_roofline(label, eng, card)
     if async_depth:
         drains = _drains_now()
         stats["drains"] = {k: v - drains0.get(k, 0) for k, v in drains.items()
@@ -2892,6 +2959,45 @@ def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None,
     del eng
     torch.cuda.empty_cache()
     return counts, reqs, stats
+
+
+ROOF_MAX = 1.05      # above this an MFU or MBU is a fault of the model
+
+
+def _log_roofline(label, eng, card):
+    """The engine's ``serving_roofline_report()`` after its run: MFU, MBU
+    and arithmetic intensity per phase against the peaks resolved from
+    the card's name. Fails when the decode phase's MBU is 0 (the peaks
+    did not resolve, or no decode tick was billed) or any phase's MFU or
+    MBU exceeds ROOF_MAX (the bytes model or the timed window is
+    wrong). Returns {phase: (mfu, mbu, intensity)}."""
+    if not _port_has("observability.roofline"):
+        return {}
+    from paddle_tpu_torch.observability.roofline import \
+        serving_roofline_report
+    eng._push_roofline()
+    doc = serving_roofline_report()
+    m = doc["machine"]
+    log(f"[{label}] roofline peaks {m['peak_flops'] / 1e12:.0f} TFLOP/s, "
+        f"{m['peak_hbm_bps'] / 1e12:.2f} TB/s (from "
+        f"{eng.device} = {card.split(',')[0]}); balance "
+        f"{m['balance_flops_per_byte']:.1f} FLOP/byte")
+    out = {}
+    for ph, r in sorted(doc["phases"].items()):
+        out[ph] = (r["mfu"], r["mbu"], r["arith_intensity"])
+        log(f"[{label}] roofline {ph}: serving_mfu {r['mfu']:.4f}, "
+            f"serving_mbu {r['mbu']:.4f}, intensity "
+            f"{r['arith_intensity']:.2f} FLOP/byte ({r['bound']}); "
+            f"{r['tokens']} tokens, {r['weight_passes']} weight passes, "
+            f"{r['kv_read_positions']} KV positions in {r['seconds']:.4f} "
+            f"s ({card})")
+    dec = out.get("decode", (0.0, 0.0, 0.0))
+    over = {ph: v for ph, v in out.items()
+            if v[0] > ROOF_MAX or v[1] > ROOF_MAX}
+    if dec[1] <= 0.0 or over:
+        raise AssertionError(f"{label}: decode MBU {dec[1]}, phases above "
+                             f"{ROOF_MAX}: {over}")
+    return out
 
 
 def _check_tick_graphs(label, exe, model):
@@ -2908,7 +3014,7 @@ def _check_tick_graphs(label, exe, model):
     int8 = bool(exe.cache.k_scale_store)
     want = ({"rope": 2 * layers, "rope_kv": 0} if int8
             else {"rope": 0, "rope_kv": layers})
-    for kind in ("_tick", "_atick", "_ltick"):
+    for kind in ("_tick", "_atick", "_ltick", "_btick"):
         g = getattr(exe, kind, None)
         if g is None:
             continue
@@ -2923,12 +3029,19 @@ def _check_tick_graphs(label, exe, model):
                                  f"{gf} on the decode route")
 
 
+def _tick_tokens(out):
+    """The sampled tokens of ``ModelExecutor.decode_tick``'s result: the
+    array itself in a tree whose executor returns only them, else the
+    first of its (tokens, log-probs) pair."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 def _cache_tensors(cache):
     return [*cache.k_store, *cache.v_store, *cache.k_scale_store,
             *cache.v_scale_store, cache.block_tables, cache.lens]
 
 
-def graph_against_eager(torch, eng, lora=None):
+def graph_against_eager(torch, eng, lora=None, bias=None):
     """On an engine whose slots are decoding (its tick graph captured),
     from one cache state (copied, and put back in place between runs):
     one replay of the graph and one eager ``llama_decode_tick``, greedy,
@@ -2939,7 +3052,9 @@ def graph_against_eager(torch, eng, lora=None):
     the first draw, and the eager tick from that state draws it too.
     ``lora``: the engine's host description of a multi-LoRA batch (the
     executor then replays its LoRA graph, the eager tick takes the same
-    batch). Raises on any difference; returns {check: reading}."""
+    batch); ``bias``: a [slots, V] fp32 numpy logit bias (the executor
+    then replays its biased graph, the eager tick adds the same bias).
+    Raises on any difference; returns {check: reading}."""
     import numpy as np
     from paddle_tpu_torch.models import paged as P
     exe = eng.exe
@@ -2957,6 +3072,8 @@ def graph_against_eager(torch, eng, lora=None):
                          np.ones(b, np.float32))
     s0 = exe.gen.get_state()
     lk = {} if lora is None else {"lora": lora}
+    if bias is not None:
+        lk["bias"] = bias
 
     def eager(temps):
         restore()
@@ -2964,10 +3081,12 @@ def graph_against_eager(torch, eng, lora=None):
         nxt, logp, _ = P.llama_decode_tick(
             eng.model, tok, exe.cache, mask, *none, exe.gen, temps, top1,
             exe.top_k, want_logp=True,
-            **({} if lora is None else {"lora": exe._lora(lora)}))
+            **({} if lora is None else {"lora": exe._lora(lora)}),
+            **({} if bias is None else {"logit_bias": bias}))
         return nxt.cpu().numpy(), logp
 
-    g_tok = exe.decode_tick(tok, mask, *none, greedy, top1, **lk)
+    g_tok = _tick_tokens(exe.decode_tick(tok, mask, *none, greedy, top1,
+                                         **lk))
     g_logp = torch.log_softmax(exe.tick_logits, dim=-1)
     g_cache = [t.clone() for t in live]
     e_tok, e_logp = eager(greedy)
@@ -2983,7 +3102,8 @@ def graph_against_eager(torch, eng, lora=None):
         restore()
         if state is not None:
             exe.gen.set_state(state)
-        draws.append(exe.decode_tick(tok, mask, *none, hot, top1, **lk))
+        draws.append(_tick_tokens(exe.decode_tick(tok, mask, *none, hot,
+                                                  top1, **lk)))
     e_hot, _ = eager(hot)
     restore()
     exe.gen.set_state(s0)
@@ -4199,6 +4319,30 @@ def tinyllama_config(torch, layers=22, dtype=None):
                        remat=False)
 
 
+def _goodput_now():
+    """(good, saved, {why: waste}) of the port's goodput ledger so far
+    (None for a tree without it)."""
+    if not _port_has("observability.goodput"):
+        return None
+    from paddle_tpu_torch.observability.goodput import GOODPUT
+    return (GOODPUT.good_total(), GOODPUT.saved_total(),
+            dict(GOODPUT.waste_by_why()))
+
+
+def _log_goodput(label, before):
+    """GOODPUT's document for one run: good, saved and wasted tokens by
+    reason since ``before`` (``_goodput_now``), and the good share."""
+    after = _goodput_now()
+    if before is None or after is None:
+        return
+    good, saved = after[0] - before[0], after[1] - before[1]
+    waste = {k: v - before[2].get(k, 0) for k, v in after[2].items()
+             if v - before[2].get(k, 0)}
+    total = good + sum(waste.values())
+    log(f"[{label}] goodput: good {good:.0f}, saved {saved:.0f}, waste "
+        f"{waste}, good share {good / total if total else 0.0:.4f}")
+
+
 def _spec_tokens():
     from paddle_tpu_torch.serving.telemetry import _SPEC_TOKENS
     v = _SPEC_TOKENS.value()
@@ -4224,10 +4368,13 @@ def phase_spec_serve(torch, dev, model, np, serve_stats):
             ("spec_serve tinyllama draft, int8 pool", tiny, "int8",
              "quant_serve")):
         t0 = _spec_tokens()
+        g0 = _goodput_now()
         counts, reqs, st = phase_serve(
             torch, dev, model, np, path, kv_dtype=kv, label=label,
-            engine_kw=dict(draft_model=draft, spec_k=4, spec_adaptive=True))
+            engine_kw=dict(draft_model=draft, spec_k=4, spec_adaptive=True),
+            roofline=True)
         t1 = _spec_tokens()
+        _log_goodput(label, g0)
         e = st["engine"]
         n = max(e["spec_ticks"], 1)
         rate = e["spec_accepted"] / max(e["spec_proposed"], 1)
@@ -4335,11 +4482,368 @@ def phase_spec_check(torch, dev, model, np, reqs, m32):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------- beams and grammar (serving)
+BEAM_K, BEAM_NEW = 4, 48
+BEAM_ROWS = (1, 4)          # the serve mix's requests turned into beams
+BEAM_CHECK_NEW = 24
+BEAM_SCORE_REL = 1e-5       # engine vs paged_beam_search, same kernels
+BEAM_PLAIN_REL = 1e-4       # kernels vs plain versions, best score
+GRAMMAR_EOS = 2
+
+
+def beam_requests(np, vocab=32000):
+    """The serve mix with requests BEAM_ROWS turned into beam requests
+    (``num_beams=4``, 48 new tokens, greedy), in their places."""
+    from paddle_tpu_torch.serving import Request
+    reqs = serve_requests(np.random.RandomState(0), vocab)
+    for i in BEAM_ROWS:
+        reqs[i] = Request(reqs[i].prompt, max_new_tokens=BEAM_NEW,
+                          num_beams=BEAM_K)
+    return reqs
+
+
+def _beam_peaks(peak):
+    """``on_step`` hook of phase_serve: the most pool blocks the live beam
+    groups held at once, beside the blocks they would hold if each beam
+    kept its own copy of the prompt and of the tokens so far."""
+    def hook(eng):
+        live = dense = 0
+        for g in eng.groups.values():
+            live += eng._group_live_blocks(g)
+            dense += g.req.num_beams * eng.mgr.blocks_needed(g.s + g.i + 1)
+        if live > peak["live"]:
+            peak.update(live=live, dense=dense)
+        peak["pool"] = max(peak["pool"],
+                           eng.mgr.num_blocks - eng.mgr.free_blocks)
+    return hook
+
+
+def phase_beam_serve(torch, dev, model, np, serve_stats):
+    """The serve mix on the Llama-2-7B bf16 model with two of its
+    requests turned into beam requests (``num_beams=4``, 48 new tokens):
+    the beams ride with the greedy rows and oversubscribe the 8 slots.
+    Then one beam request over an int8 pool (``kv_dtype=torch.int8``) with
+    the two long greedy prompts. Prints tokens/s, TTFT, the peak blocks
+    the groups held beside the count if each beam held its own prompt
+    blocks, the beam select's and the group update's ms a tick, and the
+    launches. Returns ({path: launch counts}, the bf16 run's requests)."""
+    out = {}
+    peak = {"live": 0, "dense": 0, "pool": 0}
+    counts, reqs, st = phase_serve(
+        torch, dev, model, np, "beam_serve", mix=beam_requests(np),
+        on_step=_beam_peaks(peak))
+    out["beam_serve"] = counts
+    e = st["engine"]
+    n = max(e["beam_selects"], 1)
+    beams = [reqs[i] for i in BEAM_ROWS]
+    card = card_line()
+    log(f"[beam_serve] {len(beams)} beam requests of {BEAM_K} beams, "
+        f"{BEAM_NEW} new tokens each, finished: "
+        f"{[r.finish_reason for r in beams]}, scores "
+        f"{[round(r.beam_score, 4) for r in beams]}; {st['tokens_s']:.1f} "
+        f"tokens/s (serve {serve_stats['tokens_s']:.1f}) ({card})")
+    log(f"[beam_serve] peak blocks the groups held {peak['live']} (each "
+        f"beam on its own copy: {peak['dense']}); peak pool blocks in use "
+        f"{peak['pool']} of 256")
+    log(f"[beam_serve] beam select {1e3 * e['beam_select_s'] / n:.3f} ms, "
+        f"group update {1e3 * e['beam_update_s'] / n:.3f} ms a group and "
+        f"tick (wall, {e['beam_selects']} selects); K1 "
+        f"{counts['rms_norm']}, K2 {counts['flash_fwd']}, K4 "
+        f"{counts['paged_decode']}, K7 {counts['rope']} + fold "
+        f"{counts.get('rope_kv', 0)} launches ({card})")
+    if peak["live"] <= 0 or peak["live"] >= peak["dense"]:
+        raise AssertionError(f"beam groups did not share their prompt "
+                             f"blocks: {peak}")
+    # a third beam request, over an int8 pool, beside two long prompts
+    from paddle_tpu_torch.serving import Request
+    mix = serve_requests(np.random.RandomState(0))
+    i8 = [Request(mix[2].prompt, max_new_tokens=BEAM_NEW, num_beams=BEAM_K),
+          mix[6], mix[7]]
+    counts8, r8, st8 = phase_serve(
+        torch, dev, model, np, "beam_serve_i8", kv_dtype=torch.int8,
+        label="beam_serve int8 pool", mix=i8, need_hits=False)
+    out["beam_serve_i8"] = counts8
+    log(f"[beam_serve int8 pool] beam finished {r8[0].finish_reason}, "
+        f"score {r8[0].beam_score:.4f}; {st8['tokens_s']:.1f} tokens/s; "
+        f"K4 int8 {counts8['paged_decode_i8']} launches ({card})")
+    return out, reqs
+
+
+def _beam_engine(torch, dev, model, reqs, eager=False, graph_check=False):
+    """Serve ``reqs`` on a fresh engine of the serve geometry; ``eager``:
+    every decode tick runs eagerly on the card (the executor's eager tick,
+    the same kernels) instead of replaying the graph; ``graph_check``:
+    once the groups decode, hold a replay against the eager tick
+    (``graph_against_eager``) and the cache's tensors against the capture.
+    Returns (the requests, the graph check's reading)."""
+    from paddle_tpu_torch.serving import LLMEngine
+    from paddle_tpu_torch.serving.executor import _cache_ptrs
+    eng = LLMEngine(model, num_slots=8, block_size=16, max_prompt_len=128,
+                    max_seq_len=512, num_blocks=256, seed=0, device=dev)
+    exe = eng.exe
+    if eager:
+        def eager_tick(last_tok, run_mask, rows, cols, vals, temps, top_ps,
+                       need_logp=False, lora=None, bias=None):
+            return exe._eager_tick(last_tok, run_mask, rows, cols, vals,
+                                   temps, top_ps, need_logp, lora, bias,
+                                   time.perf_counter())
+        exe.decode_tick = eager_tick
+    ptrs = _cache_ptrs(exe.cache)
+    for r in reqs:
+        eng.add_request(r)
+    res = None
+    while eng.has_work():
+        eng.step()
+        if (graph_check and res is None and eng.groups
+                and all(g.i >= 3 for g in eng.groups.values())):
+            res = graph_against_eager(torch, eng)
+    eng.assert_quiescent()
+    if _cache_ptrs(exe.cache) != ptrs:
+        raise AssertionError("the beam reorders moved the cache's tensors")
+    return reqs, res
+
+
+def phase_beam_check(torch, dev, np):
+    """Beam correctness at Llama-2-7B's widths cut to CHECK_LAYERS layers,
+    float32 (the model ``m32``):
+    (a) the engine's beams (the beam mix's first 8 requests, both beam
+    requests riding with the greedy rows) equal the port's own
+    ``paged_beam_search`` of each prompt on the card token for token,
+    scores within BEAM_SCORE_REL;
+    (b) the best score within BEAM_PLAIN_REL of ``paged_beam_search``
+    through the plain versions (``plain_kernels()``);
+    (c) the same engine with every decode tick run eagerly gives the same
+    beams bit for bit, a replay of the tick graph mid-group equals the
+    eager tick (``graph_against_eager``), and the beam reorders left the
+    captured tensors where the graph reads them."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.paged import paged_beam_search
+    from paddle_tpu_torch.serving import Request
+    m32 = LlamaForCausalLM(LlamaConfig.llama2_7b(
+        num_hidden_layers=CHECK_LAYERS, dtype=torch.float32), device=dev,
+        seed=0)
+
+    def mix():
+        reqs = beam_requests(np)[:8]
+        return [Request(r.prompt, max_new_tokens=(BEAM_CHECK_NEW
+                                                  if r.num_beams > 1
+                                                  else 16),
+                        num_beams=r.num_beams) for r in reqs]
+    got, res = _beam_engine(torch, dev, m32, mix(), graph_check=True)
+    eager, _ = _beam_engine(torch, dev, m32, mix(), eager=True)
+    card = card_line()
+    for i in BEAM_ROWS:
+        g, e = got[i], eager[i]
+        prompt = np.asarray(g.prompt)
+        seq, score = paged_beam_search(m32, prompt, BEAM_CHECK_NEW, BEAM_K,
+                                       block_size=16, num_blocks=64)
+        with plain_kernels():
+            pseq, pscore = paged_beam_search(m32, prompt, BEAM_CHECK_NEW,
+                                             BEAM_K, block_size=16,
+                                             num_blocks=64)
+        want = seq.cpu().numpy()[len(prompt):].tolist()
+        rel = abs(g.beam_score - float(score)) / abs(float(score))
+        prel = abs(g.beam_score - float(pscore)) / abs(float(pscore))
+        same_plain = pseq.cpu().numpy()[len(prompt):].tolist() == g.tokens
+        log(f"[beam_check] {CHECK_LAYERS}-layer fp32 beam request {i}: "
+            f"engine == paged_beam_search token for token: "
+            f"{g.tokens == want}, score rel diff {rel:.2e} (limit "
+            f"{BEAM_SCORE_REL}); plain versions' best score rel diff "
+            f"{prel:.2e} (limit {BEAM_PLAIN_REL}), tokens equal "
+            f"{same_plain}; eager ticks bit for bit: "
+            f"{e.tokens == g.tokens and e.beam_score == g.beam_score} "
+            f"({card})")
+        if (g.tokens != want or rel > BEAM_SCORE_REL
+                or prel > BEAM_PLAIN_REL or e.tokens != g.tokens
+                or e.beam_score != g.beam_score):
+            raise AssertionError(f"beam_check request {i}: {g.tokens} "
+                                 f"{g.beam_score} vs {want} {score}, "
+                                 f"eager {e.tokens} {e.beam_score}")
+    for a, b in zip(got, eager):
+        if a.tokens != b.tokens:
+            raise AssertionError("beam_check: a greedy stream differs "
+                                 "between graph and eager ticks")
+    log(f"[beam_check] graph replay mid-group against the eager tick: "
+        f"{res} ({card})")
+    if res is None:
+        raise AssertionError("beam_check: the groups never decoded three "
+                             "ticks")
+    del m32
+    torch.cuda.empty_cache()
+
+
+def grammar_vocab(np, seed, vocab=32000):
+    """A synthetic vocabulary of ``vocab`` token strings from ``seed``:
+    ids 0-2 empty (EOS is id 2), the 95 printable ASCII characters as
+    single tokens (ids 3-97), then pieces of 2-6 printable characters
+    (digits and punctuation over-represented, as in a real tokenizer's
+    JSON-heavy merges)."""
+    rs = np.random.RandomState(seed)
+    printable = [chr(c) for c in range(32, 127)]
+    heavy = list('0123456789{}":,-') + printable
+    out = ["", "", ""] + printable
+    while len(out) < vocab:
+        n = int(rs.randint(2, 7))
+        out.append("".join(heavy[int(j)] for j in
+                           rs.randint(0, len(heavy), n)))
+    return out
+
+
+GRAMMAR_SCHEMA = {"type": "object",
+                  "properties": {"color": {"enum": ["red", "green", "blue"]},
+                                 "ok": {"type": "boolean"}}}
+GRAMMAR_PHONE = "[0-9]{3}-[0-9]{4}"
+
+
+def _automaton_build(TG, pattern, vocab):
+    """A fresh automaton of ``pattern`` walked over every state it can
+    reach: (the automaton, states, seconds) — the host cost the engine
+    pays lazily, a state at a time, the first time a row reaches it."""
+    import numpy as np
+    t0 = time.perf_counter()
+    aut = TG.TokenMaskAutomaton(pattern, vocab=vocab,
+                                eos_token_id=GRAMMAR_EOS)
+    seen, todo = {aut.start_state}, [aut.start_state]
+    while todo:
+        sid = todo.pop()
+        for tok in np.nonzero(aut.mask(sid))[0]:
+            if tok == GRAMMAR_EOS:
+                continue
+            nxt = aut.advance(sid, int(tok))
+            if nxt not in seen:
+                seen.add(nxt)
+                todo.append(nxt)
+    return aut, len(seen), time.perf_counter() - t0
+
+
+def grammar_requests(np, vocab, TG):
+    """12 requests over the synthetic vocabulary (prompts of 20-120
+    tokens, no shared prefix): 4 under the JSON schema's regex, 2 under
+    GRAMMAR_PHONE, 6 free; greedy and at temperature 0.8. Returns (the
+    requests, their patterns: None for a free one)."""
+    from paddle_tpu_torch.serving import Request
+    rs = np.random.RandomState(5)
+    json_re = TG.json_schema_regex(GRAMMAR_SCHEMA)
+    auts = {p: TG.TokenMaskAutomaton(p, vocab=vocab,
+                                     eos_token_id=GRAMMAR_EOS)
+            for p in (json_re, GRAMMAR_PHONE)}
+    plan = [(json_re, 0.0), (None, 0.0), (GRAMMAR_PHONE, 0.0),
+            (json_re, 0.8), (None, 0.0), (None, 0.8), (json_re, 0.0),
+            (GRAMMAR_PHONE, 0.8), (None, 0.0), (json_re, 0.8),
+            (None, 0.0), (None, 0.8)]
+    reqs = [Request(rs.randint(3, len(vocab), size=int(rs.randint(20, 121))),
+                    max_new_tokens=48, temperature=t,
+                    grammar=None if p is None else auts[p])
+            for p, t in plan]
+    return reqs, [p for p, _ in plan]
+
+
+def phase_grammar_serve(torch, dev, model, np, serve_stats, seed=0):
+    """The 7B bf16 model over a synthetic vocabulary of 32000 token
+    strings (``grammar_vocab``): 12 requests, 4 under a two-field JSON
+    schema, 2 under GRAMMAR_PHONE, 6 free, greedy and at temperature 0.8.
+    Prints tokens/s, the biased graph's device ms a tick against the
+    unbiased graph's, the host ms a tick spent building bias rows (the
+    automata's lazy per-state walks included) and each automaton's build
+    time over all its states. Returns (launch counts, requests, patterns,
+    vocab)."""
+    from paddle_tpu_torch.serving import grammar as TG
+    vocab = grammar_vocab(np, seed)
+    card = card_line()
+    for name, pat in (("json", TG.json_schema_regex(GRAMMAR_SCHEMA)),
+                      ("phone", GRAMMAR_PHONE)):
+        _, n, sec = _automaton_build(TG, pat, vocab)
+        log(f"[grammar_serve] automaton {name} {pat!r}: {n} states over "
+            f"{len(vocab)} token strings in {sec:.3f} s host "
+            f"({1e3 * sec / n:.1f} ms a state) ({card})")
+    reqs, pats = grammar_requests(np, vocab, TG)
+    counts, reqs, st = phase_serve(
+        torch, dev, model, np, "grammar_serve", mix=reqs, need_hits=False,
+        engine_kw=dict(eos_token_id=GRAMMAR_EOS))
+    e, ticks = st["engine"], st["ticks"]
+    gt = max(e["grammar_ticks"], 1)
+    b, u = ticks.get("biased", (0, 0.0, 0.0)), ticks.get("sync",
+                                                           (0, 0.0, 0.0))
+    log(f"[grammar_serve] {st['tokens_s']:.1f} tokens/s (serve "
+        f"{serve_stats['tokens_s']:.1f}); biased graph {b[0]} replays, "
+        f"device {b[2]:.3f} ms a tick against the unbiased graph's "
+        f"{u[2]:.3f} ms ({u[0]} replays); bias rows "
+        f"{1e3 * e['bias_s'] / gt:.3f} ms host a grammar tick over "
+        f"{e['grammar_ticks']} ticks ({card})")
+    log(f"[grammar_serve] finish reasons "
+        f"{[(p is not None, r.finish_reason) for r, p in zip(reqs, pats)]}")
+    if not b[0] or not e["grammar_ticks"]:
+        raise AssertionError(f"grammar_serve: no biased tick ran ({ticks})")
+    return counts, reqs, pats, vocab
+
+
+def phase_grammar_check(torch, dev, model, np, reqs, pats, vocab):
+    """(a) every grammar stream of grammar_serve that ended on EOS
+    decodes to text that ``re.fullmatch``-es its pattern (and at least
+    one did); (b) every free greedy stream equals its stream from a run
+    with no grammar row present; (c) the biased graph's replay equals the
+    eager biased tick (``graph_against_eager`` with the engine's bias
+    rows, 8 slots decoding, 4 of them under a grammar)."""
+    import re
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    from paddle_tpu_torch.serving import grammar as TG
+    card = card_line()
+    ended = 0
+    for r, p in zip(reqs, pats):
+        if p is None or r.finish_reason != "eos":
+            continue
+        text = "".join(vocab[t] for t in r.tokens[:-1])
+        ended += 1
+        if not re.fullmatch(p, text):
+            raise AssertionError(f"grammar_check: {text!r} !~ {p!r}")
+    log(f"[grammar_check] {ended} grammar streams ended on EOS, each "
+        f"matching its pattern ({card})")
+    if not ended:
+        raise AssertionError("grammar_check: no grammar stream ended")
+    free = [i for i, (r, p) in enumerate(zip(reqs, pats))
+            if p is None and r.temperature == 0.0]
+    kw = dict(num_slots=8, block_size=16, max_prompt_len=128,
+              max_seq_len=512, num_blocks=256, seed=0, device=dev,
+              eos_token_id=GRAMMAR_EOS)
+    eng = LLMEngine(model, **kw)
+    ids = [eng.add_request(Request(reqs[i].prompt, max_new_tokens=48))
+           for i in free]
+    eng.run()
+    eng.assert_quiescent()
+    same = [eng.requests[j].tokens == reqs[i].tokens
+            for i, j in zip(free, ids)]
+    log(f"[grammar_check] {len(free)} free greedy streams equal to a run "
+        f"without grammar rows: {same} ({card})")
+    if not all(same):
+        raise AssertionError("grammar_check: a free stream changed beside "
+                             "grammar rows")
+    del eng
+    # (c) the biased graph against the eager biased tick
+    eng = LLMEngine(model, **kw)
+    rs = np.random.RandomState(3)
+    json_re = TG.json_schema_regex(GRAMMAR_SCHEMA)
+    aut = TG.TokenMaskAutomaton(json_re, vocab=vocab,
+                                eos_token_id=GRAMMAR_EOS)
+    for j, n in enumerate(rs.randint(20, 120, 8)):
+        eng.add_request(Request(rs.randint(3, len(vocab), size=int(n)),
+                                max_new_tokens=64,
+                                grammar=aut if j % 2 else None))
+    while not (eng.active.all() and eng.stats["ticks"] >= 2):
+        eng.step()
+    bias = eng._grammar_bias_rows([(s, s) for s in range(8)], 8)
+    res = graph_against_eager(torch, eng, bias=bias)
+    log(f"[grammar_check] biased graph against the eager biased tick: "
+        f"{res} ({card})")
+    del eng
+    torch.cuda.empty_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve,check,"
                     "graph_check,async_serve,lora_serve,lora_check,"
-                    "spec_serve,spec_check,train,"
+                    "spec_serve,spec_check,beam_serve,beam_check,"
+                    "grammar_serve,grammar_check,train,"
                     "moe_serve,moe_check,moe_train,window_serve,window_check,"
                     "quant_serve,quant_check,bloom_serve,bloom_train,"
                     "falcon_rw_serve,falcon_rw_train,falcon7b_serve")
@@ -4385,7 +4889,8 @@ def main(argv=None):
     routes = {}                # path -> {kernel: {route: launches}} alike
     quant = {"quant_serve", "quant_check", "quant_anatomy"} & set(phases)
     lora_spec = {"lora_serve", "lora_check", "lora_anatomy", "spec_serve",
-                 "spec_check"} & set(phases)
+                 "spec_check", "beam_serve", "beam_check", "grammar_serve",
+                 "grammar_check"} & set(phases)
     if {"serve", "check", "anatomy", "graph_check",
             "async_serve"} & set(phases) or quant or lora_spec:
         tm = time.monotonic()
@@ -4393,8 +4898,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         log(f"[serve] llama2_7b width, {model.cfg.num_hidden_layers} layers, "
             f"random weights in {time.monotonic() - tm:.1f} s")
-        counts["serve"], reqs, serve_stats = phase_serve(torch, dev, model,
-                                                         np)
+        counts["serve"], reqs, serve_stats = phase_serve(
+            torch, dev, model, np, roofline=True)
         if {"check", "quant_check"} & set(phases):
             got, ref32 = phase_check(torch, model, reqs)
         if "graph_check" in phases:
@@ -4452,6 +4957,25 @@ def main(argv=None):
             log(f"[spec_check] phase {time.monotonic() - tp:.1f} s")
         del m32
         torch.cuda.empty_cache()
+        if "beam_serve" in phases:
+            tp = time.monotonic()
+            bc, _ = phase_beam_serve(torch, dev, model, np, serve_stats)
+            counts.update(bc)
+            log(f"[beam_serve] phase {time.monotonic() - tp:.1f} s")
+        if "beam_check" in phases:
+            tp = time.monotonic()
+            phase_beam_check(torch, dev, np)
+            log(f"[beam_check] phase {time.monotonic() - tp:.1f} s")
+        if {"grammar_serve", "grammar_check"} & set(phases):
+            tp = time.monotonic()
+            counts["grammar_serve"], greqs, gpats, gvocab = \
+                phase_grammar_serve(torch, dev, model, np, serve_stats)
+            log(f"[grammar_serve] phase {time.monotonic() - tp:.1f} s")
+            if "grammar_check" in phases:
+                tp = time.monotonic()
+                phase_grammar_check(torch, dev, model, np, greqs, gpats,
+                                    gvocab)
+                log(f"[grammar_check] phase {time.monotonic() - tp:.1f} s")
         if "quant_check" in phases:
             phase_quant_check(torch, model, reqs, got, ref32, "bf16")
         if quant:

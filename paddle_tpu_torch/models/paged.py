@@ -1416,6 +1416,153 @@ def prefix_cow_update(cache: PagedKVCache, pairs):
     return cache
 
 
+# ---------------------------------------------------------- paged beams
+def _cow_pairs(copy_src, copy_dst, num_blocks):
+    """The (src, dst) block copies of a fork, sentinel pairs (dst ==
+    ``num_blocks``: no copy) dropped."""
+    return [(int(a), int(b)) for a, b in zip(_host(copy_src), _host(copy_dst))
+            if int(b) < num_blocks]
+
+
+@torch.no_grad()
+def _beam_cache_update(cache: PagedKVCache, new_tables, copy_src, copy_dst):
+    """Apply a beam reorder to the paged cache, in place: install the
+    forked block tables (row j = beam j = slot j) and copy the (at most
+    one a beam) private partial blocks — codes and, for an int8 pool,
+    their scales (:func:`prefix_cow_update` copies all four stores)."""
+    cache.block_tables.copy_(_dev_i32(new_tables, cache.device))
+    return prefix_cow_update(
+        cache, _cow_pairs(copy_src, copy_dst, cache.num_blocks))
+
+
+def _beam_select(running_lp, seqs, fin_seqs, fin_scores, logp, i,
+                 prompt_len, eos_token_id, length_penalty):
+    """The b = 1 adapter over ``decoding.beam_select`` — ONE shared
+    implementation, so paged beams equal the dense-cache beams by
+    construction. Shapes drop the batch axis: running_lp [K], seqs [K,
+    L], logp [K, V]."""
+    from paddle_tpu_torch.models.decoding import beam_select
+    out = beam_select(running_lp[None], seqs[None], fin_seqs[None],
+                      fin_scores[None], logp[None], i, prompt_len,
+                      eos_token_id, length_penalty)
+    return tuple(x[0] for x in out)
+
+
+@torch.no_grad()
+def _beam_group_update(cache: PagedKVCache, slot_ids, rows, lens_val,
+                       copy_src, copy_dst):
+    """The engine's beam reorder, IN PLACE: the K forked table rows go to
+    the group's cache slots (``block_tables[slot_ids] = rows``), their
+    lengths are pinned to ``lens_val``, and the private partial blocks
+    are copied (all four stores). Writing into the tensors — never
+    rebinding them — is what keeps a captured decode tick valid.
+    slot_ids [K]; rows [K, max_blocks]; copy_src/copy_dst [K] (sentinel
+    ``num_blocks`` = no copy)."""
+    dev = cache.device
+    idx = torch.as_tensor(np.asarray(slot_ids, np.int64), device=dev)
+    cache.block_tables[idx] = _dev_i32(rows, dev)
+    cache.lens[idx] = int(lens_val)
+    return prefix_cow_update(
+        cache, _cow_pairs(copy_src, copy_dst, cache.num_blocks))
+
+
+def _beam_finalize(running_lp, seqs, fin_seqs, fin_scores, prompt_len,
+                   max_new_tokens, eos_token_id, length_penalty):
+    """The best hypothesis among the finished and still-running beams,
+    EOS-filled past its first EOS — shared by :func:`paged_beam_search`
+    and the serving engine's beam groups. Returns (best_seq [L],
+    best_score)."""
+    from paddle_tpu_torch.models.decoding import beam_finalize
+    seq, score = beam_finalize(running_lp[None], seqs[None], fin_seqs[None],
+                               fin_scores[None], prompt_len, max_new_tokens,
+                               eos_token_id, length_penalty)
+    return seq[0], score[0]
+
+
+@torch.no_grad()
+def paged_beam_search(model, prompt, max_new_tokens=32, num_beams=4,
+                      length_penalty=1.0, eos_token_id=None, block_size=16,
+                      num_blocks=None):
+    """Beam search IN THE PAGED PATH (one prompt, K beams as cache slots),
+    on the model's device. Prompt blocks are SHARED across beams through
+    refcounts (:class:`RefBlockManager`); each reorder forks the parents'
+    tables and copies only the private partial tail block — the
+    append-only pool's copy-on-write. The prefill runs K2, every step K4
+    (and K7, K1). The selection math is ``decoding.beam_select``, so the
+    result equals the dense-cache beam search. Returns (best sequence
+    [prompt + max_new_tokens], best score)."""
+    from paddle_tpu_torch.models.decoding import beam_init
+    prompt = np.asarray(_host(prompt), np.int64).reshape(-1)
+    s = len(prompt)
+    cfg = model_config(model)
+    dev = next(model.parameters()).device
+    k = num_beams
+    max_blocks = -(-(s + max_new_tokens) // block_size)
+    if num_blocks is None:
+        num_blocks = k * max_blocks
+    mgr = RefBlockManager(num_blocks, block_size)
+    cache = PagedKVCache.init(cfg.num_hidden_layers, num_blocks, block_size,
+                              cfg.num_key_value_heads,
+                              cfg.hidden_size // cfg.num_attention_heads,
+                              k, max_blocks, cfg.dtype, device=dev)
+
+    # prefill once into beam 0's blocks, then fork the other beams
+    sid = {j: j for j in range(k)}          # beam j -> manager sequence id
+    next_sid = k
+    mgr.allocate(0, s)
+    rows = np.full((k, max_blocks), num_blocks, np.int32)
+    copy_src = np.full(k, num_blocks, np.int32)
+    copy_dst = np.full(k, num_blocks, np.int32)
+    for j in range(1, k):
+        pair = mgr.fork(0, j, s)
+        if pair is not None:
+            copy_src[j], copy_dst[j] = pair
+    for j in range(k):
+        t = mgr.tables[j]
+        rows[j, :len(t)] = t
+    logits, cache = llama_prefill_paged(
+        model, prompt[None, :], np.asarray([s], np.int32), cache,
+        np.asarray([0], np.int32), rows[:1])
+    cache.lens.fill_(s)
+    cache = _beam_cache_update(cache, rows, copy_src, copy_dst)
+    running_lp, seqs, fin_seqs, fin_scores, logp = (
+        x[0] for x in beam_init(logits[:1], torch.as_tensor(
+            prompt[None], device=dev), k, max_new_tokens))
+    for i in range(max_new_tokens):
+        running_lp, seqs, fin_seqs, fin_scores, new_beam, new_tok = \
+            _beam_select(running_lp, seqs, fin_seqs, fin_scores, logp, i, s,
+                         eos_token_id, length_penalty)
+        if i == max_new_tokens - 1:
+            break                      # the last token: selection only
+        parents = new_beam.cpu().numpy()
+        cur = s + i                    # tokens stored a beam so far
+        # fork: new beam j adopts parent p's blocks; room for the write
+        # at position cur, privately per beam
+        new_rows = np.full((k, max_blocks), num_blocks, np.int32)
+        copy_src = np.full(k, num_blocks, np.int32)
+        copy_dst = np.full(k, num_blocks, np.int32)
+        new_sid = {}
+        for j in range(k):
+            pair = mgr.fork(sid[int(parents[j])], next_sid, cur)
+            if pair is not None:
+                copy_src[j], copy_dst[j] = pair
+            new_sid[j] = next_sid
+            next_sid += 1
+        for j in range(k):
+            mgr.free(sid[j])
+        sid = new_sid
+        for j in range(k):
+            t = mgr.allocate(sid[j], cur + 1)
+            new_rows[j, :len(t)] = t
+        cache = _beam_cache_update(cache, new_rows, copy_src, copy_dst)
+        logits, cache = llama_decode_step_paged(
+            model, new_tok, cache, torch.ones(k, dtype=torch.bool,
+                                              device=dev))
+        logp = torch.log_softmax(logits.float(), dim=-1)
+    return _beam_finalize(running_lp, seqs, fin_seqs, fin_scores, s,
+                          max_new_tokens, eos_token_id, length_penalty)
+
+
 # ------------------------------------------------ speculative helpers
 # The multi-append/rewind primitives the engine's speculative decoding
 # needs: the target VERIFY forward is the chunk prefill with full logits

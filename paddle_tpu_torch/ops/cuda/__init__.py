@@ -42,6 +42,15 @@ LORA_SERVE_KERNELS = SERVE_KERNELS + ("lora_shrink", "lora_expand")
 # the draft's norms and ropes K1 and K7
 SPEC_SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_chunk",
                       "paged_decode", "rope")
+# beam groups ride the serve path (a group's prompt is one row of the
+# whole-prompt prefill, its beams decode in the tick graph); over an int8
+# pool, the quantized path's kernels
+BEAM_SERVE_KERNELS = SERVE_KERNELS
+BEAM_SERVE_I8_KERNELS = QUANT_SERVE_KERNELS
+# grammar serving: the serve path without chunked prefill (the grammar
+# mix's prompts fit max_prompt_len and share no prefix)
+GRAMMAR_SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_decode", "rope",
+                         "rope_kv")
 
 
 def kernels() -> dict:

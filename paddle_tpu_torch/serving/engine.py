@@ -75,24 +75,62 @@ rate. ``PT_SPEC_DECODE=0`` is the kill switch (read every tick); the
 ``serving.spec_verify`` fault site falls the round back to the one-token
 tick.
 
+Beam search: a ``num_beams=K`` request occupies K cache slots, its
+prompt prefilled once (one row of the admission prefill) and shared by
+the beams' block tables copy-on-write; each tick selects the K best
+continuations on the card (``models/decoding.py`` ``beam_select``, the
+same function ``paged_beam_search`` runs) and forks the tables along the
+chosen parents, writing the tables, lengths and partial blocks in place
+(``ModelExecutor.beam_group_update``) so the captured tick stays valid.
+The beams' log-probs come from the tick's fp32 logits. Beams run over a
+pool of the model's type and over an int8 pool alike; they refuse a
+window, streaming, adapters and grammars, as the reference does.
+
+Grammar-constrained decoding: a request's ``grammar``
+(:class:`~paddle_tpu_torch.serving.grammar.TokenMaskAutomaton`) masks
+every token it samples — the first one after prefill, every decode tick
+(the executor's biased graph; a tick with no grammar row replays the
+unbiased graph), and each position of a speculative verify, where an
+illegal draft is rejected before the accept rule sees it.
+
+Observability: every request-tracker event and flight-recorder record
+of the reference engine at the same sites; the goodput ledger's good,
+saved and waste columns (``pad_rows``, ``replay_prefill``,
+``spec_rejected``, ``chaos_abort``, ``async_overrun``); the tick
+breakdown (``serving_tick_breakdown_seconds`` by phase, summing to
+``serving_tick_seconds``, and ``serving_tick_host_hidden_seconds`` under
+async decode); and the roofline ledger — per-phase seconds, tokens,
+weight passes and KV positions folded into ``serving_mfu`` /
+``serving_mbu`` / ``serving_arith_intensity{phase}`` against the peaks
+of the engine's device (0.0, "undefined", on the CPU).
+
 Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP.md queue): beams, grammar, degradation/SLO, tenants, context
-parallelism and prefill-only replicas (router).
+ROADMAP.md queue): degradation/SLO, tenants, context parallelism and
+prefill-only replicas (router).
 """
 from __future__ import annotations
 
 import os
 import time
+from contextlib import contextmanager
+from dataclasses import replace as _dc_replace
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch.core.device import resolve_device
-from paddle_tpu_torch.models.paged import (greedy_accept_length,
+from paddle_tpu_torch.models.decoding import beam_init
+from paddle_tpu_torch.models.paged import (_beam_finalize, _beam_select,
+                                           greedy_accept_length,
                                            is_moe_model, kv_quant_enabled,
                                            model_config,
                                            stochastic_accept_row)
 from paddle_tpu_torch.observability import span as _span
+from paddle_tpu_torch.observability.flight import FLIGHT
+from paddle_tpu_torch.observability.goodput import GOODPUT
+from paddle_tpu_torch.observability.requests import REQUESTS
+from paddle_tpu_torch.observability.roofline import (
+    ModelGeometry, record_serving_throughput, resolve_serving_peaks)
 from paddle_tpu_torch.ops.cuda import flash_attention as _flash
 from paddle_tpu_torch.ops.cuda import grouped_matmul as _grouped
 from paddle_tpu_torch.ops.cuda import paged_attention as _paged
@@ -102,6 +140,8 @@ from paddle_tpu_torch.serving.scheduler import Scheduler
 from paddle_tpu_torch.serving.telemetry import (_ACTIVE_SLOTS, _ASYNC_DEPTH,
                                                 _ASYNC_DRAINS, _CANCELLED,
                                                 _DRAIN, _FINISHED,
+                                                _GRAMMAR_SPEC_REJECTS,
+                                                _GRAMMAR_TOKENS,
                                                 _KV_IN_USE, _KV_UTIL,
                                                 _QUEUE_DEPTH, _REJECTED,
                                                 _SPEC_ACCEPTED,
@@ -109,9 +149,10 @@ from paddle_tpu_torch.serving.telemetry import (_ACTIVE_SLOTS, _ASYNC_DEPTH,
                                                 _SPEC_FALLBACKS,
                                                 _SPEC_PROPOSED, _SPEC_RATE,
                                                 _SPEC_TOKENS, _TICK,
-                                                _TIMEOUTS, _TOK_LAT,
-                                                _TOKENS, _TTFT)
-from paddle_tpu_torch.serving.types import Request
+                                                _TICK_BREAKDOWN,
+                                                _TICK_HIDDEN, _TIMEOUTS,
+                                                _TOK_LAT, _TOKENS, _TTFT)
+from paddle_tpu_torch.serving.types import Request, _BeamGroup
 from paddle_tpu_torch.utils.faults import fault_point
 
 _Q1 = "ROADMAP.md queue 1, item 5 (serving features)"
@@ -229,6 +270,9 @@ class LLMEngine:
         self.prefix_caching = (bool(prefix_caching) and self.window is None
                                and not self._dyn_rope)
         self.preemption = bool(preemption)
+        # replica name stamped on request-tracker events (None: a lone
+        # engine)
+        self.trace_name = None
 
         # speculative decoding: ``draft_model`` enables it; each eligible
         # slot drafts up to spec_k tokens through a per-slot dense draft
@@ -295,6 +339,18 @@ class LLMEngine:
         self.last_tok = np.zeros(num_slots, np.int32)
         self.slot_aidx = np.full(num_slots, -1, np.int64)  # cache idx / -1
         self._adapter_pins: dict[int, object] = {}   # rid -> adapter_id
+        # grammar-constrained decoding: slot -> [automaton, state]. The
+        # state advances in ``_emit`` as tokens commit, so it is always
+        # the state AFTER everything in req.tokens — a pure function of
+        # the emitted stream (a resume replays it)
+        self._grammar: dict[int, list] = {}
+        # beam groups: rid -> _BeamGroup; is_beam marks their slots
+        self.is_beam = np.zeros(num_slots, bool)
+        self.groups: dict[int, _BeamGroup] = {}
+        self._sid_counter = 0        # unique fork keys: (req_id, counter)
+        # this tick's greedy admits whose prefill rows are staged but not
+        # yet written: a beam fork in the same tick must not evict them
+        self._staged_admits = frozenset()
         # speculative per-slot state (allocated even when spec is off, so
         # reset sites need no guards). ``draft_cur``: committed-sequence
         # positions 0..draft_cur-1 are in the draft cache — 0 means empty,
@@ -307,17 +363,31 @@ class LLMEngine:
         # request whose radix-adopted prefix matches them seeds draft_cur
         # past the match instead of re-feeding from 0
         self._draft_resident: dict[int, np.ndarray] = {}
+        # per-slot adopted span of the current request: the draft
+        # catch-up feed bills only re-embeds inside it as replay_prefill
+        # waste (first-time prompt embedding is not waste)
+        self._adopted_span = np.zeros(num_slots, np.int64)
         # chunked prefill (prompts > max_prompt_len, prefix-cache hits):
         # rid -> (slot, tokens consumed); slots stay inactive until the
         # last chunk
         self.prefilling: dict[int, tuple] = {}
         # spec_draft_s / spec_verify_s: wall seconds of the draft phase and
-        # of the verify call (its logits fetched) over all spec ticks
+        # of the verify call (its logits fetched) over all spec ticks;
+        # grammar_ticks: decode ticks with
+        # a grammar-bound row (the biased graph on the card); bias_s:
+        # host seconds building their bias rows; lora_grammar_ticks:
+        # those that also carried adapter rows (the eager tick on the
+        # card); beam_select_s /
+        # beam_update_s: wall seconds of the beam groups' selects (with
+        # the parents' fetch) and cache reorders
         self.stats = {"ticks": 0, "preemptions": 0, "timeouts": 0,
                       "cancelled": 0, "rejected": 0, "spec_ticks": 0,
                       "spec_proposed": 0, "spec_accepted": 0,
                       "spec_fallbacks": 0, "spec_draft_s": 0.0,
-                      "spec_verify_s": 0.0}
+                      "spec_verify_s": 0.0, "grammar_ticks": 0,
+                      "lora_grammar_ticks": 0, "bias_s": 0.0,
+                      "beam_selects": 0, "beam_select_s": 0.0,
+                      "beam_update_s": 0.0}
         self._adm_counter = 0                # admission recency, per slot
         self.adm_order = np.zeros(num_slots, np.int64)
         # the async window: oldest-first dispatched-but-unfetched ticks,
@@ -333,6 +403,45 @@ class LLMEngine:
         self._async_rewound = False
         self._async_draining = False
         self.stats["async_overrun"] = 0
+        # hidden host time of this tick (drain work overlapped with
+        # in-flight device ticks); observed once a step
+        self._hidden_acc = 0.0
+
+        # roofline ledger: cumulative per-phase [seconds, tokens, weight
+        # passes, KV-read positions], folded into serving_mfu/mbu/
+        # arith_intensity at each gauge sweep. The peaks resolve once
+        # from the engine's device (0.0 on the CPU: the gauges then read
+        # 0.0 = undefined; PT_ROOFLINE_KIND overrides for a what-if).
+        # _tick_phase holds the current tick's wall-time split; step()
+        # folds it into the breakdown histogram and these accumulators.
+        self._geom = self._geometry(model, self.cache)
+        self._draft_geom = (self._geometry(draft_model)
+                            if draft_model is not None else None)
+        self._peak_flops, self._peak_hbm = resolve_serving_peaks(self.device)
+        self._phase_acc = {p: [0.0, 0, 0, 0] for p in
+                           ("prefill", "decode", "spec_draft", "spec_verify")}
+        self._tick_phase: dict[str, float] = {}
+
+    @staticmethod
+    def _geometry(m, cache=None):
+        """The model's roofline geometry with the stored types billed:
+        an int8 pool's 1-byte codes plus a 4-byte scale per (position, KV
+        head), a weight-only model's bits/8 bytes a weight. None for a
+        model whose config the geometry cannot read."""
+        try:
+            g = ModelGeometry.from_config(
+                m.cfg, dtype_bytes=torch.empty(
+                    (), dtype=model_config(m).dtype).element_size())
+        except Exception:
+            return None
+        kw = {}
+        if cache is not None and cache.k_scale_store:
+            kw.update(kv_dtype_bytes=cache.k_store[0].element_size(),
+                      kv_scale_bytes=4)
+        bits = getattr(m, "_wo_bits", None)
+        if bits:
+            kw["weight_dtype_bytes"] = bits / 8.0
+        return _dc_replace(g, **kw) if kw else g
 
     # -------------------------------------------------- attribute surface
     @property
@@ -361,18 +470,32 @@ class LLMEngine:
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1 (the prefill "
                              "itself produces the first token)")
-        if req.num_beams != 1:
-            if req.num_beams < 1:
-                raise ValueError("num_beams must be >= 1")
-            raise _not_ported("num_beams > 1 (beam search)")
-        if req.grammar is not None:
-            raise _not_ported("grammar-constrained decoding")
+        if req.num_beams < 1:
+            raise ValueError("num_beams must be >= 1")
+        if req.num_beams > 1:
+            if req.num_beams > self.num_slots:
+                raise ValueError(f"num_beams {req.num_beams} exceeds "
+                                 f"num_slots={self.num_slots}")
+            if self.window is not None:
+                raise NotImplementedError(
+                    "beam search + sliding-window block recycling are not "
+                    "combined (a recycled parent block may be needed by a "
+                    "forked child)")
+            if req.stream is not None:
+                raise ValueError("streaming is not supported for beam "
+                                 "requests (tokens are only known at the "
+                                 "final selection)")
         if req.tenant_id is not None:
             raise _not_ported("tenant_id (fair-share admission, with the "
                               "degradation ladder and SLO tracker)")
         if len(req.prompt) < 1:
             raise ValueError("prompt must contain at least one token "
                              "(an empty row has no logit to sample from)")
+        if len(req.prompt) > self.max_prompt_len and req.num_beams > 1:
+            raise ValueError(f"prompt length {len(req.prompt)} exceeds "
+                             f"max_prompt_len={self.max_prompt_len} "
+                             "(chunked prefill does not combine with "
+                             "beam search)")
         if len(req.prompt) > self.max_prompt_len and self.window is not None:
             raise NotImplementedError(
                 "chunked prefill + sliding-window recycling not combined")
@@ -388,11 +511,14 @@ class LLMEngine:
             # (finish_reason="too_long") so the FCFS head never jams on it
             rid = self.sched.enqueue(req)
             self.queue.pop()
+            REQUESTS.submit(req, source="engine")
             req.done = True
             req.finish_reason = "too_long"
             self.stats["rejected"] += 1
             _REJECTED.inc(reason="too_long")
             _FINISHED.inc(reason="too_long")
+            FLIGHT.record("serving.reject", rid=rid, reason="too_long")
+            REQUESTS.finish(req, "too_long", replica=self.trace_name)
             return rid
         if req.adapter_id is not None:
             if self.adapter_store is None:
@@ -402,7 +528,28 @@ class LLMEngine:
             if not self.adapter_store.known(req.adapter_id):
                 raise ValueError(f"adapter {req.adapter_id!r} is not "
                                  "registered with the adapter store")
+            if req.num_beams > 1:
+                raise NotImplementedError(
+                    "multi-LoRA + beam search are not combined")
+        if req.grammar is not None:
+            if req.num_beams > 1:
+                raise NotImplementedError(
+                    "grammar-constrained decoding + beam search are not "
+                    "combined (beam tokens come from the select, not "
+                    "the sampler)")
+            if not (hasattr(req.grammar, "bias")
+                    and hasattr(req.grammar, "advance")):
+                raise ValueError("req.grammar must be a "
+                                 "serving.grammar.TokenMaskAutomaton")
+            vocab = model_config(self.model).vocab_size
+            if len(req.grammar.vocab) != vocab:
+                raise ValueError(
+                    f"grammar vocab {len(req.grammar.vocab)} != model "
+                    f"vocab {vocab}")
         rid = self.sched.enqueue(req)
+        REQUESTS.submit(req, source="engine")       # idempotent re-submit
+        REQUESTS.event(req, "queued", replica=self.trace_name,
+                       depth=len(self.queue))
         _QUEUE_DEPTH.set(len(self.queue))
         return rid
 
@@ -412,13 +559,15 @@ class LLMEngine:
 
     def has_work(self) -> bool:
         return (bool(self.queue) or bool(self.active.any())
-                or bool(self.prefilling) or bool(self._async_win))
+                or bool(self.groups) or bool(self.prefilling)
+                or bool(self._async_win))
 
     # --------------------------------------------- cancellation/deadlines
     def cancel(self, req_id: int, reason: str = "cancelled") -> bool:
         """Terminate a request wherever it currently lives — queued,
-        chunk-prefilling or decoding — freeing its blocks, reservation and
-        slot. Returns False for unknown/finished requests."""
+        chunk-prefilling, decoding or mid-beam — freeing its blocks,
+        reservation and slot(s). Returns False for unknown/finished
+        requests."""
         req = self.requests.get(req_id)
         if req is None or req.done:
             return False
@@ -428,14 +577,24 @@ class LLMEngine:
         self._drain_async("cancel")
         if req.done:
             return False
+        g = self.groups.get(req_id)
+        sids = list(g.sid.values()) if g is not None else None
         if not self._detach(req_id):
             return False
         self.kv.release(req_id)
+        # peak attribution survives the free above (the ledger keeps a
+        # request's lifetime max past its table drop)
+        peak = (sum(self.kv.take_peak(s) for s in sids) if sids
+                else self.kv.take_peak(req_id))
+        REQUESTS.event(req, "kv_peak", replica=self.trace_name, blocks=peak)
         req.done = True
         req.finish_reason = reason
         self.stats["timeouts" if reason == "timeout" else "cancelled"] += 1
         (_TIMEOUTS if reason == "timeout" else _CANCELLED).inc()
         _FINISHED.inc(reason=reason)
+        FLIGHT.record("serving.timeout" if reason == "timeout"
+                      else "serving.cancel", rid=req_id)
+        REQUESTS.finish(req, reason, replica=self.trace_name)
         return True
 
     def _detach(self, req_id: int) -> bool:
@@ -451,6 +610,15 @@ class LLMEngine:
             self.slot_req[slot] = -1
             self._release_adapter(req_id)
             return True
+        if req_id in self.groups:
+            g = self.groups.pop(req_id)
+            for sid in g.sid.values():
+                self.mgr.free(sid)
+            for slot in g.slots:
+                self.active[slot] = False
+                self.is_beam[slot] = False
+                self.slot_req[slot] = -1
+            return True
         slots = np.nonzero(self.slot_req == req_id)[0]
         if not len(slots):
             return False
@@ -460,6 +628,7 @@ class LLMEngine:
         self.slot_req[slot] = -1
         self.draft_cur[slot] = 0
         self.slot_aidx[slot] = -1
+        self._grammar.pop(slot, None)
         self._release_adapter(req_id)
         return True
 
@@ -504,8 +673,19 @@ class LLMEngine:
         """Blocks a request can ever hold at once. Windowed models recycle
         below-window blocks, so the live span is bounded by the window
         (plus the write-frontier block) — but prefill scatters the WHOLE
-        prompt before any recycling, so that is a floor."""
+        prompt before any recycling, so that is a floor.
+
+        Beam requests (K slots): shared prompt blocks once, plus per beam
+        the generated span (straddling <= ceil(new/bs)+1 blocks), plus 2
+        per beam for the copy-on-write partial forks (one held, one
+        transient while the new fork exists before the parent is
+        freed)."""
         p = len(self._pr(req))
+        if req.num_beams > 1:
+            k = req.num_beams
+            return (self.mgr.blocks_needed(p)
+                    + k * (self.mgr.blocks_needed(
+                        req.max_new_tokens + self.block_size) + 2))
         total = p + self._remaining(req)
         if self.window is None:
             return self.mgr.blocks_needed(total)
@@ -571,6 +751,34 @@ class LLMEngine:
         return {"perm": order.astype(np.int32), "inv": inv.astype(np.int32),
                 "gs": gs.astype(np.int32), "aidx": aidx.astype(np.int32)}
 
+    # ------------------------------------------------------------ grammar
+    def _bind_grammar(self, slot: int, req):
+        """(Re)bind a slot's grammar state at activation. The state is a
+        pure function of the emitted tokens, so a resume replays
+        ``req.tokens`` — preemption cannot drift the mask."""
+        if req.grammar is None:
+            self._grammar.pop(slot, None)
+            return
+        st = req.grammar.start_state
+        for t in req.tokens:
+            st = req.grammar.advance(st, int(t))
+        self._grammar[slot] = [req.grammar, st]
+
+    def _grammar_bias_rows(self, rows_slots, n_rows: int):
+        """[n_rows, V] fp32 logit bias (0 / -1e30) for the listed (row,
+        slot) pairs, exact zeros on every other row; None when no listed
+        slot is grammar-bound — the sampler then runs its unbiased path
+        (the unbiased graph on the card)."""
+        bound = [(i, s) for i, s in rows_slots if s in self._grammar]
+        if not bound:
+            return None
+        bias = np.zeros((n_rows, model_config(self.model).vocab_size),
+                        np.float32)
+        for i, s in bound:
+            aut, st = self._grammar[s]
+            bias[i] = aut.bias(st)
+        return bias
+
     # ---------------------------------------------------------- admission
     def _activate(self, slot, req, temp, top_p):
         """Slot bookkeeping for a request whose prompt is now in cache."""
@@ -586,6 +794,7 @@ class LLMEngine:
         self.temps[slot] = temp
         self.top_ps[slot] = top_p
         self.slot_aidx[slot] = self._req_aidx(req)
+        self._bind_grammar(slot, req)
         # fresh draft state unless the resident draft cache covers a
         # radix-adopted prefix
         self._seed_draft(slot, req)
@@ -597,10 +806,13 @@ class LLMEngine:
                 else req.temperature,
                 self.default_top_p if req.top_p is None else req.top_p)
 
-    def _prefill(self, admits):
-        """ONE padded prefill forward for every prompt admitted this tick;
-        samples each request's first token."""
-        if not admits:
+    def _prefill(self, admits, beam_admits=()):
+        """ONE padded prefill forward for every prompt admitted this tick —
+        greedy prompts in rows 0..n-1, each beam request's prompt as one
+        more row (written into its beam-0 slot; the forks are installed
+        after, in ``_beam_init``); samples each greedy request's first
+        token."""
+        if not admits and not beam_admits:
             return []
         a_cap = self.num_slots           # one admission shape
         ids = np.zeros((a_cap, self.max_prompt_len), np.int64)
@@ -619,13 +831,33 @@ class LLMEngine:
             rows[i, :len(t)] = t
             row_t[i], row_p[i] = self._req_sampling(req)
             self._activate(slot, req, row_t[i], row_p[i])
+            REQUESTS.event(req, "prefill", replica=self.trace_name,
+                           slot=slot, tokens=int(lens[i]))
+        n = len(admits)
+        beams = []
+        self._staged_admits = frozenset(r.req_id for _, r in admits)
+        for bi, (bslots, req) in enumerate(beam_admits):
+            g, grows, csrc, cdst = self._beam_alloc(bslots, req)
+            i = n + bi                   # every admit holds >= 1 slot, so
+            ids[i, :g.s] = req.prompt    # greedy + beam rows fit in a_cap
+            lens[i] = g.s
+            slots[i] = bslots[0]
+            rows[i] = grows[0]
+            beams.append((g, grows, csrc, cdst))
         row_aidx = np.full(a_cap, -1, np.int64)
         for i, (slot, _) in enumerate(admits):
             row_aidx[i] = self.slot_aidx[slot]
         logits = self.exe.prefill(
             ids, lens, slots, rows,
             lora=self._lora_arg(row_aidx, self.max_prompt_len))
-        first = self.exe.sample(logits, row_t, row_p)
+        self._staged_admits = frozenset()   # written: evictable again
+        # roofline: one weight pass; prompts attend causally from 0
+        self._acc_phase("prefill", int(lens.sum()), 1,
+                        self._ctx_causal(lens, np.zeros_like(lens)))
+        first = self.exe.sample(
+            logits, row_t, row_p,
+            bias=self._grammar_bias_rows(
+                [(i, slot) for i, (slot, _) in enumerate(admits)], a_cap))
         if self.window is not None:
             # a long prompt's below-window blocks die the moment prefill
             # has scattered them — and from here on the sequence can never
@@ -642,7 +874,151 @@ class LLMEngine:
         emitted = []
         for i, (slot, req) in enumerate(admits):
             emitted += self._emit(slot, int(first[i]))
+        for bi, (g, grows, csrc, cdst) in enumerate(beams):
+            emitted += self._beam_init(g, grows, csrc, cdst, logits[n + bi])
         return emitted
+
+    # ------------------------------------------------------------ beams
+    def _group_live_blocks(self, g: _BeamGroup) -> int:
+        """Distinct pool blocks held by the whole group (shared prompt
+        blocks appear in several beams' tables — counted once)."""
+        return len({b for sid in g.sid.values()
+                    for b in self.mgr.tables.get(sid, []) if b is not None})
+
+    def _update_resv_group(self, rid: int):
+        self.kv.update(rid, live=self._group_live_blocks(self.groups[rid]))
+
+    def _new_sid(self, rid):
+        self._sid_counter += 1
+        return (rid, self._sid_counter)
+
+    def _beam_alloc(self, slots, req: Request):
+        """Host/manager phase of beam admission: allocate the prompt under
+        beam 0's key and fork the other beams copy-on-write. Returns the
+        group plus the fork data; the prompt itself rides as ONE row of
+        the shared admission prefill."""
+        k, s, rid = req.num_beams, len(req.prompt), req.req_id
+        nb, max_b = self.mgr.num_blocks, self.max_blocks_per_seq
+        g = _BeamGroup(req=req, slots=list(slots), s=s)
+        g.sid = {j: self._new_sid(rid) for j in range(k)}
+        # protect same-tick greedy admits: their prefill rows are staged
+        # but not written yet (this runs inside _prefill)
+        prot = self._staged_admits
+        self._mgr_retry(self.mgr.allocate, g.sid[0], s, protect=prot)
+        rows = np.full((k, max_b), nb, np.int32)
+        copy_src = np.full(k, nb, np.int32)
+        copy_dst = np.full(k, nb, np.int32)
+        for j in range(1, k):
+            pair = self._mgr_retry(self.mgr.fork, g.sid[0], g.sid[j], s,
+                                   protect=prot)
+            if pair is not None:
+                copy_src[j], copy_dst[j] = pair
+        for j in range(k):
+            t = self.mgr.tables[g.sid[j]]
+            rows[j, :len(t)] = t
+        return g, rows, copy_src, copy_dst
+
+    def _beam_init(self, g: _BeamGroup, rows, copy_src, copy_dst,
+                   logits_row):
+        """Device-state phase after the shared prefill: install the forked
+        tables, init the selection state from the prompt's last logits,
+        then run the group's FIRST select so its slots enter this tick's
+        decode with real beam tokens."""
+        req, s, rid, k = g.req, g.s, g.req.req_id, g.req.num_beams
+        t0 = time.perf_counter()
+        self.exe.beam_group_update(g.slots, rows, s, copy_src, copy_dst)
+        self.stats["beam_update_s"] += time.perf_counter() - t0
+        g.running_lp, g.seqs, g.fin_seqs, g.fin_scores, g.logp = (
+            x[0] for x in beam_init(
+                logits_row[None], torch.as_tensor(
+                    np.asarray(req.prompt, np.int64)[None],
+                    device=logits_row.device), k, req.max_new_tokens))
+        for slot in g.slots:
+            self.slot_req[slot] = rid
+            self.active[slot] = True
+            self.is_beam[slot] = True
+            self.cur[slot] = s
+            self.temps[slot] = 0.0       # beam tokens come from the select
+            self.top_ps[slot] = 1.0
+            self.slot_aidx[slot] = -1
+            self._grammar.pop(slot, None)
+        self.groups[rid] = g
+        self._update_resv_group(rid)
+        return self._beam_advance(rid, g)
+
+    def _beam_advance(self, rid: int, g: _BeamGroup):
+        """One beam select over the group's pending logp; fork the caches
+        along the chosen parents (or finalize at the last select). The
+        selection and fork math are ``paged_beam_search``'s."""
+        k = g.req.num_beams
+        t0 = time.perf_counter()
+        (g.running_lp, g.seqs, g.fin_seqs, g.fin_scores, new_beam,
+         new_tok) = _beam_select(
+            g.running_lp, g.seqs, g.fin_seqs, g.fin_scores, g.logp, g.i,
+            g.s, self.eos_token_id, float(g.req.length_penalty))
+        self.stats["beam_selects"] += 1
+        if g.i == g.req.max_new_tokens - 1:
+            self.stats["beam_select_s"] += time.perf_counter() - t0
+            return self._finalize_beam(rid, g)
+        parents = new_beam.cpu().numpy()
+        toks = new_tok.cpu().numpy()
+        t1 = time.perf_counter()
+        self.stats["beam_select_s"] += t1 - t0
+        cur = g.s + g.i                       # tokens stored per beam
+        nb, max_b = self.mgr.num_blocks, self.max_blocks_per_seq
+        rows = np.full((k, max_b), nb, np.int32)
+        copy_src = np.full(k, nb, np.int32)
+        copy_dst = np.full(k, nb, np.int32)
+        new_sids = {}
+        for j in range(k):
+            dst = self._new_sid(rid)
+            pair = self._mgr_retry(self.mgr.fork,
+                                   g.sid[int(parents[j])], dst, cur)
+            if pair is not None:
+                copy_src[j], copy_dst[j] = pair
+            new_sids[j] = dst
+        for j in range(k):
+            self.mgr.free(g.sid[j])
+        g.sid = new_sids
+        for j in range(k):
+            t = self._mgr_retry(                      # room for the write
+                self.mgr.allocate, g.sid[j], cur + 1)
+            rows[j, :len(t)] = t
+        self.exe.beam_group_update(g.slots, rows, cur, copy_src, copy_dst)
+        self.stats["beam_update_s"] += time.perf_counter() - t1
+        self._update_resv_group(rid)
+        for j, slot in enumerate(g.slots):
+            self.last_tok[slot] = toks[j]
+        g.i += 1
+        return []
+
+    def _finalize_beam(self, rid: int, g: _BeamGroup):
+        req = g.req
+        best_seq, best_score = _beam_finalize(
+            g.running_lp, g.seqs, g.fin_seqs, g.fin_scores, g.s,
+            req.max_new_tokens, self.eos_token_id,
+            float(req.length_penalty))
+        req.tokens = [int(t) for t in best_seq.cpu().numpy()[g.s:]]
+        req.beam_score = float(best_score)
+        req.done = True
+        req.finish_reason = "beam"
+        _FINISHED.inc(reason="beam")
+        _TOKENS.inc(len(req.tokens))
+        GOODPUT.good(len(req.tokens), tenant=req.tenant_id)
+        REQUESTS.tokens(req, len(req.tokens))
+        REQUESTS.event(req, "kv_peak", replica=self.trace_name,
+                       blocks=sum(self.kv.take_peak(s)
+                                  for s in g.sid.values()))
+        REQUESTS.finish(req, "beam", replica=self.trace_name)
+        for sid in g.sid.values():
+            self.mgr.free(sid)
+        for slot in g.slots:
+            self.active[slot] = False
+            self.is_beam[slot] = False
+            self.slot_req[slot] = -1
+        self.kv.release(rid)
+        del self.groups[rid]
+        return [(rid, t) for t in req.tokens]
 
     def _prefill_chunks(self):
         """One chunk (<= max_prompt_len tokens) for every in-flight chunked
@@ -678,13 +1054,22 @@ class LLMEngine:
             progressed = True
             staged.add(rid)
             self.kv.update(rid)
+            REQUESTS.event(req, "prefill_chunk", replica=self.trace_name,
+                           slot=slot, offset=consumed, tokens=len(chunk))
             ids[i, :len(chunk)] = chunk
             lens[i] = len(chunk)
             offs[i] = consumed
             slots[i] = slot
             rows[i, :len(t)] = t
             row_aidx[i] = self._req_aidx(req)
-        if not progressed and not self.active.any():
+        if not progressed and not self.active.any() and not self.groups:
+            # nothing decoded this tick and no prefill row got blocks even
+            # though preemption could evict every OTHER prefill: the pool
+            # cannot fit one chunk of the sole remaining request
+            FLIGHT.record("serving.alloc_fail",
+                          rids=[int(r) for r in self.prefilling],
+                          **self.kv.ledger.flight_fields())
+            FLIGHT.dump(reason="kv_alloc_fail")
             raise MemoryError(
                 "paged pool cannot fit one prefill chunk of the remaining "
                 "request(s) even after preemption — increase num_blocks or "
@@ -693,6 +1078,12 @@ class LLMEngine:
             return []
         logits = self.exe.prefill_chunk(ids, lens, offs, slots, rows,
                                         lora=self._lora_arg(row_aidx, cap))
+        # padded sentinel rows burned device FLOPs on no request's behalf
+        GOODPUT.waste("pad_rows", (a_cap - len(staged)) * cap)
+        # roofline: one weight pass; each chunk attends its own tokens
+        # plus everything already consumed (its offset)
+        self._acc_phase("prefill", int(lens.sum()), 1,
+                        self._ctx_causal(lens, offs))
         emitted = []
         done_rows = []
         for i, (rid, (slot, consumed)) in enumerate(batch):
@@ -707,9 +1098,15 @@ class LLMEngine:
         if done_rows:
             row_t = np.zeros(a_cap, np.float32)
             row_p = np.ones(a_cap, np.float32)
-            for i, rid, _ in done_rows:
+            for i, rid, slot in done_rows:
                 row_t[i], row_p[i] = self._req_sampling(self.requests[rid])
-            first = self.exe.sample(logits, row_t, row_p)
+                # bind grammar BEFORE the first-token sample so the mask
+                # covers it (the state replays req.tokens for resumes)
+                self._bind_grammar(slot, self.requests[rid])
+            first = self.exe.sample(
+                logits, row_t, row_p,
+                bias=self._grammar_bias_rows(
+                    [(i, s) for i, _, s in done_rows], a_cap))
             for i, rid, slot in done_rows:
                 req = self.requests[rid]
                 del self.prefilling[rid]
@@ -756,6 +1153,27 @@ class LLMEngine:
                         protect_rid=protect):
                     if self.preemption:
                         return None
+                    # the hard failure escapes step(): leave the ledger's
+                    # view of who holds the missing blocks in the ring
+                    FLIGHT.record("serving.alloc_fail", rid=int(rid),
+                                  **self.kv.ledger.flight_fields())
+                    raise
+
+    def _mgr_retry(self, fn, *a, protect=None):
+        """Beam-group block growth with out-of-blocks recovery: route
+        through greedy preemption instead of letting MemoryError escape
+        ``step()`` mid-update. The group's worst-case reservation (+2
+        transient fork blocks a beam) makes this unreachable while greedy
+        growth respects reservations; this is the belt-and-braces path.
+        ``protect``: req_ids whose prefill rows are staged but not yet
+        written (evicting one would corrupt the KV writes about to
+        land)."""
+        while True:
+            try:
+                return fn(*a)
+            except MemoryError:
+                if not self.preemption or not self._preempt(
+                        protect_rid=protect):
                     raise
 
     # ------------------------------------------------- speculative decode
@@ -802,6 +1220,7 @@ class LLMEngine:
         seeding (a fresh re-feed)."""
         p = self._pr(req)
         adopted = int(req._adopted)
+        self._adopted_span[slot] = min(adopted, len(p))
         reuse = 0
         if (adopted > 0 and self.draft_model is not None
                 and os.environ.get("PT_DRAFT_REUSE", "1") != "0"):
@@ -815,9 +1234,8 @@ class LLMEngine:
                     reuse = int(m if eq.all() else np.argmin(eq))
         self.draft_cur[slot] = reuse
         if reuse:
+            GOODPUT.saved(reuse, tenant=req.tenant_id)
             _SPEC_DRAFT_REUSE.inc(reuse)
-            # the reference's GOODPUT.saved(reuse) billing waits for
-            # ROADMAP.md queue 1 item 5(h)
 
     def _spec_draft(self, staged, seqs):
         """Draft phase: catch each staged slot's draft cache up to its
@@ -825,10 +1243,9 @@ class LLMEngine:
         whose draft cache is empty), then autoregressively propose up to
         k_eff tokens a slot. Returns (props, qs) keyed by slot; qs[slot]
         is None for greedy rows, else the per-proposal draft
-        distributions the accept rule needs. Every feed's catch-up and
-        proposal positions are the reference's; its GOODPUT
-        ``replay_prefill`` billing waits for ROADMAP.md queue 1 item
-        5(h)."""
+        distributions the accept rule needs. Re-embeds inside a slot's
+        radix-adopted span bill ``replay_prefill`` waste, as the
+        reference's do."""
         ns = self.num_slots
         kmax = max(k for _, _, k in staged)
         Cs = self.spec_k + 1
@@ -844,7 +1261,7 @@ class LLMEngine:
             ids = np.zeros((ns, CH), np.int64)
             cl = np.zeros(ns, np.int32)
             rp = np.zeros(ns, np.int32)
-            for s, _, _ in staged:
+            for s, rid, _ in staged:
                 if pend_len[s] <= Cs:
                     continue               # already caught up: no writes
                 n = min(pend_len[s] - 1, CH)   # keep >= 1 for the feed
@@ -852,7 +1269,14 @@ class LLMEngine:
                 ids[s, :n] = seqs[s][dc: dc + n]
                 cl[s] = n
                 rp[s] = dc
+                # re-embedding inside the radix-adopted span is pure
+                # replay (first-time prompt embedding is not waste)
+                GOODPUT.waste("replay_prefill",
+                              min(dc + n, int(self._adopted_span[s])) - dc,
+                              tenant=self._tenant(rid))
             self.exe.draft_rows(ids, rp, cl)
+            self._acc_phase("spec_draft", int(cl.sum()), 1,
+                            self._ctx_causal(cl, rp))
             for s, _, _ in staged:
                 self.draft_cur[s] += int(cl[s])
 
@@ -861,13 +1285,19 @@ class LLMEngine:
         ids = np.zeros((ns, Cs), np.int64)
         cl = np.zeros(ns, np.int32)
         rp = np.zeros(ns, np.int32)
-        for s, _, _ in staged:
+        for s, rid, _ in staged:
             dc = int(self.draft_cur[s])
             pend = seqs[s][dc:]
             ids[s, :len(pend)] = pend
             cl[s] = len(pend)
             rp[s] = dc
+            GOODPUT.waste("replay_prefill",
+                          min(dc + len(pend),
+                              int(self._adopted_span[s])) - dc,
+                          tenant=self._tenant(rid))
         dl = self.exe.draft_rows(ids, rp, cl)
+        self._acc_phase("spec_draft", int(cl.sum()), 1,
+                        self._ctx_causal(cl, rp))
         for s, _, _ in staged:
             self.draft_cur[s] += int(cl[s])      # == cur + 1 now
         last = torch.as_tensor(np.maximum(cl - 1, 0), device=dl.device)
@@ -914,6 +1344,8 @@ class LLMEngine:
                 cl1[s] = 1
                 rp1[s] = int(self.draft_cur[s])
             dl1 = self.exe.draft_rows(ids1, rp1, cl1)
+            self._acc_phase("spec_draft", int(cl1.sum()), 1,
+                            self._ctx_causal(cl1, rp1))
             for s in feeding:
                 self.draft_cur[s] += 1           # == cur + r + 1
             pick_all(dl1[:, 0], feeding)
@@ -962,7 +1394,8 @@ class LLMEngine:
 
         seqs = {s: self._committed_seq(s) for s, _, _ in staged}
         t0 = time.perf_counter()
-        with _span("serving.draft", slots=len(staged)):
+        with self._tick_timer("draft"), \
+                _span("serving.draft", slots=len(staged)):
             props, qs = self._spec_draft(staged, seqs)
         self.stats["spec_draft_s"] += time.perf_counter() - t0
 
@@ -989,11 +1422,15 @@ class LLMEngine:
             # here leaves the cache as the staging left it
             fault_point("serving.spec_verify", engine=self,
                         slots=[s for s, _, _ in staged])
-        except Exception:
+        except Exception as e:
             self.stats["spec_fallbacks"] += 1
             _SPEC_FALLBACKS.inc()
-            # the reference's GOODPUT.waste("chaos_abort") billing waits
-            # for ROADMAP.md queue 1 item 5(h)
+            FLIGHT.record("serving.spec_fallback",
+                          error=f"{type(e).__name__}: {e}")
+            # every drafted token of this round was burned unverified
+            # (charged per slot, to the request whose draft burned)
+            for _, rid, k_eff in staged:
+                GOODPUT.waste("chaos_abort", k_eff, tenant=self._tenant(rid))
             for slot, _, _ in staged:
                 # draft frontiers ran ahead of the commit that never
                 # came; roll them back so the next round re-feeds
@@ -1009,11 +1446,18 @@ class LLMEngine:
                                          // self.block_size)
             return np.zeros(self.num_slots, bool), []
         t0 = time.perf_counter()
-        with _span("serving.verify", slots=len(staged)):
+        with self._tick_timer("verify"), \
+                _span("serving.verify", slots=len(staged)):
             logits = self.exe.verify_chunk(
                 ids, clens, offs, slot_ids, rows,
                 lora=self._lora_arg(v_aidx, C)).float().cpu().numpy()
         self.stats["spec_verify_s"] += time.perf_counter() - t0
+        # whole sentinel rows of the fixed-shape verify batch are waste
+        GOODPUT.waste("pad_rows", (ns - len(staged)) * C)
+        # roofline: one target weight pass; each verify row attends its
+        # k_eff+1 chunk tokens plus the committed context at its offset
+        self._acc_phase("spec_verify", int(clens.sum()), 1,
+                        self._ctx_causal(clens, offs))
 
         # accept/commit per slot; ONE batched length rewind after
         rw_slots = np.full(ns, ns, np.int32)
@@ -1021,18 +1465,43 @@ class LLMEngine:
         for slot, rid, k_eff in staged:
             temp = float(self.temps[slot])
             row = logits[slot]                        # [C, V]
+            # grammar slots: reject mask-violating drafts BEFORE the
+            # accept law ever sees them (k_use truncates at the first
+            # illegal proposal), then bias each verify position with the
+            # mask of the state reached by accepting the proposals ahead
+            # of it — the accept rule compares against exactly the masked
+            # distribution the non-speculative tick samples from
+            g = self._grammar.get(slot)
+            gb, k_use = None, k_eff
+            if g is not None:
+                aut, st = g[0], g[1]
+                gb, k_use = [], 0
+                for i in range(k_eff):
+                    b = aut.bias(st)
+                    gb.append(b)
+                    t_i = int(props[slot][i])
+                    if b[t_i] != 0.0:
+                        _GRAMMAR_SPEC_REJECTS.inc(k_eff - i)
+                        break
+                    st = aut.advance(st, t_i)
+                    k_use += 1
+                if k_use == k_eff:
+                    gb.append(aut.bias(st))   # the bonus position's mask
             if temp == 0.0:
-                vs = row[: k_eff + 1].argmax(axis=-1)
-                n_acc = int(greedy_accept_length(vs[:k_eff],
-                                                 props[slot][:k_eff]))
+                vrow = (row[: k_use + 1] if gb is None
+                        else row[: k_use + 1] + np.asarray(gb, np.float32))
+                vs = vrow.argmax(axis=-1)
+                n_acc = int(greedy_accept_length(vs[:k_use],
+                                                 props[slot][:k_use]))
                 new = [int(x) for x in props[slot][:n_acc]] \
                     + [int(vs[n_acc])]
             else:
-                ps = [self._spec_probs(row[i], temp,
-                                       float(self.top_ps[slot]))
-                      for i in range(k_eff + 1)]
+                ps = [self._spec_probs(
+                          row[i] if gb is None else row[i] + gb[i],
+                          temp, float(self.top_ps[slot]))
+                      for i in range(k_use + 1)]
                 new, n_acc = stochastic_accept_row(
-                    props[slot][:k_eff], qs[slot], ps, self._spec_rs)
+                    props[slot][:k_use], qs[slot], ps, self._spec_rs)
             cur1 = int(self.cur[slot]) + n_acc + 1
             self.cur[slot] = cur1
             rw_slots[slot] = slot
@@ -1056,8 +1525,9 @@ class LLMEngine:
             _SPEC_PROPOSED.inc(k_eff)
             _SPEC_ACCEPTED.inc(n_acc)
             _SPEC_TOKENS.observe(len(new))
-            # the reference's GOODPUT.waste("spec_rejected") billing waits
-            # for ROADMAP.md queue 1 item 5(h)
+            GOODPUT.waste("spec_rejected", k_eff - n_acc,
+                          tenant=self._tenant(rid))
+            REQUESTS.spec(self.requests.get(rid), k_eff, n_acc)
             handled[slot] = True
             for tok in new:
                 emitted += self._emit(slot, int(tok))
@@ -1072,6 +1542,9 @@ class LLMEngine:
         self.stats["spec_ticks"] += 1
         return handled, emitted
 
+    def _tenant(self, rid):
+        return getattr(self.requests.get(rid), "tenant_id", None)
+
     def _spec_on(self) -> bool:
         return (self.draft_model is not None
                 and os.environ.get("PT_SPEC_DECODE", "1") != "0")
@@ -1081,7 +1554,8 @@ class LLMEngine:
         next tick would draft and verify (host sampling every tick — the
         async window must drain for it)."""
         return self._spec_on() and bool(
-            (self.active & (self.max_gen - self.gen >= 2)).any())
+            (self.active & ~self.is_beam
+             & (self.max_gen - self.gen >= 2)).any())
 
     # ------------------------------------------------------------- decode
     def _grow_tables(self, mask):
@@ -1117,7 +1591,7 @@ class LLMEngine:
             vals[slot] = t[idx]
             self.table_len[slot] = idx + 1
         if self.window is not None:
-            self._recycle_window(np.nonzero(self.active)[0])
+            self._recycle_window(np.nonzero(self.active & ~self.is_beam)[0])
         return rows, cols, vals
 
     def _emit(self, slot: int, token: int):
@@ -1129,11 +1603,21 @@ class LLMEngine:
         req = self.requests[rid]
         req.tokens.append(token)
         _TOKENS.inc()
+        GOODPUT.good(1, tenant=req.tenant_id)
+        g = self._grammar.get(slot)
+        if g is not None:
+            # advance the mask state past the committed token (EOS keeps
+            # the state; an illegal token here would be a sampler bug and
+            # raises loudly rather than derail the automaton silently)
+            g[1] = g[0].advance(g[1], token)
+            _GRAMMAR_TOKENS.inc()
         now = self._clock()
         if req._first_tok_t is None:
             req._first_tok_t = now
             if req._submit_t is not None:
                 _TTFT.observe(max(0.0, now - req._submit_t))
+            REQUESTS.event(req, "first_token", replica=self.trace_name,
+                           slot=slot)
         elif req._last_tok_t is not None:
             _TOK_LAT.observe(max(0.0, now - req._last_tok_t))
         req._last_tok_t = now
@@ -1141,6 +1625,7 @@ class LLMEngine:
             req.stream(req, token)
         self.last_tok[slot] = token
         self.gen[slot] += 1
+        REQUESTS.tokens(req)
         eos = self.eos_token_id is not None and token == self.eos_token_id
         if eos or self.gen[slot] >= self.max_gen[slot]:
             req.done = True
@@ -1159,8 +1644,66 @@ class LLMEngine:
             self.active[slot] = False
             self.slot_req[slot] = -1
             self.slot_aidx[slot] = -1
+            self._grammar.pop(slot, None)
             self._release_adapter(rid)
+            REQUESTS.event(req, "kv_peak", replica=self.trace_name,
+                           blocks=self.kv.take_peak(rid))
+            REQUESTS.finish(req, req.finish_reason,
+                            replica=self.trace_name)
         return [(rid, token)]
+
+    # ------------------------------------------------- roofline anatomy
+    @contextmanager
+    def _tick_timer(self, name: str):
+        """Accumulate a named slice of the CURRENT tick's wall time (the
+        tick total's clock, so the breakdown reconciles)."""
+        t = time.monotonic()
+        try:
+            yield
+        finally:
+            self._tick_phase[name] = (self._tick_phase.get(name, 0.0)
+                                      + time.monotonic() - t)
+
+    def _acc_phase(self, phase: str, tokens: int, passes: int, ctx: int):
+        """Add one forward's roofline counts to a phase's cumulative
+        [seconds, tokens, weight passes, KV-read positions] row (seconds
+        arrive separately, from the tick timer in ``step``)."""
+        row = self._phase_acc[phase]
+        row[1] += tokens
+        row[2] += passes
+        row[3] += ctx
+
+    def _ctx_blocks(self, mask) -> int:
+        """Sum of the block-rounded attended context over masked slots:
+        the paged decode kernel walks whole blocks of the table, so a
+        single-query tick reads ceil(len/block)*block positions a slot."""
+        lens = self.cur[mask] + 1
+        bs = self.block_size
+        return int((-(-lens // bs) * bs).sum())
+
+    @staticmethod
+    def _ctx_causal(lens, offs) -> int:
+        """Sum of attended (query, position) pairs of a causal chunk
+        batch: a chunk of L tokens at offset O attends L*O + L(L+1)/2."""
+        ls = np.asarray(lens, np.int64)
+        os_ = np.asarray(offs, np.int64)
+        return int((ls * os_ + ls * (ls + 1) // 2).sum())
+
+    def _push_roofline(self):
+        """Fold the cumulative phase accumulators through the roofline
+        choke point (lifetime-average MFU/MBU per phase)."""
+        if self._geom is None:
+            return
+        for phase, (sec, tok, passes, ctx) in self._phase_acc.items():
+            if sec <= 0.0 or tok <= 0:
+                continue
+            geom = self._draft_geom if phase == "spec_draft" else self._geom
+            if geom is None:
+                continue
+            record_serving_throughput(
+                phase, seconds=sec, tokens=tok, weight_passes=passes,
+                kv_read_positions=ctx, geom=geom,
+                peak_flops=self._peak_flops, peak_hbm_bps=self._peak_hbm)
 
     # --------------------------------------------------------------- tick
     def _refresh_gauges(self):
@@ -1178,18 +1721,42 @@ class LLMEngine:
             led.publish(bytes_per_block=cache_block_bytes(self.cache),
                         resident_tokens=int(self.cur[self.active].sum())
                         + sum(c for _, c in self.prefilling.values()))
+        GOODPUT.refresh_gauge()
+        self._push_roofline()
 
     def step(self):
-        """One engine tick: expire deadlines, admit waiting requests into
-        free slots (their prefill runs now), advance chunked prefills,
-        then one decode tick for every active slot. Returns [(req_id,
-        new_token), ...]."""
+        """One engine tick (see :meth:`_step_impl`), wrapped so the tick
+        lands in the trace timeline and the tick histograms even when a
+        chaos rule or a dry pool raises out of the middle. The tick's
+        anatomy (prefill/draft/verify/sample slices timed by
+        :meth:`_tick_timer`, host = the remainder) goes to the breakdown
+        histogram: all five phases observe every tick, so the five
+        observations sum to the tick's total by construction."""
         t0 = time.monotonic()
+        self._tick_phase = {}
         try:
             with _span("serving.step"):
                 return self._step_impl()
         finally:
-            _TICK.observe(time.monotonic() - t0)
+            total = time.monotonic() - t0
+            ph = self._tick_phase
+            timed = sum(ph.values())
+            for name in ("prefill", "draft", "verify", "sample"):
+                _TICK_BREAKDOWN.observe(ph.get(name, 0.0), phase=name)
+            _TICK_BREAKDOWN.observe(max(0.0, total - timed), phase="host")
+            _TICK.observe(total)
+            acc = self._phase_acc
+            acc["prefill"][0] += ph.get("prefill", 0.0)
+            acc["spec_draft"][0] += ph.get("draft", 0.0)
+            acc["spec_verify"][0] += ph.get("verify", 0.0)
+            acc["decode"][0] += ph.get("sample", 0.0)
+            # host work done under an in-flight async dispatch was folded
+            # into the "sample" slice above (device-overlapped wall time);
+            # it is surfaced here, so "host" reports only exposed host
+            # time while the five-phase sum still equals the tick total
+            if self.async_depth:
+                _TICK_HIDDEN.observe(self._hidden_acc)
+                self._hidden_acc = 0.0
             self._refresh_gauges()
 
     def _step_impl(self):
@@ -1215,22 +1782,28 @@ class LLMEngine:
 
         admit    requests waiting for admission (the scheduler runs)
         prefill  chunked prefill in flight
-        finish   no active slot (the drain emits the tail; run() ends)
+        beam     beam groups need the host's select and fork every tick
+        finish   no plain active slot (the drain emits the tail; run()
+                 ends)
+        grammar  constrained slots need the host automaton per token
         adapter  multi-LoRA rows compose per-slot corrections host-side
         window   sliding-window recycling mutates tables every tick
         spec     draft-and-verify samples on the host this tick
         growth   a slot would cross a block boundary within the window
 
-        The reference's other reasons — ``mode`` (prefill-only replica,
-        cp > 1), ``beam`` and ``grammar`` — cannot arise while the port
-        refuses those features."""
+        The reference's ``mode`` (prefill-only replica, cp > 1) cannot
+        arise while the port refuses those features."""
         if self.queue:
             return "admit"
         if self.prefilling:
             return "prefill"
-        act = self.active
+        if self.groups or self.is_beam.any():
+            return "beam"
+        act = self.active & ~self.is_beam
         if not act.any():
             return "finish"
+        if self._grammar:
+            return "grammar"
         if self._adapter_pins:
             return "adapter"
         if self.window is not None:
@@ -1254,7 +1827,7 @@ class LLMEngine:
         max-gen stop is evaluated on the device, so a slot that finished
         at tick N is masked out of tick N+1 before the host sees its
         token."""
-        act = self.active.copy()
+        act = self.active & ~self.is_beam
         # chaos parity with the synchronous tick: these sites fire BEFORE
         # the dispatch, so an injected exception aborts with the cache,
         # tables and ledger untouched (the shim drains the window)
@@ -1271,7 +1844,8 @@ class LLMEngine:
                 self.last_tok, self.gen, self.max_gen,
                 -1 if self.eos_token_id is None else int(self.eos_token_id))
         rng_before = self.exe.gen.get_state()
-        tick = self.exe.decode_tick_async(act, self.temps, self.top_ps)
+        with self._tick_timer("sample"):
+            tick = self.exe.decode_tick_async(act, self.temps, self.top_ps)
         self._async_live = True
         self._async_rewound = False
         self._async_win.append({"tick": tick, "rng_before": rng_before})
@@ -1298,18 +1872,43 @@ class LLMEngine:
         before that tick: the synchronous engine never ran it, so never
         drew its noise."""
         e = self._async_win.pop(0)
+        t0 = time.monotonic()
         nxt, ran = e["tick"].fetch()
+        t1 = time.monotonic()
+        # the fetch waits until that tick's device work completes:
+        # device-overlapped wall time, billed to the "sample" slice
+        self._tick_phase["sample"] = (self._tick_phase.get("sample", 0.0)
+                                      + t1 - t0)
         if not ran.any():
             if not self._async_rewound:
                 self.exe.gen.set_state(e["rng_before"])
                 self._async_rewound = True
             return []
+        # roofline billed at drain, where cur is tick-exact: one weight
+        # pass, each ran slot read its block-rounded context
+        self._acc_phase("decode", int(ran.sum()), 1, self._ctx_blocks(ran))
         live = ran & (self.slot_req >= 0)
-        self.stats["async_overrun"] += int(ran.sum() - live.sum())
+        over = int(ran.sum() - live.sum())
+        if over:
+            # rows that ran on the card for a slot the host has since
+            # torn down (a stream-callback cancel mid-window): the
+            # synchronous engine never computed these tokens
+            self.stats["async_overrun"] += over
+            GOODPUT.waste("async_overrun", over)
         self.cur += live
+        t2 = time.monotonic()
         emitted = []
         for slot in np.nonzero(live)[0]:
             emitted += self._emit(int(slot), int(nxt[slot]))
+        t3 = time.monotonic()
+        if self._async_win:
+            # successors are still in flight: this host work is hidden
+            # under device work. Fold it into the "sample" slice and the
+            # hidden-host histogram; the final entry's emit is exposed
+            # host time and falls through to the "host" remainder
+            self._hidden_acc += t3 - t2
+            self._tick_phase["sample"] = (
+                self._tick_phase.get("sample", 0.0) + t3 - t2)
         return emitted
 
     def _drain_async(self, why: str):
@@ -1349,17 +1948,22 @@ class LLMEngine:
                 # mutates tables or slots — the drained emissions belong
                 # to this step's return
                 emitted += self._drain_async(why)
-        admits = self.sched.select_admissions(self)
-        emitted += self._prefill(admits)
-        emitted += self._prefill_chunks()
+        for rid in list(self.groups):
+            emitted += self._beam_advance(rid, self.groups[rid])
+        admits, beam_admits = self.sched.select_admissions(self)
+        with self._tick_timer("prefill"):
+            emitted += self._prefill(admits, beam_admits)
+            emitted += self._prefill_chunks()
         if not self.active.any():
             return emitted
         # speculative draft-and-verify for eligible slots; the one-token
-        # tick then covers only what speculation did not handle (final-
-        # token slots, a fallback after an injected verify fault)
+        # tick then covers only what speculation did not handle (beam
+        # slots, final-token slots, a fallback after an injected verify
+        # fault)
         spec_handled = np.zeros(self.num_slots, bool)
         if self._spec_on():
-            elig = self.active & (self.max_gen - self.gen >= 2)
+            elig = (self.active & ~self.is_beam
+                    & (self.max_gen - self.gen >= 2))
             if elig.any():
                 spec_handled, spec_emitted = self._spec_tick(elig)
                 emitted += spec_emitted
@@ -1380,15 +1984,32 @@ class LLMEngine:
             # tables and the ledger untouched (exception-atomic)
             fault_point("serving.kv_quant", engine=self,
                         slots=np.nonzero(run_mask)[0])
-        rows, cols, vals = self._grow_tables(run_mask)
+        rows, cols, vals = self._grow_tables(run_mask & ~self.is_beam)
         # growth may have preempted slots — recompute the mask after it
         run_mask = self.active & ~spec_handled
+        # roofline: one weight pass over the batch; every running slot
+        # reads its whole block-rounded context and writes one position
+        self._acc_phase("decode", int(run_mask.sum()), 1,
+                        self._ctx_blocks(run_mask))
         d_aidx = np.where(run_mask, self.slot_aidx, -1)
-        nxt = self.exe.decode_tick(self.last_tok, run_mask, rows, cols,
-                                   vals, self.temps, self.top_ps,
-                                   lora=self._lora_arg(d_aidx, 1))
+        lora = self._lora_arg(d_aidx, 1)
+        t1 = time.perf_counter()
+        bias = self._grammar_bias_rows(
+            [(int(s), int(s)) for s in np.nonzero(run_mask)[0]],
+            self.num_slots)
+        self.stats["bias_s"] += time.perf_counter() - t1
+        if bias is not None:
+            self.stats["grammar_ticks"] += 1
+            if lora is not None:
+                self.stats["lora_grammar_ticks"] += 1
+        with self._tick_timer("sample"):
+            nxt, logp = self.exe.decode_tick(
+                self.last_tok, run_mask, rows, cols, vals, self.temps,
+                self.top_ps, bool(self.groups), lora=lora, bias=bias)
+        for g in self.groups.values():        # on the device, lazily
+            g.logp = logp[torch.as_tensor(g.slots, device=logp.device)]
         self.cur += run_mask
-        for slot in np.nonzero(run_mask)[0]:
+        for slot in np.nonzero(run_mask & ~self.is_beam)[0]:
             emitted += self._emit(int(slot), int(nxt[slot]))
         self.stats["ticks"] += 1
         return emitted

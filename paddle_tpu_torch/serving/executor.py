@@ -26,9 +26,21 @@ replays. With an adapter store, a third graph is the tick with the
 multi-LoRA correction: it reads the store's stacks (uploads write into
 them in place) and static index buffers that each such tick fills
 before the replay; a tick with no adapter row replays the base graph.
-All are captured when the executor is built, so their cost is the
-engine's start-up and a capture that fails raises from the constructor:
-there is no eager fallback. On the CPU the same functions run eagerly.
+The biased graph is the synchronous tick plus a static [num_slots, V]
+fp32 logit bias (grammar masks: 0 where legal, -1e30 elsewhere, exact
+zeros on free rows), filled through one pinned buffer and replayed only
+for a tick with a grammar-bound row; a tick without one replays the
+unbiased graph. A tick with both adapter rows and grammar rows runs the
+eager tick on the card (the same kernels, launched one by one; the
+engine's ``stats["lora_grammar_ticks"]`` counts them). Beam groups
+reorder the cache with :meth:`ModelExecutor.beam_group_update`, which
+writes the tables, lengths and forked blocks IN PLACE, and read their
+fp32 logits from the replayed graph's output
+(:attr:`ModelExecutor.tick_logits`); their log-softmax runs outside the
+graph. All graphs are captured when the executor is built, so their cost
+is the engine's start-up and a capture that fails raises from the
+constructor: there is no eager fallback for a tick a graph serves. On
+the CPU the same functions run eagerly.
 """
 from __future__ import annotations
 
@@ -39,7 +51,9 @@ import torch
 
 from paddle_tpu_torch.core.random import generator
 from paddle_tpu_torch.models.decoding import KVCache, _sample_rows
-from paddle_tpu_torch.models.paged import (PagedKVCache, decode_tick_rows,
+from paddle_tpu_torch.models.paged import (PagedKVCache,
+                                           _beam_group_update,
+                                           decode_tick_rows,
                                            llama_decode_tick,
                                            llama_decode_tick_async,
                                            llama_prefill_chunk_paged,
@@ -173,12 +187,16 @@ class ModelExecutor:
                 dcfg.hidden_size // dcfg.num_attention_heads, dcfg.dtype,
                 device=self.device)
         self.tick_log = None
+        self.vocab_size = cfg.vocab_size
         # the captured graphs: the synchronous tick, the async tick, the
-        # multi-LoRA tick; _last: the graph of the last synchronous tick
-        self._tick = self._atick = self._ltick = self._last = None
+        # multi-LoRA tick, the biased tick; _last: the graph of the last
+        # synchronous tick (None after an eager one)
+        self._tick = self._atick = self._ltick = self._btick = None
+        self._last = None
         self._async = None          # the CPU's async loop state
         if self.device.type == "cuda":
             self._capture_tick()
+            self._capture_biased()
             if self.async_depth:
                 self._capture_async()
             if adapter_store is not None:
@@ -234,38 +252,72 @@ class ModelExecutor:
     def graph_pool_bytes(self) -> int:
         """Device memory the captured ticks' private pools reserved."""
         return sum(g.pool_bytes for g in (self._tick, self._atick,
-                                          self._ltick) if g is not None)
+                                          self._ltick, self._btick)
+                   if g is not None)
 
     def decode_tick(self, last_tok, run_mask, rows, cols, vals, temps,
-                    top_ps, lora=None):
+                    top_ps, need_logp=False, lora=None, bias=None):
         """The fused one-token tick: incremental table update + paged
         attention (+ the multi-LoRA correction when ``lora`` is given) +
-        on-device sampling. Returns the sampled [num_slots] tokens as
-        numpy (the one per-tick device-to-host fetch)."""
+        on-device sampling (+ the [num_slots, V] logit ``bias`` numpy
+        array, grammar masks, added before it). Returns (the sampled
+        [num_slots] tokens as numpy — the one per-tick device-to-host
+        fetch —, the [num_slots, V] fp32 log-probs as a device tensor
+        when ``need_logp``, for beam groups, else None)."""
         if self.device.type != "cuda":
-            nxt, _, self.cache = llama_decode_tick(
+            nxt, logp, self.cache = llama_decode_tick(
                 self.model, last_tok, self.cache, run_mask, rows, cols, vals,
-                self.gen, temps, top_ps, self.top_k, lora=self._lora(lora))
-            return nxt.cpu().numpy()
+                self.gen, temps, top_ps, self.top_k, need_logp,
+                lora=self._lora(lora), logit_bias=bias)
+            return nxt.cpu().numpy(), logp
         t0 = time.perf_counter()
+        if lora is not None and bias is not None:
+            return self._eager_tick(last_tok, run_mask, rows, cols, vals,
+                                    temps, top_ps, need_logp, lora, bias, t0)
         self._update_tables(rows, cols, vals)
         st = self._stage_np
         st[0], st[1], st[2], st[3] = last_tok, run_mask, temps, top_ps
         self._inp.copy_(self._stage, non_blocking=True)
-        g = self._tick
+        g, kind = self._tick, "sync"
         if lora is not None:
-            g = self._ltick
+            g, kind = self._ltick, "lora"
             li = self._l_stage_np
             for i, k in enumerate(_LORA_KEYS):
                 li[self._l_at[i]:self._l_at[i + 1]] = lora[k]
             self._l_idx.copy_(self._l_stage, non_blocking=True)
+        elif bias is not None:
+            g, kind = self._btick, "biased"
+            self._bias_stage_np[...] = bias
+            self._bias.copy_(self._bias_stage, non_blocking=True)
         ev = self._replay(g)
         self._last = g
         self._out_host.copy_(g.out[0], non_blocking=True)
         self._done.record()
         self._done.synchronize()
-        self._log("lora" if lora is not None else "sync", t0, ev)
-        return self._out_host.numpy().copy()
+        self._log(kind, t0, ev)
+        return self._out_host.numpy().copy(), (
+            torch.log_softmax(g.out[1], dim=-1) if need_logp else None)
+
+    def _eager_tick(self, last_tok, run_mask, rows, cols, vals, temps,
+                    top_ps, need_logp, lora, bias, t0):
+        """The synchronous tick launched eagerly on the card (no graph
+        holds adapter rows and a bias together): the same functions and
+        kernels as the captured ticks, over the same cache tensors."""
+        ev = None
+        if self.tick_log is not None:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        nxt, logp, self.cache = llama_decode_tick(
+            self.model, last_tok, self.cache, run_mask, rows, cols, vals,
+            self.gen, temps, top_ps, self.top_k, need_logp,
+            lora=self._lora(lora), logit_bias=bias)
+        if ev is not None:
+            ev[1].record()
+        self._last = None
+        out = nxt.cpu().numpy()
+        self._log("eager", t0, ev)
+        return out, logp
 
     @property
     def tick_logits(self):
@@ -297,6 +349,26 @@ class ModelExecutor:
                                     inp[3].float(), self.top_k)
         self._tick = TickGraph(tick, self.cache, self.gen)
         self._last = self._tick
+
+    def _capture_biased(self):
+        """The biased tick's graph: the synchronous tick's inputs plus
+        ``_bias``, a static [num_slots, V] fp32 logit bias (filled through
+        one pinned buffer before each replay) added to the logits before
+        sampling. Captured with a zero bias and no active row."""
+        b, v = self.num_slots, self.vocab_size
+        self._bias = torch.zeros(b, v, dtype=torch.float32,
+                                 device=self.device)
+        self._bias_stage = torch.zeros(b, v, dtype=torch.float32,
+                                       pin_memory=True)
+        self._bias_stage_np = self._bias_stage.numpy()
+
+        def tick():
+            inp = self._inp
+            return decode_tick_rows(self.model, inp[0].long(), self.cache,
+                                    inp[1] > 0.5, self.gen, inp[2].float(),
+                                    inp[3].float(), self.top_k,
+                                    logit_bias=self._bias)
+        self._btick = TickGraph(tick, self.cache, self.gen)
 
     def _capture_lora(self):
         """The multi-LoRA tick's graph: the synchronous tick's inputs plus
@@ -455,11 +527,22 @@ class ModelExecutor:
         before this tick's forwards write the pool."""
         self.cache = prefix_cow_update(self.cache, pairs)
 
-    def sample(self, logits, temps, top_ps):
-        """Per-row temperature/top-k/top-p sampling (host fetch)."""
+    def beam_group_update(self, slots, rows, lens_val, copy_src, copy_dst):
+        """Install a beam group's forked table rows and lengths at its
+        slots and copy the private partial blocks (``models/paged.py``
+        ``_beam_group_update``), writing into the cache's tensors in
+        place — the captured ticks read them."""
+        self.cache = _beam_group_update(self.cache, slots, rows, lens_val,
+                                        copy_src, copy_dst)
+
+    def sample(self, logits, temps, top_ps, bias=None):
+        """Per-row temperature/top-k/top-p sampling (host fetch).
+        ``bias`` ([rows, V] numpy, 0 / -1e30) is the grammar-mask addend."""
         dev = logits.device
         return _sample_rows(
             logits.float(), self.gen,
             torch.as_tensor(np.asarray(temps, np.float32), device=dev),
             torch.as_tensor(np.asarray(top_ps, np.float32), device=dev),
-            self.top_k).cpu().numpy()
+            self.top_k,
+            None if bias is None else torch.as_tensor(bias, device=dev)
+            ).cpu().numpy()

@@ -16,6 +16,7 @@ import os
 
 from paddle_tpu_torch.models.paged import (PrefixCachingBlockManager,
                                            RadixPrefixBlockManager)
+from paddle_tpu_torch.observability.flight import FLIGHT
 from paddle_tpu_torch.serving.telemetry import (_PREFIX_EVICTIONS,
                                                 _PREFIX_HIT_RATE,
                                                 _PREFIX_HITS,
@@ -73,14 +74,16 @@ class KVManager:
         self.resv[rid] = 0
 
     def hold(self, rid: int, n: int):
-        """Set the outstanding reserve to ``n`` blocks (chunk-prefill
-        admissions hold their whole worst case up front)."""
+        """Set the outstanding reserve to ``n`` blocks (chunk-prefill and
+        beam admissions hold their whole worst case up front)."""
         self.reserved += n - self.resv.get(rid, 0)
         self.resv[rid] = n
         self.ledger.set_reserved(self.reserved)
 
     def update(self, rid: int, live: int = None):
-        """Outstanding reserve = worst case minus blocks currently held."""
+        """Outstanding reserve = worst case minus blocks currently held.
+        Beam groups pass their deduplicated ``live`` count (shared prompt
+        blocks appear in several beams' tables)."""
         if live is None:
             live = self.live_blocks(rid)
         new = max(0, self.need[rid] - live)
@@ -93,6 +96,10 @@ class KVManager:
         self.reserved -= self.resv.pop(rid, 0)
         self.need.pop(rid, None)
         self.ledger.set_reserved(self.reserved)
+
+    def take_peak(self, rid) -> int:
+        """Pop the request's lifetime peak live-block count."""
+        return self.ledger.take_peak(rid)
 
     def record_stall(self, need: int, slots_short: bool = False):
         """An admission was blocked at the headroom gate — attribute the
@@ -116,6 +123,8 @@ class KVManager:
                 f"ledger leak: resv={self.resv} need={self.need}")
             assert not self.mgr.tables, f"table leak: {list(self.mgr.tables)}"
         except AssertionError as e:
+            FLIGHT.record("serving.quiescence_violation",
+                          **self.ledger.flight_fields())
             raise AssertionError(
                 f"{e} | kv ledger: {self.ledger.describe()}") from None
 

@@ -10,8 +10,12 @@ are the reference's, decision for decision, so both engines serve the
 same request mix through the same ticks. A request carrying a LoRA
 ``adapter_id`` is admitted only once the engine's ``AdapterStore`` has
 made its adapter device-resident and pinned it; the radix prefix cache
-keeps one trie per adapter. Tenant fair-share, rate limits and the
-degradation ladder's shedding are queued (ROADMAP.md queue 1).
+keeps one trie per adapter. A beam request (``num_beams`` K > 1) needs K
+free slots and holds its group's whole worst case up front; preemption
+never picks a beam slot. Admissions, replays and preemptions land in the
+request tracker, the flight recorder and the goodput ledger at the
+reference's sites. Tenant fair-share, rate limits and the degradation
+ladder's shedding are queued (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -21,6 +25,9 @@ from collections import deque
 
 import numpy as np
 
+from paddle_tpu_torch.observability.flight import FLIGHT
+from paddle_tpu_torch.observability.goodput import GOODPUT
+from paddle_tpu_torch.observability.requests import REQUESTS
 from paddle_tpu_torch.serving.telemetry import (_ADAPTER_DEFERRALS,
                                                 _ADMITTED, _PREEMPTED,
                                                 _QUEUE_WAIT, _REJECTED)
@@ -117,33 +124,40 @@ class Scheduler:
 
     def select_admissions(self, eng):
         """Move queued requests (FCFS) into free slots while the pool can
-        cover their worst case; returns the (slot, req) pairs of the
-        whole-prompt prefill. Prefix-cache hits and prompts longer than
+        cover their worst case; returns (the (slot, req) pairs of the
+        whole-prompt prefill, the (slots, req) pairs of beam requests —
+        K slots each). Prefix-cache hits and prompts longer than
         ``max_prompt_len`` claim their slot for the chunked prefill
         instead. A blocked head stops admission for the tick."""
+        # admission mutates slot state and block tables the async
+        # pipeline's in-flight ticks already captured: the engine lands
+        # every dispatched tick before the scheduler touches a slot
+        assert not getattr(eng, "_async_win", None), \
+            "admission with dispatched-but-undrained async ticks in flight"
         kv = eng.kv
         free_slots = list(np.nonzero(eng.slot_req < 0)[0])
-        admits = []
+        admits, beam_admits = [], []
         while self.queue and free_slots:
             req = self.queue[0]
+            k = req.num_beams
             p = eng._pr(req)
             # prefix-cache lookup BEFORE the capacity gate: shared blocks
             # cost nothing, so a mostly-cached prompt admits under
             # pressure an uncached one would wait out
             cached = (self._prefix_lookup(eng, req)
-                      if eng.prefix_caching else None)
+                      if eng.prefix_caching and k == 1 else None)
             n_shared = len(cached) if cached else 0
             ct = (getattr(cached, "token_count", n_shared * eng.block_size)
                   if cached else 0)
-            if eng.preemption:
+            if eng.preemption and k == 1:
                 # optimistic: cover only the first prefill chunk (+1
                 # decode-headroom block); out-of-blocks later preempts
                 need = (kv.blocks_needed(
                     min(len(p), ct + eng.max_prompt_len)) - n_shared + 1)
             else:
                 need = eng._worst_case_blocks(req)
-            if need > kv.free_blocks - kv.reserved:
-                kv.record_stall(need)
+            if k > len(free_slots) or need > kv.free_blocks - kv.reserved:
+                kv.record_stall(need, slots_short=(k > len(free_slots)))
                 break
             if req.adapter_id is not None and eng._multilora_on():
                 # make the adapter device-resident and PIN it before the
@@ -154,19 +168,42 @@ class Scheduler:
                 # before the upload; acquire is exception-atomic)
                 try:
                     eng.adapter_store.acquire(req.adapter_id)
-                except Exception:
+                except Exception as e:
                     _ADAPTER_DEFERRALS.inc()
+                    FLIGHT.record("serving.adapter_defer",
+                                  rid=req.req_id,
+                                  adapter=str(req.adapter_id),
+                                  err=f"{type(e).__name__}: {e}")
                     break
                 eng._adapter_pins[req.req_id] = req.adapter_id
             self.queue.popleft()
             req._match_memo = None
-            req._adopted = ct
+            req._adopted = ct if k == 1 else 0
             _ADMITTED.inc()
             if req._submit_t is not None:
                 _QUEUE_WAIT.observe(max(0.0, self.clock() - req._submit_t))
-            if eng.preemption:
+            # every cached token is prefill device work the pool did NOT
+            # have to repeat
+            GOODPUT.saved(ct, tenant=req.tenant_id)
+            if req._resume is not None:
+                # replayed after preemption: every resume token past the
+                # prefix-cache hit is device work already paid for once
+                GOODPUT.waste("replay_prefill", max(0, len(p) - ct),
+                              tenant=req.tenant_id)
+                REQUESTS.event(req, "replayed", replica=eng.trace_name,
+                               resume_tokens=len(p), cached_tokens=ct)
+            REQUESTS.event(req, "admitted", replica=eng.trace_name,
+                           cached_tokens=ct)
+            if eng.preemption and k == 1:
                 need = 0                   # no standing reservation
             kv.begin(req.req_id, need)
+            if k > 1:
+                # the group's whole worst case is held up front and
+                # relaxed to (need - live) as its blocks materialise
+                slots = [int(free_slots.pop(0)) for _ in range(k)]
+                kv.hold(req.req_id, need)
+                beam_admits.append((slots, req))
+                continue
             slot = int(free_slots.pop(0))
             if cached:
                 kv.mgr.adopt_prefix(req.req_id, cached)
@@ -185,7 +222,7 @@ class Scheduler:
                 kv.mgr.commit_prefix(req.req_id, p, adapter=req.adapter_id)
             kv.update(req.req_id)
             admits.append((slot, req))
-        return admits
+        return admits, beam_admits
 
     # --------------------------------------------------------- preemption
     @staticmethod
@@ -198,13 +235,14 @@ class Scheduler:
         return frozenset((protect_rid,))
 
     def preempt(self, eng, protect_rid=None) -> bool:
-        """Evict the YOUNGEST active request (LIFO — the oldest in-flight
-        work is closest to completion); it re-queues at the head with
-        resume-prompt = prompt + generated-so-far. With no active
-        candidate, evict the youngest chunk-prefilling request. Returns
-        False when nothing is preemptible."""
+        """Evict the YOUNGEST active greedy request (LIFO — the oldest
+        in-flight work is closest to completion; beam slots are never
+        victims); it re-queues at the head with resume-prompt = prompt +
+        generated-so-far. With no active candidate, evict the youngest
+        chunk-prefilling request. Returns False when nothing is
+        preemptible."""
         protect = self._protect(protect_rid)
-        cand = [int(s) for s in np.nonzero(eng.active)[0]
+        cand = [int(s) for s in np.nonzero(eng.active & ~eng.is_beam)[0]
                 if int(eng.slot_req[s]) not in protect]
         if self.preempt_from(eng, cand):
             return True
@@ -233,6 +271,10 @@ class Scheduler:
         self.queue.appendleft(req)
         eng.stats["preemptions"] += 1
         _PREEMPTED.inc()
+        FLIGHT.record("serving.preempt", rid=rid, slot=int(slot),
+                      phase="prefill")
+        REQUESTS.event(req, "preempted", replica=eng.trace_name,
+                       phase="prefill")
         return True
 
     def preempt_from(self, eng, cand) -> bool:
@@ -266,7 +308,12 @@ class Scheduler:
         eng.slot_req[slot] = -1
         eng.slot_aidx[slot] = -1
         eng.draft_cur[slot] = 0     # the draft cache is freed with the slot
+        eng._grammar.pop(slot, None)   # rebound from req.tokens on resume
         self.queue.appendleft(req)
         eng.stats["preemptions"] += 1
         _PREEMPTED.inc()
+        FLIGHT.record("serving.preempt", rid=rid, slot=int(slot),
+                      phase="decode")
+        REQUESTS.event(req, "preempted", replica=eng.trace_name,
+                       phase="decode")
         return True

@@ -43,6 +43,18 @@ _TICK = METRICS.histogram(
 _DRAIN = METRICS.histogram(
     "serving_drain_seconds", "wall time of graceful drain",
     buckets=(0.1, 0.5, 1.0, 5.0, 15.0, 60.0, 300.0))
+# decode-tick anatomy: every tick observes all five phases (zero seconds
+# included), so per phase count == tick count and the five observations
+# of a tick sum to that tick's serving_tick_seconds observation by
+# construction — host is defined as the remainder
+_TICK_BREAKDOWN = METRICS.histogram(
+    "serving_tick_breakdown_seconds",
+    "per-tick wall time by phase: prefill (admission + chunk forwards), "
+    "draft, verify, sample (the fused decode forward + token fetch), "
+    "host (everything else in the tick)",
+    labelnames=("phase",),
+    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+             0.25, 0.5, 1.0, 2.5))
 # prefix cache: cumulative adopt/evict counts exported from the block
 # manager's cache_stats (deltas pushed each gauge refresh), plus the
 # lifetime hit rates
@@ -74,9 +86,20 @@ _ASYNC_DEPTH = METRICS.gauge(
 _ASYNC_DRAINS = METRICS.counter(
     "serving_async_drains_total",
     "async decode windows drained before a tick the pipeline cannot "
-    "cover, by cause (admit, prefill, window, growth, finish, cancel, "
-    "exception, boundary)",
+    "cover, by cause (admit, prefill, beam, grammar, adapter, window, "
+    "spec, growth, finish, cancel, exception, boundary)",
     labelnames=("why",))
+# under async decode, the breakdown's `host` phase reports only EXPOSED
+# host time; host work done while dispatched ticks were still in flight
+# lands here instead (one observation per tick)
+_TICK_HIDDEN = METRICS.histogram(
+    "serving_tick_host_hidden_seconds",
+    "per-tick host work (token emission, stream callbacks, finish "
+    "bookkeeping) performed while async-dispatched device ticks were "
+    "still in flight — hidden time, excluded from the breakdown's "
+    "exposed `host` phase",
+    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+             0.25, 0.5, 1.0, 2.5))
 # speculative decoding: proposal/acceptance accounting plus the per-tick
 # commit size — tokens_per_tick > 1 is the whole point
 _SPEC_PROPOSED = METRICS.counter(
@@ -118,3 +141,11 @@ _ADAPTER_DEFERRALS = METRICS.counter(
     "serving_adapter_admit_deferrals_total",
     "admissions deferred because the adapter could not be made resident "
     "(cache fully pinned, or an injected serving.adapter_swap fault)")
+# grammar-constrained decoding: mask bookkeeping
+_GRAMMAR_TOKENS = METRICS.counter(
+    "serving_grammar_tokens_total",
+    "tokens emitted under a grammar mask (all mask-legal by construction)")
+_GRAMMAR_SPEC_REJECTS = METRICS.counter(
+    "serving_grammar_spec_rejects_total",
+    "drafted tokens rejected by the grammar mask before the target "
+    "accept rule was consulted")

@@ -1,9 +1,7 @@
 """Deterministic fault injection (chaos layer) — a copy of
 ``paddle_tpu/utils/faults.py`` (it never imported JAX), feeding this
-package's metrics registry and tracer. The flight recorder is not ported
-yet, so firings are not recorded there. Of the sites below the port's
-engine wires ``serving.moe_dispatch`` and ``serving.kv_quant`` today; the
-others are listed in ROADMAP.md (queue 1 item 5) as still to wire.
+package's metrics registry, tracer and flight recorder (every firing is
+a ``fault`` event in :data:`~paddle_tpu_torch.observability.FLIGHT`).
 
 The only way to *prove* the recovery paths
 (preemption, NaN skip, elastic restart, crash-safe checkpoints) stay
@@ -101,7 +99,9 @@ from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
-from paddle_tpu_torch.observability import METRICS, instant as _trace_instant
+from paddle_tpu_torch.observability.flight import FLIGHT
+from paddle_tpu_torch.observability.metrics import METRICS
+from paddle_tpu_torch.observability.tracing import instant as _trace_instant
 
 # chaos runs are self-describing: every firing increments this counter
 # (labelled by site) and drops an instant event on the trace timeline
@@ -288,6 +288,7 @@ class FaultRegistry:
                 self.log.append((site, hit))
                 _INJECTED.inc(site=site)
                 _trace_instant(f"fault:{site}", hit=hit)
+                FLIGHT.record("fault", site=site, hit=hit)
                 out = rule.fire(ctx, self.sleep)
         return out
 

@@ -1951,3 +1951,212 @@ def test_rope_kv_write_matches_the_unfused_composition(dtype, hq, hkv, d,
     assert got.is_contiguous() and torch.equal(got, ref)
     for p, rp in zip(pools, ref_pools):
         assert torch.equal(p[:nb], rp[:nb])
+
+
+# ------------------------------------------------ beams and grammar ticks
+def _cpu_copy(model):
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    cpu = LlamaForCausalLM(model.cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    return cpu
+
+
+def _beam_mix():
+    import numpy as np
+
+    from paddle_tpu_torch.serving import Request
+    rs = np.random.RandomState(11)
+    return [Request(rs.randint(0, 512, 20), max_new_tokens=10),
+            Request(rs.randint(0, 512, 33), max_new_tokens=12, num_beams=3),
+            Request(rs.randint(0, 512, 9), max_new_tokens=10),
+            Request(rs.randint(0, 512, 27), max_new_tokens=8)]
+
+
+def _serve_beams(model, eager=False, check=None, **kw):
+    """The beam mix on an engine of 4 slots (a group of 3 beams rides
+    with greedy rows); ``eager``: every decode tick runs the executor's
+    eager tick instead of a graph replay; ``check(eng)``: called after
+    every step. Returns [(tokens, beam_score)]."""
+    import time
+
+    from paddle_tpu_torch.serving import LLMEngine
+    eng = LLMEngine(model, num_slots=4, block_size=16, max_prompt_len=64,
+                    max_seq_len=128, seed=0, **kw)
+    exe = eng.exe
+    if eager:
+        def tick(last_tok, run_mask, rows, cols, vals, temps, top_ps,
+                 need_logp=False, lora=None, bias=None):
+            return exe._eager_tick(last_tok, run_mask, rows, cols, vals,
+                                   temps, top_ps, need_logp, lora, bias,
+                                   time.perf_counter())
+        exe.decode_tick = tick
+    reqs = _beam_mix()
+    for r in reqs:
+        eng.add_request(r)
+    while eng.has_work():
+        eng.step()
+        if check is not None:
+            check(eng)
+    eng.assert_quiescent()
+    return [(r.tokens, r.beam_score) for r in reqs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["llama_bf16", "llama_fp32", "int8_pool"])
+def test_beam_graph_ticks_bit_identical_to_eager_ticks(case):
+    """A beam group rides with greedy rows: the engine that replays the
+    tick graph and the engine whose every tick runs eagerly give the same
+    beams and streams bit for bit (tokens and scores), and a replay in
+    the middle of the group equals the eager tick
+    (``chip_smoke.graph_against_eager``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import chip_smoke
+    model, kw = _graph_model(case)
+    seen = []
+
+    def check(eng):
+        if eng.groups and not seen and all(g.i >= 2 for g in
+                                           eng.groups.values()):
+            seen.append(chip_smoke.graph_against_eager(torch, eng))
+    graph = _serve_beams(model, check=check, **kw)
+    eager = _serve_beams(model, eager=True, **kw)
+    assert graph == eager
+    assert seen and seen[0]["tokens_equal"] and seen[0]["logp_bit_equal"]
+    assert graph[1][1] is not None and len(graph[1][0]) == 12
+
+
+@pytest.mark.cuda
+def test_beam_group_update_writes_the_captured_tensors_in_place():
+    """Every beam reorder writes the tables, lengths and forked blocks
+    into the tensors the tick graph captured: ``_cache_ptrs`` never moves
+    and every replay is accepted (a rebound tensor raises there)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch.serving.executor import _cache_ptrs
+    model, _ = _graph_model("llama_bf16")
+    ptrs = []
+
+    def check(eng):
+        ptrs.append(_cache_ptrs(eng.exe.cache) == eng.exe._tick._ptrs)
+    _serve_beams(model, check=check)
+    assert ptrs and all(ptrs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_beam_engine_on_card_matches_cpu(kv):
+    """fp32 beams on the card (K2 prefill, K4 decode, K7) equal the CPU
+    engine's (the plain versions) in tokens, scores within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    model, _ = _graph_model("llama_fp32")
+    kw = {} if kv is None else {"kv_dtype": kv}
+    got = _serve_beams(model, **kw)
+    want = _serve_beams(_cpu_copy(model), device="cpu", **kw)
+    assert [t for t, _ in got] == [t for t, _ in want]
+    assert abs(got[1][1] - want[1][1]) <= 1e-4 * abs(want[1][1])
+
+
+def _grammar_engine(model, store=None, aids=None):
+    import numpy as np
+
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    from paddle_tpu_torch.serving.grammar import TokenMaskAutomaton
+    vocab = [""] * 3 + [chr(32 + i % 95) for i in range(509)]
+    aut = TokenMaskAutomaton('[0-9]{2}-[a-z]{3}', vocab=vocab,
+                             eos_token_id=2)
+    eng = LLMEngine(model, num_slots=4, block_size=16, max_prompt_len=64,
+                    max_seq_len=128, seed=0, eos_token_id=2,
+                    adapter_store=store)
+    rs = np.random.RandomState(2)
+    reqs = [Request(rs.randint(3, 512, n), max_new_tokens=12,
+                    grammar=aut if i % 2 else None,
+                    adapter_id=None if aids is None else aids[i])
+            for i, n in enumerate((9, 30, 50, 17))]
+    for r in reqs:
+        eng.add_request(r)
+    return eng, reqs, aut
+
+
+@pytest.mark.cuda
+def test_biased_graph_tick_matches_the_eager_biased_tick():
+    """With grammar rows the executor replays its biased graph: from one
+    cache state it gives the eager biased tick's tokens, bit-identical
+    log-probabilities and cache; the grammar streams stay legal, the free
+    rows' streams equal a run without grammar rows, and the engine's
+    streams equal the CPU's (fp32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import chip_smoke
+    model, _ = _graph_model("llama_fp32")
+    eng, reqs, aut = _grammar_engine(model)
+    eng.exe.tick_log = []
+    while not (eng.active.all() and eng.stats["ticks"] >= 2):
+        eng.step()
+    bias = eng._grammar_bias_rows([(s, s) for s in range(4)], 4)
+    res = chip_smoke.graph_against_eager(torch, eng, bias=bias)
+    assert res["tokens_equal"] and res["logp_bit_equal"], res
+    assert res["cache_bit_equal"], res
+    eng.run()
+    eng.assert_quiescent()
+    assert {k for k, *_ in eng.exe.tick_log} >= {"biased"}
+    for r in reqs[1::2]:
+        sid = aut.start_state
+        for t in r.tokens:
+            assert aut.mask(sid)[t]
+            sid = aut.advance(sid, t)
+    ceng, creqs, _ = _grammar_engine(_cpu_copy(model))
+    ceng.run()
+    assert [r.tokens for r in reqs] == [r.tokens for r in creqs]
+
+
+@pytest.mark.cuda
+def test_lora_and_grammar_tick_runs_eagerly_on_the_card():
+    """A tick with adapter rows and grammar rows runs the eager tick on
+    the card (no graph holds both): the engine counts it, and its streams
+    equal the CPU engine's (fp32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch.serving.adapters import AdapterStore
+    model, store = _lora_model_and_store(torch.float32)
+    sd = _lora_sd(model, 1, 8)
+    store.register("a", sd)
+    aids = ["a", "a", None, None]
+    eng, reqs, _ = _grammar_engine(model, store, aids)
+    eng.exe.tick_log = []
+    eng.run()
+    eng.assert_quiescent()
+    kinds = [k for k, *_ in eng.exe.tick_log]
+    assert eng.stats["lora_grammar_ticks"] > 0
+    assert kinds.count("eager") == eng.stats["lora_grammar_ticks"]
+    cpu = _cpu_copy(model)
+    cstore = AdapterStore(cpu, capacity=2, max_rank=8)
+    cstore.register("a", sd)
+    ceng, creqs, _ = _grammar_engine(cpu, cstore, aids)
+    ceng.run()
+    assert [r.tokens for r in reqs] == [r.tokens for r in creqs]
+
+
+@pytest.mark.cuda
+def test_h100_peaks_resolve_from_the_device_name(monkeypatch):
+    """The roofline's peaks come from ``torch.cuda.get_device_name``: the
+    H100's row (989e12 FLOP/s, 3.35e12 B/s) on that card, 0.0 (undefined)
+    on a card no row names; a card engine exports a decode MBU above 0
+    on the H100."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch.observability import METRICS
+    from paddle_tpu_torch.observability.roofline import resolve_serving_peaks
+    monkeypatch.delenv("PT_ROOFLINE_KIND", raising=False)
+    name = torch.cuda.get_device_name(0)
+    want = ((989e12, 3.35e12) if name == "NVIDIA H100 80GB HBM3"
+            else (0.0, 0.0))
+    assert resolve_serving_peaks(torch.device("cuda")) == want
+    model, _ = _graph_model("llama_bf16")
+    eng = _decoding_engine(model, new=8)
+    assert (eng._peak_flops, eng._peak_hbm) == want
+    eng.run()
+    mbu = METRICS.get("serving_mbu").value(phase="decode")
+    assert (mbu > 0.0) == (want[1] > 0.0)
+    assert mbu <= 1.05

@@ -91,7 +91,7 @@ def test_eos_cancel_drain_and_refusals():
     assert eng2.requests[r].finish_reason == "eos"
     eng2.assert_quiescent()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng2.add_request(Request([1, 2], num_beams=2))
+        eng2.add_request(Request([1, 2], tenant_id="t0"))
     for kw in (dict(cp=2), dict(degrade=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             LLMEngine(tm, **kw)

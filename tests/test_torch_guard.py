@@ -131,7 +131,10 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
         "falcon_rw_train": K.ALIBI_TRAIN_KERNELS,
         "falcon7b_serve": K.ROPE_GENERATE_KERNELS,
         "lora_serve": K.LORA_SERVE_KERNELS,
-        "spec_serve": K.SPEC_SERVE_KERNELS}
+        "spec_serve": K.SPEC_SERVE_KERNELS,
+        "beam_serve": K.BEAM_SERVE_KERNELS,
+        "beam_serve_i8": K.BEAM_SERVE_I8_KERNELS,
+        "grammar_serve": K.GRAMMAR_SERVE_KERNELS}
     # K7 rotates every rope of every path; the ALiBi paths (BLOOM,
     # falcon-rw) have no rope and run K2's (and K5's) ALiBi mode instead
     alibi = {p for p in chip_smoke.PATHS if p.startswith(("bloom",
