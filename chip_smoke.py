@@ -54,7 +54,12 @@ Phases (each one fails the run when it fails; nothing is caught):
             64]) shapes, each also timed without ALiBi at the same shape,
             the library call being F.scaled_dot_product_attention with
             the float ALiBi mask (and its backward); K2 and K7 at
-            Falcon-7B's generate shapes (GQA 71:1);
+            Falcon-7B's generate shapes (GQA 71:1); K2, K5a and K5b at
+            head dim 256 (bf16 and float32, K2's LSE too) at Gemma-2B's
+            train shape (q [2, 2048, 8, 256] over one KV head, GQA 8:1)
+            and GPT-J-6B's (q [4, 2048, 16, 256]), beside SDPA (is_causal,
+            GQA) and its backward, K2 at the generate shape of Gemma-7B
+            and GPT-J-6B ([8, 160, 16, 256]) and K7 at Gemma's shapes;
             times of the kernel, the plain version and, where one PyTorch
             call computes the same function, that call (``library_ms``),
             with CUDA events; the bound max(bytes / 3.35 TB/s, flops / 989
@@ -251,6 +256,32 @@ Phases (each one fails the run when it fails; nothing is caught):
             71:1 and K7; then the prompt logits at 8 of its 32 layers
             (a float32 copy of all 32 would not fit beside it) under the
             check's rule
+  gemma_train  ``google/gemma-2b`` whole (``gemma_2b_config``: 18 layers,
+            hidden 2048, 8 heads of 256 over one KV head, MLP 16 384,
+            vocab 256 000, tied head; 2.51 B parameters, bf16, random
+            weights from a seed made on the card) through
+            ``make_train_step`` with the train phase's AdamW at batch
+            2 x 2048, remat on (``GemmaConfig``'s default): first the loss
+            and three gradients on one row against the plain versions and
+            float32, then 2 warm-up and 8 timed steps; K2 twice a layer
+            and step (the forward and remat's recompute), K5a and K5b once,
+            all at head dim 256 on the tensor cores (GQA 8:1), K7 on every
+            rope, and neither ``eager_attention`` nor a plain version of
+            K2/K5/K7 ever; ms/step, tokens/s, MFU and peak memory
+  gemma7b_serve  ``GemmaConfig()`` as it stands (``google/gemma-7b``: 28
+            layers, hidden 3072, 16 heads of 256, MLP 24 576, vocab
+            256 000; 8.54 B parameters) through ``generic_generate`` with
+            the generate mix: K2 at head dim 256 once a layer and step and
+            K7, never ``eager_attention`` or a plain version; then the
+            prompt logits at 8 of its 28 layers under the check's rule
+  gptj_serve  ``GPTJConfig()`` as it stands (``EleutherAI/gpt-j-6b``: 28
+            layers, hidden 4096, 16 heads of 256, interleaved rope on 64
+            lanes, plain PyTorch as the reference's; 6.05 B parameters)
+            the same way (K2 alone: GPT-J's rope has no kernel), the
+            prompt check at 8 layers
+  gptj_train  GPT-J-6B's widths at 4 layers (1.22 B parameters), batch
+            4 x 2048, remat off, as ``bloom_train``: K2, K5a (group 1) and
+            K5b (group 1) at head dim 256 once a layer and step each
   anatomy   (only when asked for: --phases build,anatomy or
             build,train,anatomy) 16 steady decode ticks and, with
             ``train``, ``bloom_train`` or ``falcon_rw_train``, 2 steps of
@@ -303,7 +334,9 @@ path (``"path": "serve"``, ``"async_serve"``, ``"lora_serve"``,
 ``"grammar_serve"``, ``"train"``, ``"moe_serve"``,
 ``"moe_train"``,
 ``"window_serve"``, ``"quant_serve"``, ``"bloom_serve"``, ``"bloom_train"``,
-``"falcon_rw_serve"``, ``"falcon_rw_train"`` or ``"falcon7b_serve"``): its
+``"falcon_rw_serve"``, ``"falcon_rw_train"``, ``"falcon7b_serve"``,
+``"gemma_train"``, ``"gemma7b_serve"``, ``"gptj_serve"`` or
+``"gptj_train"``): its
 launches are counted in that
 path's own run, with every count set to 0 just before it, and its times are
 taken at the shapes that path gives the kernel; ``"variant"`` names the
@@ -381,7 +414,9 @@ SOURCES = {
 # MOE_TRAIN_KERNELS / WINDOW_SERVE_KERNELS / QUANT_SERVE_KERNELS /
 # ALIBI_SERVE_KERNELS / ALIBI_TRAIN_KERNELS / ROPE_GENERATE_KERNELS /
 # LORA_SERVE_KERNELS / SPEC_SERVE_KERNELS / BEAM_SERVE_KERNELS /
-# BEAM_SERVE_I8_KERNELS / GRAMMAR_SERVE_KERNELS, spelled out here so that
+# BEAM_SERVE_I8_KERNELS / GRAMMAR_SERVE_KERNELS / GEMMA_TRAIN_KERNELS /
+# GEMMA_SERVE_KERNELS / GPTJ_SERVE_KERNELS / GPTJ_TRAIN_KERNELS, spelled
+# out here so that
 # --root can load an earlier tree that lacks them (a kernel that such a
 # tree does not have is then left out of its checks)
 PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
@@ -415,7 +450,12 @@ PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
          "beam_serve_i8": ("rms_norm", "flash_fwd", "paged_chunk_i8",
                            "paged_decode_i8", "rope"),
          "grammar_serve": ("rms_norm", "flash_fwd", "paged_decode", "rope",
-                           "rope_kv")}
+                           "rope_kv"),
+         "gemma_train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                         "rope"),
+         "gemma7b_serve": ("flash_fwd", "rope"),
+         "gptj_serve": ("flash_fwd",),
+         "gptj_train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 # kernels of PATHS that the imported tree does not have (only with --root)
 ABSENT: set = set()
 # the train check: share of the fp32 gradients' RMS that each bf16 path
@@ -443,6 +483,12 @@ MOE_GRAD_REL = 0.3
 GEN_ROWS, GEN_PROMPT, GEN_NEW = 8, 128, 32
 ALIBI_TRAIN_BATCH, ALIBI_TRAIN_SEQ = 4, 2048
 FALCON7B_CHECK_LAYERS = 8
+# head dim 256: Gemma-2B trained at its batch 2 x 2048 (q [2, 2048, 8, 256]
+# over one KV head), GPT-J-6B's widths at 4 layers and 4 x 2048; Gemma-7B
+# and GPT-J-6B generate whole and are checked at 8 of their 28 layers
+GEMMA_TRAIN_BATCH, GPTJ_TRAIN_BATCH, HD256_TRAIN_SEQ = 2, 4, 2048
+GPTJ_TRAIN_LAYERS = 4
+HD256_CHECK_LAYERS = 8
 
 
 def log(*a):
@@ -885,9 +931,14 @@ def phase_kernels(torch, dev):
     results = {"serve": out, "train": train, "moe_serve": moe_serve,
                "moe_train": moe_train, "window_serve": window,
                "falcon7b_serve": falcon7b_kernel_entries(torch, dev)}
+    # head dim 256: K2, K5a and K5b at Gemma-2B's and GPT-J-6B's train
+    # shapes, K2 at their generate shape
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+    if 256 in getattr(FA, "HEAD_DIMS", ()):
+        results.update(hd256_kernel_entries(torch, dev))
     rope_decode = k7_entries.pop("serve decode")
     for path, r in k7_entries.items():
-        results[path]["rope"] = r
+        results.setdefault(path, {})["rope"] = r
     if "rope_kv" not in ABSENT:
         for path, r in k7_fold(torch, dev).items():
             results[path]["rope_kv"] = r
@@ -1328,6 +1379,145 @@ def falcon7b_kernel_entries(torch, dev):
         bound_ms=b_ms, bound_by=b_by,
         shape=f"q [{b}, {s}, {h}, {d}], k/v [{b}, {s}, 1, {d}] bf16, "
               f"causal; {_route(FA, 'flash_fwd', q)} route")}
+
+
+# ------------------------------------------- head dim 256 (K2, K5a, K5b)
+# (path, q [B, S, H, D], KV heads): Gemma-2B's train step (GQA 8:1) and
+# GPT-J-6B's (one KV head a query head)
+HD256_TRAIN_CASES = (("gemma_train", (GEMMA_TRAIN_BATCH, HD256_TRAIN_SEQ, 8,
+                                      256), 1),
+                     ("gptj_train", (GPTJ_TRAIN_BATCH, HD256_TRAIN_SEQ, 16,
+                                     256), 16))
+
+
+def _hd256_bound(b, s, h, hkv, d, es, q_io, kv_io, n_rows, products):
+    """Bound of a causal attention pass with ``h`` query heads over ``hkv``
+    KV heads: ``q_io`` tensors of q's shape and ``kv_io`` of k's read or
+    written once, ``n_rows`` fp32 rows [b, h, s] (LSE, delta), and
+    ``products`` matrix products over the causal half (2 d flops per live
+    (query, key) pair each)."""
+    pairs = b * h * s * (s + 1) // 2
+    return bound((q_io * h + kv_io * hkv) * b * s * d * es
+                 + n_rows * b * h * s * 4, products * 2 * d * pairs)
+
+
+def _hd256_inputs(torch, dev, dt, shape, hkv, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, s, h, d = shape
+    q, do = (torch.randn(b, s, h, d, generator=g, device=dev).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device=dev).to(dt)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def hd256_train_entries(torch, dev, path, shape, hkv):
+    """K2, K5a and K5b at a head dim 256 train shape (causal, no kv_lens):
+    each against its plain version in fp32 (the FMA routes) and bf16 (the
+    tensor-core routes; K5b at 256 a dV block and a dK block a k tile),
+    K2's LSE against the plain one; times in bf16 of each kernel, the
+    plain forward / backward, and SDPA (``is_causal``, GQA by
+    ``enable_gqa``) forward / backward, the backward's time on both K5
+    rows as ``k5`` gives it. Returns {kernel: entry}."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import _build
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+    b, s, h, d = shape
+    scale = d ** -0.5
+    label = f"{path} shape, head dim 256, GQA {h}:{hkv}"
+    errs = {}
+    for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v, do = _hd256_inputs(torch, dev, dt, shape, hkv, 256)
+        o, lse = FA.flash_fwd_cuda(q, k, v, True, scale, None, None)
+        ref_o, ref_lse = FA.flash_attention_fwd_plain(q, k, v, causal=True)
+        errs["flash_fwd"] = _agree(f"flash_fwd ({label})", dtype,
+                                   _max_err(o, ref_o))
+        _agree(f"flash_fwd log-sum-exp ({label}, {dtype} inputs)", "f32",
+               _max_err(lse, ref_lse))
+        del ref_o, ref_lse
+        got = FA.flash_bwd_cuda(q, k, v, o, lse, do, True, scale, None,
+                                None)
+        ref = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+        e = [_agree(f"flash_bwd {n} ({label})", dtype, _max_err(a, r))
+             for n, a, r in zip(("dq", "dk", "dv"), got, ref)]
+        errs["flash_bwd_dq"], errs["flash_bwd_dkv"] = e[0], max(e[1:])
+        del got, ref, o, lse, q, k, v, do
+        torch.cuda.empty_cache()
+    q, k, v, do = _hd256_inputs(torch, dev, torch.bfloat16, shape, hkv, 256)
+    o, lse = FA.flash_fwd_cuda(q, k, v, True, scale, None, None)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (_build.dtype_code(q, "hd256"), q, k, v, do, lse, delta, True,
+            scale, None, None)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_fwd = time_ms(lambda: _sdpa_gqa(torch, F, qt, kt, vt,
+                                        is_causal=True), iters=20)
+    lib_out = _sdpa_gqa(torch, F, qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True), iters=20)
+    plain_bwd = time_ms(lambda: FA.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal=True), iters=3, warmup=1)
+    es = q.element_size()
+    out = {}
+    for key, fn, q_io, kv_io, products, plain_ms, lib_ms in (
+            ("flash_fwd", lambda: FA.flash_fwd_cuda(q, k, v, True, scale,
+                                                    None, None), 2, 2, 2,
+             time_ms(lambda: FA.flash_attention_fwd_plain(q, k, v,
+                                                          causal=True),
+                     iters=3, warmup=1), lib_fwd),
+            ("flash_bwd_dq", lambda: FA.flash_bwd_dq(*args), 3, 2, 3,
+             plain_bwd, lib_bwd),
+            ("flash_bwd_dkv", lambda: FA.flash_bwd_dkv(*args), 2, 4, 4,
+             plain_bwd, lib_bwd)):
+        n_rows = 1 if key == "flash_fwd" else 2
+        b_ms, b_by = _hd256_bound(b, s, h, hkv, d, es, q_io, kv_io, n_rows,
+                                  products)
+        out[key] = dict(
+            max_abs_err=errs[key], variant=_route(FA, key, q),
+            ms=time_ms(fn, iters=10), plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by,
+            shape=f"q [{b}, {s}, {h}, {d}], k/v [{b}, {s}, {hkv}, {d}] "
+                  f"bf16, causal; {_route(FA, key, q)} route")
+    del lib_out, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
+def hd256_kernel_entries(torch, dev):
+    """The head dim 256 paths' attention rows: K2, K5a and K5b at
+    HD256_TRAIN_CASES, and K2 at the generate shape both 256-wide serving
+    families give it (Gemma-7B and GPT-J-6B: q/k/v [8, 160, 16, 256],
+    causal) against its plain version in fp32 and bf16, timed beside the
+    plain version and SDPA. Returns {path: {kernel: entry}}."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+    res = {path: hd256_train_entries(torch, dev, path, shape, hkv)
+           for path, shape, hkv in HD256_TRAIN_CASES}
+    shape = (GEN_ROWS, GEN_PROMPT + GEN_NEW, 16, 256)
+    for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v, _ = _hd256_inputs(torch, dev, dt, shape, 16, 257)
+        err = _agree("flash_fwd (gemma7b_serve / gptj_serve shape)", dtype,
+                     _max_err(FA.flash_attention(q, k, v, causal=True),
+                              FA.flash_attention_plain(q, k, v,
+                                                       causal=True)))
+    b, s, h, d = shape
+    b_ms, b_by = _hd256_bound(b, s, h, h, d, q.element_size(), 2, 2, 1, 2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gen = dict(
+        max_abs_err=err, variant=_route(FA, "flash_fwd", q),
+        ms=time_ms(lambda: FA.flash_attention(q, k, v, causal=True)),
+        plain_ms=time_ms(lambda: FA.flash_attention_plain(q, k, v,
+                                                          causal=True),
+                         iters=20),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"q/k/v [{b}, {s}, {h}, {d}] bf16, causal; "
+              f"{_route(FA, 'flash_fwd', q)} route")
+    res["gemma7b_serve"] = {"flash_fwd": gen}
+    res["gptj_serve"] = {"flash_fwd": gen}
+    return res
 
 
 # -------------------------------------------------------------------- K6
@@ -1904,6 +2094,11 @@ ROPE_CASES = (
     ("falcon-7b generate q", "falcon7b_serve", (8, 160), 71, 71, "q", 64,
      "shared", 1e4),
     ("falcon-7b generate k", None, (8, 160), 1, 1, "q", 64, "shared", 1e4),
+    ("gemma-2b train q", "gemma_train", (2, 2048), 8, 10, "q", 256,
+     "shared", 1e4),
+    ("gemma-2b train k", None, (2, 2048), 1, 10, "k", 256, "shared", 1e4),
+    ("gemma-7b generate q", "gemma7b_serve", (8, 160), 16, 48, "q", 256,
+     "shared", 1e4),
 )
 
 
@@ -3256,6 +3451,36 @@ def _path_logits(torch, model, prompts, long_prompt, toks, kv_dtype=None):
     return pre.float(), chunk.float(), dec.float()
 
 
+class count_plain_calls:
+    """Count, while active, the calls of ``eager_attention`` and of the
+    plain versions of K2, K5 and K7: a path whose attention and rope run
+    on the kernels makes none (``calls`` empty)."""
+    WATCHED = (("paddle_tpu_torch.ops.attention", "eager_attention"),
+               ("paddle_tpu_torch.ops.cuda.flash_attention",
+                "flash_attention_fwd_plain"),
+               ("paddle_tpu_torch.ops.cuda.flash_attention",
+                "flash_attention_bwd_plain"),
+               ("paddle_tpu_torch.ops.cuda.rope", "fused_rope_plain"))
+
+    def __enter__(self):
+        import importlib
+        self.calls, self.saved = {}, []
+        for mod_name, name in self.WATCHED:
+            mod = importlib.import_module(mod_name)
+            orig = getattr(mod, name)
+            self.saved.append((mod, name, orig))
+
+            def counted(*a, _orig=orig, _name=name, **kw):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return _orig(*a, **kw)
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self.saved:
+            setattr(mod, name, orig)
+
+
 def fp32_copy(torch, model):
     """The same weights in float32 (the check's reference model); a
     weight-only quantized projection gives its dequantized weight, the
@@ -3788,10 +4013,32 @@ def falcon_rw_1b_config(torch):
                         layer_norm_epsilon=1e-5, dtype=torch.bfloat16)
 
 
-def build_generate_model(torch, dev, family, layers=None):
+def gemma_2b_config(torch):
+    """``google/gemma-2b``'s ``config.json``, field by field: vocab 256 000,
+    hidden 2048, MLP 16 384, 18 layers, 8 query heads of 256 over one KV
+    head, RMSNorm eps 1e-6, rope theta 10 000, max positions 8192, tied
+    head (2.51 B parameters); remat as ``GemmaConfig`` defaults it (on)."""
+    from paddle_tpu_torch.models.gemma import GemmaConfig
+    return GemmaConfig(vocab_size=256000, hidden_size=2048,
+                       intermediate_size=16384, num_hidden_layers=18,
+                       num_attention_heads=8, num_key_value_heads=1,
+                       head_dim=256, max_position_embeddings=8192,
+                       rms_norm_eps=1e-6, rope_theta=10000.0,
+                       dtype=torch.bfloat16)
+
+
+def _layers(model):
+    """The decoder blocks of a generate family's model."""
+    return model.h if hasattr(model, "h") else model.layers
+
+
+def build_generate_model(torch, dev, family, layers=None, **overrides):
     """BLOOM-560m (``BloomConfig()`` as it stands: ``bigscience/bloom-560m``),
-    Falcon-RW-1B or Falcon-7B (``FalconConfig()`` as it stands:
-    ``tiiuae/falcon-7b``) whole in bf16 (``layers`` cuts depth only),
+    Falcon-RW-1B, Falcon-7B (``FalconConfig()`` as it stands:
+    ``tiiuae/falcon-7b``), Gemma-2B (``gemma_2b_config``), Gemma-7B
+    (``GemmaConfig()`` as it stands: ``google/gemma-7b``) or GPT-J-6B
+    (``GPTJConfig()`` as it stands: ``EleutherAI/gpt-j-6b``) whole in bf16
+    (``layers`` cuts depth only; ``overrides``: other config fields),
     random weights from seed 0 made on the card."""
     from paddle_tpu_torch.models.bloom import BloomConfig, BloomForCausalLM
     from paddle_tpu_torch.models.falcon import FalconConfig, FalconForCausalLM
@@ -3800,18 +4047,27 @@ def build_generate_model(torch, dev, family, layers=None):
         cfg, cls = BloomConfig(), BloomForCausalLM
     elif family == "falcon_rw":
         cfg, cls = falcon_rw_1b_config(torch), FalconForCausalLM
+    elif family in ("gemma2b", "gemma7b"):
+        from paddle_tpu_torch.models.gemma import (GemmaConfig,
+                                                   GemmaForCausalLM)
+        cfg = gemma_2b_config(torch) if family == "gemma2b" else GemmaConfig()
+        cls = GemmaForCausalLM
+    elif family == "gptj":
+        from paddle_tpu_torch.models.gptj import GPTJConfig, GPTJForCausalLM
+        cfg, cls = GPTJConfig(), GPTJForCausalLM
     else:
         cfg, cls = FalconConfig(), FalconForCausalLM
     if layers is not None:
-        field = "n_layer" if family == "bloom" else "num_hidden_layers"
-        cfg = dataclasses.replace(cfg, **{field: layers})
+        overrides["n_layer" if family in ("bloom", "gptj")
+                  else "num_hidden_layers"] = layers
+    cfg = dataclasses.replace(cfg, **overrides)
     model = cls(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
     nparams = sum(p.numel() for p in model.parameters())
-    log(f"[{family}] {cls.__name__}, hidden {cfg.hidden_size}, "
-        f"{getattr(cfg, 'n_layer', getattr(cfg, 'num_hidden_layers', 0))} "
-        f"layers, {nparams / 1e9:.3f} B params, random weights in "
-        f"{time.monotonic() - tm:.1f} s")
+    log(f"[{family}] {cls.__name__}, hidden "
+        f"{getattr(cfg, 'hidden_size', getattr(cfg, 'n_embd', 0))}, "
+        f"{len(_layers(model))} layers, {nparams / 1e9:.3f} B params, "
+        f"random weights in {time.monotonic() - tm:.1f} s")
     return model
 
 
@@ -3825,9 +4081,11 @@ def phase_generate(torch, dev, model, np, path):
     greedy: every step re-forwards the fixed [8, 160] buffer, so K2 runs
     once a layer and step, in its ALiBi mode for BLOOM and falcon-rw (the
     mode without ALiBi must not run there, and the ALiBi mode not on
-    Falcon-7B). The prompt must come back unchanged and every new token be
-    in the vocabulary. Tokens/s of wall time (one warm-up call first).
-    Returns (launch counts, the prompts)."""
+    Falcon-7B, Gemma-7B or GPT-J-6B). The prompt must come back unchanged
+    and every new token be in the vocabulary, and neither
+    ``eager_attention`` nor a plain version of K2 or K7 may run. Tokens/s
+    of wall time (one warm-up call first). Returns (launch counts, the
+    prompts)."""
     from paddle_tpu_torch.models.decoding import generic_generate
     from paddle_tpu_torch.ops import cuda as K
     vocab = model.cfg.vocab_size
@@ -3836,11 +4094,15 @@ def phase_generate(torch, dev, model, np, path):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
-    t0 = time.monotonic()
-    out = generic_generate(model, prompts, max_new_tokens=GEN_NEW)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+    with count_plain_calls() as plain:
+        t0 = time.monotonic()
+        out = generic_generate(model, prompts, max_new_tokens=GEN_NEW)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
     counts = K.launches()
+    if plain.calls:
+        raise AssertionError(f"{path}: plain attention or rope ran on the "
+                             f"path: {plain.calls}")
     out = out.cpu().numpy()
     if out.shape != (GEN_ROWS, GEN_PROMPT + GEN_NEW) or not (
             (out[:, :GEN_PROMPT] == prompts).all()
@@ -3852,9 +4114,10 @@ def phase_generate(torch, dev, model, np, path):
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: "
                              f"{missing} ({counts})")
-    mine, other = (("flash_fwd", "flash_fwd_alibi") if path == "falcon7b_serve"
-                   else ("flash_fwd_alibi", "flash_fwd"))
-    layers = len(model.h)
+    mine, other = (("flash_fwd_alibi", "flash_fwd")
+                   if path in ("bloom_serve", "falcon_rw_serve")
+                   else ("flash_fwd", "flash_fwd_alibi"))
+    layers = len(_layers(model))
     want = GEN_NEW * layers
     if counts.get(other, 0) or counts[mine] != want:
         raise AssertionError(f"{path}: {mine} launched {counts[mine]} times "
@@ -3917,6 +4180,58 @@ def phase_alibi_train(torch, dev, np, path, model, anatomy=False):
     if any(v != want for v in got.values()) or any(plain.values()):
         raise AssertionError(f"{path} launches {got} (expected {want} each), "
                              f"modes without ALiBi {plain}")
+    return counts
+
+
+def phase_hd256_train(torch, dev, np, path, anatomy=False):
+    """The train step of a head dim 256 family through make_train_step with
+    the headline's AdamW: ``gemma_train`` Gemma-2B whole
+    (``gemma_2b_config``) at batch 2 x 2048 with remat on, as
+    ``GemmaConfig`` defaults it (K2 twice a layer and step: the forward
+    and its recompute); ``gptj_train`` GPT-J-6B's widths at
+    GPTJ_TRAIN_LAYERS layers, 4 x 2048, remat off. First the train check
+    (loss and three gradients on one row against the plain versions and
+    float32), then 10 steps in which K2, K5a and K5b run at head dim 256 on
+    the tensor cores (GQA 8:1 for Gemma; K5b's group of one for GPT-J) as
+    many times as the model's layers say, the ALiBi modes never, and
+    neither ``eager_attention`` nor a plain version of K2, K5 or K7 at all.
+    Returns the launch counts."""
+    from paddle_tpu_torch.models import gemma, gptj
+    if path == "gemma_train":
+        model = build_generate_model(torch, dev, "gemma2b")
+        batch, mod = GEMMA_TRAIN_BATCH, gemma
+        last = len(model.layers) - 1
+        names = ("layers.0.qkv_proj", f"layers.{last}.down_proj",
+                 "embed_tokens")
+    else:
+        model = build_generate_model(torch, dev, "gptj", GPTJ_TRAIN_LAYERS,
+                                     remat=False)
+        batch, mod = GPTJ_TRAIN_BATCH, gptj
+        last = len(model.h) - 1
+        names = ("h.0.q_proj", f"h.{last}.fc_out", "lm_head")
+    cfg = model.cfg
+    ids, labels = train_batch(torch, dev, np, cfg, batch=batch,
+                              seq=HD256_TRAIN_SEQ)
+    phase_train_check(torch, model, ids, labels, names, GRAD_REL,
+                      f"{path}_check")
+    with count_plain_calls() as plain:
+        counts = run_train(torch, np, path, model, ids, labels, False,
+                           anatomy, names, GRAD_REL,
+                           mod.num_flops_per_token(cfg, HD256_TRAIN_SEQ))
+    del model
+    torch.cuda.empty_cache()
+    if plain.calls:
+        raise AssertionError(f"{path}: plain attention or rope ran on the "
+                             f"path: {plain.calls}")
+    layers = cfg.num_hidden_layers if path == "gemma_train" else cfg.n_layer
+    steps = 10                       # run_train counts before its anatomy
+    want = {"flash_fwd": steps * layers * (2 if cfg.remat else 1),
+            "flash_bwd_dq": steps * layers, "flash_bwd_dkv": steps * layers,
+            "flash_fwd_alibi": 0, "flash_bwd_dq_alibi": 0,
+            "flash_bwd_dkv_alibi": 0}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{path} launches {got}, expected {want}")
     return counts
 
 
@@ -4846,7 +5161,8 @@ def main(argv=None):
                     "grammar_serve,grammar_check,train,"
                     "moe_serve,moe_check,moe_train,window_serve,window_check,"
                     "quant_serve,quant_check,bloom_serve,bloom_train,"
-                    "falcon_rw_serve,falcon_rw_train,falcon7b_serve")
+                    "falcon_rw_serve,falcon_rw_train,falcon7b_serve,"
+                    "gemma_train,gemma7b_serve,gptj_serve,gptj_train")
     ap.add_argument("--root", help="import paddle_tpu_torch from the "
                     "checkout at ROOT instead of this one: an earlier "
                     "tree's package under this script's measurement")
@@ -5057,6 +5373,27 @@ def main(argv=None):
         phase_prompt_check(torch, model, prompts, "falcon7b_check")
         del model
         torch.cuda.empty_cache()
+    # head dim 256: Gemma-2B's train step, Gemma-7B and GPT-J-6B generating
+    # whole (their prompt logits checked at HD256_CHECK_LAYERS layers),
+    # GPT-J-6B's widths trained at GPTJ_TRAIN_LAYERS layers
+    if "gemma_train" in phases:
+        counts["gemma_train"] = phase_hd256_train(
+            torch, dev, np, "gemma_train", "anatomy" in phases)
+    for fam in ("gemma7b", "gptj"):
+        if f"{fam}_serve" not in phases:
+            continue
+        model = build_generate_model(torch, dev, fam)
+        counts[f"{fam}_serve"], prompts = phase_generate(
+            torch, dev, model, np, f"{fam}_serve")
+        del model
+        torch.cuda.empty_cache()
+        model = build_generate_model(torch, dev, fam, HD256_CHECK_LAYERS)
+        phase_prompt_check(torch, model, prompts, f"{fam}_check")
+        del model
+        torch.cuda.empty_cache()
+    if "gptj_train" in phases:
+        counts["gptj_train"] = phase_hd256_train(
+            torch, dev, np, "gptj_train", "anatomy" in phases)
     kern = []
     for path, names in PATHS.items():
         for name in names:

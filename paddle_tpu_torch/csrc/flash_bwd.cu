@@ -382,26 +382,31 @@ constexpr int dkv_wgmma_smem_bytes() {
   return 6 * kTile * D * 2 + 2 * 2 * kTile * 4 + 1024;
 }
 
-template <int D, bool kAlibi>
-__global__ void __launch_bounds__(hopper::kWarpgroup, 2)
-    flash_bwd_dkv_wgmma_kernel(
-        const __nv_bfloat16* __restrict__ q,
-        const __nv_bfloat16* __restrict__ k,
-        const __nv_bfloat16* __restrict__ v,
-        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-        const float* __restrict__ delta, const int* __restrict__ kv_lens,
-        const float* __restrict__ slopes, __nv_bfloat16* __restrict__ dk,
-        __nv_bfloat16* __restrict__ dv, int S, int Sk, int H, int Hkv,
-        float scale, int causal, int window) {
+// The outputs one block of K5b's tensor-core route computes: dK and dV
+// (D = 64, 128), or at D = 256 one of the two (two blocks a k tile; see
+// the design note at the top)
+constexpr int kDkvBoth = 0, kDkvOnlyDV = 1, kDkvOnlyDK = 2;
+
+// One block of K5b's tensor-core route: the k tile at key k0 of KV head
+// blockIdx.x, batch row blockIdx.y; base is the 1024-byte-aligned start of
+// the dynamic shared memory (dkv_wgmma_smem_bytes<D>()).
+template <int D, bool kAlibi, int kPart>
+__device__ __forceinline__ void dkv_wgmma_block(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ kv_lens,
+    const float* __restrict__ slopes, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int S, int Sk, int H, int Hkv,
+    float scale, int causal, int window, int k0, uint8_t* base) {
   using namespace hopper;
+  constexpr bool kDV = kPart != kDkvOnlyDK, kDK = kPart != kDkvOnlyDV;
   constexpr int kTileBytes = kTile * D * 2;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const uint32_t k_s = smem_addr(base), v_s = k_s + kTileBytes;
   // stage st: Q at k_s + (2 + 2 st) tiles, dO right after it; its lse and
   // delta rows at rows_s + 2 * 64 * st
   float* rows_s = reinterpret_cast<float*>(base + 6 * kTileBytes);
-  const int kvh = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * kTile;
+  const int kvh = blockIdx.x, b = blockIdx.y;
   const int G = H / Hkv;
   int klen;
   const int q_off = row_geometry(kv_lens, b, S, Sk, &klen);
@@ -433,7 +438,8 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
   };
   if (iters > 0) {
     load_tile<kTile, D>(k_s, k + kv_off, kv_stride, klen - k0);
-    load_tile<kTile, D>(v_s, v + kv_off, kv_stride, klen - k0);
+    if constexpr (kDK)  // V feeds dP^T only
+      load_tile<kTile, D>(v_s, v + kv_off, kv_stride, klen - k0);
     load_q(0);
     cp_async_commit();
   }
@@ -443,9 +449,12 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
   const int c0 = 2 * (lane & 3);           // query columns 8j + c0 + {0, 1}
   constexpr float kLog2e = 1.4426950408889634f;
   const float sl2 = scale * kLog2e;
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[kDK ? D / 2 : 1], dv_acc[kDV ? D / 2 : 1];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) {
+    if constexpr (kDK) dk_acc[i] = 0.f;
+    if constexpr (kDV) dv_acc[i] = 0.f;
+  }
 
   for (int it = 0; it < iters; ++it) {
     const int qt = qbeg + (it % nqt) * kTile;
@@ -463,25 +472,27 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
       load_q(it + 1);    // streams in while step it computes
       cp_async_commit();
     }
-    // S^T = K Q^T and dP^T = V dO^T on the tensor cores
+    // S^T = K Q^T and (for dK) dP^T = V dO^T on the tensor cores
     float s[32], dp[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
     reg_fence(s);
-    reg_fence(dp);
+    if constexpr (kDK) reg_fence(dp);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
       mma_ss_n64(s, desc_kmajor<kTile>(k_s, kk),
                  desc_kmajor<kTile>(q_st, kk));
+    if constexpr (kDK) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64(dp, desc_kmajor<kTile>(v_s, kk),
-                 desc_kmajor<kTile>(do_st, kk));
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss_n64(dp, desc_kmajor<kTile>(v_s, kk),
+                   desc_kmajor<kTile>(do_st, kk));
+    }
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(s);
-    reg_fence(dp);
+    if constexpr (kDK) reg_fence(dp);
     // element masks only on a step that crosses qend, kv_lens, the causal
     // diagonal or the window's edge
     const bool edge = qt + kTile > qend || k0 + kTile > klen ||
@@ -502,26 +513,31 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
                             causal);
         const float p = ok ? exp2f(fmaf(s[4 * j + i], sl2, arg)) : 0.f;
         s[4 * j + i] = p;
-        dp[4 * j + i] = p * (dp[4 * j + i] - dl_s[c]) * scale;
+        if constexpr (kDK)
+          dp[4 * j + i] = p * (dp[4 * j + i] - dl_s[c]) * scale;
       }
     // dV += P^T dO and dK += dS^T Q: P^T and dS^T (bf16) from registers,
     // dO and Q transposed from shared memory
     uint32_t pa[4][4], da[4][4];
-    to_operand_a<4>(s, pa);
-    to_operand_a<4>(dp, da);
-    reg_fence(dv_acc);
-    reg_fence(dk_acc);
+    if constexpr (kDV) to_operand_a<4>(s, pa);
+    if constexpr (kDK) to_operand_a<4>(dp, da);
+    if constexpr (kDV) reg_fence(dv_acc);
+    if constexpr (kDK) reg_fence(dk_acc);
     wgmma_fence();
+    if constexpr (kDV) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      mma_rs<D>(dv_acc, pa[kk], desc_mnmajor<kTile>(do_st, kk));
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs<D>(dv_acc, pa[kk], desc_mnmajor<kTile>(do_st, kk));
+    }
+    if constexpr (kDK) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      mma_rs<D>(dk_acc, da[kk], desc_mnmajor<kTile>(q_st, kk));
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs<D>(dk_acc, da[kk], desc_mnmajor<kTile>(q_st, kk));
+    }
     wgmma_commit();
     wgmma_wait<0>();
-    reg_fence(dv_acc);
-    reg_fence(dk_acc);
+    if constexpr (kDV) reg_fence(dv_acc);
+    if constexpr (kDK) reg_fence(dk_acc);
   }
 
 #pragma unroll
@@ -532,12 +548,46 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int i = 4 * j + 2 * hr;
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j + c0) =
-          __floats2bfloat162_rn(dk_acc[i], dk_acc[i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j + c0) =
-          __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+      if constexpr (kDK)
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j + c0) =
+            __floats2bfloat162_rn(dk_acc[i], dk_acc[i + 1]);
+      if constexpr (kDV)
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j + c0) =
+            __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
     }
   }
+}
+
+template <int D, bool kAlibi>
+__global__ void __launch_bounds__(hopper::kWarpgroup, 2)
+    flash_bwd_dkv_wgmma_kernel(
+        const __nv_bfloat16* __restrict__ q,
+        const __nv_bfloat16* __restrict__ k,
+        const __nv_bfloat16* __restrict__ v,
+        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+        const float* __restrict__ delta, const int* __restrict__ kv_lens,
+        const float* __restrict__ slopes, __nv_bfloat16* __restrict__ dk,
+        __nv_bfloat16* __restrict__ dv, int S, int Sk, int H, int Hkv,
+        float scale, int causal, int window) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+#define PTT_ARGS                                                          \
+  q, k, v, dout, lse, delta, kv_lens, slopes, dk, dv, S, Sk, H, Hkv, scale, \
+      causal, window
+  if constexpr (D == 256) {
+    // two blocks a k tile, z = 2 * tile + part: the even one dV, the odd
+    // one dK (blockIdx is uniform, so the branch does not split a
+    // warpgroup's wgmma)
+    const int k0 = (blockIdx.z >> 1) * kTile;
+    if (blockIdx.z & 1)
+      dkv_wgmma_block<D, kAlibi, kDkvOnlyDK>(PTT_ARGS, k0, base);
+    else
+      dkv_wgmma_block<D, kAlibi, kDkvOnlyDV>(PTT_ARGS, k0, base);
+  } else {
+    dkv_wgmma_block<D, kAlibi, kDkvBoth>(PTT_ARGS, blockIdx.z * kTile, base);
+  }
+#undef PTT_ARGS
 }
 
 template <int D, bool kAlibi>
@@ -551,7 +601,8 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
       flash_bwd_dkv_wgmma_kernel<D, kAlibi>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(Hkv, B, (Sk + kTile - 1) / kTile);
+  // D = 256: a dV block and a dK block for each k tile
+  dim3 grid(Hkv, B, (D == 256 ? 2 : 1) * ((Sk + kTile - 1) / kTile));
   flash_bwd_dkv_wgmma_kernel<D, kAlibi>
       <<<grid, hopper::kWarpgroup, smem, (cudaStream_t)stream>>>(
           static_cast<const __nv_bfloat16*>(q),
@@ -745,7 +796,7 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (the tensor-core routes of both entry
-// points: 16-byte-aligned pointers); head_dim: 64 or 128. kv_lens may be
+// points: 16-byte-aligned pointers); head_dim: 64, 128 or 256. kv_lens may be
 // null (no padding); slopes null (no ALiBi) or fp32 [B * H], as K2 got
 // them; window <= 0 means no sliding window. H % Hkv == 0.
 extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q,
@@ -764,10 +815,14 @@ extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q,
       return launch_dq<64, float, kA> PTT_ARGS;
     if (dtype == kF32 && head_dim == 128)
       return launch_dq<128, float, kA> PTT_ARGS;
+    if (dtype == kF32 && head_dim == 256)
+      return launch_dq<256, float, kA> PTT_ARGS;
     if (dtype == kBF16 && head_dim == 64)
       return launch_dq_wgmma<64, kA> PTT_ARGS;
     if (dtype == kBF16 && head_dim == 128)
       return launch_dq_wgmma<128, kA> PTT_ARGS;
+    if (dtype == kBF16 && head_dim == 256)
+      return launch_dq_wgmma<256, kA> PTT_ARGS;
     return static_cast<int>(cudaErrorInvalidValue);
   });
 #undef PTT_ARGS
@@ -790,10 +845,14 @@ extern "C" int flash_bwd_dkv(int dtype, int head_dim, const void* q,
       return launch_dkv<64, float, kA> PTT_ARGS;
     if (dtype == kF32 && head_dim == 128)
       return launch_dkv<128, float, kA> PTT_ARGS;
+    if (dtype == kF32 && head_dim == 256)
+      return launch_dkv<256, float, kA> PTT_ARGS;
     if (dtype == kBF16 && head_dim == 64)
       return launch_dkv_wgmma<64, kA> PTT_ARGS;
     if (dtype == kBF16 && head_dim == 128)
       return launch_dkv_wgmma<128, kA> PTT_ARGS;
+    if (dtype == kBF16 && head_dim == 256)
+      return launch_dkv_wgmma<256, kA> PTT_ARGS;
     return static_cast<int>(cudaErrorInvalidValue);
   });
 #undef PTT_ARGS

@@ -22,6 +22,11 @@
 //     shared memory (hopper_mma.cuh).
 //   fp32 — flash_fwd_kernel, fp32 FMAs on the CUDA cores (attn_tile.cuh):
 //     exact to the card tests' 1e-4, which TF32 tensor cores are not.
+// Head dims 64, 128 and 256 (Gemma, GPT-J). At 256 the tensor-core route
+// keeps its design: the O accumulator takes D / 2 = 128 fp32 registers a
+// thread (P V issued as two m64n128k16 halves, hopper_mma.cuh mma_rs), and
+// the q tile plus two K/V stages take 164 864 bytes of shared memory, so
+// one block runs on an SM; the FMA route's tiles take 131 200 bytes.
 //
 // ALiBi (the reference's _alibi_add, called from _fwd_kernel): with a
 // slopes pointer ([B * H] fp32, by query head) both routes run a second
@@ -361,8 +366,8 @@ int launch_wgmma(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32 (FMA route), 1 = bfloat16 (tensor-core route);
-// head_dim: 64 or 128. kv_lens may be null (no padding); slopes null (no
-// ALiBi) or fp32 [B * H]; window <= 0 means no sliding window. bf16
+// head_dim: 64, 128 or 256. kv_lens may be null (no padding); slopes null
+// (no ALiBi) or fp32 [B * H]; window <= 0 means no sliding window. bf16
 // pointers must be 16-byte aligned.
 extern "C" int flash_fwd(int dtype, int head_dim, const void* q,
                          const void* k, const void* v, const void* kv_lens,
@@ -379,8 +384,12 @@ extern "C" int flash_fwd(int dtype, int head_dim, const void* q,
     if (dtype == kF32 && head_dim == 128)
       return launch<128, float, kA> PTT_ARGS;
     if (dtype == kBF16 && head_dim == 64) return launch_wgmma<64, kA> PTT_ARGS;
+    if (dtype == kF32 && head_dim == 256)
+      return launch<256, float, kA> PTT_ARGS;
     if (dtype == kBF16 && head_dim == 128)
       return launch_wgmma<128, kA> PTT_ARGS;
+    if (dtype == kBF16 && head_dim == 256)
+      return launch_wgmma<256, kA> PTT_ARGS;
     return static_cast<int>(cudaErrorInvalidValue);
   });
 #undef PTT_ARGS

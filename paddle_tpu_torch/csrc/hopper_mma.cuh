@@ -7,15 +7,17 @@
 // TA = 1, MN-major; B K-major or, TB = 1, MN-major: K6a's forward A
 // K-major B MN-major, its dlhs both K-major, K6b both MN-major), RS
 // m64n64k16 and m64n128k16 (B MN-major; K2, K3, K5; m64n64k16 also B
-// K-major, K3's S = Q K^T); and for an epilogue staged in shared memory
-// (K6b), stmatrix, 16-byte shared loads and named barriers; for K6a's
-// decode route, mbarriers and tensor-map copies.
+// K-major, K3's S = Q K^T), and at D = 256 (K2, K5) two m64n128k16 RS
+// products over the two 128-column halves of the B tile; and for an
+// epilogue staged in shared memory (K6b), stmatrix, 16-byte shared loads
+// and named barriers; for K6a's decode route, mbarriers and tensor-map
+// copies.
 //
-// Tile layout. A [rows][D] bf16 tile (D = 64 or 128) is stored as D / 64
-// panels of [rows][64]: one 128-byte line per row, the 16-byte chunk c of
-// row r at chunk position c ^ (r % 8) of its line, panels rows * 128
-// bytes apart, every panel 1024-byte aligned. That is the canonical
-// 128-byte-swizzle layout of wgmma for both operand majors:
+// Tile layout. A [rows][D] bf16 tile (D = 64, 128 or 256) is stored as
+// D / 64 panels of [rows][64]: one 128-byte line per row, the 16-byte
+// chunk c of row r at chunk position c ^ (r % 8) of its line, panels
+// rows * 128 bytes apart, every panel 1024-byte aligned. That is the
+// canonical 128-byte-swizzle layout of wgmma for both operand majors:
 //   K-major (the reduction runs along a row, e.g. Q and K in S = Q K^T):
 //     8-row groups 1024 bytes apart (SBO), a 16-wide k step 32 bytes
 //     further in the line, the next 64 columns one panel further;
@@ -450,21 +452,28 @@ __device__ __forceinline__ void mma_rs_n128(float (&d)[64],
 }
 
 // d += A B over the D / 64 panels' width: d[64 x D], A in registers, B a
-// swizzled MN-major tile
-template <int D>
+// swizzled MN-major tile of ROWS rows. D = 256 is issued as two
+// m64n128k16 products, one for each 128-column half of B (panels 0-1 and
+// 2-3: the second half starts 2 * ROWS * 128 bytes further, which is
+// (2 * ROWS * 128) >> 4 in the descriptor's address field); columns 0-127
+// of the accumulator are d[0..63] and 128-255 are d[64..127], exactly the
+// two halves' fragments. That route was taken over one m64n256k16 RS
+// product (an asm statement of 128 accumulator operands): the same
+// tensor-core work, from the n128 product the D = 128 kernels already run.
+template <int D, int ROWS = 64>
 __device__ __forceinline__ void mma_rs(float (&d)[D / 2],
-                                       const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void mma_rs<64>(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db) {
-  mma_rs_n64(d, a, db);
-}
-template <>
-__device__ __forceinline__ void mma_rs<128>(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  mma_rs_n128(d, a, db);
+                                       const uint32_t (&a)[4], uint64_t db) {
+  static_assert(D == 64 || D == 128 || D == 256, "RS widths: 64, 128, 256");
+  if constexpr (D == 64) {
+    mma_rs_n64(d, a, db);
+  } else if constexpr (D == 128) {
+    mma_rs_n128(d, a, db);
+  } else {
+    float(&lo)[64] = *reinterpret_cast<float(*)[64]>(&d[0]);
+    float(&hi)[64] = *reinterpret_cast<float(*)[64]>(&d[64]);
+    mma_rs_n128(lo, a, db);
+    mma_rs_n128(hi, a, db + ((2 * ROWS * 128) >> 4));
+  }
 }
 
 }  // namespace hopper

@@ -3,6 +3,11 @@ from paddle_tpu_torch.models.bloom import (BloomConfig,  # noqa: F401
 from paddle_tpu_torch.models.decoding import generic_generate  # noqa: F401
 from paddle_tpu_torch.models.falcon import (FalconConfig,  # noqa: F401
                                             FalconForCausalLM)
+from paddle_tpu_torch.models.gemma import (GemmaConfig,  # noqa: F401
+                                           GemmaForCausalLM)
+from paddle_tpu_torch.models.gptj import (CodeGenConfig,  # noqa: F401
+                                          CodeGenForCausalLM, GPTJConfig,
+                                          GPTJForCausalLM)
 from paddle_tpu_torch.models.llama import (LlamaConfig,  # noqa: F401
                                            LlamaForCausalLM)
 from paddle_tpu_torch.models.mistral import (MistralConfig,  # noqa: F401

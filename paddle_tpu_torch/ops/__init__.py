@@ -8,8 +8,9 @@ at every width (or the kernel raises), a CPU tensor to its plain version.
 from __future__ import annotations
 
 from paddle_tpu_torch.ops.attention import (  # noqa: F401
-    apply_rope, eager_attention, fused_rotary_position_embedding,
-    rope_cos_sin, scaled_dot_product_attention)
+    apply_rope, apply_rope_interleaved, eager_attention,
+    fused_rotary_position_embedding, rope_cos_sin,
+    scaled_dot_product_attention)
 from paddle_tpu_torch.ops.cuda import norms as _norms
 
 

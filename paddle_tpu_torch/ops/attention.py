@@ -9,9 +9,11 @@ the calls the reference's kernel refuses (a dense ``attn_mask``,
 dropout, windowed decode against a padded cache) to
 :func:`eager_attention`, the port of the reference's ``xla_attention``,
 which autograd differentiates as it stands. ALiBi goes to the flash
-kernel too (K2 and K5 add the bias in the tile). Rotary
+kernel too (K2 and K5 add the bias in the tile). Rotate-half rotary
 embedding (:func:`apply_rope`, :func:`fused_rotary_position_embedding`)
-goes through K7, ``ops.cuda.rope.fused_rope``.
+goes through K7, ``ops.cuda.rope.fused_rope``; GPT-J's interleaved rotary
+(:func:`apply_rope_interleaved`) is plain PyTorch, as the reference's is
+plain ``jnp`` with no Pallas kernel behind it.
 """
 from __future__ import annotations
 
@@ -229,6 +231,19 @@ def apply_rope(x, cos, sin):
         raise ValueError(f"apply_rope: tables {tuple(cos.shape)} for x "
                          f"{tuple(x.shape)}")
     return _rope.fused_rope(x, cos, sin)
+
+
+def apply_rope_interleaved(x, cos, sin):
+    """GPT-J-style interleaved rotary: the pairs are the (even, odd) lanes
+    ``(x[2i], x[2i+1])``, not the two halves. x: [B,S,H,D(rot)]; cos/sin:
+    [S, D/2]. Plain PyTorch (the reference's is plain ``jnp``; K7 rotates
+    halves): the products in the tables' dtype (fp32 tables promote a bf16
+    x), one cast back to x's dtype."""
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    cos = cos[None, :, None, :]
+    sin = sin[None, :, None, :]
+    out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
 
 
 def fused_rotary_position_embedding(q, k, seq_len=None, base=10000.0,

@@ -51,6 +51,14 @@ BEAM_SERVE_I8_KERNELS = QUANT_SERVE_KERNELS
 # mix's prompts fit max_prompt_len and share no prefix)
 GRAMMAR_SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_decode", "rope",
                          "rope_kv")
+# head dim 256 (Gemma, GPT-J): Gemma's train step runs K2, K5a, K5b and K7
+# (its zero-centred RMSNorm is plain PyTorch, as the reference's), its
+# generate path K2 and K7; GPT-J's interleaved rope is plain PyTorch (the
+# reference's has no kernel), so its paths run the flash kernels alone
+GEMMA_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rope")
+GEMMA_SERVE_KERNELS = ROPE_GENERATE_KERNELS
+GPTJ_SERVE_KERNELS = ("flash_fwd",)
+GPTJ_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def kernels() -> dict:

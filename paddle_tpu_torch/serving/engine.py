@@ -165,15 +165,18 @@ def _not_ported(what: str):
 def card_shape_error(cfg, max_rank=None):
     """Why the card's kernels cannot serve a model of config ``cfg`` (with
     an adapter store of rank ``max_rank``), or None when they can: the
-    flash and paged kernels (K2-K5) take head dims 64 and 128 only, the
-    paged decode kernel (K4) GQA groups up to ``MAX_GROUP``, and the LoRA
-    expand kernel ranks up to ``LORA_MAX_RANK``. The CPU's plain paths
-    serve every shape."""
+    engine runs the flash kernels (K2, K5; ``_flash.HEAD_DIMS``: 64, 128,
+    256) and the paged kernels (K3, K4; ``_paged.HEAD_DIMS``: 64, 128), so
+    a head dim must be in both; the paged decode kernel (K4) takes GQA
+    groups up to ``MAX_GROUP``, and the LoRA expand kernel ranks up to
+    ``LORA_MAX_RANK``. The CPU's plain paths serve every shape."""
     nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
     d = cfg.hidden_size // nh
     if d not in _flash.HEAD_DIMS or d not in _paged.HEAD_DIMS:
         return (f"head dim {d} (hidden {cfg.hidden_size} over {nh} heads): "
-                f"the attention kernels take head dims {_flash.HEAD_DIMS}")
+                f"the flash kernels (K2, K5) take head dims "
+                f"{_flash.HEAD_DIMS} and the paged kernels (K3, K4) "
+                f"{_paged.HEAD_DIMS}")
     if nh // nkv > _paged.MAX_GROUP:
         return (f"GQA group {nh // nkv} ({nh} query heads over {nkv} KV "
                 f"heads): the paged decode kernel takes groups "

@@ -288,16 +288,18 @@ EDGE_CASES = {
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("case", EDGE_CASES.keys())
 def test_flash_kernels_match_plain_at_tile_edges(dtype, tol, d, case):
     """K2 (O and LSE) and K5a/K5b (dq, dk, dv) against their plain
     versions on their route (bf16: tensor cores, fp32: FMAs) at S and Sk
     off the 64-row tiles, one and five query rows end-aligned to 70 keys
     with kv_lens, a row with no live key (O and LSE exactly 0), a window
-    smaller than one key tile, GQA 32/8 and 8/1. Rows without a live key,
-    and padded rows, get a zero cotangent, as callers give them. Neither
-    kernel uses atomics: two runs give identical bits."""
+    smaller than one key tile, GQA 32/8 and 8/1, at head dims 64, 128
+    and 256 (K5b's tensor-core route: a dV block and a dK block a k
+    tile). Rows without a live key, and padded rows, get a zero
+    cotangent, as callers give them. Neither kernel uses atomics: two
+    runs give identical bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the chip)")
     dev = torch.device("cuda")
@@ -406,6 +408,18 @@ def test_flash_alibi_kernels_match_plain_at_tile_edges(dtype, tol, d,
         counts["flash_bwd_dkv"] == 0, counts
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+def test_flash_alibi_kernels_at_head_dim_256_match_plain(dtype, tol):
+    """The ALiBi instantiation of K2, K5a and K5b at head dim 256, once a
+    route: the tile-edge test above at GQA 32/8, S off the tiles, [B, H]
+    slopes."""
+    test_flash_alibi_kernels_match_plain_at_tile_edges(
+        dtype, tol, 256, True, "ragged_gqa32_8")
+
+
 # K5a's tensor-core route at its edges: b, S, Sk, causal, window, kv_lens
 DQ_CASES = {
     "ragged_s": (2, 77, 77, True, None, None),
@@ -416,7 +430,7 @@ DQ_CASES = {
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
 @pytest.mark.parametrize("case", DQ_CASES.keys())
 def test_flash_dq_tensor_core_route_matches_plain(d, group, case):
@@ -974,6 +988,88 @@ def test_bloom_falcon_on_card_match_cpu_and_launch_their_kernels(family):
         assert all(counts[k] > 0 for k in K.ALIBI_TRAIN_KERNELS), counts
 
 
+# name -> (model module, config and model classes, config kw at head dim
+# 256, 2 layers, fp32): Gemma at GQA 8:1 with remat, GPT-J's interleaved
+# rope on 64 of 256 lanes
+HD256_FAMILIES = {
+    "gemma": ("gemma", "GemmaConfig", "GemmaForCausalLM",
+              dict(hidden_size=256, intermediate_size=512,
+                   num_attention_heads=8, num_key_value_heads=1,
+                   head_dim=256, vocab_size=512, remat=True)),
+    "gptj": ("gptj", "GPTJConfig", "GPTJForCausalLM",
+             dict(n_embd=512, n_head=2, rotary_dim=64, vocab_size=512)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", HD256_FAMILIES)
+def test_gemma_gptj_on_card_match_cpu_and_launch_their_kernels(
+        family, monkeypatch):
+    """A 2-layer model at head dim 256 in float32 on the card (K2, K5a, K5b
+    on the FMA route at 256; Gemma's rope on K7) and on the CPU (plain
+    versions): the prompt logits within 5e-4 * (1 + |x|) (at std 0.2 the
+    attention is peaky: the CPU's own fp32 logits are 1.5e-4 (GPT-J) and
+    7.8e-5 (Gemma) from a float64 run, so two fp32 runs may differ by
+    twice that), the same greedy
+    tokens through generic_generate and the same losses over two
+    make_train_step steps to fp32 rounding. The card launches the flash
+    kernels (Gemma's remat: two forwards a layer and step) and never
+    ``eager_attention``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import importlib
+
+    import numpy as np
+
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.decoding import generic_generate
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.train import init_state, make_train_step
+
+    def no_eager(*a, **kw):
+        raise AssertionError("eager_attention ran on the head dim 256 path")
+    monkeypatch.setattr(A, "eager_attention", no_eager)
+    mod, cfg_name, cls_name, kw = HD256_FAMILIES[family]
+    m = importlib.import_module(f"paddle_tpu_torch.models.{mod}")
+    cfg = getattr(m, cfg_name).tiny(initializer_range=0.2, **kw)
+    cpu = getattr(m, cls_name)(cfg, device="cpu")
+    card = getattr(m, cls_name)(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    prompts = np.random.RandomState(0).randint(0, 512, (3, 40))
+    with torch.no_grad():
+        want = cpu(torch.as_tensor(prompts))
+        got = card(torch.as_tensor(prompts, device="cuda")).cpu()
+    assert float(((got - want).abs() / (1 + want.abs())).max()) <= 5e-4
+    K.reset_launches()
+    streams = [generic_generate(model, prompts, max_new_tokens=6).cpu()
+               for model in (cpu, card)]
+    assert torch.equal(*streams)
+    counts = K.launches()
+    assert counts["flash_fwd"] == 6 * 2 and counts["flash_fwd_alibi"] == 0
+    ids = prompts[:2]
+    labels = np.concatenate([ids[:, 1:], np.full((2, 1), -100)], axis=1)
+    losses = []
+    for model in (cpu, card):
+        K.reset_launches()
+        opt = O.AdamW(learning_rate=1e-3, weight_decay=0.1,
+                      grad_clip=O.ClipGradByGlobalNorm(1.0))
+        state = init_state(model, opt)
+        step = make_train_step(lambda mm, i, lab: mm.loss(i, lab), opt)
+        dev = next(model.parameters()).device
+        run = []
+        for _ in range(2):
+            state, loss = step(state, torch.as_tensor(ids, device=dev),
+                               torch.as_tensor(labels, device=dev))
+            run.append(float(loss))
+        losses.append(run)
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+    counts = K.launches()
+    fwd = 2 * 2 * (2 if cfg.remat else 1)      # steps x layers x forwards
+    assert counts["flash_fwd"] == fwd, counts
+    assert counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 4, counts
+
+
 # ----------------------------------------- K3 and K4 at every group
 # pool modes: (q dtype, int8 pool?, tolerance)
 PAGED_MODES = {"f32": (torch.float32, False, 1e-4),
@@ -1328,9 +1424,12 @@ def test_graph_capture_failure_raises(monkeypatch):
     (dict(hidden_size=64, num_attention_heads=4, num_key_value_heads=4),
      "head dim 16"),
     (dict(hidden_size=2048, num_attention_heads=16, num_key_value_heads=1),
-     "GQA group 16")], ids=["d16", "group16"])
+     "GQA group 16"),
+    (dict(hidden_size=512, num_attention_heads=2, num_key_value_heads=2),
+     "head dim 256")], ids=["d16", "group16", "d256"])
 def test_engine_refuses_kernel_refused_shapes_before_any_step(kw, what):
-    """``LLMEngine`` on the card refuses a head dim outside 64/128 or a GQA
+    """``LLMEngine`` on the card refuses a head dim outside 64/128 (256
+    too: the flash kernels take it, the paged ones do not) or a GQA
     group above 8 in its constructor, naming the shape and the ROADMAP
     queue, before any pool, slot or block exists; the CPU engine serves
     the same model."""

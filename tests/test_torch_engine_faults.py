@@ -269,18 +269,27 @@ def test_fault_sites_are_registered_and_the_engine_fires_them(pair):
      None),
     (dict(hidden_size=1024, num_attention_heads=16, num_key_value_heads=2),
      None),
-], ids=["d16", "group16", "d80", "d128_group8", "d64_group8"])
+    (dict(hidden_size=4096, num_attention_heads=16, num_key_value_heads=16),
+     "head dim 256"),
+], ids=["d16", "group16", "d80", "d128_group8", "d64_group8", "d256"])
 def test_card_shape_error_names_the_refused_shape(kw, what):
     """The constructor's refusal on the card, as the pure function it
     calls: head dims outside 64/128 and GQA groups above 8 are named;
-    the shapes the kernels take pass. On the CPU the engine still serves
-    the refused shapes through the plain paths."""
+    the shapes the kernels take pass. Head dim 256 is refused too: the
+    flash kernels (K2, K5) take it, the paged kernels (K3, K4) that the
+    engine's decode runs do not, and the message names both families'
+    head dims. On the CPU the engine still serves the refused shapes
+    through the plain paths."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as _flash
+    from paddle_tpu_torch.ops.cuda import paged_attention as _paged
     cfg = LlamaConfig.tiny(**kw)
     err = card_shape_error(cfg)
     if what is None:
         assert err is None
     else:
         assert err is not None and err.startswith(what)
+    if what is not None and what.startswith("head dim"):
+        assert str(_flash.HEAD_DIMS) in err and str(_paged.HEAD_DIMS) in err
     if what == "head dim 16":
         from paddle_tpu_torch.models.llama import LlamaForCausalLM
         eng = LLMEngine(LlamaForCausalLM(cfg, device="cpu"), num_slots=1,

@@ -134,13 +134,22 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
         "spec_serve": K.SPEC_SERVE_KERNELS,
         "beam_serve": K.BEAM_SERVE_KERNELS,
         "beam_serve_i8": K.BEAM_SERVE_I8_KERNELS,
-        "grammar_serve": K.GRAMMAR_SERVE_KERNELS}
-    # K7 rotates every rope of every path; the ALiBi paths (BLOOM,
-    # falcon-rw) have no rope and run K2's (and K5's) ALiBi mode instead
+        "grammar_serve": K.GRAMMAR_SERVE_KERNELS,
+        "gemma_train": K.GEMMA_TRAIN_KERNELS,
+        "gemma7b_serve": K.GEMMA_SERVE_KERNELS,
+        "gptj_serve": K.GPTJ_SERVE_KERNELS,
+        "gptj_train": K.GPTJ_TRAIN_KERNELS}
+    # K7 rotates every rotate-half rope of every path; the ALiBi paths
+    # (BLOOM, falcon-rw) have no rope and run K2's (and K5's) ALiBi mode
+    # instead, and GPT-J's interleaved rope is plain PyTorch, as the
+    # reference's (no Pallas kernel behind it)
     alibi = {p for p in chip_smoke.PATHS if p.startswith(("bloom",
                                                           "falcon_rw"))}
+    gptj = {p for p in chip_smoke.PATHS if p.startswith("gptj")}
     assert all("rope" in names for p, names in chip_smoke.PATHS.items()
-               if p not in alibi)
+               if p not in alibi | gptj)
+    assert all("rope" not in chip_smoke.PATHS[p]
+               and "flash_fwd" in chip_smoke.PATHS[p] for p in gptj)
     assert all("flash_fwd_alibi" in chip_smoke.PATHS[p]
                and "rope" not in chip_smoke.PATHS[p] for p in alibi)
     assert "rope" in chip_smoke.SOURCES

@@ -266,6 +266,44 @@ def test_flash_dq_bf16_matches_pallas(hkv, causal, window, lens, s, sk):
         assert dead.any() and not to_np(qt.grad)[dead].any()
 
 
+# head dim 256 (Gemma, GPT-J), causal: h, hkv, S, Pallas block size
+HD256_CASES = {"gqa8_1": (8, 1, 48, 16), "mha": (2, 2, 32, 8)}
+
+
+@pytest.mark.parametrize("h,hkv,s,blk", HD256_CASES.values(),
+                         ids=HD256_CASES.keys())
+def test_flash_head_dim_256_matches_pallas(h, hkv, s, blk):
+    """At head dim 256, GQA 8:1 (Gemma-2B's group) and 1:1 (GPT-J), the
+    port's flash_attention on CPU tensors (the plain forward, and the plain
+    backward from the saved O and LSE) against the Pallas flash_attention
+    in interpret mode (forward, and jax.grad through _dq_kernel /
+    _dkv_kernel) with blocks of 8-16 rows, in fp32; the LSE against
+    logsumexp of the masked scores."""
+    rs = np.random.RandomState(16)
+    b, d = 1, 256
+    q, g = (rs.randn(b, s, h, d).astype(np.float32) for _ in range(2))
+    k, v = (rs.randn(b, s, hkv, d).astype(np.float32) for _ in range(2))
+    kw = dict(causal=True, block_q=blk, block_k=blk, interpret=True)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want = JF.flash_attention(jq, jk, jv, **kw)
+    grads = jax.grad(lambda q, k, v: jnp.sum(JF.flash_attention(
+        q, k, v, **kw) * jnp.asarray(g)), argnums=(0, 1, 2))(jq, jk, jv)
+    qt, kt, vt = (_t(a).requires_grad_() for a in (q, k, v))
+    out = TF.flash_attention(qt, kt, vt, causal=True)
+    np.testing.assert_allclose(to_np(out), to_np(want), **TOL)
+    (out * _t(g)).sum().backward()
+    for got, ref in zip((qt.grad, kt.grad, vt.grad), grads):
+        np.testing.assert_allclose(to_np(got), to_np(ref), rtol=1e-4,
+                                   atol=1e-5)
+    _, lse = TF.flash_attention_fwd_plain(_t(q), _t(k), _t(v), causal=True)
+    kr = np.repeat(k, h // hkv, axis=2)
+    sc = np.einsum("bqhd,bkhd->bhqk", q, kr) / 16.0
+    sc = np.where(np.tril(np.ones((s, s), bool)), sc, -np.inf)
+    ref = np.log(np.exp(sc - sc.max(-1, keepdims=True)).sum(-1)) \
+        + sc.max(-1)
+    np.testing.assert_allclose(to_np(lse), ref, rtol=1e-5, atol=1e-5)
+
+
 # ------------------------------------------------------------ paged pools
 N, BS, MB = 12, 4, 6
 
@@ -317,10 +355,11 @@ def test_paged_decode_matches_pallas(h, hkv, window):
     np.testing.assert_allclose(to_np(got), to_np(want), **TOL)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_kernel_route_by_dtype_and_head_dim(d):
     """K2, K5a and K5b run bf16 on the tensor cores and float32 on fp32
-    FMAs; another head dim or dtype has no kernel and raises."""
+    FMAs at head dims 64, 128 and 256; another head dim (96) or dtype has
+    no kernel and raises."""
     assert TF.ROUTED == ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     assert TF.kernel_route(torch.bfloat16, d) == "wgmma"
     assert TF.kernel_route(torch.float32, d) == "fma"
