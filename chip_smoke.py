@@ -162,6 +162,37 @@ Phases (each one fails the run when it fails; nothing is caught):
             pattern (``re.fullmatch``); every free greedy stream equals
             its stream from a run with no grammar row; the biased graph's
             replay equals the eager biased tick (``graph_against_eager``)
+  tenant_serve  the serve phase's model and engine settings with
+            tenants, the degradation ladder and the SLO tracker: (a) the
+            mix with no tenants, a controller held at L0 and a tracker
+            gives the serve phase's greedy rows token for token, also
+            under PT_DEGRADE=0 and PT_SLO=0; (b) the mix split into
+            tenants A (weight 2: requests 0-5), B (weight 1: 6-9) and C
+            (best effort, a token bucket of 200 tokens/s and a burst of
+            50: the sampled 10-11; C must be throttled) under the default
+            signals: the admission order, per-tenant admissions,
+            finishes, throttles and sheds, the rungs the ladder visited
+            and the signal behind each move, tokens/s beside the serve
+            phase's, the host ms a step of the ladder's poll, the
+            tracker's poll and its tick charge, and the decode replays'
+            share of the wall; (c) forced rungs: L1 launches no K3
+            verify with the self-draft (L0 does), L2 chunks a 300- and a
+            384-token prompt in at most max_prompt_len // 4 tokens, L3
+            keeps best-effort C queued while A and B finish, L4 rejects
+            with OverloadError, back at L0 everything drains quiescent;
+            (d) the cost ledger's device seconds equal pass (b)'s
+            serving_tick_seconds within 1e-6 s and its good tokens by
+            tenant sum to the tokens emitted
+  endpoint_check  the metrics server on a free port and a shipper into a
+            temporary file; a client thread scrapes every route every 50
+            ms from before the engines are built (their graph captures
+            run under it) while pass (a) serves again: the greedy rows
+            must equal pass (a)'s, every route answer 200 (``/healthz``
+            200 or 503, with its JSON); then 8 rows in steady decode under
+            one ``/profile?seconds=1`` (``torch.profiler``), whose trace
+            must name the decode kernels (``paged_decode``,
+            ``rope_kv``): its wall and bytes; the shipper's lines carry
+            deltas and the ``device_bytes_*`` gauges of the card
   spec_check  (a) at 4 layers, float32: greedy speculative streams with
             both drafts (TinyLlama's widths cut to 4 layers too) equal the
             non-speculative engine's token for token; (b) at 7B bf16 one
@@ -331,7 +362,7 @@ under the same measurement in one call: parent, change, change, parent.
 The line before the last is a JSON object with one entry per kernel and
 path (``"path": "serve"``, ``"async_serve"``, ``"lora_serve"``,
 ``"spec_serve"``, ``"beam_serve"``, ``"beam_serve_i8"``,
-``"grammar_serve"``, ``"train"``, ``"moe_serve"``,
+``"grammar_serve"``, ``"tenant_serve"``, ``"train"``, ``"moe_serve"``,
 ``"moe_train"``,
 ``"window_serve"``, ``"quant_serve"``, ``"bloom_serve"``, ``"bloom_train"``,
 ``"falcon_rw_serve"``, ``"falcon_rw_train"``, ``"falcon7b_serve"``,
@@ -414,7 +445,8 @@ SOURCES = {
 # MOE_TRAIN_KERNELS / WINDOW_SERVE_KERNELS / QUANT_SERVE_KERNELS /
 # ALIBI_SERVE_KERNELS / ALIBI_TRAIN_KERNELS / ROPE_GENERATE_KERNELS /
 # LORA_SERVE_KERNELS / SPEC_SERVE_KERNELS / BEAM_SERVE_KERNELS /
-# BEAM_SERVE_I8_KERNELS / GRAMMAR_SERVE_KERNELS / GEMMA_TRAIN_KERNELS /
+# BEAM_SERVE_I8_KERNELS / GRAMMAR_SERVE_KERNELS / TENANT_SERVE_KERNELS /
+# GEMMA_TRAIN_KERNELS /
 # GEMMA_SERVE_KERNELS / GPTJ_SERVE_KERNELS / GPTJ_TRAIN_KERNELS, spelled
 # out here so that
 # --root can load an earlier tree that lacks them (a kernel that such a
@@ -433,6 +465,8 @@ PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
                          "paged_decode_i8", "rope"),
          "async_serve": ("rms_norm", "flash_fwd", "paged_chunk",
                          "paged_decode", "rope", "rope_kv"),
+         "tenant_serve": ("rms_norm", "flash_fwd", "paged_chunk",
+                          "paged_decode", "rope", "rope_kv"),
          "bloom_serve": ("flash_fwd_alibi",),
          "bloom_train": ("flash_fwd_alibi", "flash_bwd_dq_alibi",
                          "flash_bwd_dkv_alibi"),
@@ -946,6 +980,7 @@ def phase_kernels(torch, dev):
     # the serve geometry (8 slots, prompts of at most 128 tokens): the same
     # shapes
     results["async_serve"] = results["serve"]
+    results["tenant_serve"] = results["serve"]
     results["beam_serve"] = results["serve"]
     results["grammar_serve"] = {k: v for k, v in results["serve"].items()
                                 if k != "paged_chunk"}
@@ -3037,7 +3072,7 @@ def _drains_now():
 def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None,
                 async_depth=0, label=None, engine_kw=None, adapter_ids=None,
                 warm_adapter=None, late=None, mix=None, on_step=None,
-                need_hits=True, roofline=False):
+                need_hits=True, roofline=False, make_kw=None, setup=None):
     """Serve the 12-request mix with ``model`` through ``LLMEngine`` (an
     int8 KV pool with ``kv_dtype="int8"``, async pipelined decode with
     ``async_depth``, further engine arguments in ``engine_kw``: an adapter
@@ -3051,8 +3086,12 @@ def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None,
     ``on_step``: called with the engine after every step; ``need_hits``:
     the mix must hit the radix prefix cache; ``roofline``: print the
     engine's roofline report and fail on a decode MBU of 0 or any MBU or
-    MFU above 1.05. ``label`` names the run in the log (default
-    ``path``). Returns (launch counts, the requests, {metric: value})."""
+    MFU above 1.05. ``make_kw``: called for each engine (the warm-up's
+    and the measured one), returns further engine arguments of its own (a
+    degradation controller, an SLO tracker); ``setup``: called with the
+    measured engine before its requests are added. ``label`` names the
+    run in the log (default ``path``). Returns (launch counts, the
+    requests, {metric: value})."""
     from paddle_tpu_torch.ops import cuda as K
     from paddle_tpu_torch.serving import LLMEngine, Request
     from paddle_tpu_torch.serving.kv import cache_block_bytes
@@ -3067,16 +3106,18 @@ def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None,
         kw["async_depth"] = async_depth
     # warm-up (library handles, allocator, kernel loads) on a throwaway
     # engine: one whole-prompt and one chunked request
-    warm = LLMEngine(model, **kw)
+    warm = LLMEngine(model, **kw, **(make_kw() if make_kw else {}))
     rs = np.random.RandomState(1)
     for n in (40, 200):
         warm.add_request(Request(rs.randint(3, vocab, size=n),
                                  max_new_tokens=4, adapter_id=warm_adapter))
     warm.run()
     del warm
-    eng = LLMEngine(model, **kw)
+    eng = LLMEngine(model, **kw, **(make_kw() if make_kw else {}))
     if hasattr(eng.exe, "tick_log"):
         eng.exe.tick_log = []
+    if setup is not None:
+        setup(eng)
     reqs = (serve_requests(np.random.RandomState(0), vocab) if mix is None
             else list(mix))
     for r, aid in zip(reqs, adapter_ids or ()):
@@ -3127,7 +3168,7 @@ def phase_serve(torch, dev, model, np, path="serve", kv_dtype=None,
         weight_bytes=sum(t.numel() * t.element_size()
                          for t in (*model.parameters(), *model.buffers())),
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-        routes=routes, engine=dict(eng.stats),
+        routes=routes, engine=dict(eng.stats), steps=steps, wall=wall,
         pool_mib=getattr(eng.exe, "graph_pool_bytes", 0) / 2**20)
     card = card_line()
     log(f"[{label}] {len(reqs)} requests, {ntok} tokens in {wall:.3f} s: "
@@ -5153,12 +5194,469 @@ def phase_grammar_check(torch, dev, model, np, reqs, pats, vocab):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------- tenants and operations
+# tenant_serve: the 12-request mix split into tenants — A (weight 2) the
+# six short prompts, B (weight 1) the long and shared-prefix ones, C
+# (best effort, a token bucket of 200 tokens/s and a burst of 50) the two
+# sampled ones: each costs its prompt plus 32 tokens, so C's first
+# admission overdraws the bucket and its second waits for the refill
+TENANT_OF = ("A",) * 6 + ("B",) * 4 + ("C",) * 2
+TENANT_WEIGHTS = {"A": 2.0, "B": 1.0}
+TENANT_RATE_C = (200.0, 50.0)
+TENANT_SERIES = ("serving_tenant_admissions_total",
+                 "serving_tenant_finished_total",
+                 "serving_tenant_throttled_total",
+                 "serving_degrade_shed_total")
+# endpoint_check: every route a scraper reads, every 50 ms
+ENDPOINT_ROUTES = ("/metrics", "/metrics.json", "/healthz", "/flight",
+                   "/requests", "/roofline", "/memory", "/slo", "/tenants")
+SCRAPE_S = 0.05
+PROFILE_S = 1.0
+
+
+def _greedy_rows(reqs):
+    return [list(r.tokens) for r in reqs if not r.temperature]
+
+
+def _held_ctrl(level=0):
+    """A degradation controller without signals whose down-patience never
+    ends: it holds whatever rung it is forced to."""
+    from paddle_tpu_torch.serving import DegradationController
+    c = DegradationController(signals=[], down_patience=10 ** 9)
+    c.force_level(level)
+    return c
+
+
+def _ops_kw():
+    """Pass (a)'s engine arguments: a controller held at L0 and a tracker
+    of the default objectives, new for each engine."""
+    from paddle_tpu_torch.observability import SLOTracker, default_objectives
+    return dict(degrade=_held_ctrl(), slo=SLOTracker(default_objectives()))
+
+
+class _Timed:
+    """A method wrapper adding up its calls' wall seconds."""
+
+    def __init__(self, fn):
+        self.fn, self.s, self.n = fn, 0.0, 0
+
+    def __call__(self, *a, **kw):
+        t = time.perf_counter()
+        try:
+            return self.fn(*a, **kw)
+        finally:
+            self.s += time.perf_counter() - t
+            self.n += 1
+
+
+def _series_now(name):
+    from paddle_tpu_torch.observability import METRICS
+    inst = METRICS.get(name)
+    return {} if inst is None else {k: c[0] for k, c in inst._series.items()}
+
+
+def _hist_sum(name):
+    from paddle_tpu_torch.observability import METRICS
+    return sum(s.sum for s in METRICS.get(name)._series.values())
+
+
+def _with_env(env, fn):
+    """``fn()`` with the environment variables ``env`` set, restored
+    after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_tenant_serve(torch, dev, model, np, serve_reqs, serve_stats):
+    """Tenants, the degradation ladder and the SLO tracker on the serve
+    phase's Llama-2-7B engine settings. (a) L0 bit identity: the mix with
+    no tenants, a controller held at L0 and a tracker gives the serve
+    phase's greedy rows, also under PT_DEGRADE=0 and PT_SLO=0. (b) The
+    mix split into tenants A / B / C under the default signals: the
+    admission order, per-tenant admissions, finishes, throttles and
+    sheds, the rungs the ladder visited and which signal moved it; the
+    host ms a step of the ladder's poll, the tracker's poll and its tick
+    charge; tokens/s beside the serve phase's. (c) Forced rungs: L1
+    launches no verify (K3) with the self-draft and L0 does; L2 chunks
+    are at most max_prompt_len // chunk_shrink tokens; L3 keeps the
+    best-effort tenant queued while the others finish; L4 rejects with
+    OverloadError; back at L0 everything drains quiescent. (d) The
+    tracker's device-seconds equal the sum of serving_tick_seconds over
+    pass (b) within 1e-6 s, and its good tokens by tenant sum to the
+    tokens emitted. Returns (pass (b)'s launch counts, pass (a)'s greedy
+    rows)."""
+    from paddle_tpu_torch.observability import (REQUESTS, SLOTracker,
+                                                default_objectives)
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.serving import (DegradationController, LLMEngine,
+                                          OverloadError, Request)
+    card = card_line()
+    want = _greedy_rows(serve_reqs)
+    sampled = [r.tokens for r in serve_reqs if r.temperature]
+    # (a) L0 bit identity, then the same under both kill switches
+    for label, env in (("tenant_serve L0", {}),
+                       ("tenant_serve L0, PT_DEGRADE=0 PT_SLO=0",
+                        {"PT_DEGRADE": "0", "PT_SLO": "0"})):
+        _, reqs, st = _with_env(env, lambda: phase_serve(
+            torch, dev, model, np, "tenant_serve", label=label,
+            make_kw=_ops_kw))
+        same = _greedy_rows(reqs) == want
+        log(f"[{label}] greedy rows token for token the serve phase's: "
+            f"{same}; sampled rows too: "
+            f"{[r.tokens for r in reqs if r.temperature] == sampled}; "
+            f"{st['tokens_s']:.1f} tokens/s ({card})")
+        if not same:
+            raise AssertionError(f"{label}: greedy rows differ from the "
+                                 f"serve phase's")
+    # (b) tenants under the default signals
+    box = {"order": [], "levels": {}}
+
+    def make_kw():
+        box["ctrl"] = DegradationController()
+        box["slo"] = SLOTracker(default_objectives())
+        return dict(degrade=box["ctrl"], slo=box["slo"])
+
+    def setup(eng):
+        for t, w in TENANT_WEIGHTS.items():
+            eng.sched.set_tenant_weight(t, w)
+        eng.sched.set_tenant_priority("C", "best_effort")
+        eng.sched.set_tenant_rate("C", *TENANT_RATE_C)
+        for obj, name in ((box["ctrl"], "poll"), (box["slo"], "poll"),
+                          (box["slo"], "charge_tick")):
+            setattr(obj, name, _Timed(getattr(obj, name)))
+        box["tick0"] = _hist_sum("serving_tick_seconds")
+        box["m0"] = {n: _series_now(n) for n in TENANT_SERIES}
+        charge = eng.sched._charge_tenant
+
+        def admit(req, p):            # called at each admission, in order
+            box["order"].append(req.req_id)
+            return charge(req, p)
+        eng.sched._charge_tenant = admit
+
+    def on_step(eng):
+        lvl = box["ctrl"].level
+        box["levels"][lvl] = box["levels"].get(lvl, 0) + 1
+        box["charged"] = dict(eng.sched.tenant_charged)
+
+    mix = serve_requests(np.random.RandomState(0), model.cfg.vocab_size)
+    for r, t in zip(mix, TENANT_OF):
+        r.tenant_id = t
+    counts, reqs, st = phase_serve(torch, dev, model, np, "tenant_serve",
+                                   label="tenant_serve tenants", mix=mix,
+                                   make_kw=make_kw, setup=setup,
+                                   on_step=on_step)
+    ctrl, slo = box["ctrl"], box["slo"]
+    tenant = {r.req_id: r.tenant_id for r in reqs}
+    delta = {}
+    for n in TENANT_SERIES:
+        now, was = _series_now(n), box["m0"][n]
+        delta[n] = {k: v - was.get(k, 0) for k, v in now.items()
+                    if v - was.get(k, 0)}
+    steps = max(st["steps"], 1)
+    poll_ms = 1e3 * ctrl.poll.s / steps
+    spoll_ms = 1e3 * slo.poll.s / steps
+    charge_ms = 1e3 * slo.charge_tick.s / steps
+    dev_ms = sum(n * d for n, _, d in st["ticks"].values())
+    log(f"[tenant_serve tenants] admission order "
+        f"{[(rid, tenant[rid]) for rid in box['order']]}")
+    log(f"[tenant_serve tenants] admitted {delta[TENANT_SERIES[0]]}, "
+        f"finished {delta[TENANT_SERIES[1]]}, throttled "
+        f"{delta[TENANT_SERIES[2]]}, shed {delta[TENANT_SERIES[3]]}; "
+        f"tokens charged by tenant {box['charged']}")
+    log(f"[tenant_serve tenants] ladder under the default signals: steps "
+        f"by rung {dict(sorted(box['levels'].items()))}, peak "
+        f"L{ctrl.peak_level}, transitions "
+        f"{[(t['from'], t['to'], t['why']) for t in ctrl.transitions]}")
+    log(f"[tenant_serve tenants] {st['tokens_s']:.1f} tokens/s against the "
+        f"serve phase's {serve_stats['tokens_s']:.1f}; host a step: ladder "
+        f"poll {poll_ms:.3f} ms, tracker poll {spoll_ms:.3f} ms, tick "
+        f"charge {charge_ms:.3f} ms over {steps} steps; decode replays' "
+        f"device time {dev_ms:.1f} ms of {1e3 * st['wall']:.1f} ms wall, "
+        f"idle {100 * max(0.0, 1 - dev_ms / (1e3 * st['wall'])):.1f}% "
+        f"(prefill's eager kernels counted as idle) ({card})")
+    throttled = delta[TENANT_SERIES[2]].get(("C",), 0)
+    if throttled < 1:
+        raise AssertionError(f"tenant C was never throttled: {delta}")
+    # (d) reconciliation
+    led = slo.ledger
+    ticks = _hist_sum("serving_tick_seconds") - box["tick0"]
+    ntok = sum(len(r.tokens) for r in reqs)
+    log(f"[tenant_serve reconcile] device seconds "
+        f"{led.device_seconds_total:.9f} vs serving_tick_seconds "
+        f"{ticks:.9f} over {led.ticks} ticks; by "
+        f"tenant {led.device_seconds}; good tokens {led.good_tokens} "
+        f"(emitted {ntok}); waste {led.waste_tokens}; block-seconds "
+        f"{led.block_seconds}")
+    if abs(led.device_seconds_total - ticks) > 1e-6 or \
+            abs(sum(led.device_seconds.values())
+                - led.device_seconds_total) > 1e-6:
+        raise AssertionError("tenant_serve: the cost ledger's device "
+                             "seconds do not reconcile")
+    if sum(led.good_tokens.values()) != ntok or \
+            set(led.good_tokens) != {"A", "B", "C"}:
+        raise AssertionError(f"tenant_serve: good tokens {led.good_tokens} "
+                             f"against {ntok} emitted")
+    del box
+    # (c) forced rungs on fresh engines of the same settings
+    kw = dict(num_slots=8, block_size=16, max_prompt_len=128,
+              max_seq_len=512, num_blocks=256, seed=0, device=dev)
+    vocab = model.cfg.vocab_size
+    rs = np.random.RandomState(5)
+    ctrl = _held_ctrl(1)
+    eng = LLMEngine(model, draft_model=model, spec_k=4, degrade=ctrl, **kw)
+    k3, spec = [], []
+    for level in (1, 0):
+        ctrl.force_level(level)
+        n0, s0 = K.launches()["paged_chunk"], eng.stats["spec_ticks"]
+        for n in (24, 40):
+            eng.add_request(Request(rs.randint(3, vocab, size=n),
+                                    max_new_tokens=16))
+        eng.run()
+        k3.append(K.launches()["paged_chunk"] - n0)
+        spec.append(eng.stats["spec_ticks"] - s0)
+    eng.assert_quiescent()
+    del eng
+    log(f"[tenant_serve L1] self-draft, two requests of 16 new tokens: "
+        f"K3 (verify) launches {k3[0]} at L1, {k3[1]} at L0; speculative "
+        f"rounds {spec[0]} / {spec[1]} ({card})")
+    if k3[0] or spec[0] or not k3[1] or not spec[1]:
+        raise AssertionError(f"tenant_serve L1: verify launches {k3}, "
+                             f"rounds {spec}")
+    ctrl = _held_ctrl(2)
+    eng = LLMEngine(model, degrade=ctrl, **kw)
+    REQUESTS.enable()
+    try:
+        long_ = [Request(rs.randint(3, vocab, size=n), max_new_tokens=8)
+                 for n in (300, 384)]
+        for r in long_:
+            eng.add_request(r)
+        eng.run()
+        chunks = [e["tokens"] for r in long_
+                  for e in REQUESTS.timeline(r.trace_id)["events"]
+                  if e["kind"] == "prefill_chunk"]
+    finally:
+        REQUESTS.disable()
+        REQUESTS.clear()
+    cap = kw["max_prompt_len"] // ctrl.chunk_shrink
+    log(f"[tenant_serve L2] chunks of the 300- and 384-token prompts "
+        f"{chunks} (at most {cap}) ({card})")
+    if not chunks or max(chunks) > cap:
+        raise AssertionError(f"tenant_serve L2: chunks {chunks} > {cap}")
+    ctrl.force_level(3)
+    eng.sched.set_tenant_priority("C", "best_effort")
+    shed0 = _series_now("serving_degrade_shed_total").get(("C",), 0)
+    rung = [Request(rs.randint(3, vocab, size=n), max_new_tokens=16,
+                    tenant_id=t)
+            for n, t in zip((30, 60, 45, 90, 20, 50), "AABBCC")]
+    for r in rung:
+        eng.add_request(r)
+    for _ in range(10000):
+        if all(r.done for r in rung if r.tenant_id != "C"):
+            break
+        eng.step()
+    queued = {q.req_id for q in eng.queue}
+    c_waiting = all(r.req_id in queued and not r.tokens
+                    for r in rung if r.tenant_id == "C")
+    shed = _series_now("serving_degrade_shed_total").get(("C",), 0) - shed0
+    log(f"[tenant_serve L3] A and B finished "
+        f"{all(r.done for r in rung if r.tenant_id != 'C')}, C still "
+        f"queued {c_waiting}, shed passes {shed} ({card})")
+    if not c_waiting or shed <= 0 or \
+            not all(r.done for r in rung if r.tenant_id != "C"):
+        raise AssertionError("tenant_serve L3: the best-effort tenant was "
+                             "not shed while the others finished")
+    ctrl.force_level(4)
+    try:
+        eng.add_request(Request(rs.randint(3, vocab, size=16),
+                                max_new_tokens=4))
+    except OverloadError as e:
+        log(f"[tenant_serve L4] add_request raised OverloadError: {e}")
+    else:
+        raise AssertionError("tenant_serve L4: a new session was admitted")
+    ctrl.force_level(0)
+    eng.run()
+    eng.assert_quiescent()
+    eng.kv.assert_quiescent()
+    if not all(r.done and len(r.tokens) == 16 for r in rung):
+        raise AssertionError("tenant_serve L0: the shed requests did not "
+                             "drain")
+    log(f"[tenant_serve L0] back at L0 every request drained, the pool "
+        f"quiescent ({card})")
+    del eng
+    torch.cuda.empty_cache()
+    return counts, want
+
+
+def _http_get(url, timeout=30):
+    """(status, body bytes) of one GET; error statuses included."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def phase_endpoint_check(torch, dev, model, np, want):
+    """The metrics server on a free port and a shipper into a temporary
+    file, while pass (a)'s configuration of tenant_serve serves the mix
+    again: a client thread scrapes every route every 50 ms from before the
+    engines are built (their CUDA graph captures run under it) to the
+    end. The greedy rows must equal pass (a)'s (``want``); every route
+    answers 200 (``/healthz`` may answer 503, with its JSON). Then 8 rows
+    in steady decode under one ``/profile?seconds=1``: its trace must
+    name the decode kernels (``paged_decode``, ``rope_kv``). The
+    shipper's lines carry deltas and the CUDA memory gauges."""
+    import shutil
+    import tempfile
+    import threading
+    from paddle_tpu_torch.observability import (MetricsShipper,
+                                                start_metrics_server,
+                                                stop_metrics_server)
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    card = card_line()
+    tmp = tempfile.mkdtemp(prefix="pt_endpoint_check_")
+    srv = start_metrics_server(port=0, host="127.0.0.1")
+    base = f"http://127.0.0.1:{srv.port}"
+    ship = MetricsShipper(os.path.join(tmp, "metrics.jsonl"),
+                          interval_s=0.2).start()
+    seen = {r: {} for r in ENDPOINT_ROUTES}
+    bad, rounds = [], [0]
+    stop = threading.Event()
+
+    def scrape():
+        while not stop.is_set():
+            for route in ENDPOINT_ROUTES:
+                code, body = _http_get(base + route)
+                seen[route][code] = seen[route].get(code, 0) + 1
+                ok = code == 200 or (route == "/healthz" and code == 503)
+                try:
+                    if ok and route != "/metrics":
+                        json.loads(body)
+                except ValueError:
+                    ok = False
+                if not ok:
+                    bad.append((route, code, body[:200]))
+            rounds[0] += 1
+            stop.wait(SCRAPE_S)
+
+    scraper = threading.Thread(target=scrape, name="pt-endpoint-scraper",
+                               daemon=True)
+    scraper.start()
+    old_dir = os.environ.get("PT_PROFILE_DIR")
+    os.environ["PT_PROFILE_DIR"] = os.path.join(tmp, "profile")
+    try:
+        _, reqs, st = phase_serve(torch, dev, model, np, "tenant_serve",
+                                  label="endpoint_check", make_kw=_ops_kw)
+        same = _greedy_rows(reqs) == want
+        log(f"[endpoint_check] greedy rows under scraping token for token "
+            f"tenant_serve's pass (a): {same}; {st['tokens_s']:.1f} "
+            f"tokens/s ({card})")
+        if not same:
+            raise AssertionError("endpoint_check: greedy rows changed "
+                                 "under scraping")
+        # steady decode under one profiler capture; the first capture of a
+        # process starts Kineto and CUPTI (seconds), so the rows are topped
+        # up until the capture returns
+        eng = LLMEngine(model, num_slots=8, block_size=16,
+                        max_prompt_len=128, max_seq_len=512, num_blocks=256,
+                        seed=0, device=dev, **_ops_kw())
+        rs = np.random.RandomState(2)
+
+        def top_up():
+            while len(eng.queue) + len(eng.prefilling) \
+                    + int(eng.active.sum()) < 8:
+                eng.add_request(Request(rs.randint(
+                    3, model.cfg.vocab_size, size=100), max_new_tokens=256))
+        top_up()
+        while eng.queue or eng.prefilling or eng.stats["ticks"] < 2:
+            eng.step()
+        got = {}
+        prof = threading.Thread(target=lambda: got.update(resp=_http_get(
+            f"{base}/profile?seconds={PROFILE_S}", timeout=300)),
+            name="pt-endpoint-profile")
+        t0 = time.monotonic()
+        prof.start()
+        ticks0 = eng.stats["ticks"]
+        while prof.is_alive():
+            top_up()
+            eng.step()
+        ticks = eng.stats["ticks"] - ticks0
+        prof.join()
+        eng.run()
+        eng.assert_quiescent()
+        del eng
+        code, body = got["resp"]
+        if code != 200:
+            raise AssertionError(f"endpoint_check: /profile answered {code}: "
+                                 f"{body[:300]}")
+        doc = json.loads(body)
+        with open(doc["trace"]) as f:
+            events = json.load(f)["traceEvents"]
+        names = [e.get("name", "") for e in events if e.get("ph") == "X"]
+        kern = {k: sum(k in n for n in names)
+                for k in ("paged_decode", "rope_kv", "rms_norm")}
+        main_tid = threading.main_thread().native_id
+        cpu_tids = {}
+        for e in events:
+            if e.get("cat") == "cpu_op":
+                cpu_tids[e.get("tid")] = cpu_tids.get(e.get("tid"), 0) + 1
+        log(f"[endpoint_check] /profile?seconds={PROFILE_S}: profiler "
+            f"start {doc['start_s']:.3f} s, wall {doc['wall_s']:.3f} s "
+            f"(request {time.monotonic() - t0:.3f} s), trace "
+            f"{doc['bytes']} bytes, {len(events)} events over "
+            f"{ticks} decode ticks; kernel events {kern}; CUDA activity "
+            f"{doc['cuda']}, all threads {doc['all_threads']}; CPU "
+            f"operators by thread {cpu_tids} (the engine thread "
+            f"{main_tid}) ({card})")
+        if not doc["cuda"] or not kern["paged_decode"] or \
+                not kern["rope_kv"]:
+            raise AssertionError(f"endpoint_check: the capture names no "
+                                 f"decode kernel: {kern}")
+    finally:
+        if old_dir is None:
+            os.environ.pop("PT_PROFILE_DIR", None)
+        else:
+            os.environ["PT_PROFILE_DIR"] = old_dir
+        stop.set()
+        scraper.join()
+        ship.stop()
+        stop_metrics_server()
+    with open(ship.path) as f:
+        lines = [json.loads(ln) for ln in f]
+    deltas = sum(bool(r["deltas"]) for r in lines)
+    mem = {k: v for k, v in lines[-1]["snapshot"]["gauges"].items()
+           if k.startswith("device_bytes")}
+    log(f"[endpoint_check] {rounds[0]} scrape rounds, answers by route "
+        f"{seen}; failures {bad[:5]}")
+    log(f"[endpoint_check] shipper: {len(lines)} lines, {deltas} with "
+        f"deltas, {ship.errors} errors; last line's device gauges {mem} "
+        f"({card})")
+    shutil.rmtree(tmp, ignore_errors=True)
+    if bad or not rounds[0] or any(not seen[r] for r in ENDPOINT_ROUTES):
+        raise AssertionError(f"endpoint_check: failed scrapes {bad[:5]}")
+    if not deltas or ship.errors or \
+            mem.get('device_bytes_in_use{device="cuda:0"}', 0) <= 0:
+        raise AssertionError(f"endpoint_check: shipper lines without "
+                             f"deltas or the CUDA memory gauges: {mem}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve,check,"
                     "graph_check,async_serve,lora_serve,lora_check,"
                     "spec_serve,spec_check,beam_serve,beam_check,"
-                    "grammar_serve,grammar_check,train,"
+                    "grammar_serve,grammar_check,tenant_serve,"
+                    "endpoint_check,train,"
                     "moe_serve,moe_check,moe_train,window_serve,window_check,"
                     "quant_serve,quant_check,bloom_serve,bloom_train,"
                     "falcon_rw_serve,falcon_rw_train,falcon7b_serve,"
@@ -5206,7 +5704,8 @@ def main(argv=None):
     quant = {"quant_serve", "quant_check", "quant_anatomy"} & set(phases)
     lora_spec = {"lora_serve", "lora_check", "lora_anatomy", "spec_serve",
                  "spec_check", "beam_serve", "beam_check", "grammar_serve",
-                 "grammar_check"} & set(phases)
+                 "grammar_check", "tenant_serve",
+                 "endpoint_check"} & set(phases)
     if {"serve", "check", "anatomy", "graph_check",
             "async_serve"} & set(phases) or quant or lora_spec:
         tm = time.monotonic()
@@ -5292,6 +5791,15 @@ def main(argv=None):
                 phase_grammar_check(torch, dev, model, np, greqs, gpats,
                                     gvocab)
                 log(f"[grammar_check] phase {time.monotonic() - tp:.1f} s")
+        if {"tenant_serve", "endpoint_check"} & set(phases):
+            tp = time.monotonic()
+            counts["tenant_serve"], greedy = phase_tenant_serve(
+                torch, dev, model, np, reqs, serve_stats)
+            log(f"[tenant_serve] phase {time.monotonic() - tp:.1f} s")
+            if "endpoint_check" in phases:
+                tp = time.monotonic()
+                phase_endpoint_check(torch, dev, model, np, greedy)
+                log(f"[endpoint_check] phase {time.monotonic() - tp:.1f} s")
         if "quant_check" in phases:
             phase_quant_check(torch, model, reqs, got, ref32, "bf16")
         if quant:

@@ -37,13 +37,15 @@ work that did not happen, the direct counterpart of the
 
 The lifetime ratio good/(good+waste) is exported as the
 ``serving_goodput_ratio`` gauge (refreshed by the engine's gauge sweep
-and on demand via :meth:`GoodputLedger.refresh_gauge`).
+and on demand via :meth:`GoodputLedger.refresh_gauge`), and the stock
+low-goodput health rule of :mod:`.health` flags a server whose waste
+fraction says the card mostly heats air.
 
 All state lives in the metrics registry — the ledger owns no counters
 of its own, so the conftest registry reset is the only hygiene needed.
 
-Usage metering: the ledger is also the tenant-attribution
-choke point. An attached sink (the reference's SLO cost ledger) receives
+Usage metering: the ledger is also the tenant-attribution choke point.
+An attached sink (the SLO tracker's cost ledger, :mod:`.slo`) receives
 every ``good``/``waste``/``saved`` charge together with the ``tenant=``
 the call site knows (``None`` for batch-level overheads like padding
 rows) — because attribution happens INSIDE the same call that moves the

@@ -87,6 +87,19 @@ _KV_STALL = METRICS.counter(
     "holds the missing blocks (active / reserved / cow_pending / "
     "slots / capacity)", labelnames=("blocked_on",))
 
+# the card's allocator, refreshed by device_memory_stats (the /memory
+# document, the metrics shipper); the names are the reference's
+_DEV_MEM = METRICS.gauge(
+    "device_bytes_in_use", "per-device bytes in use (0 when the backend "
+    "does not report memory stats)", labelnames=("device",))
+_DEV_MEM_PEAK = METRICS.gauge(
+    "device_bytes_peak", "per-device peak bytes in use (0 when the "
+    "backend does not report memory stats)", labelnames=("device",))
+_DEV_MEM_LIMIT = METRICS.gauge(
+    "device_bytes_limit", "per-device memory capacity visible to the "
+    "allocator (0 when the backend does not report it)",
+    labelnames=("device",))
+
 # every live ledger, for /memory and flight-dump excerpts; weak so an
 # engine's pool dies with the engine
 _LEDGERS: "weakref.WeakSet[MemLedger]" = weakref.WeakSet()
@@ -426,20 +439,48 @@ def pools() -> list:
     return sorted(_LEDGERS, key=lambda led: led._seq_no)
 
 
-def memory_doc() -> dict:
-    """The ``GET /memory`` document: every live pool's snapshot plus the
-    CUDA caching allocator's statistics of each visible card (an empty
-    list where there is no card)."""
+def device_memory_stats() -> dict:
+    """Per-device memory of the CUDA caching allocator
+    (``torch.cuda.memory_stats``), also pushed into the
+    ``device_bytes_in_use`` / ``device_bytes_peak`` / ``device_bytes_limit``
+    gauges. Without a card: one zeroed ``cpu`` placeholder, the backend
+    named, never an empty dict. The queries hold
+    ``core.device.CAPTURE_LOCK``, so they never land inside a CUDA graph
+    capture of another thread."""
     import torch
-    doc = {"pools": [led.snapshot() for led in pools()]}
-    doc["device"] = [
-        {"device": i, "name": torch.cuda.get_device_name(i),
-         "allocated_bytes": int(st.get("allocated_bytes.all.current", 0)),
-         "reserved_bytes": int(st.get("reserved_bytes.all.current", 0)),
-         "peak_allocated_bytes": int(st.get("allocated_bytes.all.peak", 0))}
-        for i, st in ((i, torch.cuda.memory_stats(i))
-                      for i in range(torch.cuda.device_count()))]
-    return doc
+
+    from paddle_tpu_torch.core.device import CAPTURE_LOCK
+    out = {}
+    if torch.cuda.is_available():
+        with CAPTURE_LOCK:
+            for i in range(torch.cuda.device_count()):
+                st = torch.cuda.memory_stats(i)
+                out[f"cuda:{i}"] = {
+                    "backend": "cuda",
+                    "name": torch.cuda.get_device_name(i),
+                    "bytes_in_use": int(
+                        st.get("allocated_bytes.all.current", 0)),
+                    "peak_bytes_in_use": int(
+                        st.get("allocated_bytes.all.peak", 0)),
+                    "bytes_reserved": int(
+                        st.get("reserved_bytes.all.current", 0)),
+                    "bytes_limit": int(
+                        torch.cuda.get_device_properties(i).total_memory)}
+    else:
+        out["cpu"] = {"backend": "cpu", "bytes_in_use": 0,
+                      "peak_bytes_in_use": 0, "bytes_limit": 0}
+    for dev, rec in out.items():
+        _DEV_MEM.set(rec["bytes_in_use"], device=dev)
+        _DEV_MEM_PEAK.set(rec["peak_bytes_in_use"], device=dev)
+        _DEV_MEM_LIMIT.set(rec["bytes_limit"], device=dev)
+    return out
+
+
+def memory_doc() -> dict:
+    """The ``GET /memory`` document: every live pool's snapshot plus
+    per-device allocator stats (:func:`device_memory_stats`)."""
+    return {"pools": [led.snapshot() for led in pools()],
+            "device": device_memory_stats()}
 
 
 def flight_excerpt() -> list:

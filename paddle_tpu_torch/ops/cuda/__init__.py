@@ -51,6 +51,9 @@ BEAM_SERVE_I8_KERNELS = QUANT_SERVE_KERNELS
 # mix's prompts fit max_prompt_len and share no prefix)
 GRAMMAR_SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_decode", "rope",
                          "rope_kv")
+# tenants, the degradation ladder and the SLO tracker ride the serve path
+# (the ladder's rungs change budgets and admission, not shapes)
+TENANT_SERVE_KERNELS = SERVE_KERNELS
 # head dim 256 (Gemma, GPT-J): Gemma's train step runs K2, K5a, K5b and K7
 # (its zero-centred RMSNorm is plain PyTorch, as the reference's), its
 # generate path K2 and K7; GPT-J's interleaved rope is plain PyTorch (the

@@ -10,7 +10,8 @@
     kernel) and the fused decode tick (paged decode kernel + on-device
     sampling), all updating the paged pool in place.
   * HOST — :class:`~paddle_tpu_torch.serving.scheduler.Scheduler` (FCFS
-    queue, deadlines, preemption policy, backpressure) and
+    or weighted fair-share queue, deadlines, preemption policy,
+    backpressure) and
     :class:`~paddle_tpu_torch.serving.kv.KVManager` (block tables, radix
     prefix cache, reservation ledger). Per-tick bookkeeping is numpy; the
     only per-tick device-to-host traffic is the [num_slots] token fetch.
@@ -104,9 +105,22 @@ weight passes and KV positions folded into ``serving_mfu`` /
 ``serving_mbu`` / ``serving_arith_intensity{phase}`` against the peaks
 of the engine's device (0.0, "undefined", on the CPU).
 
+Tenants and operations: a request's ``tenant_id`` enters the
+scheduler's weighted fair share, token-bucket rate limits and service
+classes, and the per-tenant counters (tokens, admissions, queue wait,
+TTFT, token latency, finishes, rejections). ``degrade=`` takes a
+:class:`~paddle_tpu_torch.serving.degrade.DegradationController`: L1
+turns speculation off, L2 shrinks the chunked-prefill budget (the
+``[a_cap, cap]`` staging keeps its shape), L3 sheds best-effort tenants
+at admission, L4 rejects new sessions with ``OverloadError``. ``slo=``
+takes an :class:`~paddle_tpu_torch.observability.slo.SLOTracker`,
+charged each tick's ``serving_tick_seconds`` observation. Both are
+polled from the gauge sweep after every tick, unless a router claimed
+them; ``PT_DEGRADE=0`` and ``PT_SLO=0`` are their kill switches.
+
 Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP.md queue): degradation/SLO, tenants, context parallelism and
-prefill-only replicas (router).
+ROADMAP.md queue): context parallelism and prefill-only replicas
+(router).
 """
 from __future__ import annotations
 
@@ -148,11 +162,18 @@ from paddle_tpu_torch.serving.telemetry import (_ACTIVE_SLOTS, _ASYNC_DEPTH,
                                                 _SPEC_DRAFT_REUSE,
                                                 _SPEC_FALLBACKS,
                                                 _SPEC_PROPOSED, _SPEC_RATE,
-                                                _SPEC_TOKENS, _TICK,
+                                                _SPEC_TOKENS,
+                                                _TENANT_FINISHED,
+                                                _TENANT_REJECTED,
+                                                _TENANT_TOK_LAT,
+                                                _TENANT_TOKENS,
+                                                _TENANT_TTFT, _TICK,
                                                 _TICK_BREAKDOWN,
                                                 _TICK_HIDDEN, _TIMEOUTS,
-                                                _TOK_LAT, _TOKENS, _TTFT)
-from paddle_tpu_torch.serving.types import Request, _BeamGroup
+                                                _TOK_LAT, _TOKENS, _TTFT,
+                                                tenant_label)
+from paddle_tpu_torch.serving.types import (OverloadError, Request,
+                                            _BeamGroup)
 from paddle_tpu_torch.utils.faults import fault_point
 
 _Q1 = "ROADMAP.md queue 1, item 5 (serving features)"
@@ -204,13 +225,9 @@ class LLMEngine:
                  spec_k=4, spec_adaptive=True, prefill_only=False,
                  adapter_store=None, degrade=None, slo=None, kv_dtype=None,
                  cp=1, async_depth=0, device=None):
-        for name, val, what in (
-                ("degrade", degrade, "the degradation ladder"),
-                ("slo", slo, "the SLO tracker"),
-                ("prefill_only", prefill_only or None,
-                 "disaggregated prefill (router)")):
-            if val is not None:
-                raise _not_ported(f"{name}= ({what})")
+        if prefill_only:
+            raise _not_ported("prefill_only= (disaggregated prefill, "
+                              "router)")
         if int(cp) != 1:
             raise _not_ported("cp > 1 (context-parallel serving)")
         # async pipelined decode: PT_ASYNC_DECODE=0 is the kill switch,
@@ -248,6 +265,15 @@ class LLMEngine:
                     f"Shapes the kernels refuse)")
         self.num_slots = num_slots
         self.block_size = block_size
+        # graceful degradation: an optional DegradationController,
+        # consulted by the spec gate, the chunked-prefill budget,
+        # admission shedding and the session gate. None means full
+        # service, always
+        self.degrade = degrade
+        # per-tenant SLO tracking and usage metering: an optional
+        # SLOTracker, charged per tick from step() and polled from the
+        # gauge sweep. None means no tracking, ever
+        self.slo = slo
         self.max_prompt_len = max_prompt_len
         self.max_seq_len = max_seq_len or (max_prompt_len + 256)
         self.max_blocks_per_seq = -(-self.max_seq_len // block_size)
@@ -470,6 +496,17 @@ class LLMEngine:
     # ------------------------------------------------------------- intake
     def add_request(self, req: Request) -> int:
         self.sched.check_backpressure(self.stats)
+        # ladder L4: explicit backpressure on NEW sessions. Requests a
+        # router already accepted (_preadmitted) pass
+        if (self.degrade is not None and not req._preadmitted
+                and not self.degrade.accepting_sessions()):
+            self.stats["rejected"] += 1
+            _REJECTED.inc(reason="degraded")
+            if req.tenant_id is not None:
+                _TENANT_REJECTED.inc(tenant=tenant_label(req.tenant_id))
+            raise OverloadError(
+                "degradation ladder at L4 — new sessions rejected, "
+                "retry after the cluster recovers")
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1 (the prefill "
                              "itself produces the first token)")
@@ -488,9 +525,6 @@ class LLMEngine:
                 raise ValueError("streaming is not supported for beam "
                                  "requests (tokens are only known at the "
                                  "final selection)")
-        if req.tenant_id is not None:
-            raise _not_ported("tenant_id (fair-share admission, with the "
-                              "degradation ladder and SLO tracker)")
         if len(req.prompt) < 1:
             raise ValueError("prompt must contain at least one token "
                              "(an empty row has no logit to sample from)")
@@ -520,6 +554,10 @@ class LLMEngine:
             self.stats["rejected"] += 1
             _REJECTED.inc(reason="too_long")
             _FINISHED.inc(reason="too_long")
+            if req.tenant_id is not None:
+                _TENANT_REJECTED.inc(tenant=tenant_label(req.tenant_id))
+                _TENANT_FINISHED.inc(tenant=tenant_label(req.tenant_id),
+                                     reason="too_long")
             FLIGHT.record("serving.reject", rid=rid, reason="too_long")
             REQUESTS.finish(req, "too_long", replica=self.trace_name)
             return rid
@@ -595,6 +633,9 @@ class LLMEngine:
         self.stats["timeouts" if reason == "timeout" else "cancelled"] += 1
         (_TIMEOUTS if reason == "timeout" else _CANCELLED).inc()
         _FINISHED.inc(reason=reason)
+        if req.tenant_id is not None:
+            _TENANT_FINISHED.inc(tenant=tenant_label(req.tenant_id),
+                                 reason=reason)
         FLIGHT.record("serving.timeout" if reason == "timeout"
                       else "serving.cancel", rid=req_id)
         REQUESTS.finish(req, reason, replica=self.trace_name)
@@ -1006,6 +1047,9 @@ class LLMEngine:
         req.done = True
         req.finish_reason = "beam"
         _FINISHED.inc(reason="beam")
+        if req.tenant_id is not None:
+            _TENANT_FINISHED.inc(tenant=tenant_label(req.tenant_id),
+                                 reason="beam")
         _TOKENS.inc(len(req.tokens))
         GOODPUT.good(len(req.tokens), tenant=req.tenant_id)
         REQUESTS.tokens(req, len(req.tokens))
@@ -1035,6 +1079,11 @@ class LLMEngine:
         if not self.prefilling:
             return []
         a_cap, cap = self.num_slots, self.max_prompt_len
+        # ladder L2: shrink the per-tick chunk budget, not the staging
+        # shapes — ids keeps its [a_cap, cap] shape (lens just come up
+        # shorter), so no new shape reaches the chunk kernel
+        budget = (cap if self.degrade is None
+                  else min(cap, self.degrade.prefill_budget(cap)))
         nb, max_b = self.mgr.num_blocks, self.max_blocks_per_seq
         ids = np.zeros((a_cap, cap), np.int64)
         lens = np.zeros(a_cap, np.int32)
@@ -1049,7 +1098,7 @@ class LLMEngine:
             if rid not in self.prefilling:   # evicted by a later row
                 continue
             req = self.requests[rid]
-            chunk = self._pr(req)[consumed: consumed + cap]
+            chunk = self._pr(req)[consumed: consumed + budget]
             t = self._allocate_or_preempt(rid, consumed + len(chunk),
                                           protect=staged)
             if t is None:
@@ -1549,8 +1598,11 @@ class LLMEngine:
         return getattr(self.requests.get(rid), "tenant_id", None)
 
     def _spec_on(self) -> bool:
+        """The speculative gate: a draft model, ``PT_SPEC_DECODE`` not 0,
+        and the ladder below L1."""
         return (self.draft_model is not None
-                and os.environ.get("PT_SPEC_DECODE", "1") != "0")
+                and os.environ.get("PT_SPEC_DECODE", "1") != "0"
+                and (self.degrade is None or self.degrade.spec_enabled()))
 
     def _spec_would_run(self) -> bool:
         """Mirror of the synchronous tick's speculative gate: True when the
@@ -1607,6 +1659,8 @@ class LLMEngine:
         req.tokens.append(token)
         _TOKENS.inc()
         GOODPUT.good(1, tenant=req.tenant_id)
+        if req.tenant_id is not None:
+            _TENANT_TOKENS.inc(tenant=tenant_label(req.tenant_id))
         g = self._grammar.get(slot)
         if g is not None:
             # advance the mask state past the committed token (EOS keeps
@@ -1619,10 +1673,18 @@ class LLMEngine:
             req._first_tok_t = now
             if req._submit_t is not None:
                 _TTFT.observe(max(0.0, now - req._submit_t))
+                if req.tenant_id is not None:
+                    _TENANT_TTFT.observe(
+                        max(0.0, now - req._submit_t),
+                        tenant=tenant_label(req.tenant_id))
             REQUESTS.event(req, "first_token", replica=self.trace_name,
                            slot=slot)
         elif req._last_tok_t is not None:
             _TOK_LAT.observe(max(0.0, now - req._last_tok_t))
+            if req.tenant_id is not None:
+                _TENANT_TOK_LAT.observe(
+                    max(0.0, now - req._last_tok_t),
+                    tenant=tenant_label(req.tenant_id))
         req._last_tok_t = now
         if req.stream is not None:
             req.stream(req, token)
@@ -1634,6 +1696,9 @@ class LLMEngine:
             req.done = True
             req.finish_reason = "eos" if eos else "length"
             _FINISHED.inc(reason=req.finish_reason)
+            if req.tenant_id is not None:
+                _TENANT_FINISHED.inc(tenant=tenant_label(req.tenant_id),
+                                     reason=req.finish_reason)
             if self.prefix_caching:
                 # commit the GENERATED span too (up to the cache frontier
                 # ``cur``: the token just sampled has no KV yet)
@@ -1725,6 +1790,13 @@ class LLMEngine:
                         resident_tokens=int(self.cur[self.active].sum())
                         + sum(c for _, c in self.prefilling.values()))
         GOODPUT.refresh_gauge()
+        # the control loops ride the gauge sweep's cadence; a controller
+        # or tracker a router claimed is polled by the router only, so N
+        # replicas sharing it don't multiply its clock by N
+        if self.degrade is not None and self.degrade.owner in (None, self):
+            self.degrade.poll()
+        if self.slo is not None and self.slo.owner in (None, self):
+            self.slo.poll()
         self._push_roofline()
 
     def step(self):
@@ -1748,6 +1820,12 @@ class LLMEngine:
                 _TICK_BREAKDOWN.observe(ph.get(name, 0.0), phase=name)
             _TICK_BREAKDOWN.observe(max(0.0, total - timed), phase="host")
             _TICK.observe(total)
+            # usage metering: bill this tick's device time and KV
+            # occupancy to the tenants holding state — the same `total`
+            # the histogram just observed, so the ledger's device-seconds
+            # reconcile with serving_tick_seconds tick for tick
+            if self.slo is not None:
+                self.slo.charge_tick(self, total)
             acc = self._phase_acc
             acc["prefill"][0] += ph.get("prefill", 0.0)
             acc["spec_draft"][0] += ph.get("draft", 0.0)

@@ -49,6 +49,7 @@ import time
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core.device import CAPTURE_LOCK
 from paddle_tpu_torch.core.random import generator
 from paddle_tpu_torch.models.decoding import KVCache, _sample_rows
 from paddle_tpu_torch.models.paged import (PagedKVCache,
@@ -87,9 +88,16 @@ class TickGraph:
     replay draws new noise from its current state and advances it as an
     eager call would. The kernel wrappers count their launches in Python,
     which runs at capture only: the capture's counts are taken back and
-    added again at every replay, so the counters count device launches."""
+    added again at every replay, so the counters count device launches.
+    The warm-up and the capture hold ``core.device.CAPTURE_LOCK``."""
 
     def __init__(self, fn, cache, gen):
+        # no other thread's CUDA call (a /memory scrape, a /profile
+        # capture, the metrics shipper) may land inside the capture
+        with CAPTURE_LOCK:
+            self._capture(fn, cache, gen)
+
+    def _capture(self, fn, cache, gen):
         from paddle_tpu_torch.ops import cuda as K
         self._ptrs = _cache_ptrs(cache)
         state = gen.get_state()

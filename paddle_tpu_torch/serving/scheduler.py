@@ -1,7 +1,7 @@
 """Scheduler: admission, deadlines, preemption policy, backpressure —
 counterpart of ``paddle_tpu/serving/scheduler.py`` (single device).
 
-It owns the FCFS queue, the request registry, intake backpressure
+It owns the admission queue, the request registry, intake backpressure
 (bounded queue + drain flag), wall-clock deadlines and the preemption
 victim policy, and mutates slot/ledger state only through the
 orchestrating :class:`~paddle_tpu_torch.serving.engine.LLMEngine`
@@ -14,8 +14,15 @@ keeps one trie per adapter. A beam request (``num_beams`` K > 1) needs K
 free slots and holds its group's whole worst case up front; preemption
 never picks a beam slot. Admissions, replays and preemptions land in the
 request tracker, the flight recorder and the goodput ledger at the
-reference's sites. Tenant fair-share, rate limits and the degradation
-ladder's shedding are queued (ROADMAP.md queue 1).
+reference's sites.
+
+Tenants: while no queued request carries a ``tenant_id`` admission is
+plain FCFS. Otherwise the queued tenant with the smallest charged/weight
+deficit wins the pick (FIFO within a tenant); each admission charges its
+tenant prompt + remaining budget tokens and debits the tenant's token
+bucket (``set_tenant_rate``) by the same amount. A pass skips
+best-effort tenants while the degradation ladder holds L3+ and tenants
+whose bucket is dry: both defer, never drop.
 """
 from __future__ import annotations
 
@@ -29,14 +36,20 @@ from paddle_tpu_torch.observability.flight import FLIGHT
 from paddle_tpu_torch.observability.goodput import GOODPUT
 from paddle_tpu_torch.observability.requests import REQUESTS
 from paddle_tpu_torch.serving.telemetry import (_ADAPTER_DEFERRALS,
-                                                _ADMITTED, _PREEMPTED,
-                                                _QUEUE_WAIT, _REJECTED)
+                                                _ADMITTED, _DEGRADE_SHED,
+                                                _PREEMPTED, _QUEUE_WAIT,
+                                                _REJECTED,
+                                                _TENANT_ADMITTED,
+                                                _TENANT_QUEUE_WAIT,
+                                                _TENANT_THROTTLED,
+                                                _TENANT_WASTE, tenant_label)
 from paddle_tpu_torch.serving.types import (EngineDrainingError,
                                             QueueFullError, Request)
 
 
 class Scheduler:
-    """FCFS admission queue + deadline/preemption/backpressure policy."""
+    """Admission queue (FCFS, or weighted fair share across tenants) +
+    deadline/preemption/backpressure policy."""
 
     def __init__(self, max_queue_len=None, clock=None):
         self.queue: deque[Request] = deque()
@@ -46,6 +59,66 @@ class Scheduler:
         self.clock = clock if clock is not None else time.monotonic
         self.draining = False
         self.has_deadlines = False
+        # fair multi-tenant admission: deficit accounting — each
+        # admission charges its tenant prompt+budget tokens, and the pick
+        # favours the queued tenant with the smallest charged/weight
+        # ratio. Empty while no request carries a tenant_id, in which
+        # case admission is exactly FCFS
+        self.tenant_weights: dict = {}       # tenant -> share weight (1.0)
+        self.tenant_charged: dict = {}       # tenant -> tokens charged
+        # service class: the ladder's L3 rung sheds (defers, never
+        # cancels) "best_effort" tenants at admission; everyone defaults
+        # to "standard"
+        self.tenant_priority: dict = {}      # tenant -> service class
+        # per-tenant token-bucket rate limits (max_tokens_per_s): a
+        # tenant with an empty bucket is skipped by the fair pick until
+        # refill. Admission debits the same prompt+budget cost the
+        # deficit charge uses, and the bucket may go negative — so one
+        # large request eventually passes instead of starving forever,
+        # and the long-run rate still holds
+        self.tenant_rate: dict = {}          # tenant -> (rate/s, burst)
+        self.tenant_bucket: dict = {}        # tenant -> [tokens, last_t]
+
+    def set_tenant_weight(self, tenant, weight: float):
+        """Relative admission share for a tenant (default 1.0). A tenant
+        with weight 2 is charged half as fast, so it wins the fair pick
+        twice as often under contention."""
+        if weight <= 0:
+            raise ValueError("tenant weight must be positive")
+        self.tenant_weights[tenant] = float(weight)
+
+    def set_tenant_priority(self, tenant, priority: str):
+        """Service class: "standard" (default) or "best_effort" — the
+        degradation ladder sheds best-effort admissions at L3+."""
+        if priority not in ("standard", "best_effort"):
+            raise ValueError(f"priority must be 'standard' or "
+                             f"'best_effort', got {priority!r}")
+        self.tenant_priority[tenant] = priority
+
+    def set_tenant_rate(self, tenant, max_tokens_per_s, burst=None):
+        """Token-bucket rate limit for one tenant (None removes it).
+        ``burst`` is the bucket capacity — the tokens a cold tenant may
+        consume instantly — and defaults to one second's worth."""
+        if max_tokens_per_s is None:
+            self.tenant_rate.pop(tenant, None)
+            self.tenant_bucket.pop(tenant, None)
+            return
+        if max_tokens_per_s <= 0:
+            raise ValueError("max_tokens_per_s must be positive")
+        burst = float(max_tokens_per_s if burst is None else burst)
+        if burst <= 0:
+            raise ValueError("burst must be positive")
+        self.tenant_rate[tenant] = (float(max_tokens_per_s), burst)
+        self.tenant_bucket[tenant] = [burst, self.clock()]
+
+    def _bucket_level(self, tenant, now) -> float:
+        """Refill the tenant's bucket up to ``now`` and return its level
+        (scheduler clock, so rate tests drive a fake clock)."""
+        rate, burst = self.tenant_rate[tenant]
+        b = self.tenant_bucket.setdefault(tenant, [burst, now])
+        b[0] = min(burst, b[0] + max(0.0, now - b[1]) * rate)
+        b[1] = now
+        return b[0]
 
     # ------------------------------------------------------------- intake
     def check_backpressure(self, stats: dict):
@@ -122,13 +195,90 @@ class Scheduler:
             req._match_memo = (epoch, len(p), m)
         return m
 
+    def _pick_index(self, skip=frozenset()):
+        """Queue index of the next admission candidate, or None when
+        every queued tenant is in ``skip`` (shed or throttled). The head
+        (FCFS) while no queued request carries a tenant_id and nothing is
+        skipped. Otherwise the token-budget-weighted fair pick: the
+        queued tenant with the smallest charged/weight deficit wins, FIFO
+        within the tenant. Starvation-free: every admission charges the
+        winner, so a saturating tenant's deficit climbs past any light
+        tenant's after finitely many admissions. A tenant first seen
+        mid-flight starts at the current MINIMUM charge (no retroactive
+        credit for time away)."""
+        if not skip and all(r.tenant_id is None for r in self.queue):
+            return 0
+        floor = min(self.tenant_charged.values(), default=0.0)
+        best_qi, best_key = None, None
+        seen = set()
+        for qi, r in enumerate(self.queue):
+            t = r.tenant_id
+            if t in seen:
+                continue                   # FIFO within a tenant
+            seen.add(t)
+            if t is not None and t in skip:
+                continue                   # shed/throttled this pass
+            w = self.tenant_weights.get(t, 1.0)
+            key = self.tenant_charged.setdefault(t, floor) / w
+            if best_key is None or key < best_key:
+                best_qi, best_key = qi, key
+        return best_qi
+
+    def _charge_tenant(self, req, p):
+        """Deficit charge at admission: prompt + remaining budget — the
+        worst-case token footprint this admission can consume. Replays
+        charge again: a preempted request's re-admission consumes real
+        capacity a second time."""
+        t = req.tenant_id
+        if t is None:
+            return
+        floor = min(self.tenant_charged.values(), default=0.0)
+        gen = max(0, req.max_new_tokens - len(req.tokens))
+        cost = len(p) + gen
+        self.tenant_charged[t] = self.tenant_charged.get(t, floor) + cost
+        if t in self.tenant_rate:
+            # debit the rate bucket with the same worst-case cost; it may
+            # go negative, which is what lets one oversized request
+            # through and then makes the tenant wait out the overdraft
+            b = self.tenant_bucket.setdefault(
+                t, [self.tenant_rate[t][1], self.clock()])
+            b[0] -= cost
+
+    def _admission_skips(self, eng, counted: set) -> frozenset:
+        """Tenants excluded from the current admission pass: best-effort
+        tenants while the degradation ladder holds L3+, and tenants
+        whose token bucket ran dry. Skipped requests stay queued — both
+        mechanisms defer, never drop. ``counted`` dedupes the skip
+        metrics to once per tenant per ``select_admissions`` call."""
+        deg = eng.degrade
+        shed = deg is not None and deg.shed_best_effort()
+        if not shed and not self.tenant_rate:
+            return frozenset()
+        now = self.clock()
+        skip = set()
+        for t in {r.tenant_id for r in self.queue if r.tenant_id is not None}:
+            if shed and self.tenant_priority.get(t) == "best_effort":
+                skip.add(t)
+                if ("shed", t) not in counted:
+                    counted.add(("shed", t))
+                    _DEGRADE_SHED.inc(tenant=tenant_label(t))
+            elif t in self.tenant_rate and self._bucket_level(t, now) <= 0.0:
+                skip.add(t)
+                if ("throttle", t) not in counted:
+                    counted.add(("throttle", t))
+                    _TENANT_THROTTLED.inc(tenant=tenant_label(t))
+        return frozenset(skip)
+
     def select_admissions(self, eng):
-        """Move queued requests (FCFS) into free slots while the pool can
-        cover their worst case; returns (the (slot, req) pairs of the
+        """Move queued requests into free slots while the pool can cover
+        their worst case; returns (the (slot, req) pairs of the
         whole-prompt prefill, the (slots, req) pairs of beam requests —
-        K slots each). Prefix-cache hits and prompts longer than
-        ``max_prompt_len`` claim their slot for the chunked prefill
-        instead. A blocked head stops admission for the tick."""
+        K slots each). Candidate order is :meth:`_pick_index` — FCFS
+        without tenants, weighted fair share with them. Prefix-cache hits
+        and prompts longer than ``max_prompt_len`` claim their slot for
+        the chunked prefill instead. A blocked candidate stops admission
+        for the tick (capacity pressure must not starve the fair
+        winner)."""
         # admission mutates slot state and block tables the async
         # pipeline's in-flight ticks already captured: the engine lands
         # every dispatched tick before the scheduler touches a slot
@@ -137,8 +287,14 @@ class Scheduler:
         kv = eng.kv
         free_slots = list(np.nonzero(eng.slot_req < 0)[0])
         admits, beam_admits = [], []
+        skip_counted: set = set()
         while self.queue and free_slots:
-            req = self.queue[0]
+            # recomputed every iteration: an admission can drain its
+            # tenant's rate bucket mid-pass
+            qi = self._pick_index(self._admission_skips(eng, skip_counted))
+            if qi is None:
+                break                      # everyone queued is deferred
+            req = self.queue[qi]
             k = req.num_beams
             p = eng._pr(req)
             # prefix-cache lookup BEFORE the capacity gate: shared blocks
@@ -158,7 +314,7 @@ class Scheduler:
                 need = eng._worst_case_blocks(req)
             if k > len(free_slots) or need > kv.free_blocks - kv.reserved:
                 kv.record_stall(need, slots_short=(k > len(free_slots)))
-                break
+                break                      # do not starve the fair winner
             if req.adapter_id is not None and eng._multilora_on():
                 # make the adapter device-resident and PIN it before the
                 # request can touch a slot. Failure (cache fully pinned,
@@ -176,12 +332,20 @@ class Scheduler:
                                   err=f"{type(e).__name__}: {e}")
                     break
                 eng._adapter_pins[req.req_id] = req.adapter_id
-            self.queue.popleft()
+            del self.queue[qi]
             req._match_memo = None
             req._adopted = ct if k == 1 else 0
             _ADMITTED.inc()
-            if req._submit_t is not None:
-                _QUEUE_WAIT.observe(max(0.0, self.clock() - req._submit_t))
+            self._charge_tenant(req, p)
+            wait = (max(0.0, self.clock() - req._submit_t)
+                    if req._submit_t is not None else None)
+            if wait is not None:
+                _QUEUE_WAIT.observe(wait)
+            if req.tenant_id is not None:
+                _TENANT_ADMITTED.inc(tenant=tenant_label(req.tenant_id))
+                if wait is not None:
+                    _TENANT_QUEUE_WAIT.observe(
+                        wait, tenant=tenant_label(req.tenant_id))
             # every cached token is prefill device work the pool did NOT
             # have to repeat
             GOODPUT.saved(ct, tenant=req.tenant_id)
@@ -190,6 +354,10 @@ class Scheduler:
                 # prefix-cache hit is device work already paid for once
                 GOODPUT.waste("replay_prefill", max(0, len(p) - ct),
                               tenant=req.tenant_id)
+                if req.tenant_id is not None:
+                    _TENANT_WASTE.inc(max(0, len(p) - ct),
+                                      tenant=tenant_label(req.tenant_id),
+                                      why="replay_prefill")
                 REQUESTS.event(req, "replayed", replica=eng.trace_name,
                                resume_tokens=len(p), cached_tokens=ct)
             REQUESTS.event(req, "admitted", replica=eng.trace_name,

@@ -1,9 +1,18 @@
 """Serving metric instruments — the subset of
 ``paddle_tpu/serving/telemetry.py`` that the single-device engine of
-this package emits (same names and meanings). Request-relative timings
+this package emits (same names, labels and help texts: health rules and
+degradation signals read metrics by name). Request-relative timings
 (TTFT, inter-token latency, queue wait) use the ENGINE clock; host work
 timings (tick, drain) the real monotonic clock.
+
+Every tenant-labeled write goes through :func:`tenant_label`, the
+cardinality guard: past ``PT_TENANT_LABEL_CAP`` distinct tenants the
+label collapses to ``__overflow__`` (counted in
+``serving_tenant_label_overflow_total``), so a tenant-id-fuzzing client
+cannot grow the registry or the Prometheus export without bound.
 """
+import os
+
 from paddle_tpu_torch.observability import METRICS
 
 _ADMITTED = METRICS.counter(
@@ -149,3 +158,102 @@ _GRAMMAR_SPEC_REJECTS = METRICS.counter(
     "serving_grammar_spec_rejects_total",
     "drafted tokens rejected by the grammar mask before the target "
     "accept rule was consulted")
+
+# ------------------------------------------------------- multi-tenancy
+# per-tenant accounting: the fair scheduler charges token budgets at
+# admission and these break the engine's aggregate goodput/waste story
+# down by tenant — a saturating tenant's waste must not hide in totals
+_TENANT_TOKENS = METRICS.counter(
+    "serving_tenant_tokens_total", "tokens emitted, by tenant",
+    labelnames=("tenant",))
+_TENANT_ADMITTED = METRICS.counter(
+    "serving_tenant_admissions_total", "requests admitted, by tenant",
+    labelnames=("tenant",))
+_TENANT_QUEUE_WAIT = METRICS.histogram(
+    "serving_tenant_queue_wait_seconds",
+    "submission → admission (engine clock), by tenant",
+    labelnames=("tenant",))
+_TENANT_WASTE = METRICS.counter(
+    "serving_tenant_waste_tokens_total",
+    "wasted work, by tenant and cause (replay_prefill, spec_rejected)",
+    labelnames=("tenant", "why"))
+# per-tenant SLO inputs: the SLOTracker computes burn rates from
+# windowed deltas of these — latency objectives from the tenant
+# histograms, availability from finished{reason} + rejections
+_TENANT_TTFT = METRICS.histogram(
+    "serving_tenant_ttft_seconds",
+    "submission → first token (engine clock), by tenant",
+    labelnames=("tenant",))
+_TENANT_TOK_LAT = METRICS.histogram(
+    "serving_tenant_token_latency_seconds",
+    "inter-token gap (engine clock), by tenant",
+    labelnames=("tenant",),
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+             1.0, 2.5))
+_TENANT_FINISHED = METRICS.counter(
+    "serving_tenant_finished_total",
+    "requests finished, by tenant and finish_reason",
+    labelnames=("tenant", "reason"))
+_TENANT_REJECTED = METRICS.counter(
+    "serving_tenant_rejections_total",
+    "admissions refused at intake for requests carrying a tenant_id, "
+    "by tenant", labelnames=("tenant",))
+
+# ------------------------------------- tenant label-cardinality guard
+_TENANT_OVERFLOW = METRICS.counter(
+    "serving_tenant_label_overflow_total",
+    "tenant-labeled metric writes collapsed into the __overflow__ label "
+    "because the distinct-tenant cap (PT_TENANT_LABEL_CAP) was reached")
+
+TENANT_OVERFLOW_LABEL = "__overflow__"
+_tenant_labels_seen: set = set()
+
+
+def tenant_label(tenant) -> str:
+    """The label value for one tenant-labeled metric write. Returns
+    ``str(tenant)`` for the first ``PT_TENANT_LABEL_CAP`` (default 64)
+    distinct tenants seen by this process, then collapses every new
+    tenant id to ``__overflow__`` and counts the collapse — bounding
+    registry cardinality against tenant-id fuzzing. The cap is read per
+    call so tests (and operators) can change it mid-flight."""
+    t = str(tenant)
+    if t in _tenant_labels_seen:
+        return t
+    try:
+        cap = int(os.environ.get("PT_TENANT_LABEL_CAP", "64"))
+    except ValueError:
+        cap = 64
+    if len(_tenant_labels_seen) < cap:
+        _tenant_labels_seen.add(t)
+        return t
+    _TENANT_OVERFLOW.inc()
+    return TENANT_OVERFLOW_LABEL
+
+
+def reset_tenant_labels():
+    """Forget the seen-tenant set (test hygiene, so one test's tenants
+    cannot exhaust another's cap)."""
+    _tenant_labels_seen.clear()
+
+
+# ------------------------------------------------ graceful degradation
+# the reaction layer: the ladder's rung and transitions, and the
+# shed/throttle skips at admission
+_DEGRADE_LEVEL = METRICS.gauge(
+    "serving_degrade_level",
+    "current degradation-ladder rung: 0 none, 1 spec off, 2 prefill "
+    "budget shrunk, 3 best-effort tenants shed, 4 new sessions rejected")
+_DEGRADE_TRANSITIONS = METRICS.counter(
+    "serving_degrade_transitions_total",
+    "degradation-ladder transitions, by direction (up/down) and target "
+    "rung", labelnames=("direction", "to"))
+_DEGRADE_SHED = METRICS.counter(
+    "serving_degrade_shed_total",
+    "admission passes that skipped a best-effort tenant while the "
+    "ladder held L3+ (requests stay queued and admit on recovery)",
+    labelnames=("tenant",))
+_TENANT_THROTTLED = METRICS.counter(
+    "serving_tenant_throttled_total",
+    "admission passes that skipped a tenant whose token bucket was "
+    "empty (max_tokens_per_s rate limit), by tenant",
+    labelnames=("tenant",))

@@ -2259,3 +2259,174 @@ def test_h100_peaks_resolve_from_the_device_name(monkeypatch):
     mbu = METRICS.get("serving_mbu").value(phase="decode")
     assert (mbu > 0.0) == (want[1] > 0.0)
     assert mbu <= 1.05
+
+
+def _rung_engine(model, draft, dev):
+    """Tenants A (weight 2), B, C (best effort) over an engine with a
+    self-draft, a held degradation controller and an SLO tracker; the
+    scheduler's clock counts steps, so both devices see one schedule."""
+    import numpy as np
+
+    from paddle_tpu_torch.observability import SLOTracker
+    from paddle_tpu_torch.serving import (DegradationController, LLMEngine,
+                                          Request)
+    ctrl = DegradationController(signals=[], down_patience=10 ** 9)
+    eng = LLMEngine(model, draft_model=draft, spec_k=2, degrade=ctrl,
+                    slo=SLOTracker(), num_slots=3, block_size=16,
+                    max_prompt_len=32, max_seq_len=160, device=dev)
+    clock = [0.0]
+    eng.sched.clock = lambda: clock[0]
+    eng.sched.set_tenant_weight("A", 2.0)
+    eng.sched.set_tenant_priority("C", "best_effort")
+    eng.sched.set_tenant_rate("C", 10.0, burst=10.0)
+    rs = np.random.RandomState(11)
+    reqs = [Request(rs.randint(0, 512, n), max_new_tokens=12, tenant_id=t)
+            for n, t in zip((9, 70, 33, 5, 48, 20, 90, 14),
+                            "AABCABCA")]
+    for r in reqs:
+        eng.add_request(r)
+    return eng, ctrl, clock, reqs
+
+
+@pytest.mark.cuda
+def test_tenant_engine_with_forced_rungs_on_card_matches_cpu():
+    """The tenant engine under a forced rung sequence (L0, L1 with a
+    self-draft, L2's shrunk chunks, L3's shedding, L4's rejection, back
+    to L0) on the card in float32 gives the CPU's greedy streams token
+    for token, with the same sheds, throttles and speculative rounds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import numpy as np
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.observability import METRICS
+    from paddle_tpu_torch.serving import OverloadError, Request
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                           num_attention_heads=2, num_key_value_heads=1,
+                           vocab_size=512, dtype=torch.float32)
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    card = LlamaForCausalLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rungs = [0] * 2 + [1] * 3 + [0] * 3 + [3] * 6 + [2] * 6
+    out = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        METRICS.reset()
+        eng, ctrl, clock, reqs = _rung_engine(model, model, dev)
+        levels = []
+        for lvl in rungs:
+            ctrl.force_level(lvl)
+            eng.step()
+            clock[0] += 0.05
+            levels.append((lvl, eng.stats["spec_ticks"], len(eng.queue)))
+        ctrl.force_level(4)
+        with pytest.raises(OverloadError):
+            eng.add_request(Request(np.arange(5), max_new_tokens=2))
+        ctrl.force_level(0)
+        while eng.has_work():
+            eng.step()
+            clock[0] += 0.05
+        eng.assert_quiescent()
+        series = {n: {k: c[0] for k, c in METRICS.get(n)._series.items()}
+                  for n in ("serving_degrade_shed_total",
+                            "serving_tenant_throttled_total",
+                            "serving_tenant_tokens_total")}
+        out.append(([r.tokens for r in reqs], levels, series,
+                    eng.stats["spec_ticks"]))
+    assert out[1] == out[0]
+    assert out[1][2]["serving_degrade_shed_total"].get(("C",), 0) > 0
+    assert out[1][2]["serving_tenant_throttled_total"].get(("C",), 0) > 0
+    spec = [n for lvl, n, _ in out[1][1] if lvl == 1]
+    assert out[1][1][1][1] > 0 and len(set(spec)) == 1   # no round at L1
+    assert out[1][3] > spec[0]                          # rounds again at L0
+
+
+@pytest.mark.cuda
+def test_scrape_during_capture_leaves_streams_and_captures_intact(
+        tmp_path, monkeypatch):
+    """A fresh engine's LoRA, biased and async graphs are captured while a
+    client hammers ``/memory`` and ``/profile`` of the metrics server from
+    another thread: no capture fails, the streams equal an unscraped
+    engine's, and the captures that ran wrote traces naming the decode
+    kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from paddle_tpu_torch.observability import httpd
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    monkeypatch.setenv("PT_PROFILE_DIR", str(tmp_path))
+    model, store = _lora_model_and_store(torch.float32)
+    store.register("a", _lora_sd(model, 3, 8))
+
+    def serve():
+        eng = LLMEngine(model, adapter_store=store, async_depth=2,
+                        num_slots=3, block_size=16, max_prompt_len=64,
+                        max_seq_len=128, seed=0)
+        rs = np.random.RandomState(4)
+        ids = [eng.add_request(Request(rs.randint(0, 512, n),
+                                       max_new_tokens=24, adapter_id=a))
+               for n, a in ((9, "a"), (40, None), (17, None), (33, "a"))]
+        eng.run()
+        eng.assert_quiescent()
+        return [eng.requests[i].tokens for i in ids], eng
+
+    want, _ = serve()
+    srv = httpd.MetricsServer(port=0, host="127.0.0.1")
+    stop, codes = threading.Event(), {}
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.port}{path}", timeout=120) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def hammer(path):
+        while not stop.is_set():
+            code, body = get(path)
+            codes.setdefault(path, []).append(code)
+            if path == "/memory" and \
+                    "cuda:0" not in json.loads(body)["device"]:
+                codes.setdefault("bad", []).append(body[:200])
+
+    threads = [threading.Thread(target=hammer, args=(p,), daemon=True,
+                                name=f"pt-test-{p[1:8]}")
+               for p in ("/memory", "/profile?seconds=0.3")]
+    def decode_named():
+        names = set()
+        for t in tmp_path.glob("*.json"):
+            with open(t) as f:
+                names |= {e.get("name", "")
+                          for e in json.load(f)["traceEvents"]}
+        return any("paged_decode" in n for n in names)
+
+    try:
+        for t in threads:
+            t.start()
+        # serve until a capture window has covered decode ticks: every
+        # engine is built, and its graphs captured, under the scraping
+        for _ in range(6):
+            got, eng = serve()
+            assert got == want
+            assert {k for k in ("_tick", "_btick", "_atick", "_ltick")
+                    if getattr(eng.exe, k, None) is not None} == \
+                {"_tick", "_btick", "_atick", "_ltick"}
+            if 200 in codes.get("/profile?seconds=0.3", ()) and \
+                    decode_named():
+                break
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        srv.stop()
+    assert codes["/memory"] and set(codes["/memory"]) == {200}
+    assert "bad" not in codes, codes["bad"]
+    assert 200 in codes["/profile?seconds=0.3"]
+    assert set(codes["/profile?seconds=0.3"]) <= {200, 409}
+    assert decode_named()

@@ -90,9 +90,13 @@ def test_eos_cancel_drain_and_refusals():
     assert eng2.requests[r].tokens == [first]
     assert eng2.requests[r].finish_reason == "eos"
     eng2.assert_quiescent()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng2.add_request(Request([1, 2], tenant_id="t0"))
-    for kw in (dict(cp=2), dict(degrade=object())):
+    # tenants are served; context parallelism and prefill-only replicas
+    # are still refused by name
+    rt = eng2.add_request(Request([1, 2], max_new_tokens=3, tenant_id="t0"))
+    eng2.run()
+    assert len(eng2.requests[rt].tokens) <= 3
+    eng2.assert_quiescent()
+    for kw in (dict(cp=2), dict(prefill_only=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             LLMEngine(tm, **kw)
 

@@ -135,6 +135,7 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
         "beam_serve": K.BEAM_SERVE_KERNELS,
         "beam_serve_i8": K.BEAM_SERVE_I8_KERNELS,
         "grammar_serve": K.GRAMMAR_SERVE_KERNELS,
+        "tenant_serve": K.TENANT_SERVE_KERNELS,
         "gemma_train": K.GEMMA_TRAIN_KERNELS,
         "gemma7b_serve": K.GEMMA_SERVE_KERNELS,
         "gptj_serve": K.GPTJ_SERVE_KERNELS,

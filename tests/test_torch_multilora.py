@@ -298,8 +298,11 @@ def test_add_request_validates_adapter(model, store):
     no_store = LLMEngine(model, device="cpu", **ENG)
     with pytest.raises(ValueError):
         no_store.add_request(Request(p, adapter_id="t1"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.add_request(Request(p, adapter_id="t1", tenant_id="a"))
+    # a tenant's request under an adapter is served like any other
+    rid = eng.add_request(Request(p, max_new_tokens=2, adapter_id="t1",
+                                  tenant_id="a"))
+    assert len(eng.run()[rid]) == 2
+    eng.assert_quiescent()
 
 
 # ------------------------------------------------- against the reference
