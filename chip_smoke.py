@@ -193,6 +193,35 @@ Phases (each one fails the run when it fails; nothing is caught):
             must name the decode kernels (``paged_decode``,
             ``rope_kv``): its wall and bytes; the shipper's lines carry
             deltas and the ``device_bytes_*`` gauges of the card
+  hf_load   the serve phase's model written as an HF checkpoint directory
+            (meta-llama/Llama-2-7b-hf's config.json, bf16 safetensors
+            shards of at most 5 GB in HF's names and [out, in] layouts,
+            written by this script) and read back onto the card with
+            ``models.auto.auto_from_pretrained(dir, dtype=bf16)``: every
+            parameter bit-equal to the served model's; the same for
+            Qwen1.5-MoE-A2.7B's widths at 2 layers (expert stacks, the fp32
+            router). Seconds to write and to load, the host's peak RSS in
+            each, the device bytes; the directories (under TMPDIR) are
+            deleted (with too little room there for 13.5 GB, the first 8
+            layers only)
+  router_serve  the serve mix through ``serving.Router`` on hf_load's
+            reloaded model, each replica built with the serve phase's
+            engine arguments: (a) two "both" replicas sharing the model,
+            in sequential rounds and with ``run(parallel=True)``; (b) a
+            prefill-role and a decode-role replica, every sequence handed
+            over sealed (12 transfers); (c) (b) over int8 pools on
+            quant_serve's quantized model. Greedy rows equal serve's in (a)
+            and (b) and quant_serve's in (c); tokens/s and TTFT, the
+            handoffs' blocks, bytes and ms (p50, p95), each replica's
+            launches (graph replays counted)
+  router_check  at the same width: a corrupted shipment
+            (``router.kv_partial``) rejected by validation and retried
+            exactly once; a failed extraction (``router.kv_transfer``)
+            requeued with no leaked block; two replica deaths, requeued
+            exactly once and then restored from a snapshot
+            (``snapshot_every=1``); ``drain_replica`` on the prefill
+            replica mid-chunk flushing its handoffs; a bf16 replica
+            refusing an int8 payload by name; every replica quiescent
   spec_check  (a) at 4 layers, float32: greedy speculative streams with
             both drafts (TinyLlama's widths cut to 4 layers too) equal the
             non-speculative engine's token for token; (b) at 7B bf16 one
@@ -362,7 +391,9 @@ under the same measurement in one call: parent, change, change, parent.
 The line before the last is a JSON object with one entry per kernel and
 path (``"path": "serve"``, ``"async_serve"``, ``"lora_serve"``,
 ``"spec_serve"``, ``"beam_serve"``, ``"beam_serve_i8"``,
-``"grammar_serve"``, ``"tenant_serve"``, ``"train"``, ``"moe_serve"``,
+``"grammar_serve"``, ``"tenant_serve"``, ``"router_serve"``,
+``"router_serve_disagg"``, ``"router_serve_i8"``, ``"router_check"``,
+``"train"``, ``"moe_serve"``,
 ``"moe_train"``,
 ``"window_serve"``, ``"quant_serve"``, ``"bloom_serve"``, ``"bloom_train"``,
 ``"falcon_rw_serve"``, ``"falcon_rw_train"``, ``"falcon7b_serve"``,
@@ -386,6 +417,7 @@ import argparse
 import dataclasses
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -447,7 +479,8 @@ SOURCES = {
 # LORA_SERVE_KERNELS / SPEC_SERVE_KERNELS / BEAM_SERVE_KERNELS /
 # BEAM_SERVE_I8_KERNELS / GRAMMAR_SERVE_KERNELS / TENANT_SERVE_KERNELS /
 # GEMMA_TRAIN_KERNELS /
-# GEMMA_SERVE_KERNELS / GPTJ_SERVE_KERNELS / GPTJ_TRAIN_KERNELS, spelled
+# GEMMA_SERVE_KERNELS / GPTJ_SERVE_KERNELS / GPTJ_TRAIN_KERNELS /
+# ROUTER_SERVE_KERNELS / ROUTER_SERVE_I8_KERNELS, spelled
 # out here so that
 # --root can load an earlier tree that lacks them (a kernel that such a
 # tree does not have is then left out of its checks)
@@ -489,7 +522,15 @@ PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
                          "rope"),
          "gemma7b_serve": ("flash_fwd", "rope"),
          "gptj_serve": ("flash_fwd",),
-         "gptj_train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+         "gptj_train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+         "router_serve": ("rms_norm", "flash_fwd", "paged_chunk",
+                          "paged_decode", "rope", "rope_kv"),
+         "router_serve_disagg": ("rms_norm", "flash_fwd", "paged_chunk",
+                                 "paged_decode", "rope", "rope_kv"),
+         "router_serve_i8": ("rms_norm", "flash_fwd", "paged_chunk_i8",
+                             "paged_decode_i8", "rope"),
+         "router_check": ("rms_norm", "flash_fwd", "paged_chunk",
+                          "paged_decode", "rope", "rope_kv")}
 # kernels of PATHS that the imported tree does not have (only with --root)
 ABSENT: set = set()
 # the train check: share of the fp32 gradients' RMS that each bf16 path
@@ -1009,6 +1050,12 @@ def phase_kernels(torch, dev):
             **{k: results["serve"][k] for k in ("rms_norm", "flash_fwd")},
             "rope": rope_decode, **int8_kernel_entries(torch, dev)}
         results["beam_serve_i8"] = results["quant_serve"]
+        results["router_serve_i8"] = results["quant_serve"]
+    # the router's replicas run the serve geometry: the serve path's shapes
+    # (a prefill replica the prefill kernels, a decode replica K4 and K7's
+    # fold at the decode shape)
+    for path in ("router_serve", "router_serve_disagg", "router_check"):
+        results[path] = results["serve"]
     torch.cuda.synchronize()
     for path, rs in results.items():
         for name, r in rs.items():
@@ -3378,9 +3425,10 @@ def phase_graph_check(torch, dev, model, np, kv_dtype=None):
 def phase_quant_serve(torch, dev, model, np, serve_stats):
     """The serve mix over an int8 KV pool with ``model`` (already
     weight-only quantized): the int8 modes of K3/K4 must run and the bf16
-    ones not at all. Prints its metrics beside the serve phase's."""
-    counts, _, stats = phase_serve(torch, dev, model, np, "quant_serve",
-                                   kv_dtype="int8")
+    ones not at all. Prints its metrics beside the serve phase's.
+    Returns (launch counts, the requests)."""
+    counts, reqs, stats = phase_serve(torch, dev, model, np, "quant_serve",
+                                      kv_dtype="int8")
     bf16 = {k: counts[k] for k in ("paged_chunk", "paged_decode")}
     if any(bf16.values()):
         raise AssertionError(f"quant_serve launched the bf16 paged kernels: "
@@ -3390,7 +3438,7 @@ def phase_quant_serve(torch, dev, model, np, serve_stats):
                       ("weight_bytes", "bytes"), ("peak_gib", "GiB")):
         log(f"[quant_serve] {key}: {stats[key]:.4f} {unit} (int8 weights, "
             f"int8 KV) vs {serve_stats[key]:.4f} {unit} (serve: bf16)")
-    return counts
+    return counts, reqs
 
 
 # ------------------------------------------------------------------ check
@@ -5650,13 +5698,747 @@ def phase_endpoint_check(torch, dev, model, np, want):
                              f"deltas or the CUDA memory gauges: {mem}")
 
 
+# --------------------------------------------- HF checkpoints and router
+HF_SHARD_BYTES = 5 * 10 ** 9        # shards of at most 5 GB, as HF writes
+HF_CUT_LAYERS = 8                   # the depth cut when temp space is short
+# meta-llama/Llama-2-7b-hf's config.json, field by field (its shards are
+# float16; these hold the served model's bf16 weights, so the dtype field
+# says bfloat16)
+LLAMA2_7B_HF = {
+    "architectures": ["LlamaForCausalLM"], "bos_token_id": 1,
+    "eos_token_id": 2, "hidden_act": "silu", "hidden_size": 4096,
+    "initializer_range": 0.02, "intermediate_size": 11008,
+    "max_position_embeddings": 4096, "model_type": "llama",
+    "num_attention_heads": 32, "num_hidden_layers": 32,
+    "num_key_value_heads": 32, "pretraining_tp": 1, "rms_norm_eps": 1e-05,
+    "rope_scaling": None, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 32000}
+# Qwen/Qwen1.5-MoE-A2.7B's config.json (qwen_moe_config's source), cut to
+# HF_MOE_LAYERS layers
+QWEN_MOE_HF = {
+    "architectures": ["Qwen2MoeForCausalLM"], "attention_dropout": 0.0,
+    "bos_token_id": 151643, "decoder_sparse_step": 1,
+    "eos_token_id": 151643, "hidden_act": "silu", "hidden_size": 2048,
+    "initializer_range": 0.02, "intermediate_size": 5632,
+    "max_position_embeddings": 8192, "max_window_layers": 21,
+    "model_type": "qwen2_moe", "moe_intermediate_size": 1408,
+    "norm_topk_prob": False, "num_attention_heads": 16,
+    "num_experts": 60, "num_experts_per_tok": 4, "num_hidden_layers": 24,
+    "num_key_value_heads": 16, "output_router_logits": False,
+    "rms_norm_eps": 1e-06, "rope_theta": 1000000.0,
+    "router_aux_loss_coef": 0.001, "shared_expert_intermediate_size": 5632,
+    "sliding_window": 32768, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "use_cache": True,
+    "use_sliding_window": False, "vocab_size": 151936}
+HF_MOE_LAYERS = 2
+# the router arms' engines: the serve phase's geometry
+ROUTER_ENGINE = dict(num_slots=8, block_size=16, max_prompt_len=128,
+                     max_seq_len=512, num_blocks=256, seed=0)
+# the serve mix's requests 5, 8 and 9 share a 64-token prefix: one session
+# id, so that affinity keeps them on the replica holding the prefix
+ROUTER_SESSION = (5, 8, 9)
+# router_check's requests: the serve mix's 0, 1, 2 (whole-prompt) and 6
+# (300 tokens, chunked); the death case takes 0-5
+CHECK_ROWS = (0, 1, 2, 6)
+DEATH_ROWS = (0, 1, 2, 3, 4, 5)
+
+
+def _hf_attention(p, att, nh, nkv, d):
+    """A Llama-family attention's HF tensors ([out, in]) from the port's
+    fused ``qkv_proj`` [h, (nh + 2 nkv) d] (and ``qkv_bias``)."""
+    sizes = [nh * d, nkv * d, nkv * d]
+    q, k, v = att.qkv_proj.split(sizes, dim=1)
+    out = [(p + "self_attn.q_proj.weight", q.T),
+           (p + "self_attn.k_proj.weight", k.T),
+           (p + "self_attn.v_proj.weight", v.T),
+           (p + "self_attn.o_proj.weight", att.o_proj.T)]
+    if att.qkv_bias is not None:
+        qb, kb, vb = att.qkv_bias.split(sizes)
+        out += [(p + "self_attn.q_proj.bias", qb),
+                (p + "self_attn.k_proj.bias", kb),
+                (p + "self_attn.v_proj.bias", vb)]
+    return out
+
+
+def _hf_norms(p, lyr):
+    return [(p + "input_layernorm.weight", lyr.input_layernorm.weight),
+            (p + "post_attention_layernorm.weight",
+             lyr.post_attention_layernorm.weight)]
+
+
+def _hf_gated(p, gate_up, down):
+    g, u = gate_up.chunk(2, dim=-1)
+    return [(p + "gate_proj.weight", g.T), (p + "up_proj.weight", u.T),
+            (p + "down_proj.weight", down.T)]
+
+
+def hf_llama_tensors(model, layers=None):
+    """(HF name, device tensor in HF's layout) of a port
+    ``LlamaForCausalLM``'s first ``layers`` layers (all by default)."""
+    cfg, m = model.cfg, model.model
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    d = cfg.hidden_size // nh
+    out = [("model.embed_tokens.weight", m.embed_tokens),
+           ("model.norm.weight", m.norm.weight),
+           ("lm_head.weight", model.lm_head.T)]
+    for i, lyr in enumerate(m.layers[:layers]):
+        p = f"model.layers.{i}."
+        out += _hf_attention(p, lyr.self_attn, nh, nkv, d)
+        out += _hf_gated(p + "mlp.", lyr.mlp.gate_up_proj, lyr.mlp.down_proj)
+        out += _hf_norms(p, lyr)
+    return out
+
+
+def hf_qwen_moe_tensors(model):
+    """The same for a port ``Qwen2MoeForCausalLM``: the expert stacks
+    split into HF's per-expert linears, the router ``gate`` kept in fp32
+    (the port's ``gate_w``; HF writes it in the model's type, which would
+    not reload bit for bit)."""
+    cfg = model.cfg
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    d = cfg.hidden_size // nh
+    out = [("model.embed_tokens.weight", model.embed_tokens),
+           ("model.norm.weight", model.norm.weight),
+           ("lm_head.weight", model.lm_head.T)]
+    for i, lyr in enumerate(model.layers):
+        p = f"model.layers.{i}."
+        out += _hf_attention(p, lyr.self_attn, nh, nkv, d) + _hf_norms(p, lyr)
+        blk = lyr.mlp
+        out.append((p + "mlp.gate.weight", blk.moe.gate_w.T))
+        ex = blk.moe.experts
+        for e in range(cfg.num_experts):
+            out += _hf_gated(p + f"mlp.experts.{e}.", ex.gate_up[e],
+                             ex.down[e])
+        out += _hf_gated(p + "mlp.shared_expert.", blk.shared_gate_up,
+                         blk.shared_down)
+        out.append((p + "mlp.shared_expert_gate.weight", blk.shared_gate.T))
+    return out
+
+
+def write_hf_checkpoint(torch, path, tensors, config):
+    """An HF checkpoint directory: ``config.json`` and safetensors shards
+    of at most HF_SHARD_BYTES (an 8-byte little-endian header length, the
+    JSON header padded to 8 bytes, then each tensor's raw little-endian
+    bytes). Returns the bytes written."""
+    tags = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    shards, size = [[]], 0
+    for name, t in tensors:
+        nb = t.numel() * t.element_size()
+        if shards[-1] and size + nb > HF_SHARD_BYTES:
+            shards.append([])
+            size = 0
+        shards[-1].append((name, t))
+        size += nb
+    total = 0
+    for i, items in enumerate(shards, 1):
+        fn = f"model-{i:05d}-of-{len(shards):05d}.safetensors"
+        header, off = {"__metadata__": {"format": "pt"}}, 0
+        for name, t in items:
+            nb = t.numel() * t.element_size()
+            header[name] = {"dtype": tags[t.dtype], "shape": list(t.shape),
+                            "data_offsets": [off, off + nb]}
+            off += nb
+        hb = json.dumps(header).encode()
+        hb += b" " * (-len(hb) % 8)
+        with open(os.path.join(path, fn), "wb") as f:
+            f.write(struct.pack("<Q", len(hb)))
+            f.write(hb)
+            for _, t in items:
+                host = t.detach().contiguous().cpu().reshape(-1)
+                f.write(host.view(torch.uint8).numpy())
+        total += 8 + len(hb) + off
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    return total
+
+
+def _rss():
+    """{VmRSS, RssAnon, RssFile: bytes} of this process (the keys the
+    kernel's /proc/self/status reports)."""
+    out = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            k, _, v = line.partition(":")
+            if k in ("VmRSS", "RssAnon", "RssFile"):
+                out[k] = int(v.split()[0]) * 1024
+    return out
+
+
+class _RssPeak:
+    """The peaks of ``_rss()`` while the block runs, sampled every 10 ms
+    on a thread of its own (joined on exit)."""
+
+    def __enter__(self):
+        import threading
+        self.start = _rss()
+        self.peak = dict(self.start)
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.01):
+                for k, v in _rss().items():
+                    self.peak[k] = max(self.peak.get(k, 0), v)
+        self._t = threading.Thread(target=sample, name="pt-rss", daemon=True)
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        for k, v in _rss().items():
+            self.peak[k] = max(self.peak.get(k, 0), v)
+
+
+def _gib(n):
+    return f"{n / 2**30:.2f} GiB"
+
+
+def _rss_text(peak):
+    return ", ".join(f"{k} {_gib(v)}" for k, v in sorted(peak.items())) \
+        or "not reported"
+
+
+def _hf_round_trip(torch, label, tensors, config, want, load_fn):
+    """Write ``tensors`` as an HF checkpoint, load it with ``load_fn(dir)``
+    and hold every parameter of the result to ``want`` ({name: tensor})
+    bit for bit. Logs the seconds to write and to load, the host's peak
+    RSS in each and the device bytes the load added; deletes the
+    directory (under TMPDIR). Returns the loaded model."""
+    import shutil
+    import tempfile
+    need = sum(t.numel() * t.element_size() for _, t in tensors)
+    path = tempfile.mkdtemp(prefix="hf_load_")
+    try:
+        torch.cuda.synchronize()
+        with _RssPeak() as wpk:
+            t0 = time.monotonic()
+            nbytes = write_hf_checkpoint(torch, path, tensors, config)
+            t_write = time.monotonic() - t0
+        shards = sorted(fn for fn in os.listdir(path)
+                        if fn.endswith(".safetensors"))
+        dev0 = torch.cuda.memory_allocated()
+        with _RssPeak() as lpk:
+            t0 = time.monotonic()
+            loaded = load_fn(path)
+            torch.cuda.synchronize()
+            t_load = time.monotonic() - t0
+        dev_bytes = torch.cuda.memory_allocated() - dev0
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    got = dict(loaded.named_parameters())
+    if set(got) != set(want):
+        raise AssertionError(f"[{label}] parameters differ: "
+                             f"{sorted(set(got) ^ set(want))[:8]}")
+    bad = [n for n, p in want.items()
+           if got[n].dtype != p.dtype or not torch.equal(got[n], p)]
+    if bad:
+        raise AssertionError(f"[{label}] reloaded parameters not bit-equal: "
+                             f"{bad[:8]}")
+    card = card_line()
+    log(f"[{label}] {len(shards)} shards, {_gib(nbytes)} written in "
+        f"{t_write:.2f} s ({nbytes / t_write / 2**30:.2f} GiB/s; host peak "
+        f"{_rss_text(wpk.peak)}; before {_rss_text(wpk.start)}); "
+        f"auto_from_pretrained in {t_load:.2f} s ({need / t_load / 2**30:.2f}"
+        f" GiB/s; host peak {_rss_text(lpk.peak)}); device bytes "
+        f"{_gib(dev_bytes)}; {len(want)} parameters bit-equal ({card})")
+    return loaded
+
+
+def phase_hf_load(torch, dev, model):
+    """The serve phase's Llama-2-7B as an HF checkpoint directory (bf16
+    shards of at most 5 GB, HF names and [out, in] layouts,
+    meta-llama/Llama-2-7b-hf's config.json) read back by
+    ``auto_from_pretrained(dir, dtype=torch.bfloat16)`` onto the card,
+    every parameter bit-equal to the served model's; then Qwen1.5-MoE-
+    A2.7B's widths at HF_MOE_LAYERS layers (the expert stacks, the fp32
+    router). Returns the reloaded Llama (None when the temp space forced
+    the HF_CUT_LAYERS cut: the router phases then serve the served
+    model)."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.models.auto import auto_from_pretrained
+    need = sum(p.numel() * p.element_size() for p in model.parameters())
+    room = shutil.disk_usage(tempfile.gettempdir()).free
+    log(f"[hf_load] {tempfile.gettempdir()}: {_gib(room)} free, "
+        f"{_gib(need)} needed")
+    layers, cfg = None, dict(LLAMA2_7B_HF)
+    if room < 1.05 * need:
+        layers = HF_CUT_LAYERS
+        cfg["num_hidden_layers"] = layers
+        log(f"[hf_load] {_gib(room)} of temp space cannot hold "
+            f"{_gib(need)}: the first {layers} layers at full width")
+    tensors = hf_llama_tensors(model, layers)
+    want = {n: p for n, p in model.named_parameters()
+            if not n.startswith("model.layers.")
+            or int(n.split(".")[2]) < (layers or 10 ** 9)}
+    loaded = _hf_round_trip(
+        torch, "hf_load", tensors, cfg, want,
+        lambda d: auto_from_pretrained(d, dtype=torch.bfloat16, device=dev))
+    del tensors
+    from paddle_tpu_torch.models.qwen2_moe import Qwen2MoeForCausalLM
+    moe = Qwen2MoeForCausalLM(qwen_moe_config(HF_MOE_LAYERS), device=dev,
+                              seed=0)
+    mwant = dict(moe.named_parameters())
+    if mwant["layers.0.mlp.moe.gate_w"].dtype != torch.float32:
+        raise AssertionError("the MoE router's gate_w is not fp32")
+    mloaded = _hf_round_trip(
+        torch, "hf_load qwen1.5-moe", hf_qwen_moe_tensors(moe),
+        {**QWEN_MOE_HF, "num_hidden_layers": HF_MOE_LAYERS}, mwant,
+        lambda d: auto_from_pretrained(d, dtype=torch.bfloat16, device=dev))
+    if mloaded.cfg.sliding_window is not None:
+        raise AssertionError("use_sliding_window=false was not honoured")
+    del moe, mloaded, mwant
+    torch.cuda.empty_cache()
+    if layers is not None:
+        del loaded
+        torch.cuda.empty_cache()
+        return None
+    return loaded
+
+
+def _free_cycles(torch):
+    """Collect the reference cycles the wrappers close (an engine's
+    counted ``step`` holds the engine), then return the freed blocks to
+    the card."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _router_engine(torch, dev, model, **kw):
+    from paddle_tpu_torch.serving import LLMEngine
+    eng = LLMEngine(model, **ROUTER_ENGINE, device=dev, **kw)
+    eng.exe.tick_log = []
+    return eng
+
+
+def _count_steps(eng):
+    """Wrap ``eng.step`` so that the launches each of its steps adds are
+    summed into the returned dict (the router steps its replicas one after
+    another, so each replica's launches are told apart)."""
+    from paddle_tpu_torch.ops import cuda as K
+    acc, step = {}, eng.step
+
+    def counted():
+        before = K.launches()
+        try:
+            return step()
+        finally:
+            for k, v in K.launches().items():
+                if v != before.get(k, 0):
+                    acc[k] = acc.get(k, 0) + v - before.get(k, 0)
+    eng.step = counted
+    return acc
+
+
+def _time_handoffs(torch, router):
+    """Wrap the replicas' ``extract_sequence`` / ``install_sequence`` and
+    the router's ``_deliver`` (ship + validation): seconds of each by
+    request id, each timed from a synchronised card (so that the seal's
+    fetch does not wait for a replica's queued tick) to its own
+    synchronised end, and the payloads' bytes and blocks."""
+    rec = {"extract": {}, "deliver": {}, "install": {}, "bytes": 0,
+           "blocks": 0, "payloads": 0}
+
+    def add(kind, rid, dt):
+        rec[kind][rid] = rec[kind].get(rid, 0.0) + dt
+
+    for rep in router.replicas:
+        eng = rep.engine
+
+        def extract(rid, _f=eng.extract_sequence):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            p = _f(rid)
+            torch.cuda.synchronize()
+            add("extract", rid, time.perf_counter() - t)
+            rec["bytes"] += p.tokens_bytes
+            rec["blocks"] += p.n_blocks
+            rec["payloads"] += 1
+            return p
+
+        def install(payload, _f=eng.install_sequence):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ok = _f(payload)
+            torch.cuda.synchronize()
+            if ok:
+                add("install", payload.req.req_id, time.perf_counter() - t)
+            return ok
+        eng.extract_sequence, eng.install_sequence = extract, install
+    deliver = router._deliver
+
+    def timed_deliver(payload, rep):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            return deliver(payload, rep)
+        finally:
+            torch.cuda.synchronize()
+            add("deliver", payload.req.req_id, time.perf_counter() - t)
+    router._deliver = timed_deliver
+    return rec
+
+
+def _router_mix(np, vocab, rows=None):
+    """The serve mix (or its ``rows``), the prefix-sharing requests in one
+    session."""
+    reqs = serve_requests(np.random.RandomState(0), vocab)
+    for i in ROUTER_SESSION:
+        reqs[i].session_id = "shared-prefix"
+    return reqs if rows is None else [reqs[i] for i in rows]
+
+
+def _router_run(torch, np, router, reqs, label, path, parallel=False):
+    """Serve ``reqs`` through ``router``: every request must finish and
+    every replica end quiescent; with ``path``, every kernel of
+    ``PATHS[path]`` must have launched in this run. Returns (launch
+    counts, {metric: value})."""
+    from paddle_tpu_torch.ops import cuda as K
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.monotonic()
+    for r in reqs:
+        router.add_request(r)
+    router.run(parallel=parallel)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = K.launches()
+    for r in reqs:
+        if not r.done or r.finish_reason not in ("length", "eos"):
+            raise AssertionError(f"[{label}] request {r.req_id} did not "
+                                 f"finish: {r.finish_reason}")
+    router.assert_quiescent()
+    for rep in router.replicas:
+        rep.engine.assert_quiescent()
+    if path is not None:
+        missing = _missing(path, counts)
+        if missing:
+            raise AssertionError(f"[{label}] kernels not launched: "
+                                 f"{missing} ({counts})")
+    ntok = sum(len(r.tokens) for r in reqs)
+    ttft = [r._first_tok_t - r._submit_t for r in reqs]
+    stats = dict(tokens_s=ntok / wall, wall=wall,
+                 ttft_mean_ms=1e3 * sum(ttft) / len(ttft),
+                 ttft_max_ms=1e3 * max(ttft), stats=dict(router.stats))
+    log(f"[{label}] {len(reqs)} requests, {ntok} tokens in {wall:.3f} s: "
+        f"{stats['tokens_s']:.1f} tokens/s; mean TTFT "
+        f"{stats['ttft_mean_ms']:.1f} ms, max {stats['ttft_max_ms']:.1f} ms;"
+        f" router {router.stats} ({card_line()})")
+    return counts, stats
+
+
+def _log_replicas(torch, label, router, per):
+    """Each replica's launches in the run (graph replays counted) and its
+    decode-tick replays."""
+    card = card_line()
+    for rep in router.replicas:
+        ticks = _tick_stats(torch, rep.engine.exe)
+        replays = sum(n for n, _, _ in ticks.values())
+        log(f"[{label}] replica {rep.name} ({rep.role}): launches "
+            f"{dict(sorted(per[rep.name].items()))}; {replays} decode-tick "
+            f"graph replays ({card})")
+
+
+def _handoff_stats(label, rec, np):
+    rids = sorted(rec["install"])
+    ms = np.array([1e3 * (rec["extract"].get(r, 0.0)
+                          + rec["deliver"].get(r, 0.0) + rec["install"][r])
+                   for r in rids])
+    out = dict(transfers=len(rids), blocks=rec["blocks"],
+               bytes=rec["bytes"], payloads=rec["payloads"],
+               p50_ms=float(np.percentile(ms, 50)),
+               p95_ms=float(np.percentile(ms, 95)),
+               extract_ms=1e3 * float(np.mean(list(rec["extract"].values()))),
+               deliver_ms=1e3 * float(np.mean(list(rec["deliver"].values()))),
+               install_ms=1e3 * float(np.mean(list(rec["install"].values()))))
+    log(f"[{label}] handoffs: {out['transfers']} installed, "
+        f"{out['blocks']} blocks, {out['bytes'] / 2**20:.1f} MiB moved "
+        f"({out['bytes'] / max(out['blocks'], 1) / 2**20:.2f} MiB a block); "
+        f"extract + ship/validate + install p50 {out['p50_ms']:.2f} ms, "
+        f"p95 {out['p95_ms']:.2f} ms (means: extract {out['extract_ms']:.2f}"
+        f", ship/validate {out['deliver_ms']:.2f}, install "
+        f"{out['install_ms']:.2f} ms) ({card_line()})")
+    return out
+
+
+def _disagg_arm(torch, dev, np, model, label, path, want, kv_dtype=None):
+    """Arm (b) / (c): one prefill-role and one decode-role replica; 12
+    transfers, the prefill replica never decodes and the decode replica
+    never prefills, greedy rows equal to ``want``."""
+    from paddle_tpu_torch.serving import Replica, Router
+    kw = {} if kv_dtype is None else dict(kv_dtype=kv_dtype)
+    chunk, decode = (("paged_chunk_i8", "paged_decode_i8") if kv_dtype
+                     else ("paged_chunk", "paged_decode"))
+    router = Router([Replica(_router_engine(torch, dev, model, **kw),
+                             name="p0", role="prefill"),
+                     Replica(_router_engine(torch, dev, model, **kw),
+                             name="d0", role="decode")])
+    per = {rep.name: _count_steps(rep.engine) for rep in router.replicas}
+    rec = _time_handoffs(torch, router)
+    reqs = _router_mix(np, model.cfg.vocab_size)
+    counts, stats = _router_run(torch, np, router, reqs, label, path)
+    _log_replicas(torch, label, router, per)
+    stats["handoff"] = _handoff_stats(label, rec, np)
+    if router.stats["transfers"] != 12 or stats["handoff"]["transfers"] != 12:
+        raise AssertionError(f"[{label}] {router.stats['transfers']} "
+                             f"transfers, not 12")
+    p, d = per["p0"], per["d0"]
+    if p.get(decode, 0) or p.get("rope_kv", 0) or \
+            router.replicas[0].engine.exe.tick_log:
+        raise AssertionError(f"[{label}] the prefill replica decoded: {p}")
+    if d.get("flash_fwd", 0) or d.get(chunk, 0):
+        raise AssertionError(f"[{label}] the decode replica prefilled: {d}")
+    same = _greedy_rows(reqs) == want
+    log(f"[{label}] greedy rows token for token the single engine's: "
+        f"{same}")
+    if not same:
+        raise AssertionError(f"[{label}] greedy streams differ from the "
+                             f"single engine's")
+    stats["per_replica"] = per
+    del router
+    _free_cycles(torch)
+    return counts, stats
+
+
+def phase_router_serve(torch, dev, model, np, serve_reqs, serve_stats):
+    """The 12-request serve mix through ``Router`` at the serve phase's
+    engine arguments, on ``model`` (hf_load's reload). (a) Two "both"
+    replicas sharing the model: sequential rounds (each replica's
+    launches counted apart), then ``run(parallel=True)`` (one
+    thread per replica; every tick graph was captured when its engine was
+    built); (b) disaggregated: a prefill-role and a decode-role replica,
+    every sequence handed over sealed (12 transfers). Greedy rows equal the
+    serve phase's in each. Logs tokens/s and TTFT beside serve's, the
+    handoffs' blocks, bytes and ms, each replica's launches. Returns
+    {path: launch counts}."""
+    from paddle_tpu_torch.serving import Replica, Router
+    want = _greedy_rows(serve_reqs)
+    vocab = model.cfg.vocab_size
+    out = {}
+    for parallel in (False, True):
+        label = "router_serve" + (" parallel" if parallel else "")
+        router = Router([Replica(_router_engine(torch, dev, model)),
+                         Replica(_router_engine(torch, dev, model))])
+        per = ({} if parallel else
+               {rep.name: _count_steps(rep.engine) for rep in router.replicas})
+        reqs = _router_mix(np, vocab)
+        counts, stats = _router_run(torch, np, router, reqs, label,
+                                    None if parallel else "router_serve",
+                                    parallel=parallel)
+        if not parallel:
+            out["router_serve"] = counts
+            _log_replicas(torch, label, router, per)
+        hits = sum(rep.engine.mgr.cache_stats.get("token_hits", 0)
+                   for rep in router.replicas)
+        spread = [rep.engine.stats["ticks"] for rep in router.replicas]
+        same = _greedy_rows(reqs) == want
+        log(f"[{label}] greedy rows token for token serve's: {same}; "
+            f"prefix token hits {hits}; decode ticks per replica {spread}; "
+            f"{stats['tokens_s']:.1f} tokens/s against serve's "
+            f"{serve_stats['tokens_s']:.1f} ({card_line()})")
+        if not same:
+            raise AssertionError(f"[{label}] greedy streams differ from the "
+                                 f"serve phase's")
+        if hits <= 0 or min(spread) <= 0:
+            raise AssertionError(f"[{label}] no prefix hit ({hits}) or an "
+                                 f"idle replica ({spread})")
+        del router
+        _free_cycles(torch)
+    out["router_serve_disagg"], _ = _disagg_arm(
+        torch, dev, np, model, "router_serve disagg", "router_serve_disagg",
+        want)
+    return out
+
+
+def phase_router_serve_i8(torch, dev, model, np, quant_reqs):
+    """Arm (c): arm (b) over int8 pools on quant_serve's weight-only int8
+    model; its greedy rows equal quant_serve's."""
+    counts, _ = _disagg_arm(torch, dev, np, model, "router_serve i8",
+                            "router_serve_i8", _greedy_rows(quant_reqs),
+                            kv_dtype="int8")
+    return counts
+
+
+def _corrupt(ctx):
+    """A zeroed COPY of the shipped payload (the source stays pristine for
+    the retry)."""
+    import torch
+    p = ctx["payload"]
+    return dataclasses.replace(p, k=torch.zeros_like(p.k))
+
+
+def phase_router_check(torch, dev, model, np, serve_reqs):
+    """The router's failure paths at Llama-2-7B width on the card, over
+    three engines of the serve geometry (p0, d0, d1) reused across the
+    cases: (1) ``router.kv_partial`` corrupts the first shipment:
+    validation rejects it, one retry installs the pristine payload, the
+    greedy rows equal serve's; (2) ``router.kv_transfer`` faults one
+    extraction: the request is requeued once, no block leaks; (3) three
+    "both" replicas with ``snapshot_every=1``: r0 dies, its requests are
+    requeued once each, then r1 dies and the request that lost both is
+    restored from its snapshot, none fails; (4) ``drain_replica`` on the
+    prefill replica with a 300-token prompt mid-chunk flushes its
+    handoffs; (5) a bf16 replica refuses an int8 payload by name
+    (validation and install); every engine ends quiescent. Returns the
+    launch counts."""
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.serving import (KVTransferError, Replica, Request,
+                                          Router, validate_payload)
+    from paddle_tpu_torch.utils.faults import FAULTS, InjectedFault
+    card = card_line()
+    p0, d0, d1 = (_router_engine(torch, dev, model) for _ in range(3))
+    engines = [p0, d0, d1]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.monotonic()
+
+    def mix(rows):
+        return [Request(serve_reqs[i].prompt, max_new_tokens=32)
+                for i in rows]
+
+    def quiescent():
+        for e in engines:
+            e.assert_quiescent()
+
+    def series(name):
+        return {k: v for k, v in _series_now(name).items() if v}
+
+    def pd(a, b):
+        return Router([Replica(a, name="p0", role="prefill"),
+                       Replica(b, name="d0", role="decode")])
+    # (1) a partial shipment, retried once from the pristine payload
+    retries0 = series("router_transfer_retries_total")
+    r = pd(p0, d0)
+    reqs = mix(CHECK_ROWS)
+    with FAULTS.scope("router.kv_partial", on={0}, action=_corrupt):
+        for q in reqs:
+            r.add_request(q)
+        r.run()
+    r.assert_quiescent()
+    quiescent()
+    retries = {k: v - retries0.get(k, 0) for k, v in
+               series("router_transfer_retries_total").items()
+               if v != retries0.get(k, 0)}
+    want = [list(serve_reqs[i].tokens) for i in CHECK_ROWS]
+    same = [list(q.tokens) for q in reqs] == want
+    log(f"[router_check] kv_partial: retries {retries}, transfers "
+        f"{r.stats['transfers']}, streams equal serve's: {same} ({card})")
+    if retries != {("d0", "partial"): 1} or r.stats["transfers"] != 4 \
+            or not same:
+        raise AssertionError("router.kv_partial was not caught and retried "
+                             "exactly once")
+    # (2) a failed extraction: requeued, re-prefilled, nothing leaks
+    r = pd(p0, d0)
+    with FAULTS.scope("router.kv_transfer", exc=InjectedFault, on={1}):
+        reqs = mix(CHECK_ROWS)
+        for q in reqs:
+            r.add_request(q)
+        r.run()
+    r.assert_quiescent()
+    quiescent()
+    log(f"[router_check] kv_transfer: requeues {r.stats['requeues']}, "
+        f"transfers {r.stats['transfers']}, all finished "
+        f"{all(q.done for q in reqs)}, streams equal serve's: "
+        f"{[list(q.tokens) for q in reqs] == want} ({card})")
+    if r.stats["requeues"] != 1 or not all(len(q.tokens) == 32
+                                           for q in reqs):
+        raise AssertionError("router.kv_transfer did not requeue once")
+    # (3) two replica deaths; the second restores from a snapshot
+    restores0 = _series_now("router_session_restores_total").get((), 0)
+    r = Router([Replica(e, name=f"r{i}") for i, e in enumerate(engines)],
+               snapshot_every=1)
+    seen = {"r0": 0, "r1": 0}
+
+    def kill(ctx):
+        name = ctx["replica"]
+        if name in seen:
+            seen[name] += 1
+            if (name, seen[name]) in (("r0", 2), ("r1", 5)):
+                raise InjectedFault(f"induced {name} death")
+    with FAULTS.scope("router.replica_death", action=kill):
+        reqs = mix(DEATH_ROWS)
+        for q in reqs:
+            r.add_request(q)
+        r.run()
+    r.assert_quiescent()
+    quiescent()
+    restores = _series_now("router_session_restores_total").get(
+        (), 0) - restores0
+    failed = [q.req_id for q in reqs if q.finish_reason == "replica_death"]
+    log(f"[router_check] replica deaths {r.stats['deaths']}: requeued once "
+        f"each {sorted(r._requeued)}, restored from snapshots {restores}, "
+        f"failed {failed}, tokens {[len(q.tokens) for q in reqs]} ({card})")
+    if (r.stats["deaths"] != 2 or restores < 1 or failed
+            or not all(len(q.tokens) == 32 for q in reqs)
+            or r.stats["requeues"] != len(r._requeued) + restores):
+        raise AssertionError("replica death did not requeue exactly once "
+                             "and restore after the second death")
+    # (4) draining the prefill replica mid-chunk flushes its handoffs
+    r = pd(p0, d1)
+    reqs = [Request(np.random.RandomState(7).randint(3, model.cfg.vocab_size,
+                                                     size=300),
+                    max_new_tokens=32), *mix((0, 1))]
+    for q in reqs:
+        r.add_request(q)
+    r.step()
+    if not p0.prefilling:
+        raise AssertionError("the 300-token prompt is not mid-chunk")
+    r.drain_replica("p0")
+    flushed = not p0.has_work() and not r._pending
+    r.run()
+    r.assert_quiescent()
+    quiescent()
+    p0._draining = False
+    log(f"[router_check] drain_replica(p0) mid-chunk: flushed {flushed}, "
+        f"transfers {r.stats['transfers']}, tokens "
+        f"{[len(q.tokens) for q in reqs]} ({card})")
+    if not flushed or r.stats["transfers"] != 3:
+        raise AssertionError("drain_replica on the prefill replica did not "
+                             "flush its handoffs")
+    # (5) a bf16 replica refuses an int8 payload by name
+    q8 = _router_engine(torch, dev, model, kv_dtype="int8",
+                        prefill_only=True)
+    q8.add_request(Request(serve_reqs[0].prompt, max_new_tokens=32,
+                           req_id=0))
+    while not q8.active.any():
+        q8.step()
+    payload = q8.extract_sequence(0)
+    refused = []
+    try:
+        validate_payload(payload, d0)
+    except KVTransferError as e:
+        refused.append(f"validate: {e}")
+    try:
+        d0.install_sequence(payload)
+    except ValueError as e:
+        refused.append(f"install: {e}")
+    q8.assert_quiescent()
+    quiescent()
+    log(f"[router_check] int8 payload into a bf16 replica: {refused}")
+    if len(refused) != 2 or "dtype mismatch" not in refused[0] \
+            or "quantization" not in refused[1]:
+        raise AssertionError("a bf16 replica did not refuse an int8 payload")
+    torch.cuda.synchronize()
+    counts = K.launches()
+    missing = _missing("router_check", counts)
+    if missing:
+        raise AssertionError(f"[router_check] kernels not launched: "
+                             f"{missing} ({counts})")
+    log(f"[router_check] every replica quiescent; {time.monotonic() - t0:.1f}"
+        f" s; launches {counts} ({card})")
+    del q8, engines, p0, d0, d1
+    _free_cycles(torch)
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve,check,"
                     "graph_check,async_serve,lora_serve,lora_check,"
                     "spec_serve,spec_check,beam_serve,beam_check,"
                     "grammar_serve,grammar_check,tenant_serve,"
-                    "endpoint_check,train,"
+                    "endpoint_check,hf_load,router_serve,router_check,train,"
                     "moe_serve,moe_check,moe_train,window_serve,window_check,"
                     "quant_serve,quant_check,bloom_serve,bloom_train,"
                     "falcon_rw_serve,falcon_rw_train,falcon7b_serve,"
@@ -5701,13 +6483,17 @@ def main(argv=None):
         phase_k3_tiles(torch, dev)
     counts = {}                # path -> {kernel: launches in its own run}
     routes = {}                # path -> {kernel: {route: launches}} alike
-    quant = {"quant_serve", "quant_check", "quant_anatomy"} & set(phases)
+    # router_serve's arm (c) serves quant_serve's quantized model and holds
+    # its streams to quant_serve's
+    quant = {"quant_serve", "quant_check", "quant_anatomy",
+             "router_serve"} & set(phases)
+    router = {"hf_load", "router_serve", "router_check"} & set(phases)
     lora_spec = {"lora_serve", "lora_check", "lora_anatomy", "spec_serve",
                  "spec_check", "beam_serve", "beam_check", "grammar_serve",
                  "grammar_check", "tenant_serve",
                  "endpoint_check"} & set(phases)
     if {"serve", "check", "anatomy", "graph_check",
-            "async_serve"} & set(phases) or quant or lora_spec:
+            "async_serve"} & set(phases) or quant or lora_spec or router:
         tm = time.monotonic()
         model = build_model(dev)
         torch.cuda.synchronize()
@@ -5800,6 +6586,26 @@ def main(argv=None):
                 tp = time.monotonic()
                 phase_endpoint_check(torch, dev, model, np, greedy)
                 log(f"[endpoint_check] phase {time.monotonic() - tp:.1f} s")
+        # the HF round trip, then the router on the reloaded model (the
+        # served model's bits), before the quant phases quantize it
+        if router:
+            tp = time.monotonic()
+            served = (phase_hf_load(torch, dev, model)
+                      if "hf_load" in phases else None)
+            served = model if served is None else served
+            log(f"[hf_load] phase {time.monotonic() - tp:.1f} s")
+            if "router_serve" in phases:
+                tp = time.monotonic()
+                counts.update(phase_router_serve(torch, dev, served, np,
+                                                 reqs, serve_stats))
+                log(f"[router_serve] phase {time.monotonic() - tp:.1f} s")
+            if "router_check" in phases:
+                tp = time.monotonic()
+                counts["router_check"] = phase_router_check(
+                    torch, dev, served, np, reqs)
+                log(f"[router_check] phase {time.monotonic() - tp:.1f} s")
+            del served
+            _free_cycles(torch)
         if "quant_check" in phases:
             phase_quant_check(torch, model, reqs, got, ref32, "bf16")
         if quant:
@@ -5810,9 +6616,14 @@ def main(argv=None):
             torch.cuda.synchronize()
             log(f"[quant_serve] weight_only_int8 in place in "
                 f"{time.monotonic() - tm:.1f} s")
-        if "quant_serve" in phases:
-            counts["quant_serve"] = phase_quant_serve(torch, dev, model, np,
-                                                      serve_stats)
+        if {"quant_serve", "router_serve"} & set(phases):
+            counts["quant_serve"], quant_reqs = phase_quant_serve(
+                torch, dev, model, np, serve_stats)
+        if "router_serve" in phases:
+            tp = time.monotonic()
+            counts["router_serve_i8"] = phase_router_serve_i8(
+                torch, dev, model, np, quant_reqs)
+            log(f"[router_serve i8] phase {time.monotonic() - tp:.1f} s")
         if "quant_check" in phases:
             phase_quant_check(torch, model, reqs, got, ref32, "int8")
         if "quant_anatomy" in phases:

@@ -1,3 +1,6 @@
+from paddle_tpu_torch.models.auto import (AUTO_REGISTRY,  # noqa: F401
+                                          auto_config, auto_from_config,
+                                          auto_from_pretrained)
 from paddle_tpu_torch.models.bloom import (BloomConfig,  # noqa: F401
                                            BloomForCausalLM)
 from paddle_tpu_torch.models.decoding import generic_generate  # noqa: F401

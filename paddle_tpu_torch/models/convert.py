@@ -1,13 +1,35 @@
-"""Load a ``paddle_tpu`` model's weights into its port.
+"""Weight loading: the JAX package's state dicts and HuggingFace
+checkpoints — counterpart of ``paddle_tpu/models/convert.py``.
 
 ``paddle_tpu`` ``Module.state_dict()`` returns ``{dotted path: numpy
 array}`` (``core/module.py``), with the same dotted paths and ``[in,
 out]`` layouts as the port's parameters — ``model.layers.0.self_attn.
-qkv_proj``, ``lm_head`` — so the bridge is a name-for-name copy. bf16
-arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
-cannot take: they cross as their ``uint16`` bit pattern.
+qkv_proj``, ``lm_head`` — so that bridge (:func:`load_jax_state_dict`) is
+a name-for-name copy. bf16 arrays arrive as ``ml_dtypes.bfloat16``,
+which ``torch.from_numpy`` cannot take: they cross as their ``uint16``
+bit pattern.
+
+The HF loaders (``load_<family>_state_dict``) take an HF-named state
+dict — torch tensors or numpy arrays, e.g. a ``transformers`` model's
+``state_dict()`` or :func:`load_safetensors`'s memory-mapped tensors —
+and fill the port's model IN PLACE: each HF tensor is moved to the
+parameter's device and written, transposed from HF's ``[out, in]``, into
+its slice of the fused parameter (q|k|v into ``qkv_proj``, gate|up into
+``gate_up_proj``, expert e into row e of the ``[E, h, 2I]`` / ``[E, I,
+h]`` stacks). Nothing is concatenated on the host, so a 7B checkpoint
+costs no second host copy. The re-layouts of the fused QKV tensors
+(BLOOM's head-interleaved ``[nh, 3, d]``, Falcon's three layouts,
+CodeGen's ``mp_num = 4`` column groups) are the reference's reshapes.
+Every parameter of the model must be written, and every piece must have
+its slice's exact shape: a missing or mis-shaped tensor raises.
+
+``dtype`` (default: the model's) is the type the parameters end up in;
+the MoE routers' ``gate_w`` stay float32, as the reference keeps them.
 """
 from __future__ import annotations
+
+import json
+import struct
 
 import numpy as np
 import torch
@@ -41,3 +63,379 @@ def load_jax_state_dict(model: torch.nn.Module, state: dict):
                              f"vs {tuple(p.shape)}")
         p.copy_(t.to(device=p.device, dtype=p.dtype))
     return model
+
+
+# ------------------------------------------------------------ safetensors
+# safetensors dtype tag -> (numpy view of the raw bytes, torch dtype)
+_ST_DTYPES = {
+    "F64": (np.float64, torch.float64), "F32": (np.float32, torch.float32),
+    "F16": (np.float16, torch.float16), "BF16": (np.uint16, torch.bfloat16),
+    "I64": (np.int64, torch.int64), "I32": (np.int32, torch.int32),
+    "I16": (np.int16, torch.int16), "I8": (np.int8, torch.int8),
+    "U8": (np.uint8, torch.uint8), "BOOL": (np.bool_, torch.bool),
+}
+
+
+def load_safetensors(path) -> dict:
+    """Read a ``.safetensors`` file (an 8-byte little-endian header length,
+    a JSON header, then raw little-endian buffers) into ``{name: CPU
+    tensor}``. The tensors are views of a copy-on-write memory map of the
+    file: nothing is read until a tensor is used, and the file is never
+    written. BF16 is read as its ``uint16`` bit pattern viewed as
+    ``torch.bfloat16``. Neither the ``safetensors`` nor the ``ml_dtypes``
+    package is used, even where installed."""
+    with open(path, "rb") as f:
+        (hlen,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(hlen))
+    base = 8 + hlen
+    data = np.memmap(path, dtype=np.uint8, mode="c")
+    out = {}
+    for name, meta in header.items():
+        if name == "__metadata__":
+            continue
+        if meta["dtype"] not in _ST_DTYPES:
+            raise ValueError(f"{path}: tensor {name!r} has dtype "
+                             f"{meta['dtype']!r}, which the reader does not "
+                             f"take ({sorted(_ST_DTYPES)})")
+        np_dt, t_dt = _ST_DTYPES[meta["dtype"]]
+        lo, hi = meta["data_offsets"]
+        buf = data[base + lo:base + hi]
+        if (base + lo) % np.dtype(np_dt).itemsize:
+            buf = np.array(buf)              # unaligned: copy to align
+        t = torch.from_numpy(buf.view(np_dt))
+        if t_dt == torch.bfloat16:
+            t = t.view(torch.bfloat16)
+        out[name] = t.reshape(meta["shape"])
+    return out
+
+
+# ------------------------------------------------------------- HF loaders
+def _src_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else to_tensor(x)
+
+
+class _Fill:
+    """Writes HF tensors into a model's parameters in place. ``strip``:
+    a key prefix HF uses that the parameter names lack
+    (``transformer.``)."""
+
+    def __init__(self, model, state_dict, dtype=None, strip=None):
+        cfg = model.cfg
+        self.params = dict(model.named_parameters())
+        self.sd = ({k.removeprefix(strip): v for k, v in state_dict.items()}
+                   if strip else state_dict)
+        if dtype is not None and dtype != cfg.dtype:
+            for name, p in self.params.items():
+                if not name.endswith("gate_w"):
+                    p.data = p.data.to(dtype)
+            cfg.dtype = dtype
+        self.device = next(iter(self.params.values())).device
+        self.model = model
+        self.written = set()
+
+    def __contains__(self, key):
+        return key in self.sd
+
+    def __call__(self, key) -> torch.Tensor:
+        """The HF tensor ``key`` on the parameters' device."""
+        return _src_tensor(self.sd[key]).to(self.device)
+
+    def put(self, name, *pieces, at=None):
+        """Write ``pieces`` side by side along the last axis into parameter
+        ``name`` (row ``at`` of a stacked parameter). Their widths must add
+        up to the parameter's, and each piece must match its slice."""
+        p = self.params[name]
+        dst = p if at is None else p[at]
+        off = 0
+        for t in pieces:
+            n = t.shape[-1] if t.dim() else 1
+            view = dst.narrow(-1, off, n) if dst.dim() else dst
+            if tuple(view.shape) != tuple(t.shape):
+                raise ValueError(
+                    f"shape mismatch for {name}"
+                    f"{'' if at is None else f'[{at}]'}: piece "
+                    f"{tuple(t.shape)} at column {off} of "
+                    f"{tuple(dst.shape)}")
+            view.copy_(t)
+            off += n
+        if dst.dim() and off != dst.shape[-1]:
+            raise ValueError(f"shape mismatch for {name}: pieces fill {off} "
+                             f"of {dst.shape[-1]} columns")
+        self.written.add(name)
+
+    def done(self):
+        missing = sorted(set(self.params) - self.written)
+        if missing:
+            raise KeyError(f"the checkpoint left parameters unwritten: "
+                           f"{missing[:8]}")
+        return self.model
+
+    def norm(self, name, key):
+        self.put(name + ".weight", self(key + ".weight"))
+        if name + ".bias" in self.params:
+            self.put(name + ".bias", self(key + ".bias"))
+
+
+def _llama_attention(f, pre, key):
+    """q/k/v -> ``{pre}qkv_proj`` (and the Qwen2 ``qkv_bias``), o_proj."""
+    f.put(pre + "qkv_proj", f(key + "q_proj.weight").T,
+          f(key + "k_proj.weight").T, f(key + "v_proj.weight").T)
+    f.put(pre + "o_proj", f(key + "o_proj.weight").T)
+    if pre + "qkv_bias" in f.params:
+        f.put(pre + "qkv_bias", f(key + "q_proj.bias"),
+              f(key + "k_proj.bias"), f(key + "v_proj.bias"))
+    elif key + "q_proj.bias" in f:
+        raise ValueError(f"the checkpoint biases {key}q/k/v but the config "
+                         f"has attention_bias=False")
+
+
+def _gated_mlp(f, pre, key):
+    f.put(pre + "gate_up_proj", f(key + "gate_proj.weight").T,
+          f(key + "up_proj.weight").T)
+    f.put(pre + "down_proj", f(key + "down_proj.weight").T)
+
+
+def _lm_head(f, name="lm_head"):
+    """The untied head: HF's ``lm_head.weight``, or the embedding of a
+    tied checkpoint loaded into an untied config."""
+    if name in f.params:
+        key = ("lm_head.weight" if "lm_head.weight" in f
+               else "model.embed_tokens.weight")
+        f.put(name, f(key).T)
+
+
+@torch.no_grad()
+def load_llama_state_dict(model, state_dict, dtype=None):
+    """``LlamaForCausalLM`` (and Mistral, Qwen2 — Qwen2 adds the q/k/v
+    biases) from an HF state dict. A tied config has no ``lm_head``."""
+    f = _Fill(model, state_dict, dtype)
+    f.put("model.embed_tokens", f("model.embed_tokens.weight"))
+    f.put("model.norm.weight", f("model.norm.weight"))
+    _lm_head(f)
+    for i in range(model.cfg.num_hidden_layers):
+        p, k = f"model.layers.{i}.", f"model.layers.{i}."
+        _llama_attention(f, p + "self_attn.", k + "self_attn.")
+        _gated_mlp(f, p + "mlp.", k + "mlp.")
+        f.norm(p + "input_layernorm", k + "input_layernorm")
+        f.norm(p + "post_attention_layernorm", k + "post_attention_layernorm")
+    return f.done()
+
+
+def _experts(f, pre, keys, num_experts):
+    """Per-expert (gate, up, down) HF linears -> rows of the stacked
+    ``{pre}gate_up`` [E, h, 2I] and ``{pre}down`` [E, I, h]."""
+    for e in range(num_experts):
+        g, u, d = (f(k.format(e=e)) for k in keys)
+        f.put(pre + "gate_up", g.T, u.T, at=e)
+        f.put(pre + "down", d.T, at=e)
+
+
+@torch.no_grad()
+def load_mixtral_state_dict(model, state_dict, dtype=None):
+    """``MixtralForCausalLM``: Llama attention packing, the expert stacks
+    (HF w1 = gate, w3 = up, w2 = down) and the fp32 router."""
+    cfg = model.cfg
+    f = _Fill(model, state_dict, dtype)
+    f.put("embed_tokens", f("model.embed_tokens.weight"))
+    f.put("norm.weight", f("model.norm.weight"))
+    _lm_head(f)
+    for i in range(cfg.num_hidden_layers):
+        p, k = f"layers.{i}.", f"model.layers.{i}."
+        _llama_attention(f, p + "self_attn.", k + "self_attn.")
+        f.norm(p + "input_layernorm", k + "input_layernorm")
+        f.norm(p + "post_attention_layernorm", k + "post_attention_layernorm")
+        ek = k + "block_sparse_moe."
+        f.put(p + "moe.gate_w", f(ek + "gate.weight").T)
+        _experts(f, p + "moe.experts.",
+                 [ek + "experts.{e}.w1.weight", ek + "experts.{e}.w3.weight",
+                  ek + "experts.{e}.w2.weight"], cfg.num_local_experts)
+    return f.done()
+
+
+@torch.no_grad()
+def load_qwen2_moe_state_dict(model, state_dict, dtype=None):
+    """``Qwen2MoeForCausalLM``: Qwen2 attention (fused biased QKV), the
+    expert stacks, the shared expert and its sigmoid gate, the fp32
+    router; ``mlp_only_layers`` carry a dense MLP."""
+    cfg = model.cfg
+    f = _Fill(model, state_dict, dtype)
+    f.put("embed_tokens", f("model.embed_tokens.weight"))
+    f.put("norm.weight", f("model.norm.weight"))
+    _lm_head(f)
+    for i, lyr in enumerate(model.layers):
+        p, k = f"layers.{i}.", f"model.layers.{i}."
+        _llama_attention(f, p + "self_attn.", k + "self_attn.")
+        f.norm(p + "input_layernorm", k + "input_layernorm")
+        f.norm(p + "post_attention_layernorm", k + "post_attention_layernorm")
+        if not lyr.sparse:
+            _gated_mlp(f, p + "mlp.", k + "mlp.")
+            continue
+        mk = k + "mlp."
+        f.put(p + "mlp.moe.gate_w", f(mk + "gate.weight").T)
+        _experts(f, p + "mlp.moe.experts.",
+                 [mk + "experts.{e}.gate_proj.weight",
+                  mk + "experts.{e}.up_proj.weight",
+                  mk + "experts.{e}.down_proj.weight"], cfg.num_experts)
+        f.put(p + "mlp.shared_gate_up",
+              f(mk + "shared_expert.gate_proj.weight").T,
+              f(mk + "shared_expert.up_proj.weight").T)
+        f.put(p + "mlp.shared_down",
+              f(mk + "shared_expert.down_proj.weight").T)
+        f.put(p + "mlp.shared_gate", f(mk + "shared_expert_gate.weight").T)
+    return f.done()
+
+
+@torch.no_grad()
+def load_gemma_state_dict(model, state_dict, dtype=None):
+    """``GemmaForCausalLM``: zero-centred norm weights stored as they are;
+    the head is the (tied) embedding."""
+    f = _Fill(model, state_dict, dtype)
+    f.put("embed_tokens", f("model.embed_tokens.weight"))
+    f.put("norm.weight", f("model.norm.weight"))
+    for i in range(model.cfg.num_hidden_layers):
+        p, k = f"layers.{i}.", f"model.layers.{i}."
+        f.put(p + "qkv_proj", f(k + "self_attn.q_proj.weight").T,
+              f(k + "self_attn.k_proj.weight").T,
+              f(k + "self_attn.v_proj.weight").T)
+        f.put(p + "o_proj", f(k + "self_attn.o_proj.weight").T)
+        _gated_mlp(f, p, k + "mlp.")
+        f.norm(p + "input_layernorm", k + "input_layernorm")
+        f.norm(p + "post_attention_layernorm", k + "post_attention_layernorm")
+    return f.done()
+
+
+@torch.no_grad()
+def load_bloom_state_dict(model, state_dict, dtype=None):
+    """``BloomForCausalLM``: HF fuses QKV head-interleaved (``[nh, 3, d]``
+    on the out axis); the port's ``qkv`` is ``[q | k | v]`` blocks."""
+    cfg = model.cfg
+    nh, h = cfg.n_head, cfg.hidden_size
+    d = h // nh
+    f = _Fill(model, state_dict, dtype, strip="transformer.")
+    f.put("word_embeddings", f("word_embeddings.weight"))
+    f.norm("word_embeddings_layernorm", "word_embeddings_layernorm")
+    f.norm("ln_f", "ln_f")
+    for i in range(cfg.n_layer):
+        p = f"h.{i}."
+        f.norm(p + "input_layernorm", p + "input_layernorm")
+        f.norm(p + "post_attention_layernorm", p + "post_attention_layernorm")
+        w = f(p + "self_attention.query_key_value.weight").reshape(
+            nh, 3, d, h)
+        f.put(p + "qkv", *(w[:, j].reshape(nh * d, h).T for j in range(3)))
+        b = f(p + "self_attention.query_key_value.bias").reshape(nh, 3, d)
+        f.put(p + "qkv_bias", *(b[:, j].reshape(-1) for j in range(3)))
+        f.put(p + "dense", f(p + "self_attention.dense.weight").T)
+        f.put(p + "dense_bias", f(p + "self_attention.dense.bias"))
+        f.put(p + "h_to_4h", f(p + "mlp.dense_h_to_4h.weight").T)
+        f.put(p + "h_to_4h_bias", f(p + "mlp.dense_h_to_4h.bias"))
+        f.put(p + "four_h_to_h", f(p + "mlp.dense_4h_to_h.weight").T)
+        f.put(p + "four_h_to_h_bias", f(p + "mlp.dense_4h_to_h.bias"))
+    return f.done()
+
+
+@torch.no_grad()
+def load_falcon_state_dict(model, state_dict, dtype=None):
+    """``FalconForCausalLM``. The fused QKV's layout differs per variant:
+    ``[q * g | k | v]`` per KV head (the new decoder architecture),
+    ``[all q | k | v]`` (multi-query 7b) or head-interleaved (rw); each
+    is split into the port's ``wq``/``wk``/``wv``."""
+    cfg = model.cfg
+    nh, nkv = cfg.num_attention_heads, cfg.kv_heads
+    d = cfg.hidden_size // nh
+
+    def split_qkv(w):
+        """[out, h] (or [out] bias) -> (q, k, v) along the out axis."""
+        tail = tuple(w.shape[1:])
+        if cfg.new_decoder_architecture:
+            g = nh // nkv
+            w = w.reshape((nkv, g + 2, d) + tail)
+            return (w[:, :g].reshape((nh * d,) + tail),
+                    w[:, g].reshape((nkv * d,) + tail),
+                    w[:, g + 1].reshape((nkv * d,) + tail))
+        if cfg.multi_query:
+            return w[:nh * d], w[nh * d:(nh + 1) * d], w[(nh + 1) * d:]
+        w = w.reshape((nh, 3, d) + tail)
+        return tuple(w[:, j].reshape((nh * d,) + tail) for j in range(3))
+
+    f = _Fill(model, state_dict, dtype, strip="transformer.")
+    f.put("word_embeddings", f("word_embeddings.weight"))
+    f.norm("ln_f", "ln_f")
+    for i in range(cfg.num_hidden_layers):
+        p = f"h.{i}."
+        if cfg.new_decoder_architecture:
+            f.norm(p + "ln_attn", p + "ln_attn")
+            f.norm(p + "ln_mlp", p + "ln_mlp")
+        else:
+            f.norm(p + "input_layernorm", p + "input_layernorm")
+            if p + "post_attention_layernorm.weight" in f.params:
+                f.norm(p + "post_attention_layernorm",
+                       p + "post_attention_layernorm")
+        q, k, v = split_qkv(f(p + "self_attention.query_key_value.weight"))
+        f.put(p + "wq", q.T)
+        f.put(p + "wk", k.T)
+        f.put(p + "wv", v.T)
+        f.put(p + "dense", f(p + "self_attention.dense.weight").T)
+        f.put(p + "h_to_4h", f(p + "mlp.dense_h_to_4h.weight").T)
+        f.put(p + "four_h_to_h", f(p + "mlp.dense_4h_to_h.weight").T)
+        if cfg.bias:
+            qb, kb, vb = split_qkv(
+                f(p + "self_attention.query_key_value.bias"))
+            f.put(p + "wq_bias", qb)
+            f.put(p + "wk_bias", kb)
+            f.put(p + "wv_bias", vb)
+            f.put(p + "dense_bias", f(p + "self_attention.dense.bias"))
+            f.put(p + "h_to_4h_bias", f(p + "mlp.dense_h_to_4h.bias"))
+            f.put(p + "four_h_to_h_bias", f(p + "mlp.dense_4h_to_h.bias"))
+    return f.done()
+
+
+def _gptj_common(f, p):
+    """The GPT-J block's parts outside attention, and the model's ends."""
+    f.norm(p + "ln_1", p + "ln_1")
+    f.put(p + "fc_in", f(p + "mlp.fc_in.weight").T)
+    f.put(p + "fc_in_bias", f(p + "mlp.fc_in.bias"))
+    f.put(p + "fc_out", f(p + "mlp.fc_out.weight").T)
+    f.put(p + "fc_out_bias", f(p + "mlp.fc_out.bias"))
+
+
+def _gptj_ends(f):
+    f.put("wte", f("wte.weight"))
+    f.norm("ln_f", "ln_f")
+    f.put("lm_head", f("lm_head.weight").T)
+    f.put("lm_head_bias", f("lm_head.bias"))
+
+
+@torch.no_grad()
+def load_gptj_state_dict(model, state_dict, dtype=None):
+    """``GPTJForCausalLM`` (``transformer.*`` names; a separate biased
+    head, untied)."""
+    f = _Fill(model, state_dict, dtype, strip="transformer.")
+    _gptj_ends(f)
+    for i in range(model.cfg.n_layer):
+        p = f"h.{i}."
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            f.put(p + name, f(p + f"attn.{name}.weight").T)
+        _gptj_common(f, p)
+    return f.done()
+
+
+@torch.no_grad()
+def load_codegen_state_dict(model, state_dict, dtype=None):
+    """``CodeGenForCausalLM``. The fused ``qkv_proj`` is laid out in
+    ``mp_num = 4`` groups of (q | v | k) columns with the heads
+    group-major; it is unpacked into separate q/k/v keeping that head
+    order everywhere (``out_proj`` consumes the same order)."""
+    cfg = model.cfg
+    mp, n = 4, cfg.n_embd
+    local = n // mp
+    f = _Fill(model, state_dict, dtype, strip="transformer.")
+    _gptj_ends(f)
+    for i in range(cfg.n_layer):
+        p = f"h.{i}."
+        w = f(p + "attn.qkv_proj.weight").reshape(mp, 3, local, n)
+        f.put(p + "q_proj", w[:, 0].reshape(-1, n).T)
+        f.put(p + "v_proj", w[:, 1].reshape(-1, n).T)
+        f.put(p + "k_proj", w[:, 2].reshape(-1, n).T)
+        f.put(p + "out_proj", f(p + "attn.out_proj.weight").T)
+        _gptj_common(f, p)
+    return f.done()

@@ -62,6 +62,11 @@ GEMMA_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rope")
 GEMMA_SERVE_KERNELS = ROPE_GENERATE_KERNELS
 GPTJ_SERVE_KERNELS = ("flash_fwd",)
 GPTJ_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the router: replicas serving end to end run the serve path; split into a
+# prefill replica (K1, K2, K3, K7) and a decode replica (K1, K4, K7's
+# fold) they run it between them; over int8 pools the quantized path
+ROUTER_SERVE_KERNELS = SERVE_KERNELS
+ROUTER_SERVE_I8_KERNELS = QUANT_SERVE_KERNELS
 
 
 def kernels() -> dict:

@@ -118,9 +118,21 @@ charged each tick's ``serving_tick_seconds`` observation. Both are
 polled from the gauge sweep after every tick, unless a router claimed
 them; ``PT_DEGRADE=0`` and ``PT_SLO=0`` are their kill switches.
 
-Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP.md queue): context parallelism and prefill-only replicas
-(router).
+Multi-replica serving (``serving/router.py``): ``prefill_only=True``
+stops the tick after prefill — a prefill-role replica admits and
+prefills, and the router lifts each prefilled sequence out with
+:meth:`LLMEngine.extract_sequence` (its blocks gathered into a sealed
+``KVPayload``) and hands it to a decode-role replica's
+:meth:`LLMEngine.install_sequence`, which writes the blocks, the table
+row and the length into that engine's pool IN PLACE, so its captured
+tick graphs stay valid. :meth:`LLMEngine.release_request` pulls a live
+request out unfinished (rebalancing, replica death) and
+:meth:`LLMEngine.snapshot_session` captures a request's ids for a
+restore after a second replica death. Each drains the async window
+first.
+
+Not in this slice: context parallelism (``cp > 1`` raises
+``NotImplementedError`` naming its ROADMAP.md queue).
 """
 from __future__ import annotations
 
@@ -148,6 +160,7 @@ from paddle_tpu_torch.observability.roofline import (
 from paddle_tpu_torch.ops.cuda import flash_attention as _flash
 from paddle_tpu_torch.ops.cuda import grouped_matmul as _grouped
 from paddle_tpu_torch.ops.cuda import paged_attention as _paged
+from paddle_tpu_torch.serving.degrade import SessionSnapshot
 from paddle_tpu_torch.serving.executor import ModelExecutor
 from paddle_tpu_torch.serving.kv import KVManager, cache_block_bytes
 from paddle_tpu_torch.serving.scheduler import Scheduler
@@ -162,7 +175,7 @@ from paddle_tpu_torch.serving.telemetry import (_ACTIVE_SLOTS, _ASYNC_DEPTH,
                                                 _SPEC_DRAFT_REUSE,
                                                 _SPEC_FALLBACKS,
                                                 _SPEC_PROPOSED, _SPEC_RATE,
-                                                _SPEC_TOKENS,
+                                                _SNAPSHOTS, _SPEC_TOKENS,
                                                 _TENANT_FINISHED,
                                                 _TENANT_REJECTED,
                                                 _TENANT_TOK_LAT,
@@ -172,7 +185,9 @@ from paddle_tpu_torch.serving.telemetry import (_ACTIVE_SLOTS, _ASYNC_DEPTH,
                                                 _TICK_HIDDEN, _TIMEOUTS,
                                                 _TOK_LAT, _TOKENS, _TTFT,
                                                 tenant_label)
-from paddle_tpu_torch.serving.types import (OverloadError, Request,
+from paddle_tpu_torch.serving.transfer import KVPayload
+from paddle_tpu_torch.serving.types import (EngineDrainingError,
+                                            OverloadError, Request,
                                             _BeamGroup)
 from paddle_tpu_torch.utils.faults import fault_point
 
@@ -225,9 +240,6 @@ class LLMEngine:
                  spec_k=4, spec_adaptive=True, prefill_only=False,
                  adapter_store=None, degrade=None, slo=None, kv_dtype=None,
                  cp=1, async_depth=0, device=None):
-        if prefill_only:
-            raise _not_ported("prefill_only= (disaggregated prefill, "
-                              "router)")
         if int(cp) != 1:
             raise _not_ported("cp > 1 (context-parallel serving)")
         # async pipelined decode: PT_ASYNC_DECODE=0 is the kill switch,
@@ -299,6 +311,9 @@ class LLMEngine:
         self.prefix_caching = (bool(prefix_caching) and self.window is None
                                and not self._dyn_rope)
         self.preemption = bool(preemption)
+        # prefill-role replica (disaggregated serving): the tick stops
+        # after prefill; the router extracts the prefilled sequences
+        self.prefill_only = bool(prefill_only)
         # replica name stamped on request-tracker events (None: a lone
         # engine)
         self.trace_name = None
@@ -493,6 +508,14 @@ class LLMEngine:
     def _clock(self):
         return self.sched.clock
 
+    @property
+    def _draining(self):
+        return self.sched.draining
+
+    @_draining.setter
+    def _draining(self, value):
+        self.sched.draining = value
+
     # ------------------------------------------------------------- intake
     def add_request(self, req: Request) -> int:
         self.sched.check_backpressure(self.stats)
@@ -603,6 +626,12 @@ class LLMEngine:
                 or bool(self.groups) or bool(self.prefilling)
                 or bool(self._async_win))
 
+    def outstanding(self) -> int:
+        """Requests accepted but not yet finished (queued, prefilling or
+        decoding) — the router's least-outstanding-requests load
+        signal."""
+        return sum(1 for r in self.requests.values() if not r.done)
+
     # --------------------------------------------- cancellation/deadlines
     def cancel(self, req_id: int, reason: str = "cancelled") -> bool:
         """Terminate a request wherever it currently lives — queued,
@@ -675,6 +704,30 @@ class LLMEngine:
         self._grammar.pop(slot, None)
         self._release_adapter(req_id)
         return True
+
+    def release_request(self, rid: int):
+        """Pull a live request OUT of the engine (router rebalancing,
+        replica death): free its slot(s), blocks and reservation and
+        forget it — WITHOUT finishing it. Returns the Request (with
+        whatever tokens it generated) so the caller can re-dispatch it,
+        or None for an unknown or finished request."""
+        req = self.requests.get(rid)
+        if req is None or req.done:
+            return None
+        self._drain_async("boundary")
+        if req.done:
+            return None
+        g = self.groups.get(rid)
+        sids = list(g.sid.values()) if g is not None else None
+        if not self._detach(rid):
+            return None
+        self.kv.release(rid)
+        # the request leaves this engine: stamp its peak here (the next
+        # replica's incarnation stamps its own; the summary takes the max)
+        peak = (sum(self.kv.take_peak(s) for s in sids) if sids
+                else self.kv.take_peak(rid))
+        REQUESTS.event(req, "kv_peak", replica=self.trace_name, blocks=peak)
+        return self.sched.release(rid)
 
     def drain(self, cancel_queued: bool = False) -> dict:
         """Graceful shutdown: stop admitting (``add_request`` raises
@@ -1720,6 +1773,194 @@ class LLMEngine:
                             replica=self.trace_name)
         return [(rid, token)]
 
+    # ------------------------------------------------------- KV handoff
+    def extract_sequence(self, rid: int) -> KVPayload:
+        """Lift a prefilled or decoding greedy sequence OUT of this engine:
+        gather its blocks (and an int8 pool's scale rows) into a sealed
+        :class:`~paddle_tpu_torch.serving.transfer.KVPayload`, then free
+        the slot, blocks and ledger entry. The request leaves with its
+        tokens; the payload carries what a decode replica needs to go on
+        bit-exactly (:meth:`install_sequence`). Only ACTIVE greedy slots
+        are extractable: beam and mid-chunk requests raise, as do a
+        multi-LoRA pin and window holes in the table."""
+        self._drain_async("boundary")
+        slots = np.nonzero(self.slot_req == rid)[0]
+        if not len(slots) or rid in self.prefilling or rid in self.groups:
+            raise ValueError(f"req {rid} holds no active greedy slot")
+        slot = int(slots[0])
+        if self.is_beam[slot] or not self.active[slot]:
+            raise ValueError(f"req {rid} holds no active greedy slot")
+        if rid in self._adapter_pins:
+            raise NotImplementedError(
+                "cannot extract a multi-LoRA sequence — its KV was "
+                "written under the adapter, and the receiving replica "
+                "holds no pin on it")
+        t = self.mgr.tables[rid]
+        if any(b is None for b in t):
+            raise NotImplementedError(
+                "cannot extract a window-recycled sequence (holes in the "
+                "block table)")
+        cache = self.cache
+        idx = torch.as_tensor(np.asarray(t, np.int64), device=cache.device)
+
+        def gather(stores):
+            return torch.stack([p.index_select(0, idx) for p in stores])
+        ks = vs = None
+        if cache.k_scale_store:
+            # int8 pool: the codes mean nothing without their scales
+            ks, vs = gather(cache.k_scale_store), gather(cache.v_scale_store)
+        payload = KVPayload(
+            req=self.requests[rid], cur=int(self.cur[slot]),
+            gen=int(self.gen[slot]), last_tok=int(self.last_tok[slot]),
+            n_blocks=len(t), block_size=self.block_size,
+            k=gather(cache.k_store), v=gather(cache.v_store),
+            k_scale=ks, v_scale=vs)
+        # wire contract: geometry and checksums recorded while the blocks
+        # are known-good, so the router can reject a partial transfer
+        payload.seal()
+        REQUESTS.event(payload.req, "kv_extract", replica=self.trace_name,
+                       blocks=len(t), cur=int(self.cur[slot]))
+        self.mgr.free(rid)
+        REQUESTS.event(payload.req, "kv_peak", replica=self.trace_name,
+                       blocks=self.kv.take_peak(rid))
+        self.kv.release(rid)
+        self.active[slot] = False
+        self.slot_req[slot] = -1
+        self.draft_cur[slot] = 0
+        self.slot_aidx[slot] = -1
+        self._grammar.pop(slot, None)
+        self.sched.release(rid)
+        return payload
+
+    def snapshot_session(self, rid: int):
+        """Host-side durability capture: prompt, generated ids, the
+        sampling generator's state and the adapter/grammar refs of one
+        in-flight request — what a surviving replica needs to resume the
+        session by replaying prefill. Token ids only, never KV blocks.
+        Returns None for an unknown or finished request; the
+        ``serving.snapshot`` chaos site fires before the capture, so an
+        injected fault skips it cleanly (the caller keeps its previous
+        snapshot)."""
+        req = self.requests.get(rid)
+        if req is None or req.done:
+            return None
+        # the token list and the generator state must agree: land the
+        # in-flight async ticks before capturing either
+        self._drain_async("boundary")
+        if req.done:
+            return None
+        fault_point("serving.snapshot", engine=self, rid=rid)
+        snap = SessionSnapshot(
+            req_id=rid, prompt=req.prompt, tokens=tuple(req.tokens),
+            session_id=req.session_id, tenant_id=req.tenant_id,
+            adapter_id=req.adapter_id, grammar=req.grammar,
+            rng=self.exe.gen.get_state(), gen=len(req.tokens),
+            captured_t=self.sched.clock())
+        _SNAPSHOTS.inc()
+        return snap
+
+    def install_sequence(self, payload: KVPayload) -> bool:
+        """Adopt a sequence extracted from another replica: write its
+        blocks into this pool, its block-table row and length, and
+        activate a slot mid-decode. Every write goes into the pool's
+        tensors in place (``index_copy_``), never rebinding them, so the
+        captured tick graphs stay valid. Returns False (payload
+        untouched, no state changed) when no slot or not enough blocks
+        are free — the router retries later."""
+        self._drain_async("boundary")
+        if self._draining:
+            raise EngineDrainingError(
+                "engine is draining — finishing in-flight requests, "
+                "admitting nothing new")
+        req = payload.req
+        if req.adapter_id is not None:
+            raise NotImplementedError(
+                "multi-LoRA sequences do not ride the KV handoff (the "
+                "payload's KV depends on adapter weights this engine "
+                "has not pinned)")
+        if payload.block_size != self.block_size:
+            raise ValueError(f"block_size mismatch: payload "
+                             f"{payload.block_size} != {self.block_size}")
+        cache = self.cache
+        pool = cache.k_pools[0]
+        if (payload.k.shape[0] != len(cache.k_store)
+                or tuple(payload.k.shape[2:]) != tuple(pool.shape[1:])):
+            raise ValueError("KV payload geometry does not match this "
+                             "engine's pool (layers/heads/head_dim)")
+        if (payload.k_scale is not None) != bool(cache.k_scale_store):
+            raise ValueError("KV payload quantization does not match this "
+                             "engine's pool — source and target replicas "
+                             "must share kv_dtype")
+        if payload.k.dtype != pool.dtype:
+            raise ValueError(f"KV payload dtype {payload.k.dtype} does not "
+                             f"match this engine's pool ({pool.dtype})")
+        if payload.k.shape[1] * self.block_size < payload.cur:
+            raise ValueError(f"KV payload holds {payload.k.shape[1]} blocks, "
+                             f"too few for cur={payload.cur}")
+        if payload.cur + self._remaining(req) > self.max_seq_len:
+            raise ValueError("sequence + remaining tokens exceeds this "
+                             "engine's max_seq_len")
+        rid = req.req_id
+        if rid in self.requests:
+            raise ValueError(f"req_id {rid} already exists")
+        free = np.nonzero(self.slot_req < 0)[0]
+        wc = self.mgr.blocks_needed(payload.cur + self._remaining(req))
+        if not len(free) or wc > self.mgr.free_blocks - self.kv.reserved:
+            return False
+        slot = int(free[0])
+        self.sched.adopt(req)
+        self.kv.begin(rid, wc)
+        try:
+            t = self.mgr.allocate(rid, payload.cur)
+        except MemoryError:
+            self.kv.release(rid)
+            self.sched.release(rid)
+            return False
+        self.kv.update(rid)
+        # the installed blocks are NOT committed to the prefix cache (the
+        # admission path matches before allocating; committing here could
+        # duplicate content already parked): sharing is lost, never
+        # correctness
+        n = len(t)
+        dev = cache.device
+        idx = torch.as_tensor(np.asarray(t, np.int64), device=dev)
+        pairs = [(cache.k_store, payload.k), (cache.v_store, payload.v)]
+        if payload.k_scale is not None:
+            pairs += [(cache.k_scale_store, payload.k_scale),
+                      (cache.v_scale_store, payload.v_scale)]
+        for stores, blocks in pairs:
+            for li, store in enumerate(stores):
+                store.index_copy_(0, idx, blocks[li, :n].to(dev))
+        row = np.full(self.max_blocks_per_seq, self.mgr.num_blocks, np.int32)
+        row[:n] = t
+        cache.block_tables[slot].copy_(torch.as_tensor(row, device=dev))
+        cache.lens[slot] = payload.cur
+        self.slot_req[slot] = rid
+        self.active[slot] = True
+        self.is_beam[slot] = False
+        self.cur[slot] = payload.cur
+        self.gen[slot] = payload.gen
+        self.max_gen[slot] = payload.gen + self._remaining(req)
+        self.table_len[slot] = n
+        self.last_tok[slot] = payload.last_tok
+        temp, top_p = self._req_sampling(req)
+        self.temps[slot] = temp
+        self.top_ps[slot] = top_p
+        self._adm_counter += 1
+        self.adm_order[slot] = self._adm_counter
+        self.slot_aidx[slot] = -1
+        # a grammar request resumes mid-stream: the mask state replays the
+        # tokens it generated on the prefill replica
+        self._bind_grammar(slot, req)
+        # empty draft frontier: the speculative path re-feeds the whole
+        # committed sequence through this engine's draft cache
+        self.draft_cur[slot] = 0
+        self.slot_k[slot] = self.spec_k
+        self._acc_ema[slot] = 1.0
+        REQUESTS.event(req, "kv_install", replica=self.trace_name,
+                       blocks=payload.n_blocks, cur=payload.cur)
+        return True
+
     # ------------------------------------------------- roofline anatomy
     @contextmanager
     def _tick_timer(self, name: str):
@@ -1872,8 +2113,10 @@ class LLMEngine:
         spec     draft-and-verify samples on the host this tick
         growth   a slot would cross a block boundary within the window
 
-        The reference's ``mode`` (prefill-only replica, cp > 1) cannot
-        arise while the port refuses those features."""
+        ``mode`` is a prefill-only replica (the reference's also covers
+        cp > 1, which the port refuses)."""
+        if self.prefill_only:
+            return "mode"
         if self.queue:
             return "admit"
         if self.prefilling:
@@ -2035,6 +2278,10 @@ class LLMEngine:
         with self._tick_timer("prefill"):
             emitted += self._prefill(admits, beam_admits)
             emitted += self._prefill_chunks()
+        if self.prefill_only:
+            # prefill-role replica: newly activated slots carry their
+            # first token; the router extracts them — never decode here
+            return emitted
         if not self.active.any():
             return emitted
         # speculative draft-and-verify for eligible slots; the one-token

@@ -44,6 +44,7 @@ the CPU the same functions run eagerly.
 """
 from __future__ import annotations
 
+import gc
 import time
 
 import numpy as np
@@ -89,7 +90,11 @@ class TickGraph:
     eager call would. The kernel wrappers count their launches in Python,
     which runs at capture only: the capture's counts are taken back and
     added again at every replay, so the counters count device launches.
-    The warm-up and the capture hold ``core.device.CAPTURE_LOCK``."""
+    The warm-up and the capture hold ``core.device.CAPTURE_LOCK``, and
+    Python's cyclic garbage collector is run before the capture and held
+    off during it: a collection inside the capture could free an earlier
+    engine's graph, and destroying a graph while a stream captures
+    invalidates the capture."""
 
     def __init__(self, fn, cache, gen):
         # no other thread's CUDA call (a /memory scrape, a /profile
@@ -109,16 +114,21 @@ class TickGraph:
         torch.cuda.synchronize()
         gen.set_state(state)
         counts, routes = K.launches(), K.route_launches()
+        gc.collect()
         # the capture empties the allocator's cache first: do it before
         # reading what is reserved, so the difference is the graph's pool
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(gen)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(self.graph):
                 self.out = fn()
         finally:
+            if collecting:
+                gc.enable()
             # the capture launched nothing: take back what it counted
             self.launches = {k: v - counts[k] for k, v in
                              K.launches().items() if v != counts[k]}

@@ -154,11 +154,27 @@ class Scheduler:
         self.queue.append(req)
         return req.req_id
 
+    def adopt(self, req: Request) -> int:
+        """Register an already-prefilled request WITHOUT queueing it — the
+        disaggregated install path (the router's KV handoff)."""
+        if req.req_id is None or req.req_id in self.requests:
+            raise ValueError(f"install needs a fresh explicit req_id, "
+                             f"got {req.req_id!r}")
+        if req.deadline_s is not None or req.max_queue_s is not None:
+            self.has_deadlines = True
+        self.requests[req.req_id] = req
+        return req.req_id
+
     def pop_finished(self) -> dict:
         done = {rid: r for rid, r in self.requests.items() if r.done}
         for rid in done:
             del self.requests[rid]
         return done
+
+    def release(self, rid: int) -> Request:
+        """Forget a request without finishing it (the router's
+        pull-back)."""
+        return self.requests.pop(rid, None)
 
     # ---------------------------------------------------------- deadlines
     def expire(self, cancel):

@@ -1,6 +1,6 @@
 """Serving metric instruments — the subset of
-``paddle_tpu/serving/telemetry.py`` that the single-device engine of
-this package emits (same names, labels and help texts: health rules and
+``paddle_tpu/serving/telemetry.py`` that the engine and the router of
+this package emit (same names, labels and help texts: health rules and
 degradation signals read metrics by name). Request-relative timings
 (TTFT, inter-token latency, queue wait) use the ENGINE clock; host work
 timings (tick, drain) the real monotonic clock.
@@ -257,3 +257,57 @@ _TENANT_THROTTLED = METRICS.counter(
     "admission passes that skipped a tenant whose token bucket was "
     "empty (max_tokens_per_s rate limit), by tenant",
     labelnames=("tenant",))
+
+# ------------------------------------------------------------- router
+_R_DISPATCH = METRICS.counter(
+    "router_dispatch_total", "requests dispatched to a replica",
+    labelnames=("replica",))
+_R_REQUEUES = METRICS.counter(
+    "router_requeues_total",
+    "requests pulled back from a replica and re-dispatched, by replica "
+    "and cause (replica_death, kv_transfer, dispatch_fault, drain)",
+    labelnames=("replica", "why"))
+_R_OUTSTANDING = METRICS.gauge(
+    "router_replica_outstanding", "not-yet-finished requests per replica",
+    labelnames=("replica",))
+_R_HEALTH = METRICS.gauge(
+    "router_replica_health",
+    "per-replica health verdict (0 OK / 1 WARN / 2 CRIT)",
+    labelnames=("replica",))
+_R_TRANSFERS = METRICS.counter(
+    "router_kv_transfers_total",
+    "prefilled sequences shipped prefill→decode (disaggregated mode)")
+_R_TRANSFER_BLOCKS = METRICS.counter(
+    "router_kv_transfer_blocks_total",
+    "KV blocks shipped prefill→decode (disaggregated mode)")
+_R_DEATHS = METRICS.counter(
+    "router_replica_deaths_total", "replicas declared dead by the router")
+
+# session durability and the hardened KV handoff (retries, hedging,
+# the delivery-time histogram the hedging deadline reads)
+_SNAPSHOTS = METRICS.counter(
+    "serving_session_snapshots_total",
+    "host-side session-durability snapshots captured")
+_R_RESTORES = METRICS.counter(
+    "router_session_restores_total",
+    "sessions restored from a snapshot onto a surviving replica after "
+    "a repeat replica death (instead of failing with replica_death)")
+_R_TRANSFER_RETRIES = METRICS.counter(
+    "router_transfer_retries_total",
+    "KV-handoff ship attempts retried, by replica and cause (partial = "
+    "failed geometry/checksum validation, error = transport exception)",
+    labelnames=("replica", "why"))
+_R_HEDGES = METRICS.counter(
+    "router_hedges_total",
+    "KV handoffs re-dispatched to another decode replica after the "
+    "primary ship blew its p95-derived deadline (straggler hedging)")
+_R_HEDGE_RATE = METRICS.gauge(
+    "router_hedge_rate",
+    "lifetime hedged / successful KV handoffs — sustained hedging "
+    "means a straggling replica or transport link")
+_R_TRANSFER_SECONDS = METRICS.histogram(
+    "router_kv_transfer_seconds",
+    "wall time of one successful KV-handoff delivery (ship + "
+    "validation) — feeds the p95-derived hedging deadline",
+    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+             0.25, 0.5, 1.0, 2.5))

@@ -2430,3 +2430,119 @@ def test_scrape_during_capture_leaves_streams_and_captures_intact(
     assert 200 in codes["/profile?seconds=0.3"]
     assert set(codes["/profile?seconds=0.3"]) <= {200, 409}
     assert decode_named()
+
+
+# ----------------------------------------- router, KV handoff, HF loading
+def _router_mix():
+    import numpy as np
+
+    from paddle_tpu_torch.serving import Request
+    rs = np.random.RandomState(12)
+    return [Request(rs.randint(0, 512, n), max_new_tokens=10)
+            for n in (20, 90, 9, 27, 41)]
+
+
+def _route_on(model, roles, parallel=False, check=None, **kw):
+    """The router mix through a Router over engines of 4 slots on the
+    model's device (``roles``: one per replica); ``check(router)`` after
+    every step of the sequential run. Returns (token lists, router)."""
+    from paddle_tpu_torch.serving import LLMEngine, Replica, Router
+    router = Router([Replica(LLMEngine(model, num_slots=4, block_size=16,
+                                       max_prompt_len=64, max_seq_len=128,
+                                       seed=0, **kw), role=role)
+                     for role in roles])
+    reqs = _router_mix()
+    for r in reqs:
+        router.add_request(r)
+    if parallel:
+        router.run(parallel=True)
+    while router.has_work():
+        router.step()
+        if check is not None:
+            check(router)
+    router.assert_quiescent()
+    for rep in router.replicas:
+        rep.engine.assert_quiescent()
+    return [r.tokens for r in reqs], router
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_disaggregated_router_on_card_matches_cpu(kv):
+    """fp32 on the card: a prefill replica (K2, K3 over a 90-token prompt
+    in chunks of 64, K7) hands every sequence over sealed to a decode
+    replica whose tick graph replays against the installed blocks (the
+    install writes the captured tensors in place); the streams equal a
+    single CPU engine's token for token."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch.serving import LLMEngine
+    from paddle_tpu_torch.serving.executor import _cache_ptrs
+    model, _ = _graph_model("llama_fp32")
+    kw = {} if kv is None else {"kv_dtype": kv}
+    in_place = []
+
+    def check(router):
+        exe = router.replicas[1].engine.exe
+        in_place.append(_cache_ptrs(exe.cache) == exe._tick._ptrs)
+    got, router = _route_on(model, ("prefill", "decode"), check=check, **kw)
+    assert router.stats["transfers"] == 5 and in_place and all(in_place)
+    assert router.replicas[0].engine.stats["ticks"] == 0
+    cpu = LLMEngine(_cpu_copy(model), num_slots=4, block_size=16,
+                    max_prompt_len=64, max_seq_len=128, seed=0,
+                    device="cpu", **kw)
+    reqs = _router_mix()
+    for r in reqs:
+        cpu.add_request(r)
+    cpu.run()
+    assert got == [r.tokens for r in reqs]
+
+
+@pytest.mark.cuda
+def test_parallel_router_on_card_matches_sequential():
+    """run(parallel=True) on one card: one thread per replica (the
+    tick graphs were captured when the engines were built) gives the
+    sequential rounds' streams, and no thread outlives the call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import threading
+    model, _ = _graph_model("llama_bf16")
+    seq, _ = _route_on(model, ("both", "both"))
+    par, router = _route_on(model, ("both", "both"), parallel=True)
+    assert par == seq
+    assert all(rep.engine.stats["ticks"] > 0 for rep in router.replicas)
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("pt-router-")]
+
+
+@pytest.mark.cuda
+def test_auto_from_pretrained_loads_onto_the_card(tmp_path):
+    """A bf16 HF checkpoint written by ``chip_smoke.write_hf_checkpoint``
+    (two shards) loads with no device named onto the card, every
+    parameter bit-equal to the model it was written from."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import chip_smoke
+    from paddle_tpu_torch.models.auto import auto_from_pretrained
+    model, _ = _graph_model("llama_bf16")
+    cfg = model.cfg
+    hf = {"model_type": "llama", "hidden_size": cfg.hidden_size,
+          "intermediate_size": cfg.intermediate_size,
+          "num_hidden_layers": cfg.num_hidden_layers,
+          "num_attention_heads": cfg.num_attention_heads,
+          "num_key_value_heads": cfg.num_key_value_heads,
+          "vocab_size": cfg.vocab_size, "rms_norm_eps": cfg.rms_norm_eps,
+          "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
+    old = chip_smoke.HF_SHARD_BYTES
+    chip_smoke.HF_SHARD_BYTES = 2 ** 20
+    try:
+        chip_smoke.write_hf_checkpoint(torch, str(tmp_path),
+                                       chip_smoke.hf_llama_tensors(model), hf)
+    finally:
+        chip_smoke.HF_SHARD_BYTES = old
+    assert len(list(tmp_path.glob("*.safetensors"))) >= 2
+    got = auto_from_pretrained(str(tmp_path), dtype=torch.bfloat16)
+    assert got.device.type == "cuda"
+    want = dict(model.named_parameters())
+    for name, p in got.named_parameters():
+        assert p.dtype == want[name].dtype and torch.equal(p, want[name]), name

@@ -90,15 +90,26 @@ def test_eos_cancel_drain_and_refusals():
     assert eng2.requests[r].tokens == [first]
     assert eng2.requests[r].finish_reason == "eos"
     eng2.assert_quiescent()
-    # tenants are served; context parallelism and prefill-only replicas
-    # are still refused by name
+    # tenants are served; a prefill-only replica stops after prefill and
+    # its sequence is extractable; context parallelism is still refused
+    # by name
     rt = eng2.add_request(Request([1, 2], max_new_tokens=3, tenant_id="t0"))
     eng2.run()
     assert len(eng2.requests[rt].tokens) <= 3
     eng2.assert_quiescent()
-    for kw in (dict(cp=2), dict(prefill_only=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            LLMEngine(tm, **kw)
+    pre = LLMEngine(tm, num_slots=2, block_size=4, max_prompt_len=8,
+                    max_seq_len=32, prefill_only=True)
+    rp = pre.add_request(Request(eng.requests[b].prompt, max_new_tokens=20))
+    pre.step()
+    pre.step()
+    assert pre.requests[rp].tokens == eng.requests[b].tokens[:1]
+    assert pre.stats["ticks"] == 0 and pre.active.any()
+    payload = pre.extract_sequence(rp)
+    assert payload.gen == 1 and payload.cur == len(eng.requests[b].prompt)
+    assert not pre.has_work()
+    pre.assert_quiescent()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        LLMEngine(tm, cp=2)
 
 
 def test_sampled_streams_are_seeded_and_mixed_with_greedy():

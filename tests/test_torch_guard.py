@@ -28,7 +28,9 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "paddle_tpu_torch.serving.quant, paddle_tpu_torch.models.bloom, "
         "paddle_tpu_torch.models.falcon, paddle_tpu_torch.nn.layers, "
         "paddle_tpu_torch.peft, paddle_tpu_torch.serving.adapters, "
-        "paddle_tpu_torch.models.speculative\n"
+        "paddle_tpu_torch.models.speculative, "
+        "paddle_tpu_torch.serving.router, paddle_tpu_torch.serving.transfer, "
+        "paddle_tpu_torch.models.auto\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
@@ -139,7 +141,11 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
         "gemma_train": K.GEMMA_TRAIN_KERNELS,
         "gemma7b_serve": K.GEMMA_SERVE_KERNELS,
         "gptj_serve": K.GPTJ_SERVE_KERNELS,
-        "gptj_train": K.GPTJ_TRAIN_KERNELS}
+        "gptj_train": K.GPTJ_TRAIN_KERNELS,
+        "router_serve": K.ROUTER_SERVE_KERNELS,
+        "router_serve_disagg": K.ROUTER_SERVE_KERNELS,
+        "router_serve_i8": K.ROUTER_SERVE_I8_KERNELS,
+        "router_check": K.ROUTER_SERVE_KERNELS}
     # K7 rotates every rotate-half rope of every path; the ALiBi paths
     # (BLOOM, falcon-rw) have no rope and run K2's (and K5's) ALiBi mode
     # instead, and GPT-J's interleaved rope is plain PyTorch, as the

@@ -439,10 +439,13 @@ def _names_read(health_mod, degrade_mod, reg):
 
 def test_every_name_the_rules_and_signals_read_is_registered_alike():
     """A metric the port spelled differently would read 0.0 without a
-    word. The serving engine's names all start with ``serving_``; the
-    router's (``router_*``, ROADMAP.md queue 1 item 5(j)) and the
-    trainer's (``train_*``, ``io_*``, ``ckpt_*``, ``elastic_*``) are
-    outside it."""
+    word. The serving engine's names start with ``serving_`` and the
+    router's with ``router_`` (the stock imbalance rule reads
+    ``router_replica_outstanding``; every router instrument is held to
+    the reference's type and label names); the trainer's (``train_*``,
+    ``io_*``, ``ckpt_*``, ``elastic_*``) are outside the port."""
+    import paddle_tpu.serving.router  # noqa: F401  (registers router_*)
+    import paddle_tpu_torch.serving.router  # noqa: F401
     read = _names_read(J_HEALTH, J_DEGRADE, J_METRICS)
     assert read == _names_read(health, degrade, METRICS)
     serving = {n for n in read if n in J_METRICS._instruments
@@ -451,7 +454,9 @@ def test_every_name_the_rules_and_signals_read_is_registered_alike():
             "serving_kv_stall_total", "serving_goodput_tokens_total",
             "serving_waste_total", "serving_queue_wait_seconds",
             "serving_mbu", "serving_kv_block_utilization"} <= serving
-    for name in sorted(serving):
+    router = {n for n in J_METRICS._instruments if n.startswith("router_")}
+    assert len(router) == 12 and "router_kv_transfer_seconds" in router
+    for name in sorted(serving | router):
         j, t = J_METRICS.get(name), METRICS.get(name)
         assert t is not None, f"the port never registers {name}"
         assert type(t).__name__ == type(j).__name__, name
