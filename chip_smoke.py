@@ -222,6 +222,44 @@ Phases (each one fails the run when it fails; nothing is caught):
             (``snapshot_every=1``); ``drain_replica`` on the prefill
             replica mid-chunk flushing its handoffs; a bf16 replica
             refusing an int8 payload by name; every replica quiescent
+  gptq_serve  the serve phase's model (Llama-2-7B width, all 32 layers)
+            quantized three ways, each on a copy, from calibration ids
+            [2, 512] of np.random.RandomState(19): (a) GPTQ int4
+            (``quantize_for_serving(copy, "gptq_int4", calib_ids=...)``:
+            one capture forward, then the card's float64 Hessians and
+            lazy-batch recursion), (b) weight-only int8 after calibrated
+            smoothing (``smooth=True, calib_ids=...``), (c) RTN int4; each
+            served with the serve mix over a bf16 pool through
+            ``LLMEngine`` (every request its full token count; K1-K4, K7
+            and rope_kv launched): the quantize seconds (capture, Hessians,
+            recursion), weight bytes, ``quant_quality`` against the bf16
+            model on a held-out [4, 128] batch, tokens/s. (a)'s output MSE
+            on the first layer's calibration activations must be below
+            (c)'s for all four projections, and (b)'s smoothed bf16 model
+            within SMOOTH_REL of the unsmoothed one's logits (RMS)
+  gptq_check  GPTQ on the card against the port's CPU path (the
+            reference's float64 loop) over the same weights and captured
+            activations: the first layer's four projections at full K and
+            their first GPTQ_CHECK_COLS output channels (the recursion is
+            row-independent), scales bit-equal and at least 99.9% of the
+            codes equal (the count that differ printed); then calibrated
+            smoothing of a CHECK_LAYERS-layer float32 copy at 7B width on
+            the card and on the CPU, every folded weight within
+            SMOOTH_CHECK_RTOL
+  spec_generate  the standalone speculative API: four prompts of 64-128
+            tokens (RandomState(19)), 64 new tokens, gamma 4, with the
+            target itself as draft and TinyLlama-1.1B's widths with random
+            weights (nearly every proposal rejected). On the served bf16
+            model ``speculative_generate`` per prompt beside ``generate``:
+            tokens/s, rounds, acceptance, draft and verify ms a round, and
+            the leading tokens each stream shares with generate's (a
+            5-token verify rounds differently from one-token decode in
+            bf16); on float32 copies of both models (all 32 layers) every
+            ``speculative_generate`` stream equal to ``generate``'s, the
+            rows of ``speculative_generate_batched`` over the ragged four
+            equal to their solo runs, ``speculative_sample`` at temperature
+            1.0 the same tokens twice at one seed and at temperature 0
+            generate's
   spec_check  (a) at 4 layers, float32: greedy speculative streams with
             both drafts (TinyLlama's widths cut to 4 layers too) equal the
             non-speculative engine's token for token; (b) at 7B bf16 one
@@ -234,6 +272,15 @@ Phases (each one fails the run when it fails; nothing is caught):
             steps on one fixed batch; every loss finite, the last below the
             first, and the rms_norm, flash forward and both flash backward
             kernels launched; step ms, tokens/s, MFU and peak memory
+  remat_train  the same configuration and batch with remat on: 2 steps
+            from one seed under each remat_policy (None, hidden, no_ffn,
+            dots) and with scan_layers=True (None), then 4 more timed; loss
+            and every gradient of the first two steps bit-identical across
+            the five, the tensors the checkpoints keep growing None <
+            hidden < no_ffn < dots (bytes of the distinct storages autograd
+            packs), K2 launched in the backward no more often under dots
+            than under hidden; step ms, peak memory, and K2 / K7 launches in
+            the backward per run
   moe_serve ``Qwen/Qwen1.5-MoE-A2.7B`` whole and at full width (its
             published config written out in ``qwen_moe_config``: 24 layers,
             60 experts of 1408 top-4 plus a shared expert, vocab 151 936;
@@ -393,7 +440,8 @@ path (``"path": "serve"``, ``"async_serve"``, ``"lora_serve"``,
 ``"spec_serve"``, ``"beam_serve"``, ``"beam_serve_i8"``,
 ``"grammar_serve"``, ``"tenant_serve"``, ``"router_serve"``,
 ``"router_serve_disagg"``, ``"router_serve_i8"``, ``"router_check"``,
-``"train"``, ``"moe_serve"``,
+``"gptq_serve"``, ``"spec_generate"``, ``"train"``, ``"remat_train"``,
+``"moe_serve"``,
 ``"moe_train"``,
 ``"window_serve"``, ``"quant_serve"``, ``"bloom_serve"``, ``"bloom_train"``,
 ``"falcon_rw_serve"``, ``"falcon_rw_train"``, ``"falcon7b_serve"``,
@@ -480,7 +528,8 @@ SOURCES = {
 # BEAM_SERVE_I8_KERNELS / GRAMMAR_SERVE_KERNELS / TENANT_SERVE_KERNELS /
 # GEMMA_TRAIN_KERNELS /
 # GEMMA_SERVE_KERNELS / GPTJ_SERVE_KERNELS / GPTJ_TRAIN_KERNELS /
-# ROUTER_SERVE_KERNELS / ROUTER_SERVE_I8_KERNELS, spelled
+# ROUTER_SERVE_KERNELS / ROUTER_SERVE_I8_KERNELS / GPTQ_SERVE_KERNELS /
+# SPEC_GENERATE_KERNELS / REMAT_TRAIN_KERNELS, spelled
 # out here so that
 # --root can load an earlier tree that lacks them (a kernel that such a
 # tree does not have is then left out of its checks)
@@ -530,7 +579,12 @@ PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
          "router_serve_i8": ("rms_norm", "flash_fwd", "paged_chunk_i8",
                              "paged_decode_i8", "rope"),
          "router_check": ("rms_norm", "flash_fwd", "paged_chunk",
-                          "paged_decode", "rope", "rope_kv")}
+                          "paged_decode", "rope", "rope_kv"),
+         "gptq_serve": ("rms_norm", "flash_fwd", "paged_chunk",
+                        "paged_decode", "rope", "rope_kv"),
+         "spec_generate": ("rms_norm", "rope"),
+         "remat_train": ("rms_norm", "flash_fwd", "flash_bwd_dq",
+                         "flash_bwd_dkv", "rope")}
 # kernels of PATHS that the imported tree does not have (only with --root)
 ABSENT: set = set()
 # the train check: share of the fp32 gradients' RMS that each bf16 path
@@ -1056,6 +1110,14 @@ def phase_kernels(torch, dev):
     # fold at the decode shape)
     for path in ("router_serve", "router_serve_disagg", "router_check"):
         results[path] = results["serve"]
+    # a GPTQ / smoothed model serves the serve geometry, the remat policies
+    # run the train step's shapes (their recompute repeats those
+    # launches), the speculative API's dense-cache decode K1 and K7 at the
+    # serve path's decode widths
+    results["gptq_serve"] = results["serve"]
+    results["remat_train"] = results["train"]
+    results["spec_generate"] = {"rms_norm": results["serve"]["rms_norm"],
+                                "rope": rope_decode}
     torch.cuda.synchronize()
     for path, rs in results.items():
         for name, r in rs.items():
@@ -6432,13 +6494,468 @@ def phase_router_check(torch, dev, model, np, serve_reqs):
     return counts
 
 
+# ------------------------------------- GPTQ, smoothing, speculative, remat
+GPTQ_CALIB = (2, 512)       # calibration ids [B, S] from RandomState(19)
+GPTQ_HELD = (4, 128)        # the held-out quality batch, same generator
+GPTQ_CHECK_COLS = 32        # output channels gptq_check runs on the CPU
+GPTQ_CODE_SHARE = 0.999     # codes the card and the CPU must agree on
+# smoothed vs unsmoothed bf16 logits, as a share of their RMS: the fold
+# rescales every norm weight and qkv / gate_up row in fp32 and rounds them
+# to bf16 again, which moves the logits by bf16 rounding alone, so the
+# whole-path bf16 limit (CHECK_REL) holds it; gptq_check holds the fold
+# exact in float32
+SMOOTH_REL = CHECK_REL
+SMOOTH_FP32_REL = 1e-4      # float32 logits, smoothed vs not (4 layers)
+SMOOTH_CHECK_RTOL = 1e-4    # folded weights, card vs CPU (fp32, 4 layers)
+SMOOTH_CHECK_TOKENS = 128   # calibration tokens a row of that check
+GPTQ_PROJ = (("self_attn", "qkv_proj", "qkv"), ("self_attn", "o_proj", "o"),
+             ("mlp", "gate_up_proj", "gate_up"), ("mlp", "down_proj", "down"))
+
+
+def gptq_inputs(torch, dev, np, vocab):
+    """(calibration ids [2, 512], held-out ids [4, 128]) on the card."""
+    rs = np.random.RandomState(19)
+    calib = torch.as_tensor(rs.randint(3, vocab, GPTQ_CALIB), device=dev)
+    held = torch.as_tensor(rs.randint(3, vocab, GPTQ_HELD), device=dev)
+    return calib, held
+
+
+def _first_layer_mse(torch, model, qmodel, rec0):
+    """{projection: mean squared error of X @ dequant(Wq) against X @ W}
+    over the first layer's captured calibration activations X."""
+    out = {}
+    l0, q0 = model.model.layers[0], qmodel.model.layers[0]
+    with torch.no_grad():
+        for owner, name, key in GPTQ_PROJ:
+            w = getattr(getattr(l0, owner), name).float()
+            wq = getattr(getattr(q0, owner), name).dequantize(torch.float32)
+            x = rec0[key]
+            out[name] = float(((x @ wq - x @ w) ** 2).mean())
+    return out
+
+
+def phase_gptq_serve(torch, dev, model, np, rec0):
+    """Three quantized copies of the served Llama-2-7B, each served with
+    the serve mix over a bf16 pool (module docstring). ``rec0``: the first
+    layer's calibration records of the unquantized model. Returns the GPTQ
+    arm's launch counts."""
+    import copy
+
+    from paddle_tpu_torch.serving.quant import (quant_quality,
+                                                quantize_for_serving,
+                                                smooth_for_serving)
+    card = card_line()
+    calib, held = gptq_inputs(torch, dev, np, model.cfg.vocab_size)
+    with torch.no_grad():
+        ref = model(held).float()
+    m = copy.deepcopy(model)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    smooth_for_serving(m, calib_ids=calib)
+    torch.cuda.synchronize()
+    t_smooth = time.monotonic() - t0
+    with torch.no_grad():
+        err = _rms(m(held).float() - ref) / _rms(ref)
+    del m
+    torch.cuda.empty_cache()
+    log(f"[gptq_serve] calibrated smoothing in {t_smooth:.2f} s: smoothed "
+        f"bf16 logits on the held-out {list(held.shape)} batch "
+        f"{err:.5f} of the unsmoothed logits' RMS from them (limit "
+        f"{SMOOTH_REL}; {card})")
+    if not err <= SMOOTH_REL:
+        raise AssertionError(f"calibrated smoothing moved the bf16 logits "
+                             f"by {err} of their RMS")
+    arms = (("gptq_int4", "gptq_int4", dict(calib_ids=calib)),
+            ("smoothed weight_only_int8", "weight_only_int8",
+             dict(smooth=True, calib_ids=calib)),
+            ("rtn weight_only_int4", "weight_only_int4", {}))
+    out, mse = None, {}
+    for label, algo, kw in arms:
+        m = copy.deepcopy(model)
+        timings = {}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        quantize_for_serving(m, algo, timings=timings, **kw)
+        torch.cuda.synchronize()
+        q_s = time.monotonic() - t0
+        with torch.no_grad():
+            qual = quant_quality(ref, m(held).float())
+        # the smoothed arm's weights read X / s, not the captured X
+        mse[label] = ({} if kw.get("smooth") else
+                      _first_layer_mse(torch, model, m, rec0))
+        counts, reqs, st = phase_serve(torch, dev, m, np, "gptq_serve",
+                                       label=f"gptq_serve {label}")
+        short = [r.req_id for r in reqs if len(r.tokens) != r.max_new_tokens]
+        if short:
+            raise AssertionError(f"gptq_serve {label}: requests {short} "
+                                 f"ended short")
+        split = ", ".join(f"{k} {v:.2f} s" for k, v in sorted(
+            timings.items()))
+        log(f"[gptq_serve] {label}: quantized in {q_s:.2f} s"
+            f"{f' ({split})' if split else ''}; weights "
+            f"{st['weight_bytes'] / 2**30:.3f} GiB; held-out logit MSE "
+            f"{qual['logit_mse']:.6f}, greedy match "
+            f"{qual['greedy_match_rate']:.4f}; first layer's calibration "
+            f"MSE {', '.join(f'{k} {v:.4e}' for k, v in mse[label].items())}"
+            f"; {st['tokens_s']:.1f} tokens/s; launches {counts} ({card})")
+        if out is None:
+            out = counts
+        del m
+        torch.cuda.empty_cache()
+    worse = [n for n, v in mse["gptq_int4"].items()
+             if not v < mse["rtn weight_only_int4"][n]]
+    if worse:
+        raise AssertionError(f"GPTQ int4 not below RTN int4 on the "
+                             f"calibration activations: {worse} {mse}")
+    return out
+
+
+def phase_gptq_check(torch, dev, model, np, rec0):
+    """GPTQ and calibrated smoothing on the card against the CPU path
+    (module docstring)."""
+    import copy
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.quantization import gptq_quantize
+    from paddle_tpu_torch.serving.quant import smooth_for_serving
+    card = card_line()
+    lyr = model.model.layers[0]
+    for owner, name, key in GPTQ_PROJ:
+        w = getattr(getattr(lyr, owner), name)[:, :GPTQ_CHECK_COLS].float()
+        x = rec0[key]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        got = gptq_quantize(w, x, bits=4)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        want = gptq_quantize(w.cpu(), x.cpu(), bits=4)
+        t2 = time.monotonic()
+        differ = int((got.unpack().cpu() != want.unpack()).sum())
+        share = 1.0 - differ / want.unpack().numel()
+        same_scale = torch.equal(got.scale.cpu(), want.scale)
+        log(f"[gptq_check] layer 0 {name} [{w.shape[0]}, "
+            f"{GPTQ_CHECK_COLS}] over X {list(x.shape)}: scales bit-equal "
+            f"{same_scale}; {differ} of {want.unpack().numel()} codes differ "
+            f"(share equal {share:.6f}, limit {GPTQ_CODE_SHARE}); card "
+            f"{t1 - t0:.2f} s, CPU loop {t2 - t1:.2f} s ({card})")
+        if not same_scale or share < GPTQ_CODE_SHARE:
+            raise AssertionError(f"gptq_check {name}: card and CPU disagree")
+    m = LlamaForCausalLM(LlamaConfig.llama2_7b(
+        num_hidden_layers=CHECK_LAYERS, dtype=torch.float32), device=dev,
+        seed=0)
+    cpu = copy.deepcopy(m).to("cpu")
+    calib = gptq_inputs(torch, dev, np, m.cfg.vocab_size)[0][
+        :, :SMOOTH_CHECK_TOKENS]
+    with torch.no_grad():
+        before = m(calib).float()
+    t0 = time.monotonic()
+    smooth_for_serving(m, calib_ids=calib)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    with torch.no_grad():
+        kept = _rms(m(calib).float() - before) / _rms(before)
+    del before
+    log(f"[gptq_check] the {CHECK_LAYERS}-layer fp32 model's logits after "
+        f"calibrated smoothing: {kept:.3e} of their RMS from the unsmoothed "
+        f"ones (limit {SMOOTH_FP32_REL}; {card})")
+    if not kept <= SMOOTH_FP32_REL:
+        raise AssertionError(f"calibrated smoothing changed the fp32 "
+                             f"function by {kept} of the logits' RMS")
+    t_card, t1 = t1 - t0, time.monotonic()
+    smooth_for_serving(cpu, calib_ids=calib.cpu())
+    t2 = time.monotonic()
+    want = dict(cpu.named_parameters())
+    worst = (0.0, "")
+    for name, p in m.named_parameters():
+        a, b = p.detach().cpu(), want[name].detach()
+        rel = float(((a - b).abs() / (b.abs() + 1e-30)).max())
+        worst = max(worst, (rel, name))
+        if not torch.allclose(a, b, rtol=SMOOTH_CHECK_RTOL, atol=1e-7):
+            raise AssertionError(f"smoothing {name}: card and CPU folds "
+                                 f"differ by {rel}")
+    log(f"[gptq_check] calibrated smoothing of a {CHECK_LAYERS}-layer fp32 "
+        f"copy at 7B width over {list(calib.shape)} ids: every folded "
+        f"weight within rtol {SMOOTH_CHECK_RTOL} of the CPU's (largest "
+        f"relative difference {worst[0]:.3e} in {worst[1]}); card "
+        f"{t_card:.2f} s, CPU {t2 - t1:.2f} s ({card})")
+    del m, cpu
+    torch.cuda.empty_cache()
+
+
+SPEC_PROMPTS = (64, 85, 107, 128)
+SPEC_NEW, SPEC_GAMMA = 64, 4
+
+
+def _shared_prefix(got, ref, start):
+    """Leading tokens from ``start`` on where ``got`` equals ``ref``."""
+    same = (got[0, start:] == ref[0, start:]).cpu().tolist()
+    return same.index(False) if False in same else len(same)
+
+
+def phase_spec_generate(torch, dev, model, np):
+    """The standalone speculative API (module docstring): (1) on the served
+    bf16 model, the speed, rounds and acceptance of ``speculative_generate``
+    with both drafts beside ``generate``, and how many leading tokens of
+    each bf16 stream equal ``generate``'s (a 5-token verify rounds
+    differently from one-token decode in bf16); (2) on float32 copies of
+    the target and the TinyLlama draft, all 32 layers: every stream equal
+    to ``generate``'s, the batched rows to their solo runs,
+    ``speculative_sample`` repeating itself at one seed and equal to
+    ``generate`` at temperature 0. Returns the bf16 run's launch counts."""
+    from paddle_tpu_torch.models.decoding import generate
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.models.speculative import (
+        speculative_generate, speculative_generate_batched,
+        speculative_sample)
+    from paddle_tpu_torch.ops import cuda as K
+    card = card_line()
+    tiny = LlamaForCausalLM(tinyllama_config(torch), device=dev, seed=7)
+    rs = np.random.RandomState(19)
+    prompts = [rs.randint(3, model.cfg.vocab_size, n) for n in SPEC_PROMPTS]
+    padded = np.zeros((len(prompts), max(SPEC_PROMPTS)), np.int64)
+    for i, p in enumerate(prompts):
+        padded[i, :len(p)] = p
+    lens = np.asarray(SPEC_PROMPTS)
+    ntok = SPEC_NEW * len(prompts)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.monotonic() - t0
+
+    def greedy(target):
+        refs, wall = [], 0.0
+        for p in prompts:
+            r, s = timed(lambda: generate(target, p[None], SPEC_NEW))
+            refs.append(r)
+            wall += s
+        return refs, wall
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    refs, gen_s = greedy(model)
+    log(f"[spec_generate] bf16 generate (greedy, no draft): "
+        f"{ntok / gen_s:.1f} tokens/s over {len(prompts)} prompts of "
+        f"{list(SPEC_PROMPTS)} tokens, {SPEC_NEW} new each ({card})")
+    for label, draft in (("self-draft", model), ("tinyllama draft", tiny)):
+        agg = dict(rounds=0, proposed=0, accepted=0, draft_s=0.0,
+                   verify_s=0.0)
+        wall, agree = 0.0, []
+        for i, p in enumerate(prompts):
+            (got, st), s = timed(lambda: speculative_generate(
+                model, draft, p[None], SPEC_NEW, SPEC_GAMMA))
+            wall += s
+            agree.append(_shared_prefix(got, refs[i], len(p)))
+            for k in agg:
+                agg[k] += st[k]
+        n = max(agg["rounds"], 1)
+        log(f"[spec_generate] bf16 {label}: {ntok / wall:.1f} tokens/s, "
+            f"{agg['rounds']} rounds, acceptance {agg['accepted']} / "
+            f"{agg['proposed']} = "
+            f"{agg['accepted'] / max(agg['proposed'], 1):.3f}, draft "
+            f"{1e3 * agg['draft_s'] / n:.2f} ms and verify "
+            f"{1e3 * agg['verify_s'] / n:.2f} ms a round (wall); leading "
+            f"tokens equal to bf16 generate's {agree} of {SPEC_NEW} "
+            f"({card})")
+    counts = K.launches()
+    missing = _missing("spec_generate", counts)
+    if missing:
+        raise AssertionError(f"kernels not launched on spec_generate: "
+                             f"{missing} ({counts})")
+    m32, t32 = fp32_copy(torch, model), fp32_copy(torch, tiny)
+    del tiny
+    refs, gen_s = greedy(m32)
+    bad = []
+    for label, draft in (("self-draft", m32), ("tinyllama draft", t32)):
+        same = []
+        for i, p in enumerate(prompts):
+            got, st = speculative_generate(m32, draft, p[None], SPEC_NEW,
+                                           SPEC_GAMMA)
+            same.append(bool(torch.equal(got, refs[i])))
+        (got_b, stb), s_b = timed(lambda: speculative_generate_batched(
+            m32, draft, padded, prompt_lens=lens, max_new_tokens=SPEC_NEW,
+            gamma=SPEC_GAMMA))
+        rows = [bool(torch.equal(got_b[i, :lens[i] + SPEC_NEW], refs[i][0]))
+                for i in range(len(prompts))]
+        log(f"[spec_generate] fp32 {label}: streams equal to generate's "
+            f"{same}; batched over the ragged {len(prompts)} "
+            f"({ntok / s_b:.1f} tokens/s, {stb['rounds']} rounds, acceptance "
+            f"{stb['acceptance_rate']:.3f}): rows equal to their solo runs "
+            f"{rows} ({card})")
+        if not all(same) or not all(rows):
+            bad.append(label)
+        if draft is m32 and stb["accepted"] != stb["proposed"]:
+            bad.append(f"{label} rejected a proposal")
+    (s1, st1), t1 = timed(lambda: speculative_sample(
+        m32, t32, prompts[0][None], SPEC_NEW, SPEC_GAMMA, temperature=1.0,
+        seed=5))
+    s2, _ = speculative_sample(m32, t32, prompts[0][None], SPEC_NEW,
+                               SPEC_GAMMA, temperature=1.0, seed=5)
+    s0, _ = speculative_sample(m32, m32, prompts[0][None], SPEC_NEW,
+                               SPEC_GAMMA, temperature=0.0, seed=5)
+    log(f"[spec_generate] fp32 speculative_sample (tinyllama draft, "
+        f"temperature 1.0, seed 5): {SPEC_NEW / t1:.1f} tokens/s, "
+        f"{st1['rounds']} rounds, acceptance {st1['acceptance_rate']:.3f}; "
+        f"the same tokens twice: {bool(torch.equal(s1, s2))}; temperature 0 "
+        f"equal to generate: {bool(torch.equal(s0, refs[0]))} ({card})")
+    if not torch.equal(s1, s2):
+        bad.append("speculative_sample repeat")
+    if not torch.equal(s0, refs[0]):
+        bad.append("speculative_sample at temperature 0")
+    del m32, t32
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"spec_generate: {bad}")
+    return counts
+
+
+REMAT_RUNS = ((None, False), ("hidden", False), ("no_ffn", False),
+              ("dots", False), (None, True))
+REMAT_TIMED = 4             # steps timed after the two that are compared
+
+
+def _step_grads(model, scanned, layers):
+    """{name: gradient} with a stacked gradient split into the loop's
+    per-layer names."""
+    out = {}
+    for n, p in model.named_parameters():
+        if scanned and ".layers_stacked." in n:
+            for i in range(layers):
+                out[n.replace("layers_stacked", f"layers.{i}")] = p.grad[i]
+        else:
+            out[n] = p.grad
+    return out
+
+
+def phase_remat_train(torch, dev, np):
+    """The headline train step under every remat policy and with scanned
+    layers (module docstring). Returns the phase's launch counts."""
+    import contextlib
+
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.train import init_state, make_train_step
+    card = card_line()
+    cfg0 = train_config()
+    ids, labels = train_batch(torch, dev, np, cfg0)
+    L = cfg0.num_hidden_layers
+    K.reset_launches()
+    ref, rows, diffs = None, {}, []
+    for pol, scan in REMAT_RUNS:
+        label = f"{pol}{' scanned' if scan else ''}"
+        cfg = dataclasses.replace(cfg0, remat=True, remat_policy=pol,
+                                  scan_layers=scan)
+        model = LlamaForCausalLM(cfg, device=dev, seed=0)
+        opt = O.AdamW(learning_rate=3e-4, weight_decay=0.1,
+                      grad_clip=O.ClipGradByGlobalNorm(1.0),
+                      multi_precision=True)
+        state = init_state(model, opt)
+        fwd = {}
+
+        def loss_fn(m, i, lab, fwd=fwd):
+            loss = m.loss(i, lab)
+            fwd.update(K.launches())
+            return loss
+
+        step = make_train_step(loss_fn, opt)
+        packed = {}
+
+        def pack(t, packed=packed):
+            st = t.untyped_storage()
+            packed[st.data_ptr()] = st.nbytes()
+            return t
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        losses, grads, ms = [], [], []
+        for s in range(2):
+            hooks = (torch.autograd.graph.saved_tensors_hooks(
+                pack, lambda t: t) if s == 0 else contextlib.nullcontext())
+            before = K.launches()
+            t0 = time.monotonic()
+            with hooks:
+                state, loss = step(state, ids, labels)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.monotonic() - t0))
+            after = K.launches()
+            if s == 0:
+                bwd = {k: after[k] - fwd[k] for k in after}
+                fw = {k: fwd[k] - before[k] for k in after}
+            losses.append(loss)
+            # set_to_none: the next step's backward writes new tensors,
+            # so these stay this step's gradients
+            grads.append(_step_grads(model, scan, L))
+        # then REMAT_TIMED more steps for the step time
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(REMAT_TIMED):
+            state, _ = step(state, ids, labels)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.monotonic() - t0) / REMAT_TIMED
+        peak = torch.cuda.max_memory_allocated()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries",
+                                                0) - retries0
+        rows[label] = dict(saved=sum(packed.values()), bwd=bwd, fwd=fw)
+        log(f"[remat_train] {label}: losses "
+            f"{' '.join(f'{float(x):.6f}' for x in losses)}; "
+            f"{step_ms:.1f} ms/step over {REMAT_TIMED} more steps (steps 1, "
+            f"2: {ms[0]:.1f}, {ms[1]:.1f} ms); peak allocated "
+            f"{peak / 2**30:.2f} GiB ({retries} allocator retries, each a "
+            f"cache flush); saved for the backward "
+            f"{rows[label]['saved'] / 2**30:.4f} GiB; K2 launches forward "
+            f"{fw['flash_fwd']}, backward {bwd['flash_fwd']}; K7 forward "
+            f"{fw['rope']}, backward {bwd['rope']}; K1 backward "
+            f"{bwd['rms_norm']}; K5a/K5b backward {bwd['flash_bwd_dq']}/"
+            f"{bwd['flash_bwd_dkv']} ({card})")
+        if ref is None:
+            ref = (losses, grads)
+        else:
+            for s in range(2):
+                if not torch.equal(losses[s], ref[0][s]):
+                    diffs.append((label, s, "loss",
+                                  float((losses[s] - ref[0][s]).abs())))
+                for n, g in grads[s].items():
+                    if not torch.equal(g, ref[1][s][n]):
+                        diffs.append((label, s, n, float(
+                            (g.float() - ref[1][s][n].float()).abs().max())))
+        del state, model, grads, opt, step
+        torch.cuda.empty_cache()
+    counts = K.launches()
+    runs = [f"{p}{' scanned' if s else ''}" for p, s in REMAT_RUNS]
+    log(f"[remat_train] loss and every gradient of both steps bit-identical "
+        f"across {runs}: {not diffs}"
+        f"{f' (largest differences {diffs[:8]})' if diffs else ''}; "
+        f"launches {counts} ({card})")
+    saved = [rows[str(p)]["saved"] for p in (None, "hidden", "no_ffn",
+                                             "dots")]
+    if diffs:
+        raise AssertionError(f"remat_train: policies differ: {diffs[:8]}")
+    if not saved[0] < saved[1] < saved[2] < saved[3]:
+        raise AssertionError(f"remat_train: saved bytes not growing "
+                             f"None < hidden < no_ffn < dots: {saved}")
+    if not rows["dots"]["bwd"]["flash_fwd"] <= \
+            rows["hidden"]["bwd"]["flash_fwd"]:
+        raise AssertionError(f"remat_train: dots launched K2 more often in "
+                             f"the backward than hidden: {rows}")
+    missing = _missing("remat_train", counts)
+    if missing:
+        raise AssertionError(f"kernels not launched on remat_train: "
+                             f"{missing} ({counts})")
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve,check,"
                     "graph_check,async_serve,lora_serve,lora_check,"
                     "spec_serve,spec_check,beam_serve,beam_check,"
                     "grammar_serve,grammar_check,tenant_serve,"
-                    "endpoint_check,hf_load,router_serve,router_check,train,"
+                    "endpoint_check,hf_load,router_serve,router_check,"
+                    "gptq_serve,gptq_check,spec_generate,train,remat_train,"
                     "moe_serve,moe_check,moe_train,window_serve,window_check,"
                     "quant_serve,quant_check,bloom_serve,bloom_train,"
                     "falcon_rw_serve,falcon_rw_train,falcon7b_serve,"
@@ -6488,12 +7005,14 @@ def main(argv=None):
     quant = {"quant_serve", "quant_check", "quant_anatomy",
              "router_serve"} & set(phases)
     router = {"hf_load", "router_serve", "router_check"} & set(phases)
+    gptq = {"gptq_serve", "gptq_check"} & set(phases)
     lora_spec = {"lora_serve", "lora_check", "lora_anatomy", "spec_serve",
                  "spec_check", "beam_serve", "beam_check", "grammar_serve",
                  "grammar_check", "tenant_serve",
                  "endpoint_check"} & set(phases)
     if {"serve", "check", "anatomy", "graph_check",
-            "async_serve"} & set(phases) or quant or lora_spec or router:
+            "async_serve", "spec_generate"} & set(phases) or quant or \
+            lora_spec or router or gptq:
         tm = time.monotonic()
         model = build_model(dev)
         torch.cuda.synchronize()
@@ -6606,6 +7125,30 @@ def main(argv=None):
                 log(f"[router_check] phase {time.monotonic() - tp:.1f} s")
             del served
             _free_cycles(torch)
+        # GPTQ, calibrated smoothing and the speculative API on copies of
+        # the served model / the served model itself, before the quant
+        # phases quantize it in place
+        if gptq:
+            from paddle_tpu_torch.quantization import _capture_calib
+            tp = time.monotonic()
+            rec0 = _capture_calib(model, gptq_inputs(
+                torch, dev, np, model.cfg.vocab_size)[0])[0]
+            torch.cuda.empty_cache()
+            if "gptq_serve" in phases:
+                counts["gptq_serve"] = phase_gptq_serve(torch, dev, model,
+                                                        np, rec0)
+                log(f"[gptq_serve] phase {time.monotonic() - tp:.1f} s")
+            if "gptq_check" in phases:
+                tp = time.monotonic()
+                phase_gptq_check(torch, dev, model, np, rec0)
+                log(f"[gptq_check] phase {time.monotonic() - tp:.1f} s")
+            del rec0
+            torch.cuda.empty_cache()
+        if "spec_generate" in phases:
+            tp = time.monotonic()
+            counts["spec_generate"] = phase_spec_generate(torch, dev, model,
+                                                          np)
+            log(f"[spec_generate] phase {time.monotonic() - tp:.1f} s")
         if "quant_check" in phases:
             phase_quant_check(torch, model, reqs, got, ref32, "bf16")
         if quant:
@@ -6635,6 +7178,10 @@ def main(argv=None):
     if "train" in phases:
         counts["train"] = phase_train(torch, dev, np, "check" in phases,
                                       "anatomy" in phases)
+    if "remat_train" in phases:
+        tp = time.monotonic()
+        counts["remat_train"] = phase_remat_train(torch, dev, np)
+        log(f"[remat_train] phase {time.monotonic() - tp:.1f} s")
     if {"moe_serve", "moe_check", "moe_anatomy"} & set(phases):
         model = build_moe_model(torch, dev, 24, "moe_serve")
         counts["moe_serve"], moe_reqs, moe_stats = phase_serve(

@@ -207,7 +207,10 @@ def _lm_head(f, name="lm_head"):
 @torch.no_grad()
 def load_llama_state_dict(model, state_dict, dtype=None):
     """``LlamaForCausalLM`` (and Mistral, Qwen2 — Qwen2 adds the q/k/v
-    biases) from an HF state dict. A tied config has no ``lm_head``."""
+    biases) from an HF state dict. A tied config has no ``lm_head``; a
+    ``scan_layers=True`` model raises by name."""
+    from paddle_tpu_torch.models.llama import refuse_scanned
+    refuse_scanned(model, "loading an HF checkpoint")
     f = _Fill(model, state_dict, dtype)
     f.put("model.embed_tokens", f("model.embed_tokens.weight"))
     f.put("model.norm.weight", f("model.norm.weight"))

@@ -11,11 +11,25 @@ backward on the card).
 
 The parameters are trainable: :meth:`LlamaForCausalLM.loss` is what the
 train step differentiates (``train.step.make_train_step``). ``remat``
-recomputes each decoder layer in the backward pass
-(``torch.utils.checkpoint``, the counterpart of the per-layer
-``jax.checkpoint``); of the reference's selective ``remat_policy`` modes
-only ``None``/``"full"`` are ported. fp8, scanned layers and sequence
-parallelism are later slices.
+recomputes each decoder layer in the backward pass (non-reentrant
+``torch.utils.checkpoint``, the counterpart of the per-layer
+``jax.checkpoint``). ``remat_policy`` names the layer's activations the
+backward keeps (:meth:`LlamaConfig.save_names`, the reference's
+``checkpoint_name`` tags ``qkv``, ``attn_ctx``, ``ffn_gu``, ``ffn_out``).
+Torch's selective-checkpoint policies decide per dispatcher op, and the
+port's kernels are ctypes launches inside ``autograd.Function``s that no
+such policy sees; so the layer is cut into segments whose boundaries are
+exactly the saved names (:func:`_segments`), each segment checkpointed on
+its own: a saved tensor is a segment's input, kept for the backward, and
+the segment that produced it stops its recompute before the product that
+made it (a product saves its inputs before it runs, and the checkpoint's
+recompute stops once every saved tensor it needs is back).
+
+``scan_layers=True`` holds the decoder layers as ONE stacked parameter set
+``model.layers_stacked`` (leading dim L, the reference's ``lax.scan``
+pytree) and loops over its slices; ``model.layers`` is then empty, and
+every walker of it refuses such a model by name (:func:`refuse_scanned`).
+fp8 and sequence parallelism are later slices.
 """
 from __future__ import annotations
 
@@ -23,6 +37,7 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from paddle_tpu_torch.core.device import resolve_device
@@ -32,9 +47,14 @@ from paddle_tpu_torch.nn.functional import parallel_cross_entropy
 from paddle_tpu_torch.ops import fused_rms_norm
 from paddle_tpu_torch.quantization import wo_matmul
 
-# remat_policy modes of the reference that save named activations; the
-# port recomputes the whole layer ("full") or nothing
-_SELECTIVE_REMAT = ("hidden", "no_ffn", "dots")
+# remat_policy mode -> the named activations the per-layer checkpoint
+# SAVES (empty: classic full remat, save nothing named)
+_REMAT_SAVE_NAMES = {
+    None: (), "full": (),
+    "hidden": ("attn_ctx", "ffn_out"),
+    "no_ffn": ("qkv", "attn_ctx", "ffn_out"),
+    "dots": ("qkv", "attn_ctx", "ffn_gu", "ffn_out"),
+}
 
 
 @dataclass
@@ -52,23 +72,30 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
-    # None/"full": recompute the whole layer in backward; the selective
-    # modes "hidden", "no_ffn", "dots" raise (ROADMAP.md queue 1 item 4)
+    # what the per-layer checkpoint SAVES instead of recomputing:
+    #   None/"full"  nothing (classic full remat, most recompute)
+    #   "hidden"     the attention context and the ffn output
+    #   "no_ffn"     every named activation but the [B, S, 2m] gate/up
+    #   "dots"       every named activation (least recompute, most memory)
     remat_policy: str | None = None
+    scan_layers: bool = False          # one stacked [L, ...] layer set
     sliding_window: int | None = None  # Mistral-style causal window
     attention_bias: bool = False       # Qwen2: bias on fused qkv only
     rope_scaling: dict | None = None   # linear | ntk | dynamic
 
     def __post_init__(self):
-        if self.remat_policy in _SELECTIVE_REMAT:
-            raise NotImplementedError(
-                f"remat_policy {self.remat_policy!r} (selective remat) is "
-                f"not ported yet (ROADMAP.md queue 1 item 4, remat "
-                f"policies); use None or 'full'")
-        if self.remat_policy not in (None, "full"):
+        self.save_names()
+
+    def save_names(self) -> tuple:
+        """The named activations ``remat_policy`` SAVES; everything else
+        is recomputed in backward."""
+        try:
+            return _REMAT_SAVE_NAMES[self.remat_policy]
+        except KeyError:
             raise ValueError(
                 f"unknown remat_policy {self.remat_policy!r}; expected one "
-                f"of {sorted(_SELECTIVE_REMAT + ('full',))} or None")
+                f"of {sorted(k for k in _REMAT_SAVE_NAMES if k)} or None"
+            ) from None
 
     @staticmethod
     def llama2_7b(**kw):
@@ -131,20 +158,30 @@ class LlamaAttention(nn.Module):
         self.num_heads, self.num_kv_heads = nh, nkv
         self.window = cfg.sliding_window
 
-    def forward(self, x, cos, sin, attn_mask=None):
-        b, s, _ = x.shape
-        nh, nkv, d = self.num_heads, self.num_kv_heads, self.head_dim
+    def qkv(self, x):
+        """The fused projection (tag ``qkv``)."""
         qkv = wo_matmul(x, self.qkv_proj)
-        if self.qkv_bias is not None:
-            qkv = qkv + self.qkv_bias
+        return qkv if self.qkv_bias is None else qkv + self.qkv_bias
+
+    def context(self, qkv, cos, sin, attn_mask=None):
+        """Rope (K7) and attention (K2) of the fused projection: the
+        context [B, S, H, D] (tag ``attn_ctx``)."""
+        b, s, _ = qkv.shape
+        nh, nkv, d = self.num_heads, self.num_kv_heads, self.head_dim
         q, k, v = torch.split(qkv, [nh * d, nkv * d, nkv * d], dim=-1)
         q = A.apply_rope(q.reshape(b, s, nh, d), cos, sin)
         k = A.apply_rope(k.reshape(b, s, nkv, d), cos, sin)
         v = v.reshape(b, s, nkv, d)
-        out = A.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
-                                             is_causal=True,
-                                             window=self.window)
-        return wo_matmul(out.reshape(b, s, nh * d), self.o_proj)
+        return A.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                              is_causal=True,
+                                              window=self.window)
+
+    def out(self, ctx):
+        b, s = ctx.shape[:2]
+        return wo_matmul(ctx.reshape(b, s, -1), self.o_proj)
+
+    def forward(self, x, cos, sin, attn_mask=None):
+        return self.out(self.context(self.qkv(x), cos, sin, attn_mask))
 
 
 class LlamaMLP(nn.Module):
@@ -155,9 +192,17 @@ class LlamaMLP(nn.Module):
         self.down_proj = init.normal(m, h)
         self.intermediate_size = m
 
-    def forward(self, x):
-        gate, up = torch.chunk(wo_matmul(x, self.gate_up_proj), 2, dim=-1)
+    def gate_up(self, x):
+        """The fused gate/up product (tag ``ffn_gu``)."""
+        return wo_matmul(x, self.gate_up_proj)
+
+    def down(self, gu):
+        """SwiGLU and the down projection (tag ``ffn_out``)."""
+        gate, up = torch.chunk(gu, 2, dim=-1)
         return wo_matmul(torch.nn.functional.silu(gate) * up, self.down_proj)
+
+    def forward(self, x):
+        return self.down(self.gate_up(x))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -170,9 +215,124 @@ class LlamaDecoderLayer(nn.Module):
             cfg.hidden_size, cfg.rms_norm_eps, init)
         self.mlp = LlamaMLP(cfg, init)
 
+    # the layer as five stages over named values; a stage's outputs that
+    # a policy saves end a remat segment (:func:`_segments`)
+    STAGES = (("qkv", ("x",), ("qkv",)),
+              ("attn_ctx", ("qkv",), ("ctx",)),
+              ("ffn_gu", ("x", "ctx"), ("x2", "gu")),
+              ("ffn_out", ("gu",), ("out",)),
+              (None, ("x2", "out"), ("y",)))
+
+    def stage(self, i, *args, cos=None, sin=None, attn_mask=None):
+        att, mlp = self.self_attn, self.mlp
+        if i == 0:
+            return att.qkv(self.input_layernorm(args[0]))
+        if i == 1:
+            return att.context(args[0], cos, sin, attn_mask)
+        if i == 2:
+            x, ctx = args
+            x2 = x + att.out(ctx)
+            return x2, mlp.gate_up(self.post_attention_layernorm(x2))
+        if i == 3:
+            return mlp.down(args[0])
+        return args[0] + args[1]
+
     def forward(self, x, cos, sin, attn_mask=None):
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, attn_mask)
         return x + self.mlp(self.post_attention_layernorm(x))
+
+
+def _segments(names):
+    """The layer's stages grouped into remat segments: a segment ends
+    after each stage whose tag ``names`` saves. Returns [(stage indices,
+    input value names, output value names)]; the outputs are what later
+    segments read. A last segment that needs no saved tensor of its own
+    (the residual add) runs outside any checkpoint (inputs ())."""
+    stages = LlamaDecoderLayer.STAGES
+    groups, cur = [], []
+    for i, (tag, _, _) in enumerate(stages):
+        cur.append(i)
+        if tag in names or i == len(stages) - 1:
+            groups.append(cur)
+            cur = []
+    out = []
+    for gi, g in enumerate(groups):
+        made = {v for i in g for v in stages[i][2]}
+        ins = []
+        for i in g:
+            ins += [v for v in stages[i][1] if v not in made and v not in ins]
+        later = {v for h in groups[gi + 1:] for i in h for v in stages[i][1]}
+        outs = [v for i in g for v in stages[i][2] if v in later] or ["y"]
+        out.append((tuple(g), tuple(ins), tuple(outs)))
+    return out
+
+
+def _run_layer(call, x, names, remat):
+    """One decoder layer through ``call(stage, *values)``: whole under
+    full remat or no remat, else segment by segment (each checkpointed
+    unless it is the bare residual add)."""
+    if not remat:
+        return call(None, x)
+    if not names:
+        return checkpoint(call, None, x, use_reentrant=False)
+    env = {"x": x}
+    for idx, ins, outs in _segments(names):
+        def seg(*vals, idx=idx, ins=ins, outs=outs):
+            local = dict(zip(ins, vals))
+            for i in idx:
+                _, reads, writes = LlamaDecoderLayer.STAGES[i]
+                got = call(i, *(local[v] for v in reads))
+                local.update(zip(writes, got if len(writes) > 1 else (got,)))
+            return tuple(local[v] for v in outs)
+        vals = [env[v] for v in ins]
+        if idx == (len(LlamaDecoderLayer.STAGES) - 1,):
+            got = seg(*vals)
+        else:
+            got = checkpoint(seg, *vals, use_reentrant=False)
+        env.update(zip(outs, got))
+    return env["y"]
+
+
+def _stack_layers(layers):
+    """The scanned layout: the first layer, each of its parameters replaced
+    by the stack of all L layers' (leading dim L), so that its names are
+    the reference's ``layers_stacked.<name>``. It runs only through
+    :class:`_StageOf` with one layer's slices swapped in."""
+    st = layers[0]
+    for name, _ in list(st.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        stacked = torch.stack([lyr.get_parameter(name).detach()
+                               for lyr in layers])
+        setattr(st.get_submodule(owner), leaf, nn.Parameter(stacked))
+    return st
+
+
+class _StageOf(nn.Module):
+    """``forward(i, *values)`` = stage ``i`` of ``layer`` (the whole layer
+    for None): what ``functional_call`` runs with one layer's parameter
+    slices of the stacked set swapped in."""
+
+    def __init__(self, layer, cos, sin, attn_mask):
+        super().__init__()
+        self.layer = layer
+        self.rope, self.attn_mask = (cos, sin), attn_mask
+
+    def forward(self, i, *vals):
+        (cos, sin), mask = self.rope, self.attn_mask
+        if i is None:
+            return self.layer(vals[0], cos, sin, mask)
+        return self.layer.stage(i, *vals, cos=cos, sin=sin, attn_mask=mask)
+
+
+def refuse_scanned(model, what: str):
+    """Raise for a ``scan_layers=True`` model: ``what`` walks
+    ``model.model.layers``, which such a model leaves empty."""
+    bb = getattr(model, "model", model)
+    if getattr(bb, "layers_stacked", None) is not None:
+        raise NotImplementedError(
+            f"{what} walks model.model.layers; a scan_layers=True model "
+            f"holds its layers stacked in model.model.layers_stacked: "
+            f"build it with scan_layers=False")
 
 
 class LlamaModel(nn.Module):
@@ -180,8 +340,15 @@ class LlamaModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embed_tokens = init.normal(cfg.vocab_size, cfg.hidden_size)
-        self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, init)
-                                    for _ in range(cfg.num_hidden_layers))
+        layers = [LlamaDecoderLayer(cfg, init)
+                  for _ in range(cfg.num_hidden_layers)]
+        if cfg.scan_layers:
+            self.layers_stacked = _stack_layers(layers)
+            self.layers = nn.ModuleList()
+        else:
+            self.layers = nn.ModuleList(layers)
+            self.layers_stacked = None
+        del layers
         self.norm = LlamaRMSNorm(cfg.hidden_size, cfg.rms_norm_eps, init)
 
     def forward(self, input_ids, attn_mask=None, position_ids=None):
@@ -194,13 +361,32 @@ class LlamaModel(nn.Module):
             max_position_embeddings=cfg.max_position_embeddings,
             device=x.device)
         remat = cfg.remat and torch.is_grad_enabled()
+        names = cfg.save_names()
+        if self.layers_stacked is not None:
+            # one unbind a parameter: its backward stacks the L slices'
+            # gradients into the stacked gradient
+            slices = {f"layer.{n}": p.unbind(0)
+                      for n, p in self.layers_stacked.named_parameters()}
+            run = _StageOf(self.layers_stacked, cos, sin, attn_mask)
+            for i in range(cfg.num_hidden_layers):
+                params = {n: t[i] for n, t in slices.items()}
+
+                def call(stage, *vals, params=params):
+                    return functional_call(run, params, (stage, *vals))
+                x = _run_layer(call, x, names, remat)
+            return self.norm(x)
         for lyr in self.layers:
-            if remat:
-                x = checkpoint(lyr, x, cos, sin, attn_mask,
-                               use_reentrant=False)
-            else:
-                x = lyr(x, cos, sin, attn_mask)
+            x = _run_layer(_layer_call(lyr, cos, sin, attn_mask), x, names,
+                           remat)
         return self.norm(x)
+
+
+def _layer_call(lyr, cos, sin, attn_mask):
+    def call(i, *vals):
+        if i is None:
+            return lyr(vals[0], cos, sin, attn_mask)
+        return lyr.stage(i, *vals, cos=cos, sin=sin, attn_mask=attn_mask)
+    return call
 
 
 class LlamaForCausalLM(nn.Module):

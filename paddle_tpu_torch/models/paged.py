@@ -1102,8 +1102,14 @@ def _qkv(att, h, shape_q, shape_kv, lora=None, li=0):
 def _backbone(model):
     """Decoder backbone holding embed_tokens/layers/norm. Llama-family
     models wrap it in ``.model``; the MoE families (Mixtral, Qwen2-MoE,
-    MoEForCausalLM) hang the parts directly off the LM."""
-    return getattr(model, "model", model)
+    MoEForCausalLM) hang the parts directly off the LM. Every caller walks
+    its ``layers``: a ``scan_layers=True`` model (layers stacked, the list
+    empty) raises by name."""
+    bb = getattr(model, "model", model)
+    if getattr(bb, "layers_stacked", None) is not None:
+        from paddle_tpu_torch.models.llama import refuse_scanned
+        refuse_scanned(model, "the serving and decoding forwards")
+    return bb
 
 
 def model_config(model):

@@ -1,16 +1,75 @@
-"""Layers of ``paddle_tpu/nn/layers.py`` that the ported models use.
+"""Layers of ``paddle_tpu/nn/layers.py`` that the ported models and the
+QAT/PTQ API (``quantization.py``) use.
 
-Parameters keep the reference's names (``weight``, ``bias``) and are made
-on the caller's device and dtype, so ``models.convert.load_jax_state_dict``
-fills them name for name.
+Parameters keep the reference's names (``weight``, ``bias``) and layouts
+(``Linear.weight`` is ``[in, out]``) and are made on the caller's device
+and dtype, so ``models.convert.load_jax_state_dict`` fills them name for
+name. The rest of ``nn/`` is ROADMAP.md queue 1 item 8.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.core.random import generator
 from paddle_tpu_torch.nn import functional as F
+
+
+class Linear(nn.Module):
+    """``y = x @ W + b`` with ``W`` ``[in, out]`` (the reference's layout).
+    Xavier-normal weight drawn from ``seed`` on ``device`` (the card when
+    none is named), zero bias; ``bias_attr=False`` leaves ``bias`` None."""
+
+    def __init__(self, in_features: int, out_features: int, bias_attr=True,
+                 dtype=torch.float32, device=None, seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        std = math.sqrt(2.0 / (in_features + out_features))
+        w = torch.empty((in_features, out_features), dtype=dtype,
+                        device=device)
+        w.normal_(0.0, std, generator=generator(seed, device))
+        self.weight = nn.Parameter(w)
+        self.bias = (nn.Parameter(torch.zeros(out_features, dtype=dtype,
+                                              device=device))
+                     if bias_attr else None)
+        self.in_features, self.out_features = in_features, out_features
+
+    def forward(self, x):
+        y = x @ self.weight
+        return y if self.bias is None else y + self.bias
+
+
+class ReLU(nn.Module):
+    def forward(self, x):
+        return torch.relu(x)
+
+
+class Sequential(nn.Module):
+    """The reference's container: its sublayers in ``layers`` (an
+    ``nn.ModuleList``), applied in order."""
+
+    def __init__(self, *layers):
+        super().__init__()
+        if len(layers) == 1 and isinstance(layers[0], (list, tuple)):
+            layers = tuple(layers[0])
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+    def __getitem__(self, idx):
+        return self.layers[idx]
+
+    def __len__(self):
+        return len(self.layers)
+
+    def append(self, layer):
+        self.layers.append(layer)
 
 
 class LayerNorm(nn.Module):

@@ -67,6 +67,14 @@ GPTJ_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # fold) they run it between them; over int8 pools the quantized path
 ROUTER_SERVE_KERNELS = SERVE_KERNELS
 ROUTER_SERVE_I8_KERNELS = QUANT_SERVE_KERNELS
+# a GPTQ / smoothed weight-only model serves the serve path over a bf16
+# pool (its calibration capture runs K1, K2 and K7 too)
+GPTQ_SERVE_KERNELS = SERVE_KERNELS
+# the standalone speculative API: the dense-cache forwards run K1 and K7
+# (their attention is plain PyTorch, as the reference's is XLA's)
+SPEC_GENERATE_KERNELS = ("rms_norm", "rope")
+# the train step under every remat policy and with scanned layers
+REMAT_TRAIN_KERNELS = TRAIN_KERNELS
 
 
 def kernels() -> dict:

@@ -1,7 +1,8 @@
 """Optimizers — the slice of ``paddle_tpu/optimizer/__init__.py`` that the
-Llama train step needs: ``ClipGradByGlobalNorm``, ``global_norm``, the
-``Optimizer`` base with ``multi_precision`` fp32 master weights, ``Adam``
-and ``AdamW``. The other optimizers are ROADMAP.md queue 1 item 8.
+Llama train step and the QAT API need: ``ClipGradByGlobalNorm``,
+``global_norm``, the ``Optimizer`` base with ``multi_precision`` fp32
+master weights, ``SGD``, ``Adam`` and ``AdamW``. The other optimizers
+are ROADMAP.md queue 1 item 8.
 
 The reference is functional: ``step`` returns new params and a new state,
 and its jitted train step donates the old buffers. The port's counterpart
@@ -168,6 +169,19 @@ class Optimizer:
 
     def _update(self, names, params32, grads, state, lr):
         raise NotImplementedError
+
+
+# -- SGD (ref sgd.py) -------------------------------------------------------
+
+class SGD(Optimizer):
+    def _update(self, names, params32, grads, state, lr):
+        """``p - lr * (g + wd * p)`` in the reference's order: the product
+        rounded before the subtraction."""
+        for p, g in zip(params32, grads):
+            u = g.to(p.dtype)
+            if self.weight_decay:
+                u = u + self.weight_decay * p
+            p.sub_(lr * u)
 
 
 # -- Adam family (ref adam.py / adamw.py) -----------------------------------

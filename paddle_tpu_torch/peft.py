@@ -39,7 +39,10 @@ def _is_target(pstr: str, leaf, targets) -> bool:
 
 
 def lora_targets(model, target_modules=DEFAULT_TARGETS):
-    """Dotted names of the 2-D weights LoRA will adapt."""
+    """Dotted names of the 2-D weights LoRA will adapt (a scan_layers=True
+    model, whose stacked projections are 3-D, raises by name)."""
+    from paddle_tpu_torch.models.llama import refuse_scanned
+    refuse_scanned(model, "LoRA (peft)")
     return [name for name, p in model.named_parameters()
             if _is_target(name, p, tuple(target_modules))]
 
@@ -52,6 +55,8 @@ def lora_init(model, gen, r: int = 8, alpha: int = 16,
     ``torch.Generator`` ``gen`` (on that device), ``b`` zero (the
     reference convention), so the adapted model initially computes
     EXACTLY the base model."""
+    from paddle_tpu_torch.models.llama import refuse_scanned
+    refuse_scanned(model, "LoRA (peft)")
     lora = {}
     for name, w in model.named_parameters():
         if not _is_target(name, w, tuple(target_modules)):

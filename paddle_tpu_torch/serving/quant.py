@@ -3,28 +3,27 @@
 The weight side of quantized serving (the int8 paged KV cache lives in
 ``models/paged.py`` and ``LLMEngine(kv_dtype="int8")``):
 
-* :func:`quantize_for_serving` — round-to-nearest weight-only int8 /
-  packed int4 of any model the paged forwards drive, IN PLACE: the dense
-  projections (qkv/o/gate_up/down and an untied lm_head) become
+* :func:`quantize_for_serving` — weight-only int8 / packed int4 of any
+  model the paged forwards drive, IN PLACE: the dense projections
+  (qkv/o/gate_up/down and an untied lm_head) become
   :class:`~paddle_tpu_torch.quantization.QuantizedWeight`, MoE expert
   stacks :class:`QuantizedExpertStack` (dequantized on the fly by
   ``distributed.moe``, so the grouped GEMM K6a runs on them unchanged);
-  the fp32 router gate is never quantized. ``PT_QUANT_WEIGHTS=0`` makes
-  it the identity. GPTQ (``gptq_int8``/``gptq_int4``) raises by name.
+  the fp32 router gate is never quantized. Round-to-nearest, or GPTQ
+  (``gptq_int8``/``gptq_int4``, dense Llama-family models, calibrated by
+  ``calib_ids``: ``quantization.quantize_llama_weights``).
+  ``PT_QUANT_WEIGHTS=0`` makes it the identity.
 * :func:`smooth_for_serving` — SmoothQuant-style per-channel migration
   folded out of the RMSNorm weight and into the projections that read
-  its output (the product is unchanged), with the weight-balancing
-  heuristic; activation-calibrated smoothing (``calib_ids``) raises by
-  name.
+  its output (the product is unchanged): with ``calib_ids`` the measured
+  activation absmax of one capture forward (dense Llama-family models),
+  without it the weight-balancing heuristic.
 * :func:`quant_quality` — logit MSE and greedy match rate against a
   reference, published as ``serving_quant_*`` gauges.
 
 A projection of an ``nn.Module`` is a registered ``Parameter``, and
 ``nn.Module.__setattr__`` refuses any other value under its name, so the
 parameter is unregistered before its quantized module takes the name.
-GPTQ, calibrated smoothing, and int8 under speculative decoding, beam
-search and the sealed KV transfer wait for later work (ROADMAP.md queue 1
-item 5(e)).
 """
 from __future__ import annotations
 
@@ -34,19 +33,19 @@ import numpy as np
 import torch
 from torch import nn
 
-from paddle_tpu_torch.models.paged import _backbone
+from paddle_tpu_torch.models.paged import _backbone, is_moe_model
 from paddle_tpu_torch.observability.metrics import METRICS
 from paddle_tpu_torch.quantization import (BITS, QuantizedWeight,
-                                           _pack_nibbles, _rtn,
-                                           _unpack_nibbles, weight_quantize)
+                                           _capture_calib, _pack_nibbles,
+                                           _rtn, _swap, _unpack_nibbles,
+                                           quantize_llama_weights,
+                                           weight_quantize)
 
 __all__ = [
     "QuantizedExpertStack", "expert_stack_quantize", "weights_quant_enabled",
     "quantize_for_serving", "smooth_for_serving", "quant_quality",
     "quantized_weight_bytes",
 ]
-
-_LATER = "is not ported yet (ROADMAP.md queue 1 item 5(e))"
 
 _Q_BITS = METRICS.gauge(
     "serving_quant_weight_bits",
@@ -129,12 +128,6 @@ def _moe(lyr):
     return blk if hasattr(blk, "experts") else None
 
 
-def _swap(owner, name, value):
-    """Put ``value`` under the name of ``owner``'s registered parameter."""
-    delattr(owner, name)
-    setattr(owner, name, value)
-
-
 # ---- SmoothQuant-style activation smoothing ---------------------------------
 
 @torch.no_grad()
@@ -149,13 +142,13 @@ def _fold(norm, s, *targets):
         t.copy_((t.float() * s.reshape(shape)).to(t.dtype))
 
 
-def _smooth_scale(w, alpha):
-    """s = a_x^alpha / a_w^(1-alpha) per in-channel with a_x = 1 (weight
-    balancing), clipped to keep the fold numerically sane. ``w``: [K, N]
-    or [E, K, N]."""
+def _smooth_scale(a_x, w, alpha):
+    """s = a_x^alpha / a_w^(1-alpha) per in-channel, clipped to keep the
+    fold numerically sane. ``a_x``: the activation absmax per in-channel
+    (ones: weight balancing); ``w``: [K, N] or [E, K, N]."""
     f = w.detach().float().abs()
     a_w = torch.clamp(f.amax(dim=(0, 2) if f.dim() == 3 else (1,)), min=1e-8)
-    return torch.clamp(1.0 / a_w ** (1.0 - alpha), 1e-3, 1e3)
+    return torch.clamp(a_x ** alpha / a_w ** (1.0 - alpha), 1e-3, 1e3)
 
 
 def smooth_for_serving(model, *, calib_ids=None, alpha: float = 0.5):
@@ -164,25 +157,43 @@ def smooth_for_serving(model, *, calib_ids=None, alpha: float = 0.5):
     to float rounding). Seams per layer: input_layernorm <-> qkv_proj, and
     post_attention_layernorm <-> gate_up (the dense MLP, or every expert
     plus the router gate and a shared expert, which read the same normed
-    activations)."""
+    activations). ``calib_ids`` [B, S]: the migration follows the
+    activation absmax that one capture forward of the unsmoothed model
+    measures (``quantization._capture_calib``; dense Llama-family models
+    only); None balances the weights alone (a_x = 1)."""
+    bb = _backbone(model)
+    stats = None
     if calib_ids is not None:
-        raise NotImplementedError(
-            f"activation-calibrated smoothing (calib_ids) {_LATER}; "
-            "smooth without calib_ids (weight balancing)")
-    for lyr in _backbone(model).layers:
+        if is_moe_model(model) or not hasattr(model, "model"):
+            raise NotImplementedError(
+                "activation-calibrated smoothing needs the dense "
+                "Llama-family capture forward; smooth MoE models without "
+                "calib_ids (weight-balancing heuristic)")
+        stats = _capture_calib(model, calib_ids)
+
+    def a_x(li, key, w):
+        if stats is None:
+            return torch.ones(w.shape[-2], dtype=torch.float32,
+                              device=w.device)
+        act = stats[li].pop(key)                     # [M, K] float32
+        return torch.clamp(act.abs().amax(dim=0), min=1e-8)
+
+    for li, lyr in enumerate(bb.layers):
         att = lyr.self_attn
-        _fold(lyr.input_layernorm, _smooth_scale(att.qkv_proj, alpha),
-              att.qkv_proj)
+        s = _smooth_scale(a_x(li, "qkv", att.qkv_proj), att.qkv_proj, alpha)
+        _fold(lyr.input_layernorm, s, att.qkv_proj)
         moe = _moe(lyr)
         if moe is None:
             gu = lyr.mlp.gate_up_proj
-            _fold(lyr.post_attention_layernorm, _smooth_scale(gu, alpha), gu)
+            _fold(lyr.post_attention_layernorm,
+                  _smooth_scale(a_x(li, "gate_up", gu), gu, alpha), gu)
             continue
         blk = lyr.moe if hasattr(lyr, "moe") else lyr.mlp
         shared = [getattr(blk, n) for n in ("shared_gate_up", "shared_gate")
                   if hasattr(blk, n)]
         gu = moe.experts.gate_up
-        _fold(lyr.post_attention_layernorm, _smooth_scale(gu, alpha), gu,
+        _fold(lyr.post_attention_layernorm,
+              _smooth_scale(a_x(li, "gate_up", gu), gu, alpha), gu,
               moe.gate_w, *shared)
     model._smoothed = True
     return model
@@ -196,25 +207,46 @@ def quantized_weight_bytes(model) -> int:
                if isinstance(m, (QuantizedWeight, QuantizedExpertStack)))
 
 
+GPTQ_ALGOS = ("gptq_int8", "gptq_int4")
+
+
 def quantize_for_serving(model, algo: str = "weight_only_int8", *,
                          calib_ids=None, smooth: bool = False,
-                         smooth_alpha: float = 0.5):
+                         smooth_alpha: float = 0.5, percdamp: float = 0.01,
+                         timings=None):
     """Weight-only quantize a model IN PLACE for the paged serving stack
-    and return it. ``algo``: weight_only_int8 | weight_only_int4
-    (gptq_int8 / gptq_int4 raise by name). ``smooth=True`` folds
-    :func:`smooth_for_serving` in first. Under ``PT_QUANT_WEIGHTS=0`` the
-    model is returned untouched and the bits gauge reads 0."""
+    and return it. ``algo``: weight_only_int8 | weight_only_int4 |
+    gptq_int8 | gptq_int4 (GPTQ needs ``calib_ids`` [B, S] and a dense
+    Llama-family model: the capture forward is structure-specific; damping
+    ``percdamp``; ``timings`` collects its capture / Hessian / recursion
+    seconds). ``smooth=True`` folds :func:`smooth_for_serving` (with the
+    same ``calib_ids``) in first. Under ``PT_QUANT_WEIGHTS=0`` the model
+    is returned untouched and the bits gauge reads 0."""
     if not weights_quant_enabled():
         _Q_BITS.set(0)
         return model
-    if algo.startswith("gptq"):
-        raise NotImplementedError(f"{algo}: GPTQ for serving {_LATER}; "
-                                  "use weight_only_int8/int4")
-    if algo not in BITS:
-        raise ValueError(f"unknown algo {algo!r}: one of {sorted(BITS)}")
+    if algo not in BITS and algo not in GPTQ_ALGOS:
+        raise ValueError(f"unknown algo {algo!r}: one of "
+                         f"{sorted(BITS) + list(GPTQ_ALGOS)}")
+    gptq = algo in GPTQ_ALGOS
+    layers = _backbone(model).layers
+    if any(getattr(lyr.self_attn, "fp8_meta", None) is not None
+           for lyr in layers):
+        raise ValueError(
+            "weight-only quantization and the fp8 training path are "
+            "mutually exclusive; rebuild the model with fp8=False")
+    if gptq and (is_moe_model(model) or not hasattr(model, "model")):
+        raise NotImplementedError(
+            "GPTQ for serving supports dense Llama-family models only (the "
+            "calibration capture forward is structure-specific); use "
+            "weight_only_int8/int4")
+    bits = 4 if algo.endswith("int4") else 8
     if smooth:
         smooth_for_serving(model, calib_ids=calib_ids, alpha=smooth_alpha)
-    layers = _backbone(model).layers
+    if gptq:
+        quantize_llama_weights(model, algo, calib_ids=calib_ids,
+                               percdamp=percdamp, timings=timings)
+        layers = ()
     for lyr in layers:
         att = lyr.self_attn
         for name in ("qkv_proj", "o_proj"):
@@ -228,11 +260,11 @@ def quantize_for_serving(model, algo: str = "weight_only_int8", *,
             for name in ("gate_up", "down"):
                 _swap(moe.experts, name,
                       expert_stack_quantize(getattr(moe.experts, name), algo))
-    if getattr(model, "lm_head", None) is not None:
+    if not gptq and getattr(model, "lm_head", None) is not None:
         _swap(model, "lm_head", weight_quantize(model.lm_head, algo))
-    model._wo_bits = BITS[algo]
-    _Q_BITS.set(model._wo_bits)
-    _Q_LAYERS.set(len(layers))
+    model._wo_bits = bits
+    _Q_BITS.set(bits)
+    _Q_LAYERS.set(len(_backbone(model).layers))
     _Q_SMOOTHED.set(1 if getattr(model, "_smoothed", False) else 0)
     _Q_WEIGHT_BYTES.set(quantized_weight_bytes(model))
     return model

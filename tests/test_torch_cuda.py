@@ -2546,3 +2546,193 @@ def test_auto_from_pretrained_loads_onto_the_card(tmp_path):
     want = dict(model.named_parameters())
     for name, p in got.named_parameters():
         assert p.dtype == want[name].dtype and torch.equal(p, want[name]), name
+
+
+# ------------------------------------------------ GPTQ, QAT/PTQ products
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+def test_gptq_on_card_matches_cpu_path(bits):
+    """GPTQ's lazy-batch float64 recursion on the card (three blocks, the
+    last one narrow) against the reference's loop on the CPU over the same
+    weights and activations: scales bit-equal, codes equal on at least
+    99.9% of entries (the two orders of the same float64 sums may round a
+    tie apart)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch.quantization import gptq_quantize
+    g = torch.Generator().manual_seed(bits)
+    k, n = 300, 96
+    x = torch.randn(512, 8, generator=g) @ torch.randn(8, k, generator=g)
+    x = x + 0.1 * torch.randn(512, k, generator=g)
+    w = torch.randn(k, n, generator=g)
+    cpu = gptq_quantize(w, x, bits=bits)
+    card = gptq_quantize(w.cuda(), x.cuda(), bits=bits)
+    assert card.q.is_cuda and card.q.shape == cpu.q.shape
+    assert card.q.is_contiguous() and card.scale.is_contiguous()
+    assert torch.equal(card.scale.cpu(), cpu.scale)
+    same = (card.unpack().cpu() == cpu.unpack()).float().mean()
+    assert float(same) >= 0.999, float(same)
+
+
+@pytest.mark.cuda
+def test_int8_product_on_card_is_the_cpu_int32_product():
+    """QuantizedLinear's product on the card (``torch._int_mm`` on padded
+    operands) equals the CPU's int32 matmul bit for bit, at shapes that
+    need every pad (5 rows, K 60, N 30) and at K 4096 with extreme codes
+    (sums past 2^24)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch.quantization import QuantizedLinear, int8_matmul
+    g = torch.Generator().manual_seed(0)
+    for m, k, n in ((5, 60, 30), (40, 4096, 64)):
+        a = torch.randint(-128, 128, (m, k), generator=g, dtype=torch.int8)
+        b = torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8)
+        assert torch.equal(int8_matmul(a.cuda(), b.cuda()).cpu(),
+                           int8_matmul(a, b))
+    big = torch.full((3, 4096), 127, dtype=torch.int8, device="cuda")
+    assert int(int8_matmul(big, big.T.contiguous())[0, 0]) == \
+        127 * 127 * 4096
+    w = torch.randn(64, 32, generator=g)
+    x = torch.randn(2, 7, 64, generator=g)
+    got = QuantizedLinear(w.cuda())(x.cuda())
+    assert torch.allclose(got.cpu(), QuantizedLinear(w)(x), rtol=1e-6,
+                          atol=1e-6)
+
+
+def _card_llama(**kw):
+    """(CPU model, card model) of a 2-layer fp32 Llama at head dim 128
+    (the kernels' width), the same weights."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                           num_attention_heads=2, num_key_value_heads=1,
+                           vocab_size=512, **kw)
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    card = LlamaForCausalLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+@pytest.mark.cuda
+def test_smoothing_and_gptq_serving_on_card_match_cpu():
+    """Calibrated smoothing folds the CPU's weights on the card (within
+    fp32 rounding); a GPTQ-int4 model then serves the CPU's greedy
+    streams through the engine on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import copy
+
+    import numpy as np
+
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    from paddle_tpu_torch.serving import quant as TQ
+    cpu, card = _card_llama()
+    calib = torch.as_tensor(np.random.RandomState(3).randint(0, 512, (2, 64)))
+    sc = TQ.smooth_for_serving(copy.deepcopy(cpu), calib_ids=calib)
+    sg = TQ.smooth_for_serving(copy.deepcopy(card), calib_ids=calib.cuda())
+    want = dict(sc.named_parameters())
+    for name, p in sg.named_parameters():
+        assert torch.allclose(p.cpu(), want[name], rtol=1e-4, atol=1e-7), name
+    streams = []
+    for m in (cpu, card):
+        dev = next(m.parameters()).device
+        TQ.quantize_for_serving(m, "gptq_int4", calib_ids=calib.to(dev))
+        eng = LLMEngine(m, num_slots=2, block_size=16, max_prompt_len=64,
+                        max_seq_len=96, device=dev)
+        rs = np.random.RandomState(4)
+        ids = [eng.add_request(Request(rs.randint(0, 512, n),
+                                       max_new_tokens=8)) for n in (9, 40)]
+        eng.run()
+        streams.append([list(map(int, eng.requests[i].tokens)) for i in ids])
+    assert streams[0] == streams[1]
+
+
+# ------------------------------------------------ the speculative API
+@pytest.mark.cuda
+def test_speculative_api_on_card_matches_generate():
+    """On the card (fp32, K1 and K7): speculative_generate with an
+    unrelated draft equals generate's greedy stream, the batched ragged
+    rows equal their solo runs, and both equal the CPU's streams."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import numpy as np
+
+    from paddle_tpu_torch.models.decoding import generate
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.speculative import (
+        speculative_generate, speculative_generate_batched)
+    from paddle_tpu_torch.ops import cuda as K
+    cpu, card = _card_llama()
+    draft = LlamaForCausalLM(LlamaConfig.tiny(
+        hidden_size=256, intermediate_size=512, num_attention_heads=2,
+        num_key_value_heads=1, vocab_size=512, num_hidden_layers=1),
+        device="cuda", seed=1)
+    rs = np.random.RandomState(5)
+    lens = [20, 7, 33]
+    padded = np.zeros((3, 33), np.int64)
+    for i, n in enumerate(lens):
+        padded[i, :n] = rs.randint(0, 512, n)
+    K.reset_launches()
+    got_b, _ = speculative_generate_batched(card, draft, padded,
+                                            prompt_lens=np.asarray(lens),
+                                            max_new_tokens=12, gamma=4)
+    for i, n in enumerate(lens):
+        solo = generate(card, padded[i:i + 1, :n], 12)
+        spec, _ = speculative_generate(card, draft, padded[i:i + 1, :n],
+                                       max_new_tokens=12, gamma=4)
+        assert torch.equal(spec, solo)
+        assert torch.equal(got_b[i, :n + 12], solo[0])
+        assert torch.equal(solo.cpu(), generate(cpu, padded[i:i + 1, :n],
+                                                12))
+    counts = K.launches()
+    assert counts["rms_norm"] > 0 and counts["rope"] > 0, counts
+
+
+# ------------------------------------------------ selective remat
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_policies_bit_identical_on_card(dtype):
+    """The train step's loss and every gradient bit for bit the same under
+    every remat policy and with scanned layers (K2's recompute and K5a /
+    K5b are deterministic), and a policy that saves the attention context
+    launches K2 in the backward no more often than full remat."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import numpy as np
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import cuda as K
+    ids = np.random.RandomState(0).randint(0, 512, (2, 96))
+    labels = np.concatenate([ids[:, 1:], np.full((2, 1), -100)], axis=1)
+    ids, labels = torch.as_tensor(ids).cuda(), torch.as_tensor(labels).cuda()
+    ref, bwd = None, {}
+    for pol, scan in ((None, False), ("full", False), ("hidden", False),
+                      ("no_ffn", False), ("dots", False), (None, True),
+                      ("dots", True)):
+        cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                               num_attention_heads=2, num_key_value_heads=1,
+                               vocab_size=512, dtype=dtype, remat=True,
+                               remat_policy=pol, scan_layers=scan)
+        m = LlamaForCausalLM(cfg, device="cuda", seed=0)
+        K.reset_launches()
+        loss = m.loss(ids, labels)
+        fwd = K.launches()
+        loss.backward()
+        bwd[(pol, scan)] = {k: v - fwd[k] for k, v in K.launches().items()}
+        grads = {}
+        for n, p in m.named_parameters():
+            if n.startswith("model.layers_stacked."):
+                for i in range(cfg.num_hidden_layers):
+                    grads[n.replace("layers_stacked", f"layers.{i}")] = \
+                        p.grad[i]
+            else:
+                grads[n] = p.grad
+        if ref is None:
+            ref = (loss.detach(), grads)
+            continue
+        assert torch.equal(loss.detach(), ref[0]), (pol, scan)
+        for n, g in grads.items():
+            assert torch.equal(g, ref[1][n]), (pol, scan, n)
+    assert bwd[("dots", False)]["flash_fwd"] <= \
+        bwd[("hidden", False)]["flash_fwd"] <= bwd[(None, False)]["flash_fwd"]
+    assert all(b["flash_bwd_dq"] > 0 and b["flash_bwd_dkv"] > 0
+               for b in bwd.values())

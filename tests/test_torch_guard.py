@@ -30,7 +30,8 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "paddle_tpu_torch.peft, paddle_tpu_torch.serving.adapters, "
         "paddle_tpu_torch.models.speculative, "
         "paddle_tpu_torch.serving.router, paddle_tpu_torch.serving.transfer, "
-        "paddle_tpu_torch.models.auto\n"
+        "paddle_tpu_torch.models.auto, paddle_tpu_torch.quantization, "
+        "paddle_tpu_torch.nn\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
@@ -93,8 +94,9 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_training_modes_refuse():
-    """A sharded train step and the selective remat policies raise,
-    naming their ROADMAP item, instead of running something else."""
+    """A sharded train step raises, naming its ROADMAP item, instead of
+    running something else; the selective remat policies construct and an
+    unknown one raises."""
     from paddle_tpu_torch import optimizer as O
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.train import init_state, make_train_step
@@ -106,8 +108,7 @@ def test_unported_training_modes_refuse():
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
         init_state(m, opt, mesh=object())
     for policy in ("dots", "hidden", "no_ffn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            LlamaConfig(remat_policy=policy)
+        assert LlamaConfig(remat_policy=policy).save_names()
     with pytest.raises(ValueError):
         LlamaConfig(remat_policy="everything")
     assert LlamaConfig(remat_policy="full").remat_policy == "full"
@@ -145,7 +146,10 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
         "router_serve": K.ROUTER_SERVE_KERNELS,
         "router_serve_disagg": K.ROUTER_SERVE_KERNELS,
         "router_serve_i8": K.ROUTER_SERVE_I8_KERNELS,
-        "router_check": K.ROUTER_SERVE_KERNELS}
+        "router_check": K.ROUTER_SERVE_KERNELS,
+        "gptq_serve": K.GPTQ_SERVE_KERNELS,
+        "spec_generate": K.SPEC_GENERATE_KERNELS,
+        "remat_train": K.REMAT_TRAIN_KERNELS}
     # K7 rotates every rotate-half rope of every path; the ALiBi paths
     # (BLOOM, falcon-rw) have no rope and run K2's (and K5's) ALiBi mode
     # instead, and GPT-J's interleaved rope is plain PyTorch, as the

@@ -305,19 +305,31 @@ def test_weights_kill_switch_identity(monkeypatch):
 def test_smooth_fold_is_function_preserving(family):
     """Weight-balancing smoothing leaves the function unchanged (router
     and shared expert folded with the experts); the reference's fold of
-    the same weights gives the same logits; calibrated smoothing raises
-    by name."""
+    the same weights gives the same logits. Calibrated smoothing
+    (``calib_ids``) smooths the dense family by the measured activation
+    absmax, the function kept and the folded weights the reference's; the
+    MoE families raise as the reference's does."""
     jm, tm, vocab = _pair(family)
     ids = np.random.RandomState(17).randint(1, vocab, size=(2, 10))
     ref = to_np(tm(_t(ids)))
     sm = TQ.smooth_for_serving(copy.deepcopy(tm))
     np.testing.assert_allclose(to_np(sm(_t(ids))), ref, rtol=0, atol=1e-4)
     if family != "qwen2_moe":      # the reference cannot fold this block
-        JQ.smooth_for_serving(jm)
+        jsm = JQ.smooth_for_serving(copy.deepcopy(jm))
         np.testing.assert_allclose(to_np(sm(_t(ids))),
-                                   to_np(jm(jnp.asarray(ids))), **F32_TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TQ.smooth_for_serving(copy.deepcopy(tm), calib_ids=_t(ids))
+                                   to_np(jsm(jnp.asarray(ids))), **F32_TOL)
+    if family != "llama":
+        with pytest.raises(NotImplementedError, match="calib_ids"):
+            TQ.smooth_for_serving(copy.deepcopy(tm), calib_ids=_t(ids))
+        return
+    cal = TQ.smooth_for_serving(copy.deepcopy(tm), calib_ids=_t(ids))
+    np.testing.assert_allclose(to_np(cal(_t(ids))), ref, rtol=0, atol=1e-4)
+    jcal = JQ.smooth_for_serving(copy.deepcopy(jm),
+                                 calib_ids=jnp.asarray(ids))
+    for name, w in jcal.state_dict().items():
+        np.testing.assert_allclose(
+            to_np(cal.get_parameter(name)), np.asarray(w), rtol=1e-5,
+            atol=1e-6, err_msg=name)
 
 
 def test_quantize_moe_expert_stacks():
@@ -346,11 +358,23 @@ def test_quantize_moe_expert_stacks():
 
 @pytest.mark.parametrize("family", ["llama", "mixtral"])
 def test_gptq_refuses_by_name(family):
-    _, tm, _ = _pair(family)
-    for algo in ("gptq_int8", "gptq_int4"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TQ.quantize_for_serving(tm, algo,
-                                    calib_ids=torch.zeros(1, 4).long())
+    """GPTQ for serving quantizes the dense family (every projection and
+    the untied head a QuantizedWeight of the algo's bits) and refuses an
+    MoE model by name, leaving it untouched, as the reference does."""
+    _, tm, vocab = _pair(family)
+    calib = torch.as_tensor(np.random.RandomState(16).randint(
+        1, vocab, size=(2, 12)))
+    for algo, bits in (("gptq_int8", 8), ("gptq_int4", 4)):
+        if family == "llama":
+            m = TQ.quantize_for_serving(copy.deepcopy(tm), algo,
+                                        calib_ids=calib)
+            assert m._wo_bits == bits
+            for w in (m.model.layers[0].self_attn.qkv_proj,
+                      m.model.layers[1].mlp.down_proj, m.lm_head):
+                assert isinstance(w, QuantizedWeight) and w.bits == bits
+            continue
+        with pytest.raises(NotImplementedError, match="dense Llama-family"):
+            TQ.quantize_for_serving(tm, algo, calib_ids=calib)
     assert not isinstance(tm.lm_head, QuantizedWeight)   # left untouched
 
 
