@@ -60,7 +60,8 @@ Phases (each one fails the run when it fails; nothing is caught):
             and GPT-J-6B's (q [4, 2048, 16, 256]), beside SDPA (is_causal,
             GQA) and its backward, K2 at the generate shape of Gemma-7B
             and GPT-J-6B ([8, 160, 16, 256]) and K7 at Gemma's shapes;
-            times of the kernel, the plain version and, where one PyTorch
+            K1, K2, K5a, K5b and K7 at the LoRA step's Llama-2-7B shapes
+            (x [2048, 4096], q/k/v [1, 2048, 32, 128]); times of the kernel, the plain version and, where one PyTorch
             call computes the same function, that call (``library_ms``),
             with CUDA events; the bound max(bytes / 3.35 TB/s, flops / 989
             TFLOP/s) from this run's shapes and data
@@ -281,6 +282,46 @@ Phases (each one fails the run when it fails; nothing is caught):
             packs), K2 launched in the backward no more often under dots
             than under hidden; step ms, peak memory, and K2 / K7 launches in
             the backward per run
+  trainer_fit  ``Trainer.fit`` on the same configuration (AdamW with fp32
+            masters, the NaN guard on) at batch 4 x 2048, fed by
+            ``TokenBinDataset`` (one reader thread) over a seeded 64 M-token
+            uint16 file in a temp directory through ``prefetch_to_device``:
+            8 steps in each of three arms from seed 0 (pipeline_depth 0, 2,
+            2 with device_double_buffer), every loss and the final lm_head
+            bit-identical across the arms; ms/step, tokens/s, train_mfu
+            against the card's row, the host's share of the fit blocked on
+            loss fetches, peak memory; then the Trainer's
+            grad_accum_steps=2 over 2 x 2048 halves against one 4 x 2048
+            batch (loss within ACCUM_LOSS_REL, gradients within
+            ACCUM_GRAD_REL of their RMS)
+  ckpt_resume  the same width at 4 layers under ``ElasticRunner`` with
+            ``CheckpointManager(async_save=True)`` every 2 steps: a clean
+            4-step run, then one whose 4th step raises at the
+            ``train.step`` fault site (one restart from the step-2
+            checkpoint, the token stream fast-forwarded), final parameters
+            bit-identical to the clean run's; save / restore seconds, GB/s
+            and bytes; a truncated latest checkpoint falls back to the
+            previous one
+  lora_train  ``LlamaConfig.llama2_7b()`` (random bf16 weights, frozen,
+            remat on), rank-8 adapters on qkv_proj / o_proj trained by
+            ``peft.make_lora_train_step`` with AdamW at 1 x 2048, 4 steps:
+            ms/step, peak memory, the loss falling, every base parameter
+            bit-identical and without a gradient
+  fp8_train  ``fp8_matmul`` (``torch._scaled_mm``) against its plain
+            version at the qkv shape (forward, dx, dw within FP8_CHECK_REL
+            of the product's largest value; histories equal), then the
+            headline model with ``fp8=True`` beside its bf16 run from one
+            seed, 6 steps at 4 x 2048: on fresh batches of the token file
+            every loss within the reference's bound 0.15 |a| + 0.05 of the
+            bf16 loss; on the headline's fixed batch the card's fp8 run
+            within FP8_PATH_REL of the same run with plain products
+            (``amp.fp8.plain_products``), the gap to bf16 reported; ms/step
+  amp_check  ``amp.decorate(level="O2")`` of a 2-layer float32 model
+            trained 3 steps in bf16 with fp32 masters; an enabled
+            ``GradScaler`` on the float32 model with an injected inf
+            gradient (the scale halves, the step is skipped, no host sync
+            inside the scaler under ``set_sync_debug_mode("warn")``); a
+            float16 model refused by the kernels' TypeError
   moe_serve ``Qwen/Qwen1.5-MoE-A2.7B`` whole and at full width (its
             published config written out in ``qwen_moe_config``: 24 layers,
             60 experts of 1408 top-4 plus a shared expert, vocab 151 936;
@@ -441,7 +482,7 @@ path (``"path": "serve"``, ``"async_serve"``, ``"lora_serve"``,
 ``"grammar_serve"``, ``"tenant_serve"``, ``"router_serve"``,
 ``"router_serve_disagg"``, ``"router_serve_i8"``, ``"router_check"``,
 ``"gptq_serve"``, ``"spec_generate"``, ``"train"``, ``"remat_train"``,
-``"moe_serve"``,
+``"trainer_fit"``, ``"lora_train"``, ``"fp8_train"``, ``"moe_serve"``,
 ``"moe_train"``,
 ``"window_serve"``, ``"quant_serve"``, ``"bloom_serve"``, ``"bloom_train"``,
 ``"falcon_rw_serve"``, ``"falcon_rw_train"``, ``"falcon7b_serve"``,
@@ -462,6 +503,7 @@ printing no result, when there is no card or the port is not beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -529,7 +571,8 @@ SOURCES = {
 # GEMMA_TRAIN_KERNELS /
 # GEMMA_SERVE_KERNELS / GPTJ_SERVE_KERNELS / GPTJ_TRAIN_KERNELS /
 # ROUTER_SERVE_KERNELS / ROUTER_SERVE_I8_KERNELS / GPTQ_SERVE_KERNELS /
-# SPEC_GENERATE_KERNELS / REMAT_TRAIN_KERNELS, spelled
+# SPEC_GENERATE_KERNELS / REMAT_TRAIN_KERNELS / TRAINER_FIT_KERNELS /
+# LORA_TRAIN_KERNELS / FP8_TRAIN_KERNELS, spelled
 # out here so that
 # --root can load an earlier tree that lacks them (a kernel that such a
 # tree does not have is then left out of its checks)
@@ -584,7 +627,13 @@ PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
                         "paged_decode", "rope", "rope_kv"),
          "spec_generate": ("rms_norm", "rope"),
          "remat_train": ("rms_norm", "flash_fwd", "flash_bwd_dq",
-                         "flash_bwd_dkv", "rope")}
+                         "flash_bwd_dkv", "rope"),
+         "trainer_fit": ("rms_norm", "flash_fwd", "flash_bwd_dq",
+                         "flash_bwd_dkv", "rope"),
+         "lora_train": ("rms_norm", "flash_fwd", "flash_bwd_dq",
+                        "flash_bwd_dkv", "rope"),
+         "fp8_train": ("rms_norm", "flash_fwd", "flash_bwd_dq",
+                       "flash_bwd_dkv", "rope")}
 # kernels of PATHS that the imported tree does not have (only with --root)
 ABSENT: set = set()
 # the train check: share of the fp32 gradients' RMS that each bf16 path
@@ -1065,6 +1114,13 @@ def phase_kernels(torch, dev):
     from paddle_tpu_torch.ops.cuda import flash_attention as FA
     if 256 in getattr(FA, "HEAD_DIMS", ()):
         results.update(hd256_kernel_entries(torch, dev))
+    # the trainer stack: Trainer.fit and the fp8 step run the headline
+    # step's shapes; the LoRA step Llama-2-7B's at 1 x 2048
+    b, s, h, d = LORA_TRAIN_SHAPE
+    results["lora_train"] = {
+        "rms_norm": k1_train(torch, dev, b * s, h * d),
+        "flash_fwd": k2_train(torch, dev, LORA_TRAIN_SHAPE),
+        **k5(torch, dev, LORA_TRAIN_SHAPE)}
     rope_decode = k7_entries.pop("serve decode")
     for path, r in k7_entries.items():
         results.setdefault(path, {})["rope"] = r
@@ -1116,6 +1172,8 @@ def phase_kernels(torch, dev):
     # serve path's decode widths
     results["gptq_serve"] = results["serve"]
     results["remat_train"] = results["train"]
+    results["trainer_fit"] = results["train"]
+    results["fp8_train"] = results["train"]
     results["spec_generate"] = {"rms_norm": results["serve"]["rms_norm"],
                                 "rope": rope_decode}
     torch.cuda.synchronize()
@@ -2242,6 +2300,8 @@ ROPE_CASES = (
      "shared", 1e4),
     ("gemma-2b train k", None, (2, 2048), 1, 10, "k", 256, "shared", 1e4),
     ("gemma-7b generate q", "gemma7b_serve", (8, 160), 16, 48, "q", 256,
+     "shared", 1e4),
+    ("llama-2-7b lora train q", "lora_train", (1, 2048), 32, 96, "q", 128,
      "shared", 1e4),
 )
 
@@ -6948,6 +7008,546 @@ def phase_remat_train(torch, dev, np):
     return counts
 
 
+# ------------------------------------------------------ the trainer stack
+TRAINER_STEPS = 8           # steps of each trainer_fit arm (logged at 4, 8)
+TOKEN_FILE_TOKENS = 1 << 26  # the seeded uint16 token file (~64 M tokens)
+CKPT_LAYERS = 4             # ckpt_resume: the train width at 4 layers
+CKPT_STEPS = 4              # saves every 2 steps; the crash at the 4th step
+LORA_TRAIN_SHAPE = (1, 2048, 32, 128)   # Llama-2-7B's q/k/v at 1 x 2048
+LORA_STEPS = 4
+FP8_STEPS = 6
+FP8_BOUND = (0.15, 0.05)    # tests/test_fp8.py: |a - b| < 0.15 |a| + 0.05
+# fp8_matmul on the card against its plain version, norm-wise: max |card -
+# plain| over max |plain| of each product. Both multiply the same fp8
+# codes; the plain version sums them exactly in fp32, the card's fp8
+# tensor cores with a shorter accumulator: over dw's 8192-term sums an
+# element is off by up to ~4% of its own (small) value, ~0.5% of the
+# product's largest (first card reading; the elementwise bf16 rule failed
+# on dw at 0.036)
+FP8_CHECK_REL = 1e-2
+# the fp8 model's loss on the card against the same run with plain
+# products (the same fp8 codes, exact fp32 sums), relative, every step
+FP8_PATH_REL = 0.05
+# the accumulated (2 x 2048, twice) loss and gradients against one
+# 4 x 2048 batch's: both sum the same bf16 per-token terms, in fp32
+# (accumulation) or bf16 (the single batch's gradients are bf16), so they
+# differ by bf16 rounding, ~2^-8 of a value
+ACCUM_LOSS_REL = 1e-3
+ACCUM_GRAD_REL = 0.02
+
+
+def token_file(np, tmp):
+    """A seeded uint16 token file of TOKEN_FILE_TOKENS ids < 32000 under
+    ``tmp`` (written once a run)."""
+    path = os.path.join(tmp, "tokens.bin")
+    if not os.path.exists(path):
+        t0 = time.monotonic()
+        np.random.RandomState(0).randint(
+            0, 32000, TOKEN_FILE_TOKENS, dtype=np.uint16).tofile(path)
+        log(f"[token_file] {TOKEN_FILE_TOKENS} uint16 tokens "
+            f"({os.path.getsize(path) / 2**20:.0f} MiB) in "
+            f"{time.monotonic() - t0:.1f} s")
+    return path
+
+
+def _adamw(O):
+    return O.AdamW(learning_rate=3e-4, weight_decay=0.1,
+                   grad_clip=O.ClipGradByGlobalNorm(1.0), multi_precision=True)
+
+
+def _lm_loss(m, i, lab):
+    return m.loss(i.long(), lab.long())
+
+
+def _flight_losses():
+    from paddle_tpu_torch.observability.flight import FLIGHT
+    return [e["loss"] for e in FLIGHT.events() if e["kind"] == "train.step"]
+
+
+def phase_trainer_fit(torch, dev, np, tmp):
+    """``Trainer.fit`` on the headline model (``train_config()``: bench.py's
+    0.738 B Llama), AdamW with fp32 masters, batch 4 x 2048 from
+    ``TokenBinDataset`` (one reader thread: a deterministic stream) over
+    the seeded token file through ``prefetch_to_device`` (depth 2), in
+    three arms from seed 0: pipeline_depth 0, 2, and 2 with
+    device_double_buffer. Every step's loss bit-identical across the arms;
+    then the accumulation check (module docstring). Returns the launch
+    counts of the three arms."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.io import TokenBinDataset, prefetch_to_device
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               num_flops_per_token)
+    from paddle_tpu_torch.observability import METRICS
+    from paddle_tpu_torch.observability.flight import FLIGHT
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.train import Trainer, TrainerArgs
+    card = card_line()
+    cfg = train_config()
+    path = token_file(np, tmp)
+    b, s = TRAIN_SHAPE[:2]
+    fpt = num_flops_per_token(cfg, s)
+    arms = (("depth 0", 0, False), ("depth 2", 2, False),
+            ("depth 2, double buffer", 2, True))
+    traces, finals = [], []
+    K.reset_launches()
+    for label, depth, dbuf in arms:
+        model = LlamaForCausalLM(cfg, device=dev, seed=0)
+        tr = Trainer(model, _adamw(O), _lm_loss, TrainerArgs(
+            max_steps=TRAINER_STEPS, log_every=TRAINER_STEPS // 2,
+            flops_per_token=fpt, pipeline_depth=depth,
+            device_double_buffer=dbuf), device=dev)
+        data = TokenBinDataset(path, b, s, seed=0, num_workers=1,
+                               num_batches=TRAINER_STEPS)
+        FLIGHT.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with prefetch_to_device(iter(data), depth=2, device=dev) as p:
+            tr.fit(p)
+        torch.cuda.synchronize()
+        losses = _flight_losses()
+        rec = tr.history[-1]
+        g = METRICS.snapshot()["gauges"]
+        log(f"[trainer_fit] {label}: losses "
+            f"{' '.join(f'{x:.6f}' for x in losses)}; steps "
+            f"{TRAINER_STEPS // 2 + 1}-{TRAINER_STEPS}: "
+            f"{1e3 / rec['steps_per_sec']:.1f} ms/step, "
+            f"{rec['tokens_per_sec']:.0f} tokens/s, train_mfu "
+            f"{100 * g['train_mfu']:.2f}% (overlap-aware "
+            f"{100 * g['train_mfu_overlap']:.2f}%) of the card's row "
+            f"{tr.peak_flops / 1e12:.0f} TFLOP/s; host idle (blocked on "
+            f"loss fetches) {tr.host_wait_s:.3f} of {tr.fit_s:.3f} s = "
+            f"{100 * tr.host_wait_s / tr.fit_s:.1f}% of the fit; peak "
+            f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"({card})")
+        if len(losses) != TRAINER_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"trainer_fit {label}: losses {losses}")
+        if not rec.get("mfu", 0) > 0:
+            raise AssertionError(f"trainer_fit {label}: no MFU: {rec}")
+        traces.append(losses)
+        finals.append(model.lm_head.detach()[:64].clone())
+        del tr, model
+        torch.cuda.empty_cache()
+    counts = K.launches()
+    same = all(t == traces[0] for t in traces) and all(
+        torch.equal(f, finals[0]) for f in finals)
+    log(f"[trainer_fit] every loss and the final lm_head bit-identical "
+        f"across the three arms: {same}; launches over the arms {counts}")
+    if not same:
+        raise AssertionError(f"trainer_fit arms differ: {traces}")
+    missing = _missing("trainer_fit", counts)
+    if missing:
+        raise AssertionError(f"kernels not launched on trainer_fit: "
+                             f"{missing} ({counts})")
+    # grad_accum_steps=2 over 2 x 2048 halves against one 4 x 2048 batch,
+    # through the Trainer's own accumulation
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    ids, labels = train_batch(torch, dev, np, cfg)
+    tr = Trainer(model, _adamw(O), _lm_loss, TrainerArgs(
+        grad_accum_steps=2), device=dev)
+    la, ga = tr._grads([(ids[:2], labels[:2]), (ids[2:], labels[2:])])
+    ga = {n: ga[n] for n in GRAD_NAMES}
+    lf, _ = tr._grads([(ids, labels)])
+    params = dict(model.named_parameters())
+    worst = 0.0
+    for n in GRAD_NAMES:
+        full = params[n].grad.float()
+        worst = max(worst, _rms(ga[n] - full) / _rms(full))
+    rel = abs(float(la) - float(lf)) / abs(float(lf))
+    log(f"[trainer_fit] grad_accum 2 x (2 x 2048) against 1 x (4 x 2048): "
+        f"loss {float(la):.6f} vs {float(lf):.6f} (rel {rel:.2e}, limit "
+        f"{ACCUM_LOSS_REL}); gradients {list(GRAD_NAMES)}: worst RMS(diff) "
+        f"{worst:.4f} of the RMS (limit {ACCUM_GRAD_REL})")
+    if not (rel <= ACCUM_LOSS_REL and worst <= ACCUM_GRAD_REL):
+        raise AssertionError(f"grad accumulation: loss rel {rel}, grads "
+                             f"{worst}")
+    del tr, model, ga
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_ckpt_resume(torch, dev, np, tmp):
+    """The train width at CKPT_LAYERS layers under ``ElasticRunner``:
+    ``CheckpointManager(async_save=True)`` every 2 steps; a clean run, then
+    a run whose 4th step raises through the ``train.step`` fault site: one
+    restart from the step-2 checkpoint, the fresh token stream fast-
+    forwarded; the final parameters must be bit-identical to the clean
+    run's. The writer's seconds and GB/s a save, a timed verified restore
+    of the latest checkpoint, and a truncated latest checkpoint falling
+    back to the one before."""
+    import shutil
+    import warnings
+
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.io import TokenBinDataset
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.observability import METRICS
+    from paddle_tpu_torch.train import Trainer, TrainerArgs
+    from paddle_tpu_torch.train.checkpoint import CheckpointManager
+    from paddle_tpu_torch.train.elastic import ElasticRunner
+    from paddle_tpu_torch.utils.faults import FAULTS, InjectedCrash
+    card = card_line()
+    cfg = dataclasses.replace(train_config(), num_hidden_layers=CKPT_LAYERS)
+    path = token_file(np, tmp)
+    b, s = TRAIN_SHAPE[:2]
+    log(f"[ckpt_resume] {shutil.disk_usage(tmp).free / 2**30:.1f} GiB free "
+        f"under {tmp}")
+
+    def make(d):
+        def make_trainer():
+            return Trainer(LlamaForCausalLM(cfg, device=dev, seed=0),
+                           _adamw(O), _lm_loss, TrainerArgs(
+                               max_steps=CKPT_STEPS, log_every=0,
+                               ckpt_every=2, ckpt_dir=d, async_ckpt=True),
+                           device=dev)
+        return make_trainer
+
+    def data_fn():
+        return iter(TokenBinDataset(path, b, s, seed=1, num_workers=1))
+
+    def run(d, crash):
+        METRICS.reset()
+        FAULTS.clear()
+        if crash:
+            FAULTS.install("train.step", on={CKPT_STEPS - 1},
+                           exc=InjectedCrash)
+        runner = ElasticRunner(make(d), max_restarts=1, backoff_s=0.0)
+        t0 = time.monotonic()
+        state = runner.run(data_fn)
+        wall = time.monotonic() - t0
+        FAULTS.clear()
+        snap = METRICS.snapshot()
+        h = snap["histograms"]["ckpt_save_seconds"]
+        nbytes = snap["counters"]["ckpt_saved_bytes_total"]
+        log(f"[ckpt_resume] {'crashed at the 4th step' if crash else 'clean'}"
+            f": {runner.restarts} restart(s) {runner.failures}, step "
+            f"{int(state.step)} in {wall:.1f} s; {h['count']} async saves "
+            f"of {nbytes / h['count'] / 1e9:.3f} GB, writer "
+            f"{h['sum'] / h['count']:.2f} s each "
+            f"({nbytes / h['sum'] / 1e9:.2f} GB/s)")
+        return state, runner
+
+    da, db = os.path.join(tmp, "ckpt_a"), os.path.join(tmp, "ckpt_b")
+    clean, _ = run(db, False)
+    want = {n: p.detach().clone() for n, p in clean.model.named_parameters()}
+    del clean
+    shutil.rmtree(db)
+    torch.cuda.empty_cache()
+    state, runner = run(da, True)
+    diff = [n for n, p in state.model.named_parameters()
+            if not torch.equal(p, want[n])]
+    log(f"[ckpt_resume] restarts {runner.restarts}; final parameters "
+        f"bit-identical to the clean run's: {not diff} ({len(want)} "
+        f"tensors) ({card})")
+    if runner.restarts != 1 or int(state.step) != CKPT_STEPS or diff:
+        raise AssertionError(f"ckpt_resume: restarts {runner.restarts}, "
+                             f"step {int(state.step)}, differing {diff[:8]}")
+    del want
+    # a timed verified restore of the latest checkpoint into the live state
+    mgr = CheckpointManager(da)
+    latest = mgr.latest_step()
+    nbytes = mgr._step_path(latest).stat().st_size
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    mgr.restore(state, step=latest)
+    torch.cuda.synchronize()
+    t_load = time.monotonic() - t0
+    rate = nbytes / t_load / 1e9
+    log(f"[ckpt_resume] verified restore of step {latest} "
+        f"({nbytes / 1e9:.3f} GB) into the live state in {t_load:.2f} s "
+        f"({rate:.2f} GB/s, CRCs and the host-to-card copies included) "
+        f"({card})")
+    # a truncated latest checkpoint falls back to the previous one
+    p = mgr._step_path(latest)
+    p.write_bytes(p.read_bytes()[:4096])
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        mgr.restore(state)
+    log(f"[ckpt_resume] latest step {latest} truncated: restored step "
+        f"{mgr.last_restored_step} ({[str(x.message)[:90] for x in w
+                                      if 'fell back' in str(x.message)]})")
+    if mgr.last_restored_step != latest - 2:
+        raise AssertionError(f"corrupt latest: restored "
+                             f"{mgr.last_restored_step}, not {latest - 2}")
+    del state
+    shutil.rmtree(da)
+    torch.cuda.empty_cache()
+
+
+def phase_lora_train(torch, dev, np):
+    """Adapter-only LoRA training at Llama-2-7B width in bf16 (random
+    weights from seed 0, frozen), rank 8 on qkv_proj and o_proj (fp32
+    adapters, B drawn nonzero so the step moves the loss from the start),
+    ``make_lora_train_step`` with AdamW, batch 1 x 2048, remat on; every
+    base parameter bit-identical after the steps. Returns the launch
+    counts."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.peft import (lora_init, lora_num_parameters,
+                                       make_lora_train_step)
+    card = card_line()
+    cfg = LlamaConfig.llama2_7b(remat=True)
+    tm = time.monotonic()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    lora = lora_init(model, torch.Generator(device=dev).manual_seed(1), r=8,
+                     target_modules=("qkv_proj", "o_proj"))
+    g = torch.Generator(device=dev).manual_seed(2)
+    for k, ab in lora.items():
+        if k != "_scale":
+            ab["b"].normal_(0.0, 0.01, generator=g)
+    ids, labels = train_batch(torch, dev, np, cfg, batch=1)
+    base = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    log(f"[lora_train] llama2_7b width, {cfg.num_hidden_layers} layers bf16 "
+        f"frozen, {lora_num_parameters(lora) / 1e6:.2f} M adapter "
+        f"parameters (rank 8, qkv_proj / o_proj) in "
+        f"{time.monotonic() - tm:.1f} s")
+    step, ad, st = make_lora_train_step(
+        model, lora, O.AdamW(learning_rate=1e-3), lambda m, i, lab:
+        m.loss(i, lab), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    losses, ms = [], []
+    for _ in range(LORA_STEPS):
+        t0 = time.monotonic()
+        ad, st, loss = step(ad, st, ids, labels)
+        losses.append(float(loss))
+        ms.append(1e3 * (time.monotonic() - t0))
+    counts = K.launches()
+    peak = torch.cuda.max_memory_allocated()
+    same = all(torch.equal(p, base[n]) and p.grad is None
+               for n, p in model.named_parameters())
+    log(f"[lora_train] losses {' '.join(f'{x:.5f}' for x in losses)}; "
+        f"{sum(ms[1:]) / (LORA_STEPS - 1):.1f} ms/step over steps 2-"
+        f"{LORA_STEPS} (step 1 {ms[0]:.1f} ms); peak allocated "
+        f"{peak / 2**30:.2f} GiB (the base's copy for the check "
+        f"{sum(t.numel() * t.element_size() for t in base.values()) / 2**30:.2f}"
+        f" GiB of it); base bit-identical, no .grad: {same}; launches "
+        f"{counts} ({card})")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0] and same):
+        raise AssertionError(f"lora_train: losses {losses}, base same {same}")
+    missing = _missing("lora_train", counts)
+    if missing:
+        raise AssertionError(f"kernels not launched on lora_train: "
+                             f"{missing} ({counts})")
+    del model, base, ad, st, step, lora
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _fp8_check(torch, dev):
+    """fp8_matmul on the card (torch._scaled_mm) against its plain version
+    (the CPU's bf16 upcasts, run on the card) at the headline's qkv shape,
+    forward, dx and dw, under a calibrated history; the rolled histories
+    must agree exactly."""
+    from paddle_tpu_torch.amp import fp8
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(8192, 2048, generator=g, device=dev).bfloat16()
+    w = (0.02 * torch.randn(2048, 6144, generator=g, device=dev)).bfloat16()
+    gy = torch.randn(8192, 6144, generator=g, device=dev).bfloat16()
+    out = []
+    for plain in (False, True):
+        meta = fp8.new_fp8_meta(device=dev)
+        meta.amax_x[0], meta.amax_w[0], meta.amax_g[0] = (
+            float(x.abs().max()), float(w.abs().max()), float(gy.abs().max()))
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fp8.fp8_matmul(xr, wr, meta, plain=plain)
+        y.backward(gy)
+        out.append((y.detach(), xr.grad, wr.grad, torch.cat(
+            meta.histories())))
+    for name, a, r in zip(("y", "dx", "dw"), out[0][:3], out[1][:3]):
+        err, scaled = _max_err(a, r)
+        rel = err / float(r.float().abs().max())
+        log(f"[fp8_train] fp8_matmul {name} {list(a.shape)} scaled_mm vs "
+            f"plain: max_abs_err {err:.3e}, {rel:.3e} of max |plain| (limit "
+            f"{FP8_CHECK_REL}); elementwise {scaled:.3e} of (1 + |plain|)")
+        if not rel <= FP8_CHECK_REL:
+            raise AssertionError(f"fp8_matmul {name}: card {rel} of max "
+                                 f"|plain| from its plain version")
+    if not torch.equal(out[0][3], out[1][3]):
+        raise AssertionError("fp8_matmul: rolled histories differ")
+    del out
+    torch.cuda.empty_cache()
+
+
+def phase_fp8_train(torch, dev, np, tmp):
+    """The headline model with ``fp8=True`` beside its bf16 run from the
+    same seed (4 x 2048, the headline's AdamW), fp8_matmul against its
+    plain version first. On fresh batches of the seeded token file (one
+    a step, as training runs) every step's fp8 loss within the
+    reference's bound 0.15 |a| + 0.05 of the bf16 loss. On the headline's
+    one fixed batch (memorised: the bf16 loss halves in 6 steps) the
+    card's fp8 run within FP8_PATH_REL of the same model with plain
+    products at every step, and the bf16 / fp8 gap reported. Returns the
+    fp8 runs' launch counts."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.amp import fp8 as F8
+    from paddle_tpu_torch.io import TokenBinDataset
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.train import init_state, make_train_step
+    card = card_line()
+    _fp8_check(torch, dev)
+    cfg0 = train_config()
+    b, s = TRAIN_SHAPE[:2]
+    fixed = [train_batch(torch, dev, np, cfg0)] * FP8_STEPS
+    stream = [(torch.as_tensor(x, device=dev).long(),
+               torch.as_tensor(y, device=dev).long()) for x, y in TokenBinDataset(
+        token_file(np, tmp), b, s, seed=2, num_workers=1,
+        num_batches=FP8_STEPS)]
+
+    def run(label, fp8, batches, plain=False):
+        model = LlamaForCausalLM(dataclasses.replace(cfg0, fp8=fp8),
+                                 device=dev, seed=0)
+        opt = _adamw(O)
+        state = init_state(model, opt)
+        step = make_train_step(lambda m, i, lab: m.loss(i, lab), opt)
+        losses = []
+        torch.cuda.synchronize()
+        with F8.plain_products() if plain else contextlib.nullcontext():
+            for k, (ids, labels) in enumerate(batches):
+                if k == 2:
+                    torch.cuda.synchronize()
+                    t0 = time.monotonic()
+                state, loss = step(state, ids, labels)
+                losses.append(loss)
+                if k == 0 and fp8:
+                    g1 = float(model.model.layers[0].self_attn
+                               .fp8_meta["qkv"].amax_g[0])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.monotonic() - t0) / (FP8_STEPS - 2)
+        losses = [float(x) for x in losses]
+        rolled = (int((model.model.layers[0].self_attn.fp8_meta["qkv"]
+                       .amax_x > 0).sum()) if fp8 else None)
+        log(f"[fp8_train] {label}: losses "
+            f"{' '.join(f'{x:.5f}' for x in losses)}; {ms:.1f} ms/step over "
+            f"steps 3-{FP8_STEPS}"
+            + (f"; layer 0 qkv's first gradient amax {g1:.3e} (read at "
+               f"scale 1: e5m2's smallest subnormal is 1.526e-05), "
+               f"histories rolled {rolled} times" if fp8 else "")
+            + f" ({card})")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]) or \
+                rolled not in (None, FP8_STEPS):
+            raise AssertionError(f"fp8_train {label}: {losses}, rolled "
+                                 f"{rolled}")
+        del state, model, opt, step
+        torch.cuda.empty_cache()
+        return losses
+
+    def gap(a_s, b_s):
+        return [(a, b) for a, b in zip(a_s, b_s)
+                if not abs(a - b) < FP8_BOUND[0] * abs(a) + FP8_BOUND[1]]
+
+    t_bf16 = run("bf16, token stream", False, stream)
+    K.reset_launches()
+    t_fp8 = run("fp8, token stream", True, stream)
+    counts = K.launches()
+    bad = gap(t_bf16, t_fp8)
+    log(f"[fp8_train] token stream: fp8 within {FP8_BOUND[0]} |a| + "
+        f"{FP8_BOUND[1]} of bf16 at every step: {not bad}")
+    f_bf16 = run("bf16, fixed batch", False, fixed)
+    f_fp8 = run("fp8, fixed batch", True, fixed)
+    f_plain = run("fp8 with plain products, fixed batch", True, fixed, True)
+    off = max(abs(a - b) / abs(b) for a, b in zip(f_fp8, f_plain))
+    log(f"[fp8_train] fixed batch: the card's fp8 run within {off:.4f} of "
+        f"the plain-product run at every step (limit {FP8_PATH_REL}); "
+        f"steps outside the reference's bound against bf16: "
+        f"{gap(f_bf16, f_fp8)}; launches of the fp8 stream run {counts}")
+    if bad or not off <= FP8_PATH_REL:
+        raise AssertionError(f"fp8_train: stream outside the bound {bad}, "
+                             f"card vs plain {off}")
+    missing = _missing("fp8_train", counts)
+    if missing:
+        raise AssertionError(f"kernels not launched on fp8_train: "
+                             f"{missing} ({counts})")
+    return counts
+
+
+def phase_amp_check(torch, dev, np):
+    """(a) ``amp.decorate(level="O2")`` of a float32 2-layer model at the
+    headline width, trained 3 steps in bf16 with fp32 masters; (b) an
+    enabled ``GradScaler`` on the float32 model with one injected inf
+    gradient: the scale halves, the step is skipped, and no host sync
+    happens inside the scaler (counted under
+    ``torch.cuda.set_sync_debug_mode("warn")``); (c) a float16 model is
+    refused by the kernels' TypeError."""
+    import warnings
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.train import init_state, make_train_step
+    card = card_line()
+    cfg = dataclasses.replace(train_config(), num_hidden_layers=2,
+                              dtype=torch.float32)
+    ids, labels = train_batch(torch, dev, np, cfg, batch=1)
+    m32 = LlamaForCausalLM(cfg, device=dev, seed=0)
+    m16 = amp.decorate(m32, level="O2", dtype=torch.bfloat16)
+    opt = _adamw(O)
+    state = init_state(m16, opt)
+    step = make_train_step(lambda m, i, lab: m.loss(i, lab), opt)
+    losses = []
+    for _ in range(3):
+        state, loss = step(state, ids, labels)
+        losses.append(float(loss))
+    masters = sum(v is not None for v in state.opt_state["master"].values())
+    log(f"[amp_check] O2 bf16 (multi_precision, {masters} fp32 masters): "
+        f"losses {' '.join(f'{x:.5f}' for x in losses)}; the float32 "
+        f"model's parameters stay float32: "
+        f"{next(m32.parameters()).dtype}")
+    if not (losses[-1] < losses[0] and masters and
+            next(m32.parameters()).dtype == torch.float32):
+        raise AssertionError(f"amp_check O2: {losses}, masters {masters}")
+    del state, m16, opt, step
+    sc = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    st = sc.init(dev)
+    m32.zero_grad(set_to_none=True)
+    sc.scale(m32.loss(ids, labels), st).backward()
+    params = dict(m32.named_parameters())
+    old = {n: p.detach().clone() for n, p in params.items()}
+    # the injected overflow (a Python scalar written into a card tensor
+    # copies from host memory: outside the counted window)
+    params["lm_head"].grad[0, 0] = float("inf")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            grads = sc.unscale({n: p.grad for n, p in params.items()}, st)
+            found = sc.found_inf(grads)
+            new = {n: p.detach() - 3e-4 * grads[n] for n, p in params.items()}
+            kept = sc.step_or_skip(old, new, found)
+            st2 = sc.update(st, found)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message)[:80] for w in caught
+             if "synchroniz" in str(w.message)]
+    halved = float(st2["scale"]) == float(st["scale"]) / 2
+    skipped = all(torch.equal(kept[n], old[n]) for n in old)
+    log(f"[amp_check] GradScaler on the float32 model, one inf gradient: "
+        f"scale {float(st['scale']):.0f} -> {float(st2['scale']):.0f} "
+        f"(halved: {halved}), step skipped: {skipped}; host syncs inside "
+        f"the scaler: {len(syncs)} {syncs} ({card})")
+    if not (halved and skipped and not syncs):
+        raise AssertionError(f"amp_check scaler: halved {halved}, skipped "
+                             f"{skipped}, syncs {syncs}")
+    del m32, grads, new, kept, old
+    torch.cuda.empty_cache()
+    m_h = LlamaForCausalLM(dataclasses.replace(cfg, num_hidden_layers=1,
+                                               dtype=torch.float16),
+                           device=dev, seed=0)
+    try:
+        m_h.loss(ids, labels)
+    except TypeError as e:
+        log(f"[amp_check] float16 model on the card refused: {e}; "
+            f"amp.is_float16_supported(card) = "
+            f"{amp.is_float16_supported(dev)}")
+    else:
+        raise AssertionError("a float16 model ran on the card")
+    del m_h
+    torch.cuda.empty_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve,check,"
@@ -6956,6 +7556,7 @@ def main(argv=None):
                     "grammar_serve,grammar_check,tenant_serve,"
                     "endpoint_check,hf_load,router_serve,router_check,"
                     "gptq_serve,gptq_check,spec_generate,train,remat_train,"
+                    "trainer_fit,ckpt_resume,lora_train,fp8_train,amp_check,"
                     "moe_serve,moe_check,moe_train,window_serve,window_check,"
                     "quant_serve,quant_check,bloom_serve,bloom_train,"
                     "falcon_rw_serve,falcon_rw_train,falcon7b_serve,"
@@ -7182,6 +7783,26 @@ def main(argv=None):
         tp = time.monotonic()
         counts["remat_train"] = phase_remat_train(torch, dev, np)
         log(f"[remat_train] phase {time.monotonic() - tp:.1f} s")
+    trainer = ("trainer_fit", "ckpt_resume", "lora_train", "fp8_train",
+               "amp_check")
+    if set(trainer) & set(phases):
+        import shutil
+        import tempfile
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            for name in trainer:
+                if name not in phases:
+                    continue
+                tp = time.monotonic()
+                fn = globals()[f"phase_{name}"]
+                got = (fn(torch, dev, np, tmp)
+                       if name in ("trainer_fit", "ckpt_resume", "fp8_train")
+                       else fn(torch, dev, np))
+                if name in PATHS:
+                    counts[name] = got
+                log(f"[{name}] phase {time.monotonic() - tp:.1f} s")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
     if {"moe_serve", "moe_check", "moe_anatomy"} & set(phases):
         model = build_moe_model(torch, dev, 24, "moe_serve")
         counts["moe_serve"], moe_reqs, moe_stats = phase_serve(

@@ -9,15 +9,18 @@ by :mod:`paddle_tpu_torch.ops.cuda._build`; plain PyTorch code covers
 what XLA fused for free.
 
 Entry points (the model classes, ``serving.LLMEngine``,
-``train.make_train_step``) run on ``cuda`` unless the caller passes
-``device="cpu"``; with no device given and no card present they raise.
+``train.make_train_step``, ``train.Trainer``, ``io.prefetch_to_device``)
+run on ``cuda`` unless the caller passes ``device="cpu"``; with no device
+given and no card present they raise.
 
 Ported so far: the single-device paged serving path and the train step
 (``train``, ``optimizer``) for the Llama family and the MoE families
 (``models.mixtral``, ``models.qwen2_moe``, ``models.moe_llm`` on
 ``distributed.moe``), and BLOOM and Falcon (``models.bloom``,
 ``models.falcon``) through ``models.generic_generate`` and the same train
-step — see ``ROADMAP.md`` for the queues that remain.
+step, and the trainer stack around it (``train.Trainer``, checkpoints,
+``ElasticRunner``, ``io``, ``amp``, adapter-only LoRA training) — see
+``ROADMAP.md`` for the queues that remain.
 """
 from paddle_tpu_torch.core.device import resolve_device  # noqa: F401
 from paddle_tpu_torch.core.random import generator  # noqa: F401

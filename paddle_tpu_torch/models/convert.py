@@ -36,7 +36,10 @@ import torch
 
 
 def to_tensor(arr) -> torch.Tensor:
-    """numpy (incl. ml_dtypes bfloat16) -> CPU tensor, bit-exact."""
+    """numpy (incl. ml_dtypes bfloat16) or a tensor -> CPU tensor,
+    bit-exact."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().cpu()
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         bits = np.ascontiguousarray(arr).view(np.int16)
@@ -63,6 +66,26 @@ def load_jax_state_dict(model: torch.nn.Module, state: dict):
                              f"vs {tuple(p.shape)}")
         p.copy_(t.to(device=p.device, dtype=p.dtype))
     return model
+
+
+def load_jax_checkpoint(model: torch.nn.Module, path):
+    """Load the model leaves of a checkpoint the JAX package wrote
+    (``paddle_tpu.train.checkpoint.save`` of a model, or of a
+    ``TrainState``, whose model leaves sit under ``[<flat index 0>].``)
+    into ``model``'s parameters of the same dotted names, CRCs verified
+    (:func:`paddle_tpu_torch.train.checkpoint.load`). Leaves of other
+    parts of a TrainState (optimizer slots, the JAX PRNG key) are left
+    out."""
+    from paddle_tpu_torch.train.checkpoint import load
+    prefix = "[<flat index 0>]."
+    flat = load(path)
+    names = {n for n, _ in model.named_parameters()}
+    state = {}
+    for k, v in flat.items():
+        k = k[len(prefix):] if k.startswith(prefix) else k
+        if k in names:
+            state[k] = v
+    return load_jax_state_dict(model, state)
 
 
 # ------------------------------------------------------------ safetensors

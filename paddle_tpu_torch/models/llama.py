@@ -29,7 +29,13 @@ recompute stops once every saved tensor it needs is back).
 ``model.layers_stacked`` (leading dim L, the reference's ``lax.scan``
 pytree) and loops over its slices; ``model.layers`` is then empty, and
 every walker of it refuses such a model by name (:func:`refuse_scanned`).
-fp8 and sequence parallelism are later slices.
+
+``fp8=True`` runs the four projections of each layer (qkv, o, gate_up,
+down) through :func:`paddle_tpu_torch.amp.fp8.fp8_matmul` under delayed
+scaling, as the reference does; each layer's amax histories are buffers
+of its ``self_attn.fp8_meta`` / ``mlp.fp8_meta`` (``nn.ModuleDict`` of
+:class:`~paddle_tpu_torch.amp.fp8.Fp8Meta`), which the optimizer never
+sees. Sequence parallelism is a later slice.
 """
 from __future__ import annotations
 
@@ -82,6 +88,7 @@ class LlamaConfig:
     sliding_window: int | None = None  # Mistral-style causal window
     attention_bias: bool = False       # Qwen2: bias on fused qkv only
     rope_scaling: dict | None = None   # linear | ntk | dynamic
+    fp8: bool = False  # e4m3/e5m2 projections with delayed scaling (amp.fp8)
 
     def __post_init__(self):
         self.save_names()
@@ -145,6 +152,22 @@ class LlamaRMSNorm(nn.Module):
         return fused_rms_norm(x, self.weight, self.eps)
 
 
+def _fp8_metas(cfg, init, names):
+    """The layer's fp8 scaling state (None unless ``cfg.fp8``)."""
+    if not getattr(cfg, "fp8", False):
+        return None
+    from paddle_tpu_torch.amp.fp8 import Fp8Meta
+    return nn.ModuleDict({n: Fp8Meta(device=init.device) for n in names})
+
+
+def _proj(x, w, metas, name):
+    """``x @ w`` through fp8_matmul when the layer trains in fp8."""
+    if metas is not None:
+        from paddle_tpu_torch.amp.fp8 import fp8_matmul
+        return fp8_matmul(x, w, metas[name])
+    return wo_matmul(x, w)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, init: _Init):
         super().__init__()
@@ -157,10 +180,11 @@ class LlamaAttention(nn.Module):
                          if cfg.attention_bias else None)
         self.num_heads, self.num_kv_heads = nh, nkv
         self.window = cfg.sliding_window
+        self.fp8_meta = _fp8_metas(cfg, init, ("qkv", "o"))
 
     def qkv(self, x):
         """The fused projection (tag ``qkv``)."""
-        qkv = wo_matmul(x, self.qkv_proj)
+        qkv = _proj(x, self.qkv_proj, self.fp8_meta, "qkv")
         return qkv if self.qkv_bias is None else qkv + self.qkv_bias
 
     def context(self, qkv, cos, sin, attn_mask=None):
@@ -178,7 +202,7 @@ class LlamaAttention(nn.Module):
 
     def out(self, ctx):
         b, s = ctx.shape[:2]
-        return wo_matmul(ctx.reshape(b, s, -1), self.o_proj)
+        return _proj(ctx.reshape(b, s, -1), self.o_proj, self.fp8_meta, "o")
 
     def forward(self, x, cos, sin, attn_mask=None):
         return self.out(self.context(self.qkv(x), cos, sin, attn_mask))
@@ -191,15 +215,17 @@ class LlamaMLP(nn.Module):
         self.gate_up_proj = init.normal(h, 2 * m)   # fused gate+up (SwiGLU)
         self.down_proj = init.normal(m, h)
         self.intermediate_size = m
+        self.fp8_meta = _fp8_metas(cfg, init, ("gate_up", "down"))
 
     def gate_up(self, x):
         """The fused gate/up product (tag ``ffn_gu``)."""
-        return wo_matmul(x, self.gate_up_proj)
+        return _proj(x, self.gate_up_proj, self.fp8_meta, "gate_up")
 
     def down(self, gu):
         """SwiGLU and the down projection (tag ``ffn_out``)."""
         gate, up = torch.chunk(gu, 2, dim=-1)
-        return wo_matmul(torch.nn.functional.silu(gate) * up, self.down_proj)
+        return _proj(torch.nn.functional.silu(gate) * up, self.down_proj,
+                     self.fp8_meta, "down")
 
     def forward(self, x):
         return self.down(self.gate_up(x))
@@ -343,6 +369,11 @@ class LlamaModel(nn.Module):
         layers = [LlamaDecoderLayer(cfg, init)
                   for _ in range(cfg.num_hidden_layers)]
         if cfg.scan_layers:
+            if getattr(cfg, "fp8", False):
+                raise NotImplementedError(
+                    "fp8 with scan_layers=True: the stacked layer set holds "
+                    "parameters only, not each layer's fp8 amax buffers; "
+                    "build the fp8 model with scan_layers=False")
             self.layers_stacked = _stack_layers(layers)
             self.layers = nn.ModuleList()
         else:

@@ -1,15 +1,18 @@
-"""The peak-FLOPs table — counterpart of
-``paddle_tpu/observability/flops.py`` (its train-MFU gauges are left out:
-the port's serving roofline is the table's one reader). The table gains
-the H100's row, keyed on the name the card reports; a device whose kind
-no row names reads 0.0 ("undefined"), exactly as the reference's does
+"""The peak-FLOPs table and MFU accounting — counterpart of
+``paddle_tpu/observability/flops.py``: the one copy the serving roofline,
+the Trainer and ``utils.profiler.StepTimer`` read. The table gains the
+H100's row, keyed on the name the card reports; a device whose kind no
+row names reads 0.0 ("undefined"), exactly as the reference's does
 off-TPU.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["PEAK_BF16", "chip_peak_flops", "device_kind"]
+from paddle_tpu_torch.observability.metrics import METRICS
+
+__all__ = ["PEAK_BF16", "chip_peak_flops", "device_kind", "mfu",
+           "record_throughput"]
 
 # Peak dense bf16 FLOP/s per device, keyed on the device's kind string
 # (``torch.cuda.get_device_name`` for a card). The TPU rows are the
@@ -66,3 +69,43 @@ def chip_peak_flops(dev=None, kind: str = None) -> float:
     """Peak dense bf16 FLOP/s of a device (a torch device, or an explicit
     kind string); 0.0 when unknown."""
     return _lookup(PEAK_BF16, dev, kind)
+
+
+def mfu(tokens_per_sec: float, flops_per_token: float,
+        peak_flops: float) -> float:
+    """Model FLOPs utilisation; 0.0 when the peak is unknown."""
+    if not peak_flops or not flops_per_token:
+        return 0.0
+    return tokens_per_sec * flops_per_token / peak_flops
+
+
+_TOKENS_PER_SEC = METRICS.gauge(
+    "train_tokens_per_sec", "training throughput, tokens/sec")
+_MFU = METRICS.gauge(
+    "train_mfu", "model FLOPs utilisation vs the device's peak-bf16 row")
+_MFU_OVERLAP = METRICS.gauge(
+    "train_mfu_overlap", "MFU with host time hidden behind in-flight "
+    "device steps subtracted from the wall-clock denominator")
+
+
+def record_throughput(tokens_per_sec: float, flops_per_token: float = 0.0,
+                      peak_flops: float = 0.0, hidden_host_s: float = 0.0,
+                      window_s: float = 0.0) -> float:
+    """The one choke point for throughput/MFU accounting: sets the
+    ``train_tokens_per_sec``, ``train_mfu`` and ``train_mfu_overlap``
+    gauges and returns the (naive) MFU. ``hidden_host_s`` of a
+    ``window_s``-second logging window is host input/dispatch time that
+    rode in the shadow of in-flight device steps (the pipelined trainer
+    measures it); the overlap-aware MFU removes it from the denominator,
+    ``mfu(tps * window / (window - hidden), ...)``. Without overlap
+    information the overlap gauge mirrors the naive value."""
+    m = mfu(tokens_per_sec, flops_per_token, peak_flops)
+    if window_s > 0.0 and 0.0 < hidden_host_s < window_s:
+        m_ov = mfu(tokens_per_sec * window_s / (window_s - hidden_host_s),
+                   flops_per_token, peak_flops)
+    else:
+        m_ov = m
+    _TOKENS_PER_SEC.set(tokens_per_sec)
+    _MFU.set(m)
+    _MFU_OVERLAP.set(m_ov)
+    return m

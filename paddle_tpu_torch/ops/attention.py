@@ -211,7 +211,11 @@ def rope_cos_sin(seq_len, head_dim, base=10000.0, dtype=torch.float32,
            else torch.as_tensor(position_ids, device=device).float())
     if pos_div != 1.0:
         pos = pos / pos_div
-    base = torch.as_tensor(base, dtype=torch.float32, device=device)
+    # a Python base fills a 0-d tensor on the device: a copy from host
+    # memory would synchronise the stream every forward
+    base = (base.to(device=device, dtype=torch.float32)
+            if isinstance(base, torch.Tensor) else
+            torch.full((), float(base), dtype=torch.float32, device=device))
     if base.ndim == 0:
         freqs = torch.outer(pos, 1.0 / (base ** ar))          # [S, D/2]
     else:

@@ -75,6 +75,13 @@ GPTQ_SERVE_KERNELS = SERVE_KERNELS
 SPEC_GENERATE_KERNELS = ("rms_norm", "rope")
 # the train step under every remat policy and with scanned layers
 REMAT_TRAIN_KERNELS = TRAIN_KERNELS
+# the trainer stack: Trainer.fit over the token-bin data path, the
+# adapter-only LoRA step (its merged forward runs the full step's
+# kernels) and the fp8 step (its four projections on torch._scaled_mm,
+# the reference's being XLA's, not a Pallas kernel)
+TRAINER_FIT_KERNELS = TRAIN_KERNELS
+LORA_TRAIN_KERNELS = TRAIN_KERNELS
+FP8_TRAIN_KERNELS = TRAIN_KERNELS
 
 
 def kernels() -> dict:

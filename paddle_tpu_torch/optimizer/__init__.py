@@ -45,6 +45,14 @@ def _float_grads(grads):
             if g is not None and g.is_floating_point()}
 
 
+def _named(model):
+    """(name, tensor) pairs of a module's parameters, or of a {name:
+    tensor} dict (the adapter-only LoRA step's A/B leaves)."""
+    if isinstance(model, dict):
+        return list(model.items())
+    return list(model.named_parameters())
+
+
 # -- grad clipping (ref python/paddle/nn/clip.py) ---------------------------
 
 def global_norm(grads):
@@ -87,8 +95,7 @@ class Optimizer:
 
     # -- state --------------------------------------------------------------
     def init(self, model) -> dict:
-        params = {n: p for n, p in model.named_parameters()
-                  if p.is_floating_point()}
+        params = {n: p for n, p in _named(model) if p.is_floating_point()}
         state = {"step": 0}
         if not isinstance(self.learning_rate, LRScheduler):
             state["lr"] = float(self.learning_rate)
@@ -141,12 +148,19 @@ class Optimizer:
 
     # -- update -------------------------------------------------------------
     @torch.no_grad()
-    def step(self, model, grads, state):
-        """Update ``model``'s parameters in place from ``grads`` ({name:
-        grad}; ``None`` reads each parameter's ``.grad``) and return
-        ``(model, new_state)``. A parameter without a gradient keeps its
-        value and its slots."""
-        params = dict(model.named_parameters())
+    def step(self, model, grads, state, ok=None, lr=None, t=None):
+        """Update ``model``'s parameters (or a {name: tensor} dict's
+        tensors) in place from ``grads`` ({name: grad}; ``None`` reads
+        each parameter's ``.grad``) and return ``(model, new_state)``. A
+        parameter without a gradient keeps its value and its slots.
+
+        The device-side skip (``Trainer``'s NaN guard): ``ok`` a 0-d bool
+        device tensor, ``lr`` and ``t`` 0-d device tensors standing for
+        the learning rate and the 1-based step count of the bias
+        corrections. Every parameter, master copy and slot then ends
+        bit-identical to before where ``ok`` is False, with no host read,
+        and ``step`` is left as it was (the caller advances it)."""
+        params = dict(_named(model))
         if grads is None:
             grads = {n: p.grad for n, p in params.items()}
         grads = _float_grads(grads)
@@ -158,23 +172,38 @@ class Optimizer:
         # param itself, or an fp32 copy of a reduced param (written back)
         compute = [master[n] if master is not None and master[n] is not None
                    else params[n].float() for n in names]
+        kept = self._kept(names, params, state) if ok is not None else []
+        old = [x.clone() for x in kept]
         self._update(names, compute, [grads[n] for n in names], state,
-                     self._lr(state))
+                     self._lr(state) if lr is None else lr,
+                     float(state["step"]) + 1.0 if t is None else t)
         for n, c in zip(names, compute):
             if c is not params[n]:
                 params[n].copy_(c)
+        for x, o in zip(kept, old):
+            torch.where(ok, x, o, out=x)
         new_state = dict(state)
-        new_state["step"] = state["step"] + 1
+        new_state["step"] = state["step"] + (1 if ok is None else 0)
         return model, new_state
 
-    def _update(self, names, params32, grads, state, lr):
+    @staticmethod
+    def _kept(names, params, state):
+        """The tensors an update writes that must survive a skipped step:
+        the parameters, their master copies and every slot."""
+        kept = [params[n] for n in names]
+        for k, v in state.items():
+            if isinstance(v, dict):
+                kept += [v[n] for n in names if v.get(n) is not None]
+        return kept
+
+    def _update(self, names, params32, grads, state, lr, t):
         raise NotImplementedError
 
 
 # -- SGD (ref sgd.py) -------------------------------------------------------
 
 class SGD(Optimizer):
-    def _update(self, names, params32, grads, state, lr):
+    def _update(self, names, params32, grads, state, lr, t):
         """``p - lr * (g + wd * p)`` in the reference's order: the product
         rounded before the subtraction."""
         for p, g in zip(params32, grads):
@@ -200,15 +229,22 @@ class Adam(Optimizer):
                 "moment2": {n: torch.zeros_like(p, dtype=torch.float32)
                             for n, p in params.items()}}
 
-    def _update(self, names, params32, grads, state, lr):
+    def _update(self, names, params32, grads, state, lr, t):
         """The reference's update on fp32 values, in place: moments from
-        the fp32 gradient, bias correction from step + 1 (fp32 in the
-        reference, here in Python floats), eps added after the sqrt, the
+        the fp32 gradient, bias correction from ``t`` = step + 1 (fp32 in
+        the reference, here in Python floats, or float64 device tensors
+        on the device-side skip's path), eps added after the sqrt, the
         decoupled decay (AdamW) added to the update."""
         b1, b2, eps, wd = (self.beta1, self.beta2, self.epsilon,
                            self.weight_decay)
-        t = float(state["step"]) + 1.0
-        bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+        if isinstance(t, torch.Tensor):
+            # computed in float64, handed to the fp32 foreach kernels as
+            # fp32 0-d tensors (what a Python float becomes inside them)
+            t = t.double()
+            bc1 = (1.0 - torch.pow(b1, t)).float()
+            bc2 = (1.0 - torch.pow(b2, t)).float()
+        else:
+            bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
         g32 = [g.float() for g in grads]
         if wd and not self.decoupled_wd:
             g32 = torch._foreach_add(g32, params32, alpha=wd)
@@ -229,7 +265,11 @@ class Adam(Optimizer):
             decay = [i for i, n in enumerate(names) if self._decays(n)]
             torch._foreach_add_([update[i] for i in decay],
                                 [params32[i] for i in decay], alpha=wd)
-        torch._foreach_add_(params32, update, alpha=-lr)
+        if isinstance(lr, torch.Tensor):
+            torch._foreach_mul_(update, (-lr).float())
+            torch._foreach_add_(params32, update)
+        else:
+            torch._foreach_add_(params32, update, alpha=-lr)
 
 
 class AdamW(Adam):

@@ -1,5 +1,5 @@
-"""Parameter-efficient fine-tuning, the serving half — counterpart of
-``paddle_tpu/peft.py`` (ref: ``paddlenlp.peft`` LoRAConfig/LoRAModel).
+"""Parameter-efficient fine-tuning — counterpart of ``paddle_tpu/peft.py``
+(ref: ``paddlenlp.peft`` LoRAConfig/LoRAModel).
 
 LoRA lives as a SEPARATE small tree keyed by the dotted parameter name
 (the reference's names: the port's ``named_parameters()`` are the JAX
@@ -13,11 +13,14 @@ the serving engine instead adds the rank-r correction per row
                                                           "o_proj"))
     merged = lora_merge(model, lora)              # deployment merge
 
-Adapter-only training (the reference's ``make_lora_train_step``) is
-ROADMAP.md queue 1 item 6.
+Adapter-only training, :func:`make_lora_train_step`: the merged
+forward is the reference's — each target weight is ``W + scale * A @ B``
+inside the autograd graph — so it runs the same K1/K2/K5/K7 kernels as the
+full train step; only A and B receive gradients and enter the optimizer.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 
@@ -151,3 +154,79 @@ def lora_load_state_dict(lora, state: dict):
             new[path] = {"a": like(state[path + ".lora_A"], ab["a"]),
                          "b": like(state[path + ".lora_B"], ab["b"])}
     return new
+
+
+@contextlib.contextmanager
+def _parameters_as(model, values: dict):
+    """``model`` with each named parameter replaced by ``values[name]``
+    (a plain tensor) for the block, in the module's own parameter slots
+    (so the order of ``named_parameters()`` is kept); restored on exit."""
+    saved = []
+    try:
+        for name, val in values.items():
+            owner_name, _, leaf = name.rpartition(".")
+            owner = model.get_submodule(owner_name)
+            saved.append((owner, leaf, owner._parameters[leaf]))
+            owner._parameters[leaf] = val
+        yield model
+    finally:
+        for owner, leaf, orig in reversed(saved):
+            owner._parameters[leaf] = orig
+
+
+def make_lora_train_step(base_model, lora, optimizer, loss_fn, device=None):
+    """Adapter-only training (the reference's LoRAModel + Trainer
+    pairing). ``loss_fn(merged_model, *batch) -> scalar``. Returns
+    ``(step, lora, opt_state)`` with ``step(lora, opt_state, *batch) ->
+    (lora, opt_state, loss)``.
+
+    The returned ``lora`` is a COPY of the caller's adapters on
+    ``device`` (the card when None; the base model must live there), its
+    A/B leaves tensors that require grad; the step updates them in place
+    and returns the full tree, ``_scale`` included, so ``lora_merge`` and
+    ``lora_state_dict`` work on it. Only the A/B leaves (named ``<weight
+    name>.a`` / ``.b``) enter the optimizer: ``_scale`` never sees weight
+    decay. The step runs the base model with every target weight replaced
+    by ``W + scale * A @ B`` (float32, cast to W's type) and every other
+    parameter by its detached self, so the base's parameters keep their
+    bits, get no ``.grad`` and cost no weight gradient; the loss and the
+    backward (``torch.autograd.grad``, which a remat recompute joins)
+    both run with the weights replaced."""
+    from paddle_tpu_torch.core.device import resolve_device
+    dev = resolve_device(device)
+    base_dev = next(base_model.parameters()).device
+    if base_dev.type != dev.type or dev.index not in (None, base_dev.index):
+        raise ValueError(f"make_lora_train_step: the base model lives on "
+                         f"{base_dev}, the step runs on {dev}")
+    scale = float(lora["_scale"])
+    lora = {k: (torch.tensor(scale, dtype=torch.float32) if k == "_scale"
+                else {r: v.detach().to(dev).clone().requires_grad_(True)
+                      for r, v in ab.items()})
+            for k, ab in lora.items()}
+
+    def adapters_of(tree):
+        return {f"{k}.{r}": v for k, ab in tree.items() if k != "_scale"
+                for r, v in ab.items()}
+
+    opt_state = optimizer.init(adapters_of(lora))
+
+    def step(lora_tree, opt_state, *batch):
+        adapters = adapters_of(lora_tree)
+        for v in adapters.values():
+            v.requires_grad_(True)
+        params = dict(base_model.named_parameters())
+        values = {n: p.detach() for n, p in params.items()}
+        for name, ab in lora_tree.items():
+            if name == "_scale":
+                continue
+            w = params[name].detach()
+            delta = (ab["a"] @ ab["b"]).float() * scale
+            values[name] = (w.float() + delta).to(w.dtype)
+        with _parameters_as(base_model, values):
+            loss = loss_fn(base_model, *batch)
+            grads = torch.autograd.grad(loss, list(adapters.values()))
+        _, opt_state = optimizer.step(adapters, dict(zip(adapters, grads)),
+                                      opt_state)
+        return lora_tree, opt_state, loss.detach()
+
+    return step, lora, opt_state

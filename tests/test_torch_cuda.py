@@ -2736,3 +2736,116 @@ def test_remat_policies_bit_identical_on_card(dtype):
         bwd[("hidden", False)]["flash_fwd"] <= bwd[(None, False)]["flash_fwd"]
     assert all(b["flash_bwd_dq"] > 0 and b["flash_bwd_dkv"] > 0
                for b in bwd.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 512, 384), (2, 64, 1024, 2048)],
+                         ids=["2d", "3d"])
+def test_fp8_matmul_on_card_matches_plain(shape):
+    """fp8_matmul on the card (torch._scaled_mm) against its plain version
+    (bf16 upcasts of the same fp8 codes, float32 products) on the card:
+    forward, dx and dw within the bf16 tolerance, rolled histories equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch.amp import fp8
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    *lead, k, n = shape
+    x = torch.randn(*lead, k, generator=g, device=dev).bfloat16()
+    w = (0.05 * torch.randn(k, n, generator=g, device=dev)).bfloat16()
+    gy = torch.randn(*lead, n, generator=g, device=dev).bfloat16()
+    out = []
+    for plain in (False, True):
+        meta = fp8.new_fp8_meta(device=dev)
+        meta.amax_x[0] = float(x.abs().max())
+        meta.amax_w[0] = float(w.abs().max())
+        meta.amax_g[0] = float(gy.abs().max())
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fp8.fp8_matmul(xr, wr, meta, plain=plain)
+        y.backward(gy)
+        out.append((y, xr.grad, wr.grad, torch.cat(meta.histories())))
+    for a, r in zip(out[0][:3], out[1][:3]):
+        d = (a.float() - r.float()).abs() / (1 + r.float().abs())
+        assert float(d.max()) <= 2e-2
+    assert torch.equal(out[0][3], out[1][3])
+
+
+@pytest.mark.cuda
+def test_prefetch_side_stream_orders_the_copies():
+    """Batches land on a side stream; the consumer's stream waits on each
+    batch's event, so work queued right after next() reads the copied
+    values (64 MiB batches, large enough to still be copying), in order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import numpy as np
+    from paddle_tpu_torch.io import prefetch_to_device
+    dev = torch.device("cuda")
+    batches = [np.full((4096, 4096), i, np.float32) for i in range(6)]
+    got = []
+    with prefetch_to_device(iter(batches), depth=3, device=dev) as p:
+        assert p._stream != torch.cuda.current_stream(dev)
+        for b in p:
+            assert b.is_cuda
+            got.append((b * 2).sum())        # queued on the consumer stream
+    want = [2.0 * i * 4096 * 4096 for i in range(6)]
+    assert [float(t) for t in got] == want
+
+
+@pytest.mark.cuda
+def test_float16_model_refused_on_card():
+    """The card's kernels take float32 and bfloat16: a float16 model is
+    refused by name (TypeError), not run on a plain path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    m = LlamaForCausalLM(LlamaConfig.tiny(hidden_size=256,
+                                          num_attention_heads=4,
+                                          dtype=torch.float16), device="cuda")
+    ids = torch.randint(0, 256, (2, 16), device="cuda")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        m(ids)
+    assert amp.is_float16_supported("cuda") is False
+
+
+@pytest.mark.cuda
+def test_grad_scaler_and_guarded_step_make_no_host_sync():
+    """The scaler's methods and the Trainer's guarded update (the NaN
+    guard, the learning-rate lookup, the masked AdamW step with its clip)
+    run under set_sync_debug_mode("error"): any host read raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.train import Trainer, TrainerArgs
+    dev = torch.device("cuda")
+    sc = amp.GradScaler(init_loss_scaling=1024.0)
+    st = sc.init(dev)
+    grads = {"a": torch.ones(8, device=dev), "b": torch.full(
+        (4,), float("inf"), device=dev)}
+    m = LlamaForCausalLM(LlamaConfig.tiny(hidden_size=256,
+                                          num_attention_heads=4,
+                                          dtype=torch.bfloat16), device=dev)
+    tr = Trainer(m, O.AdamW(1e-3, multi_precision=True,
+                            grad_clip=O.ClipGradByGlobalNorm(1.0)),
+                 lambda mm, i, lab: mm.loss(i, lab),
+                 TrainerArgs(max_steps=4), device=dev)
+    tr._schedule_tables(0)
+    ids = torch.randint(0, 256, (2, 64), device=dev)
+    labels = torch.roll(ids, -1, 1)
+    tr._step_fn([(ids, labels)])            # warm-up outside the check
+    loss, g_model = tr._grads([(ids, labels)])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scaled = sc.scale(torch.ones((), device=dev), st)
+        g = sc.unscale(grads, st)
+        found = sc.found_inf(g)
+        sc.step_or_skip(grads, g, found)
+        st2 = sc.update(st, found)
+        tr._apply(loss, g_model)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert float(st2["scale"]) == 512.0 and float(scaled) == 1024.0
+    assert torch.isfinite(loss) and int(tr._dstep) == 2

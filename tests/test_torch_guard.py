@@ -31,7 +31,11 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "paddle_tpu_torch.models.speculative, "
         "paddle_tpu_torch.serving.router, paddle_tpu_torch.serving.transfer, "
         "paddle_tpu_torch.models.auto, paddle_tpu_torch.quantization, "
-        "paddle_tpu_torch.nn\n"
+        "paddle_tpu_torch.nn, paddle_tpu_torch.amp, paddle_tpu_torch.amp.fp8, "
+        "paddle_tpu_torch.amp.debugging, paddle_tpu_torch.io, "
+        "paddle_tpu_torch.train.trainer, paddle_tpu_torch.train.checkpoint, "
+        "paddle_tpu_torch.train.elastic, paddle_tpu_torch.utils.watchdog, "
+        "paddle_tpu_torch.utils.profiler\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
@@ -93,6 +97,41 @@ def test_entry_points_default_to_the_card():
     assert m.device.type == "cpu"
 
 
+def test_trainer_stack_entry_points_default_to_the_card():
+    """Trainer, DevicePrefetch, GradScaler.init and make_lora_train_step
+    run on the card when no device is named: without one they raise, and
+    with ``device="cpu"`` they run on the CPU."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.io import DevicePrefetch
+    from paddle_tpu_torch.nn.layers import Linear
+    from paddle_tpu_torch.peft import lora_init, make_lora_train_step
+    from paddle_tpu_torch.train import Trainer
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    m = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    lora = lora_init(m, torch.Generator().manual_seed(0))
+
+    def loss(mm, x):
+        return mm(x).sum()
+
+    makers = {
+        "Trainer": lambda **kw: Trainer(Linear(2, 2, device="cpu"),
+                                        O.SGD(0.1), loss, **kw).device,
+        "DevicePrefetch": lambda **kw: DevicePrefetch(iter([]), 1,
+                                                      **kw).device,
+        "GradScaler.init": lambda **kw: GradScaler().init(
+            **kw)["scale"].device,
+        "make_lora_train_step": lambda **kw: make_lora_train_step(
+            m, lora, O.AdamW(), loss, **kw)[1]["_scale"].device}
+    for name, make in makers.items():
+        assert make(device="cpu").type == "cpu", name
+    if torch.cuda.is_available():
+        return
+    for name, make in makers.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+
+
 def test_unported_training_modes_refuse():
     """A sharded train step raises, naming its ROADMAP item, instead of
     running something else; the selective remat policies construct and an
@@ -149,7 +188,10 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
         "router_check": K.ROUTER_SERVE_KERNELS,
         "gptq_serve": K.GPTQ_SERVE_KERNELS,
         "spec_generate": K.SPEC_GENERATE_KERNELS,
-        "remat_train": K.REMAT_TRAIN_KERNELS}
+        "remat_train": K.REMAT_TRAIN_KERNELS,
+        "trainer_fit": K.TRAINER_FIT_KERNELS,
+        "lora_train": K.LORA_TRAIN_KERNELS,
+        "fp8_train": K.FP8_TRAIN_KERNELS}
     # K7 rotates every rotate-half rope of every path; the ALiBi paths
     # (BLOOM, falcon-rw) have no rope and run K2's (and K5's) ALiBi mode
     # instead, and GPT-J's interleaved rope is plain PyTorch, as the
