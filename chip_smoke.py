@@ -61,7 +61,11 @@ Phases (each one fails the run when it fails; nothing is caught):
             GQA) and its backward, K2 at the generate shape of Gemma-7B
             and GPT-J-6B ([8, 160, 16, 256]) and K7 at Gemma's shapes;
             K1, K2, K5a, K5b and K7 at the LoRA step's Llama-2-7B shapes
-            (x [2048, 4096], q/k/v [1, 2048, 32, 128]); times of the kernel, the plain version and, where one PyTorch
+            (x [2048, 4096], q/k/v [1, 2048, 32, 128]); then every
+            kernel's float16 instantiation at the same shapes (the f16
+            paths' rows timed; ALiBi, head dim 256, the window and the
+            LoRA kernels checked and logged; tolerance 2e-2 * (1 + |x|),
+            bf16's); times of the kernel, the plain version and, where one PyTorch
             call computes the same function, that call (``library_ms``),
             with CUDA events; the bound max(bytes / 3.35 TB/s, flops / 989
             TFLOP/s) from this run's shapes and data
@@ -321,7 +325,41 @@ Phases (each one fails the run when it fails; nothing is caught):
             ``GradScaler`` on the float32 model with an injected inf
             gradient (the scale halves, the step is skipped, no host sync
             inside the scaler under ``set_sync_debug_mode("warn")``); a
-            float16 model refused by the kernels' TypeError
+            float16 model's loss on the card (finite) and
+            ``amp.is_float16_supported`` True
+  paged_generate  ``models.paged.paged_generate`` on the serve phase's
+            model (Llama-2-7B width, bf16): 8 ragged prompts, greedy, 64
+            new tokens, twice with the same shapes: without EOS, then
+            with row 0's ninth token as EOS; row 0 stops there and is
+            padded with it, every row equals the first call's up to its
+            EOS, the pool is the ragged bound; tokens/s of the second call
+  f16_serve  ``LlamaConfig.llama2_7b()`` at full width in float16 (random
+            weights from the seed) serving the 12-request mix through
+            ``LLMEngine`` (CUDA-graph tick, chunked prefill), then again
+            over an int8 KV pool (path ``f16_serve_i8``); every launch on
+            a kernel's float16 instantiation (each total equal to its
+            ``<name>_f16`` count); tokens/s beside serve's bf16
+  f16_check  the f16 model's prefill, chunk and first-decode logits
+            through the kernels and the float16 plain versions against
+            float32 (limit F16_CHECK_REL 0.03 of the RMS; the kernel path
+            within 2x the plain path's distance), then six greedy streams
+            token for token with the float16 plain path up to the first
+            step whose float32 top-2 margin is under 2 * F16_CHECK_REL of
+            that step's logit RMS
+  f16_train  the train phase's model in float16 with fp32 masters through
+            ``GradScaler`` from 2**24: overflowed steps skipped (every
+            parameter, master and moment kept) while the scale halves,
+            then steps taken; losses falling and, before each update, no
+            further from the same loop's float32 run than twice the bf16
+            run is (floor F16_LOSS_REL 0.02 of the loss); ms/step of f16
+            and bf16; first, K5 at float16 under cotangent scales 1 to
+            2**28 against the fp32 backward (error, flushed share,
+            non-finite outputs)
+  f16_moe   Qwen1.5-MoE-A2.7B's widths at 4 layers in float16: the
+            12-request mix through ``LLMEngine`` (K6a's decode route in the
+            tick, its tensor-core route at prefill; path
+            ``f16_moe_serve``), then two train steps at 2 x 2048 (K6a and
+            K6b on the tensor cores; path ``f16_moe_train``)
   moe_serve ``Qwen/Qwen1.5-MoE-A2.7B`` whole and at full width (its
             published config written out in ``qwen_moe_config``: 24 layers,
             60 experts of 1408 top-4 plus a shared expert, vocab 151 936;
@@ -486,8 +524,11 @@ path (``"path": "serve"``, ``"async_serve"``, ``"lora_serve"``,
 ``"moe_train"``,
 ``"window_serve"``, ``"quant_serve"``, ``"bloom_serve"``, ``"bloom_train"``,
 ``"falcon_rw_serve"``, ``"falcon_rw_train"``, ``"falcon7b_serve"``,
-``"gemma_train"``, ``"gemma7b_serve"``, ``"gptj_serve"`` or
-``"gptj_train"``): its
+``"gemma_train"``, ``"gemma7b_serve"``, ``"gptj_serve"``,
+``"gptj_train"``, ``"paged_generate"``, or a float16 path,
+``"f16_serve"``, ``"f16_serve_i8"``, ``"f16_train"``, ``"f16_moe_serve"``
+or ``"f16_moe_train"``, whose entries name the float16 counters,
+``"<kernel>_f16"``): its
 launches are counted in that
 path's own run, with every count set to 0 just before it, and its times are
 taken at the shapes that path gives the kernel; ``"variant"`` names the
@@ -517,7 +558,37 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 PEAK_BYTES_S = 3.35e12      # H100 SXM device memory, bytes/s
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12     # H100 SXM fp32 rate outside the tensor cores
-TOL = {"bf16": 2e-2, "f32": 1e-4}
+TOL = {"bf16": 2e-2, "f16": 2e-2, "f32": 1e-4}
+# The 2-byte type of the kernels phase's checked and timed rows: bf16, or
+# f16 inside ``half_rows("f16")``, which also leaves out the float32
+# checks that the bf16 pass already made.
+HALF = {"name": "bf16", "f32": True}
+
+
+def _hn():
+    return HALF["name"]
+
+
+def _hdt(torch):
+    return {"bf16": torch.bfloat16, "f16": torch.float16}[HALF["name"]]
+
+
+def _dts(torch, fp32=True):
+    """The (name, dtype) pairs a kernel check runs: float32 (unless
+    ``fp32`` is False or inside an f16 rerun), then the 2-byte type."""
+    f32 = (("f32", torch.float32),) if fp32 and HALF["f32"] else ()
+    return f32 + ((_hn(), _hdt(torch)),)
+
+
+@contextlib.contextmanager
+def half_rows(name):
+    """The kernel entries inside run and time ``name`` ("f16") rows."""
+    old = dict(HALF)
+    HALF.update(name=name, f32=False)
+    try:
+        yield
+    finally:
+        HALF.update(old)
 CHECK_REL = 0.15            # whole-path check: RMS(bf16 - fp32) / RMS(fp32)
 # int8 weights against the unquantized fp32 model: sound runs read
 # 0.18-0.20 of the RMS, a planted quantizer fault 0.27 or more (truncating
@@ -562,6 +633,8 @@ SOURCES = {
     "flash_bwd_dkv_alibi": ("paddle_tpu_torch/csrc/flash_bwd.cu",
                             "paddle_tpu/ops/pallas/flash_attention.py:346"),
 }
+# each kernel's float16 launches, counted apart (ops.cuda's <name>_f16)
+SOURCES.update({f"{k}_f16": v for k, v in list(SOURCES.items())})
 # the kernels each path launches (every one must rise in that path's run):
 # ops.cuda's SERVE_KERNELS / TRAIN_KERNELS / MOE_SERVE_KERNELS /
 # MOE_TRAIN_KERNELS / WINDOW_SERVE_KERNELS / QUANT_SERVE_KERNELS /
@@ -572,8 +645,8 @@ SOURCES = {
 # GEMMA_SERVE_KERNELS / GPTJ_SERVE_KERNELS / GPTJ_TRAIN_KERNELS /
 # ROUTER_SERVE_KERNELS / ROUTER_SERVE_I8_KERNELS / GPTQ_SERVE_KERNELS /
 # SPEC_GENERATE_KERNELS / REMAT_TRAIN_KERNELS / TRAINER_FIT_KERNELS /
-# LORA_TRAIN_KERNELS / FP8_TRAIN_KERNELS, spelled
-# out here so that
+# LORA_TRAIN_KERNELS / FP8_TRAIN_KERNELS / PAGED_GENERATE_KERNELS and the
+# F16_*_KERNELS, spelled out here so that
 # --root can load an earlier tree that lacks them (a kernel that such a
 # tree does not have is then left out of its checks)
 PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
@@ -633,7 +706,17 @@ PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
          "lora_train": ("rms_norm", "flash_fwd", "flash_bwd_dq",
                         "flash_bwd_dkv", "rope"),
          "fp8_train": ("rms_norm", "flash_fwd", "flash_bwd_dq",
-                       "flash_bwd_dkv", "rope")}
+                       "flash_bwd_dkv", "rope"),
+         "paged_generate": ("rms_norm", "flash_fwd", "paged_decode", "rope",
+                            "rope_kv")}
+# float16 models (ops.cuda's F16_*_KERNELS): a path's kernels on their
+# float16 instantiations, counted apart
+PATHS.update({f16: tuple(f"{k}_f16" for k in PATHS[path])
+              for f16, path in (("f16_serve", "serve"),
+                                ("f16_serve_i8", "quant_serve"),
+                                ("f16_train", "train"),
+                                ("f16_moe_serve", "moe_serve"),
+                                ("f16_moe_train", "moe_train"))})
 # kernels of PATHS that the imported tree does not have (only with --root)
 ABSENT: set = set()
 # the train check: share of the fp32 gradients' RMS that each bf16 path
@@ -956,10 +1039,9 @@ def serve_kernel_entries(torch, dev, h=4096, nh=32, fp32=True):
     from paddle_tpu_torch.ops.cuda import paged_attention as PA
     cases = kernel_cases(torch, dev, h, nh)
     out = {}
-    dtypes = ((("f32", torch.float32),) if fp32 else ()) + (
-        ("bf16", torch.bfloat16),)
+    dtypes = _dts(torch, fp32)
     for dtype, dt in dtypes:
-        main = dtype == "bf16"     # the serving path runs bf16
+        main = dtype == _hn()     # the timed rows: the path's 2-byte type
 
         def cast(t):
             return t.to(dt) if t.is_floating_point() else t
@@ -1006,7 +1088,7 @@ def serve_kernel_entries(torch, dev, h=4096, nh=32, fp32=True):
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=mask)),
                 bound_ms=b_ms, bound_by=b_by,
-                shape=f"q/k/v [{b}, {s}, {nh}, {d}] bf16, causal, kv_lens; "
+                shape=f"q/k/v [{b}, {s}, {nh}, {d}] {_hn()}, causal, kv_lens; "
                       f"{_route(FA, 'flash_fwd', q)} route")
         # K3
         c = cases["paged_chunk"]
@@ -1041,7 +1123,7 @@ def serve_kernel_entries(torch, dev, h=4096, nh=32, fp32=True):
                 plain_ms=time_ms(lambda: PA.paged_chunk_attention_plain(
                     q, kp, vp, tb, offs, cls)),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                shape=f"q [{a}, {cc}, {nh}, {d}] bf16, pool "
+                shape=f"q [{a}, {cc}, {nh}, {d}] {_hn()}, pool "
                       f"{list(kp.shape)}, MB {tb.shape[1]}")
         # K4
         c = cases["paged_decode"]
@@ -1071,7 +1153,7 @@ def serve_kernel_entries(torch, dev, h=4096, nh=32, fp32=True):
                 plain_ms=time_ms(lambda: PA.paged_decode_attention_plain(
                     q, kp, vp, tb, lens)),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                shape=f"q [{bq}, {nh}, {d}] bf16, pool {list(kp.shape)}, "
+                shape=f"q [{bq}, {nh}, {d}] {_hn()}, pool {list(kp.shape)}, "
                       f"lens sum {int(lens.sum())}")
     return out
 
@@ -1176,6 +1258,11 @@ def phase_kernels(torch, dev):
     results["fp8_train"] = results["train"]
     results["spec_generate"] = {"rms_norm": results["serve"]["rms_norm"],
                                 "rope": rope_decode}
+    results["paged_generate"] = {k: results["serve"][k]
+                                 for k in PATHS["paged_generate"]}
+    # every kernel's float16 instantiation at its bf16 rows' shapes
+    if "rms_norm_f16" not in ABSENT:
+        results.update(f16_kernel_entries(torch, dev))
     torch.cuda.synchronize()
     for path, rs in results.items():
         for name, r in rs.items():
@@ -1232,7 +1319,8 @@ def _k1_entry(torch, x, w, err):
 
 
 def _short(dt):
-    return str(dt).replace("torch.", "").replace("bfloat16", "bf16")
+    return (str(dt).replace("torch.", "").replace("bfloat16", "bf16")
+            .replace("float16", "f16"))
 
 
 def k1_train(torch, dev, rows=8192, h=2048):
@@ -1241,9 +1329,9 @@ def k1_train(torch, dev, rows=8192, h=2048):
     version."""
     from paddle_tpu_torch.ops.cuda import norms
     g = torch.Generator(device=dev).manual_seed(8)
-    x = torch.randn(rows, h, generator=g, device=dev).bfloat16()
-    w = (1.0 + 0.1 * torch.randn(h, generator=g, device=dev)).bfloat16()
-    err = _agree("rms_norm (train shapes)", "bf16", _max_err(
+    x = torch.randn(rows, h, generator=g, device=dev).to(_hdt(torch))
+    w = (1.0 + 0.1 * torch.randn(h, generator=g, device=dev)).to(_hdt(torch))
+    err = _agree("rms_norm (train shapes)", _hn(), _max_err(
         norms.rms_norm(x, w, 1e-5), norms.rms_norm_plain(x, w, 1e-5)))
     return _k1_entry(torch, x, w, err)
 
@@ -1258,13 +1346,13 @@ def k1_fp32_weight(torch, dev):
     of the bf16 results; a weight rounded to bf16 changes ~15% of them."""
     from paddle_tpu_torch.ops.cuda import norms
     g = torch.Generator(device=dev).manual_seed(7)
-    x = torch.randn(8192, 2048, generator=g, device=dev).bfloat16()
+    x = torch.randn(8192, 2048, generator=g, device=dev).to(_hdt(torch))
     w = 1.0 + 1e-3 * torch.randn(2048, generator=g, device=dev)
     got = norms.rms_norm(x, w, 1e-5)
     ref = norms.rms_norm_plain(x, w, 1e-5)
-    _agree("rms_norm (fp32 weight)", "bf16", _max_err(got, ref))
+    _agree("rms_norm (fp32 weight)", _hn(), _max_err(got, ref))
     same = float((got == ref).float().mean())
-    log(f"[kernels] rms_norm bf16 x, fp32 weight: {same:.5f} of the "
+    log(f"[kernels] rms_norm {_hn()} x, fp32 weight: {same:.5f} of the "
         f"results bit-equal to the plain version (limit 0.99)")
     if not same >= 0.99:
         raise AssertionError(f"rms_norm rounds the fp32 weight: only "
@@ -1296,10 +1384,10 @@ def k2_train(torch, dev, shape=TRAIN_SHAPE):
     backward reads, against torch.logsumexp of the plain fp32 scores."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as FA
-    q, k, v, _ = _train_qkv(torch, dev, torch.bfloat16, shape)
+    q, k, v, _ = _train_qkv(torch, dev, _hdt(torch), shape)
     b, s, h, d = q.shape
     o, lse = FA.flash_fwd_cuda(q, k, v, True, d ** -0.5, None, None)
-    err = _agree("flash_fwd (train shapes)", "bf16", _max_err(
+    err = _agree("flash_fwd (train shapes)", _hn(), _max_err(
         o, FA.flash_attention_plain(q, k, v, causal=True)))
     scores = torch.matmul(q.transpose(1, 2).float(),
                           k.transpose(1, 2).float().transpose(-1, -2))
@@ -1330,7 +1418,7 @@ def k2_train(torch, dev, shape=TRAIN_SHAPE):
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), iters=20),
         bound_ms=b_ms, bound_by=b_by,
-        shape=f"q/k/v {list(shape)} bf16, causal; "
+        shape=f"q/k/v {list(shape)} {_hn()}, causal; "
               f"{_route(FA, 'flash_fwd', q)} route")
 
 
@@ -1361,7 +1449,7 @@ def k5(torch, dev, shape=TRAIN_SHAPE):
     rows = (torch.arange(200, device=dev)[None, :] < kl[:, None])
     small[3] = small[3] * rows[:, :, None, None]
     errs = {}
-    for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+    for dtype, dt in _dts(torch):
         cases = [_k5_case(torch, FA, *(t.to(dt) for t in small), True, 64,
                           kl)]
         cases.append(_k5_case(torch, FA, *_train_qkv(torch, dev, dt, shape),
@@ -1370,10 +1458,10 @@ def k5(torch, dev, shape=TRAIN_SHAPE):
             for name, a, r in zip(("dq", "dk", "dv"), got, ref):
                 key = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"
                 e = _agree(f"flash_bwd {name}", dtype, _max_err(a, r))
-                if dtype == "bf16":
+                if dtype == _hn():
                     errs[key] = max(errs.get(key, 0.0), e)
         del cases
-    q, k, v, do = _train_qkv(torch, dev, torch.bfloat16, shape)
+    q, k, v, do = _train_qkv(torch, dev, _hdt(torch), shape)
     b, s, h, d = q.shape
     o, lse = FA.flash_fwd_cuda(q, k, v, True, d ** -0.5, None, None)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
@@ -1398,7 +1486,7 @@ def k5(torch, dev, shape=TRAIN_SHAPE):
             ms=time_ms(lambda: fn(*args), iters=10),
             plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
             bound_by=b_by,
-            shape=f"q/k/v/dO {list(shape)} bf16, causal; "
+            shape=f"q/k/v/dO {list(shape)} {_hn()}, causal; "
                   f"{_route(FA, key, q)} route")
     return out
 
@@ -1456,8 +1544,7 @@ def alibi_kernel_entries(torch, dev):
             slopes = FA._slopes(m, base[0])
             scale = d ** -0.5
             entries = {}
-            for dtype, dt in (("f32", torch.float32),
-                              ("bf16", torch.bfloat16)):
+            for dtype, dt in _dts(torch):
                 q, k, v, do = (t.to(dt) for t in base)
                 args = (True, scale, None, None, slopes)
                 o, lse = FA.flash_fwd_cuda(q, k, v, *args)
@@ -1479,7 +1566,7 @@ def alibi_kernel_entries(torch, dev):
                                    dtype, _max_err(a, r))
                         errs[key] = max(errs.get(key, 0.0), e)
                     del got, ref
-                if dtype != "bf16":
+                if dtype != _hn():
                     continue
                 entries.update(_alibi_times(torch, F, FA, _build, q, k, v, do,
                                             o, lse, m, slopes, kind, errs))
@@ -1505,7 +1592,7 @@ def _alibi_times(torch, F, FA, _build, q, k, v, do, o, lse, m, slopes, kind,
     args = (True, scale, None, None, slopes)
     mask = _alibi_mask(torch, m, s, q.dtype)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    shape = (f"q/k/v [{b}, {s}, {h}, {d}] bf16, causal, ALiBi; "
+    shape = (f"q/k/v [{b}, {s}, {h}, {d}] {_hn()}, causal, ALiBi; "
              f"{_route(FA, 'flash_fwd', q)} route")
     heavy = kind == "train"
     b_ms, b_by = _attn_bound(b, s, h, d, es, 3, 1, 1, 2, slopes.numel() * 4)
@@ -1560,7 +1647,7 @@ def falcon7b_kernel_entries(torch, dev):
     base = (torch.randn(b, s, h, d, generator=g, device=dev),
             torch.randn(b, s, 1, d, generator=g, device=dev),
             torch.randn(b, s, 1, d, generator=g, device=dev))
-    for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+    for dtype, dt in _dts(torch):
         q, k, v = (t.to(dt) for t in base)
         err = _agree("flash_fwd (falcon7b_serve shape, GQA 71:1)", dtype,
                      _max_err(FA.flash_attention(q, k, v, causal=True),
@@ -1579,7 +1666,7 @@ def falcon7b_kernel_entries(torch, dev):
         library_ms=time_ms(lambda: _sdpa_gqa(torch, F, qt, kt, vt,
                                              is_causal=True)),
         bound_ms=b_ms, bound_by=b_by,
-        shape=f"q [{b}, {s}, {h}, {d}], k/v [{b}, {s}, 1, {d}] bf16, "
+        shape=f"q [{b}, {s}, {h}, {d}], k/v [{b}, {s}, 1, {d}] {_hn()}, "
               f"causal; {_route(FA, 'flash_fwd', q)} route")}
 
 
@@ -1628,7 +1715,7 @@ def hd256_train_entries(torch, dev, path, shape, hkv):
     scale = d ** -0.5
     label = f"{path} shape, head dim 256, GQA {h}:{hkv}"
     errs = {}
-    for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+    for dtype, dt in _dts(torch):
         q, k, v, do = _hd256_inputs(torch, dev, dt, shape, hkv, 256)
         o, lse = FA.flash_fwd_cuda(q, k, v, True, scale, None, None)
         ref_o, ref_lse = FA.flash_attention_fwd_plain(q, k, v, causal=True)
@@ -1645,7 +1732,7 @@ def hd256_train_entries(torch, dev, path, shape, hkv):
         errs["flash_bwd_dq"], errs["flash_bwd_dkv"] = e[0], max(e[1:])
         del got, ref, o, lse, q, k, v, do
         torch.cuda.empty_cache()
-    q, k, v, do = _hd256_inputs(torch, dev, torch.bfloat16, shape, hkv, 256)
+    q, k, v, do = _hd256_inputs(torch, dev, _hdt(torch), shape, hkv, 256)
     o, lse = FA.flash_fwd_cuda(q, k, v, True, scale, None, None)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     args = (_build.dtype_code(q, "hd256"), q, k, v, do, lse, delta, True,
@@ -1680,7 +1767,7 @@ def hd256_train_entries(torch, dev, path, shape, hkv):
             ms=time_ms(fn, iters=10), plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=b_ms, bound_by=b_by,
             shape=f"q [{b}, {s}, {h}, {d}], k/v [{b}, {s}, {hkv}, {d}] "
-                  f"bf16, causal; {_route(FA, key, q)} route")
+                  f"{_hn()}, causal; {_route(FA, key, q)} route")
     del lib_out, qt, kt, vt
     torch.cuda.empty_cache()
     return out
@@ -1697,7 +1784,7 @@ def hd256_kernel_entries(torch, dev):
     res = {path: hd256_train_entries(torch, dev, path, shape, hkv)
            for path, shape, hkv in HD256_TRAIN_CASES}
     shape = (GEN_ROWS, GEN_PROMPT + GEN_NEW, 16, 256)
-    for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+    for dtype, dt in _dts(torch):
         q, k, v, _ = _hd256_inputs(torch, dev, dt, shape, 16, 257)
         err = _agree("flash_fwd (gemma7b_serve / gptj_serve shape)", dtype,
                      _max_err(FA.flash_attention(q, k, v, causal=True),
@@ -1715,7 +1802,7 @@ def hd256_kernel_entries(torch, dev):
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True)),
         bound_ms=b_ms, bound_by=b_by,
-        shape=f"q/k/v [{b}, {s}, {h}, {d}] bf16, causal; "
+        shape=f"q/k/v [{b}, {s}, {h}, {d}] {_hn()}, causal; "
               f"{_route(FA, 'flash_fwd', q)} route")
     res["gemma7b_serve"] = {"flash_fwd": gen}
     res["gptj_serve"] = {"flash_fwd": gen}
@@ -1744,7 +1831,7 @@ def _library_grouped_mm(torch, a, b, sizes):
     where the installed torch has none or refuses these operands."""
     fn = (getattr(torch.nn.functional, "grouped_mm", None)
           or getattr(torch, "_grouped_mm", None))
-    if fn is None or a.dtype != torch.bfloat16:
+    if fn is None or a.dtype not in (torch.bfloat16, torch.float16):
         return None
     offs = torch.cumsum(sizes, 0).to(torch.int32)
     try:
@@ -1810,7 +1897,7 @@ def k6(torch, dev):
     for sizes, n in (([5, 0, 1, 130, 0, 70, 1, 0], 200),
                      ([1, 0, 2, 0, 0, 17, 1, 0, 3, 0], 200),
                      ([1, 0, 2, 0, 0, 17, 1, 0, 3, 0], 50)):
-        for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for dtype, dt in _dts(torch):
             g = torch.Generator(device=dev).manual_seed(11)
             m, ne, k = sum(sizes), len(sizes), 72
             lhs = torch.randn(m, k, generator=g, device=dev).to(dt)
@@ -1851,14 +1938,14 @@ def k6(torch, dev):
         ("mixtral-8x7b gate_up", 1024, 8, 2, 4096, 28672, False),
     )
     for label, tokens, ne, tk, k, n, bwd in cases:
-        for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for dtype, dt in _dts(torch):
             lhs, rhs, cot, gs = _k6_inputs(torch, dev, tokens, ne, tk, k, n,
                                            dt, 21)
             err = _agree(f"grouped_fwd ({label})", dtype, _max_err(
                 GM.grouped_fwd_cuda(lhs, rhs, gs),
                 GM.grouped_matmul_plain(lhs, rhs, gs)))
             entries = {}
-            if dtype == "bf16":
+            if dtype == _hn():
                 entries["fwd"] = _k6_fwd_entry(
                     torch, lhs, rhs, gs, err,
                     iters=50 if tokens <= 8 else 10, graph=tokens <= 8)
@@ -1873,7 +1960,7 @@ def k6(torch, dev):
                                _max_err(got_w, drhs))
                 del got_w
                 del dlhs, drhs
-                if dtype == "bf16":
+                if dtype == _hn():
                     entries["dlhs"] = _k6_fwd_entry(torch, cot, rhs, gs,
                                                     err_t, trans=True,
                                                     iters=10)
@@ -1892,7 +1979,7 @@ def k6(torch, dev):
                                                        gs),
                         bound_ms=b_ms, bound_by=b_by,
                         shape=f"lhs [{m}, {k}], g [{m}, {n}] -> "
-                              f"[{ne}, {k}, {n}] bf16; {route} route "
+                              f"[{ne}, {k}, {n}] {_hn()}; {route} route "
                               f"(plain: dlhs and drhs in one call)")
             for kind, r in entries.items():
                 lib = r["library_ms"]
@@ -1984,7 +2071,7 @@ def k6_decode(torch, dev):
     gmm = _grouped_mm_fn(torch)
     for i, (label, tokens, e, topk, h, inter, path, sizes) in enumerate(
             cases):
-        for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for dtype, dt in _dts(torch):
             if path is None and sizes is None and dtype == "f32":
                 continue        # Mixtral's fp32 stacks: 3.8 GB, bf16 only
             xt, route, gate_up, down, gu = _moe_decode_inputs(
@@ -2012,7 +2099,7 @@ def k6_decode(torch, dev):
                                                        keep, order))):
                 raise AssertionError(f"moe decode {label}: a rerun gave "
                                      f"other bits")
-            if dtype != "bf16" or sizes is not None:
+            if dtype != _hn() or sizes is not None:
                 continue
             es = xt.element_size()
             live = int((cnt > 0).sum())
@@ -2059,12 +2146,16 @@ def k6_decode(torch, dev):
                          plain_ms=time_ms(plain, iters=3, warmup=1),
                          library_ms=(time_ms(lib, iters=20) if gmm
                                      else None),
-                         library_glue_graph_ms=(graph_ms(lib, iters=20)
-                                                if gmm else None),
+                         # F.grouped_mm at f16 copies from host memory on
+                         # every call (its f16 route is not the bf16
+                         # one), which no CUDA graph may capture
+                         library_glue_graph_ms=(
+                             graph_ms(lib, iters=20)
+                             if gmm and dt == torch.bfloat16 else None),
                          unfused_graph_ms=graph_ms(unf, iters=20),
                          bound_ms=b_ms, bound_by=b_by,
                          shape=f"{label} {kind}: [{m}, {k}] x [{e}, {k}, "
-                               f"{n}] bf16, {live} of {e} groups live")
+                               f"{n}] {_hn()}, {live} of {e} groups live")
                 lib_g = r["library_glue_graph_ms"]
                 log(f"[kernels] K6a {r['shape']}: {r['ms']:.4f} ms eager, "
                     f"graph {r['graph_ms']:.4f} ms "
@@ -2199,7 +2290,8 @@ def phase_k6_tiles(torch, dev):
     src = _build.BUILD_DIR / "k6_tiles.cu"
     lib_path = _build.BUILD_DIR / "k6_tiles.so"
     cases = "\n".join(
-        f"    case {i}: return launch_fwd_wgmma<{wg}, {bn}>(trans, lhs, rhs, "
+        f"    case {i}: return launch_fwd_wgmma<__nv_bfloat16, {wg}, {bn}>("
+        f"trans, lhs, rhs, "
         f"sizes, out, m, k, n, e, stream);"
         for i, (wg, bn) in enumerate(K6_TILES))
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -2242,7 +2334,7 @@ def phase_k6_tiles(torch, dev):
                 raise RuntimeError(f"k6_tiles: launch failed ({rc})")
         for tile, (wg, bn) in enumerate(K6_TILES):
             run(tile)
-            _agree(f"grouped_fwd {64 * wg} x {bn} ({label})", "bf16",
+            _agree(f"grouped_fwd {64 * wg} x {bn} ({label})", _hn(),
                    _max_err(out, ref))
             ms = time_ms(lambda: run(tile), iters=20)
             log(f"[k6_tiles] {label} (lhs [{m}, {k}], n {n}"
@@ -2340,7 +2432,7 @@ def k7(torch, dev):
     out = {}
     for i, (label, path, lead, h, width, part, d, tables, base) in enumerate(
             ROPE_CASES):
-        for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for dtype, dt in _dts(torch):
             x, c, s = _rope_case(torch, dev, dt, lead, h, width, part, d,
                                  tables, base, 30 + i)
             got = R.fused_rope(x, c, s)
@@ -2358,7 +2450,7 @@ def k7(torch, dev):
                                           cot)
             _agree(f"rope backward ({label})", dtype, _max_err(dx, dref))
             del xr, cot, dx, dref
-            if dtype != "bf16":
+            if dtype != _hn():
                 continue
             n = x.numel() // (h * d)
             es = x.element_size()
@@ -2371,7 +2463,7 @@ def k7(torch, dev):
                      plain_ms=time_ms(lambda: R.fused_rope_plain(x, c, s),
                                       iters=50 if small else 10),
                      library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                     shape=f"{label}: x [{n}, {h}, {d}] bf16 (row stride "
+                     shape=f"{label}: x [{n}, {h}, {d}] {_hn()} (row stride "
                            f"{x.stride(-3)}), {tables} tables "
                            f"[{c.shape[0]}, {d // 2}]")
             # device time from CUDA graphs over copies of x (and of the
@@ -2425,7 +2517,7 @@ def k7_fold(torch, dev):
     out = {}
     for i, (label, path, b, hq, hkv, d, base, nb) in enumerate(
             ROPE_KV_CASES):
-        for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for dtype, dt in _dts(torch):
             g = torch.Generator(device=dev).manual_seed(80 + i)
             qkv = torch.randn(b, 1, (hq + 2 * hkv) * d, generator=g,
                               device=dev).to(dt)
@@ -2454,7 +2546,7 @@ def k7_fold(torch, dev):
                                      f"bit-identical to the unfused "
                                      f"composition")
             del ref_pools
-            if dtype != "bf16":
+            if dtype != _hn():
                 continue
             es = q.element_size()
             b_ms, b_by = bound(2 * b * (hq + 2 * hkv) * d * es
@@ -2477,7 +2569,7 @@ def k7_fold(torch, dev):
                      unfused_graph_ms=graph_ms(unfused, iters=100),
                      library_ms=None, bound_ms=b_ms, bound_by=b_by,
                      shape=f"{label}: q [{b}, {hq}, {d}], k/v [{b}, {hkv}, "
-                           f"{d}] bf16 views of the QKV product, pools "
+                           f"{d}] {_hn()} views of the QKV product, pools "
                            f"[{nb + 1}, 16, {hkv}, {d}]")
             log(f"[kernels] rope_kv {r['shape']}: {r['ms']:.4f} ms eager, "
                 f"graph {r['graph_ms']:.4f} ms "
@@ -2526,7 +2618,7 @@ def k2_banded(torch, dev):
     from paddle_tpu_torch.ops.cuda import flash_attention as FA
     g = torch.Generator(device=dev).manual_seed(41)
     q, k, v = (torch.randn(1, 4096, 4, 128, generator=g, device=dev)
-               .bfloat16() for _ in range(3))
+               .to(_hdt(torch)) for _ in range(3))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     i = torch.arange(4096, device=dev)
     for window in (1024, None):
@@ -2551,7 +2643,7 @@ def k2_banded(torch, dev):
         plain = time_ms(lambda: FA.flash_attention_plain(
             q, k, v, causal=True, window=window), iters=5, warmup=1)
         log(f"[kernels] flash_fwd at the banded shape (q/k/v [1, 4096, 4, "
-            f"128] bf16, {_route(FA, 'flash_fwd', q)} route, causal, window "
+            f"128] {_hn()}, {_route(FA, 'flash_fwd', q)} route, causal, window "
             f"{window}): {ms:.4f} ms, plain "
             f"{plain:.4f} ms, library {lib:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}), {100 * b_ms / ms:.2f}% of bound; max_abs_err "
@@ -2580,7 +2672,7 @@ def qwen2_decode_entry(torch, dev):
     vp = torch.randn(n, bs, 4, 128, generator=g, device=dev)
     q = torch.randn(8, 28, 128, generator=g, device=dev)
     tb, lens = c["tables"], c["lens"]
-    for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+    for dtype, dt in _dts(torch):
         qq, kk, vv = q.to(dt), kp.to(dt), vp.to(dt)
         err = _agree("paged_decode (qwen2-7b decode)", dtype, _max_err(
             PA.paged_decode_attention(qq, kk, vv, tb, lens),
@@ -2601,7 +2693,7 @@ def qwen2_decode_entry(torch, dev):
         plain_ms=time_ms(lambda: PA.paged_decode_attention_plain(
             qq, kk, vv, tb, lens)),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
-        shape=f"q [8, 28, 128] bf16 over 4 kv heads, pool [{n}, {bs}, 4, "
+        shape=f"q [8, 28, 128] {_hn()} over 4 kv heads, pool [{n}, {bs}, 4, "
               f"128], lens sum {keys}")
 
 
@@ -2619,11 +2711,11 @@ def window_kernel_entries(torch, dev):
     g = torch.Generator(device=dev).manual_seed(43)
 
     def randn(*shape):
-        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+        return torch.randn(*shape, generator=g, device=dev).to(_hdt(torch))
 
     out = {}
     x, w = randn(WIN_SLOTS * WIN_PROMPT, 4096), 1.0 + 0.1 * randn(4096)
-    err = _agree("rms_norm (mistral prefill)", "bf16", _max_err(
+    err = _agree("rms_norm (mistral prefill)", _hn(), _max_err(
         norms.rms_norm(x, w, 1e-5), norms.rms_norm_plain(x, w, 1e-5)))
     out["rms_norm"] = _k1_entry(torch, x, w, err)
     del x
@@ -2632,7 +2724,7 @@ def window_kernel_entries(torch, dev):
     q, k, v = randn(4, s, 32, d), randn(4, s, 8, d), randn(4, s, 8, d)
     kl = torch.tensor(WIN_LONG, dtype=torch.int32, device=dev)
     valid = torch.arange(s, device=dev)[None, :] < kl[:, None]
-    err = _agree("flash_fwd (mistral windowed prefill)", "bf16", _max_err(
+    err = _agree("flash_fwd (mistral windowed prefill)", _hn(), _max_err(
         FA.flash_attention(q, k, v, causal=True, window=window, kv_lens=kl),
         FA.flash_attention_plain(q, k, v, causal=True, window=window,
                                  kv_lens=kl), valid))
@@ -2656,7 +2748,7 @@ def window_kernel_entries(torch, dev):
                                              keep[:, None]), iters=5,
                            warmup=1),
         bound_ms=b_ms, bound_by=b_by,
-        shape=f"q [4, {s}, 32, {d}], k/v [4, {s}, 8, {d}] bf16 "
+        shape=f"q [4, {s}, 32, {d}], k/v [4, {s}, 8, {d}] {_hn()} "
               f"({_route(FA, 'flash_fwd', q)} route), causal, "
               f"window {window}, kv_lens {list(WIN_LONG)}")
     del q, k, v, qt, kt, vt, keep
@@ -2668,14 +2760,14 @@ def window_kernel_entries(torch, dev):
         :4 * mb].reshape(4, mb).to(torch.int32)
     lens = kl + WIN_NEW
     qd = randn(4, 32, d)
-    err = _agree("paged_decode (mistral windowed decode)", "bf16", _max_err(
+    err = _agree("paged_decode (mistral windowed decode)", _hn(), _max_err(
         PA.paged_decode_attention(qd, kp, vp, tables, lens, window=window),
         PA.paged_decode_attention_plain(qd, kp, vp, tables, lens,
                                         window=window)))
     nsplit = _k4_nsplit(PA)
     if _paged_new(PA):
         _partials_agree(torch, "paged_decode (mistral windowed decode)",
-                        "bf16", PA.paged_decode_attention,
+                        _hn(), PA.paged_decode_attention,
                         PA.paged_decode_attention_plain, qd, kp, vp, tables,
                         (lens,), dict(window=window))
     live = int(torch.clamp(lens, max=window).sum())
@@ -2690,7 +2782,7 @@ def window_kernel_entries(torch, dev):
         plain_ms=time_ms(lambda: PA.paged_decode_attention_plain(
             qd, kp, vp, tables, lens, window=window), iters=10),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
-        shape=f"q [4, 32, {d}] bf16, pool [{WIN_BLOCKS}, {WIN_BS}, 8, {d}], "
+        shape=f"q [4, 32, {d}] {_hn()}, pool [{WIN_BLOCKS}, {WIN_BS}, 8, {d}], "
               f"lens {lens.tolist()}, window {window}")
     del kp, vp
     torch.cuda.empty_cache()
@@ -2706,15 +2798,15 @@ def phase_k3_tiles(torch, dev):
     the route streams the pool when its blocks are even."""
     from paddle_tpu_torch.ops.cuda import paged_attention as PA
     g = torch.Generator(device=dev).manual_seed(47)
-    kp = torch.randn(256, 16, 32, 128, generator=g, device=dev).bfloat16()
-    vp = torch.randn(256, 16, 32, 128, generator=g, device=dev).bfloat16()
+    kp = torch.randn(256, 16, 32, 128, generator=g, device=dev).to(_hdt(torch))
+    vp = torch.randn(256, 16, 32, 128, generator=g, device=dev).to(_hdt(torch))
     tb = torch.randperm(256, generator=g, device=dev).reshape(8, 32).int()
-    q = torch.randn(8, 64, 32, 128, generator=g, device=dev).bfloat16()
+    q = torch.randn(8, 64, 32, 128, generator=g, device=dev).to(_hdt(torch))
     cls = torch.full((8,), 64, dtype=torch.int32, device=dev)
     for prefix in (0, 192, 448):
         offs = torch.full((8,), prefix, dtype=torch.int32, device=dev)
         args = (q, kp, vp, tb, offs, cls)
-        _agree(f"k3_tiles prefix {prefix}", "bf16", _max_err(
+        _agree(f"k3_tiles prefix {prefix}", _hn(), _max_err(
             PA.paged_chunk_attention(*args),
             PA.paged_chunk_attention_plain(*args)))
         ms = graph_ms(lambda: PA.paged_chunk_attention(*args))
@@ -2758,12 +2850,12 @@ def phase_k4_splits(torch, dev):
                      None)}
     scheduled = PA.decode_schedule
     for name, (q, kp, vp, tb, lens, window) in cases.items():
-        pools = {"bf16": (kp.bfloat16(), vp.bfloat16(), {})}
+        pools = {"bf16": (kp.to(_hdt(torch)), vp.to(_hdt(torch)), {})}
         if name == "serve":
             kq, ks = _quantize_pool(torch, kp)
             vq, vs = _quantize_pool(torch, vp)
             pools["int8"] = (kq, vq, dict(k_scale=ks, v_scale=vs))
-        q = q.bfloat16()
+        q = q.to(_hdt(torch))
         rows = tb.shape[1] * kp.shape[1]
         for pool, (kk, vv, kw) in pools.items():
             args = (q, kk, vv, tb, lens)
@@ -2775,7 +2867,7 @@ def phase_k4_splits(torch, dev):
                     live = min(rows, window or rows)
                     split = (-(-live // chunk), chunk)
                     PA.decode_schedule = lambda *a, split=split: split
-                    _agree(f"k4_splits {name} {pool} chunk {chunk}", "bf16",
+                    _agree(f"k4_splits {name} {pool} chunk {chunk}", _hn(),
                            _max_err(PA.paged_decode_attention(
                                *args, window=window, **kw), ref))
                     ms = graph_ms(lambda: PA.paged_decode_attention(
@@ -2807,7 +2899,7 @@ def _int8_case(torch, label, kernel, plain, q, args, kw, live, nbytes, flops,
     path's, with K3's route or K4's split count."""
     from paddle_tpu_torch.ops.cuda import paged_attention as PA
     decode = kernel is PA.paged_decode_attention
-    for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+    for dtype, dt in _dts(torch):
         qq = q.to(dt)
         err = _agree(f"{label} int8", dtype, _max_err(
             kernel(qq, *args, **kw), plain(qq, *args, **kw), live))
@@ -2851,7 +2943,7 @@ def int8_kernel_entries(torch, dev):
         PA.paged_decode_attention_plain, q, (kq, vq, tb, lens), sc, None,
         2 * b * nh * d * 2 + 2 * keys * nh * (d + 4) + tb.numel() * 4,
         4 * d * nh * keys,
-        f"q [{b}, {nh}, {d}] bf16, int8 pool {list(kq.shape)} + fp32 "
+        f"q [{b}, {nh}, {d}] {_hn()}, int8 pool {list(kq.shape)} + fp32 "
         f"scales, lens sum {keys}")
     # K3, serve chunk shape
     q = c["paged_chunk"]["q"]
@@ -2866,7 +2958,7 @@ def int8_kernel_entries(torch, dev):
         2 * int(cls.sum()) * nh * d * 2
         + 2 * int((offs + cls).sum()) * nh * (d + 4) + tb.numel() * 4,
         4 * d * nh * keys,
-        f"q [{a}, {cc}, {nh}, {d}] bf16, int8 pool {list(kq.shape)} + fp32 "
+        f"q [{a}, {cc}, {nh}, {d}] {_hn()}, int8 pool {list(kq.shape)} + fp32 "
         f"scales, MB {tb.shape[1]}")
     del kq, vq, ks, vs, c
     # K4, Mistral-7B's windowed decode (not a path: window_serve is bf16)
@@ -2887,7 +2979,7 @@ def int8_kernel_entries(torch, dev):
         (kq, vq, tables, lens), dict(k_scale=ks, v_scale=vs, window=window),
         None, 2 * 4 * 32 * d * 2 + 2 * keys * 8 * (d + 4)
         + tables.numel() * 4, 4 * d * 32 * keys,
-        f"q [4, 32, {d}] bf16, int8 pool [{WIN_BLOCKS}, {WIN_BS}, 8, {d}] "
+        f"q [4, 32, {d}] {_hn()}, int8 pool [{WIN_BLOCKS}, {WIN_BS}, 8, {d}] "
         f"+ fp32 scales, lens {lens.tolist()}, window {window}",
         plain_iters=10)
     del kq, vq, ks, vs
@@ -2930,7 +3022,7 @@ LORA_AIDX = {4: (0, 2, -1, 0, 3, 2, 0, -1), 1: (0, 0, -1, 0, 0, 0, -1, 0)}
 # fp32 results (t, and y in float32) against the plain versions, scaled;
 # bf16 y: one bf16 step (the fp32 correction summed in another order may
 # round to the neighbouring bf16 value, before and after the add)
-LORA_TOL = {"f32": 1e-5, "bf16": 2.0 ** -7}
+LORA_TOL = {"f32": 1e-5, "bf16": 2.0 ** -7, "f16": 2.0 ** -7}
 
 
 def _lora_inputs(torch, g, cap, width, k, n, r, dt):
@@ -3089,17 +3181,19 @@ def lora_kernel_entries(torch, dev):
     for label, width in LORA_WIDTHS.items():
         for cap in (4, 1):
             for r in (4, 8, 16):
-                for dt in (torch.bfloat16, torch.float32):
+                for _, dt in _dts(torch):
                     for kind in ("qkv", "o"):
                         case = _lora_pair_case(torch, GM, g, cap, width,
                                                kind, r, dt)
-                        if (cap, r, dt) == (4, 16, torch.bfloat16):
+                        if (cap, r, dt) == (4, 16, _hdt(torch)):
                             rows = _lora_timed(torch, GM, P, case, kind, dt,
                                                f"{label} {kind}")
                             if (label, kind) == ("decode", "qkv"):
                                 out = rows
                         del case
     torch.cuda.empty_cache()
+    if not HALF["f32"]:
+        return out          # a float16 rerun: the kernels alone
     # the general K6a routes at these shapes: checks only
     dec4, dec1 = [3, 0, 2, 1], [6]          # 8 rows: tails of 2 rows
     pre4, pre1 = [256, 0, 384, 128], [896]  # 1024 rows: tails of 256, 128
@@ -3145,7 +3239,7 @@ def verify_kernel_entries(torch, dev):
     live = torch.arange(cc, device=dev)[None, :] < cls[:, None]
     keys = sum(int(offs[i]) * int(cls[i]) + int(cls[i]) * (int(cls[i]) + 1)
                // 2 for i in range(a))
-    for dtype, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+    for dtype, dt in _dts(torch):
         q, kc, vc = q32.to(dt), kp.to(dt), vp.to(dt)
         err = _agree("paged_chunk verify", dtype, _max_err(
             PA.paged_chunk_attention(q, kc, vc, tb, offs, cls),
@@ -3162,7 +3256,7 @@ def verify_kernel_entries(torch, dev):
         plain_ms=time_ms(lambda: PA.paged_chunk_attention_plain(
             q, kc, vc, tb, offs, cls)),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
-        shape=f"verify q [{a}, {cc}, {nh}, {d}] bf16, pool "
+        shape=f"verify q [{a}, {cc}, {nh}, {d}] {_hn()}, pool "
               f"{list(kp.shape)}, offsets {offs.tolist()}, chunk lens "
               f"{cls.tolist()}")
     _log_entry("spec_serve paged_chunk (verify)", bf16)
@@ -3175,7 +3269,7 @@ def verify_kernel_entries(torch, dev):
         2 * int(cls.sum()) * nh * d * 2
         + 2 * int((offs + cls).sum()) * nh * (d + 4) + tb.numel() * 4,
         4 * d * nh * keys,
-        f"verify q [{a}, {cc}, {nh}, {d}] bf16, int8 pool {list(kq.shape)} "
+        f"verify q [{a}, {cc}, {nh}, {d}] {_hn()}, int8 pool {list(kq.shape)} "
         f"+ fp32 scales")
     return bf16, i8
 
@@ -7469,8 +7563,9 @@ def phase_amp_check(torch, dev, np):
     enabled ``GradScaler`` on the float32 model with one injected inf
     gradient: the scale halves, the step is skipped, and no host sync
     happens inside the scaler (counted under
-    ``torch.cuda.set_sync_debug_mode("warn")``); (c) a float16 model is
-    refused by the kernels' TypeError."""
+    ``torch.cuda.set_sync_debug_mode("warn")``); (c) a float16 model runs
+    on the card's float16 kernels (a finite loss) and
+    ``amp.is_float16_supported`` says so."""
     import warnings
 
     from paddle_tpu_torch import amp
@@ -7536,16 +7631,454 @@ def phase_amp_check(torch, dev, np):
     m_h = LlamaForCausalLM(dataclasses.replace(cfg, num_hidden_layers=1,
                                                dtype=torch.float16),
                            device=dev, seed=0)
-    try:
-        m_h.loss(ids, labels)
-    except TypeError as e:
-        log(f"[amp_check] float16 model on the card refused: {e}; "
-            f"amp.is_float16_supported(card) = "
-            f"{amp.is_float16_supported(dev)}")
-    else:
-        raise AssertionError("a float16 model ran on the card")
+    loss = float(m_h.loss(ids, labels))
+    log(f"[amp_check] a float16 model on the card: loss {loss:.4f}; "
+        f"amp.is_float16_supported(card) = "
+        f"{amp.is_float16_supported(dev)}")
+    if not (np.isfinite(loss) and amp.is_float16_supported(dev)):
+        raise AssertionError(f"amp_check float16: loss {loss}")
     del m_h
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- float16
+# f16_check: the float16 kernel path's logits against float32 (RMS of the
+# difference over the float32 RMS; float16 keeps three more mantissa bits
+# than bf16, whose sound readings are ~0.06 under CHECK_REL 0.15), and the
+# floor of each f16_train loss's distance from the float32 run's after as
+# many updates (relative; the bound is twice the bf16 run's distance)
+F16_CHECK_REL = 0.03
+F16_LOSS_REL = 0.02
+F16_MOE_LAYERS = 4          # f16_moe: Qwen1.5-MoE-A2.7B's widths, cut
+F16_TRAIN_TAKEN = 8         # f16_train: steps after the first one taken
+F16_INIT_SCALE = 2.0 ** 24  # overflows the first float16 gradients
+
+
+def f16_kernel_entries(torch, dev):
+    """Each kernel's float16 instantiation against its plain version at
+    the shapes of its bf16 rows (``half_rows("f16")``: the same checks and
+    times at float16, tolerance TOL["f16"] = 2e-2 * (1 + |plain|), the
+    float32 checks left out): K1 (also under an fp32 weight), K2 with
+    kv_lens and its LSE, K3 and K4 over f16 and int8 pools (partials too),
+    K7 and its fold at every path's shapes, K5a and K5b at the train
+    shapes; K6a's tensor-core and decode routes and K6b at the MoE shapes;
+    the ALiBi mode, head dim 256, the sliding window, K2 at head dim 64
+    (GQA 71:1) and the multi-LoRA kernels at their paths' shapes
+    (logged). Returns {path: {name_f16:
+    entry}} for the float16 paths."""
+    def f16(rows):
+        return {f"{k}_f16": v for k, v in rows.items()}
+    with half_rows("f16"):
+        serve = serve_kernel_entries(torch, dev, fp32=False)
+        k1_fp32_weight(torch, dev)
+        train = {"rms_norm": k1_train(torch, dev),
+                 "flash_fwd": k2_train(torch, dev), **k5(torch, dev)}
+        k6e = k6(torch, dev)
+        k6d = k6_decode(torch, dev)
+        b, s, _, _ = MOE_TRAIN_SHAPE
+        moe_serve = {**serve_kernel_entries(torch, dev, MOE_HIDDEN,
+                                            MOE_HEADS, fp32=False),
+                     "grouped_fwd": [*k6d["moe_serve"],
+                                     {**k6e["prefill_fwd"],
+                                      "variant": "wgmma prefill gate_up"}]}
+        moe_train = {"rms_norm": k1_train(torch, dev, b * s, MOE_HIDDEN),
+                     "flash_fwd": k2_train(torch, dev, MOE_TRAIN_SHAPE),
+                     **k5(torch, dev, MOE_TRAIN_SHAPE),
+                     "grouped_fwd": k6e["train_fwd"],
+                     "grouped_dw": k6e["train_dw"]}
+        rope = k7(torch, dev)
+        fold = k7_fold(torch, dev)
+        i8 = int8_kernel_entries(torch, dev)
+        # the modes no float16 path runs: checked and timed, logged
+        alibi_kernel_entries(torch, dev)          # (logs its rows)
+        for path, rs in hd256_kernel_entries(torch, dev).items():
+            for name, r in rs.items():
+                _log_entry(f"f16 (at {path}'s shape) {name}", r)
+        for name, r in window_kernel_entries(torch, dev).items():
+            _log_entry(f"f16 (at window_serve's shape) {name}", r)
+        # K2 at head dim 64 without ALiBi (GQA 71:1)
+        _log_entry("f16 (at falcon7b_serve's shape) flash_fwd",
+                   falcon7b_kernel_entries(torch, dev)["flash_fwd"])
+        lora_kernel_entries(torch, dev)
+    out = {"f16_serve": f16({**serve, "rope": rope["serve"],
+                             "rope_kv": fold["serve"]}),
+           "f16_train": f16({**train, "rope": rope["train"]}),
+           "f16_moe_serve": f16({**moe_serve, "rope": rope["moe_serve"],
+                                 "rope_kv": fold["moe_serve"]}),
+           "f16_moe_train": f16({**moe_train, "rope": rope["moe_train"]})}
+    out["f16_serve_i8"] = f16({
+        **{k: serve[k] for k in ("rms_norm", "flash_fwd")},
+        "rope": rope["serve decode"], **i8})
+    return out
+
+
+def build_f16_model(torch, dev):
+    """``LlamaConfig.llama2_7b()`` at full width in float16, random weights
+    from seed 0 made on the card (the serve model's values, rounded to
+    float16)."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    tm = time.monotonic()
+    model = LlamaForCausalLM(LlamaConfig.llama2_7b(dtype=torch.float16),
+                             device=dev, seed=0)
+    torch.cuda.synchronize()
+    log(f"[f16_serve] llama2_7b width in float16, "
+        f"{model.cfg.num_hidden_layers} layers, random weights in "
+        f"{time.monotonic() - tm:.1f} s")
+    return model
+
+
+def _all_f16(path, counts):
+    """Every launch of ``path``'s kernels on their float16 instantiation:
+    each kernel's total equals its float16 count (nothing cast to bf16,
+    nothing on another type)."""
+    off = {k: (counts[k[:-4]], counts[k]) for k in PATHS[path]
+           if k not in ABSENT and counts[k[:-4]] != counts[k]}
+    if off:
+        raise AssertionError(f"{path}: launches not all float16 "
+                             f"(total, f16): {off}")
+
+
+def phase_f16_serve(torch, dev, model, np, bf16_stats):
+    """The 12-request mix at Llama-2-7B width in float16 through
+    ``LLMEngine`` (the CUDA-graph decode tick, chunked prefill), then again
+    over an int8 KV pool; every kernel on its float16 instantiation.
+    Returns ({path: counts}, the first run's requests, its stats)."""
+    counts = {}
+    counts["f16_serve"], reqs, stats = phase_serve(torch, dev, model, np,
+                                                   "f16_serve")
+    _all_f16("f16_serve", counts["f16_serve"])
+    counts["f16_serve_i8"], _, st8 = phase_serve(torch, dev, model, np,
+                                                 "f16_serve_i8",
+                                                 kv_dtype="int8")
+    _all_f16("f16_serve_i8", counts["f16_serve_i8"])
+    log(f"[f16_serve] {stats['tokens_s']:.1f} tokens/s (int8 pool "
+        f"{st8['tokens_s']:.1f}) against serve's bf16 "
+        f"{bf16_stats['tokens_s']:.1f} tokens/s in this run; decode tick "
+        f"device ms f16 {stats['ticks'].get('sync', (0, 0, 0))[2]:.3f}, "
+        f"bf16 {bf16_stats['ticks'].get('sync', (0, 0, 0))[2]:.3f} "
+        f"({card_line()})")
+    return counts, reqs, stats
+
+
+def phase_f16_check(torch, model, reqs):
+    """(a) The served prompts' prefill, chunk and first-decode-tick logits
+    through the float16 kernels, the float16 plain versions and float32
+    (the check's rule, limit F16_CHECK_REL). (b) Each greedy stream of
+    the six short requests against the float16 plain path's (dense-cache
+    ``generate`` of the same prompt with every wrapper on its plain
+    version), token for token up to the first step whose float32 top-2
+    margin (teacher-forced along the engine's stream) is below 2 *
+    F16_CHECK_REL of that step's logit RMS: past it a float16 rounding may
+    choose either token."""
+    from paddle_tpu_torch.models.decoding import generate
+    phase_check(torch, model, reqs, "f16_check", F16_CHECK_REL)
+    rows = [r for r in reqs[:6] if not r.temperature]      # greedy
+    dev = model.device
+    with torch.no_grad(), plain_kernels():
+        m32 = fp32_copy(torch, model)
+        held = 0
+        for r in rows:
+            new = len(r.tokens)
+            prompt = torch.as_tensor(list(r.prompt), device=dev)[None]
+            plain = generate(model, prompt, max_new_tokens=new)[
+                0, prompt.shape[1]:].tolist()
+            full = torch.as_tensor(list(r.prompt) + list(r.tokens[:-1]),
+                                   device=dev)[None]
+            lg = m32(full)[0, prompt.shape[1] - 1:].float()
+            top2 = lg.topk(2, dim=-1).values
+            margin = (top2[:, 0] - top2[:, 1]).tolist()
+            limit = (2 * F16_CHECK_REL
+                     * lg.square().mean(-1).sqrt()).tolist()
+            upto = next((t for t in range(new) if margin[t] < limit[t]),
+                        new)
+            same = list(r.tokens[:upto]) == plain[:upto]
+            log(f"[f16_check] request {r.req_id}: engine and plain float16 "
+                f"streams equal over the first {upto} of {new} tokens (the "
+                f"fp32 margin holds that far): {same}; first difference at "
+                f"{next((t for t in range(new) if r.tokens[t] != plain[t]), None)}")
+            if not same:
+                raise AssertionError(f"f16_check: request {r.req_id}'s "
+                                     f"stream leaves the plain path's before "
+                                     f"step {upto}")
+            held += upto
+        del m32
+    torch.cuda.empty_cache()
+    log(f"[f16_check] {len(rows)} greedy streams, {held} tokens held to the "
+        f"float16 plain path")
+
+
+def _scaled_steps(torch, model, ids, labels, scaler, n, taken_after):
+    """Train steps of ``model`` on one batch through ``scaler``: scale,
+    backward, unscale, found_inf, the AdamW update masked by the overflow
+    (``Optimizer.step(ok=~found_inf)``: every parameter, fp32 master and
+    moment keeps its bits on a skipped step, as ``step_or_skip`` keeps a
+    dict's), update. Stops ``taken_after`` steps after the first one
+    taken, or at ``n``. Returns ([(loss, scale, taken)], ms of each taken
+    step after the first)."""
+    from paddle_tpu_torch import optimizer as O
+    opt = O.AdamW(learning_rate=3e-4, weight_decay=0.1,
+                  grad_clip=O.ClipGradByGlobalNorm(1.0), multi_precision=True)
+    state = opt.init(model)
+    st = scaler.init(ids.device)
+    t_dev = torch.zeros((), dtype=torch.int64, device=ids.device)
+    lr = torch.tensor(3e-4, dtype=torch.float64, device=ids.device)
+    rec, times, first = [], [], None
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(ids, labels)
+        scaler.scale(loss, st).backward()
+        grads = scaler.unscale({k: p.grad for k, p in
+                                model.named_parameters()}, st)
+        found = scaler.found_inf(grads)
+        ok = ~found
+        _, state = opt.step(model, grads, state, ok=ok, lr=lr, t=t_dev + 1)
+        t_dev += ok
+        scale = st["scale"]
+        st = scaler.update(st, found)
+        torch.cuda.synchronize()
+        taken = bool(ok)
+        rec.append((float(loss.detach()), float(scale), taken))
+        if taken and first is None:
+            first = i
+        elif taken:
+            times.append(1e3 * (time.monotonic() - t0))
+        if first is not None and i - first >= taken_after:
+            break
+    del state, grads
+    return rec, times
+
+
+def k5_loss_scaling(torch, dev):
+    """K5 at float16 under loss scaling: the train shape's q/k/v with a
+    cotangent of the size a 8192-token mean loss gives (N(0, 1) * 1e-5),
+    multiplied by each scale; dq, dk and dv divided by the scale against
+    the float32 plain backward of the same values. Logs, per scale, the
+    RMS error over the fp32 RMS, the share of outputs flushed to 0 where
+    the fp32 result is not, and the non-finite outputs: small dS values
+    underflow float16 at scale 1, large scales overflow it (what the
+    scaler's skip is for)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+    q, k, v, do = _train_qkv(torch, dev, torch.float16)
+    do = (do.float() * 1e-5)
+    d = q.shape[-1]
+    args = (True, d ** -0.5, None, None)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    o32, lse32 = FA.flash_attention_fwd_plain(q32, k32, v32, True)
+    ref = FA.flash_attention_bwd_plain(q32, k32, v32, o32, lse32, do, *args)
+    o, lse = FA.flash_fwd_cuda(q, k, v, *args)
+    for scale in (1.0, 2.0 ** 12, 2.0 ** 24, 2.0 ** 28):
+        got = FA.flash_bwd_cuda(q, k, v, o, lse, (do * scale).half(), *args)
+        parts = []
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            a = a.float() / scale
+            fin = torch.isfinite(a)
+            zero = float(((a == 0) & (r != 0)).float().mean())
+            err = (_rms(torch.where(fin, a - r, 0.0)) / _rms(r))
+            parts.append(f"{name} {err:.4f} of RMS, {zero:.4f} flushed, "
+                         f"{int((~fin).sum())} non-finite")
+        log(f"[f16_train] K5 at float16, cotangent x {scale:.0f}: "
+            + "; ".join(parts) + f" ({card_line()})")
+    del q, k, v, do, o, lse, q32, k32, v32, o32, lse32, ref, got
+    torch.cuda.empty_cache()
+
+
+def phase_f16_train(torch, dev, np):
+    """The train phase's model (``train_config()``, 0.74 B) in float16
+    parameters with fp32 masters, driven through the port's GradScaler
+    from a scale of F16_INIT_SCALE: the first float16 gradients overflow,
+    those steps are skipped (parameters, masters and moments unchanged)
+    and the scale halves each time until steps are taken; then the losses
+    fall. The same loop runs the model in float32 and in bf16 (the same
+    seed and batch, the scaler disabled); before each update j the f16
+    loss must be within max(2 * |bf16_j - f32_j|, F16_LOSS_REL * f32_j)
+    of the float32 loss: no further from float32 than twice the bf16
+    run, the rule the logit checks use (on this memorised batch the loss
+    falls by ~1 a step, so each run's rounding moves its trajectory by
+    more than any per-step rounding). ms/step of f16 and bf16. Returns the
+    float16 run's launch counts."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops import cuda as K
+    card = card_line()
+    k5_loss_scaling(torch, dev)
+    runs = {}
+    for name, dt, scaler in (
+            ("f32", torch.float32, amp.GradScaler(enable=False)),
+            ("bf16", torch.bfloat16, amp.GradScaler(enable=False)),
+            ("f16", torch.float16,
+             amp.GradScaler(init_loss_scaling=F16_INIT_SCALE))):
+        cfg = dataclasses.replace(train_config(), dtype=dt)
+        model = LlamaForCausalLM(cfg, device=dev, seed=0)
+        ids, labels = train_batch(torch, dev, np, cfg)
+        K.reset_launches()
+        rec, times = _scaled_steps(torch, model, ids, labels, scaler, 40,
+                                   F16_TRAIN_TAKEN)
+        batch = list(ids.shape)
+        counts = K.launches()
+        runs[name] = (rec, times, counts)
+        log(f"[f16_train] {name}: " + " ".join(
+            f"{loss:.4f}{'' if taken else ' (skipped, scale %.0f)' % sc}"
+            for loss, sc, taken in rec))
+        del model
+        torch.cuda.empty_cache()
+    rec16, t16, counts = runs["f16"]
+    tbf = runs["bf16"][1]
+    skipped = [sc for _, sc, taken in rec16 if not taken]
+    taken16 = [loss for loss, _, taken in rec16 if taken]
+    if not skipped or not taken16:
+        raise AssertionError(f"f16_train: no overflow skipped ({skipped}) "
+                             f"or no step taken ({rec16})")
+    halved = all(b == a / 2 for a, b in zip(skipped, skipped[1:]))
+    # each run's loss before its j-th update
+    f32, bf = ([loss for loss, _, _ in runs[n][0]] for n in ("f32", "bf16"))
+    d16 = [abs(a - r) for a, r in zip(taken16, f32)]
+    dbf = [abs(a - r) for a, r in zip(bf, f32)]
+    limit = [max(2 * e, F16_LOSS_REL * r) for e, r in zip(dbf, f32)]
+    log(f"[f16_train] {len(skipped)} overflowed steps skipped at scales "
+        f"{skipped} (halving each time: {halved}), then {len(taken16)} taken;"
+        f" loss {taken16[0]:.4f} -> {taken16[-1]:.4f}; |f16 - f32| "
+        f"{' '.join(f'{x:.4f}' for x in d16)}, |bf16 - f32| "
+        f"{' '.join(f'{x:.4f}' for x in dbf)} before each update (limit "
+        f"max(2 |bf16 - f32|, {F16_LOSS_REL} f32)); {np.mean(t16):.1f} "
+        f"ms/step f16 against {np.mean(tbf):.1f} bf16, batch {batch} "
+        f"({card})")
+    if not (halved and taken16[-1] < taken16[0]
+            and all(e <= lim for e, lim in zip(d16, limit))):
+        raise AssertionError(f"f16_train: halved {halved}, losses "
+                             f"{taken16}, |f16 - f32| {d16} (limits "
+                             f"{limit})")
+    missing = _missing("f16_train", counts)
+    if missing:
+        raise AssertionError(f"kernels not launched on f16_train: {missing}")
+    _all_f16("f16_train", counts)
+    return counts
+
+
+def _f16_moe_routes(path, routes):
+    """K6a's float16 launches on their routes: the serve path's tick on
+    the decode route and its prefill on the tensor cores; the train path's
+    products and K6b all on the tensor cores."""
+    fwd, dw = routes["grouped_fwd"], routes.get("grouped_dw", {})
+    ok = (fwd["decode"] and fwd["wgmma"] and not fwd["fma"]
+          if path == "f16_moe_serve"
+          else fwd["wgmma"] and dw["wgmma"] and not fwd["fma"] + dw["fma"])
+    if not ok:
+        raise AssertionError(f"{path}: K6a / K6b routes {routes}")
+
+
+def phase_f16_moe(torch, dev, np):
+    """Qwen1.5-MoE-A2.7B's widths at F16_MOE_LAYERS layers in float16:
+    the 12-request mix through ``LLMEngine`` (K6a's decode route in the
+    tick, its tensor-core route at prefill), then two train steps at batch
+    2 x 2048 (K6a forward and dlhs, K6b on the tensor cores), every
+    launch on a float16 instantiation. Returns ({path: counts}, the serve
+    run's K6a launches by route under the f16 counter's name)."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.qwen2_moe import Qwen2MoeForCausalLM
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.train import init_state, make_train_step
+    cfg = dataclasses.replace(qwen_moe_config(F16_MOE_LAYERS),
+                              dtype=torch.float16)
+    model = Qwen2MoeForCausalLM(cfg, device=dev, seed=0)
+    out = {}
+    out["f16_moe_serve"], _, st = phase_serve(torch, dev, model, np,
+                                              "f16_moe_serve")
+    _all_f16("f16_moe_serve", out["f16_moe_serve"])
+    _f16_moe_routes("f16_moe_serve", st["routes"])
+    # (every K6a launch of the run is float16: its routes are the f16
+    # counter's)
+    serve_routes = {"grouped_fwd_f16": st["routes"]["grouped_fwd"]}
+    ids, labels = train_batch(torch, dev, np, cfg, batch=MOE_TRAIN_SHAPE[0],
+                              seq=MOE_TRAIN_SHAPE[1])
+    opt = O.AdamW(learning_rate=3e-4, weight_decay=0.1,
+                  grad_clip=O.ClipGradByGlobalNorm(1.0), multi_precision=True)
+    state = init_state(model, opt)
+    step = make_train_step(lambda m, i, lab: m.loss(i, lab), opt)
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    losses = []
+    for _ in range(2):
+        state, loss = step(state, ids, labels)
+        losses.append(float(loss))
+    wall = time.monotonic() - t0
+    counts = K.launches()
+    routes = K.route_launches()
+    out["f16_moe_train"] = counts
+    log(f"[f16_moe_train] losses {losses}, {1e3 * wall / 2:.1f} ms/step "
+        f"(the first with its warm-up), K6a routes {routes['grouped_fwd']}, "
+        f"K6b {routes['grouped_dw']} ({card_line()})")
+    missing = _missing("f16_moe_train", counts)
+    if missing or not all(np.isfinite(losses)):
+        raise AssertionError(f"f16_moe_train: missing {missing}, losses "
+                             f"{losses}")
+    _f16_moe_routes("f16_moe_train", routes)
+    _all_f16("f16_moe_train", counts)
+    del state, model
+    torch.cuda.empty_cache()
+    return out, serve_routes
+
+
+PAGED_GEN_LENS = (17, 40, 64, 77, 96, 110, 120, 128)
+PAGED_GEN_NEW = 64
+
+
+def phase_paged_generate(torch, dev, model, np):
+    """``models.paged.paged_generate`` at Llama-2-7B width in bf16: eight
+    ragged prompts, greedy, PAGED_GEN_NEW new tokens. A first call without
+    EOS picks row 0's ninth token as the EOS of the timed call, which has
+    the same shapes: row 0 must stop at its first EOS and be padded with
+    it, every row equal the first call's tokens up to its own EOS (a row's
+    arithmetic does not depend on the others finishing). Tokens/s of the
+    timed call (tokens generated, padding excluded); the pool sized to the
+    ragged bound. Returns the timed call's launch counts."""
+    from paddle_tpu_torch.models.paged import paged_generate
+    from paddle_tpu_torch.ops import cuda as K
+    rs = np.random.RandomState(7)
+    ids = np.zeros((len(PAGED_GEN_LENS), max(PAGED_GEN_LENS)), np.int64)
+    for i, n in enumerate(PAGED_GEN_LENS):
+        ids[i, :n] = rs.randint(3, model.cfg.vocab_size, n)
+    lens = np.asarray(PAGED_GEN_LENS)
+    first, _ = paged_generate(model, ids, lens, max_new_tokens=PAGED_GEN_NEW)
+    first = first.cpu().numpy()
+    eos = int(first[0, lens[0] + 8])
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.monotonic()
+    got, cache = paged_generate(model, ids, lens,
+                                max_new_tokens=PAGED_GEN_NEW,
+                                eos_token_id=eos)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = K.launches()
+    got = got.cpu().numpy()
+    made, keeps = 0, []
+    for i, n in enumerate(PAGED_GEN_LENS):
+        gen = got[i, n:n + PAGED_GEN_NEW]
+        stop = np.nonzero(gen == eos)[0]
+        keep = int(stop[0]) + 1 if len(stop) else PAGED_GEN_NEW
+        made += keep
+        keeps.append(keep)
+        if not (np.array_equal(gen[:keep], first[i, n:n + keep])
+                and (gen[keep:] == eos).all()):
+            raise AssertionError(f"paged_generate row {i}: {gen.tolist()}")
+    if keeps[0] > 9:
+        raise AssertionError("paged_generate: row 0 did not stop at its EOS")
+    bound = sum(-(-(n + PAGED_GEN_NEW) // 16) for n in PAGED_GEN_LENS)
+    if cache.num_blocks != bound:
+        raise AssertionError(f"paged_generate pool {cache.num_blocks} blocks"
+                             f", ragged bound {bound}")
+    missing = _missing("paged_generate", counts)
+    if missing:
+        raise AssertionError(f"kernels not launched on paged_generate: "
+                             f"{missing} ({counts})")
+    log(f"[paged_generate] 8 ragged prompts ({list(PAGED_GEN_LENS)}), "
+        f"{made} tokens in {wall:.3f} s: {made / wall:.1f} tokens/s, pool "
+        f"{bound} blocks (the ragged bound); EOS {eos}: tokens a row "
+        f"{keeps}; launches {counts} ({card_line()})")
+    return counts
 
 
 def main(argv=None):
@@ -7560,7 +8093,8 @@ def main(argv=None):
                     "moe_serve,moe_check,moe_train,window_serve,window_check,"
                     "quant_serve,quant_check,bloom_serve,bloom_train,"
                     "falcon_rw_serve,falcon_rw_train,falcon7b_serve,"
-                    "gemma_train,gemma7b_serve,gptj_serve,gptj_train")
+                    "gemma_train,gemma7b_serve,gptj_serve,gptj_train,"
+                    "paged_generate,f16_serve,f16_check,f16_train,f16_moe")
     ap.add_argument("--root", help="import paddle_tpu_torch from the "
                     "checkout at ROOT instead of this one: an earlier "
                     "tree's package under this script's measurement")
@@ -7611,8 +8145,9 @@ def main(argv=None):
                  "spec_check", "beam_serve", "beam_check", "grammar_serve",
                  "grammar_check", "tenant_serve",
                  "endpoint_check"} & set(phases)
-    if {"serve", "check", "anatomy", "graph_check",
-            "async_serve", "spec_generate"} & set(phases) or quant or \
+    serve_stats = None
+    if {"serve", "check", "anatomy", "graph_check", "async_serve",
+            "spec_generate", "paged_generate"} & set(phases) or quant or \
             lora_spec or router or gptq:
         tm = time.monotonic()
         model = build_model(dev)
@@ -7750,6 +8285,11 @@ def main(argv=None):
             counts["spec_generate"] = phase_spec_generate(torch, dev, model,
                                                           np)
             log(f"[spec_generate] phase {time.monotonic() - tp:.1f} s")
+        if "paged_generate" in phases:
+            tp = time.monotonic()
+            counts["paged_generate"] = phase_paged_generate(torch, dev,
+                                                            model, np)
+            log(f"[paged_generate] phase {time.monotonic() - tp:.1f} s")
         if "quant_check" in phases:
             phase_quant_check(torch, model, reqs, got, ref32, "bf16")
         if quant:
@@ -7776,9 +8316,28 @@ def main(argv=None):
                           kv_dtype="int8")
         del model
         torch.cuda.empty_cache()
+    # float16: Llama-2-7B served (bf16 pool and int8 pool) and checked
+    if {"f16_serve", "f16_check"} & set(phases):
+        tp = time.monotonic()
+        model = build_f16_model(torch, dev)
+        f16c, f16_reqs, _ = phase_f16_serve(
+            torch, dev, model, np, serve_stats or {"tokens_s": 0.0,
+                                                   "ticks": {}})
+        counts.update(f16c)
+        log(f"[f16_serve] phase {time.monotonic() - tp:.1f} s")
+        if "f16_check" in phases:
+            tp = time.monotonic()
+            phase_f16_check(torch, model, f16_reqs)
+            log(f"[f16_check] phase {time.monotonic() - tp:.1f} s")
+        del model
+        torch.cuda.empty_cache()
     if "train" in phases:
         counts["train"] = phase_train(torch, dev, np, "check" in phases,
                                       "anatomy" in phases)
+    if "f16_train" in phases:
+        tp = time.monotonic()
+        counts["f16_train"] = phase_f16_train(torch, dev, np)
+        log(f"[f16_train] phase {time.monotonic() - tp:.1f} s")
     if "remat_train" in phases:
         tp = time.monotonic()
         counts["remat_train"] = phase_remat_train(torch, dev, np)
@@ -7826,6 +8385,11 @@ def main(argv=None):
     if "moe_train" in phases:
         counts["moe_train"] = phase_moe_train(
             torch, dev, np, "moe_check" in phases, "moe_anatomy" in phases)
+    if "f16_moe" in phases:
+        tp = time.monotonic()
+        f16m, routes["f16_moe_serve"] = phase_f16_moe(torch, dev, np)
+        counts.update(f16m)
+        log(f"[f16_moe] phase {time.monotonic() - tp:.1f} s")
     if {"window_serve", "window_check"} & set(phases):
         model = build_mistral(torch, dev)
         counts["window_serve"], win_reqs = phase_window_serve(torch, dev,

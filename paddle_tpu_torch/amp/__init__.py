@@ -14,9 +14,10 @@ copy and leave the caller's module alone, as the reference's functional
 cast does. :func:`auto_cast` sets torch's default dtype for the block, as
 the reference's ``default_dtype`` does — it is not ``torch.autocast``.
 
-The card's kernels take float32 and bfloat16 only (``ops/cuda/_build.py``
-``dtype_code``): a float16 tensor reaching one raises ``TypeError``, and
-:func:`is_float16_supported` says False for the card.
+The card's kernels take float32, bfloat16 and float16 (``ops/cuda/_build.py``
+``dtype_code``): a float16 model runs each kernel's float16 instantiation
+(fp32 accumulators and softmax statistics, as at bf16), so O1, O2 and
+``auto_cast(dtype="float16")`` run float16 on the card and the CPU alike.
 """
 from __future__ import annotations
 
@@ -194,8 +195,6 @@ def is_bfloat16_supported(device=None):
 
 
 def is_float16_supported(device=None):
-    """float16 on the card: False — its kernels take float32 and bfloat16
-    only and refuse a float16 tensor by name. The CPU's plain path runs
-    it: True. ``None`` means the card, as everywhere in this package."""
-    dev = torch.device("cuda") if device is None else torch.device(device)
-    return dev.type != "cuda"
+    """float16 runs on the card's kernels (each has a float16
+    instantiation) and on the CPU's plain path."""
+    return True

@@ -32,14 +32,15 @@
 //   dq  — one block per (64-row q tile, head, batch row), a loop over the
 //         live key tiles [kbeg, kend) of K2. Two routes, by dtype
 //         (ops/cuda/flash_attention.py kernel_route):
-//     bf16 — flash_bwd_dq_wgmma_kernel, K5b's design transposed: one
+//     bf16 and f16 — flash_bwd_dq_wgmma_kernel<E>, K5b's design
+//         transposed (E the 2-byte type of the inputs and dq): one
 //         warpgroup, Q and dO loaded once into swizzled shared tiles, the
 //         rows' lse and delta in registers. Per streamed 64-key tile:
 //         S = Q K^T and dP = dO V^T (wgmma m64n64k16, all four operands
 //         K-major in shared memory), P = exp(S scale - lse) and
 //         dS = P (dP - delta) scale on the fp32 fragments (K2's masks, only
 //         on a tile that crosses an edge), then dq += dS K (m64nDk16, dS
-//         rounded to bf16 as the reference rounds it to q's type, a
+//         rounded to E as the reference rounds it to q's type, a
 //         register A operand; K read transposed from the same shared
 //         tile). dq stays in fp32 registers (D / 2 a thread) and is
 //         written once. The next K/V tile streams in with cp.async (two
@@ -58,12 +59,12 @@
 //         window: up to the last key + window). The GQA sum over the group
 //         happens inside the block: no per-q-head partial buffer. Two
 //         routes, by dtype (ops/cuda/flash_attention.py kernel_route):
-//     bf16 — flash_bwd_dkv_wgmma_kernel, one warpgroup on the tensor
-//         cores. Per streamed 64-row q tile: S^T = K Q^T and dP^T = V dO^T
+//     bf16 and f16 — flash_bwd_dkv_wgmma_kernel<E>, one warpgroup on the
+//         tensor cores. Per streamed 64-row q tile: S^T = K Q^T and dP^T = V dO^T
 //         (wgmma m64n64k16, all four operands K-major in shared memory),
 //         P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) scale on
 //         the fp32 fragments, then dV += P^T dO and dK += dS^T Q (m64nDk16,
-//         P^T and dS^T rounded to bf16 as register A operands, dO and Q
+//         P^T and dS^T rounded to E as register A operands, dO and Q
 //         read transposed from the same shared tiles). dK and dV stay in
 //         fp32 registers for the whole block. The next Q/dO tile (with its
 //         rows' lse and delta) streams in with cp.async (two stages,
@@ -374,7 +375,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 constexpr int kTile = 64;  // keys per block and queries per step (m64)
 
 // Dynamic shared memory of K5b's tensor-core route: this block's K and V
-// tiles, two stages of the streamed Q and dO tiles (each [64][D] bf16,
+// tiles, two stages of the streamed Q and dO tiles (each [64][D] in E,
 // swizzled), then the two stages' lse and delta rows (64 fp32 each), plus
 // the slack that aligns the tiles to 1024 bytes.
 template <int D>
@@ -390,14 +391,14 @@ constexpr int kDkvBoth = 0, kDkvOnlyDV = 1, kDkvOnlyDK = 2;
 // One block of K5b's tensor-core route: the k tile at key k0 of KV head
 // blockIdx.x, batch row blockIdx.y; base is the 1024-byte-aligned start of
 // the dynamic shared memory (dkv_wgmma_smem_bytes<D>()).
-template <int D, bool kAlibi, int kPart>
+template <typename E, int D, bool kAlibi, int kPart>
 __device__ __forceinline__ void dkv_wgmma_block(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v,
+    const E* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, const int* __restrict__ kv_lens,
-    const float* __restrict__ slopes, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int S, int Sk, int H, int Hkv,
+    const float* __restrict__ slopes, E* __restrict__ dk,
+    E* __restrict__ dv, int S, int Sk, int H, int Hkv,
     float scale, int causal, int window, int k0, uint8_t* base) {
   using namespace hopper;
   constexpr bool kDV = kPart != kDkvOnlyDK, kDK = kPart != kDkvOnlyDV;
@@ -481,12 +482,12 @@ __device__ __forceinline__ void dkv_wgmma_block(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64(s, desc_kmajor<kTile>(k_s, kk),
+      mma_ss_n64<E>(s, desc_kmajor<kTile>(k_s, kk),
                  desc_kmajor<kTile>(q_st, kk));
     if constexpr (kDK) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        mma_ss_n64(dp, desc_kmajor<kTile>(v_s, kk),
+        mma_ss_n64<E>(dp, desc_kmajor<kTile>(v_s, kk),
                    desc_kmajor<kTile>(do_st, kk));
     }
     wgmma_commit();
@@ -516,23 +517,23 @@ __device__ __forceinline__ void dkv_wgmma_block(
         if constexpr (kDK)
           dp[4 * j + i] = p * (dp[4 * j + i] - dl_s[c]) * scale;
       }
-    // dV += P^T dO and dK += dS^T Q: P^T and dS^T (bf16) from registers,
+    // dV += P^T dO and dK += dS^T Q: P^T and dS^T (in E) from registers,
     // dO and Q transposed from shared memory
     uint32_t pa[4][4], da[4][4];
-    if constexpr (kDV) to_operand_a<4>(s, pa);
-    if constexpr (kDK) to_operand_a<4>(dp, da);
+    if constexpr (kDV) to_operand_a<E, 4>(s, pa);
+    if constexpr (kDK) to_operand_a<E, 4>(dp, da);
     if constexpr (kDV) reg_fence(dv_acc);
     if constexpr (kDK) reg_fence(dk_acc);
     wgmma_fence();
     if constexpr (kDV) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        mma_rs<D>(dv_acc, pa[kk], desc_mnmajor<kTile>(do_st, kk));
+        mma_rs<E, D>(dv_acc, pa[kk], desc_mnmajor<kTile>(do_st, kk));
     }
     if constexpr (kDK) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        mma_rs<D>(dk_acc, da[kk], desc_mnmajor<kTile>(q_st, kk));
+        mma_rs<E, D>(dk_acc, da[kk], desc_mnmajor<kTile>(q_st, kk));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -549,25 +550,25 @@ __device__ __forceinline__ void dkv_wgmma_block(
     for (int j = 0; j < D / 8; ++j) {
       const int i = 4 * j + 2 * hr;
       if constexpr (kDK)
-        *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j + c0) =
-            __floats2bfloat162_rn(dk_acc[i], dk_acc[i + 1]);
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * j + c0) =
+            pack2<E>(dk_acc[i], dk_acc[i + 1]);
       if constexpr (kDV)
-        *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j + c0) =
-            __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * j + c0) =
+            pack2<E>(dv_acc[i], dv_acc[i + 1]);
     }
   }
 }
 
-template <int D, bool kAlibi>
+template <typename E, int D, bool kAlibi>
 __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
     flash_bwd_dkv_wgmma_kernel(
-        const __nv_bfloat16* __restrict__ q,
-        const __nv_bfloat16* __restrict__ k,
-        const __nv_bfloat16* __restrict__ v,
-        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+        const E* __restrict__ q,
+        const E* __restrict__ k,
+        const E* __restrict__ v,
+        const E* __restrict__ dout, const float* __restrict__ lse,
         const float* __restrict__ delta, const int* __restrict__ kv_lens,
-        const float* __restrict__ slopes, __nv_bfloat16* __restrict__ dk,
-        __nv_bfloat16* __restrict__ dv, int S, int Sk, int H, int Hkv,
+        const float* __restrict__ slopes, E* __restrict__ dk,
+        E* __restrict__ dv, int S, int Sk, int H, int Hkv,
         float scale, int causal, int window) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base =
@@ -581,16 +582,16 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
     // warpgroup's wgmma)
     const int k0 = (blockIdx.z >> 1) * kTile;
     if (blockIdx.z & 1)
-      dkv_wgmma_block<D, kAlibi, kDkvOnlyDK>(PTT_ARGS, k0, base);
+      dkv_wgmma_block<E, D, kAlibi, kDkvOnlyDK>(PTT_ARGS, k0, base);
     else
-      dkv_wgmma_block<D, kAlibi, kDkvOnlyDV>(PTT_ARGS, k0, base);
+      dkv_wgmma_block<E, D, kAlibi, kDkvOnlyDV>(PTT_ARGS, k0, base);
   } else {
-    dkv_wgmma_block<D, kAlibi, kDkvBoth>(PTT_ARGS, blockIdx.z * kTile, base);
+    dkv_wgmma_block<E, D, kAlibi, kDkvBoth>(PTT_ARGS, blockIdx.z * kTile, base);
   }
 #undef PTT_ARGS
 }
 
-template <int D, bool kAlibi>
+template <typename E, int D, bool kAlibi>
 int launch_dkv_wgmma(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      const void* kv_lens, const void* slopes, void* dk,
@@ -598,42 +599,42 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
                      float scale, int causal, int window, void* stream) {
   const int smem = dkv_wgmma_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_wgmma_kernel<D, kAlibi>,
+      flash_bwd_dkv_wgmma_kernel<E, D, kAlibi>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   // D = 256: a dV block and a dK block for each k tile
   dim3 grid(Hkv, B, (D == 256 ? 2 : 1) * ((Sk + kTile - 1) / kTile));
-  flash_bwd_dkv_wgmma_kernel<D, kAlibi>
+  flash_bwd_dkv_wgmma_kernel<E, D, kAlibi>
       <<<grid, hopper::kWarpgroup, smem, (cudaStream_t)stream>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v),
-          static_cast<const __nv_bfloat16*>(dout),
+          static_cast<const E*>(q),
+          static_cast<const E*>(k),
+          static_cast<const E*>(v),
+          static_cast<const E*>(dout),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
           static_cast<const int*>(kv_lens), static_cast<const float*>(slopes),
-          static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S,
+          static_cast<E*>(dk), static_cast<E*>(dv), S,
           Sk, H, Hkv, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------- K5a, tensor-core route
 // Dynamic shared memory of K5a's tensor-core route: this block's Q and dO
-// tiles, then two stages of the streamed K and V tiles (each [64][D] bf16,
+// tiles, then two stages of the streamed K and V tiles (each [64][D] in E,
 // swizzled), plus the slack that aligns the tiles to 1024 bytes.
 template <int D>
 constexpr int dq_wgmma_smem_bytes() {
   return 6 * kTile * D * 2 + 1024;
 }
 
-template <int D, bool kAlibi>
+template <typename E, int D, bool kAlibi>
 __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
     flash_bwd_dq_wgmma_kernel(
-        const __nv_bfloat16* __restrict__ q,
-        const __nv_bfloat16* __restrict__ k,
-        const __nv_bfloat16* __restrict__ v,
-        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+        const E* __restrict__ q,
+        const E* __restrict__ k,
+        const E* __restrict__ v,
+        const E* __restrict__ dout, const float* __restrict__ lse,
         const float* __restrict__ delta, const int* __restrict__ kv_lens,
-        const float* __restrict__ slopes, __nv_bfloat16* __restrict__ dq,
+        const float* __restrict__ slopes, E* __restrict__ dq,
         int S, int Sk, int H, int Hkv, float scale, int causal, int window) {
   using namespace hopper;
   constexpr int kTileBytes = kTile * D * 2;
@@ -710,11 +711,11 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64(s, desc_kmajor<kTile>(q_s, kk),
+      mma_ss_n64<E>(s, desc_kmajor<kTile>(q_s, kk),
                  desc_kmajor<kTile>(k_st, kk));
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64(dp, desc_kmajor<kTile>(do_s, kk),
+      mma_ss_n64<E>(dp, desc_kmajor<kTile>(do_s, kk),
                  desc_kmajor<kTile>(v_st, kk));
     wgmma_commit();
     wgmma_wait<0>();
@@ -740,15 +741,15 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
         const float p = ok ? exp2f(fmaf(s[4 * j + i], sl2, arg)) : 0.f;
         dp[4 * j + i] = p * (dp[4 * j + i] - dl[hr]) * scale;
       }
-    // dq += dS K: dS rounded to bf16 (as the reference rounds it to q's
+    // dq += dS K: dS rounded to E (as the reference rounds it to q's
     // type) from registers, K transposed from the same shared tile
     uint32_t da[4][4];
-    to_operand_a<4>(dp, da);
+    to_operand_a<E, 4>(dp, da);
     reg_fence(dq_acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      mma_rs<D>(dq_acc, da[kk], desc_mnmajor<kTile>(k_st, kk));
+      mma_rs<E, D>(dq_acc, da[kk], desc_mnmajor<kTile>(k_st, kk));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(dq_acc);
@@ -758,17 +759,17 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
   for (int hr = 0; hr < 2; ++hr) {
     const int qi = q0 + r0 + 8 * hr;
     if (qi >= S) continue;
-    __nv_bfloat16* row = dq + ((size_t)b * S + qi) * q_stride + h * D;
+    E* row = dq + ((size_t)b * S + qi) * q_stride + h * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int i = 4 * j + 2 * hr;
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + c0) =
-          __floats2bfloat162_rn(dq_acc[i], dq_acc[i + 1]);
+      *reinterpret_cast<uint32_t*>(row + 8 * j + c0) =
+          pack2<E>(dq_acc[i], dq_acc[i + 1]);
     }
   }
 }
 
-template <int D, bool kAlibi>
+template <typename E, int D, bool kAlibi>
 int launch_dq_wgmma(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     const void* kv_lens, const void* slopes, void* dq, int B,
@@ -776,27 +777,27 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
                     int window, void* stream) {
   const int smem = dq_wgmma_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_wgmma_kernel<D, kAlibi>,
+      flash_bwd_dq_wgmma_kernel<E, D, kAlibi>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(H, B, (S + kTile - 1) / kTile);
-  flash_bwd_dq_wgmma_kernel<D, kAlibi>
+  flash_bwd_dq_wgmma_kernel<E, D, kAlibi>
       <<<grid, hopper::kWarpgroup, smem, (cudaStream_t)stream>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v),
-          static_cast<const __nv_bfloat16*>(dout),
+          static_cast<const E*>(q),
+          static_cast<const E*>(k),
+          static_cast<const E*>(v),
+          static_cast<const E*>(dout),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
           static_cast<const int*>(kv_lens), static_cast<const float*>(slopes),
-          static_cast<__nv_bfloat16*>(dq), S, Sk, H, Hkv, scale, causal,
+          static_cast<E*>(dq), S, Sk, H, Hkv, scale, causal,
           window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (the tensor-core routes of both entry
-// points: 16-byte-aligned pointers); head_dim: 64, 128 or 256. kv_lens may be
+// dtype: 0 = float32, 1 = bfloat16 or 2 = float16 (the tensor-core routes
+// of both entry points: 16-byte-aligned pointers); head_dim: 64, 128 or 256. kv_lens may be
 // null (no padding); slopes null (no ALiBi) or fp32 [B * H], as K2 got
 // them; window <= 0 means no sliding window. H % Hkv == 0.
 extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q,
@@ -817,13 +818,13 @@ extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q,
       return launch_dq<128, float, kA> PTT_ARGS;
     if (dtype == kF32 && head_dim == 256)
       return launch_dq<256, float, kA> PTT_ARGS;
-    if (dtype == kBF16 && head_dim == 64)
-      return launch_dq_wgmma<64, kA> PTT_ARGS;
-    if (dtype == kBF16 && head_dim == 128)
-      return launch_dq_wgmma<128, kA> PTT_ARGS;
-    if (dtype == kBF16 && head_dim == 256)
-      return launch_dq_wgmma<256, kA> PTT_ARGS;
-    return static_cast<int>(cudaErrorInvalidValue);
+    return with_half(dtype, [&](auto e) {
+      using E = decltype(e);
+      if (head_dim == 64) return launch_dq_wgmma<E, 64, kA> PTT_ARGS;
+      if (head_dim == 128) return launch_dq_wgmma<E, 128, kA> PTT_ARGS;
+      if (head_dim == 256) return launch_dq_wgmma<E, 256, kA> PTT_ARGS;
+      return static_cast<int>(cudaErrorInvalidValue);
+    });
   });
 #undef PTT_ARGS
 }
@@ -847,13 +848,13 @@ extern "C" int flash_bwd_dkv(int dtype, int head_dim, const void* q,
       return launch_dkv<128, float, kA> PTT_ARGS;
     if (dtype == kF32 && head_dim == 256)
       return launch_dkv<256, float, kA> PTT_ARGS;
-    if (dtype == kBF16 && head_dim == 64)
-      return launch_dkv_wgmma<64, kA> PTT_ARGS;
-    if (dtype == kBF16 && head_dim == 128)
-      return launch_dkv_wgmma<128, kA> PTT_ARGS;
-    if (dtype == kBF16 && head_dim == 256)
-      return launch_dkv_wgmma<256, kA> PTT_ARGS;
-    return static_cast<int>(cudaErrorInvalidValue);
+    return with_half(dtype, [&](auto e) {
+      using E = decltype(e);
+      if (head_dim == 64) return launch_dkv_wgmma<E, 64, kA> PTT_ARGS;
+      if (head_dim == 128) return launch_dkv_wgmma<E, 128, kA> PTT_ARGS;
+      if (head_dim == 256) return launch_dkv_wgmma<E, 256, kA> PTT_ARGS;
+      return static_cast<int>(cudaErrorInvalidValue);
+    });
   });
 #undef PTT_ARGS
 }

@@ -7,7 +7,8 @@
 // row with no live key) that the backward (K5) reads.
 //
 // Two routes, by dtype (ops/cuda/flash_attention.py kernel_route):
-//   bf16 — flash_fwd_wgmma_kernel, on the tensor cores. At the training
+//   bf16 and f16 — flash_fwd_wgmma_kernel<E>, on the tensor cores (one
+//     source; E the 2-byte type of q, k, v and o, which P is rounded to). At the training
 //     shapes (S = 2048, D = 128) the work is ~S flops per byte, far above
 //     the H100's ridge, so the bound is the tensor-core rate: both
 //     products run as wgmma (m64n64k16 for S = Q K^T from shared memory,
@@ -163,14 +164,14 @@ constexpr int wgmma_smem_bytes() {
   return 5 * kTile * D * 2 + 1024;
 }
 
-template <int D, bool kAlibi>
+template <typename E, int D, bool kAlibi>
 __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
-    flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
+    flash_fwd_wgmma_kernel(const E* __restrict__ q,
+                           const E* __restrict__ k,
+                           const E* __restrict__ v,
                            const int* __restrict__ kv_lens,
                            const float* __restrict__ slopes,
-                           __nv_bfloat16* __restrict__ o,
+                           E* __restrict__ o,
                            float* __restrict__ lse, int S, int Sk, int H,
                            int Hkv, float scale, int causal, int window) {
   using namespace hopper;
@@ -195,9 +196,9 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
   const int ntiles = kend > kbeg ? (kend - kbeg + kTile - 1) / kTile : 0;
 
   const size_t q_stride = (size_t)H * D, kv_stride = (size_t)Hkv * D;
-  const __nv_bfloat16* q_src = q + ((size_t)b * S + q0) * q_stride + h * D;
-  const __nv_bfloat16* k_src = k + (size_t)b * Sk * kv_stride + kvh * D;
-  const __nv_bfloat16* v_src = v + (size_t)b * Sk * kv_stride + kvh * D;
+  const E* q_src = q + ((size_t)b * S + q0) * q_stride + h * D;
+  const E* k_src = k + (size_t)b * Sk * kv_stride + kvh * D;
+  const E* v_src = v + (size_t)b * Sk * kv_stride + kvh * D;
   auto load_kv = [&](int t) {
     const int k0 = kbeg + t * kTile;
     const uint32_t k_s = q_s + (1 + 2 * (t & 1)) * kTileBytes;
@@ -242,7 +243,7 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64(s, desc_kmajor<kTile>(q_s, kk), desc_kmajor<kTile>(k_s, kk));
+      mma_ss_n64<E>(s, desc_kmajor<kTile>(q_s, kk), desc_kmajor<kTile>(k_s, kk));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(s);
@@ -308,14 +309,14 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
         acc[4 * j + 2 * hr + 1] *= corr;
       }
     }
-    // O += P V: P (bf16) from registers, V transposed from shared memory
+    // O += P V: P (in E) from registers, V transposed from shared memory
     uint32_t pa[4][4];
-    to_operand_a<4>(s, pa);
+    to_operand_a<E, 4>(s, pa);
     reg_fence(acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      mma_rs<D>(acc, pa[kk], desc_mnmajor<kTile>(v_s, kk));
+      mma_rs<E, D>(acc, pa[kk], desc_mnmajor<kTile>(v_s, kk));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(acc);
@@ -329,46 +330,45 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
     const int qi = q0 + r0 + 8 * hr;
     if (qi >= S) continue;
     const float inv = sum > 0.f ? 1.f / sum : 0.f;
-    __nv_bfloat16* orow = o + ((size_t)b * S + qi) * q_stride + h * D;
+    E* orow = o + ((size_t)b * S + qi) * q_stride + h * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c0) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * hr] * inv,
-                                acc[4 * j + 2 * hr + 1] * inv);
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + c0) =
+          pack2<E>(acc[4 * j + 2 * hr] * inv, acc[4 * j + 2 * hr + 1] * inv);
     if ((lane & 3) == 0)
       lse[((size_t)b * H + h) * S + qi] =
           sum > 0.f ? m[hr] * 0.6931471805599453f + logf(sum) : 0.f;
   }
 }
 
-template <int D, bool kAlibi>
+template <typename E, int D, bool kAlibi>
 int launch_wgmma(const void* q, const void* k, const void* v,
                  const void* kv_lens, const void* slopes, void* o, void* lse,
                  int B, int S, int Sk, int H, int Hkv, float scale,
                  int causal, int window, void* stream) {
   const int smem = wgmma_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D, kAlibi>,
+      flash_fwd_wgmma_kernel<E, D, kAlibi>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(H, B, (S + kTile - 1) / kTile);
-  flash_fwd_wgmma_kernel<D, kAlibi>
+  flash_fwd_wgmma_kernel<E, D, kAlibi>
       <<<grid, hopper::kWarpgroup, smem, (cudaStream_t)stream>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v),
+          static_cast<const E*>(q),
+          static_cast<const E*>(k),
+          static_cast<const E*>(v),
           static_cast<const int*>(kv_lens), static_cast<const float*>(slopes),
-          static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), S, Sk, H,
+          static_cast<E*>(o), static_cast<float*>(lse), S, Sk, H,
           Hkv, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (FMA route), 1 = bfloat16 (tensor-core route);
-// head_dim: 64, 128 or 256. kv_lens may be null (no padding); slopes null
-// (no ALiBi) or fp32 [B * H]; window <= 0 means no sliding window. bf16
-// pointers must be 16-byte aligned.
+// dtype: 0 = float32 (FMA route), 1 = bfloat16 or 2 = float16 (the
+// tensor-core route); head_dim: 64, 128 or 256. kv_lens may be null (no
+// padding); slopes null (no ALiBi) or fp32 [B * H]; window <= 0 means no
+// sliding window. bf16 and f16 pointers must be 16-byte aligned.
 extern "C" int flash_fwd(int dtype, int head_dim, const void* q,
                          const void* k, const void* v, const void* kv_lens,
                          const void* slopes, void* o, void* lse, int B, int S,
@@ -383,14 +383,15 @@ extern "C" int flash_fwd(int dtype, int head_dim, const void* q,
     if (dtype == kF32 && head_dim == 64) return launch<64, float, kA> PTT_ARGS;
     if (dtype == kF32 && head_dim == 128)
       return launch<128, float, kA> PTT_ARGS;
-    if (dtype == kBF16 && head_dim == 64) return launch_wgmma<64, kA> PTT_ARGS;
     if (dtype == kF32 && head_dim == 256)
       return launch<256, float, kA> PTT_ARGS;
-    if (dtype == kBF16 && head_dim == 128)
-      return launch_wgmma<128, kA> PTT_ARGS;
-    if (dtype == kBF16 && head_dim == 256)
-      return launch_wgmma<256, kA> PTT_ARGS;
-    return static_cast<int>(cudaErrorInvalidValue);
+    return with_half(dtype, [&](auto e) {
+      using E = decltype(e);
+      if (head_dim == 64) return launch_wgmma<E, 64, kA> PTT_ARGS;
+      if (head_dim == 128) return launch_wgmma<E, 128, kA> PTT_ARGS;
+      if (head_dim == 256) return launch_wgmma<E, 256, kA> PTT_ARGS;
+      return static_cast<int>(cudaErrorInvalidValue);
+    });
   });
 #undef PTT_ARGS
 }

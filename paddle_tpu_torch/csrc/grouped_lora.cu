@@ -9,7 +9,7 @@
 // null-adapter mask, the inverse permutation, the cast and the add into
 // the projection's output).
 //
-// Notation: x [B, S, k] (bf16 or fp32), y [B, S, n] (the projection's
+// Notation: x [B, S, k] (bf16, f16 or fp32), y [B, S, n] (the projection's
 // output, x's type), perm [B] int32, sizes [e] int32 token counts in
 // sorted order, A [e, k, r] and B [e, r, n] fp32. Sorted row i (of m =
 // B * S) is source row src(i) = (perm[i / S], i % S); it belongs to group
@@ -99,15 +99,17 @@ __device__ __forceinline__ void load8(const float* __restrict__ p,
   f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ p,
+// 8 bf16 or f16 as fp32, through the pair type's own conversion (a bf16
+// is the high half of the fp32 of the same value, an f16 is not)
+template <typename T>
+__device__ __forceinline__ void load8(const T* __restrict__ p,
                                       float (&f)[8]) {
-  // a bf16 is the high half of the fp32 of the same value
   const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    const float2 x = pair_f<T>(&u, i);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
   }
 }
 
@@ -260,9 +262,29 @@ int launch_shrink(const void* x, const void* perm, const void* a,
 }
 
 // ------------------------------------------------------------- expand
-// V values of y's type at p as fp32, and back.
+// V values of y's type at p as fp32, and back. bf16 or f16 (this
+// template): one 8-byte (V = 4) or 4-byte (V = 2) access, unpacked through
+// the pair type (pair_f) and packed by pack2; fp32: the specializations
 template <typename T, int V>
-struct YVec;
+struct YVec {
+  static_assert(V == 2 || V == 4, "V = 2 or 4");
+  static __device__ __forceinline__ void load(const T* p, float (&f)[V]) {
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) {
+      const float2 x = pair_f<T>(p, i);
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    }
+  }
+  static __device__ __forceinline__ void store(T* p, const float (&f)[V]) {
+    if constexpr (V == 4)
+      *reinterpret_cast<uint2*>(p) = make_uint2(
+          pack2<T>(f[0], f[1]), pack2<T>(f[2], f[3]));
+    else
+      *reinterpret_cast<unsigned*>(p) = pack2<T>(f[0], f[1]);
+  }
+};
+
 template <>
 struct YVec<float, 4> {
   static __device__ __forceinline__ void load(const float* p, float (&f)[4]) {
@@ -283,42 +305,6 @@ struct YVec<float, 2> {
     *reinterpret_cast<float2*>(p) = make_float2(f[0], f[1]);
   }
 };
-// bf16: one 8-byte (V = 4) or 4-byte (V = 2) access; a bf16 is the high
-// half of the fp32 of the same value
-__device__ __forceinline__ void bf16x2_to_f(unsigned u, float* f) {
-  f[0] = __uint_as_float(u << 16);
-  f[1] = __uint_as_float(u & 0xffff0000u);
-}
-__device__ __forceinline__ unsigned f_to_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-template <>
-struct YVec<__nv_bfloat16, 4> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float (&f)[4]) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    bf16x2_to_f(u.x, f);
-    bf16x2_to_f(u.y, f + 2);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float (&f)[4]) {
-    *reinterpret_cast<uint2*>(p) =
-        make_uint2(f_to_bf16x2(f[0], f[1]), f_to_bf16x2(f[2], f[3]));
-  }
-};
-template <>
-struct YVec<__nv_bfloat16, 2> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float (&f)[2]) {
-    bf16x2_to_f(*reinterpret_cast<const unsigned*>(p), f);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float (&f)[2]) {
-    *reinterpret_cast<unsigned*>(p) = f_to_bf16x2(f[0], f[1]);
-  }
-};
-
 template <int V>
 __device__ __forceinline__ void load_b(const float* p, float (&f)[V]) {
   if constexpr (V == 4) {
@@ -421,7 +407,7 @@ int launch_expand(void* y, const void* t, const void* b, const void* sizes,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x). x [B, S, k] contiguous, 16-byte
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x). x [B, S, k] contiguous, 16-byte
 // aligned, k a multiple of 8; perm [B] and sizes [e] int32 on the device;
 // a [e, k, r] fp32 (16-byte aligned); part fp32 [splits, m, r] scratch
 // (m = B * S); t fp32 [m, r]. k is cut into `splits` runs of `ks` rows
@@ -440,14 +426,14 @@ extern "C" int lora_shrink(int dtype, const void* x, const void* perm,
   if (dtype == kF32)
     return launch_shrink<float>(x, perm, a, sizes, part, t, m, s, k, r, e,
                                 splits, ks, st);
-  if (dtype == kBF16)
-    return launch_shrink<__nv_bfloat16>(x, perm, a, sizes, part, t, m, s, k,
-                                        r, e, splits, ks, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_half(dtype, [&](auto h) {
+    return launch_shrink<decltype(h)>(x, perm, a, sizes, part, t, m, s, k, r,
+                                      e, splits, ks, st);
+  });
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (y, and the x the correction is
-// rounded to). y [B, S, n] contiguous, 16-byte aligned, n a multiple of
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (y, and the x the
+// correction is rounded to). y [B, S, n] contiguous, 16-byte aligned, n a multiple of
 // 4 (of 2 for r > 32), updated in place on its live rows only; t fp32
 // [m, r]; b [e, r, n] fp32 (16-byte aligned), r <= 64; sizes [e], perm
 // [B] int32 on the device.
@@ -460,8 +446,8 @@ extern "C" int lora_expand_add(int dtype, void* y, const void* t,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return launch_expand<float>(y, t, b, sizes, perm, m, s, n, r, e, st);
-  if (dtype == kBF16)
-    return launch_expand<__nv_bfloat16>(y, t, b, sizes, perm, m, s, n, r, e,
-                                        st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_half(dtype, [&](auto h) {
+    return launch_expand<decltype(h)>(y, t, b, sizes, perm, m, s, n, r, e,
+                                      st);
+  });
 }

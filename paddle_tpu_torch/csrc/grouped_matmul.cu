@@ -27,10 +27,10 @@
 // group's weights are read once for one or two rows. Three kernels, chosen
 // by the wrapper from the static shapes, dtype and alignment alone
 // (ops/cuda/grouped_matmul.py fwd_route):
-//   wgmma (bf16, k and n multiples of 8, 16-byte-aligned pointers) —
-//     grouped_fwd_wgmma_kernel: a 128 x 256 output tile, two warpgroups of
-//     64 rows each, products on the tensor cores (wgmma m64n256k16, bf16
-//     operands, fp32 accumulators cast once). lhs slabs [128][64] K-major
+//   wgmma (bf16 or f16, k and n multiples of 8, 16-byte-aligned pointers)
+//     — grouped_fwd_wgmma_kernel<E>: a 128 x 256 output tile, two
+//     warpgroups of 64 rows each, products on the tensor cores (wgmma
+//     m64n256k16, bf16 or f16 operands, fp32 accumulators cast once). lhs slabs [128][64] K-major
 //     and rhs slabs 64 x 256 (MN-major from [k, n] for the forward, K-major
 //     from [n, k] for dlhs, the descriptor's transpose bit choosing) stream
 //     through a four-stage cp.async ring in 128-byte-swizzled tiles,
@@ -75,8 +75,8 @@
 // atomics, the result is deterministic, and an empty group's tiles write
 // exact zeros. Two kernels, chosen by the wrapper's dw_route from the
 // static shapes, dtype and alignment alone:
-//   wgmma (bf16, k and n multiples of 8, 16-byte-aligned pointers) —
-//     grouped_dw_wgmma_kernel: 128 (k) x 256 (n) output tiles of two
+//   wgmma (bf16 or f16, k and n multiples of 8, 16-byte-aligned pointers)
+//     — grouped_dw_wgmma_kernel<E>: 128 (k) x 256 (n) output tiles of two
 //     warpgroups (wgmma m64n256k16, both operands MN-major: the lhs and g
 //     slabs are used as they lie in memory), 64-row slabs through a
 //     three-stage cp.async ring, rows past the group's end zero-filled.
@@ -84,7 +84,7 @@
 //     with a fixed stride, so the tile order needs no group size on the
 //     host, a group's inputs stay in L2 for its tiles, and a tile's
 //     epilogue overlaps the next tile's first loads. The epilogue casts
-//     once to bf16 into a shared staging tile and writes it with coalesced
+//     once to E into a shared staging tile and writes it with coalesced
 //     16-byte stores (whole 512-byte rows, no per-element stores). What
 //     holds it above the bound: every tile reads its group's rows from L2
 //     again (2.2 GB a call at the gate_up shape, 14 times the inputs'
@@ -94,6 +94,8 @@
 //     grouped_dw_kernel: one block per (group, k tile, n tile), fp32 FMAs
 //     from shared-memory tiles; exact to the card tests' 1e-4 in float32.
 #include <cuda.h>
+
+#include <type_traits>
 
 #include "hopper_mma.cuh"
 
@@ -261,8 +263,8 @@ int launch_fwd(int trans, const void* lhs, const void* rhs, const void* sizes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------ K6a, tensor-core route (bf16)
-constexpr int kGemmBK = 64;     // k per stage: one 128-byte line of bf16
+// ----------------------------- K6a, tensor-core route (bf16 and f16: E)
+constexpr int kGemmBK = 64;     // k per stage: one 128-byte line of E
 constexpr int kGemmStages = 4;  // cp.async ring: two loads and one
                                 // product in flight beside the current one
 
@@ -280,12 +282,12 @@ constexpr int gemm_wgmma_smem_bytes() {
 // row tiles of one column strip next to each other, then the next strip)
 // before group g + 1's, so the strips of one expert's weights are read
 // from device memory about once and from L2 by its other row tiles.
-template <int WG, int BN, bool TRANS>
+template <typename E, int WG, int BN, bool TRANS>
 __global__ void __launch_bounds__(WG * hopper::kWarpgroup, 1)
-    grouped_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ lhs,
-                             const __nv_bfloat16* __restrict__ rhs,
+    grouped_fwd_wgmma_kernel(const E* __restrict__ lhs,
+                             const E* __restrict__ rhs,
                              const int* __restrict__ sizes,
-                             __nv_bfloat16* __restrict__ out, int m, int k,
+                             E* __restrict__ out, int m, int k,
                              int n, int e, int n_tiles) {
   using namespace hopper;
   constexpr int BM = 64 * WG, THREADS = WG * kWarpgroup;
@@ -309,8 +311,8 @@ __global__ void __launch_bounds__(WG * hopper::kWarpgroup, 1)
   }
   if (row0 < 0 || row0 >= row_end) return;  // past the live tiles
   const int nrows = min(BM, row_end - row0);
-  const __nv_bfloat16* x = lhs + (size_t)row0 * k;
-  const __nv_bfloat16* w = rhs + (size_t)g * k * n;
+  const E* x = lhs + (size_t)row0 * k;
+  const E* w = rhs + (size_t)g * k * n;
   const int nk = (k + kGemmBK - 1) / kGemmBK;
   // stage `step % kGemmStages` <- k slab `step`, zero-filled past the
   // group's rows, past k and past n; every thread commits one group
@@ -357,7 +359,7 @@ __global__ void __launch_bounds__(WG * hopper::kWarpgroup, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kGemmBK / 16; ++kk)
-        mma_ss<BN, (TRANS ? 0 : 1)>(acc, desc_kmajor<64>(a, kk),
+        mma_ss<E, BN, (TRANS ? 0 : 1)>(acc, desc_kmajor<64>(a, kk),
                                   TRANS ? desc_kmajor<BN>(b, kk)
                                         : desc_mnmajor<kGemmBK>(b, kk));
       wgmma_commit();
@@ -367,7 +369,7 @@ __global__ void __launch_bounds__(WG * hopper::kWarpgroup, 1)
   if (!live) return;
   wgmma_wait<0>();
   reg_fence(acc);
-  // fp32 accumulator -> bf16, once; rows past the group's end and
+  // fp32 accumulator -> E, once; rows past the group's end and
   // columns past n are not written
   const int warp = (threadIdx.x % kWarpgroup) >> 5, lane = threadIdx.x & 31;
   const int r0 = row0 + 64 * wg + 16 * warp + (lane >> 2);
@@ -376,18 +378,18 @@ __global__ void __launch_bounds__(WG * hopper::kWarpgroup, 1)
   for (int hr = 0; hr < 2; ++hr) {
     const int r = r0 + 8 * hr;
     if (r >= row_end) continue;
-    __nv_bfloat16* orow = out + (size_t)r * n + n0;
+    E* orow = out + (size_t)r * n + n0;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int c = 8 * j + c0;
       if (n0 + c < n)
-        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
+        *reinterpret_cast<uint32_t*>(orow + c) =
+            pack2<E>(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
     }
   }
 }
 
-template <int WG, int BN>
+template <typename E, int WG, int BN>
 int launch_fwd_wgmma(int trans, const void* lhs, const void* rhs,
                      const void* sizes, void* out, int m, int k, int n, int e,
                      void* stream) {
@@ -402,16 +404,16 @@ int launch_fwd_wgmma(int trans, const void* lhs, const void* rhs,
   if (n_tiles * slots > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = gemm_wgmma_smem_bytes<WG, BN>();
-  auto kernel = trans ? grouped_fwd_wgmma_kernel<WG, BN, true>
-                      : grouped_fwd_wgmma_kernel<WG, BN, false>;
+  auto kernel = trans ? grouped_fwd_wgmma_kernel<E, WG, BN, true>
+                      : grouped_fwd_wgmma_kernel<E, WG, BN, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(n_tiles * slots), WG * hopper::kWarpgroup,
            smem, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(lhs),
-      static_cast<const __nv_bfloat16*>(rhs), static_cast<const int*>(sizes),
-      static_cast<__nv_bfloat16*>(out), m, k, n, e,
+      static_cast<const E*>(lhs),
+      static_cast<const E*>(rhs), static_cast<const int*>(sizes),
+      static_cast<E*>(out), m, k, n, e,
       static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
@@ -512,7 +514,7 @@ int launch_dw(const void* lhs, const void* gr, const void* sizes, void* drhs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------ K6b, tensor-core route (bf16)
+// ----------------------------- K6b, tensor-core route (bf16 and f16: E)
 constexpr int kDwBK = 128;     // k rows of an output tile: two warpgroups
 constexpr int kDwBN = 256;     // n columns of an output tile
 constexpr int kDwRows = 64;    // group rows per slab: the reduction step
@@ -520,7 +522,7 @@ constexpr int kDwStages = 3;   // cp.async ring: one slab loads while one
                                // product runs (deeper rings and 32-row
                                // slabs measured no faster)
 constexpr int kDwMaxGroups = 1024;  // row offsets kept in shared memory
-// staging row: 512 bytes of bf16 and 16 of padding, so that the eight
+// staging row: 512 bytes of E and 16 of padding, so that the eight
 // rows a warp's fragment store touches fall in different banks
 constexpr int kDwPitch = kDwBN * 2 + 16;
 constexpr int kDwStaging = kDwBK * kDwPitch;
@@ -548,15 +550,16 @@ constexpr int dw_wgmma_smem_bytes(int e) {
 // operands (no 0 x inf from the next group), and the 16-row steps wholly
 // past it are skipped. The slabs of a block's successive tiles form one
 // stream through the ring, so the next tile's first slab loads during a
-// tile's epilogue. Epilogue: fp32 -> bf16 once, into a staging tile in
+// tile's epilogue. Epilogue: fp32 -> E once, into a staging tile in
 // shared memory (stmatrix), which the warpgroup writes to device memory
 // with 16-byte stores, a 512-byte row a warp. An empty group's tiles load
 // nothing and write exact zeros.
+template <typename E>
 __global__ void __launch_bounds__(2 * hopper::kWarpgroup, 1)
-    grouped_dw_wgmma_kernel(const __nv_bfloat16* __restrict__ lhs,
-                            const __nv_bfloat16* __restrict__ gr,
+    grouped_dw_wgmma_kernel(const E* __restrict__ lhs,
+                            const E* __restrict__ gr,
                             const int* __restrict__ sizes,
-                            __nv_bfloat16* __restrict__ drhs, int m, int k,
+                            E* __restrict__ drhs, int m, int k,
                             int n, int e, int k_tiles, int n_tiles) {
   using namespace hopper;
   constexpr int THREADS = 2 * kWarpgroup;
@@ -652,7 +655,7 @@ __global__ void __launch_bounds__(2 * hopper::kWarpgroup, 1)
 #pragma unroll
       for (int kk = 0; kk < kDwRows / 16; ++kk)
         if (r + 16 * kk < rows)  // 16-row steps past the group's end: 0
-          mma_ss<kDwBN, 1, 1>(acc, desc_mnmajor<kDwRows>(a, kk),
+          mma_ss<E, kDwBN, 1, 1>(acc, desc_mnmajor<kDwRows>(a, kk),
                               desc_mnmajor<kDwRows>(b, kk));
       wgmma_commit();
       wgmma_wait<1>();  // the previous slab's product retired
@@ -661,7 +664,7 @@ __global__ void __launch_bounds__(2 * hopper::kWarpgroup, 1)
     reg_fence(acc);
     // every thread of the warpgroup has read the staging rows it rewrites
     named_barrier(1 + wg, kWarpgroup);
-    // fp32 -> bf16 once: thread (warp, lane) holds rows 16 warp + lane / 4
+    // fp32 -> E once: thread (warp, lane) holds rows 16 warp + lane / 4
     // (+ 8 hr), columns 8 j + 2 (lane % 4) + {0, 1}, so the 8 x 8 block
     // (j, hr) is one stmatrix operand; each stmatrix writes the blocks
     // (j, 0), (j, 1), (j + 1, 0) and (j + 1, 1), lane l addressing row
@@ -673,10 +676,10 @@ __global__ void __launch_bounds__(2 * hopper::kWarpgroup, 1)
           (q >> 1) * 16;
 #pragma unroll
       for (int j = 0; j < kDwBN / 8; j += 2) {
-        const uint32_t r[4] = {pack_bf16(acc[4 * j], acc[4 * j + 1]),
-                               pack_bf16(acc[4 * j + 2], acc[4 * j + 3]),
-                               pack_bf16(acc[4 * j + 4], acc[4 * j + 5]),
-                               pack_bf16(acc[4 * j + 6], acc[4 * j + 7])};
+        const uint32_t r[4] = {pack2<E>(acc[4 * j], acc[4 * j + 1]),
+                               pack2<E>(acc[4 * j + 2], acc[4 * j + 3]),
+                               pack2<E>(acc[4 * j + 4], acc[4 * j + 5]),
+                               pack2<E>(acc[4 * j + 6], acc[4 * j + 7])};
         stmatrix_x4(row_addr + j * 16, r);
       }
     }
@@ -713,6 +716,7 @@ cudaError_t sm_count(int* out) {
   return cudaSuccess;
 }
 
+template <typename E>
 int launch_dw_wgmma(const void* lhs, const void* gr, const void* sizes,
                     void* drhs, int m, int k, int n, int e, void* stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(lhs) |
@@ -728,25 +732,37 @@ int launch_dw_wgmma(const void* lhs, const void* gr, const void* sizes,
   cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int smem = dw_wgmma_smem_bytes(e);
-  err = cudaFuncSetAttribute(grouped_dw_wgmma_kernel,
+  err = cudaFuncSetAttribute(grouped_dw_wgmma_kernel<E>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // one persistent block an SM (the shared memory allows no second)
   const int blocks = static_cast<int>(tiles < sms ? tiles : sms);
-  grouped_dw_wgmma_kernel<<<blocks, 2 * hopper::kWarpgroup, smem,
-                            (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(lhs),
-      static_cast<const __nv_bfloat16*>(gr), static_cast<const int*>(sizes),
-      static_cast<__nv_bfloat16*>(drhs), m, k, n, e,
+  grouped_dw_wgmma_kernel<E><<<blocks, 2 * hopper::kWarpgroup, smem,
+                               (cudaStream_t)stream>>>(
+      static_cast<const E*>(lhs), static_cast<const E*>(gr),
+      static_cast<const int*>(sizes), static_cast<E*>(drhs), m, k, n, e,
       static_cast<int>(k_tiles), static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------ K6a, decode route
-// 16 bytes of T as floats
+// 16 bytes of T as floats: 8 bf16 or f16 (through the pair type's own
+// conversion: a bf16 is the high half of the fp32 of the same value, an
+// f16 is not), or 4 fp32 (the specialization)
 template <typename T>
-struct Vec16;
+struct Vec16 {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void unpack(const uint4& u,
+                                                float (&f)[N]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = pair_f<T>(&u, i);
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    }
+  }
+};
 template <>
 struct Vec16<float> {
   static constexpr int N = 4;
@@ -756,20 +772,6 @@ struct Vec16<float> {
     f[1] = __uint_as_float(u.y);
     f[2] = __uint_as_float(u.z);
     f[3] = __uint_as_float(u.w);
-  }
-};
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  // a bf16 is the high half of the fp32 of the same value
-  static __device__ __forceinline__ void unpack(const uint4& u,
-                                                float (&f)[N]) {
-    const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
   }
 };
 
@@ -1180,10 +1182,15 @@ int launch_decode(const void* lhs, const void* idx, const void* rhs,
                                    (cuuint64_t)k * n * sizeof(T)};
     const cuuint32_t box[3] = {L::kCols, L::kKT, 1};
     const cuuint32_t one[3] = {1, 1, 1};
-    if (encode(&wmap,
-               sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                              : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-               3, const_cast<void*>(rhs), dims, strides, box, one,
+    const CUtensorMapDataType dt =
+        std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+        : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    static_assert(std::is_same<T, float>::value ||
+                      std::is_same<T, __half>::value ||
+                      std::is_same<T, __nv_bfloat16>::value,
+                  "fp32, f16 or bf16 weights");
+    if (encode(&wmap, dt, 3, const_cast<void*>(rhs), dims, strides, box, one,
                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
@@ -1199,13 +1206,14 @@ int launch_decode(const void* lhs, const void* idx, const void* rhs,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (lhs, rhs and out alike). lhs [m, k],
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (lhs, rhs and out alike).
+// lhs [m, k],
 // sizes [e] int32 on the device, out [m, n]. trans == 0: rhs [e, k, n];
 // trans != 0: rhs [e, n, k], read transposed (the backward's dlhs). kind
 // picks the kernel (the wrapper's fwd_route decides from the static
 // shapes, the dtype and the alignment): 0 the FMA tile, 1 the decode
 // route (a few rows per group; no transposed rhs), 2 the tensor-core tile
-// (bf16, k and n multiples of 8, 16-byte-aligned pointers). Rows past
+// (bf16 or f16, k and n multiples of 8, 16-byte-aligned pointers). Rows past
 // sum(sizes) are not written.
 extern "C" int grouped_fwd(int dtype, int trans, int kind, const void* lhs,
                            const void* rhs, const void* sizes, void* out,
@@ -1213,10 +1221,10 @@ extern "C" int grouped_fwd(int dtype, int trans, int kind, const void* lhs,
   if (m <= 0 || n <= 0 || e <= 0) return 0;
   if (kind == 1 && trans) return static_cast<int>(cudaErrorInvalidValue);
   if (kind == 2)
-    return dtype == kBF16 ? launch_fwd_wgmma<kGemmWG, kGemmBN>(
-                                trans, lhs, rhs, sizes, out, m, k, n, e,
-                                stream)
-                          : static_cast<int>(cudaErrorInvalidValue);
+    return with_half(dtype, [&](auto h) {
+      return launch_fwd_wgmma<decltype(h), kGemmWG, kGemmBN>(
+          trans, lhs, rhs, sizes, out, m, k, n, e, stream);
+    });
 #define PTT_GFWD(T)                                                        \
   return kind == 1                                                         \
              ? launch_decode<T, false, kDecStrip>(lhs, nullptr, rhs, sizes, \
@@ -1225,9 +1233,8 @@ extern "C" int grouped_fwd(int dtype, int trans, int kind, const void* lhs,
              : launch_fwd<T, Large>(trans, lhs, rhs, sizes, out, m, k, n, \
                                     e, stream)
   if (dtype == kF32) PTT_GFWD(float);
-  if (dtype == kBF16) PTT_GFWD(__nv_bfloat16);
+  return with_half(dtype, [&](auto h) { PTT_GFWD(decltype(h)); });
 #undef PTT_GFWD
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The MoE layer's two expert products at the decode shape, on the decode
@@ -1256,28 +1263,28 @@ extern "C" int grouped_decode(int dtype, int down, const void* lhs,
                                                    nullptr, nullptr, out,  \
                                                    m, k, n, e, stream)
   if (dtype == kF32) PTT_GDEC(float);
-  if (dtype == kBF16) PTT_GDEC(__nv_bfloat16);
+  return with_half(dtype, [&](auto h) { PTT_GDEC(decltype(h)); });
 #undef PTT_GDEC
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // lhs [m, k], g [m, n], sizes [e] int32 -> drhs [e, k, n], every element
 // written (zeros for an empty group). kind picks the kernel (the
 // wrapper's dw_route decides from the static shapes, the dtype and the
-// alignment): 0 the FMA tile, 2 the tensor-core tile (bf16, k and n
+// alignment): 0 the FMA tile, 2 the tensor-core tile (bf16 or f16, k and n
 // multiples of 8, 16-byte-aligned pointers, at most kDwMaxGroups groups).
 extern "C" int grouped_dw(int dtype, int kind, const void* lhs,
                           const void* g, const void* sizes, void* drhs, int m,
                           int k, int n, int e, void* stream) {
   if (k <= 0 || n <= 0 || e <= 0) return 0;
   if (kind == 2)
-    return dtype == kBF16
-               ? launch_dw_wgmma(lhs, g, sizes, drhs, m, k, n, e, stream)
-               : static_cast<int>(cudaErrorInvalidValue);
+    return with_half(dtype, [&](auto h) {
+      return launch_dw_wgmma<decltype(h)>(lhs, g, sizes, drhs, m, k, n, e,
+                                          stream);
+    });
   if (kind != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kF32)
     return launch_dw<float>(lhs, g, sizes, drhs, m, k, n, e, stream);
-  if (dtype == kBF16)
-    return launch_dw<__nv_bfloat16>(lhs, g, sizes, drhs, m, k, n, e, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_half(dtype, [&](auto h) {
+    return launch_dw<decltype(h)>(lhs, g, sizes, drhs, m, k, n, e, stream);
+  });
 }

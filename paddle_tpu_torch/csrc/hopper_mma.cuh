@@ -1,4 +1,7 @@
-// Hopper (sm_90a) building blocks for the tensor-core kernels (bf16):
+// Hopper (sm_90a) building blocks for the tensor-core kernels (bf16 or
+// f16: every loader, packer and product takes the 2-byte element type E,
+// __nv_bfloat16 or __half, as a template argument, so each kernel
+// instantiates both from one source):
 // flash_fwd.cu's K2, flash_bwd.cu's K5a and K5b, paged_chunk.cu's K3,
 // grouped_matmul.cu's K6a and K6b. 16-byte cp.async copies into
 // 128-byte-swizzled shared tiles, the shared-memory matrix descriptors of
@@ -13,7 +16,7 @@
 // and named barriers; for K6a's decode route, mbarriers and tensor-map
 // copies.
 //
-// Tile layout. A [rows][D] bf16 tile (D = 64, 128 or 256) is stored as
+// Tile layout. A [rows][D] bf16 or f16 tile (D = 64, 128 or 256) is stored as
 // D / 64 panels of [rows][64]: one 128-byte line per row, the 16-byte
 // chunk c of row r at chunk position c ^ (r % 8) of its line, panels
 // rows * 128 bytes apart, every panel 1024-byte aligned. That is the
@@ -31,11 +34,13 @@
 // Register fragments. The fp32 accumulator of an m64nN product gives
 // thread t of the warpgroup (warp w = t / 32, lane l) rows 16w + l / 4 and
 // that + 8, columns 8j + 2(l % 4) + {0, 1} for j < N / 8: d[4j + 0..1] on
-// the first row, d[4j + 2..3] on the second. Packed to bf16 pairs, the
+// the first row, d[4j + 2..3] on the second. Packed to E pairs, the
 // accumulator of columns 16kk..16kk+15 (d[8kk .. 8kk + 7]) is exactly the
 // register A operand of the k step kk, so a product's result feeds the
 // next product without passing through shared memory.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -87,14 +92,21 @@ __device__ __forceinline__ uint32_t sw128(int r, int c) {
   return (c >> 3) * (ROWS * 128) + r * 128 + ((((c & 7) ^ (r & 7))) << 4);
 }
 
-// Asynchronous load of a [ROWS][D] bf16 tile whose row r starts at
-// src + r * row_stride (elements); rows >= nvalid are zero-filled. Every
-// thread of the warpgroup takes part; consecutive threads read
-// consecutive 16-byte chunks of a row.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* src,
+// the 2-byte element types of the tensor-core products
+template <typename E>
+constexpr bool kIsF16 = std::is_same<E, __half>::value;
+template <typename E>
+constexpr bool kIsHalf2B =
+    kIsF16<E> || std::is_same<E, __nv_bfloat16>::value;
+
+// Asynchronous load of a [ROWS][D] tile of 2-byte elements whose row r
+// starts at src + r * row_stride (elements); rows >= nvalid are
+// zero-filled. Every thread of the warpgroup takes part; consecutive
+// threads read consecutive 16-byte chunks of a row.
+template <int ROWS, int D, typename E>
+__device__ __forceinline__ void load_tile(uint32_t dst, const E* src,
                                           size_t row_stride, int nvalid) {
+  static_assert(kIsHalf2B<E>, "bf16 or f16 tiles");
   constexpr int kChunks = D / 8;
   static_assert(ROWS * kChunks % kWarpgroup == 0, "tile not whole");
 #pragma unroll
@@ -107,16 +119,17 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
   }
 }
 
-// Asynchronous load of a [ROWS][COLS] bf16 tile (COLS a multiple of 64,
+// Asynchronous load of a [ROWS][COLS] tile of 2-byte elements (COLS a
+// multiple of 64,
 // swizzled as above: COLS / 64 panels) whose row r starts at
 // src + r * row_stride (elements), by THREADS threads; rows >= nrows and
 // the 16-byte chunks at or past column ncols (a multiple of 8) are
 // zero-filled, reading nothing (they point at src, which must be mapped).
-template <int ROWS, int COLS, int THREADS>
-__device__ __forceinline__ void load_tile_masked(uint32_t dst,
-                                                 const __nv_bfloat16* src,
+template <int ROWS, int COLS, int THREADS, typename E>
+__device__ __forceinline__ void load_tile_masked(uint32_t dst, const E* src,
                                                  size_t row_stride, int nrows,
                                                  int ncols) {
+  static_assert(kIsHalf2B<E>, "bf16 or f16 tiles");
   constexpr int kChunks = COLS / 8;
   static_assert(ROWS * kChunks % THREADS == 0, "tile not whole");
 #pragma unroll
@@ -139,10 +152,10 @@ __device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
   return v;
 }
 
-// four 8 x 8 bf16 matrices from registers to shared memory: r[q] is this
+// four 8 x 8 matrices of 2-byte elements from registers to shared memory: r[q] is this
 // thread's pair of matrix q (row lane / 4, columns 2 (lane % 4) + {0, 1}:
 // the layout of an 8-row, 8-column block of a wgmma accumulator packed to
-// bf16), and lane l gives the address of row l % 8 of matrix l / 8
+// E pairs), and lane l gives the address of row l % 8 of matrix l / 8
 __device__ __forceinline__ void stmatrix_x4(uint32_t addr,
                                             const uint32_t (&r)[4]) {
   asm volatile(
@@ -262,193 +275,220 @@ __device__ __forceinline__ void reg_fence(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // The accumulator d of an m64nN product (N = 16 * KS) as KS register A
-// operands of k steps of 16, rounded to bf16
-template <int KS>
+// operands of k steps of 16, rounded to E
+template <typename E, int KS>
 __device__ __forceinline__ void to_operand_a(const float (&d)[8 * KS],
                                              uint32_t (&a)[KS][4]) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      a[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+      a[kk][i] = pack2<E>(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
 }
 
 // d[64 x 64] += A[64 x 16] B[16 x 64]: A and B in shared memory, both
 // K-major
+#define PTT_WGMMA_SS_N64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]) \
+      : "l"(da), "l"(db), "r"(1))
+
+template <typename E>
 __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+  if constexpr (kIsF16<E>)
+    PTT_WGMMA_SS_N64("f16");
+  else
+    PTT_WGMMA_SS_N64("bf16");
 }
 
 // d[64 x 128] += A[64 x 16] B[16 x 128]: A and B in shared memory, A
 // K-major (TA = 0) or MN-major (TA = 1), B K-major (TB = 0) or MN-major
 // (TB = 1)
-template <int TB, int TA = 0>
+#define PTT_WGMMA_SS_N128(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+      "%60, %61, %62, %63" \
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "l"(da), "l"(db), "r"(1), "n"(TB), "n"(TA))
+
+template <typename E, int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da,
                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TB), "n"(TA));
+  if constexpr (kIsF16<E>)
+    PTT_WGMMA_SS_N128("f16");
+  else
+    PTT_WGMMA_SS_N128("bf16");
 }
 
 // d[64 x 256] += A[64 x 16] B[16 x 256]: A and B in shared memory, A
 // K-major (TA = 0) or MN-major (TA = 1), B K-major (TB = 0) or MN-major
 // (TB = 1)
-template <int TB, int TA = 0>
+#define PTT_WGMMA_SS_N256(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, " \
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, " \
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, " \
+      "%120, %121, %122, %123, %124, %125, %126, %127" \
+      "}, %128, %129, p, 1, 1, %132, %131;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), \
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), \
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), \
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), \
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), \
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), \
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), \
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), \
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), \
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), \
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), \
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
+      : "l"(da), "l"(db), "r"(1), "n"(TB), "n"(TA))
+
+template <typename E, int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss_n256(float (&d)[128], uint64_t da,
                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(TB), "n"(TA));
+  if constexpr (kIsF16<E>)
+    PTT_WGMMA_SS_N256("f16");
+  else
+    PTT_WGMMA_SS_N256("bf16");
 }
 
 // d[64 x N] += A[64 x 16] B[16 x N] (N = 128 or 256), both from shared
 // memory: A K-major (TA = 0) or MN-major (TA = 1), B K-major (TB = 0) or
 // MN-major (TB = 1)
-template <int N, int TB, int TA = 0>
+template <typename E, int N, int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
                                        uint64_t db) {
   static_assert(N == 128 || N == 256, "SS shapes: n128, n256");
   if constexpr (N == 128)
-    mma_ss_n128<TB, TA>(d, da, db);
+    mma_ss_n128<E, TB, TA>(d, da, db);
   else
-    mma_ss_n256<TB, TA>(d, da, db);
+    mma_ss_n256<E, TB, TA>(d, da, db);
 }
 
 // d[64 x 64] += A[64 x 16] B[16 x 64]: A in registers, B in shared
 // memory MN-major (TB = 1) or K-major (TB = 0: K3's S = Q K^T with its
 // Q fragments held in registers)
-template <int TB = 1>
+#define PTT_WGMMA_RS_N64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), \
+        "n"(TB))
+
+template <typename E, int TB = 1>
 __device__ __forceinline__ void mma_rs_n64(float (&d)[32],
                                            const uint32_t (&a)[4],
                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
-        "n"(TB));
+  if constexpr (kIsF16<E>)
+    PTT_WGMMA_RS_N64("f16");
+  else
+    PTT_WGMMA_RS_N64("bf16");
 }
 
 // d[64 x 128] += A[64 x 16] B[16 x 128]: A in registers, B in shared
 // memory MN-major
+#define PTT_WGMMA_RS_N128(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+      "%60, %61, %62, %63" \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <typename E>
 __device__ __forceinline__ void mma_rs_n128(float (&d)[64],
                                            const uint32_t (&a)[4],
                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kIsF16<E>)
+    PTT_WGMMA_RS_N128("f16");
+  else
+    PTT_WGMMA_RS_N128("bf16");
 }
 
 // d += A B over the D / 64 panels' width: d[64 x D], A in registers, B a
@@ -460,21 +500,27 @@ __device__ __forceinline__ void mma_rs_n128(float (&d)[64],
 // two halves' fragments. That route was taken over one m64n256k16 RS
 // product (an asm statement of 128 accumulator operands): the same
 // tensor-core work, from the n128 product the D = 128 kernels already run.
-template <int D, int ROWS = 64>
+template <typename E, int D, int ROWS = 64>
 __device__ __forceinline__ void mma_rs(float (&d)[D / 2],
                                        const uint32_t (&a)[4], uint64_t db) {
   static_assert(D == 64 || D == 128 || D == 256, "RS widths: 64, 128, 256");
   if constexpr (D == 64) {
-    mma_rs_n64(d, a, db);
+    mma_rs_n64<E>(d, a, db);
   } else if constexpr (D == 128) {
-    mma_rs_n128(d, a, db);
+    mma_rs_n128<E>(d, a, db);
   } else {
     float(&lo)[64] = *reinterpret_cast<float(*)[64]>(&d[0]);
     float(&hi)[64] = *reinterpret_cast<float(*)[64]>(&d[64]);
-    mma_rs_n128(lo, a, db);
-    mma_rs_n128(hi, a, db + ((2 * ROWS * 128) >> 4));
+    mma_rs_n128<E>(lo, a, db);
+    mma_rs_n128<E>(hi, a, db + ((2 * ROWS * 128) >> 4));
   }
 }
+
+#undef PTT_WGMMA_SS_N64
+#undef PTT_WGMMA_SS_N128
+#undef PTT_WGMMA_SS_N256
+#undef PTT_WGMMA_RS_N64
+#undef PTT_WGMMA_RS_N128
 
 }  // namespace hopper
 }  // namespace ptt

@@ -23,7 +23,8 @@
 // from the window's lower edge of its first. Two routes, by q's dtype
 // (ops/cuda/paged_attention.py chunk_route):
 //
-//   bf16 — paged_chunk_wgmma_kernel, on the tensor cores. At the serving
+//   bf16 and f16 — paged_chunk_wgmma_kernel<E> (E q's 2-byte type), on
+//     the tensor cores. At the serving
 //     shapes the work is ~2 * 64 flops a K/V byte per q tile, so fp32 FMAs
 //     on the CUDA cores bound the FMA route far above the bytes; this route
 //     is K2's (flash_fwd.cu): one warpgroup owns the 64-row folded q tile,
@@ -42,10 +43,10 @@
 //     partials mode, for the ownership of each key).
 //     int8 pools: the codes and their row scales stream in by cp.async
 //     into a staging ring, and each tile is dequantized into the same
-//     swizzled bf16 tiles (code times row scale, rounded once to bf16)
-//     before its products. That adds one bf16 rounding of K and V that the
-//     plain version (k.float() * scale in fp32) does not have; the card
-//     tests' bf16 tolerance covers it.
+//     swizzled tiles of E (code times row scale, rounded once to q's type,
+//     bf16 or f16) before its products. That adds one rounding of K and V
+//     that the plain version (k.float() * scale in fp32) does not have; the
+//     card tests' tolerance covers it.
 //   fp32 — paged_chunk_kernel, fp32 FMAs on the CUDA cores
 //     (attn_tile.cuh): exact to the card tests' 1e-4, which TF32 tensor
 //     cores are not. Over int8 pools the tile fill dequantizes each element
@@ -202,7 +203,7 @@ int launch(const Args& a) {
 constexpr int kTile = 64;  // folded q rows a block, keys a step (wgmma m64)
 constexpr int kStages = 2;  // K/V tiles (or codes): one lands, one computes
 
-// Dynamic shared memory: (bf16 pools) kStages stages of K and V tiles, or
+// Dynamic shared memory: (pools of E) kStages stages of K and V tiles, or
 // (int8 pools) one K and one V tile and kStages stages of staged codes
 // [64][D] bytes each with their [64] K and V scales; then the rows'
 // ownership flags [kStages][64]; plus the slack that aligns the swizzled
@@ -220,9 +221,9 @@ struct ChunkLayout {
 // three blocks an SM (their shared memory fits three times): the wider
 // pool of blocks hides their ramp-up better than the registers a third of
 // them gives up (ptxas spills a few words at D = 128)
-template <int D, bool kI8>
+template <typename E, int D, bool kI8>
 __global__ void __launch_bounds__(hopper::kWarpgroup, 3)
-    paged_chunk_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+    paged_chunk_wgmma_kernel(const E* __restrict__ q,
                              const void* __restrict__ kp_,
                              const void* __restrict__ vp_,
                              const float* __restrict__ ks,
@@ -230,7 +231,7 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 3)
                              const int* __restrict__ tables,
                              const int* __restrict__ offsets,
                              const int* __restrict__ chunk_lens,
-                             __nv_bfloat16* __restrict__ o,
+                             E* __restrict__ o,
                              float* __restrict__ acc_out,
                              float* __restrict__ m_out,
                              float* __restrict__ l_out, int C, int H,
@@ -239,7 +240,7 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 3)
   using namespace hopper;
   using Lay = ChunkLayout<D, kI8>;
   constexpr int kTileBytes = Lay::kTileBytes;
-  constexpr int kChunks = D / 8;   // 16-byte bf16 chunks a row
+  constexpr int kChunks = D / 8;   // 16-byte chunks of E a row
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - smem_addr(smem_raw));
@@ -296,7 +297,7 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 3)
     return blk0 + lane < MB ? trow[blk0 + lane] : N;
   };
 
-  // tile t's K and V (bf16 pools) or codes and row scales (int8 pools,
+  // tile t's K and V (pools of E) or codes and row scales (int8 pools,
   // 16 codes a chunk) into stage t % kStages, by cp.async; ent is this
   // lane's table entry of the tile, loaded a tile ahead
   auto load_kv = [&](int t, int ent) {
@@ -327,8 +328,8 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 3)
       }
     } else {
       const uint32_t k_s = base + st * 2 * kTileBytes;
-      const auto* kp = static_cast<const __nv_bfloat16*>(kp_);
-      const auto* vp = static_cast<const __nv_bfloat16*>(vp_);
+      const auto* kp = static_cast<const E*>(kp_);
+      const auto* vp = static_cast<const E*>(vp_);
       constexpr int kStep = kWarpgroup / kChunks;
       const int c = tid % kChunks;
       Walk w = walk(k0, tid / kChunks);
@@ -344,7 +345,7 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 3)
       }
     }
   };
-  // int8 pools: staged tile t to the bf16 K and V tiles (zero codes and
+  // int8 pools: staged tile t to the K and V tiles in E (zero codes and
   // scales of rows that were not read give 0)
   auto dequantize = [&](int t) {
     const uint8_t* sg = staging + (t % kStages) * Lay::kStaging;
@@ -360,10 +361,10 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 3)
         const char4* cc = reinterpret_cast<const char4*>(&w);
         const float s = sc[kv * kTile + r];
         uint4 out;
-        out.x = pack_bf16(cc[0].x * s, cc[0].y * s);
-        out.y = pack_bf16(cc[0].z * s, cc[0].w * s);
-        out.z = pack_bf16(cc[1].x * s, cc[1].y * s);
-        out.w = pack_bf16(cc[1].z * s, cc[1].w * s);
+        out.x = pack2<E>(cc[0].x * s, cc[0].y * s);
+        out.y = pack2<E>(cc[0].z * s, cc[0].w * s);
+        out.z = pack2<E>(cc[1].x * s, cc[1].y * s);
+        out.w = pack2<E>(cc[1].z * s, cc[1].w * s);
         *reinterpret_cast<uint4*>(gbase + kv * kTileBytes +
                                   sw128<kTile>(r, c)) = out;
       }
@@ -428,7 +429,7 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 3)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_rs_n64<0>(s, qa[kk], desc_kmajor<kTile>(k_s, kk));
+      mma_rs_n64<E, 0>(s, qa[kk], desc_kmajor<kTile>(k_s, kk));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(s);
@@ -480,14 +481,14 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 3)
         acc[4 * j + 2 * hr + 1] *= corr;
       }
     }
-    // O += P V: P (bf16) from registers, V transposed from shared memory
+    // O += P V: P (in E) from registers, V transposed from shared memory
     uint32_t pa[4][4];
-    to_operand_a<4>(s, pa);
+    to_operand_a<E, 4>(s, pa);
     reg_fence(acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      mma_rs<D>(acc, pa[kk], desc_mnmajor<kTile>(v_s, kk));
+      mma_rs<E, D>(acc, pa[kk], desc_mnmajor<kTile>(v_s, kk));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(acc);
@@ -516,17 +517,16 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 3)
       const float inv = live ? 1.f / sum : 0.f;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(o + orow * D + 8 * j + c0) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * hr] * inv,
-                                  acc[4 * j + 2 * hr + 1] * inv);
+        *reinterpret_cast<uint32_t*>(o + orow * D + 8 * j + c0) =
+            pack2<E>(acc[4 * j + 2 * hr] * inv, acc[4 * j + 2 * hr + 1] * inv);
     }
   }
 }
 
-template <int D, bool kI8>
+template <typename E, int D, bool kI8>
 int launch_wgmma(const Args& a) {
   constexpr int kSmem = ChunkLayout<D, kI8>::kBytes;
-  auto kern = paged_chunk_wgmma_kernel<D, kI8>;
+  auto kern = paged_chunk_wgmma_kernel<E, D, kI8>;
   static bool attr = false;   // the attribute outlives the launch
   if (!attr) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -537,11 +537,11 @@ int launch_wgmma(const Args& a) {
   const int G = a.H / a.Hkv;
   dim3 grid(a.Hkv, a.A, (a.C * G + kTile - 1) / kTile);
   kern<<<grid, hopper::kWarpgroup, kSmem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), a.kp, a.vp,
+      static_cast<const E*>(a.q), a.kp, a.vp,
       static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
       static_cast<const int*>(a.tables), static_cast<const int*>(a.offsets),
       static_cast<const int*>(a.chunk_lens),
-      static_cast<__nv_bfloat16*>(a.o), static_cast<float*>(a.acc),
+      static_cast<E*>(a.o), static_cast<float*>(a.acc),
       static_cast<float*>(a.m), static_cast<float*>(a.l), a.C, a.H, a.Hkv,
       a.N, a.bs, a.MB, a.scale, a.window, a.partials);
   return static_cast<int>(cudaGetLastError());
@@ -549,8 +549,8 @@ int launch_wgmma(const Args& a) {
 
 }  // namespace
 
-// dtype (of q and o): 0 = float32 (FMA route), 1 = bfloat16 (tensor-core
-// route); head_dim: 64 or 128; window <= 0 means no sliding window.
+// dtype (of q and o): 0 = float32 (FMA route), 1 = bfloat16 or 2 =
+// float16 (tensor-core route; pools of q's type or int8); head_dim: 64 or 128; window <= 0 means no sliding window.
 // k_scale / v_scale null: the pools hold q's type; non-null: the pools
 // hold int8 codes and these are their fp32 [N, bs, Hkv] scales. q and the
 // pools 16-byte aligned. partials = 0 writes o; partials = 1 writes acc
@@ -572,9 +572,13 @@ extern "C" int paged_chunk_fwd(int dtype, int head_dim, const void* q,
     return i8 ? launch<64, float, int8_t>(a) : launch<64, float, float>(a);
   if (dtype == kF32 && head_dim == 128)
     return i8 ? launch<128, float, int8_t>(a) : launch<128, float, float>(a);
-  if (dtype == kBF16 && head_dim == 64)
-    return i8 ? launch_wgmma<64, true>(a) : launch_wgmma<64, false>(a);
-  if (dtype == kBF16 && head_dim == 128)
-    return i8 ? launch_wgmma<128, true>(a) : launch_wgmma<128, false>(a);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_half(dtype, [&](auto e) {
+    using E = decltype(e);
+    if (head_dim == 64)
+      return i8 ? launch_wgmma<E, 64, true>(a) : launch_wgmma<E, 64, false>(a);
+    if (head_dim == 128)
+      return i8 ? launch_wgmma<E, 128, true>(a)
+                : launch_wgmma<E, 128, false>(a);
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
 }

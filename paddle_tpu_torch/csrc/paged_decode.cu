@@ -95,18 +95,16 @@ struct DecLayout {
   static constexpr int kBytes = kQ + kP + kRing;
 };
 
-// 16 bytes of a staged pool row as fp32: 8 bf16, 4 fp32 or 16 int8 codes
+// 16 bytes of a staged pool row as fp32: 8 bf16 or f16 (this template),
+// 4 fp32 or 16 int8 codes
 template <typename KV>
-struct Piece;
-template <>
-struct Piece<__nv_bfloat16> {
+struct Piece {
   static constexpr int kN = 8;
   __device__ __forceinline__ static void load(const uint8_t* p, float* f) {
     const uint4 w = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 x = __bfloat1622float2(h[i]);
+      const float2 x = pair_f<KV>(&w, i);
       f[2 * i] = x.x;
       f[2 * i + 1] = x.y;
     }
@@ -159,10 +157,9 @@ __device__ __forceinline__ void load_dims(const uint8_t* p, float (&f)[CD]) {
       f[0] = w.x, f[1] = w.y;
     }
   } else {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
 #pragma unroll
     for (int i = 0; i < CD / 2; ++i) {
-      const float2 x = __bfloat1622float2(h[i]);
+      const float2 x = pair_f<KV>(p, i);
       f[2 * i] = x.x;
       f[2 * i + 1] = x.y;
     }
@@ -534,7 +531,8 @@ int launch_pool(const Args& a) {
 
 }  // namespace
 
-// dtype (of q and o): 0 = float32, 1 = bfloat16; head_dim: 64 or 128;
+// dtype (of q and o): 0 = float32, 1 = bfloat16, 2 = float16; head_dim:
+// 64 or 128;
 // H / Hkv in 1..8; window <= 0 means no sliding window. k_scale / v_scale
 // null: the pools hold q's type; non-null: the pools hold int8 codes and
 // these are their fp32 [N, bs, Hkv] scales. Pools 16-byte aligned.
@@ -560,9 +558,10 @@ extern "C" int paged_decode_fwd(int dtype, int head_dim, const void* q,
                chunk, partials, static_cast<cudaStream_t>(stream)};
   if (dtype == kF32 && head_dim == 64) return launch_pool<64, float>(a);
   if (dtype == kF32 && head_dim == 128) return launch_pool<128, float>(a);
-  if (dtype == kBF16 && head_dim == 64)
-    return launch_pool<64, __nv_bfloat16>(a);
-  if (dtype == kBF16 && head_dim == 128)
-    return launch_pool<128, __nv_bfloat16>(a);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim != 64 && head_dim != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_half(dtype, [&](auto e) {
+    using T = decltype(e);
+    return head_dim == 64 ? launch_pool<64, T>(a) : launch_pool<128, T>(a);
+  });
 }

@@ -3,8 +3,9 @@
 // Replaces: paddle_tpu/ops/pallas/norms.py _rms_fwd_kernel (via _rms_fwd).
 // Computes y = x * rsqrt(mean(x^2) + eps) * w per row with fp32 math and
 // ONE cast at the end (the Pallas rounding: the weight is read in its own
-// type, fp32 or bf16, and multiplies in fp32, so an fp32 weight under a
-// bf16 activation, a mixed-type call, is never rounded to bf16).
+// type, fp32, bf16 or f16, and multiplies in fp32, so an fp32 weight under
+// a bf16 or f16 activation, a mixed-type call, is never rounded to x's
+// type). x and y are fp32, bf16 or f16; the sum of squares is fp32.
 //
 // Bound on this card: bytes. A row is read, reduced and written with a
 // handful of flops per element, far below the ~295 flop/byte ridge of an
@@ -109,16 +110,17 @@ int dispatch_w(int wdtype, int vec, const void* x, const void* w, void* y,
   if (wdtype == kF32)
     return vec > 1 ? launch<T, float, kVec>(x, w, y, rows, h, eps, stream)
                    : launch<T, float, 1>(x, w, y, rows, h, eps, stream);
-  if (wdtype == kBF16)
-    return vec > 1
-               ? launch<T, __nv_bfloat16, kVec>(x, w, y, rows, h, eps, stream)
-               : launch<T, __nv_bfloat16, 1>(x, w, y, rows, h, eps, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_half(wdtype, [&](auto e) {
+    using TW = decltype(e);
+    return vec > 1 ? launch<T, TW, kVec>(x, w, y, rows, h, eps, stream)
+                   : launch<T, TW, 1>(x, w, y, rows, h, eps, stream);
+  });
 }
 
 }  // namespace
 
-// dtype / wdtype (of x and of the weight): 0 = float32, 1 = bfloat16.
+// dtype / wdtype (of x and of the weight): 0 = float32, 1 = bfloat16,
+// 2 = float16.
 // vec: 1 (scalar) or 16-byte vectors of x and y (the wrapper passes 1
 // unless h and the pointers allow it: x and y 16-byte aligned, the weight
 // aligned to 16 / sizeof(x element) of its own elements).
@@ -128,8 +130,8 @@ extern "C" int rms_norm_fwd(int dtype, int wdtype, int vec, const void* x,
   if (rows <= 0) return 0;
   if (dtype == kF32)
     return dispatch_w<float>(wdtype, vec, x, w, y, rows, h, eps, stream);
-  if (dtype == kBF16)
-    return dispatch_w<__nv_bfloat16>(wdtype, vec, x, w, y, rows, h, eps,
-                                     stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_half(dtype, [&](auto e) {
+    return dispatch_w<decltype(e)>(wdtype, vec, x, w, y, rows, h, eps,
+                                   stream);
+  });
 }

@@ -204,7 +204,8 @@ int launch_kv(const void* q, const void* k, const void* v, long long sq,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (of x and out; cos/sin are float32).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (of x and out; cos/sin
+// are float32).
 // x: n rows of h heads of d elements, row i at x + i * stride (elements);
 // cos/sin: [r, d / 2] contiguous, row i of x reads row i % r; out: [n, h,
 // d] contiguous. vec: 1 (scalar) or 16-byte vectors (the wrapper passes 1
@@ -220,13 +221,13 @@ extern "C" int rope_fwd(int dtype, int vec, const void* x, const void* cos,
   if (dtype == kF32)
     return dispatch<float>(vec, x, cos, sin, out, n, h, d, stride, r, neg,
                            stream);
-  if (dtype == kBF16)
-    return dispatch<__nv_bfloat16>(vec, x, cos, sin, out, n, h, d, stride, r,
-                                   neg, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_half(dtype, [&](auto e) {
+    return dispatch<decltype(e)>(vec, x, cos, sin, out, n, h, d, stride, r,
+                                 neg, stream);
+  });
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (of q, k, v, q_out and the pools;
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (of q, k, v, q_out and the pools;
 // cos/sin are float32). q, k, v: b rows of hq / hkv / hkv heads of d
 // elements, row i at q + i * sq (k: sk, v: sv; elements), heads d apart;
 // cos/sin [r, d / 2] contiguous, row i reading row i % r; q_out [b, hq, d]
@@ -253,7 +254,6 @@ extern "C" int rope_kv_write(int dtype, int vec, const void* q,
                                    k_pool, v_pool, dest, b, hq, hkv, d, r,  \
                                    stream)
   if (dtype == kF32) PTT_ROPE_KV(float);
-  if (dtype == kBF16) PTT_ROPE_KV(__nv_bfloat16);
+  return with_half(dtype, [&](auto e) { PTT_ROPE_KV(decltype(e)); });
 #undef PTT_ROPE_KV
-  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1569,6 +1569,87 @@ def paged_beam_search(model, prompt, max_new_tokens=32, num_beams=4,
                           max_new_tokens, eos_token_id, length_penalty)
 
 
+@torch.no_grad()
+def paged_generate(model, input_ids, prompt_lens, max_new_tokens=32,
+                   block_size=16, num_blocks=None, eos_token_id=None,
+                   temperature=0.0, top_k=None, top_p=None, generator=None):
+    """Continuous-batch decode over a paged cache, on the model's device.
+
+    ``input_ids``: [B, S] right-padded ragged prompts with ``prompt_lens``
+    [B]. The pool holds ``num_blocks`` blocks (default: exactly enough for
+    the ragged bound, the sum over rows of ceil((prompt_len +
+    max_new_tokens) / block_size), not B x max_len); a row's table grows
+    at its block boundaries and a finished row's blocks return to the
+    manager. The prefill runs the whole-prompt forward (K1, K2, K7), every
+    step the decode forward (K1, K4, K7's fold with the pool write).
+    ``temperature``/``top_k``/``top_p`` sample through
+    ``decoding._sample`` from ``generator`` (a ``torch.Generator`` on the
+    model's device; default: seed 0); temperature 0 is greedy. Returns
+    ([B, S + max_new_tokens] int64 tokens on the model's device, the
+    cache): finished rows are tail-padded with ``eos_token_id``."""
+    from paddle_tpu_torch.models.decoding import _sample
+    cfg = model_config(model)
+    dev = next(model.parameters()).device
+    gen = (generator if generator is not None
+           else torch.Generator(device=dev).manual_seed(0))
+
+    def pick(logits):
+        return _sample(logits.float(), gen, temperature, top_k,
+                       top_p).cpu().numpy()
+
+    ids = np.asarray(_host(input_ids), np.int64)
+    b, s = ids.shape
+    lens_np = np.asarray(_host(prompt_lens), np.int64)
+    max_total = lens_np + max_new_tokens
+    max_blocks = -(-int(max_total.max()) // block_size)
+    if num_blocks is None:
+        num_blocks = int(sum(-(-int(t) // block_size) for t in max_total))
+    mgr = BlockManager(num_blocks, block_size)
+    for sid in range(b):
+        mgr.allocate(sid, int(lens_np[sid]))
+    cache = PagedKVCache.init(cfg.num_hidden_layers, num_blocks, block_size,
+                              cfg.num_key_value_heads,
+                              cfg.hidden_size // cfg.num_attention_heads,
+                              b, max_blocks, cfg.dtype, device=dev)
+    cache.block_tables = mgr.table_array(range(b), max_blocks).to(dev)
+    logits, cache = llama_prefill_paged(model, ids, lens_np.astype(np.int32),
+                                        cache)
+    tokens = np.concatenate([ids, np.zeros((b, max_new_tokens), np.int64)],
+                            axis=1)
+    next_tok = pick(logits)
+    active = np.ones((b,), bool)
+    cur = lens_np.copy()
+    tokens[np.arange(b), cur] = next_tok
+
+    def finish(newly):
+        for sid in np.nonzero(newly)[0]:
+            active[sid] = False
+            mgr.free(int(sid))
+
+    if eos_token_id is not None:
+        finish(next_tok == eos_token_id)
+    for _ in range(max_new_tokens - 1):
+        if not active.any():
+            break
+        for sid in np.nonzero(active)[0]:    # grow at a block boundary
+            mgr.allocate(int(sid), int(cur[sid]) + 1)
+        cache.block_tables = mgr.table_array(range(b), max_blocks).to(dev)
+        logits, cache = llama_decode_step_paged(
+            model, torch.as_tensor(next_tok, device=dev), cache,
+            torch.as_tensor(active, device=dev))
+        next_tok = np.where(active, pick(logits), next_tok)
+        cur = cur + active
+        rows = np.nonzero(active)[0]
+        tokens[rows, cur[rows]] = next_tok[rows]
+        if eos_token_id is not None:
+            finish(active & (next_tok == eos_token_id))
+    if eos_token_id is not None:
+        # finished rows: the tail padded with EOS (HF/PaddleNLP convention)
+        for sid in np.nonzero(~active)[0]:
+            tokens[sid, int(cur[sid]) + 1:] = eos_token_id
+    return torch.from_numpy(tokens).to(dev), cache
+
+
 # ------------------------------------------------ speculative helpers
 # The multi-append/rewind primitives the engine's speculative decoding
 # needs: the target VERIFY forward is the chunk prefill with full logits

@@ -188,15 +188,18 @@ class _Handler(BaseHTTPRequestHandler):
                 self.send_error(
                     409, "a profiler capture is already running")
                 return
+            # the lock is released before any reply: a client that has
+            # its answer finds the next capture free
+            failed = None
             try:
                 doc = _run_profile_capture(seconds)
             except Exception as e:     # noqa: BLE001 — report, don't die
-                self.send_error(
-                    500, f"profiler capture failed: "
-                         f"{type(e).__name__}: {e}")
-                return
+                failed = f"{type(e).__name__}: {e}"
             finally:
                 _PROFILE_LOCK.release()
+            if failed is not None:
+                self.send_error(500, f"profiler capture failed: {failed}")
+                return
             body = (json.dumps(doc, sort_keys=True) + "\n").encode()
             ctype = "application/json"
         else:

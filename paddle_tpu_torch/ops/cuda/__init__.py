@@ -84,6 +84,23 @@ LORA_TRAIN_KERNELS = TRAIN_KERNELS
 FP8_TRAIN_KERNELS = TRAIN_KERNELS
 
 
+def f16_names(names) -> tuple:
+    """The float16 counters (``kernels()``'s ``<name>_f16``) of ``names``."""
+    return tuple(f"{n}_f16" for n in names)
+
+
+# float16 models: each path's kernels on their float16 instantiations
+F16_SERVE_KERNELS = f16_names(SERVE_KERNELS)
+F16_SERVE_I8_KERNELS = f16_names(QUANT_SERVE_KERNELS)
+F16_TRAIN_KERNELS = f16_names(TRAIN_KERNELS)
+F16_MOE_SERVE_KERNELS = f16_names(MOE_SERVE_KERNELS)
+F16_MOE_TRAIN_KERNELS = f16_names(MOE_TRAIN_KERNELS)
+# models.paged.paged_generate: the whole-prompt prefill (K1, K2, K7) and
+# the decode step (K1, K4, K7 folded with the pool write)
+PAGED_GENERATE_KERNELS = ("rms_norm", "flash_fwd", "paged_decode", "rope",
+                          "rope_kv")
+
+
 def kernels() -> dict:
     """{name: the object that counts its launches in ``.launches``} of
     every kernel of the port: the serving path's (K3 and K4 counted apart
@@ -91,7 +108,13 @@ def kernels() -> dict:
     MoE families (forward/dlhs, drhs), the rotary embedding of every
     path, then the ALiBi mode of K2, K5a and K5b (counted apart),
     K6a's two kernels at the multi-LoRA call site, and K7 folded with the
-    decode tick's KV pool write."""
+    decode tick's KV pool write; then, as ``<name>_f16``, each one's
+    float16 launches (also counted in its total)."""
+    base = _base_kernels()
+    return {**base, **{f"{n}_f16": fn.f16 for n, fn in base.items()}}
+
+
+def _base_kernels() -> dict:
     return {
         "rms_norm": norms.rms_norm,
         "flash_fwd": flash_attention.flash_attention,

@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
@@ -33,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes shared with csrc/common.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -124,9 +125,24 @@ def stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def f16_counter() -> SimpleNamespace:
+    """The float16 launches of one wrapper, counted beside its total
+    (``<wrapper>.f16.launches``; ``ops.cuda.kernels()`` names it
+    ``<name>_f16``)."""
+    return SimpleNamespace(launches=0)
+
+
+def count(fn, t: torch.Tensor):
+    """One launch of ``fn``'s kernel on inputs of ``t``'s dtype: its
+    total and, for float16, its float16 count."""
+    fn.launches += 1
+    if t.dtype == torch.float16:
+        fn.f16.launches += 1
+
+
 def dtype_code(t: torch.Tensor, what: str) -> int:
     try:
         return DTYPE_CODES[t.dtype]
     except KeyError:
-        raise TypeError(f"{what}: the CUDA kernel takes float32 or bfloat16, "
-                        f"got {t.dtype}") from None
+        raise TypeError(f"{what}: the CUDA kernel takes float32, bfloat16 "
+                        f"or float16, got {t.dtype}") from None

@@ -9,8 +9,8 @@ of the reference's ``custom_vjp``). On CUDA tensors its forward launches
 backward launches the two kernels of ``csrc/flash_bwd.cu`` (K5a dq, K5b
 dk/dv) from the saved O and LSE; a CUDA tensor the kernels cannot take
 raises. :func:`kernel_route` names the kernel K2, K5a and K5b run for a
-dtype and head dim (:data:`HEAD_DIMS`: 64, 128, 256): bf16 runs on the
-tensor cores (``wgmma``, see ``csrc/hopper_mma.cuh``), float32 on fp32
+dtype and head dim (:data:`HEAD_DIMS`: 64, 128, 256): bf16 and float16
+run on the tensor cores (``wgmma``, see ``csrc/hopper_mma.cuh``), float32 on fp32
 FMAs (exact to 1e-4). On CPU tensors the same ``Function`` runs
 :func:`flash_attention_fwd_plain` and :func:`flash_attention_bwd_plain`.
 ``kv_lens`` and the ALiBi slopes get no gradient. Launch counters:
@@ -42,7 +42,8 @@ from paddle_tpu_torch.ops.cuda import _build
 # (K5b's tensor-core route splits dK and dV over two blocks there)
 HEAD_DIMS = (64, 128, 256)
 # the kernel each of ROUTED launches for each input dtype
-ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fma"}
+ROUTES = {torch.bfloat16: "wgmma", torch.float16: "wgmma",
+          torch.float32: "fma"}
 # the kernels whose route kernel_route names: K2, K5a (dq), K5b (dk/dv)
 ROUTED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
@@ -50,9 +51,9 @@ ROUTED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 _NEG_INF = -2.3819763e38
 
 # launches of the ALiBi mode of K2 / K5a / K5b (``ops.cuda.kernels()``)
-flash_fwd_alibi = SimpleNamespace(launches=0)
-flash_bwd_dq_alibi = SimpleNamespace(launches=0)
-flash_bwd_dkv_alibi = SimpleNamespace(launches=0)
+flash_fwd_alibi = SimpleNamespace(launches=0, f16=_build.f16_counter())
+flash_bwd_dq_alibi = SimpleNamespace(launches=0, f16=_build.f16_counter())
+flash_bwd_dkv_alibi = SimpleNamespace(launches=0, f16=_build.f16_counter())
 
 
 def _masked_scores(q, k, causal, scale, window, kv_lens, alibi_slopes=None):
@@ -171,9 +172,9 @@ def _lib(name):
 
 def kernel_route(dtype, head_dim):
     """The kernel K2, K5a and K5b (:data:`ROUTED`) launch for inputs of
-    ``dtype`` at ``head_dim``: "wgmma" (bf16: products on the Hopper tensor
-    cores, bf16 operands, fp32 accumulators; K5a rounds dS to bf16 before
-    dS K, as the reference rounds it to q's type) or "fma" (float32: fp32
+    ``dtype`` at ``head_dim``: "wgmma" (bf16 or f16: products on the Hopper
+    tensor cores, operands of q's type, fp32 accumulators; K5a rounds dS to
+    q's type before dS K, as the reference does) or "fma" (float32: fp32
     FMAs on the CUDA cores). The ALiBi mode runs on the same route.
     Raises NotImplementedError for a head dim outside :data:`HEAD_DIMS`
     (64, 128, 256) and TypeError for another dtype."""
@@ -248,7 +249,7 @@ def flash_fwd_cuda(q, k, v, causal, scale, window, lens, slopes=None):
                        _build.ptr(lse), b, s, sk, h, h_kv, scale,
                        int(bool(causal)), int(window or 0), _build.stream(q))
     _build.check(lib, rc, "flash_attention")
-    (flash_attention if slopes is None else flash_fwd_alibi).launches += 1
+    _build.count(flash_attention if slopes is None else flash_fwd_alibi, q)
     return o, lse
 
 
@@ -284,7 +285,7 @@ def flash_bwd_dq(code, q, k, v, do, lse, delta, causal, scale, window, lens,
         _build.ptr(slopes), _build.ptr(dq), b, s, k.shape[1], h, k.shape[2],
         scale, int(bool(causal)), int(window or 0), _build.stream(q))
     _build.check(lib, rc, "flash_bwd_dq")
-    (flash_bwd_dq if slopes is None else flash_bwd_dq_alibi).launches += 1
+    _build.count(flash_bwd_dq if slopes is None else flash_bwd_dq_alibi, q)
     return dq
 
 
@@ -302,7 +303,8 @@ def flash_bwd_dkv(code, q, k, v, do, lse, delta, causal, scale, window,
         h, k.shape[2], scale, int(bool(causal)), int(window or 0),
         _build.stream(q))
     _build.check(lib, rc, "flash_bwd_dkv")
-    (flash_bwd_dkv if slopes is None else flash_bwd_dkv_alibi).launches += 1
+    _build.count(flash_bwd_dkv if slopes is None else flash_bwd_dkv_alibi,
+                 q)
     return dk, dv
 
 
@@ -363,3 +365,5 @@ def flash_attention(q, k, v, causal=False, scale=None, window=None,
 flash_attention.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+for _fn in (flash_attention, flash_bwd_dq, flash_bwd_dkv):
+    _fn.f16 = _build.f16_counter()

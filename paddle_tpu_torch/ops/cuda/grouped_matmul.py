@@ -16,10 +16,11 @@ transposed in the kernel (no transposed copy) and ``drhs`` with K6b, or
 gradient and is never read back to the host on the kernel path: the launch
 covers the static bound of row tiles and each block finds its group on the
 device. :func:`fwd_route` names the kernel a K6a launch runs: the decode
-route at the decode shape, the tensor cores (``wgmma``) for bf16 at the
-prefill and train shapes, forward and dlhs alike, fp32 FMAs for float32;
-:func:`dw_route` the kernel of a K6b launch: the tensor cores for bf16,
-fp32 FMAs for float32. ``grouped_matmul.launches`` counts K6a launches
+route at the decode shape, the tensor cores (``wgmma``) for bf16 and
+float16 at the prefill and train shapes, forward and dlhs alike, fp32
+FMAs for float32; :func:`dw_route` the kernel of a K6b launch: the tensor
+cores for bf16 and float16, fp32 FMAs for float32.
+``grouped_matmul.launches`` counts K6a launches
 (forward and dlhs, and the MoE layer's two fused decode products),
 ``grouped_matmul.route_launches`` the K6a launches of each kernel
 (``"decode"``, ``"wgmma"``, ``"fma"``), ``grouped_dw.launches`` K6b
@@ -67,6 +68,8 @@ DECODE_MAX_ROWS = 1024
 DECODE_MAX_GROUPS = 256
 # the kernel code grouped_fwd in csrc/grouped_matmul.cu takes for a route
 _KIND = {"fma": 0, "decode": 1, "wgmma": 2}
+# the 2-byte types the tensor-core routes of K6a and K6b take
+HALF_TYPES = (torch.bfloat16, torch.float16)
 
 
 def fwd_route(m, e, k, n, dtype, trans=False, aligned=True) -> str:
@@ -79,7 +82,8 @@ def fwd_route(m, e, k, n, dtype, trans=False, aligned=True) -> str:
       ``DECODE_MAX_ROWS_PER_GROUP`` rows a group on average (and at most
       ``DECODE_MAX_ROWS`` rows and ``DECODE_MAX_GROUPS`` groups), k and n
       whole numbers of 16-byte pieces, no transposed weights;
-    * ``"wgmma"``: bf16 on the tensor cores (k and n multiples of 8);
+    * ``"wgmma"``: bf16 or f16 on the tensor cores (k and n multiples of
+      8);
     * ``"fma"``: fp32 FMAs, for float32 and whatever the other two refuse.
 
     Every route is a kernel: a CUDA tensor never reaches
@@ -89,7 +93,7 @@ def fwd_route(m, e, k, n, dtype, trans=False, aligned=True) -> str:
             and m <= DECODE_MAX_ROWS and e <= DECODE_MAX_GROUPS
             and k % vec == 0 and n % vec == 0 and aligned):
         return "decode"
-    if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and aligned:
+    if dtype in HALF_TYPES and k % 8 == 0 and n % 8 == 0 and aligned:
         return "wgmma"
     return "fma"
 
@@ -116,13 +120,13 @@ def dw_route(m, e, k, n, dtype, aligned=True) -> str:
     and ``g [m, n]``) runs, from the static shapes, the dtype and whether
     lhs, g and the result are 16-byte aligned (``aligned``) alone:
 
-    * ``"wgmma"``: bf16 on the tensor cores (k and n multiples of 8, at
-      most ``DW_WGMMA_MAX_GROUPS`` groups);
+    * ``"wgmma"``: bf16 or f16 on the tensor cores (k and n multiples of 8,
+      at most ``DW_WGMMA_MAX_GROUPS`` groups);
     * ``"fma"``: fp32 FMAs, for float32 and whatever ``"wgmma"`` refuses.
 
     ``m`` does not choose (the group sizes stay on the device); every
     route is a kernel: a CUDA tensor never reaches the plain version."""
-    if (dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and aligned
+    if (dtype in HALF_TYPES and k % 8 == 0 and n % 8 == 0 and aligned
             and e <= DW_WGMMA_MAX_GROUPS):
         return "wgmma"
     return "fma"
@@ -204,9 +208,11 @@ def _check(lhs, rhs, group_sizes, trans_rhs=False):
                          f"({rhs.shape[0]},)")
     if lhs.dtype != rhs.dtype:
         raise TypeError(f"grouped_matmul: lhs {lhs.dtype} and rhs "
-                        f"{rhs.dtype} differ (both bfloat16 or both float32)")
+                        f"{rhs.dtype} differ (both float32, bfloat16 or "
+                        f"float16)")
     if lhs.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"grouped_matmul takes float32 or bfloat16, got "
+        raise TypeError(f"grouped_matmul takes float32, bfloat16 or "
+                        f"float16, got "
                         f"{lhs.dtype}")
     if group_sizes.dtype != torch.int32:
         raise TypeError(f"grouped_matmul: group_sizes must be int32, got "
@@ -244,7 +250,7 @@ def grouped_fwd_cuda(lhs, rhs, group_sizes, trans_rhs=False):
                          _build.ptr(rhs), _build.ptr(sizes), _build.ptr(out),
                          m, k, n, e, _build.stream(lhs))
     _build.check(lib, rc, "grouped_matmul")
-    grouped_matmul.launches += 1
+    _build.count(grouped_matmul, lhs)
     grouped_matmul.route_launches[route] += 1
     return out
 
@@ -273,7 +279,7 @@ def grouped_dw(lhs, g, group_sizes):
                         _build.ptr(lhs), _build.ptr(g), _build.ptr(sizes),
                         _build.ptr(drhs), m, k, n, e, _build.stream(lhs))
     _build.check(lib, rc, "grouped_dw")
-    grouped_dw.launches += 1
+    _build.count(grouped_dw, lhs)
     grouped_dw.route_launches[route] += 1
     return drhs
 
@@ -308,7 +314,7 @@ def _decode_check(what, lhs, rhs, group_sizes, rows, kdim):
                          f"{tuple(rhs.shape)}")
     if lhs.dtype != rhs.dtype or lhs.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{what}: lhs {lhs.dtype} and rhs {rhs.dtype} must "
-                        f"both be float32 or both bfloat16")
+                        f"both be float32, bfloat16 or float16")
     if group_sizes.dtype != torch.int32 or tuple(group_sizes.shape) != (
             rhs.shape[0],):
         raise TypeError(f"{what}: group_sizes must be int32 "
@@ -350,7 +356,7 @@ def _decode_launch(what, down, lhs, idx, rhs, group_sizes, gate, keep, m, k,
                             _build.ptr(gate), _build.ptr(keep),
                             _build.ptr(out), m, k, n, e, _build.stream(lhs))
     _build.check(lib, rc, what)
-    grouped_matmul.launches += 1
+    _build.count(grouped_matmul, lhs)
     grouped_matmul.route_launches["decode"] += 1
     return out
 
@@ -433,7 +439,7 @@ def grouped_matmul(lhs, rhs, group_sizes):
     lhs ``[m, k]`` rows sorted by group with ``sum(group_sizes) == m``
     (rows past the ragged total produce unspecified output: callers that
     pad must mask); rhs ``[E, k, n]``; group_sizes ``[E]`` int32 (zeros
-    fine). lhs and rhs both bfloat16 or both float32. Returns ``[m, n]`` in
+    fine). lhs and rhs both float32, bfloat16 or float16. Returns ``[m, n]`` in
     ``lhs.dtype``. Kernel on CUDA, plain on CPU; differentiable in lhs and
     rhs. When no graph is recorded the forward runs without the autograd
     ``Function``."""
@@ -517,7 +523,7 @@ def _lora_lib():
 
 def _lora_check(what, act, w, gs, perm, kdim):
     """The shapes and types both versions take: ``act`` [B, S, width]
-    float32 or bfloat16, ``w`` [cap, ...] float32 whose dim ``kdim``
+    float32, bfloat16 or float16, ``w`` [cap, ...] float32 whose dim ``kdim``
     matches ``act``'s last, ``gs`` [cap] and ``perm`` [B] int32."""
     if act.ndim != 3 or w.ndim != 3 or w.shape[kdim] != act.shape[2]:
         raise ValueError(f"{what}: bad shapes {tuple(act.shape)} "
@@ -528,8 +534,8 @@ def _lora_check(what, act, w, gs, perm, kdim):
                          f"({w.shape[0]},), perm {tuple(perm.shape)} "
                          f"({act.shape[0]},)")
     if act.dtype not in _build.DTYPE_CODES or w.dtype != torch.float32:
-        raise TypeError(f"{what}: activations float32 or bfloat16 and "
-                        f"float32 adapter stacks, got {act.dtype}, "
+        raise TypeError(f"{what}: activations float32, bfloat16 or "
+                        f"float16 and float32 adapter stacks, got {act.dtype}, "
                         f"{w.dtype}")
     if gs.dtype != torch.int32 or perm.dtype != torch.int32:
         raise TypeError(f"{what}: gs and perm must be int32, got "
@@ -548,7 +554,7 @@ def _lora_kernel_takes(what, tensors, aligned):
 
 def lora_shrink(x, perm, a_stack, gs):
     """``t[i] = float(x[src(i)]) @ A[g(i)]`` for the sorted rows i of a
-    multi-LoRA batch: x [B, S, k] (float32 or bfloat16), ``perm`` [B]
+    multi-LoRA batch: x [B, S, k] (float32, bfloat16 or float16), ``perm`` [B]
     int32, a permutation of ``range(B)`` (sorted row i is source row
     ``(perm[i // S], i % S)``),
     ``a_stack`` [cap, k, r] float32, ``gs`` [cap] int32 token counts in
@@ -578,14 +584,14 @@ def lora_shrink(x, perm, a_stack, gs):
                          _build.ptr(gs), _build.ptr(part), _build.ptr(t),
                          m, s, k, r, cap, splits, ks, _build.stream(x))
     _build.check(lib, rc, "lora_shrink")
-    lora_shrink.launches += 1
+    _build.count(lora_shrink, x)
     return t
 
 
 def lora_expand_add(y, t, b_stack, gs, perm):
     """``y[src(i)] = cast_y(float(y[src(i)]) + float(cast_y(t[i] @
     B[g(i)])))`` for every live sorted row i (``i < sum(gs)``), in place:
-    y [B, S, n] (float32 or bfloat16: the projection's output, in the
+    y [B, S, n] (float32, bfloat16 or float16: the projection's output, in the
     type of the activations the correction came from), t float32 [B*S, r]
     (:func:`lora_shrink`), ``b_stack`` [cap, r, n] float32, ``gs`` and
     ``perm`` as there. The correction is an fp32 sum over r rounded once
@@ -617,7 +623,7 @@ def lora_expand_add(y, t, b_stack, gs, perm):
                              _build.ptr(perm), b * s, s, n, r, cap,
                              _build.stream(y))
     _build.check(lib, rc, "lora_expand_add")
-    lora_expand_add.launches += 1
+    _build.count(lora_expand_add, y)
     return y
 
 
@@ -627,3 +633,5 @@ grouped_dw.launches = 0
 grouped_dw.route_launches = {"wgmma": 0, "fma": 0}
 lora_shrink.launches = 0
 lora_expand_add.launches = 0
+for _fn in (grouped_matmul, grouped_dw, lora_shrink, lora_expand_add):
+    _fn.f16 = _build.f16_counter()

@@ -74,7 +74,7 @@ def _rms_norm_cuda(x, weight, epsilon):
                           _build.ptr(w), _build.ptr(y), rows, h,
                           float(epsilon), _build.stream(x2))
     _build.check(lib, rc, "rms_norm")
-    rms_norm.launches += 1
+    _build.count(rms_norm, x)
     return y
 
 
@@ -113,3 +113,4 @@ def rms_norm(x, weight=None, epsilon=1e-6):
 
 
 rms_norm.launches = 0
+rms_norm.f16 = _build.f16_counter()

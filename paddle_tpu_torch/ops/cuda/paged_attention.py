@@ -5,7 +5,7 @@
   query per sequence over its block-table row, the live key range split
   over blocks (:func:`decode_schedule`) and merged.
 * :func:`paged_chunk_attention` (K3, ``csrc/paged_chunk.cu``): ragged
-  multi-query causal attention for chunked prefill; bf16 q on the tensor
+  multi-query causal attention for chunked prefill; bf16 / f16 q on the tensor
   cores, float32 on FMAs (:func:`chunk_route`).
 
 On CUDA tensors each launches its kernel or raises; on CPU tensors each
@@ -50,11 +50,12 @@ DEC_TILE = 32
 DEC_TARGET_BLOCKS = 256
 DEC_MIN_CHUNK = 128
 # the kernel K3 launches for each q dtype (pools of q's type or int8)
-CHUNK_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fma"}
+CHUNK_ROUTES = {torch.bfloat16: "wgmma", torch.float16: "wgmma",
+                torch.float32: "fma"}
 
 # launches of the int8-pool mode of K4 / K3 (``ops.cuda.kernels()``)
-paged_decode_i8 = SimpleNamespace(launches=0)
-paged_chunk_i8 = SimpleNamespace(launches=0)
+paged_decode_i8 = SimpleNamespace(launches=0, f16=_build.f16_counter())
+paged_chunk_i8 = SimpleNamespace(launches=0, f16=_build.f16_counter())
 
 
 def _check_pool(q, k_pool, v_pool, k_scale, v_scale, what):
@@ -255,13 +256,14 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lens, *,
         n, bs, mb, scale, int(window or 0), nsplit, chunk, int(partials),
         _build.stream(q))
     _build.check(lib, rc, "paged_decode_attention")
-    (paged_decode_attention if k_scale is None
-     else paged_decode_i8).launches += 1
+    _build.count(paged_decode_attention if k_scale is None
+                 else paged_decode_i8, q)
     paged_decode_attention.nsplit = nsplit
     return (acc, m, l) if partials else o
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.f16 = _build.f16_counter()
 paged_decode_attention.nsplit = None
 
 
@@ -310,13 +312,14 @@ def paged_chunk_attention_plain(q, k_pool, v_pool, block_tables, offsets,
 
 
 def chunk_route(dtype):
-    """The kernel K3 runs for q of ``dtype``: "wgmma" (bf16, the tensor
-    cores) or "fma" (float32, exact to 1e-4)."""
+    """The kernel K3 runs for q of ``dtype``: "wgmma" (bf16 or f16, the
+    tensor cores) or "fma" (float32, exact to 1e-4)."""
     try:
         return CHUNK_ROUTES[dtype]
     except KeyError:
         raise TypeError(f"paged_chunk_attention: the CUDA kernel takes "
-                        f"float32 or bfloat16 q, got {dtype}") from None
+                        f"float32, bfloat16 or float16 q, got {dtype}"
+                        ) from None
 
 
 _chunk_sig = False
@@ -378,9 +381,10 @@ def paged_chunk_attention(q, k_pool, v_pool, block_tables, offsets,
         n, bs, tables.shape[1], scale, int(window or 0), int(partials),
         _build.stream(q))
     _build.check(lib, rc, "paged_chunk_attention")
-    (paged_chunk_attention if k_scale is None
-     else paged_chunk_i8).launches += 1
+    _build.count(paged_chunk_attention if k_scale is None
+                 else paged_chunk_i8, q)
     return (acc, m, l) if partials else o
 
 
 paged_chunk_attention.launches = 0
+paged_chunk_attention.f16 = _build.f16_counter()

@@ -124,7 +124,7 @@ def _rope_cuda(x, cos, sin, neg=False):
     rc = lib.rope_fwd(code, 16 if vec else 1, xp, cp, sp, op, n, h, d, stride,
                       r, int(neg), _build.stream(x))
     _build.check(lib, rc, "rope")
-    fused_rope.launches += 1
+    _build.count(fused_rope, x)
     return out
 
 
@@ -147,7 +147,7 @@ class _Rope(torch.autograd.Function):
 
 
 def fused_rope(x, cos, sin):
-    """x [..., H, D] (bf16 or fp32; a strided q/k view is read in place),
+    """x [..., H, D] (bf16, f16 or fp32; a strided q/k view is read in place),
     cos/sin fp32 [R, D/2] with R dividing the row count -> contiguous, like
     x. Kernel on CUDA, plain on CPU; differentiable in x. When no graph is
     recorded the forward runs without the autograd ``Function``."""
@@ -235,9 +235,11 @@ def rope_kv_write(q, k, v, cos, sin, k_pool, v_pool, dest):
                            dest.data_ptr(), b, hq, hkv, d, r,
                            _build.stream(q))
     _build.check(lib, rc, "rope_kv_write")
-    rope_kv_write.launches += 1
+    _build.count(rope_kv_write, q)
     return out
 
 
 fused_rope.launches = 0
+fused_rope.f16 = _build.f16_counter()
 rope_kv_write.launches = 0
+rope_kv_write.f16 = _build.f16_counter()

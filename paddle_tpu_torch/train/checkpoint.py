@@ -277,7 +277,13 @@ def _load_impl(path, target, verify: bool) -> Any:
                    and v.dtype.kind == "V" else v)
                for k, (v, dt) in by_path.items()}
     else:
-        out = _restore(target, by_path, "")
+        # every leaf is found and checked before the first write, so a
+        # failed restore leaves the target as it was
+        writes = []
+        out = _restore(target, by_path, "", writes)
+        with torch.no_grad():
+            for w in writes:
+                w()
     _CKPT_RESTORES.inc()
     _CKPT_RESTORE_S.observe(time.monotonic() - t0)
     return out
@@ -289,37 +295,48 @@ def _value(by_path, ps):
     return by_path[ps]
 
 
-@torch.no_grad()
-def _restore_leaf(leaf, val, dt, ps):
+def _decoded_like(leaf, val, dt, ps):
+    """The stored value of a tensor / array leaf as a tensor, after checking
+    its shape and its kind (floating or not) against the target leaf."""
+    t = _decode(np.asarray(val), dt)
+    if tuple(t.shape) != tuple(leaf.shape):
+        raise ValueError(f"{ps}: shape {tuple(t.shape)} != "
+                         f"{tuple(leaf.shape)}")
+    floating = (leaf.is_floating_point() if isinstance(leaf, torch.Tensor)
+                else np.issubdtype(leaf.dtype, np.floating))
+    if t.is_floating_point() != floating:
+        raise ValueError(f"{ps}: stored {t.dtype} cannot restore a "
+                         f"{leaf.dtype} leaf")
+    return t
+
+
+def _restore_leaf(leaf, val, dt, ps, writes):
+    """The restored leaf; an in-place write into a live tensor or generator
+    is appended to ``writes`` and made only once every leaf checked."""
     if isinstance(leaf, torch.Generator):
-        leaf.set_state(torch.from_numpy(np.array(val, dtype=np.uint8)))
+        st = torch.from_numpy(np.array(val, dtype=np.uint8))
+        writes.append(lambda: leaf.set_state(st))
         return leaf
     if isinstance(leaf, torch.Tensor):
-        t = _decode(np.asarray(val), dt)
-        if tuple(t.shape) != tuple(leaf.shape):
-            raise ValueError(f"{ps}: shape {tuple(t.shape)} != "
-                             f"{tuple(leaf.shape)}")
-        leaf.copy_(t.to(dtype=leaf.dtype))
+        t = _decoded_like(leaf, val, dt, ps)
+        writes.append(lambda: leaf.copy_(t.to(dtype=leaf.dtype)))
         return leaf
     if isinstance(leaf, np.ndarray):
-        t = _decode(np.asarray(val), dt)
-        if tuple(t.shape) != leaf.shape:
-            raise ValueError(f"{ps}: shape {tuple(t.shape)} != {leaf.shape}")
-        return t.numpy().astype(leaf.dtype)
+        return _decoded_like(leaf, val, dt, ps).numpy().astype(leaf.dtype)
     return val if val is not None else leaf
 
 
-def _restore(target, by_path, prefix):
+def _restore(target, by_path, prefix, writes):
     from paddle_tpu_torch.train.step import TrainState
     kids = _children(target)
     if kids is None:
         val, dt = _value(by_path, prefix)
-        return _restore_leaf(target, val, dt, prefix)
-    new = {k: _restore(v, by_path, _join(prefix, k)) for k, v in kids}
+        return _restore_leaf(target, val, dt, prefix, writes)
+    new = {k: _restore(v, by_path, _join(prefix, k), writes) for k, v in kids}
     if isinstance(target, TrainState):
         return TrainState(new["model"], new["opt_state"], new["rng"])
     if isinstance(target, torch.nn.Module):
-        return target        # its state_dict tensors were copied in place
+        return target        # its state_dict tensors are copied in place
     if isinstance(target, dict):
         return new
     return type(target)(new[i] for i in range(len(target)))

@@ -11,8 +11,9 @@ The NaN guard skips on the device. The reference wraps the update in
 ``jnp.where(isfinite(loss), new, old)`` over the model and the optimizer
 state, so a skipped update does not advance ``opt_state["step"]`` nor the
 LR schedule. Here the step hands the optimizer ``ok = isfinite(loss)``
-(a device bool), the learning rate and the bias-correction count read
-from tables indexed by a DEVICE step counter that advances by ``ok``:
+(a device bool), the bias-correction count and a scheduler's learning
+rate read from a DEVICE step counter that advances by ``ok`` (a float
+learning rate comes from the state, as a ``set_lr`` during the fit left it):
 every parameter, master copy and slot keeps its bits where ``ok`` is
 False (``Optimizer.step``'s masked update), and the next step reads the
 same learning rate again — with no host read. The host's
@@ -53,6 +54,7 @@ from paddle_tpu_torch.observability import METRICS, span as _span
 from paddle_tpu_torch.observability.flight import FLIGHT
 from paddle_tpu_torch.observability.flops import (chip_peak_flops,
                                                   record_throughput)
+from paddle_tpu_torch.optimizer.lr import LRScheduler
 from paddle_tpu_torch.train.checkpoint import CheckpointManager
 from paddle_tpu_torch.train.step import TrainState, init_state
 from paddle_tpu_torch.utils.faults import fault_point, fault_value
@@ -119,13 +121,17 @@ class Trainer:
 
     # ------------------------------------------------------------ the step
     def _schedule_tables(self, start: int):
-        """The learning rate for every host step of this fit, as a float64
-        device table (the device counter indexes it)."""
+        """The device step counter and, for an ``LRScheduler``, its learning
+        rate at every host step of this fit as a float64 device table (the
+        counter indexes it). A float lr is read from the state each step,
+        so a ``set_lr`` made during the fit applies, as the reference's."""
         st = self.state.opt_state
-        lrs = [float(self.optimizer._lr({**st, "step": s}))
-               for s in range(start, self.args.max_steps + 1)]
-        self._tables = (start, torch.tensor(lrs, dtype=torch.float64,
-                                            device=self.device))
+        self._tables = None
+        if isinstance(self.optimizer.learning_rate, LRScheduler):
+            lrs = [float(self.optimizer._lr({**st, "step": s}))
+                   for s in range(start, self.args.max_steps + 1)]
+            self._tables = (start, torch.tensor(lrs, dtype=torch.float64,
+                                                device=self.device))
         self._dstep = torch.full((), start, dtype=torch.int64,
                                  device=self.device)
 
@@ -167,9 +173,13 @@ class Trainer:
         if not self.args.nan_guard:
             _, st = self.optimizer.step(model, grads, st)
         else:
-            start, lrs = self._tables
             ok = torch.isfinite(loss)
-            lr = torch.index_select(lrs, 0, (self._dstep - start).view(1))[0]
+            if self._tables is None:
+                lr = self.optimizer._lr(st)     # a host float: no sync
+            else:
+                start, lrs = self._tables
+                lr = torch.index_select(lrs, 0,
+                                        (self._dstep - start).view(1))[0]
             _, st = self.optimizer.step(model, grads, st, ok=ok, lr=lr,
                                         t=self._dstep + 1)
             self._dstep += ok

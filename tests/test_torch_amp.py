@@ -58,8 +58,9 @@ def test_policy_casts_a_copy_and_auto_cast_sets_the_default():
 def test_supported_helpers():
     assert amp.is_bfloat16_supported() is True
     assert amp.is_float16_supported("cpu") is True
-    assert amp.is_float16_supported("cuda") is False   # the card's kernels
-    assert amp.is_float16_supported() is False         # None: the card
+    # every kernel of the card has a float16 instantiation
+    assert amp.is_float16_supported("cuda") is True
+    assert amp.is_float16_supported() is True          # None: the card
 
 
 # --------------------------------------------------------------- scaler

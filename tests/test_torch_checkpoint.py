@@ -427,3 +427,45 @@ def test_elastic_recovers_and_matches_clean_run(tmp_path, site, hit, steps):
     for a, b in zip(state.model.parameters(), clean.model.parameters()):
         assert torch.equal(a, b)
     assert METRICS.snapshot()["counters"]["elastic_restarts_total"] == 1
+
+
+# ------------------------------------------- a failed restore writes nothing
+
+def _filled(widths, v):
+    layers = [torch.nn.Linear(a, b) for a, b in zip(widths, widths[1:])]
+    net = torch.nn.Sequential(*layers)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.fill_(v)
+    return net
+
+
+def _all_equal(net, v):
+    return all(bool((p == v).all()) for p in net.parameters())
+
+
+@pytest.mark.parametrize("target_widths,err", [
+    ((4, 3, 2), ValueError),       # the second layer's shape differs
+    ((4, 3, 5, 2), KeyError),      # the third layer is not in the file
+])
+def test_failed_restore_leaves_target_unchanged(tmp_path, target_widths, err):
+    """Every leaf is checked before the first copy: the first layer, which
+    would fit, still reads 1.0 after the restore raised."""
+    save(_filled((4, 3, 5), 7.0), tmp_path / "c")
+    target = _filled(target_widths, 1.0)
+    with pytest.raises(err):
+        load(tmp_path / "c", target=target)
+    assert _all_equal(target, 1.0)
+
+
+def test_manager_restore_failing_every_candidate_leaves_target(tmp_path):
+    mgr = CheckpointManager(tmp_path, max_to_keep=5)
+    for s in (1, 2):
+        mgr.save(s, _filled((4, 3, 5), 7.0))
+    target = _filled((4, 3, 2), 1.0)
+    with pytest.raises(CheckpointCorruptError, match="no loadable"):
+        mgr.restore(target)
+    assert _all_equal(target, 1.0)
+    ok = _filled((4, 3, 5), 1.0)
+    mgr.restore(ok)
+    assert _all_equal(ok, 7.0)

@@ -10,6 +10,7 @@ no JAX, with the repository's conftest (which imports JAX) left out::
 import pytest
 import torch
 
+from paddle_tpu_torch.ops.cuda import _build
 from paddle_tpu_torch.ops.cuda import flash_attention as TF
 from paddle_tpu_torch.ops.cuda import grouped_matmul as TG
 from paddle_tpu_torch.ops.cuda import norms as TN
@@ -19,7 +20,8 @@ from paddle_tpu_torch.ops.cuda import rope as TR
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)])
 def test_cuda_kernels_match_plain_versions(dtype, tol):
     """Each CUDA kernel against its plain version on the card, at a small
     shape with GQA, ragged lengths and a sentinel table slot. bf16: the
@@ -97,7 +99,8 @@ def test_engine_on_card_matches_cpu_and_launches_every_kernel():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)])
 @pytest.mark.parametrize("d", [64, 128])
 def test_rope_kernel_forward_bit_identical_backward_close(dtype, tol, d):
     """K7 on strided q/k views of a fused QKV product (GQA), with a shared
@@ -208,25 +211,28 @@ RMS_CARD_CASES = {
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("xdtype,tol", [(torch.float32, 1e-4),
-                                        (torch.bfloat16, 2e-2)],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
-                         ids=["w_f32", "w_bf16"])
+                                        (torch.bfloat16, 2e-2),
+                                        (torch.float16, 2e-2)],
+                         ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16,
+                                    torch.float16],
+                         ids=["w_f32", "w_bf16", "w_f16"])
 @pytest.mark.parametrize("case", RMS_CARD_CASES.keys())
 def test_rms_norm_kernel_matches_plain_across_widths(xdtype, tol, wdtype,
                                                      case):
     """K1 against the plain version at the widths and row counts of
-    RMS_CARD_CASES, bf16 and fp32 x under bf16 and fp32 weights; every
-    launch counted."""
+    RMS_CARD_CASES, bf16, f16 and fp32 x under bf16, f16 and fp32 weights;
+    every launch counted (a float16 x also on the float16 count)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the chip)")
     h, rows = RMS_CARD_CASES[case]
     g = torch.Generator(device="cuda").manual_seed(h + rows)
     w = (1.0 + 0.1 * torch.randn(h, generator=g, device="cuda")).to(wdtype)
     x = (3 * torch.randn(rows, h, generator=g, device="cuda")).to(xdtype)
-    n0 = TN.rms_norm.launches
+    n0, f0 = TN.rms_norm.launches, TN.rms_norm.f16.launches
     got = TN.rms_norm(x, w, 1e-5)
     assert TN.rms_norm.launches == n0 + 1
+    assert TN.rms_norm.f16.launches == f0 + (xdtype == torch.float16)
     ref = TN.rms_norm_plain(x, w, 1e-5)
     assert got.dtype == xdtype and got.shape == x.shape
     d = (got.float() - ref.float()).abs() / (1 + ref.float().abs())
@@ -235,7 +241,8 @@ def test_rms_norm_kernel_matches_plain_across_widths(xdtype, tol, wdtype,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)])
 @pytest.mark.parametrize("case", ["causal", "full", "gqa_window_lens"])
 def test_flash_backward_kernels_match_plain(dtype, tol, case):
     """K5a/K5b against flash_attention_bwd_plain from the same saved O and
@@ -286,8 +293,9 @@ EDGE_CASES = {
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)],
-                         ids=["f32", "bf16"])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)],
+                         ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("case", EDGE_CASES.keys())
 def test_flash_kernels_match_plain_at_tile_edges(dtype, tol, d, case):
@@ -305,7 +313,7 @@ def test_flash_kernels_match_plain_at_tile_edges(dtype, tol, d, case):
     dev = torch.device("cuda")
     b, s, sk, h, hkv, causal, window, lens = EDGE_CASES[case]
     assert TF.kernel_route(dtype, d) == (
-        "wgmma" if dtype == torch.bfloat16 else "fma")
+        "fma" if dtype == torch.float32 else "wgmma")
     g = torch.Generator(device=dev).manual_seed(4)
 
     def rnd(*shape):
@@ -346,8 +354,9 @@ def test_flash_kernels_match_plain_at_tile_edges(dtype, tol, d, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)],
-                         ids=["f32", "bf16"])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)],
+                         ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("per_row", [False, True], ids=["h", "bh"])
 @pytest.mark.parametrize("case", EDGE_CASES.keys())
@@ -410,8 +419,9 @@ def test_flash_alibi_kernels_match_plain_at_tile_edges(dtype, tol, d,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)],
-                         ids=["f32", "bf16"])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)],
+                         ids=["f32", "bf16", "f16"])
 def test_flash_alibi_kernels_at_head_dim_256_match_plain(dtype, tol):
     """The ALiBi instantiation of K2, K5a and K5b at head dim 256, once a
     route: the tile-edge test above at GQA 32/8, S off the tiles, [B, H]
@@ -430,12 +440,14 @@ DQ_CASES = {
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
 @pytest.mark.parametrize("case", DQ_CASES.keys())
-def test_flash_dq_tensor_core_route_matches_plain(d, group, case):
-    """K5a's bf16 route (kernel_route "wgmma": dS rounded to bf16, as the
-    Pallas kernel rounds it to q's type) against flash_attention_bwd_plain's
+def test_flash_dq_tensor_core_route_matches_plain(dtype, d, group, case):
+    """K5a's bf16 and f16 route (kernel_route "wgmma": dS rounded to q's
+    type, as the Pallas kernel rounds it) against flash_attention_bwd_plain's
     dq within 2e-2 * (1 + |x|): S off the 64-row tiles, GQA groups 1-8, a
     kv_lens row shorter than one key tile, a sliding window, and rows with
     no live key (five queries end-aligned past kv_lens 3, and a row of
@@ -447,12 +459,12 @@ def test_flash_dq_tensor_core_route_matches_plain(d, group, case):
     b, s, sk, causal, window, lens = DQ_CASES[case]
     hkv = 2
     h = hkv * group
-    assert TF.kernel_route(torch.bfloat16, d) == "wgmma"
+    assert TF.kernel_route(dtype, d) == "wgmma"
     assert "flash_bwd_dq" in TF.ROUTED
     g = torch.Generator(device=dev).manual_seed(6)
 
     def rnd(*shape):
-        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
     q, do = rnd(b, s, h, d), rnd(b, s, h, d)
     k, v = rnd(b, sk, hkv, d), rnd(b, sk, hkv, d)
@@ -468,12 +480,13 @@ def test_flash_dq_tensor_core_route_matches_plain(d, group, case):
     do = do * padded[:, :, None, None]
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     n0 = TF.flash_bwd_dq.launches
-    runs = [TF.flash_bwd_dq(1, q, k, v, do, lse, delta, *args)
+    code = TF._check_cuda(q, k, v, "dq")
+    runs = [TF.flash_bwd_dq(code, q, k, v, do, lse, delta, *args)
             for _ in range(2)]
     assert TF.flash_bwd_dq.launches == n0 + 2
     assert torch.equal(runs[0], runs[1])
     ref = TF.flash_attention_bwd_plain(q, k, v, o, lse, do, *args)[0]
-    assert runs[0].dtype == ref.dtype == torch.bfloat16
+    assert runs[0].dtype == ref.dtype == dtype
     err = (runs[0].float() - ref.float()).abs() / (1 + ref.float().abs())
     assert float(err.max()) <= 2e-2
     if case == "dead_rows":
@@ -482,11 +495,13 @@ def test_flash_dq_tensor_core_route_matches_plain(d, group, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
 @pytest.mark.parametrize("trans", [False, True], ids=["forward", "dlhs"])
 @pytest.mark.parametrize("k,n", [(72, 200), (2048, 256)],
                          ids=["k72", "k2048"])
-def test_grouped_fwd_tensor_core_route_matches_plain(trans, k, n):
-    """K6a's bf16 route (fwd_route "wgmma"), forward and read transposed
+def test_grouped_fwd_tensor_core_route_matches_plain(dtype, trans, k, n):
+    """K6a's bf16 and f16 route (fwd_route "wgmma"), forward and read transposed
     (dlhs), against grouped_matmul_plain within 2e-2 * (1 + |x|) over
     empty groups and groups of 1, 63, 64, 65, 129 and 300 rows (tails of
     the 64-row warpgroups and 128-row tiles), at a k off the 64-wide slabs
@@ -499,12 +514,12 @@ def test_grouped_fwd_tensor_core_route_matches_plain(trans, k, n):
     e, total = len(sizes), sum(sizes)
     m = total + 5
     g = torch.Generator(device=dev).manual_seed(8)
-    lhs = torch.randn(m, k, generator=g, device=dev).bfloat16()
+    lhs = torch.randn(m, k, generator=g, device=dev).to(dtype)
     shape = (e, n, k) if trans else (e, k, n)
     rhs = (torch.randn(*shape, generator=g, device=dev) * k ** -0.5
-           ).bfloat16()
+           ).to(dtype)
     gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
-    assert TG.fwd_route(m, e, k, n, torch.bfloat16, trans) == "wgmma"
+    assert TG.fwd_route(m, e, k, n, dtype, trans) == "wgmma"
     n0 = TG.grouped_matmul.launches
     runs = [TG.grouped_fwd_cuda(lhs, rhs, gs, trans) for _ in range(2)]
     assert TG.grouped_matmul.launches == n0 + 2
@@ -513,11 +528,12 @@ def test_grouped_fwd_tensor_core_route_matches_plain(trans, k, n):
     err = ((runs[0][:total].float() - ref[:total].float()).abs()
            / (1 + ref[:total].float().abs()))
     assert float(err.max()) <= 2e-2
-    out = torch.full((m, n), float("nan"), dtype=torch.bfloat16, device=dev)
+    out = torch.full((m, n), float("nan"), dtype=dtype, device=dev)
     lib = TG._lib()
-    rc = lib.grouped_fwd(1, int(trans), TG._KIND["wgmma"], lhs.data_ptr(),
-                         rhs.data_ptr(), gs.data_ptr(), out.data_ptr(), m, k,
-                         n, e, torch.cuda.current_stream().cuda_stream)
+    rc = lib.grouped_fwd(_build.dtype_code(lhs, "k6"), int(trans),
+                         TG._KIND["wgmma"], lhs.data_ptr(), rhs.data_ptr(),
+                         gs.data_ptr(), out.data_ptr(), m, k, n, e,
+                         torch.cuda.current_stream().cuda_stream)
     assert rc == 0
     torch.cuda.synchronize()
     assert torch.equal(out[:total], runs[0][:total])
@@ -532,10 +548,12 @@ def _plain_drhs(lhs, g, sizes, e):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
 @pytest.mark.parametrize("case", ["ragged_k200_n264", "train_gate_up",
                                   "train_down"])
-def test_grouped_dw_tensor_core_route_matches_plain(case):
-    """K6b's bf16 route (dw_route "wgmma") against the plain drhs within
+def test_grouped_dw_tensor_core_route_matches_plain(dtype, case):
+    """K6b's bf16 and f16 route (dw_route "wgmma") against the plain drhs within
     2e-2 * (1 + |x|): over groups of 0, 1, 63, 64, 65, 130, 0 and 700 rows
     at k 200, n 264 (no multiples of the 128 x 256 tile), with rows past
     the ragged total that hold inf (lhs) and NaN (g) and must not be
@@ -556,19 +574,19 @@ def test_grouped_dw_tensor_core_route_matches_plain(case):
         sizes = torch.bincount(choice.reshape(-1), minlength=60).tolist()
         pad = 0
     e, total = len(sizes), sum(sizes)
-    lhs = torch.randn(total + pad, k, generator=g, device=dev).bfloat16()
-    cot = torch.randn(total + pad, n, generator=g, device=dev).bfloat16()
+    lhs = torch.randn(total + pad, k, generator=g, device=dev).to(dtype)
+    cot = torch.randn(total + pad, n, generator=g, device=dev).to(dtype)
     lhs[total:] = float("inf")
     cot[total:] = float("nan")
     gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
-    assert TG.dw_route(total + pad, e, k, n, torch.bfloat16) == "wgmma"
+    assert TG.dw_route(total + pad, e, k, n, dtype) == "wgmma"
     n0 = TG.grouped_dw.launches
     w0 = TG.grouped_dw.route_launches["wgmma"]
     runs = [TG.grouped_dw(lhs, cot, gs) for _ in range(2)]
     assert TG.grouped_dw.launches == n0 + 2
     assert TG.grouped_dw.route_launches["wgmma"] == w0 + 2
     assert torch.equal(runs[0], runs[1])
-    assert runs[0].shape == (e, k, n) and runs[0].dtype == torch.bfloat16
+    assert runs[0].shape == (e, k, n) and runs[0].dtype == dtype
     ref = _plain_drhs(lhs[:total], cot[:total], gs, e)
     err = (runs[0].float() - ref.float()).abs() / (1 + ref.float().abs())
     assert float(err.max()) <= 2e-2
@@ -618,7 +636,8 @@ def test_train_step_on_card_matches_cpu_and_launches_its_kernels():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)])
 @pytest.mark.parametrize("sizes,n,rows_kernel", [
     ([5, 0, 1, 130, 0, 70, 1, 0], 200, False),       # the tiled kernel
     ([1, 0, 2, 0, 0, 17, 1, 0, 3, 0], 200, True),    # the decode route
@@ -781,7 +800,8 @@ def _int8_pool(g, dev, n, bs, h_kv, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
 def test_paged_kernels_int8_pools_match_plain(dtype, tol, d, group):
@@ -1074,7 +1094,9 @@ def test_gemma_gptj_on_card_match_cpu_and_launch_their_kernels(
 # pool modes: (q dtype, int8 pool?, tolerance)
 PAGED_MODES = {"f32": (torch.float32, False, 1e-4),
                "bf16": (torch.bfloat16, False, 2e-2),
-               "int8": (torch.bfloat16, True, 2e-2)}
+               "int8": (torch.bfloat16, True, 2e-2),
+               "f16": (torch.float16, False, 2e-2),
+               "int8_f16": (torch.float16, True, 2e-2)}
 STALE = 1e4     # planted in pool rows no table row may read
 
 
@@ -1569,7 +1591,8 @@ def _scaled(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("rank", [4, 8, 16])
 @pytest.mark.parametrize("cap", [4, 1])
 @pytest.mark.parametrize("width", [1, 5, 128])
@@ -1578,8 +1601,9 @@ def test_lora_kernels_match_plain(width, cap, rank, dtype):
     12288 for qkv and 4096 for o) at decode, the verify width and prefill
     (8 slots of 1, 5 and 128 tokens), ranks 4, 8, 16, caps 4 (an empty
     group) and 1, a null tail: the shrink's t within 1e-5 of its plain
-    version (fp32), the expand's y within 1e-5 (fp32) or one bf16 step,
-    the null-adapter rows of y untouched, one launch counted each, and two
+    version (fp32), the expand's y within 1e-5 (fp32) or one bf16 step
+    (bf16 and f16, whose step is finer), the null-adapter rows of y
+    untouched, one launch counted each, and two
     launches bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the chip)")
@@ -1669,7 +1693,7 @@ def test_engine_refuses_an_adapter_rank_the_expand_refuses():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8", "f16"])
 def test_paged_chunk_at_verify_width_matches_plain(mode):
     """K3 at the speculative verify width: 8 rows of at most spec_k + 1 =
     5 queries (32 heads over 32 KV heads, D 128) at offsets whose chunk
@@ -1700,6 +1724,8 @@ def test_paged_chunk_at_verify_width_matches_plain(mode):
         q, tol = q.bfloat16(), 2e-2
     elif mode == "bf16":
         q, kp, vp, tol = q.bfloat16(), kp.bfloat16(), vp.bfloat16(), 2e-2
+    elif mode == "f16":
+        q, kp, vp, tol = q.half(), kp.half(), vp.half(), 2e-2
     got = TPA.paged_chunk_attention(q, kp, vp, tables, offs, cls, **kw)
     ref = TPA.paged_chunk_attention_plain(q, kp, vp, tables, offs, cls,
                                           **kw)
@@ -1931,7 +1957,8 @@ def _decode_case(dtype, k, n, seed, extra=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)])
 @pytest.mark.parametrize("k,n", [(72, 200), (1408, 2048), (2048, 2816)])
 def test_moe_decode_products_match_plain(dtype, tol, k, n):
     """K6a's decode route with the MoE glue folded in, against the plain
@@ -1969,7 +1996,8 @@ def test_moe_decode_products_match_plain(dtype, tol, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_moe_decode_leaves_rows_past_the_total_untouched(dtype):
     """Rows past sum(group_sizes) are neither read nor written: the
     identity and gather modes leave those rows of ``out`` as they were,
@@ -2009,7 +2037,8 @@ def test_moe_decode_leaves_rows_past_the_total_untouched(dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("hq,hkv,d,odd", [
     (32, 8, 128, False),       # Llama-2-7B's GQA widths (Mistral-7B's)
     (16, 16, 128, False),      # Qwen1.5-MoE-A2.7B
@@ -2793,26 +2822,56 @@ def test_prefetch_side_stream_orders_the_copies():
 
 @pytest.mark.cuda
 def test_float16_model_refused_on_card():
-    """The card's kernels take float32 and bfloat16: a float16 model is
-    refused by name (TypeError), not run on a plain path."""
+    """A float16 model runs on the card (this test once held its refusal):
+    its logits, loss and gradients against the same float16 weights on the
+    CPU's plain path within 2e-2 of their RMS (both round to float16 at
+    different places), every kernel of the forward and backward on its
+    float16 instantiation (each launch on the float16 count)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the chip)")
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-    m = LlamaForCausalLM(LlamaConfig.tiny(hidden_size=256,
-                                          num_attention_heads=4,
-                                          dtype=torch.float16), device="cuda")
-    ids = torch.randint(0, 256, (2, 16), device="cuda")
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        m(ids)
-    assert amp.is_float16_supported("cuda") is False
+    from paddle_tpu_torch.ops import cuda as K
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=2,
+                           num_key_value_heads=1, dtype=torch.float16)
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    card = LlamaForCausalLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (2, 40), generator=g)
+    labels = torch.roll(ids, -1, 1)
+
+    def rel(a, b):
+        a, b = a.detach().float().cpu(), b.detach().float()
+        return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+    K.reset_launches()
+    got = card(ids.cuda())
+    loss = card.loss(ids.cuda(), labels.cuda())
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = K.launches()
+    want = cpu(ids)
+    want_loss = cpu.loss(ids, labels)
+    want_loss.backward()
+    assert got.dtype == torch.float16 and bool(torch.isfinite(got).all())
+    assert rel(got, want) <= 2e-2
+    assert abs(float(loss) - float(want_loss)) <= 2e-2 * abs(float(want_loss))
+    for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+        assert rel(p.grad, q.grad) <= 2e-2, name
+    for name in K.TRAIN_KERNELS:
+        assert counts[name] > 0 and counts[f"{name}_f16"] == counts[name], (
+            name, counts)
+    assert amp.is_float16_supported("cuda") is True
 
 
 @pytest.mark.cuda
-def test_grad_scaler_and_guarded_step_make_no_host_sync():
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_grad_scaler_and_guarded_step_make_no_host_sync(dtype):
     """The scaler's methods and the Trainer's guarded update (the NaN
     guard, the learning-rate lookup, the masked AdamW step with its clip)
-    run under set_sync_debug_mode("error"): any host read raises."""
+    run under set_sync_debug_mode("error"): any host read raises. bf16 and
+    float16 models; the scaler over gradients of the model's type."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the chip)")
     from paddle_tpu_torch import amp
@@ -2822,11 +2881,11 @@ def test_grad_scaler_and_guarded_step_make_no_host_sync():
     dev = torch.device("cuda")
     sc = amp.GradScaler(init_loss_scaling=1024.0)
     st = sc.init(dev)
-    grads = {"a": torch.ones(8, device=dev), "b": torch.full(
-        (4,), float("inf"), device=dev)}
+    grads = {"a": torch.ones(8, dtype=dtype, device=dev), "b": torch.full(
+        (4,), float("inf"), dtype=dtype, device=dev)}
     m = LlamaForCausalLM(LlamaConfig.tiny(hidden_size=256,
                                           num_attention_heads=4,
-                                          dtype=torch.bfloat16), device=dev)
+                                          dtype=dtype), device=dev)
     tr = Trainer(m, O.AdamW(1e-3, multi_precision=True,
                             grad_clip=O.ClipGradByGlobalNorm(1.0)),
                  lambda mm, i, lab: mm.loss(i, lab),

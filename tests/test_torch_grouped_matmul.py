@@ -133,8 +133,8 @@ def test_bad_shapes_and_types_raise():
         GM.grouped_matmul(lhs, rhs, gs[:-1])
     with pytest.raises(TypeError, match="differ"):
         GM.grouped_matmul(lhs.bfloat16(), rhs, gs)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        GM.grouped_matmul(lhs.half(), rhs.half(), gs)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        GM.grouped_matmul(lhs.double(), rhs.double(), gs)
     with pytest.raises(TypeError, match="int32"):
         GM.grouped_matmul(lhs, rhs, gs.long())
 

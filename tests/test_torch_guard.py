@@ -191,7 +191,13 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
         "remat_train": K.REMAT_TRAIN_KERNELS,
         "trainer_fit": K.TRAINER_FIT_KERNELS,
         "lora_train": K.LORA_TRAIN_KERNELS,
-        "fp8_train": K.FP8_TRAIN_KERNELS}
+        "fp8_train": K.FP8_TRAIN_KERNELS,
+        "paged_generate": K.PAGED_GENERATE_KERNELS,
+        "f16_serve": K.F16_SERVE_KERNELS,
+        "f16_serve_i8": K.F16_SERVE_I8_KERNELS,
+        "f16_train": K.F16_TRAIN_KERNELS,
+        "f16_moe_serve": K.F16_MOE_SERVE_KERNELS,
+        "f16_moe_train": K.F16_MOE_TRAIN_KERNELS}
     # K7 rotates every rotate-half rope of every path; the ALiBi paths
     # (BLOOM, falcon-rw) have no rope and run K2's (and K5's) ALiBi mode
     # instead, and GPT-J's interleaved rope is plain PyTorch, as the
@@ -199,8 +205,12 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
     alibi = {p for p in chip_smoke.PATHS if p.startswith(("bloom",
                                                           "falcon_rw"))}
     gptj = {p for p in chip_smoke.PATHS if p.startswith("gptj")}
-    assert all("rope" in names for p, names in chip_smoke.PATHS.items()
+    # (a float16 path's names are the float16 counters: "rope_f16")
+    assert all({"rope", "rope_f16"} & set(names)
+               for p, names in chip_smoke.PATHS.items()
                if p not in alibi | gptj)
+    assert all(n.endswith("_f16") for p, names in chip_smoke.PATHS.items()
+               if p.startswith("f16_") for n in names)
     assert all("rope" not in chip_smoke.PATHS[p]
                and "flash_fwd" in chip_smoke.PATHS[p] for p in gptj)
     assert all("flash_fwd_alibi" in chip_smoke.PATHS[p]

@@ -357,16 +357,17 @@ def test_paged_decode_matches_pallas(h, hkv, window):
 
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_kernel_route_by_dtype_and_head_dim(d):
-    """K2, K5a and K5b run bf16 on the tensor cores and float32 on fp32
-    FMAs at head dims 64, 128 and 256; another head dim (96) or dtype has
-    no kernel and raises."""
+    """K2, K5a and K5b run bf16 and float16 on the tensor cores and float32
+    on fp32 FMAs at head dims 64, 128 and 256; another head dim (96) or
+    dtype (float64) has no kernel and raises."""
     assert TF.ROUTED == ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     assert TF.kernel_route(torch.bfloat16, d) == "wgmma"
+    assert TF.kernel_route(torch.float16, d) == "wgmma"
     assert TF.kernel_route(torch.float32, d) == "fma"
     with pytest.raises(NotImplementedError, match="head_dim 96"):
         TF.kernel_route(torch.bfloat16, 96)
     with pytest.raises(TypeError):
-        TF.kernel_route(torch.float16, d)
+        TF.kernel_route(torch.float64, d)
 
 
 def test_paged_kernels_refuse_unported_modes():

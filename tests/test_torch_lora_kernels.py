@@ -144,7 +144,7 @@ def test_wrappers_refuse_bad_shapes_and_types():
     with pytest.raises(ValueError):
         GM.lora_shrink(x, perm, a, torch.zeros(2, dtype=torch.int32))
     with pytest.raises(TypeError):
-        GM.lora_shrink(x.half(), perm, a, gs)
+        GM.lora_shrink(x.double(), perm, a, gs)
     with pytest.raises(TypeError):
         GM.lora_shrink(x, perm.long(), a, gs)
     with pytest.raises(ValueError):

@@ -154,7 +154,7 @@ ROUTE_CASES = [
     ("h_off_8_f32", 32, 60, 2044, 1408, torch.float32, True, True),
     ("inter_off_8", 32, 60, 2048, 1404, torch.bfloat16, True, False),
     ("unaligned", 32, 60, 2048, 1408, torch.bfloat16, False, False),
-    ("fp16", 32, 60, 2048, 1408, torch.float16, True, False),
+    ("fp16", 32, 60, 2048, 1408, torch.float16, True, True),
 ]
 
 

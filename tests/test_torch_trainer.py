@@ -435,3 +435,49 @@ def test_profiler_step_timer_and_scheduler(tmp_path):
     for fn in (P.dump_cost_analysis, P.compiled_memory_analysis):
         with pytest.raises(NotImplementedError, match="XLA"):
             fn(lambda x: x, 1)
+
+
+# ------------------------------------------------- set_lr during a fit
+
+def _lr_hook_run(trainer_cls, args, opt, model, xs):
+    """SGD(0.1) on ``model`` (weight 1.0, loss sum(model(x)) with x = 2:
+    every weight gradient 2) for 4 steps, a hook setting the lr to 0.0
+    after step 2: the weight ends at 1 - 2 * 0.1 * 2 = 0.6."""
+    holder = {}
+
+    def hook(rec):
+        if rec["step"] == 2:
+            tr = holder["tr"]
+            tr.state.opt_state = opt.set_lr(0.0, tr.state.opt_state)
+
+    tr = holder["tr"] = trainer_cls(model, opt, lambda m, x: m(x).sum(),
+                                    args, hooks=[hook])
+    return tr.fit(iter(xs))
+
+
+def test_set_lr_in_a_hook_applies_in_the_reference():
+    from paddle_tpu.nn.layers import Linear as JLinear
+    m = JLinear(4, 1)
+    m.weight = jnp.ones((4, 1), jnp.float32)
+    xs = [(np.full((1, 4), 2.0, np.float32),)] * 4
+    st = _lr_hook_run(JTrainer, JTrainerArgs(max_steps=4, log_every=1),
+                      jopt.SGD(0.1), m, xs)
+    np.testing.assert_allclose(np.asarray(st.model.weight), 0.6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+@pytest.mark.parametrize("nan_guard", [True, False])
+def test_set_lr_in_a_hook_applies_mid_fit(depth, nan_guard):
+    """The NaN guard's step reads a float lr from the state, so a hook's
+    ``set_lr`` applies from the next step, as in the reference (the
+    guarded step once read a table built when the fit began: 0.2)."""
+    m = Linear(4, 1, device="cpu")
+    with torch.no_grad():
+        m.weight.fill_(1.0)
+    xs = [(np.full((1, 4), 2.0, np.float32),)] * 4
+    args = TrainerArgs(max_steps=4, log_every=1, pipeline_depth=depth,
+                       nan_guard=nan_guard)
+    st = _lr_hook_run(lambda *a, **k: Trainer(*a, device="cpu", **k), args,
+                      topt.SGD(0.1), m, xs)
+    torch.testing.assert_close(st.model.weight.detach(),
+                               torch.full((4, 1), 0.6), rtol=1e-6, atol=1e-6)
