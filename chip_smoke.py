@@ -277,6 +277,25 @@ Phases (each one fails the run when it fails; nothing is caught):
             steps on one fixed batch; every loss finite, the last below the
             first, and the rms_norm, flash forward and both flash backward
             kernels launched; step ms, tokens/s, MFU and peak memory
+  dist_train  the train step over a HybridMesh: ``init_parallel_env`` joins
+            a world of one rank with NCCL (the rendezvous through a
+            FileStore in a temporary directory), then 3 steps of
+            ``make_train_step(..., mesh=HybridMesh())`` on the train
+            phase's configuration, seed, batch and AdamW; its losses must
+            equal the train phase's first three bit for bit, and each
+            train kernel launch as often a step as the unsharded step's;
+            ms/step beside train's
+  pp_train  ``make_llama_pp_train_step`` at pp = 1 over the same world, 4
+            microbatches of 1 x 2048, under the 1f1b and zb1 schedules:
+            the pipeline's loss and the gradients of GRAD_NAMES against the
+            unsharded step's on the same weights and batch (LOSS_REL,
+            GRAD_REL of the RMS), zb1's loss and every gradient equal to
+            1f1b's bit for bit, then 3 AdamW steps in each arm (1f1b,
+            zb1; losses equal bit for bit); ms/step beside train's.
+            ``--phases ...,pp_train,pp_anatomy`` adds a third arm (1f1b
+            again, for the order's share of a gap) and then profiles 2
+            unsharded train steps and 2 1f1b steps (device kernels, then
+            host functions under cProfile)
   remat_train  the same configuration and batch with remat on: 2 steps
             from one seed under each remat_policy (None, hidden, no_ffn,
             dots) and with scan_layers=True (None), then 4 more timed; loss
@@ -519,7 +538,8 @@ path (``"path": "serve"``, ``"async_serve"``, ``"lora_serve"``,
 ``"spec_serve"``, ``"beam_serve"``, ``"beam_serve_i8"``,
 ``"grammar_serve"``, ``"tenant_serve"``, ``"router_serve"``,
 ``"router_serve_disagg"``, ``"router_serve_i8"``, ``"router_check"``,
-``"gptq_serve"``, ``"spec_generate"``, ``"train"``, ``"remat_train"``,
+``"gptq_serve"``, ``"spec_generate"``, ``"train"``, ``"dist_train"``,
+``"pp_train"``, ``"remat_train"``,
 ``"trainer_fit"``, ``"lora_train"``, ``"fp8_train"``, ``"moe_serve"``,
 ``"moe_train"``,
 ``"window_serve"``, ``"quant_serve"``, ``"bloom_serve"``, ``"bloom_train"``,
@@ -645,7 +665,8 @@ SOURCES.update({f"{k}_f16": v for k, v in list(SOURCES.items())})
 # GEMMA_SERVE_KERNELS / GPTJ_SERVE_KERNELS / GPTJ_TRAIN_KERNELS /
 # ROUTER_SERVE_KERNELS / ROUTER_SERVE_I8_KERNELS / GPTQ_SERVE_KERNELS /
 # SPEC_GENERATE_KERNELS / REMAT_TRAIN_KERNELS / TRAINER_FIT_KERNELS /
-# LORA_TRAIN_KERNELS / FP8_TRAIN_KERNELS / PAGED_GENERATE_KERNELS and the
+# LORA_TRAIN_KERNELS / FP8_TRAIN_KERNELS / PAGED_GENERATE_KERNELS /
+# DIST_TRAIN_KERNELS / PP_TRAIN_KERNELS and the
 # F16_*_KERNELS, spelled out here so that
 # --root can load an earlier tree that lacks them (a kernel that such a
 # tree does not have is then left out of its checks)
@@ -708,7 +729,11 @@ PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
          "fp8_train": ("rms_norm", "flash_fwd", "flash_bwd_dq",
                        "flash_bwd_dkv", "rope"),
          "paged_generate": ("rms_norm", "flash_fwd", "paged_decode", "rope",
-                            "rope_kv")}
+                            "rope_kv"),
+         "dist_train": ("rms_norm", "flash_fwd", "flash_bwd_dq",
+                        "flash_bwd_dkv", "rope"),
+         "pp_train": ("rms_norm", "flash_fwd", "flash_bwd_dq",
+                      "flash_bwd_dkv", "rope")}
 # float16 models (ops.cuda's F16_*_KERNELS): a path's kernels on their
 # float16 instantiations, counted apart
 PATHS.update({f16: tuple(f"{k}_f16" for k in PATHS[path])
@@ -724,6 +749,15 @@ ABSENT: set = set()
 GRAD_REL = 0.1
 LOSS_REL = 1e-2
 TRAIN_SHAPE = (4, 2048, 16, 128)   # the headline step's q/k/v [B, S, H, D]
+# the mesh phases: dist_train's steps, pp_train's microbatches (one row of
+# the train batch each: q/k/v [1, 2048, 16, 128]) and AdamW steps
+DIST_STEPS = 3
+PP_MICROBATCHES = 4
+PP_MICRO_SHAPE = (1, 2048, 16, 128)
+PP_STEPS = 3
+# the train phase's losses, ms/step and launches, which the mesh phases
+# are held to
+TRAIN_RECORD: dict = {}
 # the MoE slice: Qwen1.5-MoE-A2.7B's widths (hidden 2048, 16 heads of 128,
 # 60 experts of 1408, top-4) and its train batch 2 x 2048
 MOE_HIDDEN, MOE_HEADS, MOE_EXPERTS, MOE_TOPK, MOE_INTER = 2048, 16, 60, 4, 1408
@@ -1254,6 +1288,14 @@ def phase_kernels(torch, dev):
     # serve path's decode widths
     results["gptq_serve"] = results["serve"]
     results["remat_train"] = results["train"]
+    # the mesh train step runs the train step's shapes on its one rank;
+    # the pipeline its microbatches' (K7's row set by its ROPE_CASES entry)
+    results["dist_train"] = results["train"]
+    b, s, h, d = PP_MICRO_SHAPE
+    results.setdefault("pp_train", {}).update(
+        rms_norm=k1_train(torch, dev, b * s, h * d),
+        flash_fwd=k2_train(torch, dev, PP_MICRO_SHAPE),
+        **k5(torch, dev, PP_MICRO_SHAPE))
     results["trainer_fit"] = results["train"]
     results["fp8_train"] = results["train"]
     results["spec_generate"] = {"rms_norm": results["serve"]["rms_norm"],
@@ -2395,6 +2437,8 @@ ROPE_CASES = (
      "shared", 1e4),
     ("llama-2-7b lora train q", "lora_train", (1, 2048), 32, 96, "q", 128,
      "shared", 1e4),
+    ("llama train q, one pipeline microbatch", "pp_train", (1, 2048), 16, 48,
+     "q", 128, "shared", 1e4),
 )
 
 
@@ -4274,6 +4318,9 @@ def run_train(torch, np, path, model, ids, labels, check, anatomy,
                    for kernel, n in per.items()})
     losses = [float(x) for x in losses]
     peak = torch.cuda.max_memory_allocated()
+    if path == "train":
+        TRAIN_RECORD.update(losses=losses, ms=1e3 * step_s, counts=counts,
+                            steps=len(losses))
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{path} losses not finite: {losses}")
     if not losses[-1] < losses[0]:
@@ -4302,6 +4349,252 @@ def run_train(torch, np, path, model, ids, labels, check, anatomy,
     del state, model
     torch.cuda.empty_cache()
     return counts
+
+
+# ------------------------------------------------ the mesh train paths
+@contextlib.contextmanager
+def nccl_world(torch):
+    """A world of this one rank on the card: ``init_parallel_env`` with
+    NCCL, the rendezvous through a FileStore in a temporary directory (no
+    TCP port); the group is destroyed on the way out."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.distributed.mesh import forget_groups
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        if not init_parallel_env(init_method=f"file://{tmp}/store",
+                                 world_size=1, rank=0):
+            raise AssertionError("init_parallel_env joined no group")
+        backend = dist.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"the card's world runs {backend}, not nccl")
+        one = torch.ones((), device="cuda")
+        dist.all_reduce(one)
+        if float(one) != 1.0:
+            raise AssertionError(f"NCCL all_reduce of one rank gave {one}")
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        forget_groups()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _timed_steps(torch, n, run):
+    """(results of ``run()`` n times, ms/step over all but the first)."""
+    out, times = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out.append(run())
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+    return out, 1e3 * sum(times[1:]) / max(len(times) - 1, 1)
+
+
+def _per_step_same(path, counts, steps):
+    """Each of the path's kernels launched as often a step as in the train
+    phase's unsharded steps."""
+    ref, n = TRAIN_RECORD["counts"], TRAIN_RECORD["steps"]
+    diff = {k: (counts.get(k, 0), ref.get(k, 0) * steps / n)
+            for k in PATHS[path]
+            if counts.get(k, 0) * n != ref.get(k, 0) * steps}
+    if diff:
+        raise AssertionError(f"{path}: launches per step differ from the "
+                             f"unsharded step's: {diff}")
+
+
+def phase_dist_train(torch, dev, np):
+    """make_train_step over a HybridMesh of one rank (NCCL): the train
+    phase's model, seed, batch and AdamW; its losses equal the unsharded
+    step's. Returns the launch counts of its steps."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.train import init_state, make_train_step
+    cfg = train_config()
+    ids, labels = train_batch(torch, dev, np, cfg)
+    with nccl_world(torch):
+        mesh = D.HybridMesh()
+        model = LlamaForCausalLM(cfg, device=dev, seed=0)
+        opt = _adamw(O)
+        state = init_state(model, opt, mesh)
+        step = make_train_step(lambda m, i, lab: m.loss(i, lab), opt,
+                               mesh=mesh)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        holder = [state]
+
+        def one():
+            holder[0], loss = step(holder[0], ids, labels)
+            return loss
+        losses, ms = _timed_steps(torch, DIST_STEPS, one)
+        counts = K.launches()
+        del holder, state, model, step
+    torch.cuda.empty_cache()
+    losses = [float(x) for x in losses]
+    ref = TRAIN_RECORD["losses"][:DIST_STEPS]
+    card = card_line()
+    log(f"[dist_train] {mesh!r} over NCCL: losses "
+        f"{' '.join(f'{x:.6f}' for x in losses)}; the train phase's first "
+        f"{DIST_STEPS}: {' '.join(f'{x:.6f}' for x in ref)}; bit-identical: "
+        f"{losses == ref}")
+    log(f"[dist_train] batch {ids.shape[0]} x {ids.shape[1]}: {ms:.1f} "
+        f"ms/step over steps 2-{DIST_STEPS} against train's "
+        f"{TRAIN_RECORD['ms']:.1f} ({card})")
+    log(f"[dist_train] launches over {DIST_STEPS} steps: {counts}")
+    if losses != ref:
+        raise AssertionError(f"dist_train losses {losses} differ from the "
+                             f"unsharded step's {ref}")
+    missing = _missing("dist_train", counts)
+    if missing:
+        raise AssertionError(f"kernels not launched on dist_train: {missing}")
+    _per_step_same("dist_train", counts, DIST_STEPS)
+    return counts
+
+
+def _pp_named(grads):
+    """GRAD_NAMES' gradients out of a pipeline's PpParams."""
+    last = train_config().num_hidden_layers - 1
+    return {GRAD_NAMES[0]: grads["layers"]["self_attn.qkv_proj"][0],
+            GRAD_NAMES[1]: grads["layers"]["mlp.down_proj"][last],
+            GRAD_NAMES[2]: grads["lm_head"]}
+
+
+# pp_train's timed arms, in order; with pp_anatomy also PP_ORDER_ARM:
+# 1f1b again after zb1 shows whether a gap between the two schedules (the
+# same work at pp = 1) is the order's
+PP_ARMS = (("1f1b", "1f1b"), ("zb1", "zb1"))
+PP_ORDER_ARM = ("1f1b again", "1f1b")
+
+
+def phase_pp_train(torch, dev, np, anatomy=False):
+    """make_llama_pp_train_step at pp = 1 (NCCL, one rank), 1f1b and zb1:
+    loss and gradients against the unsharded step's, zb1 against 1f1b bit
+    for bit, then PP_STEPS AdamW steps in each of PP_ARMS; ``anatomy``:
+    PP_ORDER_ARM too, then 2 unsharded train steps and 2 1f1b steps
+    profiled. Returns the launch counts of the timed arms' steps."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               init_llama_pp_state,
+                                               llama_pipeline_train_step,
+                                               make_llama_pp_train_step)
+    from paddle_tpu_torch.ops import cuda as K
+    cfg = train_config()
+    ids, labels = train_batch(torch, dev, np, cfg)
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    params = dict(model.named_parameters())
+    model.zero_grad(set_to_none=True)
+    loss = model.loss(ids, labels)
+    loss.backward()
+    ref_loss = float(loss.detach())
+    ref = {n: params[n].grad.float().clone() for n in GRAD_NAMES}
+    model.zero_grad(set_to_none=True)
+    del loss, params
+    card = card_line()
+    arms = PP_ARMS + ((PP_ORDER_ARM,) if anatomy else ())
+    got, losses, ms = {}, {}, {}
+    with nccl_world(torch):
+        mesh = D.HybridMesh(pp=1)
+        for sched in ("1f1b", "zb1"):
+            lo, grads = llama_pipeline_train_step(
+                model, mesh, ids, labels, PP_MICROBATCHES, schedule=sched)
+            got[sched] = (float(lo), grads)
+        torch.cuda.empty_cache()
+        K.reset_launches()
+        for arm, sched in arms:
+            st = init_llama_pp_state(model, _adamw(O), mesh)
+            step = make_llama_pp_train_step(model, mesh, _adamw(O),
+                                            PP_MICROBATCHES, schedule=sched)
+            holder = list(st)
+
+            def one():
+                holder[0], holder[1], lo = step(holder[0], holder[1], ids,
+                                                labels)
+                return lo
+            run, ms[arm] = _timed_steps(torch, PP_STEPS, one)
+            losses[arm] = [float(x) for x in run]
+            del holder, st, step
+            torch.cuda.empty_cache()
+        counts = K.launches()
+        if anatomy:
+            _pp_anatomy(torch, O, model, mesh, ids, labels)
+    (l1, g1), (lz, gz) = got["1f1b"], got["zb1"]
+    log(f"[pp_train] pp=1, {PP_MICROBATCHES} microbatches of 1 x "
+        f"{ids.shape[1]}: loss 1f1b {l1:.6f}, zb1 {lz:.6f}, unsharded "
+        f"{ref_loss:.6f} (limit {LOSS_REL} of it; {card})")
+    bad = []
+    if not abs(l1 - ref_loss) <= LOSS_REL * abs(ref_loss):
+        bad.append(f"loss {l1} vs {ref_loss}")
+    for n, a in _pp_named(g1).items():
+        e, rms = _rms(a.float() - ref[n]), _rms(ref[n])
+        log(f"[pp_train] grad {n} {list(a.shape)}: RMS pipeline-unsharded "
+            f"{e:.4e} ({e / rms:.4f} of RMS {rms:.4e}; limit {GRAD_REL})")
+        if not (bool(torch.isfinite(a).all()) and e <= GRAD_REL * rms):
+            bad.append(f"grad {n}")
+    same = (l1 == lz and all(
+        torch.equal(a, b) for a, b in zip(g1.flat().values(),
+                                          gz.flat().values())))
+    log(f"[pp_train] zb1 loss and every gradient bit-identical to 1f1b: "
+        f"{same}")
+    if not same:
+        bad.append("zb1 differs from 1f1b")
+    for arm, _ in arms:
+        log(f"[pp_train] {arm}: losses "
+            f"{' '.join(f'{x:.6f}' for x in losses[arm])}; {ms[arm]:.1f} "
+            f"ms/step over steps 2-{PP_STEPS} against train's "
+            f"{TRAIN_RECORD['ms']:.1f} ({card})")
+    if any(losses[arm] != losses["1f1b"] for arm, _ in arms):
+        bad.append("the arms' training losses differ")
+    if not all(np.isfinite(losses["1f1b"])) or not (
+            losses["1f1b"][-1] < losses["1f1b"][0]):
+        bad.append(f"losses {losses['1f1b']} not finite and falling")
+    log(f"[pp_train] launches over {len(arms)} x {PP_STEPS} steps: "
+        f"{counts}")
+    missing = _missing("pp_train", counts)
+    if missing:
+        bad.append(f"kernels not launched: {missing}")
+    del model, got, g1, gz
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"pp_train: {bad}")
+    return counts
+
+
+def _pp_anatomy(torch, O, model, mesh, ids, labels):
+    """2 unsharded train steps and 2 pp = 1 1f1b steps of the same model
+    and batch under the anatomy's profilers, one after the other."""
+    from paddle_tpu_torch.models.llama import (init_llama_pp_state,
+                                               make_llama_pp_train_step)
+    from paddle_tpu_torch.train import init_state, make_train_step
+    b, s = ids.shape
+    opt = _adamw(O)
+    holder = [init_state(model, opt)]
+    step = make_train_step(lambda m, i, lab: m.loss(i, lab), opt)
+
+    def train_steps():
+        for _ in range(2):
+            holder[0], _ = step(holder[0], ids, labels)
+    _anatomy(torch, f"train step (unsharded), batch {b} x {s}", "step",
+             train_steps, 2)
+    del holder[:], step
+    torch.cuda.empty_cache()
+    pp = list(init_llama_pp_state(model, _adamw(O), mesh))
+    pp_step = make_llama_pp_train_step(model, mesh, _adamw(O),
+                                       PP_MICROBATCHES)
+
+    def pp_steps():
+        for _ in range(2):
+            pp[0], pp[1], _ = pp_step(pp[0], pp[1], ids, labels)
+    _anatomy(torch, f"pp_train 1f1b step, {PP_MICROBATCHES} microbatches "
+             f"of 1 x {s}", "step", pp_steps, 2)
+    del pp, pp_step
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------- BLOOM / Falcon (ALiBi, MQA)
@@ -8088,7 +8381,8 @@ def main(argv=None):
                     "spec_serve,spec_check,beam_serve,beam_check,"
                     "grammar_serve,grammar_check,tenant_serve,"
                     "endpoint_check,hf_load,router_serve,router_check,"
-                    "gptq_serve,gptq_check,spec_generate,train,remat_train,"
+                    "gptq_serve,gptq_check,spec_generate,train,dist_train,"
+                    "pp_train,remat_train,"
                     "trainer_fit,ckpt_resume,lora_train,fp8_train,amp_check,"
                     "moe_serve,moe_check,moe_train,window_serve,window_check,"
                     "quant_serve,quant_check,bloom_serve,bloom_train,"
@@ -8334,6 +8628,17 @@ def main(argv=None):
     if "train" in phases:
         counts["train"] = phase_train(torch, dev, np, "check" in phases,
                                       "anatomy" in phases)
+    # the mesh paths are held to the train phase's unsharded steps
+    if {"dist_train", "pp_train"} & set(phases) and "train" not in phases:
+        counts["train"] = phase_train(torch, dev, np, False)
+    for name in ("dist_train", "pp_train"):
+        if name in phases:
+            tp = time.monotonic()
+            counts[name] = (phase_pp_train(torch, dev, np,
+                                           "pp_anatomy" in phases)
+                            if name == "pp_train"
+                            else phase_dist_train(torch, dev, np))
+            log(f"[{name}] phase {time.monotonic() - tp:.1f} s")
     if "f16_train" in phases:
         tp = time.monotonic()
         counts["f16_train"] = phase_f16_train(torch, dev, np)

@@ -19,7 +19,9 @@ Ported so far: the single-device paged serving path and the train step
 ``distributed.moe``), and BLOOM and Falcon (``models.bloom``,
 ``models.falcon``) through ``models.generic_generate`` and the same train
 step, and the trainer stack around it (``train.Trainer``, checkpoints,
-``ElasticRunner``, ``io``, ``amp``, adapter-only LoRA training) — see
+``ElasticRunner``, ``io``, ``amp``, adapter-only LoRA training), and
+its distribution over a hybrid mesh of processes (``distributed``: dp,
+fsdp, tp, the 1F1B and zero-bubble pipeline, fleet, launch) — see
 ``ROADMAP.md`` for the queues that remain.
 """
 from paddle_tpu_torch.core.device import resolve_device  # noqa: F401

@@ -24,8 +24,9 @@ The routing index tensors (``tok``, ``expert``, ``pos``, ``order``) are
 int64, as PyTorch indexes; ``counts`` is int32, as the kernel takes it.
 Nothing here reads a device value back to the host.
 
-The expert-parallel path (``_forward_ep``: shard_map + all_to_all) comes
-with ``distributed/`` (ROADMAP.md queue 1 item 7) and raises until then.
+The expert-parallel path (``_forward_ep``: the all_to_all over an ep mesh
+axis, taken under a mesh with ep > 1 as in the reference) is ROADMAP.md
+queue 1 item 7 and raises until it is ported.
 """
 from __future__ import annotations
 
@@ -277,7 +278,13 @@ class MoELayer(nn.Module):
         return max(cap, 4)
 
     def forward(self, x, return_aux=True, return_metrics=False):
-        y, aux, drop = self._forward_local(x)
+        from paddle_tpu_torch.distributed.mesh import current_mesh
+        mesh = current_mesh()
+        ep = mesh.size("ep") if mesh is not None else 1
+        if ep > 1:
+            y, aux, drop = self._forward_ep(x, mesh, ep)
+        else:
+            y, aux, drop = self._forward_local(x)
         if return_metrics:
             return y, aux, {"drop_rate": drop}
         return (y, aux) if return_aux else y

@@ -139,8 +139,7 @@ def causal_lm_loss(logits, labels):
     by gather (labels clamped at 0), mean over the labels >= 0."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
-    mask = (labels >= 0).float()
-    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return F.masked_mean(-ll, (labels >= 0).float())
 
 
 def num_flops_per_token(cfg: BloomConfig, seq_len: int) -> float:

@@ -46,8 +46,7 @@ def masked_lm_loss(logits, labels):
     ignore index is -100), in fp32."""
     ce = F.cross_entropy(logits.float(), torch.clamp(labels, min=0),
                          reduction="none")
-    mask = (labels >= 0).float()
-    return (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return F.masked_mean(ce, (labels >= 0).float())
 
 
 def rope_tables(cfg, seq_len, device):

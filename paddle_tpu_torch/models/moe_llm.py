@@ -18,7 +18,8 @@ from paddle_tpu_torch.distributed.moe import MoELayer
 from paddle_tpu_torch.models.llama import (LlamaAttention, LlamaConfig,
                                            LlamaDecoderLayer, LlamaRMSNorm,
                                            _Init)
-from paddle_tpu_torch.nn.functional import parallel_cross_entropy
+from paddle_tpu_torch.nn.functional import (masked_mean,
+                                             parallel_cross_entropy)
 from paddle_tpu_torch.ops import attention as A
 from paddle_tpu_torch.quantization import wo_matmul
 
@@ -96,6 +97,5 @@ class MoEForCausalLM(nn.Module):
     def loss(self, input_ids, labels):
         logits, aux = self(input_ids)
         per_tok = parallel_cross_entropy(logits, torch.clamp(labels, min=0))
-        mask = (labels >= 0).float()
-        lm = (per_tok * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        lm = masked_mean(per_tok, (labels >= 0).float())
         return lm + self.cfg.aux_loss_weight * aux

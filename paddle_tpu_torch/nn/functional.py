@@ -1,15 +1,24 @@
 """The Llama, MoE and BLOOM/Falcon slice of ``paddle_tpu/nn/functional.py``:
 ``silu``, ``swiglu``, ``gelu``, ``embedding``, ``rms_norm`` and
 ``layer_norm``, on tensors, and the losses the train steps need:
-``parallel_cross_entropy`` (Llama, moe_llm) and ``cross_entropy``
-(Mixtral, Qwen2-MoE). ``gelu`` and ``layer_norm`` are plain PyTorch: XLA
-fuses them in the reference, which has no Pallas kernel for them.
+``parallel_cross_entropy`` (Llama, moe_llm), ``cross_entropy``
+(Mixtral, Qwen2-MoE) and ``masked_mean``, the reduction of every model's
+loss. ``gelu`` and ``layer_norm`` are plain PyTorch: XLA fuses them in
+the reference, which has no Pallas kernel for them.
 
 Weights keep the reference's ``[in, out]`` layout where a layout exists.
 """
 from __future__ import annotations
 
+import contextvars
+
 import torch
+
+# The denominator of ``masked_mean`` as a function of the local count of
+# kept positions; None: that count. ``distributed.sharded.data_parallel``
+# sets it for a train step over a mesh's data axes.
+MEAN_DENOMINATOR = contextvars.ContextVar("masked_mean_denominator",
+                                          default=None)
 
 
 def silu(x):
@@ -74,8 +83,8 @@ def parallel_cross_entropy(logits, labels, *, label_smoothing=0.0):
     ``labels`` [...] in fp32: the tp = 1 math of the reference's
     ``paddle_tpu/distributed/tensor_parallel.py`` ``parallel_cross_entropy``
     (log-sum-exp with the max detached, the true logit by gather, optional
-    label smoothing toward the mean logit). The tp-sharded form comes with
-    ``distributed/`` (ROADMAP.md queue 1 item 7)."""
+    label smoothing toward the mean logit). The tp-sharded form is
+    ``distributed.tensor_parallel.parallel_cross_entropy(axis_name="tp")``."""
     logits32 = logits.float()
     m = logits32.max(-1, keepdim=True).values.detach()
     lse = torch.log(torch.exp(logits32 - m).sum(-1)) + m.squeeze(-1)
@@ -85,6 +94,20 @@ def parallel_cross_entropy(logits, labels, *, label_smoothing=0.0):
         loss = ((1 - label_smoothing) * loss
                 + label_smoothing * (lse - logits32.mean(-1)))
     return loss
+
+
+def masked_mean(values, mask):
+    """``(values * mask).sum() / max(mask.sum(), 1)``: the mean over the
+    kept positions (``mask`` 1.0, the rest 0.0). Inside
+    ``distributed.sharded.data_parallel(mesh)`` the denominator is this
+    rank's share of the count over the data axes, so the ranks' mean of
+    the value is the mean over the whole global batch, as the reference's
+    loss of the global batch is."""
+    count = mask.sum()
+    denominator = MEAN_DENOMINATOR.get()
+    count = (torch.clamp(count, min=1.0) if denominator is None
+             else denominator(count))
+    return (values * mask).sum() / count
 
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,
@@ -110,9 +133,9 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
         loss = loss * weight[torch.clamp(label.long(), 0, num_classes - 1)]
     if not soft_label and ignore_index is not None:
         mask = (label != ignore_index).to(loss.dtype)
-        loss = loss * mask
         if reduction == "mean":
-            return loss.sum() / torch.clamp(mask.sum(), min=1.0)
+            return masked_mean(loss, mask)
+        loss = loss * mask
     if reduction == "mean":
         return loss.mean()
     if reduction == "sum":

@@ -82,6 +82,11 @@ REMAT_TRAIN_KERNELS = TRAIN_KERNELS
 TRAINER_FIT_KERNELS = TRAIN_KERNELS
 LORA_TRAIN_KERNELS = TRAIN_KERNELS
 FP8_TRAIN_KERNELS = TRAIN_KERNELS
+# the hybrid-mesh train step (make_train_step over a HybridMesh) and the
+# 1F1B / zero-bubble pipeline (make_llama_pp_train_step): the layers run
+# the train step's kernels on each rank's local shards
+DIST_TRAIN_KERNELS = TRAIN_KERNELS
+PP_TRAIN_KERNELS = TRAIN_KERNELS
 
 
 def f16_names(names) -> tuple:

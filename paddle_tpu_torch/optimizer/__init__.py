@@ -1,8 +1,9 @@
 """Optimizers — the slice of ``paddle_tpu/optimizer/__init__.py`` that the
 Llama train step and the QAT API need: ``ClipGradByGlobalNorm``,
 ``global_norm``, the ``Optimizer`` base with ``multi_precision`` fp32
-master weights, ``SGD``, ``Adam`` and ``AdamW``. The other optimizers
-are ROADMAP.md queue 1 item 8.
+master weights, ``SGD``, ``Adam``, ``AdamW`` and ``GradientMerge`` (the
+fleet strategy's ``gradient_merge``). The other optimizers are ROADMAP.md
+queue 1 item 8.
 
 The reference is functional: ``step`` returns new params and a new state,
 and its jitted train step donates the old buffers. The port's counterpart
@@ -55,23 +56,40 @@ def _named(model):
 
 # -- grad clipping (ref python/paddle/nn/clip.py) ---------------------------
 
-def global_norm(grads):
+def global_norm(grads, params=None):
     """sqrt of the sum of squares of every float gradient, in fp32 (a
-    0-d tensor on the gradients' device)."""
-    leaves = list(_float_grads(grads).values())
-    return torch.sqrt(sum(g.float().square().sum() for g in leaves))
+    0-d tensor on the gradients' device). ``params`` ({name: parameter})
+    names the gradients that are pieces of a sharded parameter
+    (``distributed.shard_module``): their squares are summed over the
+    ranks that hold the other pieces, so every rank gets the global norm."""
+    leaves = _float_grads(grads)
+    groups = {}
+    if params is not None:
+        from paddle_tpu_torch.distributed.sharded import sharded_leaves
+        for n, (axes, group) in sharded_leaves(params).items():
+            if n in leaves:
+                groups.setdefault(axes, (group, []))[1].append(n)
+    pieces = {n for _, names in groups.values() for n in names}
+    total = sum(g.float().square().sum() for n, g in leaves.items()
+                if n not in pieces)
+    for axes in sorted(groups):
+        group, names = groups[axes]
+        part = sum(leaves[n].float().square().sum() for n in names)
+        torch.distributed.all_reduce(part, group=group)
+        total = total + part
+    return torch.sqrt(total)
 
 
 class ClipGradByGlobalNorm:
     def __init__(self, clip_norm):
         self.clip_norm = clip_norm
 
-    def __call__(self, grads):
+    def __call__(self, grads, params=None):
         """{name: grad} -> {name: grad * min(1, clip / max(norm, 1e-12))}
         over the float gradients, scaled in fp32 and cast back to each
-        gradient's type."""
+        gradient's type (``params``: see :func:`global_norm`)."""
         grads = _float_grads(grads)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, params)
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
         return {n: (g.float() * scale).to(g.dtype) for n, g in grads.items()}
@@ -165,7 +183,7 @@ class Optimizer:
             grads = {n: p.grad for n, p in params.items()}
         grads = _float_grads(grads)
         if self.grad_clip is not None:
-            grads = self.grad_clip(grads)
+            grads = self.grad_clip(grads, params)
         names = list(grads)
         master = state.get("master") if self.multi_precision else None
         # the fp32 values the update works on: the master copy, the fp32
@@ -280,3 +298,81 @@ class AdamW(Adam):
                  weight_decay=0.01, **kw):
         super().__init__(learning_rate, beta1, beta2, epsilon,
                          weight_decay=weight_decay, **kw)
+
+
+# -- gradient merge (ref incubate GradientMergeOptimizer) -------------------
+
+class GradientMerge(Optimizer):
+    """Ref: fleet ``DistributedStrategy.gradient_merge`` /
+    ``paddle.incubate.optimizer.GradientMergeOptimizer``: accumulate the
+    gradients of ``k_steps`` calls in fp32 and apply the inner optimizer
+    once with the merged gradient (averaged when ``avg``); the calls in
+    between leave the parameters and the inner state as they were.
+
+    State: ``{"step": calls, "inner": the inner state, "accum": {name:
+    fp32}}``. Under the Trainer's device-side skip (``ok``, ``lr``, ``t``
+    0-d device tensors, ``t`` the 1-based count of kept steps) a skipped
+    call adds nothing, the apply is decided on the device (``t % k_steps
+    == 0``) and the inner optimizer is called every time with ``ok`` that
+    decision and ``t // k_steps`` its own step count, so no call reads the
+    device; its host step count is then left as it was, as the caller
+    advances only the wrapper's."""
+
+    def __init__(self, inner: Optimizer, k_steps: int = 1, avg: bool = True):
+        super().__init__(learning_rate=inner.learning_rate)
+        if k_steps < 1:
+            raise ValueError(f"k_steps must be >= 1, got {k_steps}")
+        self.inner, self.k_steps, self.avg = inner, int(k_steps), bool(avg)
+
+    def init(self, model) -> dict:
+        return {"step": 0, "inner": self.inner.init(model),
+                "accum": {n: torch.zeros_like(p, dtype=torch.float32)
+                          for n, p in _named(model) if p.is_floating_point()}}
+
+    @torch.no_grad()
+    def step(self, model, grads, state, ok=None, lr=None, t=None):
+        params = dict(_named(model))
+        if grads is None:
+            grads = {n: p.grad for n, p in params.items()}
+        grads = {n: g for n, g in _float_grads(grads).items()
+                 if n in state["accum"]}
+        accum = state["accum"]
+        scale = (1.0 / self.k_steps) if self.avg else 1.0
+        if ok is None:
+            for n, g in grads.items():
+                accum[n].add_(g.float())
+            calls = state["step"] + 1
+            inner = state["inner"]
+            if calls % self.k_steps == 0:
+                merged = {n: (accum[n] * scale).to(g.dtype)
+                          for n, g in grads.items()}
+                _, inner = self.inner.step(model, merged, inner)
+                for a in accum.values():
+                    a.zero_()
+            return model, {"step": calls, "inner": inner, "accum": accum}
+        for n, g in grads.items():
+            accum[n].add_(torch.where(ok, g.float(), 0.0))
+        t = state["step"] + 1.0 if t is None else t
+        now = ok & torch.as_tensor(t % self.k_steps == 0, device=ok.device)
+        merged = {n: (accum[n] * scale).to(g.dtype) for n, g in grads.items()}
+        _, inner = self.inner.step(model, merged, state["inner"], ok=now,
+                                   lr=lr, t=t // self.k_steps)
+        for a in accum.values():
+            a.masked_fill_(now, 0.0)
+        return model, {"step": state["step"], "inner": inner, "accum": accum}
+
+    # the lr lives in the inner optimizer's state
+    def set_lr(self, value, state=None):
+        if state is not None:
+            return {**state, "inner": self.inner.set_lr(value,
+                                                        state["inner"])}
+        self.inner.set_lr(value)
+        self.learning_rate = self.inner.learning_rate
+        return None
+
+    def get_lr(self, state=None):
+        return self.inner.get_lr(state["inner"] if state is not None
+                                 else None)
+
+    def _lr(self, state):
+        return self.inner._lr(state["inner"])

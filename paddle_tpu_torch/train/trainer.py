@@ -56,7 +56,8 @@ from paddle_tpu_torch.observability.flops import (chip_peak_flops,
                                                   record_throughput)
 from paddle_tpu_torch.optimizer.lr import LRScheduler
 from paddle_tpu_torch.train.checkpoint import CheckpointManager
-from paddle_tpu_torch.train.step import TrainState, init_state
+from paddle_tpu_torch.train.step import (TrainState, init_state,
+                                         loss_and_grads)
 from paddle_tpu_torch.utils.faults import fault_point, fault_value
 from paddle_tpu_torch.utils.watchdog import WatchdogTrip
 
@@ -136,30 +137,10 @@ class Trainer:
                                  device=self.device)
 
     def _grads(self, micro):
-        """(loss, grads) of one step's microbatches: the raw ``.grad``s
-        for one microbatch (None: the optimizer reads them), else their
-        fp32 sum over the microbatches divided by the count."""
-        model = self.state.model
-        model.zero_grad(set_to_none=True)
-        if len(micro) == 1:
-            loss = self.loss_fn(model, *micro[0])
-            loss.backward()
-            return loss.detach(), None
-        params = [(n, p) for n, p in model.named_parameters()
-                  if p.is_floating_point()]
-        acc = {n: torch.zeros_like(p, dtype=torch.float32)
-               for n, p in params}
-        loss = torch.zeros((), dtype=torch.float32, device=self.device)
-        for b in micro:
-            lb = self.loss_fn(model, *b)
-            lb.backward()
-            loss = loss + lb.detach().float()
-            for n, p in params:
-                if p.grad is not None:
-                    acc[n].add_(p.grad.float())
-                    p.grad = None
-        k = len(micro)
-        return loss / k, {n: a / k for n, a in acc.items()}
+        """(loss, grads) of one step's microbatches, over the mesh's data
+        axes where there is one (``train.step.loss_and_grads``)."""
+        return loss_and_grads(self.state.model, self.loss_fn, micro,
+                              self.mesh)
 
     def _step_fn(self, micro):
         loss, grads = self._grads(micro)

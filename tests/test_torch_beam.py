@@ -34,6 +34,7 @@ from paddle_tpu_torch.observability import METRICS
 from paddle_tpu_torch.serving import LLMEngine, Request
 from paddle_tpu_torch.serving.grammar import TokenMaskAutomaton
 from tests.test_torch_common import tiny_pair
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 SCORE_REL = 1e-5
 TINY = dict(num_hidden_layers=2, hidden_size=32, num_attention_heads=4,

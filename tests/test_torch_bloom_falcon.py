@@ -37,6 +37,7 @@ from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.nn.layers import LayerNorm
 from paddle_tpu_torch.train import init_state, make_train_step
 from tests.test_torch_common import to_np
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB = 128
 # family -> (JAX model, JAX config, port model, port config, config kw)
@@ -179,8 +180,10 @@ def test_train_step_loss_and_grads_match_reference(family):
     jm, tm = _pair(family)
     ids = _ids(6, b=2, s=16)
     labels = np.concatenate([ids[:, 1:], np.full((2, 1), -100)], axis=1)
-    jloss, jgrads = value_and_grad(_loss_fn)(jm, jnp.asarray(ids),
-                                             jnp.asarray(labels))
+    # the reference's gradients under one jax.jit (eager JAX compiles
+    # every op apart)
+    jloss, jgrads = jax.jit(value_and_grad(_loss_fn))(
+        jm, jnp.asarray(ids), jnp.asarray(labels))
 
     def adamw(mod):
         return mod.AdamW(learning_rate=3e-4, weight_decay=0.1,

@@ -2908,3 +2908,114 @@ def test_grad_scaler_and_guarded_step_make_no_host_sync(dtype):
         torch.cuda.set_sync_debug_mode(0)
     assert float(st2["scale"]) == 512.0 and float(scaled) == 1024.0
     assert torch.isfinite(loss) and int(tr._dstep) == 2
+
+
+def _nccl_world_of_one(tmp_path):
+    from paddle_tpu_torch.distributed import init_parallel_env
+    assert init_parallel_env(init_method=f"file://{tmp_path}/store",
+                             world_size=1, rank=0)
+    assert torch.distributed.get_backend() == "nccl"
+
+
+def _end_world():
+    from paddle_tpu_torch.distributed.mesh import forget_groups
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    forget_groups()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mesh_train_step_on_card_is_the_unsharded_step(dtype, tmp_path):
+    """make_train_step over HybridMesh() in an NCCL world of one rank:
+    every loss and parameter bit for bit the unsharded step's, the same
+    kernel launches a step, and the sharded model's state_dict() the
+    unsharded one's names and values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import numpy as np
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.train import init_state, make_train_step
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                           num_attention_heads=2, num_key_value_heads=1,
+                           vocab_size=512, dtype=dtype)
+    ids = np.random.RandomState(0).randint(0, 512, (4, 96))
+    labels = np.concatenate([ids[:, 1:], np.full((4, 1), -100)], axis=1)
+    ids, labels = torch.as_tensor(ids).cuda(), torch.as_tensor(labels).cuda()
+    runs = {}
+    _nccl_world_of_one(tmp_path)
+    try:
+        for mesh in (None, D.HybridMesh()):
+            m = LlamaForCausalLM(cfg, device="cuda", seed=0)
+            opt = O.AdamW(learning_rate=1e-3, multi_precision=True,
+                          grad_clip=O.ClipGradByGlobalNorm(1.0))
+            state = init_state(m, opt, mesh)
+            step = make_train_step(lambda mm, i, lab: mm.loss(i, lab), opt,
+                                   mesh=mesh)
+            K.reset_launches()
+            losses = []
+            for _ in range(3):
+                state, lo = step(state, ids, labels)
+                losses.append(lo)
+            runs[mesh is None] = (torch.stack(losses), K.launches(),
+                                  state.model.state_dict())
+    finally:
+        _end_world()
+    (l0, k0, s0), (l1, k1, s1) = runs[True], runs[False]
+    assert torch.equal(l0, l1)
+    assert k0 == k1 and k0["flash_bwd_dkv"] > 0 and k0["rope"] > 0
+    assert s0.keys() == s1.keys()
+    assert all(torch.equal(s0[k], s1[k]) for k in s0)
+
+
+@pytest.mark.cuda
+def test_pipeline_on_card_1f1b_equals_zb1(tmp_path):
+    """make_llama_pp_train_step at pp = 1 (NCCL, one rank), bf16, 4
+    microbatches: zb1's losses and parameters bit for bit 1f1b's, the loss
+    of the first step within 1e-2 of the unsharded model's, and the train
+    kernels launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import numpy as np
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.ops import cuda as K
+    cfg = L.LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                             num_attention_heads=2, num_key_value_heads=1,
+                             vocab_size=512, num_hidden_layers=4,
+                             dtype=torch.bfloat16)
+    ids = np.random.RandomState(1).randint(0, 512, (4, 128))
+    labels = np.concatenate([ids[:, 1:], np.full((4, 1), -100)], axis=1)
+    ids, labels = torch.as_tensor(ids).cuda(), torch.as_tensor(labels).cuda()
+    m = L.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    with torch.no_grad():
+        ref = float(m.loss(ids, labels))
+    runs = {}
+    _nccl_world_of_one(tmp_path)
+    try:
+        mesh = D.HybridMesh(pp=1)
+        for sched in ("1f1b", "zb1"):
+            params, st = L.init_llama_pp_state(m, O.AdamW(1e-3), mesh)
+            step = L.make_llama_pp_train_step(m, mesh, O.AdamW(1e-3), 4,
+                                              schedule=sched)
+            K.reset_launches()
+            losses = []
+            for _ in range(3):
+                params, st, lo = step(params, st, ids, labels)
+                losses.append(lo)
+            runs[sched] = (torch.stack(losses), params.flat(), K.launches())
+    finally:
+        _end_world()
+    (l1, p1, k1), (lz, pz, kz) = runs["1f1b"], runs["zb1"]
+    assert torch.equal(l1, lz)
+    assert all(torch.equal(p1[k], pz[k]) for k in p1)
+    assert abs(float(l1[0]) - ref) <= 1e-2 * abs(ref)
+    assert k1 == kz
+    assert all(k1[k] > 0 for k in ("rms_norm", "flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv", "rope"))

@@ -16,6 +16,7 @@ from paddle_tpu.serving import LLMEngine as JEngine
 from paddle_tpu.serving import Request as JRequest
 from paddle_tpu_torch.serving import LLMEngine, Request
 from tests.test_torch_common import tiny_pair
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 def _mix(seed):

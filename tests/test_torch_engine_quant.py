@@ -25,6 +25,7 @@ from paddle_tpu_torch.serving.kv import cache_block_bytes
 from paddle_tpu_torch.utils.faults import FAULTS, InjectedFault
 from tests.test_torch_common import tiny_pair
 from tests.test_torch_engine import _mix, _serve
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(num_slots=3, block_size=4, max_prompt_len=8, max_seq_len=40)
 

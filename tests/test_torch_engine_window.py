@@ -20,6 +20,7 @@ from paddle_tpu.serving import LLMEngine as JEngine
 from paddle_tpu.serving import Request as JRequest
 from paddle_tpu_torch.serving import LLMEngine, Request
 from tests.test_torch_common import tiny_pair
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 # test_serving_engine.py::test_engine_sliding_window_recycles_blocks
 WINDOW_CFG = dict(num_hidden_layers=2, hidden_size=32, num_attention_heads=4,

@@ -13,6 +13,7 @@ atol 1e-5 (as in ``test_torch_bloom_falcon.py``). Greedy streams must be
 token-identical. In bf16, Gemma's embedding scale is rounded to bf16
 before the multiply, as the reference casts it.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -122,8 +123,10 @@ def test_train_step_loss_and_grads_match_reference(family):
     jm, tm = _pair(family)
     ids = _ids(6, b=2, s=16)
     labels = np.concatenate([ids[:, 1:], np.full((2, 1), -100)], axis=1)
-    jloss, jgrads = value_and_grad(_loss_fn)(jm, jnp.asarray(ids),
-                                             jnp.asarray(labels))
+    # the reference's gradients under one jax.jit (eager JAX compiles
+    # every op apart)
+    jloss, jgrads = jax.jit(value_and_grad(_loss_fn))(
+        jm, jnp.asarray(ids), jnp.asarray(labels))
 
     def adamw(mod):
         return mod.AdamW(learning_rate=3e-4, weight_decay=0.1,

@@ -35,6 +35,7 @@ from paddle_tpu_torch.quantization import QuantizedWeight
 from paddle_tpu_torch.serving import LLMEngine, Request
 from paddle_tpu_torch.serving import quant as TQ
 from tests.test_torch_common import F32_TOL, moe_pair, tiny_pair, to_np
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(num_hidden_layers=2, hidden_size=32, num_attention_heads=4,
             num_key_value_heads=2, vocab_size=64)

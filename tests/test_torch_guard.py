@@ -35,7 +35,15 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "paddle_tpu_torch.amp.debugging, paddle_tpu_torch.io, "
         "paddle_tpu_torch.train.trainer, paddle_tpu_torch.train.checkpoint, "
         "paddle_tpu_torch.train.elastic, paddle_tpu_torch.utils.watchdog, "
-        "paddle_tpu_torch.utils.profiler\n"
+        "paddle_tpu_torch.utils.profiler, paddle_tpu_torch.distributed, "
+        "paddle_tpu_torch.distributed.mesh, "
+        "paddle_tpu_torch.distributed.collective, "
+        "paddle_tpu_torch.distributed.sharded, "
+        "paddle_tpu_torch.distributed.tensor_parallel, "
+        "paddle_tpu_torch.distributed.pipeline, "
+        "paddle_tpu_torch.distributed.fleet, "
+        "paddle_tpu_torch.distributed.auto_parallel, "
+        "paddle_tpu_torch.distributed.launch\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
@@ -65,21 +73,41 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 def test_entry_points_default_to_the_card():
     """The model constructors and the makers of rope tables, KV pools,
-    ALiBi slopes and seeded generators put their tensors on the card when
-    no device is named: without one they raise, and with ``device="cpu"``
-    they run on the CPU."""
+    ALiBi slopes and seeded generators, the mesh, the process group, the
+    tensor-parallel layers and the pipeline layer put their tensors (and
+    their ranks) on the card when no device is named: without one they
+    raise, and with ``device="cpu"`` they run on the CPU."""
     from paddle_tpu_torch import generator
+    from paddle_tpu_torch import distributed as D
     from paddle_tpu_torch.core.device import resolve_device
+    from paddle_tpu_torch.distributed.pipeline import PipelineLayer
     from paddle_tpu_torch.models.bloom import alibi_slopes
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.models.paged import PagedKVCache
+    from paddle_tpu_torch.nn.layers import Linear
     from paddle_tpu_torch.ops.attention import rope_cos_sin
+
+    def joined(**kw):
+        assert D.init_parallel_env(**kw) is False    # one process, no env
+        return torch.empty(0, device=resolve_device(kw.get("device")))
+
     makers = {
         "rope_cos_sin": lambda **kw: rope_cos_sin(8, 16, **kw)[0],
         "PagedKVCache.init": lambda **kw: PagedKVCache.init(
             1, 4, 4, 1, 16, 2, 2, torch.float32, **kw).k_store[0],
         "alibi_slopes": lambda **kw: alibi_slopes(6, **kw),
-        "generator": lambda **kw: generator(0, **kw)}
+        "generator": lambda **kw: generator(0, **kw),
+        "HybridMesh": lambda **kw: torch.empty(
+            0, device=D.HybridMesh(**kw).device),
+        "init_parallel_env": joined,
+        "ColumnParallelLinear": lambda **kw: D.ColumnParallelLinear(
+            4, 4, **kw).weight,
+        "RowParallelLinear": lambda **kw: D.RowParallelLinear(
+            4, 4, **kw).weight,
+        "VocabParallelEmbedding": lambda **kw: D.VocabParallelEmbedding(
+            8, 4, **kw).weight,
+        "PipelineLayer": lambda **kw: PipelineLayer(
+            [Linear(2, 2, device="cpu")], 1, **kw).stacked["weight"]}
     for name, make in makers.items():
         assert make(device="cpu").device.type == "cpu", name
     if torch.cuda.is_available():
@@ -133,19 +161,45 @@ def test_trainer_stack_entry_points_default_to_the_card():
 
 
 def test_unported_training_modes_refuse():
-    """A sharded train step raises, naming its ROADMAP item, instead of
-    running something else; the selective remat policies construct and an
-    unknown one raises."""
+    """What item 7 still queues raises, naming its ROADMAP item, instead of
+    running something else: a train step over a sequence-parallel (sp / cp)
+    axis, expert-parallel MoE under an ep mesh and orbax checkpoints; a
+    mesh train step over the other axes constructs; the selective remat
+    policies construct and an unknown one raises."""
     from paddle_tpu_torch import optimizer as O
-    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.distributed import HybridMesh
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed.moe import MoELayer
+    from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                               _Init)
     from paddle_tpu_torch.train import init_state, make_train_step
+    from paddle_tpu_torch.train.checkpoint import CheckpointManager
+
+    class _SpMesh:       # the size queries of a mesh with sp = ep = 2
+        def size(self, axes):
+            return 2
+
     opt = O.AdamW()
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
         make_train_step(lambda m, i, lab: m.loss(i, lab), opt,
-                        mesh=object())
+                        mesh=_SpMesh())
     m = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-        init_state(m, opt, mesh=object())
+        init_state(m, opt, mesh=_SpMesh())
+    assert callable(make_train_step(lambda mm, i, lab: mm.loss(i, lab), opt,
+                                    mesh=HybridMesh(device="cpu")))
+    cfg = LlamaConfig.tiny()
+    moe = MoELayer(cfg.hidden_size, 32, 4, init=_Init(cfg, "cpu", 0))
+    x = torch.zeros(1, 2, cfg.hidden_size)
+    M._CURRENT.append(_SpMesh())       # every axis of size 2: ep too
+    try:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue 1 item 7"):
+            moe(x)
+    finally:
+        M._CURRENT.pop()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
+        CheckpointManager("unused", use_orbax=True)
     for policy in ("dots", "hidden", "no_ffn"):
         assert LlamaConfig(remat_policy=policy).save_names()
     with pytest.raises(ValueError):
@@ -197,7 +251,9 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
         "f16_serve_i8": K.F16_SERVE_I8_KERNELS,
         "f16_train": K.F16_TRAIN_KERNELS,
         "f16_moe_serve": K.F16_MOE_SERVE_KERNELS,
-        "f16_moe_train": K.F16_MOE_TRAIN_KERNELS}
+        "f16_moe_train": K.F16_MOE_TRAIN_KERNELS,
+        "dist_train": K.DIST_TRAIN_KERNELS,
+        "pp_train": K.PP_TRAIN_KERNELS}
     # K7 rotates every rotate-half rope of every path; the ALiBi paths
     # (BLOOM, falcon-rw) have no rope and run K2's (and K5's) ALiBi mode
     # instead, and GPT-J's interleaved rope is plain PyTorch, as the

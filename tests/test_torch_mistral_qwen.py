@@ -8,6 +8,7 @@ each kernel wrapper runs its plain version. Tolerances as in
 ``test_torch_train.py``: the two sides differ only in the summation
 order of XLA's and ATen's matmuls and reductions.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -72,10 +73,13 @@ def test_logits_loss_and_every_grad_match_reference(family):
             is not None
     # 40 tokens: past Mistral-tiny's window of 16, so the band is exercised
     ids, labels = _batch()
+    # the reference under one jax.jit each (eager JAX compiles every op
+    # apart, most of this test's time)
     np.testing.assert_allclose(
-        to_np(tm(torch.as_tensor(ids))), np.asarray(jm(jnp.asarray(ids))),
+        to_np(tm(torch.as_tensor(ids))),
+        np.asarray(jax.jit(lambda m, i: m(i))(jm, jnp.asarray(ids))),
         **F32_TOL)
-    jloss, jgrads = value_and_grad(lambda m, i, lab: m.loss(i, lab))(
+    jloss, jgrads = jax.jit(value_and_grad(lambda m, i, lab: m.loss(i, lab)))(
         jm, jnp.asarray(ids), jnp.asarray(labels))
     tm.zero_grad(set_to_none=True)
     loss = tm.loss(torch.as_tensor(ids), torch.as_tensor(labels))

@@ -8,6 +8,7 @@ loss 1e-5 (the same algorithm in another summation order), gradients 1e-4
 relative to each gradient's largest element (a router's gradient has
 elements near zero), parameters after 3 AdamW steps within 1e-5.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,12 +43,14 @@ def _logits(out):
 def test_logits_loss_and_every_grad_match_reference(family):
     jm, tm, vocab = moe_pair(family)
     ids, labels = _batch(vocab)
-    want = _logits(jm(jnp.asarray(ids)))
+    # the reference under one jax.jit each (eager JAX compiles every op of
+    # the MoE forward and backward apart, most of this test's time)
+    want = _logits(jax.jit(lambda m, i: m(i))(jm, jnp.asarray(ids)))
     got = _logits(tm(torch.as_tensor(ids)))
     np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
-    jloss, jgrads = value_and_grad(_loss_fn)(jm, jnp.asarray(ids),
-                                             jnp.asarray(labels))
+    jloss, jgrads = jax.jit(value_and_grad(_loss_fn))(
+        jm, jnp.asarray(ids), jnp.asarray(labels))
     loss = tm.loss(torch.as_tensor(ids), torch.as_tensor(labels))
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
@@ -73,9 +76,9 @@ def test_qwen2_moe_layer_choice_and_bias():
     assert [lyr.sparse for lyr in jm.layers] == [False, True, False, False]
     assert "layers.0.self_attn.qkv_bias" in dict(tm.named_parameters())
     ids, _ = _batch(vocab, 1)
+    want = jax.jit(lambda m, i: m(i))(jm, jnp.asarray(ids))
     np.testing.assert_allclose(to_np(tm(torch.as_tensor(ids))),
-                               np.asarray(jm(jnp.asarray(ids))), rtol=1e-4,
-                               atol=1e-4)
+                               np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
 def test_moe_llm_really_drops_at_its_capacity_factor():

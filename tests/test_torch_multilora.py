@@ -33,6 +33,7 @@ from paddle_tpu_torch.serving.telemetry import (_ADAPTER_DEFERRALS,
                                                 _ADAPTER_EVICTIONS)
 from paddle_tpu_torch.utils.faults import FAULTS, InjectedFault
 from tests.test_torch_common import F32_TOL, tiny_pair, to_np
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(num_hidden_layers=2, hidden_size=32, num_attention_heads=4,
             num_key_value_heads=2, vocab_size=64)

@@ -39,6 +39,7 @@ from paddle_tpu_torch.observability import (FLIGHT, GOODPUT, METRICS,
 from paddle_tpu_torch.serving import LLMEngine, Request
 from paddle_tpu_torch.utils.faults import FAULTS
 from tests.test_torch_common import tiny_pair
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 H100 = "NVIDIA H100 80GB HBM3"
 TINY = dict(num_hidden_layers=2, hidden_size=32, num_attention_heads=4,

@@ -34,6 +34,7 @@ from paddle_tpu_torch.serving import LLMEngine, Request
 from paddle_tpu_torch.serving import quant as TQ
 from paddle_tpu_torch.serving.kv import cache_block_bytes
 from tests.test_torch_common import F32_TOL, moe_pair, tiny_pair, to_np
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 # the reference's own bound for the dequantizing attention paths
 DEQ_TOL = 2e-5

@@ -37,6 +37,7 @@ from paddle_tpu_torch.serving import LLMEngine, Request
 from paddle_tpu_torch.serving.telemetry import _SPEC_DRAFT_REUSE
 from paddle_tpu_torch.utils.faults import FAULTS
 from tests.test_torch_common import F32_TOL, tiny_pair, to_np
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.chaos
 

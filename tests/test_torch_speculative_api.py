@@ -25,6 +25,7 @@ from paddle_tpu_torch.models.decoding import generate
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.models.speculative import (
     speculative_generate, speculative_generate_batched, speculative_sample)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(num_hidden_layers=2, hidden_size=32, num_attention_heads=4,
            num_key_value_heads=2, vocab_size=64)

@@ -39,6 +39,7 @@ from paddle_tpu_torch.serving.adapters import AdapterStore
 from paddle_tpu_torch.utils.faults import FAULTS, InjectedFault
 from tests.test_torch_common import tiny_pair
 from tests.test_torch_multilora import make_adapter
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(num_hidden_layers=2, hidden_size=32, num_attention_heads=4,
             num_key_value_heads=2, vocab_size=64)

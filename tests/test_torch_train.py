@@ -12,6 +12,7 @@ products of them (rtol 1e-4, atol 1e-6 for elements near zero), and
 after 3 AdamW steps of lr 3e-4 a parameter moves by ~1e-3, so its
 rounding differences stay far below atol 1e-5.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -60,8 +61,9 @@ def _port_grads(tm, ids, labels):
 def test_first_step_loss_and_every_grad_match_reference(nkv):
     jm, tm = tiny_pair(num_key_value_heads=nkv)
     ids, labels = _batch()
-    jloss, jgrads = value_and_grad(_loss_fn)(jm, jnp.asarray(ids),
-                                             jnp.asarray(labels))
+    # the reference under one jax.jit (eager JAX compiles every op apart)
+    jloss, jgrads = jax.jit(value_and_grad(_loss_fn))(
+        jm, jnp.asarray(ids), jnp.asarray(labels))
     loss, grads = _port_grads(tm, ids, labels)
     np.testing.assert_allclose(loss, float(jloss), rtol=1e-5)
     want = jgrads.state_dict()
