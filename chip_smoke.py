@@ -296,6 +296,23 @@ Phases (each one fails the run when it fails; nothing is caught):
             again, for the order's share of a gap) and then profiles 2
             unsharded train steps and 2 1f1b steps (device kernels, then
             host functions under cProfile)
+  sp_train  sequence parallelism over a one-rank sp group (NCCL):
+            ``ulysses_attention``, ``ring_attention`` and
+            ``zigzag_ring_attention`` at the train phase's attention shape
+            (q/k/v [4, 2048, 16, 128] bf16), forward and backward, against
+            the unsharded ``scaled_dot_product_attention`` (K2 / K5):
+            Ulysses bit for bit (its exchange is the identity at sp = 1,
+            so K2, K5a and K5b run once each on the unsharded shape), the
+            ring and zigzag ring (plain PyTorch block steps) within SP_REL
+            of the RMS; the forward and forward + backward times of each
+  ep_train  expert parallelism over a one-rank ep group (NCCL): one MoE
+            layer at moe_train's widths and tokens (2048 / 60 experts of
+            1408 / top-4, 2 x 2048 tokens, bf16, capacity factor 1.25)
+            through ``_forward_ep`` against ``_forward_local``: output,
+            aux, drop rate and every gradient (EP_REL of the RMS); K6a
+            launched 4 times (2 forward, 2 dlhs) and K6b twice, and both
+            held to their plain versions and timed at the compacted rows
+            the ep path hands them
   remat_train  the same configuration and batch with remat on: 2 steps
             from one seed under each remat_policy (None, hidden, no_ffn,
             dots) and with scan_layers=True (None), then 4 more timed; loss
@@ -539,7 +556,7 @@ path (``"path": "serve"``, ``"async_serve"``, ``"lora_serve"``,
 ``"grammar_serve"``, ``"tenant_serve"``, ``"router_serve"``,
 ``"router_serve_disagg"``, ``"router_serve_i8"``, ``"router_check"``,
 ``"gptq_serve"``, ``"spec_generate"``, ``"train"``, ``"dist_train"``,
-``"pp_train"``, ``"remat_train"``,
+``"pp_train"``, ``"sp_train"``, ``"ep_train"``, ``"remat_train"``,
 ``"trainer_fit"``, ``"lora_train"``, ``"fp8_train"``, ``"moe_serve"``,
 ``"moe_train"``,
 ``"window_serve"``, ``"quant_serve"``, ``"bloom_serve"``, ``"bloom_train"``,
@@ -733,7 +750,9 @@ PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
          "dist_train": ("rms_norm", "flash_fwd", "flash_bwd_dq",
                         "flash_bwd_dkv", "rope"),
          "pp_train": ("rms_norm", "flash_fwd", "flash_bwd_dq",
-                      "flash_bwd_dkv", "rope")}
+                      "flash_bwd_dkv", "rope"),
+         "sp_train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+         "ep_train": ("grouped_fwd", "grouped_dw")}
 # float16 models (ops.cuda's F16_*_KERNELS): a path's kernels on their
 # float16 instantiations, counted apart
 PATHS.update({f16: tuple(f"{k}_f16" for k in PATHS[path])
@@ -755,6 +774,13 @@ DIST_STEPS = 3
 PP_MICROBATCHES = 4
 PP_MICRO_SHAPE = (1, 2048, 16, 128)
 PP_STEPS = 3
+# the sp / ep phases: the ring's and zigzag ring's outputs and gradients
+# may be this share of the unsharded attention's RMS from it (bf16 P @ V
+# rounded where the kernels keep fp32); the ep layer's against the local
+# layer's; the ep layer's capacity factor (the MoE LLM's default)
+SP_REL = 2e-2
+EP_REL = 1e-2
+EP_CAPACITY_FACTOR = 1.25
 # the train phase's losses, ms/step and launches, which the mesh phases
 # are held to
 TRAIN_RECORD: dict = {}
@@ -1291,6 +1317,9 @@ def phase_kernels(torch, dev):
     # the mesh train step runs the train step's shapes on its one rank;
     # the pipeline its microbatches' (K7's row set by its ROPE_CASES entry)
     results["dist_train"] = results["train"]
+    # Ulysses at sp = 1 hands K2 / K5 the train step's attention shape
+    results["sp_train"] = {k: results["train"][k] for k in
+                           ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     b, s, h, d = PP_MICRO_SHAPE
     results.setdefault("pp_train", {}).update(
         rms_norm=k1_train(torch, dev, b * s, h * d),
@@ -4455,6 +4484,211 @@ def phase_dist_train(torch, dev, np):
         raise AssertionError(f"kernels not launched on dist_train: {missing}")
     _per_step_same("dist_train", counts, DIST_STEPS)
     return counts
+
+
+# ------------------------------------- sequence and expert parallelism
+def _rel_rms(a, b):
+    """RMS(a - b) / RMS(b)."""
+    return _rms(a.float() - b.float()) / max(_rms(b), 1e-30)
+
+
+def phase_sp_train(torch, dev, np):
+    """ulysses_attention, ring_attention and zigzag_ring_attention over a
+    one-rank sp group (NCCL) at the train phase's attention shape
+    (TRAIN_SHAPE, bf16): output and dq / dk / dv of sum(o * dO) against
+    the unsharded scaled_dot_product_attention (K2 forward, K5a / K5b
+    backward). Ulysses's exchange is the identity at sp = 1, so its output
+    and gradients must be the unsharded ones bit for bit; the ring's and
+    the zigzag ring's block step is plain PyTorch (fp32 scores, bf16
+    P @ V), held to them within SP_REL of their RMS. Returns the launch
+    counts of the Ulysses run (K2, K5a and K5b once each)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import cuda as K
+    q, k, v, do = _train_qkv(torch, dev, torch.bfloat16)
+
+    def fwd_bwd(fn, grads=True):
+        qs, ks, vs = (t.detach().clone().requires_grad_(grads)
+                      for t in (q, k, v))
+        o = fn(qs, ks, vs)
+        if not grads:
+            return (o,)
+        o.backward(do)
+        return o.detach(), qs.grad, ks.grad, vs.grad
+
+    def sdpa(a, b, c):
+        return A.scaled_dot_product_attention(a, b, c, is_causal=True)
+
+    ref = fwd_bwd(sdpa)
+    fns = {"ulysses": lambda a, b, c: D.ulysses_attention(a, b, c),
+           "ring": lambda a, b, c: D.ring_attention(a, b, c),
+           "zigzag": lambda a, b, c: D.zigzag_ring_attention(a, b, c)}
+    card = card_line()
+    with nccl_world(torch):
+        with D.HybridMesh(sp=1) as mesh:
+            torch.cuda.synchronize()
+            K.reset_launches()
+            got = {"ulysses": fwd_bwd(fns["ulysses"])}
+            torch.cuda.synchronize()
+            counts = K.launches()
+            got["ring"] = fwd_bwd(fns["ring"])
+            got["zigzag"] = fwd_bwd(fns["zigzag"])
+            times = {"unsharded sdpa": sdpa, **fns}
+            ms = {n: (time_ms(lambda f=f: fwd_bwd(f, False), iters=5,
+                              warmup=1),
+                      time_ms(lambda f=f: fwd_bwd(f), iters=5, warmup=1))
+                  for n, f in times.items()}
+    del mesh
+    names = ("out", "dq", "dk", "dv")
+    same = all(torch.equal(a, b) for a, b in zip(got["ulysses"], ref))
+    log(f"[sp_train] ulysses at sp=1, q/k/v {list(TRAIN_SHAPE)} bf16: "
+        f"output and dq/dk/dv bit-identical to the unsharded sdpa: {same}")
+    if not same:
+        raise AssertionError("sp_train: ulysses at sp = 1 differs from the "
+                             "unsharded scaled_dot_product_attention")
+    for mode in ("ring", "zigzag"):
+        errs = {n: (_rel_rms(a, b), float((a.float() - b.float()).abs()
+                                          .max()))
+                for n, a, b in zip(names, got[mode], ref)}
+        log(f"[sp_train] {mode} at sp=1 against the unsharded sdpa: "
+            + ", ".join(f"{n} {r:.3e} of RMS (max abs {m:.3e})"
+                        for n, (r, m) in errs.items())
+            + f" (limit {SP_REL})")
+        bad = {n: r for n, (r, _) in errs.items() if not r <= SP_REL}
+        if bad:
+            raise AssertionError(f"sp_train: {mode} off the unsharded "
+                                 f"attention: {bad}")
+    for n, (f_ms, fb_ms) in ms.items():
+        log(f"[sp_train] {n}: forward {f_ms:.3f} ms, forward + backward "
+            f"{fb_ms:.3f} ms ({card})")
+    want = {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    log(f"[sp_train] launches of the ulysses run: {counts}")
+    if {n: counts.get(n, 0) for n in want} != want:
+        raise AssertionError(f"sp_train launches {counts}, expected {want}")
+    return counts
+
+
+def _ep_k6_entries(torch, lhs, rhs, sizes):
+    """K6a (forward) and K6b (drhs) at the shapes the ep path gives them —
+    the compacted rows [m, k] of which the first sum(sizes) are live — held
+    to their plain versions on the live rows and timed; the bounds count
+    the live rows (this run's data), the weights of every expert."""
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as GM
+    m, k = lhs.shape
+    e, _, n = rhs.shape
+    es = lhs.element_size()
+    live = int(sizes.sum())
+    groups = int((sizes > 0).sum())
+    err = _agree("grouped_fwd (ep_train compacted rows)", _hn(), _max_err(
+        GM.grouped_fwd_cuda(lhs, rhs, sizes)[:live],
+        GM.grouped_matmul_plain(lhs, rhs, sizes)[:live]))
+    shape = (f"lhs [{m}, {k}] ({live} live rows) x rhs [{e}, {k}, {n}] "
+             f"{_hn()}, {groups} of {e} groups live")
+    b_ms, b_by = bound((live * k + live * n + groups * k * n) * es + 4 * e,
+                       2 * live * k * n)
+    fwd = dict(max_abs_err=err, variant=_k6_route(GM, m, e, k, n, lhs.dtype),
+               ms=time_ms(lambda: GM.grouped_fwd_cuda(lhs, rhs, sizes),
+                          iters=10),
+               plain_ms=time_ms(lambda: GM.grouped_matmul_plain(
+                   lhs, rhs, sizes), iters=3, warmup=1),
+               library_ms=_library_grouped_mm(torch, lhs, rhs, sizes),
+               bound_ms=b_ms, bound_by=b_by, shape=shape)
+    g = torch.Generator(device=lhs.device).manual_seed(23)
+    cot = torch.randn(m, n, generator=g, device=lhs.device).to(lhs.dtype)
+    got, route = _k6b_ran(GM, lambda: GM.grouped_dw(lhs, cot, sizes))
+    ref = GM.grouped_matmul_bwd_plain(lhs, rhs, sizes, cot)[1]
+    err_w = _agree(f"grouped_dw (ep_train compacted rows, {route})", _hn(),
+                   _max_err(got, ref))
+    del got, ref
+    dw = dict(max_abs_err=err_w, variant=route,
+              ms=time_ms(lambda: GM.grouped_dw(lhs, cot, sizes), iters=10),
+              plain_ms=time_ms(lambda: GM.grouped_matmul_bwd_plain(
+                  lhs, rhs, sizes, cot), iters=3, warmup=1),
+              library_ms=_library_grouped_mm(torch, lhs.t(), cot, sizes),
+              bound_ms=b_ms, bound_by=b_by,
+              shape=shape + " (plain: dlhs and drhs in one call)")
+    return {"grouped_fwd": fwd, "grouped_dw": dw}
+
+
+def phase_ep_train(torch, dev, np):
+    """One MoE layer at moe_train's widths and tokens (Qwen1.5-MoE-A2.7B's
+    2048 / 60 experts of 1408 / top-4, 2 x 2048 tokens, bf16, capacity
+    factor EP_CAPACITY_FACTOR) through ``_forward_ep`` over a one-rank ep
+    group (NCCL) against ``_forward_local``: output, aux, drop rate and
+    every gradient of mean(y^2) + 0.01 aux (within EP_REL of the RMS; aux
+    and drop rate equal). The compacted rows the ep path hands K6 are
+    kept for the kernel entries. Returns (launch counts of the ep run,
+    {kernel: entry})."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import moe as M
+    from paddle_tpu_torch.models.llama import LlamaConfig, _Init
+    from paddle_tpu_torch.ops import cuda as K
+    cfg = LlamaConfig(hidden_size=MOE_HIDDEN, dtype=torch.bfloat16)
+    layer = M.MoELayer(MOE_HIDDEN, MOE_INTER, MOE_EXPERTS, k=MOE_TOPK,
+                       capacity_factor=EP_CAPACITY_FACTOR,
+                       norm_topk_prob=False, init=_Init(cfg, dev, 0))
+    b, s = MOE_TRAIN_SHAPE[:2]
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(b, s, MOE_HIDDEN, generator=g, device=dev).to(
+        torch.bfloat16)
+
+    def run(fn):
+        layer.zero_grad(set_to_none=True)
+        xs = x.detach().clone().requires_grad_()
+        y, aux, drop = fn(xs)
+        (y.float().square().mean() + 0.01 * aux).backward()
+        grads = {n: p.grad.float() for n, p in layer.named_parameters()}
+        grads["x"] = xs.grad.float()
+        return y.detach(), float(aux.detach()), float(drop), grads
+
+    ref = run(layer._forward_local)
+    seen = {}
+    orig = M.grouped_mlp_apply
+
+    def spy(xs, gate_up, down, sizes):
+        seen.setdefault("args", (xs.detach().clone(), gate_up.detach(),
+                                 sizes.clone()))
+        return orig(xs, gate_up, down, sizes)
+
+    card = card_line()
+    with nccl_world(torch):
+        with D.HybridMesh(ep=1) as mesh:
+            M.grouped_mlp_apply = spy
+            try:
+                torch.cuda.synchronize()
+                K.reset_launches()
+                got = run(lambda xs: layer._forward_ep(xs, mesh, 1))
+                torch.cuda.synchronize()
+                counts = K.launches()
+            finally:
+                M.grouped_mlp_apply = orig
+            ms_ep = time_ms(lambda: run(lambda xs: layer._forward_ep(
+                xs, mesh, 1)), iters=5, warmup=1)
+    ms_local = time_ms(lambda: run(layer._forward_local), iters=5, warmup=1)
+    (y_r, aux_r, drop_r, g_r), (y_g, aux_g, drop_g, g_g) = ref, got
+    errs = {"y": _rel_rms(y_g, y_r),
+            **{n: _rel_rms(g_g[n], g_r[n]) for n in g_r}}
+    log(f"[ep_train] _forward_ep at ep=1 against _forward_local, tokens "
+        f"{b} x {s}, {MOE_EXPERTS} experts top-{MOE_TOPK}, capacity factor "
+        f"{EP_CAPACITY_FACTOR}: aux {aux_g:.6f} / {aux_r:.6f}, drop rate "
+        f"{drop_g:.6f} / {drop_r:.6f}; RMS errors "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (limit {EP_REL})")
+    log(f"[ep_train] forward + backward: ep {ms_ep:.3f} ms, local "
+        f"{ms_local:.3f} ms ({card})")
+    bad = {n: e for n, e in errs.items() if not e <= EP_REL}
+    if bad or aux_g != aux_r or drop_g != drop_r:
+        raise AssertionError(f"ep_train: _forward_ep off _forward_local: "
+                             f"{bad}, aux {aux_g} / {aux_r}, drop {drop_g} "
+                             f"/ {drop_r}")
+    want = {"grouped_fwd": 4, "grouped_dw": 2}
+    log(f"[ep_train] launches of the ep run: {counts}")
+    if {n: counts.get(n, 0) for n in want} != want:
+        raise AssertionError(f"ep_train launches {counts}, expected {want}")
+    lhs, gate_up, sizes = seen["args"]
+    del ref, got, layer
+    torch.cuda.empty_cache()
+    return counts, _ep_k6_entries(torch, lhs, gate_up, sizes)
 
 
 def _pp_named(grads):
@@ -8382,7 +8616,7 @@ def main(argv=None):
                     "grammar_serve,grammar_check,tenant_serve,"
                     "endpoint_check,hf_load,router_serve,router_check,"
                     "gptq_serve,gptq_check,spec_generate,train,dist_train,"
-                    "pp_train,remat_train,"
+                    "pp_train,sp_train,ep_train,remat_train,"
                     "trainer_fit,ckpt_resume,lora_train,fp8_train,amp_check,"
                     "moe_serve,moe_check,moe_train,window_serve,window_check,"
                     "quant_serve,quant_check,bloom_serve,bloom_train,"
@@ -8639,6 +8873,17 @@ def main(argv=None):
                             if name == "pp_train"
                             else phase_dist_train(torch, dev, np))
             log(f"[{name}] phase {time.monotonic() - tp:.1f} s")
+    if "sp_train" in phases:
+        tp = time.monotonic()
+        counts["sp_train"] = phase_sp_train(torch, dev, np)
+        log(f"[sp_train] phase {time.monotonic() - tp:.1f} s")
+    if "ep_train" in phases:
+        tp = time.monotonic()
+        counts["ep_train"], entries = phase_ep_train(torch, dev, np)
+        results.setdefault("ep_train", {}).update(entries)
+        for name, r in entries.items():
+            _log_entry(f"ep_train {name}", r)
+        log(f"[ep_train] phase {time.monotonic() - tp:.1f} s")
     if "f16_train" in phases:
         tp = time.monotonic()
         counts["f16_train"] = phase_f16_train(torch, dev, np)

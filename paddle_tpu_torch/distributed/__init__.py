@@ -11,9 +11,13 @@ rank, PyTorch's idiom, where the reference runs one SPMD program.
   vocab-parallel cross-entropy.
 * :mod:`.pipeline` — the 1F1B and zero-bubble schedules with
   point-to-point send/recv.
+* :mod:`.ring_attention`, :mod:`.ulysses`, :mod:`.sp` — sequence
+  parallelism over the sp axis: the ring (and its zigzag layout) rotating
+  KV blocks, Ulysses re-sharding sequence to heads, the models' dispatch.
+* :mod:`.moe` — the MoE layer: routing over the global batch under data
+  axes, expert parallelism over the ep axis (all_to_all dispatch).
 * :mod:`.fleet`, :mod:`.auto_parallel`, :mod:`.launch` — the reference's
-  facades; :mod:`.moe` — the MoE layer (single-device; expert parallelism
-  and ring / Ulysses sequence parallelism are ROADMAP.md queue 1 item 7).
+  facades.
 
 The backend is ``nccl`` for the card and ``gloo`` for the CPU
 (:func:`init_parallel_env`); ``get_backend`` names it where the
@@ -60,6 +64,18 @@ from paddle_tpu_torch.distributed.sharded import (  # noqa: F401
     partition_specs,
     shard_module,
     with_sharding_constraint,
+)
+from paddle_tpu_torch.distributed.ring_attention import (  # noqa: F401
+    make_ring_attention,
+    make_zigzag_ring_attention,
+    ring_attention,
+    zigzag_inverse_permutation,
+    zigzag_permutation,
+    zigzag_ring_attention,
+)
+from paddle_tpu_torch.distributed.ulysses import (  # noqa: F401
+    make_ulysses_attention,
+    ulysses_attention,
 )
 from paddle_tpu_torch.distributed.tensor_parallel import (  # noqa: F401
     ColumnParallelLinear,

@@ -7,11 +7,11 @@ of ``mesh=``, or a tuple of axes) runs over that axis's process group
 through ``torch.distributed``: every member of the group must call it, in
 the same order. Over an axis of size 1 a collective returns its input.
 
-Gradients. ``all_reduce`` (sum), ``all_gather``, ``reduce_scatter`` and
-``all_to_all`` are differentiable with the transposes of the SPMD program
-whose objective is the sum of the ranks' objectives: all_reduce <->
-all_reduce, all_gather <-> reduce_scatter, all_to_all <-> the inverse
-all_to_all. The tensor-parallel layers use the Megatron pair instead
+Gradients. ``all_reduce`` (sum), ``all_gather``, ``reduce_scatter``,
+``all_to_all`` and ``permute`` / ``shift`` are differentiable with the
+transposes of the SPMD program whose objective is the sum of the ranks'
+objectives: all_reduce <-> all_reduce, all_gather <-> reduce_scatter,
+all_to_all <-> the inverse all_to_all, permute <-> the inverse pattern. The tensor-parallel layers use the Megatron pair instead
 (:func:`copy_to_group`: identity forward, all-reduce backward;
 :func:`reduce_from_group`: all-reduce forward, identity backward), whose
 backward assumes what follows is computed alike on every member; and FSDP
@@ -316,15 +316,10 @@ def broadcast(x, src: int = 0, *, axis_name, mesh=None):
     return out
 
 
-def permute(x, perm, *, axis_name, mesh=None):
-    """Point-to-point pattern ``perm = [(src, dst), ...]`` over the axis's
-    member indices: member dst receives member src's value; a member that
-    receives nothing gets zeros, as ``lax.ppermute`` gives."""
-    _count("permute", x)
-    m, group, n, me = _axis(axis_name, mesh)
-    if n == 1:
-        return x if (0, 0) in [tuple(p) for p in perm] else torch.zeros_like(x)
-    ranks = m.ranks_along(axis_name)
+def _exchange(x, perm, group, ranks, me):
+    """One ``batch_isend_irecv`` of the pattern ``perm`` over the members
+    ``ranks`` (global ranks, in member order) of ``group``: what member
+    ``me`` receives, zeros where it receives nothing."""
     out = torch.zeros_like(x)
     ops = []
     x = x.detach().contiguous()
@@ -332,12 +327,41 @@ def permute(x, perm, *, axis_name, mesh=None):
         if src == me and dst == me:
             out = x.clone()
         elif src == me:
-            ops.append(dist.P2POp(dist.isend, x, ranks[dst]))
+            ops.append(dist.P2POp(dist.isend, x, ranks[dst], group))
         elif dst == me:
-            ops.append(dist.P2POp(dist.irecv, out, ranks[src]))
+            ops.append(dist.P2POp(dist.irecv, out, ranks[src], group))
     for w in (dist.batch_isend_irecv(ops) if ops else []):
         w.wait()
     return out
+
+
+class _Permute(torch.autograd.Function):
+    """The exchange forward; the cotangent goes back along the inverse
+    pattern (``lax.ppermute``'s transpose), so a ring's backward is the
+    reverse ring."""
+
+    @staticmethod
+    def forward(ctx, x, perm, group, ranks, me):
+        ctx.args = ([(d, s) for s, d in perm], group, ranks, me)
+        return _exchange(x, perm, group, ranks, me)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, *ctx.args), None, None, None, None
+
+
+def permute(x, perm, *, axis_name, mesh=None):
+    """Point-to-point pattern ``perm = [(src, dst), ...]`` over the axis's
+    member indices: member dst receives member src's value; a member that
+    receives nothing gets zeros, as ``lax.ppermute`` gives. One
+    ``batch_isend_irecv`` over the axis's group; differentiable, the
+    gradient sent back along the inverse pattern."""
+    _count("permute", x)
+    perm = [tuple(int(i) for i in p) for p in perm]
+    m, group, n, me = _axis(axis_name, mesh)
+    if n == 1:
+        return x if (0, 0) in perm else torch.zeros_like(x)
+    return _Permute.apply(x, perm, group, m.ranks_along(axis_name), me)
 
 
 def shift(x, offset: int = 1, *, axis_name, mesh=None):

@@ -24,18 +24,61 @@ The routing index tensors (``tok``, ``expert``, ``pos``, ``order``) are
 int64, as PyTorch indexes; ``counts`` is int32, as the kernel takes it.
 Nothing here reads a device value back to the host.
 
-The expert-parallel path (``_forward_ep``: the all_to_all over an ep mesh
-axis, taken under a mesh with ep > 1 as in the reference) is ROADMAP.md
-queue 1 item 7 and raises until it is ported.
+Under a mesh, one process per rank (the reference runs one program over
+the global batch):
+
+* **Data axes with ep = 1** (``MoELayer._forward_local`` with a mesh):
+  each rank routes its own rows, but as the reference's one program
+  routes the GLOBAL batch — capacity ``_capacity(global tokens)``, queue
+  positions global and choice-major (one all-gather of the per-row,
+  per-choice expert counts gives each rank where its entries stand in
+  every expert's queue), ``me``/``ce`` and the drop rate averaged over the
+  token axes through the differentiable all-reduce, so the aux loss and
+  its gradient are the reference's.
+* **ep > 1** (``MoELayer._forward_ep``): each rank routes its tokens with
+  LOCAL capacity (the reference's per-rank semantics), an all_to_all over
+  ep sends the ``[E, C, H]`` slots to the experts' ranks, the received
+  slots are compacted (their counts ride a second all_to_all) so the
+  grouped GEMM (K6a forward and dlhs, K6b drhs on the card) runs over
+  ``sum(counts)`` rows, and the reverse all_to_all brings the outputs
+  back. A model under ``distributed.shard_module`` holds its rank's
+  experts (the stacks' spec is ``("ep", None, None)``); an unsharded one
+  holds all and each rank takes its slice.
+
+Which tokens a rank holds is said, not guessed: a train step hands every
+rank its own rows; a server holds the whole batch on every rank and
+enters :func:`replicated_tokens`, under which the ep path takes this
+rank's share of the flattened tokens and all-gathers the result, and the
+data-axis path routes the batch it holds.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from paddle_tpu_torch.distributed import collective as C
+from paddle_tpu_torch.distributed.mesh import DATA_AXES
+from paddle_tpu_torch.distributed.sharded import TOKEN_AXES, set_pspec
 from paddle_tpu_torch.ops.cuda import grouped_matmul as _gmm
 from paddle_tpu_torch.ops.cuda.grouped_matmul import grouped_gemm_enabled
+
+_REPLICATED = contextvars.ContextVar("moe_replicated_tokens", default=False)
+
+
+@contextlib.contextmanager
+def replicated_tokens():
+    """Inside, an MoE layer under a mesh takes its input as the whole batch,
+    the same on every rank (a server's activations), not this rank's rows
+    (a train step's)."""
+    token = _REPLICATED.set(True)
+    try:
+        yield
+    finally:
+        _REPLICATED.reset(token)
 
 
 def _gate_probs(logits, k, renormalize=True):
@@ -162,12 +205,15 @@ def sparse_combine(y_e, route, dest, num_tokens: int):
 
 
 class ExpertMLP(nn.Module):
-    """E SwiGLU expert MLPs with a leading expert axis."""
+    """E SwiGLU expert MLPs with a leading expert axis, ep-sharded."""
 
     def __init__(self, num_experts, hidden, intermediate, init):
         super().__init__()
         self.gate_up = init.normal(num_experts, hidden, 2 * intermediate)
         self.down = init.normal(num_experts, intermediate, hidden)
+        # experts over the ep mesh axis (expert parallelism)
+        set_pspec(self, "gate_up", ("ep", None, None))
+        set_pspec(self, "down", ("ep", None, None))
 
     def forward(self, x_e):
         """x_e: [E, C, H] — per-expert token slots."""
@@ -284,19 +330,30 @@ class MoELayer(nn.Module):
         if ep > 1:
             y, aux, drop = self._forward_ep(x, mesh, ep)
         else:
-            y, aux, drop = self._forward_local(x)
+            y, aux, drop = self._forward_local(x, mesh)
         if return_metrics:
             return y, aux, {"drop_rate": drop}
         return (y, aux) if return_aux else y
 
-    def _forward_local(self, x):
+    def _forward_local(self, x, mesh=None):
+        """The layer over the tokens ``x`` [B, S, H] holds. Under a mesh
+        whose token axes (dp, fsdp, sp) hold more than one rank, ``x`` is
+        this rank's piece of the global batch (its rows, its sequence
+        block) and the routing is the reference's over the global batch
+        (:func:`_global_route`); under :func:`replicated_tokens` ``x`` is
+        the whole batch and the routing local."""
         b, s, h = x.shape
         t = b * s
-        cap = self._capacity(t)
+        shards = 1
+        if mesh is not None and not _REPLICATED.get():
+            shards = mesh.size(TOKEN_AXES)
+        cap = self._capacity(t * shards)
         xt = x.reshape(t, h)
         logits = xt.float() @ self.gate_w
         route, aux, drop = top_k_route(logits, self.k, cap,
                                        self.norm_topk_prob)
+        if shards > 1:
+            route, aux, drop = _global_route(route, s, self.k, cap, mesh)
         gate_up, down = _expert_arrays(self.experts, x.dtype)
         if grouped_gemm_enabled():
             yt = grouped_forward(xt, route, gate_up, down, t)
@@ -307,7 +364,174 @@ class MoELayer(nn.Module):
         return yt.reshape(b, s, h), aux, drop
 
     def _forward_ep(self, x, mesh, ep):
-        raise NotImplementedError(
-            "expert-parallel MoE (shard_map + all_to_all over an ep mesh "
-            "axis) is not ported yet (ROADMAP.md queue 1 item 7, "
-            "distributed)")
+        """Expert parallelism over the mesh's ep axis: tokens sharded over
+        (dp, fsdp, ep), each rank's experts ``E / ep`` of them. ``x`` is
+        this rank's rows, or under :func:`replicated_tokens` the whole
+        batch, of which the rank takes its share of the flattened tokens
+        (the reference's spec) and all-gathers the outputs."""
+        e = self.num_experts
+        if e % ep != 0:
+            raise ValueError(f"num_experts={e} not divisible by ep={ep}")
+        if mesh.size("sp") > 1:
+            raise NotImplementedError(
+                "expert parallelism with the sequence split over sp: the "
+                "reference shards an ep rank's tokens over the data axes "
+                "alone; train MoE layers over ep with sp = 1")
+        b, s, h = x.shape
+        t = b * s
+        xt = x.reshape(t, h)
+        shards = mesh.size(DATA_AXES)
+        replicated = _REPLICATED.get()
+        if replicated:
+            if t % shards != 0:
+                raise ValueError(
+                    f"tokens {t} (= {b}x{s}) not divisible by "
+                    f"dp*fsdp*ep={shards} (tokens are sharded over the data "
+                    f"axes)")
+            xt = xt.view(shards, t // shards, h)[mesh.index(DATA_AXES)]
+        yt, aux, drop = self._ep_tokens(xt, mesh, ep)
+        if replicated:
+            # a server's forward: no gradient travels back through here
+            yt = C.gather_dim(yt, mesh.group(DATA_AXES), shards, 0)
+        return yt.reshape(b, s, h), aux, drop
+
+    def _ep_tokens(self, xt, mesh, ep):
+        """The ep layer over this rank's tokens ``xt`` [T, H]."""
+        e, k = self.num_experts, self.k
+        el = e // ep
+        tl, h = xt.shape
+        # LOCAL capacity — the reference's per-rank semantics: a rank fills
+        # at most C slots of each (global) expert
+        cap = self._capacity(tl)
+        logits = xt.float() @ self.gate_w
+        route, _, _ = top_k_route(logits, k, cap, self.norm_topk_prob)
+        me, ce, kept = _token_means(mesh, DATA_AXES, route["me"], route["ce"],
+                                    route["keep"].float().mean())
+        aux, drop = e * (me * ce).sum(), 1.0 - kept
+        gate_up, down = self._local_experts(xt.dtype, mesh, ep)
+        # send buffer: my tokens in every expert's queue; the all_to_all
+        # gives x_recv[s] = rank s's slots of MY experts
+        x_send, dest = sparse_dispatch(xt, route, e, cap)
+        x_recv = C.all_to_all(x_send.reshape(ep, el, cap, h),
+                              axis_name="ep", split_axis=0, concat_axis=0,
+                              mesh=mesh)
+        if grouped_gemm_enabled():
+            y_loc = _compact_mlp(x_recv, route, e, ep, cap, gate_up, down,
+                                 mesh)
+        else:
+            # dense path: senders folded into the slot dim, padded MLP
+            x_loc = x_recv.transpose(0, 1).reshape(el, ep * cap, h)
+            y_loc = expert_mlp_apply(x_loc, gate_up, down).view(
+                el, ep, cap, h)
+        y_recv = C.all_to_all(y_loc.transpose(0, 1).contiguous(),
+                              axis_name="ep", split_axis=0, concat_axis=0,
+                              mesh=mesh)
+        return (sparse_combine(y_recv.reshape(e, cap, h), route, dest, tl),
+                aux, drop)
+
+    def _local_experts(self, dtype, mesh, ep):
+        """This rank's ``E / ep`` expert stacks: the parameters of a model
+        ``shard_module`` sharded over ep, else this rank's slice of the
+        whole stacks every rank holds (a server's unsharded model)."""
+        gate_up, down = _expert_arrays(self.experts, dtype)
+        if gate_up.shape[0] == self.num_experts:
+            i = mesh.index("ep")
+            gate_up, down = gate_up.chunk(ep, 0)[i], down.chunk(ep, 0)[i]
+        return gate_up, down
+
+
+def _token_means(mesh, axes, *xs):
+    """Each of ``xs`` (per-rank means over equal token counts) averaged
+    over the mesh ``axes`` through the differentiable all-reduce: the
+    means over the global batch."""
+    return tuple(C.all_reduce(x, C.ReduceOp.AVG, axis_name=axes, mesh=mesh)
+                 for x in xs)
+
+
+def _global_route(route, s_loc, k, capacity, mesh):
+    """The route of this rank's tokens as the reference's routing of the
+    GLOBAL batch places them: ``route`` is :func:`top_k_route` of the
+    rank's [B_loc * S_loc] tokens, which are rows [r*B_loc, (r+1)*B_loc) of
+    the global batch (r: its index over the data axes) and positions
+    [i*S_loc, (i+1)*S_loc) of each (i: its index over sp). An expert's
+    global queue is choice-major and, within a choice, in global flat
+    token order (row, then position). One all-gather of the per-choice,
+    per-row expert counts [k, B_loc, E] over the token axes gives the
+    entries ahead of each of this rank's (choice, row) runs; ``pos``,
+    ``keep``, ``me``, ``ce``, the aux loss and the drop rate are replaced
+    by the global ones. Returns (route, aux, drop_rate)."""
+    e = route["counts"].shape[0]
+    order = route["order"]
+    n = order.shape[0]
+    t = n // k
+    b_loc = t // s_loc
+    dev = order.device
+    jb = order // s_loc                          # (choice, row) run of entry
+    cnt = torch.zeros((k * b_loc * e,), dtype=torch.int64, device=dev)
+    cnt.index_add_(0, jb * e + route["expert"],
+                   torch.ones_like(route["expert"]))
+    cnt = cnt.view(k * b_loc, e)
+    # entries ahead of each (choice, row) run in this rank's own list
+    local_before = torch.cumsum(cnt, 0) - cnt
+    n_data, n_sp = mesh.size(DATA_AXES), mesh.size("sp")
+    g = C.gather_dim(cnt.view(1, k, b_loc, e), mesh.group(TOKEN_AXES),
+                     n_data * n_sp, 0).view(n_data, n_sp, k, b_loc, e)
+    r, i = mesh.index(DATA_AXES), mesh.index("sp")
+    per_choice = g.sum((0, 1, 3))                              # [k, E]
+    base = (torch.cumsum(per_choice, 0) - per_choice)[:, None]  # choices
+    base = base + g[:r].sum((0, 1, 3))[:, None]                # rows of
+    mine = g[r].sum(0)                                         # ranks < r
+    base = base + torch.cumsum(mine, 1) - mine                 # rows < b
+    base = base + g[r, :i].sum(0)                              # sp < i
+    base = base.reshape(k * b_loc, e)
+    row = jb * e + route["expert"]
+    pos = (route["pos"] - local_before.view(-1)[row]
+           + base.view(-1)[row])
+    keep = pos < capacity
+    me, ce, kept = _token_means(mesh, TOKEN_AXES, route["me"], route["ce"],
+                                keep.float().mean())
+    route = dict(route, pos=pos, keep=keep, me=me, ce=ce)
+    return route, e * (me * ce).sum(), 1.0 - kept
+
+
+def _compact_mlp(x_recv, route, e, ep, cap, gate_up, down, mesh):
+    """The received slots [ep, E_loc, C, H] through the experts as one
+    grouped SwiGLU over their occupied rows. Kept assignments fill slots
+    0..kept-1 of each (sender, expert), so the occupied slots compact into
+    per-expert segments (senders in order); the counts ride a second, tiny
+    all_to_all (cnt_recv[s, el]: slots rank s filled for my expert el).
+    Returns the outputs in slot layout [E_loc, ep, C, H], zero in the
+    unoccupied slots."""
+    el, h = e // ep, x_recv.shape[-1]
+    dev = x_recv.device
+    kept = route["keep"].to(torch.int32)
+    cnt_send = torch.zeros((e,), dtype=torch.int32, device=dev).index_add_(
+        0, route["expert"], kept).view(ep, el)
+    cnt = C.all_to_all(cnt_send, axis_name="ep", split_axis=0,
+                       concat_axis=0, mesh=mesh).T.long()      # [el, ep]
+    rows = el * ep * cap
+    sizes = cnt.sum(1)                                         # [el]
+    seg_start = torch.cumsum(sizes, 0) - sizes
+    ahead = torch.cumsum(cnt, 1) - cnt       # earlier senders' rows
+    c_idx = torch.arange(cap, device=dev)
+    valid = c_idx[None, None, :] < cnt[:, :, None]
+    # slot (el, s, c) -> its compacted row (rows: the zero row past them)
+    dest = torch.where(valid, (seg_start[:, None] + ahead)[:, :, None]
+                       + c_idx, rows).reshape(-1)
+    # compacted row -> its slot: the expert by the segment ends, the
+    # sender by the senders' running counts within it
+    i = torch.arange(rows, device=dev)
+    ex = torch.clamp(torch.searchsorted(torch.cumsum(sizes, 0), i,
+                                        right=True), max=el - 1)
+    within = i - seg_start[ex]
+    snd = torch.clamp(torch.searchsorted(
+        torch.cumsum(cnt, 1).index_select(0, ex), within[:, None],
+        right=True)[:, 0], max=ep - 1)
+    src = (ex * ep + snd) * cap + within - ahead[ex, snd]
+    src = torch.where(i < sizes.sum(), src, rows)
+    flat = x_recv.transpose(0, 1).reshape(rows, h)             # (el, s, c)
+    xc = torch.cat([flat, flat.new_zeros((1, h))]).index_select(0, src)
+    yc = grouped_mlp_apply(xc, gate_up, down, sizes.to(torch.int32))
+    # rows past sum(sizes) are unspecified: only occupied slots read yc
+    y = torch.cat([yc, yc.new_zeros((1, h))]).index_select(0, dest)
+    return y.view(el, ep, cap, h)

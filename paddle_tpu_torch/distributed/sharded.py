@@ -16,13 +16,17 @@ rank's process (:func:`shard_module`):
 * an **fsdp** dim (stage 3) keeps this rank's chunk as the parameter; a
   parametrization all-gathers it at every use and reduce-scatters its
   gradient (:func:`~.collective.fsdp_gather`).
+* an **ep** dim (the MoE expert stacks, ``("ep", None, None)``) keeps this
+  rank's experts; the layer's all_to_all brings every rank's tokens to
+  them (:mod:`.moe`).
 
 ``state_dict()`` of a sharded model gives the global arrays under the
 reference's names and ``[in, out]`` layout (each leaf gathered, the tp
 interleave undone), so checkpoints and ``models/convert.py`` see one
 layout. Load weights before sharding. Inside :func:`data_parallel` a
 loss's masked mean counts the labels of the global batch, and
-:func:`sync_grads` averages the gradients over the data axes after a
+:func:`sync_grads` averages the gradients over the axes the batch's
+tokens are split over (:data:`TOKEN_AXES`: the data axes and sp) after a
 backward (the train step's all-reduce); :func:`sharded_leaves` tells the
 optimizer's global norm which gradients are pieces of a larger one.
 
@@ -43,6 +47,10 @@ from torch.nn.utils import parametrize
 from paddle_tpu_torch.distributed import collective as C
 from paddle_tpu_torch.distributed.mesh import DATA_AXES, HybridMesh
 from paddle_tpu_torch.nn.functional import MEAN_DENOMINATOR
+
+# the axes a train step splits the global batch's tokens over: rows over
+# the data axes, each row's sequence over sp
+TOKEN_AXES = DATA_AXES + ("sp",)
 
 
 class TpInfo(NamedTuple):
@@ -177,6 +185,12 @@ def shard_module(module: nn.Module, mesh: HybridMesh, stage: int = 3,
             elif ax == "fsdp" and mesh.fsdp > 1 and stage >= 3:
                 x = x.chunk(mesh.fsdp, dim)[mesh.index("fsdp")]
                 fsdp_dim = dim
+            elif ax == "ep" and mesh.ep > 1:
+                if x.shape[dim] % mesh.ep:
+                    raise ValueError(f"{name}: dim {dim} of "
+                                     f"{tuple(x.shape)} does not divide "
+                                     f"over ep={mesh.ep}")
+                x = x.chunk(mesh.ep, dim)[mesh.index("ep")]
         new = nn.Parameter(x.clone(), requires_grad=p.requires_grad)
         setattr(owner, leaf, new)
         if fsdp_dim is not None:
@@ -210,6 +224,8 @@ def _global(x, info: Optional[ShardInfo], mesh: HybridMesh) -> torch.Tensor:
             x = C.gather_dim(x, mesh.group("tp"), mesh.size("tp"), dim)
             if info.perm is not None:
                 x = x.index_select(dim, torch.argsort(info.perm))
+        elif ax == "ep" and mesh.ep > 1:
+            x = C.gather_dim(x, mesh.group("ep"), mesh.ep, dim)
     return x
 
 
@@ -246,12 +262,15 @@ def sharded_leaves(params: dict) -> dict:
 
 
 def sync_grads(module: nn.Module, mesh: HybridMesh, grads=None):
-    """Average the gradients over the data axes (dp, fsdp, ep) after a
-    backward, in place: the parameters' ``.grad``s, or ``grads`` ({name of
-    ``module.named_parameters()``: tensor}). One flat all-reduce a group
-    and dtype. An FSDP chunk's gradient already holds the sum over fsdp
-    (its gather's reduce-scatter), so it is summed over dp and ep only."""
-    n = mesh.size(DATA_AXES)
+    """Average the gradients over :data:`TOKEN_AXES` (dp, fsdp, ep, sp)
+    after a backward, in place: the parameters' ``.grad``s, or ``grads``
+    ({name of ``module.named_parameters()``: tensor}). One flat all-reduce
+    a group and dtype, scaled by one over the number of token shards. An
+    FSDP chunk's gradient already holds the sum over fsdp (its gather's
+    reduce-scatter) and an ep-sharded expert stack's the sum over ep (the
+    all_to_all's transpose brought every ep rank's tokens to this rank's
+    experts), so each is summed over the other axes only."""
+    n = mesh.size(TOKEN_AXES)
     if n == 1:
         return
     params = dict(module.named_parameters())
@@ -262,8 +281,12 @@ def sync_grads(module: nn.Module, mesh: HybridMesh, grads=None):
         if g is None:
             continue
         info = getattr(p, "_pt_shard", None)
-        axes = (("dp", "ep") if info is not None and info.fsdp_dim is not None
-                else DATA_AXES)
+        done = set()
+        if info is not None and info.fsdp_dim is not None:
+            done.add("fsdp")
+        if info is not None and "ep" in info.spec:
+            done.add("ep")
+        axes = tuple(a for a in TOKEN_AXES if a not in done)
         buckets.setdefault((axes, g.dtype), []).append(g)
     for (axes, _), gs in sorted(buckets.items(),
                                 key=lambda kv: (kv[0][0], str(kv[0][1]))):
@@ -274,18 +297,19 @@ def sync_grads(module: nn.Module, mesh: HybridMesh, grads=None):
 @contextlib.contextmanager
 def data_parallel(mesh: HybridMesh):
     """Inside, ``nn.functional.masked_mean`` (every model's loss) divides by
-    this rank's share of the count over the data axes: the count summed
-    over dp, fsdp and ep (one all-reduce), at least 1, over their number of
-    ranks. The ranks' mean of their losses (:func:`data_mean`) and of their
-    gradients (:func:`sync_grads`) then is the masked mean of the global
-    batch and its gradient, as in the reference's one program over the
-    global batch, also where the ranks' rows mask different numbers of
-    labels (padding, prompt-masked batches). A no-op on one data rank."""
-    n = mesh.size(DATA_AXES)
+    this rank's share of the count over :data:`TOKEN_AXES`: the count
+    summed over dp, fsdp, ep and sp (one all-reduce), at least 1, over
+    their number of ranks. The ranks' mean of their losses
+    (:func:`data_mean`) and of their gradients (:func:`sync_grads`) then is
+    the masked mean of the global batch and its gradient, as in the
+    reference's one program over the global batch, also where the ranks'
+    tokens mask different numbers of labels (padding, prompt-masked
+    batches). A no-op on one token shard."""
+    n = mesh.size(TOKEN_AXES)
     if n == 1:
         yield
         return
-    group = mesh.group(DATA_AXES)
+    group = mesh.group(TOKEN_AXES)
 
     def share(count):
         total = count.detach().clone()
@@ -300,12 +324,12 @@ def data_parallel(mesh: HybridMesh):
 
 
 def data_mean(x: torch.Tensor, mesh: HybridMesh) -> torch.Tensor:
-    """``x`` (a detached loss) averaged over the data axes."""
-    n = mesh.size(DATA_AXES)
+    """``x`` (a detached loss) averaged over :data:`TOKEN_AXES`."""
+    n = mesh.size(TOKEN_AXES)
     if n == 1:
         return x
     x = x.detach().clone()
-    C.all_reduce_([x], mesh.group(DATA_AXES), 1.0 / n)
+    C.all_reduce_([x], mesh.group(TOKEN_AXES), 1.0 / n)
     return x
 
 

@@ -35,7 +35,16 @@ down) through :func:`paddle_tpu_torch.amp.fp8.fp8_matmul` under delayed
 scaling, as the reference does; each layer's amax histories are buffers
 of its ``self_attn.fp8_meta`` / ``mlp.fp8_meta`` (``nn.ModuleDict`` of
 :class:`~paddle_tpu_torch.amp.fp8.Fp8Meta`), which the optimizer never
-sees. Sequence parallelism is a later slice.
+sees.
+
+Sequence parallelism (``sequence_parallel="ring" | "ulysses"``, the
+reference's field) splits each row's sequence over the mesh's sp axis:
+under a mesh with sp > 1 a rank's ``input_ids`` are its block of each row
+(``train.step`` cuts them), rope takes the block's GLOBAL positions, and
+the attention runs through ``distributed.sp.sp_attention`` (the ring
+rotating KV blocks, or Ulysses re-sharding sequence to heads around the
+flash kernel). An ``attn_mask`` stays whole along its sequence dims
+(global key positions) and each rank cuts its query rows of it.
 
 Tensor parallelism (``distributed.shard_module`` over a mesh with tp > 1)
 follows the reference's specs: qkv and gate_up column-sharded, o and down
@@ -107,9 +116,14 @@ class LlamaConfig:
     attention_bias: bool = False       # Qwen2: bias on fused qkv only
     rope_scaling: dict | None = None   # linear | ntk | dynamic
     fp8: bool = False  # e4m3/e5m2 projections with delayed scaling (amp.fp8)
+    sequence_parallel: str | None = None  # "ring" | "ulysses" over sp
 
     def __post_init__(self):
         self.save_names()
+        if self.sequence_parallel not in (None, "ring", "ulysses"):
+            raise ValueError(f"unknown sequence_parallel "
+                             f"{self.sequence_parallel!r}; expected 'ring', "
+                             f"'ulysses' or None")
 
     def save_names(self) -> tuple:
         """The named activations ``remat_policy`` SAVES; everything else
@@ -208,6 +222,63 @@ def _refuse_tp(what, n, tp):
                          f"whole slices of it")
 
 
+def _sp_mesh():
+    """The active mesh when it splits the sequence (sp > 1), else None."""
+    from paddle_tpu_torch.distributed.mesh import current_mesh
+    mesh = current_mesh()
+    return mesh if mesh is not None and mesh.size("sp") > 1 else None
+
+
+def _sp_rope_tables(cfg, s_loc, position_ids, device):
+    """Rope tables of this rank's block of ``s_loc`` positions: under a
+    mesh with sp > 1 the block's GLOBAL positions (its index along sp times
+    ``s_loc`` on; the dynamic-NTK length the global one), else positions 0
+    on (or ``position_ids``)."""
+    head_dim = cfg.hidden_size // cfg.num_attention_heads
+    kw = dict(base=cfg.rope_theta, scaling=cfg.rope_scaling,
+              max_position_embeddings=cfg.max_position_embeddings,
+              device=device)
+    mesh = _sp_mesh()
+    if mesh is None:
+        return A.rope_cos_sin(s_loc, head_dim, position_ids=position_ids,
+                              **kw)
+    if position_ids is None:
+        position_ids = mesh.index("sp") * s_loc + torch.arange(
+            s_loc, device=device)
+    return A.rope_cos_sin(s_loc * mesh.size("sp"), head_dim,
+                          position_ids=position_ids, **kw)
+
+
+def _sp_masks(attn_mask, s_full):
+    """The reference's two sp-path forms of a model's ``attn_mask``:
+    (mask3 [B, S, S] bool over global positions — boolean masks, a [B, S]
+    or [B, 1, 1, S] key padding broadcast over the rows — or bias4
+    [B|1, H|1, S, S] float additive scores — soft biases and per-head
+    bool masks folded to 0 / -1e30, which have no [B, S, S] form)."""
+    if attn_mask is None:
+        return None, None
+    m = attn_mask
+    if m.is_floating_point() or (m.dim() == 4 and m.shape[1] > 1):
+        if m.dtype == torch.bool:
+            m = torch.where(m, 0.0, -1e30)
+        m = m.float()
+        if m.dim() == 2:
+            m = m[None, None]              # [S, S] or [1, S] rows
+        elif m.dim() == 3:
+            m = m[:, None]                 # [B, S, S] -> [B, 1, S, S]
+        if m.shape[2] == 1:
+            m = m.expand(*m.shape[:2], s_full, m.shape[3])
+        return None, m
+    m = m.bool()
+    if m.dim() == 4:
+        m = m[:, 0]                        # [B, 1|S, S]
+    elif m.dim() == 2:
+        m = m[:, None, :]                  # key padding -> rows
+    if m.shape[1] == 1:
+        m = m.expand(m.shape[0], s_full, s_full)
+    return m, None
+
+
 class LlamaAttention(nn.Module):
     _pt_tp = None   # distributed.sharded.TpInfo once tp-sharded
 
@@ -222,6 +293,7 @@ class LlamaAttention(nn.Module):
                          if cfg.attention_bias else None)
         self.num_heads, self.num_kv_heads = nh, nkv
         self.window = cfg.sliding_window
+        self.sequence_parallel = getattr(cfg, "sequence_parallel", None)
         self.fp8_meta = _fp8_metas(cfg, init, ("qkv", "o"))
         set_pspec(self, "qkv_proj", (None, "tp"))
         set_pspec(self, "o_proj", ("tp", None))
@@ -263,9 +335,32 @@ class LlamaAttention(nn.Module):
         q = A.apply_rope(q.reshape(b, s, nh, d), cos, sin)
         k = A.apply_rope(k.reshape(b, s, nkv, d), cos, sin)
         v = v.reshape(b, s, nkv, d)
-        return A.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
-                                              is_causal=True,
-                                              window=self.window)
+        return self._attend(q, k, v, attn_mask)
+
+    def _attend(self, q, k, v, attn_mask):
+        """Causal attention of this rank's q, k, v: over the mesh's sp axis
+        when it splits the sequence (``sequence_parallel`` "ring": KV
+        blocks rotate round the ring, best when the block per rank is
+        long; "ulysses": two all_to_alls re-shard sequence and heads round
+        the flash kernel, best when heads >= sp and the block is short),
+        else the flash kernel / eager attention of the whole sequence."""
+        mesh = _sp_mesh()
+        if mesh is None:
+            return A.scaled_dot_product_attention(
+                q, k, v, attn_mask=attn_mask, is_causal=True,
+                window=self.window)
+        if self.sequence_parallel not in ("ring", "ulysses"):
+            raise ValueError(
+                f"attention under a mesh with sp={mesh.size('sp')} needs "
+                f"sequence_parallel='ring' or 'ulysses' (a rank holds one "
+                f"block of the sequence), not {self.sequence_parallel!r}")
+        from paddle_tpu_torch.distributed.sp import sp_attention
+        mask3, bias4 = _sp_masks(attn_mask, q.shape[1] * mesh.size("sp"))
+        return sp_attention(mesh, self.sequence_parallel, q, k, v,
+                            causal=True, window=self.window,
+                            head_spec="tp" if self._pt_tp is not None
+                            else None,
+                            attn_mask=mask3, attn_bias=bias4)
 
     def out(self, ctx):
         b, s = ctx.shape[:2]
@@ -484,12 +579,8 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids, attn_mask=None, position_ids=None):
         cfg = self.cfg
         x = vocab_parallel_lookup(self.embed_tokens, input_ids, self._pt_tp)
-        cos, sin = A.rope_cos_sin(
-            input_ids.shape[1], cfg.hidden_size // cfg.num_attention_heads,
-            base=cfg.rope_theta, position_ids=position_ids,
-            scaling=cfg.rope_scaling,
-            max_position_embeddings=cfg.max_position_embeddings,
-            device=x.device)
+        cos, sin = _sp_rope_tables(cfg, input_ids.shape[1], position_ids,
+                                  x.device)
         remat = cfg.remat and torch.is_grad_enabled()
         names = cfg.save_names()
         if self.layers_stacked is not None:

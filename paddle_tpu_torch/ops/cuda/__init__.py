@@ -87,6 +87,11 @@ FP8_TRAIN_KERNELS = TRAIN_KERNELS
 # the train step's kernels on each rank's local shards
 DIST_TRAIN_KERNELS = TRAIN_KERNELS
 PP_TRAIN_KERNELS = TRAIN_KERNELS
+# sequence parallelism: Ulysses's inner attention is K2 forward and K5
+# backward (the ring's block step is plain PyTorch, as the reference's is
+# XLA einsums); expert parallelism: the compacted experts' grouped GEMM
+SP_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+EP_TRAIN_KERNELS = ("grouped_fwd", "grouped_dw")
 
 
 def f16_names(names) -> tuple:

@@ -145,6 +145,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.distributed.moe import replicated_tokens
 from paddle_tpu_torch.models.decoding import beam_init
 from paddle_tpu_torch.models.paged import (_beam_finalize, _beam_select,
                                            greedy_accept_length,
@@ -365,13 +366,17 @@ class LLMEngine:
 
         self.kv = KVManager(num_blocks, block_size)
         self.sched = Scheduler(max_queue_len=max_queue_len, clock=clock)
-        self.exe = ModelExecutor(
-            model, num_slots=num_slots, num_blocks=num_blocks,
-            block_size=block_size, max_blocks_per_seq=self.max_blocks_per_seq,
-            top_k=top_k, seed=seed, kv_dtype=kv_dtype,
-            async_depth=async_depth, adapter_store=adapter_store,
-            draft_model=draft_model, spec_k=self.spec_k,
-            max_seq_len=self.max_seq_len, device=self.device)
+        # the engine's forwards hold the whole batch on every rank: under
+        # a mesh an MoE layer takes its share of it (distributed.moe)
+        with replicated_tokens():
+            self.exe = ModelExecutor(
+                model, num_slots=num_slots, num_blocks=num_blocks,
+                block_size=block_size,
+                max_blocks_per_seq=self.max_blocks_per_seq, top_k=top_k,
+                seed=seed, kv_dtype=kv_dtype, async_depth=async_depth,
+                adapter_store=adapter_store, draft_model=draft_model,
+                spec_k=self.spec_k, max_seq_len=self.max_seq_len,
+                device=self.device)
 
         # host mirrors (vectorised bookkeeping)
         self.slot_req = np.full(num_slots, -1, np.int64)   # req_id or -1
@@ -2051,7 +2056,7 @@ class LLMEngine:
         t0 = time.monotonic()
         self._tick_phase = {}
         try:
-            with _span("serving.step"):
+            with _span("serving.step"), replicated_tokens():
                 return self._step_impl()
         finally:
             total = time.monotonic() - t0

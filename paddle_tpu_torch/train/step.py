@@ -9,11 +9,17 @@ has no counterpart here.
 
 With a ``mesh`` (``distributed.HybridMesh``) every rank runs the step on
 its slice of the global batch over the data axes (dp, fsdp, ep; the
-reference's ``batch_sharding``); the loss's masked mean counts the labels
-of the whole global batch (``distributed.sharded.data_parallel``), so the
-ranks' losses and gradients, averaged over those axes before the update,
-are the reference's loss and gradients of the global batch, also where
-the ranks' rows mask different numbers of labels. ``init_state(model,
+reference's ``batch_sharding``), and over an sp axis on its block of each
+row's sequence (the batch's integer tensors — token ids, labels, position
+ids — are cut along dim 1; bool and float tensors, the attention masks,
+keep their sequence dims whole and the model takes its query rows of
+them; labels come shifted by the caller, so the loss is token-local).
+The loss's masked mean counts the labels of the whole global batch
+(``distributed.sharded.data_parallel``), so the ranks' losses and
+gradients, averaged over those axes before the update, are the
+reference's loss and gradients of the global batch, also where the
+ranks' tokens mask different numbers of labels. A cp axis (the serving
+axis of context parallelism) is refused. ``init_state(model,
 optimizer, mesh)`` shards the model first (``shard_module``: tp slices,
 FSDP chunks), so the optimizer's slots are made on the local pieces.
 Each rank passes the same global batch. :func:`loss_and_grads` is this
@@ -44,11 +50,35 @@ class TrainState:
 
 
 def _refuse_sequence_axes(mesh):
-    if mesh.size(("sp", "cp")) > 1:
+    if mesh.size("cp") > 1:
         raise NotImplementedError(
-            "a train step over an sp or cp mesh axis (ring / Ulysses "
-            "sequence parallelism) is not ported yet (ROADMAP.md queue 1 "
-            "item 7)")
+            "a train step over a cp mesh axis: cp is the serving axis of "
+            "context parallelism (ROADMAP.md item 5(k)); split a train "
+            "step's sequence over sp")
+
+
+def _shard_batch(mesh, x):
+    """This rank's piece of one batch tensor: its rows over the data axes
+    and, for an integer tensor (ids, labels, position ids), its block of
+    dim 1 over sp."""
+    x = mesh.batch_sharding()(x)
+    if mesh.size("sp") > 1 and x.dim() >= 2 and not (
+            x.is_floating_point() or x.dtype == torch.bool):
+        x = mesh.local(x, (None, "sp"))
+    return x
+
+
+def _refuse_without_sp_attention(model, mesh):
+    """Under sp > 1 the model must split its attention over sp: a model
+    whose attention has no ``sequence_parallel`` mode would attend within
+    each rank's block only."""
+    if mesh.size("sp") > 1 and not any(
+            getattr(m, "sequence_parallel", None) in ("ring", "ulysses")
+            for m in model.modules()):
+        raise ValueError(
+            f"a train step over sp={mesh.size('sp')} needs a model whose "
+            f"attention runs sequence_parallel='ring' or 'ulysses' "
+            f"({type(model).__name__} has none)")
 
 
 def loss_and_grads(model, loss_fn: Callable, micro, mesh=None):
@@ -57,18 +87,21 @@ def loss_and_grads(model, loss_fn: Callable, micro, mesh=None):
     (``grads`` None: the optimizer reads them), else their fp32 sum over
     the microbatches divided by the count, as the reference accumulates.
     Under a ``mesh`` each rank takes its rows of every batch over the data
-    axes, the loss's masked means count the global batch's labels, and the
-    gradients and the loss are averaged over the data axes."""
+    axes and its sequence block over sp (:func:`_shard_batch`), the
+    loss's masked means count the global batch's labels, and the
+    gradients and the loss are averaged over those axes."""
     model.zero_grad(set_to_none=True)
     if mesh is None:
         return _accumulate(model, loss_fn, micro)
     from paddle_tpu_torch.distributed.sharded import (data_mean,
                                                       data_parallel,
                                                       sync_grads)
-    rows = mesh.batch_sharding()
-    micro = [tuple(rows(x) if isinstance(x, torch.Tensor) else x for x in b)
-             for b in micro]
-    with data_parallel(mesh):
+    _refuse_without_sp_attention(model, mesh)
+    micro = [tuple(_shard_batch(mesh, x) if isinstance(x, torch.Tensor)
+                   else x for x in b) for b in micro]
+    # the layers that read the active mesh (sp attention, MoE routing and
+    # expert parallelism) see this one
+    with mesh, data_parallel(mesh):
         loss, grads = _accumulate(model, loss_fn, micro)
     sync_grads(model, mesh, grads)
     return data_mean(loss, mesh), grads

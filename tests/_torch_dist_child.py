@@ -573,5 +573,402 @@ def hybrid_cases(inputs, out):
                    "pp2_tp2_dp2", dict(pp=2, tp=2, dp=2))
 
 
+# ------------------------------------------------- sequence parallelism
+# (name, mesh shape, function, options) of the attention cases; the parent
+# writes "<name>:q" / ":k" / ":v" (and ":lens", ":mask", ":bias") global
+# arrays and reads back the gathered output and gradients
+SP_ATTN = {
+    "ring_full": (dict(sp=4), "ring", dict(causal=False)),
+    "ring_causal": (dict(sp=4), "ring", dict(causal=True)),
+    "ring_gqa": (dict(sp=4), "ring", dict(causal=True)),
+    "ring_window4": (dict(sp=4), "ring", dict(window=4)),
+    "ring_window9": (dict(sp=4), "ring", dict(window=9)),
+    "ring_window5_grads": (dict(sp=4), "ring", dict(window=5)),
+    "ring_kvlens": (dict(sp=4), "ring", dict(varlen=True)),
+    "ring_mask": (dict(sp=4), "ring", dict(masked=True)),
+    "ring_bias": (dict(sp=4), "ring", dict(bias=True)),
+    "ring_bias_mask_gqa": (dict(sp=4), "ring", dict(masked=True,
+                                                    bias=True)),
+    "ring_tp2_sp2": (dict(tp=2, sp=2), "ring", dict(head_spec="tp")),
+    "zigzag": (dict(sp=4), "zigzag", {}),
+    "zigzag_gqa": (dict(sp=4), "zigzag", {}),
+    "uly_kvlens": (dict(sp=4), "ulysses", dict(varlen=True)),
+    "uly_mask": (dict(sp=4), "ulysses", dict(masked=True)),
+    "uly_window": (dict(sp=4), "ulysses", dict(window=10)),
+    "uly_bias": (dict(sp=4), "ulysses", dict(bias=True)),
+    "uly_bias_tp2_sp2": (dict(tp=2, sp=2), "ulysses",
+                         dict(bias=True, head_spec="tp")),
+    "uly_gqa_rep": (dict(sp=4), "ulysses", {}),
+    "uly_tp2_sp2": (dict(tp=2, sp=2), "ulysses", dict(head_spec="tp")),
+}
+
+
+def _sp_attn_case(inputs, out, rank, name, shape, kind, opts):
+    """One attention function over a mesh: this rank's pieces of the global
+    q, k, v (and lens, mask, bias) in, the objective sum(out^2) summed over
+    the ranks, the output and every input's gradient gathered back."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.ring_attention import bias_spec
+    mesh = _mesh(4, **shape)
+    opts = dict(opts)
+    hs = opts.pop("head_spec", None)
+    spec = (None, "sp", hs, None)
+    g = {k: _t(inputs[f"{name}:{k}"]) for k in ("q", "k", "v")}
+    extra, specs = [], []
+    if opts.pop("varlen", False):
+        extra.append(_t(inputs[f"{name}:lens"]))
+        specs.append((None,))
+        opts["varlen"] = True
+    if opts.pop("masked", False):
+        extra.append(_t(inputs[f"{name}:mask"]))
+        specs.append((None, "sp" if kind == "ring" else None, None))
+        opts["masked"] = True
+    if opts.pop("bias", False):
+        bias = _t(inputs[f"{name}:bias"])
+        heads = hs if kind == "ring" else (hs, "sp")
+        bspec = bias_spec(tuple(bias.shape), heads, batch_axes=None,
+                          rows_axis="sp" if kind == "ring" else None)
+        extra.append(bias)
+        specs.append(bspec)
+        opts["bias_shape"] = tuple(bias.shape)
+    loc = {k: mesh.local(v, spec).clone().requires_grad_(True)
+           for k, v in g.items()}
+    ex = [mesh.local(x, sp_).clone() for x, sp_ in zip(extra, specs)]
+    if "bias_shape" in opts:
+        ex[-1].requires_grad_(True)
+    if kind == "ring":
+        fn = D.make_ring_attention(mesh, head_spec=hs, **opts)
+    elif kind == "ulysses":
+        fn = D.make_ulysses_attention(mesh, head_spec=hs, **opts)
+    else:
+        fn = D.make_zigzag_ring_attention(mesh)
+    o = fn(loc["q"], loc["k"], loc["v"], *ex)
+    o.square().sum().backward()
+    res = {"out": mesh.gather(o, spec)}
+    for k in ("q", "k", "v"):
+        res[f"d{k}"] = mesh.gather(loc[k].grad, spec)
+    if "bias_shape" in opts:
+        res["dbias"] = mesh.gather(ex[-1].grad, specs[-1])
+    if rank == 0:
+        for k, v in res.items():
+            out[f"{name}:{k}"] = _np(v)
+
+
+# (name, config overrides, mesh shape) of the sp model cases: loss, every
+# gradient and the logits of the tiny Llama / Mistral over one mesh
+SP_MODELS = {
+    "llama_ring_sp4": (dict(sequence_parallel="ring"), dict(sp=4)),
+    "llama_uly_sp4": (dict(sequence_parallel="ulysses",
+                           num_key_value_heads=4), dict(sp=4)),
+    "llama_uly_gqa_sp4": (dict(sequence_parallel="ulysses"), dict(sp=4)),
+    "llama_ring_tp2_sp2": (dict(sequence_parallel="ring",
+                                num_key_value_heads=4), dict(tp=2, sp=2)),
+    "llama_uly_tp2_sp2": (dict(sequence_parallel="ulysses",
+                               num_key_value_heads=4), dict(tp=2, sp=2)),
+    "llama_ring_dp2_sp2": (dict(sequence_parallel="ring"), dict(dp=2, sp=2)),
+    "mistral_ring_sp4": (dict(sequence_parallel="ring", sliding_window=10),
+                         dict(sp=4)),
+    "mistral_uly_sp4": (dict(sequence_parallel="ulysses", sliding_window=10),
+                        dict(sp=4)),
+    "qwen2_uly_sp4": (dict(sequence_parallel="ulysses", attention_bias=True),
+                      dict(sp=4)),
+}
+# (name, mode, mask kind) of the masked model cases (logits on valid rows)
+SP_MASKS = {"pad_ring": ("ring", "pad"), "bcast_ring": ("ring", "bcast"),
+            "additive_ring": ("ring", "additive"),
+            "perhead_ring": ("ring", "perhead"),
+            "pad_uly": ("ulysses", "pad"),
+            "perhead_uly": ("ulysses", "perhead"),
+            "dense_ring": ("ring", "dense"), "dense_uly": ("ulysses", "dense")}
+
+
+def _sp_logits(model, mesh, ids, attn_mask=None):
+    """The model's logits of the global batch: each rank runs its rows and
+    sequence block (the mask whole along its sequence dims), gathered."""
+    from paddle_tpu_torch.distributed.mesh import DATA_AXES
+    from paddle_tpu_torch.train.step import _shard_batch
+    rows = mesh.batch_sharding()
+    with mesh, torch.no_grad():
+        got = model(_shard_batch(mesh, ids),
+                    None if attn_mask is None else rows(attn_mask))
+    return mesh.gather(got, (DATA_AXES, "sp"))
+
+
+def _sp_model_case(inputs, out, rank, name, cfg, shape):
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.sharded import global_grads
+    from paddle_tpu_torch.train.step import loss_and_grads
+    ids, labels = _t(inputs["sp:ids"]), _t(inputs["sp:labels"])
+    mesh = _mesh(4, **shape)
+    model = D.shard_module(_llama(inputs, f"{name}:w:", **cfg), mesh,
+                           min_size=1)
+    loss, _ = loss_and_grads(model, _lm_loss, [(ids, labels)], mesh)
+    grads = global_grads(model)
+    logits = _sp_logits(model, mesh, ids)
+    if rank == 0:
+        out[f"{name}:loss"] = _np(loss)
+        out[f"{name}:logits"] = _np(logits)
+        for k, g in grads.items():
+            out[f"{name}:grad:{k}"] = _np(g)
+
+
+def _sp_mask_case(inputs, out, rank, name, mode, kind):
+    ids = _t(inputs["mask:ids"])
+    mesh = _mesh(4, sp=4)
+    model = _llama(inputs, "mask:w:", sequence_parallel=mode,
+                   **SP_MASK_CFG)
+    got = _sp_logits(model, mesh, ids, _t(inputs[f"mask:{kind}"]))
+    if rank == 0:
+        out[f"{name}:logits"] = _np(got)
+
+
+SP_MASK_CFG = dict(num_hidden_layers=2, hidden_size=32, num_attention_heads=4,
+                   num_key_value_heads=2, vocab_size=64)
+
+
+def _sp_train_case(inputs, out, rank):
+    """dp2 x sp2: 3 AdamW steps of make_train_step and of Trainer.fit."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.train import (Trainer, TrainerArgs, init_state,
+                                        make_train_step)
+    ids, labels = _t(inputs["sp:ids"]), _t(inputs["sp:labels"])
+    mesh = _mesh(4, dp=2, sp=2)
+    name = "llama_ring_dp2_sp2"
+    cfg = SP_MODELS[name][0]
+    opt = O.AdamW(learning_rate=1e-3)
+    state = init_state(_llama(inputs, f"{name}:w:", **cfg), opt, mesh)
+    step = make_train_step(_lm_loss, opt, mesh=mesh)
+    losses = []
+    for _ in range(3):
+        state, lo = step(state, ids, labels)
+        losses.append(float(lo))
+    tr = Trainer(_llama(inputs, f"{name}:w:", **cfg),
+                 O.AdamW(learning_rate=1e-3), _lm_loss,
+                 TrainerArgs(max_steps=3, log_every=1), mesh=mesh,
+                 device="cpu")
+    tr.fit(iter([(ids, labels)] * 3))
+    if rank == 0:
+        out["dp2_sp2:train_losses"] = np.asarray(losses)
+        out["dp2_sp2:trainer_losses"] = np.asarray(
+            [h["loss"] for h in tr.history])
+
+
+def _sp_refusals(inputs, out):
+    """A train step over cp refuses; a model without an sp mode under an
+    sp mesh refuses."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.train import make_train_step
+    from paddle_tpu_torch.train.step import loss_and_grads
+    try:
+        make_train_step(_lm_loss, O.AdamW(), mesh=_mesh(4, cp=4))
+        out["cp_refusal"] = np.asarray("")
+    except NotImplementedError as e:
+        out["cp_refusal"] = np.asarray(str(e))
+    try:
+        loss_and_grads(_llama(inputs, "llama_ring_sp4:w:"), _lm_loss,
+                       [(_t(inputs["sp:ids"]), _t(inputs["sp:labels"]))],
+                       _mesh(4, sp=4))
+        out["no_mode_refusal"] = np.asarray("")
+    except ValueError as e:
+        out["no_mode_refusal"] = np.asarray(str(e))
+
+
+def _merge_cases(inputs, out, rank):
+    """The cp partial merges over 4 ranks: each rank's triple in, the
+    merged triple out on every rank."""
+    from paddle_tpu_torch.distributed.ring_attention import (
+        finalize_partials, psum_merge_partials, ring_merge_partials)
+    from paddle_tpu_torch.distributed.ulysses import ulysses_merge_partials
+    mesh = _mesh(4, cp=4)
+    o, m, l = (_t(inputs[f"merge:{k}"])[rank] for k in ("o", "m", "l"))
+    for name, fn in (("ring", ring_merge_partials),
+                     ("psum", psum_merge_partials),
+                     ("ulysses", ulysses_merge_partials)):
+        mo, mm, ml = fn(o, m, l, axis_name="cp", mesh=mesh)
+        fin = finalize_partials(mo, ml)
+        allf = mesh.gather(fin[None], (("cp",),))
+        out[f"merge_{name}:out"] = _np(fin)
+        out[f"merge_{name}:same"] = np.asarray(int(all(
+            torch.equal(allf[0], allf[i]) for i in range(4))))
+
+
+def sp_cases(inputs, out):
+    """Ring, zigzag and Ulysses attention, the Llama family over sp (and
+    tp x sp, dp x sp), the sp train step, the cp partial merges (4
+    ranks)."""
+    from paddle_tpu_torch import distributed as D
+    rank = D.get_rank()
+    for name, (shape, kind, opts) in SP_ATTN.items():
+        _sp_attn_case(inputs, out, rank, name, shape, kind, opts)
+    for name, (cfg, shape) in SP_MODELS.items():
+        _sp_model_case(inputs, out, rank, name, cfg, shape)
+    for name, (mode, kind) in SP_MASKS.items():
+        _sp_mask_case(inputs, out, rank, name, mode, kind)
+    _sp_train_case(inputs, out, rank)
+    _sp_refusals(inputs, out)
+    _merge_cases(inputs, out, rank)
+
+
+# -------------------------------------------------------------------- MoE
+# (name, mesh shape, capacity factor) of the layer cases: hidden 16,
+# intermediate 32, 8 experts, top-2 (the reference tests' layer); the
+# global batch [8, 8, 16]
+MOE_LAYERS = {
+    "route_dp2_cf0.5": (dict(dp=2), 0.5),
+    "route_dp2_cf1.25": (dict(dp=2), 1.25),
+    "route_fsdp2_cf0.5": (dict(fsdp=2), 0.5),
+    "route_fsdp2_cf1.25": (dict(fsdp=2), 1.25),
+    "route_dp2_sp2_cf0.5": (dict(dp=2, sp=2), 0.5),
+    "ep2": (dict(ep=2), 8.0), "ep4": (dict(ep=4), 8.0),
+    "dp2_ep2": (dict(dp=2, ep=2), 8.0),
+    "ep2_dense": (dict(ep=2), 8.0),
+    "ep4_sat": (dict(ep=4), 0.3),
+}
+
+
+def _moe_layer(inputs, cf):
+    from paddle_tpu_torch.distributed.moe import MoELayer
+    from paddle_tpu_torch.models.llama import LlamaConfig, _Init
+    cfg = LlamaConfig.tiny()
+    moe = MoELayer(16, 32, 8, k=2, capacity_factor=cf,
+                   init=_Init(cfg, torch.device("cpu"), 0))
+    with torch.no_grad():
+        for k, v in moe.named_parameters():
+            v.copy_(_t(inputs[f"moe:w:{k}"]))
+    return moe
+
+
+def _moe_layer_case(inputs, out, rank, name, shape, cf):
+    """The layer over one mesh: this rank's rows (and sequence block) of
+    the global batch; the objective mean(y^2) + 0.01 aux of the global
+    batch, as each rank's share (its squares scaled to the global mean
+    times the shard count, plus the aux it holds) averaged by
+    sync_grads; output, aux, drop rate and every gradient gathered."""
+    import os
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.mesh import DATA_AXES
+    from paddle_tpu_torch.distributed.sharded import (TOKEN_AXES,
+                                                      global_grads,
+                                                      sync_grads)
+    mesh = _mesh(int(np.prod(list(shape.values()))), **shape)
+    moe = D.shard_module(_moe_layer(inputs, cf), mesh, min_size=1)
+    x = _t(inputs["moe:x"])
+    xl = mesh.batch_sharding()(x)
+    if mesh.size("sp") > 1:
+        xl = mesh.local(xl, (None, "sp", None))
+    xl = xl.clone().requires_grad_(True)
+    n = mesh.size(TOKEN_AXES)
+    dense = name.endswith("_dense")
+    if dense:
+        os.environ["PT_GROUPED_GEMM"] = "0"
+    try:
+        with mesh:
+            y, aux, met = moe(xl, return_metrics=True)
+            (y.square().sum() * n / x.numel() + 0.01 * aux).backward()
+    finally:
+        os.environ.pop("PT_GROUPED_GEMM", None)
+    sync_grads(moe, mesh)
+    grads = global_grads(moe)
+    spec = (DATA_AXES, "sp", None)
+    res = {"y": mesh.gather(y, spec), "aux": aux, "drop": met["drop_rate"],
+           "dx": mesh.gather(xl.grad, spec) / n,
+           **{f"grad:{k}": v for k, v in grads.items()}}
+    if rank == 0:
+        for k, v in res.items():
+            out[f"{name}:{k}"] = _np(v)
+
+
+# (name, mesh shape, capacity factor) of the MoE LLM cases (the reference
+# test's MoEConfig: Llama tiny, 4 experts, top-2, every 2nd layer MoE)
+MOE_LLMS = {"llm_ep2": (dict(ep=2), 8.0),
+            "llm_dp2_ep2": (dict(dp=2, ep=2), 8.0),
+            "llm_ep2_tp2": (dict(ep=2, tp=2), 8.0),
+            "llm_dp2_cf1.25": (dict(dp=2), 1.25),
+            "llm_fsdp2_cf1.25": (dict(fsdp=2), 1.25)}
+
+
+def _moe_llm(inputs, cf):
+    from paddle_tpu_torch.models.convert import load_jax_state_dict
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.models.moe_llm import MoEConfig, MoEForCausalLM
+    m = MoEForCausalLM(MoEConfig(base=LlamaConfig.tiny(), num_experts=4,
+                                 top_k=2, capacity_factor=cf, moe_every=2),
+                       device="cpu")
+    pre = f"llm{cf}:w:"
+    load_jax_state_dict(m, {k[len(pre):]: v for k, v in inputs.items()
+                            if k.startswith(pre)})
+    return m
+
+
+def _moe_llm_case(inputs, out, rank, name, shape, cf):
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.sharded import global_grads
+    from paddle_tpu_torch.train.step import loss_and_grads
+    ids, labels = _t(inputs["llm:ids"]), _t(inputs["llm:labels"])
+    mesh = _mesh(int(np.prod(list(shape.values()))), **shape)
+    model = D.shard_module(_moe_llm(inputs, cf), mesh, min_size=1)
+    whole = _moe_llm(inputs, cf).state_dict()
+    sd = model.state_dict()
+    loss, _ = loss_and_grads(model, _lm_loss, [(ids, labels)], mesh)
+    grads = global_grads(model)
+    if rank == 0:
+        # the sharded model's state_dict(): every global array (the expert
+        # stacks gathered over ep) under its name
+        out[f"{name}:state_dict_global"] = np.asarray(int(
+            set(sd) == set(whole)
+            and all(torch.equal(sd[k], whole[k]) for k in whole)))
+        out[f"{name}:loss"] = _np(loss)
+        for k, g in grads.items():
+            out[f"{name}:grad:{k}"] = _np(g)
+
+
+def _ep_serving_case(inputs, out, rank):
+    """Mixtral tiny through LLMEngine built and stepped under
+    HybridMesh(ep=2) (ranks 0-1), and on one rank without a mesh."""
+    from paddle_tpu_torch.models.convert import load_jax_state_dict
+    from paddle_tpu_torch.models.mixtral import (MixtralConfig,
+                                                 MixtralForCausalLM)
+    from paddle_tpu_torch.serving import LLMEngine, Request
+    model = MixtralForCausalLM(MixtralConfig.tiny(), device="cpu")
+    load_jax_state_dict(model, {k[len("mix:w:"):]: v
+                                for k, v in inputs.items()
+                                if k.startswith("mix:w:")})
+    prompts = [inputs[f"mix:prompt{i}"] for i in range(3)]
+
+    def run():
+        eng = LLMEngine(model, num_slots=4, block_size=8, max_prompt_len=16,
+                        max_seq_len=48)
+        ids = [eng.add_request(Request(p, max_new_tokens=10))
+               for p in prompts]
+        eng.run()
+        eng.assert_quiescent()
+        return np.asarray([list(map(int, eng.requests[i].tokens))
+                           for i in ids])
+
+    single = run()
+    with _mesh(2, ep=2):
+        ep = run()
+    if rank == 0:
+        out["serve:single"] = single
+        out["serve:ep2"] = ep
+
+
+def moe_cases(inputs, out):
+    """MoE over meshes: routing over the global batch under data axes,
+    expert parallelism over ep (layer and MoE LLM), EP serving (4
+    ranks)."""
+    from paddle_tpu_torch import distributed as D
+    rank = D.get_rank()
+    for name, (shape, cf) in MOE_LAYERS.items():
+        if rank < int(np.prod(list(shape.values()))):
+            _moe_layer_case(inputs, out, rank, name, shape, cf)
+    for name, (shape, cf) in MOE_LLMS.items():
+        if rank < int(np.prod(list(shape.values()))):
+            _moe_llm_case(inputs, out, rank, name, shape, cf)
+    if rank < 2:
+        _ep_serving_case(inputs, out, rank)
+
+
 CASES = {"api": api_cases, "llama": llama_cases, "pipeline": pipeline_cases,
-         "hybrid": hybrid_cases}
+         "hybrid": hybrid_cases, "sp": sp_cases, "moe": moe_cases}

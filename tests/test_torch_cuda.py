@@ -3019,3 +3019,97 @@ def test_pipeline_on_card_1f1b_equals_zb1(tmp_path):
     assert k1 == kz
     assert all(k1[k] > 0 for k in ("rms_norm", "flash_fwd", "flash_bwd_dq",
                                    "flash_bwd_dkv", "rope"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_ulysses_at_sp1_is_the_flash_kernels_bit_for_bit(d, dtype, tmp_path):
+    """ulysses_attention over a one-rank sp group (NCCL): its exchanges are
+    the identity, so its output and dq / dk / dv equal the unsharded
+    scaled_dot_product_attention's (K2 forward, K5a / K5b backward) bit for
+    bit, GQA 8/2 and head dims 64 / 128 / 256, with K2, K5a and K5b
+    launched once each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import cuda as K
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do = (torch.randn(2, 160, h, d, generator=g, device="cuda")
+                   .to(dtype) for h in (8, 2, 2, 8))
+
+    def run(fn):
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        o = fn(qs, ks, vs)
+        o.backward(do)
+        return o.detach(), qs.grad, ks.grad, vs.grad
+
+    ref = run(lambda a, b, c: A.scaled_dot_product_attention(
+        a, b, c, is_causal=True))
+    _nccl_world_of_one(tmp_path)
+    try:
+        with D.HybridMesh(sp=1):
+            K.reset_launches()
+            got = run(lambda a, b, c: D.ulysses_attention(a, b, c))
+            counts = K.launches()
+    finally:
+        _end_world()
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    f16 = "_f16" if dtype == torch.float16 else ""
+    assert all(counts[n + f16] == 1 for n in ("flash_fwd", "flash_bwd_dq",
+                                              "flash_bwd_dkv"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grouped", ["1", "0"], ids=["grouped", "dense"])
+def test_forward_ep_at_ep1_is_the_local_layer(grouped, tmp_path,
+                                              monkeypatch):
+    """MoELayer._forward_ep over a one-rank ep group (NCCL), bf16, at a
+    capacity that drops tokens: output, aux, drop rate and every gradient
+    against _forward_local (aux and drop rate equal, the rest within 1e-2
+    of the RMS); on the grouped path K6a runs 4 times (2 forward, 2 dlhs)
+    and K6b twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.moe import MoELayer
+    from paddle_tpu_torch.models.llama import LlamaConfig, _Init
+    from paddle_tpu_torch.ops import cuda as K
+    monkeypatch.setenv("PT_GROUPED_GEMM", grouped)
+    cfg = LlamaConfig(hidden_size=256, dtype=torch.bfloat16)
+    layer = MoELayer(256, 384, 16, k=4, capacity_factor=0.75,
+                     norm_topk_prob=False,
+                     init=_Init(cfg, torch.device("cuda"), 0))
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(2, 96, 256, generator=g, device="cuda").to(torch.bfloat16)
+
+    def run(fn):
+        layer.zero_grad(set_to_none=True)
+        xs = x.clone().requires_grad_()
+        y, aux, drop = fn(xs)
+        (y.float().square().mean() + 0.01 * aux).backward()
+        grads = {n: p.grad.float() for n, p in layer.named_parameters()}
+        return y.float(), float(aux), float(drop), grads, xs.grad.float()
+
+    ref = run(layer._forward_local)
+    _nccl_world_of_one(tmp_path)
+    try:
+        with D.HybridMesh(ep=1) as mesh:
+            K.reset_launches()
+            got = run(lambda xs: layer._forward_ep(xs, mesh, 1))
+            counts = K.launches()
+    finally:
+        _end_world()
+
+    def rel(a, b):
+        return float((a - b).square().mean().sqrt()
+                     / b.square().mean().sqrt())
+
+    assert got[1] == ref[1] and got[2] == ref[2] and ref[2] > 0
+    assert rel(got[0], ref[0]) <= 1e-2
+    assert rel(got[4], ref[4]) <= 1e-2
+    for n in ref[3]:
+        assert rel(got[3][n], ref[3][n]) <= 1e-2, n
+    if grouped == "1":
+        assert counts["grouped_fwd"] == 4 and counts["grouped_dw"] == 2

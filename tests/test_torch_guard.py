@@ -43,7 +43,10 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "paddle_tpu_torch.distributed.pipeline, "
         "paddle_tpu_torch.distributed.fleet, "
         "paddle_tpu_torch.distributed.auto_parallel, "
-        "paddle_tpu_torch.distributed.launch\n"
+        "paddle_tpu_torch.distributed.launch, "
+        "paddle_tpu_torch.distributed.ring_attention, "
+        "paddle_tpu_torch.distributed.ulysses, "
+        "paddle_tpu_torch.distributed.sp\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
@@ -161,43 +164,37 @@ def test_trainer_stack_entry_points_default_to_the_card():
 
 
 def test_unported_training_modes_refuse():
-    """What item 7 still queues raises, naming its ROADMAP item, instead of
-    running something else: a train step over a sequence-parallel (sp / cp)
-    axis, expert-parallel MoE under an ep mesh and orbax checkpoints; a
-    mesh train step over the other axes constructs; the selective remat
-    policies construct and an unknown one raises."""
+    """What is still queued raises, naming it, instead of running something
+    else: a train step over a cp axis (cp is context-parallel serving,
+    ROADMAP.md item 5(k)) and orbax checkpoints (item 7); a train step over
+    the other axes (sp included) constructs; the selective remat policies
+    construct and an unknown one raises."""
     from paddle_tpu_torch import optimizer as O
     from paddle_tpu_torch.distributed import HybridMesh
-    from paddle_tpu_torch.distributed import mesh as M
-    from paddle_tpu_torch.distributed.moe import MoELayer
-    from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
-                                               _Init)
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.train import init_state, make_train_step
     from paddle_tpu_torch.train.checkpoint import CheckpointManager
 
-    class _SpMesh:       # the size queries of a mesh with sp = ep = 2
+    class _Mesh:         # the size queries of a mesh with every axis 2 / 1
+        def __init__(self, cp):
+            self.cp = cp
+
         def size(self, axes):
-            return 2
+            return self.cp if axes == "cp" else 2
 
     opt = O.AdamW()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="cp mesh axis"):
         make_train_step(lambda m, i, lab: m.loss(i, lab), opt,
-                        mesh=_SpMesh())
+                        mesh=_Mesh(cp=2))
     m = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-        init_state(m, opt, mesh=_SpMesh())
+    with pytest.raises(NotImplementedError, match="cp mesh axis"):
+        init_state(m, opt, mesh=_Mesh(cp=2))
+    assert callable(make_train_step(lambda mm, i, lab: mm.loss(i, lab), opt,
+                                    mesh=_Mesh(cp=1)))
     assert callable(make_train_step(lambda mm, i, lab: mm.loss(i, lab), opt,
                                     mesh=HybridMesh(device="cpu")))
-    cfg = LlamaConfig.tiny()
-    moe = MoELayer(cfg.hidden_size, 32, 4, init=_Init(cfg, "cpu", 0))
-    x = torch.zeros(1, 2, cfg.hidden_size)
-    M._CURRENT.append(_SpMesh())       # every axis of size 2: ep too
-    try:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 7"):
-            moe(x)
-    finally:
-        M._CURRENT.pop()
+    with pytest.raises(ValueError, match="sequence_parallel"):
+        LlamaConfig(sequence_parallel="striped")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
         CheckpointManager("unused", use_orbax=True)
     for policy in ("dots", "hidden", "no_ffn"):
@@ -253,18 +250,25 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
         "f16_moe_serve": K.F16_MOE_SERVE_KERNELS,
         "f16_moe_train": K.F16_MOE_TRAIN_KERNELS,
         "dist_train": K.DIST_TRAIN_KERNELS,
-        "pp_train": K.PP_TRAIN_KERNELS}
+        "pp_train": K.PP_TRAIN_KERNELS,
+        "sp_train": K.SP_TRAIN_KERNELS,
+        "ep_train": K.EP_TRAIN_KERNELS}
     # K7 rotates every rotate-half rope of every path; the ALiBi paths
     # (BLOOM, falcon-rw) have no rope and run K2's (and K5's) ALiBi mode
-    # instead, and GPT-J's interleaved rope is plain PyTorch, as the
-    # reference's (no Pallas kernel behind it)
+    # instead, GPT-J's interleaved rope is plain PyTorch, as the
+    # reference's (no Pallas kernel behind it), and the sp / ep paths
+    # drive the attention functions and one MoE layer, no rope
     alibi = {p for p in chip_smoke.PATHS if p.startswith(("bloom",
                                                           "falcon_rw"))}
     gptj = {p for p in chip_smoke.PATHS if p.startswith("gptj")}
+    layers = {"sp_train", "ep_train"}
     # (a float16 path's names are the float16 counters: "rope_f16")
     assert all({"rope", "rope_f16"} & set(names)
                for p, names in chip_smoke.PATHS.items()
-               if p not in alibi | gptj)
+               if p not in alibi | gptj | layers)
+    assert chip_smoke.PATHS["sp_train"] == ("flash_fwd", "flash_bwd_dq",
+                                            "flash_bwd_dkv")
+    assert chip_smoke.PATHS["ep_train"] == ("grouped_fwd", "grouped_dw")
     assert all(n.endswith("_f16") for p, names in chip_smoke.PATHS.items()
                if p.startswith("f16_") for n in names)
     assert all("rope" not in chip_smoke.PATHS[p]

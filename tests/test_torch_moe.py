@@ -150,10 +150,21 @@ def test_combine_is_the_sum_over_choices_in_order():
 
 
 def test_unported_paths_raise_naming_their_queue_item():
+    """The expert-parallel path is ported (``tests/test_torch_dist_moe.py``
+    holds it to the reference): it refuses what the reference refuses,
+    experts that do not divide over ep, and the one combination it does
+    not take, ep with the sequence split over sp."""
     _, tl = _layer_pair(None, True)
     x = torch.zeros(1, 4, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-        tl._forward_ep(x, mesh=None, ep=2)
+    with pytest.raises(ValueError, match="not divisible by ep"):
+        tl._forward_ep(x, mesh=None, ep=tl.num_experts + 1)
+
+    class _SpMesh:       # the size queries of a mesh with every axis 2
+        def size(self, axes):
+            return 2
+
+    with pytest.raises(NotImplementedError, match="sequence split over sp"):
+        tl._forward_ep(x, mesh=_SpMesh(), ep=2)
 
 
 @pytest.mark.parametrize("grouped", ["1", "0"], ids=["grouped", "dense"])
