@@ -83,6 +83,17 @@ Phases (each one fails the run when it fails; nothing is caught):
             MBU and arithmetic intensity per phase against the peaks
             resolved from the card's name; a decode MBU of 0, or an MFU
             or MBU above ROOF_MAX (1.05), fails it
+  cp_serve  context-parallel serving's forwards at Llama-2-7B width on
+            the serve phase's model over a one-rank NCCL cp group
+            (``HybridMesh(cp=1)``): the serve mix's 8 greedy prompts
+            prefilled (whole-prompt for their first 128 tokens, the 300-
+            and 384-token rows chunked on), CP_TICKS greedy decode ticks
+            and one 5-token verify chunk, each forward with ``cp_axis="cp"``
+            (K3 and K4 in their partials mode, the merges, finalize) from
+            the same cache state as the same forward with ``cp_axis=None``:
+            greedy tokens identical, logits within the kernels' bf16
+            tolerance; K3 / K4 partials launches; the decode tick's ms
+            with and without partials + merge (CUDA events, eager)
   check     prefill (flash), chunked prefill (paged chunk) and one decode
             step (paged decode) of served prompts, in bf16 through the
             kernels and through the plain versions, and in float32 through
@@ -259,7 +270,8 @@ Phases (each one fails the run when it fails; nothing is caught):
             tokens/s, rounds, acceptance, draft and verify ms a round, and
             the leading tokens each stream shares with generate's (a
             5-token verify rounds differently from one-token decode in
-            bf16); on float32 copies of both models (all 32 layers) every
+            bf16); on float32 copies of both models (the target's first
+            SPEC_FP32_LAYERS layers, the draft whole) every
             ``speculative_generate`` stream equal to ``generate``'s, the
             rows of ``speculative_generate_batched`` over the ragged four
             equal to their solo runs, ``speculative_sample`` at temperature
@@ -334,6 +346,17 @@ Phases (each one fails the run when it fails; nothing is caught):
             grad_accum_steps=2 over 2 x 2048 halves against one 4 x 2048
             batch (loss within ACCUM_LOSS_REL, gradients within
             ACCUM_GRAD_REL of their RMS)
+  sharded_ckpt  bench.py's headline train model and AdamW (lr 1e-4,
+            weight decay 0.01) as a ``Trainer`` over a one-rank NCCL
+            ``HybridMesh(fsdp=1)`` at 4 x 2048: 2 steps, a save in the
+            global format (``CheckpointManager``), 2 more steps (the
+            uninterrupted run); a fresh sharded Trainer (another seed)
+            restores it, saves the sharded format
+            (``use_orbax=True``: the rank's file and the index) and takes
+            the 2 steps, a third restores that and takes them: both
+            resumed runs' losses bit-identical to the uninterrupted run's.
+            Each format's write and restore seconds, bytes and GB/s (the
+            files under TMPDIR, deleted)
   ckpt_resume  the same width at 4 layers under ``ElasticRunner`` with
             ``CheckpointManager(async_save=True)`` every 2 steps: a clean
             4-step run, then one whose 4th step raises at the
@@ -585,6 +608,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import pathlib
 import struct
 import subprocess
 import sys
@@ -644,6 +668,11 @@ SOURCES = {
                        "paddle_tpu/ops/pallas/paged_attention.py:373"),
     "paged_decode_i8": ("paddle_tpu_torch/csrc/paged_decode.cu",
                         "paddle_tpu/ops/pallas/paged_attention.py:90"),
+    # the partials mode of K3 / K4 (context-parallel serving)
+    "paged_chunk_partials": ("paddle_tpu_torch/csrc/paged_chunk.cu",
+                             "paddle_tpu/ops/pallas/paged_attention.py:373"),
+    "paged_decode_partials": ("paddle_tpu_torch/csrc/paged_decode.cu",
+                              "paddle_tpu/ops/pallas/paged_attention.py:90"),
     "flash_bwd_dq": ("paddle_tpu_torch/csrc/flash_bwd.cu",
                      "paddle_tpu/ops/pallas/flash_attention.py:271"),
     "flash_bwd_dkv": ("paddle_tpu_torch/csrc/flash_bwd.cu",
@@ -683,7 +712,7 @@ SOURCES.update({f"{k}_f16": v for k, v in list(SOURCES.items())})
 # ROUTER_SERVE_KERNELS / ROUTER_SERVE_I8_KERNELS / GPTQ_SERVE_KERNELS /
 # SPEC_GENERATE_KERNELS / REMAT_TRAIN_KERNELS / TRAINER_FIT_KERNELS /
 # LORA_TRAIN_KERNELS / FP8_TRAIN_KERNELS / PAGED_GENERATE_KERNELS /
-# DIST_TRAIN_KERNELS / PP_TRAIN_KERNELS and the
+# DIST_TRAIN_KERNELS / PP_TRAIN_KERNELS / CP_SERVE_KERNELS and the
 # F16_*_KERNELS, spelled out here so that
 # --root can load an earlier tree that lacks them (a kernel that such a
 # tree does not have is then left out of its checks)
@@ -752,7 +781,11 @@ PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
          "pp_train": ("rms_norm", "flash_fwd", "flash_bwd_dq",
                       "flash_bwd_dkv", "rope"),
          "sp_train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
-         "ep_train": ("grouped_fwd", "grouped_dw")}
+         "ep_train": ("grouped_fwd", "grouped_dw"),
+         "sharded_ckpt": ("rms_norm", "flash_fwd", "flash_bwd_dq",
+                          "flash_bwd_dkv", "rope"),
+         "cp_serve": ("rms_norm", "flash_fwd", "paged_chunk_partials",
+                      "paged_decode_partials", "rope", "rope_kv")}
 # float16 models (ops.cuda's F16_*_KERNELS): a path's kernels on their
 # float16 instantiations, counted apart
 PATHS.update({f16: tuple(f"{k}_f16" for k in PATHS[path])
@@ -1026,6 +1059,17 @@ def _k4_nsplit(PA):
     return getattr(PA.paged_decode_attention, "nsplit", None) or 1
 
 
+def _triple_agree(label, dtype, got, ref):
+    """A partials triple against the plain one under ``_agree``'s rule: m,
+    l and acc / l (0 where l == 0); the largest error."""
+    errs = [_max_err(a, b) for a, b in (
+        (got[0] / got[2].clamp(min=1e-30)[..., None],
+         ref[0] / ref[2].clamp(min=1e-30)[..., None]),
+        (got[1], ref[1]), (got[2], ref[2]))]
+    err = (max(e[0] for e in errs), max(e[1] for e in errs))
+    return _agree(f"{label} partials", dtype, err)
+
+
 def _partials_agree(torch, label, dtype, kernel, plain, q, kp, vp, tables,
                     rest, kw):
     """A kernel's partials triple (acc, m, l) against its plain version's
@@ -1038,12 +1082,9 @@ def _partials_agree(torch, label, dtype, kernel, plain, q, kp, vp, tables,
     g = torch.Generator(device=tables.device).manual_seed(7)
     drop = torch.rand(tables.shape, generator=g, device=tables.device) < 0.25
     part = torch.where(drop, torch.full_like(tables, kp.shape[0]), tables)
-    got = kernel(q, kp, vp, part, *rest, partials=True, **kw)
-    ref = plain(q, kp, vp, part, *rest, partials=True, **kw)
-    for name, a, b in (("acc / l", *(x[0] / torch.clamp(x[2], min=1e-30)[
-                           ..., None] for x in (got, ref))),
-                       ("m", got[1], ref[1]), ("l", got[2], ref[2])):
-        _agree(f"{label} partials {name}", dtype, _max_err(a, b))
+    _triple_agree(label, dtype,
+                  kernel(q, kp, vp, part, *rest, partials=True, **kw),
+                  plain(q, kp, vp, part, *rest, partials=True, **kw))
 
 
 def kernel_cases(torch, dev, h=4096, nh=32):
@@ -1327,6 +1368,16 @@ def phase_kernels(torch, dev):
         **k5(torch, dev, PP_MICRO_SHAPE))
     results["trainer_fit"] = results["train"]
     results["fp8_train"] = results["train"]
+    # the sharded Trainer runs the train step's shapes; the cp forwards
+    # K3 / K4 in their partials mode at the serve shapes, the other
+    # kernels at the serve rows' shapes
+    results["sharded_ckpt"] = results["train"]
+    if "paged_decode_partials" not in ABSENT:
+        results["cp_serve"] = {
+            **{k: results["serve"][k] for k in ("rms_norm", "flash_fwd",
+                                                "rope", "rope_kv")
+               if k in results["serve"]},
+            **cp_kernel_entries(torch, dev)}
     results["spec_generate"] = {"rms_norm": results["serve"]["rms_norm"],
                                 "rope": rope_decode}
     results["paged_generate"] = {k: results["serve"][k]
@@ -3859,11 +3910,14 @@ class count_plain_calls:
             setattr(mod, name, orig)
 
 
-def fp32_copy(torch, model):
+def fp32_copy(torch, model, layers=None):
     """The same weights in float32 (the check's reference model); a
     weight-only quantized projection gives its dequantized weight, the
-    function the quantized model serves."""
+    function the quantized model serves. ``layers``: the first that many
+    layers only."""
     cfg = dataclasses.replace(model.cfg, dtype=torch.float32)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
     m32 = type(model)(cfg, device=model.device)
     with torch.no_grad():
         for name, p32 in m32.named_parameters():
@@ -7365,6 +7419,9 @@ def phase_gptq_check(torch, dev, model, np, rec0):
 
 SPEC_PROMPTS = (64, 85, 107, 128)
 SPEC_NEW, SPEC_GAMMA = 64, 4
+# the float32 exactness checks run the target's first 8 of its 32 layers
+# (the default run's time limit)
+SPEC_FP32_LAYERS = 8
 
 
 def _shared_prefix(got, ref, start):
@@ -7379,7 +7436,8 @@ def phase_spec_generate(torch, dev, model, np):
     with both drafts beside ``generate``, and how many leading tokens of
     each bf16 stream equal ``generate``'s (a 5-token verify rounds
     differently from one-token decode in bf16); (2) on float32 copies of
-    the target and the TinyLlama draft, all 32 layers: every stream equal
+    the target (its first SPEC_FP32_LAYERS layers) and the TinyLlama
+    draft (whole): every stream equal
     to ``generate``'s, the batched rows to their solo runs,
     ``speculative_sample`` repeating itself at one seed and equal to
     ``generate`` at temperature 0. Returns the bf16 run's launch counts."""
@@ -7445,7 +7503,8 @@ def phase_spec_generate(torch, dev, model, np):
     if missing:
         raise AssertionError(f"kernels not launched on spec_generate: "
                              f"{missing} ({counts})")
-    m32, t32 = fp32_copy(torch, model), fp32_copy(torch, tiny)
+    m32 = fp32_copy(torch, model, SPEC_FP32_LAYERS)
+    t32 = fp32_copy(torch, tiny)
     del tiny
     refs, gen_s = greedy(m32)
     bad = []
@@ -8608,6 +8667,331 @@ def phase_paged_generate(torch, dev, model, np):
     return counts
 
 
+# ------------------------------------------- sharded checkpoints and cp
+SHARDED_STEPS = 2           # steps before the save, and after it
+CP_ROWS = 8                 # the serve mix's greedy rows 0-7
+CP_CHUNK = 128              # whole-prompt prefill / chunk width
+CP_BLOCKS = 32              # blocks of 16 a row: 512 positions
+CP_TICKS = 16               # decode ticks compared
+CP_VERIFY = 5               # the verify chunk's width (spec_k 4 + 1)
+CP_TIMED = 20               # decode ticks timed in each arm
+
+
+def cp_kernel_entries(torch, dev):
+    """K3 and K4 in their partials mode, the cp_serve path's, at the serve
+    path's 7B shapes (``kernel_cases``) over the whole table (a one-rank
+    cp group owns every block), bf16: the triple against the plain
+    partials, the kernel's time eager and from a CUDA graph, the plain
+    partials' time and the bound (q and K/V read, the fp32 triple of the
+    live rows written)."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as PA
+    cases = kernel_cases(torch, dev)
+    dt, dtype = _hdt(torch), _hn()
+    out = {}
+    c = cases["paged_chunk"]
+    q, kp, vp = c["q"].to(dt), c["kp"].to(dt), c["vp"].to(dt)
+    tb, offs, cls = c["tables"], c["offsets"], c["chunk_lens"]
+
+    def k3():
+        return PA.paged_chunk_attention(q, kp, vp, tb, offs, cls,
+                                        partials=True)
+
+    def p3():
+        return PA.paged_chunk_attention_plain(q, kp, vp, tb, offs, cls,
+                                              partials=True)
+    err = _triple_agree("cp_serve paged_chunk", dtype, k3(), p3())
+    a, cc, nh, d = q.shape
+    es = q.element_size()
+    rows = int(cls.sum())
+    keys = sum(int(offs[i]) * int(cls[i]) + int(cls[i]) * (int(cls[i]) + 1)
+               // 2 for i in range(a))
+    nbytes = (rows * nh * d * es + 2 * int((offs + cls).long().sum()) * nh
+              * d * es + tb.numel() * 4 + rows * nh * (d + 2) * 4)
+    b_ms, b_by = bound(nbytes, 4 * d * nh * keys)
+    out["paged_chunk_partials"] = dict(
+        max_abs_err=err, variant=_k3_variant(PA, q), ms=time_ms(k3),
+        graph_ms=graph_ms(k3), plain_ms=time_ms(p3), library_ms=None,
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"q [{a}, {cc}, {nh}, {d}] {dtype}, pool {list(kp.shape)}, "
+              f"MB {tb.shape[1]}, partials")
+    c = cases["paged_decode"]
+    q, lens = c["q"].to(dt), c["lens"]
+
+    def k4():
+        return PA.paged_decode_attention(q, kp, vp, tb, lens, partials=True)
+
+    def p4():
+        return PA.paged_decode_attention_plain(q, kp, vp, tb, lens,
+                                               partials=True)
+    err = _triple_agree("cp_serve paged_decode", dtype, k4(), p4())
+    nsplit = _k4_nsplit(PA)
+    bq, nh, d = q.shape
+    nbytes = (bq * nh * d * es + 2 * int(lens.sum()) * nh * d * es
+              + tb.numel() * 4 + bq * nh * (d + 2) * 4)
+    b_ms, b_by = bound(nbytes, 4 * d * nh * int(lens.sum()))
+    out["paged_decode_partials"] = dict(
+        max_abs_err=err, nsplit=nsplit, ms=time_ms(k4), graph_ms=graph_ms(k4),
+        plain_ms=time_ms(p4), library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        shape=f"q [{bq}, {nh}, {d}] {dtype}, pool {list(kp.shape)}, lens sum "
+              f"{int(lens.sum())}, partials")
+    return out
+
+
+def _clone_cache(cache):
+    from paddle_tpu_torch.models.paged import PagedKVCache
+    return PagedKVCache([t.clone() for t in cache.k_store],
+                        [t.clone() for t in cache.v_store],
+                        cache.block_tables.clone(), cache.lens.clone(),
+                        [t.clone() for t in cache.k_scale_store],
+                        [t.clone() for t in cache.v_scale_store])
+
+
+def phase_cp_serve(torch, dev, model, np):
+    """The cp path's forwards on the served 7B model over a one-rank NCCL
+    cp group, each against the same forward without cp from the same cache
+    state (see the module docstring). Returns the launch counts of the cp
+    forwards."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.core.random import generator
+    from paddle_tpu_torch.models import paged as P
+    from paddle_tpu_torch.ops import cuda as K
+    cfg = model.cfg
+    card = card_line()
+    reqs = serve_requests(np.random.RandomState(0), cfg.vocab_size)[:CP_ROWS]
+    prompts = [np.asarray(r.prompt, np.int64) for r in reqs]
+    b, bs, mb = len(prompts), 16, CP_BLOCKS
+    d = cfg.hidden_size // cfg.num_attention_heads
+    cache = P.PagedKVCache.init(cfg.num_hidden_layers, b * mb, bs,
+                                cfg.num_key_value_heads, d, b, mb, cfg.dtype,
+                                device=dev)
+    tables = np.arange(b * mb, dtype=np.int32).reshape(b, mb)
+    slots = np.arange(b, dtype=np.int32)
+    gens = {None: generator(0, dev), "cp": generator(0, dev)}
+    counts = {k: 0 for k in K.launches()}
+    worst = {}
+
+    with nccl_world(torch):
+        mesh = D.HybridMesh(cp=1)
+
+        def both(label, fn):
+            """fn(cache, cp_axis) without cp on the cache and with cp on a
+            copy of its state before; the outputs, logits compared."""
+            snap = _clone_cache(cache)
+            ref = fn(cache, None)
+            torch.cuda.synchronize()
+            before = K.launches()
+            with mesh:
+                got = fn(snap, "cp")
+            torch.cuda.synchronize()
+            for k, v in K.launches().items():
+                counts[k] += v - before[k]
+            del snap
+            err = _max_err(got[0], ref[0])
+            worst[label] = max(worst.get(label, (0.0, 0.0)), err,
+                               key=lambda e: e[1])
+            tok_ref = ref[0].float().argmax(-1)
+            tok_got = got[0].float().argmax(-1)
+            if not torch.equal(tok_ref, tok_got):
+                raise AssertionError(f"cp_serve {label}: greedy tokens "
+                                     f"differ from the forward without cp")
+            return ref, tok_ref
+
+        # whole-prompt prefill of each row's first CP_CHUNK tokens
+        ids = np.zeros((b, CP_CHUNK), np.int64)
+        lens = np.array([min(len(p), CP_CHUNK) for p in prompts], np.int32)
+        for i, p in enumerate(prompts):
+            ids[i, :lens[i]] = p[:lens[i]]
+        ids_t = torch.as_tensor(ids, device=dev)
+        ref, tok = both("prefill", lambda c, ax: (P.llama_prefill_paged(
+            model, ids_t, lens, c, slots, tables, cp_axis=ax)[0],))
+        last = tok.clone()
+        # the long rows chunked on, CP_CHUNK tokens a call
+        long_rows = [i for i, p in enumerate(prompts) if len(p) > CP_CHUNK]
+        done = {i: CP_CHUNK for i in long_rows}
+        chunks = 0
+        while any(done[i] < len(prompts[i]) for i in long_rows):
+            cids = np.zeros((len(long_rows), CP_CHUNK), np.int64)
+            cl = np.zeros(len(long_rows), np.int32)
+            off = np.array([done[i] for i in long_rows], np.int32)
+            for j, i in enumerate(long_rows):
+                piece = prompts[i][done[i]:done[i] + CP_CHUNK]
+                cids[j, :len(piece)] = piece
+                cl[j] = len(piece)
+            cids_t = torch.as_tensor(cids, device=dev)
+            rows = slots[long_rows]
+            trows = tables[long_rows]
+            _, tok = both("chunk", lambda c, ax: (P.llama_prefill_chunk_paged(
+                model, cids_t, cl, off, c, rows, trows, cp_axis=ax)[0],))
+            for j, i in enumerate(long_rows):
+                if cl[j]:
+                    last[i] = tok[j]
+                done[i] += int(cl[j])
+            chunks += 1
+        cur = np.array([len(p) for p in prompts], np.int32)
+        # greedy decode ticks (every row; no table growth: tables whole)
+        no_upd = np.full(b, b, np.int64)
+        zeros = np.zeros(b, np.int64)
+        temps, top_ps = np.zeros(b, np.float32), np.ones(b, np.float32)
+        active = np.ones(b, bool)
+        streams = [last.clone()]
+        for _ in range(CP_TICKS):
+            toks = streams[-1]
+
+            def tick(c, ax, toks=toks):
+                nxt, logp, _ = P.llama_decode_tick(
+                    model, toks, c, active, no_upd, zeros, zeros, gens[ax],
+                    temps, top_ps, want_logp=True, cp_axis=ax)
+                return (logp, nxt)
+            ref, tok = both("decode", tick)
+            if not torch.equal(ref[1], tok):
+                raise AssertionError("cp_serve: the tick's sampled tokens "
+                                     "are not its logits' argmax")
+            streams.append(tok)
+        cur += CP_TICKS
+        # one verify chunk at every row's end: the last token and 4 more
+        vids = np.random.RandomState(3).randint(3, cfg.vocab_size,
+                                                (b, CP_VERIFY))
+        vids[:, 0] = streams[-1].cpu().numpy()
+        vids_t = torch.as_tensor(vids, device=dev)
+        vl = np.full(b, CP_VERIFY, np.int32)
+        both("verify", lambda c, ax: (P.llama_verify_chunk_paged(
+            model, vids_t, vl, cur, c, slots, tables, cp_axis=ax)[0],))
+        # the decode tick timed eagerly, with and without partials + merge
+        times = {None: [], "cp": []}
+        toks = streams[-1]
+        for i in range(2 * CP_TIMED):
+            ax = None if i % 2 == 0 else "cp"
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            with (mesh if ax else contextlib.nullcontext()):
+                e0.record()
+                P.llama_decode_tick(model, toks, cache, active, no_upd, zeros,
+                                    zeros, gens[ax], temps, top_ps,
+                                    cp_axis=ax)
+                e1.record()
+            torch.cuda.synchronize()
+            times[ax].append(e0.elapsed_time(e1))
+    for label, (err, scaled) in worst.items():
+        _agree(f"cp_serve {label} logits (cp against no cp)", "bf16",
+               (err, scaled))
+    tick_ms = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    log(f"[cp_serve] {b} rows ({', '.join(str(len(p)) for p in prompts)} "
+        f"tokens), {chunks} chunk calls, {CP_TICKS} decode ticks, one "
+        f"{CP_VERIFY}-token verify: greedy tokens identical with and "
+        f"without cp; K3 partials launches {counts['paged_chunk_partials']}, "
+        f"K4 partials launches {counts['paged_decode_partials']} ({card})")
+    log(f"[cp_serve] decode tick (8 rows, eager, median of {CP_TIMED}): "
+        f"{tick_ms[None]:.3f} ms without cp, {tick_ms['cp']:.3f} ms with K4's "
+        f"partials + merge + finalize ({card})")
+    if counts["paged_chunk"] or counts["paged_decode"]:
+        raise AssertionError(f"cp_serve: the cp forwards launched K3 / K4 "
+                             f"outside their partials mode: "
+                             f"{counts['paged_chunk']}, "
+                             f"{counts['paged_decode']}")
+    missing = _missing("cp_serve", counts)
+    if missing:
+        raise AssertionError(f"kernels not launched on cp_serve: {missing}")
+    del cache
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in pathlib.Path(path).rglob("*")
+               if f.is_file())
+
+
+def phase_sharded_ckpt(torch, dev, np, tmp):
+    """The headline Trainer over a one-rank NCCL HybridMesh(fsdp=1) saved
+    and restored in both formats (see the module docstring); the resumed
+    runs' losses must equal the uninterrupted run's bit for bit. Returns
+    the launch counts of the phase's steps."""
+    import shutil
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.train import Trainer, TrainerArgs
+    from paddle_tpu_torch.train.checkpoint import CheckpointManager
+    card = card_line()
+    cfg = train_config()
+    ids, labels = train_batch(torch, dev, np, cfg)
+    data = [(ids, labels)] * (2 * SHARDED_STEPS)
+    end = 2 * SHARDED_STEPS
+    dirs = {"global": os.path.join(tmp, "sharded_ckpt_global"),
+            "sharded": os.path.join(tmp, "sharded_ckpt_sharded")}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.monotonic() - t0
+
+    with nccl_world(torch):
+        mesh = D.HybridMesh(fsdp=1)
+
+        def trainer(seed, steps):
+            return Trainer(LlamaForCausalLM(cfg, device=dev, seed=seed),
+                           O.AdamW(learning_rate=1e-4, weight_decay=0.01),
+                           _lm_loss, TrainerArgs(max_steps=steps,
+                                                 log_every=1),
+                           mesh=mesh, device=dev)
+
+        K.reset_launches()
+        tr = trainer(0, SHARDED_STEPS)
+        tr.fit(iter(data))
+        writes, reads = {}, {}
+        _, writes["global"] = timed(lambda: CheckpointManager(
+            dirs["global"]).save(SHARDED_STEPS, tr.state))
+        nbytes = {"global": _dir_bytes(dirs["global"])}
+        tr.args.max_steps = end
+        tr.fit(iter(data))
+        want = [h["loss"] for h in tr.history[SHARDED_STEPS:end]]
+        del tr
+        torch.cuda.empty_cache()
+        got = {}
+        for seed, fmt in ((1, "global"), (2, "sharded")):
+            fresh = trainer(seed, end)
+            mgr = CheckpointManager(dirs[fmt], use_orbax=fmt == "sharded")
+            fresh.state, reads[fmt] = timed(lambda: mgr.restore(fresh.state))
+            if int(fresh.state.step) != SHARDED_STEPS:
+                raise AssertionError(f"sharded_ckpt {fmt}: restored step "
+                                     f"{int(fresh.state.step)}")
+            if fmt == "global":
+                # the restored step-2 state, saved in the sharded format
+                shutil.rmtree(dirs["global"])
+                _, writes["sharded"] = timed(lambda: CheckpointManager(
+                    dirs["sharded"], use_orbax=True).save(SHARDED_STEPS,
+                                                          fresh.state))
+                nbytes["sharded"] = _dir_bytes(dirs["sharded"])
+            fresh.fit(iter(data))
+            got[fmt] = [h["loss"] for h in fresh.history]
+            del fresh
+            torch.cuda.empty_cache()
+        shutil.rmtree(dirs["sharded"])
+        counts = K.launches()
+    for fmt in ("global", "sharded"):
+        gb = nbytes[fmt] / 1e9
+        log(f"[sharded_ckpt] {fmt} format: {gb:.3f} GB; write "
+            f"{writes[fmt]:.2f} s ({gb / writes[fmt]:.2f} GB/s), restore into "
+            f"a fresh Trainer {reads[fmt]:.2f} s ({gb / reads[fmt]:.2f} GB/s, "
+            f"CRCs and the host-to-card copies included) ({card})")
+        log(f"[sharded_ckpt] {fmt}: resumed losses "
+            f"{' '.join(f'{x:.6f}' for x in got[fmt])}, uninterrupted "
+            f"{' '.join(f'{x:.6f}' for x in want)}; bit-identical: "
+            f"{got[fmt] == want}")
+        if got[fmt] != want:
+            raise AssertionError(f"sharded_ckpt {fmt}: resumed losses "
+                                 f"{got[fmt]} differ from {want}")
+    missing = _missing("sharded_ckpt", counts)
+    if missing:
+        raise AssertionError(f"kernels not launched on sharded_ckpt: "
+                             f"{missing}")
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve,check,"
@@ -8615,9 +8999,10 @@ def main(argv=None):
                     "spec_serve,spec_check,beam_serve,beam_check,"
                     "grammar_serve,grammar_check,tenant_serve,"
                     "endpoint_check,hf_load,router_serve,router_check,"
-                    "gptq_serve,gptq_check,spec_generate,train,dist_train,"
-                    "pp_train,sp_train,ep_train,remat_train,"
-                    "trainer_fit,ckpt_resume,lora_train,fp8_train,amp_check,"
+                    "gptq_serve,gptq_check,spec_generate,cp_serve,train,"
+                    "dist_train,pp_train,sp_train,ep_train,remat_train,"
+                    "trainer_fit,ckpt_resume,sharded_ckpt,lora_train,"
+                    "fp8_train,amp_check,"
                     "moe_serve,moe_check,moe_train,window_serve,window_check,"
                     "quant_serve,quant_check,bloom_serve,bloom_train,"
                     "falcon_rw_serve,falcon_rw_train,falcon7b_serve,"
@@ -8675,7 +9060,8 @@ def main(argv=None):
                  "endpoint_check"} & set(phases)
     serve_stats = None
     if {"serve", "check", "anatomy", "graph_check", "async_serve",
-            "spec_generate", "paged_generate"} & set(phases) or quant or \
+            "spec_generate", "paged_generate", "cp_serve"} & set(phases) \
+            or quant or \
             lora_spec or router or gptq:
         tm = time.monotonic()
         model = build_model(dev)
@@ -8818,6 +9204,10 @@ def main(argv=None):
             counts["paged_generate"] = phase_paged_generate(torch, dev,
                                                             model, np)
             log(f"[paged_generate] phase {time.monotonic() - tp:.1f} s")
+        if "cp_serve" in phases:
+            tp = time.monotonic()
+            counts["cp_serve"] = phase_cp_serve(torch, dev, model, np)
+            log(f"[cp_serve] phase {time.monotonic() - tp:.1f} s")
         if "quant_check" in phases:
             phase_quant_check(torch, model, reqs, got, ref32, "bf16")
         if quant:
@@ -8892,8 +9282,8 @@ def main(argv=None):
         tp = time.monotonic()
         counts["remat_train"] = phase_remat_train(torch, dev, np)
         log(f"[remat_train] phase {time.monotonic() - tp:.1f} s")
-    trainer = ("trainer_fit", "ckpt_resume", "lora_train", "fp8_train",
-               "amp_check")
+    trainer = ("trainer_fit", "ckpt_resume", "sharded_ckpt", "lora_train",
+               "fp8_train", "amp_check")
     if set(trainer) & set(phases):
         import shutil
         import tempfile
@@ -8905,7 +9295,8 @@ def main(argv=None):
                 tp = time.monotonic()
                 fn = globals()[f"phase_{name}"]
                 got = (fn(torch, dev, np, tmp)
-                       if name in ("trainer_fit", "ckpt_resume", "fp8_train")
+                       if name in ("trainer_fit", "ckpt_resume",
+                                   "sharded_ckpt", "fp8_train")
                        else fn(torch, dev, np))
                 if name in PATHS:
                     counts[name] = got

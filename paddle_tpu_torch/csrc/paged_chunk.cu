@@ -8,7 +8,9 @@
 // its table row (the gathered K/V is never materialised). q [A, C, H, D];
 // pools [N, bs, Hkv, D]; tables [A, MB] int32 with the sentinel N on
 // unused slots (clamped, never read past the row's live length); o like
-// q. Dead rows (chunk_lens == 0) and padding query rows write 0. partials
+// q, acc / l divided as the reference's kernel does (so o is the partials
+// mode's triple finalized by finalize_partials, bit for bit). Dead rows
+// (chunk_lens == 0) and padding query rows write 0. partials
 // mode (context parallelism) writes the un-normalised triple acc [A, C,
 // H, D], m and l [A, C, H] (fp32, m the natural log of the scaled scores)
 // over the table entries < N only — the others belong to another shard and
@@ -156,10 +158,12 @@ __global__ void __launch_bounds__(kWarps * 32)
         l_out[orow] = l;
       }
     } else {
-      const float inv = l > 0.f ? 1.f / l : 0.f;
+      // acc / l, as the reference's kernel and finalize_partials divide:
+      // the output is then the bits of the partials mode's finalized triple
 #pragma unroll
       for (int c = 0; c < D / 32; ++c)
-        o[orow * D + lane + 32 * c] = from_f<T>(st.acc[r][c] * inv);
+        o[orow * D + lane + 32 * c] =
+            from_f<T>(l > 0.f ? st.acc[r][c] / l : 0.f);
     }
   }
 }
@@ -514,11 +518,14 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 3)
         l_out[orow] = live ? sum : 0.f;
       }
     } else {
-      const float inv = live ? 1.f / sum : 0.f;
+      // divided, not scaled by 1 / sum: the FMA route's and the
+      // reference's normalisation (finalize_partials of the triple)
+      const float den = live ? sum : 1.f;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<uint32_t*>(o + orow * D + 8 * j + c0) =
-            pack2<E>(acc[4 * j + 2 * hr] * inv, acc[4 * j + 2 * hr + 1] * inv);
+            pack2<E>(live ? acc[4 * j + 2 * hr] / den : 0.f,
+                     live ? acc[4 * j + 2 * hr + 1] / den : 0.f);
     }
   }
 }

@@ -215,7 +215,8 @@ def ring_merge_partials(o, m, l, axis_name: str = "cp", mesh=None):
     if n == 1:
         return o, m, l
     perm = [(i, (i + 1) % n) for i in range(n)]
-    got = [(o, m, l)]
+    # the exchange receives into buffers shaped (and strided) like these
+    got = [(o.contiguous(), m.contiguous(), l.contiguous())]
     for _ in range(n - 1):
         got.append(tuple(C.permute(t, perm, axis_name=axis_name, mesh=mesh)
                          for t in got[-1]))

@@ -23,7 +23,9 @@ rank's process (:func:`shard_module`):
 ``state_dict()`` of a sharded model gives the global arrays under the
 reference's names and ``[in, out]`` layout (each leaf gathered, the tp
 interleave undone), so checkpoints and ``models/convert.py`` see one
-layout. Load weights before sharding. Inside :func:`data_parallel` a
+layout. Load weights before sharding, or restore a checkpoint into the
+sharded model (``train/checkpoint.py``: :func:`local_piece` slices each
+global array back into the rank's piece). Inside :func:`data_parallel` a
 loss's masked mean counts the labels of the global batch, and
 :func:`sync_grads` averages the gradients over the axes the batch's
 tokens are split over (:data:`TOKEN_AXES`: the data axes and sp) after a
@@ -229,16 +231,63 @@ def _global(x, info: Optional[ShardInfo], mesh: HybridMesh) -> torch.Tensor:
     return x
 
 
+def local_piece(x, info: Optional[ShardInfo], mesh: HybridMesh):
+    """This rank's piece of the global array ``x`` sharded as ``info``
+    says: the inverse of :func:`_global` (the tp interleave reapplied
+    before the tp slice, then the FSDP chunk and the ep slice), as
+    :func:`shard_module` cut the parameter. No communication."""
+    if info is None:
+        return x
+    for dim, ax in enumerate(info.spec):
+        if ax == "tp" and mesh.size("tp") > 1:
+            if info.perm is not None:
+                x = x.index_select(dim, info.perm.to(x.device))
+            x = x.chunk(mesh.size("tp"), dim)[mesh.index("tp")]
+        elif ax == "fsdp" and info.fsdp_dim is not None:
+            x = x.chunk(mesh.fsdp, dim)[mesh.index("fsdp")]
+        elif ax == "ep" and mesh.ep > 1:
+            x = x.chunk(mesh.ep, dim)[mesh.index("ep")]
+    return x
+
+
+def global_shape(shape, info: Optional[ShardInfo], mesh: HybridMesh):
+    """The global array's shape of a local piece of ``shape``."""
+    shape = list(shape)
+    if info is None:
+        return tuple(shape)
+    for dim, ax in enumerate(info.spec):
+        if ax == "tp":
+            shape[dim] *= mesh.size("tp")
+        elif ax == "fsdp" and info.fsdp_dim is not None:
+            shape[dim] *= mesh.fsdp
+        elif ax == "ep":
+            shape[dim] *= mesh.ep
+    return tuple(shape)
+
+
+def canonical_name(name: str) -> str:
+    """A parameter's reference name: ``named_parameters()``'s name of an
+    FSDP chunk (``...parametrizations.<leaf>.original``) without the
+    parametrization's parts."""
+    name = name.replace(".parametrizations.", ".").replace(
+        "parametrizations.", "")
+    return name[:-len(".original")] if name.endswith(".original") else name
+
+
+def sharded_params(module: nn.Module) -> dict:
+    """{``named_parameters()`` name: (canonical name, local parameter)} of
+    a module :func:`shard_module` sharded; each parameter carries its
+    ``_pt_shard`` (None where it is whole on every rank)."""
+    return {n: (canonical_name(n), p) for n, p in module.named_parameters()}
+
+
 def _global_state_dict(module, state_dict, prefix, local_metadata):
     """state_dict hook: the global arrays under the canonical names."""
     mesh = module._pt_mesh
     leaves = {prefix + name: p for name, _, _, p in _leaves(module)}
     out = type(state_dict)()
     for key, v in state_dict.items():
-        name = key.replace(".parametrizations.", ".").replace(
-            "parametrizations.", "")
-        if name.endswith(".original"):
-            name = name[:-len(".original")]
+        name = canonical_name(key)
         p = leaves.get(name)
         out[name] = (_global(p, getattr(p, "_pt_shard", None), mesh)
                      if p is not None else v)

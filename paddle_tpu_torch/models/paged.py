@@ -28,6 +28,11 @@ sentinel ``num_blocks``), so no scatter needs a device-to-host sync to
 filter its rows. The sink is never read: attention gets the ``[:N]``
 views (``cache.k_pools``), where table sentinels are clamped and masked.
 
+Context parallelism (``cp_axis``, see the section of that name below):
+each rank of a cp group holds its share of the blocks, the tables stay
+global, K3 and K4 run in their partials mode over the rank's blocks and
+the partials are merged over cp.
+
 An int8 pool (``kv_dtype="int8"``) quantizes on write (``_quantize_kv``:
 per-(position, KV head) absmax scales in parallel fp32 scale pools, with
 the same sink block) and the paged kernels dequantize on read; the
@@ -1011,11 +1016,64 @@ def _dest_chunk(tables, offsets, chunk_lens, c, num_blocks, block_size):
                        num_blocks * block_size)
 
 
-def _refuse_cp(cp_axis):
-    if cp_axis is not None:
-        raise NotImplementedError(
-            "context-parallel serving is not ported yet (ROADMAP.md "
-            "queue 1, cp)")
+# --------------------------------------------- context parallelism (cp)
+# Under LLMEngine(cp=N) every rank of the cp group (one process a rank)
+# holds ``per = num_blocks / cp`` blocks of every pool — rank s the GLOBAL
+# block ids [s*per, (s+1)*per) — while the weights, block tables, lengths
+# and activations are replicated with global ids. The forwards take
+# ``cp_axis``, the name of the cp axis of the active mesh (the executor
+# enters its mesh around every call), translate the tables to LOCAL ids at
+# their use sites (writes to other ranks' blocks go to the local sink, K3
+# and K4 skip their entries in partials mode) and merge the ranks'
+# online-softmax partials, so the host's block managers, radix trie and
+# ledger never learn of the sharding. ``cp_axis=None`` is the single-rank
+# path, unchanged.
+
+def _cp(cp_axis):
+    """(mesh, size, this rank's index) of the cp axis, or None."""
+    if cp_axis is None:
+        return None
+    from paddle_tpu_torch.distributed import collective as C
+    mesh, _, n, my = C._axis(cp_axis)
+    return mesh, n, my
+
+
+def _cp_local_tables(tables, cp, per):
+    """GLOBAL block-table entries -> this rank's LOCAL pool ids: ids in
+    [s*per, (s+1)*per) become [0, per); every other id (other ranks'
+    blocks, the global sentinel) becomes the local sentinel ``per`` —
+    written to the sink block, skipped by the partials kernels."""
+    if cp is None:
+        return tables
+    loc = tables - cp[2] * per
+    return torch.where((loc >= 0) & (loc < per), loc,
+                       torch.full_like(loc, per))
+
+
+def _cp_merge_chunk(o, m, l, cp_axis, cp, dtype):
+    """Merge K3's partials over cp: the ring rotation (default) or, with
+    ``PT_CP_IMPL=ulysses`` (read at each call), the Ulysses all_to_all;
+    both give every rank the same bits. Then normalise."""
+    from paddle_tpu_torch.distributed.ring_attention import (
+        finalize_partials, ring_merge_partials)
+    impl = os.environ.get("PT_CP_IMPL", "ring").strip().lower()
+    if impl == "ulysses":
+        from paddle_tpu_torch.distributed.ulysses import \
+            ulysses_merge_partials
+        o, m, l = ulysses_merge_partials(o, m, l, axis_name=cp_axis,
+                                         mesh=cp[0])
+    else:
+        o, m, l = ring_merge_partials(o, m, l, axis_name=cp_axis, mesh=cp[0])
+    return finalize_partials(o, l, dtype)
+
+
+def _cp_merge_decode(o, m, l, cp_axis, cp, dtype):
+    """Merge K4's partials over cp with the flat symmetric reductions (one
+    max, one sum: the same bits on every rank), then normalise."""
+    from paddle_tpu_torch.distributed.ring_attention import (
+        finalize_partials, psum_merge_partials)
+    o, m, l = psum_merge_partials(o, m, l, axis_name=cp_axis, mesh=cp[0])
+    return finalize_partials(o, l, dtype)
 
 
 def _lora_delta(x, lora, kind, li):
@@ -1171,8 +1229,10 @@ def llama_prefill_paged(model, input_ids, prompt_lens, cache: PagedKVCache,
     table rows and lengths installed) while every other slot stays
     untouched. Padding rows use slot_id >= num_slots and prompt_len 0 and
     write nothing. ``lora``: the per-row multi-LoRA dict
-    (:func:`_lora_delta`). The cache is updated in place."""
-    _refuse_cp(cp_axis)
+    (:func:`_lora_delta`). The cache is updated in place. ``cp_axis``:
+    the rank writes only its own blocks; the prompt's attention is dense
+    over its own K/V, so nothing is merged."""
+    cp = _cp(cp_axis)
     cfg = model_config(model)
     dev = cache.device
     input_ids = torch.as_tensor(input_ids, device=dev).long()
@@ -1195,7 +1255,7 @@ def llama_prefill_paged(model, input_ids, prompt_lens, cache: PagedKVCache,
         cur_len=(lens_np if (scaling or {}).get("type") == "dynamic"
                  else None),
         allow_dynamic=False, device=dev)
-    dest = _dest_prefill(tables, lens, s, nb, bs)
+    dest = _dest_prefill(_cp_local_tables(tables, cp, nb), lens, s, nb, bs)
     for li, lyr in enumerate(_backbone(model).layers):
         h = lyr.input_layernorm(x)
         q, k, v = _qkv(lyr.self_attn, h, (b, s), (b, s), lora, li)
@@ -1221,8 +1281,9 @@ def llama_decode_step_paged(model, tokens, cache: PagedKVCache, active,
     """One decode token per sequence. tokens: [B]; active: [B] bool
     (inactive rows neither write KV nor advance). Returns (logits [B, V],
     cache), the cache updated in place. ``lora``: see
-    :func:`_lora_delta`."""
-    _refuse_cp(cp_axis)
+    :func:`_lora_delta`. ``cp_axis``: K4 in its partials mode over the
+    rank's blocks, merged over cp."""
+    cp = _cp(cp_axis)
     cfg = model_config(model)
     dev = cache.device
     tokens = torch.as_tensor(tokens, device=dev).long()
@@ -1235,16 +1296,22 @@ def llama_decode_step_paged(model, tokens, cache: PagedKVCache, active,
     cos, sin = _rope_rows(old_lens, d, cfg.rope_theta, cfg.rope_scaling,
                           cfg.max_position_embeddings)
     new_lens = torch.where(active, old_lens + 1, old_lens)
-    tables = cache.block_tables
+    tables = _cp_local_tables(cache.block_tables, cp, nb)
     dest = _dest_decode(tables, old_lens, active, nb, bs)
     for li, lyr in enumerate(_backbone(model).layers):
         h = lyr.input_layernorm(x)
         q, k, v = _qkv(lyr.self_attn, h, (b, 1), (b, 1), lora, li)
         q = _rope_write_decode(cache, li, q, k, v, cos, sin, dest)
         kp, vp, ks, vs = _pools(cache, li)
-        out = _paged.paged_decode_attention(
-            q[:, 0], kp, vp, tables, new_lens, window=cfg.sliding_window,
-            k_scale=ks, v_scale=vs)
+        if cp is None:
+            out = _paged.paged_decode_attention(
+                q[:, 0], kp, vp, tables, new_lens,
+                window=cfg.sliding_window, k_scale=ks, v_scale=vs)
+        else:
+            out = _cp_merge_decode(*_paged.paged_decode_attention(
+                q[:, 0], kp, vp, tables, new_lens,
+                window=cfg.sliding_window, k_scale=ks, v_scale=vs,
+                partials=True), cp_axis, cp, q.dtype)
         x = _layer_tail(lyr, x, out, (b, 1), lora, li)
     x = _backbone(model).norm(x)
     logits = _model_logits(model, x)[:, 0]
@@ -1254,17 +1321,18 @@ def llama_decode_step_paged(model, tokens, cache: PagedKVCache, active,
 
 @torch.no_grad()
 def decode_tick_rows(model, tokens, cache: PagedKVCache, active, gen, temps,
-                     top_ps, top_k=None, logit_bias=None, lora=None):
+                     top_ps, top_k=None, logit_bias=None, lora=None,
+                     cp_axis=None):
     """The device half of a decode tick, on device tensors only: the decode
     step (with the multi-LoRA correction when ``lora`` is given), then one
     token per row sampled with the generator ``gen`` (``temps``/``top_ps``
     [B] fp32, temperature 0 = greedy for that row); inactive rows keep
     their token. Returns (next tokens [B] int64, fp32 logits [B, V]). No
     host read and no host-to-device copy: the executor captures it in a
-    CUDA graph (``serving/executor.py``)."""
+    CUDA graph (``serving/executor.py``; a cp tick runs eagerly)."""
     from paddle_tpu_torch.models.decoding import _sample_rows
     logits, cache = llama_decode_step_paged(model, tokens, cache, active,
-                                            lora=lora)
+                                            lora=lora, cp_axis=cp_axis)
     lf = logits.float()
     nxt = _sample_rows(lf, gen, temps, top_ps, top_k, logit_bias)
     return torch.where(active, nxt, tokens), lf
@@ -1282,8 +1350,9 @@ def llama_decode_tick(model, tokens, cache: PagedKVCache, active,
     per-slot sampling params (temperature 0 = greedy for that row).
     Returns (next tokens [B], logp [B, V] or None, cache). The eager form
     of the tick the executor replays from a CUDA graph on the card.
-    ``lora``: see :func:`_lora_delta`."""
-    _refuse_cp(cp_axis)
+    ``lora``: see :func:`_lora_delta`. ``cp_axis``: the decode step's
+    partials merged over cp (:func:`llama_decode_step_paged`); the tables
+    stay global."""
     dev = cache.device
     rows = _host(upd_rows).astype(np.int64)
     keep = (rows >= 0) & (rows < cache.block_tables.shape[0])
@@ -1299,7 +1368,7 @@ def llama_decode_tick(model, tokens, cache: PagedKVCache, active,
         torch.as_tensor(temps, device=dev).float(),
         torch.as_tensor(top_ps, device=dev).float(), top_k,
         None if logit_bias is None
-        else torch.as_tensor(logit_bias, device=dev), lora)
+        else torch.as_tensor(logit_bias, device=dev), lora, cp_axis)
     logp = torch.log_softmax(lf, dim=-1) if want_logp else None
     return nxt, logp, cache
 
@@ -1307,7 +1376,7 @@ def llama_decode_tick(model, tokens, cache: PagedKVCache, active,
 @torch.no_grad()
 def llama_decode_tick_async(model, tokens, cache: PagedKVCache, active,
                             stop, gen, max_gen, rng, temps, top_ps, eos_id,
-                            top_k=None):
+                            top_k=None, cp_axis=None):
     """The pipelined twin of :func:`llama_decode_tick`: the token array it
     returns stays on the device and feeds the next call's ``tokens``, so
     the engine dispatches up to ``async_depth`` of these back to back and
@@ -1324,10 +1393,11 @@ def llama_decode_tick_async(model, tokens, cache: PagedKVCache, active,
     beam logp or bias: the engine takes the synchronous tick for any tick
     that needs them. Returns (nxt, ran, stop', gen', cache): ``ran`` is
     the mask of the rows that computed this tick, which are exactly the
-    rows the synchronous loop would have run."""
+    rows the synchronous loop would have run. ``cp_axis``: as the
+    synchronous tick's."""
     ran = active & ~stop
     nxt, _ = decode_tick_rows(model, tokens, cache, ran, rng, temps, top_ps,
-                              top_k)
+                              top_k, cp_axis=cp_axis)
     new_gen = gen + ran.to(gen.dtype)
     stopped = ran & ((nxt == eos_id) | (new_gen >= max_gen))
     return nxt, ran, stop | stopped, new_gen, cache
@@ -1352,8 +1422,11 @@ def llama_prefill_chunk_paged(model, input_ids, chunk_lens, offsets,
 
     ``full_logits=True`` returns every chunk position's logits — the
     speculative VERIFY forward: logit i of a row judges the proposal at
-    position offset+i+1. ``lora``: see :func:`_lora_delta`."""
-    _refuse_cp(cp_axis)
+    position offset+i+1. ``lora``: see :func:`_lora_delta`. ``cp_axis``:
+    the rank writes only its own blocks and K3 in its partials mode reads
+    only them; the partials are merged over cp
+    (:func:`_cp_merge_chunk`)."""
+    cp = _cp(cp_axis)
     cfg = model_config(model)
     if (cfg.rope_scaling or {}).get("type") == "dynamic":
         raise NotImplementedError(
@@ -1369,6 +1442,7 @@ def llama_prefill_chunk_paged(model, input_ids, chunk_lens, offsets,
     offsets = torch.as_tensor(off_np, device=dev)
     tables = _dev_i32(table_rows, dev)
     _install_rows(cache, slot_ids, tables, off_np + cl_np)
+    tables = _cp_local_tables(tables, cp, nb)
     window = cfg.sliding_window
 
     x = _backbone(model).embed_tokens[input_ids]
@@ -1391,9 +1465,15 @@ def llama_prefill_chunk_paged(model, input_ids, chunk_lens, offsets,
         # write the chunk FIRST so the pool holds prefix + chunk
         _scatter_kv(cache, li, k, v, dest)
         kp, vp, ks, vs = _pools(cache, li)
-        out = _paged.paged_chunk_attention(
-            q, kp, vp, tables, offsets, chunk_lens, window=window,
-            k_scale=ks, v_scale=vs)
+        if cp is None:
+            out = _paged.paged_chunk_attention(
+                q, kp, vp, tables, offsets, chunk_lens, window=window,
+                k_scale=ks, v_scale=vs)
+        else:
+            out = _cp_merge_chunk(*_paged.paged_chunk_attention(
+                q, kp, vp, tables, offsets, chunk_lens, window=window,
+                k_scale=ks, v_scale=vs, partials=True), cp_axis, cp,
+                q.dtype)
         x = _layer_tail(lyr, x, out, (a, c), lora, li)
     x = _backbone(model).norm(x)
     logits = _model_logits(model, x)
@@ -1405,21 +1485,49 @@ def llama_prefill_chunk_paged(model, input_ids, chunk_lens, offsets,
 
 
 @torch.no_grad()
-def prefix_cow_update(cache: PagedKVCache, pairs):
+def prefix_cow_update(cache: PagedKVCache, pairs, cp_axis=None):
     """Radix prefix cache: copy each adopted partial boundary block ``src``
     into the adopter's private block ``dst`` (copy-on-write at first
     divergence), in every layer's K and V pool and, for an int8 pool, its
     scale pools (the codes mean nothing without their scales). Tables and
-    lengths are untouched."""
+    lengths are untouched. ``cp_axis``: global ids, whose src and dst
+    may live on different ranks (:func:`_cp_copy_blocks`)."""
     if not pairs:
         return cache
     dev = cache.device
     src = torch.as_tensor([p[0] for p in pairs], device=dev)
     dst = torch.as_tensor([p[1] for p in pairs], device=dev)
-    for store in (*cache.k_store, *cache.v_store, *cache.k_scale_store,
-                  *cache.v_scale_store):
+    stores = (*cache.k_store, *cache.v_store, *cache.k_scale_store,
+              *cache.v_scale_store)
+    if cp_axis is not None:
+        _cp_copy_blocks(stores, src, dst, cache.num_blocks, cp_axis)
+        return cache
+    for store in stores:
         store[dst] = store[src]
     return cache
+
+
+def _cp_copy_blocks(stores, src, dst, per, cp_axis):
+    """The cross-rank block copy: every rank contributes the src rows it
+    owns (zeros elsewhere); exactly one rank owns each id, so one sum over
+    cp gives every rank all the src blocks, and the local dst write keeps
+    only the rank's own (the others go to the sink). Integer pools sum in
+    int32."""
+    from paddle_tpu_torch.distributed import collective as C
+    _, _, my = _cp(cp_axis)
+    loc_src = src - my * per
+    own = (loc_src >= 0) & (loc_src < per)
+    src_c = torch.clamp(loc_src, 0, per - 1)
+    loc_dst = dst - my * per
+    loc_dst = torch.where((loc_dst >= 0) & (loc_dst < per), loc_dst,
+                          torch.full_like(loc_dst, per))
+    for store in stores:
+        rows = store[src_c]
+        rows = torch.where(own.view(-1, *(1,) * (rows.dim() - 1)), rows,
+                           torch.zeros_like(rows))
+        wide = rows.to(torch.int32) if not rows.is_floating_point() else rows
+        rows = C.all_reduce(wide, axis_name=cp_axis).to(store.dtype)
+        store[loc_dst] = rows
 
 
 # ---------------------------------------------------------- paged beams

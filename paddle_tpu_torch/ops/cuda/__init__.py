@@ -92,6 +92,12 @@ PP_TRAIN_KERNELS = TRAIN_KERNELS
 # XLA einsums); expert parallelism: the compacted experts' grouped GEMM
 SP_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 EP_TRAIN_KERNELS = ("grouped_fwd", "grouped_dw")
+# context-parallel serving (LLMEngine(cp=N)): the whole-prompt prefill as
+# the serve path (K2 over the prompt's own K/V, no merge), the chunked
+# prefill / verify chunk on K3 and the decode tick on K4, both in their
+# partials mode, merged over cp; the decode tick keeps K7's fold
+CP_SERVE_KERNELS = ("rms_norm", "flash_fwd", "paged_chunk_partials",
+                    "paged_decode_partials", "rope", "rope_kv")
 
 
 def f16_names(names) -> tuple:
@@ -118,7 +124,8 @@ def kernels() -> dict:
     MoE families (forward/dlhs, drhs), the rotary embedding of every
     path, then the ALiBi mode of K2, K5a and K5b (counted apart),
     K6a's two kernels at the multi-LoRA call site, and K7 folded with the
-    decode tick's KV pool write; then, as ``<name>_f16``, each one's
+    decode tick's KV pool write (K3 and K4 in their partials mode counted
+    apart too); then, as ``<name>_f16``, each one's
     float16 launches (also counted in its total)."""
     base = _base_kernels()
     return {**base, **{f"{n}_f16": fn.f16 for n, fn in base.items()}}
@@ -132,6 +139,8 @@ def _base_kernels() -> dict:
         "paged_decode": paged_attention.paged_decode_attention,
         "paged_chunk_i8": paged_attention.paged_chunk_i8,
         "paged_decode_i8": paged_attention.paged_decode_i8,
+        "paged_chunk_partials": paged_attention.paged_chunk_partials,
+        "paged_decode_partials": paged_attention.paged_decode_partials,
         "flash_bwd_dq": flash_attention.flash_bwd_dq,
         "flash_bwd_dkv": flash_attention.flash_bwd_dkv,
         "grouped_fwd": grouped_matmul.grouped_matmul,

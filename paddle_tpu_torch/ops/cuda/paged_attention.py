@@ -20,7 +20,9 @@ KV head) absmax scales): both kernels read the codes and dequantize them
 on load, the plain versions gather the scale rows with the blocks. The
 launches of the two modes are counted apart: ``.launches`` on each
 wrapper for a pool of q's type, :data:`paged_decode_i8` /
-:data:`paged_chunk_i8` for an int8 pool.
+:data:`paged_chunk_i8` for an int8 pool, :data:`paged_decode_partials` /
+:data:`paged_chunk_partials` for the partials mode over a pool of q's
+type.
 
 ``partials=True`` (context parallelism) returns the un-normalised
 online-softmax triple (acc, m, l) over the table entries < N only —
@@ -56,6 +58,11 @@ CHUNK_ROUTES = {torch.bfloat16: "wgmma", torch.float16: "wgmma",
 # launches of the int8-pool mode of K4 / K3 (``ops.cuda.kernels()``)
 paged_decode_i8 = SimpleNamespace(launches=0, f16=_build.f16_counter())
 paged_chunk_i8 = SimpleNamespace(launches=0, f16=_build.f16_counter())
+# launches of the partials mode of K4 / K3 over a pool of q's type (the
+# context-parallel path; an int8 pool's count as paged_*_i8)
+paged_decode_partials = SimpleNamespace(launches=0,
+                                        f16=_build.f16_counter())
+paged_chunk_partials = SimpleNamespace(launches=0, f16=_build.f16_counter())
 
 
 def _check_pool(q, k_pool, v_pool, k_scale, v_scale, what):
@@ -256,8 +263,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lens, *,
         n, bs, mb, scale, int(window or 0), nsplit, chunk, int(partials),
         _build.stream(q))
     _build.check(lib, rc, "paged_decode_attention")
-    _build.count(paged_decode_attention if k_scale is None
-                 else paged_decode_i8, q)
+    _build.count(paged_decode_i8 if k_scale is not None else
+                 paged_decode_partials if partials
+                 else paged_decode_attention, q)
     paged_decode_attention.nsplit = nsplit
     return (acc, m, l) if partials else o
 
@@ -381,8 +389,9 @@ def paged_chunk_attention(q, k_pool, v_pool, block_tables, offsets,
         n, bs, tables.shape[1], scale, int(window or 0), int(partials),
         _build.stream(q))
     _build.check(lib, rc, "paged_chunk_attention")
-    _build.count(paged_chunk_attention if k_scale is None
-                 else paged_chunk_i8, q)
+    _build.count(paged_chunk_i8 if k_scale is not None else
+                 paged_chunk_partials if partials else paged_chunk_attention,
+                 q)
     return (acc, m, l) if partials else o
 
 

@@ -131,8 +131,18 @@ request out unfinished (rebalancing, replica death) and
 restore after a second replica death. Each drains the async window
 first.
 
-Not in this slice: context parallelism (``cp > 1`` raises
-``NotImplementedError`` naming its ROADMAP.md queue).
+Context parallelism: ``cp=N`` serves one engine over N ranks, one
+process a rank (``torch.distributed`` initialised, every rank building
+the same engine and stepping it in lockstep). Each rank holds
+``num_blocks / N`` blocks of the KV pool (``num_blocks`` rounded up to a
+multiple of N), so the admissible length grows with N; the model, the
+tables and the host's managers are the same on every rank, and the
+paged forwards merge the ranks' attention partials (``serving/
+executor.py``), so every rank samples the same tokens. ``PT_CP=0``
+collapses to cp = 1. Beams, multi-LoRA, MoE models and KV handoff are
+refused by name; the ``serving.cp_gather`` fault site fires before each
+cp tick's table growth; ``serving_cp_*`` gauges and the gather histogram
+exist only above cp = 1; the roofline bills the merge traffic.
 """
 from __future__ import annotations
 
@@ -192,13 +202,6 @@ from paddle_tpu_torch.serving.types import (EngineDrainingError,
                                             _BeamGroup)
 from paddle_tpu_torch.utils.faults import fault_point
 
-_Q1 = "ROADMAP.md queue 1, item 5 (serving features)"
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet ({_Q1})")
-
-
 def card_shape_error(cfg, max_rank=None):
     """Why the card's kernels cannot serve a model of config ``cfg`` (with
     an adapter store of rank ``max_rank``), or None when they can: the
@@ -241,8 +244,15 @@ class LLMEngine:
                  spec_k=4, spec_adaptive=True, prefill_only=False,
                  adapter_store=None, degrade=None, slo=None, kv_dtype=None,
                  cp=1, async_depth=0, device=None):
-        if int(cp) != 1:
-            raise _not_ported("cp > 1 (context-parallel serving)")
+        # context-parallel serving: PT_CP=0 is the kill switch, read
+        # HERE, so the engine collapses to the single-rank path
+        cp = int(cp)
+        if cp != 1 and os.environ.get(
+                "PT_CP", "1").strip().lower() in ("0", "off", "false"):
+            cp = 1
+        if cp < 1:
+            raise ValueError(f"cp must be >= 1, got {cp}")
+        self.cp = cp
         # async pipelined decode: PT_ASYNC_DECODE=0 is the kill switch,
         # read HERE, so depth collapses to 0 and the engine runs exactly
         # the synchronous tick
@@ -292,6 +302,20 @@ class LLMEngine:
         self.max_blocks_per_seq = -(-self.max_seq_len // block_size)
         if num_blocks is None:
             num_blocks = num_slots * self.max_blocks_per_seq
+        if self.cp > 1:
+            if self._is_moe:
+                raise NotImplementedError(
+                    "context-parallel serving (cp>1) does not compose with "
+                    "MoE models yet — the expert all_to_all would need its "
+                    "own mesh axis")
+            if adapter_store is not None:
+                raise NotImplementedError(
+                    "context-parallel serving (cp>1) does not compose with "
+                    "multi-LoRA (adapter_store) yet — per-slot adapter "
+                    "gathers are not sharded over cp")
+            # each rank holds num_blocks/cp blocks: round the pool up so
+            # the contiguous split is exact
+            num_blocks = -(-num_blocks // self.cp) * self.cp
         self.eos_token_id = eos_token_id
         # engine defaults; each request may override temperature/top_p
         # (top_k stays engine-global)
@@ -376,7 +400,7 @@ class LLMEngine:
                 seed=seed, kv_dtype=kv_dtype, async_depth=async_depth,
                 adapter_store=adapter_store, draft_model=draft_model,
                 spec_k=self.spec_k, max_seq_len=self.max_seq_len,
-                device=self.device)
+                device=self.device, cp=self.cp)
 
         # host mirrors (vectorised bookkeeping)
         self.slot_req = np.full(num_slots, -1, np.int64)   # req_id or -1
@@ -463,7 +487,7 @@ class LLMEngine:
         # 0.0 = undefined; PT_ROOFLINE_KIND overrides for a what-if).
         # _tick_phase holds the current tick's wall-time split; step()
         # folds it into the breakdown histogram and these accumulators.
-        self._geom = self._geometry(model, self.cache)
+        self._geom = self._geometry(model, self.cache, self.cp)
         self._draft_geom = (self._geometry(draft_model)
                             if draft_model is not None else None)
         self._peak_flops, self._peak_hbm = resolve_serving_peaks(self.device)
@@ -472,7 +496,7 @@ class LLMEngine:
         self._tick_phase: dict[str, float] = {}
 
     @staticmethod
-    def _geometry(m, cache=None):
+    def _geometry(m, cache=None, cp=1):
         """The model's roofline geometry with the stored types billed:
         an int8 pool's 1-byte codes plus a 4-byte scale per (position, KV
         head), a weight-only model's bits/8 bytes a weight. None for a
@@ -490,6 +514,9 @@ class LLMEngine:
         bits = getattr(m, "_wo_bits", None)
         if bits:
             kw["weight_dtype_bytes"] = bits / 8.0
+        # context parallelism: bill each decode token's cross-rank merge
+        if cache is not None and cp > 1:
+            kw["cp"] = cp
         return _dc_replace(g, **kw) if kw else g
 
     # -------------------------------------------------- attribute surface
@@ -544,6 +571,11 @@ class LLMEngine:
             if req.num_beams > self.num_slots:
                 raise ValueError(f"num_beams {req.num_beams} exceeds "
                                  f"num_slots={self.num_slots}")
+            if self.cp > 1:
+                raise NotImplementedError(
+                    "beam search under context parallelism (cp>1) is not "
+                    "supported — the beam select needs full logprobs, "
+                    "which the cp tick does not gather")
             if self.window is not None:
                 raise NotImplementedError(
                     "beam search + sliding-window block recycling are not "
@@ -1779,6 +1811,13 @@ class LLMEngine:
         return [(rid, token)]
 
     # ------------------------------------------------------- KV handoff
+    def _refuse_cp_handoff(self):
+        if self.cp > 1:
+            raise NotImplementedError(
+                "KV handoff under context parallelism (cp>1) is not "
+                "supported — a sequence's blocks are spread over the cp "
+                "ranks' pools; ship from/to cp=1 replicas")
+
     def extract_sequence(self, rid: int) -> KVPayload:
         """Lift a prefilled or decoding greedy sequence OUT of this engine:
         gather its blocks (and an int8 pool's scale rows) into a sealed
@@ -1788,6 +1827,7 @@ class LLMEngine:
         bit-exactly (:meth:`install_sequence`). Only ACTIVE greedy slots
         are extractable: beam and mid-chunk requests raise, as do a
         multi-LoRA pin and window holes in the table."""
+        self._refuse_cp_handoff()
         self._drain_async("boundary")
         slots = np.nonzero(self.slot_req == rid)[0]
         if not len(slots) or rid in self.prefilling or rid in self.groups:
@@ -1872,6 +1912,7 @@ class LLMEngine:
         captured tick graphs stay valid. Returns False (payload
         untouched, no state changed) when no slot or not enough blocks
         are free — the router retries later."""
+        self._refuse_cp_handoff()
         self._drain_async("boundary")
         if self._draining:
             raise EngineDrainingError(
@@ -2030,6 +2071,17 @@ class LLMEngine:
         _KV_UTIL.set(used / self.mgr.num_blocks if self.mgr.num_blocks
                      else 0.0)
         self.kv.push_prefix_metrics()
+        if self.cp > 1:
+            # the axis and each rank's blocks under the contiguous split;
+            # silent at cp = 1
+            from paddle_tpu_torch.serving.cp import (_CP_AXIS,
+                                                     _CP_SHARD_BLOCKS,
+                                                     shard_occupancy)
+            _CP_AXIS.set(self.cp)
+            ids = (b for t in self.mgr.tables.values() for b in t)
+            for sh, n in enumerate(shard_occupancy(
+                    ids, self.mgr.num_blocks, self.cp)):
+                _CP_SHARD_BLOCKS.set(n, shard=str(sh))
         led = self.kv.ledger
         if led.enabled:
             led.publish(bytes_per_block=cache_block_bytes(self.cache),
@@ -2118,9 +2170,8 @@ class LLMEngine:
         spec     draft-and-verify samples on the host this tick
         growth   a slot would cross a block boundary within the window
 
-        ``mode`` is a prefill-only replica (the reference's also covers
-        cp > 1, which the port refuses)."""
-        if self.prefill_only:
+        ``mode`` is a prefill-only replica or a cp > 1 engine."""
+        if self.prefill_only or self.cp > 1:
             return "mode"
         if self.queue:
             return "admit"
@@ -2317,6 +2368,13 @@ class LLMEngine:
             # tables and the ledger untouched (exception-atomic)
             fault_point("serving.kv_quant", engine=self,
                         slots=np.nonzero(run_mask)[0])
+        if self.cp > 1:
+            # chaos: the tick is about to run the cross-rank partial
+            # merge. Fires before table growth and the in-place writes,
+            # so an injected exception leaves the cache, tables,
+            # table_len and the ledger untouched (exception-atomic)
+            fault_point("serving.cp_gather", engine=self,
+                        slots=np.nonzero(run_mask)[0])
         rows, cols, vals = self._grow_tables(run_mask & ~self.is_beam)
         # growth may have preempted slots — recompute the mask after it
         run_mask = self.active & ~spec_handled
@@ -2335,10 +2393,14 @@ class LLMEngine:
             self.stats["grammar_ticks"] += 1
             if lora is not None:
                 self.stats["lora_grammar_ticks"] += 1
+        t_tick = time.perf_counter()
         with self._tick_timer("sample"):
             nxt, logp = self.exe.decode_tick(
                 self.last_tok, run_mask, rows, cols, vals, self.temps,
                 self.top_ps, bool(self.groups), lora=lora, bias=bias)
+        if self.cp > 1:
+            from paddle_tpu_torch.serving.cp import _CP_GATHER_S
+            _CP_GATHER_S.observe(time.perf_counter() - t_tick)
         for g in self.groups.values():        # on the device, lazily
             g.logp = logp[torch.as_tensor(g.slots, device=logp.device)]
         self.cur += run_mask

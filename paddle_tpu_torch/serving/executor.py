@@ -41,6 +41,17 @@ graph. All graphs are captured when the executor is built, so their cost
 is the engine's start-up and a capture that fails raises from the
 constructor: there is no eager fallback for a tick a graph serves. On
 the CPU the same functions run eagerly.
+
+``cp > 1`` (context parallelism): one process a rank of the first ``cp``
+ranks of the world (``torch.distributed`` initialised; the executor's
+``mesh`` is ``HybridMesh(cp=cp)`` over them). Each rank holds ``num_blocks
+/ cp`` blocks of every pool (rank s the global ids [s*per, (s+1)*per),
+its scale pools alike) and the whole model; the block tables, lengths and
+activations are replicated with global ids, and every forward runs with
+``cp_axis="cp"`` inside the mesh (``models/paged.py``: local writes, K3
+and K4 in their partials mode, the merges over cp), so every rank samples
+the same tokens from the same seeded generator. The cp tick runs eagerly
+on the card: no graph is captured (its merges are collectives).
 """
 from __future__ import annotations
 
@@ -49,6 +60,8 @@ import time
 
 import numpy as np
 import torch
+
+import contextlib
 
 from paddle_tpu_torch.core.device import CAPTURE_LOCK
 from paddle_tpu_torch.core.random import generator
@@ -175,23 +188,29 @@ class ModelExecutor:
     the events around its replay. ``adapter_store``: the engine's
     ``AdapterStore`` (multi-LoRA ticks); ``draft_model``: the
     speculative draft, decoding into a dense cache of ``max_seq_len +
-    spec_k + 2`` positions a slot."""
+    spec_k + 2`` positions a slot. ``cp``: the context-parallel degree
+    (module docstring)."""
 
     def __init__(self, model, *, num_slots, num_blocks, block_size,
                  max_blocks_per_seq, top_k=None, seed=0, kv_dtype=None,
                  async_depth=0, adapter_store=None, draft_model=None,
-                 spec_k=4, max_seq_len=None, device):
+                 spec_k=4, max_seq_len=None, device, cp=1):
         cfg = model_config(model)
         self.model = model
         self.top_k = top_k
         self.device = torch.device(device)
         self.gen = generator(seed, self.device)
+        self.cp = int(cp)
+        self.mesh = self._cp_mesh(num_blocks) if self.cp > 1 else None
+        self._cp_axis = "cp" if self.cp > 1 else None
         self.cache = PagedKVCache.init(
-            cfg.num_hidden_layers, num_blocks, block_size,
+            cfg.num_hidden_layers, num_blocks // self.cp, block_size,
             cfg.num_key_value_heads,
             cfg.hidden_size // cfg.num_attention_heads,
             num_slots, max_blocks_per_seq, cfg.dtype, kv_dtype=kv_dtype,
             device=self.device)
+        # the tables hold GLOBAL ids: unused entries the global sentinel
+        self.cache.block_tables.fill_(num_blocks)
         self.num_slots = num_slots
         self.async_depth = int(async_depth)
         self.adapter_store = adapter_store
@@ -211,14 +230,40 @@ class ModelExecutor:
         # synchronous tick (None after an eager one)
         self._tick = self._atick = self._ltick = self._btick = None
         self._last = None
-        self._async = None          # the CPU's async loop state
-        if self.device.type == "cuda":
+        self._async = None          # the eager async loop state
+        # graphs on the card; eager on the CPU and under cp
+        self._graphs = self.device.type == "cuda" and self.cp == 1
+        if self._graphs:
             self._capture_tick()
             self._capture_biased()
             if self.async_depth:
                 self._capture_async()
             if adapter_store is not None:
                 self._capture_lora()
+
+    # ------------------------------------------- context parallelism
+    def _cp_mesh(self, num_blocks):
+        """The cp mesh over the world's first ``cp`` ranks."""
+        from paddle_tpu_torch.distributed.mesh import HybridMesh, world
+        rank, size = world()
+        if size < self.cp:
+            raise ValueError(
+                f"cp={self.cp} needs a process group of {self.cp} ranks "
+                f"(one process a rank, torch.distributed initialised); the "
+                f"world has {size}")
+        if rank >= self.cp:
+            raise ValueError(f"rank {rank} is outside the cp group (ranks "
+                             f"0-{self.cp - 1})")
+        if num_blocks % self.cp:
+            raise ValueError(f"num_blocks={num_blocks} must divide by "
+                             f"cp={self.cp} (equal pools on every rank)")
+        return HybridMesh(cp=self.cp, ranks=range(self.cp),
+                          device=self.device)
+
+    def _scope(self):
+        """The cp mesh entered around a forward (nothing without cp)."""
+        return self.mesh if self.mesh is not None else \
+            contextlib.nullcontext()
 
     # ------------------------------------------------------------ prefill
     def _lora(self, lora):
@@ -233,26 +278,32 @@ class ModelExecutor:
     def prefill(self, ids, lens, slots, rows, lora=None):
         """Slot-aware padded prefill: admitted prompts written into their
         cache slots while other slots keep their decode state."""
-        logits, self.cache = llama_prefill_paged(
-            self.model, torch.as_tensor(ids, device=self.device), lens,
-            self.cache, slots, rows, lora=self._lora(lora))
+        with self._scope():
+            logits, self.cache = llama_prefill_paged(
+                self.model, torch.as_tensor(ids, device=self.device), lens,
+                self.cache, slots, rows, lora=self._lora(lora),
+                cp_axis=self._cp_axis)
         return logits
 
     def prefill_chunk(self, ids, lens, offs, slots, rows, lora=None):
         """One chunk per row, written from an arbitrary offset over the
         slot's pool prefix (chunked prefill / prefix-cache resume)."""
-        logits, self.cache = llama_prefill_chunk_paged(
-            self.model, torch.as_tensor(ids, device=self.device), lens, offs,
-            self.cache, slots, rows, lora=self._lora(lora))
+        with self._scope():
+            logits, self.cache = llama_prefill_chunk_paged(
+                self.model, torch.as_tensor(ids, device=self.device), lens,
+                offs, self.cache, slots, rows, lora=self._lora(lora),
+                cp_axis=self._cp_axis)
         return logits
 
     def verify_chunk(self, ids, clens, offs, slot_ids, rows, lora=None):
         """Target forward over each slot's proposal window (speculative
         verify): the chunk program with every position's logits [A, C,
         V]."""
-        logits, self.cache = llama_verify_chunk_paged(
-            self.model, torch.as_tensor(ids, device=self.device), clens,
-            offs, self.cache, slot_ids, rows, lora=self._lora(lora))
+        with self._scope():
+            logits, self.cache = llama_verify_chunk_paged(
+                self.model, torch.as_tensor(ids, device=self.device), clens,
+                offs, self.cache, slot_ids, rows, lora=self._lora(lora),
+                cp_axis=self._cp_axis)
         return logits
 
     def rewind_lens(self, slots, lens):
@@ -282,11 +333,16 @@ class ModelExecutor:
         [num_slots] tokens as numpy — the one per-tick device-to-host
         fetch —, the [num_slots, V] fp32 log-probs as a device tensor
         when ``need_logp``, for beam groups, else None)."""
-        if self.device.type != "cuda":
-            nxt, logp, self.cache = llama_decode_tick(
-                self.model, last_tok, self.cache, run_mask, rows, cols, vals,
-                self.gen, temps, top_ps, self.top_k, need_logp,
-                lora=self._lora(lora), logit_bias=bias)
+        if not self._graphs:
+            if need_logp and self.cp > 1:
+                raise NotImplementedError(
+                    "beam search (want_logp) under cp > 1 is not supported")
+            with self._scope():
+                nxt, logp, self.cache = llama_decode_tick(
+                    self.model, last_tok, self.cache, run_mask, rows, cols,
+                    vals, self.gen, temps, top_ps, self.top_k, need_logp,
+                    lora=self._lora(lora), logit_bias=bias,
+                    cp_axis=self._cp_axis)
             return nxt.cpu().numpy(), logp
         t0 = time.perf_counter()
         if lora is not None and bias is not None:
@@ -453,7 +509,7 @@ class ModelExecutor:
         """Seed the async loop state from the engine's host mirrors at the
         start of a window: last tokens, tokens generated and their limit
         per slot, the EOS id (-1: none); the stop mask starts clear."""
-        if self.device.type != "cuda":
+        if not self._graphs:
             dev = self.device
             self._async = dict(
                 tokens=torch.as_tensor(np.asarray(tokens, np.int64),
@@ -476,18 +532,20 @@ class ModelExecutor:
         stop mask, counts and tokens advance there. Returns an
         :class:`AsyncTick`; on the card the call returns once the replay
         is queued."""
-        if self.device.type != "cuda":
+        if not self._graphs:
             a, dev = self._async, self.device
-            nxt, ran, a["stop"], a["gen"], self.cache = \
-                llama_decode_tick_async(
-                    self.model, a["tokens"], self.cache,
-                    torch.as_tensor(np.asarray(active, bool), device=dev),
-                    a["stop"], a["gen"], a["max_gen"], self.gen,
-                    torch.as_tensor(np.asarray(temps, np.float32),
-                                    device=dev),
-                    torch.as_tensor(np.asarray(top_ps, np.float32),
-                                    device=dev),
-                    a["eos"], self.top_k)
+            with self._scope():
+                nxt, ran, a["stop"], a["gen"], self.cache = \
+                    llama_decode_tick_async(
+                        self.model, a["tokens"], self.cache,
+                        torch.as_tensor(np.asarray(active, bool),
+                                        device=dev),
+                        a["stop"], a["gen"], a["max_gen"], self.gen,
+                        torch.as_tensor(np.asarray(temps, np.float32),
+                                        device=dev),
+                        torch.as_tensor(np.asarray(top_ps, np.float32),
+                                        device=dev),
+                        a["eos"], self.top_k, cp_axis=self._cp_axis)
             a["tokens"] = nxt
             return AsyncTick((nxt.cpu().numpy(), ran.cpu().numpy()))
         t0 = time.perf_counter()
@@ -542,14 +600,21 @@ class ModelExecutor:
     # ------------------------------------------------------------- misc
     def apply_block_copies(self, pairs):
         """Radix prefix cache COW plan: copy each (src, dst) pool block
-        before this tick's forwards write the pool."""
-        self.cache = prefix_cow_update(self.cache, pairs)
+        before this tick's forwards write the pool (under cp a block's src
+        and dst may live on different ranks)."""
+        with self._scope():
+            self.cache = prefix_cow_update(self.cache, pairs,
+                                           cp_axis=self._cp_axis)
 
     def beam_group_update(self, slots, rows, lens_val, copy_src, copy_dst):
         """Install a beam group's forked table rows and lengths at its
         slots and copy the private partial blocks (``models/paged.py``
         ``_beam_group_update``), writing into the cache's tensors in
         place — the captured ticks read them."""
+        if self.cp > 1:
+            raise NotImplementedError(
+                "beam search under context parallelism (cp > 1) is not "
+                "supported yet")
         self.cache = _beam_group_update(self.cache, slots, rows, lens_val,
                                         copy_src, copy_dst)
 

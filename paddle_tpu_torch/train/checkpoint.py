@@ -25,17 +25,46 @@ rebuilt dict. A ``TrainState`` round-trips exactly: parameters, slots,
 master copies, ``step`` (and with it the LR schedule's position) and the
 generator.
 
+Sharded states (a module :func:`~paddle_tpu_torch.distributed.sharded.
+shard_module` sharded over a ``HybridMesh``, alone or as a TrainState's
+model): the file holds the GLOBAL arrays, as the reference's does — the
+parameters under their reference names (``state_dict()`` gathers them and
+undoes the tp interleave) and the optimizer's slots gathered the same way
+under the same names — so one file serves any mesh and the JAX package.
+Saving is collective: every rank of the mesh takes part in the gathers,
+the mesh's first rank alone writes, and the ranks agree that the write
+succeeded before ``save`` returns (a rank-0 guard AROUND ``save``
+deadlocks the gathers). Restoring slices each global array into the
+rank's piece (:func:`~paddle_tpu_torch.distributed.sharded.local_piece`:
+the tp interleave reapplied, the FSDP chunk, the ep slice) and copies it
+into the LIVE local parameter and slot tensors. Scalars (``step``,
+``lr``) and the generator are replicated.
+
+``CheckpointManager(use_orbax=True)`` is the sharded format, the
+counterpart of the reference's orbax checkpoints (each process writes
+only its shards; restore works across meshes): a directory a step with
+one file a rank (its local pieces, the ``.npz`` format above) and an
+``index.json`` that the first rank writes once every rank's file is
+durable — each sharded leaf's global shape, spec, FSDP dim and tp
+interleave, and the mesh it was saved under. A restore into the same
+mesh reads the rank's own file; into another mesh (or one process) it
+assembles the global arrays from the index and the pieces.
+
 Durability: ATOMIC save (same-directory ``.tmp``, fsync, ``os.replace``,
 directory fsync), VERIFIED load (CRC32 per array; a truncated or damaged
 file raises :class:`CheckpointCorruptError`), and a
 :class:`CheckpointManager` with retention, a ``latest`` pointer that
-advances only after the durable rename, fallback past a corrupt latest
-checkpoint, and ``async_save`` with at most one save in flight.
+advances only after the durable rename (under a mesh: after the ranks
+agreed that every rank's rename succeeded), fallback past a corrupt
+latest checkpoint (under a mesh a collective decision: the ranks take
+the newest step that EVERY rank verified), and ``async_save`` with at
+most one save in flight.
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import threading
 import time
 import zlib
@@ -77,6 +106,9 @@ _RAW = {torch.bfloat16: (torch.int16, "bfloat16"),
         torch.float8_e4m3fn: (torch.uint8, "float8_e4m3fn"),
         torch.float8_e5m2: (torch.uint8, "float8_e5m2")}
 _FROM_RAW = {name: (view, dt) for dt, (view, name) in _RAW.items()}
+# the sharded format's index: its name in a step's directory and version
+_INDEX = "index.json"
+_FORMAT = "paddle_tpu_torch.sharded.v1"
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -111,6 +143,174 @@ def _flatten(tree, prefix=""):
         yield from _flatten(v, _join(prefix, k))
 
 
+# ------------------------------------------------------- sharded states
+class _Piece:
+    """A live local tensor ``t`` of a global array sharded as ``info``
+    (a ``ShardInfo``, None: whole) over ``mesh``: restore slices the
+    stored global array into it."""
+    __slots__ = ("t", "info", "mesh")
+
+    def __init__(self, t, info, mesh):
+        self.t, self.info, self.mesh = t, info, mesh
+
+
+def _sharded_module(state):
+    """The sharded module of ``state`` (itself, or a TrainState's model),
+    or None."""
+    from paddle_tpu_torch.train.step import TrainState
+    m = state.model if isinstance(state, TrainState) else state
+    if isinstance(m, torch.nn.Module) and \
+            getattr(m, "_pt_mesh", None) is not None:
+        return m
+    return None
+
+
+def _mesh_of(state):
+    m = _sharded_module(state)
+    return None if m is None else m._pt_mesh
+
+
+def _rank(mesh) -> int:
+    return 0 if mesh is None else int(mesh.rank)
+
+
+def _is_writer(mesh) -> bool:
+    """The rank that writes a global file: the mesh's first."""
+    return mesh is None or mesh.rank == int(mesh.grid.flat[0])
+
+
+def _side_group(mesh):
+    """A gloo group over the mesh's ranks for the checkpoint's own
+    agreements (None for one rank). Apart from the train step's groups,
+    so the async writer thread can use it while the caller's thread runs
+    the step's collectives. Made by its members on the caller's thread,
+    once."""
+    if mesh is None or mesh.grid.size == 1:
+        return None
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import mesh as M
+    ranks = tuple(sorted(int(r) for r in mesh.grid.ravel()))
+    key = ("ckpt",) + ranks
+    g = M._GROUPS.get(key)
+    if g is None:
+        g = dist.new_group(list(ranks), backend="gloo",
+                           use_local_synchronization=True)
+        M._GROUPS[key] = g
+    return g
+
+
+def _min(group, value: int) -> int:
+    """The least ``value`` over ``group``'s ranks (a barrier too)."""
+    if group is None:
+        return value
+    import torch.distributed as dist
+    t = torch.tensor([int(value)], dtype=torch.int64)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+    return int(t.item())
+
+
+def _slot_dicts(tree, params, fn):
+    """An optimizer state with every slot dict (a dict keyed by the
+    model's ``named_parameters()`` names) re-keyed by the parameters'
+    reference names and each tensor ``t`` of parameter ``p`` replaced by
+    ``fn(t, p)``."""
+    if not isinstance(tree, dict):
+        return tree
+    if tree and all(k in params for k in tree):
+        return {params[k][0]: (fn(v, params[k][1])
+                               if isinstance(v, torch.Tensor) else v)
+                for k, v in tree.items()}
+    return {k: _slot_dicts(v, params, fn) for k, v in tree.items()}
+
+
+def _unslot(new, orig, params):
+    """The restored optimizer state: ``orig``'s slot dicts (their tensors
+    were written in place) and ``new``'s other values."""
+    if not isinstance(orig, dict):
+        return new
+    if orig and all(k in params for k in orig):
+        return orig
+    return {k: _unslot(new[k], orig[k], params) for k in orig}
+
+
+def _module_view(m, fn) -> dict:
+    """{reference name: fn(local parameter)} of a sharded module, plus its
+    persistent buffers — no gather."""
+    from paddle_tpu_torch.distributed.sharded import sharded_params
+    out = {cn: fn(p) for cn, p in sharded_params(m).values()}
+    for mname, sub in m.named_modules():
+        for bname, b in sub._buffers.items():
+            if b is not None and bname not in sub._non_persistent_buffers_set:
+                out[_join(mname, bname)] = b
+    return out
+
+
+def _view(state, param_fn, slot_fn, model=None):
+    """A sharded state as the plain tree the flatten walks: the model's
+    leaves (``model``, else ``param_fn`` of each local parameter) and the
+    slots re-keyed (``slot_fn``); the state itself when it is not
+    sharded."""
+    from paddle_tpu_torch.distributed.sharded import sharded_params
+    from paddle_tpu_torch.train.step import TrainState
+    m = _sharded_module(state)
+    if m is None:
+        return state
+    mv = model if model is not None else _module_view(m, param_fn)
+    if not isinstance(state, TrainState):
+        return mv
+    return {"model": mv,
+            "opt_state": _slot_dicts(state.opt_state, sharded_params(m),
+                                     slot_fn),
+            "rng": state.rng}
+
+
+def _global_view(state):
+    """The global arrays of a sharded state (a collective over the shard
+    axes: every rank of the mesh calls it, in the same order)."""
+    from paddle_tpu_torch.distributed.sharded import _global
+    m = _sharded_module(state)
+    if m is None:
+        return state
+    mesh = m._pt_mesh
+    return _view(state, None,
+                 lambda t, p: _global(t, getattr(p, "_pt_shard", None),
+                                      mesh),
+                 model=m.state_dict())
+
+
+def _local_view(state):
+    """A sharded state's local pieces under the reference names."""
+    return _view(state, lambda p: p, lambda t, p: t)
+
+
+def _piece_view(state):
+    """A sharded state's live tensors as :class:`_Piece` targets."""
+    m = _sharded_module(state)
+    if m is None:
+        return state
+    mesh = m._pt_mesh
+
+    def piece(t, p):
+        return _Piece(t, getattr(p, "_pt_shard", None), mesh)
+    return _view(state, lambda p: piece(p, p), piece)
+
+
+def _rebuilt(target, new_view):
+    """The restore's result for ``target`` from the restored view."""
+    from paddle_tpu_torch.distributed.sharded import sharded_params
+    from paddle_tpu_torch.train.step import TrainState
+    m = _sharded_module(target)
+    if m is None:
+        return new_view
+    if not isinstance(target, TrainState):
+        return target
+    return TrainState(target.model,
+                      _unslot(new_view["opt_state"], target.opt_state,
+                              sharded_params(m)),
+                      new_view["rng"])
+
+
+# -------------------------------------------------------------- saving
 def _to_host(leaf, copy: bool) -> tuple:
     """(numpy array, dtype name) of an array leaf; ``copy`` forces a
     fresh host buffer (the async snapshot)."""
@@ -204,15 +404,50 @@ def _write(arrays, meta, path: Path) -> int:
     return nbytes
 
 
+def _write_text(path: Path, text: str):
+    """``text`` into ``path`` through an fsync'd same-directory tmp file
+    and ``os.replace``."""
+    tmp = path.with_name(path.name + ".tmp")
+    with open(tmp, "w") as f:
+        f.write(text)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    _fsync_dir(path.parent)
+
+
+def _agreed(group, ok: bool, err, what: str):
+    """Raise on every rank unless every rank of ``group`` succeeded (this
+    rank its own error, the others a named one)."""
+    if _min(group, int(ok)):
+        return
+    if err is not None:
+        raise err
+    raise RuntimeError(f"{what} failed on another rank")
+
+
 def save(state: Any, path) -> int:
     """``paddle.save``: any state (a module, a ``TrainState``, dicts of
     tensors) -> one file, crash-safe (the bytes reach ``path`` only
     through an fsync'd ``os.replace`` of ``<name>.tmp``). Returns the
-    file's size in bytes."""
-    arrays, meta = _snapshot(state, copy=False)
-    return _write(arrays, meta, _npz_path(path))
+    file's size in bytes (0 on a rank that does not write). A sharded
+    state is saved collectively (see the module docstring)."""
+    mesh = _mesh_of(state)
+    view = _global_view(state)            # every rank: the gathers
+    ok, err, n = True, None, 0
+    if _is_writer(mesh):
+        try:
+            arrays, meta = _snapshot(view, copy=False)
+            n = _write(arrays, meta, _npz_path(path))
+        except BaseException as e:
+            if mesh is None:
+                raise
+            ok, err = False, e
+    _agreed(_side_group(mesh), ok, err, "checkpoint save")
+    return n
 
 
+# ------------------------------------------------------------- loading
 def _decode(arr: np.ndarray, dtype: str) -> torch.Tensor:
     """A CPU tensor of a stored array (raw-bit dtypes viewed back)."""
     if arr.dtype.kind == "V":
@@ -225,12 +460,20 @@ def _decode(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr))
 
 
+def _as_tensor(val, dt) -> torch.Tensor:
+    if isinstance(val, torch.Tensor):
+        return val
+    return _decode(np.asarray(val), dt)
+
+
 def load(path, target: Any = None, verify: bool = True) -> Any:
     """``paddle.load``. Without ``target``: {path: value} (arrays as numpy,
     raw-bit dtypes as CPU tensors). With it: restores into the target in
-    place and returns it (see the module docstring). ``verify`` checks
-    each array's CRC32 and raises :class:`CheckpointCorruptError` on a
-    mismatch or an unreadable file."""
+    place and returns it (see the module docstring; a sharded target
+    takes its pieces of the file's global arrays, no communication).
+    ``verify`` checks each array's CRC32 and raises
+    :class:`CheckpointCorruptError` on a mismatch or an unreadable
+    file."""
     with _span("ckpt.restore", path=str(path)):
         return _load_impl(path, target, verify)
 
@@ -268,6 +511,23 @@ def _read(p: str, verify: bool):
     return by_path
 
 
+def _prepare(by_path, target, view=None):
+    """(the restored state, the in-place writes) of ``target`` from
+    ``by_path``; every leaf is found and checked before the first write,
+    so a failed restore leaves the target as it was. ``view``: the tree
+    whose leaves the values land in (default: ``target``'s pieces)."""
+    writes = []
+    view = _piece_view(target) if view is None else view
+    out = _restore(view, by_path, "", writes)
+    return _rebuilt(target, out), writes
+
+
+def _commit(writes):
+    with torch.no_grad():
+        for w in writes:
+            w()
+
+
 def _load_impl(path, target, verify: bool) -> Any:
     p = str(_npz_path(path))
     t0 = time.monotonic()
@@ -277,13 +537,8 @@ def _load_impl(path, target, verify: bool) -> Any:
                    and v.dtype.kind == "V" else v)
                for k, (v, dt) in by_path.items()}
     else:
-        # every leaf is found and checked before the first write, so a
-        # failed restore leaves the target as it was
-        writes = []
-        out = _restore(target, by_path, "", writes)
-        with torch.no_grad():
-            for w in writes:
-                w()
+        out, writes = _prepare(by_path, target)
+        _commit(writes)
     _CKPT_RESTORES.inc()
     _CKPT_RESTORE_S.observe(time.monotonic() - t0)
     return out
@@ -295,18 +550,16 @@ def _value(by_path, ps):
     return by_path[ps]
 
 
-def _decoded_like(leaf, val, dt, ps):
+def _decoded_like(shape, floating, val, dt, ps):
     """The stored value of a tensor / array leaf as a tensor, after checking
-    its shape and its kind (floating or not) against the target leaf."""
-    t = _decode(np.asarray(val), dt)
-    if tuple(t.shape) != tuple(leaf.shape):
-        raise ValueError(f"{ps}: shape {tuple(t.shape)} != "
-                         f"{tuple(leaf.shape)}")
-    floating = (leaf.is_floating_point() if isinstance(leaf, torch.Tensor)
-                else np.issubdtype(leaf.dtype, np.floating))
+    its shape and its kind (floating or not) against the target's."""
+    t = _as_tensor(val, dt)
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{ps}: shape {tuple(t.shape)} != {tuple(shape)}")
     if t.is_floating_point() != floating:
         raise ValueError(f"{ps}: stored {t.dtype} cannot restore a "
-                         f"{leaf.dtype} leaf")
+                         f"{'floating' if floating else 'non-floating'} "
+                         f"leaf")
     return t
 
 
@@ -317,18 +570,29 @@ def _restore_leaf(leaf, val, dt, ps, writes):
         st = torch.from_numpy(np.array(val, dtype=np.uint8))
         writes.append(lambda: leaf.set_state(st))
         return leaf
+    if isinstance(leaf, _Piece):
+        from paddle_tpu_torch.distributed.sharded import (global_shape,
+                                                          local_piece)
+        dst = leaf.t
+        t = _decoded_like(global_shape(dst.shape, leaf.info, leaf.mesh),
+                          dst.is_floating_point(), val, dt, ps)
+        t = local_piece(t, leaf.info, leaf.mesh)
+        writes.append(lambda: dst.copy_(t.to(dtype=dst.dtype)))
+        return dst
     if isinstance(leaf, torch.Tensor):
-        t = _decoded_like(leaf, val, dt, ps)
+        t = _decoded_like(leaf.shape, leaf.is_floating_point(), val, dt, ps)
         writes.append(lambda: leaf.copy_(t.to(dtype=leaf.dtype)))
         return leaf
     if isinstance(leaf, np.ndarray):
-        return _decoded_like(leaf, val, dt, ps).numpy().astype(leaf.dtype)
+        t = _decoded_like(leaf.shape, np.issubdtype(leaf.dtype, np.floating),
+                          val, dt, ps)
+        return t.numpy().astype(leaf.dtype)
     return val if val is not None else leaf
 
 
 def _restore(target, by_path, prefix, writes):
     from paddle_tpu_torch.train.step import TrainState
-    kids = _children(target)
+    kids = None if isinstance(target, _Piece) else _children(target)
     if kids is None:
         val, dt = _value(by_path, prefix)
         return _restore_leaf(target, val, dt, prefix, writes)
@@ -342,6 +606,101 @@ def _restore(target, by_path, prefix, writes):
     return type(target)(new[i] for i in range(len(target)))
 
 
+# ------------------------------------------------ the sharded format
+def _index(state, mesh, step) -> dict:
+    """The sharded format's index: each sharded leaf's global shape, spec,
+    FSDP dim and tp interleave, and the mesh's grid of ranks."""
+    from paddle_tpu_torch.distributed.mesh import GRID_AXES
+    from paddle_tpu_torch.distributed.sharded import global_shape
+    leaves = {}
+    for p, leaf in _flatten(_piece_view(state)):
+        if isinstance(leaf, _Piece) and leaf.info is not None:
+            i = leaf.info
+            leaves[p] = {"shape": list(global_shape(leaf.t.shape, i, mesh)),
+                         "spec": list(i.spec), "fsdp_dim": i.fsdp_dim,
+                         "perm": (None if i.perm is None
+                                  else i.perm.cpu().tolist())}
+    grid = (np.zeros((1,) * len(GRID_AXES), np.int64) if mesh is None
+            else mesh.grid)
+    return {"format": _FORMAT, "step": int(step), "axes": list(GRID_AXES),
+            "grid": grid.tolist(), "leaves": leaves}
+
+
+def _rank_file(d: Path, rank: int) -> Path:
+    return d / f"rank_{rank:05d}.npz"
+
+
+def _read_index(d: Path) -> dict:
+    p = d / _INDEX
+    try:
+        index = json.loads(p.read_text())
+    except FileNotFoundError:
+        raise
+    except Exception as e:
+        _CKPT_UNREADABLE.inc()
+        raise CheckpointCorruptError(f"{p}: unreadable index "
+                                     f"({type(e).__name__}: {e})") from e
+    if index.get("format") != _FORMAT:
+        raise CheckpointCorruptError(f"{p}: not a {_FORMAT} index")
+    return index
+
+
+def _same_mesh(index, mesh) -> bool:
+    """Whether ``mesh`` is the mesh the index was saved under (the same
+    grid of ranks), so each rank's own file holds its pieces."""
+    grid = np.asarray(index["grid"])
+    if mesh is None:
+        return grid.size == 1
+    return grid.shape == mesh.grid.shape and np.array_equal(grid, mesh.grid)
+
+
+def _assemble(d: Path, index: dict, verify: bool) -> dict:
+    """The global arrays of a sharded-format step: each sharded leaf's
+    pieces read from the ranks that hold them (at index 0 of every other
+    axis), concatenated along their dims and the tp interleave undone;
+    the other leaves from the first rank's file."""
+    axes = index["axes"]
+    grid = np.asarray(index["grid"])
+    files: dict = {}
+
+    def read(rank):
+        if rank not in files:
+            files[rank] = _read(str(_rank_file(d, rank)), verify)
+        return files[rank]
+
+    out = dict(read(int(grid.flat[0])))
+    for path, li in index["leaves"].items():
+        sizes = dict(zip(axes, grid.shape))
+        spec = li["spec"]
+        dims = [(ax, dim) for dim, ax in enumerate(spec)
+                if ax in ("tp", "ep") and sizes[ax] > 1]
+        if li["fsdp_dim"] is not None:
+            dims.append(("fsdp", li["fsdp_dim"]))
+
+        def get(coords, path=path):
+            rank = int(grid[tuple(coords.get(a, 0) for a in axes)])
+            val, dt = read(rank)[path]
+            return _as_tensor(val, dt)
+
+        def cat(coords, rest):
+            if not rest:
+                return get(coords)
+            (ax, dim), tail = rest[0], rest[1:]
+            return torch.cat([cat({**coords, ax: i}, tail)
+                              for i in range(sizes[ax])], dim)
+
+        x = cat({}, dims)
+        if li["perm"] is not None and "tp" in spec and sizes["tp"] > 1:
+            x = x.index_select(spec.index("tp"),
+                               torch.argsort(torch.as_tensor(li["perm"])))
+        if list(x.shape) != li["shape"]:
+            raise CheckpointCorruptError(
+                f"{d}: leaf {path} assembles to {list(x.shape)}, the index "
+                f"says {li['shape']}")
+        out[path] = (x, None)
+    return out
+
+
 class CheckpointManager:
     """Step-numbered checkpoints with retention (ref Fleet auto ckpt).
 
@@ -352,23 +711,24 @@ class CheckpointManager:
 
     ``async_save=True``: ``save`` copies every tensor to fresh host
     buffers ON THE CALLER'S THREAD (so a later in-place update can never
-    race the copy), then hands the tmp+fsync+``os.replace`` protocol to
-    one background writer thread and returns. At most one save is in
-    flight (a second ``save`` first waits out the previous one);
-    ``wait()`` joins the writer and re-raises anything it threw. "save
-    returned" means "snapshot taken", not "durable"."""
+    race the copy; under a mesh the gathers run there too), then hands
+    the tmp+fsync+``os.replace`` protocol to one background writer thread
+    and returns. At most one save is in flight (a second ``save`` first
+    waits out the previous one); ``wait()`` joins the writer and re-raises
+    anything it threw. "save returned" means "snapshot taken", not
+    "durable".
+
+    ``use_orbax=True``: the sharded format (module docstring), one file a
+    rank plus the index. Under a mesh every method is collective over the
+    mesh's ranks (``save``, ``restore``; the writer threads agree through
+    a gloo group of their own), and the ranks must see one directory."""
 
     def __init__(self, directory, max_to_keep: int = 3,
                  use_orbax: bool = False, async_save: bool = False):
-        if use_orbax:
-            raise NotImplementedError(
-                "use_orbax=True: orbax writes JAX's sharded checkpoints; "
-                "sharded checkpoints of the port come with the distributed "
-                "slice (ROADMAP.md queue 1 item 7)")
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
-        self.use_orbax = False
+        self.use_orbax = bool(use_orbax)
         self.async_save = async_save
         self.last_restored_step: Optional[int] = None
         self._writer: Optional[threading.Thread] = None
@@ -377,35 +737,41 @@ class CheckpointManager:
     def _step_path(self, step: int) -> Path:
         return self.dir / f"ckpt_{step:08d}.npz"
 
+    def _shard_dir(self, step: int) -> Path:
+        return self.dir / f"ckpt_{step:08d}"
+
     def _write_latest(self, step: int):
-        tmp = self.dir / "latest.tmp"
-        with open(tmp, "w") as f:
-            f.write(str(step))
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, self.dir / "latest")
-        _fsync_dir(self.dir)
+        _write_text(self.dir / "latest", str(step))
 
     def save(self, step: int, state) -> None:
+        mesh = _mesh_of(state)
         if self.async_save:
-            return self._save_async(step, state)
-        save(state, self._step_path(step))
-        # pointer AFTER the durable rename: a kill anywhere before this
-        # line leaves ``latest`` on the previous good checkpoint
-        self._write_latest(step)
-        self._gc()
-        FLIGHT.record("ckpt.save", step=step)
+            self.wait()          # one save in flight, ever
+        group = _side_group(mesh)
+        copy = self.async_save
+        if self.use_orbax:
+            arrays, meta = _snapshot(
+                _local_view(state) if mesh is not None else state, copy)
+            index = _index(state, mesh, step) if _is_writer(mesh) else None
 
-    def _save_async(self, step: int, state) -> None:
-        self.wait()          # one save in flight, ever
-        arrays, meta = _snapshot(state, copy=True)
+            def job():
+                self._commit_sharded(step, arrays, meta, index, mesh, group)
+        else:
+            view = _global_view(state)        # every rank: the gathers
+            arrays, meta = (_snapshot(view, copy) if _is_writer(mesh)
+                            else (None, None))
+
+            def job():
+                self._commit_global(step, arrays, meta, mesh, group)
+        if not self.async_save:
+            job()
+            FLIGHT.record("ckpt.save", step=step)
+            return
         _CKPT_ASYNC_INFLIGHT.set(1)
 
         def _write_bg():
             try:
-                _write(arrays, meta, self._step_path(step))
-                self._write_latest(step)
-                self._gc()
+                job()
                 FLIGHT.record("ckpt.save", step=step, mode="async")
             except BaseException as e:   # surfaced by wait()/next save()
                 self._writer_exc = e
@@ -415,6 +781,43 @@ class CheckpointManager:
         self._writer = threading.Thread(target=_write_bg,
                                         name="pt-ckpt-writer", daemon=True)
         self._writer.start()
+
+    def _commit_global(self, step, arrays, meta, mesh, group):
+        """The writer writes the global file; once the ranks agreed that
+        it is durable the writer moves ``latest`` (a kill anywhere before
+        leaves it on the previous good checkpoint) and trims."""
+        ok, err = True, None
+        if _is_writer(mesh):
+            try:
+                _write(arrays, meta, self._step_path(step))
+            except BaseException as e:
+                if group is None:
+                    raise
+                ok, err = False, e
+        _agreed(group, ok, err, "checkpoint write")
+        if _is_writer(mesh):
+            self._write_latest(step)
+            self._gc()
+        _min(group, 1)              # latest moved before any rank returns
+
+    def _commit_sharded(self, step, arrays, meta, index, mesh, group):
+        """Every rank writes its file; once every rank's rename succeeded
+        the first rank writes the index (which makes the step complete),
+        then ``latest``, then trims."""
+        d = self._shard_dir(step)
+        ok, err = True, None
+        try:
+            _write(arrays, meta, _rank_file(d, _rank(mesh)))
+        except BaseException as e:
+            if group is None:
+                raise
+            ok, err = False, e
+        _agreed(group, ok, err, "checkpoint write")
+        if _is_writer(mesh):
+            _write_text(d / _INDEX, json.dumps(index))
+            self._write_latest(step)
+            self._gc()
+        _min(group, 1)
 
     def wait(self, timeout: Optional[float] = None) -> None:
         """Block until the in-flight background save (if any) is durable;
@@ -431,41 +834,81 @@ class CheckpointManager:
             raise exc
 
     def all_steps(self) -> list:
+        if self.use_orbax:
+            return sorted(int(p.name.split("_")[1])
+                          for p in self.dir.glob("ckpt_*")
+                          if p.is_dir() and (p / _INDEX).exists())
         return sorted(int(p.stem.split("_")[1])
                       for p in self.dir.glob("ckpt_*.npz"))
+
+    def _exists(self, step: int) -> bool:
+        if self.use_orbax:
+            return (self._shard_dir(step) / _INDEX).exists()
+        return self._step_path(step).exists()
 
     def latest_step(self) -> Optional[int]:
         ptr = self.dir / "latest"
         if ptr.exists():
             try:
                 step = int(ptr.read_text().strip())
-                if self._step_path(step).exists():
+                if self._exists(step):
                     return step
             except (ValueError, OSError):
                 pass           # damaged pointer: fall back to the glob
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def _prepare_step(self, step: int, target):
+        """(restored state, writes) of one step into ``target``, every file
+        read and verified; nothing written yet."""
+        mesh = _mesh_of(target)
+        if not self.use_orbax:
+            return _prepare(_read(str(self._step_path(step)), True), target)
+        d = self._shard_dir(step)
+        index = _read_index(d)
+        if _same_mesh(index, mesh):
+            rank = (_rank(mesh) if mesh is not None
+                    else int(np.asarray(index["grid"]).flat[0]))
+            by_path = _read(str(_rank_file(d, rank)), True)
+            view = _local_view(target) if mesh is not None else target
+            return _prepare(by_path, target, view)
+        return _prepare(_assemble(d, index, True), target)
+
     def restore(self, state_like, step: Optional[int] = None,
                 fallback: bool = True):
         """Restore into ``state_like`` (in place; see :func:`load`) and
-        return it, or None when the directory holds no checkpoint."""
+        return it, or None when the directory holds no checkpoint. Under a
+        mesh the ranks agree on the step: the newest that every rank
+        verified."""
+        self.wait()          # the writer's agreements share the group
+        mesh = _mesh_of(state_like)
+        group = _side_group(mesh)
         if step is not None:
-            out = load(self._step_path(step), target=state_like)
-            self.last_restored_step = step
-            return out
-        start = self.latest_step()
-        if start is None:
-            return None
-        if not fallback:
-            out = load(self._step_path(start), target=state_like)
-            self.last_restored_step = start
-            return out
-        candidates = [s for s in reversed(self.all_steps()) if s <= start]
+            candidates, strict = [step], True
+        else:
+            start = _min(group, -1 if (s := self.latest_step()) is None
+                         else s)
+            if start < 0:
+                return None
+            strict = not fallback
+            candidates = ([start] if strict else
+                          [s for s in reversed(self.all_steps())
+                           if s <= start])
         errors = []
         for s in candidates:
+            t0 = time.monotonic()
+            ok, err = True, None
             try:
-                out = load(self._step_path(s), target=state_like)
+                with _span("ckpt.restore", step=s):
+                    out, writes = self._prepare_step(s, state_like)
+            except (CheckpointCorruptError, OSError, KeyError,
+                    ValueError) as e:
+                ok, err = False, e
+                errors.append(f"step {s}: {type(e).__name__}: {e}")
+            if _min(group, int(ok)):
+                _commit(writes)
+                _CKPT_RESTORES.inc()
+                _CKPT_RESTORE_S.observe(time.monotonic() - t0)
                 self.last_restored_step = s
                 if errors:
                     import warnings
@@ -473,9 +916,12 @@ class CheckpointManager:
                         f"CheckpointManager: fell back to step {s} — newer "
                         f"checkpoint(s) failed verification: {errors}")
                 return out
-            except (CheckpointCorruptError, OSError, KeyError,
-                    ValueError) as e:
-                errors.append(f"step {s}: {type(e).__name__}: {e}")
+            if strict:
+                raise err if err is not None else CheckpointCorruptError(
+                    f"step {s} of {self.dir} failed verification on "
+                    f"another rank")
+            if err is None:
+                errors.append(f"step {s}: failed on another rank")
         raise CheckpointCorruptError(
             f"no loadable checkpoint in {self.dir} (tried "
             f"{candidates}); failures: {errors}")
@@ -483,14 +929,19 @@ class CheckpointManager:
     def _gc(self):
         """Keep the newest ``max_to_keep`` — never the one ``latest``
         points at, which is always the newest."""
+        if self.use_orbax:
+            for s in self.all_steps()[:-self.max_to_keep or None]:
+                shutil.rmtree(self._shard_dir(s), ignore_errors=True)
+            return
         ckpts = sorted(self.dir.glob("ckpt_*.npz"))
         while len(ckpts) > self.max_to_keep:
             ckpts.pop(0).unlink()
 
 
 def save_state_dict(module, path):
-    """The module's ``state_dict()`` alone."""
-    save(dict(module.state_dict()), path)
+    """The module's ``state_dict()`` alone (the global arrays of a sharded
+    module, written by its mesh's first rank)."""
+    save(module, path)
 
 
 def load_state_dict(module, path):

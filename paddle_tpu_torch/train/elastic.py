@@ -6,6 +6,12 @@ Elasticity here means: checkpoint continuously, detect failure (an
 exception, a stall, a NaN storm), restore the LATEST checkpoint into a
 FRESH trainer and continue — bounded restarts with backoff. Host logic
 over the eager step, on the port's :class:`StallWatchdog` and FLIGHT.
+
+Under a mesh every rank runs the runner with the same ``make_trainer``;
+the checkpoint's saves and restores are collective, and a save that
+fails on its writing rank fails on every rank, so the ranks restart
+together. A failure that only one rank sees leaves the others waiting in
+the step's next collective.
 """
 from __future__ import annotations
 

@@ -53,8 +53,8 @@ def _refuse_sequence_axes(mesh):
     if mesh.size("cp") > 1:
         raise NotImplementedError(
             "a train step over a cp mesh axis: cp is the serving axis of "
-            "context parallelism (ROADMAP.md item 5(k)); split a train "
-            "step's sequence over sp")
+            "context parallelism (LLMEngine(cp=N)); split a train step's "
+            "sequence over sp")
 
 
 def _shard_batch(mesh, x):

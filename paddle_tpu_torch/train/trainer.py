@@ -178,6 +178,8 @@ class Trainer:
         return raw
 
     def resume(self):
+        """Restore the newest checkpoint of ``args.ckpt_dir`` that loads
+        (under a mesh: that every rank verified; every rank calls it)."""
         mgr = CheckpointManager(self.args.ckpt_dir)
         restored = mgr.restore(self.state)
         if restored is not None:

@@ -970,5 +970,494 @@ def moe_cases(inputs, out):
         _ep_serving_case(inputs, out, rank)
 
 
+# ------------------------------------------------------------ checkpoints
+# (ranks, mesh shape) of the checkpoint cases: two 2-rank meshes run side
+# by side on ranks 0-1 and 2-3, the 4-rank one after them
+CKPT_MESHES = {"fsdp2": ((0, 1), dict(fsdp=2)), "tp2": ((2, 3), dict(tp=2)),
+               "dp2_fsdp2": ((0, 1, 2, 3), dict(dp=2, fsdp=2))}
+# the resumed Trainer runs: mesh, then TrainerArgs of the interrupted run
+CKPT_RESUME = {"fsdp2": ("fsdp2", {}), "tp2": ("tp2", {}),
+               "dp2_fsdp2_async_pipelined": (
+                   "dp2_fsdp2", dict(async_ckpt=True, pipeline_depth=1))}
+CKPT_ELASTIC = {"kill_during_save": ("ckpt.rename", 1, 8),
+                "step_exception": ("train.step", 4, 6)}
+
+
+def _mesh_on(ranks, **shape):
+    from paddle_tpu_torch.distributed import HybridMesh
+    return HybridMesh(**shape, ranks=list(ranks), device="cpu")
+
+
+def _sharded_llama(inputs, mesh, prefix="w:"):
+    from paddle_tpu_torch import distributed as D
+    return D.shard_module(_llama(inputs, prefix), mesh, min_size=1)
+
+
+def _global_state(state):
+    """{"p:<name>": global parameter, "s:<slot>:<name>": global slot} of a
+    TrainState (a collective over the shard axes of a sharded one)."""
+    from paddle_tpu_torch.distributed.sharded import _global, canonical_name
+    m = state.model
+    mesh = getattr(m, "_pt_mesh", None)
+    out = {f"p:{k}": _np(v) for k, v in m.state_dict().items()}
+    params = dict(m.named_parameters())
+    for slot, d in state.opt_state.items():
+        if not isinstance(d, dict):
+            continue
+        for n, t in d.items():
+            if t is not None:
+                g = (t if mesh is None else
+                     _global(t, getattr(params[n], "_pt_shard", None), mesh))
+                out[f"s:{slot}:{canonical_name(n)}"] = _np(g)
+    return out
+
+
+def _local_state(state):
+    """This rank's live tensors of a TrainState (clones), its step and its
+    generator's state."""
+    out = {f"p:{n}": p.detach().clone()
+           for n, p in state.model.named_parameters()}
+    for slot, d in state.opt_state.items():
+        if isinstance(d, dict):
+            out.update({f"s:{slot}:{n}": t.clone() for n, t in d.items()
+                        if t is not None})
+    out["step"] = torch.tensor(int(state.step))
+    out["rng"] = state.rng.get_state().clone()
+    return out
+
+
+def _equal_states(a, b):
+    return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _ckpt_trainer(inputs, mesh, prefix, d, steps, **args):
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.train import Trainer, TrainerArgs
+    return Trainer(_sharded_llama(inputs, mesh, prefix),
+                   O.AdamW(learning_rate=1e-2), _lm_loss,
+                   TrainerArgs(max_steps=steps, log_every=1, ckpt_dir=d,
+                               **args), mesh=mesh, device="cpu")
+
+
+def _resume_case(inputs, out, rank, name, mesh_name, args):
+    """Trainer over a mesh: 3 steps straight, and 2 steps with a checkpoint
+    at step 2 resumed by a fresh Trainer (a model of other weights, a new
+    optimizer) for the third; the losses and the global parameters and
+    AdamW slots of both."""
+    ranks, shape = CKPT_MESHES[mesh_name]
+    mesh = _mesh_on(ranks, **shape)
+    root = os.path.join(str(inputs["ckpt:dir"]), f"resume_{name}")
+    data = [(_t(inputs["ids"]), _t(inputs["labels"]))] * 3
+    full = _ckpt_trainer(inputs, mesh, "w:", root + "_full", 3)
+    full.fit(iter(data))
+    part = _ckpt_trainer(inputs, mesh, "w:", root, 2, ckpt_every=2, **args)
+    part.fit(iter(data))
+    fresh = _ckpt_trainer(inputs, mesh, "w2:", root, 3, resume_reskip=True,
+                          **args).resume()
+    step_after = int(fresh.state.step)
+    fresh.fit(iter(data))
+    g_full, g_res = _global_state(full.state), _global_state(fresh.state)
+    if rank == ranks[0]:
+        key = f"resume:{name}"
+        out[f"{key}:full_losses"] = np.asarray(
+            [h["loss"] for h in full.history])
+        out[f"{key}:resumed_losses"] = np.asarray(
+            [h["loss"] for h in part.history + fresh.history])
+        out[f"{key}:step"] = np.asarray(step_after)
+        for k, v in g_full.items():
+            out[f"{key}:full:{k}"] = v
+        for k, v in g_res.items():
+            out[f"{key}:resumed:{k}"] = v
+
+
+def _roundtrip_case(inputs, out, rank, name):
+    """Both formats, sync and async: a sharded TrainState after one AdamW
+    step saved, restored into a fresh one (other weights, zero slots,
+    another generator state); every live local tensor, the step and the
+    generator equal, and the next step's loss the same bits."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.train import init_state, make_train_step
+    from paddle_tpu_torch.train.checkpoint import CheckpointManager
+    ranks, shape = CKPT_MESHES[name]
+    mesh = _mesh_on(ranks, **shape)
+    ids, labels = _t(inputs["ids"]), _t(inputs["labels"])
+    opt = O.AdamW(learning_rate=1e-2)
+    step = make_train_step(_lm_loss, opt, mesh=mesh)
+    for fmt in ("global", "sharded"):
+        for mode in ("sync", "async"):
+            key = f"rt:{name}:{fmt}:{mode}"
+            state = init_state(_sharded_llama(inputs, mesh), opt, mesh)
+            state, _ = step(state, ids, labels)
+            mgr = CheckpointManager(
+                os.path.join(str(inputs["ckpt:dir"]), key.replace(":", "_")),
+                use_orbax=fmt == "sharded", async_save=mode == "async")
+            mgr.save(1, state)
+            want = _local_state(state)
+            mgr.wait()
+            _, lo_a = step(state, ids, labels)
+            fresh = init_state(_sharded_llama(inputs, mesh, "w2:"), opt, mesh)
+            fresh.rng.manual_seed(12345)
+            fresh = mgr.restore(fresh)
+            got = _local_state(fresh)
+            _, lo_b = step(fresh, ids, labels)
+            out[f"{key}:eq"] = np.asarray(int(_equal_states(want, got)))
+            out[f"{key}:next"] = np.asarray([float(lo_a), float(lo_b)])
+
+
+def _cross_mesh_case(inputs, out, rank):
+    """fsdp2 (ranks 0-1) saved in both formats, restored into tp2 on the
+    same ranks and into one process on rank 0: the global parameters and
+    slots equal what was saved."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.train import init_state, make_train_step
+    from paddle_tpu_torch.train.checkpoint import CheckpointManager
+    src = _mesh_on((0, 1), fsdp=2)
+    opt = O.AdamW(learning_rate=1e-2)
+    state = init_state(_sharded_llama(inputs, src), opt, src)
+    state, _ = make_train_step(_lm_loss, opt, mesh=src)(
+        state, _t(inputs["ids"]), _t(inputs["labels"]))
+    mgrs = {fmt: CheckpointManager(
+        os.path.join(str(inputs["ckpt:dir"]), f"cross_{fmt}"),
+        use_orbax=fmt == "sharded") for fmt in ("global", "sharded")}
+    for mgr in mgrs.values():
+        mgr.save(1, state)
+    want = _global_state(state)
+    dst = _mesh_on((0, 1), tp=2)
+    for fmt, mgr in mgrs.items():
+        fresh = mgr.restore(init_state(_sharded_llama(inputs, dst, "w2:"),
+                                       opt, dst))
+        got = _global_state(fresh)
+        if rank == 0:
+            out[f"x:tp2:{fmt}:eq"] = np.asarray(int(
+                set(got) == set(want) and all(np.array_equal(got[k], want[k])
+                                              for k in want)))
+            out[f"x:tp2:{fmt}:step"] = np.asarray(int(fresh.step))
+    if rank == 0:
+        for fmt, mgr in mgrs.items():
+            fresh = mgr.restore(init_state(_llama(inputs, "w2:"), opt))
+            got = _global_state(fresh)
+            out[f"x:one:{fmt}:eq"] = np.asarray(int(
+                set(got) == set(want) and all(np.array_equal(got[k], want[k])
+                                              for k in want)))
+            out[f"x:one:{fmt}:step"] = np.asarray(int(fresh.step))
+
+
+def _jax_exchange_case(inputs, out, rank, name):
+    """The JAX package's files (f32, bf16) loaded into a sharded model of
+    the port (its global state_dict written back), and the port's global
+    file of a sharded model for the parent to load in the JAX package."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.train.checkpoint import load, save
+    from paddle_tpu_torch import distributed as D
+    ranks, shape = CKPT_MESHES[name]
+    mesh = _mesh_on(ranks, **shape)
+    for dt, torch_dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        m = D.shard_module(LlamaForCausalLM(LlamaConfig.tiny(dtype=torch_dt),
+                                            device="cpu", seed=7),
+                           mesh, min_size=1)
+        load(str(inputs[f"ckpt:jax_{dt}"]), target=m)
+        sd = m.state_dict()
+        if rank == ranks[0]:
+            for k, v in sd.items():
+                out[f"jx:{name}:{dt}:{k}"] = (
+                    v.view(torch.int16).numpy() if dt == "bf16" else _np(v))
+    n = save(_sharded_llama(inputs, mesh), os.path.join(
+        str(inputs["ckpt:dir"]), f"port_{name}.npz"))
+    out[f"jx:{name}:written"] = np.asarray(n)
+
+
+def _corrupt_shard_case(inputs, out, rank):
+    """The sharded format over fsdp2 (ranks 0-1): steps 1 and 2 saved,
+    rank 1's file of step 2 damaged; both ranks fall back to step 1 (rank
+    0's own file of step 2 verifies: the decision is collective)."""
+    import warnings
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.train import init_state, make_train_step
+    from paddle_tpu_torch.train.checkpoint import CheckpointManager
+    mesh = _mesh_on((0, 1), fsdp=2)
+    ids, labels = _t(inputs["ids"]), _t(inputs["labels"])
+    opt = O.AdamW(learning_rate=1e-2)
+    step = make_train_step(_lm_loss, opt, mesh=mesh)
+    d = os.path.join(str(inputs["ckpt:dir"]), "corrupt")
+    mgr = CheckpointManager(d, max_to_keep=5, use_orbax=True)
+    state = init_state(_sharded_llama(inputs, mesh), opt, mesh)
+    state, _ = step(state, ids, labels)
+    mgr.save(1, state)
+    want = _local_state(state)
+    state, _ = step(state, ids, labels)
+    mgr.save(2, state)
+    if rank == 1:
+        f = os.path.join(d, "ckpt_00000002", "rank_00001.npz")
+        with open(f, "r+b") as fh:
+            fh.truncate(64)
+    dist.barrier(group=mesh.group("fsdp"))
+    fresh = init_state(_sharded_llama(inputs, mesh, "w2:"), opt, mesh)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fresh = mgr.restore(fresh)
+    out["corrupt:step"] = np.asarray(mgr.last_restored_step)
+    out["corrupt:eq"] = np.asarray(int(_equal_states(want,
+                                                     _local_state(fresh))))
+    out["corrupt:warned"] = np.asarray(int(any(
+        "fell back" in str(w.message) for w in caught)))
+
+
+def _coordinated_case(inputs, out, rank):
+    """The reference's multi-host checkpoint (tests/_multihost_child.py):
+    rank 0 saves an unsharded state alone, a barrier, every rank restores
+    rank 0's values."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.train.checkpoint import CheckpointManager
+    state = {"w": torch.full((4,), 2.0 + rank), "step": 0}
+    mgr = CheckpointManager(os.path.join(str(inputs["ckpt:dir"]), "coord"),
+                            max_to_keep=2)
+    if rank == 0:
+        mgr.save(3, {"w": state["w"], "step": 3})
+    D.barrier(axis_name="dp", mesh=_mesh(4, dp=4))
+    restored = mgr.restore(state)
+    out["coord:w"] = _np(restored["w"])
+    out["coord:step"] = np.asarray(restored["step"])
+
+
+def _elastic_case(inputs, out, rank, mesh_name):
+    """ElasticRunner over a mesh: a kill in the step-4 save's rename (rank
+    0 alone writes: the ranks' agreement fails the save on both) or an
+    exception at the 5th step on every rank; one restart each, and the
+    final parameters equal the uninterrupted run's bit for bit."""
+    from paddle_tpu_torch.train.elastic import ElasticRunner
+    from paddle_tpu_torch.utils.faults import FAULTS, InjectedCrash
+    ranks, shape = CKPT_MESHES[mesh_name]
+    mesh = _mesh_on(ranks, **shape)
+    ids, labels = _t(inputs["ids"]), _t(inputs["labels"])
+
+    def stream():
+        while True:
+            yield ids, labels
+
+    for case, (site, hit, steps) in CKPT_ELASTIC.items():
+        root = os.path.join(str(inputs["ckpt:dir"]),
+                            f"elastic_{mesh_name}_{case}")
+
+        def make(d, steps=steps):
+            return lambda: _ckpt_trainer(inputs, mesh, "w:", d, steps,
+                                         ckpt_every=2)
+
+        FAULTS.install(site, on={hit}, exc=InjectedCrash)
+        runner = ElasticRunner(make(root), max_restarts=2, backoff_s=0.0)
+        state = runner.run(stream)
+        FAULTS.clear()
+        clean = ElasticRunner(make(root + "_clean"), max_restarts=0,
+                              backoff_s=0.0).run(stream)
+        key = f"el:{mesh_name}:{case}"
+        out[f"{key}:restarts"] = np.asarray(runner.restarts)
+        out[f"{key}:step"] = np.asarray(int(state.step))
+        out[f"{key}:eq"] = np.asarray(int(all(
+            torch.equal(a, b) for a, b in zip(state.model.parameters(),
+                                              clean.model.parameters()))))
+
+
+def ckpt_cases(inputs, out):
+    """Sharded checkpoints (4 ranks): the resumed Trainer, round trips in
+    both formats, cross-mesh restores, the JAX package's files, a corrupt
+    shard, the coordinated rank-0 checkpoint and elastic restarts."""
+    from paddle_tpu_torch import distributed as D
+    rank = D.get_rank()
+    for name, (mesh_name, args) in CKPT_RESUME.items():
+        if rank in CKPT_MESHES[mesh_name][0]:
+            _resume_case(inputs, out, rank, name, mesh_name, args)
+    for name, (ranks, _) in CKPT_MESHES.items():
+        if rank in ranks:
+            _roundtrip_case(inputs, out, rank, name)
+    for name in ("fsdp2", "tp2"):
+        if rank in CKPT_MESHES[name][0]:
+            _jax_exchange_case(inputs, out, rank, name)
+            _elastic_case(inputs, out, rank, name)
+    if rank < 2:
+        _cross_mesh_case(inputs, out, rank)
+        _corrupt_shard_case(inputs, out, rank)
+    dist.barrier()
+    _coordinated_case(inputs, out, rank)
+
+
+# ------------------------------------------------ context-parallel serving
+# the reference tests' model (tests/test_cp_serving.py) and engine
+CP_MODEL = dict(num_hidden_layers=2, hidden_size=32, num_attention_heads=4,
+                num_key_value_heads=2, vocab_size=64)
+CP_DRAFT = dict(CP_MODEL, num_hidden_layers=1)
+CP_ENGINE = dict(num_slots=2, block_size=4, max_prompt_len=16,
+                 max_seq_len=48)
+# name: (cp, prompt set, engine arguments, max_new_tokens, environment);
+# the prompt sets are the reference tests' (the parent draws them)
+CP_STREAMS = {
+    "plain_cp2": (2, "plain", {}, 6, {}),
+    "plain_cp4": (4, "plain", {}, 6, {}),
+    "chunked_cp2": (2, "chunked", {}, 6, {}),
+    "chunked_cp4": (4, "chunked", {}, 6, {}),
+    "ulysses_cp2": (2, "ulysses", {}, 6, {"PT_CP_IMPL": "ulysses"}),
+    "spec_cp2": (2, "spec", {"with_draft": True}, 8, {}),
+    "preempt_cp2": (2, "preempt", dict(num_slots=3, num_blocks=18,
+                                       preemption=True,
+                                       prefix_caching=False), 6, {}),
+    "int8_cp2": (2, "int8", dict(kv_dtype="int8"), 6, {}),
+}
+
+
+def _cp_models(inputs):
+    from paddle_tpu_torch.models.convert import load_jax_state_dict
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    out = []
+    for prefix, cfg in (("cpm:", CP_MODEL), ("cpd:", CP_DRAFT)):
+        m = LlamaForCausalLM(LlamaConfig.tiny(**cfg), device="cpu")
+        load_jax_state_dict(m, {k[len(prefix):]: v for k, v in inputs.items()
+                                if k.startswith(prefix)})
+        out.append(m)
+    return out
+
+
+def _cp_prompts(inputs, name):
+    return [inputs[k] for k in sorted(
+        (k for k in inputs if k.startswith(f"cpp:{name}:")),
+        key=lambda k: int(k.rsplit(":", 1)[1]))]
+
+
+def cp_engine(model, draft=None, **kw):
+    from paddle_tpu_torch.serving import LLMEngine
+    args = dict(CP_ENGINE)
+    if kw.pop("with_draft", False):
+        args["draft_model"] = draft
+    args.update(kw)
+    return LLMEngine(model, **args)
+
+
+def cp_run(model, draft, prompts, max_new, **kw):
+    """The reference tests' ``_run``: every prompt submitted, the engine
+    run dry; (streams [n, max_new], engine)."""
+    from paddle_tpu_torch.serving import Request
+    eng = cp_engine(model, draft, **kw)
+    ids = [eng.add_request(Request(p, max_new_tokens=max_new))
+           for p in prompts]
+    eng.run()
+    eng.assert_quiescent()
+    return np.asarray([list(map(int, eng.requests[i].tokens))
+                       for i in ids]), eng
+
+
+def cp_radix(model, prompts, cp):
+    """Sequential submission (each request run to its end before the
+    next), so later prompts adopt the trie's blocks."""
+    from paddle_tpu_torch.serving import Request
+    eng = cp_engine(model, num_slots=2, cp=cp)
+    out = []
+    for p in prompts:
+        rid = eng.add_request(Request(p, max_new_tokens=6))
+        while not eng.requests[rid].done:
+            eng.step()
+        out.append(list(map(int, eng.requests[rid].tokens)))
+    eng.assert_quiescent()
+    return np.asarray(out), eng
+
+
+def _cp_stream_cases(inputs, out, rank, model, draft):
+    for name, (cp, pset, kw, max_new, env) in CP_STREAMS.items():
+        if rank >= cp:
+            continue
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            toks, eng = cp_run(model, draft, _cp_prompts(inputs, pset),
+                               max_new, cp=cp, **kw)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        out[f"cp:{name}:tokens"] = toks
+        out[f"cp:{name}:meta"] = np.asarray([
+            eng.cp, int(eng.exe.mesh is not None), eng.stats["spec_ticks"],
+            eng.stats["spec_accepted"], eng.stats["preemptions"],
+            int(bool(eng.cache.k_scale_store)),
+            eng.cache.k_store[0].shape[0] - 1])
+
+
+def _cp_engine_cases(inputs, out, rank, model):
+    """cp = 2 on ranks 0-1: radix reuse, admission, rounding, refusals,
+    the fault site, the gauges."""
+    from paddle_tpu_torch.observability.metrics import METRICS
+    from paddle_tpu_torch.serving import Request
+    from paddle_tpu_torch.utils.faults import FAULTS, InjectedFault
+    toks, eng = cp_radix(model, _cp_prompts(inputs, "radix"), 2)
+    st = eng.mgr.cache_stats
+    out["cp:radix:tokens"] = toks
+    out["cp:radix:hits"] = np.asarray(st.get("token_hits", 0)
+                                      + st.get("hit_blocks", 0))
+    out["cp:mesh"] = np.asarray([eng.exe.mesh.cp, eng.exe.mesh.size("cp"),
+                                 int("cp" in eng.exe.mesh.axis_names)])
+    # admission: 40 tokens in 16 global blocks of 4 (8 a rank)
+    big = cp_engine(model, num_blocks=16, max_seq_len=64, cp=2)
+    rid = big.add_request(Request(list(_cp_prompts(inputs, "long")[0]),
+                                  max_new_tokens=4))
+    queued = int(not big.requests[rid].done)
+    res = big.run()
+    big.assert_quiescent()
+    out["cp:admit"] = np.asarray([queued, len(res[rid]),
+                                  big.cache.k_store[0].shape[0] - 1,
+                                  big.mgr.num_blocks])
+    out["cp:rounded"] = np.asarray(cp_engine(model, num_blocks=9,
+                                             cp=2).mgr.num_blocks)
+    # refusals by name
+    eng = cp_engine(model, cp=2)
+    msgs = []
+    for fn in (lambda: eng.add_request(Request([1, 2, 3], max_new_tokens=2,
+                                               num_beams=2)),
+               lambda: eng.extract_sequence(0),
+               lambda: cp_engine(model, cp=2, adapter_store=object())):
+        try:
+            fn()
+            msgs.append("")
+        except NotImplementedError as e:
+            msgs.append(str(e))
+    out["cp:refusals"] = np.asarray(msgs)
+    # the fault site: two injected aborts, the clean run's tokens
+    prompts = _cp_prompts(inputs, "chaos")
+    clean, _ = cp_run(model, None, prompts, 6, cp=2)
+    eng = cp_engine(model, cp=2)
+    ids = [eng.add_request(Request(p, max_new_tokens=6)) for p in prompts]
+    fired = 0
+    with FAULTS.scope("serving.cp_gather", on={1, 3}, exc=InjectedFault):
+        while eng.has_work():
+            try:
+                eng.step()
+            except InjectedFault:
+                fired += 1
+    fin = eng.pop_finished()
+    got = np.asarray([list(map(int, fin[i].tokens)) for i in ids])
+    eng.assert_quiescent()
+    out["cp:chaos"] = np.asarray([fired, int(np.array_equal(got, clean)),
+                                  int(eng.kv.reconcile()["ok"])])
+    # the gauges and the gather histogram
+    METRICS.reset()
+    _, eng = cp_run(model, None, _cp_prompts(inputs, "gauges"), 6, cp=2)
+    out["cp:gauges"] = np.asarray([
+        METRICS.get("serving_cp_axis_size").value(),
+        METRICS.get("serving_cp_gather_seconds").value()["count"],
+        METRICS.get("serving_cp_shard_blocks").value(shard="0"),
+        METRICS.get("serving_cp_shard_blocks").value(shard="1"),
+        eng._geom.cp])
+
+
+def cp_cases(inputs, out):
+    """Context-parallel serving (4 ranks): the reference tests' greedy
+    streams at cp 2 (ranks 0-1) and 4, and the engine's cp behaviours."""
+    from paddle_tpu_torch import distributed as D
+    rank = D.get_rank()
+    model, draft = _cp_models(inputs)
+    _cp_stream_cases(inputs, out, rank, model, draft)
+    if rank < 2:
+        _cp_engine_cases(inputs, out, rank, model)
+
+
 CASES = {"api": api_cases, "llama": llama_cases, "pipeline": pipeline_cases,
-         "hybrid": hybrid_cases, "sp": sp_cases, "moe": moe_cases}
+         "hybrid": hybrid_cases, "sp": sp_cases, "moe": moe_cases,
+         "ckpt": ckpt_cases, "cp": cp_cases}

@@ -157,8 +157,35 @@ def test_damaged_pointer_falls_back_to_glob(tmp_path):
 
 
 def test_orbax_refused_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        CheckpointManager(tmp_path, use_orbax=True)
+    """``use_orbax=True`` (the sharded format) is no longer refused: on one
+    rank it constructs, writes a directory a step (the rank's file and
+    the index), keeps ``max_to_keep`` of them and round-trips a
+    TrainState exactly, falling back past a corrupt newest step."""
+    _, tm = tiny_pair(seed=3)
+    opt = topt.AdamW(1e-2)
+    state = init_state(tm, opt)
+    ids = torch.as_tensor(np.random.RandomState(0).randint(0, 256, (2, 8)))
+    step = make_train_step(lambda m, i: m.loss(i, i), opt)
+    mgr = CheckpointManager(tmp_path, max_to_keep=2, use_orbax=True)
+    for s in (1, 2, 3):
+        state, _ = step(state, ids)
+        mgr.save(s, state)
+    assert mgr.all_steps() == [2, 3] and mgr.latest_step() == 3
+    assert sorted(p.name for p in (tmp_path / "ckpt_00000003").iterdir()) \
+        == ["index.json", "rank_00000.npz"]
+    want = {k: v.clone() for k, v in tm.state_dict().items()}
+    slots = {k: v.clone() for k, v in state.opt_state["moment1"].items()}
+    _, fresh = tiny_pair(seed=4)
+    got = mgr.restore(init_state(fresh, opt))
+    assert got.step == 3 and mgr.last_restored_step == 3
+    for k, v in fresh.state_dict().items():
+        assert torch.equal(v, want[k]), k
+    for k, v in got.opt_state["moment1"].items():
+        assert torch.equal(v, slots[k]), k
+    f = tmp_path / "ckpt_00000003" / "rank_00000.npz"
+    f.write_bytes(f.read_bytes()[:64])
+    with pytest.warns(UserWarning, match="fell back"):
+        assert mgr.restore(init_state(fresh, opt)).step == 2
 
 
 # ---------------------------------------------------- async (background) save

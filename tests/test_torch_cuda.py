@@ -3113,3 +3113,163 @@ def test_forward_ep_at_ep1_is_the_local_layer(grouped, tmp_path,
         assert rel(got[3][n], ref[3][n]) <= 1e-2, n
     if grouped == "1":
         assert counts["grouped_fwd"] == 4 and counts["grouped_dw"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
+@pytest.mark.parametrize("kind", ["decode", "chunk_ring", "chunk_ulysses"])
+def test_cp_partials_through_the_merge_match_plain(kind, dtype, tmp_path,
+                                                   monkeypatch):
+    """Context-parallel serving's attention at world size 1 (a one-rank
+    NCCL cp group): rank 0's local table of a two-rank split (global ids
+    over 2 x per blocks; about half of them the other rank's, which become
+    the local sentinel per, and one row wholly the other rank's) through
+    K4 / K3 in their partials mode, the merge (psum for decode, the ring or
+    Ulysses for a chunk) and finalize, against the plain partials through
+    the same merge: within the mode's tolerance, the dead row exactly 0,
+    one launch on the partials counter (and its float16 count)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.models import paged as P
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    dt, _, tol = PAGED_MODES[dtype]
+    h_kv, group, d, bs, per, rows, mb = 2, 4, 128, 16, 48, 6, 12
+    h = h_kv * group
+    glob = torch.randperm(2 * per, generator=g, device=dev)[:rows * mb]
+    glob = glob.reshape(rows, mb).int()
+    glob[0] = torch.arange(per, per + mb, device=dev).int()  # all remote
+    kp = torch.randn(per, bs, h_kv, d, generator=g, device=dev).to(dt)
+    vp = torch.randn(per, bs, h_kv, d, generator=g, device=dev).to(dt)
+    _nccl_world_of_one(tmp_path)
+    try:
+        with D.HybridMesh(cp=1) as mesh:
+            local = P._cp_local_tables(glob, (mesh, 2, 0), per)
+            share = float((local[1:] == per).float().mean())
+            assert 0.3 < share < 0.7 and bool((local[0] == per).all())
+            cp = P._cp("cp")
+            counter = (TPA.paged_decode_partials if kind == "decode"
+                       else TPA.paged_chunk_partials)
+            before = (counter.launches, counter.f16.launches)
+            if kind == "decode":
+                q = torch.randn(rows, h, d, generator=g, device=dev).to(dt)
+                lens = torch.tensor([100, 1, 37, 150, 191, 64], device=dev,
+                                    dtype=torch.int32)
+                got = P._cp_merge_decode(*TPA.paged_decode_attention(
+                    q, kp, vp, local, lens, partials=True), "cp", cp, dt)
+                ref = P._cp_merge_decode(*TPA.paged_decode_attention_plain(
+                    q, kp, vp, local, lens, partials=True), "cp", cp, dt)
+                live = [slice(None)] * rows
+            else:
+                monkeypatch.setenv("PT_CP_IMPL", kind.split("_")[1])
+                c = 32
+                q = torch.randn(rows, c, h, d, generator=g,
+                                device=dev).to(dt)
+                offs = torch.tensor([10, 0, 40, 100, 159, 17], device=dev,
+                                    dtype=torch.int32)
+                cls = torch.tensor([32, 5, 32, 20, 32, 0], device=dev,
+                                   dtype=torch.int32)
+                got = P._cp_merge_chunk(*TPA.paged_chunk_attention(
+                    q, kp, vp, local, offs, cls, partials=True), "cp", cp,
+                    dt)
+                ref = P._cp_merge_chunk(*TPA.paged_chunk_attention_plain(
+                    q, kp, vp, local, offs, cls, partials=True), "cp", cp,
+                    dt)
+                live = [slice(0, int(n)) for n in cls.tolist()]
+    finally:
+        _end_world()
+    assert got.dtype == dt
+    assert float(got[0].float().abs().max()) == 0.0      # all remote
+    for r in range(1, rows):
+        _close_scaled(got[r][live[r]], ref[r][live[r]], tol, f"row {r}")
+    assert counter.launches == before[0] + 1
+    assert counter.f16.launches == before[1] + (dtype == "f16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["global", "sharded"])
+def test_sharded_checkpoint_round_trip_on_card(fmt, tmp_path):
+    """A bf16 Llama (head dim 64) sharded over HybridMesh(fsdp=1) on the
+    card after one AdamW step, saved in the global or the sharded format
+    and restored into a fresh sharded state of other weights: every live
+    parameter and slot, the step and the generator bit for bit, and the
+    next step's loss the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.train import init_state, make_train_step
+    from paddle_tpu_torch.train.checkpoint import CheckpointManager
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                           dtype=torch.bfloat16)
+    ids = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+    opt = O.AdamW(learning_rate=1e-3)
+    mesh = D.HybridMesh(fsdp=1, device="cuda")
+    step = make_train_step(lambda m, i: m.loss(i, i), opt, mesh=mesh)
+
+    def live(state):
+        out = {n: p.detach().clone()
+               for n, p in state.model.named_parameters()}
+        for k, v in state.opt_state.items():
+            if isinstance(v, dict):
+                out.update({f"{k}:{n}": t.clone() for n, t in v.items()})
+        return out
+
+    state = init_state(LlamaForCausalLM(cfg, device="cuda", seed=0), opt,
+                       mesh)
+    state, _ = step(state, ids)
+    mgr = CheckpointManager(tmp_path, use_orbax=fmt == "sharded")
+    mgr.save(1, state)
+    want, rng = live(state), state.rng.get_state()
+    _, want_loss = step(state, ids)
+    fresh = mgr.restore(init_state(LlamaForCausalLM(cfg, device="cuda",
+                                                    seed=9), opt, mesh))
+    got = live(fresh)
+    assert fresh.step == 1 and torch.equal(fresh.rng.get_state(), rng)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    _, loss = step(fresh, ids)
+    assert float(loss) == float(want_loss)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
+def test_paged_outputs_are_the_finalized_partials_bit_for_bit(dtype):
+    """K3 (both routes) and K4 (one split and several) normalise acc / l
+    by a division, as the reference's kernels and ``finalize_partials``
+    do: each output equals its partials triple finalized, bit for bit,
+    over a table of this rank's blocks only (cp at world size 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    from paddle_tpu_torch.distributed.ring_attention import finalize_partials
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    dt = PAGED_MODES[dtype][0]
+    h_kv, h, d, bs, rows, mb = 2, 8, 128, 16, 6, 40
+    n = rows * mb
+    tables = torch.randperm(n, generator=g, device=dev).reshape(rows, mb)
+    tables = tables.int()
+    kp = torch.randn(n, bs, h_kv, d, generator=g, device=dev).to(dt)
+    vp = torch.randn(n, bs, h_kv, d, generator=g, device=dev).to(dt)
+    for lens in ([1, 17, 100, 300, 640, 0], [640] * rows):
+        q = torch.randn(rows, h, d, generator=g, device=dev).to(dt)
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        o = TPA.paged_decode_attention(q, kp, vp, tables, lens)
+        acc, _, l = TPA.paged_decode_attention(q, kp, vp, tables, lens,
+                                               partials=True)
+        assert torch.equal(o, finalize_partials(acc, l, dt)), lens
+    q = torch.randn(rows, 48, h, d, generator=g, device=dev).to(dt)
+    offs = torch.tensor([0, 30, 100, 591, 7, 64], dtype=torch.int32,
+                        device=dev)
+    cls = torch.tensor([48, 48, 20, 48, 0, 33], dtype=torch.int32,
+                       device=dev)
+    o = TPA.paged_chunk_attention(q, kp, vp, tables, offs, cls)
+    acc, _, l = TPA.paged_chunk_attention(q, kp, vp, tables, offs, cls,
+                                          partials=True)
+    fin = finalize_partials(acc, l, dt)
+    for a, m in enumerate(cls.tolist()):
+        assert torch.equal(o[a, :m], fin[a, :m]), a

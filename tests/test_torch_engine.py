@@ -92,8 +92,8 @@ def test_eos_cancel_drain_and_refusals():
     assert eng2.requests[r].finish_reason == "eos"
     eng2.assert_quiescent()
     # tenants are served; a prefill-only replica stops after prefill and
-    # its sequence is extractable; context parallelism is still refused
-    # by name
+    # its sequence is extractable; context parallelism needs a process
+    # group of cp ranks
     rt = eng2.add_request(Request([1, 2], max_new_tokens=3, tenant_id="t0"))
     eng2.run()
     assert len(eng2.requests[rt].tokens) <= 3
@@ -109,7 +109,7 @@ def test_eos_cancel_drain_and_refusals():
     assert payload.gen == 1 and payload.cur == len(eng.requests[b].prompt)
     assert not pre.has_work()
     pre.assert_quiescent()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
         LLMEngine(tm, cp=2)
 
 

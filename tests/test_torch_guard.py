@@ -163,11 +163,12 @@ def test_trainer_stack_entry_points_default_to_the_card():
             make()
 
 
-def test_unported_training_modes_refuse():
-    """What is still queued raises, naming it, instead of running something
-    else: a train step over a cp axis (cp is context-parallel serving,
-    ROADMAP.md item 5(k)) and orbax checkpoints (item 7); a train step over
-    the other axes (sp included) constructs; the selective remat policies
+def test_unported_training_modes_refuse(tmp_path):
+    """A train step over a cp axis raises, naming it, instead of running
+    something else (cp is the serving axis of context parallelism; a
+    train step splits its sequence over sp); a train step over the other
+    axes (sp included) constructs; the sharded checkpoint format
+    (``use_orbax=True``) constructs; the selective remat policies
     construct and an unknown one raises."""
     from paddle_tpu_torch import optimizer as O
     from paddle_tpu_torch.distributed import HybridMesh
@@ -195,8 +196,7 @@ def test_unported_training_modes_refuse():
                                     mesh=HybridMesh(device="cpu")))
     with pytest.raises(ValueError, match="sequence_parallel"):
         LlamaConfig(sequence_parallel="striped")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-        CheckpointManager("unused", use_orbax=True)
+    assert CheckpointManager(tmp_path, use_orbax=True).use_orbax
     for policy in ("dots", "hidden", "no_ffn"):
         assert LlamaConfig(remat_policy=policy).save_names()
     with pytest.raises(ValueError):
@@ -252,7 +252,9 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
         "dist_train": K.DIST_TRAIN_KERNELS,
         "pp_train": K.PP_TRAIN_KERNELS,
         "sp_train": K.SP_TRAIN_KERNELS,
-        "ep_train": K.EP_TRAIN_KERNELS}
+        "ep_train": K.EP_TRAIN_KERNELS,
+        "sharded_ckpt": K.TRAIN_KERNELS,
+        "cp_serve": K.CP_SERVE_KERNELS}
     # K7 rotates every rotate-half rope of every path; the ALiBi paths
     # (BLOOM, falcon-rw) have no rope and run K2's (and K5's) ALiBi mode
     # instead, GPT-J's interleaved rope is plain PyTorch, as the
