@@ -61,7 +61,13 @@ Phases (each one fails the run when it fails; nothing is caught):
             GQA) and its backward, K2 at the generate shape of Gemma-7B
             and GPT-J-6B ([8, 160, 16, 256]) and K7 at Gemma's shapes;
             K1, K2, K5a, K5b and K7 at the LoRA step's Llama-2-7B shapes
-            (x [2048, 4096], q/k/v [1, 2048, 32, 128]); then every
+            (x [2048, 4096], q/k/v [1, 2048, 32, 128]); K2, K5a and K5b at
+            GPT-3 1.3B's train shape ([4, 1024, 16, 128]) and at head dim
+            80 at Phi-2's ([4, 2048, 32, 80]; f32, f16 and bf16), K2 at
+            the generate shapes of Pythia-6.9B / OPT-6.7B, Phi-2 and
+            GLM-4-9B ([8, 160, 32, 128 | 80], GLM over 2 KV heads), K1 at
+            GLM-4-9B's generate rows ([1280, 4096]) and K7 on the
+            partial-rotary slices (32 of 128 and of 80 lanes); then every
             kernel's float16 instantiation at the same shapes (the f16
             paths' rows timed; ALiBi, head dim 256, the window and the
             LoRA kernels checked and logged; tolerance 2e-2 * (1 + |x|),
@@ -527,6 +533,21 @@ Phases (each one fails the run when it fails; nothing is caught):
   gptj_train  GPT-J-6B's widths at 4 layers (1.22 B parameters), batch
             4 x 2048, remat off, as ``bloom_train``: K2, K5a (group 1) and
             K5b (group 1) at head dim 256 once a layer and step each
+  gpt3_train  ``bench.py``'s ``bench_gpt3_tp``: ``GPTConfig()`` whole
+            (GPT-3 1.3B, remat on) through ``make_train_step`` with
+            AdamW(2e-4, weight_decay=0.1) over a one-rank NCCL
+            ``HybridMesh(tp=1)``, batch 4 x 1024: the train check, then 10
+            steps (K2 twice a layer and step, K5a and K5b once, exactly;
+            no plain version); ms/step, tokens/s, MFU, peak memory
+  neox_serve, opt_serve, phi_serve, glm_serve  Pythia-6.9B, OPT-6.7B,
+            Phi-2 (32 heads of 80: K2 at head dim 80) and GLM-4-9B (GQA
+            16:1, K1 norms) whole through ``generic_generate`` as
+            ``bloom_serve`` (exact launch counts: K2 once a layer and
+            step, K7 twice for Pythia and Phi-2, K1 twice and once at the
+            end for GLM), the prompt check at 8 layers
+  phi_train  Phi-2's widths at 4 layers, batch 4 x 2048, remat off: K2,
+            K5a and K5b at head dim 80 once a layer and step, K7 four
+            times (q, k; forward and backward)
   anatomy   (only when asked for: --phases build,anatomy or
             build,train,anatomy) 16 steady decode ticks and, with
             ``train``, ``bloom_train`` or ``falcon_rw_train``, 2 steps of
@@ -585,7 +606,9 @@ path (``"path": "serve"``, ``"async_serve"``, ``"lora_serve"``,
 ``"window_serve"``, ``"quant_serve"``, ``"bloom_serve"``, ``"bloom_train"``,
 ``"falcon_rw_serve"``, ``"falcon_rw_train"``, ``"falcon7b_serve"``,
 ``"gemma_train"``, ``"gemma7b_serve"``, ``"gptj_serve"``,
-``"gptj_train"``, ``"paged_generate"``, or a float16 path,
+``"gptj_train"``, ``"gpt3_train"``, ``"neox_serve"``, ``"opt_serve"``,
+``"phi_serve"``, ``"phi_train"``, ``"glm_serve"``, ``"paged_generate"``,
+or a float16 path,
 ``"f16_serve"``, ``"f16_serve_i8"``, ``"f16_train"``, ``"f16_moe_serve"``
 or ``"f16_moe_train"``, whose entries name the float16 counters,
 ``"<kernel>_f16"``): its
@@ -709,6 +732,8 @@ SOURCES.update({f"{k}_f16": v for k, v in list(SOURCES.items())})
 # BEAM_SERVE_I8_KERNELS / GRAMMAR_SERVE_KERNELS / TENANT_SERVE_KERNELS /
 # GEMMA_TRAIN_KERNELS /
 # GEMMA_SERVE_KERNELS / GPTJ_SERVE_KERNELS / GPTJ_TRAIN_KERNELS /
+# GPT3_TRAIN_KERNELS / NEOX_SERVE_KERNELS / OPT_SERVE_KERNELS /
+# PHI_SERVE_KERNELS / PHI_TRAIN_KERNELS / GLM_SERVE_KERNELS /
 # ROUTER_SERVE_KERNELS / ROUTER_SERVE_I8_KERNELS / GPTQ_SERVE_KERNELS /
 # SPEC_GENERATE_KERNELS / REMAT_TRAIN_KERNELS / TRAINER_FIT_KERNELS /
 # LORA_TRAIN_KERNELS / FP8_TRAIN_KERNELS / PAGED_GENERATE_KERNELS /
@@ -755,6 +780,12 @@ PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
          "gemma7b_serve": ("flash_fwd", "rope"),
          "gptj_serve": ("flash_fwd",),
          "gptj_train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+         "gpt3_train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+         "neox_serve": ("flash_fwd", "rope"),
+         "opt_serve": ("flash_fwd",),
+         "phi_serve": ("flash_fwd", "rope"),
+         "phi_train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rope"),
+         "glm_serve": ("rms_norm", "flash_fwd"),
          "router_serve": ("rms_norm", "flash_fwd", "paged_chunk",
                           "paged_decode", "rope", "rope_kv"),
          "router_serve_disagg": ("rms_norm", "flash_fwd", "paged_chunk",
@@ -843,6 +874,18 @@ FALCON7B_CHECK_LAYERS = 8
 GEMMA_TRAIN_BATCH, GPTJ_TRAIN_BATCH, HD256_TRAIN_SEQ = 2, 4, 2048
 GPTJ_TRAIN_LAYERS = 4
 HD256_CHECK_LAYERS = 8
+# the other decoder families: GPT-3 1.3B trained whole as bench.py's
+# bench_gpt3_tp trains it (4 x 1024, AdamW(2e-4, weight decay 0.1), over a
+# one-rank HybridMesh(tp=1)); Pythia-6.9B, OPT-6.7B, Phi-2 and GLM-4-9B
+# generate whole (GEN_*), their prompt logits checked at
+# DECODER_CHECK_LAYERS layers; Phi-2's widths trained at PHI_TRAIN_LAYERS
+# layers, 4 x 2048, remat off (as gptj_train)
+GPT3_TRAIN_BATCH, GPT3_TRAIN_SEQ = 4, 1024
+PHI_TRAIN_LAYERS, PHI_TRAIN_BATCH, PHI_TRAIN_SEQ = 4, 4, 2048
+DECODER_CHECK_LAYERS = 8
+# (family of build_generate_model, path): the generate phases
+DECODER_SERVE = (("neox", "neox_serve"), ("opt", "opt_serve"),
+                 ("phi", "phi_serve"), ("glm", "glm_serve"))
 
 
 def log(*a):
@@ -1297,6 +1340,9 @@ def phase_kernels(torch, dev):
     from paddle_tpu_torch.ops.cuda import flash_attention as FA
     if 256 in getattr(FA, "HEAD_DIMS", ()):
         results.update(hd256_kernel_entries(torch, dev))
+    # GPT, GPT-NeoX, OPT, Phi (head dim 80) and GLM
+    if 80 in getattr(FA, "HEAD_DIMS", ()):
+        results.update(decoder_kernel_entries(torch, dev))
     # the trainer stack: Trainer.fit and the fp8 step run the headline
     # step's shapes; the LoRA step Llama-2-7B's at 1 x 2048
     b, s, h, d = LORA_TRAIN_SHAPE
@@ -1822,22 +1868,25 @@ def _hd256_inputs(torch, dev, dt, shape, hkv, seed):
     return q, k, v, do
 
 
-def hd256_train_entries(torch, dev, path, shape, hkv):
+def hd256_train_entries(torch, dev, path, shape, hkv, label=None, dts=None):
     """K2, K5a and K5b at a head dim 256 train shape (causal, no kv_lens):
     each against its plain version in fp32 (the FMA routes) and bf16 (the
     tensor-core routes; K5b at 256 a dV block and a dK block a k tile),
     K2's LSE against the plain one; times in bf16 of each kernel, the
     plain forward / backward, and SDPA (``is_causal``, GQA by
     ``enable_gqa``) forward / backward, the backward's time on both K5
-    rows as ``k5`` gives it. Returns {kernel: entry}."""
+    rows as ``k5`` gives it. Another head dim's train shape passes its
+    ``label``; ``dts``: the (name, dtype) pairs checked (default
+    ``_dts``), the timed type last (its errors are the entries'). Returns
+    {kernel: entry}."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import _build
     from paddle_tpu_torch.ops.cuda import flash_attention as FA
     b, s, h, d = shape
     scale = d ** -0.5
-    label = f"{path} shape, head dim 256, GQA {h}:{hkv}"
+    label = label or f"{path} shape, head dim 256, GQA {h}:{hkv}"
     errs = {}
-    for dtype, dt in _dts(torch):
+    for dtype, dt in dts or _dts(torch):
         q, k, v, do = _hd256_inputs(torch, dev, dt, shape, hkv, 256)
         o, lse = FA.flash_fwd_cuda(q, k, v, True, scale, None, None)
         ref_o, ref_lse = FA.flash_attention_fwd_plain(q, k, v, causal=True)
@@ -1928,6 +1977,153 @@ def hd256_kernel_entries(torch, dev):
               f"{_route(FA, 'flash_fwd', q)} route")
     res["gemma7b_serve"] = {"flash_fwd": gen}
     res["gptj_serve"] = {"flash_fwd": gen}
+    return res
+
+
+# ------------------------- the other decoder families (K1, K2, K5, K7)
+# (label, path, leading dims, heads of the viewed part, width of the fused
+# QKV product in heads, head dim, rotated lanes): K7 on the partial rotary
+# slice x[..., :rot] of a q view, as GPT-NeoX and Phi hand it over (rows
+# ``head dim`` apart, so the wrapper copies the slice to a contiguous
+# buffer first)
+ROPE_PARTIAL_CASES = (
+    ("pythia-6.9b generate q, 32 of 128 lanes", "neox_serve", (8, 160), 32,
+     96, 128, 32),
+    ("phi-2 generate q, 32 of 80 lanes", "phi_serve", (8, 160), 32, 96, 80,
+     32),
+    ("phi-2 train q, 32 of 80 lanes", "phi_train", (4, 2048), 32, 96, 80,
+     32),
+)
+
+
+def _all_dts(torch):
+    """float32, float16, then bfloat16 (the timed type last): the head dim
+    80 rows and the new families' rows are checked in every type."""
+    return (("f32", torch.float32), ("f16", torch.float16),
+            ("bf16", torch.bfloat16))
+
+
+def k7_partial(torch, dev):
+    """K7 on the partial-rotary slices of ROPE_PARTIAL_CASES against
+    fused_rope_plain, bit for bit in f32, f16 and bf16; times (bf16) of
+    the wrapper, which copies the strided slice to a contiguous buffer
+    first, eager and from CUDA graphs over cold copies, beside the plain
+    version; the bound counts the slice read once, the output written
+    once and the tables (no single PyTorch call computes rope: library
+    n/a). Returns {path: entry}."""
+    from paddle_tpu_torch.ops.cuda import rope as R
+    out = {}
+    for i, (label, path, lead, h, width, d, rot) in enumerate(
+            ROPE_PARTIAL_CASES):
+        for dtype, dt in _all_dts(torch):
+            g = torch.Generator(device=dev).manual_seed(80 + i)
+            qkv = torch.randn(*lead, width * d, generator=g,
+                              device=dev).to(dt)
+            x = qkv[..., :h * d].reshape(*lead, h, d)[..., :rot]
+            pos = torch.arange(lead[-1], device=dev).float()
+            inv = 1.0 / 1e4 ** (torch.arange(0, rot, 2, device=dev).float()
+                                / rot)
+            c, sn = torch.cos(pos[:, None] * inv), torch.sin(pos[:, None]
+                                                              * inv)
+            differ = int((R.fused_rope(x, c, sn)
+                          != R.fused_rope_plain(x, c, sn)).sum())
+            log(f"[kernels] rope {label} {dtype}: {differ} results differ "
+                f"from the plain version (must be 0)")
+            if differ:
+                raise AssertionError(f"rope {label} {dtype}: not bit-"
+                                     f"identical to the plain version")
+        n = x.numel() // (h * rot)
+        es = x.element_size()
+        b_ms, b_by = bound(2 * n * h * rot * es + 2 * c.numel() * 4,
+                           3 * n * h * rot, PEAK_FP32_FLOPS)
+        r = dict(max_abs_err=0.0,
+                 ms=time_ms(lambda: R.fused_rope(x, c, sn), iters=100),
+                 plain_ms=time_ms(lambda: R.fused_rope_plain(x, c, sn),
+                                  iters=20),
+                 graph_ms=cold_graph_ms(lambda t: R.fused_rope(t, c, sn), x),
+                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                 shape=f"{label}: x [{n}, {h}, {rot}] of heads of {d} "
+                       f"{_hn()} (row stride {x.stride(-3)}), tables "
+                       f"[{c.shape[0]}, {rot // 2}]")
+        out[path] = r
+        del qkv, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gen_attn_entry(torch, dev, label, shape, hkv, seed):
+    """K2 at a generate shape (q [B, S, H, D] over ``hkv`` KV heads,
+    causal) against its plain version in f32, f16 and bf16 (O and LSE),
+    timed in bf16 beside the plain version and SDPA (GQA by
+    ``enable_gqa``)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+    b, s, h, d = shape
+    for dtype, dt in _all_dts(torch):
+        q, k, v, _ = _hd256_inputs(torch, dev, dt, shape, hkv, seed)
+        o, lse = FA.flash_fwd_cuda(q, k, v, True, d ** -0.5, None, None)
+        ref_o, ref_lse = FA.flash_attention_fwd_plain(q, k, v, causal=True)
+        err = _agree(f"flash_fwd ({label})", dtype, _max_err(o, ref_o))
+        _agree(f"flash_fwd log-sum-exp ({label}, {dtype} inputs)", "f32",
+               _max_err(lse, ref_lse))
+    b_ms, b_by = _hd256_bound(b, s, h, hkv, d, q.element_size(), 2, 2, 1, 2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return dict(
+        max_abs_err=err, variant=_route(FA, "flash_fwd", q),
+        ms=time_ms(lambda: FA.flash_attention(q, k, v, causal=True)),
+        plain_ms=time_ms(lambda: FA.flash_attention_plain(q, k, v,
+                                                          causal=True),
+                         iters=20),
+        library_ms=time_ms(lambda: _sdpa_gqa(torch, F, qt, kt, vt,
+                                             is_causal=True)),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"{label}: q [{b}, {s}, {h}, {d}], k/v [{b}, {s}, {hkv}, {d}] "
+              f"bf16, causal; {_route(FA, 'flash_fwd', q)} route")
+
+
+def decoder_kernel_entries(torch, dev):
+    """The rows of the other decoder families' paths: K2 / K5a / K5b at
+    GPT-3 1.3B's train shape [4, 1024, 16, 128] (``k2_train`` / ``k5``)
+    and at Phi-2's [4, 2048, 32, 80] (head dim 80, checked in f32, f16
+    and bf16); K2 at the generate shapes [8, 160, H, D] of Pythia-6.9B and
+    OPT-6.7B (32 heads of 128), Phi-2 (32 of 80) and GLM-4-9B (32 over 2
+    KV heads of 128); K1 at GLM-4-9B's generate rows x [1280, 4096] (its
+    epsilon 1.5625e-7, a bf16 weight); K7 on the partial-rotary slices.
+    Returns {path: {kernel: entry}}."""
+    from paddle_tpu_torch.ops.cuda import norms
+    shape = (GPT3_TRAIN_BATCH, GPT3_TRAIN_SEQ, 16, 128)
+    res = {"gpt3_train": {"flash_fwd": k2_train(torch, dev, shape),
+                          **k5(torch, dev, shape)}}
+    rope = k7_partial(torch, dev)
+    phi = (PHI_TRAIN_BATCH, PHI_TRAIN_SEQ, 32, 80)
+    res["phi_train"] = {
+        **hd256_train_entries(torch, dev, "phi_train", phi, 32,
+                              label="phi_train shape, head dim 80",
+                              dts=_all_dts(torch)),
+        "rope": rope["phi_train"]}
+    gen = (GEN_ROWS, GEN_PROMPT + GEN_NEW)
+    d128 = _gen_attn_entry(torch, dev, "neox_serve / opt_serve shape",
+                           (*gen, 32, 128), 32, 90)
+    res["neox_serve"] = {"flash_fwd": d128, "rope": rope["neox_serve"]}
+    res["opt_serve"] = {"flash_fwd": d128}
+    res["phi_serve"] = {
+        "flash_fwd": _gen_attn_entry(torch, dev, "phi_serve shape, head dim "
+                                     "80", (*gen, 32, 80), 32, 91),
+        "rope": rope["phi_serve"]}
+    g = torch.Generator(device=dev).manual_seed(92)
+    rows, hid, eps = GEN_ROWS * (GEN_PROMPT + GEN_NEW), 4096, 1.5625e-07
+    x32 = torch.randn(rows, hid, generator=g, device=dev)
+    w32 = 1.0 + 0.1 * torch.randn(hid, generator=g, device=dev)
+    for dtype, dt in _all_dts(torch):
+        x, w = x32.to(dt), w32.to(dt)
+        err = _agree("rms_norm (glm_serve shape, eps 1.5625e-7)", dtype,
+                     _max_err(norms.rms_norm(x, w, eps),
+                              norms.rms_norm_plain(x, w, eps)))
+    res["glm_serve"] = {
+        "rms_norm": _k1_entry(torch, x, w, err),
+        "flash_fwd": _gen_attn_entry(torch, dev, "glm_serve shape, GQA 16:1",
+                                     (*gen, 32, 128), 2, 93)}
+    torch.cuda.empty_cache()
     return res
 
 
@@ -3882,9 +4078,10 @@ def _path_logits(torch, model, prompts, long_prompt, toks, kv_dtype=None):
 
 class count_plain_calls:
     """Count, while active, the calls of ``eager_attention`` and of the
-    plain versions of K2, K5 and K7: a path whose attention and rope run
-    on the kernels makes none (``calls`` empty)."""
+    plain versions of K1, K2, K5 and K7: a path whose norms, attention and
+    rope run on the kernels makes none (``calls`` empty)."""
     WATCHED = (("paddle_tpu_torch.ops.attention", "eager_attention"),
+               ("paddle_tpu_torch.ops.cuda.norms", "rms_norm_plain"),
                ("paddle_tpu_torch.ops.cuda.flash_attention",
                 "flash_attention_fwd_plain"),
                ("paddle_tpu_torch.ops.cuda.flash_attention",
@@ -4913,6 +5110,33 @@ def gemma_2b_config(torch):
                        dtype=torch.bfloat16)
 
 
+def pythia_6p9b_config(torch):
+    """``EleutherAI/pythia-6.9b``'s ``config.json``, field by field: vocab
+    50 432, hidden 4096, 32 layers, 32 heads of 128, MLP 16 384, rotary on
+    25% of each head (32 lanes), base 10 000, parallel residual,
+    LayerNorm eps 1e-5, untied head (6.86 B parameters)."""
+    from paddle_tpu_torch.models.gpt_neox import GPTNeoXConfig
+    return GPTNeoXConfig(vocab_size=50432, hidden_size=4096,
+                         num_hidden_layers=32, num_attention_heads=32,
+                         intermediate_size=16384, rotary_pct=0.25,
+                         rotary_emb_base=10000.0,
+                         max_position_embeddings=2048,
+                         use_parallel_residual=True, layer_norm_eps=1e-5,
+                         dtype=torch.bfloat16)
+
+
+def opt_6p7b_config(torch):
+    """``facebook/opt-6.7b``'s ``config.json``, field by field: vocab
+    50 272, hidden 4096, 32 layers, 32 heads of 128, ffn 16 384, 2048
+    positions (a table of 2050 rows), pre-norm, no projections, tied head
+    (6.66 B parameters)."""
+    from paddle_tpu_torch.models.opt import OPTConfig
+    return OPTConfig(vocab_size=50272, hidden_size=4096, ffn_dim=16384,
+                     num_hidden_layers=32, num_attention_heads=32,
+                     max_position_embeddings=2048, do_layer_norm_before=True,
+                     word_embed_proj_dim=4096, dtype=torch.bfloat16)
+
+
 def _layers(model):
     """The decoder blocks of a generate family's model."""
     return model.h if hasattr(model, "h") else model.layers
@@ -4922,8 +5146,11 @@ def build_generate_model(torch, dev, family, layers=None, **overrides):
     """BLOOM-560m (``BloomConfig()`` as it stands: ``bigscience/bloom-560m``),
     Falcon-RW-1B, Falcon-7B (``FalconConfig()`` as it stands:
     ``tiiuae/falcon-7b``), Gemma-2B (``gemma_2b_config``), Gemma-7B
-    (``GemmaConfig()`` as it stands: ``google/gemma-7b``) or GPT-J-6B
-    (``GPTJConfig()`` as it stands: ``EleutherAI/gpt-j-6b``) whole in bf16
+    (``GemmaConfig()`` as it stands: ``google/gemma-7b``), GPT-J-6B
+    (``GPTJConfig()`` as it stands: ``EleutherAI/gpt-j-6b``), Pythia-6.9B
+    (``pythia_6p9b_config``), OPT-6.7B (``opt_6p7b_config``), Phi-2
+    (``PhiConfig()`` as it stands: ``microsoft/phi-2``) or GLM-4-9B
+    (``GlmConfig()`` as it stands: ``THUDM/glm-4-9b``) whole in bf16
     (``layers`` cuts depth only; ``overrides``: other config fields),
     random weights from seed 0 made on the card."""
     from paddle_tpu_torch.models.bloom import BloomConfig, BloomForCausalLM
@@ -4941,6 +5168,18 @@ def build_generate_model(torch, dev, family, layers=None, **overrides):
     elif family == "gptj":
         from paddle_tpu_torch.models.gptj import GPTJConfig, GPTJForCausalLM
         cfg, cls = GPTJConfig(), GPTJForCausalLM
+    elif family == "neox":
+        from paddle_tpu_torch.models.gpt_neox import GPTNeoXForCausalLM
+        cfg, cls = pythia_6p9b_config(torch), GPTNeoXForCausalLM
+    elif family == "opt":
+        from paddle_tpu_torch.models.opt import OPTForCausalLM
+        cfg, cls = opt_6p7b_config(torch), OPTForCausalLM
+    elif family == "phi":
+        from paddle_tpu_torch.models.phi import PhiConfig, PhiForCausalLM
+        cfg, cls = PhiConfig(), PhiForCausalLM
+    elif family == "glm":
+        from paddle_tpu_torch.models.glm import GlmConfig, GlmForCausalLM
+        cfg, cls = GlmConfig(), GlmForCausalLM
     else:
         cfg, cls = FalconConfig(), FalconForCausalLM
     if layers is not None:
@@ -5118,6 +5357,167 @@ def phase_hd256_train(torch, dev, np, path, anatomy=False):
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"{path} launches {got}, expected {want}")
+    return counts
+
+
+# the launches of one generate forward of a layer on the decoder paths:
+# K2 once; K7 on q and k (GPT-NeoX, Phi); K1 twice (GLM, plus the final
+# norm once a forward)
+DECODER_GEN_LAUNCHES = {"neox": {"rope": 2}, "opt": {}, "phi": {"rope": 2},
+                        "glm": {"rms_norm": 2}}
+
+
+def phase_decoder_serve(torch, dev, np, family, path):
+    """``phase_generate`` of one of DECODER_SERVE's models whole (K2 once a
+    layer and step; K7 twice a layer and step for Pythia and Phi-2, K1
+    twice a layer and once at the end for GLM-4; none of these and no
+    backward elsewhere: the launch counts must be exactly these), then
+    the prompt logits of a DECODER_CHECK_LAYERS-layer cut held to float32
+    (``phase_prompt_check``). Returns the launch counts."""
+    model = build_generate_model(torch, dev, family)
+    layers = len(_layers(model))
+    counts, prompts = phase_generate(torch, dev, model, np, path)
+    del model
+    torch.cuda.empty_cache()
+    per = DECODER_GEN_LAUNCHES[family]
+    want = {"flash_fwd": GEN_NEW * layers,
+            "rope": GEN_NEW * layers * per.get("rope", 0),
+            "rms_norm": GEN_NEW * (layers * per.get("rms_norm", 0)
+                                   + ("rms_norm" in per)),
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_fwd_alibi": 0}
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{path} launches {got}, expected {want}")
+    model = build_generate_model(torch, dev, family, DECODER_CHECK_LAYERS)
+    phase_prompt_check(torch, model, prompts, f"{path.split('_')[0]}_check")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_gpt3_train(torch, dev, np, anatomy=False):
+    """``bench.py``'s ``bench_gpt3_tp`` on the card: ``GPTConfig()`` whole
+    (GPT-3 1.3B: 24 layers, hidden 2048, 16 heads of 128, remat on) through
+    ``make_train_step(loss, AdamW(2e-4, weight_decay=0.1), mesh=
+    HybridMesh(tp=1))`` over a one-rank NCCL world (``shard_module``'s
+    pspec rule, tp = 1), at its batch 4 x 1024. First the train check
+    (loss and three gradients on one row against the plain versions and
+    float32), then 2 warm-up and 8 timed steps under
+    ``count_plain_calls``: every loss finite and the last below the first,
+    K2 exactly twice a layer and step (the forward and remat's recompute),
+    K5a and K5b once, no other kernel and no plain version. Logs ms/step,
+    tokens/s, MFU and peak memory. Returns the launch counts."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
+                                             num_flops_per_token)
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.train import init_state, make_train_step
+    cfg = GPTConfig()
+    tm = time.monotonic()
+    model = GPTForCausalLM(cfg, device=dev, seed=0)
+    ids, labels = train_batch(torch, dev, np, cfg, batch=GPT3_TRAIN_BATCH,
+                              seq=GPT3_TRAIN_SEQ)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in model.parameters())
+    log(f"[gpt3_train] GPTConfig(): {cfg.num_hidden_layers} layers, hidden "
+        f"{cfg.hidden_size}, {nparams / 1e9:.3f} B params, random weights in "
+        f"{time.monotonic() - tm:.1f} s")
+    last = cfg.num_hidden_layers - 1
+    phase_train_check(torch, model, ids, labels,
+                      ("blocks.0.qkv", f"blocks.{last}.fc2", "wte"),
+                      GRAD_REL, "gpt3_train_check")
+    with nccl_world(torch):
+        mesh = D.HybridMesh(tp=1)
+        opt = O.AdamW(learning_rate=2e-4, weight_decay=0.1)
+        state = init_state(model, opt, mesh)
+        step = make_train_step(lambda m, i, lab: m.loss(i, lab), opt,
+                               mesh=mesh)
+        del model
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        holder = [state]
+        del state
+
+        def one():
+            holder[0], loss = step(holder[0], ids, labels)
+            return loss
+        with count_plain_calls() as plain:
+            warm = [one() for _ in range(2)]
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            timed = [one() for _ in range(8)]
+            torch.cuda.synchronize()
+            step_s = (time.monotonic() - t0) / 8
+        counts = K.launches()
+        if anatomy:
+            def steps():
+                for _ in range(2):
+                    one()
+            _anatomy(torch, f"gpt3_train step, batch {GPT3_TRAIN_BATCH} x "
+                     f"{GPT3_TRAIN_SEQ}", "step", steps, 2)
+        del holder, step
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    losses = [float(x) for x in warm + timed]
+    if plain.calls:
+        raise AssertionError(f"gpt3_train: plain versions ran: {plain.calls}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"gpt3_train losses: {losses}")
+    layers, n = cfg.num_hidden_layers, len(losses)
+    want = {"flash_fwd": 2 * layers * n, "flash_bwd_dq": layers * n,
+            "flash_bwd_dkv": layers * n, "rope": 0, "rms_norm": 0,
+            "flash_fwd_alibi": 0}
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"gpt3_train launches {got}, expected {want}")
+    tok_s = GPT3_TRAIN_BATCH * GPT3_TRAIN_SEQ / step_s
+    mfu = num_flops_per_token(cfg, GPT3_TRAIN_SEQ) * tok_s / PEAK_BF16_FLOPS
+    card = card_line()
+    log(f"[gpt3_train] {mesh!r} over NCCL, AdamW(2e-4, weight_decay=0.1): "
+        f"losses {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"[gpt3_train] batch {GPT3_TRAIN_BATCH} x {GPT3_TRAIN_SEQ}: "
+        f"{1e3 * step_s:.1f} ms/step, {tok_s:.0f} tokens/s, MFU "
+        f"{100 * mfu:.2f}% of 989 TFLOP/s, peak allocated "
+        f"{peak / 2**30:.2f} GiB ({card})")
+    log(f"[gpt3_train] launches over {n} steps: {counts}")
+    return counts
+
+
+def phase_phi_train(torch, dev, np, anatomy=False):
+    """Phi-2's widths (hidden 2560, 32 heads of 80, MLP 10 240, vocab
+    51 200) at PHI_TRAIN_LAYERS layers, remat off, batch 4 x 2048 through
+    make_train_step with the headline's AdamW (``run_train``): the train
+    check first, then 10 steps in which K2, K5a and K5b run at head dim 80
+    once a layer and step and K7 four times (q and k, forward and
+    backward), exactly, with no plain version. Returns the launch
+    counts."""
+    from paddle_tpu_torch.models import phi
+    model = build_generate_model(torch, dev, "phi", PHI_TRAIN_LAYERS,
+                                 remat=False)
+    cfg = model.cfg
+    ids, labels = train_batch(torch, dev, np, cfg, batch=PHI_TRAIN_BATCH,
+                              seq=PHI_TRAIN_SEQ)
+    last = PHI_TRAIN_LAYERS - 1
+    names = ("layers.0.qkv_proj", f"layers.{last}.fc2", "lm_head")
+    phase_train_check(torch, model, ids, labels, names, GRAD_REL,
+                      "phi_train_check")
+    with count_plain_calls() as plain:
+        counts = run_train(torch, np, "phi_train", model, ids, labels, False,
+                           anatomy, names, GRAD_REL,
+                           phi.num_flops_per_token(cfg, PHI_TRAIN_SEQ))
+    del model
+    torch.cuda.empty_cache()
+    if plain.calls:
+        raise AssertionError(f"phi_train: plain versions ran: {plain.calls}")
+    steps, layers = 10, PHI_TRAIN_LAYERS     # run_train's, before anatomy
+    want = {"flash_fwd": steps * layers, "flash_bwd_dq": steps * layers,
+            "flash_bwd_dkv": steps * layers, "rope": 4 * steps * layers,
+            "rms_norm": 0, "flash_fwd_alibi": 0}
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"phi_train launches {got}, expected {want}")
     return counts
 
 
@@ -9007,6 +9407,8 @@ def main(argv=None):
                     "quant_serve,quant_check,bloom_serve,bloom_train,"
                     "falcon_rw_serve,falcon_rw_train,falcon7b_serve,"
                     "gemma_train,gemma7b_serve,gptj_serve,gptj_train,"
+                    "gpt3_train,neox_serve,opt_serve,phi_serve,phi_train,"
+                    "glm_serve,"
                     "paged_generate,f16_serve,f16_check,f16_train,f16_moe")
     ap.add_argument("--root", help="import paddle_tpu_torch from the "
                     "checkout at ROOT instead of this one: an earlier "
@@ -9386,6 +9788,24 @@ def main(argv=None):
     if "gptj_train" in phases:
         counts["gptj_train"] = phase_hd256_train(
             torch, dev, np, "gptj_train", "anatomy" in phases)
+    # GPT-3 1.3B trained as bench_gpt3_tp; Pythia-6.9B, OPT-6.7B, Phi-2 and
+    # GLM-4-9B generating whole (prompt logits checked at
+    # DECODER_CHECK_LAYERS layers); Phi-2's widths trained at head dim 80
+    if "gpt3_train" in phases:
+        tp = time.monotonic()
+        counts["gpt3_train"] = phase_gpt3_train(torch, dev, np,
+                                                "anatomy" in phases)
+        log(f"[gpt3_train] phase {time.monotonic() - tp:.1f} s")
+    for fam, path in DECODER_SERVE:
+        if path in phases:
+            tp = time.monotonic()
+            counts[path] = phase_decoder_serve(torch, dev, np, fam, path)
+            log(f"[{path}] phase {time.monotonic() - tp:.1f} s")
+        if path == "phi_serve" and "phi_train" in phases:
+            tp = time.monotonic()
+            counts["phi_train"] = phase_phi_train(torch, dev, np,
+                                                  "anatomy" in phases)
+            log(f"[phi_train] phase {time.monotonic() - tp:.1f} s")
     kern = []
     for path, names in PATHS.items():
         for name in names:

@@ -22,6 +22,15 @@ constexpr int kBK = 32;              // keys per tile: one per lane
 constexpr int kWarps = 8;
 constexpr int kRows = kBQ / kWarps;  // query rows per warp
 
+// The width the FMA routes keep a head of D dims at, in shared memory and
+// in registers (a lane owns the dims lane + 32 c): D rounded up to whole
+// lanes' columns. At D = 80 (Phi-2) that is 96, columns 80..95 zeros on
+// load, which add nothing to a dot product and are never stored.
+template <int D>
+__host__ __device__ constexpr int fma_cols() {
+  return (D + 31) / 32 * 32;
+}
+
 // fp32 words of dynamic shared memory: q tile, K tile (row stride D+1, so
 // the lanes of a warp reading key rows hit distinct banks), V tile
 template <int D>

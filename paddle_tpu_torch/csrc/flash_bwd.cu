@@ -23,6 +23,11 @@
 // bias costs no memory traffic (it comes from the indices); without
 // slopes the first instantiation runs, the code of the mode without ALiBi.
 //
+// Head dim 80 (Phi-2): every route keeps the head at a padded width with
+// zeros past column 80, as K2 does (flash_fwd.cu): 128 on the tensor cores
+// (S and dP run D / 16 = 5 k steps, the products with D as their n dim
+// n 128, whose zero columns are never stored), 96 on the FMA routes.
+//
 // What bounds it on this card: at the training shapes (S = 2048, D = 128)
 // the work is ~S flops per byte, far above the H100's ridge, so the bound
 // is the tensor-core rate.
@@ -117,25 +122,27 @@ __global__ void __launch_bounds__(kWarps * 32)
                         const float* __restrict__ slopes, T* __restrict__ dq,
                         int S, int Sk, int H, int Hkv, float scale,
                         int causal, int window) {
+  constexpr int DP = fma_cols<D>();   // the width kept: 96 at D = 80
   extern __shared__ float smem[];
-  float* q_s = smem;                 // [kBQ][D]
-  float* do_s = q_s + kBQ * D;       // [kBQ][D]
-  float* k_s = do_s + kBQ * D;       // [kBK][D + 1]
-  float* v_s = k_s + kBK * (D + 1);  // [kBK][D + 1]
+  float* q_s = smem;                  // [kBQ][DP]
+  float* do_s = q_s + kBQ * DP;       // [kBQ][DP]
+  float* k_s = do_s + kBQ * DP;       // [kBK][DP + 1]
+  float* v_s = k_s + kBK * (DP + 1);  // [kBK][DP + 1]
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / Hkv);
   int klen;
   const int q_off = row_geometry(kv_lens, b, S, Sk, &klen);
   const float slope = kAlibi ? slopes[(size_t)b * H + h] : 0.f;
 
-  for (int i = threadIdx.x; i < kBQ * D; i += blockDim.x) {
-    const int r = i / D, d = i - r * D, qi = q0 + r;
+  for (int i = threadIdx.x; i < kBQ * DP; i += blockDim.x) {
+    const int r = i / DP, d = i - r * DP, qi = q0 + r;
     const size_t off = ((size_t)(b * S + qi) * H + h) * D + d;
-    q_s[i] = qi < S ? to_f(q[off]) : 0.f;
-    do_s[i] = qi < S ? to_f(dout[off]) : 0.f;
+    const bool in = qi < S && d < D;
+    q_s[i] = in ? to_f(q[off]) : 0.f;
+    do_s[i] = in ? to_f(dout[off]) : 0.f;
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float lse_r[kRows], dl_r[kRows], acc[kRows][D / 32];
+  float lse_r[kRows], dl_r[kRows], acc[kRows][DP / 32];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int qi = q0 + warp * kRows + r;
@@ -143,7 +150,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     lse_r[r] = qi < S ? lse[row] : 0.f;
     dl_r[r] = qi < S ? delta[row] : 0.f;
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < DP / 32; ++c) acc[r][c] = 0.f;
   }
   const int last = min(q0 + kBQ, S) - 1;
   int kend = klen;
@@ -153,28 +160,28 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int k0 = kbeg; k0 < kend; k0 += kBK) {
     const int nk = min(kBK, kend - k0);
     __syncthreads();  // q/dO tiles stored / previous K,V tile consumed
-    for (int i = threadIdx.x; i < nk * D; i += blockDim.x) {
-      const int j = i / D, d = i - j * D;
+    for (int i = threadIdx.x; i < nk * DP; i += blockDim.x) {
+      const int j = i / DP, d = i - j * DP;
       const size_t src = ((size_t)(b * Sk + k0 + j) * Hkv + kvh) * D + d;
-      k_s[j * (D + 1) + d] = to_f(k[src]);
-      v_s[j * (D + 1) + d] = to_f(v[src]);
+      k_s[j * (DP + 1) + d] = d < D ? to_f(k[src]) : 0.f;
+      v_s[j * (DP + 1) + d] = d < D ? to_f(v[src]) : 0.f;
     }
     __syncthreads();
     float s[kRows], dp[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.f;
     if (lane < nk) {
-      const float* kr = k_s + lane * (D + 1);
-      const float* vr = v_s + lane * (D + 1);
-      const float* qw = q_s + warp * kRows * D;
-      const float* dw = do_s + warp * kRows * D;
+      const float* kr = k_s + lane * (DP + 1);
+      const float* vr = v_s + lane * (DP + 1);
+      const float* qw = q_s + warp * kRows * DP;
+      const float* dw = do_s + warp * kRows * DP;
 #pragma unroll 4
       for (int d = 0; d < D; ++d) {
         const float kd = kr[d], vd = vr[d];
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
-          s[r] = fmaf(qw[r * D + d], kd, s[r]);
-          dp[r] = fmaf(dw[r * D + d], vd, dp[r]);
+          s[r] = fmaf(qw[r * DP + d], kd, s[r]);
+          dp[r] = fmaf(dw[r * DP + d], vd, dp[r]);
         }
       }
     }
@@ -190,9 +197,9 @@ __global__ void __launch_bounds__(kWarps * 32)
       const float ds = p * (dp[r] - dl_r[r]) * scale;
       for (int j = 0; j < nk; ++j) {
         const float dsj = __shfl_sync(0xffffffffu, ds, j);
-        const float* kr = k_s + j * (D + 1) + lane;
+        const float* kr = k_s + j * (DP + 1) + lane;
 #pragma unroll
-        for (int c = 0; c < D / 32; ++c)
+        for (int c = 0; c < DP / 32; ++c)
           acc[r][c] = fmaf(dsj, kr[32 * c], acc[r][c]);
       }
     }
@@ -204,7 +211,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     if (qi >= S) continue;
     T* row = dq + ((size_t)(b * S + qi) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) row[lane + 32 * c] = from_f<T>(acc[r][c]);
+    for (int c = 0; c < DP / 32; ++c)
+      if (lane + 32 * c < D) row[lane + 32 * c] = from_f<T>(acc[r][c]);
   }
 }
 
@@ -218,30 +226,32 @@ __global__ void __launch_bounds__(kWarps * 32)
                          const float* __restrict__ slopes, T* __restrict__ dk,
                          T* __restrict__ dv, int S, int Sk, int H, int Hkv,
                          float scale, int causal, int window) {
+  constexpr int DP = fma_cols<D>();     // the width kept: 96 at D = 80
   extern __shared__ float smem[];
-  float* k_s = smem;                   // [kBQ][D]: this block's 64 keys
-  float* v_s = k_s + kBQ * D;          // [kBQ][D]
-  float* q_s = v_s + kBQ * D;          // [kBK][D + 1]: 32 streamed queries
-  float* do_s = q_s + kBK * (D + 1);   // [kBK][D + 1]
-  float* lse_s = do_s + kBK * (D + 1); // [kBK]
+  float* k_s = smem;                    // [kBQ][DP]: this block's 64 keys
+  float* v_s = k_s + kBQ * DP;          // [kBQ][DP]
+  float* q_s = v_s + kBQ * DP;          // [kBK][DP + 1]: 32 streamed queries
+  float* do_s = q_s + kBK * (DP + 1);   // [kBK][DP + 1]
+  float* lse_s = do_s + kBK * (DP + 1); // [kBK]
   float* dl_s = lse_s + kBK;           // [kBK]
   const int k0 = blockIdx.x * kBQ, kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / Hkv;
   int klen;
   const int q_off = row_geometry(kv_lens, b, S, Sk, &klen);
 
-  for (int i = threadIdx.x; i < kBQ * D; i += blockDim.x) {
-    const int r = i / D, d = i - r * D, kj = k0 + r;
+  for (int i = threadIdx.x; i < kBQ * DP; i += blockDim.x) {
+    const int r = i / DP, d = i - r * DP, kj = k0 + r;
     const size_t off = ((size_t)(b * Sk + kj) * Hkv + kvh) * D + d;
-    k_s[i] = kj < Sk ? to_f(k[off]) : 0.f;
-    v_s[i] = kj < Sk ? to_f(v[off]) : 0.f;
+    const bool in = kj < Sk && d < D;
+    k_s[i] = in ? to_f(k[off]) : 0.f;
+    v_s[i] = in ? to_f(v[off]) : 0.f;
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float dk_acc[kRows][D / 32], dv_acc[kRows][D / 32];
+  float dk_acc[kRows][DP / 32], dv_acc[kRows][DP / 32];
 #pragma unroll
   for (int r = 0; r < kRows; ++r)
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
+    for (int c = 0; c < DP / 32; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
 
   // the query rows that reach this tile's live keys [k0, klast]
   const int klast = min(k0 + kBQ, klen) - 1;
@@ -257,11 +267,11 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int qt = qbeg; qt < qend; qt += kBK) {
       const int nq = min(kBK, qend - qt);
       __syncthreads();  // K/V tile stored / previous q tile consumed
-      for (int i = threadIdx.x; i < nq * D; i += blockDim.x) {
-        const int j = i / D, d = i - j * D;
+      for (int i = threadIdx.x; i < nq * DP; i += blockDim.x) {
+        const int j = i / DP, d = i - j * DP;
         const size_t src = ((size_t)(b * S + qt + j) * H + h) * D + d;
-        q_s[j * (D + 1) + d] = to_f(q[src]);
-        do_s[j * (D + 1) + d] = to_f(dout[src]);
+        q_s[j * (DP + 1) + d] = d < D ? to_f(q[src]) : 0.f;
+        do_s[j * (DP + 1) + d] = d < D ? to_f(dout[src]) : 0.f;
       }
       if (threadIdx.x < nq) {
         const size_t row = ((size_t)b * H + h) * S + qt + threadIdx.x;
@@ -273,17 +283,17 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
       for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.f;
       if (lane < nq) {
-        const float* qr = q_s + lane * (D + 1);
-        const float* dr = do_s + lane * (D + 1);
-        const float* kw = k_s + warp * kRows * D;
-        const float* vw = v_s + warp * kRows * D;
+        const float* qr = q_s + lane * (DP + 1);
+        const float* dr = do_s + lane * (DP + 1);
+        const float* kw = k_s + warp * kRows * DP;
+        const float* vw = v_s + warp * kRows * DP;
 #pragma unroll 4
         for (int d = 0; d < D; ++d) {
           const float qd = qr[d], dd = dr[d];
 #pragma unroll
           for (int r = 0; r < kRows; ++r) {
-            s[r] = fmaf(kw[r * D + d], qd, s[r]);
-            dp[r] = fmaf(vw[r * D + d], dd, dp[r]);
+            s[r] = fmaf(kw[r * DP + d], qd, s[r]);
+            dp[r] = fmaf(vw[r * DP + d], dd, dp[r]);
           }
         }
       }
@@ -302,10 +312,10 @@ __global__ void __launch_bounds__(kWarps * 32)
         for (int j = 0; j < nq; ++j) {
           const float pj = __shfl_sync(0xffffffffu, p, j);
           const float dsj = __shfl_sync(0xffffffffu, ds, j);
-          const float* qr = q_s + j * (D + 1) + lane;
-          const float* dr = do_s + j * (D + 1) + lane;
+          const float* qr = q_s + j * (DP + 1) + lane;
+          const float* dr = do_s + j * (DP + 1) + lane;
 #pragma unroll
-          for (int c = 0; c < D / 32; ++c) {
+          for (int c = 0; c < DP / 32; ++c) {
             dv_acc[r][c] = fmaf(pj, dr[32 * c], dv_acc[r][c]);
             dk_acc[r][c] = fmaf(dsj, qr[32 * c], dk_acc[r][c]);
           }
@@ -320,7 +330,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     if (kj >= Sk) continue;
     const size_t off = ((size_t)(b * Sk + kj) * Hkv + kvh) * D;
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) {
+    for (int c = 0; c < DP / 32; ++c) {
+      if (lane + 32 * c >= D) continue;
       dk[off + lane + 32 * c] = from_f<T>(dk_acc[r][c]);
       dv[off + lane + 32 * c] = from_f<T>(dv_acc[r][c]);
     }
@@ -332,7 +343,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* kv_lens,
               const void* slopes, void* dq, int B, int S, int Sk, int H,
               int Hkv, float scale, int causal, int window, void* stream) {
-  const int smem = bwd_smem_floats<D>() * static_cast<int>(sizeof(float));
+  const int smem =
+      bwd_smem_floats<fma_cols<D>()>() * static_cast<int>(sizeof(float));
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<D, T, kAlibi>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -354,7 +366,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* slopes, void* dk, void* dv, int B, int S, int Sk,
                int H, int Hkv, float scale, int causal, int window,
                void* stream) {
-  const int smem = bwd_smem_floats<D>() * static_cast<int>(sizeof(float));
+  const int smem =
+      bwd_smem_floats<fma_cols<D>()>() * static_cast<int>(sizeof(float));
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<D, T, kAlibi>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -380,7 +393,7 @@ constexpr int kTile = 64;  // keys per block and queries per step (m64)
 // the slack that aligns the tiles to 1024 bytes.
 template <int D>
 constexpr int dkv_wgmma_smem_bytes() {
-  return 6 * kTile * D * 2 + 2 * 2 * kTile * 4 + 1024;
+  return 6 * kTile * hopper::tile_cols<D>() * 2 + 2 * 2 * kTile * 4 + 1024;
 }
 
 // The outputs one block of K5b's tensor-core route computes: dK and dV
@@ -402,7 +415,8 @@ __device__ __forceinline__ void dkv_wgmma_block(
     float scale, int causal, int window, int k0, uint8_t* base) {
   using namespace hopper;
   constexpr bool kDV = kPart != kDkvOnlyDK, kDK = kPart != kDkvOnlyDV;
-  constexpr int kTileBytes = kTile * D * 2;
+  constexpr int DP = tile_cols<D>();  // 128 at D = 80
+  constexpr int kTileBytes = kTile * DP * 2;
   const uint32_t k_s = smem_addr(base), v_s = k_s + kTileBytes;
   // stage st: Q at k_s + (2 + 2 st) tiles, dO right after it; its lse and
   // delta rows at rows_s + 2 * 64 * st
@@ -427,8 +441,8 @@ __device__ __forceinline__ void dkv_wgmma_block(
     const int h = kvh * G + it / nqt, qt = qbeg + (it % nqt) * kTile;
     const uint32_t q_st = k_s + (2 + 2 * (it & 1)) * kTileBytes;
     const size_t off = ((size_t)b * S + qt) * q_stride + h * D;
-    load_tile<kTile, D>(q_st, q + off, q_stride, qend - qt);
-    load_tile<kTile, D>(q_st + kTileBytes, dout + off, q_stride, qend - qt);
+    load_rows<kTile, D>(q_st, q + off, q_stride, qend - qt);
+    load_rows<kTile, D>(q_st + kTileBytes, dout + off, q_stride, qend - qt);
     // threads 0..63 copy the lse rows, 64..127 the delta rows
     const int r = threadIdx.x & (kTile - 1);
     const bool ok = qt + r < qend;
@@ -438,9 +452,9 @@ __device__ __forceinline__ void dkv_wgmma_block(
               ok);
   };
   if (iters > 0) {
-    load_tile<kTile, D>(k_s, k + kv_off, kv_stride, klen - k0);
+    load_rows<kTile, D>(k_s, k + kv_off, kv_stride, klen - k0);
     if constexpr (kDK)  // V feeds dP^T only
-      load_tile<kTile, D>(v_s, v + kv_off, kv_stride, klen - k0);
+      load_rows<kTile, D>(v_s, v + kv_off, kv_stride, klen - k0);
     load_q(0);
     cp_async_commit();
   }
@@ -450,9 +464,9 @@ __device__ __forceinline__ void dkv_wgmma_block(
   const int c0 = 2 * (lane & 3);           // query columns 8j + c0 + {0, 1}
   constexpr float kLog2e = 1.4426950408889634f;
   const float sl2 = scale * kLog2e;
-  float dk_acc[kDK ? D / 2 : 1], dv_acc[kDV ? D / 2 : 1];
+  float dk_acc[kDK ? DP / 2 : 1], dv_acc[kDV ? DP / 2 : 1];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) {
+  for (int i = 0; i < DP / 2; ++i) {
     if constexpr (kDK) dk_acc[i] = 0.f;
     if constexpr (kDV) dv_acc[i] = 0.f;
   }
@@ -528,12 +542,12 @@ __device__ __forceinline__ void dkv_wgmma_block(
     if constexpr (kDV) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        mma_rs<E, D>(dv_acc, pa[kk], desc_mnmajor<kTile>(do_st, kk));
+        mma_rs<E, DP>(dv_acc, pa[kk], desc_mnmajor<kTile>(do_st, kk));
     }
     if constexpr (kDK) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        mma_rs<E, D>(dk_acc, da[kk], desc_mnmajor<kTile>(q_st, kk));
+        mma_rs<E, DP>(dk_acc, da[kk], desc_mnmajor<kTile>(q_st, kk));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -623,7 +637,7 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
 // swizzled), plus the slack that aligns the tiles to 1024 bytes.
 template <int D>
 constexpr int dq_wgmma_smem_bytes() {
-  return 6 * kTile * D * 2 + 1024;
+  return 6 * kTile * hopper::tile_cols<D>() * 2 + 1024;
 }
 
 template <typename E, int D, bool kAlibi>
@@ -637,7 +651,8 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
         const float* __restrict__ slopes, E* __restrict__ dq,
         int S, int Sk, int H, int Hkv, float scale, int causal, int window) {
   using namespace hopper;
-  constexpr int kTileBytes = kTile * D * 2;
+  constexpr int DP = tile_cols<D>();  // 128 at D = 80
+  constexpr int kTileBytes = kTile * DP * 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   // Q, dO, then stage st's K at q_s + (2 + 2 st) tiles and V right after
@@ -661,12 +676,12 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
     const int k0 = kbeg + it * kTile;
     const uint32_t k_st = q_s + (2 + 2 * (it & 1)) * kTileBytes;
     const size_t off = ((size_t)b * Sk + k0) * kv_stride + kvh * D;
-    load_tile<kTile, D>(k_st, k + off, kv_stride, kend - k0);
-    load_tile<kTile, D>(k_st + kTileBytes, v + off, kv_stride, kend - k0);
+    load_rows<kTile, D>(k_st, k + off, kv_stride, kend - k0);
+    load_rows<kTile, D>(k_st + kTileBytes, v + off, kv_stride, kend - k0);
   };
   if (iters > 0) {
-    load_tile<kTile, D>(q_s, q + q_off_el, q_stride, S - q0);
-    load_tile<kTile, D>(do_s, dout + q_off_el, q_stride, S - q0);
+    load_rows<kTile, D>(q_s, q + q_off_el, q_stride, S - q0);
+    load_rows<kTile, D>(do_s, dout + q_off_el, q_stride, S - q0);
     load_kv(0);
     cp_async_commit();
   }
@@ -687,9 +702,9 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
     lse2[hr] = qi < S ? lse[row] * kLog2e : 0.f;
     dl[hr] = qi < S ? delta[row] : 0.f;
   }
-  float dq_acc[D / 2];
+  float dq_acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) dq_acc[i] = 0.f;
 
   for (int it = 0; it < iters; ++it) {
     const int k0 = kbeg + it * kTile;
@@ -749,7 +764,7 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      mma_rs<E, D>(dq_acc, da[kk], desc_mnmajor<kTile>(k_st, kk));
+      mma_rs<E, DP>(dq_acc, da[kk], desc_mnmajor<kTile>(k_st, kk));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(dq_acc);
@@ -797,7 +812,8 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 or 2 = float16 (the tensor-core routes
-// of both entry points: 16-byte-aligned pointers); head_dim: 64, 128 or 256. kv_lens may be
+// of both entry points: 16-byte-aligned pointers); head_dim: 64, 80, 128 or
+// 256. kv_lens may be
 // null (no padding); slopes null (no ALiBi) or fp32 [B * H], as K2 got
 // them; window <= 0 means no sliding window. H % Hkv == 0.
 extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q,
@@ -814,6 +830,8 @@ extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q,
     constexpr bool kA = decltype(alibi)::value;
     if (dtype == kF32 && head_dim == 64)
       return launch_dq<64, float, kA> PTT_ARGS;
+    if (dtype == kF32 && head_dim == 80)
+      return launch_dq<80, float, kA> PTT_ARGS;
     if (dtype == kF32 && head_dim == 128)
       return launch_dq<128, float, kA> PTT_ARGS;
     if (dtype == kF32 && head_dim == 256)
@@ -821,6 +839,7 @@ extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q,
     return with_half(dtype, [&](auto e) {
       using E = decltype(e);
       if (head_dim == 64) return launch_dq_wgmma<E, 64, kA> PTT_ARGS;
+      if (head_dim == 80) return launch_dq_wgmma<E, 80, kA> PTT_ARGS;
       if (head_dim == 128) return launch_dq_wgmma<E, 128, kA> PTT_ARGS;
       if (head_dim == 256) return launch_dq_wgmma<E, 256, kA> PTT_ARGS;
       return static_cast<int>(cudaErrorInvalidValue);
@@ -844,6 +863,8 @@ extern "C" int flash_bwd_dkv(int dtype, int head_dim, const void* q,
     constexpr bool kA = decltype(alibi)::value;
     if (dtype == kF32 && head_dim == 64)
       return launch_dkv<64, float, kA> PTT_ARGS;
+    if (dtype == kF32 && head_dim == 80)
+      return launch_dkv<80, float, kA> PTT_ARGS;
     if (dtype == kF32 && head_dim == 128)
       return launch_dkv<128, float, kA> PTT_ARGS;
     if (dtype == kF32 && head_dim == 256)
@@ -851,6 +872,7 @@ extern "C" int flash_bwd_dkv(int dtype, int head_dim, const void* q,
     return with_half(dtype, [&](auto e) {
       using E = decltype(e);
       if (head_dim == 64) return launch_dkv_wgmma<E, 64, kA> PTT_ARGS;
+      if (head_dim == 80) return launch_dkv_wgmma<E, 80, kA> PTT_ARGS;
       if (head_dim == 128) return launch_dkv_wgmma<E, 128, kA> PTT_ARGS;
       if (head_dim == 256) return launch_dkv_wgmma<E, 256, kA> PTT_ARGS;
       return static_cast<int>(cudaErrorInvalidValue);

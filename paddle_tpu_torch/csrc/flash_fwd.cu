@@ -23,7 +23,11 @@
 //     shared memory (hopper_mma.cuh).
 //   fp32 — flash_fwd_kernel, fp32 FMAs on the CUDA cores (attn_tile.cuh):
 //     exact to the card tests' 1e-4, which TF32 tensor cores are not.
-// Head dims 64, 128 and 256 (Gemma, GPT-J). At 256 the tensor-core route
+// Head dims 64, 80 (Phi-2), 128 and 256 (Gemma, GPT-J). At 80 both routes
+// keep the head at a padded width, zeros past column 80 (hopper_mma.cuh
+// tile_cols: 128 on the tensor cores, whose 128-byte swizzle wants whole
+// 64-column panels, so S = Q K^T runs 5 k steps and O += P V n 128;
+// attn_tile.cuh fma_cols: 96 on the FMA route). At 256 the tensor-core route
 // keeps its design: the O accumulator takes D / 2 = 128 fp32 registers a
 // thread (P V issued as two m64n128k16 halves, hopper_mma.cuh mma_rs), and
 // the q tile plus two K/V stages take 164 864 bytes of shared memory, so
@@ -68,10 +72,11 @@ __global__ void __launch_bounds__(kWarps * 32)
                      const float* __restrict__ slopes, T* __restrict__ o,
                      float* __restrict__ lse, int S, int Sk, int H, int Hkv,
                      float scale, int causal, int window) {
+  constexpr int DP = fma_cols<D>();  // the width kept: 96 at D = 80
   extern __shared__ float smem[];
   float* q_s = smem;
-  float* k_s = q_s + kBQ * D;
-  float* v_s = k_s + kBK * (D + 1);
+  float* k_s = q_s + kBQ * DP;
+  float* v_s = k_s + kBK * (DP + 1);
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / Hkv);
   int klen = Sk;
@@ -82,9 +87,11 @@ __global__ void __launch_bounds__(kWarps * 32)
   int q_off = Sk - S;
   if (kv_lens != nullptr && q_off > 0) q_off += klen - Sk;
 
-  for (int i = threadIdx.x; i < kBQ * D; i += blockDim.x) {
-    const int r = i / D, d = i - r * D, qi = q0 + r;
-    q_s[i] = qi < S ? to_f(q[((size_t)(b * S + qi) * H + h) * D + d]) : 0.f;
+  for (int i = threadIdx.x; i < kBQ * DP; i += blockDim.x) {
+    const int r = i / DP, d = i - r * DP, qi = q0 + r;
+    q_s[i] = qi < S && d < D
+                 ? to_f(q[((size_t)(b * S + qi) * H + h) * D + d])
+                 : 0.f;
   }
   const int last = min(q0 + kBQ, S) - 1;
   int kend = klen;
@@ -92,16 +99,16 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int kbeg = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
 
   const float slope = kAlibi ? slopes[(size_t)b * H + h] : 0.f;  // ALiBi
-  RowState<D> st;
+  RowState<DP> st;
   st.init();
   for (int k0 = kbeg; k0 < kend; k0 += kBK) {
     const int nk = min(kBK, kend - k0);
     __syncthreads();  // q tile stored / previous K,V tile consumed
-    for (int i = threadIdx.x; i < nk * D; i += blockDim.x) {
-      const int j = i / D, d = i - j * D;
+    for (int i = threadIdx.x; i < nk * DP; i += blockDim.x) {
+      const int j = i / DP, d = i - j * DP;
       const size_t src = ((size_t)(b * Sk + k0 + j) * Hkv + kvh) * D + d;
-      k_s[j * (D + 1) + d] = to_f(k[src]);
-      v_s[j * D + d] = to_f(v[src]);
+      k_s[j * (DP + 1) + d] = d < D ? to_f(k[src]) : 0.f;
+      v_s[j * DP + d] = d < D ? to_f(v[src]) : 0.f;
     }
     __syncthreads();
     auto keep = [&](int row, int j) {
@@ -109,11 +116,11 @@ __global__ void __launch_bounds__(kWarps * 32)
       return (!causal || qp >= kp) && (window <= 0 || qp - kp < window);
     };
     if constexpr (kAlibi) {
-      tile_update<D>(q_s, k_s, v_s, nk, scale, st, keep, [&](int row, int j) {
+      tile_update<DP>(q_s, k_s, v_s, nk, scale, st, keep, [&](int row, int j) {
         return alibi_bias(slope, q_off + q0 + row, k0 + j, causal);
       });
     } else {
-      tile_update<D>(q_s, k_s, v_s, nk, scale, st, keep);
+      tile_update<DP>(q_s, k_s, v_s, nk, scale, st, keep);
     }
   }
 
@@ -126,8 +133,9 @@ __global__ void __launch_bounds__(kWarps * 32)
     const float inv = l > 0.f ? 1.f / l : 0.f;
     T* orow = o + ((size_t)(b * S + qi) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c)
-      orow[lane + 32 * c] = from_f<T>(st.acc[r][c] * inv);
+    for (int c = 0; c < DP / 32; ++c)
+      if (lane + 32 * c < D)
+        orow[lane + 32 * c] = from_f<T>(st.acc[r][c] * inv);
     if (lane == 0)
       lse[((size_t)b * H + h) * S + qi] = l > 0.f ? st.m[r] + logf(l) : 0.f;
   }
@@ -138,7 +146,8 @@ int launch(const void* q, const void* k, const void* v, const void* kv_lens,
            const void* slopes, void* o, void* lse, int B, int S, int Sk,
            int H, int Hkv, float scale, int causal, int window,
            void* stream) {
-  const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
+  const int smem =
+      smem_floats<fma_cols<D>()>() * static_cast<int>(sizeof(float));
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_kernel<D, T, kAlibi>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -157,11 +166,12 @@ int launch(const void* q, const void* k, const void* v, const void* kv_lens,
 constexpr int kTile = 64;  // q rows per block and keys per step (wgmma m64)
 
 // Dynamic shared memory of the tensor-core route: the q tile and two
-// stages of K and V tiles, each [64][D] bf16 swizzled, plus the slack
-// that aligns them to 1024 bytes.
+// stages of K and V tiles, each [64][D] bf16 swizzled (at the padded
+// width tile_cols<D>(): 128 at D = 80), plus the slack that aligns them
+// to 1024 bytes.
 template <int D>
 constexpr int wgmma_smem_bytes() {
-  return 5 * kTile * D * 2 + 1024;
+  return 5 * kTile * hopper::tile_cols<D>() * 2 + 1024;
 }
 
 template <typename E, int D, bool kAlibi>
@@ -175,7 +185,8 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
                            float* __restrict__ lse, int S, int Sk, int H,
                            int Hkv, float scale, int causal, int window) {
   using namespace hopper;
-  constexpr int kTileBytes = kTile * D * 2;
+  constexpr int DP = tile_cols<D>();  // 128 at D = 80
+  constexpr int kTileBytes = kTile * DP * 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
   // stage st: K at q_s + (1 + 2 st) tiles, V right after it
@@ -202,12 +213,12 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
   auto load_kv = [&](int t) {
     const int k0 = kbeg + t * kTile;
     const uint32_t k_s = q_s + (1 + 2 * (t & 1)) * kTileBytes;
-    load_tile<kTile, D>(k_s, k_src + k0 * kv_stride, kv_stride, kend - k0);
-    load_tile<kTile, D>(k_s + kTileBytes, v_src + k0 * kv_stride, kv_stride,
+    load_rows<kTile, D>(k_s, k_src + k0 * kv_stride, kv_stride, kend - k0);
+    load_rows<kTile, D>(k_s + kTileBytes, v_src + k0 * kv_stride, kv_stride,
                         kend - k0);
   };
   if (ntiles > 0) {
-    load_tile<kTile, D>(q_s, q_src, q_stride, S - q0);
+    load_rows<kTile, D>(q_s, q_src, q_stride, S - q0);
     load_kv(0);
     cp_async_commit();
   }
@@ -219,9 +230,9 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
   const float sl2 = scale * kLog2e;  // scores -> log2 units
   // ALiBi: the slope in log2 units (0 and unused without ALiBi)
   const float a2 = kAlibi ? slopes[(size_t)b * H + h] * kLog2e : 0.f;
-  float acc[D / 2];
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   for (int t = 0; t < ntiles; ++t) {
@@ -316,7 +327,7 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      mma_rs<E, D>(acc, pa[kk], desc_mnmajor<kTile>(v_s, kk));
+      mma_rs<E, DP>(acc, pa[kk], desc_mnmajor<kTile>(v_s, kk));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(acc);
@@ -366,7 +377,7 @@ int launch_wgmma(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32 (FMA route), 1 = bfloat16 or 2 = float16 (the
-// tensor-core route); head_dim: 64, 128 or 256. kv_lens may be null (no
+// tensor-core route); head_dim: 64, 80, 128 or 256. kv_lens may be null (no
 // padding); slopes null (no ALiBi) or fp32 [B * H]; window <= 0 means no
 // sliding window. bf16 and f16 pointers must be 16-byte aligned.
 extern "C" int flash_fwd(int dtype, int head_dim, const void* q,
@@ -381,6 +392,7 @@ extern "C" int flash_fwd(int dtype, int head_dim, const void* q,
   return with_alibi(slopes, [&](auto alibi) {
     constexpr bool kA = decltype(alibi)::value;
     if (dtype == kF32 && head_dim == 64) return launch<64, float, kA> PTT_ARGS;
+    if (dtype == kF32 && head_dim == 80) return launch<80, float, kA> PTT_ARGS;
     if (dtype == kF32 && head_dim == 128)
       return launch<128, float, kA> PTT_ARGS;
     if (dtype == kF32 && head_dim == 256)
@@ -388,6 +400,7 @@ extern "C" int flash_fwd(int dtype, int head_dim, const void* q,
     return with_half(dtype, [&](auto e) {
       using E = decltype(e);
       if (head_dim == 64) return launch_wgmma<E, 64, kA> PTT_ARGS;
+      if (head_dim == 80) return launch_wgmma<E, 80, kA> PTT_ARGS;
       if (head_dim == 128) return launch_wgmma<E, 128, kA> PTT_ARGS;
       if (head_dim == 256) return launch_wgmma<E, 256, kA> PTT_ARGS;
       return static_cast<int>(cudaErrorInvalidValue);

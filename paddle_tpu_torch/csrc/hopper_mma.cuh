@@ -142,6 +142,32 @@ __device__ __forceinline__ void load_tile_masked(uint32_t dst, const E* src,
   }
 }
 
+// The width in shared memory and in the accumulators of a [rows][D] tile
+// of the attention kernels (K2, K5): D rounded up to whole 64-column
+// panels, so that every tile keeps the canonical 128-byte-swizzle layout
+// above. At D = 80 (Phi-2) a row's 160 bytes fill one panel and 16 columns
+// of a second; the tile is laid out as a D = 128 one, its columns 80..127
+// zero-filled (load_rows), the products over the reduction dim D run
+// D / 16 k steps (5) and those with D as their n dim run at the padded
+// width (n 128), whose last 48 columns are zeros that nothing stores.
+template <int D>
+__host__ __device__ constexpr int tile_cols() {
+  return (D + 63) / 64 * 64;
+}
+
+// load_tile of a [ROWS][D] tile into the tile_cols<D>()-wide layout:
+// columns D..tile_cols<D>() - 1 are zero-filled, reading nothing (the
+// whole-panel widths take load_tile as it is)
+template <int ROWS, int D, typename E>
+__device__ __forceinline__ void load_rows(uint32_t dst, const E* src,
+                                          size_t row_stride, int nvalid) {
+  if constexpr (D == tile_cols<D>())
+    load_tile<ROWS, D>(dst, src, row_stride, nvalid);
+  else
+    load_tile_masked<ROWS, tile_cols<D>(), kWarpgroup>(dst, src, row_stride,
+                                                       nvalid, D);
+}
+
 // 16 bytes from shared memory
 __device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
   uint4 v;

@@ -14,8 +14,9 @@ or from in-memory pieces::
     model = auto_from_config(cfg_dict, device="cpu")    # random init
     model = AUTO_REGISTRY["llama"].load(model, state_dict)
 
-The registry holds the ten decoder types the port has. A type that the
-reference's registry holds but the port does not yet raises
+The registry holds the fifteen decoder types the port has (every decoder
+of the reference's registry). A type that the reference's registry holds
+but the port does not yet (its encoders and encoder-decoders) raises
 ``NotImplementedError`` naming its ROADMAP.md item; a type in neither
 raises ``ValueError``.
 """
@@ -27,8 +28,9 @@ from dataclasses import dataclass, fields
 
 import torch
 
-from paddle_tpu_torch.models import bloom, convert as C, falcon, gemma, gptj
-from paddle_tpu_torch.models import llama, mixtral, qwen, qwen2_moe
+from paddle_tpu_torch.models import bloom, convert as C, falcon, gemma, glm
+from paddle_tpu_torch.models import gpt, gpt_neox, gptj, llama, mixtral
+from paddle_tpu_torch.models import opt, phi, qwen, qwen2_moe
 
 
 @dataclass(frozen=True)
@@ -38,6 +40,8 @@ class _Entry:
     load: object                        # load_*_state_dict(model, sd, dtype)
     # config fields an HF config of this type implies without a key
     implied: tuple = ()
+    # HF config key -> the port's config field (identity where omitted)
+    remap: tuple = ()
 
 
 AUTO_REGISTRY = {
@@ -64,15 +68,25 @@ AUTO_REGISTRY = {
                    C.load_gptj_state_dict),
     "codegen": _Entry(gptj.CodeGenConfig, gptj.CodeGenForCausalLM,
                       C.load_codegen_state_dict),
+    "gpt2": _Entry(gpt.GPTConfig, gpt.GPTForCausalLM, C.load_gpt2_state_dict,
+                   remap=(("n_embd", "hidden_size"),
+                          ("n_layer", "num_hidden_layers"),
+                          ("n_head", "num_attention_heads"),
+                          ("n_inner", "intermediate_size"),
+                          ("n_positions", "max_position_embeddings"))),
+    "gpt_neox": _Entry(gpt_neox.GPTNeoXConfig, gpt_neox.GPTNeoXForCausalLM,
+                       C.load_gpt_neox_state_dict),
+    "opt": _Entry(opt.OPTConfig, opt.OPTForCausalLM, C.load_opt_state_dict),
+    "phi": _Entry(phi.PhiConfig, phi.PhiForCausalLM, C.load_phi_state_dict),
+    "glm": _Entry(glm.GlmConfig, glm.GlmForCausalLM, C.load_glm_state_dict),
 }
 
-# the reference registry's other types: encoders, encoder-decoders and the
-# decoder families not ported yet
+# the reference registry's other types: its encoders and encoder-decoders
 NOT_PORTED = (
     "albert", "bart", "bert", "big_bird", "blenderbot", "blenderbot-small",
-    "deberta-v2", "distilbert", "electra", "ernie", "ernie_m", "fnet", "glm",
-    "gpt2", "gpt_neox", "layoutlm", "mbart", "megatron-bert", "mpnet",
-    "nezha", "opt", "pegasus", "phi", "roberta", "roformer", "t5", "xlnet")
+    "deberta-v2", "distilbert", "electra", "ernie", "ernie_m", "fnet",
+    "layoutlm", "mbart", "megatron-bert", "mpnet", "nezha", "pegasus",
+    "roberta", "roformer", "t5", "xlnet")
 
 
 def _entry(model_type: str) -> _Entry:
@@ -81,7 +95,8 @@ def _entry(model_type: str) -> _Entry:
     if model_type in NOT_PORTED:
         raise NotImplementedError(
             f"model_type {model_type!r} is not ported yet (ROADMAP.md queue "
-            f"1, item 8(c)); the port's auto registry has "
+            f"1, item 8(d): the encoders and encoder-decoders); the port's "
+            f"auto registry has "
             f"{sorted(AUTO_REGISTRY)}")
     raise ValueError(
         f"model_type {model_type!r} is not in the auto registry; supported: "
@@ -102,7 +117,9 @@ def auto_config(model_type: str, hf_cfg: dict, dtype=None):
     """The port's config dataclass from an HF config dict: shared field
     names copy over, HF keys the config lacks are ignored, ``None`` means
     the field's default, a field that the HF type implies without a key
-    (Qwen2-MoE's q/k/v biases) is set, and a ``sliding_window`` that the
+    (Qwen2-MoE's q/k/v biases) is set, the keys ``remap`` names land in
+    the port's field of another name (GPT-2's ``n_embd`` -> ``hidden_size``
+    ...), and a ``sliding_window`` that the
     config switches off (``use_sliding_window: false``, as Qwen2's configs
     do) is dropped.
     ``dtype`` (default: the dict's ``dtype``, else the config's default)
@@ -112,6 +129,9 @@ def auto_config(model_type: str, hf_cfg: dict, dtype=None):
     kw = {**dict(entry.implied),
           **{k: v for k, v in hf_cfg.items()
              if k in names and v is not None}}
+    for theirs, ours in entry.remap:
+        if hf_cfg.get(theirs) is not None:
+            kw[ours] = hf_cfg[theirs]
     if hf_cfg.get("use_sliding_window") is False:
         # Qwen2's configs carry a window size that they switch off
         kw.pop("sliding_window", None)

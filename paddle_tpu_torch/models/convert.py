@@ -18,8 +18,9 @@ its slice of the fused parameter (q|k|v into ``qkv_proj``, gate|up into
 ``gate_up_proj``, expert e into row e of the ``[E, h, 2I]`` / ``[E, I,
 h]`` stacks). Nothing is concatenated on the host, so a 7B checkpoint
 costs no second host copy. The re-layouts of the fused QKV tensors
-(BLOOM's head-interleaved ``[nh, 3, d]``, Falcon's three layouts,
-CodeGen's ``mp_num = 4`` column groups) are the reference's reshapes.
+(BLOOM's and GPT-NeoX's head-interleaved ``[nh, 3, d]``, Falcon's three
+layouts, CodeGen's ``mp_num = 4`` column groups) are the reference's
+reshapes; GPT-2's Conv1D weights are ``[in, out]`` already.
 Every parameter of the model must be written, and every piece must have
 its slice's exact shape: a missing or mis-shaped tensor raises.
 
@@ -464,4 +465,128 @@ def load_codegen_state_dict(model, state_dict, dtype=None):
         f.put(p + "k_proj", w[:, 2].reshape(-1, n).T)
         f.put(p + "out_proj", f(p + "attn.out_proj.weight").T)
         _gptj_common(f, p)
+    return f.done()
+
+
+@torch.no_grad()
+def load_gpt2_state_dict(model, state_dict, dtype=None):
+    """``GPTForCausalLM`` from an HF GPT-2 state dict (``transformer.*``
+    names or none). HF's Conv1D layers store ``[in, out]`` already, so the
+    fused ``c_attn`` ([q | k | v] blocks) and the MLP map without a
+    transpose; the head is the (tied) word embedding."""
+    f = _Fill(model, state_dict, dtype, strip="transformer.")
+    f.put("wte", f("wte.weight"))
+    f.put("wpe", f("wpe.weight"))
+    f.norm("ln_f", "ln_f")
+    for i in range(model.cfg.num_hidden_layers):
+        p, k = f"blocks.{i}.", f"h.{i}."
+        f.norm(p + "ln1", k + "ln_1")
+        f.norm(p + "ln2", k + "ln_2")
+        for ours, theirs in (("qkv", "attn.c_attn"), ("proj", "attn.c_proj"),
+                             ("fc1", "mlp.c_fc"), ("fc2", "mlp.c_proj")):
+            f.put(p + ours, f(k + theirs + ".weight"))
+            f.put(p + ours + "_bias", f(k + theirs + ".bias"))
+    return f.done()
+
+
+@torch.no_grad()
+def load_opt_state_dict(model, state_dict, dtype=None):
+    """``OPTForCausalLM`` from an HF state dict (``model.decoder.*``
+    names; the head tied to ``embed_tokens``), the 350m shape too
+    (``project_in`` / ``project_out``, post-norm blocks, no final
+    LayerNorm)."""
+    f = _Fill(model, state_dict, dtype, strip="model.decoder.")
+    f.put("embed_tokens", f("embed_tokens.weight"))
+    f.put("embed_positions", f("embed_positions.weight"))
+    for name in ("project_in", "project_out"):
+        if name in f.params:
+            f.put(name, f(name + ".weight").T)
+    if "final_layer_norm.weight" in f.params:
+        f.norm("final_layer_norm", "final_layer_norm")
+    for i in range(model.cfg.num_hidden_layers):
+        p = f"layers.{i}."
+        f.norm(p + "self_attn_layer_norm", p + "self_attn_layer_norm")
+        f.norm(p + "final_layer_norm", p + "final_layer_norm")
+        for ours, bias in (("q_proj", "q_bias"), ("k_proj", "k_bias"),
+                           ("v_proj", "v_bias"), ("out_proj", "out_bias")):
+            f.put(p + ours, f(p + f"self_attn.{ours}.weight").T)
+            f.put(p + bias, f(p + f"self_attn.{ours}.bias"))
+        for name in ("fc1", "fc2"):
+            f.put(p + name, f(p + name + ".weight").T)
+            f.put(p + name + "_bias", f(p + name + ".bias"))
+    return f.done()
+
+
+@torch.no_grad()
+def load_gpt_neox_state_dict(model, state_dict, dtype=None):
+    """``GPTNeoXForCausalLM`` from an HF state dict (``gpt_neox.*``
+    names). HF fuses QKV head-interleaved (``[nh, 3, d]`` on the out
+    axis, as BLOOM); the port's ``qkv`` is ``[q | k | v]`` blocks. The
+    untied ``embed_out`` is HF's ``[vocab, h]`` transposed."""
+    cfg = model.cfg
+    nh, h = cfg.num_attention_heads, cfg.hidden_size
+    d = h // nh
+    f = _Fill(model, state_dict, dtype, strip="gpt_neox.")
+    f.put("embed_in", f("embed_in.weight"))
+    f.put("embed_out", f("embed_out.weight").T)
+    f.norm("final_layer_norm", "final_layer_norm")
+    for i in range(cfg.num_hidden_layers):
+        p = f"layers.{i}."
+        f.norm(p + "input_layernorm", p + "input_layernorm")
+        f.norm(p + "post_attention_layernorm", p + "post_attention_layernorm")
+        w = f(p + "attention.query_key_value.weight").reshape(nh, 3, d, h)
+        f.put(p + "qkv", *(w[:, j].reshape(nh * d, h).T for j in range(3)))
+        b = f(p + "attention.query_key_value.bias").reshape(nh, 3, d)
+        f.put(p + "qkv_bias", *(b[:, j].reshape(-1) for j in range(3)))
+        f.put(p + "dense", f(p + "attention.dense.weight").T)
+        f.put(p + "dense_bias", f(p + "attention.dense.bias"))
+        f.put(p + "h_to_4h", f(p + "mlp.dense_h_to_4h.weight").T)
+        f.put(p + "h_to_4h_bias", f(p + "mlp.dense_h_to_4h.bias"))
+        f.put(p + "four_h_to_h", f(p + "mlp.dense_4h_to_h.weight").T)
+        f.put(p + "four_h_to_h_bias", f(p + "mlp.dense_4h_to_h.bias"))
+    return f.done()
+
+
+@torch.no_grad()
+def load_glm_state_dict(model, state_dict, dtype=None):
+    """``GlmForCausalLM`` from an HF state dict: Llama's q/k/v packing
+    (with the biases of an ``attention_bias`` config), HF's fused
+    ``gate_up_proj`` as it is ([gate | up]), and ``lm_head`` falling back
+    to the embeddings of a checkpoint that ties them."""
+    f = _Fill(model, state_dict, dtype)
+    f.put("embed_tokens", f("model.embed_tokens.weight"))
+    f.put("norm.weight", f("model.norm.weight"))
+    _lm_head(f)
+    for i in range(model.cfg.num_hidden_layers):
+        p, k = f"layers.{i}.", f"model.layers.{i}."
+        _llama_attention(f, p, k + "self_attn.")
+        f.put(p + "gate_up_proj", f(k + "mlp.gate_up_proj.weight").T)
+        f.put(p + "down_proj", f(k + "mlp.down_proj.weight").T)
+        f.norm(p + "input_layernorm", k + "input_layernorm")
+        f.norm(p + "post_attention_layernorm", k + "post_attention_layernorm")
+    return f.done()
+
+
+@torch.no_grad()
+def load_phi_state_dict(model, state_dict, dtype=None):
+    """``PhiForCausalLM`` from an HF state dict (``model.*`` names): the
+    biased q/k/v packed into the fused ``qkv_proj`` / ``qkv_bias``, the
+    untied biased head."""
+    f = _Fill(model, state_dict, dtype, strip="model.")
+    f.put("embed_tokens", f("embed_tokens.weight"))
+    f.norm("final_layernorm", "final_layernorm")
+    f.put("lm_head", f("lm_head.weight").T)
+    f.put("lm_head_bias", f("lm_head.bias"))
+    for i in range(model.cfg.num_hidden_layers):
+        p = f"layers.{i}."
+        f.norm(p + "input_layernorm", p + "input_layernorm")
+        f.put(p + "qkv_proj", *(f(p + f"self_attn.{n}_proj.weight").T
+                                for n in "qkv"))
+        f.put(p + "qkv_bias", *(f(p + f"self_attn.{n}_proj.bias")
+                                for n in "qkv"))
+        f.put(p + "dense", f(p + "self_attn.dense.weight").T)
+        f.put(p + "dense_bias", f(p + "self_attn.dense.bias"))
+        for name in ("fc1", "fc2"):
+            f.put(p + name, f(p + f"mlp.{name}.weight").T)
+            f.put(p + name + "_bias", f(p + f"mlp.{name}.bias"))
     return f.done()

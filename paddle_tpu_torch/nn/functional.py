@@ -1,6 +1,8 @@
-"""The Llama, MoE and BLOOM/Falcon slice of ``paddle_tpu/nn/functional.py``:
-``silu``, ``swiglu``, ``gelu``, ``embedding``, ``rms_norm`` and
-``layer_norm``, on tensors, and the losses the train steps need:
+"""The Llama, MoE, BLOOM/Falcon and GPT slice of
+``paddle_tpu/nn/functional.py``: ``silu``, ``swiglu``, ``gelu``,
+``embedding``, ``rms_norm``, ``layer_norm``, ``dropout`` and
+``scaled_dot_product_attention``, on tensors, and the losses the train
+steps need:
 ``parallel_cross_entropy`` (Llama, moe_llm), ``cross_entropy``
 (Mixtral, Qwen2-MoE) and ``masked_mean``, the reduction of every model's
 loss. ``gelu`` and ``layer_norm`` are plain PyTorch: XLA fuses them in
@@ -37,6 +39,48 @@ def swiglu(x, y=None):
     if y is None:
         x, y = torch.chunk(x, 2, dim=-1)
     return torch.nn.functional.silu(x) * y
+
+
+def dropout_keep(shape, p, generator=None, device=None, axis=None):
+    """The keep mask of :func:`dropout`: bool, True with probability
+    ``1 - p``, drawn from ``generator`` (default: torch's generator of
+    ``device``); with ``axis`` the mask varies only along those dims and
+    broadcasts over the others, as the reference's does."""
+    shape = list(shape)
+    if axis is not None:
+        axes = (axis,) if isinstance(axis, int) else tuple(axis)
+        shape = [n if i in axes else 1 for i, n in enumerate(shape)]
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - p
+
+
+def dropout(x, p=0.5, training=True, *, generator=None, axis=None,
+            keep=None):
+    """``paddle_tpu.nn.functional.dropout``: zero each element with
+    probability ``p`` and scale the kept ones by ``1 / (1 - p)``; the
+    identity when not training or ``p == 0``. The mask is drawn from
+    ``generator`` (the port's counterpart of the reference's ``rng`` key),
+    or is ``keep`` (a :func:`dropout_keep` mask drawn before, so that a
+    block recomputed under remat applies the masks of its first run)."""
+    if not training or p == 0.0:
+        return x
+    if keep is None:
+        keep = dropout_keep(x.shape, p, generator, x.device, axis)
+    return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, *, generator=None,
+                                 scale=None, window=None, kv_lens=None):
+    """[B, S, H, D] layout (the reference's flash-attention convention):
+    ``ops.attention.scaled_dot_product_attention``, the flash kernel (K2
+    forward, K5 backward on the card) for every call it takes and the
+    eager path for a dense mask or dropout, as the reference dispatches."""
+    from paddle_tpu_torch.ops import attention as _attn
+    return _attn.scaled_dot_product_attention(
+        query, key, value, attn_mask=attn_mask, dropout_p=dropout_p,
+        is_causal=is_causal, training=training, generator=generator,
+        scale=scale, window=window, kv_lens=kv_lens)
 
 
 def embedding(x, weight, padding_idx=None):

@@ -72,6 +72,21 @@ class Sequential(nn.Module):
         self.layers.append(layer)
 
 
+class Dropout(nn.Module):
+    """``paddle_tpu.nn.Dropout``: :func:`~.functional.dropout` while the
+    module is training. ``forward(x, generator=None, keep=None)``: the
+    mask is drawn from ``generator`` (the reference's ``rng``), or is
+    ``keep``."""
+
+    def __init__(self, p=0.5, axis=None):
+        super().__init__()
+        self.p, self.axis = p, axis
+
+    def forward(self, x, generator=None, keep=None):
+        return F.dropout(x, self.p, training=self.training,
+                         generator=generator, axis=self.axis, keep=keep)
+
+
 class LayerNorm(nn.Module):
     """``paddle_tpu.nn.LayerNorm``: weight 1 and bias 0 at init;
     ``weight_attr=False`` / ``bias_attr=False`` leave that parameter

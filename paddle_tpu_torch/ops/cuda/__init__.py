@@ -62,6 +62,18 @@ GEMMA_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rope")
 GEMMA_SERVE_KERNELS = ROPE_GENERATE_KERNELS
 GPTJ_SERVE_KERNELS = ("flash_fwd",)
 GPTJ_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the other decoder families through make_train_step / generic_generate:
+# GPT-3 1.3B's step runs the flash kernels (its LayerNorms and learned
+# positions are plain PyTorch, as the reference's are XLA's); GPT-NeoX
+# and Phi rotate their partial rotary slice on K7 (Phi's attention at head
+# dim 80), OPT has learned positions (K2 alone) and GLM-4's RMSNorm is K1
+# (its interleaved rope plain PyTorch, as GPT-J's)
+GPT3_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+NEOX_SERVE_KERNELS = ROPE_GENERATE_KERNELS
+OPT_SERVE_KERNELS = ("flash_fwd",)
+PHI_SERVE_KERNELS = ROPE_GENERATE_KERNELS
+PHI_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rope")
+GLM_SERVE_KERNELS = ("rms_norm", "flash_fwd")
 # the router: replicas serving end to end run the serve path; split into a
 # prefill replica (K1, K2, K3, K7) and a decode replica (K1, K4, K7's
 # fold) they run it between them; over int8 pools the quantized path

@@ -9,7 +9,7 @@ of the reference's ``custom_vjp``). On CUDA tensors its forward launches
 backward launches the two kernels of ``csrc/flash_bwd.cu`` (K5a dq, K5b
 dk/dv) from the saved O and LSE; a CUDA tensor the kernels cannot take
 raises. :func:`kernel_route` names the kernel K2, K5a and K5b run for a
-dtype and head dim (:data:`HEAD_DIMS`: 64, 128, 256): bf16 and float16
+dtype and head dim (:data:`HEAD_DIMS`: 64, 80, 128, 256): bf16 and float16
 run on the tensor cores (``wgmma``, see ``csrc/hopper_mma.cuh``), float32 on fp32
 FMAs (exact to 1e-4). On CPU tensors the same ``Function`` runs
 :func:`flash_attention_fwd_plain` and :func:`flash_attention_bwd_plain`.
@@ -38,9 +38,11 @@ import torch
 
 from paddle_tpu_torch.ops.cuda import _build
 
-# head dims the three kernels are built for: 256 is Gemma's and GPT-J's
-# (K5b's tensor-core route splits dK and dV over two blocks there)
-HEAD_DIMS = (64, 128, 256)
+# head dims the three kernels are built for: 80 is Phi-2's (kept at a
+# padded width with zero columns: 128 on the tensor cores, 96 on the FMA
+# route), 256 Gemma's and GPT-J's (K5b's tensor-core route splits dK and
+# dV over two blocks there)
+HEAD_DIMS = (64, 80, 128, 256)
 # the kernel each of ROUTED launches for each input dtype
 ROUTES = {torch.bfloat16: "wgmma", torch.float16: "wgmma",
           torch.float32: "fma"}
@@ -177,7 +179,7 @@ def kernel_route(dtype, head_dim):
     q's type before dS K, as the reference does) or "fma" (float32: fp32
     FMAs on the CUDA cores). The ALiBi mode runs on the same route.
     Raises NotImplementedError for a head dim outside :data:`HEAD_DIMS`
-    (64, 128, 256) and TypeError for another dtype."""
+    (64, 80, 128, 256) and TypeError for another dtype."""
     if head_dim not in HEAD_DIMS:
         raise NotImplementedError(
             f"flash kernel head_dim {head_dim}: built for {HEAD_DIMS}")

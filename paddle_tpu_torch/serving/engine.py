@@ -205,8 +205,8 @@ from paddle_tpu_torch.utils.faults import fault_point
 def card_shape_error(cfg, max_rank=None):
     """Why the card's kernels cannot serve a model of config ``cfg`` (with
     an adapter store of rank ``max_rank``), or None when they can: the
-    engine runs the flash kernels (K2, K5; ``_flash.HEAD_DIMS``: 64, 128,
-    256) and the paged kernels (K3, K4; ``_paged.HEAD_DIMS``: 64, 128), so
+    engine runs the flash kernels (K2, K5; ``_flash.HEAD_DIMS``: 64, 80,
+    128, 256) and the paged kernels (K3, K4; ``_paged.HEAD_DIMS``: 64, 128), so
     a head dim must be in both; the paged decode kernel (K4) takes GQA
     groups up to ``MAX_GROUP``, and the LoRA expand kernel ranks up to
     ``LORA_MAX_RANK``. The CPU's plain paths serve every shape."""

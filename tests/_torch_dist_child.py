@@ -1458,6 +1458,77 @@ def cp_cases(inputs, out):
         _cp_engine_cases(inputs, out, rank, model)
 
 
+# -------------------------------------------------------------- gpt mesh
+GPT_MESHES = {"tp2": dict(tp=2), "dp2_tp2": dict(dp=2, tp=2)}
+GPT_TINY = dict(num_attention_heads=4)
+
+
+def _gpt(inputs, prefix="w:"):
+    from paddle_tpu_torch.models.convert import load_jax_state_dict
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    m = GPTForCausalLM(GPTConfig.tiny(**GPT_TINY), device="cpu")
+    load_jax_state_dict(m, {k[len(prefix):]: v for k, v in inputs.items()
+                            if k.startswith(prefix)})
+    return m
+
+
+def _gpt_mesh_case(inputs, out, rank, name, shape):
+    """The tiny GPT sharded over one mesh (``shard_module``'s rule: qkv /
+    fc1 columns, proj / fc2 rows, wte vocab rows): loss, logits, every
+    global gradient, the global state_dict and 3 steps of
+    ``make_train_step(AdamW(2e-4, weight_decay=0.1), mesh=)``, as the
+    reference's bench_gpt3_tp trains it; results written by rank 0."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.distributed.mesh import DATA_AXES
+    from paddle_tpu_torch.distributed.sharded import global_grads
+    from paddle_tpu_torch.train import init_state, make_train_step
+    from paddle_tpu_torch.train.step import loss_and_grads
+    ids, labels = _t(inputs["ids"]), _t(inputs["labels"])
+    mesh = _mesh(int(np.prod(list(shape.values()))), **shape)
+    model = D.shard_module(_gpt(inputs), mesh, min_size=1)
+    rows = mesh.batch_sharding()
+    with torch.no_grad():
+        logits = mesh.gather(model(rows(ids)), (DATA_AXES,))
+    loss, _ = loss_and_grads(model, _lm_loss, [(ids, labels)], mesh)
+    grads = global_grads(model)
+    sd = model.state_dict()
+    opt = O.AdamW(learning_rate=2e-4, weight_decay=0.1)
+    state = init_state(_gpt(inputs), opt, mesh)
+    step = make_train_step(_lm_loss, opt, mesh=mesh)
+    losses = []
+    for _ in range(3):
+        state, lo = step(state, ids, labels)
+        losses.append(float(lo))
+    if rank == 0:
+        out[f"{name}:logits"] = _np(logits)
+        out[f"{name}:loss"] = _np(loss)
+        for k, g in grads.items():
+            out[f"{name}:grad:{k}"] = _np(g)
+        for k, v in sd.items():
+            out[f"{name}:sd:{k}"] = _np(v)
+        out[f"{name}:train_losses"] = np.asarray(losses)
+        out[f"{name}:local_wte"] = np.asarray(
+            dict(model.named_parameters())["wte"].shape)
+
+
+def gpt_cases(inputs, out):
+    """Each of GPT_MESHES on its first ranks, and the refused tp degree
+    (4 ranks: tp=4 over a GPT of 2 heads)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    rank = D.get_rank()
+    for name, shape in GPT_MESHES.items():
+        if rank < int(np.prod(list(shape.values()))):
+            _gpt_mesh_case(inputs, out, rank, name, shape)
+    try:
+        D.shard_module(GPTForCausalLM(GPTConfig.tiny(), device="cpu"),
+                       _mesh(4, tp=4), min_size=1)
+        out["tp4_refusal"] = np.asarray("")
+    except ValueError as e:
+        out["tp4_refusal"] = np.asarray(str(e))
+
+
 CASES = {"api": api_cases, "llama": llama_cases, "pipeline": pipeline_cases,
          "hybrid": hybrid_cases, "sp": sp_cases, "moe": moe_cases,
-         "ckpt": ckpt_cases, "cp": cp_cases}
+         "ckpt": ckpt_cases, "cp": cp_cases, "gpt": gpt_cases}

@@ -1,7 +1,7 @@
 """The port's auto registry (``models/auto.py``) against the reference's
 (``paddle_tpu/models/auto.py``, spec ``tests/test_auto.py``): a two-shard
 local Llama directory loads and matches HF and the reference loader, each
-of the ten ported types builds from an HF-style config dict and runs a
+of the fifteen ported types builds from an HF-style config dict and runs a
 forward, an unported reference type raises by its ROADMAP item, an
 unknown type and a directory without shards raise as the reference
 does."""
@@ -82,11 +82,21 @@ _TYPES = {
     "gptj": dict(n_embd=32, n_layer=1, n_head=4, rotary_dim=4, n_inner=None),
     "codegen": dict(n_embd=32, n_layer=1, n_head=4, rotary_dim=4,
                     n_inner=None),
+    # HF GPT-2's names, remapped onto the GPT config's fields
+    "gpt2": dict(n_embd=32, n_layer=1, n_head=4, n_inner=64, n_positions=32),
+    "gpt_neox": dict(intermediate_size=64, rotary_pct=0.25,
+                     use_parallel_residual=False),
+    "opt": dict(ffn_dim=64, word_embed_proj_dim=16,
+                do_layer_norm_before=False),
+    "phi": dict(intermediate_size=64, num_key_value_heads=2,
+                partial_rotary_factor=0.5),
+    "glm": dict(intermediate_size=64, num_key_value_heads=2,
+                partial_rotary_factor=0.5, attention_bias=False),
 }
 
 
 def test_the_registry_splits_the_references():
-    assert len(tauto.AUTO_REGISTRY) == 10
+    assert len(tauto.AUTO_REGISTRY) == 15
     assert set(tauto.AUTO_REGISTRY) | set(tauto.NOT_PORTED) == \
         set(jauto._registry())
     assert not set(tauto.AUTO_REGISTRY) & set(tauto.NOT_PORTED)
@@ -98,9 +108,12 @@ def test_auto_from_config_builds_each_ported_type(mt):
     included), the model builds on the CPU and its forward is finite."""
     cfgd = {**_BASE, **_TYPES[mt], "model_type": mt, "dtype": "float32",
             "remat": False}
-    if mt in ("bloom", "gptj", "codegen"):
+    if mt in ("bloom", "gptj", "codegen", "gpt2"):
         for k in ("num_hidden_layers", "num_attention_heads"):
             cfgd.pop(k)
+    if mt == "gpt2":
+        cfgd.pop("hidden_size")
+        cfgd.pop("max_position_embeddings")
     m = tauto.auto_from_config(cfgd, device="cpu")
     assert isinstance(m, tauto.AUTO_REGISTRY[mt].model_cls)
     assert m.cfg.dtype == torch.float32
@@ -119,12 +132,12 @@ def test_auto_from_config_builds_each_ported_type(mt):
     assert torch.isfinite(out.float()).all(), mt
 
 
-@pytest.mark.parametrize("mt", ["gpt2", "t5", "phi", "bert"])
+@pytest.mark.parametrize("mt", ["roberta", "t5", "bart", "bert"])
 def test_unported_reference_type_names_its_item(mt, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"item 8\(c\)"):
+    with pytest.raises(NotImplementedError, match=r"item 8\(d\)"):
         tauto.auto_from_config({"model_type": mt})
     (tmp_path / "config.json").write_text(json.dumps({"model_type": mt}))
-    with pytest.raises(NotImplementedError, match=r"item 8\(c\)"):
+    with pytest.raises(NotImplementedError, match=r"item 8\(d\)"):
         tauto.auto_from_pretrained(str(tmp_path), device="cpu")
 
 

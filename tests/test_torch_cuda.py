@@ -296,16 +296,16 @@ EDGE_CASES = {
                                        (torch.bfloat16, 2e-2),
                                        (torch.float16, 2e-2)],
                          ids=["f32", "bf16", "f16"])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("case", EDGE_CASES.keys())
 def test_flash_kernels_match_plain_at_tile_edges(dtype, tol, d, case):
     """K2 (O and LSE) and K5a/K5b (dq, dk, dv) against their plain
     versions on their route (bf16: tensor cores, fp32: FMAs) at S and Sk
     off the 64-row tiles, one and five query rows end-aligned to 70 keys
     with kv_lens, a row with no live key (O and LSE exactly 0), a window
-    smaller than one key tile, GQA 32/8 and 8/1, at head dims 64, 128
-    and 256 (K5b's tensor-core route: a dV block and a dK block a k
-    tile). Rows without a live key, and padded rows, get a zero
+    smaller than one key tile, GQA 32/8 and 8/1, at head dims 64, 80
+    (Phi-2: the tiles at a padded width, zero columns past 80), 128 and
+    256 (K5b's tensor-core route: a dV block and a dK block a k tile). Rows without a live key, and padded rows, get a zero
     cotangent, as callers give them. Neither kernel uses atomics: two
     runs give identical bits."""
     if not torch.cuda.is_available():
@@ -442,7 +442,7 @@ DQ_CASES = {
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
                          ids=["bf16", "f16"])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
 @pytest.mark.parametrize("case", DQ_CASES.keys())
 def test_flash_dq_tensor_core_route_matches_plain(dtype, d, group, case):
@@ -1067,6 +1067,107 @@ def test_gemma_gptj_on_card_match_cpu_and_launch_their_kernels(
     assert torch.equal(*streams)
     counts = K.launches()
     assert counts["flash_fwd"] == 6 * 2 and counts["flash_fwd_alibi"] == 0
+    ids = prompts[:2]
+    labels = np.concatenate([ids[:, 1:], np.full((2, 1), -100)], axis=1)
+    losses = []
+    for model in (cpu, card):
+        K.reset_launches()
+        opt = O.AdamW(learning_rate=1e-3, weight_decay=0.1,
+                      grad_clip=O.ClipGradByGlobalNorm(1.0))
+        state = init_state(model, opt)
+        step = make_train_step(lambda mm, i, lab: mm.loss(i, lab), opt)
+        dev = next(model.parameters()).device
+        run = []
+        for _ in range(2):
+            state, loss = step(state, torch.as_tensor(ids, device=dev),
+                               torch.as_tensor(labels, device=dev))
+            run.append(float(loss))
+        losses.append(run)
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+    counts = K.launches()
+    fwd = 2 * 2 * (2 if cfg.remat else 1)      # steps x layers x forwards
+    assert counts["flash_fwd"] == fwd, counts
+    assert counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 4, counts
+
+
+# name -> (model module, config and model classes, config kw, 2 layers,
+# fp32, the kernels its generate and train paths launch): GPT at head dim
+# 64 with remat, GPT-NeoX's rope on 16 of 64 lanes (K7 on the copied
+# slice), OPT's 350m shape (post-norm, projections), Phi at head dim 80
+# (K2 / K5 on their padded tiles) with rope on 32 of 80 lanes, GLM at GQA
+# 4:1 with K1 norms and its interleaved rope in plain PyTorch
+DECODER_FAMILIES = {
+    "gpt": ("gpt", "GPTConfig", "GPTForCausalLM",
+            dict(hidden_size=256, num_attention_heads=4, intermediate_size=512,
+                 vocab_size=512, max_position_embeddings=64, remat=True),
+            ("flash_fwd",)),
+    "gpt_neox": ("gpt_neox", "GPTNeoXConfig", "GPTNeoXForCausalLM",
+                 dict(hidden_size=256, num_attention_heads=4,
+                      intermediate_size=512, vocab_size=512),
+                 ("flash_fwd", "rope")),
+    "opt_350m_shape": ("opt", "OPTConfig", "OPTForCausalLM",
+                       dict(hidden_size=256, num_attention_heads=4,
+                            ffn_dim=512, vocab_size=512,
+                            word_embed_proj_dim=128,
+                            do_layer_norm_before=False),
+                       ("flash_fwd",)),
+    "phi": ("phi", "PhiConfig", "PhiForCausalLM",
+            dict(hidden_size=320, num_attention_heads=4,
+                 num_key_value_heads=4, intermediate_size=640,
+                 partial_rotary_factor=0.4, vocab_size=512),
+            ("flash_fwd", "rope")),
+    "glm": ("glm", "GlmConfig", "GlmForCausalLM",
+            dict(hidden_size=512, num_attention_heads=4,
+                 num_key_value_heads=1, intermediate_size=512,
+                 vocab_size=512),
+            ("rms_norm", "flash_fwd")),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", DECODER_FAMILIES)
+def test_decoder_families_on_card_match_cpu_and_launch_their_kernels(
+        family, monkeypatch):
+    """A 2-layer model of each decoder family in float32 on the card and
+    on the CPU (plain versions): the prompt logits within 5e-4 * (1 + |x|),
+    the same greedy tokens through generic_generate (K2 once a layer and
+    step, and the family's K7 / K1), and the same losses over two
+    make_train_step steps to fp32 rounding, with K5a and K5b once a layer
+    and step (K2 twice under GPT's remat). ``eager_attention`` never
+    runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import importlib
+
+    import numpy as np
+
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.decoding import generic_generate
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.train import init_state, make_train_step
+
+    def no_eager(*a, **kw):
+        raise AssertionError(f"eager_attention ran on the {family} path")
+    monkeypatch.setattr(A, "eager_attention", no_eager)
+    mod, cfg_name, cls_name, kw, kernels = DECODER_FAMILIES[family]
+    m = importlib.import_module(f"paddle_tpu_torch.models.{mod}")
+    cfg = getattr(m, cfg_name).tiny(initializer_range=0.2, **kw)
+    cpu = getattr(m, cls_name)(cfg, device="cpu")
+    card = getattr(m, cls_name)(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    prompts = np.random.RandomState(0).randint(0, 512, (3, 40))
+    with torch.no_grad():
+        want = cpu(torch.as_tensor(prompts))
+        got = card(torch.as_tensor(prompts, device="cuda")).cpu()
+    assert float(((got - want).abs() / (1 + want.abs())).max()) <= 5e-4
+    K.reset_launches()
+    streams = [generic_generate(model, prompts, max_new_tokens=6).cpu()
+               for model in (cpu, card)]
+    assert torch.equal(*streams)
+    counts = K.launches()
+    assert counts["flash_fwd"] == 6 * 2 and counts["flash_fwd_alibi"] == 0
+    assert all(counts[k] > 0 for k in kernels), counts
     ids = prompts[:2]
     labels = np.concatenate([ids[:, 1:], np.full((2, 1), -100)], axis=1)
     losses = []

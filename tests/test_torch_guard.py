@@ -27,6 +27,9 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "paddle_tpu_torch.models.qwen, paddle_tpu_torch.ops.cuda.rope, "
         "paddle_tpu_torch.serving.quant, paddle_tpu_torch.models.bloom, "
         "paddle_tpu_torch.models.falcon, paddle_tpu_torch.nn.layers, "
+        "paddle_tpu_torch.models.gpt, paddle_tpu_torch.models.gpt_neox, "
+        "paddle_tpu_torch.models.opt, paddle_tpu_torch.models.phi, "
+        "paddle_tpu_torch.models.glm, paddle_tpu_torch.nn.functional, "
         "paddle_tpu_torch.peft, paddle_tpu_torch.serving.adapters, "
         "paddle_tpu_torch.models.speculative, "
         "paddle_tpu_torch.serving.router, paddle_tpu_torch.serving.transfer, "
@@ -75,7 +78,8 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_entry_points_default_to_the_card():
-    """The model constructors and the makers of rope tables, KV pools,
+    """The model constructors (Llama; GPT, GPT-NeoX, OPT, Phi and GLM) and
+    the makers of rope tables, KV pools,
     ALiBi slopes and seeded generators, the mesh, the process group, the
     tensor-parallel layers and the pipeline layer put their tensors (and
     their ranks) on the card when no device is named: without one they
@@ -111,6 +115,13 @@ def test_entry_points_default_to_the_card():
             8, 4, **kw).weight,
         "PipelineLayer": lambda **kw: PipelineLayer(
             [Linear(2, 2, device="cpu")], 1, **kw).stacked["weight"]}
+    import importlib
+    for mod, cls in (("gpt", "GPT"), ("gpt_neox", "GPTNeoX"), ("opt", "OPT"),
+                     ("phi", "Phi"), ("glm", "Glm")):
+        m = importlib.import_module(f"paddle_tpu_torch.models.{mod}")
+        makers[f"{cls}ForCausalLM"] = (
+            lambda m=m, cls=cls, **kw: next(getattr(m, f"{cls}ForCausalLM")(
+                getattr(m, f"{cls}Config").tiny(), **kw).parameters()))
     for name, make in makers.items():
         assert make(device="cpu").device.type == "cpu", name
     if torch.cuda.is_available():
@@ -233,6 +244,12 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
         "gemma7b_serve": K.GEMMA_SERVE_KERNELS,
         "gptj_serve": K.GPTJ_SERVE_KERNELS,
         "gptj_train": K.GPTJ_TRAIN_KERNELS,
+        "gpt3_train": K.GPT3_TRAIN_KERNELS,
+        "neox_serve": K.NEOX_SERVE_KERNELS,
+        "opt_serve": K.OPT_SERVE_KERNELS,
+        "phi_serve": K.PHI_SERVE_KERNELS,
+        "phi_train": K.PHI_TRAIN_KERNELS,
+        "glm_serve": K.GLM_SERVE_KERNELS,
         "router_serve": K.ROUTER_SERVE_KERNELS,
         "router_serve_disagg": K.ROUTER_SERVE_KERNELS,
         "router_serve_i8": K.ROUTER_SERVE_I8_KERNELS,
@@ -257,12 +274,14 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
         "cp_serve": K.CP_SERVE_KERNELS}
     # K7 rotates every rotate-half rope of every path; the ALiBi paths
     # (BLOOM, falcon-rw) have no rope and run K2's (and K5's) ALiBi mode
-    # instead, GPT-J's interleaved rope is plain PyTorch, as the
-    # reference's (no Pallas kernel behind it), and the sp / ep paths
-    # drive the attention functions and one MoE layer, no rope
+    # instead, GPT-J's and GLM's interleaved rope is plain PyTorch, as the
+    # reference's (no Pallas kernel behind it), GPT and OPT have learned
+    # positions, and the sp / ep paths drive the attention functions and
+    # one MoE layer, no rope
     alibi = {p for p in chip_smoke.PATHS if p.startswith(("bloom",
                                                           "falcon_rw"))}
     gptj = {p for p in chip_smoke.PATHS if p.startswith("gptj")}
+    gptj |= {"gpt3_train", "opt_serve", "glm_serve"}
     layers = {"sp_train", "ep_train"}
     # (a float16 path's names are the float16 counters: "rope_f16")
     assert all({"rope", "rope_f16"} & set(names)
