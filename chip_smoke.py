@@ -548,6 +548,32 @@ Phases (each one fails the run when it fails; nothing is caught):
   phi_train  Phi-2's widths at 4 layers, batch 4 x 2048, remat off: K2,
             K5a and K5b at head dim 80 once a layer and step, K7 four
             times (q, k; forward and backward)
+  bert_train  ``bench.py``'s ``bench_bert_dp`` (BASELINE config 2) at
+            dp = 1: ``BertForPretraining(BertConfig.base())`` in bf16,
+            batch 8 x 128, AdamW(1e-4, weight_decay=0.01) through
+            ``make_train_step(..., with_rng=True)`` over a one-rank NCCL
+            ``HybridMesh(dp=1)``, hidden and attention dropout 0.1: the
+            loss and three gradients at dropout 0 against float32
+            (GRAD_REL), then 10 steps in which attention runs the eager
+            path (its dropout, as the reference's goes to
+            ``xla_attention``) and no kernel launches; samples/s, ms/step,
+            MFU, peak memory
+  bert_finetune  ``BertForSequenceClassification`` at BERT-base, bf16,
+            ``varlen_attention``, attention dropout 0, hidden dropout
+            0.1: batch 32 x 128 right-padded to seeded lengths in
+            16-128, 8 steps; K2, K5a and K5b without a causal mask at head
+            dim 64 with kv_lens, exactly 12 launches of each a step, no
+            plain version
+  bert_encode  ``BertModel`` at BERT-base in eval, bf16, varlen, the same
+            batch: exactly 12 K2 launches a forward, sequences/s, the
+            valid rows' hidden states held to float32 (CHECK_REL)
+  encoder_serve  one eval forward each of RoBERTa, ERNIE, ELECTRA,
+            LayoutLM, DistilBERT, ALBERT and ERNIE-M (the auto registry's
+            classes at their configs' published default widths, bf16)
+            on 32 full-length rows of 128 tokens without a mask: K2
+            exactly once a layer (ALBERT: once an application of its
+            shared layer), no plain version, sequences/s, each output held
+            to float32 (CHECK_REL)
   anatomy   (only when asked for: --phases build,anatomy or
             build,train,anatomy) 16 steady decode ticks and, with
             ``train``, ``bloom_train`` or ``falcon_rw_train``, 2 steps of
@@ -607,7 +633,8 @@ path (``"path": "serve"``, ``"async_serve"``, ``"lora_serve"``,
 ``"falcon_rw_serve"``, ``"falcon_rw_train"``, ``"falcon7b_serve"``,
 ``"gemma_train"``, ``"gemma7b_serve"``, ``"gptj_serve"``,
 ``"gptj_train"``, ``"gpt3_train"``, ``"neox_serve"``, ``"opt_serve"``,
-``"phi_serve"``, ``"phi_train"``, ``"glm_serve"``, ``"paged_generate"``,
+``"phi_serve"``, ``"phi_train"``, ``"glm_serve"``, ``"bert_finetune"``,
+``"bert_encode"``, ``"encoder_serve"``, ``"paged_generate"``,
 or a float16 path,
 ``"f16_serve"``, ``"f16_serve_i8"``, ``"f16_train"``, ``"f16_moe_serve"``
 or ``"f16_moe_train"``, whose entries name the float16 counters,
@@ -786,6 +813,9 @@ PATHS = {"serve": ("rms_norm", "flash_fwd", "paged_chunk", "paged_decode",
          "phi_serve": ("flash_fwd", "rope"),
          "phi_train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rope"),
          "glm_serve": ("rms_norm", "flash_fwd"),
+         "bert_finetune": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+         "bert_encode": ("flash_fwd",),
+         "encoder_serve": ("flash_fwd",),
          "router_serve": ("rms_norm", "flash_fwd", "paged_chunk",
                           "paged_decode", "rope", "rope_kv"),
          "router_serve_disagg": ("rms_norm", "flash_fwd", "paged_chunk",
@@ -886,6 +916,14 @@ DECODER_CHECK_LAYERS = 8
 # (family of build_generate_model, path): the generate phases
 DECODER_SERVE = (("neox", "neox_serve"), ("opt", "opt_serve"),
                  ("phi", "phi_serve"), ("glm", "glm_serve"))
+# the BERT-family encoders: bench_bert_dp's batch 8 x 128 (bert_train,
+# 10 AdamW steps), and a fine-tune / encoding batch of 32 rows of 128
+# positions right-padded to lengths drawn from BERT_LENS_SEED in 16-128
+# (bert_finetune's steps; bert_encode's and encoder_serve's timed
+# forwards)
+BERT_TRAIN_BATCH, BERT_SEQ = 8, 128
+BERT_BATCH, BERT_LENS_SEED = 32, 26
+BERT_FINETUNE_STEPS, ENCODE_ITERS = 8, 10
 
 
 def log(*a):
@@ -1343,6 +1381,10 @@ def phase_kernels(torch, dev):
     # GPT, GPT-NeoX, OPT, Phi (head dim 80) and GLM
     if 80 in getattr(FA, "HEAD_DIMS", ()):
         results.update(decoder_kernel_entries(torch, dev))
+    # the encoders: K2 / K5 without a causal mask at BERT-base's shape
+    if _port_has("models.bert"):
+        import numpy as np
+        results.update(encoder_kernel_entries(torch, dev, np))
     # the trainer stack: Trainer.fit and the fp8 step run the headline
     # step's shapes; the LoRA step Llama-2-7B's at 1 x 2048
     b, s, h, d = LORA_TRAIN_SHAPE
@@ -2125,6 +2167,144 @@ def decoder_kernel_entries(torch, dev):
                                      (*gen, 32, 128), 2, 93)}
     torch.cuda.empty_cache()
     return res
+
+
+# ------------------------------------------------------ the encoders (K2/K5)
+def bert_batch(torch, dev, np, vocab):
+    """The fine-tune / encoding batch: BERT_BATCH rows of BERT_SEQ
+    positions right-padded to lengths drawn in 16-128 from BERT_LENS_SEED
+    (ids from 1 up, 0 in the padding), the 1/0 mask, two-class labels;
+    on the card. Returns (lens int32, ids, mask, labels)."""
+    rs = np.random.RandomState(BERT_LENS_SEED)
+    lens = rs.randint(16, BERT_SEQ + 1, BERT_BATCH)
+    mask = np.arange(BERT_SEQ)[None, :] < lens[:, None]
+    ids = np.where(mask, rs.randint(1, vocab, (BERT_BATCH, BERT_SEQ)), 0)
+    labels = rs.randint(0, 2, BERT_BATCH)
+    return tuple(torch.as_tensor(a, device=dev) for a in (
+        lens.astype(np.int32), ids, mask.astype(np.int64), labels))
+
+
+def _varlen_bound(b, s, h, d, es, lens, n_q, n_kv, n_out_q, n_out_kv,
+                  n_rows, products):
+    """Bound of a non-causal attention pass at q [b, s, h, d] whose keys
+    stop at each row's ``lens`` (all s without): ``n_q`` query-shaped
+    inputs (q, dO) read whole, ``n_kv`` key-shaped ones (k, v) read up to
+    each row's length, ``n_out_q`` / ``n_out_kv`` outputs of each shape
+    written whole, ``n_rows`` fp32 row vectors [b, h, s] (LSE, delta),
+    and ``products`` matrix products over the live (query, key) pairs:
+    every query row (a padded one too: nothing masks queries without a
+    causal bound) against its row's live keys."""
+    live = b * s if lens is None else int(sum(lens))
+    full = b * s * h * d * es
+    return bound(full * (n_q + n_out_q + n_out_kv) + live * h * d * es * n_kv
+                 + n_rows * b * h * s * 4, products * 2 * d * h * s * live)
+
+
+def encoder_kernel_entries(torch, dev, np):
+    """K2, K5a and K5b without a causal mask at BERT-base's attention shape
+    q/k/v [32, 128, 12, 64] (head dim 64): with the fine-tune batch's
+    kv_lens (bert_finetune, bert_encode) and without (encoder_serve's
+    full rows), against the plain versions in f32, f16 and bf16. Every
+    query row, the padded ones too, gets a nonzero cotangent (they attend
+    the valid keys, so their dO reaches those keys' dk and dv); the keys
+    past a row's length must get dk = dv = 0 exactly. Timed in bf16
+    beside the plain versions and SDPA over the same keys (a boolean key
+    mask [B, 1, 1, S] with kv_lens; its backward by autograd for K5).
+    Returns {path: {kernel: entry}}."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import _build
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+    b, s, h, d = BERT_BATCH, BERT_SEQ, 12, 64
+    kl = bert_batch(torch, dev, np, 100)[0]
+    lens = kl.tolist()
+    keys = torch.arange(s, device=dev)[None, :] < kl[:, None]   # [B, S]
+    g = torch.Generator(device=dev).manual_seed(27)
+    base = [torch.randn(b, s, h, d, generator=g, device=dev)
+            for _ in range(4)]
+    errs = {}
+    for dtype, dt in _all_dts(torch):
+        q, k, v, do = (t.to(dt) for t in base)
+        for tag, lens_arg in (("kv_lens", kl), ("full", None)):
+            args = (False, d ** -0.5, None, lens_arg)
+            o, lse = FA.flash_fwd_cuda(q, k, v, *args)
+            ref_o, ref_lse = FA.flash_attention_fwd_plain(q, k, v, *args)
+            e = _agree(f"flash_fwd (bert shape, non-causal, {tag})", dtype,
+                       _max_err(o, ref_o))
+            _agree(f"flash_fwd log-sum-exp (bert shape, {tag}, {dtype} "
+                   f"inputs)", "f32", _max_err(lse, ref_lse))
+            if dtype == _hn():
+                errs[f"flash_fwd {tag}"] = e
+            if lens_arg is None:
+                continue
+            got = FA.flash_bwd_cuda(q, k, v, o, lse, do, *args)
+            ref = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, *args)
+            for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+                key = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"
+                e = _agree(f"flash_bwd {name} (bert shape, non-causal, "
+                           f"kv_lens, padded rows' dO nonzero)", dtype,
+                           _max_err(a, r))
+                if dtype == _hn():
+                    errs[key] = max(errs.get(key, 0.0), e)
+            for name, t in (("dk", got[1]), ("dv", got[2])):
+                if t[~keys].any():
+                    raise AssertionError(f"flash_bwd {name} ({dtype}): keys "
+                                         f"past kv_lens got a nonzero "
+                                         f"gradient")
+            del got, ref
+    q, k, v, do = (t.to(_hdt(torch)) for t in base)
+    es = q.element_size()
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kmask = keys[:, None, None, :]
+    out = {}
+    for tag, lens_arg, lb in (("kv_lens", kl, lens), ("full", None, None)):
+        args = (False, d ** -0.5, None, lens_arg)
+        b_ms, b_by = _varlen_bound(b, s, h, d, es, lb, 1, 2, 1, 0, 1, 2)
+        mask = kmask if lens_arg is not None else None
+        out[tag] = dict(
+            max_abs_err=errs[f"flash_fwd {tag}"],
+            variant=_route(FA, "flash_fwd", q),
+            ms=time_ms(lambda: FA.flash_fwd_cuda(q, k, v, *args)),
+            plain_ms=time_ms(lambda: FA.flash_attention_fwd_plain(
+                q, k, v, *args), iters=10, warmup=2),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask)),
+            bound_ms=b_ms, bound_by=b_by,
+            shape=f"q/k/v [{b}, {s}, {h}, {d}] {_hn()}, non-causal, "
+                  + (f"kv_lens {min(lens)}-{max(lens)} (sum {sum(lens)})"
+                     if lens_arg is not None else "no mask")
+                  + f"; {_route(FA, 'flash_fwd', q)} route")
+    args = (False, d ** -0.5, None, kl)
+    o, lse = FA.flash_fwd_cuda(q, k, v, *args)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    bargs = (_build.dtype_code(q, "encoder k5"), q, k, v, do, lse, delta,
+             *args)
+    plain_ms = time_ms(lambda: FA.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, *args), iters=10, warmup=2)
+    ql, kl_, vl = (t.transpose(1, 2).detach().requires_grad_()
+                   for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl_, vl, attn_mask=kmask)
+    dot = do.transpose(1, 2)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl_, vl), dot, retain_graph=True), iters=20)
+    bwd = {}
+    for key, fn, n_out_q, n_out_kv, products in (
+            ("flash_bwd_dq", FA.flash_bwd_dq, 1, 0, 3),
+            ("flash_bwd_dkv", FA.flash_bwd_dkv, 0, 2, 4)):
+        b_ms, b_by = _varlen_bound(b, s, h, d, es, lens, 2, 2, n_out_q,
+                                   n_out_kv, 2, products)
+        bwd[key] = dict(
+            max_abs_err=errs[key], variant=_route(FA, key, q),
+            ms=time_ms(lambda: fn(*bargs), iters=20),
+            plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+            bound_by=b_by,
+            shape=f"q/k/v/dO [{b}, {s}, {h}, {d}] {_hn()}, non-causal, "
+                  f"kv_lens {min(lens)}-{max(lens)}; "
+                  f"{_route(FA, key, q)} route")
+    del lib_out
+    torch.cuda.empty_cache()
+    return {"bert_finetune": {"flash_fwd": out["kv_lens"], **bwd},
+            "bert_encode": {"flash_fwd": out["kv_lens"]},
+            "encoder_serve": {"flash_fwd": out["full"]}}
 
 
 # -------------------------------------------------------------------- K6
@@ -5519,6 +5699,302 @@ def phase_phi_train(torch, dev, np, anatomy=False):
     if got != want:
         raise AssertionError(f"phi_train launches {got}, expected {want}")
     return counts
+
+
+# ------------------------------------------------------------- encoders
+def _bert_pretrain_batch(torch, dev, np, vocab):
+    """``bench_bert_dp``'s batch from np.random.RandomState(0): ids, MLM
+    labels at 15% of the positions (-100 elsewhere), NSP labels."""
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, vocab, (BERT_TRAIN_BATCH, BERT_SEQ))
+    mlm = np.where(rs.rand(BERT_TRAIN_BATCH, BERT_SEQ) < 0.15, ids, -100)
+    nsp = rs.randint(0, 2, (BERT_TRAIN_BATCH,))
+    return tuple(torch.as_tensor(a, device=dev) for a in (ids, mlm, nsp))
+
+
+def _timed_launches(torch, fn, n):
+    """Run ``fn`` ``n`` times with the launch counters set to 0 just
+    before, under ``count_plain_calls``: (the results, seconds a call over
+    the last n - 1 — None for n = 1 —, the launch counts, the plain
+    calls)."""
+    from paddle_tpu_torch.ops import cuda as K
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with count_plain_calls() as plain:
+        outs = [fn()]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        outs += [fn() for _ in range(n - 1)]
+        torch.cuda.synchronize()
+        sec = (time.monotonic() - t0) / (n - 1) if n > 1 else None
+    return outs, sec, K.launches(), plain.calls
+
+
+def _exact_launches(path, counts, want):
+    """Every kernel of ``want`` launched exactly so often and every other
+    kernel not at all."""
+    got = {k: n for k, n in counts.items() if n or k in want}
+    if got != {k: n for k, n in want.items() if n}:
+        raise AssertionError(f"{path} launches {got}, expected {want}")
+
+
+def phase_bert_train(torch, dev, np):
+    """``bench.py``'s ``bench_bert_dp`` on the card at dp = 1:
+    ``BertForPretraining(BertConfig.base())`` in bf16 (hidden and
+    attention dropout 0.1), batch 8 x 128, through ``make_train_step(loss,
+    AdamW(1e-4, weight_decay=0.01), mesh=HybridMesh(dp=1),
+    with_rng=True)`` over a one-rank NCCL world. First the train check on
+    a copy with dropout 0 (the same seed: the same weights; its attention
+    runs K2 / K5 without a causal mask): the MLM loss and three gradients
+    on one row against the plain versions and float32 (GRAD_REL). Then 1
+    warm-up and 9 counted steps (8 timed): every loss finite and the last
+    below the first (means of three steps: dropout moves each step's loss);
+    attention dropout sends every layer to ``eager_attention``
+    (exactly 12 calls a step, as the reference's dropout goes to
+    ``xla_attention``) and no kernel launches. Logs samples/s, ms/step,
+    MFU (``models.bert.num_flops_per_token``) and peak memory. Returns the
+    launch counts (all 0)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.bert import (BertConfig, BertForPretraining,
+                                              num_flops_per_token)
+    from paddle_tpu_torch.ops import cuda as K
+    from paddle_tpu_torch.train import init_state, make_train_step
+    cfg0 = BertConfig.base(dtype=torch.bfloat16, hidden_dropout_prob=0.0,
+                           attention_probs_dropout_prob=0.0)
+    ids, mlm, nsp = _bert_pretrain_batch(torch, dev, np, cfg0.vocab_size)
+    model = BertForPretraining(cfg0, device=dev, seed=0)
+    last = cfg0.num_hidden_layers - 1
+    phase_train_check(torch, model, ids, mlm,
+                      ("bert.layers.0.attention.q_proj.weight",
+                       f"bert.layers.{last}.output.weight",
+                       "bert.embeddings.word_embeddings.weight"),
+                      GRAD_REL, "bert_train_check")
+    del model
+    cfg = BertConfig.base(dtype=torch.bfloat16)
+    tm = time.monotonic()
+    model = BertForPretraining(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in model.parameters())
+    log(f"[bert_train] BertConfig.base(): {cfg.num_hidden_layers} layers, "
+        f"hidden {cfg.hidden_size}, {nparams / 1e6:.1f} M params, dropout "
+        f"{cfg.hidden_dropout_prob} / {cfg.attention_probs_dropout_prob}, "
+        f"random weights in {time.monotonic() - tm:.1f} s")
+    with nccl_world(torch):
+        mesh = D.HybridMesh(dp=1)
+        opt = O.AdamW(learning_rate=1e-4, weight_decay=0.01)
+        state = init_state(model, opt, mesh)
+        step = make_train_step(
+            lambda m, i, lab, ns, g: m.loss(i, lab, ns, generator=g), opt,
+            mesh=mesh, with_rng=True)
+        del model
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        holder = [state]
+        del state
+
+        def one():
+            holder[0], loss = step(holder[0], ids, mlm, nsp)
+            return loss
+        warm = [one()]
+        losses, step_s, counts, plain = _timed_launches(torch, one, 9)
+        del holder, step
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    losses = [float(x) for x in warm + losses]
+    n = len(losses) - 1                 # the steps counted
+    # (dropout moves each step's loss: the means of three steps fall)
+    if not all(np.isfinite(losses)) or not sum(losses[-3:]) < sum(
+            losses[:3]):
+        raise AssertionError(f"bert_train losses: {losses}")
+    if any(counts.values()):
+        raise AssertionError(f"bert_train launched kernels: "
+                             f"{ {k: c for k, c in counts.items() if c} }")
+    if plain != {"eager_attention": cfg.num_hidden_layers * n}:
+        raise AssertionError(f"bert_train plain calls {plain}, expected "
+                             f"{cfg.num_hidden_layers * n} eager_attention")
+    tok_s = BERT_TRAIN_BATCH * BERT_SEQ / step_s
+    mfu = num_flops_per_token(cfg, BERT_SEQ) * tok_s / PEAK_BF16_FLOPS
+    card = card_line()
+    log(f"[bert_train] {mesh!r} over NCCL, AdamW(1e-4, weight_decay=0.01), "
+        f"with_rng: losses {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"[bert_train] batch {BERT_TRAIN_BATCH} x {BERT_SEQ}: "
+        f"{1e3 * step_s:.2f} ms/step, {BERT_TRAIN_BATCH / step_s:.1f} "
+        f"samples/s, MFU {100 * mfu:.2f}% of 989 TFLOP/s (3 x (L (8 h^2 + "
+        f"4 h I + 4 S h) + 2 h^2 + 2 h V) = "
+        f"{num_flops_per_token(cfg, BERT_SEQ) / 1e6:.1f} MFLOP a token), "
+        f"peak allocated {peak / 2**30:.2f} GiB ({card})")
+    log(f"[bert_train] over {n} steps: no kernel launch, "
+        f"{plain['eager_attention']} eager_attention calls (attention "
+        f"dropout)")
+    return counts
+
+
+def phase_bert_finetune(torch, dev, np):
+    """``BertForSequenceClassification`` at BERT-base in bf16 with
+    ``varlen_attention`` (the right-padded batch's mask becomes kv_lens),
+    attention dropout 0 and hidden dropout 0.1, batch 32 x 128 (lengths
+    16-128), through ``make_train_step(cross entropy, AdamW(2e-5,
+    weight_decay=0.01), with_rng=True)``: 1 warm-up and 8 counted steps,
+    every loss finite; K2, K5a and K5b without a causal mask at head dim
+    64 exactly 12 times a step each, no other kernel, no plain version.
+    Returns the launch counts."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models.bert import (BertConfig,
+                                              BertForSequenceClassification)
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.train import init_state, make_train_step
+    cfg = BertConfig.base(dtype=torch.bfloat16, varlen_attention=True,
+                          attention_probs_dropout_prob=0.0)
+    lens, ids, mask, labels = bert_batch(torch, dev, np, cfg.vocab_size)
+    model = BertForSequenceClassification(cfg, device=dev, seed=0)
+    opt = O.AdamW(learning_rate=2e-5, weight_decay=0.01)
+    holder = [init_state(model, opt)]
+    step = make_train_step(
+        lambda m, i, am, lab, g: F.cross_entropy(
+            m(i, attention_mask=am, generator=g), lab), opt, with_rng=True)
+    del model
+
+    def one():
+        holder[0], loss = step(holder[0], ids, mask, labels)
+        return loss
+    warm = [one()]
+    losses, step_s, counts, plain = _timed_launches(
+        torch, one, BERT_FINETUNE_STEPS)
+    del holder, step
+    torch.cuda.empty_cache()
+    losses = [float(x) for x in warm + losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"bert_finetune losses: {losses}")
+    if plain:
+        raise AssertionError(f"bert_finetune: plain versions ran: {plain}")
+    per = cfg.num_hidden_layers * BERT_FINETUNE_STEPS
+    _exact_launches("bert_finetune", counts, {
+        "flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per})
+    log(f"[bert_finetune] batch {BERT_BATCH} x {BERT_SEQ}, kv_lens "
+        f"{int(lens.min())}-{int(lens.max())} ({int(lens.sum())} of "
+        f"{BERT_BATCH * BERT_SEQ} positions live): {1e3 * step_s:.2f} "
+        f"ms/step, {BERT_BATCH / step_s:.1f} samples/s, losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)} ({card_line()})")
+    log(f"[bert_finetune] launches over {BERT_FINETUNE_STEPS} steps: "
+        f"{ {k: c for k, c in counts.items() if c} }")
+    return counts
+
+
+def phase_bert_encode(torch, dev, np):
+    """``BertModel`` at BERT-base in eval, bf16, ``varlen_attention``, the
+    fine-tune batch: ENCODE_ITERS forwards, K2 exactly 12 times each and
+    nothing else, sequences/s; the valid rows' hidden states held to a
+    float32 copy through the plain versions (``_hold_logits``'s rule,
+    CHECK_REL). Returns the launch counts."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertModel
+    cfg = BertConfig.base(dtype=torch.bfloat16, varlen_attention=True)
+    lens, ids, mask, _ = bert_batch(torch, dev, np, cfg.vocab_size)
+    model = BertModel(cfg, device=dev, seed=0).eval()
+    valid = mask.bool()
+    with torch.no_grad():
+        outs, sec, counts, plain = _timed_launches(
+            torch, lambda: model(ids, attention_mask=mask)[0], ENCODE_ITERS)
+        if plain:
+            raise AssertionError(f"bert_encode: plain versions ran: {plain}")
+        _exact_launches("bert_encode", counts, {
+            "flash_fwd": cfg.num_hidden_layers * ENCODE_ITERS})
+        got = outs[0][valid]
+        del outs
+        with plain_kernels():
+            ref = model(ids, attention_mask=mask)[0][valid]
+            m32 = fp32_copy(torch, model).eval()
+            ref32 = m32(ids, attention_mask=mask)[0][valid]
+            del m32
+    del model
+    torch.cuda.empty_cache()
+    _hold_logits("bert_encode_check", ("hidden states (valid rows)",),
+                 (got,), (ref,), (ref32,), CHECK_REL)
+    log(f"[bert_encode] batch {BERT_BATCH} x {BERT_SEQ}, kv_lens "
+        f"{int(lens.min())}-{int(lens.max())}: {1e3 * sec:.2f} ms a "
+        f"forward, {BERT_BATCH / sec:.1f} sequences/s, K2 "
+        f"{counts['flash_fwd']} launches over {ENCODE_ITERS} forwards "
+        f"({card_line()})")
+    return counts
+
+
+def encoder_models(torch):
+    """(name, model class, config, forward) of ``encoder_serve``: the auto
+    registry's classes of RoBERTa, ERNIE, ELECTRA, LayoutLM, DistilBERT,
+    ALBERT and ERNIE-M at their configs' published default widths, bf16;
+    ``forward(model, ids, bbox)`` gives the output held to float32."""
+    from paddle_tpu_torch.models import (albert, distilbert, electra, ernie,
+                                         ernie_m, layoutlm, roberta)
+    bf = dict(dtype=torch.bfloat16)
+
+    def first(m, ids, bbox):
+        out = m(ids)
+        return out[0] if isinstance(out, tuple) else out
+    return (
+        ("roberta", roberta.RobertaForMaskedLM, roberta.RobertaConfig(**bf),
+         first),
+        ("ernie", ernie.ErnieForMaskedLM, ernie.ErnieConfig(**bf), first),
+        ("electra", electra.ElectraForPreTraining,
+         electra.ElectraConfig(**bf), first),
+        ("layoutlm", layoutlm.LayoutLMForMaskedLM,
+         layoutlm.LayoutLMConfig(**bf), lambda m, ids, bbox: m(ids, bbox)),
+        ("distilbert", distilbert.DistilBertForMaskedLM,
+         distilbert.DistilBertConfig(**bf), first),
+        ("albert", albert.AlbertForMaskedLM, albert.AlbertConfig(**bf),
+         first),
+        ("ernie_m", ernie_m.ErnieMModel, ernie_m.ErnieMConfig(**bf), first))
+
+
+def phase_encoder_serve(torch, dev, np):
+    """One eval forward each of ``encoder_models`` on 32 full-length rows
+    of 128 seeded ids (LayoutLM with seeded boxes) and no mask, so every
+    layer's attention takes K2: exactly once a layer (DistilBERT's 6,
+    ALBERT's 12 applications of its one layer), no other kernel, no plain
+    version; sequences/s over 3 timed forwards; each output held to a
+    float32 copy through the plain versions (CHECK_REL). Returns the
+    launch counts summed over the seven counted forwards."""
+    total = {}
+    rs = np.random.RandomState(28)
+    x0, y0 = (rs.randint(0, 500, (BERT_BATCH, BERT_SEQ)) for _ in range(2))
+    bbox = torch.as_tensor(np.stack(
+        [x0, y0, x0 + rs.randint(1, 500, x0.shape),
+         y0 + rs.randint(1, 500, y0.shape)], -1), device=dev)
+    for name, cls, cfg, fwd in encoder_models(torch):
+        ids = torch.as_tensor(rs.randint(2, cfg.vocab_size,
+                                         (BERT_BATCH, BERT_SEQ)), device=dev)
+        model = cls(cfg, device=dev, seed=0).eval()
+        layers = getattr(cfg, "num_hidden_layers", None) or cfg.n_layers
+        with torch.no_grad():
+            outs, _, counts, plain = _timed_launches(
+                torch, lambda: fwd(model, ids, bbox), 1)
+            got = outs[0]
+            if plain:
+                raise AssertionError(f"encoder_serve {name}: plain versions "
+                                     f"ran: {plain}")
+            _exact_launches(f"encoder_serve {name}", counts,
+                            {"flash_fwd": layers})
+            for k, c in counts.items():
+                total[k] = total.get(k, 0) + c
+            sec = time_ms(lambda: fwd(model, ids, bbox), iters=3,
+                          warmup=1) / 1e3
+            with plain_kernels():
+                ref = fwd(model, ids, bbox)
+                m32 = fp32_copy(torch, model).eval()
+                ref32 = fwd(m32, ids, bbox)
+                del m32
+        nparams = sum(p.numel() for p in model.parameters())
+        del model
+        torch.cuda.empty_cache()
+        _hold_logits(f"encoder_serve {name}", (f"{cls.__name__} output",),
+                     (got,), (ref,), (ref32,), CHECK_REL)
+        log(f"[encoder_serve] {name}: {cls.__name__}, {nparams / 1e6:.1f} M "
+            f"params, {layers} layers: {1e3 * sec:.2f} ms a forward of "
+            f"{BERT_BATCH} x {BERT_SEQ}, {BERT_BATCH / sec:.1f} "
+            f"sequences/s, K2 {counts['flash_fwd']} launches")
+        del got, ref, ref32
+    log(f"[encoder_serve] launches over the seven forwards: {total} "
+        f"({card_line()})")
+    return total
 
 
 def _anatomy(torch, label, unit, run, n):
@@ -9408,7 +9884,8 @@ def main(argv=None):
                     "falcon_rw_serve,falcon_rw_train,falcon7b_serve,"
                     "gemma_train,gemma7b_serve,gptj_serve,gptj_train,"
                     "gpt3_train,neox_serve,opt_serve,phi_serve,phi_train,"
-                    "glm_serve,"
+                    "glm_serve,bert_train,bert_finetune,bert_encode,"
+                    "encoder_serve,"
                     "paged_generate,f16_serve,f16_check,f16_train,f16_moe")
     ap.add_argument("--root", help="import paddle_tpu_torch from the "
                     "checkout at ROOT instead of this one: an earlier "
@@ -9806,6 +10283,16 @@ def main(argv=None):
             counts["phi_train"] = phase_phi_train(torch, dev, np,
                                                   "anatomy" in phases)
             log(f"[phi_train] phase {time.monotonic() - tp:.1f} s")
+    # the BERT-family encoders: bench_bert_dp's pretraining step, a
+    # varlen fine-tune step and encoding, the other encoders' forwards
+    for name in ("bert_train", "bert_finetune", "bert_encode",
+                 "encoder_serve"):
+        if name in phases:
+            tp = time.monotonic()
+            got = globals()[f"phase_{name}"](torch, dev, np)
+            if name in PATHS:
+                counts[name] = got
+            log(f"[{name}] phase {time.monotonic() - tp:.1f} s")
     kern = []
     for path, names in PATHS.items():
         for name in names:

@@ -21,10 +21,28 @@ Ported so far: the single-device paged serving path and the train step
 step, and the trainer stack around it (``train.Trainer``, checkpoints,
 ``ElasticRunner``, ``io``, ``amp``, adapter-only LoRA training), and
 its distribution over a hybrid mesh of processes (``distributed``: dp,
-fsdp, tp, the 1F1B and zero-bubble pipeline, fleet, launch) — see
-``ROADMAP.md`` for the queues that remain.
+fsdp, tp, the 1F1B and zero-bubble pipeline, fleet, launch), and the
+BERT-family encoders (``models.bert`` and the models built on it,
+``nn.transformer``) — see ``ROADMAP.md`` for the queues that remain.
+``save`` / ``load`` are ``train.checkpoint``'s, as the reference's
+``paddle_tpu.save`` / ``load``.
 """
+from paddle_tpu_torch import (amp, core, io, nn, ops,  # noqa: F401
+                              optimizer, quantization, utils)
+from paddle_tpu_torch.core import device  # noqa: F401
 from paddle_tpu_torch.core.device import resolve_device  # noqa: F401
 from paddle_tpu_torch.core.random import generator  # noqa: F401
+from paddle_tpu_torch.train.checkpoint import load, save  # noqa: F401
 
-__all__ = ["resolve_device", "generator"]
+__all__ = ["resolve_device", "generator", "save", "load"]
+
+
+def __getattr__(name):
+    # the heavier subpackages load on first use, as the reference's do
+    if name in ("distributed", "models"):
+        import importlib
+        mod = importlib.import_module(f"paddle_tpu_torch.{name}")
+        globals()[name] = mod
+        return mod
+    raise AttributeError(
+        f"module 'paddle_tpu_torch' has no attribute {name!r}")

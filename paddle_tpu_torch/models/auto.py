@@ -15,10 +15,12 @@ or from in-memory pieces::
     model = AUTO_REGISTRY["llama"].load(model, state_dict)
 
 The registry holds the fifteen decoder types the port has (every decoder
-of the reference's registry). A type that the reference's registry holds
-but the port does not yet (its encoders and encoder-decoders) raises
-``NotImplementedError`` naming its ROADMAP.md item; a type in neither
-raises ``ValueError``.
+of the reference's registry) and eight encoders (BERT, RoBERTa, ERNIE,
+ELECTRA, LayoutLM, DistilBERT, ALBERT, ERNIE-M), each with the model
+class the reference's registry names. A type that the reference's
+registry holds but the port does not yet (its other encoders and the
+encoder-decoders) raises ``NotImplementedError`` naming its ROADMAP.md
+item; a type in neither raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -28,9 +30,11 @@ from dataclasses import dataclass, fields
 
 import torch
 
-from paddle_tpu_torch.models import bloom, convert as C, falcon, gemma, glm
-from paddle_tpu_torch.models import gpt, gpt_neox, gptj, llama, mixtral
-from paddle_tpu_torch.models import opt, phi, qwen, qwen2_moe
+from paddle_tpu_torch.models import albert, bert, bloom, convert as C
+from paddle_tpu_torch.models import distilbert, electra, ernie, ernie_m
+from paddle_tpu_torch.models import falcon, gemma, glm, gpt, gpt_neox, gptj
+from paddle_tpu_torch.models import layoutlm, llama, mixtral, opt, phi, qwen
+from paddle_tpu_torch.models import qwen2_moe, roberta
 
 
 @dataclass(frozen=True)
@@ -79,14 +83,31 @@ AUTO_REGISTRY = {
     "opt": _Entry(opt.OPTConfig, opt.OPTForCausalLM, C.load_opt_state_dict),
     "phi": _Entry(phi.PhiConfig, phi.PhiForCausalLM, C.load_phi_state_dict),
     "glm": _Entry(glm.GlmConfig, glm.GlmForCausalLM, C.load_glm_state_dict),
+    "bert": _Entry(bert.BertConfig, bert.BertForPretraining,
+                   C.load_bert_state_dict),
+    "roberta": _Entry(roberta.RobertaConfig, roberta.RobertaForMaskedLM,
+                      C.load_roberta_state_dict),
+    "ernie": _Entry(ernie.ErnieConfig, ernie.ErnieForMaskedLM,
+                    C.load_ernie_state_dict),
+    "electra": _Entry(electra.ElectraConfig, electra.ElectraForPreTraining,
+                      C.load_electra_state_dict),
+    "layoutlm": _Entry(layoutlm.LayoutLMConfig, layoutlm.LayoutLMForMaskedLM,
+                       C.load_layoutlm_state_dict),
+    "distilbert": _Entry(distilbert.DistilBertConfig,
+                         distilbert.DistilBertForMaskedLM,
+                         C.load_distilbert_state_dict),
+    "albert": _Entry(albert.AlbertConfig, albert.AlbertForMaskedLM,
+                     C.load_albert_state_dict),
+    "ernie_m": _Entry(ernie_m.ErnieMConfig, ernie_m.ErnieMModel,
+                      C.load_ernie_m_state_dict),
 }
 
-# the reference registry's other types: its encoders and encoder-decoders
+# the reference registry's other types: its other encoders and the
+# encoder-decoders
 NOT_PORTED = (
-    "albert", "bart", "bert", "big_bird", "blenderbot", "blenderbot-small",
-    "deberta-v2", "distilbert", "electra", "ernie", "ernie_m", "fnet",
-    "layoutlm", "mbart", "megatron-bert", "mpnet", "nezha", "pegasus",
-    "roberta", "roformer", "t5", "xlnet")
+    "bart", "big_bird", "blenderbot", "blenderbot-small", "deberta-v2",
+    "fnet", "mbart", "megatron-bert", "mpnet", "nezha", "pegasus",
+    "roformer", "t5", "xlnet")
 
 
 def _entry(model_type: str) -> _Entry:

@@ -22,7 +22,11 @@ costs no second host copy. The re-layouts of the fused QKV tensors
 layouts, CodeGen's ``mp_num = 4`` column groups) are the reference's
 reshapes; GPT-2's Conv1D weights are ``[in, out]`` already.
 Every parameter of the model must be written, and every piece must have
-its slice's exact shape: a missing or mis-shaped tensor raises.
+its slice's exact shape: a missing or mis-shaped tensor raises. The one
+exception is an encoder's heads and pooler (BERT's MLM / NSP heads, a
+classifier, ...): a checkpoint of the bare encoder or of another head
+lacks them, and they keep their random init, as the reference's loaders
+leave them.
 
 ``dtype`` (default: the model's) is the type the parameters end up in;
 the MoE routers' ``gate_w`` stay float32, as the reference keeps them.
@@ -187,8 +191,12 @@ class _Fill:
                              f"of {dst.shape[-1]} columns")
         self.written.add(name)
 
-    def done(self):
-        missing = sorted(set(self.params) - self.written)
+    def done(self, keep=()):
+        """Raise unless every parameter was written; those under a prefix
+        of ``keep`` (heads a checkpoint of the bare encoder lacks) may keep
+        their random init."""
+        missing = sorted(n for n in set(self.params) - self.written
+                         if not n.startswith(tuple(keep)))
         if missing:
             raise KeyError(f"the checkpoint left parameters unwritten: "
                            f"{missing[:8]}")
@@ -198,6 +206,19 @@ class _Fill:
         self.put(name + ".weight", self(key + ".weight"))
         if name + ".bias" in self.params:
             self.put(name + ".bias", self(key + ".bias"))
+
+    def linear(self, name, key):
+        """HF's ``nn.Linear`` ``key`` ([out, in] weight) into the port's
+        ``[in, out]`` ``Linear`` ``name``, with its bias."""
+        self.put(name + ".weight", self(key + ".weight").T)
+        if name + ".bias" in self.params:
+            self.put(name + ".bias", self(key + ".bias"))
+
+    def head(self, name, key, norm=False):
+        """A head or pooler the checkpoint may lack: loaded when both the
+        model and the checkpoint have it."""
+        if name + ".weight" in self.params and key + ".weight" in self:
+            (self.norm if norm else self.linear)(name, key)
 
 
 def _llama_attention(f, pre, key):
@@ -590,3 +611,230 @@ def load_phi_state_dict(model, state_dict, dtype=None):
             f.put(p + name, f(p + f"mlp.{name}.weight").T)
             f.put(p + name + "_bias", f(p + f"mlp.{name}.bias"))
     return f.done()
+
+
+
+# ---------------------------------------------------------------- encoders
+# Heads and poolers of the encoders: a checkpoint of the bare encoder (or
+# of another head) lacks them, and the port then keeps their random init,
+# as the reference's loaders do.
+_ENCODER_HEADS = ("mlm_", "nsp_head", "classifier", "lm_", "dense",
+                  "out_proj", "vocab_", "disc_")
+
+
+def _prefix(model, attr):
+    """``attr + "."`` when ``model`` is a head model around the encoder
+    ``attr``, else "" (the encoder itself)."""
+    return attr + "." if hasattr(model, attr) else ""
+
+
+def _hf_prefix(f, prefix, key="embeddings.word_embeddings.weight"):
+    """``prefix`` when the checkpoint's names carry it (a head model's
+    checkpoint), else "" (a bare encoder's)."""
+    return prefix if prefix + key in f else ""
+
+
+def _bert_layers(f, p, k, n):
+    """``n`` BERT blocks (HF ``{k}encoder.layer.i``) into the port's
+    ``{p}layers.i``, and the pooler the checkpoint may hold."""
+    for i in range(n):
+        ours, theirs = f"{p}layers.{i}.", f"{k}encoder.layer.{i}."
+        for a, b in (("attention.q_proj", "attention.self.query"),
+                     ("attention.k_proj", "attention.self.key"),
+                     ("attention.v_proj", "attention.self.value"),
+                     ("attention.out_proj", "attention.output.dense"),
+                     ("intermediate", "intermediate.dense"),
+                     ("output", "output.dense")):
+            f.linear(ours + a, theirs + b)
+        f.norm(ours + "attn_norm", theirs + "attention.output.LayerNorm")
+        f.norm(ours + "out_norm", theirs + "output.LayerNorm")
+    f.head(p + "pooler", k + "pooler.dense")
+
+
+def _embeddings(f, p, k, names, norm):
+    """The tables ``names`` (HF's ``{k}embeddings.<name>``, the port's
+    ``{p}<name>``) and the embedding LayerNorm (the port's ``{p}{norm}``)."""
+    for n in names:
+        f.put(f"{p}{n}.weight", f(f"{k}embeddings.{n}.weight"))
+    f.norm(p + norm, k + "embeddings.LayerNorm")
+
+
+_BERT_TABLES = ("word_embeddings", "position_embeddings",
+                "token_type_embeddings")
+
+
+def _mlm_head(f, key="cls.predictions."):
+    """BERT's MLM head: transform, its LayerNorm and the decoder bias (the
+    decoder weight is the tied word table), where model and checkpoint
+    both have it."""
+    f.head("mlm_transform", key + "transform.dense")
+    f.head("mlm_norm", key + "transform.LayerNorm", norm=True)
+    if "mlm_bias" in f.params and key + "bias" in f:
+        f.put("mlm_bias", f(key + "bias"))
+
+
+def _done(f, p):
+    return f.done(_ENCODER_HEADS + (p + "pooler",))
+
+
+@torch.no_grad()
+def load_bert_state_dict(model, state_dict, dtype=None):
+    """``BertModel``, ``BertForPretraining`` or
+    ``BertForSequenceClassification`` from an HF BERT state dict (``bert.*``
+    names, or a bare ``BertModel``'s). The heads the checkpoint holds
+    (``cls.predictions``, ``cls.seq_relationship``, ``classifier``) are
+    loaded; those it lacks keep their random init."""
+    f = _Fill(model, state_dict, dtype)
+    p, k = _prefix(model, "bert"), _hf_prefix(f, "bert.")
+    _embeddings(f, p + "embeddings.", k, _BERT_TABLES, "layer_norm")
+    _bert_layers(f, p, k, model.cfg.num_hidden_layers)
+    _mlm_head(f)
+    f.head("nsp_head", "cls.seq_relationship")
+    f.head("classifier", "classifier")
+    return _done(f, p)
+
+
+@torch.no_grad()
+def load_roberta_state_dict(model, state_dict, dtype=None):
+    """``RobertaModel``, ``RobertaForMaskedLM`` or
+    ``RobertaForSequenceClassification`` from an HF state dict
+    (``roberta.*`` names): BERT's layout, plus the ``lm_head`` (dense, its
+    LayerNorm, the bias; the decoder tied) or the ``classifier`` (dense,
+    out_proj)."""
+    f = _Fill(model, state_dict, dtype)
+    p, k = _prefix(model, "roberta") + "bert.", _hf_prefix(f, "roberta.")
+    _embeddings(f, p + "embeddings.", k, _BERT_TABLES, "layer_norm")
+    _bert_layers(f, p, k, model.cfg.num_hidden_layers)
+    f.head("lm_dense", "lm_head.dense")
+    f.head("lm_norm", "lm_head.layer_norm", norm=True)
+    if "lm_bias" in f.params and "lm_head.bias" in f:
+        f.put("lm_bias", f("lm_head.bias"))
+    f.head("dense", "classifier.dense")
+    f.head("out_proj", "classifier.out_proj")
+    return _done(f, p)
+
+
+@torch.no_grad()
+def load_ernie_state_dict(model, state_dict, dtype=None):
+    """``ErnieModel``, ``ErnieForMaskedLM`` or
+    ``ErnieForSequenceClassification`` from an HF state dict (``ernie.*``
+    names): BERT's layout, ERNIE's task-type table (``use_task_id``) and
+    the MLM head or classifier the checkpoint holds."""
+    f = _Fill(model, state_dict, dtype)
+    p, k = _prefix(model, "ernie"), _hf_prefix(f, "ernie.")
+    tables = _BERT_TABLES + (("task_type_embeddings",)
+                             if model.cfg.use_task_id else ())
+    _embeddings(f, p + "embeddings.", k, tables, "layer_norm")
+    _bert_layers(f, p, k, model.cfg.num_hidden_layers)
+    _mlm_head(f)
+    f.head("classifier", "classifier")
+    return _done(f, p)
+
+
+@torch.no_grad()
+def load_electra_state_dict(model, state_dict, dtype=None):
+    """``ElectraModel`` or ``ElectraForPreTraining`` from an HF state dict
+    (``electra.*`` names): the factorised tables, the projection up to the
+    hidden size (when the config has one) and the discriminator head."""
+    f = _Fill(model, state_dict, dtype)
+    p, k = _prefix(model, "electra"), _hf_prefix(f, "electra.")
+    _embeddings(f, p, k, _BERT_TABLES, "emb_norm")
+    if p + "embeddings_project.weight" in f.params:
+        f.linear(p + "embeddings_project", k + "embeddings_project")
+    _bert_layers(f, p, k, model.cfg.num_hidden_layers)
+    f.head("disc_dense", "discriminator_predictions.dense")
+    f.head("disc_out", "discriminator_predictions.dense_prediction")
+    return _done(f, p)
+
+
+@torch.no_grad()
+def load_layoutlm_state_dict(model, state_dict, dtype=None):
+    """``LayoutLMModel`` or ``LayoutLMForMaskedLM`` from an HF state dict
+    (``layoutlm.*`` names): BERT's encoder, the six 2-D layout tables and
+    the MLM head."""
+    f = _Fill(model, state_dict, dtype)
+    p, k = _prefix(model, "layoutlm"), _hf_prefix(f, "layoutlm.")
+    _embeddings(f, p, k, _BERT_TABLES + tuple(
+        f"{a}_position_embeddings" for a in "xyhw"), "emb_norm")
+    _bert_layers(f, p, k, model.cfg.num_hidden_layers)
+    _mlm_head(f)
+    return _done(f, p)
+
+
+@torch.no_grad()
+def load_distilbert_state_dict(model, state_dict, dtype=None):
+    """``DistilBertModel`` or ``DistilBertForMaskedLM`` from an HF state
+    dict (``distilbert.*`` names; the projector tied to the word table)."""
+    f = _Fill(model, state_dict, dtype)
+    p, k = _prefix(model, "distilbert"), _hf_prefix(f, "distilbert.")
+    _embeddings(f, p, k, ("word_embeddings", "position_embeddings"),
+                "emb_norm")
+    for i in range(model.cfg.n_layers):
+        ours, theirs = f"{p}layers.{i}.", f"{k}transformer.layer.{i}."
+        for a in "qkv":
+            f.linear(f"{ours}attention.{a}_proj",
+                     f"{theirs}attention.{a}_lin")
+        f.linear(ours + "attention.out_proj", theirs + "attention.out_lin")
+        f.linear(ours + "lin1", theirs + "ffn.lin1")
+        f.linear(ours + "lin2", theirs + "ffn.lin2")
+        f.norm(ours + "sa_layer_norm", theirs + "sa_layer_norm")
+        f.norm(ours + "output_layer_norm", theirs + "output_layer_norm")
+    f.head("vocab_transform", "vocab_transform")
+    f.head("vocab_norm", "vocab_layer_norm", norm=True)
+    if "vocab_bias" in f.params and "vocab_projector.bias" in f:
+        f.put("vocab_bias", f("vocab_projector.bias"))
+    return _done(f, p)
+
+
+@torch.no_grad()
+def load_albert_state_dict(model, state_dict, dtype=None):
+    """``AlbertModel`` or ``AlbertForMaskedLM`` from an HF state dict
+    (``albert.*`` names): the factorised tables, the projection
+    (``encoder.embedding_hidden_mapping_in``), the ONE shared layer
+    (``albert_layer_groups.0.albert_layers.0``) and the MLM head
+    (``predictions``)."""
+    f = _Fill(model, state_dict, dtype)
+    p, k = _prefix(model, "albert"), _hf_prefix(f, "albert.")
+    _embeddings(f, p, k, _BERT_TABLES, "emb_norm")
+    f.linear(p + "embedding_project",
+             k + "encoder.embedding_hidden_mapping_in")
+    ours = p + "shared."
+    theirs = k + "encoder.albert_layer_groups.0.albert_layers.0."
+    for a, b in (("attention.q_proj", "attention.query"),
+                 ("attention.k_proj", "attention.key"),
+                 ("attention.v_proj", "attention.value"),
+                 ("attention.out_proj", "attention.dense"),
+                 ("ffn", "ffn"), ("ffn_output", "ffn_output")):
+        f.linear(ours + a, theirs + b)
+    f.norm(ours + "attn_norm", theirs + "attention.LayerNorm")
+    f.norm(ours + "full_norm", theirs + "full_layer_layer_norm")
+    f.head(p + "pooler", k + "pooler")
+    f.head("lm_dense", "predictions.dense")
+    f.head("lm_norm", "predictions.LayerNorm", norm=True)
+    if "lm_bias" in f.params and "predictions.bias" in f:
+        f.put("lm_bias", f("predictions.bias"))
+    return _done(f, p)
+
+
+@torch.no_grad()
+def load_ernie_m_state_dict(model, state_dict, dtype=None):
+    """``ErnieMModel`` or ``ErnieMForSequenceClassification`` from an HF
+    state dict (``ernie_m.*`` or bare names)."""
+    f = _Fill(model, state_dict, dtype)
+    p, k = _prefix(model, "ernie_m"), _hf_prefix(f, "ernie_m.")
+    for n in ("word_embeddings", "position_embeddings"):
+        f.put(f"{p}{n}.weight", f(f"{k}embeddings.{n}.weight"))
+    f.norm(p + "emb_norm", k + "embeddings.layer_norm")
+    for i in range(model.cfg.num_hidden_layers):
+        ours, theirs = f"{p}layers.{i}.", f"{k}encoder.layers.{i}."
+        for a in "qkv":
+            f.linear(f"{ours}self_attn.{a}_proj",
+                     f"{theirs}self_attn.self_attn.{a}_proj")
+        f.linear(ours + "self_attn.out_proj", theirs + "self_attn.out_proj")
+        for n in ("linear1", "linear2"):
+            f.linear(ours + n, theirs + n)
+        for n in ("norm1", "norm2"):
+            f.norm(ours + n, theirs + n)
+    f.head(p + "pooler", k + "pooler.dense")
+    f.head("classifier", "classifier")
+    return _done(f, p)

@@ -74,6 +74,16 @@ OPT_SERVE_KERNELS = ("flash_fwd",)
 PHI_SERVE_KERNELS = ROPE_GENERATE_KERNELS
 PHI_TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rope")
 GLM_SERVE_KERNELS = ("rms_norm", "flash_fwd")
+# the BERT-family encoders: their LayerNorms and learned positions are
+# plain PyTorch, as the reference's are XLA's. BERT's fine-tune step with
+# varlen padding and no attention dropout runs K2 and K5 without a causal
+# mask at head dim 64 (kv_lens); its eval encoding K2 alone, as does each
+# other encoder's maskless forward. BERT pretraining with attention
+# dropout 0.1 runs none: dropout takes the eager path, as the reference's
+# takes xla_attention
+BERT_FINETUNE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+BERT_ENCODE_KERNELS = ("flash_fwd",)
+ENCODER_SERVE_KERNELS = ("flash_fwd",)
 # the router: replicas serving end to end run the serve path; split into a
 # prefill replica (K1, K2, K3, K7) and a decode replica (K1, K4, K7's
 # fold) they run it between them; over int8 pools the quantized path

@@ -1,10 +1,11 @@
 """The port's auto registry (``models/auto.py``) against the reference's
 (``paddle_tpu/models/auto.py``, spec ``tests/test_auto.py``): a two-shard
 local Llama directory loads and matches HF and the reference loader, each
-of the fifteen ported types builds from an HF-style config dict and runs a
-forward, an unported reference type raises by its ROADMAP item, an
-unknown type and a directory without shards raise as the reference
-does."""
+of the twenty-three ported types (fifteen decoders, eight encoders)
+builds from an HF-style config dict and runs a forward, each encoder
+loads from a local HF directory and matches HF, an unported reference
+type raises by its ROADMAP item, an unknown type and a directory without
+shards raise as the reference does."""
 import json
 
 import jax.numpy as jnp
@@ -92,11 +93,30 @@ _TYPES = {
                 partial_rotary_factor=0.5),
     "glm": dict(intermediate_size=64, num_key_value_heads=2,
                 partial_rotary_factor=0.5, attention_bias=False),
+    "bert": dict(intermediate_size=64),
+    "roberta": dict(intermediate_size=64),
+    "ernie": dict(intermediate_size=64),
+    "electra": dict(intermediate_size=64, embedding_size=16),
+    "layoutlm": dict(intermediate_size=64),
+    "distilbert": dict(dim=32, n_layers=1, n_heads=4, hidden_dim=64),
+    "albert": dict(intermediate_size=64, embedding_size=16),
+    "ernie_m": dict(intermediate_size=64),
 }
+ENCODERS = ("bert", "roberta", "ernie", "electra", "layoutlm", "distilbert",
+            "albert", "ernie_m")
+
+
+def _first_output(m, mt, ids):
+    """The model's first output tensor (LayoutLM's boxes all zero)."""
+    with torch.no_grad():
+        out = (m(ids, torch.zeros(*ids.shape, 4, dtype=torch.int64))
+               if mt == "layoutlm" else m(ids))
+    return out[0] if isinstance(out, tuple) else out
 
 
 def test_the_registry_splits_the_references():
-    assert len(tauto.AUTO_REGISTRY) == 15
+    assert len(tauto.AUTO_REGISTRY) == 23
+    assert len(tauto.NOT_PORTED) == 14
     assert set(tauto.AUTO_REGISTRY) | set(tauto.NOT_PORTED) == \
         set(jauto._registry())
     assert not set(tauto.AUTO_REGISTRY) & set(tauto.NOT_PORTED)
@@ -114,6 +134,9 @@ def test_auto_from_config_builds_each_ported_type(mt):
     if mt == "gpt2":
         cfgd.pop("hidden_size")
         cfgd.pop("max_position_embeddings")
+    if mt == "distilbert":
+        for k in ("hidden_size", "num_hidden_layers", "num_attention_heads"):
+            cfgd.pop(k)
     m = tauto.auto_from_config(cfgd, device="cpu")
     assert isinstance(m, tauto.AUTO_REGISTRY[mt].model_cls)
     assert m.cfg.dtype == torch.float32
@@ -126,13 +149,63 @@ def test_auto_from_config_builds_each_ported_type(mt):
         if k != "dtype" and hasattr(jm_cfg, k):
             assert getattr(jm_cfg, k) == v, (mt, k)
     ids = torch.as_tensor(np.random.RandomState(0).randint(0, 64, (1, 8)))
-    with torch.no_grad():
-        out = m(ids)
-    assert out.shape == (1, 8, 64)
+    out = _first_output(m, mt, ids)
+    want = {"electra": (1, 8), "ernie_m": (1, 8, 32)}.get(mt, (1, 8, 64))
+    assert out.shape == want
     assert torch.isfinite(out.float()).all(), mt
 
 
-@pytest.mark.parametrize("mt", ["roberta", "t5", "bart", "bert"])
+_HF_ENCODERS = {  # model_type -> (HF model class, config class, config kw)
+    "bert": ("BertForPreTraining", "BertConfig", {}),
+    "roberta": ("RobertaForMaskedLM", "RobertaConfig",
+                dict(type_vocab_size=1, pad_token_id=1)),
+    "ernie": ("ErnieForMaskedLM", "ErnieConfig",
+              dict(use_task_id=True, task_type_vocab_size=3)),
+    "electra": ("ElectraForPreTraining", "ElectraConfig",
+                dict(embedding_size=16)),
+    "layoutlm": ("LayoutLMForMaskedLM", "LayoutLMConfig",
+                 dict(max_2d_position_embeddings=64)),
+    "distilbert": ("DistilBertForMaskedLM", "DistilBertConfig",
+                   dict(dim=32, n_layers=2, n_heads=4, hidden_dim=64)),
+    "albert": ("AlbertForMaskedLM", "AlbertConfig", dict(embedding_size=16)),
+    "ernie_m": ("ErnieMModel", "ErnieMConfig", {}),
+}
+
+
+@pytest.mark.parametrize("mt", ENCODERS)
+def test_auto_from_pretrained_loads_each_encoder(mt, tmp_path):
+    """A local HF directory of each encoder (``save_pretrained``) loads
+    into the class the reference's registry names, every parameter
+    written from the checkpoint, and its first output matches HF's
+    (fp32, within ``test_convert.py``'s 2e-4)."""
+    cls, cfg_cls, kw = _HF_ENCODERS[mt]
+    base = dict(vocab_size=64, hidden_size=32, num_hidden_layers=2,
+                num_attention_heads=4, intermediate_size=64,
+                max_position_embeddings=40, hidden_dropout_prob=0.0,
+                attention_probs_dropout_prob=0.0)
+    if mt == "distilbert":
+        base = dict(vocab_size=64, max_position_embeddings=40, dropout=0.0,
+                    attention_dropout=0.0)
+    torch.manual_seed(0)
+    hf = getattr(transformers, cls)(getattr(transformers, cfg_cls)(
+        **base, **kw)).eval()
+    hf.save_pretrained(tmp_path, safe_serialization=True)
+    ours = tauto.auto_from_pretrained(str(tmp_path), dtype=torch.float32,
+                                      device="cpu")
+    assert type(ours) is tauto.AUTO_REGISTRY[mt].model_cls
+    ids = np.random.RandomState(1).randint(2, 64, (2, 9))
+    hf_kw = ({"bbox": torch.zeros(2, 9, 4, dtype=torch.int64)}
+             if mt == "layoutlm" else {})
+    with torch.no_grad():
+        ref = hf(torch.tensor(ids), **hf_kw)
+    ref = (ref.last_hidden_state if mt == "ernie_m" else
+           ref.prediction_logits if mt == "bert" else ref.logits)
+    got = _first_output(ours, mt, torch.as_tensor(ids))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("mt", ["nezha", "t5", "bart", "mpnet"])
 def test_unported_reference_type_names_its_item(mt, tmp_path):
     with pytest.raises(NotImplementedError, match=r"item 8\(d\)"):
         tauto.auto_from_config({"model_type": mt})

@@ -279,12 +279,18 @@ def test_flash_backward_kernels_match_plain(dtype, tol, case):
         assert float(err.max()) <= tol
 
 
+# BERT's fine-tune batch: 32 rows of 128 right-padded to lengths drawn
+# in 16-128 (the chip smoke test's bert_finetune lengths)
+BERT_LENS = (69, 78, 22, 64, 81, 118, 99, 93, 106, 48, 84, 114, 61, 33, 71,
+             69, 105, 68, 126, 104, 37, 46, 31, 58, 126, 39, 118, 63, 107,
+             72, 98, 63)
 # the tensor-core kernels' tile edges (64-row q and k tiles, 64-key
 # steps): b, S, Sk, H, Hkv, causal, window, kv_lens
 EDGE_CASES = {
     "ragged_gqa32_8": (2, 77, 77, 32, 8, True, None, None),
     "ragged_kv_lens": (2, 150, 150, 8, 2, True, None, (150, 71)),
     "full_ragged": (2, 130, 130, 8, 8, False, None, (130, 65)),
+    "bert_ragged": (32, 128, 128, 12, 12, False, None, BERT_LENS),
     "s1_dead_row": (2, 1, 70, 4, 4, True, None, (70, 0)),
     "s5_kv_lens": (3, 5, 70, 8, 1, True, None, (70, 33, 3)),
     "window5_gqa8_1": (2, 200, 200, 8, 1, True, 5, None),
@@ -305,9 +311,14 @@ def test_flash_kernels_match_plain_at_tile_edges(dtype, tol, d, case):
     with kv_lens, a row with no live key (O and LSE exactly 0), a window
     smaller than one key tile, GQA 32/8 and 8/1, at head dims 64, 80
     (Phi-2: the tiles at a padded width, zero columns past 80), 128 and
-    256 (K5b's tensor-core route: a dV block and a dK block a k tile). Rows without a live key, and padded rows, get a zero
-    cotangent, as callers give them. Neither kernel uses atomics: two
-    runs give identical bits."""
+    256 (K5b's tensor-core route: a dV block and a dK block a k tile),
+    and BERT's fine-tune shape [32, 128, 12, D] with ragged kv_lens and no
+    causal mask. Rows without a live key, and padded rows under causal,
+    get a zero cotangent, as callers give them; without a causal mask the
+    padded query rows attend the valid keys and get a nonzero cotangent,
+    which reaches those keys' dk and dv as in the plain version, and the
+    keys past kv_lens get dk = dv = 0 exactly. Neither kernel uses
+    atomics: two runs give identical bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the chip)")
     dev = torch.device("cuda")
@@ -338,7 +349,7 @@ def test_flash_kernels_match_plain_at_tile_edges(dtype, tol, d, case):
     close(o[live], ref_o[live])
     close(lse.transpose(1, 2)[live], ref_lse.transpose(1, 2)[live])
     assert not o[~live].any() and not lse.transpose(1, 2)[~live].any()
-    if kl is not None and s == sk:
+    if kl is not None and s == sk and causal:
         live = live & (torch.arange(s, device=dev)[None, :] < kl[:, None])
     do = do * live[:, :, None, None]
     n0 = (TF.flash_bwd_dq.launches, TF.flash_bwd_dkv.launches)
@@ -350,6 +361,9 @@ def test_flash_kernels_match_plain_at_tile_edges(dtype, tol, d, case):
                         TF.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                      *args)):
         close(got, ref)
+    if kl is not None:
+        dead = torch.arange(sk, device=dev)[None, :] >= kl[:, None]
+        assert not runs[0][1][dead].any() and not runs[0][2][dead].any()
 
 
 @pytest.mark.cuda
@@ -401,7 +415,7 @@ def test_flash_alibi_kernels_match_plain_at_tile_edges(dtype, tol, d,
     close(o[live], ref_o[live])
     close(lse.transpose(1, 2)[live], ref_lse.transpose(1, 2)[live])
     assert not o[~live].any() and not lse.transpose(1, 2)[~live].any()
-    if kl is not None and s == sk:
+    if kl is not None and s == sk and causal:
         live = live & (torch.arange(s, device=dev)[None, :] < kl[:, None])
     do = do * live[:, :, None, None]
     runs = [TF.flash_bwd_cuda(q, k, v, o, lse, do, *args) for _ in range(2)]
@@ -3374,3 +3388,131 @@ def test_paged_outputs_are_the_finalized_partials_bit_for_bit(dtype):
     fin = finalize_partials(acc, l, dt)
     for a, m in enumerate(cls.tolist()):
         assert torch.equal(o[a, :m], fin[a, :m]), a
+
+
+# the eight encoders at 2 layers and head dim 64 in float32: (module,
+# config, the auto registry's class, config kw); widths 128 (DistilBERT's
+# dim), 2 heads of 64
+_ENC = dict(hidden_size=128, num_attention_heads=2, intermediate_size=256,
+            vocab_size=512, num_hidden_layers=2, initializer_range=0.2)
+ENCODER_FAMILIES = {
+    "bert": ("bert", "BertConfig", "BertForPretraining", _ENC),
+    "roberta": ("roberta", "RobertaConfig", "RobertaForMaskedLM", _ENC),
+    "ernie": ("ernie", "ErnieConfig", "ErnieForMaskedLM", _ENC),
+    "electra": ("electra", "ElectraConfig", "ElectraForPreTraining",
+                dict(_ENC, embedding_size=64)),
+    "layoutlm": ("layoutlm", "LayoutLMConfig", "LayoutLMForMaskedLM", _ENC),
+    "distilbert": ("distilbert", "DistilBertConfig", "DistilBertForMaskedLM",
+                   dict(dim=128, n_heads=2, hidden_dim=256, vocab_size=512,
+                        n_layers=2, initializer_range=0.2)),
+    "albert": ("albert", "AlbertConfig", "AlbertForMaskedLM",
+               dict(_ENC, embedding_size=64)),
+    "ernie_m": ("ernie_m", "ErnieMConfig", "ErnieMModel", _ENC),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ENCODER_FAMILIES)
+def test_encoders_on_card_match_cpu(family, monkeypatch):
+    """Each of the eight encoders at 2 layers, head dim 64, float32 on the
+    card and on the CPU (plain versions), the same weights: the eval
+    output on 3 full rows of 40 ids within 5e-4 * (1 + |x|), with K2 (FMA
+    route) once a layer and ``eager_attention`` never running."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import importlib
+
+    import numpy as np
+
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import cuda as K
+
+    def no_eager(*a, **kw):
+        raise AssertionError(f"eager_attention ran on the {family} path")
+    monkeypatch.setattr(A, "eager_attention", no_eager)
+    mod, cfg_name, cls_name, kw = ENCODER_FAMILIES[family]
+    m = importlib.import_module(f"paddle_tpu_torch.models.{mod}")
+    cfg = getattr(m, cfg_name)(**kw)
+    cpu = getattr(m, cls_name)(cfg, device="cpu").eval()
+    card = getattr(m, cls_name)(cfg, device="cuda").eval()
+    card.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(1)
+    ids = rs.randint(2, 512, (3, 40))
+    x0, y0 = rs.randint(0, 500, (3, 40)), rs.randint(0, 500, (3, 40))
+    bbox = np.stack([x0, y0, x0 + rs.randint(1, 500, (3, 40)),
+                     y0 + rs.randint(1, 500, (3, 40))], -1)
+
+    def first(model, dev):
+        args = [torch.as_tensor(ids, device=dev)]
+        if family == "layoutlm":
+            args.append(torch.as_tensor(bbox, device=dev))
+        out = model(*args)
+        return (out[0] if isinstance(out, tuple) else out).cpu()
+    with torch.no_grad():
+        want = first(cpu, "cpu")
+        K.reset_launches()
+        got = first(card, "cuda")
+    assert float(((got - want).abs() / (1 + want.abs())).max()) <= 5e-4
+    counts = K.launches()
+    assert counts["flash_fwd"] == 2 and counts["flash_bwd_dq"] == 0, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bert_varlen_finetune_on_card_matches_cpu(dtype, monkeypatch):
+    """``BertForSequenceClassification`` with ``varlen_attention`` (2 layers,
+    head dim 64, dropout 0) on a right-padded batch of ragged lengths:
+    the logits and every gradient of the cross entropy on the card (K2,
+    K5a, K5b without a causal mask, once a layer each) against the CPU's
+    plain versions on the same weights, fp32 within 1e-3 of each
+    gradient's RMS (bf16: the card's bf16 run against the CPU's float32
+    run within 5e-2 of the RMS); ``eager_attention`` never runs; a
+    non-prefix mask on the card raises ValueError."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import dataclasses
+
+    import numpy as np
+
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import cuda as K
+
+    def no_eager(*a, **kw):
+        raise AssertionError("eager_attention ran on the varlen path")
+    monkeypatch.setattr(A, "eager_attention", no_eager)
+    cfg = bert.BertConfig(**_ENC, varlen_attention=True,
+                          hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
+    cpu = bert.BertForSequenceClassification(cfg, device="cpu")
+    card = bert.BertForSequenceClassification(
+        dataclasses.replace(cfg, dtype=dtype), device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(2)
+    lens = np.asarray([70, 1, 33, 64, 65, 17])
+    mask = (np.arange(70)[None, :] < lens[:, None]).astype(np.int64)
+    ids = np.where(mask == 1, rs.randint(1, 512, (6, 70)), 0)
+    labels = rs.randint(0, 2, 6)
+    grads = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        K.reset_launches()
+        logits = model(torch.as_tensor(ids, device=dev),
+                       attention_mask=torch.as_tensor(mask, device=dev))
+        F.cross_entropy(logits, torch.as_tensor(labels, device=dev)).backward()
+        grads.append({n: p.grad.float().cpu()
+                      for n, p in model.named_parameters()})
+    counts = K.launches()
+    assert (counts["flash_fwd"], counts["flash_bwd_dq"],
+            counts["flash_bwd_dkv"]) == (2, 2, 2), counts
+    tol = 1e-3 if dtype == torch.float32 else 5e-2
+    for name, want in grads[0].items():
+        if name.endswith("k_proj.bias"):
+            continue       # 0 in exact arithmetic: both sides give noise
+        rms = float(want.square().mean().sqrt()) or 1.0
+        err = float((grads[1][name] - want).square().mean().sqrt())
+        assert err <= tol * rms + 1e-7, (name, err, rms)
+    hole = torch.as_tensor([[1, 0, 1] + [0] * 67], device="cuda")
+    with pytest.raises(ValueError, match="CONTIGUOUS"):
+        card(torch.as_tensor(ids[:1], device="cuda"), attention_mask=hole)

@@ -49,7 +49,12 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "paddle_tpu_torch.distributed.launch, "
         "paddle_tpu_torch.distributed.ring_attention, "
         "paddle_tpu_torch.distributed.ulysses, "
-        "paddle_tpu_torch.distributed.sp\n"
+        "paddle_tpu_torch.distributed.sp, paddle_tpu_torch.nn.transformer, "
+        "paddle_tpu_torch.models.bert, paddle_tpu_torch.models.roberta, "
+        "paddle_tpu_torch.models.ernie, paddle_tpu_torch.models.electra, "
+        "paddle_tpu_torch.models.layoutlm, "
+        "paddle_tpu_torch.models.distilbert, "
+        "paddle_tpu_torch.models.albert, paddle_tpu_torch.models.ernie_m\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
@@ -78,8 +83,9 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_entry_points_default_to_the_card():
-    """The model constructors (Llama; GPT, GPT-NeoX, OPT, Phi and GLM) and
-    the makers of rope tables, KV pools,
+    """The model constructors (Llama; GPT, GPT-NeoX, OPT, Phi and GLM; the
+    eight encoders, ``MultiHeadAttention``) and the makers of rope tables,
+    KV pools,
     ALiBi slopes and seeded generators, the mesh, the process group, the
     tensor-parallel layers and the pipeline layer put their tensors (and
     their ranks) on the card when no device is named: without one they
@@ -122,6 +128,16 @@ def test_entry_points_default_to_the_card():
         makers[f"{cls}ForCausalLM"] = (
             lambda m=m, cls=cls, **kw: next(getattr(m, f"{cls}ForCausalLM")(
                 getattr(m, f"{cls}Config").tiny(), **kw).parameters()))
+    from paddle_tpu_torch.models import auto
+    from paddle_tpu_torch.nn.transformer import MultiHeadAttention
+    for mt in ("bert", "roberta", "ernie", "electra", "layoutlm",
+               "distilbert", "albert", "ernie_m"):
+        e = auto.AUTO_REGISTRY[mt]
+        makers[e.model_cls.__name__] = (
+            lambda e=e, **kw: next(e.model_cls(e.config_cls.tiny(),
+                                               **kw).parameters()))
+    makers["MultiHeadAttention"] = lambda **kw: MultiHeadAttention(
+        8, 2, **kw).q_proj.weight
     for name, make in makers.items():
         assert make(device="cpu").device.type == "cpu", name
     if torch.cuda.is_available():
@@ -250,6 +266,9 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
         "phi_serve": K.PHI_SERVE_KERNELS,
         "phi_train": K.PHI_TRAIN_KERNELS,
         "glm_serve": K.GLM_SERVE_KERNELS,
+        "bert_finetune": K.BERT_FINETUNE_KERNELS,
+        "bert_encode": K.BERT_ENCODE_KERNELS,
+        "encoder_serve": K.ENCODER_SERVE_KERNELS,
         "router_serve": K.ROUTER_SERVE_KERNELS,
         "router_serve_disagg": K.ROUTER_SERVE_KERNELS,
         "router_serve_i8": K.ROUTER_SERVE_I8_KERNELS,
@@ -275,13 +294,14 @@ def test_chip_smoke_stays_in_step_with_the_kernel_registry():
     # K7 rotates every rotate-half rope of every path; the ALiBi paths
     # (BLOOM, falcon-rw) have no rope and run K2's (and K5's) ALiBi mode
     # instead, GPT-J's and GLM's interleaved rope is plain PyTorch, as the
-    # reference's (no Pallas kernel behind it), GPT and OPT have learned
-    # positions, and the sp / ep paths drive the attention functions and
+    # reference's (no Pallas kernel behind it), GPT, OPT and the encoders
+    # have learned positions, and the sp / ep paths drive the attention functions and
     # one MoE layer, no rope
     alibi = {p for p in chip_smoke.PATHS if p.startswith(("bloom",
                                                           "falcon_rw"))}
     gptj = {p for p in chip_smoke.PATHS if p.startswith("gptj")}
-    gptj |= {"gpt3_train", "opt_serve", "glm_serve"}
+    gptj |= {"gpt3_train", "opt_serve", "glm_serve", "bert_finetune",
+             "bert_encode", "encoder_serve"}
     layers = {"sp_train", "ep_train"}
     # (a float16 path's names are the float16 counters: "rope_f16")
     assert all({"rope", "rope_f16"} & set(names)
